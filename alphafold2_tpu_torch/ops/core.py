@@ -1,0 +1,95 @@
+"""Functional NN primitives on plain parameter dicts.
+
+Counterpart of alphafold2_tpu/ops/core.py. Parameters are nested dicts of
+tensors with the JAX package's names and layouts (a dense weight is
+(d_in, d_out)), so a JAX parameter tree maps over leaf by leaf
+(models/convert.py). Parameters are stored in float32; `dtype` selects
+the compute dtype. LayerNorm statistics are always float32.
+
+Initialisation follows the JAX package's (torch defaults): Linear
+U(-1/sqrt(fan_in), 1/sqrt(fan_in)), Embedding N(0, 1), LayerNorm ones and
+zeros. Random draws come from an explicit CPU `torch.Generator` and are
+moved to `device`, so a seed gives the same weights on every device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def uniform(gen: torch.Generator, shape, bound: float, device) -> torch.Tensor:
+    t = torch.rand(shape, generator=gen, dtype=torch.float32) * (2 * bound) - bound
+    return t.to(device)
+
+
+# --- linear -----------------------------------------------------------------
+
+
+def linear_init(gen, d_in: int, d_out: int, device, bias: bool = True):
+    """Params for a dense layer; weight layout (d_in, d_out)."""
+    bound = 1.0 / math.sqrt(d_in)
+    params = {"w": uniform(gen, (d_in, d_out), bound, device)}
+    if bias:
+        params["b"] = uniform(gen, (d_out,), bound, device)
+    return params
+
+
+def linear(params, x, dtype=None):
+    """y = x @ w (+ b), computed in `dtype` when given (params are cast)."""
+    w = params["w"]
+    if dtype is not None:
+        w = w.to(dtype)
+        x = x.to(dtype)
+    y = x @ w
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+# --- layer norm -------------------------------------------------------------
+
+
+def layer_norm_init(dim: int, device):
+    return {
+        "scale": torch.ones(dim, device=device),
+        "bias": torch.zeros(dim, device=device),
+    }
+
+
+def layer_norm(params, x, eps: float = 1e-5):
+    """LayerNorm over the last axis; statistics in float32, output in x.dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"] + params["bias"]
+    return y.to(x.dtype)
+
+
+# --- embedding --------------------------------------------------------------
+
+
+def embedding_init(gen, num_embeddings: int, dim: int, device):
+    table = torch.randn((num_embeddings, dim), generator=gen, dtype=torch.float32)
+    return {"table": table.to(device)}
+
+
+def embedding(params, ids, dtype=None):
+    table = params["table"]
+    if dtype is not None:
+        table = table.to(dtype)
+    return table[ids]
+
+
+# --- dropout ----------------------------------------------------------------
+
+
+def dropout(x, rate: float, training: bool = False):
+    """Eval-mode dropout: the identity. Training (ROADMAP A6) is not ported."""
+    if training and rate > 0.0:
+        raise NotImplementedError(
+            "training-mode dropout waits for the training port (ROADMAP A6)"
+        )
+    return x

@@ -1,0 +1,180 @@
+"""Blockwise (flash-style) exact attention: plain versions and the dispatch
+to the CUDA kernels.
+
+Counterpart of alphafold2_tpu/ops/flash.py, forward only. The plain
+versions (`blockwise_attention`, `streamed_fused_attention`,
+`apply_output_gate`) compute softmax(QK^T * scale + bias)V tile by tile
+with the FlashAttention recurrence, so no full (i, j) logit matrix exists;
+they are what `flash_attention` runs on CPU tensors. On CUDA tensors
+`flash_attention` launches the hand-written kernels of
+ops/flash_kernel.py (a gate or a 2-D pair bias selects the fused kernel)
+or raises: there is no fallback to the plain versions on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from alphafold2_tpu_torch.ops import flash_kernel
+
+_NEG_INF = float("-inf")
+
+
+def stream_block(q, k_blk, v_blk, bias_blk, m, l, acc, scale,
+                 logit_dtype=torch.float32, bias2d_blk=None):
+    """One accumulation step against a K/V block.
+
+    q: (b, nq, h, d); k_blk/v_blk: (b, nk, h, d); bias_blk: (b, nk)
+    additive (-inf for masked keys) or None; bias2d_blk: optional
+    (b, h, nq, nk). Running stats m, l: (b, h, nq); acc: (b, h, nq, d).
+    The score tiles are materialised in `logit_dtype`; the running stats
+    and the accumulator are float32."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k_blk).to(logit_dtype) * scale
+    if bias_blk is not None:
+        s = s + bias_blk[:, None, None, :].to(logit_dtype)
+    if bias2d_blk is not None:
+        s = s + bias2d_blk.to(logit_dtype)
+
+    m_new = torch.maximum(m, s.amax(dim=-1).float())
+    m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+    alpha = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_safe))
+    p = torch.where(
+        torch.isneginf(s), torch.zeros((), dtype=logit_dtype, device=s.device),
+        torch.exp(s - m_safe[..., None].to(logit_dtype)),
+    )
+    l_new = l * alpha + p.sum(dim=-1, dtype=torch.float32)
+    acc_new = acc * alpha[..., None] + torch.einsum(
+        "bhqk,bkhd->bhqd", p.to(v_blk.dtype), v_blk
+    ).float()
+    return m_new, l_new, acc_new
+
+
+def _stream(q, k, v, bias, scale, kv_block, logit_dtype, bias2d=None):
+    """Exact attention for one query tile, streaming K/V blocks.
+    Returns the (b, h, nq, d) f32 normalised output."""
+    b, nq, h, dh = q.shape
+    j = k.shape[1]
+    m = torch.full((b, h, nq), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, h, nq, dh), dtype=torch.float32, device=q.device)
+    step = j if (not kv_block or j <= kv_block) else kv_block
+    for c0 in range(0, j, step):
+        c1 = min(j, c0 + step)
+        m, l, acc = stream_block(
+            q, k[:, c0:c1], v[:, c0:c1],
+            None if bias is None else bias[:, c0:c1], m, l, acc, scale,
+            logit_dtype,
+            None if bias2d is None else bias2d[..., c0:c1],
+        )
+    return acc / torch.where(l > 0, l, 1.0)[..., None]  # zeros for all-masked q
+
+
+def blockwise_attention(q, k, v, key_bias=None, *, scale=None,
+                        tile_elems: int = 1 << 25, kv_block: int = 2048,
+                        logit_dtype=None):
+    """Exact softmax(QK^T * scale + bias)V with bounded-memory tiling.
+
+    q: (B, i, h, dh); k, v: (B, j, h, dh); key_bias: (B, j) additive f32
+    (0 valid / -inf masked), key-side masking only. Query tiles are sized
+    so one (batch, h, q_tile, kv_block) logit tile holds about
+    `tile_elems` elements. Returns (B, i, h, dh) in q.dtype; fully masked
+    query rows return zeros."""
+    B, i, h, dh = q.shape
+    j = k.shape[1]
+    scale = dh ** -0.5 if scale is None else scale
+    logit_dtype = torch.float32 if logit_dtype is None else logit_dtype
+    if key_bias is None:
+        key_bias = torch.zeros((B, j), dtype=torch.float32, device=q.device)
+    key_bias = key_bias.expand(B, j)
+    j_eff = min(j, kv_block) if kv_block else j
+    qb = max(1, min(i, tile_elems // max(1, B * h * j_eff)))
+    out = torch.empty_like(q)
+    for r0 in range(0, i, qb):
+        r1 = min(i, r0 + qb)
+        o = _stream(q[:, r0:r1], k, v, key_bias, scale, kv_block, logit_dtype)
+        out[:, r0:r1] = o.transpose(1, 2).to(q.dtype)
+    return out
+
+
+def apply_output_gate(out, gate):
+    """The unfused sigmoid output gate: sigmoid in f32 on the f32 output,
+    one cast at the end (the fused kernel's finish step). gate holds
+    pre-sigmoid logits of out's shape."""
+    return (out.float() * torch.sigmoid(gate.float())).to(out.dtype)
+
+
+def streamed_fused_attention(q, k, v, key_bias, pair_bias, gate, scale,
+                             kv_block: int = 2048, logit_dtype=None):
+    """Plain twin of the fused kernel: a (B, h, i, j) f32 pair bias (plus
+    an optional (B, j) key bias) and an optional (B, i, h, dh) pre-sigmoid
+    gate, streamed along j in `kv_block` chunks."""
+    logit_dtype = torch.float32 if logit_dtype is None else logit_dtype
+    bias = pair_bias.float()
+    if key_bias is not None:
+        bias = bias + key_bias[:, None, None, :].float()
+    out = _stream(q, k, v, None, scale, kv_block, logit_dtype,
+                  bias2d=bias).transpose(1, 2)  # (B, i, h, dh) f32
+    if gate is not None:
+        out = out * torch.sigmoid(gate.float())
+    return out.to(q.dtype)
+
+
+def _fold(t):
+    """(B, n, h, dh) -> the kernels' (B*h, n, dh) layout, 16-byte aligned
+    (the bf16 kernel loads 16-byte vectors; a view at an odd offset is
+    copied)."""
+    B, n, h, dh = t.shape
+    t = t.transpose(1, 2).reshape(B * h, n, dh).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention(q, k, v, key_bias=None, *, pair_bias=None, gate=None,
+                    scale=None, tile_elems: int = 1 << 25,
+                    kv_block: int = 2048, logit_dtype=None):
+    """Exact attention: the CUDA kernels on CUDA tensors, the plain
+    blockwise versions on CPU tensors.
+
+    q: (B, i, h, dh); k, v: (B, j, h, dh); key_bias: (B, j) additive f32;
+    pair_bias: optional (B, h, i, j) f32; gate: optional (B, i, h, dh)
+    pre-sigmoid logits. tile_elems, kv_block and logit_dtype shape the
+    plain versions only; a bf16 `logit_dtype` on CUDA raises, as it does
+    on the TPU kernel path (the kernel keeps its logits in f32 registers).
+    Returns (B, i, h, dh) in q.dtype."""
+    B, i, h, dh = q.shape
+    j = k.shape[1]
+    scale = dh ** -0.5 if scale is None else scale
+
+    if q.device.type == "cpu":
+        if pair_bias is not None:
+            return streamed_fused_attention(
+                q, k, v, key_bias, pair_bias, gate, scale,
+                kv_block=kv_block, logit_dtype=logit_dtype,
+            )
+        out = blockwise_attention(
+            q, k, v, key_bias, scale=scale, tile_elems=tile_elems,
+            kv_block=kv_block, logit_dtype=logit_dtype,
+        )
+        return out if gate is None else apply_output_gate(out, gate)
+
+    if logit_dtype is not None and logit_dtype != torch.float32:
+        raise ValueError(
+            "logit_dtype (flash_compute_dtype_logits) applies only to the "
+            f"plain streaming path, but the CUDA kernel runs here (i={i}, "
+            f"j={j}); the kernel keeps its logits in f32"
+        )
+    if key_bias is None:
+        key_bias = torch.zeros((B, j), dtype=torch.float32, device=q.device)
+    key_bias = key_bias.expand(B, j).float()
+    if pair_bias is not None:
+        bias = pair_bias.float() + key_bias[:, None, None, :]
+        bias = bias.expand(B, h, i, j).reshape(B * h, i, j).contiguous()
+    else:
+        bias = key_bias.repeat_interleave(h, dim=0)  # one row per (batch, head)
+    if pair_bias is not None or gate is not None:
+        out, _ = flash_kernel.flash_fwd_fused(
+            _fold(q), _fold(k), _fold(v), bias, scale,
+            gate=None if gate is None else _fold(gate),
+        )
+    else:
+        out, _ = flash_kernel.flash_fwd(_fold(q), _fold(k), _fold(v), bias, scale)
+    return out.reshape(B, h, i, dh).transpose(1, 2)

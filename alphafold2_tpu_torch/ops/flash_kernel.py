@@ -1,0 +1,210 @@
+"""CUDA flash-attention forward kernels, their binding and plain versions.
+
+Counterpart of alphafold2_tpu/ops/flash_kernel.py, forward only:
+
+  * `flash_fwd` (B1f) replaces `flash_attention_tpu`: dense attention
+    with a key-side additive bias (BH, j);
+  * `flash_fwd_fused` (B2f) replaces `flash_attention_fused`: the same
+    plus a 2-D (BH, i, j) bias tile and/or a sigmoid output gate.
+
+Both take the folded layout q (BH, i, dh), k/v (BH, j, dh) in float32 or
+bfloat16 and return (out (BH, i, dh) in the input dtype, lse (BH, i) f32);
+a row with no unmasked key gives zeros and lse = +inf. On CPU tensors each
+wrapper runs its plain version (`flash_fwd_plain`), on CUDA tensors it
+launches its kernel (csrc/flash_fwd.cu, built at first use) or raises:
+bfloat16 runs on the tensor cores (mma.sync, f32 accumulate), float32 on
+the CUDA cores in f32. `LAUNCHES` counts kernel launches per wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from alphafold2_tpu_torch.ops import cuda_build
+
+# the TPU kernel's finite running-max sentinel: a -inf bias underflows to
+# an exact 0 with no nan guards
+_M0 = -1e30
+
+# kernel launches per wrapper since the last reset_launches()
+LAUNCHES = {"flash_fwd": 0, "flash_fwd_fused": 0}
+
+_SUPPORTED_DH = (16, 32, 64)
+_BLOCK_Q = 128  # query rows per CUDA block (csrc/flash_fwd.cu kBlockQ)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def supported(i: int, j: int, dh: int) -> bool:
+    """Shapes the H100 kernels take: a head width the kernels are
+    instantiated for (16, 32 or 64: the query fragments and the f32
+    accumulator live in registers) and non-empty axes. Any length is
+    fine: K/V stream through shared memory in 64-key tiles."""
+    return dh in _SUPPORTED_DH and i >= 1 and j >= 1
+
+
+# --- plain versions ------------------------------------------------------
+
+
+def flash_fwd_plain(q, k, v, bias, scale, gate=None, *, kv_block: int = 2048,
+                    tile_elems: int = 1 << 26):
+    """The kernels' function in plain PyTorch, computed in f32 whatever the
+    input dtype (as the kernels do), tiled along i and j so no (i, j) logit
+    matrix larger than `tile_elems` elements exists at once.
+
+    bias: (BH, j) key-side or (BH, i, j) 2-D, additive f32. gate: optional
+    (BH, i, dh) pre-sigmoid logits. Returns (out in q.dtype, lse f32)."""
+    BH, i, dh = q.shape
+    j = k.shape[1]
+    bias2d = bias.dim() == 3
+    out = torch.empty_like(q)
+    lse = torch.empty((BH, i), dtype=torch.float32, device=q.device)
+    rows = max(1, tile_elems // (BH * min(j, kv_block)))
+    for r0 in range(0, i, rows):
+        r1 = min(i, r0 + rows)
+        qs = q[:, r0:r1].float()
+        m = torch.full((BH, r1 - r0), _M0, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((BH, r1 - r0, dh), dtype=torch.float32, device=q.device)
+        for c0 in range(0, j, kv_block):
+            c1 = min(j, c0 + kv_block)
+            s = torch.bmm(qs, k[:, c0:c1].float().transpose(1, 2)) * scale
+            s = s + (bias[:, r0:r1, c0:c1] if bias2d else bias[:, None, c0:c1])
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.bmm(p, v[:, c0:c1].float())
+            m = m_new
+        live = l > 0
+        safe = torch.where(live, l, torch.ones_like(l))
+        o = torch.where(live[..., None], acc / safe[..., None], 0.0)
+        if gate is not None:
+            o = o * torch.sigmoid(gate[:, r0:r1].float())
+        out[:, r0:r1] = o.to(q.dtype)
+        lse[:, r0:r1] = torch.where(live, m + torch.log(safe), float("inf"))
+    return out, lse
+
+
+# --- the CUDA binding ----------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The built library with its C signatures declared (pointers and the
+    stream as void*, so ctypes never cuts them to 32 bits)."""
+    lib = cuda_build.library("flash_fwd")
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.af2_flash_fwd.argtypes = [
+        p, p, p, p, p, p, i64, i64, i64, i32, ctypes.c_float, i32, p,
+    ]
+    lib.af2_flash_fwd.restype = i32
+    lib.af2_flash_fwd_fused.argtypes = [
+        p, p, p, p, p, p, p, i64, i64, i64, i32, ctypes.c_float, i32,
+        i32, i32, p,
+    ]
+    lib.af2_flash_fwd_fused.restype = i32
+    return lib
+
+
+def _on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU, False when all lie on one
+    CUDA device; raises on anything else."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    (device,) = devices
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda, not {device}")
+    return False
+
+
+def _check(q, k, v, bias, gate, bias2d):
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("q, k, v must be (BH, n, dh)")
+    BH, i, dh = q.shape
+    j = k.shape[1]
+    if k.shape != (BH, j, dh) or v.shape != (BH, j, dh):
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("q, k, v must share one dtype")
+    want = (BH, i, j) if bias2d else (BH, j)
+    if bias.dtype != torch.float32 or tuple(bias.shape) != want:
+        raise ValueError(f"bias must be float32 {want}, got {bias.dtype} {tuple(bias.shape)}")
+    if gate is not None and (gate.shape != q.shape or gate.dtype != q.dtype):
+        raise ValueError("gate must match q in shape and dtype")
+    if not supported(i, j, dh):
+        raise ValueError(
+            f"the H100 flash kernel does not support i={i}, j={j}, dh={dh} "
+            f"(head widths {_SUPPORTED_DH})"
+        )
+    if BH * -(-i // _BLOCK_Q) > 2 ** 31 - 1:
+        raise ValueError(f"BH={BH}, i={i} exceeds the kernel grid")
+    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias), ("gate", gate)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        # the bf16 kernel moves K/V in 16-byte vectors
+        if t is not None and q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned for the bf16 kernel")
+
+
+def _raise_on(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed with CUDA error {rc}")
+
+
+def flash_fwd(q, k, v, bias, scale):
+    """B1f: softmax(scale * q k^T + bias) v with a key-side (BH, j) bias.
+    Returns (out, lse)."""
+    if _on_cpu(q, k, v, bias):
+        return flash_fwd_plain(q, k, v, bias, scale)
+    _check(q, k, v, bias, None, bias2d=False)
+    BH, i, dh = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((BH, i), dtype=torch.float32, device=q.device)
+    rc = _lib().af2_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), BH, i, k.shape[1], dh, float(scale),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(rc, "flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return out, lse
+
+
+def flash_fwd_fused(q, k, v, bias, scale, gate: Optional[torch.Tensor] = None):
+    """B2f: B1f with a 2-D (BH, i, j) bias (masks folded in as -inf) and/or
+    a (BH, i, dh) pre-sigmoid output gate applied to the f32 result before
+    the one cast. At least one of the two: the plain case is `flash_fwd`.
+    Returns (out, lse)."""
+    bias2d = bias.dim() == 3
+    if not bias2d and gate is None:
+        raise ValueError("flash_fwd_fused needs a 2-D bias or a gate; use flash_fwd")
+    if _on_cpu(q, k, v, bias, gate):
+        return flash_fwd_plain(q, k, v, bias, scale, gate)
+    _check(q, k, v, bias, gate, bias2d=bias2d)
+    BH, i, dh = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((BH, i), dtype=torch.float32, device=q.device)
+    rc = _lib().af2_flash_fwd_fused(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        gate.data_ptr() if gate is not None else None,
+        out.data_ptr(), lse.data_ptr(), BH, i, k.shape[1], dh, float(scale),
+        int(q.dtype == torch.bfloat16), int(bias2d), int(gate is not None),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(rc, "flash_fwd_fused")
+    LAUNCHES["flash_fwd_fused"] += 1
+    return out, lse

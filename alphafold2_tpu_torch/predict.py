@@ -1,0 +1,99 @@
+"""Inference entry point: amino-acid sequence -> CA trace -> PDB, on the
+port (counterpart of predict.py's CA-trace path).
+
+Usage:
+  python -m alphafold2_tpu_torch.predict --seq ACDEFGHIKLMNPQRSTVWY --out s.pdb
+  python -m alphafold2_tpu_torch.predict --seq ... --msa-file aln.a3m --bf16
+  python -m alphafold2_tpu_torch.predict --seq ... --device cpu
+
+Parameters come from `--seed` through the port's own init; restoring a
+JAX checkpoint waits for the checkpoint port. Runs on the GPU unless
+`--device cpu` is given; float32 matmuls and convolutions run in full
+float32 there (TF32 off).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from alphafold2_tpu_torch.constants import aa_to_tokens
+from alphafold2_tpu_torch.device import resolve_device
+from alphafold2_tpu_torch.geometry.pdb import coords_to_pdb
+from alphafold2_tpu_torch.models.alphafold2 import alphafold2_init
+from alphafold2_tpu_torch.models.config import Alphafold2Config
+from alphafold2_tpu_torch.serving.pipeline import predict_structure
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seq", required=True, help="one-letter amino-acid sequence")
+    ap.add_argument("--out", default="prediction.pdb")
+    ap.add_argument("--dim", type=int, default=256)
+    ap.add_argument("--depth", type=int, default=2)
+    ap.add_argument("--heads", type=int, default=8)
+    ap.add_argument("--dim-head", type=int, default=64)
+    ap.add_argument("--mds-iters", type=int, default=200)
+    ap.add_argument("--mds-init", choices=("random", "classical"), default="classical")
+    ap.add_argument("--msa-file", default=None,
+                    help="FASTA/A3M alignment for the MSA track (first record "
+                         "= query; rows capped at --max-msa-rows)")
+    ap.add_argument("--max-msa-rows", type=int, default=20)
+    ap.add_argument("--max-num-msa", type=int, default=None,
+                    help="MSA row-position-table size (default: from the "
+                         "loaded MSA, min 20)")
+    ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the parameter init and the random MDS init")
+    ap.add_argument("--max-seq-len", type=int, default=None,
+                    help="positional-table size (default: from the sequence)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU; 'cpu' to run there)")
+    args = ap.parse_args(argv)
+
+    seq_str = args.seq.strip().upper()
+    try:
+        tokens = aa_to_tokens(seq_str, strict=True)[None]  # (1, L)
+    except ValueError as e:
+        ap.error(str(e))
+    L = tokens.shape[1]
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"device: {torch.cuda.get_device_name(device)} (TF32 off)")
+
+    msa = msa_mask = None
+    if args.msa_file is not None:
+        from alphafold2_tpu_torch.utils.msa import load_msa
+
+        msa, msa_mask = load_msa(args.msa_file, query=seq_str,
+                                 max_rows=args.max_msa_rows)
+        print(f"MSA: {msa.shape[1]} rows x {msa.shape[2]} cols from {args.msa_file}")
+
+    cfg = Alphafold2Config(
+        dim=args.dim, depth=args.depth, heads=args.heads, dim_head=args.dim_head,
+        max_seq_len=args.max_seq_len or max(64, L),
+        max_num_msa=args.max_num_msa or max(20, msa.shape[1] if msa is not None else 0),
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+    )
+    gen = torch.Generator().manual_seed(args.seed)
+    params = alphafold2_init(cfg, gen, device)
+    out = predict_structure(
+        params, cfg, tokens, msa=msa, msa_mask=msa_mask,
+        mds_iters=args.mds_iters, mds_init=args.mds_init, generator=gen,
+        device=device,
+    )
+    trace = out["coords"][0].cpu().numpy()
+    conf = out["confidence"][0].cpu().numpy()
+    print(f"MDS final stress: {float(out['stress'][0]):.4f}")
+    print(f"mean confidence: {100 * conf.mean():.1f}/100")
+    coords_to_pdb(args.out, np.asarray(trace, np.float64), sequence=seq_str,
+                  atom_names=("CA",), bfactors=100.0 * conf)
+    print(f"wrote {args.out} ({L} residues)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,65 @@
+"""Sequence -> structure inference (counterpart of
+alphafold2_tpu/serving/pipeline.py `predict_structure`, without early exit
+and without a `model_apply_fn` override).
+
+Trunk forward -> distogram softmax -> centering -> stress-majorisation MDS
+-> entropy confidence. Batch-capable: tokens are (b, L) and every output
+carries the batch axis.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from alphafold2_tpu_torch.device import as_device_tensor, resolve_device
+from alphafold2_tpu_torch.geometry.distogram import center_distogram, distogram_confidence
+from alphafold2_tpu_torch.geometry.mds import mds
+from alphafold2_tpu_torch.models.alphafold2 import alphafold2_apply
+
+
+def predict_structure(params, cfg, tokens, *, mask=None, msa=None,
+                      msa_mask=None, embedds=None, mds_iters: int = 200,
+                      mds_init: str = "classical",
+                      generator: Optional[torch.Generator] = None,
+                      device=None):
+    """Tokens (+ optional MSA or embedds) -> CA trace + confidence.
+
+    tokens: (b, L) int residue tokens, padded positions excluded by mask
+    (b, L) bool; msa / msa_mask: (b, rows, L); embedds: (b, L, num_embedds).
+    mds_iters / mds_init: the MDS iteration budget (always run in full)
+    and its start; `generator` seeds the random init. Runs on `device`
+    (default CUDA; device="cpu" for the CPU), where the params must lie.
+
+    Returns a dict of tensors on the device: coords (b, L, 3), confidence
+    (b, L), stress (b,) (the final normalised MDS stress) and
+    distogram_logits (b, L, L, buckets) float32."""
+    dev = resolve_device(device)
+    logits = alphafold2_apply(
+        params, cfg, tokens, msa, mask=mask, msa_mask=msa_mask,
+        embedds=embedds, device=dev,
+    )
+    mask = as_device_tensor(mask, dev, torch.bool)
+    with torch.inference_mode():
+        # geometry in float32 whatever the trunk dtype: it divides by
+        # distances and small weights
+        logits = logits.float()
+        probs = torch.softmax(logits, dim=-1)
+        distances, weights = center_distogram(probs)
+        if mask is not None:
+            # zero both channels for pad pairs: the weights silence them in
+            # the Guttman steps, but the classical init double-centres the
+            # raw distances unweighted
+            pair_mask = (mask[:, :, None] & mask[:, None, :]).to(weights.dtype)
+            weights = weights * pair_mask
+            distances = distances * pair_mask
+        coords, stresses = mds(distances, weights=weights, iters=mds_iters,
+                               init=mds_init, generator=generator)
+        conf = distogram_confidence(probs, mask=mask)
+    return {
+        "coords": coords.transpose(1, 2),
+        "confidence": conf,
+        "stress": stresses[-1],
+        "distogram_logits": logits,
+    }

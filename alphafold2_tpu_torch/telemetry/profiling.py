@@ -1,0 +1,156 @@
+"""Where one structure request's time goes on the card.
+
+    python -m alphafold2_tpu_torch.telemetry.profiling [--length 384] [--depth 2] [--gate]
+
+Runs the serving configuration (dim 256, heads 8, dim_head 64, bf16, a
+seeded 20-row MSA, 200 MDS iterations) through `predict_structure` on the
+GPU and reports, for one request of `--length` residues:
+
+  * the request time and the model forward's time (CUDA events, the mean
+    of `--reps` runs after one warm-up); the rest is the distogram
+    softmax, the geometry and the confidence;
+  * from one run under `torch.profiler`: device time by kernel name and
+    by kind (the port's flash kernels, matrix products, the rest), and
+    the device's busy share of the request time measured without the
+    profiler.
+
+The record goes to `--out` as JSON. Needs a CUDA device; float32 matmuls
+and convolutions run in full float32 (TF32 off).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from alphafold2_tpu_torch.models.alphafold2 import alphafold2_apply, alphafold2_init
+from alphafold2_tpu_torch.models.config import Alphafold2Config
+from alphafold2_tpu_torch.ops import flash_kernel
+from alphafold2_tpu_torch.serving.pipeline import predict_structure
+
+_GEMM_MARKERS = ("gemm", "cutlass", "xmma", "cublas", "nvjet", "sm90_")
+
+
+def kernel_kind(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd_" in low:
+        return "flash kernels (this port)"
+    if any(m in low for m in _GEMM_MARKERS):
+        return "matrix products (cuBLAS)"
+    return "other (elementwise, reductions, softmax, eigh, copies)"
+
+
+def _events_ms(fn, reps: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _device_us(avg) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        value = getattr(avg, attr, None)
+        if value is not None:
+            return float(value)
+    return 0.0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--length", type=int, default=384)
+    ap.add_argument("--depth", type=int, default=2)
+    ap.add_argument("--gate", action="store_true", help="attn_gate=True (the fused kernel)")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="chiprun_out/profile_request.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+    L = args.length
+    cfg = Alphafold2Config(dim=256, depth=args.depth, heads=8, dim_head=64,
+                           max_seq_len=L, dtype=torch.bfloat16, attn_gate=args.gate)
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(args.seed), "cuda")
+    rng = np.random.default_rng(args.seed)
+    tokens = rng.integers(0, 20, (1, L)).astype(np.int32)
+    msa = rng.integers(0, 21, (1, 20, L)).astype(np.int32)
+    msa[0, 0] = tokens[0]
+    msa_mask = rng.random((1, 20, L)) > 0.1
+    msa_mask[0, 0] = True
+
+    def request():
+        return predict_structure(params, cfg, tokens, msa=msa, msa_mask=msa_mask,
+                                 mds_iters=200, device="cuda")
+
+    def forward():
+        return alphafold2_apply(params, cfg, tokens, msa, msa_mask=msa_mask, device="cuda")
+
+    request()
+    torch.cuda.synchronize()
+    request_ms = _events_ms(request, args.reps)
+    forward_ms = _events_ms(forward, args.reps)
+
+    flash_kernel.reset_launches()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        request()
+        torch.cuda.synchronize()
+    launches = dict(flash_kernel.LAUNCHES)
+    kernels = [
+        {"name": a.key, "count": a.count, "device_ms": _device_us(a) / 1e3}
+        for a in prof.key_averages()
+        if a.device_type == torch.autograd.DeviceType.CUDA and _device_us(a) > 0
+    ]
+    kernels.sort(key=lambda k: -k["device_ms"])
+    device_ms = sum(k["device_ms"] for k in kernels)
+    kinds = {}
+    for k in kernels:
+        kind = kinds.setdefault(kernel_kind(k["name"]), {"device_ms": 0.0, "launches": 0})
+        kind["device_ms"] += k["device_ms"]
+        kind["launches"] += k["count"]
+
+    record = {
+        "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+        "config": repr(cfg), "length": L, "msa_rows": 20, "mds_iters": 200,
+        "request_ms": request_ms, "forward_ms": forward_ms,
+        "rest_ms": request_ms - forward_ms,
+        "profiled_device_ms": device_ms,
+        "busy_share": device_ms / request_ms if kernels else None,
+        "kinds": kinds, "kernels": kernels[:25], "flash_launches": launches,
+    }
+    print(f"[profile] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off")
+    print(f"[profile] L={L} depth={args.depth} gate={args.gate}: request {request_ms:.3f} ms, "
+          f"forward {forward_ms:.3f} ms, rest {request_ms - forward_ms:.3f} ms (CUDA events, "
+          f"mean of {args.reps})")
+    if not kernels:
+        print("[profile] the profiler recorded no device time: kernel breakdown not measured")
+    else:
+        print(f"[profile] device time {device_ms:.3f} ms under the profiler; busy share "
+              f"{record['busy_share']:.3f} of the request time")
+        for kind, v in sorted(kinds.items(), key=lambda kv: -kv[1]["device_ms"]):
+            print(f"[profile]   {v['device_ms']:10.3f} ms {v['launches']:6d} launches  {kind}")
+        for k in kernels[:12]:
+            print(f"[profile]   {k['device_ms']:10.3f} ms {k['count']:6d} x  {k['name'][:90]}")
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(record, indent=1))
+    return record
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,165 @@
+"""Flash-attention forward, port vs JAX package (CPU, float32).
+
+The port's plain versions of the CUDA kernels B1f (`flash_fwd`) and B2f
+(`flash_fwd_fused`) against the Pallas kernels they replace
+(`flash_attention_lse` / the fused forward), run in Pallas interpret mode
+on the CPU as tests/test_flash_kernel.py runs them; and the (B, i, h, dh)
+dispatcher `flash_attention` against the JAX one. Out and lse are
+compared; fully masked rows must give zeros and lse = +inf on both sides.
+
+Tolerance: both sides compute the same f32 recurrence with other block
+sizes and summation orders over j <= 200 keys, ~1e-7 apart; the bound is
+2e-6 absolute on outputs and lse of magnitude <= ~6.
+
+The kernels themselves need the card: tests/test_torch_kernels_cuda.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from alphafold2_tpu.ops import flash as jflash
+from alphafold2_tpu.ops import flash_kernel as jfk
+from alphafold2_tpu_torch.ops import cuda_build, flash_kernel
+from alphafold2_tpu_torch.ops.flash import flash_attention
+
+ATOL = 2e-6
+NEG = float("-inf")
+
+
+def folded_inputs(BH, i, j, dh, seed=0, masked_bh=(), key_p=0.8):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(BH, i, dh)).astype(np.float32)
+    k = rng.normal(size=(BH, j, dh)).astype(np.float32)
+    v = rng.normal(size=(BH, j, dh)).astype(np.float32)
+    keep = rng.random((BH, j)) < key_p
+    keep[:, 0] = True
+    for b in masked_bh:
+        keep[b] = False  # every query row of this (batch*head) row is empty
+    bias = np.where(keep, 0.0, NEG).astype(np.float32)
+    return q, k, v, bias
+
+
+def assert_out_lse(t_out, t_lse, j_out, j_lse):
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=0, atol=ATOL)
+    j_lse = np.asarray(j_lse)
+    t_lse = t_lse.numpy()
+    np.testing.assert_array_equal(np.isposinf(t_lse), np.isposinf(j_lse))
+    fin = np.isfinite(j_lse)
+    np.testing.assert_allclose(t_lse[fin], j_lse[fin], rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize(
+    "BH,i,j,dh,masked",
+    [
+        (3, 16, 16, 16, ()),
+        (4, 37, 53, 16, ()),       # ragged, i != j
+        (2, 130, 7, 32, ()),       # i past one 128-row block, j tiny
+        (5, 21, 200, 16, (1, 3)),  # fully masked rows
+    ],
+    ids=["square", "ragged", "long-i", "masked-rows"],
+)
+def test_b1f_plain_matches_pallas(BH, i, j, dh, masked):
+    q, k, v, bias = folded_inputs(BH, i, j, dh, masked_bh=masked)
+    scale = dh ** -0.5
+    j_out, j_lse = jfk.flash_attention_lse(q, k, v, bias, scale)
+    t_out, t_lse = flash_kernel.flash_fwd(*map(torch.from_numpy, (q, k, v, bias)), scale)
+    assert_out_lse(t_out, t_lse, j_out, j_lse)
+    if masked:
+        assert (t_out.numpy()[list(masked)] == 0).all()
+        assert np.isposinf(t_lse.numpy()[list(masked)]).all()
+
+
+def _pallas_fused(q, k, v, bias, gate, scale):
+    """The JAX fused forward with its lse (flash_attention_fused returns
+    the output only)."""
+    bias2d, gated = bias.ndim == 3, gate is not None
+    gate_arg = gate if gated else jnp.zeros((q.shape[0], 1, q.shape[2]), q.dtype)
+    out, res = jfk._forward_fused(q, k, v, bias, gate_arg, scale, 128, 128,
+                                  bias2d, gated)
+    lse, i0 = res[5], res[6]
+    return out, lse.reshape(lse.shape[0], -1)[:, :i0]
+
+
+@pytest.mark.parametrize(
+    "mode,i,j",
+    [("gate", 19, 45), ("bias2d", 33, 27), ("gate+bias2d", 40, 140)],
+)
+def test_b2f_plain_matches_pallas(mode, i, j):
+    BH, dh = 3, 16
+    q, k, v, key_bias = folded_inputs(BH, i, j, dh, seed=2, masked_bh=(2,))
+    rng = np.random.default_rng(5)
+    gate = rng.normal(size=(BH, i, dh)).astype(np.float32) if "gate" in mode else None
+    if "bias2d" in mode:
+        bias = (rng.normal(size=(BH, i, j)) + key_bias[:, None, :]).astype(np.float32)
+        bias[0, 3] = NEG  # one fully masked query row in a live (bh) row
+    else:
+        bias = key_bias
+    scale = dh ** -0.5
+    j_out, j_lse = _pallas_fused(q, k, v, bias, gate, scale)
+    if gate is not None:  # the public entry (its own block sizes) agrees
+        np.testing.assert_allclose(
+            np.asarray(jfk.flash_attention_fused(q, k, v, bias, scale, gate=gate)),
+            np.asarray(j_out), rtol=0, atol=ATOL,
+        )
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    t_out, t_lse = flash_kernel.flash_fwd_fused(t(q), t(k), t(v), t(bias), scale,
+                                                gate=t(gate))
+    assert_out_lse(t_out, t_lse, j_out, j_lse)
+
+
+@pytest.mark.parametrize("mode", ["plain", "gate", "pair_bias", "gate+pair_bias"])
+def test_dispatcher_matches_jax(mode):
+    B, i, j, h, dh = 2, 14, 23, 2, 16
+    rng = np.random.default_rng(7)
+    q = rng.normal(size=(B, i, h, dh)).astype(np.float32)
+    k = rng.normal(size=(B, j, h, dh)).astype(np.float32)
+    v = rng.normal(size=(B, j, h, dh)).astype(np.float32)
+    key_bias = np.where(rng.random((B, j)) < 0.7, 0.0, NEG).astype(np.float32)
+    key_bias[:, 0] = 0.0
+    gate = rng.normal(size=(B, i, h, dh)).astype(np.float32) if "gate" in mode else None
+    pair = rng.normal(size=(B, h, i, j)).astype(np.float32) if "pair" in mode else None
+    kw = dict(kv_block=8)  # several K/V blocks on both sides
+    j_out = jflash.flash_attention(q, k, v, key_bias, pair_bias=pair, gate=gate,
+                                   use_kernel=False, **kw)
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    t_out = flash_attention(t(q), t(k), t(v), t(key_bias), pair_bias=t(pair),
+                            gate=t(gate), **kw)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=0, atol=ATOL)
+
+
+def test_cpu_tensors_never_build_or_launch(monkeypatch):
+    def no_build(*a, **k):
+        raise AssertionError("a CPU call tried to build the CUDA kernels")
+
+    monkeypatch.setattr(cuda_build, "build", no_build)
+    monkeypatch.setattr(cuda_build, "library", no_build)
+    flash_kernel.reset_launches()
+    q, k, v, bias = map(torch.from_numpy, folded_inputs(2, 9, 11, 16))
+    flash_kernel.flash_fwd(q, k, v, bias, 0.25)
+    flash_kernel.flash_fwd_fused(q, k, v, bias, 0.25, gate=q.clone())
+    flash_attention(q[None].transpose(1, 2), k[None].transpose(1, 2),
+                    v[None].transpose(1, 2))
+    assert flash_kernel.LAUNCHES == {"flash_fwd": 0, "flash_fwd_fused": 0}
+
+
+def test_fold_gives_the_kernels_an_aligned_contiguous_copy():
+    from alphafold2_tpu_torch.ops.flash import _fold
+
+    base = torch.arange(1 + 2 * 5 * 1 * 8, dtype=torch.bfloat16)
+    t = base[1:].view(2, 5, 1, 8)  # one head: the fold is a view at an odd offset
+    f = _fold(t)
+    assert f.shape == (2, 5, 8) and f.is_contiguous() and f.data_ptr() % 16 == 0
+    assert torch.equal(f, t.transpose(1, 2).reshape(2, 5, 8))
+
+
+def test_fused_needs_bias2d_or_gate_and_supported_shapes():
+    q, k, v, bias = map(torch.from_numpy, folded_inputs(1, 4, 4, 16))
+    with pytest.raises(ValueError, match="use flash_fwd"):
+        flash_kernel.flash_fwd_fused(q, k, v, bias, 0.25)
+    assert flash_kernel.supported(147456, 7680, 64)
+    assert flash_kernel.supported(7680, 147456, 64)
+    assert not flash_kernel.supported(16, 16, 8)
+    assert not flash_kernel.supported(16, 16, 128)
+    assert not flash_kernel.supported(16, 0, 64)

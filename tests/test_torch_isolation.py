@@ -1,0 +1,120 @@
+"""The PyTorch port stands alone: importing every module of
+`alphafold2_tpu_torch` loads neither JAX nor any module of the JAX
+package, `chip_smoke.py` imports neither, and the entry points refuse to
+run quietly on the CPU of a host without CUDA."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import alphafold2_tpu_torch
+from alphafold2_tpu_torch import Alphafold2Config, alphafold2_apply, alphafold2_init
+from alphafold2_tpu_torch import predict_structure
+from alphafold2_tpu_torch.device import resolve_device
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import alphafold2_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "alphafold2_tpu" or m.startswith("alphafold2_tpu."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO_ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    import json
+
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "alphafold2_tpu_torch.ops.flash_kernel" in res["modules"]
+    assert "alphafold2_tpu_torch.predict" in res["modules"]
+    assert res["bad"] == []
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module)
+    return roots
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    roots = _imported_roots(os.path.join(REPO_ROOT, "chip_smoke.py"))
+    assert any(r.startswith("alphafold2_tpu_torch") for r in roots)
+    for r in roots:
+        top = r.split(".")[0]
+        assert top not in ("jax", "jaxlib", "alphafold2_tpu"), r
+
+
+def test_port_sources_import_neither():
+    pkg_dir = os.path.dirname(alphafold2_tpu_torch.__file__)
+    mods = [m.name for m in pkgutil.walk_packages([pkg_dir])]
+    assert mods
+    for dirpath, _, files in os.walk(pkg_dir):
+        for f in files:
+            if f.endswith(".py"):
+                for r in _imported_roots(os.path.join(dirpath, f)):
+                    assert r.split(".")[0] not in ("jax", "jaxlib", "alphafold2_tpu"), (f, r)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda_instead_of_running_on_cpu(no_cuda):
+    cfg = Alphafold2Config(dim=16, depth=1, heads=2, dim_head=8, max_seq_len=16)
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = np.zeros((1, 6), np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predict_structure(params, cfg, tokens, mds_iters=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        alphafold2_apply(params, cfg, tokens)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        alphafold2_init(cfg, torch.Generator().manual_seed(0), None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    # the explicit CPU request runs
+    out = predict_structure(params, cfg, tokens, mds_iters=2, device="cpu")
+    assert out["coords"].device.type == "cpu"
+
+
+def test_profiling_needs_a_card_and_sorts_kernels(no_cuda):
+    from alphafold2_tpu_torch.telemetry import profiling
+
+    with pytest.raises(SystemExit, match="CUDA device"):
+        profiling.main(["--length", "8"])
+    assert profiling.kernel_kind("void flash_fwd_bf16_mma_kernel<64, false, false>") \
+        .startswith("flash")
+    assert profiling.kernel_kind("sm90_xmma_gemm_bf16bf16_bf16f32").startswith("matrix")
+    assert profiling.kernel_kind("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT").startswith("matrix")
+    assert profiling.kernel_kind("void at::native::reduce_kernel<512, 1>").startswith("other")
+
+
+def test_params_on_another_device_are_refused():
+    cfg = Alphafold2Config(dim=16, depth=1, heads=2, dim_head=8, max_seq_len=16)
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    params["head_out"]["w"] = params["head_out"]["w"].to("meta")
+    with pytest.raises(ValueError, match="parameters lie on"):
+        alphafold2_apply(params, cfg, np.zeros((1, 4), np.int32), device="cpu")

@@ -1,0 +1,80 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need a CUDA device and skip on a host without one (the
+kernels have no CPU mode). They import only torch and the port, so they
+run on a GPU host without JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from alphafold2_tpu_torch.ops import flash_kernel
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def folded_inputs(BH, i, j, dh, device, seed=0, masked_bh=()):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)  # noqa: E731
+    q, k, v = t(BH, i, dh), t(BH, j, dh), t(BH, j, dh)
+    keep = rng.random((BH, j)) < 0.8
+    keep[:, 0] = True
+    for b in masked_bh:
+        keep[b] = False
+    bias = torch.from_numpy(np.where(keep, 0.0, -np.inf).astype(np.float32)).to(device)
+    return q, k, v, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["plain", "gate", "bias2d", "gate+bias2d"])
+def test_kernels_match_plain_on_card(cuda_device, dh, dtype, mode):
+    """Kernel vs plain version on the same inputs. f32: both compute in f32
+    (bound 1e-5). bf16: the kernel rounds the probabilities to bf16 for the
+    P.V product (error ~2^-9 of the output's spread) and both round the
+    output once; bound one bf16 ulp of the largest output (2^-7 relative).
+    lse 1e-4."""
+    BH, i, j = 6, 200, 77
+    q, k, v, bias = folded_inputs(BH, i, j, dh, cuda_device, masked_bh=(4,))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    gate = torch.randn_like(q) if "gate" in mode else None
+    if "bias2d" in mode:
+        bias = (torch.randn(BH, i, j, device=cuda_device) + bias[:, None, :]).contiguous()
+    name = "flash_fwd" if mode == "plain" else "flash_fwd_fused"
+    fn = getattr(flash_kernel, name)
+    args = (q, k, v, bias, dh ** -0.5) + ((gate,) if name == "flash_fwd_fused" else ())
+    before = flash_kernel.LAUNCHES[name]
+    out, lse = fn(*args)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES[name] == before + 1
+    ref_out, ref_lse = flash_kernel.flash_fwd_plain(q, k, v, bias, dh ** -0.5, gate)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * ref_out.float().abs().max().item()
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert torch.equal(torch.isposinf(lse), torch.isposinf(ref_lse))
+    assert (out[4] == 0).all() and torch.isposinf(lse[4]).all()
+    fin = torch.isfinite(ref_lse)
+    assert (lse[fin] - ref_lse[fin]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_unsupported_shape_raises_on_card(cuda_device):
+    q, k, v, bias = folded_inputs(2, 8, 8, 8, cuda_device)
+    with pytest.raises(ValueError, match="does not support"):
+        flash_kernel.flash_fwd(q, k, v, bias, 0.3)
+    q, k, v, bias = folded_inputs(2, 8, 8, 16, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_kernel.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, bias, 0.3)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)[1:].view_as(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_kernel.flash_fwd(shifted, k, v, bias, 0.3)
