@@ -45,7 +45,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using af2::mma_bf16;
+using af2::pack_bf16;
 
 constexpr int kBlockQ = 128;   // query rows per block (both kernels)
 constexpr int kBlockK = 64;    // keys staged in shared memory per step
@@ -58,32 +63,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kWarps = kBlockQ / 16;  // one m16 row slab per warp
 constexpr int kPad = 8;               // smem row padding, in elements
 
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4): A holds
-// rows g and g + 8, columns 2t, 2t + 1 (+ 8); B holds k rows 2t, 2t + 1
-// (+ 8) of column g; C holds rows g and g + 8, columns 2t, 2t + 1.
+// Fragment layouts: mma_bf16.cuh.
 template <int DH, bool GATED, bool BIAS2D>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,

@@ -1,11 +1,14 @@
-"""The Alphafold2 model, eval mode: embeddings -> dual-track trunk ->
-distogram head (counterpart of alphafold2_tpu/models/alphafold2.py).
+"""The Alphafold2 model: embeddings -> dual-track trunk -> distogram head
+(counterpart of alphafold2_tpu/models/alphafold2.py).
 
 The pair representation is the outer sum of token embeddings plus an
 axial positional embedding; the MSA stream is token + column-position +
 row-position embeddings, or a projection of precomputed language-model
 embeddings (`embedds`). The head symmetrises the pair rep and projects to
 distogram buckets. The template tower is not ported yet (ROADMAP A4).
+
+`alphafold2_apply` is differentiable (the training path); the inference
+callers run it under their own `torch.inference_mode()`.
 """
 
 from __future__ import annotations
@@ -104,15 +107,16 @@ def alphafold2_head(params, cfg: Alphafold2Config, x):
 
 def alphafold2_apply(params, cfg: Alphafold2Config, seq, msa=None, *,
                      mask=None, msa_mask=None, embedds=None, templates=None,
-                     templates_mask=None, device=None):
-    """Forward pass, eval mode.
+                     templates_mask=None, rng=None, device=None):
+    """Forward pass, differentiable in the parameters.
 
     seq: (b, n) int tokens; msa: (b, rows, cols) int tokens or None;
     mask: (b, n) bool; msa_mask: (b, rows, cols) bool; embedds:
-    (b, n, num_embedds) float, the MSA substitute when msa is None. Inputs
-    may be numpy arrays or tensors; they are moved to `device` (default
-    CUDA; pass device="cpu" for the CPU), where the params must lie.
-    Returns distogram logits (b, n, n, num_buckets) in cfg.dtype."""
+    (b, n, num_embedds) float, the MSA substitute when msa is None; rng:
+    an optional CPU generator for dropout (None: eval mode). Inputs may be
+    numpy arrays or tensors; they are moved to `device` (default CUDA;
+    pass device="cpu" for the CPU), where the params must lie. Returns
+    distogram logits (b, n, n, num_buckets) in cfg.dtype."""
     if templates is not None or templates_mask is not None:
         raise NotImplementedError(
             "the template tower is not ported to PyTorch yet (ROADMAP A4)"
@@ -124,10 +128,9 @@ def alphafold2_apply(params, cfg: Alphafold2Config, seq, msa=None, *,
     mask = as_device_tensor(mask, dev, torch.bool)
     msa_mask = as_device_tensor(msa_mask, dev, torch.bool)
     embedds = as_device_tensor(embedds, dev, torch.float32)
-    with torch.inference_mode():
-        x, m, x_mask, m_mask = alphafold2_front(
-            params, cfg, seq, msa, mask=mask, msa_mask=msa_mask, embedds=embedds
-        )
-        x, _ = sequential_trunk_apply(params["trunk"], cfg, x, m,
-                                      x_mask=x_mask, msa_mask=m_mask)
-        return alphafold2_head(params, cfg, x)
+    x, m, x_mask, m_mask = alphafold2_front(
+        params, cfg, seq, msa, mask=mask, msa_mask=msa_mask, embedds=embedds
+    )
+    x, _ = sequential_trunk_apply(params["trunk"], cfg, x, m, x_mask=x_mask,
+                                  msa_mask=m_mask, rng=rng)
+    return alphafold2_head(params, cfg, x)

@@ -3,7 +3,8 @@
 The same field names as the JAX `Alphafold2Config`, with a torch compute
 dtype. Values whose code paths this port does not have yet raise
 NotImplementedError naming the ROADMAP item that brings them.
-`scan_layers` is the same math as the unrolled trunk and runs as a loop.
+`scan_layers` is the same math as the unrolled trunk and runs as a loop;
+`remat` recomputes each trunk layer in the backward pass.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ class Alphafold2Config:
     num_embedds: int = NUM_EMBEDDS_TR
     max_num_msa: int = MAX_NUM_MSA
     num_buckets: int = DISTOGRAM_BUCKETS
-    attn_dropout: float = 0.0  # eval mode: dropout is the identity
+    attn_dropout: float = 0.0  # applied only when the apply gets an rng
     ff_dropout: float = 0.0
     reversible: bool = False
     remat: bool = False
@@ -63,9 +64,17 @@ class Alphafold2Config:
     weight_dtype: str = "f32"
 
     def __post_init__(self):
+        if self.remat_policy not in (None, "dots", "dots_no_batch"):
+            raise ValueError(
+                f"remat_policy must be None, 'dots', or 'dots_no_batch', "
+                f"got {self.remat_policy!r}"
+            )
         not_ported = [
-            (self.reversible, "reversible=True (the reversible trunk)", "A6"),
-            (self.remat, "remat=True (activation recompute for training)", "A6"),
+            (self.reversible, "reversible=True (the reversible trunk, "
+             "models/reversible.py)", "A8"),
+            (self.remat and self.remat_policy is not None,
+             f"remat_policy={self.remat_policy!r} (what the recompute saves)",
+             "A6, remainder"),
             (any(self.layer_sparse), "sparse_self_attn (kernel B5)", "A10"),
             (self.weight_dtype == "int8", "weight_dtype='int8' (kernel B4)", "A9"),
             (self.trunk_schedule == "branch_parallel",

@@ -1,14 +1,21 @@
-"""The dual-track trunk, eval mode (counterpart of
-alphafold2_tpu/models/trunk.py, serial schedule).
+"""The dual-track trunk (counterpart of alphafold2_tpu/models/trunk.py,
+serial schedule).
 
 Both streams keep their grid layouts — pair (b, i, j, d), MSA
 (b, rows, cols, d) — and only the cross-attention flattens. Per layer,
 every op residual: pair axial self-attn -> MSA axial self-attn (optionally
 tied rows) -> pair<-MSA cross-attn -> MSA<-pair cross-attn -> pair FF ->
 MSA FF. The MSA branch is skipped when there is no MSA stream.
+
+`cfg.remat` recomputes each layer in the backward pass instead of keeping
+its activations (`torch.utils.checkpoint`, the `jax.checkpoint` of the JAX
+trunk): the same math, so the forward kernels launch twice per layer.
 """
 
 from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.ops.attention import (
@@ -58,10 +65,11 @@ def prenorm_cross_apply(params, attn_cfg, x, context, **kwargs):
     )
 
 
-def prenorm_ff_apply(params, cfg: Alphafold2Config, x):
+def prenorm_ff_apply(params, cfg: Alphafold2Config, x, rng=None):
     return feed_forward_apply(
         params["ff"], layer_norm(params["norm"], x),
-        dropout_rate=cfg.ff_dropout, dtype=cfg.dtype, chunk=cfg.ff_chunk_size,
+        dropout_rate=cfg.ff_dropout, rng=rng, dtype=cfg.dtype,
+        chunk=cfg.ff_chunk_size,
     )
 
 
@@ -102,7 +110,7 @@ def _unfold_msa(mg, b, r, d):
 
 
 def cross_apply_grids(params, cfg: Alphafold2Config, q_grid, ctx_grid, q_mask,
-                      ctx_mask, direction):
+                      ctx_mask, direction, rng=None):
     """Pre-norm cross-attention between the pair and MSA streams.
 
     direction: "pair_from_msa" (q_grid = pair, ctx = MSA) or
@@ -118,6 +126,7 @@ def cross_apply_grids(params, cfg: Alphafold2Config, q_grid, ctx_grid, q_mask,
             ctx_grid.reshape(qb, -1, d),
             mask=None if q_mask is None else q_mask.reshape(qb, -1),
             context_mask=None if ctx_mask is None else ctx_mask.reshape(qb, -1),
+            rng=rng,
         )
         return out.reshape(q_grid.shape)
 
@@ -126,13 +135,13 @@ def cross_apply_grids(params, cfg: Alphafold2Config, q_grid, ctx_grid, q_mask,
         x, m = q_grid, ctx_grid
         xg, mg, xg_mask, mg_mask, f = _fold_by_msa_column(x, m, q_mask, ctx_mask)
         out = prenorm_cross_apply(params, cross_cfg, xg, mg, mask=xg_mask,
-                                  context_mask=mg_mask)
+                                  context_mask=mg_mask, rng=rng)
         return _unfold_pair(out, b, x.shape[1], f, d)
     if direction == "msa_from_pair":
         m, x = q_grid, ctx_grid
         xg, mg, xg_mask, mg_mask, f = _fold_by_msa_column(x, m, ctx_mask, q_mask)
         out = prenorm_cross_apply(params, cross_cfg, mg, xg, mask=mg_mask,
-                                  context_mask=xg_mask)
+                                  context_mask=xg_mask, rng=rng)
         return _unfold_msa(out, b, m.shape[1], d)
     raise ValueError(f"unknown cross direction {direction!r}")
 
@@ -155,30 +164,47 @@ def trunk_layer_init(gen, cfg: Alphafold2Config, device):
 
 
 def trunk_layer_apply(layer, cfg: Alphafold2Config, x, m, *, x_mask=None,
-                      msa_mask=None):
-    """ONE sequential trunk layer in the reference op order."""
+                      msa_mask=None, rng=None):
+    """ONE sequential trunk layer in the reference op order. rng: a
+    generator on x's device that every op's dropout draws from in turn
+    (None: eval mode)."""
     self_cfg = cfg.self_attn_config()
-    x = prenorm_axial_apply(layer["seq_attn"], self_cfg, x, mask=x_mask) + x
+    x = prenorm_axial_apply(layer["seq_attn"], self_cfg, x, mask=x_mask, rng=rng) + x
     if m is not None:
         m = prenorm_axial_apply(
             layer["msa_attn"], self_cfg, m, mask=msa_mask,
-            tie_row=cfg.msa_tie_row_attn,
+            tie_row=cfg.msa_tie_row_attn, rng=rng,
         ) + m
         x = cross_apply_grids(layer["seq_cross"], cfg, x, m, x_mask, msa_mask,
-                              "pair_from_msa") + x
+                              "pair_from_msa", rng) + x
         m = cross_apply_grids(layer["msa_cross"], cfg, m, x, msa_mask, x_mask,
-                              "msa_from_pair") + m
-    x = prenorm_ff_apply(layer["seq_ff"], cfg, x) + x
+                              "msa_from_pair", rng) + m
+    x = prenorm_ff_apply(layer["seq_ff"], cfg, x, rng) + x
     if m is not None:
-        m = prenorm_ff_apply(layer["msa_ff"], cfg, m) + m
+        m = prenorm_ff_apply(layer["msa_ff"], cfg, m, rng) + m
     return x, m
 
 
 def sequential_trunk_apply(layers, cfg: Alphafold2Config, x, m, *, x_mask=None,
-                           msa_mask=None):
+                           msa_mask=None, rng=None):
     """Run the sequential trunk: x (b, n, n, d), m (b, rows, cols, d) or
     None; masks (b, n, n) / (b, rows, cols) bool. `scan_layers` computes the
-    same layers in the same order, so both settings run this loop."""
+    same layers in the same order, so both settings run this loop.
+
+    rng: an optional CPU generator for dropout. Each layer draws one seed
+    from it and its ops draw their masks from a generator on x's device
+    seeded with it, so a layer that `remat` recomputes draws the same
+    masks again."""
     for layer in layers:
-        x, m = trunk_layer_apply(layer, cfg, x, m, x_mask=x_mask, msa_mask=msa_mask)
+        seed = None if rng is None else int(torch.randint(2 ** 62, (), generator=rng))
+
+        def run(x, m, layer=layer, seed=seed):
+            gen = None if seed is None else torch.Generator(x.device).manual_seed(seed)
+            return trunk_layer_apply(layer, cfg, x, m, x_mask=x_mask,
+                                     msa_mask=msa_mask, rng=gen)
+
+        if cfg.remat:
+            x, m = checkpoint(run, x, m, use_reentrant=False)
+        else:
+            x, m = run(x, m)
     return x, m

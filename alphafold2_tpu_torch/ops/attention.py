@@ -1,4 +1,4 @@
-"""Dense, tied-row, KV-compressed and axial attention, eval mode.
+"""Dense, tied-row, KV-compressed and axial attention.
 
 Counterpart of alphafold2_tpu/ops/attention.py:
 
@@ -16,7 +16,10 @@ the kernels take the shape (so every such attention reaches the
 hand-written kernels; the H100 has no measured dense/flash crossover yet)
 or, on the CPU, the logits would exceed `_FLASH_AUTO_THRESHOLD` elements
 (the JAX rule, so the CPU tests follow the JAX package branch for branch).
-False forces the dense einsum.
+False forces the dense einsum, and so does live attention dropout (a
+generator and a nonzero rate), which only the dense path applies, as in the
+JAX package. The dense path promotes the logits to f32 before the mask
+fill, so a bf16 run masks with the f32 minimum as JAX does.
 """
 
 from __future__ import annotations
@@ -137,17 +140,20 @@ def _use_flash(cfg: AttentionConfig, b: int, i: int, j: int, device) -> bool:
 
 def attention_apply(params, cfg: AttentionConfig, x, *, context=None,
                     mask=None, context_mask=None,
-                    tie_dim: Optional[int] = None):
-    """Multi-head attention, eval mode.
+                    tie_dim: Optional[int] = None, rng=None):
+    """Multi-head attention.
 
     x: queries (b, i, dim); context: keys/values source (b, j, dim), self-
     attention when None; mask: (b, i) bool query validity; context_mask:
     (b, j) bool key validity (defaults to `mask` for self-attention,
     all-valid for cross-attention); tie_dim: x is (b*tie_dim, i, dim) and
-    the logits are shared across the tie_dim rows. Returns (b, i, dim) in
+    the logits are shared across the tie_dim rows; rng: a generator on x's
+    device for attention dropout (None: eval mode). Returns (b, i, dim) in
     cfg.dtype."""
     has_context = context is not None
-    if cfg.batch_chunk and x.shape[0] > cfg.batch_chunk and tie_dim is None:
+    dropout_live = rng is not None and cfg.dropout > 0.0
+    if (cfg.batch_chunk and x.shape[0] > cfg.batch_chunk and tie_dim is None
+            and not dropout_live):
         return _batch_chunked_attention(
             params, cfg, x, context=context, mask=mask, context_mask=context_mask
         )
@@ -165,7 +171,8 @@ def attention_apply(params, cfg: AttentionConfig, x, *, context=None,
     i, j = q.shape[1], k.shape[1]
     gate_logits = linear(params["to_gate"], x, dtype=dtype) if cfg.gate else None
 
-    if tie_dim is None and _use_flash(cfg, q.shape[0], i, j, q.device):
+    if (tie_dim is None and not dropout_live
+            and _use_flash(cfg, q.shape[0], i, j, q.device)):
         # key-side masking only: masked query rows give finite values that
         # downstream masking discards (the dense path gives them uniform
         # attention instead)
@@ -209,10 +216,11 @@ def attention_apply(params, cfg: AttentionConfig, x, *, context=None,
                 else torch.ones((1, j), dtype=torch.bool, device=x.device)
             )
         pair_mask = mask[:, None, :, None] & context_mask[:, None, None, :]
-        logits = logits.masked_fill(~pair_mask, torch.finfo(torch.float32).min)
+        # f32 first: the f32 minimum does not fit in bf16 (JAX promotes too)
+        logits = logits.float().masked_fill(~pair_mask, torch.finfo(torch.float32).min)
 
     attn = torch.softmax(logits.float(), dim=-1).to(dtype)
-    attn = dropout(attn, cfg.dropout)
+    attn = dropout(attn, cfg.dropout, rng)
 
     if tie_dim is not None:
         out = torch.einsum("bhij,brjhd->brihd", attn, v).reshape(-1, i, h * dh)
@@ -255,7 +263,7 @@ def _batch_chunked_attention(params, cfg: AttentionConfig, x, *, context,
 
 def axial_attention_apply(params, cfg: AttentionConfig, x, *, mask=None,
                           context=None, context_mask=None,
-                          tie_row: bool = False):
+                          tie_row: bool = False, rng=None):
     """Factorised 2D attention over a (b, h, w, d) grid: a column pass
     (attend along h, w folded into batch) plus a row pass (attend along w,
     h folded into batch, tied across h when tie_row). context /
@@ -275,11 +283,12 @@ def axial_attention_apply(params, cfg: AttentionConfig, x, *, mask=None,
     col_x = x.transpose(1, 2).reshape(b * ww, hh, d)
     col_mask = None if mask is None else mask.transpose(1, 2).reshape(b * ww, hh)
     col_out = attention_apply(params["attn_width"], cfg, col_x, mask=col_mask,
-                              **ctx_kwargs(ww))
+                              rng=rng, **ctx_kwargs(ww))
     col_out = col_out.reshape(b, ww, hh, d).transpose(1, 2)
 
     row_x = x.reshape(b * hh, ww, d)
     row_mask = None if mask is None else mask.reshape(b * hh, ww)
     row_out = attention_apply(params["attn_height"], cfg, row_x, mask=row_mask,
-                              tie_dim=hh if tie_row else None, **ctx_kwargs(hh))
+                              tie_dim=hh if tie_row else None, rng=rng,
+                              **ctx_kwargs(hh))
     return col_out + row_out.reshape(b, hh, ww, d)

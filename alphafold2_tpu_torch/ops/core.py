@@ -15,6 +15,7 @@ moved to `device`, so a seed gives the same weights on every device.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -86,10 +87,13 @@ def embedding(params, ids, dtype=None):
 # --- dropout ----------------------------------------------------------------
 
 
-def dropout(x, rate: float, training: bool = False):
-    """Eval-mode dropout: the identity. Training (ROADMAP A6) is not ported."""
-    if training and rate > 0.0:
-        raise NotImplementedError(
-            "training-mode dropout waits for the training port (ROADMAP A6)"
-        )
-    return x
+def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
+    """Inverted dropout (JAX `dropout(rng, x, rate)`): the identity when the
+    rate is 0 or no generator is given (eval mode); otherwise each element
+    is kept with probability 1 - rate and scaled by 1 / (1 - rate). The
+    mask is drawn from `generator`, which lies on x's device. JAX's random
+    bits and torch's differ: the two agree in distribution only."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))

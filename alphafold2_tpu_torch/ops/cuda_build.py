@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and compiles with `nvcc`
 alone (no PyTorch headers) into `build/kernels/lib<name>-<hash>.so`
-beside the package, where `<hash>` covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused. Building happens
+beside the package, where `<hash>` covers the source, the shared
+`csrc/*.cuh` headers and the flags, so an edited source is rebuilt and an
+unchanged one is reused. Building happens
 at first use, never at import: a host without `nvcc` imports every module.
 `build()` starts one `nvcc` per source, all at once.
 """
@@ -58,6 +59,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared device helpers
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -1,9 +1,8 @@
-"""GEGLU feed-forward block, eval mode (counterpart of
-alphafold2_tpu/ops/feedforward.py).
+"""GEGLU feed-forward block (counterpart of alphafold2_tpu/ops/feedforward.py).
 
 Linear(d -> 2*mult*d) -> value * gelu(gate) with exact (erf) GELU ->
-Linear(mult*d -> d). `chunk` processes the flattened token axes in blocks
-of that many tokens, bounding the 8*dim GEGLU intermediate.
+dropout -> Linear(mult*d -> d). `chunk` processes the flattened token axes
+in blocks of that many tokens, bounding the 8*dim GEGLU intermediate.
 """
 
 from __future__ import annotations
@@ -21,20 +20,21 @@ def feed_forward_init(gen, dim: int, device, mult: int = 4):
     }
 
 
-def _ff_core(params, x, dropout_rate, dtype):
+def _ff_core(params, x, dropout_rate, rng, dtype):
     value, gate = linear(params["proj_in"], x, dtype=dtype).chunk(2, dim=-1)
-    y = dropout(value * F.gelu(gate), dropout_rate)
+    y = dropout(value * F.gelu(gate), dropout_rate, rng)
     return linear(params["proj_out"], y, dtype=dtype)
 
 
-def feed_forward_apply(params, x, *, dropout_rate: float = 0.0, dtype=None,
-                       chunk: int = 0):
+def feed_forward_apply(params, x, *, dropout_rate: float = 0.0, rng=None,
+                       dtype=None, chunk: int = 0):
+    """rng: a generator on x's device for dropout (None: eval mode)."""
     tokens = x.shape[:-1].numel()
     if not chunk or tokens <= chunk:
-        return _ff_core(params, x, dropout_rate, dtype)
+        return _ff_core(params, x, dropout_rate, rng, dtype)
     xf = x.reshape(tokens, x.shape[-1])
     out = torch.cat([
-        _ff_core(params, xf[s:s + chunk], dropout_rate, dtype)
+        _ff_core(params, xf[s:s + chunk], dropout_rate, rng, dtype)
         for s in range(0, tokens, chunk)
     ])
     return out.reshape(*x.shape[:-1], out.shape[-1])

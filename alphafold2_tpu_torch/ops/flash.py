@@ -1,14 +1,16 @@
 """Blockwise (flash-style) exact attention: plain versions and the dispatch
 to the CUDA kernels.
 
-Counterpart of alphafold2_tpu/ops/flash.py, forward only. The plain
-versions (`blockwise_attention`, `streamed_fused_attention`,
-`apply_output_gate`) compute softmax(QK^T * scale + bias)V tile by tile
-with the FlashAttention recurrence, so no full (i, j) logit matrix exists;
-they are what `flash_attention` runs on CPU tensors. On CUDA tensors
-`flash_attention` launches the hand-written kernels of
-ops/flash_kernel.py (a gate or a 2-D pair bias selects the fused kernel)
-or raises: there is no fallback to the plain versions on the card.
+Counterpart of alphafold2_tpu/ops/flash.py. The plain versions
+(`blockwise_attention`, `streamed_fused_attention`, `apply_output_gate`)
+compute softmax(QK^T * scale + bias)V tile by tile with the
+FlashAttention recurrence, so no full (i, j) logit matrix exists; they are
+what `flash_attention` runs on CPU tensors, and autograd differentiates
+them there (JAX's `xla_ref` arm). On CUDA tensors `flash_attention`
+launches the hand-written kernels of ops/flash_kernel.py through two
+`torch.autograd.Function`s, whose backwards launch the backward kernels
+(a gate or a 2-D pair bias selects the fused pair), or raises: there is
+no fallback to the plain versions on the card.
 """
 
 from __future__ import annotations
@@ -119,20 +121,66 @@ def streamed_fused_attention(q, k, v, key_bias, pair_bias, gate, scale,
     return out.to(q.dtype)
 
 
-def _fold(t):
-    """(B, n, h, dh) -> the kernels' (B*h, n, dh) layout, 16-byte aligned
-    (the bf16 kernel loads 16-byte vectors; a view at an odd offset is
-    copied)."""
-    B, n, h, dh = t.shape
-    t = t.transpose(1, 2).reshape(B * h, n, dh).contiguous()
+def _aligned(t):
+    """t contiguous and 16-byte aligned (the bf16 kernels load 16-byte
+    vectors; a view at an odd offset is copied)."""
+    t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _fold(t):
+    """(B, n, h, dh) -> the kernels' (B*h, n, dh) layout, aligned."""
+    B, n, h, dh = t.shape
+    return _aligned(t.transpose(1, 2).reshape(B * h, n, dh))
+
+
+class _FlashKernel(torch.autograd.Function):
+    """B1 in the folded layout: forward `flash_fwd`, backward `flash_bwd`
+    from the saved out and lse. The key-side bias is a mask, not a
+    parameter: no cotangent (JAX `_bwd_impl` :419-426)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        out, lse = flash_kernel.flash_fwd(q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_kernel.flash_bwd(q, k, v, bias, out, lse, _aligned(g),
+                                            ctx.scale)
+        return dq, dk, dv, None, None
+
+
+class _FusedFlashKernel(torch.autograd.Function):
+    """B2 in the folded layout: forward `flash_fwd_fused`, backward
+    `flash_bwd_fused`. A 2-D bias gets its cotangent (pair biases are
+    learned projections); a key-side bias gets none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, gate, scale):
+        out, lse = flash_kernel.flash_fwd_fused(q, k, v, bias, scale, gate=gate)
+        ctx.save_for_backward(q, k, v, bias, gate, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, gate, out, lse = ctx.saved_tensors
+        dq, dk, dv, d_bias, d_gate = flash_kernel.flash_bwd_fused(
+            q, k, v, bias, gate, out, lse, _aligned(g), ctx.scale
+        )
+        return dq, dk, dv, d_bias, d_gate, None
 
 
 def flash_attention(q, k, v, key_bias=None, *, pair_bias=None, gate=None,
                     scale=None, tile_elems: int = 1 << 25,
                     kv_block: int = 2048, logit_dtype=None):
-    """Exact attention: the CUDA kernels on CUDA tensors, the plain
-    blockwise versions on CPU tensors.
+    """Exact attention: the CUDA kernels on CUDA tensors (differentiable
+    through the backward kernels), the plain blockwise versions on CPU
+    tensors (differentiable by autograd).
 
     q: (B, i, h, dh); k, v: (B, j, h, dh); key_bias: (B, j) additive f32;
     pair_bias: optional (B, h, i, j) f32; gate: optional (B, i, h, dh)
@@ -171,10 +219,10 @@ def flash_attention(q, k, v, key_bias=None, *, pair_bias=None, gate=None,
     else:
         bias = key_bias.repeat_interleave(h, dim=0)  # one row per (batch, head)
     if pair_bias is not None or gate is not None:
-        out, _ = flash_kernel.flash_fwd_fused(
-            _fold(q), _fold(k), _fold(v), bias, scale,
-            gate=None if gate is None else _fold(gate),
+        out = _FusedFlashKernel.apply(
+            _fold(q), _fold(k), _fold(v), bias,
+            None if gate is None else _fold(gate), scale,
         )
     else:
-        out, _ = flash_kernel.flash_fwd(_fold(q), _fold(k), _fold(v), bias, scale)
+        out = _FlashKernel.apply(_fold(q), _fold(k), _fold(v), bias, scale)
     return out.reshape(B, h, i, dh).transpose(1, 2)

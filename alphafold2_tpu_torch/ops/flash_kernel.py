@@ -1,19 +1,23 @@
-"""CUDA flash-attention forward kernels, their binding and plain versions.
+"""CUDA flash-attention kernels, their binding and plain versions.
 
-Counterpart of alphafold2_tpu/ops/flash_kernel.py, forward only:
+Counterpart of alphafold2_tpu/ops/flash_kernel.py:
 
-  * `flash_fwd` (B1f) replaces `flash_attention_tpu`: dense attention
-    with a key-side additive bias (BH, j);
-  * `flash_fwd_fused` (B2f) replaces `flash_attention_fused`: the same
-    plus a 2-D (BH, i, j) bias tile and/or a sigmoid output gate.
+  * `flash_fwd` (B1f) replaces `flash_attention_tpu`'s forward: dense
+    attention with a key-side additive bias (BH, j);
+  * `flash_fwd_fused` (B2f) replaces `flash_attention_fused`'s forward:
+    the same plus a 2-D (BH, i, j) bias tile and/or a sigmoid output gate;
+  * `flash_bwd` (B1b) and `flash_bwd_fused` (B2b) replace their backwards
+    (`_bwd_impl`, `_fused_bwd`): a dq kernel and a dkv kernel each.
 
-Both take the folded layout q (BH, i, dh), k/v (BH, j, dh) in float32 or
-bfloat16 and return (out (BH, i, dh) in the input dtype, lse (BH, i) f32);
-a row with no unmasked key gives zeros and lse = +inf. On CPU tensors each
-wrapper runs its plain version (`flash_fwd_plain`), on CUDA tensors it
-launches its kernel (csrc/flash_fwd.cu, built at first use) or raises:
-bfloat16 runs on the tensor cores (mma.sync, f32 accumulate), float32 on
-the CUDA cores in f32. `LAUNCHES` counts kernel launches per wrapper.
+All take the folded layout q (BH, i, dh), k/v (BH, j, dh) in float32 or
+bfloat16. The forwards return (out (BH, i, dh) in the input dtype, lse
+(BH, i) f32); a row with no unmasked key gives zeros and lse = +inf, which
+the backwards read as "every p of this row is 0". On CPU tensors each
+wrapper runs its plain version (`flash_fwd_plain`, `flash_bwd_plain`), on
+CUDA tensors it launches its kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu,
+built at first use) or raises: bfloat16 runs on the tensor cores
+(mma.sync, f32 accumulate), float32 on the CUDA cores in f32. `LAUNCHES`
+counts kernel launches per kernel.
 """
 
 from __future__ import annotations
@@ -30,8 +34,13 @@ from alphafold2_tpu_torch.ops import cuda_build
 # an exact 0 with no nan guards
 _M0 = -1e30
 
-# kernel launches per wrapper since the last reset_launches()
-LAUNCHES = {"flash_fwd": 0, "flash_fwd_fused": 0}
+# kernel launches since the last reset_launches(): one entry per kernel
+# (each backward wrapper launches a dq and a dkv kernel)
+LAUNCHES = {
+    "flash_fwd": 0, "flash_fwd_fused": 0,
+    "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    "flash_bwd_fused_dq": 0, "flash_bwd_fused_dkv": 0,
+}
 
 _SUPPORTED_DH = (16, 32, 64)
 _BLOCK_Q = 128  # query rows per CUDA block (csrc/flash_fwd.cu kBlockQ)
@@ -93,6 +102,90 @@ def flash_fwd_plain(q, k, v, bias, scale, gate=None, *, kv_block: int = 2048,
     return out, lse
 
 
+def cotangent_terms(out, g, gate=None):
+    """What the backward kernels take besides the forward's inputs, computed
+    outside them as JAX does (`_bwd_impl` :368-380, `_fused_bwd` :718-730):
+    delta = rowsum(g * out) in f32 and, with a gate, d_gate = g * out *
+    (1 - sigmoid(gate)) and the cotangent of the ungated attention,
+    g * sigmoid(gate). delta uses the raw cotangent and the gated output:
+    their product equals the ungated pair's. Returns (g_eff in g.dtype,
+    delta, d_gate in gate.dtype or None)."""
+    g32, out32 = g.float(), out.float()
+    delta = (g32 * out32).sum(dim=-1)
+    if gate is None:
+        return g, delta, None
+    sig = torch.sigmoid(gate.float())
+    d_gate = (g32 * out32 * (1.0 - sig)).to(gate.dtype)
+    return (g32 * sig).to(g.dtype), delta, d_gate
+
+
+# (i, j) elements of one f32 matrix the backward plain versions hold at once
+BWD_TILE_ELEMS = 1 << 26
+
+
+def bwd_tiles(q, k, v, bias, lse, g, delta, scale):
+    """Yield (r0, r1, qs, gs, p, ds) over query-row tiles of at most
+    BWD_TILE_ELEMS (i, j) elements, all f32: p = exp(scale q.k + bias - lse)
+    (lse = +inf gives an exact 0) and ds = p (g.v - delta)."""
+    BH, i, _ = q.shape
+    j = k.shape[1]
+    bias2d = bias.dim() == 3
+    kf, vf = k.float(), v.float()
+    rows = max(1, BWD_TILE_ELEMS // (BH * j))
+    for r0 in range(0, i, rows):
+        r1 = min(i, r0 + rows)
+        qs, gs = q[:, r0:r1].float(), g[:, r0:r1].float()
+        s = torch.bmm(qs, kf.transpose(1, 2)) * scale
+        s = s + (bias[:, r0:r1] if bias2d else bias[:, None, :])
+        p = torch.exp(s - lse[:, r0:r1, None])
+        ds = p * (torch.bmm(gs, vf.transpose(1, 2)) - delta[:, r0:r1, None])
+        yield r0, r1, qs, gs, p, ds
+
+
+def flash_bwd_dq_plain(q, k, v, bias, lse, g, delta, scale):
+    """The dq kernel's function in plain PyTorch (f32): dq = scale ds k and,
+    for a 2-D bias, d_bias = ds. g and delta as the kernel takes them
+    (`cotangent_terms`). Returns (dq in q.dtype, d_bias f32 or None)."""
+    dq = torch.empty_like(q)
+    d_bias = (torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+              if bias.dim() == 3 else None)
+    kf = k.float()
+    for r0, r1, _, _, _, ds in bwd_tiles(q, k, v, bias, lse, g, delta, scale):
+        if d_bias is not None:
+            d_bias[:, r0:r1] = ds
+        dq[:, r0:r1] = (torch.bmm(ds, kf) * scale).to(q.dtype)
+    return dq, d_bias
+
+
+def flash_bwd_dkv_plain(q, k, v, bias, lse, g, delta, scale):
+    """The dkv kernel's function in plain PyTorch (f32): dk = scale ds^T q,
+    dv = p^T g. Returns (dk, dv) in the input dtype."""
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for _, _, qs, gs, p, ds in bwd_tiles(q, k, v, bias, lse, g, delta, scale):
+        dk += torch.bmm(ds.transpose(1, 2), qs)
+        dv += torch.bmm(p.transpose(1, 2), gs)
+    return (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_plain(q, k, v, bias, out, lse, g, scale, gate=None):
+    """Both backward kernels' function in plain PyTorch: the explicit
+    recompute formula in f32 (not autograd), tiled along i (`bwd_tiles`).
+    From the forward's lse: p = exp(scale q.k + bias - lse), dp = g.v, ds =
+    p (dp - delta); dq = scale ds k, dk = scale ds^T q, dv = p^T g, d_bias
+    = ds.
+
+    bias: (BH, j) key-side (no cotangent: masks are data) or (BH, i, j)
+    2-D; gate: optional (BH, i, dh) pre-sigmoid logits. Returns (dq, dk,
+    dv in the input dtype, d_bias f32 for a 2-D bias else None, d_gate in
+    gate.dtype or None)."""
+    g, delta, d_gate = cotangent_terms(out, g, gate)
+    args = (q, k, v, bias, lse, g, delta, scale)
+    dq, d_bias = flash_bwd_dq_plain(*args)
+    dk, dv = flash_bwd_dkv_plain(*args)
+    return dq, dk, dv, d_bias, d_gate
+
+
 # --- the CUDA binding ----------------------------------------------------
 
 
@@ -111,6 +204,20 @@ def _lib() -> ctypes.CDLL:
         i32, i32, p,
     ]
     lib.af2_flash_fwd_fused.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    """The backward library (csrc/flash_bwd.cu), signatures declared."""
+    lib = cuda_build.library("flash_bwd")
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    for fn in (lib.af2_flash_bwd_dq, lib.af2_flash_bwd_dkv):
+        fn.argtypes = [
+            p, p, p, p, p, p, p, p, p, i64, i64, i64, i32, ctypes.c_float,
+            i32, i32, p,
+        ]
+        fn.restype = i32
     return lib
 
 
@@ -208,3 +315,81 @@ def flash_fwd_fused(q, k, v, bias, scale, gate: Optional[torch.Tensor] = None):
     _raise_on(rc, "flash_fwd_fused")
     LAUNCHES["flash_fwd_fused"] += 1
     return out, lse
+
+
+def _check_bwd(q, k, v, bias, gate, bias2d, out, lse, g):
+    _check(q, k, v, bias, gate, bias2d)
+    for name, t in (("out", out), ("g", g)):
+        if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor of q's shape and dtype")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned for the bf16 kernel")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != tuple(q.shape[:2]) \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 {tuple(q.shape[:2])}")
+
+
+def _bwd_args(q, k, v, bias, lse, g, delta, scale, bias2d):
+    BH, i, dh = q.shape
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    shape = (BH, i, k.shape[1], dh, float(scale), int(q.dtype == torch.bfloat16),
+             int(bias2d), torch.cuda.current_stream(q.device).cuda_stream)
+    return ins, shape
+
+
+def launch_dq(q, k, v, bias, lse, g, delta, scale, name):
+    """One launch of the dq kernel on the current stream, counted under
+    LAUNCHES[name], on inputs `flash_bwd` / `flash_bwd_fused` have checked;
+    g and delta as `cotangent_terms` gives them. Returns (dq, d_bias f32
+    for a 2-D bias else None)."""
+    bias2d = bias.dim() == 3
+    dq = torch.empty_like(q)
+    d_bias = (torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+              if bias2d else None)
+    ins, shape = _bwd_args(q, k, v, bias, lse, g, delta, scale, bias2d)
+    rc = _bwd_lib().af2_flash_bwd_dq(*ins, dq.data_ptr(),
+                                     d_bias.data_ptr() if bias2d else None, *shape)
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return dq, d_bias
+
+
+def launch_dkv(q, k, v, bias, lse, g, delta, scale, name):
+    """One launch of the dkv kernel, as `launch_dq`. Returns (dk, dv)."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ins, shape = _bwd_args(q, k, v, bias, lse, g, delta, scale, bias.dim() == 3)
+    rc = _bwd_lib().af2_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *shape)
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return dk, dv
+
+
+def flash_bwd(q, k, v, bias, out, lse, g, scale):
+    """B1b: the backward of `flash_fwd` from its saved out and lse and the
+    cotangent g (BH, i, dh). The key-side bias gets no cotangent (masks are
+    data). Returns (dq, dk, dv) in the input dtype."""
+    if _on_cpu(q, k, v, bias, out, lse, g):
+        return flash_bwd_plain(q, k, v, bias, out, lse, g, scale)[:3]
+    _check_bwd(q, k, v, bias, None, False, out, lse, g)
+    args = (q, k, v, bias, lse) + cotangent_terms(out, g)[:2] + (scale,)
+    dq, _ = launch_dq(*args, "flash_bwd_dq")
+    dk, dv = launch_dkv(*args, "flash_bwd_dkv")
+    return dq, dk, dv
+
+
+def flash_bwd_fused(q, k, v, bias, gate, out, lse, g, scale):
+    """B2b: the backward of `flash_fwd_fused` from its saved (gated) out and
+    lse. Returns (dq, dk, dv, d_bias f32 for a 2-D bias else None, d_gate
+    for a gate else None)."""
+    bias2d = bias.dim() == 3
+    if not bias2d and gate is None:
+        raise ValueError("flash_bwd_fused needs a 2-D bias or a gate; use flash_bwd")
+    if _on_cpu(q, k, v, bias, gate, out, lse, g):
+        return flash_bwd_plain(q, k, v, bias, out, lse, g, scale, gate)
+    _check_bwd(q, k, v, bias, gate, bias2d, out, lse, g)
+    g, delta, d_gate = cotangent_terms(out, g, gate)
+    args = (q, k, v, bias, lse, g, delta, scale)
+    dq, d_bias = launch_dq(*args, "flash_bwd_fused_dq")
+    dk, dv = launch_dkv(*args, "flash_bwd_fused_dkv")
+    return dq, dk, dv, d_bias, d_gate

@@ -36,12 +36,12 @@ def predict_structure(params, cfg, tokens, *, mask=None, msa=None,
     (b, L), stress (b,) (the final normalised MDS stress) and
     distogram_logits (b, L, L, buckets) float32."""
     dev = resolve_device(device)
-    logits = alphafold2_apply(
-        params, cfg, tokens, msa, mask=mask, msa_mask=msa_mask,
-        embedds=embedds, device=dev,
-    )
     mask = as_device_tensor(mask, dev, torch.bool)
     with torch.inference_mode():
+        logits = alphafold2_apply(
+            params, cfg, tokens, msa, mask=mask, msa_mask=msa_mask,
+            embedds=embedds, device=dev,
+        )
         # geometry in float32 whatever the trunk dtype: it divides by
         # distances and small weights
         logits = logits.float()

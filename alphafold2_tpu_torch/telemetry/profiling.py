@@ -1,21 +1,27 @@
-"""Where one structure request's time goes on the card.
+"""Where one structure request's, or one training step's, time goes on the card.
 
     python -m alphafold2_tpu_torch.telemetry.profiling [--length 384] [--depth 2] [--gate]
+    python -m alphafold2_tpu_torch.telemetry.profiling --train [--length 128] [--depth 1]
 
-Runs the serving configuration (dim 256, heads 8, dim_head 64, bf16, a
-seeded 20-row MSA, 200 MDS iterations) through `predict_structure` on the
-GPU and reports, for one request of `--length` residues:
+Request (the default): runs the serving configuration (dim 256, heads 8,
+dim_head 64, bf16, a seeded 20-row MSA, 200 MDS iterations) through
+`predict_structure` on the GPU and reports, for one request of `--length`
+residues, the request time and the model forward's time (CUDA events,
+the mean of `--reps` runs after one warm-up; the rest is the distogram
+softmax, the geometry and the confidence).
 
-  * the request time and the model forward's time (CUDA events, the mean
-    of `--reps` runs after one warm-up); the rest is the distogram
-    softmax, the geometry and the confidence;
-  * from one run under `torch.profiler`: device time by kernel name and
-    by kind (the port's flash kernels, matrix products, the rest), and
-    the device's busy share of the request time measured without the
-    profiler.
+Train (`--train`): runs train_pre's step (`training/harness.py
+make_train_step`, dim 256, heads 8, dim_head 64, bf16, batch 1, 16
+microbatches, synthetic sequence-only batches at crop `--length`) and
+reports the step time (CUDA events, mean of `--reps` steps after one
+warm-up step).
 
-The record goes to `--out` as JSON. Needs a CUDA device; float32 matmuls
-and convolutions run in full float32 (TF32 off).
+Both: from one more run under `torch.profiler`, device time by kernel
+name and by kind (the port's flash forward and backward kernels, cuBLAS
+matrix products, the optimizer's fused updates, the rest), and the
+device's busy share of the time measured without the profiler. The
+record goes to `--out` as JSON. Needs a CUDA device; float32 matmuls and
+convolutions run in full float32 (TF32 off).
 """
 
 from __future__ import annotations
@@ -32,16 +38,27 @@ from alphafold2_tpu_torch.models.alphafold2 import alphafold2_apply, alphafold2_
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.ops import flash_kernel
 from alphafold2_tpu_torch.serving.pipeline import predict_structure
+from alphafold2_tpu_torch.training.data import DataConfig, synthetic_microbatch_fn
+from alphafold2_tpu_torch.training.harness import (
+    TrainConfig,
+    make_train_step,
+    train_state_init,
+)
 
 _GEMM_MARKERS = ("gemm", "cutlass", "xmma", "cublas", "nvjet", "sm90_")
+_OPTIMIZER_MARKERS = ("multi_tensor_apply", "foreach", "adam")
 
 
 def kernel_kind(name: str) -> str:
     low = name.lower()
     if "flash_fwd_" in low:
-        return "flash kernels (this port)"
+        return "flash forward (this port)"
+    if "flash_bwd_" in low:
+        return "flash backward (this port)"
     if any(m in low for m in _GEMM_MARKERS):
         return "matrix products (cuBLAS)"
+    if any(m in low for m in _OPTIMIZER_MARKERS):
+        return "optimizer (fused multi-tensor updates)"
     return "other (elementwise, reductions, softmax, eigh, copies)"
 
 
@@ -64,26 +81,33 @@ def _device_us(avg) -> float:
     return 0.0
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--length", type=int, default=384)
-    ap.add_argument("--depth", type=int, default=2)
-    ap.add_argument("--gate", action="store_true", help="attn_gate=True (the fused kernel)")
-    ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default="chiprun_out/profile_request.json")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profiling needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+def _profile(fn):
+    """Device time by kernel and by kind over one call of fn under
+    torch.profiler, and the flash launch counts of that call."""
+    flash_kernel.reset_launches()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = dict(flash_kernel.LAUNCHES)
+    kernels = [
+        {"name": a.key, "count": a.count, "device_ms": _device_us(a) / 1e3}
+        for a in prof.key_averages()
+        if a.device_type == torch.autograd.DeviceType.CUDA and _device_us(a) > 0
+    ]
+    kernels.sort(key=lambda k: -k["device_ms"])
+    kinds = {}
+    for k in kernels:
+        kind = kinds.setdefault(kernel_kind(k["name"]), {"device_ms": 0.0, "launches": 0})
+        kind["device_ms"] += k["device_ms"]
+        kind["launches"] += k["count"]
+    return kernels, kinds, launches
 
-    L = args.length
-    cfg = Alphafold2Config(dim=256, depth=args.depth, heads=8, dim_head=64,
+
+def _request(args):
+    L = args.length or 384
+    depth = args.depth or 2
+    cfg = Alphafold2Config(dim=256, depth=depth, heads=8, dim_head=64,
                            max_seq_len=L, dtype=torch.bfloat16, attn_gate=args.gate)
     params = alphafold2_init(cfg, torch.Generator().manual_seed(args.seed), "cuda")
     rng = np.random.default_rng(args.seed)
@@ -98,55 +122,90 @@ def main(argv=None):
                                  mds_iters=200, device="cuda")
 
     def forward():
-        return alphafold2_apply(params, cfg, tokens, msa, msa_mask=msa_mask, device="cuda")
+        with torch.inference_mode():
+            return alphafold2_apply(params, cfg, tokens, msa, msa_mask=msa_mask,
+                                    device="cuda")
 
     request()
     torch.cuda.synchronize()
     request_ms = _events_ms(request, args.reps)
     forward_ms = _events_ms(forward, args.reps)
-
-    flash_kernel.reset_launches()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        request()
-        torch.cuda.synchronize()
-    launches = dict(flash_kernel.LAUNCHES)
-    kernels = [
-        {"name": a.key, "count": a.count, "device_ms": _device_us(a) / 1e3}
-        for a in prof.key_averages()
-        if a.device_type == torch.autograd.DeviceType.CUDA and _device_us(a) > 0
-    ]
-    kernels.sort(key=lambda k: -k["device_ms"])
-    device_ms = sum(k["device_ms"] for k in kernels)
-    kinds = {}
-    for k in kernels:
-        kind = kinds.setdefault(kernel_kind(k["name"]), {"device_ms": 0.0, "launches": 0})
-        kind["device_ms"] += k["device_ms"]
-        kind["launches"] += k["count"]
-
-    record = {
-        "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+    print(f"[profile] L={L} depth={depth} gate={args.gate}: request {request_ms:.3f} ms, "
+          f"forward {forward_ms:.3f} ms, rest {request_ms - forward_ms:.3f} ms (CUDA events, "
+          f"mean of {args.reps})")
+    return request, request_ms, {
         "config": repr(cfg), "length": L, "msa_rows": 20, "mds_iters": 200,
         "request_ms": request_ms, "forward_ms": forward_ms,
         "rest_ms": request_ms - forward_ms,
-        "profiled_device_ms": device_ms,
-        "busy_share": device_ms / request_ms if kernels else None,
-        "kinds": kinds, "kernels": kernels[:25], "flash_launches": launches,
     }
+
+
+def _train(args):
+    L = args.length or 128
+    depth = args.depth or 1
+    cfg = Alphafold2Config(dim=256, depth=depth, heads=8, dim_head=64, max_seq_len=2048,
+                           dtype=torch.bfloat16, attn_gate=args.gate)
+    tcfg = TrainConfig(grad_accum=16)
+    state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(args.seed), "cuda")
+    step = make_train_step(cfg, tcfg, device="cuda")
+    batch = synthetic_microbatch_fn(DataConfig(max_len=L, seed=args.seed), 16)(0)
+
+    def train_step():
+        return step(state, batch)
+
+    train_step()
+    torch.cuda.synchronize()
+    step_ms = _events_ms(train_step, args.reps)
+    print(f"[profile] train step L={L} depth={depth} gate={args.gate} accum 16: "
+          f"{step_ms:.3f} ms (CUDA events, mean of {args.reps})")
+    return train_step, step_ms, {"config": repr(cfg), "length": L, "grad_accum": 16,
+                                 "step_ms": step_ms}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--train", action="store_true",
+                    help="profile one train_pre step instead of one request")
+    ap.add_argument("--length", type=int, default=None,
+                    help="residues (default 384 for a request, 128 for a train step)")
+    ap.add_argument("--depth", type=int, default=None,
+                    help="trunk depth (default 2 for a request, 1 for a train step)")
+    ap.add_argument("--gate", action="store_true", help="attn_gate=True (the fused kernels)")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None,
+                    help="JSON record (default chiprun_out/profile_{request,train}.json)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
     print(f"[profile] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off")
-    print(f"[profile] L={L} depth={args.depth} gate={args.gate}: request {request_ms:.3f} ms, "
-          f"forward {forward_ms:.3f} ms, rest {request_ms - forward_ms:.3f} ms (CUDA events, "
-          f"mean of {args.reps})")
+
+    fn, wall_ms, record = (_train if args.train else _request)(args)
+    kernels, kinds, launches = _profile(fn)
+    device_ms = sum(k["device_ms"] for k in kernels)
+    record.update({
+        "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+        "profiled_device_ms": device_ms,
+        "busy_share": device_ms / wall_ms if kernels else None,
+        "kinds": kinds, "kernels": kernels[:25], "flash_launches": launches,
+    })
     if not kernels:
         print("[profile] the profiler recorded no device time: kernel breakdown not measured")
     else:
         print(f"[profile] device time {device_ms:.3f} ms under the profiler; busy share "
-              f"{record['busy_share']:.3f} of the request time")
+              f"{record['busy_share']:.3f} of the time measured without it")
         for kind, v in sorted(kinds.items(), key=lambda kv: -kv[1]["device_ms"]):
             print(f"[profile]   {v['device_ms']:10.3f} ms {v['launches']:6d} launches  {kind}")
         for k in kernels[:12]:
             print(f"[profile]   {k['device_ms']:10.3f} ms {k['count']:6d} x  {k['name'][:90]}")
-    out = Path(args.out)
+    print(f"[profile] flash launches {launches}")
+    out = Path(args.out or f"chiprun_out/profile_{'train' if args.train else 'request'}.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1))
     return record

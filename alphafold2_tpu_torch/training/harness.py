@@ -1,0 +1,228 @@
+"""Distogram pretraining step (counterpart of the single-device
+`make_train_step` of alphafold2_tpu/training/harness.py).
+
+The JAX step is one jitted program: a `lax.scan` over microbatches, their
+gradients, one optax update. Here it is a Python loop of eager forward and
+backward passes (autograd accumulates the microbatch gradients into
+`.grad`), then one update:
+
+  * the loss and the gradients are the mean over microbatches; a leaf the
+    forward does not read (the MSA stream's, in sequence-only training)
+    gets a zero gradient, as `jax.grad` gives it;
+  * `grad_norm` is the global norm of the mean gradient, before clipping;
+  * the update is optax's `chain(clip_by_global_norm(max_norm),
+    adamw(schedule, weight_decay))`: the clip scales by max_norm / |g| only
+    when |g| >= max_norm (not `torch.nn.utils.clip_grad_norm_`, which
+    divides by |g| + 1e-6); then `torch.optim.AdamW`, whose bias
+    correction, eps placement and decoupled weight decay are optax's, at
+    the learning rate the schedule gives for the update count from 0 (a
+    warmup from 0 gives lr 0 on the first step).
+
+Not ported: the multi-device accumulation step (ROADMAP A13), fault
+injection and checkpointing (A12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import torch
+
+from alphafold2_tpu_torch.device import as_device_tensor, resolve_device, tree_leaves
+from alphafold2_tpu_torch.models.alphafold2 import alphafold2_apply, alphafold2_init
+from alphafold2_tpu_torch.models.config import Alphafold2Config
+from alphafold2_tpu_torch.training.losses import (
+    bucketed_distance_matrix,
+    distogram_cross_entropy,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    grad_accum: int = 16
+    max_grad_norm: Optional[float] = None  # None or <= 0: no clipping
+    weight_decay: float = 0.0
+    # warmup_steps ramps linearly 0 -> lr; decay_steps (if set) then
+    # cosine-decays to lr * decay_floor over that many post-warmup steps
+    warmup_steps: int = 0
+    decay_steps: Optional[int] = None
+    decay_floor: float = 0.0
+
+
+def _linear(count, steps, init, end):
+    """optax.linear_schedule: init -> end over `steps` updates, then held."""
+    if steps <= 0:
+        return init
+    frac = 1.0 - min(max(count, 0), steps) / steps
+    return (init - end) * frac + end
+
+
+def _cosine(count, steps, init, alpha):
+    """optax.cosine_decay_schedule: init -> init * alpha over `steps`."""
+    c = min(count, steps)
+    return init * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * c / steps)) + alpha)
+
+
+def make_schedule(tcfg: TrainConfig) -> Callable[[int], float]:
+    """lr(count) for the update count from 0, with optax's four branches:
+    constant; warmup then hold; cosine decay alone; warmup then cosine."""
+    lr, warm, decay = tcfg.learning_rate, tcfg.warmup_steps, tcfg.decay_steps
+    if decay is not None and not decay > 0:
+        raise ValueError(f"decay_steps must be positive, got {decay}")
+    if warm == 0 and decay is None:
+        return lambda count: lr
+    if decay is None:
+        return lambda count: _linear(count, warm, 0.0, lr)
+    if warm == 0:
+        return lambda count: _cosine(count, decay, lr, tcfg.decay_floor)
+    alpha = 0.0 if lr == 0.0 else (lr * tcfg.decay_floor) / lr
+    return lambda count: (_linear(count, warm, 0.0, lr) if count < warm
+                          else _cosine(count - warm, decay, lr, alpha))
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors])
+    )
+
+
+class ClippedAdamW:
+    """optax `chain(clip_by_global_norm(max_norm), adamw(schedule,
+    weight_decay))` over a list of leaves whose `.grad` holds the
+    gradient."""
+
+    def __init__(self, leaves, tcfg: TrainConfig):
+        self.leaves = list(leaves)
+        self.schedule = make_schedule(tcfg)
+        norm = tcfg.max_grad_norm
+        self.max_norm = norm if norm is not None and norm > 0 else math.inf
+        self.adamw = torch.optim.AdamW(
+            self.leaves, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=tcfg.weight_decay,
+        )
+
+    def step(self, count: int) -> torch.Tensor:
+        """Clip the leaves' gradients, then one AdamW update at lr =
+        schedule(count). Returns the global norm before clipping."""
+        grads = [p.grad for p in self.leaves]
+        norm = global_norm(grads)
+        if self.max_norm != math.inf:
+            keep = norm < self.max_norm
+            for g in grads:
+                g.copy_(torch.where(keep, g, g / norm * self.max_norm))
+        for group in self.adamw.param_groups:
+            group["lr"] = self.schedule(count)
+        self.adamw.step()
+        return norm
+
+
+def make_optimizer(tcfg: TrainConfig, leaves) -> ClippedAdamW:
+    return ClippedAdamW(leaves, tcfg)
+
+
+def train_state(params, tcfg: TrainConfig) -> dict:
+    """The train state of a parameter tree: the tree (its leaves now
+    require grad), the optimizer over its leaves, and the update count."""
+    leaves = list(tree_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    return {"params": params, "optimizer": make_optimizer(tcfg, leaves), "step": 0}
+
+
+def train_state_init(cfg: Alphafold2Config, tcfg: TrainConfig,
+                     generator: torch.Generator, device=None) -> dict:
+    """Fresh parameters from `generator` (a CPU generator) on `device`
+    (default CUDA; device="cpu" for the CPU) and their train state."""
+    return train_state(alphafold2_init(cfg, generator, resolve_device(device)), tcfg)
+
+
+def make_distogram_loss_fn(apply_fn):
+    """The distogram pretraining loss around any model apply function with
+    the alphafold2_apply signature. batch: {"seq": (b, L) int, "mask":
+    (b, L) bool, "coords": (b, L, 3)} (+ optional "msa", "msa_mask"), numpy
+    arrays or tensors."""
+
+    def loss_fn(params, cfg: Alphafold2Config, batch, rng=None, device=None):
+        dev = resolve_device(device)
+        mask = as_device_tensor(batch["mask"], dev, torch.bool)
+        labels = bucketed_distance_matrix(
+            as_device_tensor(batch["coords"], dev, torch.float32), mask
+        )
+        logits = apply_fn(
+            params, cfg, batch["seq"], batch.get("msa"), mask=mask,
+            msa_mask=batch.get("msa_mask"), rng=rng, device=dev,
+        )
+        return distogram_cross_entropy(logits, labels)
+
+    return loss_fn
+
+
+distogram_loss_fn = make_distogram_loss_fn(alphafold2_apply)
+
+
+def make_train_step(cfg: Alphafold2Config, tcfg: TrainConfig,
+                    loss_fn: Callable[..., Any] = distogram_loss_fn, device=None):
+    """`train_step(state, batch, rng=None) -> (state, metrics)`. batch
+    leaves carry a leading microbatch axis of length tcfg.grad_accum; rng
+    is an optional CPU generator for dropout. The state is updated in
+    place and returned; metrics are 0-d tensors on the device: "loss" (the
+    microbatch mean) and "grad_norm" (of the mean gradient, before
+    clipping)."""
+    dev = resolve_device(device)
+
+    def train_step(state, batch, rng=None):
+        n = tcfg.grad_accum
+        sizes = {len(v) for v in batch.values()}
+        if sizes != {n}:
+            raise ValueError(f"batch leaves must lead with grad_accum={n} microbatches, got {sizes}")
+        opt = state["optimizer"]
+        for p in opt.leaves:
+            p.grad = None
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        for index in range(n):
+            loss = loss_fn(state["params"], cfg, {k: v[index] for k, v in batch.items()},
+                           rng, dev)
+            loss.backward()
+            loss_sum += loss.detach()
+        for p in opt.leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            p.grad.div_(n)
+        grad_norm = opt.step(state["step"])
+        state["step"] += 1
+        return state, {"loss": loss_sum / n, "grad_norm": grad_norm}
+
+    return train_step
+
+
+def add_train_args(ap):
+    """The optimizer/schedule/seed argparse block of the JAX trainers."""
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="base seed for params, data, and per-step rng")
+    ap.add_argument("--warmup-steps", type=int, default=0,
+                    help="linear lr warmup steps (0 = constant lr)")
+    ap.add_argument("--decay-steps", type=int, default=None,
+                    help="cosine-decay the lr over this many post-warmup steps")
+    ap.add_argument("--decay-floor", type=float, default=0.0,
+                    help="cosine decay ends at lr * this fraction")
+    ap.add_argument("--max-grad-norm", type=float, default=None,
+                    help="global-norm gradient clipping (<=0 or unset: off)")
+    ap.add_argument("--weight-decay", type=float, default=0.0,
+                    help="AdamW weight decay (default 0 = plain Adam)")
+
+
+def tcfg_from_args(args, grad_accum: int) -> TrainConfig:
+    return TrainConfig(
+        learning_rate=args.lr,
+        grad_accum=grad_accum,
+        warmup_steps=args.warmup_steps,
+        decay_steps=args.decay_steps,
+        decay_floor=args.decay_floor,
+        max_grad_norm=args.max_grad_norm,
+        weight_decay=args.weight_decay,
+    )

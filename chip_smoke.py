@@ -3,15 +3,19 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a host with a CUDA device; it imports
-nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
+nothing of JAX or of the JAX package. Phases (any failure exits non-zero;
+each phase prints its seconds):
 
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
      float32 matmuls and convolutions are set to full float32 (TF32 off);
-  2. the build: every CUDA source of the port, compiled from the checkout;
+  2. the build: every CUDA source of the port, compiled from the checkout
+     (one nvcc per source, all started together);
   3. each kernel against its plain PyTorch version on the same inputs, at
-     the main path's attention shapes (L = 384, bf16) and at ragged, fully
-     masked and float32 edge shapes, with kernel, plain, library and bound
-     times;
+     the main paths' attention shapes in bf16 and at ragged, fully masked
+     and float32 edge shapes, with kernel, plain, library and bound times:
+     the forwards at the serving shapes (L = 384), the backwards (B1b
+     ungated, B2b gated, one 2-D-bias case) at the training shapes (pair
+     axial at L = 128 and 256);
   4. the main path through `predict_structure`:
      (a) one request at L = 64 in float32 on the card and on the CPU with
          the same parameters: logits, confidence, stress and distances;
@@ -22,14 +26,28 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
          trunk layer);
      (c) the same with attn_gate=True at depth 1, where the fused kernel
          carries every attention;
-  5. a `kernels` JSON line, the card line, and the final `ok` JSON line.
+  6. the training path through `make_train_step` (train_pre's step):
+     (a) dim 256, depth 2, heads 8, dim_head 64, L = 64, accum 2, f32, 3
+         steps on the card and on the CPU from the same params and
+         batches: loss, grad_norm, the first step's gradients leaf by leaf,
+         the params after 3 steps;
+     (b) train_pre's defaults in bf16 (dim 256, depth 1, heads 8, dim_head
+         64, batch 1, accum 16) at L = 128 and 256: one untimed step, 5
+         timed ones; step ms, MFU, peak memory, finite nonzero gradients,
+         and 2 * depth * accum launches of each kernel per step;
+     (c) the same with attn_gate=True at L = 128: the fused pair only;
+     (d) 30 steps on one repeated batch at lr 1e-3 lower the loss;
+  5. a `kernels` JSON line (the two forwards and the four backward
+     kernels), the card line, and the final `ok` JSON line.
 
 A detailed record goes to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -45,14 +63,28 @@ sys.path.insert(0, str(ROOT))
 import alphafold2_tpu_torch  # noqa: E402
 from alphafold2_tpu_torch import Alphafold2Config, alphafold2_init, predict_structure  # noqa: E402
 from alphafold2_tpu_torch.ops import cuda_build, flash_kernel  # noqa: E402
+from alphafold2_tpu_torch.training.data import DataConfig, synthetic_microbatch_fn  # noqa: E402
+from alphafold2_tpu_torch.training.harness import (  # noqa: E402
+    TrainConfig,
+    make_train_step,
+    train_state_init,
+)
+from alphafold2_tpu_torch.utils.flops import train_step_flops  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / f32 (no TF32)
 BF16_ULP = 2.0 ** -7        # bf16 spacing relative to the value, upper bound
-KERNEL_SOURCE = "alphafold2_tpu_torch/csrc/flash_fwd.cu"
+SOURCES = {
+    "flash_fwd": "alphafold2_tpu_torch/csrc/flash_fwd.cu",
+    "flash_bwd": "alphafold2_tpu_torch/csrc/flash_bwd.cu",
+}
 REPLACES = {
     "flash_fwd": "alphafold2_tpu/ops/flash_kernel.py:197",
     "flash_fwd_fused": "alphafold2_tpu/ops/flash_kernel.py:579",
+    "flash_bwd_dq": "alphafold2_tpu/ops/flash_kernel.py:389",
+    "flash_bwd_dkv": "alphafold2_tpu/ops/flash_kernel.py:401",
+    "flash_bwd_fused_dq": "alphafold2_tpu/ops/flash_kernel.py:753",
+    "flash_bwd_fused_dkv": "alphafold2_tpu/ops/flash_kernel.py:772",
 }
 RECORD = {"phases": {}}
 
@@ -277,6 +309,214 @@ def phase_kernels():
     return rows
 
 
+# --- phase 3, backward: the backward kernels against their plain versions ---------
+
+
+def bwd_bound_terms(q, k, bias, dq_side):
+    """The floors of one backward kernel, in ms. Operations: the dq kernel
+    needs S, dP and dQ (6 * BH * i * j * dh), the dkv kernel S, dP, dK and
+    dV (8 * ...); the pair's floor is 10 (S and dP once). Bytes: q, k, v,
+    dO, lse, delta and the bias read once, its outputs (dq and d_bias, or
+    dk and dv) written once."""
+    BH, i, dh = q.shape
+    j = k.shape[1]
+    el = q.element_size()
+    inputs = (2 * BH * i * dh + 2 * BH * j * dh) * el + 2 * BH * i * 4 + bias.numel() * 4
+    if dq_side:
+        ops = 6.0 * BH * i * j * dh
+        nbytes = inputs + BH * i * dh * el + (bias.numel() * 4 if bias.dim() == 3 else 0)
+    else:
+        ops = 8.0 * BH * i * j * dh
+        nbytes = inputs + 2 * BH * j * dh * el
+    return ops / PEAK_FLOPS[q.dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def flash_bwd_bf16_bound(q, k, v, bias, out, lse, g, scale, gate=None):
+    """Elementwise bound on |bf16 kernel - flash_bwd_plain| for (dq, dk,
+    dv). The kernels round dS (and P, for dv) to bf16 before their
+    products, a relative error of at most 2^-8 per element (half an ulp
+    of bf16's 8-bit significand), so a sum moves by at most 2^-8 times the
+    same sum over absolute values; then each side rounds its f32 result to
+    bf16 once, and two values that straddle a rounding boundary land one
+    bf16 ulp apart (at most 2^-7 of the value). So dq: 2^-8 scale |dS|
+    |K|, dk: 2^-8 scale |dS|^T |Q|, dv: 2^-8 P^T |dO|, each plus 2^-7 |ref|.
+    The f32 accumulation orders differ by ~2^-23 of the same absolute
+    sums, inside the bound. Returns three f32 tensors."""
+    BH, i, dh = q.shape
+    ref_dq, ref_dk, ref_dv, _, _ = flash_kernel.flash_bwd_plain(q, k, v, bias, out, lse, g,
+                                                                scale, gate)
+    g, delta, _ = flash_kernel.cotangent_terms(out, g, gate)
+    bdq = torch.empty((BH, i, dh), dtype=torch.float32, device=q.device)
+    bdk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    bdv = torch.zeros_like(bdk)
+    ka = k.float().abs()
+    for r0, r1, qs, gs, p, ds in flash_kernel.bwd_tiles(q, k, v, bias, lse, g, delta, scale):
+        ds = ds.abs()
+        bdq[:, r0:r1] = torch.bmm(ds, ka) * scale
+        bdk += torch.bmm(ds.transpose(1, 2), qs.abs()) * scale
+        bdv += torch.bmm(p.transpose(1, 2), gs.abs())
+    return tuple(2.0 ** -8 * b + BF16_ULP * r.float().abs()
+                 for b, r in ((bdq, ref_dq), (bdk, ref_dk), (bdv, ref_dv)))
+
+
+def sdpa_backward_ms(q, k, v, bias, g, scale, wrt, reps):
+    """The backward alone of F.scaled_dot_product_attention with the same
+    additive mask, for the gradients `wrt` ("q", "kv" or "qkv"), on a
+    retained graph (a yardstick; the port never calls it). None when no fused
+    backend takes the shape."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    BH, i, _ = q.shape
+    j = k.shape[1]
+    q4, k4, v4 = (t.detach().unsqueeze(0).requires_grad_() for t in (q, k, v))
+    mask = bias.to(q.dtype)
+    mask = (mask if mask.dim() == 3 else mask[:, None, :].expand(BH, i, j))[None]
+    fused_only = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                  SDPBackend.CUDNN_ATTENTION]
+    inputs = {"q": (q4,), "kv": (k4, v4), "qkv": (q4, k4, v4)}[wrt]
+    try:
+        with sdpa_kernel(fused_only):
+            out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)
+            return time_ms(lambda: torch.autograd.grad(out, inputs, g[None],
+                                                       retain_graph=True), reps)
+    except RuntimeError as e:  # no fused backend takes this shape: no yardstick
+        log(f"[bwd]   library: none ({str(e).splitlines()[0][:100]})")
+        return None
+
+
+def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
+              bias2d=False):
+    """One backward pair (B1b when neither gated nor bias2d, else B2b) on
+    the forward kernel's out and lse, against flash_bwd_plain.
+
+    Tolerances: f32, 1e-5 * max(1, max|ref|) per output (both in f32,
+    another summation order). bf16, elementwise, flash_bwd_bf16_bound:
+    2^-8 times the absolute sum behind each output (the kernels round dS
+    and P to bf16, half an ulp, before their products) plus one bf16 ulp
+    of the output (2^-7 of it: the two sides round their f32 results once
+    each). d_bias
+    is f32 on both sides: 1e-5 * max(1, max|ref|). d_gate is the same
+    elementwise code on both sides: equal."""
+    q, k, v, bias, gate = make_inputs(BH, i, j, dh, dtype, masked_bh=masked_bh,
+                                      gated=gated, bias2d=bias2d, seed=3)
+    scale = dh ** -0.5
+    fused = gated or bias2d
+    if fused:
+        out, lse = flash_kernel.flash_fwd_fused(q, k, v, bias, scale, gate)
+    else:
+        out, lse = flash_kernel.flash_fwd(q, k, v, bias, scale)
+    g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda").to(dtype)
+    names = (("flash_bwd_fused_dq", "flash_bwd_fused_dkv") if fused
+             else ("flash_bwd_dq", "flash_bwd_dkv"))
+    before = {n: flash_kernel.LAUNCHES[n] for n in names}
+    if fused:
+        dq, dk, dv, d_bias, d_gate = flash_kernel.flash_bwd_fused(
+            q, k, v, bias, gate, out, lse, g, scale)
+    else:
+        (dq, dk, dv), d_bias, d_gate = flash_kernel.flash_bwd(
+            q, k, v, bias, out, lse, g, scale), None, None
+    sync()
+    if any(flash_kernel.LAUNCHES[n] != before[n] + 1 for n in names):
+        fail(f"{names} did not count their launches")
+    ref = flash_kernel.flash_bwd_plain(q, k, v, bias, out, lse, g, scale, gate)
+    sync()
+    if dtype == torch.float32:
+        bounds = [1e-5 * max(1.0, r.abs().max().item()) for r in ref[:3]]
+    else:
+        bounds = flash_bwd_bf16_bound(q, k, v, bias, out, lse, g, scale, gate)
+    errs, ratios = [], []
+    for got, want, bound in zip((dq, dk, dv), ref[:3], bounds):
+        diff = (got.float() - want.float()).abs()
+        bound = torch.as_tensor(bound, device=diff.device)
+        errs.append(diff.max().item())
+        # |d| / bound, with 0 / 0 (a gradient that is 0 on both sides) as 0
+        ratio = torch.where(bound > 0, diff / bound, torch.where(diff > 0, math.inf, 0.0))
+        ratios.append(ratio.max().item())
+    ok = all(r <= 1.0 for r in ratios) and all(
+        bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+    row = {"kernel": names[0].rsplit("_", 1)[0], "case": label, "shape": [BH, i, j, dh],
+           "dtype": str(dtype), "dq_err": errs[0], "dkv_err": max(errs[1:]),
+           "bound_ratio": max(ratios)}
+    if bias2d:
+        db_err = (d_bias - ref[3]).abs().max().item()
+        ok = ok and db_err <= 1e-5 * max(1.0, ref[3].abs().max().item())
+        row["dq_err"] = max(row["dq_err"], db_err)
+        row["d_bias_err"] = db_err
+    if gated:
+        ok = ok and torch.equal(d_gate, ref[4])
+    for b in masked_bh:
+        ok = ok and all(bool((t[b] == 0).all()) for t in (dq, dk, dv))
+    row["ok"] = bool(ok)
+    if timed:
+        g_eff, delta, _ = flash_kernel.cotangent_terms(out, g, gate)
+        args = (q, k, v, bias, lse, g_eff, delta, scale)
+        reps = 10
+        row["dq_ms"] = time_ms(lambda: flash_kernel.launch_dq(*args, names[0]), reps)
+        row["dkv_ms"] = time_ms(lambda: flash_kernel.launch_dkv(*args, names[1]), reps)
+        row["dq_plain_ms"] = time_ms(lambda: flash_kernel.flash_bwd_dq_plain(*args), 2)
+        row["dkv_plain_ms"] = time_ms(lambda: flash_kernel.flash_bwd_dkv_plain(*args), 2)
+        # the gate acts outside the kernels (cotangent_terms): fed g_eff, the
+        # SDPA backward computes what they compute, gated or not
+        lib_q = sdpa_backward_ms(q, k, v, bias, g_eff, scale, "q", reps)
+        lib_kv = sdpa_backward_ms(q, k, v, bias, g_eff, scale, "kv", reps)
+        row["dq_library_ms"], row["dkv_library_ms"] = lib_q, lib_kv
+        for side, dq_side in (("dq", True), ("dkv", False)):
+            t_ops, t_bytes = bwd_bound_terms(q, k, bias, dq_side)
+            row[f"{side}_ops_ms"], row[f"{side}_bytes_ms"] = t_ops, t_bytes
+            row[f"{side}_bound_ms"] = max(t_ops, t_bytes)
+        BHij = float(BH) * i * j * dh
+        el = q.element_size()
+        # q and dO read, dq written; k and v read, dk and dv written; lse
+        # and delta read; the bias read (and d_bias written)
+        pair_bytes = ((3 * BH * i * dh + 4 * BH * j * dh) * el + 2 * BH * i * 4
+                      + bias.numel() * 4 * (2 if bias2d else 1))
+        row["kernel_ms"] = row["dq_ms"] + row["dkv_ms"]
+        row["plain_ms"] = row["dq_plain_ms"] + row["dkv_plain_ms"]
+        row["library_ms"] = (None if lib_q is None
+                             else sdpa_backward_ms(q, k, v, bias, g_eff, scale, "qkv", reps))
+        row["bound_ms"] = max(10 * BHij / PEAK_FLOPS[dtype], pair_bytes / HBM_BYTES_PER_S) * 1e3
+        row["kernel_ops_ms"] = 14 * BHij / PEAK_FLOPS[dtype] * 1e3
+    times = "".join(
+        f" {key}={row[key]:.3f}" for key in ("dq_ms", "dkv_ms", "plain_ms", "library_ms",
+                                             "bound_ms") if row.get(key) is not None
+    )
+    log(f"[bwd] {row['kernel']:15s} {label:24s} {str(tuple(row['shape'])):24s} "
+        f"{str(dtype).split('.')[-1]:8s} dq|d|={row['dq_err']:.3e} dkv|d|={row['dkv_err']:.3e} "
+        f"(bound ratio {row['bound_ratio']:.3f}){times} {'ok' if ok else 'FAIL'}")
+    del q, k, v, bias, gate, out, lse, g, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_bwd_kernels():
+    rows = []
+    for L in (128, 256):
+        BH = L * 8  # pair axial: L rows of the L x L grid, 8 heads
+        rows.append(check_bwd(f"pair axial L={L}", BH, L, L, 64, torch.bfloat16, timed=True))
+        rows.append(check_bwd(f"pair axial L={L} gated", BH, L, L, 64, torch.bfloat16,
+                              timed=True, gated=True))
+    rows.append(check_bwd("pair axial L=128 bias2d", 1024, 128, 128, 64, torch.bfloat16,
+                          timed=True, bias2d=True))
+    edges = [
+        ("ragged", 5, 131, 77, 64, torch.bfloat16, (1,)),
+        ("ragged f32", 5, 131, 77, 64, torch.float32, (1,)),
+        ("tiny i, long j", 3, 7, 1000, 32, torch.float32, ()),
+        ("dh16 masked", 4, 20, 20, 16, torch.bfloat16, (0, 3)),
+    ]
+    for label, BH, i, j, dh, dtype, masked in edges:
+        for gated, bias2d, suffix in ((False, False, ""), (True, False, " gated"),
+                                      (False, True, " bias2d"), (True, True, " gated bias2d")):
+            rows.append(check_bwd(label + suffix, BH, i, j, dh, dtype, timed=False,
+                                  masked_bh=masked, gated=gated, bias2d=bias2d))
+    RECORD["bwd_kernels"] = rows
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} backward check(s) disagree with the plain version: "
+             + ", ".join(f"{r['kernel']} {r['case']}" for r in bad))
+    return rows
+
+
 # --- phase 4: the main path -------------------------------------------------------
 
 
@@ -332,8 +572,10 @@ def phase_cpu_vs_card():
 
 def serve_requests(label, cfg, lengths, expect):
     """Drive predict_structure over one request per length; counts are set
-    to 0 just before and read just after. One untimed request first, so the
+    to 0 just before and read just after (`expect` names the kernels that
+    launch; every other kernel must not). One untimed request first, so the
     first timed one does not pay the libraries' first-call set-up."""
+    expect = {name: expect.get(name, 0) for name in flash_kernel.LAUNCHES}
     params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda")
     reqs = [request_inputs(L, 20, seed=10 + n) for n, L in enumerate(lengths)]
     tokens, msa, msa_mask = reqs[0]
@@ -391,12 +633,207 @@ def phase_main():
     return {"flash_fwd": served["flash_fwd"], "flash_fwd_fused": gated["flash_fwd_fused"]}
 
 
+# --- phase 6: the training path ---------------------------------------------------
+
+# leaves the sequence-only distogram path does not read: the MSA stream's
+# and the embedding projection's (their gradient is exactly 0, as in JAX)
+UNREAD_ON_SEQUENCE_PATH = ("msa_pos_emb", "msa_num_pos_emb", "embedd_project",
+                           "msa_attn", "seq_cross", "msa_cross", "msa_ff")
+
+
+def named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for key, val in tree.items():
+            yield from named_leaves(val, f"{prefix}{key}.")
+    elif isinstance(tree, (list, tuple)):
+        for n, val in enumerate(tree):
+            yield from named_leaves(val, f"{prefix}{n}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def phase_train_parity():
+    """(a) The same params and batches on the card and the CPU, f32.
+    Tolerances: loss 1e-5 absolute and grad_norm 1e-5 relative (the same
+    f32 function summed in another order: kernels vs CPU matmuls and the
+    CPU's dense attention); each first-step gradient leaf 1e-4 of that
+    leaf's largest entry (a leaf the path does not read must be exactly 0
+    on both); params after 3 steps 1e-5, except entries of a read leaf
+    whose first-step gradient is at most 1e-3 of the leaf's largest, which
+    may differ by 2 * lr * 3: Adam normalises each entry's step to about lr
+    whatever the gradient's size, so an entry whose gradient is rounding
+    noise can step +lr on one side and -lr on the other. The count of such
+    entries, and of entries past 1e-6, is recorded beside it."""
+    cfg = Alphafold2Config(dim=256, depth=2, heads=8, dim_head=64, max_seq_len=2048)
+    tcfg = TrainConfig(grad_accum=2)
+    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=64, seed=5), 2)
+    states = {dev: train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), dev)
+              for dev in ("cuda", "cpu")}
+    steps = {dev: make_train_step(cfg, tcfg, device=dev) for dev in states}
+    flash_kernel.reset_launches()
+    per_step, grad_ratio, small_grad = [], 0.0, []
+    for n in range(3):
+        batch = fetch(n)
+        m = {dev: {k: float(v) for k, v in steps[dev](states[dev], batch)[1].items()}
+             for dev in states}
+        per_step.append({"loss": m["cuda"]["loss"], "loss_cpu": m["cpu"]["loss"],
+                         "grad_norm": m["cuda"]["grad_norm"],
+                         "grad_norm_cpu": m["cpu"]["grad_norm"]})
+        if n == 0:  # no clipping: the leaves' .grad is the mean gradient
+            for gl, cl in zip(states["cuda"]["optimizer"].leaves,
+                              states["cpu"]["optimizer"].leaves):
+                d = (gl.grad.cpu() - cl.grad).abs().max().item()
+                scale_ = cl.grad.abs().max().item()
+                # a leaf the path does not read (gradient 0 on both) is held tight
+                small_grad.append(cl.grad.abs() <= 1e-3 * scale_ if scale_
+                                  else torch.zeros_like(cl.grad, dtype=torch.bool))
+                grad_ratio = max(grad_ratio, d / (1e-4 * scale_) if scale_ else
+                                 (0.0 if d == 0 else float("inf")))
+    sync()
+    launches = dict(flash_kernel.LAUNCHES)
+    d_params, d_noisy, past, n_noisy = 0.0, 0.0, 0, 0
+    for gp, cp, noisy in zip(states["cuda"]["optimizer"].leaves,
+                             states["cpu"]["optimizer"].leaves, small_grad):
+        d = (gp.detach().cpu() - cp.detach()).abs()
+        d_params = max(d_params, d[~noisy].max().item() if (~noisy).any() else 0.0)
+        d_noisy = max(d_noisy, d[noisy].max().item() if noisy.any() else 0.0)
+        past += int((d > 1e-6).sum())
+        n_noisy += int(noisy.sum())
+    d_loss = max(abs(r["loss"] - r["loss_cpu"]) for r in per_step)
+    d_norm = max(abs(r["grad_norm"] - r["grad_norm_cpu"]) / r["grad_norm_cpu"] for r in per_step)
+    noisy_tol = 2 * tcfg.learning_rate * 3
+    ok = (d_loss <= 1e-5 and d_norm <= 1e-5 and grad_ratio <= 1.0 and d_params <= 1e-5
+          and d_noisy <= noisy_tol)
+    log(f"[train a] L=64 f32 depth 2, 3 steps, card vs cpu: loss |d|={d_loss:.2e} (1e-5), "
+        f"grad_norm rel={d_norm:.2e} (1e-5), first-step grads worst/tol={grad_ratio:.3f}, "
+        f"params |d|={d_params:.2e} (1e-5; {past} entries past 1e-6), "
+        f"{n_noisy} entries with a rounding-level gradient |d|={d_noisy:.2e} ({noisy_tol:.1e}); "
+        f"losses {[round(r['loss'], 5) for r in per_step]}; launches {launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["train_parity"] = {"steps": per_step, "grad_ratio": grad_ratio,
+                                        "params_max_abs": d_params, "params_past_1e-6": past,
+                                        "small_grad_entries": n_noisy,
+                                        "small_grad_params_max_abs": d_noisy,
+                                        "launches": launches, "ok": ok}
+    if not ok:
+        fail("the card and the CPU disagree on the f32 training steps")
+    want = 2 * cfg.depth * tcfg.grad_accum * 3
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] != want:
+            fail(f"expected {want} {name} launches over 3 steps, got {launches}")
+
+
+def train_run(label, cfg, L, tcfg, timed_steps, expect):
+    """Drive make_train_step at length L: one untimed step, then
+    `timed_steps` timed ones (CUDA events) with the counts set to 0 just
+    before and read just after. Checks a finite loss, a finite nonzero
+    gradient on every leaf the path reads (exactly 0 on the others), and
+    `expect` launches of each kernel per step (0 of the rest)."""
+    state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    step = make_train_step(cfg, tcfg, device="cuda")
+    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, seed=7),
+                                    tcfg.grad_accum)
+    step(state, fetch(0))
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    flash_kernel.reset_launches()
+    times, metrics = [], []
+    for n in range(1, timed_steps + 1):
+        batch = fetch(n)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, m = step(state, batch)
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = dict(flash_kernel.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad_leaves = []
+    for name, leaf in named_leaves(state["params"]):
+        g = leaf.grad
+        unread = any(part in name.split(".") for part in UNREAD_ON_SEQUENCE_PATH)
+        if unread and bool((g != 0).any()):
+            bad_leaves.append(f"{name} (unread, nonzero)")
+        if not unread and not (bool(torch.isfinite(g).all()) and g.abs().max().item() > 0):
+            bad_leaves.append(name)
+    step_ms = sorted(times)[len(times) // 2]
+    flops = train_step_flops(cfg, L, 0, 0, grad_accum=tcfg.grad_accum)
+    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    per_step = {k: v / timed_steps for k, v in launches.items()}
+    row = {"L": L, "config": repr(cfg), "grad_accum": tcfg.grad_accum, "step_ms": times,
+           "median_step_ms": step_ms, "train_step_flops": flops, "mfu": mfu,
+           "peak_gib": peak, "metrics": metrics, "launches": launches,
+           "bad_leaves": bad_leaves}
+    log(f"[train {label}] L={L}: step {step_ms:.2f} ms median of {timed_steps} "
+        f"({', '.join(f'{t:.2f}' for t in times)}), MFU {mfu:.4f} of 989 TFLOP/s bf16 "
+        f"({flops / 1e12:.3f} TFLOP a step), peak {peak:.2f} GiB, loss "
+        f"{metrics[-1]['loss']:.4f}, grad_norm {metrics[-1]['grad_norm']:.4f}; "
+        f"launches per step {per_step}")
+    RECORD["phases"][f"train_{label}_L{L}"] = row
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics):
+        fail(f"training {label} L={L}: a non-finite loss or grad_norm")
+    if bad_leaves:
+        fail(f"training {label} L={L}: zero or non-finite gradients on {bad_leaves[:5]}")
+    for name, count in per_step.items():
+        if count != expect.get(name, 0):
+            fail(f"training {label} L={L}: {name} launched {count} times a step, "
+                 f"expected {expect.get(name, 0)}")
+    return launches
+
+
+def phase_train():
+    phase_train_parity()
+    tcfg = TrainConfig(grad_accum=16)
+    cfg = Alphafold2Config(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=2048,
+                           dtype=torch.bfloat16)
+    per = 2 * cfg.depth * tcfg.grad_accum  # two pair-axial attentions a layer
+    plain = {"flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per}
+    launches = {"flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for L in (128, 256):
+        counts = train_run("b", cfg, L, tcfg, 5, plain)
+        for name in launches:
+            launches[name] += counts[name]
+    gated = train_run("c", dataclasses.replace(cfg, attn_gate=True), 128, tcfg, 2,
+                      {"flash_fwd_fused": per, "flash_bwd_fused_dq": per,
+                       "flash_bwd_fused_dkv": per})
+    phase_overfit()
+    # the backward kernels' launches on the training path (the forwards'
+    # are the serving path's, phase 4)
+    return dict(launches, flash_bwd_fused_dq=gated["flash_bwd_fused_dq"],
+                flash_bwd_fused_dkv=gated["flash_bwd_fused_dkv"])
+
+
+def phase_overfit():
+    """(d) 30 steps on one repeated batch at lr 1e-3 lower the loss by more
+    than 0.3 (the JAX package's tests/test_training.py criterion)."""
+    cfg = Alphafold2Config(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=2048,
+                           dtype=torch.bfloat16)
+    tcfg = TrainConfig(learning_rate=1e-3, grad_accum=2)
+    state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    step = make_train_step(cfg, tcfg, device="cuda")
+    batch = synthetic_microbatch_fn(DataConfig(batch_size=2, max_len=64, seed=3), 2)(0)
+    losses = [float(step(state, batch)[1]["loss"]) for _ in range(30)]
+    ok = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0] - 0.3
+    log(f"[train d] overfit one batch, 30 steps at lr 1e-3: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} {'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["overfit"] = {"losses": losses, "ok": ok}
+    if not ok:
+        fail(f"30 steps on one batch did not lower the loss by 0.3: {losses}")
+
+
 # --- phase 5: the kernels line -----------------------------------------------------
 
 
-def kernels_line(rows, launches):
-    """One entry per kernel, its numbers summed over the main path's three
-    attention shapes at L = 384 in bf16 (one launch of each; B2f gated)."""
+def kernels_line(rows, bwd_rows, launches):
+    """One entry per kernel. Forwards: numbers summed over the serving
+    path's three attention shapes at L = 384 in bf16 (one launch of each;
+    B2f gated). Backwards: summed over the training path's pair-axial
+    shapes at L = 128 and 256 in bf16 (B1b ungated, B2b gated; each entry
+    the time of its own kernel, its own plain version, its own bound, and
+    the SDPA backward for the gradients it produces). Launches: from the
+    main paths' runs (serving for the forwards, training for the
+    backwards)."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r
@@ -406,7 +843,7 @@ def kernels_line(rows, launches):
         out.append({
             "name": name,
             "route": "cuda",
-            "source": KERNEL_SOURCE,
+            "source": SOURCES["flash_fwd"],
             "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in checked),
@@ -418,20 +855,47 @@ def kernels_line(rows, launches):
             >= sum(r["bytes_ms"] for r in timed) else "bytes",
             "library_ms": None if any(x is None for x in lib) else sum(lib),
         })
+    for name in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused_dq", "flash_bwd_fused_dkv"):
+        pair, side = name.rsplit("_", 1)
+        timed = [r for r in bwd_rows if r["kernel"] == pair and "dq_ms" in r
+                 and "bias2d" not in r["case"]]
+        checked = [r for r in bwd_rows if r["kernel"] == pair]
+        lib = [r[f"{side}_library_ms"] for r in timed]
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": SOURCES["flash_bwd"],
+            "replaces": REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": max(r[f"{side}_err"] for r in checked),
+            "ms": sum(r[f"{side}_ms"] for r in timed),
+            "plain_ms": sum(r[f"{side}_plain_ms"] for r in timed),
+            "bound_ms": sum(r[f"{side}_bound_ms"] for r in timed),
+            "bound_by": "operations" if sum(r[f"{side}_ops_ms"] for r in timed)
+            >= sum(r[f"{side}_bytes_ms"] for r in timed) else "bytes",
+            "library_ms": None if any(x is None for x in lib) else sum(lib),
+        })
     return out
 
 
 def main():
     t0 = time.perf_counter()
+    seconds = RECORD["phases"]
+
+    def timed_phase(key, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        seconds[f"{key}_s"] = time.perf_counter() - t
+        log(f"[time] {key}: {seconds[f'{key}_s']:.1f} s")
+        return result
+
     smi = phase_card()
     phase_build()
-    t = time.perf_counter()
-    rows = phase_kernels()
-    RECORD["phases"]["kernels_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    launches = phase_main()
-    RECORD["phases"]["main_s"] = time.perf_counter() - t
-    kernels = kernels_line(rows, launches)
+    rows = timed_phase("kernels", phase_kernels)
+    bwd_rows = timed_phase("bwd_kernels", phase_bwd_kernels)
+    launches = timed_phase("main", phase_main)
+    launches.update(timed_phase("train", phase_train))
+    kernels = kernels_line(rows, bwd_rows, launches)
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")

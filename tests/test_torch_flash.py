@@ -1,4 +1,4 @@
-"""Flash-attention forward, port vs JAX package (CPU, float32).
+"""Flash attention, port vs JAX package (CPU, float32).
 
 The port's plain versions of the CUDA kernels B1f (`flash_fwd`) and B2f
 (`flash_fwd_fused`) against the Pallas kernels they replace
@@ -6,14 +6,20 @@ The port's plain versions of the CUDA kernels B1f (`flash_fwd`) and B2f
 on the CPU as tests/test_flash_kernel.py runs them; and the (B, i, h, dh)
 dispatcher `flash_attention` against the JAX one. Out and lse are
 compared; fully masked rows must give zeros and lse = +inf on both sides.
+The backwards: B1b (`flash_bwd`) and B2b (`flash_bwd_fused`) on their
+plain route against `jax.vjp` of the Pallas kernels, and the gradients of
+the dispatcher against `jax.grad` of the JAX one.
 
 Tolerance: both sides compute the same f32 recurrence with other block
 sizes and summation orders over j <= 200 keys, ~1e-7 apart; the bound is
-2e-6 absolute on outputs and lse of magnitude <= ~6.
+2e-6 absolute on outputs and lse of magnitude <= ~6. Gradients (sums over
+i or j of products of such terms, magnitudes up to ~11): 2e-6 times
+max(1, the largest reference entry).
 
 The kernels themselves need the card: tests/test_torch_kernels_cuda.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -129,6 +135,142 @@ def test_dispatcher_matches_jax(mode):
     np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=0, atol=ATOL)
 
 
+def assert_grads(got, want):
+    for t, j in zip(got, want):
+        j = np.asarray(j)
+        atol = 2e-6 * max(1.0, float(np.abs(j).max()))
+        np.testing.assert_allclose(t.detach().numpy(), j, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize(
+    "BH,i,j,dh,masked",
+    [
+        (3, 16, 16, 16, ()),
+        (4, 37, 53, 16, ()),
+        (2, 130, 7, 32, ()),
+        (5, 21, 200, 16, (1, 3)),
+    ],
+    ids=["square", "ragged", "long-i", "masked-rows"],
+)
+def test_b1b_plain_matches_pallas_vjp(BH, i, j, dh, masked):
+    q, k, v, bias = folded_inputs(BH, i, j, dh, masked_bh=masked)
+    g = np.random.default_rng(9).normal(size=(BH, i, dh)).astype(np.float32)
+    scale = dh ** -0.5
+    _, vjp = jax.vjp(lambda q, k, v: jfk.flash_attention_tpu(q, k, v, bias, scale), q, k, v)
+    tq, tk, tv, tb, tg = map(torch.from_numpy, (q, k, v, bias, g))
+    out, lse = flash_kernel.flash_fwd(tq, tk, tv, tb, scale)
+    grads = flash_kernel.flash_bwd(tq, tk, tv, tb, out, lse, tg, scale)
+    assert_grads(grads, vjp(g))
+    for t in grads:  # fully masked rows: exact zeros, no NaN
+        assert torch.isfinite(t).all()
+        assert (t[list(masked)] == 0).all()
+
+
+@pytest.mark.parametrize(
+    "mode,i,j",
+    [("gate", 19, 45), ("bias2d", 33, 27), ("gate+bias2d", 40, 140)],
+)
+def test_b2b_plain_matches_pallas_vjp(mode, i, j):
+    """dq, dk, dv, d_bias (2-D mode) and d_gate against the Pallas fused
+    kernel's VJP, with a fully masked (bh) row and, in 2-D mode, a fully
+    masked query row."""
+    BH, dh = 3, 16
+    q, k, v, key_bias = folded_inputs(BH, i, j, dh, seed=2, masked_bh=(2,))
+    rng = np.random.default_rng(5)
+    gate = rng.normal(size=(BH, i, dh)).astype(np.float32) if "gate" in mode else None
+    if "bias2d" in mode:
+        bias = (rng.normal(size=(BH, i, j)) + key_bias[:, None, :]).astype(np.float32)
+        bias[0, 3] = NEG
+    else:
+        bias = key_bias
+    g = rng.normal(size=(BH, i, dh)).astype(np.float32)
+    scale = dh ** -0.5
+    primals = (q, k, v, bias) + ((gate,) if gate is not None else ())
+
+    def pallas(q, k, v, bias, gate=None):
+        return jfk.flash_attention_fused(q, k, v, bias, scale, gate=gate)
+
+    _, vjp = jax.vjp(pallas, *primals)
+    want = vjp(g)
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    out, lse = flash_kernel.flash_fwd_fused(t(q), t(k), t(v), t(bias), scale, gate=t(gate))
+    dq, dk, dv, d_bias, d_gate = flash_kernel.flash_bwd_fused(
+        t(q), t(k), t(v), t(bias), t(gate), out, lse, t(g), scale)
+    assert_grads((dq, dk, dv), want[:3])
+    if "bias2d" in mode:
+        assert_grads((d_bias,), want[3:4])
+        assert (d_bias[0, 3] == 0).all()
+    else:
+        assert d_bias is None
+    if gate is not None:
+        assert_grads((d_gate,), want[4:5])
+    else:
+        assert d_gate is None
+
+
+@pytest.mark.parametrize("mode", ["plain", "gate", "pair_bias", "gate+pair_bias"])
+def test_dispatcher_grads_match_jax(mode):
+    """Gradients of `flash_attention` (autograd through the plain blockwise
+    route, as JAX's `xla_ref` arm) against `jax.grad` of the JAX dispatcher
+    with the kernel off, through a fixed random cotangent."""
+    B, i, j, h, dh = 2, 14, 23, 2, 16
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(B, i, h, dh)).astype(np.float32)
+    k = rng.normal(size=(B, j, h, dh)).astype(np.float32)
+    v = rng.normal(size=(B, j, h, dh)).astype(np.float32)
+    key_bias = np.where(rng.random((B, j)) < 0.7, 0.0, NEG).astype(np.float32)
+    key_bias[:, 0] = 0.0
+    gate = rng.normal(size=(B, i, h, dh)).astype(np.float32) if "gate" in mode else None
+    pair = rng.normal(size=(B, h, i, j)).astype(np.float32) if "pair" in mode else None
+    cot = rng.normal(size=(B, i, h, dh)).astype(np.float32)
+    names = ["q", "k", "v"] + (["gate"] if gate is not None else []) \
+        + (["pair"] if pair is not None else [])
+    arrays = {"q": q, "k": k, "v": v, "gate": gate, "pair": pair}
+
+    def jloss(*xs):
+        a = dict(arrays, **dict(zip(names, xs)))
+        out = jflash.flash_attention(a["q"], a["k"], a["v"], key_bias, pair_bias=a["pair"],
+                                     gate=a["gate"], use_kernel=False, kv_block=8)
+        return jnp.sum(out * cot)
+
+    want = jax.grad(jloss, argnums=tuple(range(len(names))))(*(arrays[n] for n in names))
+    ts = {n: torch.from_numpy(arrays[n]).requires_grad_() for n in names}
+    out = flash_attention(ts["q"], ts["k"], ts["v"], torch.from_numpy(key_bias),
+                          pair_bias=ts.get("pair"), gate=ts.get("gate"), kv_block=8)
+    (out * torch.from_numpy(cot)).sum().backward()
+    assert_grads([ts[n].grad for n in names], want)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["b1", "b2-gate-pair"])
+def test_autograd_functions_route_through_the_wrappers(fused):
+    """The CUDA route's autograd.Functions, run on CPU tensors (their
+    wrappers take the plain route there): gradients equal autograd of the
+    dispatcher's plain route, with None for the key-side bias."""
+    from alphafold2_tpu_torch.ops.flash import _FlashKernel, _FusedFlashKernel
+
+    BH, i, j, dh = 3, 13, 17, 16
+    q, k, v, key_bias = map(torch.from_numpy, folded_inputs(BH, i, j, dh, masked_bh=(2,)))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    gen = torch.Generator().manual_seed(0)
+    gate = torch.randn(BH, i, dh, generator=gen).requires_grad_() if fused else None
+    pair = torch.randn(BH, i, j, generator=gen).requires_grad_() if fused else None
+    cot = torch.randn(BH, i, dh, generator=gen)
+    leaves = [q, k, v] + ([gate, pair] if fused else [])
+    scale = dh ** -0.5
+    if fused:
+        out = _FusedFlashKernel.apply(q, k, v, pair + key_bias[:, None, :], gate, scale)
+    else:
+        out = _FlashKernel.apply(q, k, v, key_bias, scale)
+    got = torch.autograd.grad(out, leaves, cot)
+    # the same attention through the dispatcher's plain route: B = BH, h = 1
+    ref = flash_attention(q[:, :, None], k[:, :, None], v[:, :, None], key_bias,
+                          pair_bias=None if pair is None else pair[:, None],
+                          gate=None if gate is None else gate[:, :, None], scale=scale)
+    want = torch.autograd.grad(ref[:, :, 0], leaves, cot)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
 def test_cpu_tensors_never_build_or_launch(monkeypatch):
     def no_build(*a, **k):
         raise AssertionError("a CPU call tried to build the CUDA kernels")
@@ -139,9 +281,12 @@ def test_cpu_tensors_never_build_or_launch(monkeypatch):
     q, k, v, bias = map(torch.from_numpy, folded_inputs(2, 9, 11, 16))
     flash_kernel.flash_fwd(q, k, v, bias, 0.25)
     flash_kernel.flash_fwd_fused(q, k, v, bias, 0.25, gate=q.clone())
-    flash_attention(q[None].transpose(1, 2), k[None].transpose(1, 2),
-                    v[None].transpose(1, 2))
-    assert flash_kernel.LAUNCHES == {"flash_fwd": 0, "flash_fwd_fused": 0}
+    out, lse = flash_kernel.flash_fwd(q, k, v, bias, 0.25)
+    flash_kernel.flash_bwd(q, k, v, bias, out, lse, q.clone(), 0.25)
+    flash_kernel.flash_bwd_fused(q, k, v, bias, q.clone(), out, lse, q.clone(), 0.25)
+    t = q[None].transpose(1, 2).requires_grad_()
+    flash_attention(t, k[None].transpose(1, 2), v[None].transpose(1, 2)).sum().backward()
+    assert set(flash_kernel.LAUNCHES.values()) == {0}
 
 
 def test_fold_gives_the_kernels_an_aligned_contiguous_copy():

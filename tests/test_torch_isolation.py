@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing every module of
 `alphafold2_tpu_torch` loads neither JAX nor any module of the JAX
-package, `chip_smoke.py` imports neither, and the entry points refuse to
-run quietly on the CPU of a host without CUDA."""
+package, `chip_smoke.py` imports neither, and the entry points (inference
+and training) refuse to run quietly on the CPU of a host without CUDA."""
 
 import ast
 import os
@@ -45,6 +45,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "alphafold2_tpu_torch.ops.flash_kernel" in res["modules"]
     assert "alphafold2_tpu_torch.predict" in res["modules"]
+    for name in ("train_pre", "training.harness", "training.losses", "training.data",
+                 "utils.flops", "telemetry.profiling"):
+        assert f"alphafold2_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
 
@@ -100,13 +103,42 @@ def test_entry_points_raise_without_cuda_instead_of_running_on_cpu(no_cuda):
     assert out["coords"].device.type == "cpu"
 
 
+def test_training_entry_points_raise_without_cuda(no_cuda):
+    from alphafold2_tpu_torch import train_pre
+    from alphafold2_tpu_torch.training import data, harness
+
+    cfg = Alphafold2Config(dim=16, depth=1, heads=2, dim_head=8, max_seq_len=16)
+    tcfg = harness.TrainConfig(grad_accum=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        harness.train_state_init(cfg, tcfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        harness.make_train_step(cfg, tcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_pre.main(["--steps", "1", "--dim", "16", "--heads", "2", "--dim-head", "8"])
+    state = harness.train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cpu")
+    batch = data.synthetic_microbatch_fn(data.DataConfig(max_len=8), 1)(0)
+    mb = {k: v[0] for k, v in batch.items()}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        harness.distogram_loss_fn(state["params"], cfg, mb)
+    # the explicit CPU request runs
+    _, metrics = harness.make_train_step(cfg, tcfg, device="cpu")(state, batch)
+    assert metrics["loss"].device.type == "cpu"
+
+
 def test_profiling_needs_a_card_and_sorts_kernels(no_cuda):
     from alphafold2_tpu_torch.telemetry import profiling
 
     with pytest.raises(SystemExit, match="CUDA device"):
         profiling.main(["--length", "8"])
     assert profiling.kernel_kind("void flash_fwd_bf16_mma_kernel<64, false, false>") \
-        .startswith("flash")
+        .startswith("flash forward")
+    assert profiling.kernel_kind("void flash_bwd_dkv_bf16_kernel<64, false>") \
+        .startswith("flash backward")
+    assert profiling.kernel_kind(
+        "void at::native::multi_tensor_apply_kernel<at::native::TensorListMetadata<4>>") \
+        .startswith("optimizer")
+    with pytest.raises(SystemExit, match="CUDA device"):
+        profiling.main(["--train", "--length", "8"])
     assert profiling.kernel_kind("sm90_xmma_gemm_bf16bf16_bf16f32").startswith("matrix")
     assert profiling.kernel_kind("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT").startswith("matrix")
     assert profiling.kernel_kind("void at::native::reduce_kernel<512, 1>").startswith("other")

@@ -78,3 +78,85 @@ def test_unsupported_shape_raises_on_card(cuda_device):
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)[1:].view_as(q)
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_kernel.flash_fwd(shifted, k, v, bias, 0.3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["plain", "gate", "bias2d", "gate+bias2d"])
+def test_backward_kernels_match_plain_on_card(cuda_device, dh, dtype, mode):
+    """Each backward kernel pair (B1b for "plain", B2b otherwise) against
+    `flash_bwd_plain` on the same inputs and the forward kernel's out and
+    lse. f32: 1e-5 * max(1, max|ref|) per output (both in f32, another
+    summation order). bf16: the elementwise bound of
+    `chip_smoke.flash_bwd_bf16_bound` (the kernels round dS and P to bf16 before their
+    products). d_bias is f32 on both sides: 1e-5 * max(1, max|ref|). d_gate
+    is the same elementwise code on both sides. The fully masked (bh) row 4
+    has zero gradients."""
+    BH, i, j = 6, 200, 77
+    q, k, v, bias = folded_inputs(BH, i, j, dh, cuda_device, masked_bh=(4,))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    gate = torch.randn_like(q) if "gate" in mode else None
+    if "bias2d" in mode:
+        bias = (torch.randn(BH, i, j, device=cuda_device) + bias[:, None, :]).contiguous()
+        bias[0, 3] = float("-inf")  # a fully masked query row
+    scale = dh ** -0.5
+    if mode == "plain":
+        out, lse = flash_kernel.flash_fwd(q, k, v, bias, scale)
+    else:
+        out, lse = flash_kernel.flash_fwd_fused(q, k, v, bias, scale, gate)
+    g = torch.randn_like(q)
+    before = dict(flash_kernel.LAUNCHES)
+    if mode == "plain":
+        dq, dk, dv = flash_kernel.flash_bwd(q, k, v, bias, out, lse, g, scale)
+        d_bias = d_gate = None
+        names = ("flash_bwd_dq", "flash_bwd_dkv")
+    else:
+        dq, dk, dv, d_bias, d_gate = flash_kernel.flash_bwd_fused(
+            q, k, v, bias, gate, out, lse, g, scale)
+        names = ("flash_bwd_fused_dq", "flash_bwd_fused_dkv")
+    torch.cuda.synchronize()
+    for name in names:
+        assert flash_kernel.LAUNCHES[name] == before[name] + 1
+    ref = flash_kernel.flash_bwd_plain(q, k, v, bias, out, lse, g, scale, gate)
+    if dtype == torch.float32:
+        bounds = [1e-5 * max(1.0, r.abs().max().item()) for r in ref[:3]]
+    else:
+        from chip_smoke import flash_bwd_bf16_bound
+
+        bounds = flash_bwd_bf16_bound(q, k, v, bias, out, lse, g, scale, gate)
+    for got, want, bound in zip((dq, dk, dv), ref[:3], bounds):
+        assert torch.isfinite(got).all()
+        assert ((got.float() - want.float()).abs() <= bound).all()
+    for got in (dq, dk, dv):
+        assert (got[4] == 0).all()
+    if "bias2d" in mode:
+        tol = 1e-5 * max(1.0, ref[3].abs().max().item())
+        assert (d_bias - ref[3]).abs().max().item() <= tol
+        assert (d_bias[0, 3] == 0).all()
+    else:
+        assert d_bias is None
+    if gate is not None:
+        assert torch.equal(d_gate, ref[4])
+
+
+@pytest.mark.cuda
+def test_backward_on_card_raises_instead_of_falling_back(cuda_device, monkeypatch):
+    """With the backward launch refused, loss.backward() on CUDA tensors
+    raises; it never takes the plain route."""
+    from alphafold2_tpu_torch.ops import flash
+
+    def refused(*args, **kwargs):
+        raise RuntimeError("backward kernel refused")
+
+    def plain_called(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached flash_bwd_plain")
+
+    monkeypatch.setattr(flash_kernel, "launch_dq", refused)
+    monkeypatch.setattr(flash_kernel, "flash_bwd_plain", plain_called)
+    q, k, v = (torch.randn(1, 16, 2, 16, device=cuda_device, requires_grad=True)
+               for _ in range(3))
+    for gate in (None, torch.randn(1, 16, 2, 16, device=cuda_device)):
+        out = flash.flash_attention(q, k, v, gate=gate)
+        with pytest.raises(RuntimeError, match="refused"):
+            out.sum().backward()

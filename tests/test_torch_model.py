@@ -120,8 +120,8 @@ def test_bf16_forward_runs_close():
 
 def test_not_ported_options_raise():
     for kw, item in [
-        (dict(reversible=True), "A6"),
-        (dict(remat=True), "A6"),
+        (dict(reversible=True), "A8"),
+        (dict(remat=True, remat_policy="dots"), "A6"),
         (dict(sparse_self_attn=True), "A10"),
         (dict(weight_dtype="int8"), "A9"),
         (dict(trunk_schedule="branch_parallel"), "A4"),
@@ -130,6 +130,7 @@ def test_not_ported_options_raise():
             Alphafold2Config(**SMALL, **kw)
     tcfg = Alphafold2Config(**SMALL, scan_layers=True)  # same math, a loop
     assert tcfg.scan_layers
+    assert Alphafold2Config(**SMALL, remat=True).remat  # ported: checkpointed layers
 
 
 def test_templates_raise():
