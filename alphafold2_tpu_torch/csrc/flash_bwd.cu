@@ -49,6 +49,8 @@
 // (flash_kernel.py:256-261, :291-294). The C fragments of S and dP are
 // reused in registers as the A fragments of those products, so P and dS
 // never touch shared or device memory (but d_bias, which is an output).
+// The tile helpers (load_a, stage, mma_abt, mma_ab, store_rows) live in
+// mma_bf16.cuh, shared with the block-sparse kernels (sparse_attn.cu).
 // wgmma, TMA and a pipelined ring are the next step.
 //
 // f32: one thread per owned row on the CUDA cores in f32 FMAs (the tensor
@@ -70,8 +72,12 @@
 
 namespace {
 
-using af2::mma_bf16;
-using af2::pack_bf16;
+using af2::kPad;
+using af2::load_a;
+using af2::mma_ab;
+using af2::mma_abt;
+using af2::stage;
+using af2::store_rows;
 
 // --- bf16: tensor cores ----------------------------------------------------
 
@@ -79,104 +85,6 @@ constexpr int kRows = 128;           // rows a block owns (queries or keys)
 constexpr int kWarps = kRows / 16;   // one m16 row slab per warp
 constexpr int kTileK = 64;           // dq kernel: keys staged per step
 constexpr int kTileQ = 32;           // dkv kernel: queries staged per step
-constexpr int kPad = 8;              // smem row padding, in elements
-
-// The A fragments of a warp's 16 rows (rows[h], h = 0: g, 1: g + 8) of a
-// row-major (n, DH) operand; rows past the end are zero.
-template <int DH>
-__device__ __forceinline__ void load_a(uint32_t (&a)[DH / 16][4],
-                                       const __nv_bfloat16* base,
-                                       const int64_t (&rows)[2],
-                                       const bool (&valid)[2], int t) {
-#pragma unroll
-  for (int s = 0; s < DH / 16; ++s) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int h = r & 1;  // a0, a2: row g; a1, a3: row g + 8
-      const int col = s * 16 + (r >> 1) * 8 + 2 * t;
-      a[s][r] = valid[h] ? *reinterpret_cast<const uint32_t*>(
-                               base + rows[h] * DH + col)
-                         : 0u;
-    }
-  }
-}
-
-// Copy `n` rows of a row-major (., DH) bf16 operand into a TILE-row shared
-// tile in 16-byte vectors; rows past n are zero (0 * anything is no NaN).
-template <int TILE, int DH>
-__device__ __forceinline__ void stage(__nv_bfloat16 (*dst)[DH + kPad],
-                                      const __nv_bfloat16* src, int n) {
-  constexpr int kVec = 8;  // bf16 per 16-byte load
-  for (int idx = threadIdx.x; idx < TILE * DH / kVec; idx += blockDim.x) {
-    const int row = idx / (DH / kVec);
-    const int col = (idx % (DH / kVec)) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n) {
-      val = *reinterpret_cast<const uint4*>(src + (int64_t)row * DH + col);
-    }
-    *reinterpret_cast<uint4*>(&dst[row][col]) = val;
-  }
-}
-
-// acc (16 x NT*8) = A (16 x DH) . tile^T: column c of the result is tile
-// row c (the S = Q K^T form).
-template <int DH, int NT>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4],
-                                        const uint32_t (&a)[DH / 16][4],
-                                        __nv_bfloat16 (*tile)[DH + kPad],
-                                        int g, int t) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-    for (int st = 0; st < DH / 16; ++st) {
-      const __nv_bfloat16* row = &tile[n * 8 + g][st * 16 + 2 * t];
-      mma_bf16(acc[n], a[st], *reinterpret_cast<const uint32_t*>(row),
-               *reinterpret_cast<const uint32_t*>(row + 8));
-    }
-  }
-}
-
-// acc (16 x DH) += P (16 x TILE, C fragments in f32, rounded to bf16 here)
-// . tile (TILE x DH) (the P V form).
-template <int DH, int TILE>
-__device__ __forceinline__ void mma_ab(float (&acc)[DH / 8][4],
-                                       const float (&p)[TILE / 8][4],
-                                       __nv_bfloat16 (*tile)[DH + kPad],
-                                       int g, int t) {
-#pragma unroll
-  for (int c = 0; c < TILE / 16; ++c) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * c][0], p[2 * c][1]),
-                            pack_bf16(p[2 * c][2], p[2 * c][3]),
-                            pack_bf16(p[2 * c + 1][0], p[2 * c + 1][1]),
-                            pack_bf16(p[2 * c + 1][2], p[2 * c + 1][3])};
-    const int r = c * 16 + 2 * t;
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      const int col = n * 8 + g;
-      mma_bf16(acc[n], pa, pack_bf16(tile[r][col], tile[r + 1][col]),
-               pack_bf16(tile[r + 8][col], tile[r + 9][col]));
-    }
-  }
-}
-
-// Write a warp's 16 x DH f32 accumulator, times `mul`, as bf16 rows.
-template <int DH>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base,
-                                           const float (&acc)[DH / 8][4],
-                                           const int64_t (&rows)[2],
-                                           const bool (&valid)[2], int t,
-                                           float mul) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (!valid[h]) continue;
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(base + rows[h] * DH + n * 8 + 2 * t) =
-          pack_bf16(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
-    }
-  }
-}
 
 template <int DH, bool BIAS2D>
 __global__ void __launch_bounds__(kWarps * 32)

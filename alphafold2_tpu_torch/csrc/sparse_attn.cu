@@ -1,0 +1,872 @@
+// Block-sparse attention kernels for Hopper (sm_90a), plain C interface.
+//
+// Replace the three Pallas TPU kernels of B5,
+// alphafold2_tpu/ops/sparse_kernel.py:
+//   * B5f  `block_sparse_attention_tpu` -> `_forward` -> `_fwd_kernel`;
+//   * B5dq `_backward_pallas` -> `_dq_kernel`;
+//   * B5dkv `_backward_pallas` -> `_dkv_kernel`.
+//
+// What they compute (the TPU kernels' contract). q, k, v (BH, n, dh) with n
+// = n_blocks * bs; a key-side additive bias (b, n) f32 (0 or -inf), row bh
+// reading bias row bh / heads; the block table idx (n_blocks, width) int32
+// and counts (n_blocks,) int32: query block r attends the key blocks
+// idx[r][0 .. counts[r]) (the valid slots come first in each row, so a row
+// walks its own count and never the padded width: with a global block the
+// width is n_blocks, a dense kernel's loop). The forward is a streaming
+// softmax over those blocks (f32 running max with the finite sentinel
+// -1e30, f32 sum and accumulator) that writes out in the input type and lse
+// = m + log(l) per row (+inf, with zeros out, for a row with no unmasked
+// key). The backward recomputes p = exp(scale q.k + bias - lse) (exactly 0
+// where lse = +inf: no fast-math), dp = dO.v, ds = p (dp - delta) with
+// delta = rowsum(dO * O) an input, and writes dq = scale sum ds k (dq
+// kernel, over the query block's active key blocks) and dk = scale sum ds
+// q, dv = sum p dO (dkv kernel, over the query blocks that attend the key
+// block, read from the key block's own table row: the layout is symmetric
+// by construction, alphafold2_tpu/ops/sparse.py:81). One writer per output
+// element, no atomics. The bias is a mask: no cotangent.
+//
+// What bounds them on an H100: 4 * BH * nnz * bs^2 * dh operations forward
+// and 10 * ... backward (nnz = active (query block, key block) pairs)
+// against q, k, v (and dO, dq, dk, dv) moved once. At the pair-axial shapes
+// (n = 384, bs = 16, dh = 64, 56% active) that is ~0.6 operations a byte
+// read: the floor is bytes. The kernels read each active key block once
+// per query block (the TPU kernel's pattern), ~nnz / n_blocks times the
+// floor's bytes, from L2 for the most part.
+//
+// bf16: each product runs on the tensor cores with `mma.sync.m16n8k16`
+// (bf16 in, f32 accumulate; helpers in mma_bf16.cuh). A block of 4 warps
+// owns 64 rows of one block index: the bs rows of 64 / bs heads when bs <=
+// 64 (so the default bs = 16 fills a 4-warp block with four heads that walk
+// the same table row), or one half of a 128-row block. Each warp owns 16
+// rows and keeps its A operands and f32 accumulators in registers; the
+// block streams sub-tiles (64 keys, or 32 queries in the dkv kernel, of
+// each of its heads, with their bias or lse and delta) through two
+// shared-memory buffers with cp.async, the next step's copies in flight
+// while the current step computes: with 16-key blocks a step is 16
+// products a warp, too little to hide a load's latency. P and dS are rounded to
+// bf16 before their products, as the TPU kernels round them
+// (sparse_kernel.py:123, :220, :259, :266), and stay in registers.
+//
+// f32: one thread per owned row on the CUDA cores in f32 FMAs (the tensor
+// cores would round to TF32), 32 rows a block, 16 streamed rows of each
+// head per step; it carries the f32 parity path only.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <math.h>
+#include <stdint.h>
+
+#include "mma_bf16.cuh"
+
+namespace {
+
+using af2::copy_async4;
+using af2::cp_async_commit;
+using af2::cp_async_wait;
+using af2::kPad;
+using af2::load_a;
+using af2::mma_ab;
+using af2::mma_abt;
+using af2::pack_bf16;
+using af2::stage_async;
+using af2::store_rows;
+
+constexpr float kM0 = -1e30f;  // running-max sentinel (TPU kernel's _M0)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Where a CTA's `rows` owned rows lie: `span` = min(bs, rows) consecutive
+// rows (from `first` within block `blk`) of each of `heads_per` = rows /
+// span consecutive heads from bh0; a block of more than `rows` rows is
+// split over bs / span CTAs.
+struct Geometry {
+  int64_t bh0;
+  int64_t blk;
+  int span;
+  int heads_per;
+  int first;
+  __device__ Geometry(int rows, int bs, int64_t n_blocks) {
+    span = bs < rows ? bs : rows;
+    heads_per = rows / span;
+    const int halves = bs / span;
+    int64_t x = blockIdx.x;
+    first = (int)(x % halves) * span;
+    x /= halves;
+    blk = x % n_blocks;
+    bh0 = (x / n_blocks) * heads_per;
+  }
+};
+
+int64_t grid_size(int64_t bh, int64_t n_blocks, int rows, int bs) {
+  const int span = bs < rows ? bs : rows;
+  const int heads_per = rows / span;
+  return (bh + heads_per - 1) / heads_per * n_blocks * (bs / span);
+}
+
+// --- bf16: tensor cores ----------------------------------------------------
+
+constexpr int kRows = 64;            // rows a block owns
+constexpr int kWarps = kRows / 16;   // one m16 row slab per warp
+
+// Issue the asynchronous copies of SUB rows from row `row0` of every head
+// of the CTA (zeros for heads past bh_total) into tile rows hg * SUB.
+template <int SUB, int DH>
+__device__ __forceinline__ void stage_heads(__nv_bfloat16 (*dst)[DH + kPad],
+                                            const __nv_bfloat16* src,
+                                            const Geometry& geo,
+                                            int64_t bh_total, int64_t n,
+                                            int64_t row0) {
+  for (int hg = 0; hg < geo.heads_per; ++hg) {
+    const int64_t bhs = geo.bh0 + hg;
+    const bool ok = bhs < bh_total;
+    stage_async<SUB, DH>(dst + hg * SUB, src + ((ok ? bhs : 0) * n + row0) * DH,
+                         ok ? SUB : 0);
+  }
+}
+
+// Issue the copies of one f32 row vector entry a head: vec[bhs * n + row0 +
+// i % SUB] (or, by_batch, vec[bhs / heads * n + ...], the key bias) into
+// dst[i] for i < heads_per * SUB; zeros for heads past bh_total, which only
+// their own (idle) warps read.
+template <int SUB>
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* vec,
+                                               const Geometry& geo,
+                                               int64_t bh_total, int64_t heads,
+                                               bool by_batch, int64_t n,
+                                               int64_t row0) {
+  for (int i = threadIdx.x; i < geo.heads_per * SUB; i += blockDim.x) {
+    const int64_t bhs = geo.bh0 + i / SUB;
+    const bool ok = bhs < bh_total;
+    const int64_t row = ok ? (by_batch ? bhs / heads : bhs) : 0;
+    copy_async4(dst + i, vec + row * n + row0 + i % SUB, ok);
+  }
+}
+
+template <int DH, int SUB>
+__global__ void __launch_bounds__(kWarps * 32)
+    sparse_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const float* __restrict__ bias,
+                           const int* __restrict__ idx,
+                           const int* __restrict__ counts,
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, int64_t bh_total,
+                           int64_t heads, int64_t n_blocks, int64_t width,
+                           int bs, float scale) {
+  constexpr int kSTiles = SUB / 8;
+  constexpr int kOTiles = DH / 8;
+  __shared__ __align__(16) __nv_bfloat16 ks[2][kRows][DH + kPad];
+  __shared__ __align__(16) __nv_bfloat16 vs[2][kRows][DH + kPad];
+  __shared__ __align__(16) float bsm[2][kRows];
+
+  const Geometry geo(kRows, bs, n_blocks);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int gi = warp * 16 / geo.span;  // the warp's head in the CTA
+  const int64_t bh = geo.bh0 + gi;
+  const bool live = bh < bh_total;
+  const int64_t n = n_blocks * bs;
+  const int64_t row0 = geo.blk * bs + geo.first + warp * 16 % geo.span;
+  const int64_t rows[2] = {row0 + g, row0 + g + 8};
+  const bool valid[2] = {live, live};
+
+  uint32_t qa[DH / 16][4];
+  load_a<DH>(qa, q + (live ? bh : 0) * n * DH, rows, valid, t);
+  float o[kOTiles][4];
+#pragma unroll
+  for (int c = 0; c < kOTiles; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+  float m[2] = {kM0, kM0};  // running max, log2 domain
+  float l[2] = {0.f, 0.f};  // this thread's share of the running sum
+
+  // the steps: SUB-key sub-tiles of the row's active key blocks, in order;
+  // step s + 1's copies fly while step s computes (two buffers)
+  const int count = counts[geo.blk];
+  const int* slots = idx + geo.blk * width;
+  const int per_block = bs / SUB;
+  const int steps = count * per_block;
+  auto issue = [&](int step) {
+    const int buf = step & 1;
+    const int64_t key0 = (int64_t)slots[step / per_block] * bs + step % per_block * SUB;
+    stage_heads<SUB, DH>(ks[buf], k, geo, bh_total, n, key0);
+    stage_heads<SUB, DH>(vs[buf], v, geo, bh_total, n, key0);
+    stage_rows_f32<SUB>(bsm[buf], bias, geo, bh_total, heads, true, n, key0);
+    cp_async_commit();
+  };
+  if (steps > 0) issue(0);
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) {
+      issue(step + 1);
+    } else {
+      cp_async_commit();  // an empty group: the wait below counts the same
+    }
+    cp_async_wait<1>();
+    __syncthreads();  // step's tiles are in shared memory
+    const int buf = step & 1;
+    if (live) {
+      float s[kSTiles][4];
+      mma_abt<DH, kSTiles>(s, qa, ks[buf] + gi * SUB, g, t);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int c = 0; c < kSTiles; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const float b = bsm[buf][gi * SUB + c * 8 + 2 * t + (e & 1)];
+          s[c][e] = (s[c][e] * scale + b) * kLog2e;
+          mx[h] = fmaxf(mx[h], s[c][e]);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        alpha[h] = exp2f(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int c = 0; c < kOTiles; ++c) {
+        o[c][0] *= alpha[0];
+        o[c][1] *= alpha[0];
+        o[c][2] *= alpha[1];
+        o[c][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int c = 0; c < kSTiles; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[c][e] = exp2f(s[c][e] - m[e >> 1]);
+          l[e >> 1] += s[c][e];
+        }
+      }
+      mma_ab<DH, SUB>(o, s, vs[buf] + gi * SUB, g, t);  // O += P V, P rounded to bf16
+    }
+    __syncthreads();  // every warp is done with buffer buf before its reissue
+  }
+  if (!live) return;
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t qrow = bh * n + rows[h];
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+#pragma unroll
+    for (int c = 0; c < kOTiles; ++c) {
+      *reinterpret_cast<uint32_t*>(out + qrow * DH + c * 8 + 2 * t) =
+          pack_bf16(o[c][2 * h] * inv, o[c][2 * h + 1] * inv);
+    }
+    if (t == 0) lse[qrow] = l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : INFINITY;
+  }
+}
+
+template <int DH, int SUB>
+__global__ void __launch_bounds__(kWarps * 32)
+    sparse_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const float* __restrict__ bias,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ idx,
+                          const int* __restrict__ counts,
+                          __nv_bfloat16* __restrict__ dq, int64_t bh_total,
+                          int64_t heads, int64_t n_blocks, int64_t width,
+                          int bs, float scale) {
+  constexpr int kSTiles = SUB / 8;
+  __shared__ __align__(16) __nv_bfloat16 ks[2][kRows][DH + kPad];
+  __shared__ __align__(16) __nv_bfloat16 vs[2][kRows][DH + kPad];
+  __shared__ __align__(16) float bsm[2][kRows];
+
+  const Geometry geo(kRows, bs, n_blocks);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int gi = warp * 16 / geo.span;
+  const int64_t bh = geo.bh0 + gi;
+  const bool live = bh < bh_total;
+  const int64_t n = n_blocks * bs;
+  const int64_t row0 = geo.blk * bs + geo.first + warp * 16 % geo.span;
+  const int64_t rows[2] = {row0 + g, row0 + g + 8};
+  const bool valid[2] = {live, live};
+  const int64_t bhq = live ? bh : 0;
+
+  uint32_t qa[DH / 16][4];
+  uint32_t ga[DH / 16][4];
+  load_a<DH>(qa, q + bhq * n * DH, rows, valid, t);
+  load_a<DH>(ga, dout + bhq * n * DH, rows, valid, t);
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_lse[h] = live ? lse[bhq * n + rows[h]] : INFINITY;
+    row_delta[h] = live ? delta[bhq * n + rows[h]] : 0.f;
+  }
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+
+  const int count = counts[geo.blk];
+  const int* slots = idx + geo.blk * width;
+  const int per_block = bs / SUB;
+  const int steps = count * per_block;
+  auto issue = [&](int step) {
+    const int buf = step & 1;
+    const int64_t key0 = (int64_t)slots[step / per_block] * bs + step % per_block * SUB;
+    stage_heads<SUB, DH>(ks[buf], k, geo, bh_total, n, key0);
+    stage_heads<SUB, DH>(vs[buf], v, geo, bh_total, n, key0);
+    stage_rows_f32<SUB>(bsm[buf], bias, geo, bh_total, heads, true, n, key0);
+    cp_async_commit();
+  };
+  if (steps > 0) issue(0);
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) {
+      issue(step + 1);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+    const int buf = step & 1;
+    if (live) {
+      float s[kSTiles][4];
+      float ds[kSTiles][4];
+      mma_abt<DH, kSTiles>(s, qa, ks[buf] + gi * SUB, g, t);
+      mma_abt<DH, kSTiles>(ds, ga, vs[buf] + gi * SUB, g, t);  // dP = dO V^T
+#pragma unroll
+      for (int c = 0; c < kSTiles; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const float b = bsm[buf][gi * SUB + c * 8 + 2 * t + (e & 1)];
+          const float p = expf(s[c][e] * scale + b - row_lse[h]);
+          ds[c][e] = p * (ds[c][e] - row_delta[h]);
+        }
+      }
+      mma_ab<DH, SUB>(acc, ds, ks[buf] + gi * SUB, g, t);  // dQ += dS K
+    }
+    __syncthreads();
+  }
+  if (!live) return;
+  store_rows<DH>(dq + bh * n * DH, acc, rows, valid, t, scale);
+}
+
+template <int DH, int SUB>
+__global__ void __launch_bounds__(kWarps * 32)
+    sparse_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const float* __restrict__ bias,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           const int* __restrict__ idx,
+                           const int* __restrict__ counts,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int64_t bh_total,
+                           int64_t heads, int64_t n_blocks, int64_t width,
+                           int bs, float scale) {
+  constexpr int kSTiles = SUB / 8;
+  __shared__ __align__(16) __nv_bfloat16 qs[2][kRows][DH + kPad];
+  __shared__ __align__(16) __nv_bfloat16 gs[2][kRows][DH + kPad];
+  __shared__ __align__(16) float ls[2][kRows];
+  __shared__ __align__(16) float dls[2][kRows];
+
+  // the CTA owns KEY rows of block geo.blk; by the layout's symmetry its
+  // table row lists exactly the query blocks that attend it
+  const Geometry geo(kRows, bs, n_blocks);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int gi = warp * 16 / geo.span;
+  const int64_t bh = geo.bh0 + gi;
+  const bool live = bh < bh_total;
+  const int64_t n = n_blocks * bs;
+  const int64_t key0 = geo.blk * bs + geo.first + warp * 16 % geo.span;
+  const int64_t keys[2] = {key0 + g, key0 + g + 8};
+  const bool valid[2] = {live, live};
+  const int64_t bhk = live ? bh : 0;
+
+  uint32_t ka[DH / 16][4];
+  uint32_t va[DH / 16][4];
+  load_a<DH>(ka, k + bhk * n * DH, keys, valid, t);
+  load_a<DH>(va, v + bhk * n * DH, keys, valid, t);
+  float key_bias[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    key_bias[h] = live ? bias[bhk / heads * n + keys[h]] : -INFINITY;
+  }
+  float dk_acc[DH / 8][4];
+  float dv_acc[DH / 8][4];
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[c][e] = dv_acc[c][e] = 0.f;
+  }
+
+  const int count = counts[geo.blk];
+  const int* slots = idx + geo.blk * width;
+  const int per_block = bs / SUB;
+  const int steps = count * per_block;
+  auto issue = [&](int step) {
+    const int buf = step & 1;
+    const int64_t q0 = (int64_t)slots[step / per_block] * bs + step % per_block * SUB;
+    stage_heads<SUB, DH>(qs[buf], q, geo, bh_total, n, q0);
+    stage_heads<SUB, DH>(gs[buf], dout, geo, bh_total, n, q0);
+    stage_rows_f32<SUB>(ls[buf], lse, geo, bh_total, heads, false, n, q0);
+    stage_rows_f32<SUB>(dls[buf], delta, geo, bh_total, heads, false, n, q0);
+    cp_async_commit();
+  };
+  if (steps > 0) issue(0);
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) {
+      issue(step + 1);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+    const int buf = step & 1;
+    if (live) {
+      // transposed tiles: rows are this warp's keys, columns the queries
+      float p[kSTiles][4];
+      float ds[kSTiles][4];
+      mma_abt<DH, kSTiles>(p, ka, qs[buf] + gi * SUB, g, t);   // S^T = K Q^T
+      mma_abt<DH, kSTiles>(ds, va, gs[buf] + gi * SUB, g, t);  // dP^T = V dO^T
+#pragma unroll
+      for (int c = 0; c < kSTiles; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int col = gi * SUB + c * 8 + 2 * t + (e & 1);
+          p[c][e] = expf(p[c][e] * scale + key_bias[h] - ls[buf][col]);
+          ds[c][e] = p[c][e] * (ds[c][e] - dls[buf][col]);
+        }
+      }
+      mma_ab<DH, SUB>(dv_acc, p, gs[buf] + gi * SUB, g, t);   // dV += P^T dO
+      mma_ab<DH, SUB>(dk_acc, ds, qs[buf] + gi * SUB, g, t);  // dK += dS^T Q
+    }
+    __syncthreads();
+  }
+  if (!live) return;
+  store_rows<DH>(dk + bh * n * DH, dk_acc, keys, valid, t, scale);
+  store_rows<DH>(dv + bh * n * DH, dv_acc, keys, valid, t, 1.f);
+}
+
+// --- f32: CUDA cores -------------------------------------------------------
+
+constexpr int kRowsF32 = 32;  // threads = owned rows per block
+constexpr int kSubF32 = 16;   // streamed rows of each head per step
+
+// Stage kSubF32 rows from row `row0` of every head of the CTA into rows
+// hg * kSubF32 of dst (zeros for heads past bh_total).
+template <int DH, int S>
+__device__ __forceinline__ void stage_heads_f32(float (*dst)[S], const float* src,
+                                                const Geometry& geo,
+                                                int64_t bh_total, int64_t n,
+                                                int64_t row0) {
+  for (int i = threadIdx.x; i < geo.heads_per * kSubF32 * DH; i += blockDim.x) {
+    const int hg = i / (kSubF32 * DH);
+    const int rem = i % (kSubF32 * DH);
+    const int64_t bhs = geo.bh0 + hg;
+    dst[hg * kSubF32 + rem / DH][rem % DH] =
+        bhs < bh_total ? src[(bhs * n + row0) * DH + rem] : 0.f;
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kRowsF32)
+    sparse_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ bias,
+                          const int* __restrict__ idx, const int* __restrict__ counts,
+                          float* __restrict__ out, float* __restrict__ lse,
+                          int64_t bh_total, int64_t heads, int64_t n_blocks,
+                          int64_t width, int bs, float scale) {
+  __shared__ float ks[kRowsF32][DH];
+  __shared__ float vs[kRowsF32][DH];
+  __shared__ float bsm[kRowsF32];
+
+  const Geometry geo(kRowsF32, bs, n_blocks);
+  const int tid = threadIdx.x;
+  const int gi = tid / geo.span;
+  const int64_t bh = geo.bh0 + gi;
+  const bool live = bh < bh_total;
+  const int64_t n = n_blocks * bs;
+  const int64_t qrow = bh * n + geo.blk * bs + geo.first + tid % geo.span;
+
+  float qr[DH];
+  float acc[DH];
+#pragma unroll
+  for (int d = 0; d < DH; ++d) {
+    qr[d] = live ? q[qrow * DH + d] : 0.f;
+    acc[d] = 0.f;
+  }
+  float m = kM0;
+  float l = 0.f;
+
+  const int count = counts[geo.blk];
+  const int* slots = idx + geo.blk * width;
+  for (int a = 0; a < count; ++a) {
+    const int64_t kb = slots[a];
+    for (int c0 = 0; c0 < bs; c0 += kSubF32) {
+      __syncthreads();
+      const int64_t key0 = kb * bs + c0;
+      stage_heads_f32<DH, DH>(ks, k, geo, bh_total, n, key0);
+      stage_heads_f32<DH, DH>(vs, v, geo, bh_total, n, key0);
+      for (int i = tid; i < geo.heads_per * kSubF32; i += blockDim.x) {
+        const int64_t bhs = geo.bh0 + i / kSubF32;
+        bsm[i] = bhs < bh_total ? bias[bhs / heads * n + key0 + i % kSubF32] : -INFINITY;
+      }
+      __syncthreads();
+      if (!live) continue;
+
+      const int r0 = gi * kSubF32;
+      float s[kSubF32];
+      float cmax = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kSubF32; ++c) {
+        float dot = 0.f;
+#pragma unroll
+        for (int d = 0; d < DH; ++d) dot = fmaf(qr[d], ks[r0 + c][d], dot);
+        s[c] = dot * scale + bsm[r0 + c];
+        cmax = fmaxf(cmax, s[c]);
+      }
+      const float m_new = fmaxf(m, cmax);
+      const float alpha = expf(m - m_new);
+      l *= alpha;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) acc[d] *= alpha;
+#pragma unroll
+      for (int c = 0; c < kSubF32; ++c) {
+        const float p = expf(s[c] - m_new);
+        l += p;
+#pragma unroll
+        for (int d = 0; d < DH; ++d) acc[d] = fmaf(p, vs[r0 + c][d], acc[d]);
+      }
+      m = m_new;
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) out[qrow * DH + d] = l > 0.f ? acc[d] / l : 0.f;
+  lse[qrow] = l > 0.f ? m + logf(l) : INFINITY;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kRowsF32)
+    sparse_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ bias,
+                         const float* __restrict__ dout, const float* __restrict__ lse,
+                         const float* __restrict__ delta, const int* __restrict__ idx,
+                         const int* __restrict__ counts, float* __restrict__ dq,
+                         int64_t bh_total, int64_t heads, int64_t n_blocks,
+                         int64_t width, int bs, float scale) {
+  __shared__ float qo[kRowsF32][DH + 1];  // owned rows, one per thread
+  __shared__ float go[kRowsF32][DH + 1];
+  __shared__ float ks[kRowsF32][DH];
+  __shared__ float vs[kRowsF32][DH];
+  __shared__ float bsm[kRowsF32];
+
+  const Geometry geo(kRowsF32, bs, n_blocks);
+  const int tid = threadIdx.x;
+  const int gi = tid / geo.span;
+  const int64_t bh = geo.bh0 + gi;
+  const bool live = bh < bh_total;
+  const int64_t n = n_blocks * bs;
+  const int64_t qrow = bh * n + geo.blk * bs + geo.first + tid % geo.span;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) {
+    qo[tid][d] = live ? q[qrow * DH + d] : 0.f;
+    go[tid][d] = live ? dout[qrow * DH + d] : 0.f;
+  }
+  const float row_lse = live ? lse[qrow] : INFINITY;
+  const float row_delta = live ? delta[qrow] : 0.f;
+  float acc[DH];
+#pragma unroll
+  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
+
+  const int count = counts[geo.blk];
+  const int* slots = idx + geo.blk * width;
+  for (int a = 0; a < count; ++a) {
+    const int64_t kb = slots[a];
+    for (int c0 = 0; c0 < bs; c0 += kSubF32) {
+      __syncthreads();
+      const int64_t key0 = kb * bs + c0;
+      stage_heads_f32<DH, DH>(ks, k, geo, bh_total, n, key0);
+      stage_heads_f32<DH, DH>(vs, v, geo, bh_total, n, key0);
+      for (int i = tid; i < geo.heads_per * kSubF32; i += blockDim.x) {
+        const int64_t bhs = geo.bh0 + i / kSubF32;
+        bsm[i] = bhs < bh_total ? bias[bhs / heads * n + key0 + i % kSubF32] : -INFINITY;
+      }
+      __syncthreads();
+      if (!live) continue;
+      const int r0 = gi * kSubF32;
+      for (int c = 0; c < kSubF32; ++c) {
+        float s = 0.f, dp = 0.f;
+#pragma unroll
+        for (int d = 0; d < DH; ++d) {
+          s = fmaf(qo[tid][d], ks[r0 + c][d], s);
+          dp = fmaf(go[tid][d], vs[r0 + c][d], dp);
+        }
+        const float p = expf(s * scale + bsm[r0 + c] - row_lse);
+        const float ds = p * (dp - row_delta);
+#pragma unroll
+        for (int d = 0; d < DH; ++d) acc[d] = fmaf(ds, ks[r0 + c][d], acc[d]);
+      }
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) dq[qrow * DH + d] = acc[d] * scale;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kRowsF32)
+    sparse_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ bias,
+                          const float* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ delta, const int* __restrict__ idx,
+                          const int* __restrict__ counts, float* __restrict__ dk,
+                          float* __restrict__ dv, int64_t bh_total, int64_t heads,
+                          int64_t n_blocks, int64_t width, int bs, float scale) {
+  __shared__ float ko[kRowsF32][DH + 1];  // owned key rows, one per thread
+  __shared__ float vo[kRowsF32][DH + 1];
+  __shared__ float qs[kRowsF32][DH];
+  __shared__ float gs[kRowsF32][DH];
+  __shared__ float ls[kRowsF32];
+  __shared__ float dls[kRowsF32];
+
+  const Geometry geo(kRowsF32, bs, n_blocks);
+  const int tid = threadIdx.x;
+  const int gi = tid / geo.span;
+  const int64_t bh = geo.bh0 + gi;
+  const bool live = bh < bh_total;
+  const int64_t n = n_blocks * bs;
+  const int64_t key = geo.blk * bs + geo.first + tid % geo.span;
+  const int64_t krow = bh * n + key;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) {
+    ko[tid][d] = live ? k[krow * DH + d] : 0.f;
+    vo[tid][d] = live ? v[krow * DH + d] : 0.f;
+  }
+  const float key_bias = live ? bias[bh / heads * n + key] : -INFINITY;
+  float dk_acc[DH];
+  float dv_acc[DH];
+#pragma unroll
+  for (int d = 0; d < DH; ++d) dk_acc[d] = dv_acc[d] = 0.f;
+
+  const int count = counts[geo.blk];
+  const int* slots = idx + geo.blk * width;
+  for (int a = 0; a < count; ++a) {
+    const int64_t qb = slots[a];
+    for (int c0 = 0; c0 < bs; c0 += kSubF32) {
+      __syncthreads();
+      const int64_t q0 = qb * bs + c0;
+      stage_heads_f32<DH, DH>(qs, q, geo, bh_total, n, q0);
+      stage_heads_f32<DH, DH>(gs, dout, geo, bh_total, n, q0);
+      for (int i = tid; i < geo.heads_per * kSubF32; i += blockDim.x) {
+        const int64_t bhs = geo.bh0 + i / kSubF32;
+        const bool ok = bhs < bh_total;
+        ls[i] = ok ? lse[bhs * n + q0 + i % kSubF32] : INFINITY;
+        dls[i] = ok ? delta[bhs * n + q0 + i % kSubF32] : 0.f;
+      }
+      __syncthreads();
+      if (!live) continue;
+      const int r0 = gi * kSubF32;
+      for (int c = 0; c < kSubF32; ++c) {
+        float s = 0.f, dp = 0.f;
+#pragma unroll
+        for (int d = 0; d < DH; ++d) {
+          s = fmaf(ko[tid][d], qs[r0 + c][d], s);
+          dp = fmaf(vo[tid][d], gs[r0 + c][d], dp);
+        }
+        const float p = expf(s * scale + key_bias - ls[r0 + c]);
+        const float ds = p * (dp - dls[r0 + c]);
+#pragma unroll
+        for (int d = 0; d < DH; ++d) {
+          dv_acc[d] = fmaf(p, gs[r0 + c][d], dv_acc[d]);
+          dk_acc[d] = fmaf(ds, qs[r0 + c][d], dk_acc[d]);
+        }
+      }
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) {
+    dk[krow * DH + d] = dk_acc[d] * scale;
+    dv[krow * DH + d] = dv_acc[d];
+  }
+}
+
+// --- launch ----------------------------------------------------------------
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* bias;
+  const void* dout;
+  const void* lse;
+  const void* delta;
+  const void* idx;
+  const void* counts;
+  void* o0;  // out, dq or dk
+  void* o1;  // lse (forward) or dv
+  int64_t bh, heads, n_blocks, width;
+  int bs, dh;
+  float scale;
+  cudaStream_t stream;
+};
+
+bool check(const Args& a, int rows, dim3* grid) {
+  if (a.bs != 16 && a.bs != 32 && a.bs != 64 && a.bs != 128) return false;
+  if (a.dh != 16 && a.dh != 32 && a.dh != 64) return false;
+  if (a.bh <= 0 || a.heads <= 0 || a.n_blocks <= 0 || a.width <= 0) return false;
+  const int64_t blocks = grid_size(a.bh, a.n_blocks, rows, a.bs);
+  if (blocks > 2147483647LL) return false;
+  *grid = dim3((unsigned)blocks);
+  return true;
+}
+
+#define AF2_BF16 const __nv_bfloat16*
+#define AF2_F32 const float*
+#define AF2_TAB (const int*)a.idx, (const int*)a.counts
+#define AF2_SHAPE a.bh, a.heads, a.n_blocks, a.width, a.bs, a.scale
+
+template <int DH>
+void fwd(const Args& a, dim3 grid, bool bf16) {
+  if (!bf16) {
+    sparse_fwd_f32_kernel<DH><<<grid, kRowsF32, 0, a.stream>>>(
+        (AF2_F32)a.q, (AF2_F32)a.k, (AF2_F32)a.v, (AF2_F32)a.bias, AF2_TAB,
+        (float*)a.o0, (float*)a.o1, AF2_SHAPE);
+    return;
+  }
+#define AF2_FWD(SUB)                                                        \
+  sparse_fwd_bf16_kernel<DH, SUB><<<grid, kWarps * 32, 0, a.stream>>>(      \
+      (AF2_BF16)a.q, (AF2_BF16)a.k, (AF2_BF16)a.v, (AF2_F32)a.bias, AF2_TAB, \
+      (__nv_bfloat16*)a.o0, (float*)a.o1, AF2_SHAPE)
+  if (a.bs == 16) AF2_FWD(16);
+  else if (a.bs == 32) AF2_FWD(32);
+  else AF2_FWD(64);
+#undef AF2_FWD
+}
+
+template <int DH>
+void dq(const Args& a, dim3 grid, bool bf16) {
+  if (!bf16) {
+    sparse_dq_f32_kernel<DH><<<grid, kRowsF32, 0, a.stream>>>(
+        (AF2_F32)a.q, (AF2_F32)a.k, (AF2_F32)a.v, (AF2_F32)a.bias, (AF2_F32)a.dout,
+        (AF2_F32)a.lse, (AF2_F32)a.delta, AF2_TAB, (float*)a.o0, AF2_SHAPE);
+    return;
+  }
+#define AF2_DQ(SUB)                                                             \
+  sparse_dq_bf16_kernel<DH, SUB><<<grid, kWarps * 32, 0, a.stream>>>(           \
+      (AF2_BF16)a.q, (AF2_BF16)a.k, (AF2_BF16)a.v, (AF2_F32)a.bias,             \
+      (AF2_BF16)a.dout, (AF2_F32)a.lse, (AF2_F32)a.delta, AF2_TAB,              \
+      (__nv_bfloat16*)a.o0, AF2_SHAPE)
+  if (a.bs == 16) AF2_DQ(16);
+  else if (a.bs == 32) AF2_DQ(32);
+  else AF2_DQ(64);
+#undef AF2_DQ
+}
+
+template <int DH>
+void dkv(const Args& a, dim3 grid, bool bf16) {
+  if (!bf16) {
+    sparse_dkv_f32_kernel<DH><<<grid, kRowsF32, 0, a.stream>>>(
+        (AF2_F32)a.q, (AF2_F32)a.k, (AF2_F32)a.v, (AF2_F32)a.bias, (AF2_F32)a.dout,
+        (AF2_F32)a.lse, (AF2_F32)a.delta, AF2_TAB, (float*)a.o0, (float*)a.o1,
+        AF2_SHAPE);
+    return;
+  }
+  // 32 streamed queries a head at most: the p and dS tiles and both
+  // accumulators stay in registers
+#define AF2_DKV(SUB)                                                            \
+  sparse_dkv_bf16_kernel<DH, SUB><<<grid, kWarps * 32, 0, a.stream>>>(          \
+      (AF2_BF16)a.q, (AF2_BF16)a.k, (AF2_BF16)a.v, (AF2_F32)a.bias,             \
+      (AF2_BF16)a.dout, (AF2_F32)a.lse, (AF2_F32)a.delta, AF2_TAB,              \
+      (__nv_bfloat16*)a.o0, (__nv_bfloat16*)a.o1, AF2_SHAPE)
+  if (a.bs == 16) AF2_DKV(16);
+  else AF2_DKV(32);
+#undef AF2_DKV
+}
+
+enum Kind { kFwd, kDq, kDkv };
+
+int launch(Kind kind, const Args& a, int is_bf16) {
+  dim3 grid;
+  if (!check(a, is_bf16 ? kRows : kRowsF32, &grid)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool bf16 = is_bf16 != 0;
+#define AF2_KIND(DH_)                           \
+  if (kind == kFwd) fwd<DH_>(a, grid, bf16);    \
+  else if (kind == kDq) dq<DH_>(a, grid, bf16); \
+  else dkv<DH_>(a, grid, bf16)
+  switch (a.dh) {
+    case 16: AF2_KIND(16); break;
+    case 32: AF2_KIND(32); break;
+    default: AF2_KIND(64); break;
+  }
+#undef AF2_KIND
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// B5f. q, k, v (BH, n, dh) in f32 or bf16, n = n_blocks * bs; bias (BH /
+// heads, n) f32; idx (n_blocks, width) int32 (valid slots first); counts
+// (n_blocks,) int32; out (BH, n, dh) in the input type; lse (BH, n) f32.
+// bf16 pointers are 16-byte aligned. Returns the CUDA error code of the
+// launch (0 = launched; cudaErrorInvalidValue for a block size or head
+// width the kernels are not built for).
+int af2_sparse_fwd(const void* q, const void* k, const void* v, const void* bias,
+                   const void* idx, const void* counts, void* out, void* lse,
+                   int64_t bh, int64_t heads, int64_t n_blocks, int64_t width,
+                   int bs, int dh, float scale, int is_bf16, void* stream) {
+  const Args a{q, k, v, bias, nullptr, nullptr, nullptr, idx, counts, out, lse,
+               bh, heads, n_blocks, width, bs, dh, scale, (cudaStream_t)stream};
+  return launch(kFwd, a, is_bf16);
+}
+
+// B5 dq. As B5f, plus dout (BH, n, dh) in the input type and lse, delta
+// (BH, n) f32; dq (BH, n, dh) in the input type.
+int af2_sparse_bwd_dq(const void* q, const void* k, const void* v,
+                      const void* bias, const void* dout, const void* lse,
+                      const void* delta, const void* idx, const void* counts,
+                      void* dq, int64_t bh, int64_t heads, int64_t n_blocks,
+                      int64_t width, int bs, int dh, float scale, int is_bf16,
+                      void* stream) {
+  const Args a{q, k, v, bias, dout, lse, delta, idx, counts, dq, nullptr,
+               bh, heads, n_blocks, width, bs, dh, scale, (cudaStream_t)stream};
+  return launch(kDq, a, is_bf16);
+}
+
+// B5 dkv. As the dq kernel; dk, dv (BH, n, dh) in the input type. The
+// table must be symmetric (query block r attends key block c iff c
+// attends r): the kernel reads key block c's own row.
+int af2_sparse_bwd_dkv(const void* q, const void* k, const void* v,
+                       const void* bias, const void* dout, const void* lse,
+                       const void* delta, const void* idx, const void* counts,
+                       void* dk, void* dv, int64_t bh, int64_t heads,
+                       int64_t n_blocks, int64_t width, int bs, int dh,
+                       float scale, int is_bf16, void* stream) {
+  const Args a{q, k, v, bias, dout, lse, delta, idx, counts, dk, dv,
+               bh, heads, n_blocks, width, bs, dh, scale, (cudaStream_t)stream};
+  return launch(kDkv, a, is_bf16);
+}
+
+}  // extern "C"

@@ -3,6 +3,9 @@
 The same field names as the JAX `Alphafold2Config`, with a torch compute
 dtype. Values whose code paths this port does not have yet raise
 NotImplementedError naming the ROADMAP item that brings them.
+`weight_dtype="int8"` is the inference-only int8 arm (ops/quant.py; the
+training entry points refuse it); `sparse_self_attn` runs the flagged
+layers' pair-axial passes block-sparse (ops/sparse.py).
 `scan_layers` is the same math as the unrolled trunk and runs as a loop;
 `remat` recomputes each trunk layer in the backward pass.
 """
@@ -21,6 +24,7 @@ from alphafold2_tpu_torch.constants import (
     NUM_EMBEDDS_TR,
 )
 from alphafold2_tpu_torch.ops.attention import AttentionConfig
+from alphafold2_tpu_torch.ops.sparse import SparseConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +50,6 @@ class Alphafold2Config:
     sparse_num_local_blocks: int = 4
     sparse_num_global_blocks: int = 1
     sparse_layout_seed: int = 0
-    sparse_use_kernel: Union[bool, str] = "auto"
     cross_attn_compress_ratio: int = 1
     cross_attn_mode: str = "flat"  # "flat" | "aligned"
     msa_tie_row_attn: bool = False
@@ -75,8 +78,6 @@ class Alphafold2Config:
             (self.remat and self.remat_policy is not None,
              f"remat_policy={self.remat_policy!r} (what the recompute saves)",
              "A6, remainder"),
-            (any(self.layer_sparse), "sparse_self_attn (kernel B5)", "A10"),
-            (self.weight_dtype == "int8", "weight_dtype='int8' (kernel B4)", "A9"),
             (self.trunk_schedule == "branch_parallel",
              "trunk_schedule='branch_parallel'", "A4"),
         ]
@@ -91,8 +92,13 @@ class Alphafold2Config:
             )
         if self.trunk_schedule != "serial":
             raise ValueError(f"trunk_schedule must be 'serial', got {self.trunk_schedule!r}")
-        if self.weight_dtype != "f32":
-            raise ValueError(f"weight_dtype must be 'f32', got {self.weight_dtype!r}")
+        if self.weight_dtype not in ("f32", "int8"):
+            raise ValueError(f"weight_dtype must be 'f32' or 'int8', got {self.weight_dtype!r}")
+        if self.attn_gate and any(self.layer_sparse):
+            raise ValueError(
+                "attn_gate is not supported with sparse self-attention "
+                "(the block-sparse path has no gate projection)"
+            )
         if self.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {self.dtype}")
 
@@ -100,6 +106,16 @@ class Alphafold2Config:
     def layer_sparse(self) -> Tuple[bool, ...]:
         v = self.sparse_self_attn
         return v if isinstance(v, tuple) else (bool(v),) * self.depth
+
+    def sparse_config(self) -> SparseConfig:
+        return SparseConfig(
+            block_size=self.sparse_block_size,
+            num_random_blocks=self.sparse_num_random_blocks,
+            num_local_blocks=self.sparse_num_local_blocks,
+            num_global_blocks=self.sparse_num_global_blocks,
+            layout_seed=self.sparse_layout_seed,
+            max_seq_len=self.max_seq_len,
+        )
 
     def _attn_config(self, compress_ratio: int) -> AttentionConfig:
         return AttentionConfig(

@@ -7,7 +7,10 @@ keeps the JAX names and layouts, with one exception: the KV-compression
 conv weight, (k, in/groups, out) in JAX, is (out, in/groups, k) for
 `torch.nn.functional.conv1d` (the reverse of
 alphafold2_tpu/models/convert.py's torch -> JAX map). Weights of parts the
-port does not run yet (the template tower) are carried over unread.
+port does not run yet (the template tower) are carried over unread. Leaves
+become float32, but int8 and bool leaves keep their type, so an int8 tree
+from the JAX package's `quantize_tree` maps over as {"qw": int8, "scale":
+f32}.
 """
 
 from __future__ import annotations
@@ -25,7 +28,11 @@ def convert_tree(tree, device, path=()):
         return {k: convert_tree(v, device, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [convert_tree(v, device, path) for v in tree]
-    arr = np.array(tree, dtype=np.float32)  # a writable copy
+    arr = np.array(tree)  # a writable copy
+    if arr.dtype not in (np.int8, np.bool_):
+        # floats (bf16 included) become f32; int8 (a quantized "qw") and
+        # bool leaves keep their type
+        arr = arr.astype(np.float32)
     if path[-2:] == ("compress", "w"):
         arr = np.transpose(arr, (2, 1, 0))  # (k, in/g, out) -> (out, in/g, k)
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)

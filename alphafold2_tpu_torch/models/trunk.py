@@ -2,7 +2,8 @@
 serial schedule).
 
 Both streams keep their grid layouts — pair (b, i, j, d), MSA
-(b, rows, cols, d) — and only the cross-attention flattens. Per layer,
+(b, rows, cols, d) — and only the cross-attention flattens. Layers flagged
+in `cfg.layer_sparse` run their pair axial passes block-sparse. Per layer,
 every op residual: pair axial self-attn -> MSA axial self-attn (optionally
 tied rows) -> pair<-MSA cross-attn -> MSA<-pair cross-attn -> pair FF ->
 MSA FF. The MSA branch is skipped when there is no MSA stream.
@@ -26,6 +27,7 @@ from alphafold2_tpu_torch.ops.attention import (
 )
 from alphafold2_tpu_torch.ops.core import layer_norm, layer_norm_init
 from alphafold2_tpu_torch.ops.feedforward import feed_forward_apply, feed_forward_init
+from alphafold2_tpu_torch.ops.sparse import sparse_attention_apply
 
 # --- pre-norm wrapped blocks ------------------------------------------------
 
@@ -71,6 +73,24 @@ def prenorm_ff_apply(params, cfg: Alphafold2Config, x, rng=None):
         dropout_rate=cfg.ff_dropout, rng=rng, dtype=cfg.dtype,
         chunk=cfg.ff_chunk_size,
     )
+
+
+def make_sparse_axial_fn(cfg: Alphafold2Config):
+    """The inner-attention override that runs an axial pass block-sparse
+    (`sparse_attention_apply`), for the pair passes of the layers flagged
+    in cfg.layer_sparse. Self-attention only, and never tied rows."""
+    attn_cfg = cfg.self_attn_config()
+    scfg = cfg.sparse_config()
+
+    def fn(params, x, *, axis, mask, tie_dim, rng, **ctx):
+        del axis
+        if ctx:
+            raise ValueError("sparse attention is self-attention only")
+        if tie_dim is not None:
+            raise ValueError("sparse attention is incompatible with tied-row attention")
+        return sparse_attention_apply(params, attn_cfg, scfg, x, mask=mask, rng=rng)
+
+    return fn
 
 
 # --- cross-attention over grids: flat vs column-aligned ---------------------
@@ -164,12 +184,15 @@ def trunk_layer_init(gen, cfg: Alphafold2Config, device):
 
 
 def trunk_layer_apply(layer, cfg: Alphafold2Config, x, m, *, x_mask=None,
-                      msa_mask=None, rng=None):
+                      msa_mask=None, rng=None, sparse_fn=None):
     """ONE sequential trunk layer in the reference op order. rng: a
     generator on x's device that every op's dropout draws from in turn
-    (None: eval mode)."""
+    (None: eval mode). sparse_fn: the block-sparse inner attention of the
+    pair axial passes (`make_sparse_axial_fn`), None for dense; the MSA
+    passes stay dense."""
     self_cfg = cfg.self_attn_config()
-    x = prenorm_axial_apply(layer["seq_attn"], self_cfg, x, mask=x_mask, rng=rng) + x
+    x = prenorm_axial_apply(layer["seq_attn"], self_cfg, x, mask=x_mask, rng=rng,
+                            attention_fn=sparse_fn) + x
     if m is not None:
         m = prenorm_axial_apply(
             layer["msa_attn"], self_cfg, m, mask=msa_mask,
@@ -194,14 +217,18 @@ def sequential_trunk_apply(layers, cfg: Alphafold2Config, x, m, *, x_mask=None,
     rng: an optional CPU generator for dropout. Each layer draws one seed
     from it and its ops draw their masks from a generator on x's device
     seeded with it, so a layer that `remat` recomputes draws the same
-    masks again."""
-    for layer in layers:
+    masks again. A layer flagged in cfg.layer_sparse runs its pair axial
+    passes block-sparse."""
+    layer_sparse = cfg.layer_sparse
+    sparse_fn = make_sparse_axial_fn(cfg) if any(layer_sparse) else None
+    for index, layer in enumerate(layers):
         seed = None if rng is None else int(torch.randint(2 ** 62, (), generator=rng))
+        layer_fn = sparse_fn if layer_sparse[index] else None
 
-        def run(x, m, layer=layer, seed=seed):
+        def run(x, m, layer=layer, seed=seed, layer_fn=layer_fn):
             gen = None if seed is None else torch.Generator(x.device).manual_seed(seed)
             return trunk_layer_apply(layer, cfg, x, m, x_mask=x_mask,
-                                     msa_mask=msa_mask, rng=gen)
+                                     msa_mask=msa_mask, rng=gen, sparse_fn=layer_fn)
 
         if cfg.remat:
             x, m = checkpoint(run, x, m, use_reentrant=False)

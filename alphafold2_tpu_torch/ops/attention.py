@@ -263,13 +263,21 @@ def _batch_chunked_attention(params, cfg: AttentionConfig, x, *, context,
 
 def axial_attention_apply(params, cfg: AttentionConfig, x, *, mask=None,
                           context=None, context_mask=None,
-                          tie_row: bool = False, rng=None):
+                          tie_row: bool = False, rng=None, attention_fn=None):
     """Factorised 2D attention over a (b, h, w, d) grid: a column pass
     (attend along h, w folded into batch) plus a row pass (attend along w,
     h folded into batch, tied across h when tie_row). context /
     context_mask: optional cross-attention source (b, n, d) / (b, n),
-    broadcast to every folded row/column."""
+    broadcast to every folded row/column. attention_fn: an override of the
+    inner attention (the block-sparse one, models/trunk.py), called as
+    `attention_fn(axis_params, x, *, axis, mask, tie_dim, rng, [context,
+    context_mask])` with axis "width" (column pass) or "height" (row pass)."""
     b, hh, ww, d = x.shape
+
+    def run(p, t, m, tie_dim, axis, **ctx):
+        if attention_fn is not None:
+            return attention_fn(p, t, axis=axis, mask=m, tie_dim=tie_dim, rng=rng, **ctx)
+        return attention_apply(p, cfg, t, mask=m, tie_dim=tie_dim, rng=rng, **ctx)
 
     def ctx_kwargs(rep):
         if context is None:
@@ -282,13 +290,11 @@ def axial_attention_apply(params, cfg: AttentionConfig, x, *, mask=None,
 
     col_x = x.transpose(1, 2).reshape(b * ww, hh, d)
     col_mask = None if mask is None else mask.transpose(1, 2).reshape(b * ww, hh)
-    col_out = attention_apply(params["attn_width"], cfg, col_x, mask=col_mask,
-                              rng=rng, **ctx_kwargs(ww))
+    col_out = run(params["attn_width"], col_x, col_mask, None, "width", **ctx_kwargs(ww))
     col_out = col_out.reshape(b, ww, hh, d).transpose(1, 2)
 
     row_x = x.reshape(b * hh, ww, d)
     row_mask = None if mask is None else mask.reshape(b * hh, ww)
-    row_out = attention_apply(params["attn_height"], cfg, row_x, mask=row_mask,
-                              tie_dim=hh if tie_row else None, rng=rng,
-                              **ctx_kwargs(hh))
+    row_out = run(params["attn_height"], row_x, row_mask, hh if tie_row else None,
+                  "height", **ctx_kwargs(hh))
     return col_out + row_out.reshape(b, hh, ww, d)

@@ -38,7 +38,18 @@ def linear_init(gen, d_in: int, d_out: int, device, bias: bool = True):
 
 
 def linear(params, x, dtype=None):
-    """y = x @ w (+ b), computed in `dtype` when given (params are cast)."""
+    """y = x @ w (+ b), computed in `dtype` when given (params are cast).
+
+    A quantized dict ({"qw": int8, "scale": f32}, ops/quant.py
+    quantize_tree) goes through the int8 product `quant_matmul` instead:
+    every dense layer reaches it with no per-layer wiring."""
+    if "qw" in params:
+        from alphafold2_tpu_torch.ops.quant import quant_matmul
+
+        y = quant_matmul(x, params["qw"], params["scale"], dtype=dtype)
+        if "b" in params:
+            y = y + params["b"].to(y.dtype)
+        return y
     w = params["w"]
     if dtype is not None:
         w = w.to(dtype)

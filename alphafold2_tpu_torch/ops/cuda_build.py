@@ -104,3 +104,10 @@ def library(name: str) -> ctypes.CDLL:
         built = build([name])[name]
         _LOADED[name] = ctypes.CDLL(str(built.path))
     return _LOADED[name]
+
+
+def check_launch(rc: int, what: str) -> None:
+    """Raise unless a C entry point returned 0 (cudaSuccess) for its launch:
+    a refused launch never runs, and a later synchronize does not report it."""
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed with CUDA error {rc}")

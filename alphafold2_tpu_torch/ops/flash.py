@@ -10,14 +10,14 @@ them there (JAX's `xla_ref` arm). On CUDA tensors `flash_attention`
 launches the hand-written kernels of ops/flash_kernel.py through two
 `torch.autograd.Function`s, whose backwards launch the backward kernels
 (a gate or a 2-D pair bias selects the fused pair), or raises: there is
-no fallback to the plain versions on the card.
+no fallback to the plain versions on the card (ops/dispatch.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-from alphafold2_tpu_torch.ops import flash_kernel
+from alphafold2_tpu_torch.ops import dispatch, flash_kernel
 
 _NEG_INF = float("-inf")
 
@@ -121,17 +121,17 @@ def streamed_fused_attention(q, k, v, key_bias, pair_bias, gate, scale,
     return out.to(q.dtype)
 
 
-def _aligned(t):
+def aligned(t):
     """t contiguous and 16-byte aligned (the bf16 kernels load 16-byte
     vectors; a view at an odd offset is copied)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _fold(t):
+def fold_heads(t):
     """(B, n, h, dh) -> the kernels' (B*h, n, dh) layout, aligned."""
     B, n, h, dh = t.shape
-    return _aligned(t.transpose(1, 2).reshape(B * h, n, dh))
+    return aligned(t.transpose(1, 2).reshape(B * h, n, dh))
 
 
 class _FlashKernel(torch.autograd.Function):
@@ -149,7 +149,7 @@ class _FlashKernel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_kernel.flash_bwd(q, k, v, bias, out, lse, _aligned(g),
+        dq, dk, dv = flash_kernel.flash_bwd(q, k, v, bias, out, lse, aligned(g),
                                             ctx.scale)
         return dq, dk, dv, None, None
 
@@ -170,7 +170,7 @@ class _FusedFlashKernel(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias, gate, out, lse = ctx.saved_tensors
         dq, dk, dv, d_bias, d_gate = flash_kernel.flash_bwd_fused(
-            q, k, v, bias, gate, out, lse, _aligned(g), ctx.scale
+            q, k, v, bias, gate, out, lse, aligned(g), ctx.scale
         )
         return dq, dk, dv, d_bias, d_gate, None
 
@@ -192,7 +192,9 @@ def flash_attention(q, k, v, key_bias=None, *, pair_bias=None, gate=None,
     j = k.shape[1]
     scale = dh ** -0.5 if scale is None else scale
 
-    if q.device.type == "cpu":
+    unsupported = None if flash_kernel.supported(i, j, dh) else (
+        f"i={i}, j={j}, dh={dh} (head widths {flash_kernel.SUPPORTED_DH})")
+    if dispatch.resolve("flash_attention", q.device, unsupported=unsupported) == dispatch.PLAIN:
         if pair_bias is not None:
             return streamed_fused_attention(
                 q, k, v, key_bias, pair_bias, gate, scale,
@@ -220,9 +222,9 @@ def flash_attention(q, k, v, key_bias=None, *, pair_bias=None, gate=None,
         bias = key_bias.repeat_interleave(h, dim=0)  # one row per (batch, head)
     if pair_bias is not None or gate is not None:
         out = _FusedFlashKernel.apply(
-            _fold(q), _fold(k), _fold(v), bias,
-            None if gate is None else _fold(gate), scale,
+            fold_heads(q), fold_heads(k), fold_heads(v), bias,
+            None if gate is None else fold_heads(gate), scale,
         )
     else:
-        out = _FlashKernel.apply(_fold(q), _fold(k), _fold(v), bias, scale)
+        out = _FlashKernel.apply(fold_heads(q), fold_heads(k), fold_heads(v), bias, scale)
     return out.reshape(B, h, i, dh).transpose(1, 2)

@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from alphafold2_tpu_torch.ops import cuda_build
+from alphafold2_tpu_torch.ops import cuda_build, dispatch
 
 # the TPU kernel's finite running-max sentinel: a -inf bias underflows to
 # an exact 0 with no nan guards
@@ -42,7 +42,7 @@ LAUNCHES = {
     "flash_bwd_fused_dq": 0, "flash_bwd_fused_dkv": 0,
 }
 
-_SUPPORTED_DH = (16, 32, 64)
+SUPPORTED_DH = (16, 32, 64)
 _BLOCK_Q = 128  # query rows per CUDA block (csrc/flash_fwd.cu kBlockQ)
 
 
@@ -56,7 +56,7 @@ def supported(i: int, j: int, dh: int) -> bool:
     instantiated for (16, 32 or 64: the query fragments and the f32
     accumulator live in registers) and non-empty axes. Any length is
     fine: K/V stream through shared memory in 64-key tiles."""
-    return dh in _SUPPORTED_DH and i >= 1 and j >= 1
+    return dh in SUPPORTED_DH and i >= 1 and j >= 1
 
 
 # --- plain versions ------------------------------------------------------
@@ -221,20 +221,6 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def _on_cpu(*tensors) -> bool:
-    """True when every tensor lies on the CPU, False when all lie on one
-    CUDA device; raises on anything else."""
-    devices = {t.device for t in tensors if t is not None}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
-    (device,) = devices
-    if device.type == "cpu":
-        return True
-    if device.type != "cuda":
-        raise ValueError(f"flash attention runs on cpu or cuda, not {device}")
-    return False
-
-
 def _check(q, k, v, bias, gate, bias2d):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q, k, v must be (BH, n, dh)")
@@ -254,7 +240,7 @@ def _check(q, k, v, bias, gate, bias2d):
     if not supported(i, j, dh):
         raise ValueError(
             f"the H100 flash kernel does not support i={i}, j={j}, dh={dh} "
-            f"(head widths {_SUPPORTED_DH})"
+            f"(head widths {SUPPORTED_DH})"
         )
     if BH * -(-i // _BLOCK_Q) > 2 ** 31 - 1:
         raise ValueError(f"BH={BH}, i={i} exceeds the kernel grid")
@@ -266,15 +252,10 @@ def _check(q, k, v, bias, gate, bias2d):
             raise ValueError(f"{name} must start 16-byte aligned for the bf16 kernel")
 
 
-def _raise_on(rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed with CUDA error {rc}")
-
-
 def flash_fwd(q, k, v, bias, scale):
     """B1f: softmax(scale * q k^T + bias) v with a key-side (BH, j) bias.
     Returns (out, lse)."""
-    if _on_cpu(q, k, v, bias):
+    if dispatch.on_cpu("flash attention", q, k, v, bias):
         return flash_fwd_plain(q, k, v, bias, scale)
     _check(q, k, v, bias, None, bias2d=False)
     BH, i, dh = q.shape
@@ -286,7 +267,7 @@ def flash_fwd(q, k, v, bias, scale):
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(rc, "flash_fwd")
+    cuda_build.check_launch(rc, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return out, lse
 
@@ -299,7 +280,7 @@ def flash_fwd_fused(q, k, v, bias, scale, gate: Optional[torch.Tensor] = None):
     bias2d = bias.dim() == 3
     if not bias2d and gate is None:
         raise ValueError("flash_fwd_fused needs a 2-D bias or a gate; use flash_fwd")
-    if _on_cpu(q, k, v, bias, gate):
+    if dispatch.on_cpu("flash attention", q, k, v, bias, gate):
         return flash_fwd_plain(q, k, v, bias, scale, gate)
     _check(q, k, v, bias, gate, bias2d=bias2d)
     BH, i, dh = q.shape
@@ -312,7 +293,7 @@ def flash_fwd_fused(q, k, v, bias, scale, gate: Optional[torch.Tensor] = None):
         int(q.dtype == torch.bfloat16), int(bias2d), int(gate is not None),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(rc, "flash_fwd_fused")
+    cuda_build.check_launch(rc, "flash_fwd_fused")
     LAUNCHES["flash_fwd_fused"] += 1
     return out, lse
 
@@ -350,7 +331,7 @@ def launch_dq(q, k, v, bias, lse, g, delta, scale, name):
     ins, shape = _bwd_args(q, k, v, bias, lse, g, delta, scale, bias2d)
     rc = _bwd_lib().af2_flash_bwd_dq(*ins, dq.data_ptr(),
                                      d_bias.data_ptr() if bias2d else None, *shape)
-    _raise_on(rc, name)
+    cuda_build.check_launch(rc, name)
     LAUNCHES[name] += 1
     return dq, d_bias
 
@@ -360,7 +341,7 @@ def launch_dkv(q, k, v, bias, lse, g, delta, scale, name):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     ins, shape = _bwd_args(q, k, v, bias, lse, g, delta, scale, bias.dim() == 3)
     rc = _bwd_lib().af2_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *shape)
-    _raise_on(rc, name)
+    cuda_build.check_launch(rc, name)
     LAUNCHES[name] += 1
     return dk, dv
 
@@ -369,7 +350,7 @@ def flash_bwd(q, k, v, bias, out, lse, g, scale):
     """B1b: the backward of `flash_fwd` from its saved out and lse and the
     cotangent g (BH, i, dh). The key-side bias gets no cotangent (masks are
     data). Returns (dq, dk, dv) in the input dtype."""
-    if _on_cpu(q, k, v, bias, out, lse, g):
+    if dispatch.on_cpu("flash attention", q, k, v, bias, out, lse, g):
         return flash_bwd_plain(q, k, v, bias, out, lse, g, scale)[:3]
     _check_bwd(q, k, v, bias, None, False, out, lse, g)
     args = (q, k, v, bias, lse) + cotangent_terms(out, g)[:2] + (scale,)
@@ -385,7 +366,7 @@ def flash_bwd_fused(q, k, v, bias, gate, out, lse, g, scale):
     bias2d = bias.dim() == 3
     if not bias2d and gate is None:
         raise ValueError("flash_bwd_fused needs a 2-D bias or a gate; use flash_bwd")
-    if _on_cpu(q, k, v, bias, gate, out, lse, g):
+    if dispatch.on_cpu("flash attention", q, k, v, bias, gate, out, lse, g):
         return flash_bwd_plain(q, k, v, bias, out, lse, g, scale, gate)
     _check_bwd(q, k, v, bias, gate, bias2d, out, lse, g)
     g, delta, d_gate = cotangent_terms(out, g, gate)

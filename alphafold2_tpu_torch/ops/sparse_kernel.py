@@ -1,0 +1,345 @@
+"""CUDA block-sparse attention kernels (B5), their binding and plain versions.
+
+Counterpart of alphafold2_tpu/ops/sparse_kernel.py:
+
+  * `sparse_fwd` (B5f) replaces `block_sparse_attention_tpu`'s forward
+    (`_forward` / `_fwd_kernel`);
+  * `sparse_bwd` launches the two backward kernels, B5 dq and B5 dkv
+    (`_backward_pallas` / `_dq_kernel`, `_dkv_kernel`), after computing
+    delta = rowsum(dO * O) here, as JAX does (:297-300;
+    `flash_kernel.cotangent_terms`).
+
+All take the folded layout q, k, v (BH, n, dh) in float32 or bfloat16 with
+n a multiple of the block size, a key-side additive bias (BH / heads, n)
+f32 (0 or -inf; row bh reads bias row bh // heads) and a `BlockTable` (the
+layout's active key blocks per query block). The forward returns (out
+(BH, n, dh) in the input dtype, lse (BH, n) f32); a row with no unmasked
+key gives zeros and lse = +inf. `sparse_fwd` and `sparse_bwd` take CUDA
+tensors only and launch csrc/sparse_attn.cu (built at first use) or raise.
+Their plain versions (`sparse_fwd_plain`, `sparse_bwd_dq_plain`,
+`sparse_bwd_dkv_plain`) are the one block-gather formulation of the port,
+in f32 and tiled over BH: `sparse_fwd_plain` is differentiable and takes
+attention dropout, and ops/sparse.py's `block_sparse_attention` (the CPU
+route) runs it. `SparseKernelAttention` is the autograd.Function the CUDA
+route runs. `LAUNCHES` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from alphafold2_tpu_torch.ops import cuda_build, dispatch, flash_kernel
+from alphafold2_tpu_torch.ops.core import dropout
+from alphafold2_tpu_torch.ops.flash import aligned
+
+LAUNCHES = {"sparse_fwd": 0, "sparse_bwd_dq": 0, "sparse_bwd_dkv": 0}
+
+SUPPORTED_BLOCK_SIZES = (16, 32, 64, 128)
+SUPPORTED_DH = (16, 32, 64)
+
+# gathered (bh, query block, slot, row, dh) elements the plain versions hold at once
+PLAIN_TILE_ELEMS = 1 << 26
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTable:
+    """A block layout as the kernels read it: idx (B, A) int32, the active
+    key blocks of each query block with the valid slots first and -1 in
+    the padding; counts (B,) int32, the valid slots of each row. The layout
+    is symmetric, so row c also lists the query blocks attending key block
+    c (the dkv kernel's view)."""
+
+    idx: torch.Tensor
+    counts: torch.Tensor
+    block_size: int
+
+    @property
+    def n_blocks(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def nnz(self) -> int:
+        """Active (query block, key block) pairs."""
+        return int(self.counts.sum())
+
+
+def block_table(idx: np.ndarray, valid: np.ndarray, block_size: int, device) -> BlockTable:
+    """The kernels' table from `layout_block_indices`' (idx, valid)."""
+    counts = valid.sum(axis=1).astype(np.int32)
+    if not (valid == (np.arange(valid.shape[1])[None, :] < counts[:, None])).all():
+        raise ValueError("block table: the valid slots must come first in each row")
+    layout = np.zeros((idx.shape[0], idx.shape[0]), bool)
+    rows = np.repeat(np.arange(idx.shape[0]), valid.sum(axis=1))
+    layout[rows, idx[valid]] = True
+    if not (layout == layout.T).all():
+        raise ValueError("block table: the layout must be symmetric (the dkv kernel reads "
+                         "a key block's own row)")
+    table = np.where(valid, idx, -1).astype(np.int32)
+    return BlockTable(torch.from_numpy(table).to(device), torch.from_numpy(counts).to(device),
+                      block_size)
+
+
+# --- plain versions ------------------------------------------------------------
+
+
+def _tiles(q, table: BlockTable):
+    """Yield (r0, r1) over BH so no gathered tile exceeds PLAIN_TILE_ELEMS."""
+    BH, n, dh = q.shape
+    B, A = table.idx.shape
+    bs = table.block_size
+    rows = max(1, PLAIN_TILE_ELEMS // (B * A * bs * max(dh, bs)))
+    for r0 in range(0, BH, rows):
+        yield r0, min(BH, r0 + rows)
+
+
+def _gather_blocks(t, table: BlockTable):
+    """(c, B, ...) gathered along the block axis by the table: (c, B, A,
+    ...), slot a of row r holding block idx[r, a] (block 0 in the padding)."""
+    return t[:, table.idx.long().clamp(min=0)]
+
+
+def _gather(t, r0, r1, table: BlockTable):
+    """(BH, n, d) rows r0:r1 in f32, gathered by block: (c, B, A, bs, d)."""
+    return _gather_blocks(t[r0:r1].float().reshape(r1 - r0, table.n_blocks,
+                                                   table.block_size, -1), table)
+
+
+def _key_bias(bias, heads, r0, r1, table: BlockTable):
+    """The key bias of rows r0:r1, gathered by block, -inf in padded slots:
+    (c, B, A, bs)."""
+    rows = torch.arange(r0, r1, device=bias.device) // heads
+    b = bias[rows].reshape(r1 - r0, table.n_blocks, table.block_size)
+    slot_ok = (table.idx >= 0)[None, :, :, None]
+    return torch.where(slot_ok, _gather_blocks(b, table), float("-inf"))
+
+
+def _scores(q, k, bias, heads, r0, r1, table: BlockTable, scale):
+    """s (c, B, bs, A * bs) f32 of rows r0:r1: scale q.k + bias over each
+    query block's slots, -inf for masked keys and padded slots."""
+    c, B, bs = r1 - r0, table.n_blocks, table.block_size
+    qb = q[r0:r1].float().reshape(c, B, bs, -1)
+    s = torch.einsum("cbid,cbajd->cbiaj", qb, _gather(k, r0, r1, table)) * scale
+    s = s + _key_bias(bias, heads, r0, r1, table)[:, :, None]
+    return s.reshape(c, B, bs, -1)
+
+
+def sparse_fwd_plain(q, k, v, bias, table: BlockTable, heads: int, scale: float, *,
+                     dropout_rate: float = 0.0, rng=None):
+    """The forward kernel's function in plain PyTorch (f32 whatever the
+    input dtype), differentiable by autograd. With a generator `rng` on q's
+    device and dropout_rate > 0, inverted dropout on the probabilities
+    (the kernel has none). Returns (out in q.dtype, lse f32)."""
+    BH, n, dh = q.shape
+    outs, lses = [], []
+    for r0, r1 in _tiles(q, table):
+        c = r1 - r0
+        s = _scores(q, k, bias, heads, r0, r1, table, scale)
+        m = s.amax(dim=-1)
+        live = m > float("-inf")
+        m = torch.where(live, m, 0.0)
+        p = torch.exp(s - m[..., None])  # 0 over a row with no unmasked key
+        l = p.sum(dim=-1)
+        attn = dropout(p / torch.where(live, l, 1.0)[..., None], dropout_rate, rng)
+        vg = _gather(v, r0, r1, table).reshape(c, table.n_blocks, -1, dh)
+        outs.append(torch.einsum("cbij,cbjd->cbid", attn, vg).reshape(c, n, dh))
+        lses.append(torch.where(live, m + torch.log(l), float("inf")).reshape(c, n))
+    return torch.cat(outs).to(q.dtype), torch.cat(lses)
+
+
+def sparse_bwd_dq_plain(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta,
+                        scale: float):
+    """The dq kernel's function in plain PyTorch (f32): p = exp(s - lse), ds
+    = p (g.v - delta), dq = scale ds k over each query block's slots.
+    Returns dq in q.dtype."""
+    BH, n, dh = q.shape
+    dq = torch.empty_like(q)
+    for r0, r1 in _tiles(q, table):
+        c, B = r1 - r0, table.n_blocks
+        s = _scores(q, k, bias, heads, r0, r1, table, scale)
+        p = torch.exp(s - lse[r0:r1].reshape(c, B, -1, 1))
+        vg = _gather(v, r0, r1, table).reshape(c, B, -1, dh)
+        kg = _gather(k, r0, r1, table).reshape(c, B, -1, dh)
+        dp = torch.einsum("cbid,cbjd->cbij", g[r0:r1].float().reshape(c, B, -1, dh), vg)
+        ds = p * (dp - delta[r0:r1].reshape(c, B, -1, 1))
+        dq[r0:r1] = (torch.einsum("cbij,cbjd->cbid", ds, kg) * scale).reshape(c, n, dh).to(q.dtype)
+    return dq
+
+
+def sparse_bwd_dkv_plain(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta,
+                         scale: float):
+    """The dkv kernel's function in plain PyTorch (f32), as the kernel reads
+    the table: key block c gathers the query blocks of its own row (the
+    layout is symmetric); dk = scale ds^T q, dv = p^T g. Returns (dk, dv)
+    in the input dtype."""
+    BH, n, dh = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for r0, r1 in _tiles(q, table):
+        c, B, bs = r1 - r0, table.n_blocks, table.block_size
+        qg, gg = _gather(q, r0, r1, table), _gather(g, r0, r1, table)  # (c, B, A, bs, dh)
+        slot_ok = (table.idx >= 0)[None, :, :, None]
+        lse_g = torch.where(slot_ok, _gather_blocks(lse[r0:r1].reshape(c, B, bs), table),
+                            float("inf"))
+        delta_g = _gather_blocks(delta[r0:r1].reshape(c, B, bs), table)
+        kb = k[r0:r1].float().reshape(c, B, bs, dh)
+        vb = v[r0:r1].float().reshape(c, B, bs, dh)
+        rows = torch.arange(r0, r1, device=bias.device) // heads
+        key_bias = bias[rows].reshape(c, B, bs)
+        s = torch.einsum("cbjd,cbaid->cbjai", kb, qg) * scale + key_bias[..., None, None]
+        p = torch.exp(s - lse_g[:, :, None])
+        dp = torch.einsum("cbjd,cbaid->cbjai", vb, gg)
+        ds = p * (dp - delta_g[:, :, None])
+        dv[r0:r1] = torch.einsum("cbjai,cbaid->cbjd", p, gg).reshape(c, n, dh).to(v.dtype)
+        dk[r0:r1] = (torch.einsum("cbjai,cbaid->cbjd", ds, qg) * scale).reshape(c, n, dh) \
+            .to(k.dtype)
+    return dk, dv
+
+
+def sparse_bwd_plain(q, k, v, bias, table: BlockTable, heads: int, out, lse, g,
+                     scale: float):
+    """Both backward kernels' function in plain PyTorch. Returns (dq, dk, dv)."""
+    delta = flash_kernel.cotangent_terms(out, g)[1]  # rowsum(g * out) in f32
+    args = (q, k, v, bias, table, heads, lse, g, delta, scale)
+    return (sparse_bwd_dq_plain(*args),) + sparse_bwd_dkv_plain(*args)
+
+
+# --- the CUDA binding ------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.library("sparse_attn")
+    p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+    shape = [i64, i64, i64, i64, i32, i32, f32, i32, p]
+    lib.af2_sparse_fwd.argtypes = [p] * 8 + shape
+    lib.af2_sparse_bwd_dq.argtypes = [p] * 10 + shape
+    lib.af2_sparse_bwd_dkv.argtypes = [p] * 11 + shape
+    for fn in (lib.af2_sparse_fwd, lib.af2_sparse_bwd_dq, lib.af2_sparse_bwd_dkv):
+        fn.restype = i32
+    return lib
+
+
+def unsupported(BH: int, n: int, dh: int, dtype, block_size: int):
+    """What the CUDA kernels do not take, or None."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return f"dtype {dtype} (float32 or bfloat16)"
+    if block_size not in SUPPORTED_BLOCK_SIZES:
+        return f"block_size={block_size} (built for {SUPPORTED_BLOCK_SIZES})"
+    if dh not in SUPPORTED_DH:
+        return f"dim_head={dh} (built for {SUPPORTED_DH})"
+    if n % block_size or n == 0 or BH == 0:
+        return f"n={n}, BH={BH} (a positive multiple of the block size {block_size})"
+    if BH * (n // block_size) > 2 ** 31 - 1:
+        return f"BH={BH}, n={n} (past the kernel grid)"
+    return None
+
+
+def _check(q, k, v, bias, table: BlockTable, heads: int, *more):
+    if dispatch.on_cpu("sparse attention", q, k, v, bias, table.idx, *(t for _, t in more)):
+        raise ValueError("the sparse kernels take CUDA tensors; the plain versions "
+                         "(sparse_fwd_plain, sparse_bwd_plain) take CPU ones")
+    BH, n, dh = q.shape
+    reason = unsupported(BH, n, dh, q.dtype, table.block_size)
+    if reason is not None:
+        raise ValueError(f"the H100 sparse kernels do not support {reason}")
+    for name, t in (("k", k), ("v", v)) + more:
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} must match q {tuple(q.shape)} {q.dtype}")
+    if BH % heads or bias.dtype != torch.float32 or tuple(bias.shape) != (BH // heads, n):
+        raise ValueError(f"bias must be float32 ({BH // heads}, {n}), got {bias.dtype} "
+                         f"{tuple(bias.shape)}")
+    if table.idx.dtype != torch.int32 or table.counts.dtype != torch.int32 \
+            or table.n_blocks * table.block_size != n:
+        raise ValueError(f"block table of {table.n_blocks} blocks of {table.block_size} "
+                         f"does not cover n={n}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias), ("idx", table.idx),
+                    ("counts", table.counts)) + more:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and start 16-byte aligned")
+
+
+def _shape_args(q, table: BlockTable, heads, scale):
+    BH, n, dh = q.shape
+    return (BH, heads, table.n_blocks, table.idx.shape[1], table.block_size, dh,
+            float(scale), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def sparse_fwd(q, k, v, bias, table: BlockTable, heads: int, scale: float):
+    """B5f. Returns (out, lse)."""
+    _check(q, k, v, bias, table, heads)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    rc = _lib().af2_sparse_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), table.idx.data_ptr(),
+        table.counts.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        *_shape_args(q, table, heads, scale))
+    cuda_build.check_launch(rc, "sparse_fwd")
+    LAUNCHES["sparse_fwd"] += 1
+    return out, lse
+
+
+def _bwd_ins(q, k, v, bias, table, g, lse, delta):
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), table.idx.data_ptr(), table.counts.data_ptr())
+
+
+def launch_dq(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta, scale):
+    """One launch of the dq kernel, counted, on inputs `sparse_bwd` checked."""
+    dq = torch.empty_like(q)
+    rc = _lib().af2_sparse_bwd_dq(*_bwd_ins(q, k, v, bias, table, g, lse, delta),
+                                  dq.data_ptr(), *_shape_args(q, table, heads, scale))
+    cuda_build.check_launch(rc, "sparse_bwd_dq")
+    LAUNCHES["sparse_bwd_dq"] += 1
+    return dq
+
+
+def launch_dkv(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta, scale):
+    """One launch of the dkv kernel, counted. Returns (dk, dv)."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = _lib().af2_sparse_bwd_dkv(*_bwd_ins(q, k, v, bias, table, g, lse, delta),
+                                   dk.data_ptr(), dv.data_ptr(),
+                                   *_shape_args(q, table, heads, scale))
+    cuda_build.check_launch(rc, "sparse_bwd_dkv")
+    LAUNCHES["sparse_bwd_dkv"] += 1
+    return dk, dv
+
+
+def sparse_bwd(q, k, v, bias, table: BlockTable, heads: int, out, lse, g, scale: float):
+    """B5 dq and B5 dkv: the backward of `sparse_fwd` from its saved out and
+    lse and the cotangent g. Returns (dq, dk, dv) in the input dtype."""
+    _check(q, k, v, bias, table, heads, ("out", out), ("g", g))
+    if lse.dtype != torch.float32 or lse.shape != q.shape[:2] or not lse.is_contiguous() \
+            or lse.device != q.device:
+        raise ValueError(f"lse must be a contiguous float32 {tuple(q.shape[:2])} on {q.device}")
+    delta = flash_kernel.cotangent_terms(out, g)[1]
+    args = (q, k, v, bias, table, heads, lse, g, delta, scale)
+    return (launch_dq(*args),) + launch_dkv(*args)
+
+
+class SparseKernelAttention(torch.autograd.Function):
+    """B5 in the folded layout: forward `sparse_fwd`, backward `sparse_bwd`
+    from the saved out and lse. The bias is a mask: no cotangent."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, table, heads, scale):
+        out, lse = sparse_fwd(q, k, v, bias, table, heads, scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.table, ctx.heads, ctx.scale = table, heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = sparse_bwd(q, k, v, bias, ctx.table, ctx.heads, out, lse, aligned(g),
+                                ctx.scale)
+        return dq, dk, dv, None, None, None, None

@@ -5,9 +5,12 @@ Usage:
   python -m alphafold2_tpu_torch.predict --seq ACDEFGHIKLMNPQRSTVWY --out s.pdb
   python -m alphafold2_tpu_torch.predict --seq ... --msa-file aln.a3m --bf16
   python -m alphafold2_tpu_torch.predict --seq ... --device cpu
+  python -m alphafold2_tpu_torch.predict --seq ... --bf16 --weight-dtype int8
 
 Parameters come from `--seed` through the port's own init; restoring a
-JAX checkpoint waits for the checkpoint port. Runs on the GPU unless
+JAX checkpoint waits for the checkpoint port. `--weight-dtype int8` serves
+them through `serving/quant_residency.py resident_params`, as the JAX
+serving engine does. Runs on the GPU unless
 `--device cpu` is given; float32 matmuls and convolutions run in full
 float32 there (TF32 off).
 """
@@ -25,6 +28,7 @@ from alphafold2_tpu_torch.geometry.pdb import coords_to_pdb
 from alphafold2_tpu_torch.models.alphafold2 import alphafold2_init
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.serving.pipeline import predict_structure
+from alphafold2_tpu_torch.serving.quant_residency import resident_params
 
 
 def main(argv=None):
@@ -45,6 +49,9 @@ def main(argv=None):
                     help="MSA row-position-table size (default: from the "
                          "loaded MSA, min 20)")
     ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--weight-dtype", choices=("f32", "int8"), default="f32",
+                    help="int8: serve per-channel int8 trunk weights (post-training "
+                         "quantization of the f32 weights, the int8 matmul kernel)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the parameter init and the random MDS init")
     ap.add_argument("--max-seq-len", type=int, default=None,
@@ -78,9 +85,12 @@ def main(argv=None):
         max_seq_len=args.max_seq_len or max(64, L),
         max_num_msa=args.max_num_msa or max(20, msa.shape[1] if msa is not None else 0),
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        weight_dtype=args.weight_dtype,
     )
     gen = torch.Generator().manual_seed(args.seed)
-    params = alphafold2_init(cfg, gen, device)
+    params, residency = resident_params(alphafold2_init(cfg, gen, device), cfg)
+    print(f"weights: {residency['weight_dtype']}, {residency['weight_bytes']:,} bytes "
+          f"resident ({residency['fp32_weight_bytes']:,} in f32)")
     out = predict_structure(
         params, cfg, tokens, msa=msa, msa_mask=msa_mask,
         mds_iters=args.mds_iters, mds_init=args.mds_init, generator=gen,

@@ -1,6 +1,7 @@
 """Where one structure request's, or one training step's, time goes on the card.
 
     python -m alphafold2_tpu_torch.telemetry.profiling [--length 384] [--depth 2] [--gate]
+    python -m alphafold2_tpu_torch.telemetry.profiling --int8 | --sparse [--length 384]
     python -m alphafold2_tpu_torch.telemetry.profiling --train [--length 128] [--depth 1]
 
 Request (the default): runs the serving configuration (dim 256, heads 8,
@@ -8,7 +9,10 @@ dim_head 64, bf16, a seeded 20-row MSA, 200 MDS iterations) through
 `predict_structure` on the GPU and reports, for one request of `--length`
 residues, the request time and the model forward's time (CUDA events,
 the mean of `--reps` runs after one warm-up; the rest is the distogram
-softmax, the geometry and the confidence).
+softmax, the geometry and the confidence). `--int8` serves resident int8
+trunk weights (`weight_dtype="int8"`, kernel B4); `--sparse` runs the pair
+axial passes of every other layer block-sparse (`sparse_self_attn=(True,
+False, ...)`, kernel B5).
 
 Train (`--train`): runs train_pre's step (`training/harness.py
 make_train_step`, dim 256, heads 8, dim_head 64, bf16, batch 1, 16
@@ -17,7 +21,7 @@ reports the step time (CUDA events, mean of `--reps` steps after one
 warm-up step).
 
 Both: from one more run under `torch.profiler`, device time by kernel
-name and by kind (the port's flash forward and backward kernels, cuBLAS
+name and by kind (the port's flash, sparse and int8 kernels, cuBLAS
 matrix products, the optimizer's fused updates, the rest), and the
 device's busy share of the time measured without the profiler. The
 record goes to `--out` as JSON. Needs a CUDA device; float32 matmuls and
@@ -36,8 +40,9 @@ import torch
 
 from alphafold2_tpu_torch.models.alphafold2 import alphafold2_apply, alphafold2_init
 from alphafold2_tpu_torch.models.config import Alphafold2Config
-from alphafold2_tpu_torch.ops import flash_kernel
+from alphafold2_tpu_torch.ops import flash_kernel, quant_kernel, sparse_kernel
 from alphafold2_tpu_torch.serving.pipeline import predict_structure
+from alphafold2_tpu_torch.serving.quant_residency import resident_params
 from alphafold2_tpu_torch.training.data import DataConfig, synthetic_microbatch_fn
 from alphafold2_tpu_torch.training.harness import (
     TrainConfig,
@@ -55,6 +60,12 @@ def kernel_kind(name: str) -> str:
         return "flash forward (this port)"
     if "flash_bwd_" in low:
         return "flash backward (this port)"
+    if "sparse_fwd_" in low:
+        return "sparse forward (this port)"
+    if "sparse_dq_" in low or "sparse_dkv_" in low:
+        return "sparse backward (this port)"
+    if "quant_matmul_" in low:
+        return "int8 matrix products (this port)"
     if any(m in low for m in _GEMM_MARKERS):
         return "matrix products (cuBLAS)"
     if any(m in low for m in _OPTIMIZER_MARKERS):
@@ -81,15 +92,19 @@ def _device_us(avg) -> float:
     return 0.0
 
 
+_COUNTED = (flash_kernel, quant_kernel, sparse_kernel)
+
+
 def _profile(fn):
     """Device time by kernel and by kind over one call of fn under
-    torch.profiler, and the flash launch counts of that call."""
-    flash_kernel.reset_launches()
+    torch.profiler, and the port's kernel launch counts of that call."""
+    for module in _COUNTED:
+        module.reset_launches()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    launches = dict(flash_kernel.LAUNCHES)
+    launches = {name: n for module in _COUNTED for name, n in module.LAUNCHES.items()}
     kernels = [
         {"name": a.key, "count": a.count, "device_ms": _device_us(a) / 1e3}
         for a in prof.key_averages()
@@ -108,8 +123,12 @@ def _request(args):
     L = args.length or 384
     depth = args.depth or 2
     cfg = Alphafold2Config(dim=256, depth=depth, heads=8, dim_head=64,
-                           max_seq_len=L, dtype=torch.bfloat16, attn_gate=args.gate)
-    params = alphafold2_init(cfg, torch.Generator().manual_seed(args.seed), "cuda")
+                           max_seq_len=L, dtype=torch.bfloat16, attn_gate=args.gate,
+                           weight_dtype="int8" if args.int8 else "f32",
+                           sparse_self_attn=tuple(n % 2 == 0 for n in range(depth)) if args.sparse
+                           else False)
+    params, residency = resident_params(
+        alphafold2_init(cfg, torch.Generator().manual_seed(args.seed), "cuda"), cfg)
     rng = np.random.default_rng(args.seed)
     tokens = rng.integers(0, 20, (1, L)).astype(np.int32)
     msa = rng.integers(0, 21, (1, 20, L)).astype(np.int32)
@@ -130,13 +149,15 @@ def _request(args):
     torch.cuda.synchronize()
     request_ms = _events_ms(request, args.reps)
     forward_ms = _events_ms(forward, args.reps)
-    print(f"[profile] L={L} depth={depth} gate={args.gate}: request {request_ms:.3f} ms, "
-          f"forward {forward_ms:.3f} ms, rest {request_ms - forward_ms:.3f} ms (CUDA events, "
-          f"mean of {args.reps})")
+    print(f"[profile] L={L} depth={depth} gate={args.gate} int8={args.int8} "
+          f"sparse={args.sparse}: request {request_ms:.3f} ms, forward {forward_ms:.3f} ms, "
+          f"rest {request_ms - forward_ms:.3f} ms (CUDA events, mean of {args.reps}); "
+          f"weights {residency['weight_bytes']:,} bytes ({residency['fp32_weight_bytes']:,} "
+          f"in f32)")
     return request, request_ms, {
         "config": repr(cfg), "length": L, "msa_rows": 20, "mds_iters": 200,
         "request_ms": request_ms, "forward_ms": forward_ms,
-        "rest_ms": request_ms - forward_ms,
+        "rest_ms": request_ms - forward_ms, "residency": residency,
     }
 
 
@@ -171,11 +192,18 @@ def main(argv=None):
     ap.add_argument("--depth", type=int, default=None,
                     help="trunk depth (default 2 for a request, 1 for a train step)")
     ap.add_argument("--gate", action="store_true", help="attn_gate=True (the fused kernels)")
+    ap.add_argument("--int8", action="store_true",
+                    help="request: weight_dtype='int8' (resident int8 trunk weights, kernel B4)")
+    ap.add_argument("--sparse", action="store_true",
+                    help="request: sparse_self_attn=(True, False, ...) (kernel B5 on the "
+                         "pair axial passes of every other layer)")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="JSON record (default chiprun_out/profile_{request,train}.json)")
     args = ap.parse_args(argv)
+    if args.train and (args.int8 or args.sparse):
+        ap.error("--int8 and --sparse profile a request (int8 weights do not train)")
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -193,7 +221,7 @@ def main(argv=None):
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "profiled_device_ms": device_ms,
         "busy_share": device_ms / wall_ms if kernels else None,
-        "kinds": kinds, "kernels": kernels[:25], "flash_launches": launches,
+        "kinds": kinds, "kernels": kernels[:25], "launches": launches,
     })
     if not kernels:
         print("[profile] the profiler recorded no device time: kernel breakdown not measured")
@@ -204,7 +232,7 @@ def main(argv=None):
             print(f"[profile]   {v['device_ms']:10.3f} ms {v['launches']:6d} launches  {kind}")
         for k in kernels[:12]:
             print(f"[profile]   {k['device_ms']:10.3f} ms {k['count']:6d} x  {k['name'][:90]}")
-    print(f"[profile] flash launches {launches}")
+    print(f"[profile] kernel launches {launches}")
     out = Path(args.out or f"chiprun_out/profile_{'train' if args.train else 'request'}.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1))

@@ -33,6 +33,7 @@ import torch
 from alphafold2_tpu_torch.device import as_device_tensor, resolve_device, tree_leaves
 from alphafold2_tpu_torch.models.alphafold2 import alphafold2_apply, alphafold2_init
 from alphafold2_tpu_torch.models.config import Alphafold2Config
+from alphafold2_tpu_torch.ops.quant import reject_quant_training
 from alphafold2_tpu_torch.training.losses import (
     bucketed_distance_matrix,
     distogram_cross_entropy,
@@ -136,7 +137,9 @@ def train_state(params, tcfg: TrainConfig) -> dict:
 def train_state_init(cfg: Alphafold2Config, tcfg: TrainConfig,
                      generator: torch.Generator, device=None) -> dict:
     """Fresh parameters from `generator` (a CPU generator) on `device`
-    (default CUDA; device="cpu" for the CPU) and their train state."""
+    (default CUDA; device="cpu" for the CPU) and their train state. An
+    int8 config is refused (inference-only)."""
+    reject_quant_training(cfg, "train_state_init")
     return train_state(alphafold2_init(cfg, generator, resolve_device(device)), tcfg)
 
 
@@ -171,8 +174,15 @@ def make_train_step(cfg: Alphafold2Config, tcfg: TrainConfig,
     is an optional CPU generator for dropout. The state is updated in
     place and returned; metrics are 0-d tensors on the device: "loss" (the
     microbatch mean) and "grad_norm" (of the mean gradient, before
-    clipping)."""
+    clipping). An int8 config is refused (inference-only), and so is a
+    sparse config with attention dropout on the card (the sparse kernels
+    have no dropout)."""
+    reject_quant_training(cfg, "make_train_step")
     dev = resolve_device(device)
+    if dev.type == "cuda" and any(cfg.layer_sparse) and cfg.attn_dropout > 0.0:
+        raise ValueError(
+            f"make_train_step: sparse_self_attn with attn_dropout={cfg.attn_dropout} on {dev}: "
+            f"the sparse CUDA kernels have no attention dropout; set attn_dropout=0")
 
     def train_step(state, batch, rng=None):
         n = tcfg.grad_accum

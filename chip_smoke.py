@@ -11,14 +11,19 @@ each phase prints its seconds):
   2. the build: every CUDA source of the port, compiled from the checkout
      (one nvcc per source, all started together);
   3. each kernel against its plain PyTorch version on the same inputs, at
-     the main paths' attention shapes in bf16 and at ragged, fully masked
-     and float32 edge shapes, with kernel, plain, library and bound times:
-     the forwards at the serving shapes (L = 384), the backwards (B1b
-     ungated, B2b gated, one 2-D-bias case) at the training shapes (pair
-     axial at L = 128 and 256);
+     the main paths' shapes in bf16 and at ragged, fully masked and
+     float32 edge shapes, with kernel, plain, library and bound times:
+     the flash forwards at the serving shapes (L = 384), the flash
+     backwards (B1b ungated, B2b gated, one 2-D-bias case) at the training
+     shapes (pair axial at L = 128 and 256); the int8 product (B4) at the
+     served int8 request's ten dense-layer shapes (L = 384); the
+     block-sparse forward and backward (B5) at the sparse request's pair
+     axial shape (L = 384) and at n = 4096, plus block sizes 32-128, head
+     widths 16 and 32, f32 and a ragged length;
   4. the main path through `predict_structure`:
-     (a) one request at L = 64 in float32 on the card and on the CPU with
-         the same parameters: logits, confidence, stress and distances;
+     (a) one request in float32 on the card and on the CPU with the same
+         parameters: logits, confidence, stress and distances; at L = 64,
+         again with int8 weights, and sparse (layer 0) at L = 128;
      (b) the serving configuration (dim 256, depth 2, heads 8, dim_head
          64, bf16) on three requests, L = 128, 256, 384, each with a
          seeded 20-row MSA, 200 MDS iterations, after one untimed warm-up
@@ -26,19 +31,28 @@ each phase prints its seconds):
          trunk layer);
      (c) the same with attn_gate=True at depth 1, where the fused kernel
          carries every attention;
+     (d) the same with int8 weights through `resident_params`: 22 int8
+         products a trunk layer, the flash launches unchanged;
+     (e) the same with sparse_self_attn=(True, False): 2 sparse and 10
+         flash forwards a request;
+     (f) the int8 model against the f32 model on its dequantized weights;
   6. the training path through `make_train_step` (train_pre's step):
-     (a) dim 256, depth 2, heads 8, dim_head 64, L = 64, accum 2, f32, 3
-         steps on the card and on the CPU from the same params and
-         batches: loss, grad_norm, the first step's gradients leaf by leaf,
-         the params after 3 steps;
+     (a) dim 256, depth 2, heads 8, dim_head 64, accum 2, f32, 3 steps on
+         the card and on the CPU from the same params and batches: loss,
+         grad_norm, the first step's gradients leaf by leaf, the params
+         after 3 steps; at L = 64, and sparse (every layer) at L = 128;
      (b) train_pre's defaults in bf16 (dim 256, depth 1, heads 8, dim_head
          64, batch 1, accum 16) at L = 128 and 256: one untimed step, 5
          timed ones; step ms, MFU, peak memory, finite nonzero gradients,
          and 2 * depth * accum launches of each kernel per step;
      (c) the same with attn_gate=True at L = 128: the fused pair only;
+     (e) the same sparse at L = 256 (max_seq_len 256): the three sparse
+         kernels only;
+     (f) make_train_step refuses an int8 config;
      (d) 30 steps on one repeated batch at lr 1e-3 lower the loss;
-  5. a `kernels` JSON line (the two forwards and the four backward
-     kernels), the card line, and the final `ok` JSON line.
+  5. a `kernels` JSON line (ten kernels: the two flash forwards, the four
+     flash backward kernels, the int8 product, the three sparse kernels),
+     the card line, and the final `ok` JSON line.
 
 A detailed record goes to chiprun_out/chip_smoke.json.
 """
@@ -61,8 +75,22 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 import alphafold2_tpu_torch  # noqa: E402
-from alphafold2_tpu_torch import Alphafold2Config, alphafold2_init, predict_structure  # noqa: E402
-from alphafold2_tpu_torch.ops import cuda_build, flash_kernel  # noqa: E402
+from alphafold2_tpu_torch import (  # noqa: E402
+    Alphafold2Config,
+    alphafold2_apply,
+    alphafold2_init,
+    predict_structure,
+)
+from alphafold2_tpu_torch.ops import (  # noqa: E402
+    cuda_build,
+    flash_kernel,
+    quant,
+    quant_kernel,
+    sparse,
+    sparse_kernel,
+)
+from alphafold2_tpu_torch.ops.attention import AttentionConfig, attention_init  # noqa: E402
+from alphafold2_tpu_torch.serving.quant_residency import resident_params  # noqa: E402
 from alphafold2_tpu_torch.training.data import DataConfig, synthetic_microbatch_fn  # noqa: E402
 from alphafold2_tpu_torch.training.harness import (  # noqa: E402
     TrainConfig,
@@ -77,6 +105,8 @@ BF16_ULP = 2.0 ** -7        # bf16 spacing relative to the value, upper bound
 SOURCES = {
     "flash_fwd": "alphafold2_tpu_torch/csrc/flash_fwd.cu",
     "flash_bwd": "alphafold2_tpu_torch/csrc/flash_bwd.cu",
+    "quant_matmul": "alphafold2_tpu_torch/csrc/quant_matmul.cu",
+    "sparse_attn": "alphafold2_tpu_torch/csrc/sparse_attn.cu",
 }
 REPLACES = {
     "flash_fwd": "alphafold2_tpu/ops/flash_kernel.py:197",
@@ -85,7 +115,12 @@ REPLACES = {
     "flash_bwd_dkv": "alphafold2_tpu/ops/flash_kernel.py:401",
     "flash_bwd_fused_dq": "alphafold2_tpu/ops/flash_kernel.py:753",
     "flash_bwd_fused_dkv": "alphafold2_tpu/ops/flash_kernel.py:772",
+    "quant_matmul": "alphafold2_tpu/ops/quant_kernel.py:133",
+    "sparse_fwd": "alphafold2_tpu/ops/sparse_kernel.py:173",
+    "sparse_bwd_dq": "alphafold2_tpu/ops/sparse_kernel.py:304",
+    "sparse_bwd_dkv": "alphafold2_tpu/ops/sparse_kernel.py:318",
 }
+COUNTED = (flash_kernel, quant_kernel, sparse_kernel)  # the modules with launch counts
 RECORD = {"phases": {}}
 
 
@@ -99,6 +134,16 @@ def fail(msg):
 
 def sync():
     torch.cuda.synchronize()
+
+
+def reset_launches():
+    for module in COUNTED:
+        module.reset_launches()
+
+
+def launch_counts():
+    """Every kernel's launches since the last reset_launches()."""
+    return {name: n for module in COUNTED for name, n in module.LAUNCHES.items()}
 
 
 def time_ms(fn, reps):
@@ -145,9 +190,12 @@ def phase_build():
     seconds = time.perf_counter() - t0
     for b in built.values():
         log(f"[build] {b.name}: {b.path.name} in {b.seconds:.1f} s")
-        for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+        kernel = None
+        for line in b.log.splitlines():  # ptxas -v: name each kernel that spills
+            if "Function properties for" in line:
+                kernel = line.split("Function properties for")[-1].strip()
+            elif "bytes spill stores" in line and not line.strip().startswith("0 bytes stack"):
+                log(f"[build]   {kernel}: {line.strip()}")
     log(f"[build] all sources built in {seconds:.1f} s")
     RECORD["phases"]["build_s"] = seconds
 
@@ -187,29 +235,45 @@ def bound_terms(q, k, v, bias, gate):
     return flops / PEAK_FLOPS[q.dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def sdpa_mask_ms(q, k, v, mask, scale, reps, g=None, wrt=None):
+    """F.scaled_dot_product_attention with `mask` (additive, or boolean),
+    forward, or with `wrt` its backward alone for the gradients "q", "kv"
+    or "qkv" on a retained graph: a yardstick the port never calls. None
+    when no fused backend takes the shape."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    fused_only = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                  SDPBackend.CUDNN_ATTENTION]
+    q4, k4, v4 = (t.detach().unsqueeze(0).requires_grad_(wrt is not None) for t in (q, k, v))
+    try:
+        with sdpa_kernel(fused_only):
+            if wrt is None:
+                return time_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask, scale=scale), reps)
+            out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)
+            inputs = {"q": (q4,), "kv": (k4, v4), "qkv": (q4, k4, v4)}[wrt]
+            return time_ms(lambda: torch.autograd.grad(out, inputs, g[None],
+                                                       retain_graph=True), reps)
+    except RuntimeError as e:  # no fused backend takes this shape: no yardstick
+        log(f"[library] none ({str(e).splitlines()[0][:100]})")
+        return None
+
+
+def dense_mask(q, k, bias):
+    """The additive mask SDPA takes for a key-side (BH, j) or 2-D (BH, i, j)
+    bias, cast before expanding (a key-side mask stays a stride-0 view)."""
+    BH, i, _ = q.shape
+    mask = bias.to(q.dtype)
+    return (mask if mask.dim() == 3 else mask[:, None, :].expand(BH, i, k.shape[1]))[None]
+
+
 def library_ms(q, k, v, bias, gate, scale, reps):
     """One PyTorch call computing the same function: scaled_dot_product_attention
     with the bias as an additive mask (a yardstick only; the port never
     calls it). The gated kernel has no one-call equivalent: None."""
     if gate is not None:
         return None
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
-    BH, i, _ = q.shape
-    j = k.shape[1]
-    # cast before expanding: the key-side mask stays a stride-0 view
-    mask = bias.to(q.dtype)
-    mask = (mask if mask.dim() == 3 else mask[:, None, :].expand(BH, i, j))[None]
-    fused_only = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.FLASH_ATTENTION,
-                  SDPBackend.CUDNN_ATTENTION]
-    try:
-        with sdpa_kernel(fused_only):
-            return time_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=mask, scale=scale), reps)
-    except RuntimeError as e:  # no fused backend takes this shape: no yardstick
-        log(f"[kernels]   library: none ({str(e).splitlines()[0][:100]})")
-        return None
+    return sdpa_mask_ms(q, k, v, dense_mask(q, k, bias), scale, reps)
 
 
 def check_kernel(name, label, BH, i, j, dh, dtype, *, timed, masked_bh=(),
@@ -359,29 +423,48 @@ def flash_bwd_bf16_bound(q, k, v, bias, out, lse, g, scale, gate=None):
                  for b, r in ((bdq, ref_dq), (bdk, ref_dk), (bdv, ref_dv)))
 
 
+def quant_bound(x, qw, scale, ref):
+    """Elementwise bound on |quant_matmul kernel - quant_matmul_plain|. The
+    two sum the same k products in another order (the plain version scales
+    each weight before the product, the kernel scales the f32 sum once), a
+    difference of at most k * 2^-24 * s * sum |x||q| per output (k roundings
+    of at most one f32 unit each over the absolute sum); in bf16 each side
+    then rounds its f32 result once, two values straddling a rounding
+    boundary land one bf16 ulp (at most 2^-7 of the value) apart."""
+    k = x.shape[1]
+    bound = k * 2.0 ** -24 * scale.float().abs()[None, :] * (x.float().abs() @ qw.float().abs())
+    if x.dtype == torch.bfloat16:
+        bound = bound + BF16_ULP * ref.float().abs()
+    return bound
+
+
+def sparse_dense_bias(bias, table, heads):
+    """(BH, n, n) f32: the key bias where the block layout is active, -inf
+    elsewhere, so dense attention with this 2-D bias is the block-sparse
+    attention (bias (BH / heads, n); table a sparse_kernel.BlockTable)."""
+    B, bs = table.n_blocks, table.block_size
+    active = torch.zeros((B, B + 1), dtype=torch.bool, device=bias.device)
+    cols = torch.where(table.idx >= 0, table.idx.long(), B)  # padding -> a dropped column
+    active.scatter_(1, cols, True)
+    active = active[:, :B].repeat_interleave(bs, 0).repeat_interleave(bs, 1)
+    rows = bias.repeat_interleave(heads, 0)[:, None, :]
+    return torch.where(active[None], rows, float("-inf")).contiguous()
+
+
+def sparse_bwd_bf16_bound(q, k, v, bias, table, heads, out, lse, g, scale):
+    """`flash_bwd_bf16_bound` of the dense attention the block-sparse one
+    equals (`sparse_dense_bias`): the sparse kernels round dS and P to bf16
+    before their products as the flash ones do."""
+    return flash_bwd_bf16_bound(q, k, v, sparse_dense_bias(bias, table, heads), out, lse, g,
+                                scale)
+
+
 def sdpa_backward_ms(q, k, v, bias, g, scale, wrt, reps):
     """The backward alone of F.scaled_dot_product_attention with the same
     additive mask, for the gradients `wrt` ("q", "kv" or "qkv"), on a
     retained graph (a yardstick; the port never calls it). None when no fused
     backend takes the shape."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    BH, i, _ = q.shape
-    j = k.shape[1]
-    q4, k4, v4 = (t.detach().unsqueeze(0).requires_grad_() for t in (q, k, v))
-    mask = bias.to(q.dtype)
-    mask = (mask if mask.dim() == 3 else mask[:, None, :].expand(BH, i, j))[None]
-    fused_only = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.FLASH_ATTENTION,
-                  SDPBackend.CUDNN_ATTENTION]
-    inputs = {"q": (q4,), "kv": (k4, v4), "qkv": (q4, k4, v4)}[wrt]
-    try:
-        with sdpa_kernel(fused_only):
-            out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)
-            return time_ms(lambda: torch.autograd.grad(out, inputs, g[None],
-                                                       retain_graph=True), reps)
-    except RuntimeError as e:  # no fused backend takes this shape: no yardstick
-        log(f"[bwd]   library: none ({str(e).splitlines()[0][:100]})")
-        return None
+    return sdpa_mask_ms(q, k, v, dense_mask(q, k, bias), scale, reps, g, wrt)
 
 
 def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
@@ -517,6 +600,279 @@ def phase_bwd_kernels():
     return rows
 
 
+# --- phase 3, int8: the quant_matmul kernel against its plain version ---------------
+
+# the served int8 request's dense layers at L = 384 (dim 256, 8 heads of 64,
+# 20 MSA rows, GEGLU 4x): (m, k, n); the crosses reuse these shapes
+QUANT_SHAPES = {
+    "pair q": (147456, 256, 512),
+    "pair kv": (147456, 256, 1024),
+    "pair out": (147456, 512, 256),
+    "pair ff in": (147456, 256, 2048),
+    "pair ff out": (147456, 1024, 256),
+    "msa q": (7680, 256, 512),
+    "msa kv": (7680, 256, 1024),
+    "msa out": (7680, 512, 256),
+    "msa ff in": (7680, 256, 2048),
+    "msa ff out": (7680, 1024, 256),
+}
+
+
+def check_quant(label, m, k, n, dtype, *, timed, per_tensor=False):
+    """quant_matmul on the card against quant_matmul_plain, elementwise
+    within `quant_bound`; channel n // 2 is all zero (scale 0: exact
+    zeros out)."""
+    g = torch.Generator(device="cuda").manual_seed(m + n)
+    w = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
+    w[:, n // 2] = 0.0
+    qw, scale = quant.quantize_weight(w, per_channel=not per_tensor)
+    scale = scale.reshape(-1).expand(n).contiguous()
+    x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+    del w
+    before = quant_kernel.LAUNCHES["quant_matmul"]
+    y = quant.quant_matmul(x, qw, scale)
+    sync()
+    if quant_kernel.LAUNCHES["quant_matmul"] != before + 1:
+        fail("quant_matmul did not count its launch")
+    ref = quant_kernel.quant_matmul_plain(x, qw, scale)
+    bound = quant_bound(x, qw, scale, ref)
+    diff = (y.float() - ref.float()).abs()
+    ratio = torch.where(bound > 0, diff / bound, torch.where(diff > 0, math.inf, 0.0))
+    err, worst = diff.max().item(), ratio.max().item()
+    ok = worst <= 1.0 and bool(torch.isfinite(y).all()) and bool((y[:, n // 2] == 0).all())
+    row = {"kernel": "quant_matmul", "case": label, "shape": [m, k, n], "dtype": str(dtype),
+           "max_abs_err": err, "bound_ratio": worst, "ok": bool(ok)}
+    del bound, diff, ratio, ref
+    if timed:
+        el = x.element_size()
+        t_ops = 2.0 * m * k * n / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = (m * k * el + k * n + 4 * n + m * n * el) / HBM_BYTES_PER_S * 1e3
+        w_deq = quant.dequantize_weight(qw, scale).to(dtype)  # made beforehand
+        row["kernel_ms"] = time_ms(lambda: quant_kernel.launch(x, qw, scale), 10)
+        row["plain_ms"] = time_ms(lambda: quant_kernel.quant_matmul_plain(x, qw, scale), 3)
+        row["library_ms"] = time_ms(lambda: torch.matmul(x, w_deq), 10)
+        row["ops_ms"], row["bytes_ms"] = t_ops, t_bytes
+        row["bound_ms"] = max(t_ops, t_bytes)
+        row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    times = "".join(f" {key}={row[key]:.3f}" for key in
+                    ("kernel_ms", "plain_ms", "library_ms", "bound_ms") if key in row)
+    log(f"[quant] {label:18s} {str((m, k, n)):22s} {str(dtype).split('.')[-1]:8s} "
+        f"max|d|={err:.3e} (bound ratio {worst:.3f}){times} {'ok' if ok else 'FAIL'}")
+    del x, qw, scale, y
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_quant_kernels():
+    """B4 at the served int8 request's bf16 shapes (L = 384) and at edge
+    cases: ragged (m, k, n), f32, a per-tensor scale. Tolerance
+    (`quant_bound`): k * 2^-24 * s * sum |x||q| per output, plus one bf16
+    ulp of the output in bf16."""
+    rows = [check_quant(label, m, k, n, torch.bfloat16, timed=True)
+            for label, (m, k, n) in QUANT_SHAPES.items()]
+    rows += [
+        check_quant("ragged", 1000, 200, 300, torch.bfloat16, timed=False),
+        check_quant("ragged f32", 1000, 200, 300, torch.float32, timed=False),
+        check_quant("per-tensor scale", 1000, 200, 300, torch.bfloat16, timed=False,
+                    per_tensor=True),
+        check_quant("msa q f32", 7680, 256, 512, torch.float32, timed=False),
+        check_quant("one row", 1, 256, 8, torch.bfloat16, timed=False),
+    ]
+    RECORD["quant_kernels"] = rows
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} quant_matmul check(s) disagree with the plain version: "
+             + ", ".join(r["case"] for r in bad))
+    return rows
+
+
+# --- phase 3, sparse: the block-sparse kernels against their plain versions ---------
+
+
+def sparse_inputs(b, heads, n, dh, dtype, scfg, *, masked_b=(), seed=0):
+    """Folded q, k, v, dO (b * heads, n, dh), a key bias (b, n) with 5% of
+    the keys (and every key of the batch elements `masked_b`) masked, and
+    the layout's table on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(b * heads, n, dh, generator=g, device="cuda").to(dtype)
+                   for _ in range(4))
+    keep = torch.rand(b, n, generator=g, device="cuda") >= 0.05
+    keep[:, 0] = True
+    for i in masked_b:
+        keep[i] = False
+    bias = torch.where(keep, 0.0, float("-inf")).contiguous()
+    table = sparse.kernel_table(n // scfg.block_size, scfg, "cuda")
+    return q, k, v, do, bias, table
+
+
+def sparse_bound_terms(q, bias, table, kind):
+    """The floors of one sparse kernel, in ms, over the ACTIVE block pairs:
+    operations 4 (forward), 6 (dq: S, dP, dQ) or 8 (dkv: S, dP, dK, dV)
+    times BH * nnz * bs^2 * dh; bytes: each input read once (q, k, v, the
+    bias, the table; dO, lse and delta in the backward), each output
+    written once."""
+    BH, n, dh = q.shape
+    el = q.element_size()
+    work = float(BH) * table.nnz * table.block_size ** 2 * dh
+    fixed = bias.numel() * 4 + (table.idx.numel() + table.counts.numel()) * 4
+    if kind == "fwd":
+        ops = 4 * work
+        nbytes = 4 * BH * n * dh * el + BH * n * 4 + fixed
+    elif kind == "dq":
+        ops = 6 * work
+        nbytes = 5 * BH * n * dh * el + 2 * BH * n * 4 + fixed
+    else:
+        ops = 8 * work
+        nbytes = 6 * BH * n * dh * el + 2 * BH * n * 4 + fixed
+    return ops / PEAK_FLOPS[q.dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=()):
+    """B5f, B5 dq and B5 dkv on the card against sparse_fwd_plain and
+    sparse_bwd_plain. Tolerances: the forward's are B1's (f32 1e-5 *
+    max(1, max|ref|); bf16 one bf16 ulp of the largest output; lse 1e-4);
+    the backward's f32 1e-5 * max(1, max|ref|) and bf16
+    `sparse_bwd_bf16_bound` (flash_bwd_bf16_bound of the dense attention
+    the sparse one equals). Batch elements `masked_b` give zeros in every
+    output and lse = +inf."""
+    q, k, v, do, bias, table = sparse_inputs(b, heads, n, dh, dtype, scfg, masked_b=masked_b)
+    scale = dh ** -0.5
+    args = (q, k, v, bias, table, heads)
+    before = dict(sparse_kernel.LAUNCHES)
+    out, lse = sparse_kernel.sparse_fwd(*args, scale)
+    dq, dk, dv = sparse_kernel.sparse_bwd(*args, out, lse, do, scale)
+    sync()
+    if any(sparse_kernel.LAUNCHES[name] != before[name] + 1 for name in before):
+        fail("the sparse kernels did not count their launches")
+    ref_out, ref_lse = sparse_kernel.sparse_fwd_plain(*args, scale)
+    ref_max = ref_out.float().abs().max().item()
+    tol = 1e-5 * max(1.0, ref_max) if dtype == torch.float32 else BF16_ULP * ref_max
+    err = (out.float() - ref_out.float()).abs().max().item()
+    fin = torch.isfinite(ref_lse)
+    lse_err = (lse[fin] - ref_lse[fin]).abs().max().item() if fin.any() else 0.0
+    ok = (err <= tol and lse_err <= 1e-4 and torch.equal(torch.isposinf(lse),
+                                                        torch.isposinf(ref_lse))
+          and bool(torch.isfinite(out).all()))
+    ref = sparse_kernel.sparse_bwd_plain(*args, out, lse, do, scale)
+    if dtype == torch.float32:
+        bounds = [1e-5 * max(1.0, r.abs().max().item()) for r in ref]
+    else:
+        bounds = sparse_bwd_bf16_bound(*args, out, lse, do, scale)
+    errs, ratios = [], []
+    for got, want, bound in zip((dq, dk, dv), ref, bounds):
+        diff = (got.float() - want.float()).abs()
+        bound = torch.as_tensor(bound, device=diff.device)
+        errs.append(diff.max().item())
+        ratio = torch.where(bound > 0, diff / bound, torch.where(diff > 0, math.inf, 0.0))
+        ratios.append(ratio.max().item())
+        ok = ok and bool(torch.isfinite(got).all())
+    ok = ok and all(r <= 1.0 for r in ratios)
+    for i in masked_b:
+        rows = slice(i * heads, (i + 1) * heads)
+        ok = ok and all(bool((t[rows] == 0).all()) for t in (out, dq, dk, dv)) \
+            and bool(torch.isposinf(lse[rows]).all())
+    del ref, bounds
+    row = {"case": label, "shape": [b * heads, n, dh], "block_size": scfg.block_size,
+           "dtype": str(dtype), "active": table.nnz / table.n_blocks ** 2,
+           "fwd_err": err, "lse_err": lse_err, "dq_err": errs[0], "dkv_err": max(errs[1:]),
+           "bound_ratio": max(ratios), "ok": bool(ok)}
+    if timed:
+        delta = flash_kernel.cotangent_terms(out, do)[1]
+        bwd = (q, k, v, bias, table, heads, lse, do, delta, scale)
+        reps = 10
+        row["fwd_ms"] = time_ms(lambda: sparse_kernel.sparse_fwd(*args, scale), reps)
+        row["dq_ms"] = time_ms(lambda: sparse_kernel.launch_dq(*bwd), reps)
+        row["dkv_ms"] = time_ms(lambda: sparse_kernel.launch_dkv(*bwd), reps)
+        row["fwd_plain_ms"] = time_ms(lambda: sparse_kernel.sparse_fwd_plain(*args, scale), 2)
+        row["dq_plain_ms"] = time_ms(lambda: sparse_kernel.sparse_bwd_dq_plain(*bwd), 2)
+        row["dkv_plain_ms"] = time_ms(lambda: sparse_kernel.sparse_bwd_dkv_plain(*bwd), 2)
+        # the boolean mask that expands the block layout and the key mask
+        mask = torch.isfinite(sparse_dense_bias(bias, table, heads))[None]
+        row["fwd_library_ms"] = sdpa_mask_ms(q, k, v, mask, scale, reps)
+        row["dq_library_ms"] = sdpa_mask_ms(q, k, v, mask, scale, reps, do, "q")
+        row["dkv_library_ms"] = sdpa_mask_ms(q, k, v, mask, scale, reps, do, "kv")
+        del mask
+        for kind in ("fwd", "dq", "dkv"):
+            t_ops, t_bytes = sparse_bound_terms(q, bias, table, kind)
+            row[f"{kind}_ops_ms"], row[f"{kind}_bytes_ms"] = t_ops, t_bytes
+            row[f"{kind}_bound_ms"] = max(t_ops, t_bytes)
+    times = "".join(f" {key}={row[key]:.3f}" for key in
+                    ("fwd_ms", "dq_ms", "dkv_ms", "fwd_plain_ms", "fwd_library_ms",
+                     "fwd_bound_ms", "dq_bound_ms", "dkv_bound_ms")
+                    if row.get(key) is not None)
+    log(f"[sparse] {label:20s} {str(tuple(row['shape'])):18s} bs {scfg.block_size:3d} "
+        f"{str(dtype).split('.')[-1]:8s} active {row['active']:.2f} fwd|d|={err:.2e} "
+        f"(tol {tol:.2e}) lse|d|={lse_err:.1e} dq|d|={errs[0]:.2e} dkv|d|={max(errs[1:]):.2e} "
+        f"(bound ratio {max(ratios):.3f}){times} {'ok' if ok else 'FAIL'}")
+    del q, k, v, do, bias, out, lse, dq, dk, dv
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_sparse_apply(label, n, dtype):
+    """`sparse_attention_apply` at a ragged length (the wrapper pads to a
+    block multiple, then unpads) through the kernels on the card against
+    the same call on CPU copies, which runs the gather version
+    (`block_sparse_attention`), one batch element fully masked: f32, 1e-5 *
+    max(1, max|ref|)."""
+    cfg = AttentionConfig(dim=64, heads=2, dim_head=32, dtype=dtype)
+    params = attention_init(torch.Generator().manual_seed(1), cfg, "cuda")
+    scfg = sparse.SparseConfig(block_size=16, max_seq_len=256)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(3, n, 64, generator=g, device="cuda")
+    mask = torch.rand(3, n, generator=g, device="cuda") >= 0.1
+    mask[1] = False
+    before = sparse_kernel.LAUNCHES["sparse_fwd"]
+    got = sparse.sparse_attention_apply(params, cfg, scfg, x, mask=mask)
+    sync()
+    launched = sparse_kernel.LAUNCHES["sparse_fwd"] - before
+    cpu_params = {name: {key: t.cpu() for key, t in d.items()} for name, d in params.items()}
+    want = sparse.sparse_attention_apply(cpu_params, cfg, scfg, x.cpu(), mask=mask.cpu())
+    err = (got.cpu().float() - want.float()).abs().max().item()
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    ok = launched == 1 and err <= tol and got.shape == (3, n, 64)
+    log(f"[sparse] {label:20s} apply n={n} (padded to {-(-n // 16) * 16}) "
+        f"{str(dtype).split('.')[-1]:8s} |d|={err:.2e} (tol {tol:.2e}), {launched} launch "
+        f"{'ok' if ok else 'FAIL'}")
+    return {"case": label, "n": n, "dtype": str(dtype), "apply_err": err, "ok": bool(ok)}
+
+
+def phase_sparse_kernels():
+    """B5 at the sparse request's pair-axial shape (L = 384, max_seq_len
+    384: nr = 6, 56% of blocks active), at a genuinely sparse long length
+    (n = 4096, the default max_seq_len 2048: 25% active; BH = 8 so the
+    gather plain version fits), and at the edges: block sizes 32, 64, 128,
+    head widths 16 and 32, fully masked batch elements, f32, and a ragged
+    length through the wrapper."""
+    served = sparse.SparseConfig(block_size=16, max_seq_len=384)
+    long = sparse.SparseConfig(block_size=16, max_seq_len=2048)
+    rows = [
+        check_sparse("pair axial L=384", 384, 8, 384, 64, torch.bfloat16, served, timed=True),
+        check_sparse("long n=4096", 1, 8, 4096, 64, torch.bfloat16, long, timed=True),
+    ]
+    edges = [
+        ("bs 32", 4, 2, 384, 64, torch.bfloat16, 32, 384, (1,)),
+        ("bs 64", 4, 2, 512, 64, torch.bfloat16, 64, 512, ()),
+        ("bs 128", 2, 2, 1024, 64, torch.bfloat16, 128, 1024, (1,)),
+        ("dh 16 masked", 4, 4, 384, 16, torch.bfloat16, 16, 384, (1, 3)),
+        ("dh 32", 4, 4, 384, 32, torch.bfloat16, 16, 384, ()),
+        ("f32", 4, 2, 384, 64, torch.float32, 16, 384, (2,)),
+        ("f32 bs 128 dh 32", 2, 2, 512, 32, torch.float32, 128, 512, (1,)),
+        ("f32 bs 32 dh 16", 3, 2, 256, 16, torch.float32, 32, 256, ()),
+    ]
+    for label, b, heads, n, dh, dtype, bs, msl, masked in edges:
+        scfg = sparse.SparseConfig(block_size=bs, max_seq_len=msl)
+        rows.append(check_sparse(label, b, heads, n, dh, dtype, scfg, timed=False,
+                                 masked_b=masked))
+    rows.append(check_sparse_apply("ragged f32", 200, torch.float32))
+    RECORD["sparse_kernels"] = rows
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} sparse check(s) disagree with the plain versions: "
+             + ", ".join(r["case"] for r in bad))
+    return rows
+
+
 # --- phase 4: the main path -------------------------------------------------------
 
 
@@ -535,20 +891,24 @@ def pairwise(c):
     return torch.cdist(c, c)
 
 
-def phase_cpu_vs_card():
-    """(a) One request at L = 64, float32, same params on the card and the CPU.
-    Tolerance: logits 1e-4 (float32 kernels vs CPU matmuls in another
-    summation order); confidence 1e-5; distances 1e-2 A and stress 1e-3
-    relative (200 Guttman steps carry the logits' float noise)."""
-    cfg = Alphafold2Config(dim=256, depth=2, heads=8, dim_head=64, max_seq_len=64)
-    params_cpu = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cpu")
-    params_gpu = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda")
-    tokens, msa, msa_mask = request_inputs(64, 20, seed=1)
+def cpu_vs_card(label, cfg, L, expect):
+    """One request at length L in float32 on the card and on the CPU with
+    the same parameters (each side's tree through `resident_params`, so an
+    int8 config quantizes on its own device, bit-equal). Tolerance: logits
+    1e-4 (float32 kernels vs CPU matmuls in another summation order);
+    confidence 1e-5; distances 1e-2 A and stress 1e-3 relative (200
+    Guttman steps carry the logits' float noise). `expect`: the card's
+    kernel launches (every other kernel 0)."""
+    params_cpu = resident_params(alphafold2_init(cfg, torch.Generator().manual_seed(0), "cpu"),
+                                 cfg)[0]
+    params_gpu = resident_params(alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda"),
+                                 cfg)[0]
+    tokens, msa, msa_mask = request_inputs(L, 20, seed=1)
     kw = dict(msa=msa, msa_mask=msa_mask, mds_iters=200)
-    flash_kernel.reset_launches()
+    reset_launches()
     gpu = predict_structure(params_gpu, cfg, tokens, device="cuda", **kw)
     sync()
-    launches = dict(flash_kernel.LAUNCHES)
+    launches = launch_counts()
     cpu = predict_structure(params_cpu, cfg, tokens, device="cpu", **kw)
     g = {k: v.cpu() for k, v in gpu.items()}
     d_logits = (g["distogram_logits"] - cpu["distogram_logits"]).abs().max().item()
@@ -556,34 +916,38 @@ def phase_cpu_vs_card():
     d_stress = ((g["stress"] - cpu["stress"]).abs() / cpu["stress"].abs()).max().item()
     d_dist = (pairwise(g["coords"]) - pairwise(cpu["coords"])).abs().max().item()
     ok = d_logits <= 1e-4 and d_conf <= 1e-5 and d_stress <= 1e-3 and d_dist <= 1e-2
-    log(f"[main a] L=64 f32 card vs cpu: logits |d|={d_logits:.2e} (1e-4), "
+    log(f"[main {label}] L={L} f32 card vs cpu: logits |d|={d_logits:.2e} (1e-4), "
         f"confidence |d|={d_conf:.2e} (1e-5), stress rel={d_stress:.2e} (1e-3), "
         f"distances |d|={d_dist:.2e} A (1e-2); launches {launches} "
         f"{'ok' if ok else 'FAIL'}")
-    RECORD["phases"]["cpu_vs_card"] = {
-        "logits": d_logits, "confidence": d_conf, "stress_rel": d_stress,
-        "distances": d_dist, "launches": launches, "ok": ok,
+    RECORD["phases"][f"cpu_vs_card_{label}"] = {
+        "L": L, "config": repr(cfg), "logits": d_logits, "confidence": d_conf,
+        "stress_rel": d_stress, "distances": d_dist, "launches": launches, "ok": ok,
     }
     if not ok:
-        fail("the card and the CPU disagree on the L=64 request")
-    if launches["flash_fwd"] != 12:
-        fail(f"expected 12 flash_fwd launches at depth 2, got {launches}")
+        fail(f"the card and the CPU disagree on the L={L} request ({label})")
+    want = {name: expect.get(name, 0) for name in launches}
+    if launches != want:
+        fail(f"card vs cpu {label}: launches {launches} != expected {want}")
 
 
 def serve_requests(label, cfg, lengths, expect):
-    """Drive predict_structure over one request per length; counts are set
-    to 0 just before and read just after (`expect` names the kernels that
-    launch; every other kernel must not). One untimed request first, so the
-    first timed one does not pay the libraries' first-call set-up."""
-    expect = {name: expect.get(name, 0) for name in flash_kernel.LAUNCHES}
-    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda")
+    """Drive predict_structure over one request per length on the tree
+    `resident_params` serves for cfg (int8 configs quantize once); counts
+    are set to 0 just before and read just after (`expect` names the
+    kernels that launch; every other kernel must not). One untimed request
+    first, so the first timed one does not pay the libraries' first-call
+    set-up."""
+    expect = {name: expect.get(name, 0) for name in launch_counts()}
+    params, residency = resident_params(
+        alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda"), cfg)
     reqs = [request_inputs(L, 20, seed=10 + n) for n, L in enumerate(lengths)]
     tokens, msa, msa_mask = reqs[0]
     predict_structure(params, cfg, tokens, msa=msa, msa_mask=msa_mask, mds_iters=200,
                       device="cuda")
     torch.cuda.reset_peak_memory_stats()
     sync()
-    flash_kernel.reset_launches()
+    reset_launches()
     results = []
     for (tokens, msa, msa_mask), L in zip(reqs, lengths):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -601,15 +965,18 @@ def serve_requests(label, cfg, lengths, expect):
                         "stress": float(out["stress"][0]),
                         "confidence": float(out["confidence"].mean()),
                         "finite": finite, "shapes_ok": shapes_ok})
-    launches = dict(flash_kernel.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for r in results:
         log(f"[main {label}] L={r['L']}: {r['device_ms']:.1f} ms (events), "
             f"{r['wall_ms']:.1f} ms (host), stress {r['stress']:.4f}, "
             f"mean confidence {r['confidence']:.4f}, finite={r['finite']}")
-    log(f"[main {label}] launches {launches} (expected {expect}); peak memory {peak:.2f} GiB")
+    log(f"[main {label}] launches {launches} (expected {expect}); peak memory {peak:.2f} GiB; "
+        f"weights {residency['weight_dtype']} {residency['weight_bytes']:,} bytes resident "
+        f"({residency['fp32_weight_bytes']:,} in f32)")
     RECORD["phases"][f"serve_{label}"] = {"requests": results, "launches": launches,
-                                          "peak_gib": peak, "config": repr(cfg)}
+                                          "peak_gib": peak, "config": repr(cfg),
+                                          "residency": residency}
     if not all(r["finite"] and r["shapes_ok"] for r in results):
         fail(f"main path {label}: non-finite outputs or wrong shapes")
     if launches != expect:
@@ -617,20 +984,67 @@ def serve_requests(label, cfg, lengths, expect):
     return launches
 
 
+def phase_int8_vs_f32(cfg, L):
+    """The served int8 config (bf16) on the card against the f32-weight
+    model on the dequantized tree (the same weights, cast to bf16 per call):
+    logits within 4 bf16 ulps of the largest logit (the bf16 bound of
+    tests/test_torch_train.py: the int8 path multiplies bf16 activations by
+    the exact int8 values and scales the f32 sum, the f32 path rounds each
+    dequantized weight to bf16 first). Also, for information, the mean
+    distogram KL of the int8 model from the f32 master weights."""
+    f32_cfg = dataclasses.replace(cfg, weight_dtype="f32")
+    master = alphafold2_init(f32_cfg, torch.Generator().manual_seed(0), "cuda")
+    qtree, _ = resident_params(master, cfg)
+    tokens, msa, msa_mask = request_inputs(L, 20, seed=3)
+    with torch.inference_mode():
+        run = lambda p, c: alphafold2_apply(p, c, tokens, msa, msa_mask=msa_mask,  # noqa: E731
+                                            device="cuda").float()
+        l8 = run(qtree, cfg)
+        ldeq = run(quant.dequantize_tree(qtree), f32_cfg)
+        l32 = run(master, f32_cfg)
+    d = (l8 - ldeq).abs().max().item()
+    bound = 4 * BF16_ULP * ldeq.abs().max().item()
+    p32 = torch.log_softmax(l32, dim=-1)
+    kl = (p32.exp() * (p32 - torch.log_softmax(l8, dim=-1))).sum(-1).mean().item()
+    ok = d <= bound and bool(torch.isfinite(l8).all())
+    log(f"[main f] int8 vs f32 on the dequantized tree, L={L} bf16: logits |d|={d:.4f} "
+        f"(bound {bound:.4f}); mean distogram KL(f32 master || int8) = {kl:.3e} nats "
+        f"{'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["int8_vs_f32"] = {"L": L, "logits": d, "bound": bound, "kl": kl, "ok": ok}
+    if not ok:
+        fail("the int8 model strays from the f32 model on its dequantized weights")
+
+
 def phase_main():
-    phase_cpu_vs_card()
+    f32 = Alphafold2Config(dim=256, depth=2, heads=8, dim_head=64, max_seq_len=64)
+    cpu_vs_card("a", f32, 64, {"flash_fwd": 12})
+    cpu_vs_card("a int8", dataclasses.replace(f32, weight_dtype="int8"), 64,
+                {"flash_fwd": 12, "quant_matmul": 44})
+    # max_seq_len 128: 75% of the 8 blocks active
+    cpu_vs_card("a sparse", dataclasses.replace(f32, max_seq_len=128,
+                                                sparse_self_attn=(True, False)), 128,
+                {"flash_fwd": 10, "sparse_fwd": 2})
     lengths = (128, 256, 384)
     cfg = Alphafold2Config(dim=256, depth=2, heads=8, dim_head=64, max_seq_len=384,
                            dtype=torch.bfloat16)
     # 6 attentions per layer reach the kernel: 2 pair axial, 2 MSA axial
     # (tied rows off), 2 cross
-    served = serve_requests("b", cfg, lengths,
-                            {"flash_fwd": 6 * 2 * len(lengths), "flash_fwd_fused": 0})
-    gated_cfg = Alphafold2Config(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=384,
-                                 dtype=torch.bfloat16, attn_gate=True)
-    gated = serve_requests("c", gated_cfg, lengths,
-                           {"flash_fwd": 0, "flash_fwd_fused": 6 * len(lengths)})
-    return {"flash_fwd": served["flash_fwd"], "flash_fwd_fused": gated["flash_fwd_fused"]}
+    served = serve_requests("b", cfg, lengths, {"flash_fwd": 6 * 2 * len(lengths)})
+    gated_cfg = dataclasses.replace(cfg, depth=1, attn_gate=True)
+    gated = serve_requests("c", gated_cfg, lengths, {"flash_fwd_fused": 6 * len(lengths)})
+    # int8: 22 dense layers a trunk layer (6 pair axial, 6 MSA axial, 3 + 3
+    # cross, 2 + 2 feed-forward); the attention kernels unchanged
+    int8_cfg = dataclasses.replace(cfg, weight_dtype="int8")
+    int8 = serve_requests("d", int8_cfg, lengths,
+                          {"flash_fwd": 6 * 2 * len(lengths),
+                           "quant_matmul": 22 * 2 * len(lengths)})
+    # sparse layer 0: its 2 pair axial passes go sparse, the other 10 stay flash
+    sparse_cfg = dataclasses.replace(cfg, sparse_self_attn=(True, False))
+    sparse_run = serve_requests("e", sparse_cfg, lengths,
+                                {"flash_fwd": 10 * len(lengths), "sparse_fwd": 2 * len(lengths)})
+    phase_int8_vs_f32(int8_cfg, 128)
+    return {"flash_fwd": served["flash_fwd"], "flash_fwd_fused": gated["flash_fwd_fused"],
+            "quant_matmul": int8["quant_matmul"], "sparse_fwd": sparse_run["sparse_fwd"]}
 
 
 # --- phase 6: the training path ---------------------------------------------------
@@ -652,8 +1066,8 @@ def named_leaves(tree, prefix=""):
         yield prefix[:-1], tree
 
 
-def phase_train_parity():
-    """(a) The same params and batches on the card and the CPU, f32.
+def phase_train_parity(label, cfg, L, expect):
+    """The same params and batches on the card and the CPU, f32, at crop L.
     Tolerances: loss 1e-5 absolute and grad_norm 1e-5 relative (the same
     f32 function summed in another order: kernels vs CPU matmuls and the
     CPU's dense attention); each first-step gradient leaf 1e-4 of that
@@ -663,14 +1077,14 @@ def phase_train_parity():
     may differ by 2 * lr * 3: Adam normalises each entry's step to about lr
     whatever the gradient's size, so an entry whose gradient is rounding
     noise can step +lr on one side and -lr on the other. The count of such
-    entries, and of entries past 1e-6, is recorded beside it."""
-    cfg = Alphafold2Config(dim=256, depth=2, heads=8, dim_head=64, max_seq_len=2048)
+    entries, and of entries past 1e-6, is recorded beside it. `expect`: each
+    named kernel's launches over the 3 steps (every other kernel 0)."""
     tcfg = TrainConfig(grad_accum=2)
-    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=64, seed=5), 2)
+    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, seed=5), 2)
     states = {dev: train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), dev)
               for dev in ("cuda", "cpu")}
     steps = {dev: make_train_step(cfg, tcfg, device=dev) for dev in states}
-    flash_kernel.reset_launches()
+    reset_launches()
     per_step, grad_ratio, small_grad = [], 0.0, []
     for n in range(3):
         batch = fetch(n)
@@ -690,7 +1104,7 @@ def phase_train_parity():
                 grad_ratio = max(grad_ratio, d / (1e-4 * scale_) if scale_ else
                                  (0.0 if d == 0 else float("inf")))
     sync()
-    launches = dict(flash_kernel.LAUNCHES)
+    launches = launch_counts()
     d_params, d_noisy, past, n_noisy = 0.0, 0.0, 0, 0
     for gp, cp, noisy in zip(states["cuda"]["optimizer"].leaves,
                              states["cpu"]["optimizer"].leaves, small_grad):
@@ -704,23 +1118,22 @@ def phase_train_parity():
     noisy_tol = 2 * tcfg.learning_rate * 3
     ok = (d_loss <= 1e-5 and d_norm <= 1e-5 and grad_ratio <= 1.0 and d_params <= 1e-5
           and d_noisy <= noisy_tol)
-    log(f"[train a] L=64 f32 depth 2, 3 steps, card vs cpu: loss |d|={d_loss:.2e} (1e-5), "
+    log(f"[train {label}] L={L} f32 depth {cfg.depth}, 3 steps, card vs cpu: loss |d|={d_loss:.2e} (1e-5), "
         f"grad_norm rel={d_norm:.2e} (1e-5), first-step grads worst/tol={grad_ratio:.3f}, "
         f"params |d|={d_params:.2e} (1e-5; {past} entries past 1e-6), "
         f"{n_noisy} entries with a rounding-level gradient |d|={d_noisy:.2e} ({noisy_tol:.1e}); "
         f"losses {[round(r['loss'], 5) for r in per_step]}; launches {launches} "
         f"{'ok' if ok else 'FAIL'}")
-    RECORD["phases"]["train_parity"] = {"steps": per_step, "grad_ratio": grad_ratio,
+    RECORD["phases"][f"train_parity_{label}"] = {"L": L, "config": repr(cfg), "steps": per_step, "grad_ratio": grad_ratio,
                                         "params_max_abs": d_params, "params_past_1e-6": past,
                                         "small_grad_entries": n_noisy,
                                         "small_grad_params_max_abs": d_noisy,
                                         "launches": launches, "ok": ok}
     if not ok:
-        fail("the card and the CPU disagree on the f32 training steps")
-    want = 2 * cfg.depth * tcfg.grad_accum * 3
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        if launches[name] != want:
-            fail(f"expected {want} {name} launches over 3 steps, got {launches}")
+        fail(f"the card and the CPU disagree on the f32 training steps ({label})")
+    want = {name: expect.get(name, 0) for name in launches}
+    if launches != want:
+        fail(f"training {label}: launches over 3 steps {launches} != expected {want}")
 
 
 def train_run(label, cfg, L, tcfg, timed_steps, expect):
@@ -736,7 +1149,7 @@ def train_run(label, cfg, L, tcfg, timed_steps, expect):
     step(state, fetch(0))
     sync()
     torch.cuda.reset_peak_memory_stats()
-    flash_kernel.reset_launches()
+    reset_launches()
     times, metrics = [], []
     for n in range(1, timed_steps + 1):
         batch = fetch(n)
@@ -747,7 +1160,7 @@ def train_run(label, cfg, L, tcfg, timed_steps, expect):
         sync()
         times.append(start.elapsed_time(end))
         metrics.append({k: float(v) for k, v in m.items()})
-    launches = dict(flash_kernel.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     bad_leaves = []
     for name, leaf in named_leaves(state["params"]):
@@ -758,7 +1171,8 @@ def train_run(label, cfg, L, tcfg, timed_steps, expect):
         if not unread and not (bool(torch.isfinite(g).all()) and g.abs().max().item() > 0):
             bad_leaves.append(name)
     step_ms = sorted(times)[len(times) // 2]
-    flops = train_step_flops(cfg, L, 0, 0, grad_accum=tcfg.grad_accum)
+    flops = train_step_flops(cfg, L, 0, 0, grad_accum=tcfg.grad_accum) - sparse_skipped_flops(
+        cfg, L, tcfg.grad_accum)
     mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
     per_step = {k: v / timed_steps for k, v in launches.items()}
     row = {"L": L, "config": repr(cfg), "grad_accum": tcfg.grad_accum, "step_ms": times,
@@ -782,8 +1196,27 @@ def train_run(label, cfg, L, tcfg, timed_steps, expect):
     return launches
 
 
+def sparse_skipped_flops(cfg, L, grad_accum):
+    """The attention FLOPs a step's sparse layers skip, which
+    `train_step_flops` (dense) counts: QK^T and PV over the inactive blocks
+    of both pair axial passes, 3x for forward and backward."""
+    n_sparse = sum(cfg.layer_sparse)
+    if not n_sparse:
+        return 0.0
+    inactive = 1.0 - sparse.active_fraction(L, cfg.sparse_config())
+    return grad_accum * 3.0 * n_sparse * 2 * 4.0 * L * L * L * cfg.heads * cfg.dim_head * inactive
+
+
 def phase_train():
-    phase_train_parity()
+    f32 = Alphafold2Config(dim=256, depth=2, heads=8, dim_head=64, max_seq_len=2048)
+    three = 2 * f32.depth * 2 * 3  # two pair axial passes a layer, accum 2, 3 steps
+    phase_train_parity("a", f32, 64, {name: three for name in
+                                      ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+    # max_seq_len 128: 75% of the 8 blocks active; every layer sparse
+    phase_train_parity("a sparse", dataclasses.replace(f32, max_seq_len=128,
+                                                       sparse_self_attn=True), 128,
+                       {name: three for name in ("sparse_fwd", "sparse_bwd_dq",
+                                                 "sparse_bwd_dkv")})
     tcfg = TrainConfig(grad_accum=16)
     cfg = Alphafold2Config(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=2048,
                            dtype=torch.bfloat16)
@@ -797,11 +1230,25 @@ def phase_train():
     gated = train_run("c", dataclasses.replace(cfg, attn_gate=True), 128, tcfg, 2,
                       {"flash_fwd_fused": per, "flash_bwd_fused_dq": per,
                        "flash_bwd_fused_dkv": per})
+    # train_pre's defaults, sparse, at crop 256 with max_seq_len 256: 66% of
+    # the 16 blocks active (train_pre's own 2048 would make every block active)
+    sparse_run = train_run("e", dataclasses.replace(cfg, sparse_self_attn=True, max_seq_len=256),
+                           256, tcfg, 3, {"sparse_fwd": per, "sparse_bwd_dq": per,
+                                          "sparse_bwd_dkv": per})
+    int8_cfg = dataclasses.replace(cfg, weight_dtype="int8")
+    try:
+        make_train_step(int8_cfg, tcfg, device="cuda")
+    except ValueError as e:
+        log(f"[train f] make_train_step on an int8 config raises: {str(e)[:80]}... ok")
+    else:
+        fail("make_train_step accepted an int8 config")
     phase_overfit()
     # the backward kernels' launches on the training path (the forwards'
     # are the serving path's, phase 4)
     return dict(launches, flash_bwd_fused_dq=gated["flash_bwd_fused_dq"],
-                flash_bwd_fused_dkv=gated["flash_bwd_fused_dkv"])
+                flash_bwd_fused_dkv=gated["flash_bwd_fused_dkv"],
+                sparse_bwd_dq=sparse_run["sparse_bwd_dq"],
+                sparse_bwd_dkv=sparse_run["sparse_bwd_dkv"])
 
 
 def phase_overfit():
@@ -825,14 +1272,19 @@ def phase_overfit():
 # --- phase 5: the kernels line -----------------------------------------------------
 
 
-def kernels_line(rows, bwd_rows, launches):
+def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, launches):
     """One entry per kernel. Forwards: numbers summed over the serving
     path's three attention shapes at L = 384 in bf16 (one launch of each;
     B2f gated). Backwards: summed over the training path's pair-axial
     shapes at L = 128 and 256 in bf16 (B1b ungated, B2b gated; each entry
     the time of its own kernel, its own plain version, its own bound, and
-    the SDPA backward for the gradients it produces). Launches: from the
-    main paths' runs (serving for the forwards, training for the
+    the SDPA backward for the gradients it produces). B4: summed over the
+    served int8 request's ten dense-layer shapes at L = 384 (one launch of
+    each), library torch.matmul on the dequantized bf16 weight. B5: summed
+    over the pair-axial shape at L = 384 and the long n = 4096 case, each
+    kernel with its own plain version, bound and SDPA yardstick (forward,
+    or the backward for the gradients it produces). Launches: from the
+    main paths' runs (serving for the forwards and B4, training for the
     backwards)."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
@@ -875,6 +1327,40 @@ def kernels_line(rows, bwd_rows, launches):
             >= sum(r[f"{side}_bytes_ms"] for r in timed) else "bytes",
             "library_ms": None if any(x is None for x in lib) else sum(lib),
         })
+    timed = [r for r in quant_rows if "kernel_ms" in r]
+    out.append({
+        "name": "quant_matmul",
+        "route": "cuda",
+        "source": SOURCES["quant_matmul"],
+        "replaces": REPLACES["quant_matmul"],
+        "launches": launches["quant_matmul"],
+        "max_abs_err": max(r["max_abs_err"] for r in quant_rows),
+        "ms": sum(r["kernel_ms"] for r in timed),
+        "plain_ms": sum(r["plain_ms"] for r in timed),
+        "bound_ms": sum(r["bound_ms"] for r in timed),
+        "bound_by": "operations" if sum(r["ops_ms"] for r in timed)
+        >= sum(r["bytes_ms"] for r in timed) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in timed),
+    })
+    timed = [r for r in sparse_rows if "fwd_ms" in r]
+    checked = [r for r in sparse_rows if "fwd_err" in r]
+    for name, kind, err in (("sparse_fwd", "fwd", "fwd_err"), ("sparse_bwd_dq", "dq", "dq_err"),
+                            ("sparse_bwd_dkv", "dkv", "dkv_err")):
+        lib = [r[f"{kind}_library_ms"] for r in timed]
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": SOURCES["sparse_attn"],
+            "replaces": REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": max(r[err] for r in checked),
+            "ms": sum(r[f"{kind}_ms"] for r in timed),
+            "plain_ms": sum(r[f"{kind}_plain_ms"] for r in timed),
+            "bound_ms": sum(r[f"{kind}_bound_ms"] for r in timed),
+            "bound_by": "operations" if sum(r[f"{kind}_ops_ms"] for r in timed)
+            >= sum(r[f"{kind}_bytes_ms"] for r in timed) else "bytes",
+            "library_ms": None if any(x is None for x in lib) else sum(lib),
+        })
     return out
 
 
@@ -893,9 +1379,11 @@ def main():
     phase_build()
     rows = timed_phase("kernels", phase_kernels)
     bwd_rows = timed_phase("bwd_kernels", phase_bwd_kernels)
+    quant_rows = timed_phase("quant_kernels", phase_quant_kernels)
+    sparse_rows = timed_phase("sparse_kernels", phase_sparse_kernels)
     launches = timed_phase("main", phase_main)
     launches.update(timed_phase("train", phase_train))
-    kernels = kernels_line(rows, bwd_rows, launches)
+    kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, launches)
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")

@@ -290,11 +290,11 @@ def test_cpu_tensors_never_build_or_launch(monkeypatch):
 
 
 def test_fold_gives_the_kernels_an_aligned_contiguous_copy():
-    from alphafold2_tpu_torch.ops.flash import _fold
+    from alphafold2_tpu_torch.ops.flash import fold_heads
 
     base = torch.arange(1 + 2 * 5 * 1 * 8, dtype=torch.bfloat16)
     t = base[1:].view(2, 5, 1, 8)  # one head: the fold is a view at an odd offset
-    f = _fold(t)
+    f = fold_heads(t)
     assert f.shape == (2, 5, 8) and f.is_contiguous() and f.data_ptr() % 16 == 0
     assert torch.equal(f, t.transpose(1, 2).reshape(2, 5, 8))
 

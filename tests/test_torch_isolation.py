@@ -46,7 +46,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert "alphafold2_tpu_torch.ops.flash_kernel" in res["modules"]
     assert "alphafold2_tpu_torch.predict" in res["modules"]
     for name in ("train_pre", "training.harness", "training.losses", "training.data",
-                 "utils.flops", "telemetry.profiling"):
+                 "utils.flops", "telemetry.profiling", "ops.dispatch", "ops.quant",
+                 "ops.quant_kernel", "ops.sparse", "ops.sparse_kernel",
+                 "serving.quant_residency"):
         assert f"alphafold2_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -142,6 +144,11 @@ def test_profiling_needs_a_card_and_sorts_kernels(no_cuda):
     assert profiling.kernel_kind("sm90_xmma_gemm_bf16bf16_bf16f32").startswith("matrix")
     assert profiling.kernel_kind("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT").startswith("matrix")
     assert profiling.kernel_kind("void at::native::reduce_kernel<512, 1>").startswith("other")
+    assert profiling.kernel_kind("void sparse_fwd_bf16_kernel<64, 16>").startswith("sparse forward")
+    assert profiling.kernel_kind("void sparse_dkv_bf16_kernel<64, 16>").startswith("sparse backward")
+    assert profiling.kernel_kind("quant_matmul_bf16_kernel").startswith("int8")
+    with pytest.raises(SystemExit):
+        profiling.main(["--train", "--int8"])
 
 
 def test_params_on_another_device_are_refused():

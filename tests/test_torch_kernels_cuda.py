@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card: the
+flash-attention kernels (B1, B2), the int8 product (B4) and the
+block-sparse attention kernels (B5).
 
 These tests need a CUDA device and skip on a host without one (the
 kernels have no CPU mode). They import only torch and the port, so they
@@ -6,6 +8,8 @@ run on a GPU host without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -160,3 +164,184 @@ def test_backward_on_card_raises_instead_of_falling_back(cuda_device, monkeypatc
         out = flash.flash_attention(q, k, v, gate=gate)
         with pytest.raises(RuntimeError, match="refused"):
             out.sum().backward()
+
+
+# --- B4: the int8-weight product -----------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,per_tensor", [(1000, 200, 300, False), (256, 256, 2048, False),
+                                              (37, 64, 16, True), (1, 8, 3, False)])
+def test_quant_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n, per_tensor):
+    """Kernel vs `quant_matmul_plain` on the same inputs, elementwise within
+    `chip_smoke.quant_bound` (summation order: k * 2^-24 * s * sum |x||q|,
+    plus one bf16 ulp of the output in bf16); an all-zero channel gives
+    exact zeros."""
+    from alphafold2_tpu_torch.ops import quant, quant_kernel
+    from chip_smoke import quant_bound
+
+    rng = np.random.default_rng(m + n)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    w[:, n // 2] = 0.0
+    qw, scale = quant.quantize_weight(torch.from_numpy(w), per_channel=not per_tensor)
+    qw, scale = qw.to(cuda_device), scale.to(cuda_device)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda_device, dtype)
+    before = quant_kernel.LAUNCHES["quant_matmul"]
+    y = quant.quant_matmul(x, qw, scale)
+    torch.cuda.synchronize()
+    assert quant_kernel.LAUNCHES["quant_matmul"] == before + 1
+    full = scale.float().reshape(-1).expand(n).contiguous()
+    ref = quant_kernel.quant_matmul_plain(x, qw, full)
+    assert y.dtype == dtype and y.shape == (m, n)
+    assert ((y.float() - ref.float()).abs() <= quant_bound(x, qw, full, ref)).all()
+    assert (y[:, n // 2] == 0).all()
+
+
+@pytest.mark.cuda
+def test_quant_kernel_rejects_what_it_does_not_take(cuda_device):
+    from alphafold2_tpu_torch.ops import quant
+
+    qw = torch.ones((8, 4), dtype=torch.int8, device=cuda_device)
+    scale = torch.ones(4, device=cuda_device)
+    with pytest.raises(ValueError, match="does not take activations of dtype torch.float16"):
+        quant.quant_matmul(torch.ones((2, 8), dtype=torch.float16, device=cuda_device), qw, scale)
+    with pytest.raises(ValueError, match="int8"):
+        quant.quant_matmul(torch.ones((2, 8), device=cuda_device), qw.float(), scale)
+
+
+# --- B5: block-sparse attention ------------------------------------------------
+
+
+def sparse_inputs(bs, dh, dtype, device, b=3, heads=2, n_blocks=6, seed=0):
+    """Folded q, k, v, a key bias with batch element 1 fully masked, the
+    kernels' table of a genuinely sparse layout, and a cotangent."""
+    from alphafold2_tpu_torch.ops import sparse
+
+    scfg = sparse.SparseConfig(block_size=bs, num_local_blocks=2, num_random_blocks=1,
+                               max_seq_len=n_blocks * bs)
+    n = n_blocks * bs
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, dtype)  # noqa: E731
+    q, k, v, g = (t(b * heads, n, dh) for _ in range(4))
+    keep = rng.random((b, n)) < 0.8
+    keep[1] = False
+    bias = torch.from_numpy(np.where(keep, 0.0, -np.inf).astype(np.float32)).to(device)
+    table = sparse.kernel_table(n_blocks, scfg, str(device))
+    return q, k, v, g, bias, table, heads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
+def test_sparse_kernels_match_plain_on_card(cuda_device, bs, dh, dtype):
+    """B5f against `sparse_fwd_plain` (f32 1e-5; bf16 one bf16 ulp of the
+    largest output; lse 1e-4) and B5 dq / dkv against `sparse_bwd_plain`
+    (f32 1e-5 * max(1, max|ref|); bf16 `chip_smoke.sparse_bwd_bf16_bound`).
+    The fully masked batch element (heads 2, 3) gives zeros, lse = +inf
+    and zero gradients."""
+    from alphafold2_tpu_torch.ops import sparse_kernel as sk
+    from chip_smoke import sparse_bwd_bf16_bound
+
+    q, k, v, g, bias, table, heads = sparse_inputs(bs, dh, dtype, cuda_device)
+    scale = dh ** -0.5
+    before = dict(sk.LAUNCHES)
+    out, lse = sk.sparse_fwd(q, k, v, bias, table, heads, scale)
+    dq, dk, dv = sk.sparse_bwd(q, k, v, bias, table, heads, out, lse, g, scale)
+    torch.cuda.synchronize()
+    assert all(sk.LAUNCHES[name] == before[name] + 1 for name in sk.LAUNCHES)
+    ref_out, ref_lse = sk.sparse_fwd_plain(q, k, v, bias, table, heads, scale)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * ref_out.float().abs().max().item()
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert torch.equal(torch.isposinf(lse), torch.isposinf(ref_lse))
+    fin = torch.isfinite(ref_lse)
+    assert (lse[fin] - ref_lse[fin]).abs().max().item() <= 1e-4
+    assert (out[2:4] == 0).all() and torch.isposinf(lse[2:4]).all()
+    ref = sk.sparse_bwd_plain(q, k, v, bias, table, heads, out, lse, g, scale)
+    if dtype == torch.float32:
+        bounds = [1e-5 * max(1.0, r.abs().max().item()) for r in ref]
+    else:
+        bounds = sparse_bwd_bf16_bound(q, k, v, bias, table, heads, out, lse, g, scale)
+    for got, want, bound in zip((dq, dk, dv), ref, bounds):
+        assert torch.isfinite(got).all()
+        assert ((got.float() - want.float()).abs() <= bound).all()
+        assert (got[2:4] == 0).all()
+
+
+@pytest.mark.cuda
+def test_sparse_unsupported_raises_on_card(cuda_device):
+    from alphafold2_tpu_torch.ops import sparse_kernel as sk
+
+    q, k, v, g, bias, table, heads = sparse_inputs(16, 16, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="dim_head=8"):
+        sk.sparse_fwd(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                      v[..., :8].contiguous(), bias, table, heads, 0.3)
+    odd = dataclasses.replace(table, block_size=8)
+    with pytest.raises(ValueError, match="block_size=8"):
+        sk.sparse_fwd(q, k, v, bias, odd, heads, 0.3)
+
+
+@pytest.mark.cuda
+def test_card_routes_raise_instead_of_falling_back(cuda_device, monkeypatch):
+    """With the launches refused, the int8 product and the sparse attention
+    (forward through sparse_attention_apply, backward through autograd)
+    raise on CUDA tensors; they never take their plain versions."""
+    from alphafold2_tpu_torch.ops import quant, quant_kernel, sparse, sparse_kernel
+    from alphafold2_tpu_torch.ops.attention import AttentionConfig, attention_init
+
+    def refused(*args, **kwargs):
+        raise RuntimeError("kernel refused")
+
+    def plain_called(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(quant_kernel, "launch", refused)
+    monkeypatch.setattr(quant, "quant_matmul_plain", plain_called)
+    with pytest.raises(RuntimeError, match="refused"):
+        quant.quant_matmul(torch.ones((4, 8), device=cuda_device),
+                           torch.ones((8, 4), dtype=torch.int8, device=cuda_device),
+                           torch.ones(4, device=cuda_device))
+
+    monkeypatch.setattr(sparse, "block_sparse_attention", plain_called)
+    monkeypatch.setattr(sparse_kernel, "sparse_fwd_plain", plain_called)
+    monkeypatch.setattr(sparse_kernel, "sparse_bwd_plain", plain_called)
+    monkeypatch.setattr(sparse_kernel, "launch_dq", refused)
+    cfg = AttentionConfig(dim=16, heads=2, dim_head=16)
+    params = attention_init(torch.Generator().manual_seed(0), cfg, cuda_device)
+    scfg = sparse.SparseConfig(block_size=16, max_seq_len=64)
+    x = torch.randn(2, 40, 16, device=cuda_device, requires_grad=True)
+    out = sparse.sparse_attention_apply(params, cfg, scfg, x)
+    with pytest.raises(RuntimeError, match="refused"):
+        out.sum().backward()
+    monkeypatch.setattr(sparse_kernel, "_lib", refused)
+    with pytest.raises(RuntimeError, match="refused"):
+        sparse.sparse_attention_apply(params, cfg, scfg, x)
+
+
+@pytest.mark.cuda
+def test_sparse_dropout_raises_on_card(cuda_device, monkeypatch):
+    """Live attention dropout on a CUDA tensor raises (the sparse kernels
+    have no dropout) instead of taking the gather version, and
+    make_train_step refuses a sparse config with attention dropout on the
+    card before its first step."""
+    from alphafold2_tpu_torch import Alphafold2Config
+    from alphafold2_tpu_torch.ops import sparse
+    from alphafold2_tpu_torch.ops.attention import AttentionConfig, attention_init
+    from alphafold2_tpu_torch.training import harness
+
+    def plain_called(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(sparse, "block_sparse_attention", plain_called)
+    cfg = AttentionConfig(dim=16, heads=2, dim_head=16, dropout=0.1)
+    params = attention_init(torch.Generator().manual_seed(0), cfg, cuda_device)
+    scfg = sparse.SparseConfig(block_size=16, max_seq_len=64)
+    x = torch.randn(2, 32, 16, device=cuda_device)
+    rng = torch.Generator(device=cuda_device).manual_seed(1)
+    with pytest.raises(ValueError, match="have no dropout"):
+        sparse.sparse_attention_apply(params, cfg, scfg, x, rng=rng)
+    model = Alphafold2Config(dim=16, depth=1, heads=2, dim_head=16, max_seq_len=64,
+                             sparse_self_attn=True, attn_dropout=0.1)
+    with pytest.raises(ValueError, match="make_train_step: sparse_self_attn"):
+        harness.make_train_step(model, harness.TrainConfig(grad_accum=1), device=cuda_device)

@@ -122,8 +122,6 @@ def test_not_ported_options_raise():
     for kw, item in [
         (dict(reversible=True), "A8"),
         (dict(remat=True, remat_policy="dots"), "A6"),
-        (dict(sparse_self_attn=True), "A10"),
-        (dict(weight_dtype="int8"), "A9"),
         (dict(trunk_schedule="branch_parallel"), "A4"),
     ]:
         with pytest.raises(NotImplementedError, match=item):

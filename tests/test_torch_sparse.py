@@ -1,0 +1,361 @@
+"""The port's block-sparse self-attention against the JAX package on the
+CPU: the layout and index table, the gather version (forward and vjp)
+against JAX's XLA gather and its Pallas kernel in interpret mode, the
+kernels' plain versions (out, lse, dq, dk, dv), `sparse_attention_apply`
+with padding, the model with `sparse_self_attn=(True, False)`, and a
+sparse train step.
+
+Tolerances: layouts are bit-equal. Attention outputs: 2e-6 in f32 (the
+same f32 function summed in another order; values ~1) and 2e-2 in bf16
+(the JAX test's bf16 bound); gradients 2e-6 * max(1, |ref|) in f32; lse
+2e-6. Model logits 5e-6 on valid pairs in f32 (tests/test_torch_model.py)
+and 4 bf16 ulps of the largest logit in bf16 (tests/test_torch_train.py).
+Train step: loss 1e-5, grad_norm 1e-5 relative, gradients 1e-5 *
+max(1, the leaf's largest), params 1e-5 (tests/test_torch_train.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from alphafold2_tpu.models import Alphafold2Config as JaxConfig
+from alphafold2_tpu.models import alphafold2_apply as jax_apply
+from alphafold2_tpu.models import alphafold2_init as jax_init
+from alphafold2_tpu.ops import sparse as jsparse
+from alphafold2_tpu.ops.attention import AttentionConfig as JaxAttentionConfig
+from alphafold2_tpu.ops.attention import attention_init as jax_attention_init
+from alphafold2_tpu.ops.sparse_kernel import _forward as jax_kernel_forward
+from alphafold2_tpu.ops.sparse_kernel import block_sparse_attention_tpu
+from alphafold2_tpu.training import data as jdata
+from alphafold2_tpu.training import harness as jharness
+from alphafold2_tpu_torch import Alphafold2Config, alphafold2_apply, params_from_jax
+from alphafold2_tpu_torch.device import tree_leaves
+from alphafold2_tpu_torch.models.convert import convert_tree
+from alphafold2_tpu_torch.models.trunk import make_sparse_axial_fn
+from alphafold2_tpu_torch.ops import sparse, sparse_kernel
+from alphafold2_tpu_torch.ops.attention import AttentionConfig, attention_init
+from alphafold2_tpu_torch.training import harness
+
+SCFG = dict(block_size=4, num_local_blocks=2, num_global_blocks=1, num_random_blocks=2,
+            max_seq_len=64)
+
+
+def _cfgs(**kw):
+    cfg = {**SCFG, **kw}
+    return jsparse.SparseConfig(**cfg), sparse.SparseConfig(**cfg)
+
+
+def _qkv(b=2, n=16, h=2, dh=8, seed=5, masked_row=True):
+    rs = np.random.RandomState(seed)
+    q, k, v, g = (rs.randn(b, n, h, dh).astype(np.float32) for _ in range(4))
+    mask = rs.rand(b, n) > 0.2
+    if masked_row:
+        mask[0] = False  # batch element 0: every key masked
+    return q, k, v, g, mask
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(dtype)
+
+
+# --- the layout -------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(block_size=16, num_random_blocks=None,
+                                             max_seq_len=2048, num_local_blocks=4),
+                                dict(num_global_blocks=3, layout_seed=7),
+                                dict(block_size=16, num_random_blocks=None, max_seq_len=384,
+                                     num_local_blocks=4)],
+                         ids=["small", "default", "3-global-seed7", "served-384"])
+@pytest.mark.parametrize("B", [1, 5, 8, 24, 64])
+def test_layout_and_index_table_bit_equal_to_jax(kw, B):
+    jcfg, tcfg = _cfgs(**kw)
+    np.testing.assert_array_equal(sparse.sparsity_layout(B, tcfg), jsparse.sparsity_layout(B, jcfg))
+    ji, jv = jsparse.layout_block_indices(B, jcfg)
+    ti, tv = sparse.layout_block_indices(B, tcfg)
+    assert ti.dtype == ji.dtype and tv.dtype == jv.dtype
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(tv, jv)
+    table = sparse.kernel_table(B, tcfg, "cpu")
+    assert table.nnz == int(jsparse.sparsity_layout(B, jcfg).sum())
+    np.testing.assert_array_equal(table.counts.numpy(), jv.sum(axis=1))
+    assert sparse.active_fraction(B * tcfg.block_size, tcfg) == pytest.approx(
+        jsparse.sparsity_layout(B, jcfg).mean())
+
+
+def test_kernel_table_refuses_an_asymmetric_layout():
+    idx = np.array([[0, 1], [1, 0]], np.int32)
+    valid = np.array([[True, True], [True, False]])
+    with pytest.raises(ValueError, match="symmetric"):
+        sparse_kernel.block_table(idx, valid, 4, "cpu")
+
+
+# --- the gather version -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gather_attention_and_vjp_match_jax(dtype):
+    """Against JAX's XLA gather (forward, vjp) and its Pallas kernel in
+    interpret mode (forward, vjp); in f32 with a fully masked batch element
+    (JAX's bf16 gather fills masked logits with -inf there and its
+    gradient is NaN; the port fills with the f32 minimum)."""
+    jcfg, tcfg = _cfgs()
+    masked = dtype == "f32"
+    q, k, v, g, mask = _qkv(masked_row=masked)
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    jq, jk, jv, jg = (jnp.asarray(x, jdt) for x in (q, k, v, g))
+    tq, tk, tv = (_t(x, tdt).requires_grad_() for x in (jq, jk, jv))
+    out = sparse.block_sparse_attention(tq, tk, tv, tcfg, mask=torch.from_numpy(mask))
+    assert out.dtype == tdt
+    out.backward(_t(jg, tdt))
+    got = [out.detach()] + [t.grad for t in (tq, tk, tv)]
+    if masked:
+        assert all((t[0] == 0).all() for t in got)
+    for fn in (lambda *a: jsparse.block_sparse_attention(*a, jcfg, mask=mask),
+               lambda *a: block_sparse_attention_tpu(*a, jcfg, jnp.asarray(mask))):
+        ref, vjp = jax.vjp(fn, jq, jk, jv)
+        want = [ref] + list(vjp(jg))
+        for n_out, (a, b) in enumerate(zip(got, want)):
+            b = np.asarray(b, np.float32)
+            if dtype == "f32":
+                tol = 2e-6 * max(1.0, np.abs(b).max())
+            else:  # the JAX package's own bf16 bounds (tests/test_sparse.py)
+                tol = 2e-2 if n_out == 0 else 1e-1
+            np.testing.assert_allclose(a.float().numpy(), b, rtol=0, atol=tol)
+
+
+def test_kernel_plain_versions_match_jax_kernel():
+    """The folded plain versions of B5f (out and lse, +inf on empty rows)
+    and of B5 dq / dkv against the Pallas kernels in interpret mode."""
+    jcfg, tcfg = _cfgs()
+    q, k, v, g, mask = _qkv()
+    b, n, h, dh = q.shape
+    _, (j_out, j_lse) = jax_kernel_forward(*(jnp.asarray(x) for x in (q, k, v)), jcfg,
+                                           jnp.asarray(mask))
+    _, vjp = jax.vjp(lambda *a: block_sparse_attention_tpu(*a, jcfg, jnp.asarray(mask)),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(g))
+
+    def fold(x):
+        return _t(x).transpose(1, 2).reshape(b * h, n, dh).contiguous()
+
+    bias = torch.where(torch.from_numpy(mask), 0.0, float("-inf")).float()
+    table = sparse.kernel_table(n // tcfg.block_size, tcfg, "cpu")
+    out, lse = sparse_kernel.sparse_fwd_plain(fold(q), fold(k), fold(v), bias, table, h,
+                                              dh ** -0.5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), rtol=0, atol=2e-6)
+    j_lse = np.asarray(j_lse).reshape(b * h, n)
+    np.testing.assert_array_equal(np.isposinf(lse.numpy()), np.isposinf(j_lse))
+    fin = np.isfinite(j_lse)
+    np.testing.assert_allclose(lse.numpy()[fin], j_lse[fin], rtol=0, atol=2e-6)
+    grads = sparse_kernel.sparse_bwd_plain(fold(q), fold(k), fold(v), bias, table, h, out, lse,
+                                           fold(g), dh ** -0.5)
+    for got, want in zip(grads, jgrads):
+        want = np.asarray(want).transpose(0, 2, 1, 3).reshape(b * h, n, dh)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=2e-6 * max(1.0, np.abs(want).max()))
+
+
+def test_kernel_plain_versions_tile_over_heads(monkeypatch):
+    """The plain versions' BH tiling changes nothing."""
+    _, tcfg = _cfgs()
+    q, k, v, g, mask = _qkv(b=3, seed=2)
+    fold = lambda x: _t(x).transpose(1, 2).reshape(6, 16, 8).contiguous()  # noqa: E731
+    bias = torch.where(torch.from_numpy(mask), 0.0, float("-inf")).float()
+    table = sparse.kernel_table(4, tcfg, "cpu")
+    args = (fold(q), fold(k), fold(v), bias, table, 2, 0.3)
+    whole = sparse_kernel.sparse_fwd_plain(*args)
+    monkeypatch.setattr(sparse_kernel, "PLAIN_TILE_ELEMS", 1)
+    tiled = sparse_kernel.sparse_fwd_plain(*args)
+    for a, b in zip(whole, tiled):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-7)
+    dw = sparse_kernel.sparse_bwd_plain(*args[:6], *whole, fold(g), 0.3)
+    monkeypatch.undo()
+    dt = sparse_kernel.sparse_bwd_plain(*args[:6], *whole, fold(g), 0.3)
+    for a, b in zip(dw, dt):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-7)
+
+
+def test_plain_backward_split_is_autograd_of_the_plain_forward():
+    """The dq / dkv split (`sparse_bwd_plain`, what the backward kernels
+    compute) equals autograd through the one gather forward
+    (`sparse_fwd_plain`, what the CPU model differentiates), a fully masked
+    batch element included: f32, 2e-6 * max(1, |ref|)."""
+    _, tcfg = _cfgs()
+    q, k, v, g, mask = _qkv(b=2, seed=4)
+    fold = lambda x: _t(x).transpose(1, 2).reshape(4, 16, 8).contiguous()  # noqa: E731
+    bias = torch.where(torch.from_numpy(mask), 0.0, float("-inf")).float()
+    table = sparse.kernel_table(4, tcfg, "cpu")
+    tq, tk, tv = (fold(x).requires_grad_() for x in (q, k, v))
+    out, lse = sparse_kernel.sparse_fwd_plain(tq, tk, tv, bias, table, 2, 0.3)
+    out.backward(fold(g))
+    split = sparse_kernel.sparse_bwd_plain(tq.detach(), tk.detach(), tv.detach(), bias, table, 2,
+                                           out.detach(), lse, fold(g), 0.3)
+    for want, got in zip((tq.grad, tk.grad, tv.grad), split):
+        assert torch.isfinite(want).all() and (want[:2] == 0).all()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=2e-6 * max(1.0, want.abs().max().item()))
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """`sparse_fwd` / `sparse_bwd` launch the CUDA kernels only; CPU
+    tensors go to the plain versions by name."""
+    _, tcfg = _cfgs()
+    q, k, v, g, mask = _qkv(b=1, masked_row=False)
+    fold = lambda x: _t(x).transpose(1, 2).reshape(2, 16, 8).contiguous()  # noqa: E731
+    bias = torch.zeros((1, 16))
+    table = sparse.kernel_table(4, tcfg, "cpu")
+    args = (fold(q), fold(k), fold(v), bias, table, 2)
+    with pytest.raises(ValueError, match="take CUDA tensors"):
+        sparse_kernel.sparse_fwd(*args, 0.3)
+    out, lse = sparse_kernel.sparse_fwd_plain(*args, 0.3)
+    with pytest.raises(ValueError, match="take CUDA tensors"):
+        sparse_kernel.sparse_bwd(*args, out, lse, fold(g), 0.3)
+
+
+# --- sparse_attention_apply -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,with_mask", [(14, True), (14, False), (16, True)],
+                         ids=["pad-mask", "pad-nomask", "nopad"])
+def test_sparse_attention_apply_matches_jax(n, with_mask):
+    jcfg, tcfg = _cfgs()
+    jattn = JaxAttentionConfig(dim=16, heads=2, dim_head=8)
+    jparams = jax_attention_init(jax.random.PRNGKey(3), jattn)
+    tparams = convert_tree(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    tattn = AttentionConfig(dim=16, heads=2, dim_head=8)
+    rs = np.random.RandomState(1)
+    x = rs.randn(2, n, 16).astype(np.float32)
+    mask = (rs.rand(2, n) > 0.3) if with_mask else None
+    want = jsparse.sparse_attention_apply(jparams, jattn, jcfg, x, mask=mask)
+    got = sparse.sparse_attention_apply(tparams, tattn, tcfg, _t(x),
+                                        mask=None if mask is None else torch.from_numpy(mask))
+    assert got.shape == (2, n, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-6)
+
+
+def test_sparse_axial_fn_refuses_tied_rows_and_context():
+    cfg = Alphafold2Config(dim=16, depth=1, heads=2, dim_head=8, max_seq_len=32,
+                           sparse_self_attn=True, sparse_block_size=4)
+    fn = make_sparse_axial_fn(cfg)
+    params = attention_init(torch.Generator().manual_seed(0), cfg.self_attn_config(), "cpu")
+    x = torch.zeros((1, 8, 16))
+    with pytest.raises(ValueError, match="tied-row"):
+        fn(params, x, axis="height", mask=None, tie_dim=3, rng=None)
+    with pytest.raises(ValueError, match="self-attention only"):
+        fn(params, x, axis="width", mask=None, tie_dim=None, rng=None, context=x)
+    assert fn(params, x, axis="width", mask=None, tie_dim=None, rng=None).shape == (1, 8, 16)
+
+
+# --- the model and the train step ------------------------------------------------------
+
+
+MODEL = dict(dim=32, depth=2, heads=2, dim_head=16, max_seq_len=32,
+             sparse_self_attn=(True, False), sparse_block_size=4, sparse_num_random_blocks=1,
+             sparse_num_local_blocks=2)
+
+
+def _inputs(L=14, rows=3, pad=3):
+    rng = np.random.default_rng(1)
+    seq = rng.integers(0, 20, (1, L)).astype(np.int32)
+    mask = np.ones((1, L), bool)
+    mask[:, L - pad:] = False
+    msa = rng.integers(0, 21, (1, rows, L)).astype(np.int32)
+    msa_mask = rng.random((1, rows, L)) > 0.2
+    msa_mask[:, 0] = mask
+    return seq, mask, msa, msa_mask
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kw", [dict(), dict(msa_tie_row_attn=True, attn_flash=True)],
+                         ids=["dense", "tied-flash"])
+def test_sparse_model_matches_jax(dtype, kw):
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    jcfg = JaxConfig(**MODEL, **kw, dtype=jdt)
+    tcfg = Alphafold2Config(**MODEL, **kw, dtype=tdt)
+    jparams = jax_init(jax.random.PRNGKey(0), jcfg)
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), tcfg, device="cpu")
+    seq, mask, msa, msa_mask = _inputs()
+    jl = np.asarray(jax_apply(jparams, jcfg, seq, msa, mask=mask, msa_mask=msa_mask), np.float32)
+    tl = alphafold2_apply(tparams, tcfg, seq, msa, mask=mask, msa_mask=msa_mask, device="cpu")
+    assert tl.dtype == tdt
+    tl = tl.float().numpy()
+    assert np.isfinite(tl).all()
+    pair = mask[:, :, None] & mask[:, None, :]
+    bound = 5e-6 if dtype == "f32" else 4 * 2.0 ** -7 * np.abs(jl[pair]).max()
+    assert np.abs(tl - jl)[pair].max() <= bound
+    if dtype == "f32":
+        # the sparse layer differs from its dense twin (7/8 of the blocks
+        # are active here)
+        dense = alphafold2_apply(tparams, Alphafold2Config(**{**MODEL, "sparse_self_attn": False},
+                                                           **kw),
+                                 seq, msa, mask=mask, msa_mask=msa_mask, device="cpu")
+        assert np.abs(dense.numpy() - tl)[pair].max() > 100 * bound
+
+
+def test_sparse_train_step_matches_jax():
+    kw = dict(MODEL, depth=1, sparse_self_attn=True, max_seq_len=64)
+    jcfg, tcfg = JaxConfig(**kw), Alphafold2Config(**kw)
+    jparams = jax_init(jax.random.PRNGKey(0), jcfg)
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), tcfg, device="cpu")
+    jt, tt = jharness.TrainConfig(grad_accum=2), harness.TrainConfig(grad_accum=2)
+    fetch = jdata.synthetic_microbatch_fn(jdata.DataConfig(max_len=22, seed=3), 2)
+    jstate = {"params": jparams, "opt_state": jharness.make_optimizer(jt).init(jparams),
+              "step": jnp.zeros((), jnp.int32)}
+    tstate = harness.train_state(tparams, tt)
+    jstep = jax.jit(jharness.make_train_step(jcfg, jt))
+    tstep = harness.make_train_step(tcfg, tt, device="cpu")
+    b0 = fetch(0)
+
+    def mean_loss(p):
+        return sum(jharness.distogram_loss_fn(p, jcfg, {k: v[n] for k, v in b0.items()}, None)
+                   for n in range(2)) / 2
+
+    jgrads = params_from_jax(jax.tree_util.tree_map(np.asarray, jax.grad(mean_loss)(jparams)),
+                             tcfg, device="cpu")
+    for n in range(2):
+        batch = fetch(n)
+        jstate, jm = jstep(jstate, batch)
+        tstate, tm = tstep(tstate, batch)
+        assert abs(float(jm["loss"]) - float(tm["loss"])) <= 1e-5
+        assert float(tm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]), rel=1e-5)
+        if n == 0:
+            for want, leaf in zip(tree_leaves(jgrads), tstate["optimizer"].leaves):
+                atol = 1e-5 * max(1.0, want.abs().max().item())
+                torch.testing.assert_close(leaf.grad, want, rtol=0, atol=atol)
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, jstate["params"]), tcfg,
+                           device="cpu")
+    for w, leaf in zip(tree_leaves(want), tstate["optimizer"].leaves):
+        torch.testing.assert_close(leaf.detach(), w, rtol=0, atol=1e-5)
+
+
+def test_dropout_takes_the_gather_version(monkeypatch):
+    """Live attention dropout on the CPU runs the gather version with the
+    rate, drawing its mask from the caller's generator: the same seed gives
+    the same output, another seed another one, and no generator (eval
+    mode) the output without dropout."""
+    calls = []
+    real = sparse.block_sparse_attention
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs["dropout_rate"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(sparse, "block_sparse_attention", spy)
+    _, tcfg = _cfgs()
+    attn = AttentionConfig(dim=16, heads=2, dim_head=8, dropout=0.25)
+    params = attention_init(torch.Generator().manual_seed(0), attn, "cpu")
+    x = torch.randn(1, 16, 16)
+    a = sparse.sparse_attention_apply(params, attn, tcfg, x, rng=torch.Generator().manual_seed(1))
+    b = sparse.sparse_attention_apply(params, attn, tcfg, x, rng=torch.Generator().manual_seed(1))
+    c = sparse.sparse_attention_apply(params, attn, tcfg, x, rng=torch.Generator().manual_seed(2))
+    d = sparse.sparse_attention_apply(params, attn, tcfg, x)
+    assert calls == [0.25] * 4
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(a, c) and not torch.equal(a, d)
+    eval_cfg = AttentionConfig(dim=16, heads=2, dim_head=8)
+    torch.testing.assert_close(d, sparse.sparse_attention_apply(params, eval_cfg, tcfg, x),
+                               rtol=0, atol=0)
