@@ -107,7 +107,7 @@ def alphafold2_head(params, cfg: Alphafold2Config, x):
 
 def alphafold2_apply(params, cfg: Alphafold2Config, seq, msa=None, *,
                      mask=None, msa_mask=None, embedds=None, templates=None,
-                     templates_mask=None, rng=None, device=None):
+                     templates_mask=None, rng=None, device=None, trunk_fn=None):
     """Forward pass, differentiable in the parameters.
 
     seq: (b, n) int tokens; msa: (b, rows, cols) int tokens or None;
@@ -115,8 +115,12 @@ def alphafold2_apply(params, cfg: Alphafold2Config, seq, msa=None, *,
     (b, n, num_embedds) float, the MSA substitute when msa is None; rng:
     an optional CPU generator for dropout (None: eval mode). Inputs may be
     numpy arrays or tensors; they are moved to `device` (default CUDA;
-    pass device="cpu" for the CPU), where the params must lie. Returns
-    distogram logits (b, n, n, num_buckets) in cfg.dtype."""
+    pass device="cpu" for the CPU), where the params must lie. trunk_fn
+    overrides the trunk (the sequence-parallel one,
+    parallel/sp_trunk.py alphafold2_apply_sp), called as
+    trunk_fn(params["trunk"], cfg, x, m, x_mask, msa_mask, rng) and
+    returning (x, m). Returns distogram logits (b, n, n, num_buckets) in
+    cfg.dtype."""
     if templates is not None or templates_mask is not None:
         raise NotImplementedError(
             "the template tower is not ported to PyTorch yet (ROADMAP A4)"
@@ -131,6 +135,14 @@ def alphafold2_apply(params, cfg: Alphafold2Config, seq, msa=None, *,
     x, m, x_mask, m_mask = alphafold2_front(
         params, cfg, seq, msa, mask=mask, msa_mask=msa_mask, embedds=embedds
     )
-    x, _ = sequential_trunk_apply(params["trunk"], cfg, x, m, x_mask=x_mask,
-                                  msa_mask=m_mask, rng=rng)
+    if trunk_fn is not None:
+        if cfg.reversible:
+            # the reversible trunk's params are not the layer list the
+            # hook's contract hands over
+            raise ValueError("trunk_fn overrides receive the sequential layer list; "
+                             "set reversible=False")
+        x, _ = trunk_fn(params["trunk"], cfg, x, m, x_mask, m_mask, rng)
+    else:
+        x, _ = sequential_trunk_apply(params["trunk"], cfg, x, m, x_mask=x_mask,
+                                      msa_mask=m_mask, rng=rng)
     return alphafold2_head(params, cfg, x)

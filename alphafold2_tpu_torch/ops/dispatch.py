@@ -26,6 +26,8 @@ OPS = {
     "flash_attention": "csrc/flash_fwd.cu, csrc/flash_bwd.cu (B1, B2)",
     "quant_matmul": "csrc/quant_matmul.cu (B4)",
     "sparse_attention": "csrc/sparse_attn.cu (B5)",
+    # a ring hop: (out, lse) through B1's kernels, merged in log space
+    "merge_lse": "csrc/flash_fwd.cu, csrc/flash_bwd.cu (B3)",
 }
 
 

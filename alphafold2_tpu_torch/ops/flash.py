@@ -11,6 +11,11 @@ launches the hand-written kernels of ops/flash_kernel.py through two
 `torch.autograd.Function`s, whose backwards launch the backward kernels
 (a gate or a 2-D pair bias selects the fused pair), or raises: there is
 no fallback to the plain versions on the card (ops/dispatch.py).
+
+Ring attention's hop interface (parallel/sequence.py) lives here too:
+`hop_attention_lse` gives one hop's normalised output and log-sum-exp
+(kernel B3 through `_FlashLseKernel` on CUDA tensors, the plain version on
+CPU tensors) and `merge_lse` combines two hops in log space.
 """
 
 from __future__ import annotations
@@ -49,6 +54,33 @@ def stream_block(q, k_blk, v_blk, bias_blk, m, l, acc, scale,
         "bhqk,bkhd->bhqd", p.to(v_blk.dtype), v_blk
     ).float()
     return m_new, l_new, acc_new
+
+
+def merge_lse(out_a, lse_a, out_b, lse_b):
+    """Log-space merge of two normalised partial softmax results (the hop
+    interface of ring attention):
+
+        out = (e^lse_a out_a + e^lse_b out_b) / (e^lse_a + e^lse_b)
+        lse = log(e^lse_a + e^lse_b)
+
+    with the running-max stabilisation. A zero-mass block carries lse =
+    -inf and weighs zero (`hop_attention_lse` flips the kernel's +inf);
+    rows empty on both sides give (0, -inf), with finite gradients.
+    out_*: (..., d) f32; lse_*: (...) f32. Returns (out, lse)."""
+    m = torch.maximum(lse_a, lse_b)
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)  # both-empty rows
+    w_a = torch.exp(lse_a - m_safe)
+    w_b = torch.exp(lse_b - m_safe)
+    tot = w_a + w_b
+    live = tot > 0
+    safe_tot = torch.where(live, tot, 1.0)
+    out = torch.where(
+        live[..., None],
+        (out_a * w_a[..., None] + out_b * w_b[..., None]) / safe_tot[..., None],
+        0.0,
+    )
+    lse = torch.where(live, m_safe + torch.log(safe_tot), _NEG_INF)
+    return out, lse
 
 
 def _stream(q, k, v, bias, scale, kv_block, logit_dtype, bias2d=None):
@@ -173,6 +205,47 @@ class _FusedFlashKernel(torch.autograd.Function):
             q, k, v, bias, gate, out, lse, aligned(g), ctx.scale
         )
         return dq, dk, dv, d_bias, d_gate, None
+
+
+class _FlashLseKernel(torch.autograd.Function):
+    """B3 in the folded layout: forward `flash_fwd_lse` (out and lse, both
+    differentiable), backward `flash_bwd_lse` with the lse cotangent. The
+    key-side bias gets no cotangent."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        out, lse = flash_kernel.flash_fwd_lse(q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.scale = scale
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_kernel.flash_bwd_lse(
+            q, k, v, bias, out, lse, aligned(g), g_lse, ctx.scale
+        )
+        return dq, dk, dv, None, None
+
+
+def hop_attention_lse(qf, kf, vf, bias, scale):
+    """One ring hop's normalised (out, lse), the `merge_lse` op's hop: B3
+    on CUDA tensors (`_FlashLseKernel`, or a ValueError for a shape it does
+    not take), its plain version on CPU tensors (differentiable by
+    autograd). qf (BH, i, dh), kf/vf (BH, j, dh), bias (BH, j) additive
+    f32. The kernel marks a zero-mass row with lse = +inf (its backward's
+    convention); merging needs zero mass to weigh zero, so +inf becomes
+    -inf here. Returns (out f32, lse f32)."""
+    i, j, dh = qf.shape[1], kf.shape[1], qf.shape[2]
+    unsupported = None if flash_kernel.supported(i, j, dh) else (
+        f"i={i}, j={j}, dh={dh} (head widths {flash_kernel.SUPPORTED_DH})")
+    if dispatch.resolve("merge_lse", qf.device, unsupported=unsupported) == dispatch.PLAIN:
+        out, lse = flash_kernel.flash_fwd_plain(qf, kf, vf, bias, scale)
+    else:
+        out, lse = _FlashLseKernel.apply(aligned(qf), aligned(kf), aligned(vf), aligned(bias),
+                                         scale)
+    lse = torch.where(torch.isposinf(lse), _NEG_INF, lse)
+    return out.float(), lse
 
 
 def flash_attention(q, k, v, key_bias=None, *, pair_bias=None, gate=None,

@@ -7,7 +7,11 @@ Counterpart of alphafold2_tpu/ops/flash_kernel.py:
   * `flash_fwd_fused` (B2f) replaces `flash_attention_fused`'s forward:
     the same plus a 2-D (BH, i, j) bias tile and/or a sigmoid output gate;
   * `flash_bwd` (B1b) and `flash_bwd_fused` (B2b) replace their backwards
-    (`_bwd_impl`, `_fused_bwd`): a dq kernel and a dkv kernel each.
+    (`_bwd_impl`, `_fused_bwd`): a dq kernel and a dkv kernel each;
+  * `flash_fwd_lse` and `flash_bwd_lse` (B3) replace `flash_attention_lse`
+    (`_flash_core_lse` and its backward `_bwd_lse`): B1's kernels, whose
+    lse is an output differentiated through, so the backward launches the
+    B1b pair with delta - g_lse (JAX `_bwd_impl` :372-379).
 
 All take the folded layout q (BH, i, dh), k/v (BH, j, dh) in float32 or
 bfloat16. The forwards return (out (BH, i, dh) in the input dtype, lse
@@ -17,7 +21,8 @@ wrapper runs its plain version (`flash_fwd_plain`, `flash_bwd_plain`), on
 CUDA tensors it launches its kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu,
 built at first use) or raises: bfloat16 runs on the tensor cores
 (mma.sync, f32 accumulate), float32 on the CUDA cores in f32. `LAUNCHES`
-counts kernel launches per kernel.
+counts kernel launches per kernel (B3's under their own keys, though they
+are B1's kernels).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ LAUNCHES = {
     "flash_fwd": 0, "flash_fwd_fused": 0,
     "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     "flash_bwd_fused_dq": 0, "flash_bwd_fused_dkv": 0,
+    "flash_fwd_lse": 0, "flash_bwd_lse_dq": 0, "flash_bwd_lse_dkv": 0,
 }
 
 SUPPORTED_DH = (16, 32, 64)
@@ -252,11 +258,8 @@ def _check(q, k, v, bias, gate, bias2d):
             raise ValueError(f"{name} must start 16-byte aligned for the bf16 kernel")
 
 
-def flash_fwd(q, k, v, bias, scale):
-    """B1f: softmax(scale * q k^T + bias) v with a key-side (BH, j) bias.
-    Returns (out, lse)."""
-    if dispatch.on_cpu("flash attention", q, k, v, bias):
-        return flash_fwd_plain(q, k, v, bias, scale)
+def _launch_fwd(q, k, v, bias, scale, name):
+    """One launch of the B1f kernel, counted under LAUNCHES[name]."""
     _check(q, k, v, bias, None, bias2d=False)
     BH, i, dh = q.shape
     out = torch.empty_like(q)
@@ -267,9 +270,27 @@ def flash_fwd(q, k, v, bias, scale):
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    cuda_build.check_launch(rc, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    cuda_build.check_launch(rc, name)
+    LAUNCHES[name] += 1
     return out, lse
+
+
+def flash_fwd(q, k, v, bias, scale):
+    """B1f: softmax(scale * q k^T + bias) v with a key-side (BH, j) bias.
+    Returns (out, lse)."""
+    if dispatch.on_cpu("flash attention", q, k, v, bias):
+        return flash_fwd_plain(q, k, v, bias, scale)
+    return _launch_fwd(q, k, v, bias, scale, "flash_fwd")
+
+
+def flash_fwd_lse(q, k, v, bias, scale):
+    """B3 forward: B1f whose lse (BH, i) f32 is an output of the attention
+    (+inf for a row with no unmasked key), one ring hop's partial softmax.
+    The same kernel as `flash_fwd`, counted under its own key. Returns
+    (out, lse)."""
+    if dispatch.on_cpu("flash attention", q, k, v, bias):
+        return flash_fwd_plain(q, k, v, bias, scale)
+    return _launch_fwd(q, k, v, bias, scale, "flash_fwd_lse")
 
 
 def flash_fwd_fused(q, k, v, bias, scale, gate: Optional[torch.Tensor] = None):
@@ -374,3 +395,35 @@ def flash_bwd_fused(q, k, v, bias, gate, out, lse, g, scale):
     dq, d_bias = launch_dq(*args, "flash_bwd_fused_dq")
     dk, dv = launch_dkv(*args, "flash_bwd_fused_dkv")
     return dq, dk, dv, d_bias, d_gate
+
+
+def lse_delta(out, g, g_lse):
+    """B3's diagonal term: delta = rowsum(g * out) - g_lse in f32. The lse
+    cotangent folds in here because d lse_i / d s_ij = p_ij (JAX
+    `_bwd_impl` :372-379); g_lse None counts as 0."""
+    delta = cotangent_terms(out, g)[1]
+    return delta if g_lse is None else delta - g_lse.float()
+
+
+def flash_bwd_lse_plain(q, k, v, bias, out, lse, g, g_lse, scale):
+    """B3's backward in plain PyTorch: the B1b plain versions with delta -
+    g_lse. Returns (dq, dk, dv) in the input dtype."""
+    args = (q, k, v, bias, lse, g, lse_delta(out, g, g_lse), scale)
+    return (flash_bwd_dq_plain(*args)[0],) + flash_bwd_dkv_plain(*args)
+
+
+def flash_bwd_lse(q, k, v, bias, out, lse, g, g_lse, scale):
+    """B3 backward: the backward of `flash_fwd_lse` through both outputs,
+    from its saved out and lse, the out cotangent g (BH, i, dh) and the lse
+    cotangent g_lse (BH, i) (None: 0). The B1b kernels with delta - g_lse.
+    A row with lse = +inf gets exact zeros whatever g_lse holds there.
+    Returns (dq, dk, dv) in the input dtype."""
+    if dispatch.on_cpu("flash attention", q, k, v, bias, out, lse, g, g_lse):
+        return flash_bwd_lse_plain(q, k, v, bias, out, lse, g, g_lse, scale)
+    _check_bwd(q, k, v, bias, None, False, out, lse, g)
+    if g_lse is not None and tuple(g_lse.shape) != tuple(lse.shape):
+        raise ValueError(f"g_lse must have lse's shape {tuple(lse.shape)}")
+    args = (q, k, v, bias, lse, g, lse_delta(out, g, g_lse).contiguous(), scale)
+    dq, _ = launch_dq(*args, "flash_bwd_lse_dq")
+    dk, dv = launch_dkv(*args, "flash_bwd_lse_dkv")
+    return dq, dk, dv

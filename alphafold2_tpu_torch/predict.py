@@ -6,18 +6,23 @@ Usage:
   python -m alphafold2_tpu_torch.predict --seq ... --msa-file aln.a3m --bf16
   python -m alphafold2_tpu_torch.predict --seq ... --device cpu
   python -m alphafold2_tpu_torch.predict --seq ... --bf16 --weight-dtype int8
+  python -m alphafold2_tpu_torch.predict --seq ... --sp-shards 4
 
 Parameters come from `--seed` through the port's own init; restoring a
 JAX checkpoint waits for the checkpoint port. `--weight-dtype int8` serves
 them through `serving/quant_residency.py resident_params`, as the JAX
 serving engine does. Runs on the GPU unless
 `--device cpu` is given; float32 matmuls and convolutions run in full
-float32 there (TF32 off).
+float32 there (TF32 off). `--sp-shards N` runs the trunk sequence-parallel
+(parallel/sp_trunk.py alphafold2_apply_sp) over N distinct cards, so it
+needs N of them, as the JAX CLI needs N devices; with `--device cpu` the N
+shards run on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 
 import numpy as np
 import torch
@@ -27,6 +32,7 @@ from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.geometry.pdb import coords_to_pdb
 from alphafold2_tpu_torch.models.alphafold2 import alphafold2_init
 from alphafold2_tpu_torch.models.config import Alphafold2Config
+from alphafold2_tpu_torch.parallel import alphafold2_apply_sp, make_mesh
 from alphafold2_tpu_torch.serving.pipeline import predict_structure
 from alphafold2_tpu_torch.serving.quant_residency import resident_params
 
@@ -58,6 +64,10 @@ def main(argv=None):
                     help="positional-table size (default: from the sequence)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' to run there)")
+    ap.add_argument("--sp-shards", type=int, default=0,
+                    help="run the trunk sequence-parallel over this many cards (the "
+                         "sequence length and the MSA rows must be multiples of it; "
+                         "0 = one device)")
     args = ap.parse_args(argv)
 
     seq_str = args.seq.strip().upper()
@@ -71,6 +81,15 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         print(f"device: {torch.cuda.get_device_name(device)} (TF32 off)")
+    model_apply_fn = None
+    if args.sp_shards:
+        # the trunk over N distinct cards (or N CPU shards on request); the
+        # embeddings, the head and the geometry on the first
+        mesh = make_mesh({"seq": args.sp_shards},
+                         devices=[device] * args.sp_shards if device.type == "cpu" else None)
+        device = mesh.devices[0]
+        model_apply_fn = functools.partial(alphafold2_apply_sp, mesh=mesh)
+        print(f"sequence-parallel trunk over {mesh}")
 
     msa = msa_mask = None
     if args.msa_file is not None:
@@ -94,7 +113,7 @@ def main(argv=None):
     out = predict_structure(
         params, cfg, tokens, msa=msa, msa_mask=msa_mask,
         mds_iters=args.mds_iters, mds_init=args.mds_init, generator=gen,
-        device=device,
+        device=None if model_apply_fn else device, model_apply_fn=model_apply_fn,
     )
     trace = out["coords"][0].cpu().numpy()
     conf = out["confidence"][0].cpu().numpy()

@@ -1,6 +1,6 @@
 """Sequence -> structure inference (counterpart of
-alphafold2_tpu/serving/pipeline.py `predict_structure`, without early exit
-and without a `model_apply_fn` override).
+alphafold2_tpu/serving/pipeline.py `predict_structure`, without early
+exit).
 
 Trunk forward -> distogram softmax -> centering -> stress-majorisation MDS
 -> entropy confidence. Batch-capable: tokens are (b, L) and every output
@@ -23,7 +23,7 @@ def predict_structure(params, cfg, tokens, *, mask=None, msa=None,
                       msa_mask=None, embedds=None, mds_iters: int = 200,
                       mds_init: str = "classical",
                       generator: Optional[torch.Generator] = None,
-                      device=None):
+                      device=None, model_apply_fn=None):
     """Tokens (+ optional MSA or embedds) -> CA trace + confidence.
 
     tokens: (b, L) int residue tokens, padded positions excluded by mask
@@ -32,16 +32,32 @@ def predict_structure(params, cfg, tokens, *, mask=None, msa=None,
     and its start; `generator` seeds the random init. Runs on `device`
     (default CUDA; device="cpu" for the CPU), where the params must lie.
 
-    Returns a dict of tensors on the device: coords (b, L, 3), confidence
+    model_apply_fn: a forward override with `alphafold2_apply`'s keyword
+    signature, called as fn(params, cfg, tokens, msa, mask=, msa_mask=,
+    embedds=, templates=None, templates_mask=None), e.g. the
+    sequence-parallel forward (`functools.partial(alphafold2_apply_sp,
+    mesh=mesh)`, parallel/sp_trunk.py). It places its own work, so it
+    takes no `device`; the geometry runs on the device of its logits.
+
+    Returns a dict of tensors on that device: coords (b, L, 3), confidence
     (b, L), stress (b,) (the final normalised MDS stress) and
     distogram_logits (b, L, L, buckets) float32."""
-    dev = resolve_device(device)
-    mask = as_device_tensor(mask, dev, torch.bool)
     with torch.inference_mode():
-        logits = alphafold2_apply(
-            params, cfg, tokens, msa, mask=mask, msa_mask=msa_mask,
-            embedds=embedds, device=dev,
-        )
+        if model_apply_fn is None:
+            dev = resolve_device(device)
+            logits = alphafold2_apply(
+                params, cfg, tokens, msa, mask=mask, msa_mask=msa_mask,
+                embedds=embedds, device=dev,
+            )
+        else:
+            if device is not None:
+                raise ValueError("model_apply_fn places its own work; pass no device")
+            logits = model_apply_fn(
+                params, cfg, tokens, msa, mask=mask, msa_mask=msa_mask,
+                embedds=embedds, templates=None, templates_mask=None,
+            )
+            dev = logits.device
+        mask = as_device_tensor(mask, dev, torch.bool)
         # geometry in float32 whatever the trunk dtype: it divides by
         # distances and small weights
         logits = logits.float()

@@ -2,6 +2,7 @@
 
     python -m alphafold2_tpu_torch.telemetry.profiling [--length 384] [--depth 2] [--gate]
     python -m alphafold2_tpu_torch.telemetry.profiling --int8 | --sparse [--length 384]
+    python -m alphafold2_tpu_torch.telemetry.profiling --sp-shards 4 [--length 384]
     python -m alphafold2_tpu_torch.telemetry.profiling --train [--length 128] [--depth 1]
 
 Request (the default): runs the serving configuration (dim 256, heads 8,
@@ -12,7 +13,12 @@ the mean of `--reps` runs after one warm-up; the rest is the distogram
 softmax, the geometry and the confidence). `--int8` serves resident int8
 trunk weights (`weight_dtype="int8"`, kernel B4); `--sparse` runs the pair
 axial passes of every other layer block-sparse (`sparse_self_attn=(True,
-False, ...)`, kernel B5).
+False, ...)`, kernel B5). `--sp-shards N` serves the request through the
+sequence-parallel forward (parallel/sp_trunk.py alphafold2_apply_sp, the
+trunk's MSA<-pair cross on kernel B3) over N shards placed on the visible
+cards in turn (shard s on card s mod count; the tool prints the
+placement); the events are recorded on the first card, where the request
+starts and ends.
 
 Train (`--train`): runs train_pre's step (`training/harness.py
 make_train_step`, dim 256, heads 8, dim_head 64, bf16, batch 1, 16
@@ -31,6 +37,7 @@ convolutions run in full float32 (TF32 off).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 from pathlib import Path
@@ -41,6 +48,7 @@ import torch
 from alphafold2_tpu_torch.models.alphafold2 import alphafold2_apply, alphafold2_init
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.ops import flash_kernel, quant_kernel, sparse_kernel
+from alphafold2_tpu_torch.parallel import alphafold2_apply_sp, make_mesh
 from alphafold2_tpu_torch.serving.pipeline import predict_structure
 from alphafold2_tpu_torch.serving.quant_residency import resident_params
 from alphafold2_tpu_torch.training.data import DataConfig, synthetic_microbatch_fn
@@ -127,8 +135,16 @@ def _request(args):
                            weight_dtype="int8" if args.int8 else "f32",
                            sparse_self_attn=tuple(n % 2 == 0 for n in range(depth)) if args.sparse
                            else False)
+    device, apply_fn = torch.device("cuda", 0), None
+    if args.sp_shards:
+        cards = torch.cuda.device_count()
+        mesh = make_mesh({"seq": args.sp_shards},
+                         devices=[f"cuda:{s % cards}" for s in range(args.sp_shards)])
+        device, apply_fn = mesh.devices[0], functools.partial(alphafold2_apply_sp, mesh=mesh)
+        print(f"[profile] sequence-parallel: {args.sp_shards} shards on {cards} card(s): "
+              f"{[str(d) for d in mesh.devices]}")
     params, residency = resident_params(
-        alphafold2_init(cfg, torch.Generator().manual_seed(args.seed), "cuda"), cfg)
+        alphafold2_init(cfg, torch.Generator().manual_seed(args.seed), device), cfg)
     rng = np.random.default_rng(args.seed)
     tokens = rng.integers(0, 20, (1, L)).astype(np.int32)
     msa = rng.integers(0, 21, (1, 20, L)).astype(np.int32)
@@ -137,25 +153,31 @@ def _request(args):
     msa_mask[0, 0] = True
 
     def request():
+        if args.sp_shards:
+            return predict_structure(params, cfg, tokens, msa=msa, msa_mask=msa_mask,
+                                     mds_iters=200, model_apply_fn=apply_fn)
         return predict_structure(params, cfg, tokens, msa=msa, msa_mask=msa_mask,
-                                 mds_iters=200, device="cuda")
+                                 mds_iters=200, device=device)
 
     def forward():
         with torch.inference_mode():
+            if args.sp_shards:
+                return apply_fn(params, cfg, tokens, msa, msa_mask=msa_mask)
             return alphafold2_apply(params, cfg, tokens, msa, msa_mask=msa_mask,
-                                    device="cuda")
+                                    device=device)
 
     request()
     torch.cuda.synchronize()
     request_ms = _events_ms(request, args.reps)
     forward_ms = _events_ms(forward, args.reps)
     print(f"[profile] L={L} depth={depth} gate={args.gate} int8={args.int8} "
-          f"sparse={args.sparse}: request {request_ms:.3f} ms, forward {forward_ms:.3f} ms, "
+          f"sparse={args.sparse} sp_shards={args.sp_shards}: request {request_ms:.3f} ms, forward {forward_ms:.3f} ms, "
           f"rest {request_ms - forward_ms:.3f} ms (CUDA events, mean of {args.reps}); "
           f"weights {residency['weight_bytes']:,} bytes ({residency['fp32_weight_bytes']:,} "
           f"in f32)")
     return request, request_ms, {
         "config": repr(cfg), "length": L, "msa_rows": 20, "mds_iters": 200,
+        "sp_shards": args.sp_shards,
         "request_ms": request_ms, "forward_ms": forward_ms,
         "rest_ms": request_ms - forward_ms, "residency": residency,
     }
@@ -197,13 +219,16 @@ def main(argv=None):
     ap.add_argument("--sparse", action="store_true",
                     help="request: sparse_self_attn=(True, False, ...) (kernel B5 on the "
                          "pair axial passes of every other layer)")
+    ap.add_argument("--sp-shards", type=int, default=0,
+                    help="request: the sequence-parallel forward over this many shards, "
+                         "placed on the visible cards in turn (0: dense)")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="JSON record (default chiprun_out/profile_{request,train}.json)")
     args = ap.parse_args(argv)
-    if args.train and (args.int8 or args.sparse):
-        ap.error("--int8 and --sparse profile a request (int8 weights do not train)")
+    if args.train and (args.int8 or args.sparse or args.sp_shards):
+        ap.error("--int8, --sparse and --sp-shards profile a request")
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False

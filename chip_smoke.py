@@ -19,7 +19,11 @@ each phase prints its seconds):
      served int8 request's ten dense-layer shapes (L = 384); the
      block-sparse forward and backward (B5) at the sparse request's pair
      axial shape (L = 384) and at n = 4096, plus block sizes 32-128, head
-     widths 16 and 32, f32 and a ragged length;
+     widths 16 and 32, f32 and a ragged length; the lse flash kernel (B3)
+     at the SP request's ring-hop shape (L = 384, 4 shards: 8 x 1,920 x
+     36,864; timed unmasked, checked again with one (bh) row fully
+     masked), f32 and ragged, and its backward through lse (random g and
+     g_lse) at the L = 128 hop shape;
   4. the main path through `predict_structure`:
      (a) one request in float32 on the card and on the CPU with the same
          parameters: logits, confidence, stress and distances; at L = 64,
@@ -50,9 +54,23 @@ each phase prints its seconds):
          kernels only;
      (f) make_train_step refuses an int8 config;
      (d) 30 steps on one repeated batch at lr 1e-3 lower the loss;
-  5. a `kernels` JSON line (ten kernels: the two flash forwards, the four
-     flash backward kernels, the int8 product, the three sparse kernels),
-     the card line, and the final `ok` JSON line.
+  7. sequence-parallel serving (`parallel/sp_trunk.py alphafold2_apply_sp`,
+     the ring's hops on B3):
+     (a) f32, dim 64, depth 2, L = 64: 4 shards on the card against 4 CPU
+         shards and against the dense forward on the card, "sp_seq" and
+         "sp_msa", flat and aligned;
+     (b) the serving configuration at L = 384 through
+         `predict_structure(model_apply_fn=...)` with 4 shards on one card,
+         after a warm-up: latency beside the dense request, finiteness,
+         agreement with the dense request (within 1.5x the dense request's
+         distance from the f32 request), and 40 B1f and 32 B3 launches;
+     (c) the gradient of sum(ring_attention(...)^2), f32, 4 shards, one
+         shard's keys masked, card against CPU: B3's backward;
+     (d) (b) over distinct cards when the host has two or more;
+  5. a `kernels` JSON line (thirteen kernels: the two flash forwards, the
+     four flash backward kernels, the int8 product, the three sparse
+     kernels, B3's forward and its two backward kernels), the card line,
+     and the final `ok` JSON line.
 
 A detailed record goes to chiprun_out/chip_smoke.json.
 """
@@ -60,6 +78,7 @@ A detailed record goes to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -90,6 +109,11 @@ from alphafold2_tpu_torch.ops import (  # noqa: E402
     sparse_kernel,
 )
 from alphafold2_tpu_torch.ops.attention import AttentionConfig, attention_init  # noqa: E402
+from alphafold2_tpu_torch.parallel import (  # noqa: E402
+    alphafold2_apply_sp,
+    make_mesh,
+    ring_attention,
+)
 from alphafold2_tpu_torch.serving.quant_residency import resident_params  # noqa: E402
 from alphafold2_tpu_torch.training.data import DataConfig, synthetic_microbatch_fn  # noqa: E402
 from alphafold2_tpu_torch.training.harness import (  # noqa: E402
@@ -119,6 +143,11 @@ REPLACES = {
     "sparse_fwd": "alphafold2_tpu/ops/sparse_kernel.py:173",
     "sparse_bwd_dq": "alphafold2_tpu/ops/sparse_kernel.py:304",
     "sparse_bwd_dkv": "alphafold2_tpu/ops/sparse_kernel.py:318",
+    # B3: flash_attention_lse :323 -> _flash_core_lse :318 -> _forward :197;
+    # _bwd_lse :442 -> _bwd_impl :357 -> :389, :401
+    "flash_fwd_lse": "alphafold2_tpu/ops/flash_kernel.py:323",
+    "flash_bwd_lse_dq": "alphafold2_tpu/ops/flash_kernel.py:389",
+    "flash_bwd_lse_dkv": "alphafold2_tpu/ops/flash_kernel.py:401",
 }
 COUNTED = (flash_kernel, quant_kernel, sparse_kernel)  # the modules with launch counts
 RECORD = {"phases": {}}
@@ -395,7 +424,7 @@ def bwd_bound_terms(q, k, bias, dq_side):
     return ops / PEAK_FLOPS[q.dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def flash_bwd_bf16_bound(q, k, v, bias, out, lse, g, scale, gate=None):
+def flash_bwd_bf16_bound(q, k, v, bias, out, lse, g, scale, gate=None, g_lse=None):
     """Elementwise bound on |bf16 kernel - flash_bwd_plain| for (dq, dk,
     dv). The kernels round dS (and P, for dv) to bf16 before their
     products, a relative error of at most 2^-8 per element (half an ulp
@@ -405,11 +434,17 @@ def flash_bwd_bf16_bound(q, k, v, bias, out, lse, g, scale, gate=None):
     bf16 ulp apart (at most 2^-7 of the value). So dq: 2^-8 scale |dS|
     |K|, dk: 2^-8 scale |dS|^T |Q|, dv: 2^-8 P^T |dO|, each plus 2^-7 |ref|.
     The f32 accumulation orders differ by ~2^-23 of the same absolute
-    sums, inside the bound. Returns three f32 tensors."""
+    sums, inside the bound. With an lse cotangent g_lse (B3) the same holds
+    for ds = p (g.v - (delta - g_lse)). Returns three f32 tensors."""
     BH, i, dh = q.shape
-    ref_dq, ref_dk, ref_dv, _, _ = flash_kernel.flash_bwd_plain(q, k, v, bias, out, lse, g,
-                                                                scale, gate)
-    g, delta, _ = flash_kernel.cotangent_terms(out, g, gate)
+    if g_lse is None:
+        ref_dq, ref_dk, ref_dv, _, _ = flash_kernel.flash_bwd_plain(q, k, v, bias, out, lse, g,
+                                                                    scale, gate)
+        g, delta, _ = flash_kernel.cotangent_terms(out, g, gate)
+    else:
+        ref_dq, ref_dk, ref_dv = flash_kernel.flash_bwd_lse_plain(q, k, v, bias, out, lse, g,
+                                                                  g_lse, scale)
+        delta = flash_kernel.lse_delta(out, g, g_lse)
     bdq = torch.empty((BH, i, dh), dtype=torch.float32, device=q.device)
     bdk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     bdv = torch.zeros_like(bdk)
@@ -598,6 +633,167 @@ def phase_bwd_kernels():
         fail(f"{len(bad)} backward check(s) disagree with the plain version: "
              + ", ".join(f"{r['kernel']} {r['case']}" for r in bad))
     return rows
+
+
+# --- phase 3, B3: the lse flash kernels of the ring hops ---------------------------
+
+
+def lse_library_ms(q, k, v, bias, scale, reps):
+    """One PyTorch call computing out and lse with an additive mask:
+    aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True) (a
+    yardstick only). Where this torch lacks it or it refuses the shape,
+    F.scaled_dot_product_attention's out-only time, labelled so. Returns
+    (ms or None, label)."""
+    mask = dense_mask(q, k, bias)
+    q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
+    try:
+        op = torch.ops.aten._scaled_dot_product_efficient_attention
+        ms = time_ms(lambda: op(q4, k4, v4, mask, True, scale=scale), reps)
+        return ms, "aten._scaled_dot_product_efficient_attention (out and lse)"
+    except (AttributeError, RuntimeError) as e:
+        log(f"[library] efficient attention with lse: none ({str(e).splitlines()[0][:100]})")
+        return sdpa_mask_ms(q, k, v, mask, scale, reps), "scaled_dot_product_attention (out only)"
+
+
+def check_lse(label, BH, i, j, dh, dtype, *, timed, masked_bh=()):
+    """B3's forward (`flash_fwd_lse`) against flash_fwd_plain: out within
+    one bf16 ulp of the largest output (f32: 1e-5 * max(1, max|ref|)), lse
+    1e-4 where finite and +inf exactly where the plain version has it (a
+    (bh) row with every key masked: zeros and +inf)."""
+    q, k, v, bias, _ = make_inputs(BH, i, j, dh, dtype, masked_bh=masked_bh, seed=5)
+    scale = dh ** -0.5
+    before = flash_kernel.LAUNCHES["flash_fwd_lse"]
+    out, lse = flash_kernel.flash_fwd_lse(q, k, v, bias, scale)
+    sync()
+    if flash_kernel.LAUNCHES["flash_fwd_lse"] != before + 1:
+        fail("flash_fwd_lse did not count its launch")
+    ref_out, ref_lse = flash_kernel.flash_fwd_plain(q, k, v, bias, scale)
+    ref_max = ref_out.float().abs().max().item()
+    tol = 1e-5 * max(1.0, ref_max) if dtype == torch.float32 else BF16_ULP * ref_max
+    err = (out.float() - ref_out.float()).abs().max().item()
+    fin = torch.isfinite(ref_lse)
+    lse_err = (lse[fin] - ref_lse[fin]).abs().max().item()
+    ok = (err <= tol and lse_err <= 1e-4 and bool(torch.isfinite(out).all())
+          and torch.equal(torch.isposinf(lse), torch.isposinf(ref_lse)))
+    for b in masked_bh:
+        ok = ok and bool((out[b] == 0).all()) and bool(torch.isposinf(lse[b]).all())
+    row = {"kernel": "flash_fwd_lse", "case": label, "shape": [BH, i, j, dh],
+           "dtype": str(dtype), "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
+           "ok": bool(ok)}
+    if timed:
+        t_ops, t_bytes = bound_terms(q, k, v, bias, None)
+        row["kernel_ms"] = time_ms(lambda: flash_kernel.flash_fwd_lse(q, k, v, bias, scale), 20)
+        row["plain_ms"] = time_ms(lambda: flash_kernel.flash_fwd_plain(q, k, v, bias, scale), 3)
+        row["library_ms"], row["library"] = lse_library_ms(q, k, v, bias, scale, 20)
+        row["ops_ms"], row["bytes_ms"] = t_ops, t_bytes
+        row["bound_ms"] = max(t_ops, t_bytes)
+        row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    times = "".join(f" {key}={row[key]:.3f}" for key in
+                    ("kernel_ms", "plain_ms", "library_ms", "bound_ms") if row.get(key) is not None)
+    log(f"[lse] {label:26s} {str((BH, i, j, dh)):26s} {str(dtype).split('.')[-1]:8s} "
+        f"max|d|={err:.3e} (tol {tol:.3e}) lse|d|={lse_err:.2e}{times}"
+        f"{' (' + row['library'] + ')' if timed else ''} {'ok' if ok else 'FAIL'}")
+    del q, k, v, bias, out, lse, ref_out, ref_lse
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_lse_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=()):
+    """B3's backward (`flash_bwd_lse`, the B1b kernels with delta - g_lse)
+    on the forward kernel's out and lse, with a random g and a random g_lse
+    (also on the empty rows, whose gradients must stay exact zeros),
+    against flash_bwd_lse_plain. Tolerances as `check_bwd`: f32 1e-5 *
+    max(1, max|ref|); bf16 elementwise `flash_bwd_bf16_bound` with the lse
+    cotangent."""
+    q, k, v, bias, _ = make_inputs(BH, i, j, dh, dtype, masked_bh=masked_bh, seed=6)
+    scale = dh ** -0.5
+    out, lse = flash_kernel.flash_fwd_lse(q, k, v, bias, scale)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    g_lse = torch.randn(lse.shape, generator=gen, device="cuda")
+    names = ("flash_bwd_lse_dq", "flash_bwd_lse_dkv")
+    before = {n: flash_kernel.LAUNCHES[n] for n in names}
+    dq, dk, dv = flash_kernel.flash_bwd_lse(q, k, v, bias, out, lse, g, g_lse, scale)
+    sync()
+    if any(flash_kernel.LAUNCHES[n] != before[n] + 1 for n in names):
+        fail(f"{names} did not count their launches")
+    ref = flash_kernel.flash_bwd_lse_plain(q, k, v, bias, out, lse, g, g_lse, scale)
+    if dtype == torch.float32:
+        bounds = [1e-5 * max(1.0, r.abs().max().item()) for r in ref]
+    else:
+        bounds = flash_bwd_bf16_bound(q, k, v, bias, out, lse, g, scale, g_lse=g_lse)
+    errs, ratios = [], []
+    for got, want, bound in zip((dq, dk, dv), ref, bounds):
+        diff = (got.float() - want.float()).abs()
+        bound = torch.as_tensor(bound, device=diff.device)
+        errs.append(diff.max().item())
+        ratio = torch.where(bound > 0, diff / bound, torch.where(diff > 0, math.inf, 0.0))
+        ratios.append(ratio.max().item())
+    ok = all(r <= 1.0 for r in ratios) and all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+    for b in masked_bh:
+        ok = ok and all(bool((t[b] == 0).all()) for t in (dq, dk, dv))
+    row = {"kernel": "flash_bwd_lse", "case": label, "shape": [BH, i, j, dh],
+           "dtype": str(dtype), "dq_err": errs[0], "dkv_err": max(errs[1:]),
+           "bound_ratio": max(ratios), "ok": bool(ok)}
+    if timed:
+        args = (q, k, v, bias, lse, g, flash_kernel.lse_delta(out, g, g_lse).contiguous(), scale)
+        row["dq_ms"] = time_ms(lambda: flash_kernel.launch_dq(*args, names[0]), 10)
+        row["dkv_ms"] = time_ms(lambda: flash_kernel.launch_dkv(*args, names[1]), 10)
+        row["dq_plain_ms"] = time_ms(lambda: flash_kernel.flash_bwd_dq_plain(*args), 2)
+        row["dkv_plain_ms"] = time_ms(lambda: flash_kernel.flash_bwd_dkv_plain(*args), 2)
+        # no PyTorch call takes an lse cotangent: no library time
+        row["dq_library_ms"] = row["dkv_library_ms"] = None
+        for side, dq_side in (("dq", True), ("dkv", False)):
+            t_ops, t_bytes = bwd_bound_terms(q, k, bias, dq_side)
+            row[f"{side}_ops_ms"], row[f"{side}_bytes_ms"] = t_ops, t_bytes
+            row[f"{side}_bound_ms"] = max(t_ops, t_bytes)
+    times = "".join(f" {key}={row[key]:.3f}" for key in
+                    ("dq_ms", "dkv_ms", "dq_plain_ms", "dkv_plain_ms", "dq_bound_ms",
+                     "dkv_bound_ms") if row.get(key) is not None)
+    log(f"[lse bwd] {label:22s} {str((BH, i, j, dh)):24s} {str(dtype).split('.')[-1]:8s} "
+        f"dq|d|={errs[0]:.3e} dkv|d|={max(errs[1:]):.3e} (bound ratio {max(ratios):.3f})"
+        f"{times} {'ok' if ok else 'FAIL'}")
+    del q, k, v, bias, out, lse, g, g_lse, dq, dk, dv, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lse_kernels():
+    """B3 at the hop shape of the served SP request (L = 384, 4 shards, flat
+    MSA<-pair cross: 8 (batch x heads) rows of 5 * 96 = 1,920 MSA queries
+    against 96 * 384 = 36,864 pair keys, bf16), timed as the served request
+    gives it (no row fully masked, so the bound counts work the kernel must
+    do); the same shape with one (bh) row whose every key is masked, in f32
+    and at a ragged length, untimed; the backward through lse at the L = 128
+    hop shape (640 x 4,096), timed unmasked, and the same edges."""
+    rows = [
+        check_lse("hop L=384 P=4", 8, 1920, 36864, 64, torch.bfloat16, timed=True),
+        check_lse("hop L=384 P=4 masked row", 8, 1920, 36864, 64, torch.bfloat16,
+                  timed=False, masked_bh=(3,)),
+        check_lse("hop L=128 P=4", 8, 640, 4096, 64, torch.bfloat16, timed=False,
+                  masked_bh=(3,)),
+        check_lse("hop L=128 P=4 f32", 8, 640, 4096, 64, torch.float32, timed=False,
+                  masked_bh=(3,)),
+        check_lse("ragged", 5, 131, 77, 64, torch.bfloat16, timed=False, masked_bh=(1,)),
+        check_lse("ragged f32 dh 16", 5, 131, 77, 16, torch.float32, timed=False,
+                  masked_bh=(1,)),
+    ]
+    bwd = [
+        check_lse_bwd("hop L=128 P=4", 8, 640, 4096, 64, torch.bfloat16, timed=True),
+        check_lse_bwd("hop L=128 P=4 masked row", 8, 640, 4096, 64, torch.bfloat16,
+                      timed=False, masked_bh=(3,)),
+        check_lse_bwd("hop L=128 P=4 f32", 8, 640, 4096, 64, torch.float32, timed=False,
+                      masked_bh=(3,)),
+        check_lse_bwd("ragged", 5, 131, 77, 64, torch.bfloat16, timed=False, masked_bh=(1,)),
+        check_lse_bwd("ragged f32 dh 32", 5, 131, 77, 32, torch.float32, timed=False,
+                      masked_bh=(1,)),
+    ]
+    RECORD["lse_kernels"] = rows + bwd
+    bad = [r for r in rows + bwd if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} B3 check(s) disagree with the plain version: "
+             + ", ".join(f"{r['kernel']} {r['case']}" for r in bad))
+    return rows, bwd
 
 
 # --- phase 3, int8: the quant_matmul kernel against its plain version ---------------
@@ -1269,10 +1465,217 @@ def phase_overfit():
         fail(f"30 steps on one batch did not lower the loss by 0.3: {losses}")
 
 
+# --- phase 7: sequence-parallel serving -------------------------------------------
+
+
+def sp_apply(mesh, schedule="sp_seq"):
+    return functools.partial(alphafold2_apply_sp, mesh=mesh, schedule=schedule)
+
+
+def phase_sp_parity():
+    """(a) f32, dim 64, depth 2, 4 heads of 16, an 8-row MSA, L = 64, the
+    last 5 residues padded: alphafold2_apply_sp over 4 shards on the card
+    (["cuda:0"] * 4) against the same over 4 CPU shards on the same params,
+    and against the port's dense alphafold2_apply on the card, for "sp_seq"
+    and "sp_msa", flat and aligned. Tolerance: logits 1e-4 on valid pairs
+    (section 2's request tolerance: f32 kernels against CPU matmuls and the
+    CPU's dense attention, another summation order)."""
+    L, rows = 64, 8
+    mesh_gpu = make_mesh({"seq": 4}, devices=["cuda:0"] * 4)
+    mesh_cpu = make_mesh({"seq": 4}, devices=["cpu"] * 4)
+    tokens, msa, msa_mask = request_inputs(L, rows, seed=21)
+    mask = np.ones((1, L), bool)
+    mask[:, -5:] = False
+    valid = torch.from_numpy(mask[:, :, None] & mask[:, None, :])
+    results = []
+    for mode in ("flat", "aligned"):
+        cfg = Alphafold2Config(dim=64, depth=2, heads=4, dim_head=16, max_seq_len=L,
+                               max_num_msa=rows, cross_attn_mode=mode)
+        params = {dev: alphafold2_init(cfg, torch.Generator().manual_seed(0), dev)
+                  for dev in ("cuda", "cpu")}
+        with torch.inference_mode():
+            dense = alphafold2_apply(params["cuda"], cfg, tokens, msa, mask=mask,
+                                     msa_mask=msa_mask, device="cuda").cpu()
+            for schedule in ("sp_seq", "sp_msa"):
+                reset_launches()
+                card = sp_apply(mesh_gpu, schedule)(params["cuda"], cfg, tokens, msa,
+                                                    mask=mask, msa_mask=msa_mask)
+                sync()
+                launches = {k: n for k, n in launch_counts().items() if n}
+                cpu = sp_apply(mesh_cpu, schedule)(params["cpu"], cfg, tokens, msa,
+                                                   mask=mask, msa_mask=msa_mask)
+                card = card.cpu()
+                d_cpu = (card - cpu).abs()[valid].max().item()
+                d_dense = (card - dense).abs()[valid].max().item()
+                ok = (d_cpu <= 1e-4 and d_dense <= 1e-4 and bool(torch.isfinite(card).all())
+                      and card.device.type == "cpu" and tuple(card.shape) == (1, L, L, 37))
+                # sp_seq: every trunk layer's MSA<-pair ring, P^2 = 16 hops
+                if schedule == "sp_seq":
+                    ok = ok and launches.get("flash_fwd_lse", 0) == 16 * cfg.depth
+                log(f"[sp a] {mode:7s} {schedule}: card vs cpu logits |d|={d_cpu:.2e}, card sp "
+                    f"vs card dense {d_dense:.2e} (1e-4); launches {launches} "
+                    f"{'ok' if ok else 'FAIL'}")
+                results.append({"mode": mode, "schedule": schedule, "card_vs_cpu": d_cpu,
+                                "sp_vs_dense": d_dense, "launches": launches, "ok": ok})
+    RECORD["phases"]["sp_parity"] = results
+    if not all(r["ok"] for r in results):
+        fail("sequence-parallel forward: card, CPU and dense disagree (phase 7a)")
+
+
+def request_summary(out, L):
+    c = out["coords"][0].double()
+    return {"logits": out["distogram_logits"][0].float(), "confidence": out["confidence"][0],
+            "distances": torch.cdist(c, c), "stress": out["stress"][0],
+            "finite": all(bool(torch.isfinite(v).all()) for v in out.values()),
+            "shapes_ok": tuple(out["coords"].shape) == (1, L, 3)}
+
+
+def phase_sp_request(label, devices):
+    """(b) the served configuration (dim 256, depth 2, heads 8, dim_head 64,
+    bf16, a 20-row MSA, 200 MDS iterations) at L = 384 through
+    predict_structure(model_apply_fn=the SP forward) with 4 shards on
+    `devices`, after one warm-up request of each kind; counts set to 0 just
+    before one SP request and read just after: per trunk layer 5 B1f a
+    shard (pair row and column passes, MSA row and column passes, the
+    gathered pair<-MSA cross) and P^2 = 16 B3 forwards (the MSA<-pair ring).
+    Latency: CUDA events on the first card and the host clock, dense and SP
+    requests in turns (dense, SP, SP, dense).
+
+    Bound against the dense request on the same params: both round their
+    activations to bf16 at every op, in other places (each ring hop's
+    output is rounded before its merge, each shard projects its own rows),
+    so neither is the exact answer. The f32 request on the same params is
+    the yardstick: the SP request's distance from it (logits, confidence,
+    distances) must stay within 1.5x the dense bf16 request's own distance
+    from it, plus 1e-5 (a floor for a distance of 0). The last layer's
+    MSA<-pair ring does not reach the logits (the head reads the pair
+    stream), so this checks half of the B3 launches it counts only for
+    finiteness; B3's agreement rests on phase 3 and on (a) and (c)."""
+    L, P = 384, 4
+    cfg = Alphafold2Config(dim=256, depth=2, heads=8, dim_head=64, max_seq_len=L,
+                           dtype=torch.bfloat16)
+    mesh = make_mesh({"seq": P}, devices=devices)
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), mesh.devices[0])
+    tokens, msa, msa_mask = request_inputs(L, 20, seed=31)
+    kw = dict(msa=msa, msa_mask=msa_mask, mds_iters=200)
+    run_sp = lambda: predict_structure(params, cfg, tokens, model_apply_fn=sp_apply(mesh),  # noqa: E731
+                                       **kw)
+    run_dense = lambda: predict_structure(params, cfg, tokens, device=mesh.devices[0],  # noqa: E731
+                                          **kw)
+    run_dense()
+    run_sp()
+    sync()
+    times = {"dense": [], "sp": []}
+    for kind in ("dense", "sp", "sp", "dense"):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        if kind == "sp":
+            reset_launches()
+            out = run_sp()
+            end.record()
+            for d in set(mesh.devices):
+                torch.cuda.synchronize(d)
+            launches = launch_counts()
+            sp = request_summary(out, L)
+        else:
+            out = run_dense()
+            end.record()
+            sync()
+            dense = request_summary(out, L)
+        times[kind].append({"device_ms": start.elapsed_time(end),
+                            "wall_ms": (time.perf_counter() - t0) * 1e3})
+    f32_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    ref = request_summary(predict_structure(params, f32_cfg, tokens, device=mesh.devices[0],
+                                            **kw), L)
+    sync()
+    expect = {name: 0 for name in launches}
+    expect.update(flash_fwd=5 * P * cfg.depth, flash_fwd_lse=P * P * cfg.depth)
+    d = {}
+    ok = sp["finite"] and sp["shapes_ok"] and launches == expect
+    for key in ("logits", "confidence", "distances"):
+        d_sp = (sp[key] - ref[key]).abs().max().item()
+        d_dense = (dense[key] - ref[key]).abs().max().item()
+        d[key] = {"sp_vs_dense": (sp[key] - dense[key]).abs().max().item(),
+                  "sp_vs_f32": d_sp, "dense_vs_f32": d_dense, "bound": 1.5 * d_dense + 1e-5}
+        ok = ok and d_sp <= d[key]["bound"]
+    row = {"devices": [str(x) for x in mesh.devices], "L": L, "shards": P,
+           "config": repr(cfg), "times": times, "launches": launches, "expected": expect,
+           "diffs": d, "stress": {"sp": float(sp["stress"]), "dense": float(dense["stress"]),
+                                  "f32": float(ref["stress"])}, "ok": bool(ok)}
+    fmt = lambda rs: ", ".join(f"{r['device_ms']:.1f} ms ({r['wall_ms']:.1f} host)" for r in rs)  # noqa: E731
+    log(f"[sp {label}] L={L} bf16 {P} shards on {row['devices']}: SP request {fmt(times['sp'])}; "
+        f"dense {fmt(times['dense'])}; finite={sp['finite']}")
+    for key, v in d.items():
+        log(f"[sp {label}]   {key}: |SP - dense| {v['sp_vs_dense']:.3e}; from the f32 request: "
+            f"SP {v['sp_vs_f32']:.3e}, dense {v['dense_vs_f32']:.3e} (bound {v['bound']:.3e})")
+    log(f"[sp {label}] launches {launches} (expected {expect}) {'ok' if ok else 'FAIL'}")
+    RECORD["phases"][f"sp_request_{label}"] = row
+    if not ok:
+        fail(f"sequence-parallel request {label}: launches, finiteness or agreement failed")
+    return launches
+
+
+def phase_sp_ring_grad():
+    """(c) the gradient of sum(ring_attention(q, k, v)^2) over 4 shards on
+    the card (["cuda:0"] * 4, B3 forward and backward through real merges)
+    against the same over 4 CPU shards (the plain version under autograd),
+    f32, b 1, n 1,024 (256 a shard), 2 heads of 64, the second shard's keys
+    all masked and 5% of the others. Counts set to 0 just before the
+    forward and backward, read after: P^2 = 16 launches of each B3 kernel.
+    Tolerance: out and each gradient 1e-5 * max(1, max|ref|) (f32 on both
+    sides, another summation order)."""
+    P, n, h, dh = 4, 1024, 2, 64
+    gen = torch.Generator().manual_seed(41)
+    q, k, v = (torch.randn(1, n, h, dh, generator=gen) for _ in range(3))
+    mask = torch.rand(1, n, generator=gen) >= 0.05
+    mask[:, n // P:2 * n // P] = False
+    grads, outs = {}, {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_mesh({"seq": P}, devices=[dev] * P)
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        if dev == "cuda":
+            reset_launches()
+        out = mesh.unshard(ring_attention(*(mesh.shard(t, 1) for t in leaves), mesh,
+                                          masks=mesh.shard(mask.to(dev), 1)), 1)
+        grads[dev] = torch.autograd.grad((out ** 2).sum(), leaves)
+        if dev == "cuda":
+            sync()
+            launches = launch_counts()
+        outs[dev] = out.detach().cpu()
+    errs = {"out": (outs["cuda"] - outs["cpu"]).abs().max().item()}
+    ok = errs["out"] <= 1e-5 * max(1.0, outs["cpu"].abs().max().item())
+    for name, gc, gp in zip("qkv", grads["cuda"], grads["cpu"]):
+        errs[f"d{name}"] = (gc.cpu() - gp).abs().max().item()
+        ok = ok and errs[f"d{name}"] <= 1e-5 * max(1.0, gp.abs().max().item())
+        ok = ok and bool(torch.isfinite(gc).all())
+    expect = {name: 0 for name in launches}
+    expect.update(flash_fwd_lse=P * P, flash_bwd_lse_dq=P * P, flash_bwd_lse_dkv=P * P)
+    ok = ok and launches == expect
+    log(f"[sp c] ring attention f32 grad, card vs cpu: {', '.join(f'{k} |d|={e:.2e}' for k, e in errs.items())}; "
+        f"launches {launches} {'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["sp_ring_grad"] = {"errs": errs, "launches": launches, "ok": bool(ok)}
+    if not ok:
+        fail("ring attention's gradient on the card disagrees with the CPU's (phase 7c)")
+    return launches
+
+
+def phase_sp():
+    phase_sp_parity()
+    launches = phase_sp_request("b", ["cuda:0"] * 4)
+    launches.update({k: n for k, n in phase_sp_ring_grad().items() if k.startswith("flash_bwd_lse")})
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        phase_sp_request("d", [f"cuda:{s % cards}" for s in range(4)])
+    else:
+        log(f"[sp d] {cards} card on this host: the SP request over distinct cards is skipped")
+    return {k: launches[k] for k in ("flash_fwd_lse", "flash_bwd_lse_dq", "flash_bwd_lse_dkv")}
+
+
 # --- phase 5: the kernels line -----------------------------------------------------
 
 
-def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, launches):
+def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows, launches):
     """One entry per kernel. Forwards: numbers summed over the serving
     path's three attention shapes at L = 384 in bf16 (one launch of each;
     B2f gated). Backwards: summed over the training path's pair-axial
@@ -1283,9 +1686,13 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, launches):
     each), library torch.matmul on the dequantized bf16 weight. B5: summed
     over the pair-axial shape at L = 384 and the long n = 4096 case, each
     kernel with its own plain version, bound and SDPA yardstick (forward,
-    or the backward for the gradients it produces). Launches: from the
-    main paths' runs (serving for the forwards and B4, training for the
-    backwards)."""
+    or the backward for the gradients it produces). B3: the forward at the
+    SP request's hop shape (L = 384, 4 shards), library the efficient
+    attention call that returns lse; the backward kernels at the L = 128
+    hop shape, each with its own plain version and bound, no library call
+    (none takes an lse cotangent). Launches: from the main paths' runs
+    (serving for the forwards and B4, training for the backwards; B3's
+    forward from the SP request, its backward from the ring's gradient)."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r
@@ -1361,6 +1768,38 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, launches):
             >= sum(r[f"{kind}_bytes_ms"] for r in timed) else "bytes",
             "library_ms": None if any(x is None for x in lib) else sum(lib),
         })
+    timed = [r for r in lse_rows if "kernel_ms" in r]
+    lib = [r["library_ms"] for r in timed]
+    out.append({
+        "name": "flash_fwd_lse",
+        "route": "cuda",
+        "source": SOURCES["flash_fwd"],
+        "replaces": REPLACES["flash_fwd_lse"],
+        "launches": launches["flash_fwd_lse"],
+        "max_abs_err": max(r["max_abs_err"] for r in lse_rows),
+        "ms": sum(r["kernel_ms"] for r in timed),
+        "plain_ms": sum(r["plain_ms"] for r in timed),
+        "bound_ms": sum(r["bound_ms"] for r in timed),
+        "bound_by": "operations" if sum(r["ops_ms"] for r in timed)
+        >= sum(r["bytes_ms"] for r in timed) else "bytes",
+        "library_ms": None if any(x is None for x in lib) else sum(lib),
+    })
+    timed = [r for r in lse_bwd_rows if "dq_ms" in r]
+    for name, side in (("flash_bwd_lse_dq", "dq"), ("flash_bwd_lse_dkv", "dkv")):
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": SOURCES["flash_bwd"],
+            "replaces": REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": max(r[f"{side}_err"] for r in lse_bwd_rows),
+            "ms": sum(r[f"{side}_ms"] for r in timed),
+            "plain_ms": sum(r[f"{side}_plain_ms"] for r in timed),
+            "bound_ms": sum(r[f"{side}_bound_ms"] for r in timed),
+            "bound_by": "operations" if sum(r[f"{side}_ops_ms"] for r in timed)
+            >= sum(r[f"{side}_bytes_ms"] for r in timed) else "bytes",
+            "library_ms": None,
+        })
     return out
 
 
@@ -1381,9 +1820,12 @@ def main():
     bwd_rows = timed_phase("bwd_kernels", phase_bwd_kernels)
     quant_rows = timed_phase("quant_kernels", phase_quant_kernels)
     sparse_rows = timed_phase("sparse_kernels", phase_sparse_kernels)
+    lse_rows, lse_bwd_rows = timed_phase("lse_kernels", phase_lse_kernels)
     launches = timed_phase("main", phase_main)
     launches.update(timed_phase("train", phase_train))
-    kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, launches)
+    launches.update(timed_phase("sp", phase_sp))
+    kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
+                           launches)
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")

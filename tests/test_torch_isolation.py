@@ -48,7 +48,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     for name in ("train_pre", "training.harness", "training.losses", "training.data",
                  "utils.flops", "telemetry.profiling", "ops.dispatch", "ops.quant",
                  "ops.quant_kernel", "ops.sparse", "ops.sparse_kernel",
-                 "serving.quant_residency"):
+                 "serving.quant_residency", "parallel", "parallel.mesh",
+                 "parallel.sequence", "parallel.sp_trunk"):
         assert f"alphafold2_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -149,6 +150,10 @@ def test_profiling_needs_a_card_and_sorts_kernels(no_cuda):
     assert profiling.kernel_kind("quant_matmul_bf16_kernel").startswith("int8")
     with pytest.raises(SystemExit):
         profiling.main(["--train", "--int8"])
+    with pytest.raises(SystemExit):
+        profiling.main(["--train", "--sp-shards", "4"])
+    with pytest.raises(SystemExit, match="CUDA device"):
+        profiling.main(["--sp-shards", "4", "--length", "8"])
 
 
 def test_params_on_another_device_are_refused():

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card: the
-flash-attention kernels (B1, B2), the int8 product (B4) and the
-block-sparse attention kernels (B5).
+flash-attention kernels (B1, B2), the int8 product (B4), the
+block-sparse attention kernels (B5) and the lse flash kernels of the ring
+hops (B3), with ring attention over 4 shards on one card against 4 CPU
+shards.
 
 These tests need a CUDA device and skip on a host without one (the
 kernels have no CPU mode). They import only torch and the port, so they
@@ -345,3 +347,114 @@ def test_sparse_dropout_raises_on_card(cuda_device, monkeypatch):
                              sparse_self_attn=True, attn_dropout=0.1)
     with pytest.raises(ValueError, match="make_train_step: sparse_self_attn"):
         harness.make_train_step(model, harness.TrainConfig(grad_accum=1), device=cuda_device)
+
+
+# --- B3: the lse flash kernels of the ring hops ----------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lse_kernels_match_plain_on_card(cuda_device, dh, dtype):
+    """B3: `flash_fwd_lse` against flash_fwd_plain (tolerances as the B1
+    forward's) and `flash_bwd_lse` with a random lse cotangent against
+    `flash_bwd_lse_plain` (f32 1e-5 * max(1, max|ref|); bf16 the elementwise
+    `chip_smoke.flash_bwd_bf16_bound` with g_lse). The fully masked (bh) row
+    4 gives zeros, lse = +inf and zero gradients whatever its g_lse."""
+    BH, i, j = 6, 200, 77
+    q, k, v, bias = folded_inputs(BH, i, j, dh, cuda_device, masked_bh=(4,))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    scale = dh ** -0.5
+    before = dict(flash_kernel.LAUNCHES)
+    out, lse = flash_kernel.flash_fwd_lse(q, k, v, bias, scale)
+    g = torch.randn_like(q)
+    g_lse = torch.randn(lse.shape, device=cuda_device)
+    dq, dk, dv = flash_kernel.flash_bwd_lse(q, k, v, bias, out, lse, g, g_lse, scale)
+    torch.cuda.synchronize()
+    for name in ("flash_fwd_lse", "flash_bwd_lse_dq", "flash_bwd_lse_dkv"):
+        assert flash_kernel.LAUNCHES[name] == before[name] + 1
+    ref_out, ref_lse = flash_kernel.flash_fwd_plain(q, k, v, bias, scale)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * ref_out.float().abs().max().item()
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert torch.equal(torch.isposinf(lse), torch.isposinf(ref_lse))
+    fin = torch.isfinite(ref_lse)
+    assert (lse[fin] - ref_lse[fin]).abs().max().item() <= 1e-4
+    ref = flash_kernel.flash_bwd_lse_plain(q, k, v, bias, out, lse, g, g_lse, scale)
+    if dtype == torch.float32:
+        bounds = [1e-5 * max(1.0, r.abs().max().item()) for r in ref]
+    else:
+        from chip_smoke import flash_bwd_bf16_bound
+
+        bounds = flash_bwd_bf16_bound(q, k, v, bias, out, lse, g, scale, g_lse=g_lse)
+    for got, want, bound in zip((dq, dk, dv), ref, bounds):
+        assert torch.isfinite(got).all()
+        assert ((got.float() - want.float()).abs() <= bound).all()
+        assert (got[4] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_attention_on_card_matches_cpu_shards(cuda_device, dtype):
+    """ring_attention over 4 shards on one card (["cuda:0"] * 4: every hop
+    through B3, every merge and ppermute real) against 4 CPU shards (the
+    plain version under autograd): output and the gradient of
+    sum(out^2), one shard's keys fully masked. f32: 1e-5 * max(1,
+    max|ref|); bf16 (inputs rounded once, compared with the CPU's f32 on
+    the same rounded inputs): each hop's output is rounded to bf16 before
+    its merge and the kernels round P (and dS) to bf16, so 2^-5 of the
+    largest output and of each largest gradient."""
+    from alphafold2_tpu_torch.parallel import make_mesh, ring_attention
+
+    P, n = 4, 256
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(1, n, 2, 64, generator=gen).to(dtype).float() for _ in range(3))
+    mask = torch.rand(1, n, generator=gen) >= 0.1
+    mask[:, n // P:2 * n // P] = False
+    res = {}
+    for dev, dt in (("cuda", dtype), ("cpu", torch.float32)):
+        mesh = make_mesh({"seq": P}, devices=[dev] * P)
+        leaves = [x.to(dev, dt).requires_grad_() for x in (q, k, v)]
+        if dev == "cuda":
+            before = dict(flash_kernel.LAUNCHES)
+        out = mesh.unshard(ring_attention(*(mesh.shard(x, 1) for x in leaves), mesh,
+                                          masks=mesh.shard(mask.to(dev), 1)), 1)
+        grads = torch.autograd.grad((out.float() ** 2).sum(), leaves)
+        res[dev] = [t.detach().float().cpu() for t in (out,) + grads]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            for name in ("flash_fwd_lse", "flash_bwd_lse_dq", "flash_bwd_lse_dkv"):
+                assert flash_kernel.LAUNCHES[name] == before[name] + P * P
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -5
+    for got, want in zip(res["cuda"], res["cpu"]):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= rel * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_ring_on_card_raises_instead_of_falling_back(cuda_device, monkeypatch):
+    """A CUDA tensor on the ring reaches B3 or raises: with the plain
+    forward made to fail, the kernel still carries the hops; with the
+    launch refused, the ring raises; a head width the kernel lacks raises
+    a ValueError naming it."""
+    from alphafold2_tpu_torch.parallel import make_mesh, ring_attention
+
+    def plain_called(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    def refused(*args, **kwargs):
+        raise RuntimeError("kernel refused")
+
+    monkeypatch.setattr(flash_kernel, "flash_fwd_plain", plain_called)
+    monkeypatch.setattr(flash_kernel, "flash_bwd_lse_plain", plain_called)
+    mesh = make_mesh({"seq": 2}, devices=[cuda_device] * 2)
+    q = torch.randn(1, 32, 2, 16, device=cuda_device, requires_grad=True)
+    out = mesh.unshard(ring_attention(mesh.shard(q, 1), mesh.shard(q, 1), mesh.shard(q, 1),
+                                      mesh), 1)
+    out.sum().backward()
+    assert torch.isfinite(q.grad).all()
+    with pytest.raises(ValueError, match="merge_lse"):
+        x = torch.randn(1, 32, 2, 8, device=cuda_device)
+        ring_attention(mesh.shard(x, 1), mesh.shard(x, 1), mesh.shard(x, 1), mesh)
+    monkeypatch.setattr(flash_kernel, "_lib", refused)
+    with pytest.raises(RuntimeError, match="refused"):
+        ring_attention(mesh.shard(q, 1), mesh.shard(q, 1), mesh.shard(q, 1), mesh)
