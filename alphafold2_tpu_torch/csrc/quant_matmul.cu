@@ -9,26 +9,53 @@
 // accumulator once in the epilogue, and the result is cast once. No
 // dequantized weight ever exists in device memory.
 //
-// What bounds it on an H100: 2 * m * k * n operations against m * k * el +
-// k * n + 4 * n + m * n * el bytes. At the trunk's dense layers (m = the
-// pair grid's 147,456 tokens, k and n 256 to 2,048) the work is bound by
-// operations for the wide layers and by the activations' bytes for the
-// narrow ones; the int8 weight is a small share either way.
+// What bounds it on an H100: 2 * m * k * n operations at 989 TFLOP/s against
+// m * k * 2 + k * n + 4 * n + m * n * 2 bytes at 3.35 TB/s. At every shape the
+// served int8 request gives it (m = the pair grid's 147,456 tokens or the
+// MSA's 7,680, k and n 256 to 2,048) the bytes bound it: x and y are nearly
+// all of them, the int8 weight (at most 512 KB) a small share. So the design
+// is about moving x and y once, at full width, while the tensor cores keep up.
 //
-// bf16: a block of 8 warps computes a 128 x 128 output tile, each warp a
-// 64 x 32 slab of `mma.sync.m16n8k16` tiles (bf16 in, f32 accumulate,
-// mma_bf16.cuh). 32-deep steps stream the x tile (bf16) and the weight
-// tile (int8, as stored) through two shared-memory buffers with cp.async,
-// the next step's copies in flight while the current one computes; each
-// thread casts its B fragments from int8 to bf16 in registers. The ragged
-// edges of m, k and n are masked in the kernel (zero-filled copies), never
-// padded in device memory as `quant_matmul_tpu` pads; rows that are not
-// 16-byte aligned are copied element by element. wgmma and TMA are the
-// next step.
+// Three kernels, one per route (`ops/quant_kernel.py route`):
+//
+// wgmma (bf16; k % 8 == 0, n % 16 == 0, 16-byte aligned x, q and y, which is
+// every served shape): persistent blocks, one per SM, each walking 128 x 256
+// output tiles. The tile index runs along n first, and block b takes tiles
+// b, b + grid, ...: the blocks running at one time share a few m tiles, so x
+// crosses device memory once and its re-reads for the other n tiles hit L2,
+// and the weight stays in L2 for the whole call. Warp 0 issues TMA loads of
+// the x chunk (128 x 64 bf16, 128-byte swizzle) and the int8 weight chunk
+// (64 x 256, as stored) into a 4-stage ring, with full and empty mbarriers.
+// Warps 1-3 dequantize each weight chunk in shared memory, as the TPU kernel
+// does on its VMEM tile: 8 bytes a lane, converted exactly (a byte-permute
+// into the mantissa of 2^23, one subtraction, the f32's upper half is the
+// bf16), written 16 bytes a lane as the MN-major, 128-byte-swizzled B operand
+// of wgmma (n contiguous, as the weight is stored; the transpose bit set),
+// then fence.proxy.async before the wgmma reads it, into a 2-stage bf16 ring.
+// Two consumer warpgroups each run wgmma.mma_async m64n256k16 (bf16 in, f32
+// accumulate, 128 registers a thread) over their 64 rows, one chunk's four
+// k steps in flight while the previous chunk's slots are released. The
+// epilogue scales the f32 accumulator, casts once, stages 64 x 64 boxes in
+// swizzled shared memory (conflict-free) and writes them with TMA stores,
+// whose reads overlap the next box; the ring keeps loading the next tile
+// meanwhile. TMA zero-fills the ragged m, k and n edges on load and clips
+// them on store: nothing is padded in device memory. The descriptors are
+// encoded on the host at each call (cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint, so nothing links libcuda).
+//
+// cp_async (bf16 shapes the TMA rules refuse, e.g. k or n not a multiple of
+// 8 or 16, or a misaligned base): a block of 8 warps computes a 128 x 128
+// output tile, each warp a 64 x 32 slab of `mma.sync.m16n8k16` tiles
+// (mma_bf16.cuh). 32-deep steps stream the x tile and the int8 weight tile
+// through two shared-memory buffers with cp.async; each thread casts its B
+// fragments from int8 to bf16 in registers. Ragged edges are zero-filled
+// copies masked in the kernel; rows that are not 16-byte aligned are copied
+// element by element.
 //
 // f32: a 64 x 64 tile a block on the CUDA cores, 4 x 4 outputs a thread,
 // f32 FMAs (the tensor cores would round to TF32).
 
+#include <cuda.h>  // CUtensorMap and its enums only: no driver symbol is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -41,7 +68,7 @@ namespace {
 using af2::mma_bf16;
 using af2::pack_bf16;
 
-// --- bf16: tensor cores ----------------------------------------------------
+// --- bf16, the cp_async route: mma.sync ------------------------------------
 
 constexpr int kBM = 128;
 constexpr int kBN = 128;
@@ -270,13 +297,368 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// --- bf16, the wgmma route: TMA, wgmma, persistent blocks --------------------
+
+constexpr int kWM = 128;     // output tile rows: two consumer warpgroups of 64
+constexpr int kWN = 256;     // output tile columns: one m64n256k16 a k step
+constexpr int kWK = 64;      // k a stage: one 128-byte swizzle row of bf16
+constexpr int kStages = 4;   // TMA ring: an x chunk and an int8 weight chunk a stage
+constexpr int kBStages = 2;  // ring of dequantized (bf16) weight chunks
+constexpr int kDequantWarps = 3;   // warps 1-3; warp 0 issues the TMA loads
+constexpr int kConsumerWarps = 8;  // warpgroups 1 and 2
+constexpr int kWThreads = 32 * (1 + kDequantWarps + kConsumerWarps);
+constexpr int kXBytes = kWM * kWK * 2;  // 16 KB
+constexpr int kQBytes = kWK * kWN;      // 16 KB of int8
+constexpr int kBBytes = kWK * kWN * 2;  // 32 KB of bf16: 4 column chunks of 64 x 128 B
+constexpr int kYBox = 64;               // epilogue store box: 64 x 64 bf16
+constexpr int kYBytes = kYBox * kYBox * 2;
+constexpr int kSmemQ = kStages * kXBytes;
+constexpr int kSmemB = kSmemQ + kStages * kQBytes;
+constexpr int kSmemY = kSmemB + kBStages * kBBytes;  // 2 buffers a consumer warpgroup
+constexpr int kSmemBar = kSmemY + 4 * kYBytes;
+constexpr int kWSmemBytes = kSmemBar + 16 * (kStages + kBStages) + 1024;  // + alignment
+static_assert(kWSmemBytes <= 232448, "over the 227 KB a block may use");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+               ::"l"((uint64_t)map), "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// generic-proxy writes to shared memory, made visible to the async proxy
+// (wgmma operand reads, TMA stores)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one of the two consumer warpgroups' own barrier (0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint2 lo, uint2 hi) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(lo.x), "r"(lo.y),
+               "r"(hi.x), "r"(hi.y)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// four int8 (one word) -> four bf16 (two words), exactly: each byte, offset
+// by 128, becomes the low mantissa byte of 2^23; less 2^23 + 128 that is q
+// in f32, and |q| <= 128 has at most 8 significant bits, so the f32's upper
+// half is q in bf16
+__device__ __forceinline__ uint2 bf16x4_of_int8x4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
+  return make_uint2(__byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632),
+                    __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632));
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle (atoms of 8 rows x
+// 128 B, 1024-byte aligned). K-major A: sbo = the stride of 8-row groups
+// along m (lbo unused). MN-major B: lbo = the stride of 64-column chunks
+// along n, sbo = the stride of 8-row groups along k.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads across a wgmma wait
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define AF2_D8(i)                                                                \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 256 f32, 128 a thread) += A (64 x 16 bf16, K-major) . B (16 x 256
+// bf16, MN-major: the transpose bit), both from shared memory; scale_d = 0
+// overwrites d
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : AF2_D8(0), AF2_D8(8), AF2_D8(16), AF2_D8(24), AF2_D8(32), AF2_D8(40), AF2_D8(48),
+        AF2_D8(56), AF2_D8(64), AF2_D8(72), AF2_D8(80), AF2_D8(88), AF2_D8(96), AF2_D8(104),
+        AF2_D8(112), AF2_D8(120)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+#undef AF2_D8
+
+__global__ void __launch_bounds__(kWThreads, 1)
+    quant_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                              const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_y,
+                              const float* __restrict__ scale, int m, int n, int tiles_n,
+                              int tiles, int kchunks) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms are 1024-byte aligned
+  const uint8_t* const smem = smem_raw + (base - raw);
+  const uint32_t bars = base + kSmemBar;
+  auto full = [&](int s) { return bars + 8 * s; };                  // TMA landed
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };     // x and q read
+  auto bfull = [&](int t) { return bars + 8 * (2 * kStages + t); };  // bf16 written
+  auto bempty = [&](int t) { return bars + 8 * (2 * kStages + kBStages + t); };
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumerWarps + kDequantWarps);
+    }
+    for (int t = 0; t < kBStages; ++t) {
+      mbar_init(bfull(t), kDequantWarps);
+      mbar_init(bempty(t), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // the producer: keeps the ring's TMA loads in flight
+    if (lane == 0) {
+      int c = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * kWM;
+        const int n0 = tile % tiles_n * kWN;
+        for (int kc = 0; kc < kchunks; ++kc, ++c) {
+          const int s = c % kStages;
+          mbar_wait(empty(s), ((c / kStages) & 1) ^ 1);
+          mbar_expect_tx(full(s), kXBytes + kQBytes);
+          tma_load_2d(base + s * kXBytes, &tm_x, full(s), kc * kWK, m0);
+          tma_load_2d(base + kSmemQ + s * kQBytes, &tm_q, full(s), n0, kc * kWK);
+        }
+      }
+    }
+  } else if (warp <= kDequantWarps) {
+    // dequantization: int8 chunk (64 x 256, as stored) -> bf16 B operand.
+    // A lane converts 8 bytes of a row; its 16 bytes of bf16 land in column
+    // chunk lane / 8, unit lane % 8 XOR (row % 8): conflict-free stores
+    const int dw = warp - 1;
+    int c = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      for (int kc = 0; kc < kchunks; ++kc, ++c) {
+        const int s = c % kStages;
+        const int t = c % kBStages;
+        mbar_wait(full(s), (c / kStages) & 1);
+        mbar_wait(bempty(t), ((c / kBStages) & 1) ^ 1);
+        const uint8_t* q = smem + kSmemQ + s * kQBytes + lane * 8;
+        const uint32_t b = base + kSmemB + t * kBBytes + (lane / 8) * (kWK * 128);
+        for (int r = dw; r < kWK; r += kDequantWarps) {
+          const uint2 w = *reinterpret_cast<const uint2*>(q + r * kWN);
+          st_shared_v4(b + r * 128 + (((lane % 8) ^ (r % 8)) * 16), bf16x4_of_int8x4(w.x),
+                       bf16x4_of_int8x4(w.y));
+        }
+        fence_async_smem();
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(bfull(t));
+          mbar_arrive(empty(s));
+        }
+      }
+    }
+  } else {
+    // the consumers: warpgroup wg computes rows 64 wg .. 64 wg + 63 of a tile
+    const int wg = warp / 4 - 1;
+    const int tid = threadIdx.x % 128;
+    const int r0 = (warp % 4) * 16 + lane / 4;  // the thread's rows r0, r0 + 8 of its 64
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    auto release = [&](int c) {
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(empty(c % kStages));
+        mbar_arrive(bempty(c % kBStages));
+      }
+    };
+    int c = 0;
+    int stores = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / tiles_n * kWM;
+      const int n0 = tile % tiles_n * kWN;
+      for (int kc = 0; kc < kchunks; ++kc, ++c) {
+        const int s = c % kStages;
+        const int t = c % kBStages;
+        mbar_wait(full(s), (c / kStages) & 1);
+        mbar_wait(bfull(t), (c / kBStages) & 1);
+        const uint32_t xa = base + s * kXBytes + wg * (64 * 128);
+        const uint32_t ba = base + kSmemB + t * kBBytes;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kWK / 16; ++ks) {
+          wgmma_m64n256k16(acc, gmma_desc(xa + 32 * ks, 16, 1024),
+                           gmma_desc(ba + 2048 * ks, kWK * 128, 1024), (kc | ks) != 0);
+        }
+        wgmma_commit();
+        if (kc > 0) {
+          wgmma_wait<1>();  // the previous chunk's products are done: free its slots
+          release(c - 1);
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      release(c - 1);
+
+      // epilogue: scale the f32 sums, cast once, stage 64 x 64 boxes in
+      // swizzled shared memory, store each with TMA (clipped at m and n)
+      if (m0 + wg * 64 < m) {
+        const uint32_t ybuf = base + kSmemY + wg * 2 * kYBytes;
+#pragma unroll
+        for (int ch = 0; ch < kWN / kYBox; ++ch) {
+          if (n0 + ch * kYBox < n) {
+            const uint32_t yb = ybuf + (stores & 1) * kYBytes;
+            if (tid == 0 && stores >= 2) {
+              // the store that last read this buffer is done reading it
+              asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+            }
+            warpgroup_sync(1 + wg);
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+              const int j = ch * 8 + jj;
+              const int col = n0 + 8 * j + 2 * (lane % 4);
+              const float s0 = col < n ? __ldg(scale + col) : 0.f;
+              const float s1 = col < n ? __ldg(scale + col + 1) : 0.f;  // n is even
+              const uint32_t at = yb + r0 * 128 + ((jj ^ (r0 % 8)) * 16) + (lane % 4) * 4;
+              st_shared_u32(at, pack_bf16(acc[4 * j] * s0, acc[4 * j + 1] * s1));
+              st_shared_u32(at + 8 * 128, pack_bf16(acc[4 * j + 2] * s0, acc[4 * j + 3] * s1));
+            }
+            fence_async_smem();
+            warpgroup_sync(1 + wg);
+            if (tid == 0) tma_store_2d(&tm_y, yb, n0 + ch * kYBox, m0 + wg * 64);
+            ++stores;
+          }
+        }
+      }
+    }
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) matrix of `el`-byte elements, cut in (box_rows,
+// box_cols) boxes
+bool encode_2d(EncodeTiledFn encode, CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+               int64_t rows, int64_t cols, int el, int box_rows, int box_cols,
+               CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(cols * el)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 extern "C" {
 
-// B4. x (m, k) f32 or bf16, row-major; qw (k, n) int8, row-major; scale
-// (n,) f32; y (m, n) in x's type. Returns the CUDA error code of the launch
-// (0 = launched).
+// B4, the cp_async (bf16) and f32 routes. x (m, k) f32 or bf16, row-major;
+// qw (k, n) int8, row-major; scale (n,) f32; y (m, n) in x's type. Returns
+// the CUDA error code of the launch (0 = launched).
 int af2_quant_matmul(const void* x, const void* qw, const void* scale,
                      void* y, int64_t m, int64_t k, int64_t n, int is_bf16,
                      void* stream_ptr) {
@@ -297,6 +679,46 @@ int af2_quant_matmul(const void* x, const void* qw, const void* scale,
         (const float*)x, (const int8_t*)qw, (const float*)scale, (float*)y, m,
         k, n);
   }
+  return (int)cudaGetLastError();
+}
+
+// B4, the wgmma route. x (m, k) bf16, row-major; qw (k, n) int8, row-major;
+// scale (n,) f32; y (m, n) bf16. Takes k % 8 == 0, n % 16 == 0 and x, qw, y
+// 16-byte aligned (TMA's 16-byte strides and bases). Returns the CUDA error
+// code of the launch (0 = launched).
+int af2_quant_matmul_wgmma(const void* x, const void* qw, const void* scale, void* y, int64_t m,
+                           int64_t k, int64_t n, void* stream_ptr) {
+  if (m <= 0 || k <= 0 || n <= 0 || k % 8 != 0 || n % 16 != 0 || m > 2147483647LL ||
+      k > 2147483647LL || n > 2147483647LL ||
+      ((uintptr_t)x | (uintptr_t)qw | (uintptr_t)y) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_x, tm_q, tm_y;
+  if (!encode_2d(encode, &tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, m, k, 2, kWM, kWK,
+                 CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_2d(encode, &tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, qw, k, n, 1, kWK, kWN,
+                 CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode_2d(encode, &tm_y, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, y, m, n, 2, kYBox, kYBox,
+                 CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(quant_matmul_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmemBytes);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int64_t tiles_n = (n + kWN - 1) / kWN;
+  const int64_t tiles = (m + kWM - 1) / kWM * tiles_n;
+  if (tiles > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  quant_matmul_wgmma_kernel<<<grid, kWThreads, kWSmemBytes, (cudaStream_t)stream_ptr>>>(
+      tm_x, tm_q, tm_y, (const float*)scale, (int)m, (int)n, (int)tiles_n, (int)tiles,
+      (int)((k + kWK - 1) / kWK));
   return (int)cudaGetLastError();
 }
 

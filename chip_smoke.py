@@ -16,7 +16,10 @@ each phase prints its seconds):
      the flash forwards at the serving shapes (L = 384), the flash
      backwards (B1b ungated, B2b gated, one 2-D-bias case) at the training
      shapes (pair axial at L = 128 and 256); the int8 product (B4) at the
-     served int8 request's ten dense-layer shapes (L = 384); the
+     served int8 request's ten dense-layer shapes (L = 384), all on its
+     wgmma route, and at edge cases of each route (wgmma: ragged m, n = 16
+     with one row, k = 1024; cp_async: ragged (m, k, n), a misaligned x,
+     n = 8; f32), each row naming its route; the
      block-sparse forward and backward (B5) at the sparse request's pair
      axial shape (L = 384) and at n = 4096, plus block sizes 32-128, head
      widths 16 and 32, f32 and a ragged length; the lse flash kernel (B3)
@@ -36,7 +39,8 @@ each phase prints its seconds):
      (c) the same with attn_gate=True at depth 1, where the fused kernel
          carries every attention;
      (d) the same with int8 weights through `resident_params`: 22 int8
-         products a trunk layer, the flash launches unchanged;
+         products a trunk layer, every one on B4's wgmma route (none on
+         cp_async), the flash launches unchanged;
      (e) the same with sparse_self_attn=(True, False): 2 sparse and 10
          flash forwards a request;
      (f) the int8 model against the f32 model on its dequantized weights;
@@ -814,10 +818,12 @@ QUANT_SHAPES = {
 }
 
 
-def check_quant(label, m, k, n, dtype, *, timed, per_tensor=False):
+def check_quant(label, m, k, n, dtype, *, timed, per_tensor=False, misaligned=False):
     """quant_matmul on the card against quant_matmul_plain, elementwise
     within `quant_bound`; channel n // 2 is all zero (scale 0: exact
-    zeros out)."""
+    zeros out). The row names the route the call took (`route`), and the
+    launch must count under it. `misaligned`: x is a contiguous view
+    starting 2 bytes past a 16-byte boundary (TMA cannot address it)."""
     g = torch.Generator(device="cuda").manual_seed(m + n)
     w = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
     w[:, n // 2] = 0.0
@@ -825,11 +831,18 @@ def check_quant(label, m, k, n, dtype, *, timed, per_tensor=False):
     scale = scale.reshape(-1).expand(n).contiguous()
     x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
     del w
-    before = quant_kernel.LAUNCHES["quant_matmul"]
+    if misaligned:
+        buf = torch.empty(m * k + 8, dtype=dtype, device="cuda")
+        buf[1:1 + m * k] = x.reshape(-1)
+        x = buf[1:1 + m * k].view(m, k)
+    which = quant_kernel.route(x, qw)
+    before = dict(quant_kernel.LAUNCHES)
     y = quant.quant_matmul(x, qw, scale)
     sync()
-    if quant_kernel.LAUNCHES["quant_matmul"] != before + 1:
-        fail("quant_matmul did not count its launch")
+    counted = {name: n - before[name] for name, n in quant_kernel.LAUNCHES.items()}
+    if counted != {name: int(name in ("quant_matmul", f"quant_matmul_{which}"))
+                   for name in counted}:
+        fail(f"quant_matmul did not count one launch on its {which} route: {counted}")
     ref = quant_kernel.quant_matmul_plain(x, qw, scale)
     bound = quant_bound(x, qw, scale, ref)
     diff = (y.float() - ref.float()).abs()
@@ -837,7 +850,7 @@ def check_quant(label, m, k, n, dtype, *, timed, per_tensor=False):
     err, worst = diff.max().item(), ratio.max().item()
     ok = worst <= 1.0 and bool(torch.isfinite(y).all()) and bool((y[:, n // 2] == 0).all())
     row = {"kernel": "quant_matmul", "case": label, "shape": [m, k, n], "dtype": str(dtype),
-           "max_abs_err": err, "bound_ratio": worst, "ok": bool(ok)}
+           "route": which, "max_abs_err": err, "bound_ratio": worst, "ok": bool(ok)}
     del bound, diff, ratio, ref
     if timed:
         el = x.element_size()
@@ -853,21 +866,32 @@ def check_quant(label, m, k, n, dtype, *, timed, per_tensor=False):
     times = "".join(f" {key}={row[key]:.3f}" for key in
                     ("kernel_ms", "plain_ms", "library_ms", "bound_ms") if key in row)
     log(f"[quant] {label:18s} {str((m, k, n)):22s} {str(dtype).split('.')[-1]:8s} "
-        f"max|d|={err:.3e} (bound ratio {worst:.3f}){times} {'ok' if ok else 'FAIL'}")
+        f"{which:8s} max|d|={err:.3e} (bound ratio {worst:.3f}){times} "
+        f"{'ok' if ok else 'FAIL'}")
     del x, qw, scale, y
     torch.cuda.empty_cache()
     return row
 
 
 def phase_quant_kernels():
-    """B4 at the served int8 request's bf16 shapes (L = 384) and at edge
-    cases: ragged (m, k, n), f32, a per-tensor scale. Tolerance
-    (`quant_bound`): k * 2^-24 * s * sum |x||q| per output, plus one bf16
-    ulp of the output in bf16."""
+    """B4 at the served int8 request's bf16 shapes (L = 384), which must
+    take the wgmma route, and at edge cases: on the wgmma route a ragged m,
+    n = 16 with one row, k = 1024 with a ragged m; on the cp_async route a
+    ragged (m, k, n), a misaligned x and one row of n = 8; f32 and a
+    per-tensor scale. Tolerance (`quant_bound`): k * 2^-24 * s * sum |x||q|
+    per output, plus one bf16 ulp of the output in bf16."""
     rows = [check_quant(label, m, k, n, torch.bfloat16, timed=True)
             for label, (m, k, n) in QUANT_SHAPES.items()]
+    served = [r for r in rows if r["route"] != "wgmma"]
+    if served:
+        fail("served shapes off the wgmma route: " + ", ".join(r["case"] for r in served))
     rows += [
+        check_quant("ragged m", 1000, 256, 512, torch.bfloat16, timed=False),
+        check_quant("n 16, one row", 1, 256, 16, torch.bfloat16, timed=False),
+        check_quant("k 1024 ragged m", 1000, 1024, 256, torch.bfloat16, timed=False),
         check_quant("ragged", 1000, 200, 300, torch.bfloat16, timed=False),
+        check_quant("misaligned x", 1000, 256, 512, torch.bfloat16, timed=False,
+                    misaligned=True),
         check_quant("ragged f32", 1000, 200, 300, torch.float32, timed=False),
         check_quant("per-tensor scale", 1000, 200, 300, torch.bfloat16, timed=False,
                     per_tensor=True),
@@ -1215,7 +1239,7 @@ def phase_main():
     f32 = Alphafold2Config(dim=256, depth=2, heads=8, dim_head=64, max_seq_len=64)
     cpu_vs_card("a", f32, 64, {"flash_fwd": 12})
     cpu_vs_card("a int8", dataclasses.replace(f32, weight_dtype="int8"), 64,
-                {"flash_fwd": 12, "quant_matmul": 44})
+                {"flash_fwd": 12, "quant_matmul": 44, "quant_matmul_f32": 44})
     # max_seq_len 128: 75% of the 8 blocks active
     cpu_vs_card("a sparse", dataclasses.replace(f32, max_seq_len=128,
                                                 sparse_self_attn=(True, False)), 128,
@@ -1229,18 +1253,21 @@ def phase_main():
     gated_cfg = dataclasses.replace(cfg, depth=1, attn_gate=True)
     gated = serve_requests("c", gated_cfg, lengths, {"flash_fwd_fused": 6 * len(lengths)})
     # int8: 22 dense layers a trunk layer (6 pair axial, 6 MSA axial, 3 + 3
-    # cross, 2 + 2 feed-forward); the attention kernels unchanged
+    # cross, 2 + 2 feed-forward), every one on the wgmma route; the
+    # attention kernels unchanged
     int8_cfg = dataclasses.replace(cfg, weight_dtype="int8")
     int8 = serve_requests("d", int8_cfg, lengths,
                           {"flash_fwd": 6 * 2 * len(lengths),
-                           "quant_matmul": 22 * 2 * len(lengths)})
+                           "quant_matmul": 22 * 2 * len(lengths),
+                           "quant_matmul_wgmma": 22 * 2 * len(lengths)})
     # sparse layer 0: its 2 pair axial passes go sparse, the other 10 stay flash
     sparse_cfg = dataclasses.replace(cfg, sparse_self_attn=(True, False))
     sparse_run = serve_requests("e", sparse_cfg, lengths,
                                 {"flash_fwd": 10 * len(lengths), "sparse_fwd": 2 * len(lengths)})
     phase_int8_vs_f32(int8_cfg, 128)
     return {"flash_fwd": served["flash_fwd"], "flash_fwd_fused": gated["flash_fwd_fused"],
-            "quant_matmul": int8["quant_matmul"], "sparse_fwd": sparse_run["sparse_fwd"]}
+            "quant_matmul_wgmma": int8["quant_matmul_wgmma"],
+            "sparse_fwd": sparse_run["sparse_fwd"]}
 
 
 # --- phase 6: the training path ---------------------------------------------------
@@ -1683,7 +1710,10 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     the time of its own kernel, its own plain version, its own bound, and
     the SDPA backward for the gradients it produces). B4: summed over the
     served int8 request's ten dense-layer shapes at L = 384 (one launch of
-    each), library torch.matmul on the dequantized bf16 weight. B5: summed
+    each, all on the wgmma route: the row is that route's, its launches
+    the main path's wgmma-route launches; max_abs_err over every checked
+    case of both bf16 routes and f32), library torch.matmul on the
+    dequantized bf16 weight. B5: summed
     over the pair-axial shape at L = 384 and the long n = 4096 case, each
     kernel with its own plain version, bound and SDPA yardstick (forward,
     or the backward for the gradients it produces). B3: the forward at the
@@ -1740,7 +1770,7 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
         "route": "cuda",
         "source": SOURCES["quant_matmul"],
         "replaces": REPLACES["quant_matmul"],
-        "launches": launches["quant_matmul"],
+        "launches": launches["quant_matmul_wgmma"],
         "max_abs_err": max(r["max_abs_err"] for r in quant_rows),
         "ms": sum(r["kernel_ms"] for r in timed),
         "plain_ms": sum(r["plain_ms"] for r in timed),
