@@ -19,29 +19,41 @@
 // Three kernels, one per route (`ops/quant_kernel.py route`):
 //
 // wgmma (bf16; k % 8 == 0, n % 16 == 0, 16-byte aligned x, q and y, which is
-// every served shape): persistent blocks, one per SM, each walking 128 x 256
-// output tiles. The tile index runs along n first, and block b takes tiles
-// b, b + grid, ...: the blocks running at one time share a few m tiles, so x
-// crosses device memory once and its re-reads for the other n tiles hit L2,
-// and the weight stays in L2 for the whole call. Warp 0 issues TMA loads of
-// the x chunk (128 x 64 bf16, 128-byte swizzle) and the int8 weight chunk
-// (64 x 256, as stored) into a 4-stage ring, with full and empty mbarriers.
-// Warps 1-3 dequantize each weight chunk in shared memory, as the TPU kernel
-// does on its VMEM tile: 8 bytes a lane, converted exactly (a byte-permute
-// into the mantissa of 2^23, one subtraction, the f32's upper half is the
-// bf16), written 16 bytes a lane as the MN-major, 128-byte-swizzled B operand
-// of wgmma (n contiguous, as the weight is stored; the transpose bit set),
-// then fence.proxy.async before the wgmma reads it, into a 2-stage bf16 ring.
-// Two consumer warpgroups each run wgmma.mma_async m64n256k16 (bf16 in, f32
-// accumulate, 128 registers a thread) over their 64 rows, one chunk's four
-// k steps in flight while the previous chunk's slots are released. The
-// epilogue scales the f32 accumulator, casts once, stages 64 x 64 boxes in
-// swizzled shared memory (conflict-free) and writes them with TMA stores,
-// whose reads overlap the next box; the ring keeps loading the next tile
-// meanwhile. TMA zero-fills the ragged m, k and n edges on load and clips
-// them on store: nothing is padded in device memory. The descriptors are
-// encoded on the host at each call (cuTensorMapEncodeTiled, reached through
-// cudaGetDriverEntryPoint, so nothing links libcuda).
+// every served shape): persistent blocks, at most one per SM, each walking a
+// run of 128 x 256 output tiles along n within an m tile, so x crosses
+// device memory once and the weight (at most 512 KB) stays in L2.
+//  - Warp 0 keeps TMA loads of the x chunk (128 x 64 bf16, 128-byte swizzle)
+//    and the int8 weight chunk (64 x 256, as stored) in flight in a 4-stage
+//    ring with full and empty mbarriers. Where k <= 256 a tile's x chunks
+//    fill the ring exactly, and the next tile of the same m tile finds them
+//    there: only the weight chunk is loaded again.
+//  - The weight is dequantized in shared memory, as the TPU kernel does on
+//    its VMEM tile: each of the 8 consumer warps converts 8 rows of chunk
+//    c + 1 while chunk c's products run (8 bytes a lane, exactly: a byte
+//    permute into the mantissa of 2^23, one subtraction, the f32's upper
+//    half is the bf16), written 16 bytes a lane, conflict-free, as the
+//    MN-major, 128-byte-swizzled B operand of wgmma (n contiguous, as the
+//    weight is stored; the transpose bit set), then fence.proxy.async before
+//    a wgmma reads it; a 2-stage ring of bf16 chunks.
+//  - Two consumer warpgroups each run wgmma.mma_async m64n256k16 (bf16 in,
+//    f32 accumulate, 128 registers a thread; setmaxnreg moves registers from
+//    warpgroup 0) over their 64 rows, a chunk's four k steps in flight while
+//    the previous chunk's slots are released.
+//  - The epilogue scales the f32 sums, casts once, stages 64 x 64 boxes in
+//    swizzled shared memory and writes each with a TMA store that drains
+//    while the next box is staged; the ring loads the next tile meanwhile.
+//    TMA zero-fills the ragged m, k and n edges on load and clips them on
+//    store: nothing is padded in device memory. The descriptors are encoded
+//    on the host at each call (cuTensorMapEncodeTiled, reached through
+//    cudaGetDriverEntryPoint, so nothing links libcuda).
+// What holds it back (measured on an H100, PERF.md): shared-memory
+// bandwidth. A 128 x 256 tile at k = 256 moves ~768 KB through shared
+// memory (wgmma operand reads 320, TMA writes 128, the dequantization's
+// reads and writes 192, the epilogue's staging and store reads 128): at 128
+// bytes a cycle that is ~6,000 cycles against 4,096 of tensor work, and
+// the epilogue does not overlap the products. Converting the weight in
+// registers (the register-A operand of wgmma, y transposed) is the way
+// past it.
 //
 // cp_async (bf16 shapes the TMA rules refuse, e.g. k or n not a multiple of
 // 8 or 16, or a misaligned base): a block of 8 warps computes a 128 x 128
@@ -304,9 +316,10 @@ constexpr int kWN = 256;     // output tile columns: one m64n256k16 a k step
 constexpr int kWK = 64;      // k a stage: one 128-byte swizzle row of bf16
 constexpr int kStages = 4;   // TMA ring: an x chunk and an int8 weight chunk a stage
 constexpr int kBStages = 2;  // ring of dequantized (bf16) weight chunks
-constexpr int kDequantWarps = 3;   // warps 1-3; warp 0 issues the TMA loads
 constexpr int kConsumerWarps = 8;  // warpgroups 1 and 2
-constexpr int kWThreads = 32 * (1 + kDequantWarps + kConsumerWarps);
+constexpr int kWThreads = 384;     // warp 0 issues the TMA loads; 1-3 give registers
+constexpr int kLightRegs = 56;     // setmaxnreg: warpgroup 0 gives registers to
+constexpr int kConsumerRegs = 224;  // the consumers' 128 accumulators a thread
 constexpr int kXBytes = kWM * kWK * 2;  // 16 KB
 constexpr int kQBytes = kWK * kWN;      // 16 KB of int8
 constexpr int kBBytes = kWK * kWN * 2;  // 32 KB of bf16: 4 column chunks of 64 x 128 B
@@ -327,21 +340,16 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// until the phase of parity `parity` has completed
+// until the phase of parity `parity` has completed. The loop stays inside
+// one asm statement: a loop the compiler sees as divergent before a wgmma
+// makes ptxas serialize the warpgroup's wgmma
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
@@ -463,107 +471,128 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint
 
 #undef AF2_D8
 
+// rows first, first + 8, ... of an int8 weight chunk (64 x 256, as stored,
+// at q) -> the bf16 B operand at b: each consumer warp takes 8 rows, the
+// same count for every warp of a warpgroup (a branch that differs between
+// them would serialize the warpgroup's wgmma). A lane converts 8 bytes of a
+// row; its 16 bytes of bf16 land in column chunk lane / 8, 16-byte unit
+// lane % 8 XOR row % 8 (the 128-byte swizzle): conflict-free stores
+__device__ __forceinline__ void dequant_rows(const uint8_t* q, uint32_t b, int first, int lane) {
+  q += lane * 8;
+  b += (lane / 8) * (kWK * 128);
+#pragma unroll
+  for (int i = 0; i < kWK / kConsumerWarps; ++i) {
+    const int r = first + i * kConsumerWarps;
+    const uint2 w = *reinterpret_cast<const uint2*>(q + r * kWN);
+    st_shared_v4(b + r * 128 + (((lane % 8) ^ (r % 8)) * 16), bf16x4_of_int8x4(w.x),
+                 bf16x4_of_int8x4(w.y));
+  }
+  fence_async_smem();  // before any wgmma reads the operand
+  __syncwarp();
+}
+
 __global__ void __launch_bounds__(kWThreads, 1)
     quant_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                               const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_y,
                               const float* __restrict__ scale, int m, int n, int tiles_n,
-                              int tiles, int kchunks) {
+                              int tiles, int tiles_per_block, int kchunks) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms are 1024-byte aligned
   const uint8_t* const smem = smem_raw + (base - raw);
   const uint32_t bars = base + kSmemBar;
-  auto full = [&](int s) { return bars + 8 * s; };                  // TMA landed
-  auto empty = [&](int s) { return bars + 8 * (kStages + s); };     // x and q read
-  auto bfull = [&](int t) { return bars + 8 * (2 * kStages + t); };  // bf16 written
-  auto bempty = [&](int t) { return bars + 8 * (2 * kStages + kBStages + t); };
+  auto full = [&](int c) { return bars + 8 * (c % kStages); };  // x, q landed
+  auto empty = [&](int c) { return bars + 8 * (kStages + c % kStages); };  // x, q read
+  auto bfull = [&](int c) { return bars + 8 * (2 * kStages + c % kBStages); };  // bf16 written
+  auto bempty = [&](int c) { return bars + 8 * (2 * kStages + kBStages + c % kBStages); };
+  // the phase parity a wait on chunk c's slot expects (empty slots: the
+  // previous round's, which a fresh barrier counts as completed)
+  auto ring = [](int c) { return (uint32_t)((c / kStages) & 1); };
+  auto bring = [](int c) { return (uint32_t)((c / kBStages) & 1); };
+  auto qslot = [&](int c) { return smem + kSmemQ + (c % kStages) * kQBytes; };
+  auto bslot = [&](int c) { return base + kSmemB + (c % kBStages) * kBBytes; };
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  // the block's tiles are a run from first_tile on, along n within an m
+  // tile; chunk c is k chunk c % kchunks of tile first_tile + c / kchunks
+  const int first_tile = (int)blockIdx.x * tiles_per_block;
+  const int chunks = max(0, min(tiles_per_block, tiles - first_tile)) * kchunks;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), kConsumerWarps + kDequantWarps);
+      mbar_init(empty(s), kConsumerWarps);
     }
     for (int t = 0; t < kBStages; ++t) {
-      mbar_init(bfull(t), kDequantWarps);
+      mbar_init(bfull(t), kConsumerWarps);
       mbar_init(bempty(t), kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == 0) {
-    // the producer: keeps the ring's TMA loads in flight
-    if (lane == 0) {
-      int c = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = tile / tiles_n * kWM;
-        const int n0 = tile % tiles_n * kWN;
-        for (int kc = 0; kc < kchunks; ++kc, ++c) {
-          const int s = c % kStages;
-          mbar_wait(empty(s), ((c / kStages) & 1) ^ 1);
-          mbar_expect_tx(full(s), kXBytes + kQBytes);
-          tma_load_2d(base + s * kXBytes, &tm_x, full(s), kc * kWK, m0);
-          tma_load_2d(base + kSmemQ + s * kQBytes, &tm_q, full(s), n0, kc * kWK);
-        }
-      }
-    }
-  } else if (warp <= kDequantWarps) {
-    // dequantization: int8 chunk (64 x 256, as stored) -> bf16 B operand.
-    // A lane converts 8 bytes of a row; its 16 bytes of bf16 land in column
-    // chunk lane / 8, unit lane % 8 XOR (row % 8): conflict-free stores
-    const int dw = warp - 1;
-    int c = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      for (int kc = 0; kc < kchunks; ++kc, ++c) {
-        const int s = c % kStages;
-        const int t = c % kBStages;
-        mbar_wait(full(s), (c / kStages) & 1);
-        mbar_wait(bempty(t), ((c / kBStages) & 1) ^ 1);
-        const uint8_t* q = smem + kSmemQ + s * kQBytes + lane * 8;
-        const uint32_t b = base + kSmemB + t * kBBytes + (lane / 8) * (kWK * 128);
-        for (int r = dw; r < kWK; r += kDequantWarps) {
-          const uint2 w = *reinterpret_cast<const uint2*>(q + r * kWN);
-          st_shared_v4(b + r * 128 + (((lane % 8) ^ (r % 8)) * 16), bf16x4_of_int8x4(w.x),
-                       bf16x4_of_int8x4(w.y));
-        }
-        fence_async_smem();
-        __syncwarp();
-        if (lane == 0) {
-          mbar_arrive(bfull(t));
-          mbar_arrive(empty(s));
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLightRegs));
+    if (warp == 0) {
+      // the producer: keeps the ring's TMA loads in flight
+      if (lane == 0) {
+        for (int c = 0; c < chunks; ++c) {
+          const int tile = first_tile + c / kchunks;
+          const int kc = c % kchunks;
+          // the slot still holds this x chunk when it held the same k chunk
+          // of the same m tile kStages chunks ago (k <= 256: every n tile
+          // after an m tile's first): then only the weight chunk is loaded
+          const bool x_held = c >= kStages && kStages % kchunks == 0 &&
+                              (first_tile + (c - kStages) / kchunks) / tiles_n == tile / tiles_n;
+          mbar_wait(empty(c), ring(c) ^ 1);
+          mbar_expect_tx(full(c), (x_held ? 0 : kXBytes) + kQBytes);
+          if (!x_held) {
+            tma_load_2d(base + (c % kStages) * kXBytes, &tm_x, full(c), kc * kWK,
+                        tile / tiles_n * kWM);
+          }
+          tma_load_2d(base + kSmemQ + (c % kStages) * kQBytes, &tm_q, full(c),
+                      tile % tiles_n * kWN, kc * kWK);
         }
       }
     }
   } else {
-    // the consumers: warpgroup wg computes rows 64 wg .. 64 wg + 63 of a tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    // the consumers: warpgroup wg computes rows 64 wg .. 64 wg + 63 of a
+    // tile; while chunk c's products run, each warp dequantizes its share
+    // of chunk c + 1
     const int wg = warp / 4 - 1;
     const int tid = threadIdx.x % 128;
     const int r0 = (warp % 4) * 16 + lane / 4;  // the thread's rows r0, r0 + 8 of its 64
     float acc[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-    auto release = [&](int c) {
+    auto release = [&](int c) {  // chunk c's products are done
       __syncwarp();
       if (lane == 0) {
-        mbar_arrive(empty(c % kStages));
-        mbar_arrive(bempty(c % kBStages));
+        mbar_arrive(empty(c));
+        mbar_arrive(bempty(c));
       }
     };
-    int c = 0;
+    auto dequant = [&](int c) {
+      mbar_wait(full(c), ring(c));
+      mbar_wait(bempty(c), bring(c) ^ 1);
+      dequant_rows(qslot(c), bslot(c), warp - 4, lane);
+      if (lane == 0) mbar_arrive(bfull(c));
+    };
     int stores = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    if (chunks > 0) dequant(0);
+    // the epilogue sits after the k loop, outside it: accumulator reads in
+    // a branch of the loop that issues the wgmma serialize them (ptxas)
+    for (int c = 0; c < chunks;) {
+      const int tile = first_tile + c / kchunks;
       const int m0 = tile / tiles_n * kWM;
       const int n0 = tile % tiles_n * kWN;
       for (int kc = 0; kc < kchunks; ++kc, ++c) {
-        const int s = c % kStages;
-        const int t = c % kBStages;
-        mbar_wait(full(s), (c / kStages) & 1);
-        mbar_wait(bfull(t), (c / kBStages) & 1);
-        const uint32_t xa = base + s * kXBytes + wg * (64 * 128);
-        const uint32_t ba = base + kSmemB + t * kBBytes;
+        mbar_wait(full(c), ring(c));
+        mbar_wait(bfull(c), bring(c));
+        const uint32_t xa = base + (c % kStages) * kXBytes + wg * (64 * 128);
+        const uint32_t ba = bslot(c);
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < kWK / 16; ++ks) {
@@ -575,6 +604,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
           wgmma_wait<1>();  // the previous chunk's products are done: free its slots
           release(c - 1);
         }
+        if (c + 1 < chunks) dequant(c + 1);  // perhaps the next tile's first chunk
       }
       wgmma_wait<0>();
       fence_acc(acc);
@@ -587,6 +617,13 @@ __global__ void __launch_bounds__(kWThreads, 1)
 #pragma unroll
         for (int ch = 0; ch < kWN / kYBox; ++ch) {
           if (n0 + ch * kYBox < n) {
+            float sc[16];  // the box's scales, all loads in flight together
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+              const int col = n0 + ch * kYBox + 8 * jj + 2 * (lane % 4);
+              sc[2 * jj] = col < n ? __ldg(scale + col) : 0.f;
+              sc[2 * jj + 1] = col < n ? __ldg(scale + col + 1) : 0.f;  // n is even
+            }
             const uint32_t yb = ybuf + (stores & 1) * kYBytes;
             if (tid == 0 && stores >= 2) {
               // the store that last read this buffer is done reading it
@@ -596,9 +633,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
 #pragma unroll
             for (int jj = 0; jj < 8; ++jj) {
               const int j = ch * 8 + jj;
-              const int col = n0 + 8 * j + 2 * (lane % 4);
-              const float s0 = col < n ? __ldg(scale + col) : 0.f;
-              const float s1 = col < n ? __ldg(scale + col + 1) : 0.f;  // n is even
+              const float s0 = sc[2 * jj], s1 = sc[2 * jj + 1];
               const uint32_t at = yb + r0 * 128 + ((jj ^ (r0 % 8)) * 16) + (lane % 4) * 4;
               st_shared_u32(at, pack_bf16(acc[4 * j] * s0, acc[4 * j + 1] * s1));
               st_shared_u32(at + 8 * 128, pack_bf16(acc[4 * j + 2] * s0, acc[4 * j + 3] * s1));
@@ -715,10 +750,11 @@ int af2_quant_matmul_wgmma(const void* x, const void* qw, const void* scale, voi
   const int64_t tiles_n = (n + kWN - 1) / kWN;
   const int64_t tiles = (m + kWM - 1) / kWM * tiles_n;
   if (tiles > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  const int grid = (int)(tiles < sms ? tiles : sms);
+  const int64_t per_block = (tiles + sms - 1) / sms;  // a run of tiles a block
+  const int grid = (int)((tiles + per_block - 1) / per_block);
   quant_matmul_wgmma_kernel<<<grid, kWThreads, kWSmemBytes, (cudaStream_t)stream_ptr>>>(
       tm_x, tm_q, tm_y, (const float*)scale, (int)m, (int)n, (int)tiles_n, (int)tiles,
-      (int)((k + kWK - 1) / kWK));
+      (int)per_block, (int)((k + kWK - 1) / kWK));
   return (int)cudaGetLastError();
 }
 

@@ -173,13 +173,18 @@ def test_backward_on_card_raises_instead_of_falling_back(cuda_device, monkeypatc
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n,per_tensor", [(1000, 200, 300, False), (256, 256, 2048, False),
-                                              (37, 64, 16, True), (1, 8, 3, False)])
-def test_quant_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n, per_tensor):
+@pytest.mark.parametrize("m,k,n,per_tensor,bf16_route", [
+    (1000, 200, 300, False, "cp_async"), (256, 256, 2048, False, "wgmma"),
+    (37, 64, 16, True, "wgmma"), (1, 8, 3, False, "cp_async"),
+    (1000, 256, 512, False, "wgmma"), (1000, 1024, 256, False, "wgmma"),
+    (1, 256, 16, False, "wgmma")])
+def test_quant_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n, per_tensor, bf16_route):
     """Kernel vs `quant_matmul_plain` on the same inputs, elementwise within
     `chip_smoke.quant_bound` (summation order: k * 2^-24 * s * sum |x||q|,
     plus one bf16 ulp of the output in bf16); an all-zero channel gives
-    exact zeros."""
+    exact zeros. bf16 takes the wgmma kernel where TMA can address the
+    tensors (ragged m, n = 16 and k = 1024 among them) and the cp.async
+    kernel elsewhere; f32 its own; the launch counts under its route."""
     from alphafold2_tpu_torch.ops import quant, quant_kernel
     from chip_smoke import quant_bound
 
@@ -189,15 +194,41 @@ def test_quant_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n, per_ten
     qw, scale = quant.quantize_weight(torch.from_numpy(w), per_channel=not per_tensor)
     qw, scale = qw.to(cuda_device), scale.to(cuda_device)
     x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda_device, dtype)
-    before = quant_kernel.LAUNCHES["quant_matmul"]
+    which = bf16_route if dtype == torch.bfloat16 else "f32"
+    assert quant_kernel.route(x, qw) == which
+    before = dict(quant_kernel.LAUNCHES)
     y = quant.quant_matmul(x, qw, scale)
     torch.cuda.synchronize()
-    assert quant_kernel.LAUNCHES["quant_matmul"] == before + 1
+    assert {name: n - before[name] for name, n in quant_kernel.LAUNCHES.items()} == {
+        name: int(name in ("quant_matmul", f"quant_matmul_{which}")) for name in before}
     full = scale.float().reshape(-1).expand(n).contiguous()
     ref = quant_kernel.quant_matmul_plain(x, qw, full)
     assert y.dtype == dtype and y.shape == (m, n)
     assert ((y.float() - ref.float()).abs() <= quant_bound(x, qw, full, ref)).all()
     assert (y[:, n // 2] == 0).all()
+
+
+@pytest.mark.cuda
+def test_quant_kernel_misaligned_x_takes_cp_async(cuda_device):
+    """A contiguous bf16 x whose base is off a 16-byte boundary (TMA cannot
+    address it) runs on the cp.async kernel, within `quant_bound`."""
+    from alphafold2_tpu_torch.ops import quant, quant_kernel
+    from chip_smoke import quant_bound
+
+    m, k, n = 1000, 256, 512
+    rng = np.random.default_rng(7)
+    qw, scale = quant.quantize_weight(torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)))
+    qw, scale = qw.to(cuda_device), scale.to(cuda_device)
+    buf = torch.empty(m * k + 8, dtype=torch.bfloat16, device=cuda_device)
+    x = buf[1:1 + m * k].view(m, k)
+    x.copy_(torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)))
+    assert quant_kernel.route(x, qw) == "cp_async"
+    before = quant_kernel.LAUNCHES["quant_matmul_cp_async"]
+    y = quant.quant_matmul(x, qw, scale)
+    torch.cuda.synchronize()
+    assert quant_kernel.LAUNCHES["quant_matmul_cp_async"] == before + 1
+    ref = quant_kernel.quant_matmul_plain(x, qw, scale)
+    assert ((y.float() - ref.float()).abs() <= quant_bound(x, qw, scale, ref)).all()
 
 
 @pytest.mark.cuda

@@ -23,9 +23,10 @@ from alphafold2_tpu.ops import quant as jquant
 from alphafold2_tpu_torch import Alphafold2Config, alphafold2_apply, params_from_jax
 from alphafold2_tpu_torch import predict_structure
 from alphafold2_tpu_torch.device import tree_leaves
-from alphafold2_tpu_torch.ops import dispatch, quant
+from alphafold2_tpu_torch.ops import dispatch, quant, quant_kernel
 from alphafold2_tpu_torch.serving import quant_residency
 from alphafold2_tpu_torch.training import harness
+from chip_smoke import QUANT_SHAPES
 
 SMALL = dict(dim=32, depth=2, heads=2, dim_head=16, max_seq_len=32)
 
@@ -143,6 +144,50 @@ def test_quant_matmul_plain_matches_jax(m, k, n, dtype, per_channel):
     full = np.broadcast_to(np.asarray(js, np.float32).reshape(-1), (n,))
     assert (np.abs(got - pallas) <= _bound(x, jq, full, pallas, dtype)).all()
     assert (got[:, n // 2] == 0).all()
+
+
+def _misaligned(m, k, dtype):
+    """A contiguous (m, k) view whose data starts 2 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(m * k + 8, dtype=dtype)
+    step = buf.element_size()
+    start = next(i for i in range(1, 16) if (buf.data_ptr() + i * step) % 16 != 0)
+    return buf[start:start + m * k].view(m, k)
+
+
+@pytest.mark.parametrize("case", [
+    *[("wgmma", m, k, n, torch.bfloat16, False) for m, k, n in QUANT_SHAPES.values()],
+    ("cp_async", 1000, 200, 300, torch.bfloat16, False),
+    ("cp_async", 1, 256, 8, torch.bfloat16, False),
+    ("cp_async", 1000, 256, 512, torch.bfloat16, True),
+    ("wgmma", 1, 256, 16, torch.bfloat16, False),
+    ("f32", 147456, 256, 512, torch.float32, False),
+    ("f32", 1000, 200, 300, torch.float32, False),
+], ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}x{c[3]}-{str(c[4]).split('.')[-1]}"
+                 + ("-misaligned" if c[5] else ""))
+def test_quant_kernel_route(case):
+    """Which B4 kernel a CUDA call takes, from shapes, dtype and alignment
+    alone (no card needed): every served int8 shape (chip_smoke.py's
+    QUANT_SHAPES, L = 384) in bf16 takes the wgmma kernel; bf16 shapes TMA
+    cannot address (k % 8, n % 16, a base off a 16-byte boundary) take the
+    cp.async kernel; f32 takes the CUDA-core kernel."""
+    want, m, k, n, dtype, misaligned = case
+    x = _misaligned(m, k, dtype) if misaligned else torch.empty((m, k), dtype=dtype)
+    qw = torch.empty((k, n), dtype=torch.int8)
+    scale = torch.empty(n)
+    assert quant_kernel.unsupported(x, qw, scale) is None
+    assert quant_kernel.route(x, qw) == want
+    if misaligned:  # the kernel gets x as it is: a contiguous view is not copied
+        assert x.contiguous().data_ptr() == x.data_ptr()
+        # a non-contiguous x is copied (aligned) before the launch
+        wide = torch.empty((m, k + 8), dtype=dtype)[:, 8:]
+        assert quant_kernel.route(wide, qw) == "wgmma"
+
+
+def test_quant_kernel_route_refuses_float16():
+    x = torch.empty((4, 256), dtype=torch.float16)
+    qw = torch.empty((256, 512), dtype=torch.int8)
+    assert "torch.float16" in quant_kernel.unsupported(x, qw, torch.empty(512))
 
 
 def test_quant_matmul_shapes_scalar_scale_and_casts():
