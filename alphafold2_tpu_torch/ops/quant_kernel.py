@@ -10,8 +10,8 @@ built at first use) on CUDA tensors, or raises.
 
 `launch` takes one of three kernels by the shape of the call (`route`):
 "wgmma" (TMA loads, wgmma, persistent blocks) for bf16 whenever TMA can
-address the tensors, "cp_async" (PR 3's mma.sync kernel) for the other bf16
-shapes, "f32" on the CUDA cores. A route is chosen, never fallen back to: a
+address the tensors, "cp_async" (an mma.sync kernel fed by cp.async) for
+the other bf16 shapes, "f32" on the CUDA cores. A route is chosen, never fallen back to: a
 failed build or launch on any route raises. `LAUNCHES["quant_matmul"]`
 counts every launch, `LAUNCHES["quant_matmul_<route>"]` each route's.
 """

@@ -184,6 +184,17 @@ def test_quant_kernel_route(case):
         assert quant_kernel.route(wide, qw) == "wgmma"
 
 
+def test_quant_ablation_variants_match_the_source():
+    """The ablation tool's copies of csrc/quant_matmul.cu are cut from the
+    source's own text: each fragment it takes out is still there once."""
+    from alphafold2_tpu_torch.telemetry import quant_ablation
+
+    sources = quant_ablation.variants()
+    assert set(sources) == {"base", "no_dequant", "no_epilogue", "no_store", "counters"}
+    assert len({s for s in sources.values()}) == len(sources)
+    assert "af2_ablation_counters" in sources["counters"]
+
+
 def test_quant_kernel_route_refuses_float16():
     x = torch.empty((4, 256), dtype=torch.float16)
     qw = torch.empty((256, 512), dtype=torch.int8)
