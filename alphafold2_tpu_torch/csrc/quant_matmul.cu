@@ -20,40 +20,43 @@
 //
 // wgmma (bf16; k % 8 == 0, n % 16 == 0, 16-byte aligned x, q and y, which is
 // every served shape): persistent blocks, at most one per SM, each walking a
-// run of 128 x 256 output tiles along n within an m tile, so x crosses
+// run of 256 x 128 output tiles along n within an m tile, so x crosses
 // device memory once and the weight (at most 512 KB) stays in L2.
-//  - Warp 0 keeps TMA loads of the x chunk (128 x 64 bf16, 128-byte swizzle)
-//    and the int8 weight chunk (64 x 256, as stored) in flight in a 4-stage
-//    ring with full and empty mbarriers. Where k <= 256 a tile's x chunks
-//    fill the ring exactly, and the next tile of the same m tile finds them
-//    there: only the weight chunk is loaded again.
-//  - The weight is dequantized in shared memory, as the TPU kernel does on
-//    its VMEM tile: each of the 8 consumer warps converts 8 rows of chunk
-//    c + 1 while chunk c's products run (8 bytes a lane, exactly: a byte
-//    permute into the mantissa of 2^23, one subtraction, the f32's upper
-//    half is the bf16), written 16 bytes a lane, conflict-free, as the
-//    MN-major, 128-byte-swizzled B operand of wgmma (n contiguous, as the
-//    weight is stored; the transpose bit set), then fence.proxy.async before
-//    a wgmma reads it; a 2-stage ring of bf16 chunks.
-//  - Two consumer warpgroups each run wgmma.mma_async m64n256k16 (bf16 in,
-//    f32 accumulate, 128 registers a thread; setmaxnreg moves registers from
-//    warpgroup 0) over their 64 rows, a chunk's four k steps in flight while
-//    the previous chunk's slots are released.
-//  - The epilogue scales the f32 sums, casts once, stages 64 x 64 boxes in
-//    swizzled shared memory and writes each with a TMA store that drains
-//    while the next box is staged; the ring loads the next tile meanwhile.
-//    TMA zero-fills the ragged m, k and n edges on load and clips them on
-//    store: nothing is padded in device memory. The descriptors are encoded
-//    on the host at each call (cuTensorMapEncodeTiled, reached through
-//    cudaGetDriverEntryPoint, so nothing links libcuda).
-// What holds it back (measured on an H100, PERF.md): shared-memory
-// bandwidth. A 128 x 256 tile at k = 256 moves ~768 KB through shared
-// memory (wgmma operand reads 320, TMA writes 128, the dequantization's
-// reads and writes 192, the epilogue's staging and store reads 128): at 128
-// bytes a cycle that is ~6,000 cycles against 4,096 of tensor work, and
-// the epilogue does not overlap the products. Converting the weight in
-// registers (the register-A operand of wgmma, y transposed) is the way
-// past it.
+//  - Warp 0 keeps TMA loads of the x chunk (256 x 64 bf16) and the int8
+//    weight chunk (64 x 128), both 128-byte swizzled, in flight in a
+//    4-stage ring with full and empty mbarriers. Where k <= 256 a tile's x
+//    chunks fill the ring exactly, and the next tile of the same m tile
+//    finds them there: only the weight chunk is loaded again.
+//  - The products run transposed, y^T = W^T x^T, CUTLASS's mixed-input
+//    scheme: the x chunk, as TMA left it, is wgmma's B operand (K-major),
+//    and the weight is its A operand in registers. Each consumer warp reads
+//    its 16 columns of the int8 chunk with ldmatrix.trans (k pairs of a
+//    column, conflict-free on the swizzled rows) and converts them exactly
+//    in registers (a byte permute into the mantissa of 2^23, one
+//    subtraction, the f32's upper half is the bf16), chunk c + 1 while
+//    chunk c's wgmma run on the other set of fragments. A warp's A rows g,
+//    g + 8 are its columns 2 g, 2 g + 1, so a thread's accumulators hold
+//    pairs along n of y.
+//  - Two consumer warpgroups each run wgmma.mma_async m64n256k16 (A from
+//    registers, bf16 in, f32 accumulate, 128 registers a thread; setmaxnreg
+//    moves registers from warpgroup 0) over their 64 columns and the
+//    tile's 256 rows.
+//  - The epilogue scales the f32 sums by the thread's two scales, casts
+//    once, stages 64 x 64 boxes in swizzled shared memory and writes each
+//    with a TMA store that drains while the next box is staged. TMA
+//    zero-fills the ragged m, k and n edges on load and clips them on
+//    store: nothing is padded in device memory. The descriptors are
+//    encoded on the host at each call (cuTensorMapEncodeTiled, reached
+//    through cudaGetDriverEntryPoint, so nothing links libcuda).
+// Why this design (measured on an H100, PERF.md): the first version
+// converted the weight into a bf16 B operand in shared memory, as the TPU
+// kernel does on its VMEM tile. It was bound by shared-memory bandwidth:
+// ~768 KB a 128 x 256 tile (wgmma reads, TMA writes, the bf16 weight
+// written and read again, the epilogue's staging) against 128 bytes a
+// cycle. The weight in registers drops its bf16 trip through shared memory
+// and converts each element once per 256 rows instead of 128. The
+// epilogue still does not overlap the products, and n = 256 layers re-read
+// each x chunk for their two n tiles.
 //
 // cp_async (bf16 shapes the TMA rules refuse, e.g. k or n not a multiple of
 // 8 or 16, or a misaligned base): a block of 8 warps computes a 128 x 128
@@ -309,27 +312,24 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// --- bf16, the wgmma route: TMA, wgmma, persistent blocks --------------------
+// --- bf16, the wgmma route: TMA, wgmma, persistent blocks ---------------------
 
-constexpr int kWM = 128;     // output tile rows: two consumer warpgroups of 64
-constexpr int kWN = 256;     // output tile columns: one m64n256k16 a k step
-constexpr int kWK = 64;      // k a stage: one 128-byte swizzle row of bf16
+constexpr int kTM = 256;     // output tile rows (m): the N of every wgmma
+constexpr int kTN = 128;     // output tile columns (n): two consumer warpgroups of 64
+constexpr int kWK = 64;      // k a stage: one 128-byte swizzle row of bf16 x
 constexpr int kStages = 4;   // TMA ring: an x chunk and an int8 weight chunk a stage
-constexpr int kBStages = 2;  // ring of dequantized (bf16) weight chunks
 constexpr int kConsumerWarps = 8;  // warpgroups 1 and 2
 constexpr int kWThreads = 384;     // warp 0 issues the TMA loads; 1-3 give registers
 constexpr int kLightRegs = 56;     // setmaxnreg: warpgroup 0 gives registers to
-constexpr int kConsumerRegs = 224;  // the consumers' 128 accumulators a thread
-constexpr int kXBytes = kWM * kWK * 2;  // 16 KB
-constexpr int kQBytes = kWK * kWN;      // 16 KB of int8
-constexpr int kBBytes = kWK * kWN * 2;  // 32 KB of bf16: 4 column chunks of 64 x 128 B
+constexpr int kConsumerRegs = 224;  // the consumers' accumulators and weight fragments
+constexpr int kXBytes = kTM * kWK * 2;  // 32 KB
+constexpr int kQBytes = kWK * kTN;      // 8 KB of int8: 64 rows of 128 B, 128-byte swizzle
 constexpr int kYBox = 64;               // epilogue store box: 64 x 64 bf16
 constexpr int kYBytes = kYBox * kYBox * 2;
 constexpr int kSmemQ = kStages * kXBytes;
-constexpr int kSmemB = kSmemQ + kStages * kQBytes;
-constexpr int kSmemY = kSmemB + kBStages * kBBytes;  // 2 buffers a consumer warpgroup
+constexpr int kSmemY = kSmemQ + kStages * kQBytes;  // 2 buffers a consumer warpgroup
 constexpr int kSmemBar = kSmemY + 4 * kYBytes;
-constexpr int kWSmemBytes = kSmemBar + 16 * (kStages + kBStages) + 1024;  // + alignment
+constexpr int kWSmemBytes = kSmemBar + 16 * kStages + 1024;  // + alignment
 static_assert(kWSmemBytes <= 232448, "over the 227 KB a block may use");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -390,34 +390,35 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
-__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint2 lo, uint2 hi) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(lo.x), "r"(lo.y),
-               "r"(hi.x), "r"(hi.y)
-               : "memory");
-}
-
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
-// four int8 (one word) -> four bf16 (two words), exactly: each byte, offset
-// by 128, becomes the low mantissa byte of 2^23; less 2^23 + 128 that is q
-// in f32, and |q| <= 128 has at most 8 significant bits, so the f32's upper
-// half is q in bf16
-__device__ __forceinline__ uint2 bf16x4_of_int8x4(uint32_t w) {
+// a 2 x 2 block of int8 in one word, w = [q(k, n), q(k, n + 1), q(k + 1, n),
+// q(k + 1, n + 1)] (as ldmatrix.trans hands it) -> two bf16 pairs along k,
+// (q(k, n), q(k + 1, n)) and (q(k, n + 1), q(k + 1, n + 1)), exactly: each
+// byte, offset by 128, becomes the low mantissa byte of 2^23; less 2^23 +
+// 128 that is q in f32, and |q| <= 128 has at most 8 significant bits, so
+// the f32's upper half is q in bf16
+__device__ __forceinline__ uint2 bf16_pairs_of_int8x4(uint32_t w) {
   const uint32_t u = w ^ 0x80808080u;
   const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
   const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
   const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
   const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
-  return make_uint2(__byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632),
-                    __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632));
+  return make_uint2(__byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632),
+                    __byte_perm(__float_as_uint(f1), __float_as_uint(f3), 0x7632));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 // wgmma shared-memory matrix descriptor, 128-byte swizzle (atoms of 8 rows x
-// 128 B, 1024-byte aligned). K-major A: sbo = the stride of 8-row groups
-// along m (lbo unused). MN-major B: lbo = the stride of 64-column chunks
-// along n, sbo = the stride of 8-row groups along k.
+// 128 B, 1024-byte aligned), K-major: sbo = the stride of 8-row groups (lbo
+// unused).
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
@@ -436,6 +437,15 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// a wgmma reads its register operand asynchronously: keeping the fragments
+// live across the wait keeps the compiler from reusing their registers
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
 // keeps the compiler from moving accumulator reads across a wgmma wait
 __device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
@@ -446,13 +456,13 @@ __device__ __forceinline__ void fence_acc(float* d) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (64 x 256 f32, 128 a thread) += A (64 x 16 bf16, K-major) . B (16 x 256
-// bf16, MN-major: the transpose bit), both from shared memory; scale_d = 0
-// overwrites d
-__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint64_t desc_b,
-                                                 int scale_d) {
+// d (64 x 256 f32, 128 a thread) += A (64 x 16 bf16, from registers: a
+// warp's 16 rows, mma.m16n8k16's A layout) . B (16 x 256 bf16, K-major, in
+// shared memory); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float* d, const uint32_t* a, uint64_t desc_b,
+                                                    int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
@@ -462,34 +472,14 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
       : AF2_D8(0), AF2_D8(8), AF2_D8(16), AF2_D8(24), AF2_D8(32), AF2_D8(40), AF2_D8(48),
         AF2_D8(56), AF2_D8(64), AF2_D8(72), AF2_D8(80), AF2_D8(88), AF2_D8(96), AF2_D8(104),
         AF2_D8(112), AF2_D8(120)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 #undef AF2_D8
-
-// rows first, first + 8, ... of an int8 weight chunk (64 x 256, as stored,
-// at q) -> the bf16 B operand at b: each consumer warp takes 8 rows, the
-// same count for every warp of a warpgroup (a branch that differs between
-// them would serialize the warpgroup's wgmma). A lane converts 8 bytes of a
-// row; its 16 bytes of bf16 land in column chunk lane / 8, 16-byte unit
-// lane % 8 XOR row % 8 (the 128-byte swizzle): conflict-free stores
-__device__ __forceinline__ void dequant_rows(const uint8_t* q, uint32_t b, int first, int lane) {
-  q += lane * 8;
-  b += (lane / 8) * (kWK * 128);
-#pragma unroll
-  for (int i = 0; i < kWK / kConsumerWarps; ++i) {
-    const int r = first + i * kConsumerWarps;
-    const uint2 w = *reinterpret_cast<const uint2*>(q + r * kWN);
-    st_shared_v4(b + r * 128 + (((lane % 8) ^ (r % 8)) * 16), bf16x4_of_int8x4(w.x),
-                 bf16x4_of_int8x4(w.y));
-  }
-  fence_async_smem();  // before any wgmma reads the operand
-  __syncwarp();
-}
 
 __global__ void __launch_bounds__(kWThreads, 1)
     quant_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
@@ -500,18 +490,12 @@ __global__ void __launch_bounds__(kWThreads, 1)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms are 1024-byte aligned
-  const uint8_t* const smem = smem_raw + (base - raw);
   const uint32_t bars = base + kSmemBar;
   auto full = [&](int c) { return bars + 8 * (c % kStages); };  // x, q landed
   auto empty = [&](int c) { return bars + 8 * (kStages + c % kStages); };  // x, q read
-  auto bfull = [&](int c) { return bars + 8 * (2 * kStages + c % kBStages); };  // bf16 written
-  auto bempty = [&](int c) { return bars + 8 * (2 * kStages + kBStages + c % kBStages); };
   // the phase parity a wait on chunk c's slot expects (empty slots: the
   // previous round's, which a fresh barrier counts as completed)
   auto ring = [](int c) { return (uint32_t)((c / kStages) & 1); };
-  auto bring = [](int c) { return (uint32_t)((c / kBStages) & 1); };
-  auto qslot = [&](int c) { return smem + kSmemQ + (c % kStages) * kQBytes; };
-  auto bslot = [&](int c) { return base + kSmemB + (c % kBStages) * kBBytes; };
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -524,106 +508,135 @@ __global__ void __launch_bounds__(kWThreads, 1)
       mbar_init(full(s), 1);
       mbar_init(empty(s), kConsumerWarps);
     }
-    for (int t = 0; t < kBStages; ++t) {
-      mbar_init(bfull(t), kConsumerWarps);
-      mbar_init(bempty(t), kConsumerWarps);
-    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (warp < 4) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLightRegs));
-    if (warp == 0) {
+    if (warp == 0 && lane == 0) {
       // the producer: keeps the ring's TMA loads in flight
-      if (lane == 0) {
-        for (int c = 0; c < chunks; ++c) {
-          const int tile = first_tile + c / kchunks;
-          const int kc = c % kchunks;
-          // the slot still holds this x chunk when it held the same k chunk
-          // of the same m tile kStages chunks ago (k <= 256: every n tile
-          // after an m tile's first): then only the weight chunk is loaded
-          const bool x_held = c >= kStages && kStages % kchunks == 0 &&
-                              (first_tile + (c - kStages) / kchunks) / tiles_n == tile / tiles_n;
-          mbar_wait(empty(c), ring(c) ^ 1);
-          mbar_expect_tx(full(c), (x_held ? 0 : kXBytes) + kQBytes);
-          if (!x_held) {
-            tma_load_2d(base + (c % kStages) * kXBytes, &tm_x, full(c), kc * kWK,
-                        tile / tiles_n * kWM);
-          }
-          tma_load_2d(base + kSmemQ + (c % kStages) * kQBytes, &tm_q, full(c),
-                      tile % tiles_n * kWN, kc * kWK);
+      for (int c = 0; c < chunks; ++c) {
+        const int tile = first_tile + c / kchunks;
+        const int kc = c % kchunks;
+        // the slot still holds this x chunk when it held the same k chunk
+        // of the same m tile kStages chunks ago (k <= 256: every n tile
+        // after an m tile's first): then only the weight chunk is loaded
+        const bool x_held = c >= kStages && kStages % kchunks == 0 &&
+                            (first_tile + (c - kStages) / kchunks) / tiles_n == tile / tiles_n;
+        mbar_wait(empty(c), ring(c) ^ 1);
+        mbar_expect_tx(full(c), (x_held ? 0 : kXBytes) + kQBytes);
+        if (!x_held) {
+          tma_load_2d(base + (c % kStages) * kXBytes, &tm_x, full(c), kc * kWK,
+                      tile / tiles_n * kTM);
         }
+        tma_load_2d(base + kSmemQ + (c % kStages) * kQBytes, &tm_q, full(c),
+                    tile % tiles_n * kTN, kc * kWK);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    // the consumers: warpgroup wg computes rows 64 wg .. 64 wg + 63 of a
-    // tile; while chunk c's products run, each warp dequantizes its share
-    // of chunk c + 1
+    // the consumers compute y^T: warpgroup wg takes the tile's columns
+    // 64 wg .. 64 wg + 63 as the M of its wgmma and the tile's 256 rows as
+    // the N. Its A operand, the weight, comes in registers: ldmatrix.trans
+    // reads the int8 chunk, the conversion to bf16 happens in registers,
+    // and a warp's A rows g, g + 8 are its columns 2 g, 2 g + 1. B is the x
+    // chunk as TMA left it.
     const int wg = warp / 4 - 1;
+    const int wq = warp % 4;
     const int tid = threadIdx.x % 128;
-    const int r0 = (warp % 4) * 16 + lane / 4;  // the thread's rows r0, r0 + 8 of its 64
+    const int g = lane / 4;
+    const int t = lane % 4;
     float acc[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    uint32_t a0[4][4], a1[4][4];  // the fragments of two chunks: one read, one written
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a0[i][j] = a1[i][j] = 0u;
     auto release = [&](int c) {  // chunk c's products are done
       __syncwarp();
-      if (lane == 0) {
-        mbar_arrive(empty(c));
-        mbar_arrive(bempty(c));
+      if (lane == 0) mbar_arrive(empty(c));
+    };
+    auto convert = [&](int c, uint32_t (&a)[4][4]) {
+      mbar_wait(full(c), ring(c));
+      const uint32_t q = base + kSmemQ + (c % kStages) * kQBytes;
+      const int unit = 4 * wg + wq;  // the warp's 16 columns: one 16-byte unit of a row
+#pragma unroll
+      for (int pair = 0; pair < 2; ++pair) {
+        const int mi = lane / 8;  // matrices: k rows 0-7 and 8-15 of steps 2 pair, 2 pair + 1
+        const int krow = 32 * pair + 16 * (mi / 2) + 8 * (mi % 2) + lane % 8;
+        uint32_t r[4];
+        ldmatrix_x4_trans(q + krow * 128 + ((unit ^ (krow & 7)) << 4), r);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint2 lo = bf16_pairs_of_int8x4(r[2 * h]);
+          const uint2 hi = bf16_pairs_of_int8x4(r[2 * h + 1]);
+          a[2 * pair + h][0] = lo.x;
+          a[2 * pair + h][1] = lo.y;
+          a[2 * pair + h][2] = hi.x;
+          a[2 * pair + h][3] = hi.y;
+        }
       }
     };
-    auto dequant = [&](int c) {
-      mbar_wait(full(c), ring(c));
-      mbar_wait(bempty(c), bring(c) ^ 1);
-      dequant_rows(qslot(c), bslot(c), warp - 4, lane);
-      if (lane == 0) mbar_arrive(bfull(c));
+    auto mma = [&](int c, int kc, uint32_t (&a)[4][4]) {
+      const uint32_t xa = base + (c % kStages) * kXBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kWK / 16; ++ks) {
+        wgmma_m64n256k16_rs(acc, a[ks], gmma_desc(xa + 32 * ks, 16, 1024), (kc | ks) != 0);
+      }
+      wgmma_commit();
     };
     int stores = 0;
-    if (chunks > 0) dequant(0);
+    if (chunks > 0) convert(0, a0);
     // the epilogue sits after the k loop, outside it: accumulator reads in
     // a branch of the loop that issues the wgmma serialize them (ptxas)
     for (int c = 0; c < chunks;) {
       const int tile = first_tile + c / kchunks;
-      const int m0 = tile / tiles_n * kWM;
-      const int n0 = tile % tiles_n * kWN;
+      const int m0 = tile / tiles_n * kTM;
+      const int n0 = tile % tiles_n * kTN;
       for (int kc = 0; kc < kchunks; ++kc, ++c) {
-        mbar_wait(full(c), ring(c));
-        mbar_wait(bfull(c), bring(c));
-        const uint32_t xa = base + (c % kStages) * kXBytes + wg * (64 * 128);
-        const uint32_t ba = bslot(c);
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < kWK / 16; ++ks) {
-          wgmma_m64n256k16(acc, gmma_desc(xa + 32 * ks, 16, 1024),
-                           gmma_desc(ba + 2048 * ks, kWK * 128, 1024), (kc | ks) != 0);
+        // chunk c's products read one set of fragments while chunk c + 1 is
+        // converted into the other, once chunk c - 1's products are done
+        if ((c & 1) == 0) {
+          mma(c, kc, a0);
+          if (kc > 0) {
+            wgmma_wait<1>();
+            fence_frag(a1);
+            release(c - 1);
+          }
+          if (c + 1 < chunks) convert(c + 1, a1);
+        } else {
+          mma(c, kc, a1);
+          if (kc > 0) {
+            wgmma_wait<1>();
+            fence_frag(a0);
+            release(c - 1);
+          }
+          if (c + 1 < chunks) convert(c + 1, a0);
         }
-        wgmma_commit();
-        if (kc > 0) {
-          wgmma_wait<1>();  // the previous chunk's products are done: free its slots
-          release(c - 1);
-        }
-        if (c + 1 < chunks) dequant(c + 1);  // perhaps the next tile's first chunk
       }
       wgmma_wait<0>();
       fence_acc(acc);
+      fence_frag(a0);
+      fence_frag(a1);
       release(c - 1);
 
-      // epilogue: scale the f32 sums, cast once, stage 64 x 64 boxes in
-      // swizzled shared memory, store each with TMA (clipped at m and n)
-      if (m0 + wg * 64 < m) {
+      // epilogue: the thread holds y[m][n], y[m][n + 1] for its columns n =
+      // n0 + 64 wg + 16 wq + 2 g and rows m = m0 + 8 j + 2 t (+ 1): scale the
+      // f32 sums, cast once, stage 64 x 64 boxes in swizzled shared memory,
+      // store each with TMA (clipped at m and n)
+      const int ncol = n0 + 64 * wg + 16 * wq + 2 * g;
+      const float s0 = ncol < n ? __ldg(scale + ncol) : 0.f;  // n is even
+      const float s1 = ncol < n ? __ldg(scale + ncol + 1) : 0.f;
+      if (n0 + 64 * wg < n) {
         const uint32_t ybuf = base + kSmemY + wg * 2 * kYBytes;
+        const uint32_t col = ((2 * wq + g / 4) << 4) + (g % 4) * 4;  // before the swizzle
 #pragma unroll
-        for (int ch = 0; ch < kWN / kYBox; ++ch) {
-          if (n0 + ch * kYBox < n) {
-            float sc[16];  // the box's scales, all loads in flight together
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj) {
-              const int col = n0 + ch * kYBox + 8 * jj + 2 * (lane % 4);
-              sc[2 * jj] = col < n ? __ldg(scale + col) : 0.f;
-              sc[2 * jj + 1] = col < n ? __ldg(scale + col + 1) : 0.f;  // n is even
-            }
+        for (int bx = 0; bx < kTM / kYBox; ++bx) {
+          if (m0 + bx * kYBox < m) {
             const uint32_t yb = ybuf + (stores & 1) * kYBytes;
             if (tid == 0 && stores >= 2) {
               // the store that last read this buffer is done reading it
@@ -632,15 +645,16 @@ __global__ void __launch_bounds__(kWThreads, 1)
             warpgroup_sync(1 + wg);
 #pragma unroll
             for (int jj = 0; jj < 8; ++jj) {
-              const int j = ch * 8 + jj;
-              const float s0 = sc[2 * jj], s1 = sc[2 * jj + 1];
-              const uint32_t at = yb + r0 * 128 + ((jj ^ (r0 % 8)) * 16) + (lane % 4) * 4;
-              st_shared_u32(at, pack_bf16(acc[4 * j] * s0, acc[4 * j + 1] * s1));
-              st_shared_u32(at + 8 * 128, pack_bf16(acc[4 * j + 2] * s0, acc[4 * j + 3] * s1));
+              const int j = bx * 8 + jj;
+              const int r = 8 * jj + 2 * t;  // the box's rows r, r + 1
+              const uint32_t at0 = yb + r * 128 + (col ^ ((r & 7) << 4));
+              const uint32_t at1 = yb + (r + 1) * 128 + (col ^ (((r + 1) & 7) << 4));
+              st_shared_u32(at0, pack_bf16(acc[4 * j] * s0, acc[4 * j + 2] * s1));
+              st_shared_u32(at1, pack_bf16(acc[4 * j + 1] * s0, acc[4 * j + 3] * s1));
             }
             fence_async_smem();
             warpgroup_sync(1 + wg);
-            if (tid == 0) tma_store_2d(&tm_y, yb, n0 + ch * kYBox, m0 + wg * 64);
+            if (tid == 0) tma_store_2d(&tm_y, yb, n0 + 64 * wg, m0 + bx * kYBox);
             ++stores;
           }
         }
@@ -731,10 +745,10 @@ int af2_quant_matmul_wgmma(const void* x, const void* qw, const void* scale, voi
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tm_x, tm_q, tm_y;
-  if (!encode_2d(encode, &tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, m, k, 2, kWM, kWK,
+  if (!encode_2d(encode, &tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, m, k, 2, kTM, kWK,
                  CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode_2d(encode, &tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, qw, k, n, 1, kWK, kWN,
-                 CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode_2d(encode, &tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, qw, k, n, 1, kWK, kTN,
+                 CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_2d(encode, &tm_y, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, y, m, n, 2, kYBox, kYBox,
                  CU_TENSOR_MAP_SWIZZLE_128B)) {
     return (int)cudaErrorInvalidValue;
@@ -747,8 +761,8 @@ int af2_quant_matmul_wgmma(const void* x, const void* qw, const void* scale, voi
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmemBytes);
   }
   if (e != cudaSuccess) return (int)e;
-  const int64_t tiles_n = (n + kWN - 1) / kWN;
-  const int64_t tiles = (m + kWM - 1) / kWM * tiles_n;
+  const int64_t tiles_n = (n + kTN - 1) / kTN;
+  const int64_t tiles = (m + kTM - 1) / kTM * tiles_n;
   if (tiles > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   const int64_t per_block = (tiles + sms - 1) / sms;  // a run of tiles a block
   const int grid = (int)((tiles + per_block - 1) / per_block);

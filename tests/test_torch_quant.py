@@ -190,7 +190,7 @@ def test_quant_ablation_variants_match_the_source():
     from alphafold2_tpu_torch.telemetry import quant_ablation
 
     sources = quant_ablation.variants()
-    assert set(sources) == {"base", "no_dequant", "no_epilogue", "no_store", "counters"}
+    assert set(sources) == {"base", "no_convert", "no_epilogue", "no_store", "counters"}
     assert len({s for s in sources.values()}) == len(sources)
     assert "af2_ablation_counters" in sources["counters"]
 
