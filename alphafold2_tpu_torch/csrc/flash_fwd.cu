@@ -6,8 +6,9 @@
 //   * B2f  `flash_attention_fused` -> `_forward_fused` ->
 //     `_make_fused_fwd_kernel`: the same plus an optional 2-D (BH, i, j)
 //     bias tile and an optional sigmoid output gate (BH, i, dh).
-// Each dtype has one template, <DH, GATED, BIAS2D>; the (false, false)
-// instantiations are B1f. B1f and B2f keep their own C entry points.
+// B3's forward (`flash_attention_lse`) is B1f with lse an output. Each kernel
+// is one template <.., GATED, BIAS2D>; the (false, false) instantiations are
+// B1f.
 //
 // What they compute (the TPU kernels' contract): s = scale * q.k + bias, an
 // online softmax whose running max and sum stay in f32 (finite sentinel
@@ -15,29 +16,50 @@
 // output written in the input type and lse = m + log(l) per row. A row with
 // no unmasked key gets a zero output and lse = +inf.
 //
-// What bounds them on an H100: 4 * BH * i * j * dh operations against
-// (BH * (i + 2j) * dh) elements moved, so at the trunk's shapes (i, j >=
-// 384, dh = 64) the work is bound by operations, not bytes.
+// What bounds them on an H100: 4 * BH * i * j * dh operations against the
+// inputs read once and the outputs written once. The crosses and B3's hops
+// are bound by operations; the pair passes (i = j = 384) by bytes, above all
+// with a 2-D f32 bias, which is three quarters of what such a call moves.
 //
-// bf16 (the served dtype): both products run on the tensor cores with
-// `mma.sync.m16n8k16` (bf16 in, f32 accumulate). A block of 8 warps owns
-// 128 query rows, 16 per warp; the warp keeps its q fragments, its score
-// tile and its f32 output accumulator in registers, and the block stages
-// 64-key K and V tiles in shared memory (rows padded by 8 elements, so the
-// fragment loads hit 32 distinct banks). The probabilities are rounded to
-// bf16 for the P.V product, as FlashAttention does; the softmax statistics
-// stay in f32. wgmma, TMA and a pipelined K/V ring are the next step.
+// Three kernels, one per route (`ops/flash_kernel.py route`):
+//
+// wgmma (bf16, dh = 64, every operand TMA loads addressable: every served
+// shape): persistent blocks, one per SM, each walking (bh, 128-row query
+// tile) tiles in turn.
+//  - Warp 0 is the producer. For each tile it loads the Q tile by TMA into
+//    one of two buffers (the next tile's Q lands while this tile's epilogue
+//    runs), then streams 128-key stages through a ring of full and empty
+//    mbarriers: K and V tiles (3-D tensor maps (dh, n, BH), so a ragged last
+//    tile reads zeros, never the next head's rows), with BIAS2D the f32 bias
+//    tile (128 rows x 128 keys, four 128-byte swizzled boxes of 32 keys), and
+//    the key-side bias in log2 units with -inf past len_j, written by the
+//    warp's 32 lanes.
+//  - Two consumer warpgroups own 64 query rows each. S = Q.K^T is one
+//    wgmma.m64n128k16 per 16 of dh with both operands in shared memory
+//    (K-major). The online softmax runs on S in f32 registers (exp2 with
+//    scale * log2(e) folded into one FMA); P, rounded to bf16 as
+//    FlashAttention does, stays in registers as the A operand of O += P.V,
+//    wgmma.m64n64k16 with V as the MN-major (transposed) B operand. The next
+//    stage's Q.K^T is issued right behind this stage's P.V, so the two run
+//    back to back while the other warpgroup does its softmax.
+//  - The epilogue normalizes, applies the gate's sigmoid to the f32 result
+//    and writes out and lse from registers.
+//
+// mma_sync (bf16 shapes the wgmma route does not take: dh 16 or 32, a 2-D
+// bias with j % 4 != 0 or off a 16-byte boundary): `mma.sync.m16n8k16`. A
+// block of 8 warps owns 128 query rows, 16 per warp; the warp keeps its q
+// fragments, its score tile and its f32 output accumulator in registers,
+// and the block stages 64-key K and V tiles in shared memory (rows padded by
+// 8 elements, so the fragment loads hit 32 distinct banks). The flattened
+// (bh, query tile) index rides gridDim.x.
 //
 // f32: one thread per query row on the CUDA cores in f32 FMAs (the tensor
 // cores would round to TF32), K/V tiles staged as f32 in shared memory.
 //
-// Both: the flattened (bh, 128-row query tile) index rides gridDim.x
-// (gridDim.y stops at 65,535; the flat cross-attention has 1,152 tiles per
-// head row). Unlike the TPU kernel, no query tile waits on another (each
-// block owns its rows and its lse entries), and nothing is padded: the
-// ragged last query and key tiles are masked here, with no padded copies in
-// device memory. Offsets are 64-bit: a served batch of 32 at L = 384 has
-// more than 2^31 query elements.
+// Unlike the TPU kernel, no query tile waits on another (each block owns its
+// rows and its lse entries), and nothing is padded in device memory: the
+// ragged last query and key tiles are masked here. Offsets are 64-bit: a
+// served batch of 32 at L = 384 has more than 2^31 query elements.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,12 +67,25 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
+using af2::EncodeTiledFn;
+using af2::encode_tiled;
+using af2::gmma_desc;
+using af2::mbar_arrive;
+using af2::mbar_expect_tx;
+using af2::mbar_init;
+using af2::mbar_wait;
 using af2::mma_bf16;
 using af2::pack_bf16;
+using af2::smem_u32;
+using af2::tma_load_3d;
+using af2::wgmma_commit;
+using af2::wgmma_fence;
+using af2::wgmma_wait;
 
 constexpr int kBlockQ = 128;   // query rows per block (both kernels)
 constexpr int kBlockK = 64;    // keys staged in shared memory per step
@@ -58,7 +93,7 @@ constexpr float kM0 = -1e30f;  // running-max sentinel (TPU kernel's _M0)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// --- bf16: tensor cores ----------------------------------------------------
+// --- bf16, the mma_sync route: tensor cores ---------------------------------
 
 constexpr int kWarps = kBlockQ / 16;  // one m16 row slab per warp
 constexpr int kPad = 8;               // smem row padding, in elements
@@ -338,20 +373,397 @@ __global__ void __launch_bounds__(kBlockQ)
   lse[qrow] = l > 0.f ? m + logf(l) : INFINITY;
 }
 
-// --- launch ----------------------------------------------------------------
+// --- bf16, the wgmma route: TMA ring, wgmma, persistent blocks ---------------
+
+constexpr int kWM = 128;            // query rows a tile: two consumer warpgroups of 64
+constexpr int kWN = 128;            // keys a stage: the N of Q.K^T, the K of P.V
+constexpr int kWDH = 64;            // the head width of the route: one 128-byte row
+constexpr int kWThreads = 384;      // warpgroup 0: the producer warp; 1 and 2: consumers
+constexpr int kConsumerWarps = 8;
+constexpr int kLightRegs = 56;      // setmaxnreg: warpgroup 0 gives registers to
+constexpr int kConsumerRegs = 224;  // the consumers' S, O and P fragments
+constexpr int kQTile = kWM * kWDH * 2;            // 16 KB
+constexpr int kKVTile = kWN * kWDH * 2;           // 16 KB, K or V
+constexpr int kBiasBox = 32;                      // keys of a 2-D bias box: 128-byte rows
+constexpr int kBiasBoxBytes = kWM * kBiasBox * 4;  // 16 KB
+constexpr int kVLbo = 8192;  // V's descriptor: the stride of 64-column chunks (one here)
+
+// shared memory of one block: two Q buffers, the ring's stages (K, V, and
+// with BIAS2D the 2-D bias tile), the stages' key-side bias, the barriers
+template <bool BIAS2D>
+struct WgmmaSmem {
+  static constexpr int kStages = BIAS2D ? 2 : 4;
+  static constexpr int kStage = 2 * kKVTile + (BIAS2D ? (kWN / kBiasBox) * kBiasBoxBytes : 0);
+  static constexpr int kRing = 2 * kQTile;
+  static constexpr int kKeyBias = kRing + kStages * kStage;
+  static constexpr int kBars = kKeyBias + kStages * kWN * 4;
+  static constexpr int kBytes = kBars + 8 * (2 * kStages + 4) + 1024;  // + alignment
+  static_assert(kBytes <= 232448, "over the 227 KB a block may use");
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keeps the compiler from moving register reads across a wgmma wait (and
+// keeps a register operand live until the wgmma reading it is done)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#define AF2_D8(i)                                                                \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128 f32, 64 a thread) (+)= A (64 x 16 bf16) . B (16 x 128 bf16),
+// both K-major in shared memory; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : AF2_D8(0), AF2_D8(8), AF2_D8(16), AF2_D8(24), AF2_D8(32), AF2_D8(40), AF2_D8(48),
+        AF2_D8(56)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64 f32, 32 a thread) += A (64 x 16 bf16, from registers: a warp's
+// 16 rows, mma.m16n8k16's A layout) . B (16 x 64 bf16, MN-major in shared
+// memory: the transpose bit)
+__device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], const uint32_t* a,
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : AF2_D8(0), AF2_D8(8), AF2_D8(16), AF2_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef AF2_D8
+
+template <bool GATED, bool BIAS2D>
+__global__ void __launch_bounds__(kWThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_bias,  // BIAS2D only
+                           const float* __restrict__ key_bias,          // (BH, j), !BIAS2D
+                           const __nv_bfloat16* __restrict__ gate,
+                           __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                           int len_i, int len_j, int n_qtiles, int64_t tiles,
+                           float scale_log2) {
+  using L = WgmmaSmem<BIAS2D>;
+  constexpr int S = L::kStages;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms are 1024-byte aligned
+  uint8_t* const smem = smem_raw + (base - raw);
+  float* const kbias = reinterpret_cast<float*>(smem + L::kKeyBias);
+  const uint32_t bars = base + L::kBars;
+  auto full = [&](int c) { return bars + 8 * (c % S); };             // stage c landed
+  auto empty = [&](int c) { return bars + 8 * (S + c % S); };        // stage c read
+  auto qfull = [&](int n) { return bars + 8 * (2 * S + (n & 1)); };  // tile n's Q landed
+  auto qempty = [&](int n) { return bars + 8 * (2 * S + 2 + (n & 1)); };  // and read
+  // the phase parity a wait expects (empty slots: the previous round's,
+  // which a fresh barrier counts as completed)
+  auto ring = [](int c) { return (uint32_t)((c / S) & 1); };
+  auto qring = [](int n) { return (uint32_t)((n >> 1) & 1); };
+  auto stage = [&](int c) { return (uint32_t)(L::kRing + (c % S) * L::kStage); };  // offset
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int nk = (len_j + kWN - 1) / kWN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 32);  // the producer warp's lanes, and the TMA bytes
+      mbar_init(empty(s), kConsumerWarps);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(qfull(b), 1);
+      mbar_init(qempty(b), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLightRegs));
+    if (warp == 0) {
+      // the producer: chunk c is key stage c of the block's tile sequence
+      int c = 0, n = 0;
+      for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+        const int bh = (int)(tile / n_qtiles);
+        const int row0 = (int)(tile % n_qtiles) * kWM;
+        if (lane == 0) {
+          mbar_wait(qempty(n), qring(n) ^ 1);
+          mbar_expect_tx(qfull(n), kQTile);
+          tma_load_3d(base + (n & 1) * kQTile, &tm_q, qfull(n), 0, row0, bh);
+        }
+        for (int kk = 0; kk < nk; ++kk, ++c) {
+          const int k0 = kk * kWN;
+          mbar_wait(empty(c), ring(c) ^ 1);
+          float* kb = kbias + (c % S) * kWN;
+#pragma unroll
+          for (int e = 0; e < kWN / 32; ++e) {
+            const int key = k0 + 32 * e + lane;
+            float b = -INFINITY;
+            if (key < len_j) b = BIAS2D ? 0.f : key_bias[(int64_t)bh * len_j + key] * kLog2e;
+            kb[32 * e + lane] = b;
+          }
+          const uint32_t st = base + stage(c);
+          if (lane == 0) {
+            mbar_expect_tx(full(c), L::kStage);
+            tma_load_3d(st, &tm_k, full(c), 0, k0, bh);
+            tma_load_3d(st + kKVTile, &tm_v, full(c), 0, k0, bh);
+            if (BIAS2D) {
+#pragma unroll
+              for (int b = 0; b < kWN / kBiasBox; ++b) {
+                tma_load_3d(st + 2 * kKVTile + b * kBiasBoxBytes, &tm_bias, full(c),
+                            k0 + b * kBiasBox, row0, bh);
+              }
+            }
+          } else {
+            mbar_arrive(full(c));
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    // warpgroup wg owns the tile's rows 64 wg .. 64 wg + 63; a thread holds
+    // rows r and r + 8 (wgmma's accumulator layout: per 8 columns j, s[4j],
+    // s[4j + 1] are row r, columns 8j + 2t, 8j + 2t + 1; s[4j + 2], s[4j + 3]
+    // row r + 8)
+    const int wg = warp / 4 - 1;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int r = 64 * wg + 16 * (warp % 4) + g;
+    float s[64], o[32], m[2], l[2];
+    uint32_t p[32];
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // S = Q.K^T of stage c, issued
+    auto qk = [&](uint32_t qa, int c) {
+      const uint32_t ka = base + stage(c);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kWDH / 16; ++ks) {
+        wgmma_m64n128k16_ss(s, gmma_desc(qa + 32 * ks, 16, 1024), gmma_desc(ka + 32 * ks, 16, 1024),
+                            ks);
+      }
+      wgmma_commit();
+    };
+    // the online softmax on stage c's S, then O += P.V issued
+    auto softmax_pv = [&](int c) {
+      const float* kb = kbias + (c % S) * kWN;
+      const uint8_t* b2 = smem + stage(c) + 2 * kKVTile;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kWN / 8; ++j) {
+        const float2 kv = *reinterpret_cast<const float2*>(kb + 8 * j + 2 * t);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float b0 = kv.x, b1 = kv.y;
+          if (BIAS2D) {
+            // row r + 8h, columns 8j + 2t (+1) of the swizzled box j / 4
+            const float2 bb = *reinterpret_cast<const float2*>(
+                b2 + (j / 4) * kBiasBoxBytes + (r + 8 * h) * 128 +
+                (((2 * (j % 4) + t / 2) ^ g) << 4) + (t % 2) * 8);
+            b0 = fmaf(bb.x, kLog2e, b0);
+            b1 = fmaf(bb.y, kLog2e, b1);
+          }
+          s[4 * j + 2 * h] = fmaf(s[4 * j + 2 * h], scale_log2, b0);
+          s[4 * j + 2 * h + 1] = fmaf(s[4 * j + 2 * h + 1], scale_log2, b1);
+          mx[h] = fmaxf(mx[h], fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        alpha[h] = ex2(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < kWDH / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+#pragma unroll
+      for (int j = 0; j < kWN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float e0 = ex2(s[4 * j + 2 * h] - m[h]);
+          const float e1 = ex2(s[4 * j + 2 * h + 1] - m[h]);
+          l[h] += e0 + e1;
+          p[2 * j + h] = pack_bf16(e0, e1);
+        }
+      }
+      // keys 16 ks .. 16 ks + 15: the S fragments of columns 16 ks .. + 15,
+      // rounded to bf16, are the A fragment p[4 ks .. 4 ks + 3]
+      const uint32_t va = base + stage(c) + kKVTile;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kWN / 16; ++ks) {
+        wgmma_m64n64k16_rs_mn(o, &p[4 * ks], gmma_desc(va + 2048 * ks, kVLbo, 1024));
+      }
+      wgmma_commit();
+    };
+
+    int c = 0, n = 0;
+    for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+      const int bh = (int)(tile / n_qtiles);
+      const int row0 = (int)(tile % n_qtiles) * kWM;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      m[0] = m[1] = kM0;  // running max, log2 domain
+      l[0] = l[1] = 0.f;  // this thread's share of the running sum
+      const uint32_t qa = base + (n & 1) * kQTile + wg * (kQTile / 2);
+      mbar_wait(qfull(n), qring(n));
+      mbar_wait(full(c), ring(c));
+      qk(qa, c);
+      wgmma_wait<0>();
+      fence_regs(s);
+      // stage c's P.V and stage c + 1's Q.K^T run back to back; the loop
+      // body has no branch, and the epilogue sits after it (accumulator
+      // reads in a branch around the wgmma make ptxas serialize them)
+      for (int kk = 1; kk < nk; ++kk, ++c) {
+        softmax_pv(c);
+        mbar_wait(full(c + 1), ring(c + 1));
+        qk(qa, c + 1);
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(o);
+        fence_regs(p);
+        release(empty(c));
+      }
+      softmax_pv(c);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p);
+      release(empty(c));
+      ++c;
+      release(qempty(n));
+
+      // epilogue: rows r, r + 8 of the tile, columns 8j + 2t (+1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + r + 8 * h;
+        if (row < len_i) {
+          const int64_t qrow = (int64_t)bh * len_i + row;
+          const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+#pragma unroll
+          for (int j = 0; j < kWDH / 8; ++j) {
+            const int col = 8 * j + 2 * t;
+            float x0 = o[4 * j + 2 * h] * inv;
+            float x1 = o[4 * j + 2 * h + 1] * inv;
+            if (GATED) {
+              const __nv_bfloat162 gv =
+                  *reinterpret_cast<const __nv_bfloat162*>(gate + qrow * kWDH + col);
+              x0 *= 1.f / (1.f + expf(-__bfloat162float(gv.x)));
+              x1 *= 1.f / (1.f + expf(-__bfloat162float(gv.y)));
+            }
+            *reinterpret_cast<uint32_t*>(out + qrow * kWDH + col) = pack_bf16(x0, x1);
+          }
+          if (t == 0) lse[qrow] = l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : INFINITY;
+        }
+      }
+    }
+  }
+}
+
+// a (d2, d1, d0) row-major array of `el`-byte elements, cut in (1, box1,
+// box0) boxes, 128-byte swizzled (box0 * el = 128)
+bool encode_3d(EncodeTiledFn encode, CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+               int64_t d0, int64_t d1, int64_t d2, int el, int box0, int box1) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)(d0 * el), (cuuint64_t)(d0 * d1 * el)};
+  const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool GATED, bool BIAS2D>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* bias,
+                 const void* gate, void* out, void* lse, int64_t bh, int64_t len_i,
+                 int64_t len_j, float scale, cudaStream_t stream) {
+  using L = WgmmaSmem<BIAS2D>;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v, tm_bias;
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!encode_3d(encode, &tm_q, bf16, q, kWDH, len_i, bh, 2, kWDH, kWM) ||
+      !encode_3d(encode, &tm_k, bf16, k, kWDH, len_j, bh, 2, kWDH, kWN) ||
+      !encode_3d(encode, &tm_v, bf16, v, kWDH, len_j, bh, 2, kWDH, kWN)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  tm_bias = tm_k;  // unread without a 2-D bias
+  if (BIAS2D && !encode_3d(encode, &tm_bias, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, bias, len_j,
+                           len_i, bh, 4, kBiasBox, kWM)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<GATED, BIAS2D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int64_t n_qtiles = (len_i + kWM - 1) / kWM;
+  const int64_t tiles = bh * n_qtiles;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  flash_fwd_wgmma_kernel<GATED, BIAS2D><<<grid, kWThreads, L::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_bias, (const float*)bias, (const __nv_bfloat16*)gate,
+      (__nv_bfloat16*)out, (float*)lse, (int)len_i, (int)len_j, (int)n_qtiles, tiles,
+      scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// --- launch: the mma_sync and f32 routes -------------------------------------
 
 template <bool GATED, bool BIAS2D>
 int launch(int is_bf16, const void* q, const void* k, const void* v,
            const void* bias, const void* gate, void* out, void* lse,
            int64_t bh, int64_t len_i, int64_t len_j, int dh, float scale,
-           void* stream_ptr) {
+           cudaStream_t stream) {
   const int64_t n_qtiles = (len_i + kBlockQ - 1) / kBlockQ;
   const int64_t blocks = bh * n_qtiles;
-  if (blocks <= 0 || blocks > 2147483647LL || len_j <= 0) {
-    return (int)cudaErrorInvalidConfiguration;
-  }
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks);
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
 #define AF2_LAUNCH(DH_)                                                      \
   if (is_bf16) {                                                             \
     flash_fwd_bf16_mma_kernel<DH_, GATED, BIAS2D>                            \
@@ -380,38 +792,47 @@ int launch(int is_bf16, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// B1f. q (BH, i, dh); k, v (BH, j, dh) in f32 or bf16; bias (BH, j) f32;
-// out (BH, i, dh) in the input type; lse (BH, i) f32. bf16 pointers are
-// 16-byte aligned. Returns the CUDA error code of the launch (0 = launched).
-int af2_flash_fwd(const void* q, const void* k, const void* v,
-                  const void* bias, void* out, void* lse, int64_t bh,
-                  int64_t len_i, int64_t len_j, int dh, float scale,
-                  int is_bf16, void* stream) {
-  return launch<false, false>(is_bf16, q, k, v, bias, nullptr, out, lse, bh,
-                              len_i, len_j, dh, scale, stream);
+// B1f and B2f on the mma_sync (bf16) and f32 routes. q (BH, i, dh); k, v
+// (BH, j, dh) in f32 or bf16; bias (BH, i, j) f32 when bias2d, else (BH, j)
+// f32; gate (BH, i, dh) pre-sigmoid logits in the input type when gated
+// (else null); out (BH, i, dh) in the input type; lse (BH, i) f32. bf16 q,
+// k, v and gate are 16-byte aligned. Returns the CUDA error code of the
+// launch (0 = launched).
+int af2_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
+                  const void* gate, void* out, void* lse, int64_t bh, int64_t len_i,
+                  int64_t len_j, int dh, float scale, int is_bf16, int bias2d, int gated,
+                  void* stream_ptr) {
+  if (bh <= 0 || len_i <= 0 || len_j <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+#define AF2_ARGS is_bf16, q, k, v, bias, gate, out, lse, bh, len_i, len_j, dh, scale, stream
+  if (gated && bias2d) return launch<true, true>(AF2_ARGS);
+  if (gated) return launch<true, false>(AF2_ARGS);
+  if (bias2d) return launch<false, true>(AF2_ARGS);
+  return launch<false, false>(AF2_ARGS);
+#undef AF2_ARGS
 }
 
-// B2f. As B1f, with bias (BH, i, j) f32 when bias2d, and gate (BH, i, dh)
-// pre-sigmoid logits in the input type when gated (else null). At least
-// one of the two is set: the plain case is af2_flash_fwd.
-int af2_flash_fwd_fused(const void* q, const void* k, const void* v,
-                        const void* bias, const void* gate, void* out,
-                        void* lse, int64_t bh, int64_t len_i, int64_t len_j,
-                        int dh, float scale, int is_bf16, int bias2d,
-                        int gated, void* stream) {
-  if (gated && bias2d) {
-    return launch<true, true>(is_bf16, q, k, v, bias, gate, out, lse, bh,
-                              len_i, len_j, dh, scale, stream);
+// B1f and B2f on the wgmma route: bf16, dh = 64, as af2_flash_fwd, with q,
+// k, v 16-byte aligned and a 2-D bias 16-byte aligned with j % 4 == 0 (TMA's
+// 16-byte bases and row strides). Returns the CUDA error code of the launch
+// (0 = launched).
+int af2_flash_fwd_wgmma(const void* q, const void* k, const void* v, const void* bias,
+                        const void* gate, void* out, void* lse, int64_t bh, int64_t len_i,
+                        int64_t len_j, int dh, float scale, int bias2d, int gated,
+                        void* stream_ptr) {
+  if (bh <= 0 || len_i <= 0 || len_j <= 0 || dh != kWDH || len_i > 2147483647LL ||
+      len_j > 2147483647LL || bh > 2147483647LL ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0 ||
+      (bias2d && (len_j % 4 != 0 || (uintptr_t)bias % 16 != 0))) {
+    return (int)cudaErrorInvalidValue;
   }
-  if (gated) {
-    return launch<true, false>(is_bf16, q, k, v, bias, gate, out, lse, bh,
-                               len_i, len_j, dh, scale, stream);
-  }
-  if (bias2d) {
-    return launch<false, true>(is_bf16, q, k, v, bias, gate, out, lse, bh,
-                               len_i, len_j, dh, scale, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+#define AF2_ARGS q, k, v, bias, gate, out, lse, bh, len_i, len_j, scale, stream
+  if (gated && bias2d) return launch_wgmma<true, true>(AF2_ARGS);
+  if (gated) return launch_wgmma<true, false>(AF2_ARGS);
+  if (bias2d) return launch_wgmma<false, true>(AF2_ARGS);
+  return launch_wgmma<false, false>(AF2_ARGS);
+#undef AF2_ARGS
 }
 
 }  // extern "C"

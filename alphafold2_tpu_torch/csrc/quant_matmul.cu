@@ -70,18 +70,33 @@
 // f32: a 64 x 64 tile a block on the CUDA cores, 4 x 4 outputs a thread,
 // f32 FMAs (the tensor cores would round to TF32).
 
-#include <cuda.h>  // CUtensorMap and its enums only: no driver symbol is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
+using af2::EncodeTiledFn;
+using af2::encode_tiled;
+using af2::fence_async_smem;
+using af2::gmma_desc;
+using af2::mbar_arrive;
+using af2::mbar_expect_tx;
+using af2::mbar_init;
+using af2::mbar_wait;
 using af2::mma_bf16;
 using af2::pack_bf16;
+using af2::smem_u32;
+using af2::tma_load_2d;
+using af2::tma_store_2d;
+using af2::warpgroup_sync;
+using af2::wgmma_commit;
+using af2::wgmma_fence;
+using af2::wgmma_wait;
 
 // --- bf16, the cp_async route: mma.sync ------------------------------------
 
@@ -332,64 +347,6 @@ constexpr int kSmemBar = kSmemY + 4 * kYBytes;
 constexpr int kWSmemBytes = kSmemBar + 16 * kStages + 1024;  // + alignment
 static_assert(kWSmemBytes <= 232448, "over the 227 KB a block may use");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// until the phase of parity `parity` has completed. The loop stays inside
-// one asm statement: a loop the compiler sees as divergent before a wgmma
-// makes ptxas serialize the warpgroup's wgmma
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
-                                             int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
-               ::"l"((uint64_t)map), "r"(src), "r"(c0), "r"(c1)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// generic-proxy writes to shared memory, made visible to the async proxy
-// (wgmma operand reads, TMA stores)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// one of the two consumer warpgroups' own barrier (0 is __syncthreads)
-__device__ __forceinline__ void warpgroup_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
@@ -414,27 +371,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t* r) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle (atoms of 8 rows x
-// 128 B, 1024-byte aligned), K-major: sbo = the stride of 8-row groups (lbo
-// unused).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // a wgmma reads its register operand asynchronously: keeping the fragments
@@ -662,29 +598,6 @@ __global__ void __launch_bounds__(kWThreads, 1)
     }
     if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
-  }
-  return fn;
 }
 
 // a row-major (rows, cols) matrix of `el`-byte elements, cut in (box_rows,

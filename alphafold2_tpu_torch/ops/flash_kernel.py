@@ -19,10 +19,16 @@ bfloat16. The forwards return (out (BH, i, dh) in the input dtype, lse
 the backwards read as "every p of this row is 0". On CPU tensors each
 wrapper runs its plain version (`flash_fwd_plain`, `flash_bwd_plain`), on
 CUDA tensors it launches its kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu,
-built at first use) or raises: bfloat16 runs on the tensor cores
-(mma.sync, f32 accumulate), float32 on the CUDA cores in f32. `LAUNCHES`
-counts kernel launches per kernel (B3's under their own keys, though they
-are B1's kernels).
+built at first use) or raises: bfloat16 runs on the tensor cores (f32
+accumulate), float32 on the CUDA cores in f32.
+
+The forwards take one of three kernels by the shape of the call (`route`):
+"wgmma" (TMA ring, wgmma, persistent blocks) for bfloat16 at dh = 64
+wherever TMA can address the operands, "mma_sync" for the other bfloat16
+calls, "f32" for float32. A route is chosen, never fallen back to: a failed
+build or launch on any route raises. `LAUNCHES` counts kernel launches per
+wrapper (B3's under their own keys, though they are B1's kernels) and each
+forward launch again under its route's key, `flash_fwd_<route>`.
 """
 
 from __future__ import annotations
@@ -41,15 +47,18 @@ _M0 = -1e30
 
 # kernel launches since the last reset_launches(): one entry per kernel
 # (each backward wrapper launches a dq and a dkv kernel)
+ROUTES = ("wgmma", "mma_sync", "f32")  # the forward kernels
 LAUNCHES = {
     "flash_fwd": 0, "flash_fwd_fused": 0,
     "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     "flash_bwd_fused_dq": 0, "flash_bwd_fused_dkv": 0,
     "flash_fwd_lse": 0, "flash_bwd_lse_dq": 0, "flash_bwd_lse_dkv": 0,
+    **{f"flash_fwd_{r}": 0 for r in ROUTES},
 }
 
 SUPPORTED_DH = (16, 32, 64)
-_BLOCK_Q = 128  # query rows per CUDA block (csrc/flash_fwd.cu kBlockQ)
+WGMMA_DH = 64   # the head width of the wgmma route (csrc/flash_fwd.cu kWDH)
+_BLOCK_Q = 128  # query rows per CUDA block off the wgmma route (kBlockQ)
 
 
 def reset_launches() -> None:
@@ -63,6 +72,22 @@ def supported(i: int, j: int, dh: int) -> bool:
     accumulator live in registers) and non-empty axes. Any length is
     fine: K/V stream through shared memory in 64-key tiles."""
     return dh in SUPPORTED_DH and i >= 1 and j >= 1
+
+
+def route(q, k, v, bias, gate=None) -> str:
+    """Which forward kernel a call on these arguments runs. "f32" for
+    float32. For bfloat16, "wgmma" at dh = 64 where TMA can address every
+    operand it loads: q, k, v (and a gate) start 16-byte aligned, which
+    `_check` requires of every bfloat16 call, with 128-byte rows; a 2-D f32
+    bias also needs a 16-byte aligned base and 16-byte rows (j % 4 == 0).
+    The key-side bias is read by plain loads. "mma_sync" otherwise."""
+    if q.dtype == torch.float32:
+        return "f32"
+    if q.shape[-1] != WGMMA_DH:
+        return "mma_sync"
+    if bias.dim() == 3 and (k.shape[1] % 4 or bias.data_ptr() % 16):
+        return "mma_sync"
+    return "wgmma"
 
 
 # --- plain versions ------------------------------------------------------
@@ -202,14 +227,13 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("flash_fwd")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.af2_flash_fwd.argtypes = [
-        p, p, p, p, p, p, i64, i64, i64, i32, ctypes.c_float, i32, p,
+        p, p, p, p, p, p, p, i64, i64, i64, i32, ctypes.c_float, i32, i32, i32, p,
     ]
     lib.af2_flash_fwd.restype = i32
-    lib.af2_flash_fwd_fused.argtypes = [
-        p, p, p, p, p, p, p, i64, i64, i64, i32, ctypes.c_float, i32,
-        i32, i32, p,
+    lib.af2_flash_fwd_wgmma.argtypes = [
+        p, p, p, p, p, p, p, i64, i64, i64, i32, ctypes.c_float, i32, i32, p,
     ]
-    lib.af2_flash_fwd_fused.restype = i32
+    lib.af2_flash_fwd_wgmma.restype = i32
     return lib
 
 
@@ -248,30 +272,51 @@ def _check(q, k, v, bias, gate, bias2d):
             f"the H100 flash kernel does not support i={i}, j={j}, dh={dh} "
             f"(head widths {SUPPORTED_DH})"
         )
-    if BH * -(-i // _BLOCK_Q) > 2 ** 31 - 1:
-        raise ValueError(f"BH={BH}, i={i} exceeds the kernel grid")
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias), ("gate", gate)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        # the bf16 kernel moves K/V in 16-byte vectors
-        if t is not None and q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+        # the bf16 kernels move q, k, v and the gate in 16-byte vectors or TMA
+        # boxes; the f32 bias is read in floats or (`route`) by TMA
+        if (t is not None and t is not bias and q.dtype == torch.bfloat16
+                and t.data_ptr() % 16):
             raise ValueError(f"{name} must start 16-byte aligned for the bf16 kernel")
 
 
-def _launch_fwd(q, k, v, bias, scale, name):
-    """One launch of the B1f kernel, counted under LAUNCHES[name]."""
-    _check(q, k, v, bias, None, bias2d=False)
+def _check_grid(BH, i):
+    """The grid of a kernel with a block per (bh, 128-row tile): every
+    kernel but the wgmma route's, whose blocks are persistent."""
+    if BH * -(-i // _BLOCK_Q) > 2 ** 31 - 1:
+        raise ValueError(f"BH={BH}, i={i} exceeds the kernel grid")
+
+
+def launch_fwd(q, k, v, bias, scale, gate, name, which=None):
+    """One launch of a forward kernel on the current stream, counted under
+    LAUNCHES[name] and LAUNCHES["flash_fwd_<route>"]: the kernel `route`
+    picks, or the route `which` names (measurements compare two routes on
+    one call; the C entry refuses a call its route cannot take). Returns
+    (out, lse)."""
+    bias2d = bias.dim() == 3
+    _check(q, k, v, bias, gate, bias2d)
+    which = which or route(q, k, v, bias, gate)
+    if which not in ROUTES or (which == "f32") != (q.dtype == torch.float32):
+        raise ValueError(f"no {which!r} route for {q.dtype} (routes {ROUTES})")
     BH, i, dh = q.shape
+    if which != "wgmma":
+        _check_grid(BH, i)
     out = torch.empty_like(q)
     lse = torch.empty((BH, i), dtype=torch.float32, device=q.device)
-    rc = _lib().af2_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), BH, i, k.shape[1], dh, float(scale),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    cuda_build.check_launch(rc, name)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            gate.data_ptr() if gate is not None else None, out.data_ptr(), lse.data_ptr(),
+            BH, i, k.shape[1], dh, float(scale))
+    flags = (int(bias2d), int(gate is not None),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if which == "wgmma":
+        rc = _lib().af2_flash_fwd_wgmma(*args, *flags)
+    else:
+        rc = _lib().af2_flash_fwd(*args, int(which == "mma_sync"), *flags)
+    cuda_build.check_launch(rc, f"{name} ({which} route)")
     LAUNCHES[name] += 1
+    LAUNCHES[f"flash_fwd_{which}"] += 1
     return out, lse
 
 
@@ -280,7 +325,7 @@ def flash_fwd(q, k, v, bias, scale):
     Returns (out, lse)."""
     if dispatch.on_cpu("flash attention", q, k, v, bias):
         return flash_fwd_plain(q, k, v, bias, scale)
-    return _launch_fwd(q, k, v, bias, scale, "flash_fwd")
+    return launch_fwd(q, k, v, bias, scale, None, "flash_fwd")
 
 
 def flash_fwd_lse(q, k, v, bias, scale):
@@ -290,7 +335,7 @@ def flash_fwd_lse(q, k, v, bias, scale):
     (out, lse)."""
     if dispatch.on_cpu("flash attention", q, k, v, bias):
         return flash_fwd_plain(q, k, v, bias, scale)
-    return _launch_fwd(q, k, v, bias, scale, "flash_fwd_lse")
+    return launch_fwd(q, k, v, bias, scale, None, "flash_fwd_lse")
 
 
 def flash_fwd_fused(q, k, v, bias, scale, gate: Optional[torch.Tensor] = None):
@@ -298,29 +343,16 @@ def flash_fwd_fused(q, k, v, bias, scale, gate: Optional[torch.Tensor] = None):
     a (BH, i, dh) pre-sigmoid output gate applied to the f32 result before
     the one cast. At least one of the two: the plain case is `flash_fwd`.
     Returns (out, lse)."""
-    bias2d = bias.dim() == 3
-    if not bias2d and gate is None:
+    if bias.dim() != 3 and gate is None:
         raise ValueError("flash_fwd_fused needs a 2-D bias or a gate; use flash_fwd")
     if dispatch.on_cpu("flash attention", q, k, v, bias, gate):
         return flash_fwd_plain(q, k, v, bias, scale, gate)
-    _check(q, k, v, bias, gate, bias2d=bias2d)
-    BH, i, dh = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((BH, i), dtype=torch.float32, device=q.device)
-    rc = _lib().af2_flash_fwd_fused(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        gate.data_ptr() if gate is not None else None,
-        out.data_ptr(), lse.data_ptr(), BH, i, k.shape[1], dh, float(scale),
-        int(q.dtype == torch.bfloat16), int(bias2d), int(gate is not None),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    cuda_build.check_launch(rc, "flash_fwd_fused")
-    LAUNCHES["flash_fwd_fused"] += 1
-    return out, lse
+    return launch_fwd(q, k, v, bias, scale, gate, "flash_fwd_fused")
 
 
 def _check_bwd(q, k, v, bias, gate, bias2d, out, lse, g):
     _check(q, k, v, bias, gate, bias2d)
+    _check_grid(q.shape[0], q.shape[1])
     for name, t in (("out", out), ("g", g)):
         if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous tensor of q's shape and dtype")

@@ -9,11 +9,17 @@ each phase prints its seconds):
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
      float32 matmuls and convolutions are set to full float32 (TF32 off);
   2. the build: every CUDA source of the port, compiled from the checkout
-     (one nvcc per source, all started together);
+     (one nvcc per source, all started together), naming each kernel that
+     spills and printing any ptxas C7518 line (wgmma serialized);
   3. each kernel against its plain PyTorch version on the same inputs, at
      the main paths' shapes in bf16 and at ragged, fully masked and
      float32 edge shapes, with kernel, plain, library and bound times:
-     the flash forwards at the serving shapes (L = 384), the flash
+     the flash forwards at the serving shapes (L = 384), all on their
+     wgmma route (timed beside the same call on the mma_sync route), and
+     at edge cases of each route (wgmma: ragged 131 x 120 with a fully
+     masked bh and, with a 2-D bias, a fully masked query row, in every
+     gate and bias mode; mma_sync: dh 16, a 2-D bias with j = 77; f32),
+     each row naming its route; the flash
      backwards (B1b ungated, B2b gated, one 2-D-bias case) at the training
      shapes (pair axial at L = 128 and 256); the int8 product (B4) at the
      served int8 request's ten dense-layer shapes (L = 384), all on its
@@ -35,9 +41,9 @@ each phase prints its seconds):
          64, bf16) on three requests, L = 128, 256, 384, each with a
          seeded 20-row MSA, 200 MDS iterations, after one untimed warm-up
          request; latency, finiteness and kernel launch counts (6 per
-         trunk layer);
+         trunk layer, every one on the flash forward's wgmma route);
      (c) the same with attn_gate=True at depth 1, where the fused kernel
-         carries every attention;
+         carries every attention (wgmma route);
      (d) the same with int8 weights through `resident_params`: 22 int8
          products a trunk layer, every one on B4's wgmma route (none on
          cp_async), the flash launches unchanged;
@@ -67,7 +73,8 @@ each phase prints its seconds):
          `predict_structure(model_apply_fn=...)` with 4 shards on one card,
          after a warm-up: latency beside the dense request, finiteness,
          agreement with the dense request (within 1.5x the dense request's
-         distance from the f32 request), and 40 B1f and 32 B3 launches;
+         distance from the f32 request), and 40 B1f and 32 B3 launches,
+         all 72 on the wgmma route;
      (c) the gradient of sum(ring_attention(...)^2), f32, 4 shards, one
          shard's keys masked, card against CPU: B3's backward;
      (d) (b) over distinct cards when the host has two or more;
@@ -229,6 +236,8 @@ def phase_build():
                 kernel = line.split("Function properties for")[-1].strip()
             elif "bytes spill stores" in line and not line.strip().startswith("0 bytes stack"):
                 log(f"[build]   {kernel}: {line.strip()}")
+            if "C7518" in line:  # ptxas serialized a kernel's wgmma
+                log(f"[build]   {b.name}.cu: {line.strip()}")
     log(f"[build] all sources built in {seconds:.1f} s")
     RECORD["phases"]["build_s"] = seconds
 
@@ -309,6 +318,18 @@ def library_ms(q, k, v, bias, gate, scale, reps):
     return sdpa_mask_ms(q, k, v, dense_mask(q, k, bias), scale, reps)
 
 
+def counted_fwd(name, which, fn, args):
+    """One call of a forward wrapper, which must count one launch under its
+    own key and one under its route's (`flash_kernel.route`), none else."""
+    before = dict(flash_kernel.LAUNCHES)
+    out = fn(*args)
+    sync()
+    counted = {key: n - before[key] for key, n in flash_kernel.LAUNCHES.items()}
+    if counted != {key: int(key in (name, f"flash_fwd_{which}")) for key in counted}:
+        fail(f"{name} did not count one launch on its {which} route: {counted}")
+    return out
+
+
 def check_kernel(name, label, BH, i, j, dh, dtype, *, timed, masked_bh=(),
                  gated=False, bias2d=False):
     q, k, v, bias, gate = make_inputs(BH, i, j, dh, dtype, masked_bh=masked_bh,
@@ -316,11 +337,8 @@ def check_kernel(name, label, BH, i, j, dh, dtype, *, timed, masked_bh=(),
     scale = dh ** -0.5
     fn = getattr(flash_kernel, name)
     args = (q, k, v, bias, scale) + ((gate,) if name == "flash_fwd_fused" else ())
-    before = flash_kernel.LAUNCHES[name]
-    out, lse = fn(*args)
-    sync()
-    if flash_kernel.LAUNCHES[name] != before + 1:
-        fail(f"{name} did not count its launch")
+    which = flash_kernel.route(q, k, v, bias, gate)
+    out, lse = counted_fwd(name, which, fn, args)
     ref_out, ref_lse = flash_kernel.flash_fwd_plain(q, k, v, bias, scale, gate)
     sync()
     # f32: both sides compute in f32 in another order. bf16: the kernel
@@ -340,12 +358,16 @@ def check_kernel(name, label, BH, i, j, dh, dtype, *, timed, masked_bh=(),
         zero_ok = True
     ok = err <= tol and lse_err <= 1e-4 and empty_ok and zero_ok and torch.isfinite(out).all()
     row = {"kernel": name, "case": label, "shape": [BH, i, j, dh], "dtype": str(dtype),
-           "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err, "ok": bool(ok)}
+           "route": which, "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
+           "ok": bool(ok)}
     if timed:
         t_ops, t_bytes = bound_terms(q, k, v, bias, gate)
         est = max(1e-3, max(t_ops, t_bytes) * 50 / 1e3)  # rough seconds
         reps = max(2, min(20, int(1.0 / est)))
         row["kernel_ms"] = time_ms(lambda: fn(*args), reps)
+        if which == "wgmma":  # the same call on the kernel the wgmma route replaced
+            row["mma_sync_ms"] = time_ms(lambda: flash_kernel.launch_fwd(
+                q, k, v, bias, scale, gate, name, which="mma_sync"), reps)
         row["plain_ms"] = time_ms(lambda: flash_kernel.flash_fwd_plain(q, k, v, bias, scale, gate),
                                   max(1, reps // 4))
         row["library_ms"] = library_ms(q, k, v, bias, gate, scale, reps)
@@ -353,11 +375,12 @@ def check_kernel(name, label, BH, i, j, dh, dtype, *, timed, masked_bh=(),
         row["bound_ms"] = max(t_ops, t_bytes)
         row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
     times = "".join(
-        f" {key}={row[key]:.3f}" for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
+        f" {key}={row[key]:.3f}" for key in ("kernel_ms", "mma_sync_ms", "plain_ms",
+                                             "library_ms", "bound_ms")
         if row.get(key) is not None
     )
     log(f"[kernels] {name:15s} {label:22s} {str(tuple(row['shape'])):26s} "
-        f"{str(dtype).split('.')[-1]:8s} max|d|={err:.3e} (tol {tol:.3e}) "
+        f"{str(dtype).split('.')[-1]:8s} {which:8s} max|d|={err:.3e} (tol {tol:.3e}) "
         f"lse|d|={lse_err:.2e}{times} {'ok' if ok else 'FAIL'}")
     del q, k, v, bias, gate, out, lse, ref_out, ref_lse
     torch.cuda.empty_cache()
@@ -374,6 +397,11 @@ SLICE_SHAPES = {
 
 
 def phase_kernels():
+    """The flash forwards at the served shapes, timed, which must take the
+    wgmma route; then edge cases: ragged 131 x 120 (wgmma in every mode:
+    ragged i and j, a fully masked bh, with a 2-D bias a fully masked query
+    row, gated + 2-D bias), ragged 131 x 77 (wgmma, and with a 2-D bias the
+    mma_sync route: j % 4 != 0), dh 16 (mma_sync), f32."""
     rows = []
     for label, (BH, i, j) in SLICE_SHAPES.items():
         rows.append(check_kernel("flash_fwd", label, BH, i, j, 64, torch.bfloat16, timed=True))
@@ -381,7 +409,11 @@ def phase_kernels():
                                  torch.bfloat16, timed=True, gated=True))
     rows.append(check_kernel("flash_fwd_fused", "pair axial bias2d", 3072, 384, 384, 64,
                              torch.bfloat16, timed=True, bias2d=True))
+    served = [r for r in rows if r["route"] != "wgmma"]
+    if served:
+        fail("served shapes off the wgmma route: " + ", ".join(r["case"] for r in served))
     edges = [
+        ("ragged wgmma", 5, 131, 120, 64, torch.bfloat16, (1,)),
         ("ragged", 5, 131, 77, 64, torch.bfloat16, (1,)),
         ("ragged f32", 5, 131, 77, 64, torch.float32, (1,)),
         ("tiny i, long j", 3, 7, 1000, 32, torch.float32, ()),
@@ -398,6 +430,9 @@ def phase_kernels():
         rows.append(check_kernel("flash_fwd_fused", label + " gated bias2d", BH, i, j, dh,
                                  dtype, timed=False, masked_bh=masked, gated=True,
                                  bias2d=True))
+    wgmma_edges = [r for r in rows if r["case"].startswith("ragged wgmma")]
+    if any(r["route"] != "wgmma" for r in wgmma_edges):
+        fail("the ragged 131 x 120 edge cases left the wgmma route")
     RECORD["kernels"] = rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -666,11 +701,9 @@ def check_lse(label, BH, i, j, dh, dtype, *, timed, masked_bh=()):
     (bh) row with every key masked: zeros and +inf)."""
     q, k, v, bias, _ = make_inputs(BH, i, j, dh, dtype, masked_bh=masked_bh, seed=5)
     scale = dh ** -0.5
-    before = flash_kernel.LAUNCHES["flash_fwd_lse"]
-    out, lse = flash_kernel.flash_fwd_lse(q, k, v, bias, scale)
-    sync()
-    if flash_kernel.LAUNCHES["flash_fwd_lse"] != before + 1:
-        fail("flash_fwd_lse did not count its launch")
+    which = flash_kernel.route(q, k, v, bias)
+    out, lse = counted_fwd("flash_fwd_lse", which, flash_kernel.flash_fwd_lse,
+                           (q, k, v, bias, scale))
     ref_out, ref_lse = flash_kernel.flash_fwd_plain(q, k, v, bias, scale)
     ref_max = ref_out.float().abs().max().item()
     tol = 1e-5 * max(1.0, ref_max) if dtype == torch.float32 else BF16_ULP * ref_max
@@ -682,19 +715,23 @@ def check_lse(label, BH, i, j, dh, dtype, *, timed, masked_bh=()):
     for b in masked_bh:
         ok = ok and bool((out[b] == 0).all()) and bool(torch.isposinf(lse[b]).all())
     row = {"kernel": "flash_fwd_lse", "case": label, "shape": [BH, i, j, dh],
-           "dtype": str(dtype), "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
-           "ok": bool(ok)}
+           "dtype": str(dtype), "route": which, "max_abs_err": err, "tol": tol,
+           "lse_max_abs_err": lse_err, "ok": bool(ok)}
     if timed:
         t_ops, t_bytes = bound_terms(q, k, v, bias, None)
         row["kernel_ms"] = time_ms(lambda: flash_kernel.flash_fwd_lse(q, k, v, bias, scale), 20)
+        if which == "wgmma":
+            row["mma_sync_ms"] = time_ms(lambda: flash_kernel.launch_fwd(
+                q, k, v, bias, scale, None, "flash_fwd_lse", which="mma_sync"), 20)
         row["plain_ms"] = time_ms(lambda: flash_kernel.flash_fwd_plain(q, k, v, bias, scale), 3)
         row["library_ms"], row["library"] = lse_library_ms(q, k, v, bias, scale, 20)
         row["ops_ms"], row["bytes_ms"] = t_ops, t_bytes
         row["bound_ms"] = max(t_ops, t_bytes)
         row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
     times = "".join(f" {key}={row[key]:.3f}" for key in
-                    ("kernel_ms", "plain_ms", "library_ms", "bound_ms") if row.get(key) is not None)
-    log(f"[lse] {label:26s} {str((BH, i, j, dh)):26s} {str(dtype).split('.')[-1]:8s} "
+                    ("kernel_ms", "mma_sync_ms", "plain_ms", "library_ms", "bound_ms")
+                    if row.get(key) is not None)
+    log(f"[lse] {label:26s} {str((BH, i, j, dh)):26s} {str(dtype).split('.')[-1]:8s} {which:8s} "
         f"max|d|={err:.3e} (tol {tol:.3e}) lse|d|={lse_err:.2e}{times}"
         f"{' (' + row['library'] + ')' if timed else ''} {'ok' if ok else 'FAIL'}")
     del q, k, v, bias, out, lse, ref_out, ref_lse
@@ -792,6 +829,8 @@ def phase_lse_kernels():
         check_lse_bwd("ragged f32 dh 32", 5, 131, 77, 32, torch.float32, timed=False,
                       masked_bh=(1,)),
     ]
+    if rows[0]["route"] != "wgmma" or rows[1]["route"] != "wgmma":
+        fail("B3's forward at the served hop shape left the wgmma route")
     RECORD["lse_kernels"] = rows + bwd
     bad = [r for r in rows + bwd if not r["ok"]]
     if bad:
@@ -1237,33 +1276,37 @@ def phase_int8_vs_f32(cfg, L):
 
 def phase_main():
     f32 = Alphafold2Config(dim=256, depth=2, heads=8, dim_head=64, max_seq_len=64)
-    cpu_vs_card("a", f32, 64, {"flash_fwd": 12})
+    cpu_vs_card("a", f32, 64, {"flash_fwd": 12, "flash_fwd_f32": 12})
     cpu_vs_card("a int8", dataclasses.replace(f32, weight_dtype="int8"), 64,
-                {"flash_fwd": 12, "quant_matmul": 44, "quant_matmul_f32": 44})
+                {"flash_fwd": 12, "flash_fwd_f32": 12, "quant_matmul": 44,
+                 "quant_matmul_f32": 44})
     # max_seq_len 128: 75% of the 8 blocks active
     cpu_vs_card("a sparse", dataclasses.replace(f32, max_seq_len=128,
                                                 sparse_self_attn=(True, False)), 128,
-                {"flash_fwd": 10, "sparse_fwd": 2})
+                {"flash_fwd": 10, "flash_fwd_f32": 10, "sparse_fwd": 2})
     lengths = (128, 256, 384)
     cfg = Alphafold2Config(dim=256, depth=2, heads=8, dim_head=64, max_seq_len=384,
                            dtype=torch.bfloat16)
     # 6 attentions per layer reach the kernel: 2 pair axial, 2 MSA axial
-    # (tied rows off), 2 cross
-    served = serve_requests("b", cfg, lengths, {"flash_fwd": 6 * 2 * len(lengths)})
+    # (tied rows off), 2 cross; every served flash forward on the wgmma route
+    flash = 6 * 2 * len(lengths)
+    served = serve_requests("b", cfg, lengths, {"flash_fwd": flash, "flash_fwd_wgmma": flash})
     gated_cfg = dataclasses.replace(cfg, depth=1, attn_gate=True)
-    gated = serve_requests("c", gated_cfg, lengths, {"flash_fwd_fused": 6 * len(lengths)})
+    gated = serve_requests("c", gated_cfg, lengths, {"flash_fwd_fused": flash // 2,
+                                                     "flash_fwd_wgmma": flash // 2})
     # int8: 22 dense layers a trunk layer (6 pair axial, 6 MSA axial, 3 + 3
     # cross, 2 + 2 feed-forward), every one on the wgmma route; the
     # attention kernels unchanged
     int8_cfg = dataclasses.replace(cfg, weight_dtype="int8")
     int8 = serve_requests("d", int8_cfg, lengths,
-                          {"flash_fwd": 6 * 2 * len(lengths),
+                          {"flash_fwd": flash, "flash_fwd_wgmma": flash,
                            "quant_matmul": 22 * 2 * len(lengths),
                            "quant_matmul_wgmma": 22 * 2 * len(lengths)})
     # sparse layer 0: its 2 pair axial passes go sparse, the other 10 stay flash
     sparse_cfg = dataclasses.replace(cfg, sparse_self_attn=(True, False))
     sparse_run = serve_requests("e", sparse_cfg, lengths,
-                                {"flash_fwd": 10 * len(lengths), "sparse_fwd": 2 * len(lengths)})
+                                {"flash_fwd": 10 * len(lengths), "flash_fwd_wgmma": 10 * len(lengths),
+                                 "sparse_fwd": 2 * len(lengths)})
     phase_int8_vs_f32(int8_cfg, 128)
     return {"flash_fwd": served["flash_fwd"], "flash_fwd_fused": gated["flash_fwd_fused"],
             "quant_matmul_wgmma": int8["quant_matmul_wgmma"],
@@ -1434,7 +1477,8 @@ def phase_train():
     f32 = Alphafold2Config(dim=256, depth=2, heads=8, dim_head=64, max_seq_len=2048)
     three = 2 * f32.depth * 2 * 3  # two pair axial passes a layer, accum 2, 3 steps
     phase_train_parity("a", f32, 64, {name: three for name in
-                                      ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+                                      ("flash_fwd", "flash_fwd_f32", "flash_bwd_dq",
+                                       "flash_bwd_dkv")})
     # max_seq_len 128: 75% of the 8 blocks active; every layer sparse
     phase_train_parity("a sparse", dataclasses.replace(f32, max_seq_len=128,
                                                        sparse_self_attn=True), 128,
@@ -1444,14 +1488,14 @@ def phase_train():
     cfg = Alphafold2Config(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=2048,
                            dtype=torch.bfloat16)
     per = 2 * cfg.depth * tcfg.grad_accum  # two pair-axial attentions a layer
-    plain = {"flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per}
+    plain = {"flash_fwd": per, "flash_fwd_wgmma": per, "flash_bwd_dq": per, "flash_bwd_dkv": per}
     launches = {"flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     for L in (128, 256):
         counts = train_run("b", cfg, L, tcfg, 5, plain)
         for name in launches:
             launches[name] += counts[name]
     gated = train_run("c", dataclasses.replace(cfg, attn_gate=True), 128, tcfg, 2,
-                      {"flash_fwd_fused": per, "flash_bwd_fused_dq": per,
+                      {"flash_fwd_fused": per, "flash_fwd_wgmma": per, "flash_bwd_fused_dq": per,
                        "flash_bwd_fused_dkv": per})
     # train_pre's defaults, sparse, at crop 256 with max_seq_len 256: 66% of
     # the 16 blocks active (train_pre's own 2048 would make every block active)
@@ -1617,7 +1661,8 @@ def phase_sp_request(label, devices):
                                             **kw), L)
     sync()
     expect = {name: 0 for name in launches}
-    expect.update(flash_fwd=5 * P * cfg.depth, flash_fwd_lse=P * P * cfg.depth)
+    expect.update(flash_fwd=5 * P * cfg.depth, flash_fwd_lse=P * P * cfg.depth,
+                  flash_fwd_wgmma=(5 * P + P * P) * cfg.depth)
     d = {}
     ok = sp["finite"] and sp["shapes_ok"] and launches == expect
     for key in ("logits", "confidence", "distances"):
@@ -1677,7 +1722,8 @@ def phase_sp_ring_grad():
         ok = ok and errs[f"d{name}"] <= 1e-5 * max(1.0, gp.abs().max().item())
         ok = ok and bool(torch.isfinite(gc).all())
     expect = {name: 0 for name in launches}
-    expect.update(flash_fwd_lse=P * P, flash_bwd_lse_dq=P * P, flash_bwd_lse_dkv=P * P)
+    expect.update(flash_fwd_lse=P * P, flash_fwd_f32=P * P, flash_bwd_lse_dq=P * P,
+                  flash_bwd_lse_dkv=P * P)
     ok = ok and launches == expect
     log(f"[sp c] ring attention f32 grad, card vs cpu: {', '.join(f'{k} |d|={e:.2e}' for k, e in errs.items())}; "
         f"launches {launches} {'ok' if ok else 'FAIL'}")

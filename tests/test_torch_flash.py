@@ -308,3 +308,85 @@ def test_fused_needs_bias2d_or_gate_and_supported_shapes():
     assert not flash_kernel.supported(16, 16, 8)
     assert not flash_kernel.supported(16, 16, 128)
     assert not flash_kernel.supported(16, 0, 64)
+
+
+def _shaped(BH, i, j, dh, dtype=torch.bfloat16, bias2d=False, gated=False, bias_offset=0):
+    """Arguments of route() at any size without the memory: stride-0 views of
+    one element (route reads shapes, dtypes and the bias's base only)."""
+    one = lambda n, d, dt=dtype: torch.zeros(1, dtype=dt).expand(BH, n, d)  # noqa: E731
+    bias = (torch.zeros(1 + bias_offset)[bias_offset:].expand(BH, i, j) if bias2d
+            else torch.zeros(1 + bias_offset)[bias_offset:].expand(BH, j))
+    return one(i, dh), one(j, dh), one(j, dh), bias, one(i, dh) if gated else None
+
+
+# the served bf16 shapes at L = 384 (chip_smoke.py SLICE_SHAPES), the 2-D
+# bias pair case and the SP request's B3 hop, (BH, i, j)
+SERVED = {
+    "pair axial": ((3072, 384, 384), {}),
+    "cross pair<-msa": ((8, 147456, 7680), {}),
+    "cross msa<-pair": ((8, 7680, 147456), {}),
+    "pair axial gated": ((3072, 384, 384), {"gated": True}),
+    "cross pair<-msa gated": ((8, 147456, 7680), {"gated": True}),
+    "pair axial bias2d": ((3072, 384, 384), {"bias2d": True}),
+    "B3 hop L=384 P=4": ((8, 1920, 36864), {}),
+    "training pair L=128": ((1024, 128, 128), {}),
+}
+
+
+@pytest.mark.parametrize("case", list(SERVED))
+def test_route_takes_wgmma_on_every_served_shape(case):
+    (BH, i, j), kw = SERVED[case]
+    assert flash_kernel.route(*_shaped(BH, i, j, 64, **kw)) == "wgmma"
+
+
+@pytest.mark.parametrize("case,args,want", [
+    ("dh 16", dict(BH=4, i=20, j=20, dh=16), "mma_sync"),
+    ("dh 32", dict(BH=3, i=131, j=120, dh=32), "mma_sync"),
+    ("dh 32 bias2d", dict(BH=3, i=131, j=120, dh=32, bias2d=True), "mma_sync"),
+    ("bias2d ragged j 77", dict(BH=5, i=131, j=77, dh=64, bias2d=True), "mma_sync"),
+    ("bias2d misaligned base", dict(BH=5, i=131, j=120, dh=64, bias2d=True, bias_offset=1),
+     "mma_sync"),
+    ("key bias ragged j 77", dict(BH=5, i=131, j=77, dh=64), "wgmma"),
+    ("key bias misaligned base", dict(BH=5, i=131, j=120, dh=64, bias_offset=1), "wgmma"),
+    ("gated bias2d", dict(BH=5, i=131, j=120, dh=64, bias2d=True, gated=True), "wgmma"),
+    ("f32", dict(BH=5, i=131, j=120, dh=64, dtype=torch.float32), "f32"),
+    ("f32 bias2d", dict(BH=5, i=131, j=120, dh=64, dtype=torch.float32, bias2d=True), "f32"),
+])
+def test_route_off_the_served_shapes(case, args, want):
+    """dh 16 and 32 and a 2-D bias TMA cannot address (16-byte rows need j
+    % 4 == 0, a 16-byte base) take mma_sync; the key-side bias is read by
+    plain loads, so its length and base do not matter; f32 takes f32."""
+    assert flash_kernel.route(*_shaped(**args)) == want
+
+
+def test_cpu_tensors_never_call_route(monkeypatch):
+    """On CPU tensors the forwards run their plain version before any route
+    is decided, and build or launch nothing."""
+    def refused(*a, **k):
+        raise AssertionError("a CPU call reached the CUDA route")
+
+    monkeypatch.setattr(flash_kernel, "route", refused)
+    monkeypatch.setattr(flash_kernel, "launch_fwd", refused)
+    monkeypatch.setattr(cuda_build, "build", refused)
+    monkeypatch.setattr(cuda_build, "library", refused)
+    flash_kernel.reset_launches()
+    q, k, v, bias = map(torch.from_numpy, folded_inputs(2, 9, 12, 64))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    pair = torch.zeros(2, 9, 12)
+    flash_kernel.flash_fwd(q, k, v, bias, 0.125)
+    flash_kernel.flash_fwd_lse(q, k, v, bias, 0.125)
+    flash_kernel.flash_fwd_fused(q, k, v, pair, 0.125, gate=q.clone())
+    assert set(flash_kernel.LAUNCHES.values()) == {0}
+
+
+def test_launch_fwd_refuses_a_route_the_dtype_has_not():
+    """A route named by a measurement must fit the dtype (the C entries
+    would read float32 data as bfloat16); refused before any build."""
+    q, k, v, bias = map(torch.from_numpy, folded_inputs(2, 9, 12, 64))
+    with pytest.raises(ValueError, match="no 'wgmma' route for torch.float32"):
+        flash_kernel.launch_fwd(q, k, v, bias, 0.125, None, "flash_fwd", which="wgmma")
+    with pytest.raises(ValueError, match="no 'f32' route for torch.bfloat16"):
+        flash_kernel.launch_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), bias, 0.125, None,
+                                "flash_fwd", which="f32")
+    assert {r: flash_kernel.LAUNCHES[f"flash_fwd_{r}"] for r in flash_kernel.ROUTES} == {
+        r: 0 for r in flash_kernel.ROUTES}

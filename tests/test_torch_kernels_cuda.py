@@ -59,10 +59,12 @@ def test_kernels_match_plain_on_card(cuda_device, dh, dtype, mode):
     name = "flash_fwd" if mode == "plain" else "flash_fwd_fused"
     fn = getattr(flash_kernel, name)
     args = (q, k, v, bias, dh ** -0.5) + ((gate,) if name == "flash_fwd_fused" else ())
-    before = flash_kernel.LAUNCHES[name]
+    which = flash_kernel.route(q, k, v, bias, gate)
+    before = dict(flash_kernel.LAUNCHES)
     out, lse = fn(*args)
     torch.cuda.synchronize()
-    assert flash_kernel.LAUNCHES[name] == before + 1
+    assert flash_kernel.LAUNCHES[name] == before[name] + 1
+    assert flash_kernel.LAUNCHES[f"flash_fwd_{which}"] == before[f"flash_fwd_{which}"] + 1
     ref_out, ref_lse = flash_kernel.flash_fwd_plain(q, k, v, bias, dh ** -0.5, gate)
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * ref_out.float().abs().max().item()
     assert (out.float() - ref_out.float()).abs().max().item() <= tol
@@ -70,6 +72,56 @@ def test_kernels_match_plain_on_card(cuda_device, dh, dtype, mode):
     assert (out[4] == 0).all() and torch.isposinf(lse[4]).all()
     fin = torch.isfinite(ref_lse)
     assert (lse[fin] - ref_lse[fin]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("mode", ["plain", "gate", "bias2d", "gate+bias2d"])
+def test_bf16_forward_routes_match_plain_on_card(cuda_device, which, mode):
+    """Both bf16 forward kernels on one call that `route` sends to wgmma
+    (dh 64, j % 4 == 0: ragged 131 x 120, a fully masked bh, with a 2-D
+    bias a fully masked query row), each held against the plain version
+    with the bounds of test_kernels_match_plain_on_card; the launch counts
+    under the wrapper's key and the route's, and no other."""
+    BH, i, j, dh = 5, 131, 120, 64
+    q, k, v, bias = folded_inputs(BH, i, j, dh, cuda_device, seed=1, masked_bh=(1,))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    gate = torch.randn_like(q) if "gate" in mode else None
+    if "bias2d" in mode:
+        bias = (torch.randn(BH, i, j, device=cuda_device) + bias[:, None, :]).contiguous()
+        bias[0, 3] = float("-inf")
+    assert flash_kernel.route(q, k, v, bias, gate) == "wgmma"
+    name = "flash_fwd" if mode == "plain" else "flash_fwd_fused"
+    before = dict(flash_kernel.LAUNCHES)
+    out, lse = flash_kernel.launch_fwd(q, k, v, bias, dh ** -0.5, gate, name, which=which)
+    torch.cuda.synchronize()
+    counted = {key: n - before[key] for key, n in flash_kernel.LAUNCHES.items()}
+    assert counted == {key: int(key in (name, f"flash_fwd_{which}")) for key in counted}
+    ref_out, ref_lse = flash_kernel.flash_fwd_plain(q, k, v, bias, dh ** -0.5, gate)
+    tol = 2.0 ** -7 * ref_out.float().abs().max().item()
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert torch.equal(torch.isposinf(lse), torch.isposinf(ref_lse))
+    assert (out[1] == 0).all() and torch.isposinf(lse[1]).all()
+    if "bias2d" in mode:
+        assert (out[0, 3] == 0).all() and torch.isposinf(lse[0, 3])
+    fin = torch.isfinite(ref_lse)
+    assert (lse[fin] - ref_lse[fin]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_wgmma_route_refuses_what_tma_cannot_address(cuda_device):
+    """Forced onto the wgmma route, a call it cannot take (dh 32; a 2-D bias
+    with j % 4 != 0) is refused by the C entry and raises; nothing counts."""
+    q, k, v, bias = folded_inputs(2, 20, 77, 64, cuda_device)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    before = dict(flash_kernel.LAUNCHES)
+    pair = torch.zeros(2, 20, 77, device=cuda_device)
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        flash_kernel.launch_fwd(q, k, v, pair, 0.125, None, "flash_fwd_fused", which="wgmma")
+    half = [x[..., :32].contiguous() for x in (q, k, v)]
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        flash_kernel.launch_fwd(*half, bias, 0.125, None, "flash_fwd", which="wgmma")
+    assert dict(flash_kernel.LAUNCHES) == before
 
 
 @pytest.mark.cuda
