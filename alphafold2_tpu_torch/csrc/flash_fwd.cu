@@ -39,11 +39,18 @@
 //    (K-major). The online softmax runs on S in f32 registers (exp2 with
 //    scale * log2(e) folded into one FMA); P, rounded to bf16 as
 //    FlashAttention does, stays in registers as the A operand of O += P.V,
-//    wgmma.m64n64k16 with V as the MN-major (transposed) B operand. The next
-//    stage's Q.K^T is issued right behind this stage's P.V, so the two run
-//    back to back while the other warpgroup does its softmax.
-//  - The epilogue normalizes, applies the gate's sigmoid to the f32 result
-//    and writes out and lse from registers.
+//    wgmma.m64n64k16 with V as the MN-major (transposed) B operand.
+//  - Stage c + 1's Q.K^T is issued with stage c's P.V, and stage c + 1's
+//    softmax runs in place in S while that P.V does; O is rescaled and P
+//    packed once it has retired. The warpgroups take turns at the softmax
+//    (a named barrier each), so the one in its softmax has the ex2 unit to
+//    itself while the other's products run.
+//  - The epilogue normalizes, applies the gate's sigmoid (the gate read at
+//    the tile's start) to the f32 result and writes out and lse from
+//    registers.
+// Where its time goes (telemetry/flash_ablation.py, PERF.md): the softmax.
+// A warpgroup's softmax of a 64 x 128 stage (~450 instructions a thread, 64
+// of them ex2) takes about as long as both warpgroups' products of it.
 //
 // mma_sync (bf16 shapes the wgmma route does not take: dh 16 or 32, a 2-D
 // bias with j % 4 != 0 or off a 16-byte boundary): `mma.sync.m16n8k16`. A
@@ -573,11 +580,16 @@ __global__ void __launch_bounds__(kWThreads, 1)
       }
       wgmma_commit();
     };
-    // the online softmax on stage c's S, then O += P.V issued
-    auto softmax_pv = [&](int c) {
+    // the online softmax on stage c's S, in place: s = 2^(s' - m) with s' =
+    // s scale log2(e) + bias, l rescaled and summed; O's factor in alpha.
+    // Max and sum are trees over the thread's 32 columns a row (short
+    // dependency chains: the warp's ex2 stream is the floor)
+    float alpha[2];
+    auto softmax = [&](int c) {
       const float* kb = kbias + (c % S) * kWN;
       const uint8_t* b2 = smem + stage(c) + 2 * kKVTile;
-      float mx[2] = {-INFINITY, -INFINITY};
+      static_assert(kWN == 128, "the max tree below is written for 16 column pairs");
+      float mx[2][kWN / 8];
 #pragma unroll
       for (int j = 0; j < kWN / 8; ++j) {
         const float2 kv = *reinterpret_cast<const float2*>(kb + 8 * j + 2 * t);
@@ -594,19 +606,39 @@ __global__ void __launch_bounds__(kWThreads, 1)
           }
           s[4 * j + 2 * h] = fmaf(s[4 * j + 2 * h], scale_log2, b0);
           s[4 * j + 2 * h + 1] = fmaf(s[4 * j + 2 * h + 1], scale_log2, b1);
-          mx[h] = fmaxf(mx[h], fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+          mx[h][j] = fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]);
         }
       }
-      float alpha[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        const float m_new = fmaxf(m[h], mx[h]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx[h][j] = fmaxf(mx[h][j], mx[h][j + 8]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mx[h][j] = fmaxf(mx[h][j], mx[h][j + 4]);
+        mx[h][0] = fmaxf(fmaxf(mx[h][0], mx[h][2]), fmaxf(mx[h][1], mx[h][3]));
+        float x = fmaxf(mx[h][0], __shfl_xor_sync(0xffffffffu, mx[h][0], 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        const float m_new = fmaxf(m[h], x);
         alpha[h] = ex2(m[h] - m_new);
         m[h] = m_new;
-        l[h] *= alpha[h];
       }
+      float sum[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int j = 0; j < kWN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          s[4 * j + 2 * h] = ex2(s[4 * j + 2 * h] - m[h]);
+          s[4 * j + 2 * h + 1] = ex2(s[4 * j + 2 * h + 1] - m[h]);
+          sum[h][j % 4] += s[4 * j + 2 * h] + s[4 * j + 2 * h + 1];
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] = l[h] * alpha[h] + ((sum[h][0] + sum[h][1]) + (sum[h][2] + sum[h][3]));
+      }
+    };
+    // once the previous P.V has retired: O rescaled, P = S rounded to bf16
+    auto rescale_pack = [&]() {
 #pragma unroll
       for (int j = 0; j < kWDH / 8; ++j) {
         o[4 * j] *= alpha[0];
@@ -616,16 +648,14 @@ __global__ void __launch_bounds__(kWThreads, 1)
       }
 #pragma unroll
       for (int j = 0; j < kWN / 8; ++j) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float e0 = ex2(s[4 * j + 2 * h] - m[h]);
-          const float e1 = ex2(s[4 * j + 2 * h + 1] - m[h]);
-          l[h] += e0 + e1;
-          p[2 * j + h] = pack_bf16(e0, e1);
-        }
+        p[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
+        p[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
       }
-      // keys 16 ks .. 16 ks + 15: the S fragments of columns 16 ks .. + 15,
-      // rounded to bf16, are the A fragment p[4 ks .. 4 ks + 3]
+    };
+    // O += P.V of stage c, issued. Keys 16 ks .. 16 ks + 15: the S fragments
+    // of columns 16 ks .. + 15, rounded to bf16, are the A fragment p[4 ks ..
+    // 4 ks + 3]
+    auto pv = [&](int c) {
       const uint32_t va = base + stage(c) + kKVTile;
       wgmma_fence();
 #pragma unroll
@@ -635,10 +665,29 @@ __global__ void __launch_bounds__(kWThreads, 1)
       wgmma_commit();
     };
 
+    // ping-pong: the two warpgroups take turns at the softmax (named barrier
+    // 1 + wg is this warpgroup's turn), so one has the ex2 unit to itself
+    // while the other's wgmma run
+    auto turn_wait = [&]() { asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory"); };
+    auto turn_pass = [&]() { asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory"); };
+    if (wg == 1) turn_pass();  // warpgroup 0 goes first
+
     int c = 0, n = 0;
     for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
       const int bh = (int)(tile / n_qtiles);
       const int row0 = (int)(tile % n_qtiles) * kWM;
+      // the gate of the thread's rows, read now and used in the epilogue
+      uint32_t gv[2][kWDH / 8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + r + 8 * h;
+        const __nv_bfloat16* grow = gate + ((int64_t)bh * len_i + row) * kWDH + 2 * t;
+#pragma unroll
+        for (int j = 0; j < kWDH / 8; ++j) {
+          gv[h][j] = (GATED && row < len_i) ? *reinterpret_cast<const uint32_t*>(grow + 8 * j)
+                                            : 0u;
+        }
+      }
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[i] = 0.f;
       m[0] = m[1] = kM0;  // running max, log2 domain
@@ -649,20 +698,30 @@ __global__ void __launch_bounds__(kWThreads, 1)
       qk(qa, c);
       wgmma_wait<0>();
       fence_regs(s);
-      // stage c's P.V and stage c + 1's Q.K^T run back to back; the loop
-      // body has no branch, and the epilogue sits after it (accumulator
-      // reads in a branch around the wgmma make ptxas serialize them)
+      turn_wait();
+      softmax(c);
+      turn_pass();
+      rescale_pack();
+      // stage c + 1's Q.K^T and stage c's P.V are issued together, and
+      // stage c + 1's softmax runs while the P.V does. The loop body has no
+      // branch, and the epilogue sits after it (accumulator reads in a
+      // branch around the wgmma make ptxas serialize them)
       for (int kk = 1; kk < nk; ++kk, ++c) {
-        softmax_pv(c);
         mbar_wait(full(c + 1), ring(c + 1));
         qk(qa, c + 1);
-        wgmma_wait<0>();
+        pv(c);
+        wgmma_wait<1>();  // the Q.K^T (groups retire in order)
         fence_regs(s);
+        turn_wait();
+        softmax(c + 1);
+        turn_pass();
+        wgmma_wait<0>();  // the P.V
         fence_regs(o);
         fence_regs(p);
+        rescale_pack();
         release(empty(c));
       }
-      softmax_pv(c);
+      pv(c);
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(p);
@@ -687,11 +746,10 @@ __global__ void __launch_bounds__(kWThreads, 1)
             const int col = 8 * j + 2 * t;
             float x0 = o[4 * j + 2 * h] * inv;
             float x1 = o[4 * j + 2 * h + 1] * inv;
-            if (GATED) {
-              const __nv_bfloat162 gv =
-                  *reinterpret_cast<const __nv_bfloat162*>(gate + qrow * kWDH + col);
-              x0 *= 1.f / (1.f + expf(-__bfloat162float(gv.x)));
-              x1 *= 1.f / (1.f + expf(-__bfloat162float(gv.y)));
+            if (GATED) {  // sigmoid(g) = 1 / (1 + 2^(-g log2(e)))
+              const __nv_bfloat162 g2 = *reinterpret_cast<const __nv_bfloat162*>(&gv[h][j]);
+              x0 *= __frcp_rn(1.f + ex2(-kLog2e * __bfloat162float(g2.x)));
+              x1 *= __frcp_rn(1.f + ex2(-kLog2e * __bfloat162float(g2.y)));
             }
             *reinterpret_cast<uint32_t*>(out + qrow * kWDH + col) = pack_bf16(x0, x1);
           }

@@ -390,3 +390,26 @@ def test_launch_fwd_refuses_a_route_the_dtype_has_not():
                                 "flash_fwd", which="f32")
     assert {r: flash_kernel.LAUNCHES[f"flash_fwd_{r}"] for r in flash_kernel.ROUTES} == {
         r: 0 for r in flash_kernel.ROUTES}
+
+
+def test_flash_ablation_variants_match_the_source():
+    """The ablation tool's copies of csrc/flash_fwd.cu are cut from the
+    source's own text: each fragment it changes is still there once, and
+    every copy differs from the others."""
+    from alphafold2_tpu_torch.telemetry import flash_ablation
+
+    sources = flash_ablation.variants()
+    assert set(sources) == {"base", "turn_products", "no_turns", "no_overlap", "no_ex2",
+                            "no_pv", "no_qk", "counters"}
+    assert len(set(sources.values())) == len(sources)
+    assert sources["base"] == (cuda_build.CSRC / "flash_fwd.cu").read_text()
+    assert "af2_ablation_counters" in sources["counters"]
+    assert sources["counters"].count("T[7] += 1;") == 1
+
+
+def test_flash_ablation_needs_a_card(monkeypatch):
+    from alphafold2_tpu_torch.telemetry import flash_ablation
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA device"):
+        flash_ablation.main()
