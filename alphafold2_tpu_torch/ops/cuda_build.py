@@ -65,6 +65,28 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def _compile(jobs: Dict[str, tuple]) -> Dict[str, Built]:
+    """Run one `nvcc` a job (name -> (source, output)), all started
+    together. Raises with nvcc's output when a compile fails."""
+    running = {}
+    for name, (src, out) in jobs.items():
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        running[name] = (proc, out, time.perf_counter())
+    done, failures = {}, []
+    for name, (proc, out, t0) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {name}:\n{log}")
+            continue
+        done[name] = Built(name, Path(out), time.perf_counter() - t0, log)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return done
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
     """Compile the named sources (default: all) that are not built yet,
     one `nvcc` each, started together. Raises with nvcc's output when a
@@ -72,30 +94,30 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
     names = list(sources() if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     done: Dict[str, Built] = {}
-    running = {}
+    jobs = {}
     for name in names:
         target = _target(name)
         if target.exists():
             done[name] = Built(name, target, 0.0, "")
-            continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        running[name] = (proc, tmp, target, time.perf_counter())
-    failures = []
-    for name, (proc, tmp, target, t0) in running.items():
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed on {name}.cu:\n{log}")
-            continue
-        os.replace(tmp, target)
-        done[name] = Built(name, target, seconds, log)
-    if failures:
-        raise RuntimeError("\n".join(failures))
+        else:
+            jobs[name] = (CSRC / f"{name}.cu", target.with_suffix(f".{os.getpid()}.tmp"))
+    for name, built in _compile(jobs).items():
+        target = _target(name)
+        os.replace(built.path, target)
+        done[name] = dataclasses.replace(built, path=target)
     return done
+
+
+def build_variants(variants: Dict[str, str], work: Path) -> Dict[str, Built]:
+    """Compile copies of a source (name -> its text) in `work`, beside the
+    shared headers, one `nvcc` each, started together: the measurement
+    tools' ablations. Raises with nvcc's output when a compile fails."""
+    work.mkdir(parents=True, exist_ok=True)
+    for header in CSRC.glob("*.cuh"):
+        (work / header.name).write_text(header.read_text())
+    for name, text in variants.items():
+        (work / f"{name}.cu").write_text(text)
+    return _compile({name: (work / f"{name}.cu", work / f"lib{name}.so") for name in variants})
 
 
 def library(name: str) -> ctypes.CDLL:

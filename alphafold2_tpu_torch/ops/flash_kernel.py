@@ -45,9 +45,10 @@ from alphafold2_tpu_torch.ops import cuda_build, dispatch
 # an exact 0 with no nan guards
 _M0 = -1e30
 
-# kernel launches since the last reset_launches(): one entry per kernel
-# (each backward wrapper launches a dq and a dkv kernel)
 ROUTES = ("wgmma", "mma_sync", "f32")  # the forward kernels
+# kernel launches since the last reset_launches(): one entry per kernel
+# (each backward wrapper launches a dq and a dkv kernel), and each forward
+# launch again under its route's entry
 LAUNCHES = {
     "flash_fwd": 0, "flash_fwd_fused": 0,
     "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
@@ -70,7 +71,7 @@ def supported(i: int, j: int, dh: int) -> bool:
     """Shapes the H100 kernels take: a head width the kernels are
     instantiated for (16, 32 or 64: the query fragments and the f32
     accumulator live in registers) and non-empty axes. Any length is
-    fine: K/V stream through shared memory in 64-key tiles."""
+    fine: K/V stream through shared memory in key tiles."""
     return dh in SUPPORTED_DH and i >= 1 and j >= 1
 
 

@@ -153,23 +153,11 @@ def variants() -> dict:
 
 def build(sources: dict) -> dict:
     """One nvcc a variant, all started together; the loaded libraries."""
-    WORK.mkdir(parents=True, exist_ok=True)
-    for header in cuda_build.CSRC.glob("*.cuh"):
-        (WORK / header.name).write_text(header.read_text())
-    procs = {}
-    for name, src in sources.items():
-        (WORK / f"{name}.cu").write_text(src)
-        procs[name] = subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(WORK / f"lib{name}.so"),
-             str(WORK / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {name} variant:\n{log}")
-        if "C7518" in log:  # ptxas serialized the wgmma: the copy times another kernel
+    for name, built in cuda_build.build_variants(sources, WORK).items():
+        if "C7518" in built.log:  # ptxas serialized the wgmma: the copy times another kernel
             print(f"[ablation] warning: the {name} variant's wgmma are serialized (C7518)")
-        lib = ctypes.CDLL(str(WORK / f"lib{name}.so"))
+        lib = ctypes.CDLL(str(built.path))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.af2_flash_fwd_wgmma.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i32,
                                             ctypes.c_float, i32, i32, p]
