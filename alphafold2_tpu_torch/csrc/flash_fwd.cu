@@ -24,8 +24,9 @@
 // Three kernels, one per route (`ops/flash_kernel.py route`):
 //
 // wgmma (bf16, dh = 64, every operand TMA loads addressable: every served
-// shape): persistent blocks, one per SM, each walking (bh, 128-row query
-// tile) tiles in turn.
+// shape): persistent blocks, one per SM, each walking (bh, query tile)
+// tiles in turn; a tile is 192 rows (three consumer warpgroups) where that
+// pads i no more than 128 rows does and still fills the card, else 128.
 //  - Warp 0 is the producer. For each tile it loads the Q tile by TMA into
 //    one of two buffers (the next tile's Q lands while this tile's epilogue
 //    runs), then streams 128-key stages through a ring of full and empty
@@ -34,7 +35,7 @@
 //    tile (128 rows x 128 keys, four 128-byte swizzled boxes of 32 keys), and
 //    the key-side bias in log2 units with -inf past len_j, written by the
 //    warp's 32 lanes.
-//  - Two consumer warpgroups own 64 query rows each. S = Q.K^T is one
+//  - Each consumer warpgroup owns 64 query rows. S = Q.K^T is one
 //    wgmma.m64n128k16 per 16 of dh with both operands in shared memory
 //    (K-major). The online softmax runs on S in f32 registers (exp2 with
 //    scale * log2(e) folded into one FMA); P, rounded to bf16 as
@@ -43,14 +44,15 @@
 //  - Stage c + 1's Q.K^T is issued with stage c's P.V, and stage c + 1's
 //    softmax runs in place in S while that P.V does; O is rescaled and P
 //    packed once it has retired. The warpgroups take turns at the softmax
-//    (a named barrier each), so the one in its softmax has the ex2 unit to
-//    itself while the other's products run.
-//  - The epilogue normalizes, applies the gate's sigmoid (the gate read at
-//    the tile's start) to the f32 result and writes out and lse from
-//    registers.
+//    (a named barrier each, round robin), so the one in its softmax has the
+//    ex2 unit to itself while the others' products run.
+//  - The epilogue normalizes, applies the gate's sigmoid (the gate fetched
+//    into L2 at the tile's start) to the f32 result and writes out and lse
+//    from registers.
 // Where its time goes (telemetry/flash_ablation.py, PERF.md): the softmax.
 // A warpgroup's softmax of a 64 x 128 stage (~450 instructions a thread, 64
-// of them ex2) takes about as long as both warpgroups' products of it.
+// of them ex2) is latency-bound; a third warpgroup keeps the ex2 unit and
+// the tensor cores busier.
 //
 // mma_sync (bf16 shapes the wgmma route does not take: dh 16 or 32, a 2-D
 // bias with j % 4 != 0 or off a 16-byte boundary): `mma.sync.m16n8k16`. A
@@ -382,23 +384,31 @@ __global__ void __launch_bounds__(kBlockQ)
 
 // --- bf16, the wgmma route: TMA ring, wgmma, persistent blocks ---------------
 
-constexpr int kWM = 128;            // query rows a tile: two consumer warpgroups of 64
 constexpr int kWN = 128;            // keys a stage: the N of Q.K^T, the K of P.V
 constexpr int kWDH = 64;            // the head width of the route: one 128-byte row
-constexpr int kWThreads = 384;      // warpgroup 0: the producer warp; 1 and 2: consumers
-constexpr int kConsumerWarps = 8;
-constexpr int kLightRegs = 56;      // setmaxnreg: warpgroup 0 gives registers to
-constexpr int kConsumerRegs = 224;  // the consumers' S, O and P fragments
-constexpr int kQTile = kWM * kWDH * 2;            // 16 KB
 constexpr int kKVTile = kWN * kWDH * 2;           // 16 KB, K or V
+constexpr int kBiasRows = 128;                    // query rows of a 2-D bias tile
 constexpr int kBiasBox = 32;                      // keys of a 2-D bias box: 128-byte rows
-constexpr int kBiasBoxBytes = kWM * kBiasBox * 4;  // 16 KB
+constexpr int kBiasBoxBytes = kBiasRows * kBiasBox * 4;  // 16 KB
 constexpr int kVLbo = 8192;  // V's descriptor: the stride of 64-column chunks (one here)
 
-// shared memory of one block: two Q buffers, the ring's stages (K, V, and
-// with BIAS2D the 2-D bias tile), the stages' key-side bias, the barriers
-template <bool BIAS2D>
-struct WgmmaSmem {
+// a block: warpgroup 0 holds the producer warp; each of CONSUMERS consumer
+// warpgroups owns 64 query rows of the tile (`launch_wgmma` picks 3 or 2;
+// with BIAS2D the 2-D bias tile takes the shared memory of a third). Its
+// shared memory: two Q buffers, the ring's stages (K, V, and with BIAS2D
+// the 2-D bias tile), the stages' key-side bias, the barriers
+template <bool BIAS2D, int CONSUMERS>
+struct WgmmaTile {
+  static constexpr int kConsumers = CONSUMERS;
+  static constexpr int kRows = 64 * kConsumers;
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kConsumerWarps = 4 * kConsumers;
+  // setmaxnreg: warpgroup 0 gives registers to the consumers' S, O and P
+  static constexpr int kLightRegs = kConsumers == 2 ? 56 : 24;
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 224 : 160;
+  static_assert(128 * kLightRegs + 128 * kConsumers * kConsumerRegs <= 65536, "registers");
+  static_assert(!BIAS2D || kRows == kBiasRows, "a 2-D bias tile covers the tile's rows");
+  static constexpr int kQTile = kRows * kWDH * 2;
   static constexpr int kStages = BIAS2D ? 2 : 4;
   static constexpr int kStage = 2 * kKVTile + (BIAS2D ? (kWN / kBiasBox) * kBiasBoxBytes : 0);
   static constexpr int kRing = 2 * kQTile;
@@ -466,8 +476,8 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], const uint
 
 #undef AF2_D8
 
-template <bool GATED, bool BIAS2D>
-__global__ void __launch_bounds__(kWThreads, 1)
+template <bool GATED, bool BIAS2D, int CONSUMERS>
+__global__ void __launch_bounds__(WgmmaTile<BIAS2D, CONSUMERS>::kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
@@ -477,7 +487,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
                            __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                            int len_i, int len_j, int n_qtiles, int64_t tiles,
                            float scale_log2) {
-  using L = WgmmaSmem<BIAS2D>;
+  using L = WgmmaTile<BIAS2D, CONSUMERS>;
   constexpr int S = L::kStages;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -501,28 +511,28 @@ __global__ void __launch_bounds__(kWThreads, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(full(s), 32);  // the producer warp's lanes, and the TMA bytes
-      mbar_init(empty(s), kConsumerWarps);
+      mbar_init(empty(s), L::kConsumerWarps);
     }
     for (int b = 0; b < 2; ++b) {
       mbar_init(qfull(b), 1);
-      mbar_init(qempty(b), kConsumerWarps);
+      mbar_init(qempty(b), L::kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (warp < 4) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLightRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::kLightRegs));
     if (warp == 0) {
       // the producer: chunk c is key stage c of the block's tile sequence
       int c = 0, n = 0;
       for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
         const int bh = (int)(tile / n_qtiles);
-        const int row0 = (int)(tile % n_qtiles) * kWM;
+        const int row0 = (int)(tile % n_qtiles) * L::kRows;
         if (lane == 0) {
           mbar_wait(qempty(n), qring(n) ^ 1);
-          mbar_expect_tx(qfull(n), kQTile);
-          tma_load_3d(base + (n & 1) * kQTile, &tm_q, qfull(n), 0, row0, bh);
+          mbar_expect_tx(qfull(n), L::kQTile);
+          tma_load_3d(base + (n & 1) * L::kQTile, &tm_q, qfull(n), 0, row0, bh);
         }
         for (int kk = 0; kk < nk; ++kk, ++c) {
           const int k0 = kk * kWN;
@@ -554,7 +564,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kConsumerRegs));
     // warpgroup wg owns the tile's rows 64 wg .. 64 wg + 63; a thread holds
     // rows r and r + 8 (wgmma's accumulator layout: per 8 columns j, s[4j],
     // s[4j + 1] are row r, columns 8j + 2t, 8j + 2t + 1; s[4j + 2], s[4j + 3]
@@ -588,8 +598,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
     auto softmax = [&](int c) {
       const float* kb = kbias + (c % S) * kWN;
       const uint8_t* b2 = smem + stage(c) + 2 * kKVTile;
-      static_assert(kWN == 128, "the max tree below is written for 16 column pairs");
-      float mx[2][kWN / 8];
+      float mx[2][4];  // four partial maxima a row: short chains, few registers
 #pragma unroll
       for (int j = 0; j < kWN / 8; ++j) {
         const float2 kv = *reinterpret_cast<const float2*>(kb + 8 * j + 2 * t);
@@ -606,15 +615,12 @@ __global__ void __launch_bounds__(kWThreads, 1)
           }
           s[4 * j + 2 * h] = fmaf(s[4 * j + 2 * h], scale_log2, b0);
           s[4 * j + 2 * h + 1] = fmaf(s[4 * j + 2 * h + 1], scale_log2, b1);
-          mx[h][j] = fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]);
+          const float pair = fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]);
+          mx[h][j % 4] = j < 4 ? pair : fmaxf(mx[h][j % 4], pair);
         }
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mx[h][j] = fmaxf(mx[h][j], mx[h][j + 8]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mx[h][j] = fmaxf(mx[h][j], mx[h][j + 4]);
         mx[h][0] = fmaxf(fmaxf(mx[h][0], mx[h][2]), fmaxf(mx[h][1], mx[h][3]));
         float x = fmaxf(mx[h][0], __shfl_xor_sync(0xffffffffu, mx[h][0], 1));
         x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -665,34 +671,33 @@ __global__ void __launch_bounds__(kWThreads, 1)
       wgmma_commit();
     };
 
-    // ping-pong: the two warpgroups take turns at the softmax (named barrier
-    // 1 + wg is this warpgroup's turn), so one has the ex2 unit to itself
-    // while the other's wgmma run
+    // the consumer warpgroups take turns at the softmax, round robin (named
+    // barrier 1 + wg is this warpgroup's turn), so one has the ex2 unit to
+    // itself while the others' wgmma run
     auto turn_wait = [&]() { asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory"); };
-    auto turn_pass = [&]() { asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory"); };
-    if (wg == 1) turn_pass();  // warpgroup 0 goes first
+    auto turn_pass = [&]() {
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (wg + 1) % L::kConsumers) : "memory");
+    };
+    if (wg == L::kConsumers - 1) turn_pass();  // warpgroup 0 goes first
 
     int c = 0, n = 0;
     for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
       const int bh = (int)(tile / n_qtiles);
-      const int row0 = (int)(tile % n_qtiles) * kWM;
-      // the gate of the thread's rows, read now and used in the epilogue
-      uint32_t gv[2][kWDH / 8];
+      const int row0 = (int)(tile % n_qtiles) * L::kRows;
+      // the gate's rows (128 bytes each) are fetched into L2 now and read
+      // into registers once S is dead, before the last P.V retires
+      const __nv_bfloat16* grow[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + r + 8 * h;
-        const __nv_bfloat16* grow = gate + ((int64_t)bh * len_i + row) * kWDH + 2 * t;
-#pragma unroll
-        for (int j = 0; j < kWDH / 8; ++j) {
-          gv[h][j] = (GATED && row < len_i) ? *reinterpret_cast<const uint32_t*>(grow + 8 * j)
-                                            : 0u;
-        }
+        grow[h] = gate + ((int64_t)bh * len_i + (row < len_i ? row : 0)) * kWDH + 2 * t;
+        if (GATED && t == 0) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(grow[h]));
       }
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[i] = 0.f;
       m[0] = m[1] = kM0;  // running max, log2 domain
       l[0] = l[1] = 0.f;  // this thread's share of the running sum
-      const uint32_t qa = base + (n & 1) * kQTile + wg * (kQTile / 2);
+      const uint32_t qa = base + (n & 1) * L::kQTile + wg * (64 * kWDH * 2);
       mbar_wait(qfull(n), qring(n));
       mbar_wait(full(c), ring(c));
       qk(qa, c);
@@ -722,6 +727,14 @@ __global__ void __launch_bounds__(kWThreads, 1)
         release(empty(c));
       }
       pv(c);
+      uint32_t gv[2][kWDH / 8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int j = 0; j < kWDH / 8; ++j) {
+          gv[h][j] = GATED ? *reinterpret_cast<const uint32_t*>(grow[h] + 8 * j) : 0u;
+        }
+      }
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(p);
@@ -774,41 +787,59 @@ bool encode_3d(EncodeTiledFn encode, CUtensorMap* map, CUtensorMapDataType type,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool GATED, bool BIAS2D>
+template <bool GATED, bool BIAS2D, int CONSUMERS>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* bias,
                  const void* gate, void* out, void* lse, int64_t bh, int64_t len_i,
-                 int64_t len_j, float scale, cudaStream_t stream) {
-  using L = WgmmaSmem<BIAS2D>;
+                 int64_t len_j, float scale, int sms, cudaStream_t stream) {
+  using L = WgmmaTile<BIAS2D, CONSUMERS>;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tm_q, tm_k, tm_v, tm_bias;
   const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if (!encode_3d(encode, &tm_q, bf16, q, kWDH, len_i, bh, 2, kWDH, kWM) ||
+  if (!encode_3d(encode, &tm_q, bf16, q, kWDH, len_i, bh, 2, kWDH, L::kRows) ||
       !encode_3d(encode, &tm_k, bf16, k, kWDH, len_j, bh, 2, kWDH, kWN) ||
       !encode_3d(encode, &tm_v, bf16, v, kWDH, len_j, bh, 2, kWDH, kWN)) {
     return (int)cudaErrorInvalidValue;
   }
   tm_bias = tm_k;  // unread without a 2-D bias
   if (BIAS2D && !encode_3d(encode, &tm_bias, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, bias, len_j,
-                           len_i, bh, 4, kBiasBox, kWM)) {
+                           len_i, bh, 4, kBiasBox, kBiasRows)) {
     return (int)cudaErrorInvalidValue;
   }
-  int device = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<GATED, BIAS2D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-  }
+  const cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<GATED, BIAS2D, CONSUMERS>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             L::kBytes);
   if (e != cudaSuccess) return (int)e;
-  const int64_t n_qtiles = (len_i + kWM - 1) / kWM;
+  const int64_t n_qtiles = (len_i + L::kRows - 1) / L::kRows;
   const int64_t tiles = bh * n_qtiles;
   const int grid = (int)(tiles < sms ? tiles : sms);
-  flash_fwd_wgmma_kernel<GATED, BIAS2D><<<grid, kWThreads, L::kBytes, stream>>>(
+  flash_fwd_wgmma_kernel<GATED, BIAS2D, CONSUMERS><<<grid, L::kThreads, L::kBytes, stream>>>(
       tm_q, tm_k, tm_v, tm_bias, (const float*)bias, (const __nv_bfloat16*)gate,
       (__nv_bfloat16*)out, (float*)lse, (int)len_i, (int)len_j, (int)n_qtiles, tiles,
       scale * kLog2e);
   return (int)cudaGetLastError();
+}
+
+// three consumer warpgroups (192-row tiles) where their tiles pad i no more
+// than 128-row ones do and still give every SM one (the crosses, the pair
+// passes at L = 384); two otherwise (i = 128 or 256, a B3 hop's 80 tiles),
+// and always with a 2-D bias
+template <bool GATED, bool BIAS2D>
+int launch_wgmma_tiles(const void* q, const void* k, const void* v, const void* bias,
+                       const void* gate, void* out, void* lse, int64_t bh, int64_t len_i,
+                       int64_t len_j, float scale, cudaStream_t stream) {
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t tiles3 = (len_i + 191) / 192;
+  const int64_t tiles2 = (len_i + 127) / 128;
+  if (!BIAS2D && tiles3 * 192 <= tiles2 * 128 && bh * tiles3 >= sms) {
+    return launch_wgmma<GATED, BIAS2D, BIAS2D ? 2 : 3>(q, k, v, bias, gate, out, lse, bh, len_i,
+                                                        len_j, scale, sms, stream);
+  }
+  return launch_wgmma<GATED, BIAS2D, 2>(q, k, v, bias, gate, out, lse, bh, len_i, len_j, scale,
+                                        sms, stream);
 }
 
 // --- launch: the mma_sync and f32 routes -------------------------------------
@@ -886,10 +917,10 @@ int af2_flash_fwd_wgmma(const void* q, const void* k, const void* v, const void*
   }
   cudaStream_t stream = (cudaStream_t)stream_ptr;
 #define AF2_ARGS q, k, v, bias, gate, out, lse, bh, len_i, len_j, scale, stream
-  if (gated && bias2d) return launch_wgmma<true, true>(AF2_ARGS);
-  if (gated) return launch_wgmma<true, false>(AF2_ARGS);
-  if (bias2d) return launch_wgmma<false, true>(AF2_ARGS);
-  return launch_wgmma<false, false>(AF2_ARGS);
+  if (gated && bias2d) return launch_wgmma_tiles<true, true>(AF2_ARGS);
+  if (gated) return launch_wgmma_tiles<true, false>(AF2_ARGS);
+  if (bias2d) return launch_wgmma_tiles<false, true>(AF2_ARGS);
+  return launch_wgmma_tiles<false, false>(AF2_ARGS);
 #undef AF2_ARGS
 }
 

@@ -69,14 +69,16 @@ FIRST = """      qk(qa, c);
       softmax(c);
       turn_pass();
 """
-LAST = "      pv(c);\n      wgmma_wait<0>();\n"
+LAST = "      pv(c);\n      uint32_t gv[2][kWDH / 8];\n"
 EX2 = ("          s[4 * j + 2 * h] = ex2(s[4 * j + 2 * h] - m[h]);\n"
        "          s[4 * j + 2 * h + 1] = ex2(s[4 * j + 2 * h + 1] - m[h]);\n")
 PV = "        wgmma_m64n64k16_rs_mn(o, &p[4 * ks], gmma_desc(va + 2048 * ks, kVLbo, 1024));\n"
 QK = ("        wgmma_m64n128k16_ss(s, gmma_desc(qa + 32 * ks, 16, 1024), "
       "gmma_desc(ka + 32 * ks, 16, 1024),\n                            ks);\n")
 TURNS = ('    auto turn_wait = [&]() { asm volatile("bar.sync %0, 256;\\n" ::"r"(1 + wg) : "memory"); };\n'
-         '    auto turn_pass = [&]() { asm volatile("bar.arrive %0, 256;\\n" ::"r"(2 - wg) : "memory"); };\n')
+         '    auto turn_pass = [&]() {\n'
+         '      asm volatile("bar.arrive %0, 256;\\n" ::"r"(1 + (wg + 1) % L::kConsumers) : "memory");\n'
+         '    };\n')
 
 
 def _replace(src: str, old: str, new: str, count: int = 1) -> str:
@@ -89,10 +91,11 @@ def _counters(src: str) -> str:
     """The source with clock64 counters around the consumer's phases of each
     stage (summed by the first thread of each warpgroup) and the producer's
     (lane 0), read back by af2_ablation_counters: [block][wg * 8 + phase],
-    [block][7] the stages, [block][16, 17] the producer's waits and loads."""
-    src = _replace(src, "template <bool GATED, bool BIAS2D>\n__global__ void __launch_bounds__(kWThreads, 1)\n",
-                   "__device__ unsigned long long g_phase[1024][24];\n\n"
-                   "template <bool GATED, bool BIAS2D>\n__global__ void __launch_bounds__(kWThreads, 1)\n")
+    [block][wg * 8 + 7] the stages, [block][24, 25] the producer's waits and
+    loads."""
+    head = ("template <bool GATED, bool BIAS2D, int CONSUMERS>\n__global__ void "
+            "__launch_bounds__(WgmmaTile<BIAS2D, CONSUMERS>::kThreads, 1)\n")
+    src = _replace(src, head, "__device__ unsigned long long g_phase[1024][32];\n\n" + head)
     src = _replace(src, "      int c = 0, n = 0;\n      for (int64_t tile",
                    "      unsigned long long P[2] = {0, 0};\n      int c = 0, n = 0;\n"
                    "      for (int64_t tile")
@@ -104,7 +107,7 @@ def _counters(src: str) -> str:
     src = _replace(src, "          } else {\n            mbar_arrive(full(c));\n          }\n        }\n      }\n",
                    "          } else {\n            mbar_arrive(full(c));\n          }\n        }\n      }\n"
                    "      if (lane == 0 && blockIdx.x < 1024) {\n"
-                   "        g_phase[blockIdx.x][16] = P[0];\n        g_phase[blockIdx.x][17] = P[1];\n"
+                   "        g_phase[blockIdx.x][24] = P[0];\n        g_phase[blockIdx.x][25] = P[1];\n"
                    "      }\n")
     src = _replace(src, "    int c = 0, n = 0;\n    for (int64_t tile",
                    "    unsigned long long T[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n    int c = 0, n = 0;\n"
@@ -137,7 +140,7 @@ def variants() -> dict:
     products = _replace(products, FIRST, "      turn_wait();\n      qk(qa, c);\n      turn_pass();\n"
                         "      wgmma_wait<0>();\n      fence_regs(s);\n      softmax(c);\n")
     products = _replace(products, LAST, "      turn_wait();\n      pv(c);\n      turn_pass();\n"
-                        "      wgmma_wait<0>();\n")
+                        "      uint32_t gv[2][kWDH / 8];\n")
     return {
         "base": src,
         "turn_products": products,
@@ -205,14 +208,15 @@ def main() -> None:
         if counters.af2_flash_fwd_wgmma(*args) != 0:
             raise RuntimeError("the counters variant failed to launch")
         torch.cuda.synchronize()
-        phase = np.zeros((1024, 24), dtype=np.uint64)
+        phase = np.zeros((1024, 32), dtype=np.uint64)
         counters.af2_ablation_counters(phase.ctypes.data)
         blocks = phase[:, 7] > 0
         per = phase[blocks].astype(np.float64).sum(0)
         row["cycles_a_stage"] = {f"wg{wg}": {p: per[8 * wg + n] / per[8 * wg + 7]
-                                             for n, p in enumerate(PHASES)} for wg in (0, 1)}
-        row["cycles_a_stage"]["producer"] = {"wait for an empty slot": per[16] / per[7],
-                                             "key bias and TMA issue": per[17] / per[7]}
+                                             for n, p in enumerate(PHASES)}
+                                 for wg in range(3) if per[8 * wg + 7] > 0}
+        row["cycles_a_stage"]["producer"] = {"wait for an empty slot": per[24] / per[7],
+                                             "key bias and TMA issue": per[25] / per[7]}
         rows.append(row)
         print(f"[ablation] {label:18s} " + " ".join(
             f"{name}={row[name]:.4f}" for name in libs if name != "counters") + " ms")

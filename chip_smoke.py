@@ -16,9 +16,10 @@ each phase prints its seconds):
      float32 edge shapes, with kernel, plain, library and bound times:
      the flash forwards at the serving shapes (L = 384), all on their
      wgmma route (timed beside the same call on the mma_sync route), and
-     at edge cases of each route (wgmma: ragged 131 x 120 with a fully
-     masked bh and, with a 2-D bias, a fully masked query row, in every
-     gate and bias mode; mma_sync: dh 16, a 2-D bias with j = 77; f32),
+     at edge cases of each route (wgmma: ragged 131 x 120 and, with
+     192-row tiles, 140 x 383 x 120, with a fully masked bh and, with a 2-D
+     bias, a fully masked query row, in every gate and bias mode; mma_sync:
+     dh 16, a 2-D bias with j = 77; f32),
      each row naming its route; the flash
      backwards (B1b ungated, B2b gated, one 2-D-bias case) at the training
      shapes (pair axial at L = 128 and 256); the int8 product (B4) at the
@@ -398,10 +399,12 @@ SLICE_SHAPES = {
 
 def phase_kernels():
     """The flash forwards at the served shapes, timed, which must take the
-    wgmma route; then edge cases: ragged 131 x 120 (wgmma in every mode:
-    ragged i and j, a fully masked bh, with a 2-D bias a fully masked query
-    row, gated + 2-D bias), ragged 131 x 77 (wgmma, and with a 2-D bias the
-    mma_sync route: j % 4 != 0), dh 16 (mma_sync), f32."""
+    wgmma route; then edge cases: ragged 131 x 120 and 140 x 383 x 120
+    (wgmma in every mode, with 128-row tiles and, without a 2-D bias,
+    192-row ones: ragged i and j, a fully masked bh, with a 2-D bias a
+    fully masked query row, gated + 2-D bias), ragged 131 x 77 (wgmma, and
+    with a 2-D bias the mma_sync route: j % 4 != 0), dh 16 (mma_sync),
+    f32."""
     rows = []
     for label, (BH, i, j) in SLICE_SHAPES.items():
         rows.append(check_kernel("flash_fwd", label, BH, i, j, 64, torch.bfloat16, timed=True))
@@ -414,6 +417,7 @@ def phase_kernels():
         fail("served shapes off the wgmma route: " + ", ".join(r["case"] for r in served))
     edges = [
         ("ragged wgmma", 5, 131, 120, 64, torch.bfloat16, (1,)),
+        ("ragged wgmma 192-row tiles", 140, 383, 120, 64, torch.bfloat16, (1,)),
         ("ragged", 5, 131, 77, 64, torch.bfloat16, (1,)),
         ("ragged f32", 5, 131, 77, 64, torch.float32, (1,)),
         ("tiny i, long j", 3, 7, 1000, 32, torch.float32, ()),
@@ -432,7 +436,7 @@ def phase_kernels():
                                  bias2d=True))
     wgmma_edges = [r for r in rows if r["case"].startswith("ragged wgmma")]
     if any(r["route"] != "wgmma" for r in wgmma_edges):
-        fail("the ragged 131 x 120 edge cases left the wgmma route")
+        fail("the ragged wgmma edge cases left the wgmma route")
     RECORD["kernels"] = rows
     bad = [r for r in rows if not r["ok"]]
     if bad:

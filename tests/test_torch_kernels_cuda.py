@@ -77,13 +77,16 @@ def test_kernels_match_plain_on_card(cuda_device, dh, dtype, mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["wgmma", "mma_sync"])
 @pytest.mark.parametrize("mode", ["plain", "gate", "bias2d", "gate+bias2d"])
-def test_bf16_forward_routes_match_plain_on_card(cuda_device, which, mode):
+@pytest.mark.parametrize("BH,i", [(5, 131), (140, 383)], ids=["128-row tiles", "192-row tiles"])
+def test_bf16_forward_routes_match_plain_on_card(cuda_device, which, mode, BH, i):
     """Both bf16 forward kernels on one call that `route` sends to wgmma
-    (dh 64, j % 4 == 0: ragged 131 x 120, a fully masked bh, with a 2-D
+    (dh 64, j % 4 == 0: ragged i and j = 120, a fully masked bh, with a 2-D
     bias a fully masked query row), each held against the plain version
     with the bounds of test_kernels_match_plain_on_card; the launch counts
-    under the wrapper's key and the route's, and no other."""
-    BH, i, j, dh = 5, 131, 120, 64
+    under the wrapper's key and the route's, and no other. 140 x 383 fills
+    an H100's 132 SMs with 192-row tiles, so without a 2-D bias the wgmma
+    kernel runs three consumer warpgroups there (two at 5 x 131)."""
+    j, dh = 120, 64
     q, k, v, bias = folded_inputs(BH, i, j, dh, cuda_device, seed=1, masked_bh=(1,))
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     gate = torch.randn_like(q) if "gate" in mode else None
