@@ -19,7 +19,10 @@ warp's:
   no_pv          the P.V products are not issued
   no_qk          the Q.K^T products are not issued
 
-Needs a CUDA device and nvcc; imports nothing of JAX. Writes
+The counters add registers, which a three-warpgroup launch (192-row
+tiles, 160 registers a consumer thread) does not have to spare: its
+cycle figures come from a slower copy, and only the variants' times
+compare. Needs a CUDA device and nvcc; imports nothing of JAX. Writes
 chiprun_out/flash_ablation.json.
 """
 
@@ -90,9 +93,9 @@ def _replace(src: str, old: str, new: str, count: int = 1) -> str:
 def _counters(src: str) -> str:
     """The source with clock64 counters around the consumer's phases of each
     stage (summed by the first thread of each warpgroup) and the producer's
-    (lane 0), read back by af2_ablation_counters: [block][wg * 8 + phase],
-    [block][wg * 8 + 7] the stages, [block][24, 25] the producer's waits and
-    loads."""
+    (lane 0), read back by af2_ablation_counters and zeroed by
+    af2_ablation_reset: [block][wg * 8 + phase], [block][wg * 8 + 7] the
+    stages, [block][24, 25] the producer's waits and loads."""
     head = ("template <bool GATED, bool BIAS2D, int CONSUMERS>\n__global__ void "
             "__launch_bounds__(WgmmaTile<BIAS2D, CONSUMERS>::kThreads, 1)\n")
     src = _replace(src, head, "__device__ unsigned long long g_phase[1024][32];\n\n" + head)
@@ -127,7 +130,10 @@ def _counters(src: str) -> str:
                    "        for (int i = 0; i < 8; ++i) g_phase[blockIdx.x][8 * wg + i] = T[i];\n"
                    "      }\n")
     return src + ("\nextern \"C\" int af2_ablation_counters(void* host) {\n"
-                  "  return (int)cudaMemcpyFromSymbol(host, g_phase, sizeof(g_phase));\n}\n")
+                  "  return (int)cudaMemcpyFromSymbol(host, g_phase, sizeof(g_phase));\n}\n"
+                  "\nextern \"C\" int af2_ablation_reset() {\n"
+                  "  static unsigned long long zero[1024][32];\n"
+                  "  return (int)cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));\n}\n")
 
 
 def variants() -> dict:
@@ -205,7 +211,7 @@ def main() -> None:
         for name, lib in libs.items():
             if name != "counters":
                 row[name] = _time_ms(lambda: lib.af2_flash_fwd_wgmma(*args), reps)
-        if counters.af2_flash_fwd_wgmma(*args) != 0:
+        if counters.af2_ablation_reset() != 0 or counters.af2_flash_fwd_wgmma(*args) != 0:
             raise RuntimeError("the counters variant failed to launch")
         torch.cuda.synchronize()
         phase = np.zeros((1024, 32), dtype=np.uint64)
