@@ -7,8 +7,9 @@
 //   * B2b  `_fused_bwd` -> `_make_fused_dq_kernel` and
 //     `_make_fused_dkv_kernel`: the same, with an optional 2-D (BH, i, j)
 //     bias whose cotangent d_bias is the unscaled dS tile.
-// Each dtype has one template per kernel, <DH, BIAS2D>; the BIAS2D=false
-// instantiations serve B1b and the gated-only B2b. The sigmoid gate needs
+// Each kernel is a template on <BIAS2D> (and on the head width off the
+// wgmma route); the BIAS2D=false instantiations serve B1b, the gated-only
+// B2b and B3's backward (delta - g_lse). The sigmoid gate needs
 // no kernel: the wrapper (ops/flash_kernel.py) folds it into the cotangent
 // before the launch and computes d_gate elementwise, as `_fused_bwd` does.
 //
@@ -22,8 +23,8 @@
 //   dq = scale * sum_k ds k,  dk = scale * sum_q ds q,  dv = sum_q p dO,
 //   d_bias = ds (BIAS2D, f32, unscaled).
 // A row with no unmasked key has lse = +inf from the forward, so every p
-// of it is exp(-inf) = an exact 0 (no fast-math: expf keeps that) and its
-// gradients are 0, never NaN.
+// of it is exp(-inf) = an exact 0 (no fast-math: expf, and ex2.approx of
+// -inf, keep that) and its gradients are 0, never NaN.
 //
 // The dq kernel owns a tile of query rows and streams every key tile; the
 // dkv kernel owns a tile of key rows and streams every query tile. The
@@ -38,29 +39,62 @@
 // dq, dk, dv written once: ~0.5 B per operation at i = 128); at long i, j
 // it is operations.
 //
-// bf16: every product runs on the tensor cores with `mma.sync.m16n8k16`
-// (bf16 in, f32 accumulate; helpers in mma_bf16.cuh). A block of 8 warps
-// owns 128 rows, 16 per warp; the warp keeps its two A operands (q and dO
-// in the dq kernel, k and v in the dkv kernel) and its f32 accumulators in
-// registers, and the block stages the streamed tile's two operands in
-// shared memory (rows padded by 8 elements, so fragment loads hit 32
-// distinct banks). dS is rounded to bf16 before the dS.K and dS^T.Q
-// products and P before P^T.dO, as the TPU kernels round them
-// (flash_kernel.py:256-261, :291-294). The C fragments of S and dP are
-// reused in registers as the A fragments of those products, so P and dS
-// never touch shared or device memory (but d_bias, which is an output).
-// The tile helpers (load_a, stage, mma_abt, mma_ab, store_rows) live in
+// The dkv kernel has two bf16 routes (`ops/flash_kernel.py dkv_route`):
+//
+// wgmma (dh = 64, every operand TMA loads addressable: every trained and
+// served shape): persistent blocks, one per SM, each walking (bh, 128-key
+// tile) tiles bh-major, so the key tiles of one head run at once on
+// neighbouring blocks and read its Q and dO from L2.
+//  - Warp 0 is the producer. For each tile it loads K and V by TMA into one
+//    of two buffers (the next tile's land while this tile's dk and dv are
+//    stored), then streams 64-query stages through a ring of full and empty
+//    mbarriers: Q and dO (3-D tensor maps (dh, n, BH), so a ragged last
+//    stage reads zeros inside its own head), with BIAS2D the f32 bias box
+//    (64 queries x 128 keys, four 128-byte swizzled boxes of 32 keys), and
+//    per query lse (in log2 units, +inf past len_i) and delta (0 past it),
+//    written by the warp's 32 lanes.
+//  - Each of two consumer warpgroups owns 64 keys and computes the tiles
+//    transposed, keys as rows: S^T = K.Q^T and dP^T = V.dO^T are
+//    wgmma.m64n64k16 with both operands K-major in shared memory; P^T =
+//    2^(s scale log2(e) + bias log2(e) - lse log2(e)) and dS^T = P^T (dP^T -
+//    delta) are computed in place in f32 registers, rounded to bf16 and
+//    repacked from the C fragments into A fragments, the register A operand
+//    of dV += P^T.dO and dK += dS^T.Q (wgmma.m64n64k16, dO and Q the
+//    MN-major B operand). A 2-D bias element (key, query) is read
+//    transposed from the swizzled box; the swizzle spreads a quad's four
+//    query rows over distinct banks. The key-side bias is a per-row
+//    constant, read once a tile.
+//  - Stage c + 1's S^T and dP^T are issued with stage c's dV and dK
+//    products, and stage c + 1's elementwise pass runs while those do.
+//  - dk (times scale) and dv are written from registers as bf16; keys past
+//    len_j are not written.
+//
+// mma_sync (the dq kernel always; the dkv kernel at dh 16 or 32, or with a
+// 2-D bias TMA cannot address): every product runs on the tensor cores with
+// `mma.sync.m16n8k16` (bf16 in, f32 accumulate; helpers in mma_bf16.cuh).
+// A block of 8 warps owns 128 rows, 16 per warp; the warp keeps its two A
+// operands (q and dO in the dq kernel, k and v in the dkv kernel) and its
+// f32 accumulators in registers, and the block stages the streamed tile's
+// two operands in shared memory (rows padded by 8 elements, so fragment
+// loads hit 32 distinct banks). The C fragments of S and dP are reused in
+// registers as the A fragments of the next products, so P and dS never
+// touch shared or device memory (but d_bias, which is an output). The tile
+// helpers (load_a, stage, mma_abt, mma_ab, store_rows) live in
 // mma_bf16.cuh, shared with the block-sparse kernels (sparse_attn.cu).
-// wgmma, TMA and a pipelined ring are the next step.
+//
+// Both bf16 routes round dS to bf16 before the dS.K and dS^T.Q products and
+// P before P^T.dO, as the TPU kernels round them (flash_kernel.py:256-261,
+// :291-294).
 //
 // f32: one thread per owned row on the CUDA cores in f32 FMAs (the tensor
 // cores would round to TF32). The owned rows' two operands sit in shared
 // memory with a one-float row pad (bank-conflict free per-thread rows),
 // the streamed tile beside them, the accumulators in registers.
 //
-// Both: the flattened (bh, row tile) index rides gridDim.x, offsets are
-// 64-bit, and the ragged last tiles of i and j are masked here, with no
-// padded copies.
+// mma_sync and f32: the flattened (bh, row tile) index rides gridDim.x.
+// Every route: offsets are 64-bit, and the ragged last tiles of i and j are
+// masked here (or zero-filled by TMA inside their own head), with no padded
+// copies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,16 +102,35 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
+using af2::EncodeTiledFn;
+using af2::encode_3d;
+using af2::encode_tiled;
+using af2::ex2;
+using af2::fence_regs;
+using af2::gmma_desc;
 using af2::kPad;
 using af2::load_a;
+using af2::mbar_arrive;
+using af2::mbar_expect_tx;
+using af2::mbar_init;
+using af2::mbar_wait;
 using af2::mma_ab;
 using af2::mma_abt;
+using af2::pack_bf16;
+using af2::smem_u32;
 using af2::stage;
 using af2::store_rows;
+using af2::tma_load_3d;
+using af2::wgmma_commit;
+using af2::wgmma_fence;
+using af2::wgmma_m64n64k16_rs_mn;
+using af2::wgmma_m64n64k16_ss;
+using af2::wgmma_wait;
 
 // --- bf16: tensor cores ----------------------------------------------------
 
@@ -417,7 +470,342 @@ __global__ void __launch_bounds__(kRowsF32)
   }
 }
 
-// --- launch ----------------------------------------------------------------
+// --- bf16, the dkv kernel's wgmma route: TMA ring, wgmma, persistent blocks --
+
+constexpr int kWKeys = 128;                       // keys a tile: two warpgroups of 64
+constexpr int kWQ = 64;                           // queries a stage
+constexpr int kWDH = 64;                          // the head width of the route: 128-byte rows
+constexpr int kKVTile = kWKeys * kWDH * 2;        // 16 KB, K or V of a tile
+constexpr int kQStage = kWQ * kWDH * 2;           // 8 KB, Q or dO of a stage
+constexpr int kBiasBox = 32;                      // keys of a 2-D bias box: 128-byte rows
+constexpr int kBiasBoxBytes = kWQ * kBiasBox * 4;  // 8 KB
+constexpr int kMNLbo = 8192;  // an MN-major B's descriptor: the stride of 64-column chunks (one)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// a block: warpgroup 0 holds the producer warp, two consumer warpgroups own
+// 64 keys each. Its shared memory: two K/V buffers, the ring's stages (Q,
+// dO, and with BIAS2D the 2-D bias box), the stages' lse and delta, the
+// barriers
+template <bool BIAS2D>
+struct DkvTile {
+  static constexpr int kConsumers = kWKeys / 64;
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kConsumerWarps = 4 * kConsumers;
+  // setmaxnreg: warpgroup 0 gives registers to the consumers' S^T, dP^T,
+  // dK, dV and the packed P^T and dS^T
+  static constexpr int kLightRegs = 56;
+  static constexpr int kConsumerRegs = 224;
+  static_assert(128 * kLightRegs + 128 * kConsumers * kConsumerRegs <= 65536, "registers");
+  static constexpr int kKV = 2 * kKVTile;
+  static constexpr int kStages = BIAS2D ? 3 : 4;
+  static constexpr int kStage = 2 * kQStage + (BIAS2D ? (kWKeys / kBiasBox) * kBiasBoxBytes : 0);
+  static constexpr int kRing = 2 * kKV;
+  static constexpr int kScalars = kRing + kStages * kStage;
+  static constexpr int kBars = kScalars + kStages * 2 * kWQ * 4;
+  static constexpr int kBytes = kBars + 8 * (2 * kStages + 4) + 1024;  // + alignment
+  static_assert(kBytes <= 232448, "over the 227 KB a block may use");
+};
+
+template <bool BIAS2D>
+__global__ void __launch_bounds__(DkvTile<BIAS2D>::kThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_g,
+                               const __grid_constant__ CUtensorMap tm_bias,  // BIAS2D only
+                               const float* __restrict__ key_bias,          // (BH, j), !BIAS2D
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                               int len_i, int len_j, int n_ktiles, int64_t tiles, float scale,
+                               float scale_log2) {
+  using L = DkvTile<BIAS2D>;
+  constexpr int S = L::kStages;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms are 1024-byte aligned
+  uint8_t* const smem = smem_raw + (base - raw);
+  float* const scalars = reinterpret_cast<float*>(smem + L::kScalars);
+  const uint32_t bars = base + L::kBars;
+  auto full = [&](int c) { return bars + 8 * (c % S); };               // stage c landed
+  auto empty = [&](int c) { return bars + 8 * (S + c % S); };          // stage c read
+  auto kvfull = [&](int n) { return bars + 8 * (2 * S + (n & 1)); };   // tile n's K/V landed
+  auto kvempty = [&](int n) { return bars + 8 * (2 * S + 2 + (n & 1)); };  // and read
+  // the phase parity a wait expects (empty slots: the previous round's,
+  // which a fresh barrier counts as completed)
+  auto ring = [](int c) { return (uint32_t)((c / S) & 1); };
+  auto kvring = [](int n) { return (uint32_t)((n >> 1) & 1); };
+  auto stage = [&](int c) { return (uint32_t)(L::kRing + (c % S) * L::kStage); };  // offset
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int nq = (len_i + kWQ - 1) / kWQ;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 32);  // the producer warp's lanes, and the TMA bytes
+      mbar_init(empty(s), L::kConsumerWarps);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(kvfull(b), 1);
+      mbar_init(kvempty(b), L::kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::kLightRegs));
+    if (warp == 0) {
+      // the producer: chunk c is query stage c of the block's tile sequence
+      int c = 0, n = 0;
+      for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+        const int bh = (int)(tile / n_ktiles);
+        const int k0 = (int)(tile % n_ktiles) * kWKeys;
+        if (lane == 0) {
+          const uint32_t kv = base + (n & 1) * L::kKV;
+          mbar_wait(kvempty(n), kvring(n) ^ 1);
+          mbar_expect_tx(kvfull(n), L::kKV);
+          tma_load_3d(kv, &tm_k, kvfull(n), 0, k0, bh);
+          tma_load_3d(kv + kKVTile, &tm_v, kvfull(n), 0, k0, bh);
+        }
+        for (int qq = 0; qq < nq; ++qq, ++c) {
+          const int q0 = qq * kWQ;
+          mbar_wait(empty(c), ring(c) ^ 1);
+          float* sc = scalars + (c % S) * 2 * kWQ;
+#pragma unroll
+          for (int e = 0; e < kWQ / 32; ++e) {
+            // queries past the end: lse = +inf makes their p an exact 0
+            const int row = q0 + 32 * e + lane;
+            const int64_t at = (int64_t)bh * len_i + row;
+            sc[32 * e + lane] = row < len_i ? lse[at] * kLog2e : INFINITY;
+            sc[kWQ + 32 * e + lane] = row < len_i ? delta[at] : 0.f;
+          }
+          const uint32_t st = base + stage(c);
+          if (lane == 0) {
+            mbar_expect_tx(full(c), L::kStage);
+            tma_load_3d(st, &tm_q, full(c), 0, q0, bh);
+            tma_load_3d(st + kQStage, &tm_g, full(c), 0, q0, bh);
+            if (BIAS2D) {
+#pragma unroll
+              for (int b = 0; b < kWKeys / kBiasBox; ++b) {
+                tma_load_3d(st + 2 * kQStage + b * kBiasBoxBytes, &tm_bias, full(c),
+                            k0 + b * kBiasBox, q0, bh);
+              }
+            }
+          } else {
+            mbar_arrive(full(c));
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kConsumerRegs));
+    // warpgroup wg owns the tile's keys 64 wg .. 64 wg + 63; a thread holds
+    // keys r and r + 8 (wgmma's accumulator layout: per 8 query columns j,
+    // s[4j], s[4j + 1] are key r, queries 8j + 2t, 8j + 2t + 1; s[4j + 2],
+    // s[4j + 3] key r + 8)
+    const int wg = warp / 4 - 1;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int r = 64 * wg + 16 * (warp % 4) + g;
+    float s[32], dp[32], dk_acc[32], dv_acc[32];
+    uint32_t pa[16], da[16];
+    // with BIAS2D: the byte offset in a stage's bias boxes of (key r + 8h,
+    // query 2t + e); query 8j + 2t + e lies 1024 j bytes further. Box r / 32,
+    // row = the query, 16-byte chunk (key % 32) / 4 swizzled with row % 8
+    int boff[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = r + 8 * h;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = 2 * t + e;
+        boff[h][e] = (key / kBiasBox) * kBiasBoxBytes + row * 128 +
+                     ((((key % kBiasBox) / 4) ^ row) << 4) + (key % 4) * 4;
+      }
+    }
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // S^T = K.Q^T and dP^T = V.dO^T of stage c, issued as one group
+    auto sdp = [&](uint32_t kv, int c) {
+      const uint32_t ka = kv + wg * (64 * kWDH * 2);
+      const uint32_t qa = base + stage(c);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kWDH / 16; ++ks) {
+        wgmma_m64n64k16_ss(s, gmma_desc(ka + 32 * ks, 16, 1024), gmma_desc(qa + 32 * ks, 16, 1024),
+                           ks);
+      }
+#pragma unroll
+      for (int ks = 0; ks < kWDH / 16; ++ks) {
+        wgmma_m64n64k16_ss(dp, gmma_desc(ka + kKVTile + 32 * ks, 16, 1024),
+                           gmma_desc(qa + kQStage + 32 * ks, 16, 1024), ks);
+      }
+      wgmma_commit();
+    };
+    // stage c's elementwise pass, in place: s <- P^T, dp <- dS^T (f32)
+    float kb[2];  // the tile's key bias of keys r, r + 8, log2 units
+    auto elementwise = [&](int c) {
+      const float* sc = scalars + (c % S) * 2 * kWQ;
+      const uint8_t* b2 = smem + stage(c) + 2 * kQStage;
+#pragma unroll
+      for (int j = 0; j < kWQ / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(sc + 8 * j + 2 * t);
+        const float2 dl = *reinterpret_cast<const float2*>(sc + kWQ + 8 * j + 2 * t);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * h + e;
+            float b = kb[h];
+            if (BIAS2D) {
+              b = fmaf(*reinterpret_cast<const float*>(b2 + boff[h][e] + 1024 * j), kLog2e, b);
+            }
+            const float p = ex2(fmaf(s[x], scale_log2, b) - (e ? l2.y : l2.x));
+            s[x] = p;
+            dp[x] = p * (dp[x] - (e ? dl.y : dl.x));
+          }
+        }
+      }
+    };
+    // P^T and dS^T rounded to bf16: per 16 queries ks, the A fragments
+    // pa[4 ks .. 4 ks + 3], da[...] (the C fragments of columns 16 ks ..
+    // 16 ks + 15)
+    auto pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < kWQ / 8; ++j) {
+        pa[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
+        pa[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+        da[2 * j] = pack_bf16(dp[4 * j], dp[4 * j + 1]);
+        da[2 * j + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
+      }
+    };
+    // dV += P^T.dO and dK += dS^T.Q of stage c, issued as one group
+    auto dkv = [&](int c) {
+      const uint32_t qa = base + stage(c);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kWQ / 16; ++ks) {
+        wgmma_m64n64k16_rs_mn(dv_acc, &pa[4 * ks], gmma_desc(qa + kQStage + 2048 * ks, kMNLbo, 1024));
+      }
+#pragma unroll
+      for (int ks = 0; ks < kWQ / 16; ++ks) {
+        wgmma_m64n64k16_rs_mn(dk_acc, &da[4 * ks], gmma_desc(qa + 2048 * ks, kMNLbo, 1024));
+      }
+      wgmma_commit();
+    };
+
+    int c = 0, n = 0;
+    for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+      const int bh = (int)(tile / n_ktiles);
+      const int k0 = (int)(tile % n_ktiles) * kWKeys;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = k0 + r + 8 * h;
+        kb[h] = -INFINITY;
+        if (key < len_j) kb[h] = BIAS2D ? 0.f : key_bias[(int64_t)bh * len_j + key] * kLog2e;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+      const uint32_t kv = base + (n & 1) * L::kKV;
+      mbar_wait(kvfull(n), kvring(n));
+      mbar_wait(full(c), ring(c));
+      sdp(kv, c);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      elementwise(c);
+      pack();
+      // stage c + 1's S^T and dP^T are issued with stage c's dV and dK, and
+      // stage c + 1's elementwise pass runs while those do. The loop body
+      // has no branch, and the epilogue sits after it (accumulator reads in
+      // a branch around the wgmma make ptxas serialize them)
+      for (int qq = 1; qq < nq; ++qq, ++c) {
+        mbar_wait(full(c + 1), ring(c + 1));
+        sdp(kv, c + 1);
+        dkv(c);
+        wgmma_wait<1>();  // the S^T and dP^T (groups retire in order)
+        fence_regs(s);
+        fence_regs(dp);
+        elementwise(c + 1);
+        wgmma_wait<0>();  // the dV and dK
+        fence_regs(dk_acc);
+        fence_regs(dv_acc);
+        fence_regs(pa);
+        fence_regs(da);
+        pack();
+        release(empty(c));
+      }
+      dkv(c);
+      wgmma_wait<0>();
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      fence_regs(pa);
+      fence_regs(da);
+      release(empty(c));
+      ++c;
+      release(kvempty(n));
+
+      // epilogue: keys r, r + 8 of the tile, columns 8j + 2t (+1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = k0 + r + 8 * h;
+        if (key < len_j) {
+          const int64_t at = ((int64_t)bh * len_j + key) * kWDH + 2 * t;
+#pragma unroll
+          for (int j = 0; j < kWDH / 8; ++j) {
+            *reinterpret_cast<uint32_t*>(dk + at + 8 * j) =
+                pack_bf16(dk_acc[4 * j + 2 * h] * scale, dk_acc[4 * j + 2 * h + 1] * scale);
+            *reinterpret_cast<uint32_t*>(dv + at + 8 * j) =
+                pack_bf16(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool BIAS2D>
+int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* bias,
+                     const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                     int64_t bh, int64_t len_i, int64_t len_j, float scale, cudaStream_t stream) {
+  using L = DkvTile<BIAS2D>;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v, tm_g, tm_bias;
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!encode_3d(encode, &tm_q, bf16, q, kWDH, len_i, bh, 2, kWDH, kWQ) ||
+      !encode_3d(encode, &tm_g, bf16, dout, kWDH, len_i, bh, 2, kWDH, kWQ) ||
+      !encode_3d(encode, &tm_k, bf16, k, kWDH, len_j, bh, 2, kWDH, kWKeys) ||
+      !encode_3d(encode, &tm_v, bf16, v, kWDH, len_j, bh, 2, kWDH, kWKeys)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  tm_bias = tm_k;  // unread without a 2-D bias
+  if (BIAS2D && !encode_3d(encode, &tm_bias, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, bias, len_j,
+                           len_i, bh, 4, kBiasBox, kWQ)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<BIAS2D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int64_t n_ktiles = (len_j + kWKeys - 1) / kWKeys;
+  const int64_t tiles = bh * n_ktiles;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  flash_bwd_dkv_wgmma_kernel<BIAS2D><<<grid, L::kThreads, L::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_g, tm_bias, (const float*)bias, (const float*)lse,
+      (const float*)delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, (int)len_i, (int)len_j,
+      (int)n_ktiles, tiles, scale, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// --- launch: the mma_sync and f32 routes ------------------------------------
 
 // grid: one block per (bh, tile of `rows_per_block` owned rows) on x
 bool make_grid(int64_t bh, int64_t owned, int rows_per_block,
@@ -526,8 +914,9 @@ int af2_flash_bwd_dq(const void* q, const void* k, const void* v,
                           nullptr, bh, len_i, len_j, dh, scale, stream);
 }
 
-// The dkv kernel (B1b `_dkv_kernel`; B2b `_make_fused_dkv_kernel`). As the
-// dq kernel; dk, dv (BH, j, dh) in the input type.
+// The dkv kernel (B1b `_dkv_kernel`; B2b `_make_fused_dkv_kernel`) on its
+// mma_sync (bf16) and f32 routes. As the dq kernel; dk, dv (BH, j, dh) in the
+// input type.
 int af2_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* bias, const void* dout, const void* lse,
                       const void* delta, void* dk, void* dv, int64_t bh,
@@ -539,6 +928,29 @@ int af2_flash_bwd_dkv(const void* q, const void* k, const void* v,
   }
   return launch_dkv<false>(is_bf16, q, k, v, bias, dout, lse, delta, dk, dv,
                            bh, len_i, len_j, dh, scale, stream);
+}
+
+// The dkv kernel on its wgmma route: bf16, dh = 64, as af2_flash_bwd_dkv,
+// with q, k, v, dout 16-byte aligned and a 2-D bias 16-byte aligned with
+// j % 4 == 0 (TMA's 16-byte bases and row strides). Returns the CUDA error
+// code of the launch (0 = launched); refuses a call the route cannot take.
+int af2_flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const void* bias,
+                            const void* dout, const void* lse, const void* delta, void* dk,
+                            void* dv, int64_t bh, int64_t len_i, int64_t len_j, int dh,
+                            float scale, int bias2d, void* stream_ptr) {
+  if (bh <= 0 || len_i <= 0 || len_j <= 0 || dh != kWDH || len_i > 2147483647LL ||
+      len_j > 2147483647LL || bh > 2147483647LL ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) % 16 != 0 ||
+      (bias2d && (len_j % 4 != 0 || (uintptr_t)bias % 16 != 0))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (bias2d) {
+    return launch_dkv_wgmma<true>(q, k, v, bias, dout, lse, delta, dk, dv, bh, len_i, len_j,
+                                  scale, stream);
+  }
+  return launch_dkv_wgmma<false>(q, k, v, bias, dout, lse, delta, dk, dv, bh, len_i, len_j,
+                                 scale, stream);
 }
 
 }  // extern "C"

@@ -82,7 +82,10 @@
 namespace {
 
 using af2::EncodeTiledFn;
+using af2::encode_3d;
 using af2::encode_tiled;
+using af2::ex2;
+using af2::fence_regs;
 using af2::gmma_desc;
 using af2::mbar_arrive;
 using af2::mbar_expect_tx;
@@ -94,6 +97,8 @@ using af2::smem_u32;
 using af2::tma_load_3d;
 using af2::wgmma_commit;
 using af2::wgmma_fence;
+using af2::wgmma_m64n128k16_ss;
+using af2::wgmma_m64n64k16_rs_mn;
 using af2::wgmma_wait;
 
 constexpr int kBlockQ = 128;   // query rows per block (both kernels)
@@ -418,64 +423,6 @@ struct WgmmaTile {
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// keeps the compiler from moving register reads across a wgmma wait (and
-// keeps a register operand live until the wgmma reading it is done)
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-#define AF2_D8(i)                                                                \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x 128 f32, 64 a thread) (+)= A (64 x 16 bf16) . B (16 x 128 bf16),
-// both K-major in shared memory; scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
-                                                    uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : AF2_D8(0), AF2_D8(8), AF2_D8(16), AF2_D8(24), AF2_D8(32), AF2_D8(40), AF2_D8(48),
-        AF2_D8(56)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// d (64 x 64 f32, 32 a thread) += A (64 x 16 bf16, from registers: a warp's
-// 16 rows, mma.m16n8k16's A layout) . B (16 x 64 bf16, MN-major in shared
-// memory: the transpose bit)
-__device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], const uint32_t* a,
-                                                      uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : AF2_D8(0), AF2_D8(8), AF2_D8(16), AF2_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-#undef AF2_D8
-
 template <bool GATED, bool BIAS2D, int CONSUMERS>
 __global__ void __launch_bounds__(WgmmaTile<BIAS2D, CONSUMERS>::kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -771,20 +718,6 @@ __global__ void __launch_bounds__(WgmmaTile<BIAS2D, CONSUMERS>::kThreads, 1)
       }
     }
   }
-}
-
-// a (d2, d1, d0) row-major array of `el`-byte elements, cut in (1, box1,
-// box0) boxes, 128-byte swizzled (box0 * el = 128)
-bool encode_3d(EncodeTiledFn encode, CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-               int64_t d0, int64_t d1, int64_t d2, int el, int box0, int box1) {
-  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
-  const cuuint64_t strides[2] = {(cuuint64_t)(d0 * el), (cuuint64_t)(d0 * d1 * el)};
-  const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool GATED, bool BIAS2D, int CONSUMERS>

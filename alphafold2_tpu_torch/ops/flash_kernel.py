@@ -22,13 +22,15 @@ CUDA tensors it launches its kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu,
 built at first use) or raises: bfloat16 runs on the tensor cores (f32
 accumulate), float32 on the CUDA cores in f32.
 
-The forwards take one of three kernels by the shape of the call (`route`):
-"wgmma" (TMA ring, wgmma, persistent blocks) for bfloat16 at dh = 64
-wherever TMA can address the operands, "mma_sync" for the other bfloat16
-calls, "f32" for float32. A route is chosen, never fallen back to: a failed
-build or launch on any route raises. `LAUNCHES` counts kernel launches per
-wrapper (B3's under their own keys, though they are B1's kernels) and each
-forward launch again under its route's key, `flash_fwd_<route>`.
+The forwards and the dkv kernel take one of three kernels by the shape of
+the call (`route`, `dkv_route`): "wgmma" (TMA ring, wgmma, persistent
+blocks) for bfloat16 at dh = 64 wherever TMA can address the operands,
+"mma_sync" for the other bfloat16 calls, "f32" for float32; the dq kernel
+has the mma_sync and f32 kernels only. A route is chosen, never fallen back
+to: a failed build or launch on any route raises. `LAUNCHES` counts kernel
+launches per wrapper (B3's under their own keys, though they are B1's
+kernels) and each forward and dkv launch again under its route's key,
+`flash_fwd_<route>` and `flash_bwd_dkv_<route>`.
 """
 
 from __future__ import annotations
@@ -45,20 +47,21 @@ from alphafold2_tpu_torch.ops import cuda_build, dispatch
 # an exact 0 with no nan guards
 _M0 = -1e30
 
-ROUTES = ("wgmma", "mma_sync", "f32")  # the forward kernels
+ROUTES = ("wgmma", "mma_sync", "f32")  # the forward kernels, and the dkv kernels
 # kernel launches since the last reset_launches(): one entry per kernel
 # (each backward wrapper launches a dq and a dkv kernel), and each forward
-# launch again under its route's entry
+# and dkv launch again under its route's entry
 LAUNCHES = {
     "flash_fwd": 0, "flash_fwd_fused": 0,
     "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     "flash_bwd_fused_dq": 0, "flash_bwd_fused_dkv": 0,
     "flash_fwd_lse": 0, "flash_bwd_lse_dq": 0, "flash_bwd_lse_dkv": 0,
     **{f"flash_fwd_{r}": 0 for r in ROUTES},
+    **{f"flash_bwd_dkv_{r}": 0 for r in ROUTES},
 }
 
 SUPPORTED_DH = (16, 32, 64)
-WGMMA_DH = 64   # the head width of the wgmma route (csrc/flash_fwd.cu kWDH)
+WGMMA_DH = 64   # the head width of the wgmma routes (csrc/flash_fwd.cu, flash_bwd.cu kWDH)
 _BLOCK_Q = 128  # query rows per CUDA block off the wgmma route (kBlockQ)
 
 
@@ -89,6 +92,17 @@ def route(q, k, v, bias, gate=None) -> str:
     if bias.dim() == 3 and (k.shape[1] % 4 or bias.data_ptr() % 16):
         return "mma_sync"
     return "wgmma"
+
+
+def dkv_route(q, k, v, bias) -> str:
+    """Which dkv kernel a backward call on these arguments runs, by the
+    forward's rule (`route`): the wgmma dkv kernel loads q, k, v, dO and a
+    2-D f32 bias by TMA (q, k, v and dO start 16-byte aligned, which
+    `_check_bwd` requires of every bfloat16 call; a 2-D bias needs a 16-byte
+    base and j % 4 == 0) and reads the key-side bias, lse and delta by plain
+    loads. "wgmma" for bfloat16 at dh = 64 where TMA can address them,
+    "mma_sync" for the other bfloat16 calls, "f32" for float32."""
+    return route(q, k, v, bias)
 
 
 # --- plain versions ------------------------------------------------------
@@ -249,6 +263,10 @@ def _bwd_lib() -> ctypes.CDLL:
             i32, i32, p,
         ]
         fn.restype = i32
+    lib.af2_flash_bwd_dkv_wgmma.argtypes = [
+        p, p, p, p, p, p, p, p, p, i64, i64, i64, i32, ctypes.c_float, i32, p,
+    ]
+    lib.af2_flash_bwd_dkv_wgmma.restype = i32
     return lib
 
 
@@ -353,7 +371,7 @@ def flash_fwd_fused(q, k, v, bias, scale, gate: Optional[torch.Tensor] = None):
 
 def _check_bwd(q, k, v, bias, gate, bias2d, out, lse, g):
     _check(q, k, v, bias, gate, bias2d)
-    _check_grid(q.shape[0], q.shape[1])
+    _check_grid(q.shape[0], q.shape[1])  # the dq kernel: a block per query tile
     for name, t in (("out", out), ("g", g)):
         if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous tensor of q's shape and dtype")
@@ -364,13 +382,18 @@ def _check_bwd(q, k, v, bias, gate, bias2d, out, lse, g):
         raise ValueError(f"lse must be a contiguous float32 {tuple(q.shape[:2])}")
 
 
-def _bwd_args(q, k, v, bias, lse, g, delta, scale, bias2d):
+def _bwd_args(q, k, v, bias, lse, g, delta, scale):
     BH, i, dh = q.shape
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
-    shape = (BH, i, k.shape[1], dh, float(scale), int(q.dtype == torch.bfloat16),
-             int(bias2d), torch.cuda.current_stream(q.device).cuda_stream)
-    return ins, shape
+    return ins, (BH, i, k.shape[1], dh, float(scale))
+
+
+def _flags(q, bias, bf16_flag=True):
+    """The trailing arguments of a backward C entry: (is_bf16,) bias2d, the
+    stream."""
+    return ((int(q.dtype == torch.bfloat16),) if bf16_flag else ()) + (
+        int(bias.dim() == 3), torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def launch_dq(q, k, v, bias, lse, g, delta, scale, name):
@@ -382,21 +405,36 @@ def launch_dq(q, k, v, bias, lse, g, delta, scale, name):
     dq = torch.empty_like(q)
     d_bias = (torch.empty(bias.shape, dtype=torch.float32, device=q.device)
               if bias2d else None)
-    ins, shape = _bwd_args(q, k, v, bias, lse, g, delta, scale, bias2d)
+    ins, shape = _bwd_args(q, k, v, bias, lse, g, delta, scale)
     rc = _bwd_lib().af2_flash_bwd_dq(*ins, dq.data_ptr(),
-                                     d_bias.data_ptr() if bias2d else None, *shape)
+                                     d_bias.data_ptr() if bias2d else None, *shape,
+                                     *_flags(q, bias))
     cuda_build.check_launch(rc, name)
     LAUNCHES[name] += 1
     return dq, d_bias
 
 
-def launch_dkv(q, k, v, bias, lse, g, delta, scale, name):
-    """One launch of the dkv kernel, as `launch_dq`. Returns (dk, dv)."""
+def launch_dkv(q, k, v, bias, lse, g, delta, scale, name, which=None):
+    """One launch of the dkv kernel, as `launch_dq`, counted under
+    LAUNCHES[name] and LAUNCHES["flash_bwd_dkv_<route>"]: the kernel
+    `dkv_route` picks, or the route `which` names (measurements compare two
+    routes on one call; the C entry refuses a call its route cannot take).
+    Returns (dk, dv)."""
+    which = which or dkv_route(q, k, v, bias)
+    if which not in ROUTES or (which == "f32") != (q.dtype == torch.float32):
+        raise ValueError(f"no {which!r} dkv route for {q.dtype} (routes {ROUTES})")
+    if which != "wgmma":  # a block per (bh, key tile)
+        _check_grid(k.shape[0], k.shape[1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    ins, shape = _bwd_args(q, k, v, bias, lse, g, delta, scale, bias.dim() == 3)
-    rc = _bwd_lib().af2_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *shape)
-    cuda_build.check_launch(rc, name)
+    ins, shape = _bwd_args(q, k, v, bias, lse, g, delta, scale)
+    outs = (dk.data_ptr(), dv.data_ptr())
+    if which == "wgmma":
+        rc = _bwd_lib().af2_flash_bwd_dkv_wgmma(*ins, *outs, *shape, *_flags(q, bias, False))
+    else:
+        rc = _bwd_lib().af2_flash_bwd_dkv(*ins, *outs, *shape, *_flags(q, bias))
+    cuda_build.check_launch(rc, f"{name} ({which} route)")
     LAUNCHES[name] += 1
+    LAUNCHES[f"flash_bwd_dkv_{which}"] += 1
     return dk, dv
 
 

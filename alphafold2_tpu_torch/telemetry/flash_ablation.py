@@ -85,8 +85,10 @@ TURNS = ('    auto turn_wait = [&]() { asm volatile("bar.sync %0, 256;\\n" ::"r"
 
 
 def _replace(src: str, old: str, new: str, count: int = 1) -> str:
+    """`src` with `old` replaced; raises unless `old` is there `count` times
+    (the source a variant is cut from has changed)."""
     if src.count(old) != count:
-        raise RuntimeError(f"csrc/flash_fwd.cu changed: {old.strip()[:60]!r} not found {count}x")
+        raise RuntimeError(f"the kernel source changed: {old.strip()[:60]!r} not found {count}x")
     return src.replace(old, new)
 
 

@@ -22,7 +22,12 @@ each phase prints its seconds):
      dh 16, a 2-D bias with j = 77; f32),
      each row naming its route; the flash
      backwards (B1b ungated, B2b gated, one 2-D-bias case) at the training
-     shapes (pair axial at L = 128 and 256); the int8 product (B4) at the
+     shapes (pair axial at L = 128 and 256), every dkv on its wgmma route
+     (timed beside the same call on the mma_sync route), and at edge cases
+     in every gate and bias mode, each row naming its dkv route (wgmma:
+     ragged 131 x 76, 140 x 383 x 383 past one wave of key tiles, 7 x 1000
+     with i under one query stage, each with a fully masked bh; mma_sync:
+     j = 77 and dh 16; f32); the int8 product (B4) at the
      served int8 request's ten dense-layer shapes (L = 384), all on its
      wgmma route, and at edge cases of each route (wgmma: ragged m, n = 16
      with one row, k = 1024; cp_async: ragged (m, k, n), a misaligned x,
@@ -59,7 +64,8 @@ each phase prints its seconds):
      (b) train_pre's defaults in bf16 (dim 256, depth 1, heads 8, dim_head
          64, batch 1, accum 16) at L = 128 and 256: one untimed step, 5
          timed ones; step ms, MFU, peak memory, finite nonzero gradients,
-         and 2 * depth * accum launches of each kernel per step;
+         and 2 * depth * accum launches of each kernel per step (every
+         forward and dkv launch on its wgmma route);
      (c) the same with attn_gate=True at L = 128: the fused pair only;
      (e) the same sparse at L = 256 (max_seq_len 256): the three sparse
          kernels only;
@@ -76,8 +82,9 @@ each phase prints its seconds):
          agreement with the dense request (within 1.5x the dense request's
          distance from the f32 request), and 40 B1f and 32 B3 launches,
          all 72 on the wgmma route;
-     (c) the gradient of sum(ring_attention(...)^2), f32, 4 shards, one
-         shard's keys masked, card against CPU: B3's backward;
+     (c) the gradient of sum(ring_attention(...)^2), 4 shards, one
+         shard's keys masked, card against CPU, in f32 and in bf16 (every
+         hop's dkv on the wgmma route): B3's backward;
      (d) (b) over distinct cards when the host has two or more;
   5. a `kernels` JSON line (thirteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
@@ -548,7 +555,10 @@ def sdpa_backward_ms(q, k, v, bias, g, scale, wrt, reps):
 def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
               bias2d=False):
     """One backward pair (B1b when neither gated nor bias2d, else B2b) on
-    the forward kernel's out and lse, against flash_bwd_plain.
+    the forward kernel's out and lse, against flash_bwd_plain; one launch of
+    each kernel, the dkv one counted under its route (`dkv_route`). Timed:
+    each kernel, the dkv call again on the mma_sync route when it takes
+    wgmma, the plain versions and the SDPA backward.
 
     Tolerances: f32, 1e-5 * max(1, max|ref|) per output (both in f32,
     another summation order). bf16, elementwise, flash_bwd_bf16_bound:
@@ -570,7 +580,8 @@ def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
                     device="cuda").to(dtype)
     names = (("flash_bwd_fused_dq", "flash_bwd_fused_dkv") if fused
              else ("flash_bwd_dq", "flash_bwd_dkv"))
-    before = {n: flash_kernel.LAUNCHES[n] for n in names}
+    which = flash_kernel.dkv_route(q, k, v, bias)
+    before = dict(flash_kernel.LAUNCHES)
     if fused:
         dq, dk, dv, d_bias, d_gate = flash_kernel.flash_bwd_fused(
             q, k, v, bias, gate, out, lse, g, scale)
@@ -578,8 +589,10 @@ def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
         (dq, dk, dv), d_bias, d_gate = flash_kernel.flash_bwd(
             q, k, v, bias, out, lse, g, scale), None, None
     sync()
-    if any(flash_kernel.LAUNCHES[n] != before[n] + 1 for n in names):
-        fail(f"{names} did not count their launches")
+    counted = {key: n - before[key] for key, n in flash_kernel.LAUNCHES.items()}
+    if counted != {key: int(key in names + (f"flash_bwd_dkv_{which}",)) for key in counted}:
+        fail(f"{names} did not count one launch each, the dkv one on its {which} route: "
+             f"{counted}")
     ref = flash_kernel.flash_bwd_plain(q, k, v, bias, out, lse, g, scale, gate)
     sync()
     if dtype == torch.float32:
@@ -597,7 +610,7 @@ def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
     ok = all(r <= 1.0 for r in ratios) and all(
         bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
     row = {"kernel": names[0].rsplit("_", 1)[0], "case": label, "shape": [BH, i, j, dh],
-           "dtype": str(dtype), "dq_err": errs[0], "dkv_err": max(errs[1:]),
+           "dtype": str(dtype), "dkv_route": which, "dq_err": errs[0], "dkv_err": max(errs[1:]),
            "bound_ratio": max(ratios)}
     if bias2d:
         db_err = (d_bias - ref[3]).abs().max().item()
@@ -615,6 +628,9 @@ def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
         reps = 10
         row["dq_ms"] = time_ms(lambda: flash_kernel.launch_dq(*args, names[0]), reps)
         row["dkv_ms"] = time_ms(lambda: flash_kernel.launch_dkv(*args, names[1]), reps)
+        if which == "wgmma":  # the same call on the kernel the wgmma route replaced
+            row["dkv_mma_sync_ms"] = time_ms(lambda: flash_kernel.launch_dkv(
+                *args, names[1], which="mma_sync"), reps)
         row["dq_plain_ms"] = time_ms(lambda: flash_kernel.flash_bwd_dq_plain(*args), 2)
         row["dkv_plain_ms"] = time_ms(lambda: flash_kernel.flash_bwd_dkv_plain(*args), 2)
         # the gate acts outside the kernels (cotangent_terms): fed g_eff, the
@@ -639,11 +655,14 @@ def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
         row["bound_ms"] = max(10 * BHij / PEAK_FLOPS[dtype], pair_bytes / HBM_BYTES_PER_S) * 1e3
         row["kernel_ops_ms"] = 14 * BHij / PEAK_FLOPS[dtype] * 1e3
     times = "".join(
-        f" {key}={row[key]:.3f}" for key in ("dq_ms", "dkv_ms", "plain_ms", "library_ms",
-                                             "bound_ms") if row.get(key) is not None
+        f" {key}={row[key]:.3f}" for key in ("dq_ms", "dkv_ms", "dkv_mma_sync_ms",
+                                             "dkv_library_ms", "dkv_bound_ms", "plain_ms",
+                                             "library_ms", "bound_ms")
+        if row.get(key) is not None
     )
     log(f"[bwd] {row['kernel']:15s} {label:24s} {str(tuple(row['shape'])):24s} "
-        f"{str(dtype).split('.')[-1]:8s} dq|d|={row['dq_err']:.3e} dkv|d|={row['dkv_err']:.3e} "
+        f"{str(dtype).split('.')[-1]:8s} dkv {which:8s} dq|d|={row['dq_err']:.3e} "
+        f"dkv|d|={row['dkv_err']:.3e} "
         f"(bound ratio {row['bound_ratio']:.3f}){times} {'ok' if ok else 'FAIL'}")
     del q, k, v, bias, gate, out, lse, g, ref
     torch.cuda.empty_cache()
@@ -659,7 +678,15 @@ def phase_bwd_kernels():
                               timed=True, gated=True))
     rows.append(check_bwd("pair axial L=128 bias2d", 1024, 128, 128, 64, torch.bfloat16,
                           timed=True, bias2d=True))
+    off = [r["case"] for r in rows if r["dkv_route"] != "wgmma"]
+    if off:
+        fail("trained backward shapes off the wgmma dkv route: " + ", ".join(off))
     edges = [
+        # the dkv kernel's wgmma route: ragged i and j; 420 key tiles, past
+        # one wave (with a 2-D bias j % 4 != 0: mma_sync); i < 64, long j
+        ("ragged wgmma", 5, 131, 76, 64, torch.bfloat16, (1,)),
+        ("past one wave", 140, 383, 383, 64, torch.bfloat16, (1,)),
+        ("short i, long j", 3, 7, 1000, 64, torch.bfloat16, (1,)),
         ("ragged", 5, 131, 77, 64, torch.bfloat16, (1,)),
         ("ragged f32", 5, 131, 77, 64, torch.float32, (1,)),
         ("tiny i, long j", 3, 7, 1000, 32, torch.float32, ()),
@@ -670,6 +697,11 @@ def phase_bwd_kernels():
                                       (False, True, " bias2d"), (True, True, " gated bias2d")):
             rows.append(check_bwd(label + suffix, BH, i, j, dh, dtype, timed=False,
                                   masked_bh=masked, gated=gated, bias2d=bias2d))
+    wgmma_edges = [r for r in rows if r["case"].startswith(("ragged wgmma", "past one wave",
+                                                             "short i, long j"))
+                   and not ("bias2d" in r["case"] and r["shape"][2] % 4)]
+    if len(wgmma_edges) != 10 or any(r["dkv_route"] != "wgmma" for r in wgmma_edges):
+        fail("the wgmma dkv edge cases left the wgmma route")
     RECORD["bwd_kernels"] = rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -1482,7 +1514,7 @@ def phase_train():
     three = 2 * f32.depth * 2 * 3  # two pair axial passes a layer, accum 2, 3 steps
     phase_train_parity("a", f32, 64, {name: three for name in
                                       ("flash_fwd", "flash_fwd_f32", "flash_bwd_dq",
-                                       "flash_bwd_dkv")})
+                                       "flash_bwd_dkv", "flash_bwd_dkv_f32")})
     # max_seq_len 128: 75% of the 8 blocks active; every layer sparse
     phase_train_parity("a sparse", dataclasses.replace(f32, max_seq_len=128,
                                                        sparse_self_attn=True), 128,
@@ -1492,7 +1524,9 @@ def phase_train():
     cfg = Alphafold2Config(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=2048,
                            dtype=torch.bfloat16)
     per = 2 * cfg.depth * tcfg.grad_accum  # two pair-axial attentions a layer
-    plain = {"flash_fwd": per, "flash_fwd_wgmma": per, "flash_bwd_dq": per, "flash_bwd_dkv": per}
+    # every bf16 dkv launch on the wgmma route
+    plain = {"flash_fwd": per, "flash_fwd_wgmma": per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
+             "flash_bwd_dkv_wgmma": per}
     launches = {"flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     for L in (128, 256):
         counts = train_run("b", cfg, L, tcfg, 5, plain)
@@ -1500,7 +1534,7 @@ def phase_train():
             launches[name] += counts[name]
     gated = train_run("c", dataclasses.replace(cfg, attn_gate=True), 128, tcfg, 2,
                       {"flash_fwd_fused": per, "flash_fwd_wgmma": per, "flash_bwd_fused_dq": per,
-                       "flash_bwd_fused_dkv": per})
+                       "flash_bwd_fused_dkv": per, "flash_bwd_dkv_wgmma": per})
     # train_pre's defaults, sparse, at crop 256 with max_seq_len 256: 66% of
     # the 16 blocks active (train_pre's own 2048 would make every block active)
     sparse_run = train_run("e", dataclasses.replace(cfg, sparse_self_attn=True, max_seq_len=256),
@@ -1695,46 +1729,62 @@ def phase_sp_request(label, devices):
 def phase_sp_ring_grad():
     """(c) the gradient of sum(ring_attention(q, k, v)^2) over 4 shards on
     the card (["cuda:0"] * 4, B3 forward and backward through real merges)
-    against the same over 4 CPU shards (the plain version under autograd),
-    f32, b 1, n 1,024 (256 a shard), 2 heads of 64, the second shard's keys
-    all masked and 5% of the others. Counts set to 0 just before the
-    forward and backward, read after: P^2 = 16 launches of each B3 kernel.
-    Tolerance: out and each gradient 1e-5 * max(1, max|ref|) (f32 on both
-    sides, another summation order)."""
+    against the same over 4 CPU shards (the plain version under autograd,
+    f32), b 1, n 1,024 (256 a shard), 2 heads of 64, the second shard's keys
+    all masked and 5% of the others; in f32, then in bf16 (inputs rounded
+    once, the CPU in f32 on the same rounded values). Counts set to 0 just
+    before each card run's forward and backward, read after: P^2 = 16
+    launches of each B3 kernel, the forwards and dkv kernels on the f32
+    route in f32 and on the wgmma route in bf16. Tolerance: out and each
+    gradient, f32 1e-5 * max(1, max|ref|) (f32 on both sides, another
+    summation order); bf16 2^-5 * max(1, max|ref|) (each hop's output is
+    rounded to bf16 before its merge, and the kernels round P and dS to
+    bf16: the card test's bound, test_ring_attention_on_card_matches_cpu_shards).
+    Returns the B3 kernels' launches, summed over the two runs."""
     P, n, h, dh = 4, 1024, 2, 64
     gen = torch.Generator().manual_seed(41)
     q, k, v = (torch.randn(1, n, h, dh, generator=gen) for _ in range(3))
     mask = torch.rand(1, n, generator=gen) >= 0.05
     mask[:, n // P:2 * n // P] = False
-    grads, outs = {}, {}
-    for dev in ("cuda", "cpu"):
-        mesh = make_mesh({"seq": P}, devices=[dev] * P)
-        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
-        if dev == "cuda":
-            reset_launches()
-        out = mesh.unshard(ring_attention(*(mesh.shard(t, 1) for t in leaves), mesh,
-                                          masks=mesh.shard(mask.to(dev), 1)), 1)
-        grads[dev] = torch.autograd.grad((out ** 2).sum(), leaves)
-        if dev == "cuda":
-            sync()
-            launches = launch_counts()
-        outs[dev] = out.detach().cpu()
-    errs = {"out": (outs["cuda"] - outs["cpu"]).abs().max().item()}
-    ok = errs["out"] <= 1e-5 * max(1.0, outs["cpu"].abs().max().item())
-    for name, gc, gp in zip("qkv", grads["cuda"], grads["cpu"]):
-        errs[f"d{name}"] = (gc.cpu() - gp).abs().max().item()
-        ok = ok and errs[f"d{name}"] <= 1e-5 * max(1.0, gp.abs().max().item())
-        ok = ok and bool(torch.isfinite(gc).all())
-    expect = {name: 0 for name in launches}
-    expect.update(flash_fwd_lse=P * P, flash_fwd_f32=P * P, flash_bwd_lse_dq=P * P,
-                  flash_bwd_lse_dkv=P * P)
-    ok = ok and launches == expect
-    log(f"[sp c] ring attention f32 grad, card vs cpu: {', '.join(f'{k} |d|={e:.2e}' for k, e in errs.items())}; "
-        f"launches {launches} {'ok' if ok else 'FAIL'}")
-    RECORD["phases"]["sp_ring_grad"] = {"errs": errs, "launches": launches, "ok": bool(ok)}
-    if not ok:
+    total, rows = {}, []
+    for dtype, route, rel in ((torch.float32, "f32", 1e-5), (torch.bfloat16, "wgmma", 2.0 ** -5)):
+        inputs = [t.to(dtype).float() for t in (q, k, v)]
+        grads, outs = {}, {}
+        for dev, dt in (("cuda", dtype), ("cpu", torch.float32)):
+            mesh = make_mesh({"seq": P}, devices=[dev] * P)
+            leaves = [t.to(dev, dt).requires_grad_() for t in inputs]
+            if dev == "cuda":
+                reset_launches()
+            out = mesh.unshard(ring_attention(*(mesh.shard(t, 1) for t in leaves), mesh,
+                                              masks=mesh.shard(mask.to(dev), 1)), 1)
+            grads[dev] = torch.autograd.grad((out.float() ** 2).sum(), leaves)
+            if dev == "cuda":
+                sync()
+                launches = launch_counts()
+            outs[dev] = out.detach().float().cpu()
+        errs = {"out": (outs["cuda"] - outs["cpu"]).abs().max().item()}
+        ok = errs["out"] <= rel * max(1.0, outs["cpu"].abs().max().item())
+        for name, gc, gp in zip("qkv", grads["cuda"], grads["cpu"]):
+            errs[f"d{name}"] = (gc.float().cpu() - gp).abs().max().item()
+            ok = ok and errs[f"d{name}"] <= rel * max(1.0, gp.abs().max().item())
+            ok = ok and bool(torch.isfinite(gc).all())
+        expect = {name: 0 for name in launches}
+        expect.update({"flash_fwd_lse": P * P, f"flash_fwd_{route}": P * P,
+                       "flash_bwd_lse_dq": P * P, "flash_bwd_lse_dkv": P * P,
+                       f"flash_bwd_dkv_{route}": P * P})
+        ok = ok and launches == expect
+        kind = str(dtype).split(".")[-1]
+        log(f"[sp c] ring attention {kind} grad, card vs cpu: "
+            f"{', '.join(f'{k} |d|={e:.2e}' for k, e in errs.items())} ({rel:g} of the largest); "
+            f"launches {launches} {'ok' if ok else 'FAIL'}")
+        rows.append({"dtype": kind, "errs": errs, "tol_rel": rel, "launches": launches,
+                     "ok": bool(ok)})
+        for name, count in launches.items():
+            total[name] = total.get(name, 0) + count
+    RECORD["phases"]["sp_ring_grad"] = rows
+    if not all(r["ok"] for r in rows):
         fail("ring attention's gradient on the card disagrees with the CPU's (phase 7c)")
-    return launches
+    return total
 
 
 def phase_sp():
@@ -1757,8 +1807,9 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     path's three attention shapes at L = 384 in bf16 (one launch of each;
     B2f gated). Backwards: summed over the training path's pair-axial
     shapes at L = 128 and 256 in bf16 (B1b ungated, B2b gated; each entry
-    the time of its own kernel, its own plain version, its own bound, and
-    the SDPA backward for the gradients it produces). B4: summed over the
+    the time of its own kernel, the dkv entries on their wgmma route, its
+    own plain version, its own bound, and the SDPA backward for the
+    gradients it produces). B4: summed over the
     served int8 request's ten dense-layer shapes at L = 384 (one launch of
     each, all on the wgmma route: the row is that route's, its launches
     the main path's wgmma-route launches; max_abs_err over every checked
@@ -1772,7 +1823,8 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     hop shape, each with its own plain version and bound, no library call
     (none takes an lse cotangent). Launches: from the main paths' runs
     (serving for the forwards and B4, training for the backwards; B3's
-    forward from the SP request, its backward from the ring's gradient)."""
+    forward from the SP request, its backward from the ring's gradient in
+    f32 and in bf16)."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r

@@ -392,6 +392,86 @@ def test_launch_fwd_refuses_a_route_the_dtype_has_not():
         r: 0 for r in flash_kernel.ROUTES}
 
 
+# the trained dkv shapes (BH, i, j): pair axial at crop 128 and 256 (BH =
+# 8L), gated or not (the gate acts outside the kernel, so the call is the
+# same), the 2-D-bias row of chip_smoke.py phase 3, and B3's ring gradient
+# at the L = 128 hop
+DKV_SHAPES = {
+    "pair axial L=128": ((1024, 128, 128), False),
+    "pair axial L=128 gated": ((1024, 128, 128), False),
+    "pair axial L=256": ((2048, 256, 256), False),
+    "pair axial L=256 gated": ((2048, 256, 256), False),
+    "pair axial L=128 bias2d": ((1024, 128, 128), True),
+    "B3 ring gradient L=128 P=4": ((8, 640, 4096), False),
+}
+
+
+@pytest.mark.parametrize("case", list(DKV_SHAPES))
+def test_dkv_route_takes_wgmma_on_every_trained_shape(case):
+    (BH, i, j), bias2d = DKV_SHAPES[case]
+    q, k, v, bias, _ = _shaped(BH, i, j, 64, bias2d=bias2d)
+    assert flash_kernel.dkv_route(q, k, v, bias) == "wgmma"
+
+
+@pytest.mark.parametrize("case,args,want", [
+    ("dh 16", dict(BH=4, i=20, j=20, dh=16), "mma_sync"),
+    ("dh 32", dict(BH=3, i=7, j=1000, dh=32), "mma_sync"),
+    ("bias2d j % 4 != 0", dict(BH=5, i=131, j=77, dh=64, bias2d=True), "mma_sync"),
+    ("bias2d misaligned base", dict(BH=5, i=131, j=76, dh=64, bias2d=True, bias_offset=1),
+     "mma_sync"),
+    ("key bias ragged j 77", dict(BH=5, i=131, j=77, dh=64), "wgmma"),
+    ("key bias misaligned base", dict(BH=5, i=131, j=76, dh=64, bias_offset=1), "wgmma"),
+    ("f32", dict(BH=5, i=131, j=76, dh=64, dtype=torch.float32), "f32"),
+    ("f32 bias2d", dict(BH=5, i=131, j=76, dh=64, dtype=torch.float32, bias2d=True), "f32"),
+])
+def test_dkv_route_off_the_trained_shapes(case, args, want):
+    """dh 16 and 32 and a 2-D bias TMA cannot address take the mma_sync dkv
+    kernel; the key-side bias is read by plain loads; f32 takes f32."""
+    q, k, v, bias, _ = _shaped(**args)
+    assert flash_kernel.dkv_route(q, k, v, bias) == want
+
+
+def test_cpu_tensors_never_call_dkv_route(monkeypatch):
+    """On CPU tensors the backwards (B1b, B2b, B3) run their plain versions
+    before any dkv route is decided, and build or launch nothing."""
+    def refused(*a, **k):
+        raise AssertionError("a CPU call reached a CUDA dkv route")
+
+    for name in ("dkv_route", "launch_dkv", "launch_dq", "route"):
+        monkeypatch.setattr(flash_kernel, name, refused)
+    monkeypatch.setattr(cuda_build, "build", refused)
+    monkeypatch.setattr(cuda_build, "library", refused)
+    flash_kernel.reset_launches()
+    q, k, v, bias = map(torch.from_numpy, folded_inputs(2, 9, 12, 64))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    out, lse = flash_kernel.flash_fwd_plain(q, k, v, bias, 0.125)
+    g = torch.ones_like(q)
+    pair = torch.zeros(2, 9, 12)
+    flash_kernel.flash_bwd(q, k, v, bias, out, lse, g, 0.125)
+    flash_kernel.flash_bwd_fused(q, k, v, pair, q.clone(), out, lse, g, 0.125)
+    flash_kernel.flash_bwd_lse(q, k, v, bias, out, lse, g, torch.ones_like(lse), 0.125)
+    assert set(flash_kernel.LAUNCHES.values()) == {0}
+
+
+def test_launch_dkv_refuses_a_route_the_dtype_has_not():
+    """A dkv route named by a measurement must fit the dtype (the C entries
+    would read float32 data as bfloat16); refused before any build."""
+    q, k, v, bias = map(torch.from_numpy, folded_inputs(2, 9, 12, 64))
+    lse = torch.zeros(2, 9)
+    with pytest.raises(ValueError, match="no 'wgmma' dkv route for torch.float32"):
+        flash_kernel.launch_dkv(q, k, v, bias, lse, q, lse, 0.125, "flash_bwd_dkv",
+                                which="wgmma")
+    with pytest.raises(ValueError, match="no 'mma_sync' dkv route for torch.float32"):
+        flash_kernel.launch_dkv(q, k, v, bias, lse, q, lse, 0.125, "flash_bwd_dkv",
+                                which="mma_sync")
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    with pytest.raises(ValueError, match="no 'f32' dkv route for torch.bfloat16"):
+        flash_kernel.launch_dkv(qb, kb, vb, bias, lse, qb, lse, 0.125, "flash_bwd_dkv",
+                                which="f32")
+    assert {r: flash_kernel.LAUNCHES[f"flash_bwd_dkv_{r}"] for r in flash_kernel.ROUTES} == {
+        r: 0 for r in flash_kernel.ROUTES}
+
+
 def test_flash_ablation_variants_match_the_source():
     """The ablation tool's copies of csrc/flash_fwd.cu are cut from the
     source's own text: each fragment it changes is still there once, and
@@ -413,3 +493,28 @@ def test_flash_ablation_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA device"):
         flash_ablation.main()
+
+
+def test_dkv_ablation_variants_match_the_source():
+    """The dkv ablation tool's copies of csrc/flash_bwd.cu are cut from the
+    source's own text: each fragment it changes is still there once, and
+    every copy differs from the others."""
+    from alphafold2_tpu_torch.telemetry import dkv_ablation
+
+    sources = dkv_ablation.variants()
+    assert set(sources) == {"base", "turns", "no_overlap", "no_ex2", "no_ss", "no_rs",
+                            "counters"}
+    assert len(set(sources.values())) == len(sources)
+    assert sources["base"] == (cuda_build.CSRC / "flash_bwd.cu").read_text()
+    assert "af2_ablation_counters" in sources["counters"]
+    assert sources["counters"].count("T[7] += 1;") == 1
+    assert "wgmma_m64n64k16_ss(" not in sources["no_ss"].split("flash_bwd_dkv_wgmma_kernel(")[1]
+    assert sources["turns"].count("turn_wait();") == 2
+
+
+def test_dkv_ablation_needs_a_card(monkeypatch):
+    from alphafold2_tpu_torch.telemetry import dkv_ablation
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA device"):
+        dkv_ablation.main()

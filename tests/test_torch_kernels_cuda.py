@@ -201,6 +201,87 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dh, dtype, mode):
         assert torch.equal(d_gate, ref[4])
 
 
+DKV_SHAPES = {  # (BH, i, j): ragged; past one wave of 128-key tiles; i < 64, long j
+    "ragged": (5, 131, 76),
+    "past one wave": (140, 383, 383),
+    "short i, long j": (3, 7, 1000),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("mode", ["plain", "gate", "bias2d", "gate+bias2d"])
+@pytest.mark.parametrize("shape", list(DKV_SHAPES))
+def test_bf16_dkv_routes_match_plain_on_card(cuda_device, which, mode, shape):
+    """Both bf16 dkv kernels on one call, after the forward kernel, against
+    `flash_bwd_dkv_plain` under the elementwise bound of
+    `chip_smoke.flash_bwd_bf16_bound` (the kernels round dS and P to bf16
+    before their products); the launch counts under the wrapper's key and
+    the route's, and no other. The (bh) row 1 has every key masked: exact
+    zeros; with a 2-D bias query row 3 of bh 0 is fully masked. Where
+    `dkv_route` does not give wgmma (a 2-D bias with j % 4 != 0), the
+    forced wgmma launch is refused and nothing counts."""
+    BH, i, j = DKV_SHAPES[shape]
+    dh, scale = 64, 0.125
+    q, k, v, bias = folded_inputs(BH, i, j, dh, cuda_device, seed=2, masked_bh=(1,))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    gate = torch.randn_like(q) if "gate" in mode else None
+    if "bias2d" in mode:
+        bias = (torch.randn(BH, i, j, device=cuda_device) + bias[:, None, :]).contiguous()
+        bias[0, 3] = float("-inf")
+    if mode == "plain":
+        out, lse = flash_kernel.flash_fwd(q, k, v, bias, scale)
+    else:
+        out, lse = flash_kernel.flash_fwd_fused(q, k, v, bias, scale, gate)
+    g = torch.randn_like(q)
+    g_eff, delta, _ = flash_kernel.cotangent_terms(out, g, gate)
+    name = "flash_bwd_dkv" if mode == "plain" else "flash_bwd_fused_dkv"
+    args = (q, k, v, bias, lse, g_eff, delta, scale, name)
+    before = dict(flash_kernel.LAUNCHES)
+    if which == "wgmma" and flash_kernel.dkv_route(q, k, v, bias) != "wgmma":
+        with pytest.raises(RuntimeError, match="wgmma route"):
+            flash_kernel.launch_dkv(*args, which=which)
+        assert dict(flash_kernel.LAUNCHES) == before
+        return
+    dk, dv = flash_kernel.launch_dkv(*args, which=which)
+    torch.cuda.synchronize()
+    counted = {key: n - before[key] for key, n in flash_kernel.LAUNCHES.items()}
+    assert counted == {key: int(key in (name, f"flash_bwd_dkv_{which}")) for key in counted}
+    ref = flash_kernel.flash_bwd_dkv_plain(q, k, v, bias, lse, g_eff, delta, scale)
+    from chip_smoke import flash_bwd_bf16_bound
+
+    bounds = flash_bwd_bf16_bound(q, k, v, bias, out, lse, g, scale, gate)[1:]
+    for got, want, bound in zip((dk, dv), ref, bounds):
+        assert torch.isfinite(got).all()
+        assert ((got.float() - want.float()).abs() <= bound).all()
+        assert (got[1] == 0).all()
+
+
+@pytest.mark.cuda
+def test_wgmma_dkv_route_refuses_what_tma_cannot_address(cuda_device):
+    """Forced onto the wgmma dkv route, a call it cannot take (dh 32; a 2-D
+    bias with j % 4 != 0; a 2-D bias off a 16-byte boundary) is refused by
+    the C entry and raises; nothing counts."""
+    q, k, v, bias = folded_inputs(2, 20, 77, 64, cuda_device)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    lse = torch.zeros(2, 20, device=cuda_device)
+    before = dict(flash_kernel.LAUNCHES)
+    pair = torch.zeros(2, 20, 77, device=cuda_device)
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        flash_kernel.launch_dkv(q, k, v, pair, lse, q, lse, 0.125, "flash_bwd_fused_dkv",
+                                which="wgmma")
+    k4, v4 = (x[:, :76].contiguous() for x in (k, v))
+    shifted = torch.zeros(2 * 20 * 76 + 1, device=cuda_device)[1:].view(2, 20, 76)
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        flash_kernel.launch_dkv(q, k4, v4, shifted, lse, q, lse, 0.125, "flash_bwd_fused_dkv",
+                                which="wgmma")
+    half = [x[..., :32].contiguous() for x in (q, k, v)]
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        flash_kernel.launch_dkv(*half, bias, lse, half[0], lse, 0.125, "flash_bwd_dkv",
+                                which="wgmma")
+    assert dict(flash_kernel.LAUNCHES) == before
+
+
 @pytest.mark.cuda
 def test_backward_on_card_raises_instead_of_falling_back(cuda_device, monkeypatch):
     """With the backward launch refused, loss.backward() on CUDA tensors
@@ -372,9 +453,10 @@ def test_sparse_unsupported_raises_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_card_routes_raise_instead_of_falling_back(cuda_device, monkeypatch):
-    """With the launches refused, the int8 product and the sparse attention
-    (forward through sparse_attention_apply, backward through autograd)
-    raise on CUDA tensors; they never take their plain versions."""
+    """With the launches refused, the int8 product, the sparse attention
+    (forward through sparse_attention_apply, backward through autograd) and
+    the flash backward's wgmma dkv kernel raise on CUDA tensors; they never
+    take their plain versions or another route."""
     from alphafold2_tpu_torch.ops import quant, quant_kernel, sparse, sparse_kernel
     from alphafold2_tpu_torch.ops.attention import AttentionConfig, attention_init
 
@@ -405,6 +487,30 @@ def test_card_routes_raise_instead_of_falling_back(cuda_device, monkeypatch):
     monkeypatch.setattr(sparse_kernel, "_lib", refused)
     with pytest.raises(RuntimeError, match="refused"):
         sparse.sparse_attention_apply(params, cfg, scfg, x)
+
+    # a failed wgmma dkv launch raises; the mma_sync dkv kernel is never tried
+    real = flash_kernel._bwd_lib()
+
+    class RefusingDkv:
+        af2_flash_bwd_dq = real.af2_flash_bwd_dq
+
+        @staticmethod
+        def af2_flash_bwd_dkv_wgmma(*args):
+            return 98  # cudaErrorInvalidDeviceFunction
+
+        @staticmethod
+        def af2_flash_bwd_dkv(*args):
+            raise AssertionError("the wgmma dkv launch fell back to the mma_sync kernel")
+
+    monkeypatch.setattr(flash_kernel, "_bwd_lib", RefusingDkv)
+    monkeypatch.setattr(flash_kernel, "flash_bwd_plain", plain_called)
+    monkeypatch.setattr(flash_kernel, "flash_bwd_dkv_plain", plain_called)
+    from alphafold2_tpu_torch.ops import flash
+
+    qkv = [torch.randn(1, 32, 2, 64, device=cuda_device, dtype=torch.bfloat16,
+                       requires_grad=True) for _ in range(3)]
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        flash.flash_attention(*qkv).float().sum().backward()
 
 
 @pytest.mark.cuda
