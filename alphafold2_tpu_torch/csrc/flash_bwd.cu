@@ -66,8 +66,12 @@
 //    constant, read once a tile.
 //  - Stage c + 1's S^T and dP^T are issued with stage c's dV and dK
 //    products, and stage c + 1's elementwise pass runs while those do.
-//  - dk (times scale) and dv are written from registers as bf16; keys past
-//    len_j are not written.
+//  - dk (times scale) and dv, cast to bf16, are staged in the warpgroup's
+//    half of the tile's K and V buffers (128-byte swizzled, as TMA loaded
+//    them) and written by two TMA stores, clipped at len_j; the buffers go
+//    back to the producer once the stores have read them. (Written from
+//    registers, a thread's 4-byte pieces of eight rows a store, the
+//    epilogue took a third of the kernel's time.)
 //
 // mma_sync (the dq kernel always; the dkv kernel at dh 16 or 32, or with a
 // 2-D bias TMA cannot address): every product runs on the tensor cores with
@@ -125,7 +129,10 @@ using af2::pack_bf16;
 using af2::smem_u32;
 using af2::stage;
 using af2::store_rows;
+using af2::fence_async_smem;
 using af2::tma_load_3d;
+using af2::tma_store_3d;
+using af2::warpgroup_sync;
 using af2::wgmma_commit;
 using af2::wgmma_fence;
 using af2::wgmma_m64n64k16_rs_mn;
@@ -513,12 +520,12 @@ __global__ void __launch_bounds__(DkvTile<BIAS2D>::kThreads, 1)
                                const __grid_constant__ CUtensorMap tm_v,
                                const __grid_constant__ CUtensorMap tm_g,
                                const __grid_constant__ CUtensorMap tm_bias,  // BIAS2D only
+                               const __grid_constant__ CUtensorMap tm_dk,
+                               const __grid_constant__ CUtensorMap tm_dv,
                                const float* __restrict__ key_bias,          // (BH, j), !BIAS2D
                                const float* __restrict__ lse,
-                               const float* __restrict__ delta,
-                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                               int len_i, int len_j, int n_ktiles, int64_t tiles, float scale,
-                               float scale_log2) {
+                               const float* __restrict__ delta, int len_i, int len_j,
+                               int n_ktiles, int64_t tiles, float scale, float scale_log2) {
   using L = DkvTile<BIAS2D>;
   constexpr int S = L::kStages;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -547,7 +554,7 @@ __global__ void __launch_bounds__(DkvTile<BIAS2D>::kThreads, 1)
     }
     for (int b = 0; b < 2; ++b) {
       mbar_init(kvfull(b), 1);
-      mbar_init(kvempty(b), L::kConsumerWarps);
+      mbar_init(kvempty(b), L::kConsumers);  // each warpgroup's storing thread
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -746,24 +753,38 @@ __global__ void __launch_bounds__(DkvTile<BIAS2D>::kThreads, 1)
       fence_regs(da);
       release(empty(c));
       ++c;
-      release(kvempty(n));
 
-      // epilogue: keys r, r + 8 of the tile, columns 8j + 2t (+1)
+      // epilogue: keys r, r + 8 of the tile, columns 8j + 2t (+1), staged in
+      // the warpgroup's rows of the K and V buffers (its own; their last
+      // reader, this tile's last S^T and dP^T, has retired): row w of 128
+      // bytes, 16-byte chunk j swizzled with w % 8 = g
+      uint8_t* const kst = smem + (n & 1) * L::kKV + wg * (64 * kWDH * 2);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int key = k0 + r + 8 * h;
-        if (key < len_j) {
-          const int64_t at = ((int64_t)bh * len_j + key) * kWDH + 2 * t;
+        const int row = 16 * (warp % 4) + g + 8 * h;
 #pragma unroll
-          for (int j = 0; j < kWDH / 8; ++j) {
-            *reinterpret_cast<uint32_t*>(dk + at + 8 * j) =
-                pack_bf16(dk_acc[4 * j + 2 * h] * scale, dk_acc[4 * j + 2 * h + 1] * scale);
-            *reinterpret_cast<uint32_t*>(dv + at + 8 * j) =
-                pack_bf16(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
-          }
+        for (int j = 0; j < kWDH / 8; ++j) {
+          const int at = row * 128 + ((j ^ g) << 4) + 4 * t;
+          *reinterpret_cast<uint32_t*>(kst + at) =
+              pack_bf16(dk_acc[4 * j + 2 * h] * scale, dk_acc[4 * j + 2 * h + 1] * scale);
+          *reinterpret_cast<uint32_t*>(kst + kKVTile + at) =
+              pack_bf16(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
         }
       }
+      fence_async_smem();
+      warpgroup_sync(1 + wg);
+      if (threadIdx.x % 128 == 0) {
+        const uint32_t st = smem_u32(kst);
+        if (k0 + 64 * wg < len_j) {
+          tma_store_3d(&tm_dk, st, 0, k0 + 64 * wg, bh);
+          tma_store_3d(&tm_dv, st + kKVTile, 0, k0 + 64 * wg, bh);
+        }
+        // the stores have read the buffers: the producer may refill them
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        mbar_arrive(kvempty(n));
+      }
     }
+    if (threadIdx.x % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
 
@@ -774,12 +795,14 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* bi
   using L = DkvTile<BIAS2D>;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  CUtensorMap tm_q, tm_k, tm_v, tm_g, tm_bias;
+  CUtensorMap tm_q, tm_k, tm_v, tm_g, tm_bias, tm_dk, tm_dv;
   const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   if (!encode_3d(encode, &tm_q, bf16, q, kWDH, len_i, bh, 2, kWDH, kWQ) ||
       !encode_3d(encode, &tm_g, bf16, dout, kWDH, len_i, bh, 2, kWDH, kWQ) ||
       !encode_3d(encode, &tm_k, bf16, k, kWDH, len_j, bh, 2, kWDH, kWKeys) ||
-      !encode_3d(encode, &tm_v, bf16, v, kWDH, len_j, bh, 2, kWDH, kWKeys)) {
+      !encode_3d(encode, &tm_v, bf16, v, kWDH, len_j, bh, 2, kWDH, kWKeys) ||
+      !encode_3d(encode, &tm_dk, bf16, dk, kWDH, len_j, bh, 2, kWDH, 64) ||
+      !encode_3d(encode, &tm_dv, bf16, dv, kWDH, len_j, bh, 2, kWDH, 64)) {
     return (int)cudaErrorInvalidValue;
   }
   tm_bias = tm_k;  // unread without a 2-D bias
@@ -799,9 +822,8 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* bi
   const int64_t tiles = bh * n_ktiles;
   const int grid = (int)(tiles < sms ? tiles : sms);
   flash_bwd_dkv_wgmma_kernel<BIAS2D><<<grid, L::kThreads, L::kBytes, stream>>>(
-      tm_q, tm_k, tm_v, tm_g, tm_bias, (const float*)bias, (const float*)lse,
-      (const float*)delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, (int)len_i, (int)len_j,
-      (int)n_ktiles, tiles, scale, scale * kLog2e);
+      tm_q, tm_k, tm_v, tm_g, tm_bias, tm_dk, tm_dv, (const float*)bias, (const float*)lse,
+      (const float*)delta, (int)len_i, (int)len_j, (int)n_ktiles, tiles, scale, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -931,7 +953,7 @@ int af2_flash_bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 // The dkv kernel on its wgmma route: bf16, dh = 64, as af2_flash_bwd_dkv,
-// with q, k, v, dout 16-byte aligned and a 2-D bias 16-byte aligned with
+// with q, k, v, dout, dk, dv 16-byte aligned and a 2-D bias 16-byte aligned with
 // j % 4 == 0 (TMA's 16-byte bases and row strides). Returns the CUDA error
 // code of the launch (0 = launched); refuses a call the route cannot take.
 int af2_flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const void* bias,
@@ -940,7 +962,8 @@ int af2_flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const v
                             float scale, int bias2d, void* stream_ptr) {
   if (bh <= 0 || len_i <= 0 || len_j <= 0 || dh != kWDH || len_i > 2147483647LL ||
       len_j > 2147483647LL || bh > 2147483647LL ||
-      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) % 16 != 0 ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout | (uintptr_t)dk |
+       (uintptr_t)dv) % 16 != 0 ||
       (bias2d && (len_j % 4 != 0 || (uintptr_t)bias % 16 != 0))) {
     return (int)cudaErrorInvalidValue;
   }

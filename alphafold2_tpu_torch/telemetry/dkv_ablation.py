@@ -1,6 +1,6 @@
 """Where the time of the flash backward's wgmma dkv kernel goes, on the card.
 
-    python -m alphafold2_tpu_torch.telemetry.dkv_ablation
+    python -m alphafold2_tpu_torch.telemetry.dkv_ablation [--baseline PATH]
 
 Builds csrc/flash_bwd.cu and copies of it with one part changed or taken
 out (the results of a copy that drops work are wrong; only its time is
@@ -8,7 +8,9 @@ read), times each at the trained bf16 dkv shapes (pair axial at crop 128
 and 256, the 2-D bias pair at crop 128, B3's ring gradient at the L = 128
 hop; dh = 64), and prints, from a copy with cycle counters, the cycles a
 64-query stage of one consumer thread in each warpgroup spends in each
-phase, and the producer warp's:
+phase, the cycles a tile spends outside its stage loop (the key bias, the
+first stage's products and elementwise pass, the last stage's dV and dK,
+the epilogue), and the producer warp's:
 
   base           the kernel as built for the port
   turns          the two warpgroups take turns at the elementwise pass (a
@@ -18,6 +20,9 @@ phase, and the producer warp's:
   no_ex2         the elementwise pass's exponentials become subtractions
   no_ss          the S^T and dP^T products are not issued
   no_rs          the dV and dK products are not issued
+  no_store       the epilogue's TMA stores of dk and dv are not issued
+  baseline       (--baseline PATH) another version of flash_bwd.cu, timed
+                 on the same call
 
 Needs a CUDA device and nvcc; imports nothing of JAX. Writes
 chiprun_out/dkv_ablation.json.
@@ -25,6 +30,7 @@ chiprun_out/dkv_ablation.json.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -48,6 +54,14 @@ SHAPES = {  # (BH, i, j, 2-D bias), the trained bf16 dkv calls
 }
 PHASES = ("wait for the stage (loads)", "issue the four products", "wait for S^T and dP^T",
           "elementwise", "wait for dV and dK", "pack P^T and dS^T, release")
+TILE_START = ("      for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;\n"
+              "      const uint32_t kv = base + (n & 1) * L::kKV;\n")
+TILE_END = "      dkv(c);\n      wgmma_wait<0>();\n"
+STORES = ("          tma_store_3d(&tm_dk, st, 0, k0 + 64 * wg, bh);\n"
+          "          tma_store_3d(&tm_dv, st + kKVTile, 0, k0 + 64 * wg, bh);\n")
+TILE_DONE = "        mbar_arrive(kvempty(n));\n      }\n"
+PRODUCER_END = ('      }\n    }\n  } else {\n'
+                '    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(L::kConsumerRegs));\n')
 
 LOOP = """        mbar_wait(full(c + 1), ring(c + 1));
         sdp(kv, c + 1);
@@ -64,8 +78,8 @@ LOOP = """        mbar_wait(full(c + 1), ring(c + 1));
         pack();
         release(empty(c));
 """
-FIRST = "      elementwise(c);\n"
-NEXT = "        elementwise(c + 1);\n"
+# the elementwise passes: a tile's first stage, its next stages
+PASSES = ("      elementwise(c);\n", "        elementwise(c + 1);\n")
 TILES = "    int c = 0, n = 0;\n    for (int64_t tile"
 EX2 = "            const float p = ex2(fmaf(s[x], scale_log2, b) - (e ? l2.y : l2.x));\n"
 SS = ("        wgmma_m64n64k16_ss(s, gmma_desc(ka + 32 * ks, 16, 1024), "
@@ -75,9 +89,10 @@ SS = ("        wgmma_m64n64k16_ss(s, gmma_desc(ka + 32 * ks, 16, 1024), "
 RS = ("        wgmma_m64n64k16_rs_mn(dv_acc, &pa[4 * ks], "
       "gmma_desc(qa + kQStage + 2048 * ks, kMNLbo, 1024));\n",
       "        wgmma_m64n64k16_rs_mn(dk_acc, &da[4 * ks], gmma_desc(qa + 2048 * ks, kMNLbo, 1024));\n")
-TURNS = ('    auto turn_wait = [&]() { asm volatile("bar.sync %0, 256;\\n" ::"r"(1 + wg) : "memory"); };\n'
+# named barriers 3 and 4 (1 and 2 are the warpgroups' own, in the epilogue)
+TURNS = ('    auto turn_wait = [&]() { asm volatile("bar.sync %0, 256;\\n" ::"r"(3 + wg) : "memory"); };\n'
          '    auto turn_pass = [&]() {\n'
-         '      asm volatile("bar.arrive %0, 256;\\n" ::"r"(1 + (wg + 1) % 2) : "memory");\n'
+         '      asm volatile("bar.arrive %0, 256;\\n" ::"r"(3 + (wg + 1) % 2) : "memory");\n'
          '    };\n'
          '    if (wg == 1) turn_pass();  // warpgroup 0 goes first\n')
 
@@ -87,8 +102,9 @@ def _counters(src: str) -> str:
     stage (summed by the first thread of each warpgroup) and the producer's
     (lane 0), read back by af2_ablation_counters and zeroed by
     af2_ablation_reset: [block][wg * 8 + phase], [block][wg * 8 + 7] the
-    stages after a tile's first, [block][24, 25] the producer's waits and
-    loads over [block][26] stages."""
+    stages after a tile's first, [block][wg * 8 + 6] the cycles outside
+    the stage loop over [block][28 + wg] tiles, [block][24, 25] the
+    producer's waits and issues over [block][26] stages."""
     head = ("template <bool BIAS2D>\n__global__ void "
             "__launch_bounds__(DkvTile<BIAS2D>::kThreads, 1)\n")
     src = _replace(src, head, "__device__ unsigned long long g_phase[1024][32];\n\n" + head)
@@ -101,13 +117,16 @@ def _counters(src: str) -> str:
     src = _replace(src, "            mbar_expect_tx(full(c), L::kStage);\n",
                    "            P[1] += clock64() - p1;\n            P[2] += 1;\n"
                    "            mbar_expect_tx(full(c), L::kStage);\n")
-    src = _replace(src, "          } else {\n            mbar_arrive(full(c));\n          }\n        }\n      }\n",
-                   "          } else {\n            mbar_arrive(full(c));\n          }\n        }\n      }\n"
+    src = _replace(src, PRODUCER_END,
                    "      if (lane == 0 && blockIdx.x < 1024) {\n"
                    "        g_phase[blockIdx.x][24] = P[0];\n        g_phase[blockIdx.x][25] = P[1];\n"
                    "        g_phase[blockIdx.x][26] = P[2];\n"
-                   "      }\n")
-    src = _replace(src, TILES, "    unsigned long long T[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n" + TILES)
+                   "      }\n" + PRODUCER_END)
+    src = _replace(src, TILES, "    unsigned long long T[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};\n" + TILES)
+    src = _replace(src, TILE_START, TILE_START + "      long long tt = clock64();\n")
+    src = _replace(src, "      for (int qq = 1; qq < nq; ++qq, ++c) {\n",
+                   "      T[6] += clock64() - tt;\n      for (int qq = 1; qq < nq; ++qq, ++c) {\n")
+    src = _replace(src, TILE_END, "      tt = clock64();\n" + TILE_END)
     timed = LOOP.split("\n")[:-1]
     marks = {0: 0, 2: 1, 5: 2, 6: 3, 11: 4, 13: 5}  # line index -> the phase it closes
     body = ["        long long tc = clock64(), tn;"]
@@ -117,10 +136,10 @@ def _counters(src: str) -> str:
             body.append(f"        tn = clock64();\n        T[{marks[n]}] += tn - tc;\n        tc = tn;")
     body.append("        T[7] += 1;")
     src = _replace(src, LOOP, "\n".join(body) + "\n")
-    src = _replace(src, "      release(kvempty(n));\n",
-                   "      release(kvempty(n));\n"
+    src = _replace(src, TILE_DONE, TILE_DONE + "      T[6] += clock64() - tt;\n      T[8] += 1;\n"
                    "      if (threadIdx.x % 128 == 0 && blockIdx.x < 1024) {\n"
                    "        for (int i = 0; i < 8; ++i) g_phase[blockIdx.x][8 * wg + i] = T[i];\n"
+                   "        g_phase[blockIdx.x][28 + wg] = T[8];\n"
                    "      }\n")
     return src + ("\nextern \"C\" int af2_ablation_counters(void* host) {\n"
                   "  return (int)cudaMemcpyFromSymbol(host, g_phase, sizeof(g_phase));\n}\n"
@@ -129,11 +148,14 @@ def _counters(src: str) -> str:
                   "  return (int)cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));\n}\n")
 
 
-def variants() -> dict:
+def variants(baseline: Path = None) -> dict:
+    """The copies to time, by name; `baseline` adds another version of
+    flash_bwd.cu as it is."""
     src = SOURCE.read_text()
     turns = _replace(src, TILES, TURNS + TILES)
-    turns = _replace(turns, FIRST, "      turn_wait();\n" + FIRST + "      turn_pass();\n")
-    turns = _replace(turns, NEXT, "        turn_wait();\n" + NEXT + "        turn_pass();\n")
+    for text in PASSES:
+        pad = text[:len(text) - len(text.lstrip())]
+        turns = _replace(turns, text, f"{pad}turn_wait();\n{text}{pad}turn_pass();\n")
     no_ss, no_rs = src, src
     for text in SS:
         no_ss = _replace(no_ss, text, "")
@@ -147,7 +169,9 @@ def variants() -> dict:
         "no_ex2": _replace(src, EX2, EX2.replace("ex2(", "(")),
         "no_ss": no_ss,
         "no_rs": no_rs,
+        "no_store": _replace(src, STORES, ""),
         "counters": _counters(src),
+        **({"baseline": Path(baseline).read_text()} if baseline else {}),
     }
 
 
@@ -166,13 +190,17 @@ def build(sources: dict) -> dict:
     return libs
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="another flash_bwd.cu to time beside the variants")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("dkv_ablation needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"[dkv ablation] {card}")
-    libs = build(variants())
+    libs = build(variants(args.baseline))
     counters = libs["counters"]
     counters.af2_ablation_counters.argtypes = [ctypes.c_void_p]
     stream = torch.cuda.current_stream().cuda_stream
@@ -203,16 +231,20 @@ def main() -> None:
         row["cycles_a_stage"] = {f"wg{wg}": {p: per[8 * wg + n] / per[8 * wg + 7]
                                              for n, p in enumerate(PHASES)}
                                  for wg in range(2) if per[8 * wg + 7] > 0}
+        row["cycles_a_tile_outside_the_stage_loop"] = {
+            f"wg{wg}": per[8 * wg + 6] / per[28 + wg] for wg in range(2) if per[28 + wg] > 0}
         if per[26] > 0:
             row["cycles_a_stage"]["producer"] = {
                 "wait for an empty slot": per[24] / per[26],
-                "lse, delta and TMA issue": per[25] / per[26]}
+                "lse and delta copies, TMA issue": per[25] / per[26]}
         rows.append(row)
         print(f"[dkv ablation] {label:26s} " + " ".join(
             f"{name}={row[name]:.4f}" for name in libs if name != "counters") + " ms")
         for who, phases in row["cycles_a_stage"].items():
             print(f"[dkv ablation]   {who} cycles a stage: " + ", ".join(
                 f"{p} {c:.0f}" for p, c in phases.items()))
+        print("[dkv ablation]   cycles a tile outside the stage loop: " + ", ".join(
+            f"{who} {c:.0f}" for who, c in row["cycles_a_tile_outside_the_stage_loop"].items()))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "dkv_ablation.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))

@@ -503,13 +503,15 @@ def test_dkv_ablation_variants_match_the_source():
 
     sources = dkv_ablation.variants()
     assert set(sources) == {"base", "turns", "no_overlap", "no_ex2", "no_ss", "no_rs",
-                            "counters"}
+                            "no_store", "counters"}
     assert len(set(sources.values())) == len(sources)
     assert sources["base"] == (cuda_build.CSRC / "flash_bwd.cu").read_text()
     assert "af2_ablation_counters" in sources["counters"]
     assert sources["counters"].count("T[7] += 1;") == 1
     assert "wgmma_m64n64k16_ss(" not in sources["no_ss"].split("flash_bwd_dkv_wgmma_kernel(")[1]
     assert sources["turns"].count("turn_wait();") == 2
+    base = cuda_build.CSRC / "flash_fwd.cu"
+    assert dkv_ablation.variants(base)["baseline"] == base.read_text()
 
 
 def test_dkv_ablation_needs_a_card(monkeypatch):
@@ -517,4 +519,4 @@ def test_dkv_ablation_needs_a_card(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA device"):
-        dkv_ablation.main()
+        dkv_ablation.main([])
