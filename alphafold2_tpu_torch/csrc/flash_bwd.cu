@@ -70,8 +70,14 @@
 //    half of the tile's K and V buffers (128-byte swizzled, as TMA loaded
 //    them) and written by two TMA stores, clipped at len_j; the buffers go
 //    back to the producer once the stores have read them. (Written from
-//    registers, a thread's 4-byte pieces of eight rows a store, the
-//    epilogue took a third of the kernel's time.)
+//    registers, four bytes of each of eight rows a store instruction, the
+//    stores held every warp's next barrier poll behind them.)
+// Where its time goes (telemetry/dkv_ablation.py, PERF.md): at L = 256 a
+// 64-query stage takes each warpgroup ~1,700 cycles, issue and elementwise
+// pass about equal, with the tensor cores ~60% busy; a tile adds ~3,200
+// cycles outside its stage loop (its first stage alone, its last products,
+// the epilogue). Without a third warpgroup (S^T, dP^T, dK, dV and the
+// packed P^T, dS^T take 160 registers a thread) nothing hides them.
 //
 // mma_sync (the dq kernel always; the dkv kernel at dh 16 or 32, or with a
 // 2-D bias TMA cannot address): every product runs on the tensor cores with

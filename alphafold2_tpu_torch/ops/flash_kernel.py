@@ -301,11 +301,12 @@ def _check(q, k, v, bias, gate, bias2d):
             raise ValueError(f"{name} must start 16-byte aligned for the bf16 kernel")
 
 
-def _check_grid(BH, i):
-    """The grid of a kernel with a block per (bh, 128-row tile): every
-    kernel but the wgmma route's, whose blocks are persistent."""
-    if BH * -(-i // _BLOCK_Q) > 2 ** 31 - 1:
-        raise ValueError(f"BH={BH}, i={i} exceeds the kernel grid")
+def _check_grid(BH, rows):
+    """The grid of a kernel with a block per (bh, 128-row tile) of its owned
+    rows (queries, or keys for the dkv kernel): every kernel but the wgmma
+    routes', whose blocks are persistent."""
+    if BH * -(-rows // _BLOCK_Q) > 2 ** 31 - 1:
+        raise ValueError(f"BH={BH}, {rows} owned rows exceed the kernel grid")
 
 
 def launch_fwd(q, k, v, bias, scale, gate, name, which=None):
@@ -383,17 +384,13 @@ def _check_bwd(q, k, v, bias, gate, bias2d, out, lse, g):
 
 
 def _bwd_args(q, k, v, bias, lse, g, delta, scale):
+    """A backward C entry's inputs, its shape and scale, and its last two
+    arguments (bias2d, the stream)."""
     BH, i, dh = q.shape
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
-    return ins, (BH, i, k.shape[1], dh, float(scale))
-
-
-def _flags(q, bias, bf16_flag=True):
-    """The trailing arguments of a backward C entry: (is_bf16,) bias2d, the
-    stream."""
-    return ((int(q.dtype == torch.bfloat16),) if bf16_flag else ()) + (
-        int(bias.dim() == 3), torch.cuda.current_stream(q.device).cuda_stream)
+    tail = (int(bias.dim() == 3), torch.cuda.current_stream(q.device).cuda_stream)
+    return ins, (BH, i, k.shape[1], dh, float(scale)), tail
 
 
 def launch_dq(q, k, v, bias, lse, g, delta, scale, name):
@@ -405,10 +402,10 @@ def launch_dq(q, k, v, bias, lse, g, delta, scale, name):
     dq = torch.empty_like(q)
     d_bias = (torch.empty(bias.shape, dtype=torch.float32, device=q.device)
               if bias2d else None)
-    ins, shape = _bwd_args(q, k, v, bias, lse, g, delta, scale)
+    ins, shape, tail = _bwd_args(q, k, v, bias, lse, g, delta, scale)
     rc = _bwd_lib().af2_flash_bwd_dq(*ins, dq.data_ptr(),
                                      d_bias.data_ptr() if bias2d else None, *shape,
-                                     *_flags(q, bias))
+                                     int(q.dtype == torch.bfloat16), *tail)
     cuda_build.check_launch(rc, name)
     LAUNCHES[name] += 1
     return dq, d_bias
@@ -426,12 +423,13 @@ def launch_dkv(q, k, v, bias, lse, g, delta, scale, name, which=None):
     if which != "wgmma":  # a block per (bh, key tile)
         _check_grid(k.shape[0], k.shape[1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    ins, shape = _bwd_args(q, k, v, bias, lse, g, delta, scale)
+    ins, shape, tail = _bwd_args(q, k, v, bias, lse, g, delta, scale)
     outs = (dk.data_ptr(), dv.data_ptr())
     if which == "wgmma":
-        rc = _bwd_lib().af2_flash_bwd_dkv_wgmma(*ins, *outs, *shape, *_flags(q, bias, False))
+        rc = _bwd_lib().af2_flash_bwd_dkv_wgmma(*ins, *outs, *shape, *tail)
     else:
-        rc = _bwd_lib().af2_flash_bwd_dkv(*ins, *outs, *shape, *_flags(q, bias))
+        rc = _bwd_lib().af2_flash_bwd_dkv(*ins, *outs, *shape,
+                                          int(q.dtype == torch.bfloat16), *tail)
     cuda_build.check_launch(rc, f"{name} ({which} route)")
     LAUNCHES[name] += 1
     LAUNCHES[f"flash_bwd_dkv_{which}"] += 1

@@ -495,6 +495,18 @@ def test_flash_ablation_needs_a_card(monkeypatch):
         flash_ablation.main()
 
 
+def test_launch_dkv_checks_its_grid_against_j():
+    """Off the wgmma route the dkv kernel has a block per (bh, 128-key
+    tile): a call whose key tiles overflow the grid is refused before any
+    build, however short i is (stride-0 views: no memory)."""
+    BH, i, j = 2 ** 20, 1, 2 ** 20
+    q, k, v, bias, _ = _shaped(BH, i, j, 64, dtype=torch.float32)
+    lse = torch.zeros(1).expand(BH, i)
+    with pytest.raises(ValueError, match="owned rows exceed the kernel grid"):
+        flash_kernel.launch_dkv(q, k, v, bias, lse, q, lse, 0.125, "flash_bwd_dkv")
+    assert flash_kernel.LAUNCHES["flash_bwd_dkv_f32"] == 0
+
+
 def test_dkv_ablation_variants_match_the_source():
     """The dkv ablation tool's copies of csrc/flash_bwd.cu are cut from the
     source's own text: each fragment it changes is still there once, and
