@@ -38,7 +38,8 @@ each phase prints its seconds):
      at the SP request's ring-hop shape (L = 384, 4 shards: 8 x 1,920 x
      36,864; timed unmasked, checked again with one (bh) row fully
      masked), f32 and ragged, and its backward through lse (random g and
-     g_lse) at the L = 128 hop shape;
+     g_lse) at the L = 128 hop shape, its dkv on the wgmma route (timed
+     beside the same call on the mma_sync route);
   4. the main path through `predict_structure`:
      (a) one request in float32 on the card and on the CPU with the same
          parameters: logits, confidence, stress and distances; at L = 64,
@@ -789,11 +790,14 @@ def check_lse_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=()):
     g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     g_lse = torch.randn(lse.shape, generator=gen, device="cuda")
     names = ("flash_bwd_lse_dq", "flash_bwd_lse_dkv")
-    before = {n: flash_kernel.LAUNCHES[n] for n in names}
+    which = flash_kernel.dkv_route(q, k, v, bias)
+    before = dict(flash_kernel.LAUNCHES)
     dq, dk, dv = flash_kernel.flash_bwd_lse(q, k, v, bias, out, lse, g, g_lse, scale)
     sync()
-    if any(flash_kernel.LAUNCHES[n] != before[n] + 1 for n in names):
-        fail(f"{names} did not count their launches")
+    counted = {key: n - before[key] for key, n in flash_kernel.LAUNCHES.items()}
+    if counted != {key: int(key in names + (f"flash_bwd_dkv_{which}",)) for key in counted}:
+        fail(f"{names} did not count one launch each, the dkv one on its {which} route: "
+             f"{counted}")
     ref = flash_kernel.flash_bwd_lse_plain(q, k, v, bias, out, lse, g, g_lse, scale)
     if dtype == torch.float32:
         bounds = [1e-5 * max(1.0, r.abs().max().item()) for r in ref]
@@ -810,12 +814,15 @@ def check_lse_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=()):
     for b in masked_bh:
         ok = ok and all(bool((t[b] == 0).all()) for t in (dq, dk, dv))
     row = {"kernel": "flash_bwd_lse", "case": label, "shape": [BH, i, j, dh],
-           "dtype": str(dtype), "dq_err": errs[0], "dkv_err": max(errs[1:]),
+           "dtype": str(dtype), "dkv_route": which, "dq_err": errs[0], "dkv_err": max(errs[1:]),
            "bound_ratio": max(ratios), "ok": bool(ok)}
     if timed:
         args = (q, k, v, bias, lse, g, flash_kernel.lse_delta(out, g, g_lse).contiguous(), scale)
         row["dq_ms"] = time_ms(lambda: flash_kernel.launch_dq(*args, names[0]), 10)
         row["dkv_ms"] = time_ms(lambda: flash_kernel.launch_dkv(*args, names[1]), 10)
+        if which == "wgmma":  # the same call on the kernel the wgmma route replaced
+            row["dkv_mma_sync_ms"] = time_ms(lambda: flash_kernel.launch_dkv(
+                *args, names[1], which="mma_sync"), 10)
         row["dq_plain_ms"] = time_ms(lambda: flash_kernel.flash_bwd_dq_plain(*args), 2)
         row["dkv_plain_ms"] = time_ms(lambda: flash_kernel.flash_bwd_dkv_plain(*args), 2)
         # no PyTorch call takes an lse cotangent: no library time
@@ -825,9 +832,10 @@ def check_lse_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=()):
             row[f"{side}_ops_ms"], row[f"{side}_bytes_ms"] = t_ops, t_bytes
             row[f"{side}_bound_ms"] = max(t_ops, t_bytes)
     times = "".join(f" {key}={row[key]:.3f}" for key in
-                    ("dq_ms", "dkv_ms", "dq_plain_ms", "dkv_plain_ms", "dq_bound_ms",
-                     "dkv_bound_ms") if row.get(key) is not None)
+                    ("dq_ms", "dkv_ms", "dkv_mma_sync_ms", "dq_plain_ms", "dkv_plain_ms",
+                     "dq_bound_ms", "dkv_bound_ms") if row.get(key) is not None)
     log(f"[lse bwd] {label:22s} {str((BH, i, j, dh)):24s} {str(dtype).split('.')[-1]:8s} "
+        f"dkv {which:8s} "
         f"dq|d|={errs[0]:.3e} dkv|d|={max(errs[1:]):.3e} (bound ratio {max(ratios):.3f})"
         f"{times} {'ok' if ok else 'FAIL'}")
     del q, k, v, bias, out, lse, g, g_lse, dq, dk, dv, ref
@@ -867,6 +875,8 @@ def phase_lse_kernels():
     ]
     if rows[0]["route"] != "wgmma" or rows[1]["route"] != "wgmma":
         fail("B3's forward at the served hop shape left the wgmma route")
+    if bwd[0]["dkv_route"] != "wgmma" or bwd[1]["dkv_route"] != "wgmma":
+        fail("B3's backward at the hop shape left the wgmma dkv route")
     RECORD["lse_kernels"] = rows + bwd
     bad = [r for r in rows + bwd if not r["ok"]]
     if bad:
