@@ -1,6 +1,6 @@
 """Where the time of the flash backward's wgmma dkv kernel goes, on the card.
 
-    python -m alphafold2_tpu_torch.telemetry.dkv_ablation [--baseline PATH]
+    python -m alphafold2_tpu_torch.telemetry.dkv_ablation [--baseline PATH] [--out PATH]
 
 Builds csrc/flash_bwd.cu and copies of it with one part changed or taken
 out (the results of a copy that drops work are wrong; only its time is
@@ -24,8 +24,8 @@ the epilogue), and the producer warp's:
   baseline       (--baseline PATH) another version of flash_bwd.cu, timed
                  on the same call
 
-Needs a CUDA device and nvcc; imports nothing of JAX. Writes
-chiprun_out/dkv_ablation.json.
+Needs a CUDA device and nvcc; imports nothing of JAX. Writes the record as
+JSON to --out (default build/dkv_ablation.json).
 """
 
 from __future__ import annotations
@@ -43,7 +43,6 @@ import torch
 from alphafold2_tpu_torch.ops import cuda_build, flash_kernel
 from alphafold2_tpu_torch.telemetry.flash_ablation import _replace, _time_ms
 
-ROOT = Path(__file__).resolve().parents[2]
 SOURCE = cuda_build.CSRC / "flash_bwd.cu"
 WORK = cuda_build.BUILD_DIR.parent / "dkv_ablation"
 SHAPES = {  # (BH, i, j, 2-D bias), the trained bf16 dkv calls
@@ -194,13 +193,15 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, default=None,
                     help="another flash_bwd.cu to time beside the variants")
-    args = ap.parse_args(argv)
+    ap.add_argument("--out", type=Path, default=WORK.parent / "dkv_ablation.json",
+                    help="the JSON record")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("dkv_ablation needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"[dkv ablation] {card}")
-    libs = build(variants(args.baseline))
+    libs = build(variants(opts.baseline))
     counters = libs["counters"]
     counters.af2_ablation_counters.argtypes = [ctypes.c_void_p]
     stream = torch.cuda.current_stream().cuda_stream
@@ -245,9 +246,8 @@ def main(argv=None) -> None:
                 f"{p} {c:.0f}" for p, c in phases.items()))
         print("[dkv ablation]   cycles a tile outside the stage loop: " + ", ".join(
             f"{who} {c:.0f}" for who, c in row["cycles_a_tile_outside_the_stage_loop"].items()))
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "dkv_ablation.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))
+    opts.out.parent.mkdir(parents=True, exist_ok=True)
+    opts.out.write_text(json.dumps({"card": card, "rows": rows}, indent=1))
 
 
 if __name__ == "__main__":
