@@ -3,7 +3,7 @@
     python -m alphafold2_tpu_torch.telemetry.profiling [--length 384] [--depth 2] [--gate]
     python -m alphafold2_tpu_torch.telemetry.profiling --int8 | --sparse [--length 384]
     python -m alphafold2_tpu_torch.telemetry.profiling --sp-shards 4 [--length 384]
-    python -m alphafold2_tpu_torch.telemetry.profiling --train [--length 128] [--depth 1]
+    python -m alphafold2_tpu_torch.telemetry.profiling --train [--length 128] [--depth 1] [--sparse]
 
 Request (the default): runs the serving configuration (dim 256, heads 8,
 dim_head 64, bf16, a seeded 20-row MSA, 200 MDS iterations) through
@@ -24,7 +24,9 @@ Train (`--train`): runs train_pre's step (`training/harness.py
 make_train_step`, dim 256, heads 8, dim_head 64, bf16, batch 1, 16
 microbatches, synthetic sequence-only batches at crop `--length`) and
 reports the step time (CUDA events, mean of `--reps` steps after one
-warm-up step).
+warm-up step); `--sparse` makes every layer's pair passes block-sparse with
+max_seq_len = the crop (chip_smoke.py phase 6e's configuration: at crop
+256, 66% of the blocks active).
 
 Both: from one more run under `torch.profiler`, device time by kernel
 name and by kind (the port's flash, sparse and int8 kernels, cuBLAS
@@ -186,8 +188,9 @@ def _request(args):
 def _train(args):
     L = args.length or 128
     depth = args.depth or 1
-    cfg = Alphafold2Config(dim=256, depth=depth, heads=8, dim_head=64, max_seq_len=2048,
-                           dtype=torch.bfloat16, attn_gate=args.gate)
+    cfg = Alphafold2Config(dim=256, depth=depth, heads=8, dim_head=64,
+                           max_seq_len=L if args.sparse else 2048, dtype=torch.bfloat16,
+                           attn_gate=args.gate, sparse_self_attn=args.sparse)
     tcfg = TrainConfig(grad_accum=16)
     state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(args.seed), "cuda")
     step = make_train_step(cfg, tcfg, device="cuda")
@@ -199,7 +202,8 @@ def _train(args):
     train_step()
     torch.cuda.synchronize()
     step_ms = _events_ms(train_step, args.reps)
-    print(f"[profile] train step L={L} depth={depth} gate={args.gate} accum 16: "
+    print(f"[profile] train step L={L} depth={depth} gate={args.gate} sparse={args.sparse} "
+          f"accum 16: "
           f"{step_ms:.3f} ms (CUDA events, mean of {args.reps})")
     return train_step, step_ms, {"config": repr(cfg), "length": L, "grad_accum": 16,
                                  "step_ms": step_ms}
@@ -218,7 +222,8 @@ def main(argv=None):
                     help="request: weight_dtype='int8' (resident int8 trunk weights, kernel B4)")
     ap.add_argument("--sparse", action="store_true",
                     help="request: sparse_self_attn=(True, False, ...) (kernel B5 on the "
-                         "pair axial passes of every other layer)")
+                         "pair axial passes of every other layer); train step: "
+                         "sparse_self_attn=True with max_seq_len the crop")
     ap.add_argument("--sp-shards", type=int, default=0,
                     help="request: the sequence-parallel forward over this many shards, "
                          "placed on the visible cards in turn (0: dense)")
@@ -227,8 +232,8 @@ def main(argv=None):
     ap.add_argument("--out", default=None,
                     help="JSON record (default chiprun_out/profile_{request,train}.json)")
     args = ap.parse_args(argv)
-    if args.train and (args.int8 or args.sparse or args.sp_shards):
-        ap.error("--int8, --sparse and --sp-shards profile a request")
+    if args.train and (args.int8 or args.sp_shards):
+        ap.error("--int8 and --sp-shards profile a request")
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False

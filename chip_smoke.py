@@ -33,8 +33,12 @@ each phase prints its seconds):
      with one row, k = 1024; cp_async: ragged (m, k, n), a misaligned x,
      n = 8; f32), each row naming its route; the
      block-sparse forward and backward (B5) at the sparse request's pair
-     axial shape (L = 384) and at n = 4096, plus block sizes 32-128, head
-     widths 16 and 32, f32 and a ragged length; the lse flash kernel (B3)
+     axial shape (L = 384), the sparse train step's (crop 256) and n = 4096,
+     B5f on its wgmma route (every one in the union form), checked and
+     timed again in the ring form (split rows) and on the mma_sync route,
+     beside B1f on the dense pass of the same shape; a case with most rows
+     split and a masked batch element; block sizes 32-128,
+     head widths 16 and 32 (mma_sync), f32 and a ragged length; the lse flash kernel (B3)
      at the SP request's ring-hop shape (L = 384, 4 shards: 8 x 1,920 x
      36,864; timed unmasked, checked again with one (bh) row fully
      masked), f32 and ragged, and its backward through lse (random g and
@@ -54,8 +58,8 @@ each phase prints its seconds):
      (d) the same with int8 weights through `resident_params`: 22 int8
          products a trunk layer, every one on B4's wgmma route (none on
          cp_async), the flash launches unchanged;
-     (e) the same with sparse_self_attn=(True, False): 2 sparse and 10
-         flash forwards a request;
+     (e) the same with sparse_self_attn=(True, False): 2 sparse (every
+         one on B5f's wgmma route) and 10 flash forwards a request;
      (f) the int8 model against the f32 model on its dequantized weights;
   6. the training path through `make_train_step` (train_pre's step):
      (a) dim 256, depth 2, heads 8, dim_head 64, accum 2, f32, 3 steps on
@@ -69,7 +73,7 @@ each phase prints its seconds):
          forward and dkv launch on its wgmma route);
      (c) the same with attn_gate=True at L = 128: the fused pair only;
      (e) the same sparse at L = 256 (max_seq_len 256): the three sparse
-         kernels only;
+         kernels only, every B5f launch on its wgmma route;
      (f) make_train_step refuses an int8 config;
      (d) 30 steps on one repeated batch at lr 1e-3 lower the loss;
   7. sequence-parallel serving (`parallel/sp_trunk.py alphafold2_apply_sp`,
@@ -994,10 +998,11 @@ def phase_quant_kernels():
 # --- phase 3, sparse: the block-sparse kernels against their plain versions ---------
 
 
-def sparse_inputs(b, heads, n, dh, dtype, scfg, *, masked_b=(), seed=0):
+def sparse_inputs(b, heads, n, dh, dtype, scfg, *, masked_b=(), seed=0, cap=None):
     """Folded q, k, v, dO (b * heads, n, dh), a key bias (b, n) with 5% of
     the keys (and every key of the batch elements `masked_b`) masked, and
-    the layout's table on the card."""
+    the layout's table on the card (its work list split at `cap` slots, or
+    at the table's own cap)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b * heads, n, dh, generator=g, device="cuda").to(dtype)
                    for _ in range(4))
@@ -1006,7 +1011,11 @@ def sparse_inputs(b, heads, n, dh, dtype, scfg, *, masked_b=(), seed=0):
     for i in masked_b:
         keep[i] = False
     bias = torch.where(keep, 0.0, float("-inf")).contiguous()
-    table = sparse.kernel_table(n // scfg.block_size, scfg, "cuda")
+    if cap is None:
+        table = sparse.kernel_table(n // scfg.block_size, scfg, "cuda")
+    else:
+        idx, valid = sparse.layout_block_indices(n // scfg.block_size, scfg)
+        table = sparse_kernel.block_table(idx, valid, scfg.block_size, "cuda", cap=cap)
     return q, k, v, do, bias, table
 
 
@@ -1032,32 +1041,51 @@ def sparse_bound_terms(q, bias, table, kind):
     return ops / PEAK_FLOPS[q.dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=()):
+def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=(), cap=None):
     """B5f, B5 dq and B5 dkv on the card against sparse_fwd_plain and
-    sparse_bwd_plain. Tolerances: the forward's are B1's (f32 1e-5 *
-    max(1, max|ref|); bf16 one bf16 ulp of the largest output; lse 1e-4);
-    the backward's f32 1e-5 * max(1, max|ref|) and bf16
-    `sparse_bwd_bf16_bound` (flash_bwd_bf16_bound of the dense attention
-    the sparse one equals). Batch elements `masked_b` give zeros in every
-    output and lse = +inf."""
-    q, k, v, do, bias, table = sparse_inputs(b, heads, n, dh, dtype, scfg, masked_b=masked_b)
+    sparse_bwd_plain, B5f on the route `sparse_kernel.route` picks and,
+    where that is wgmma, on the mma_sync route too. Tolerances: the
+    forward's are B1's (f32 1e-5 * max(1, max|ref|); bf16 one bf16 ulp of
+    the largest output; lse 1e-4); the backward's f32 1e-5 * max(1,
+    max|ref|) and bf16 `sparse_bwd_bf16_bound` (flash_bwd_bf16_bound of the
+    dense attention the sparse one equals), the backward reading the
+    route's lse. Batch elements `masked_b` give zeros in every output and
+    lse = +inf. `cap`: the work list's split (default the table's own)."""
+    q, k, v, do, bias, table = sparse_inputs(b, heads, n, dh, dtype, scfg, masked_b=masked_b,
+                                             cap=cap)
     scale = dh ** -0.5
     args = (q, k, v, bias, table, heads)
+    which = sparse_kernel.route(q, table)
     before = dict(sparse_kernel.LAUNCHES)
     out, lse = sparse_kernel.sparse_fwd(*args, scale)
     dq, dk, dv = sparse_kernel.sparse_bwd(*args, out, lse, do, scale)
     sync()
-    if any(sparse_kernel.LAUNCHES[name] != before[name] + 1 for name in before):
-        fail("the sparse kernels did not count their launches")
+    counted = ("sparse_fwd", f"sparse_fwd_{which}", "sparse_bwd_dq", "sparse_bwd_dkv")
+    if any(sparse_kernel.LAUNCHES[name] - before[name] != int(name in counted) for name in before):
+        fail(f"the sparse kernels did not count their launches ({which} route)")
     ref_out, ref_lse = sparse_kernel.sparse_fwd_plain(*args, scale)
     ref_max = ref_out.float().abs().max().item()
     tol = 1e-5 * max(1.0, ref_max) if dtype == torch.float32 else BF16_ULP * ref_max
-    err = (out.float() - ref_out.float()).abs().max().item()
     fin = torch.isfinite(ref_lse)
-    lse_err = (lse[fin] - ref_lse[fin]).abs().max().item() if fin.any() else 0.0
-    ok = (err <= tol and lse_err <= 1e-4 and torch.equal(torch.isposinf(lse),
-                                                        torch.isposinf(ref_lse))
-          and bool(torch.isfinite(out).all()))
+
+    def fwd_errors(got_out, got_lse):
+        err = (got_out.float() - ref_out.float()).abs().max().item()
+        lse_err = (got_lse[fin] - ref_lse[fin]).abs().max().item() if fin.any() else 0.0
+        good = (err <= tol and lse_err <= 1e-4 and bool(torch.isfinite(got_out).all())
+                and torch.equal(torch.isposinf(got_lse), torch.isposinf(ref_lse)))
+        return err, lse_err, good
+
+    err, lse_err, ok = fwd_errors(out, lse)
+    # on the wgmma route: its other form, and the route it replaced, on the same call
+    others = {}
+    if which == "wgmma":
+        other_form = "ring" if table.form == "union" else "union"
+        others = {other_form: {"form": other_form}, "mma_sync": {"which": "mma_sync"}}
+    other = {}
+    for name, kw in others.items():
+        e, le, good = fwd_errors(*sparse_kernel.sparse_fwd(*args, scale, **kw))
+        other[name] = (e, le)
+        ok = ok and good
     ref = sparse_kernel.sparse_bwd_plain(*args, out, lse, do, scale)
     if dtype == torch.float32:
         bounds = [1e-5 * max(1.0, r.abs().max().item()) for r in ref]
@@ -1078,14 +1106,27 @@ def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=()):
             and bool(torch.isposinf(lse[rows]).all())
     del ref, bounds
     row = {"case": label, "shape": [b * heads, n, dh], "block_size": scfg.block_size,
-           "dtype": str(dtype), "active": table.nnz / table.n_blocks ** 2,
-           "fwd_err": err, "lse_err": lse_err, "dq_err": errs[0], "dkv_err": max(errs[1:]),
-           "bound_ratio": max(ratios), "ok": bool(ok)}
+           "dtype": str(dtype), "active": table.nnz / table.n_blocks ** 2, "route": which,
+           "form": table.form if which == "wgmma" else None,
+           "split_rows": table.n_split, "fwd_err": err, "lse_err": lse_err,
+           **{f"{name}_fwd_err": e for name, (e, _) in other.items()},
+           **{f"{name}_lse_err": le for name, (_, le) in other.items()},
+           "dq_err": errs[0], "dkv_err": max(errs[1:]), "bound_ratio": max(ratios),
+           "ok": bool(ok)}
     if timed:
         delta = flash_kernel.cotangent_terms(out, do)[1]
         bwd = (q, k, v, bias, table, heads, lse, do, delta, scale)
         reps = 10
         row["fwd_ms"] = time_ms(lambda: sparse_kernel.sparse_fwd(*args, scale), reps)
+        for name, kw in others.items():
+            row[f"fwd_{name}_ms"] = time_ms(
+                lambda kw=kw: sparse_kernel.sparse_fwd(*args, scale, **kw), reps)
+        if which == "wgmma":
+            # B1f on the dense pass of the same shape (every key block active)
+            dense_bias = bias[torch.arange(b * heads, device="cuda") // heads].contiguous()
+            row["fwd_dense_b1f_ms"] = time_ms(
+                lambda: flash_kernel.flash_fwd(q, k, v, dense_bias, scale), reps)
+            del dense_bias
         row["dq_ms"] = time_ms(lambda: sparse_kernel.launch_dq(*bwd), reps)
         row["dkv_ms"] = time_ms(lambda: sparse_kernel.launch_dkv(*bwd), reps)
         row["fwd_plain_ms"] = time_ms(lambda: sparse_kernel.sparse_fwd_plain(*args, scale), 2)
@@ -1102,13 +1143,19 @@ def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=()):
             row[f"{kind}_ops_ms"], row[f"{kind}_bytes_ms"] = t_ops, t_bytes
             row[f"{kind}_bound_ms"] = max(t_ops, t_bytes)
     times = "".join(f" {key}={row[key]:.3f}" for key in
-                    ("fwd_ms", "dq_ms", "dkv_ms", "fwd_plain_ms", "fwd_library_ms",
-                     "fwd_bound_ms", "dq_bound_ms", "dkv_bound_ms")
+                    ("fwd_ms", "fwd_union_ms", "fwd_ring_ms", "fwd_mma_sync_ms",
+                     "fwd_dense_b1f_ms", "dq_ms", "dkv_ms",
+                     "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms", "dq_bound_ms",
+                     "dkv_bound_ms")
                     if row.get(key) is not None)
+    route = which + (f" ({row['form']}, {table.n_split} split rows)" if row["form"] else "")
+    sync_err = "".join(f" {name} fwd|d|={e:.2e} lse|d|={le:.1e}"
+                       for name, (e, le) in other.items())
     log(f"[sparse] {label:20s} {str(tuple(row['shape'])):18s} bs {scfg.block_size:3d} "
-        f"{str(dtype).split('.')[-1]:8s} active {row['active']:.2f} fwd|d|={err:.2e} "
-        f"(tol {tol:.2e}) lse|d|={lse_err:.1e} dq|d|={errs[0]:.2e} dkv|d|={max(errs[1:]):.2e} "
-        f"(bound ratio {max(ratios):.3f}){times} {'ok' if ok else 'FAIL'}")
+        f"{str(dtype).split('.')[-1]:8s} active {row['active']:.2f} {route} fwd|d|={err:.2e} "
+        f"(tol {tol:.2e}) lse|d|={lse_err:.1e}{sync_err} dq|d|={errs[0]:.2e} "
+        f"dkv|d|={max(errs[1:]):.2e} (bound ratio {max(ratios):.3f}){times} "
+        f"{'ok' if ok else 'FAIL'}")
     del q, k, v, do, bias, out, lse, dq, dk, dv
     torch.cuda.empty_cache()
     return row
@@ -1150,11 +1197,21 @@ def phase_sparse_kernels():
     head widths 16 and 32, fully masked batch elements, f32, and a ragged
     length through the wrapper."""
     served = sparse.SparseConfig(block_size=16, max_seq_len=384)
+    trained = sparse.SparseConfig(block_size=16, max_seq_len=256)
     long = sparse.SparseConfig(block_size=16, max_seq_len=2048)
     rows = [
         check_sparse("pair axial L=384", 384, 8, 384, 64, torch.bfloat16, served, timed=True),
         check_sparse("long n=4096", 1, 8, 4096, 64, torch.bfloat16, long, timed=True),
+        check_sparse("pair axial crop 256", 256, 8, 256, 64, torch.bfloat16, trained,
+                     timed=True),
+        # the ring form with most rows split (cap 3 slots), one batch element masked
+        check_sparse("split rows n=1024", 3, 2, 1024, 64, torch.bfloat16,
+                     sparse.SparseConfig(block_size=16, max_seq_len=512), timed=False,
+                     masked_b=(1,), cap=3),
     ]
+    off = [r["case"] for r in rows if r["route"] != "wgmma"]
+    if off:
+        fail("B5f's bf16 dh 64 bs 16 rows off the wgmma route: " + ", ".join(off))
     edges = [
         ("bs 32", 4, 2, 384, 64, torch.bfloat16, 32, 384, (1,)),
         ("bs 64", 4, 2, 512, 64, torch.bfloat16, 64, 512, ()),
@@ -1329,7 +1386,7 @@ def phase_main():
     # max_seq_len 128: 75% of the 8 blocks active
     cpu_vs_card("a sparse", dataclasses.replace(f32, max_seq_len=128,
                                                 sparse_self_attn=(True, False)), 128,
-                {"flash_fwd": 10, "flash_fwd_f32": 10, "sparse_fwd": 2})
+                {"flash_fwd": 10, "flash_fwd_f32": 10, "sparse_fwd": 2, "sparse_fwd_f32": 2})
     lengths = (128, 256, 384)
     cfg = Alphafold2Config(dim=256, depth=2, heads=8, dim_head=64, max_seq_len=384,
                            dtype=torch.bfloat16)
@@ -1348,11 +1405,13 @@ def phase_main():
                           {"flash_fwd": flash, "flash_fwd_wgmma": flash,
                            "quant_matmul": 22 * 2 * len(lengths),
                            "quant_matmul_wgmma": 22 * 2 * len(lengths)})
-    # sparse layer 0: its 2 pair axial passes go sparse, the other 10 stay flash
+    # sparse layer 0: its 2 pair axial passes go sparse (every B5f launch on
+    # the wgmma route), the other 10 stay flash
     sparse_cfg = dataclasses.replace(cfg, sparse_self_attn=(True, False))
     sparse_run = serve_requests("e", sparse_cfg, lengths,
                                 {"flash_fwd": 10 * len(lengths), "flash_fwd_wgmma": 10 * len(lengths),
-                                 "sparse_fwd": 2 * len(lengths)})
+                                 "sparse_fwd": 2 * len(lengths),
+                                 "sparse_fwd_wgmma": 2 * len(lengths)})
     phase_int8_vs_f32(int8_cfg, 128)
     return {"flash_fwd": served["flash_fwd"], "flash_fwd_fused": gated["flash_fwd_fused"],
             "quant_matmul_wgmma": int8["quant_matmul_wgmma"],
@@ -1528,7 +1587,7 @@ def phase_train():
     # max_seq_len 128: 75% of the 8 blocks active; every layer sparse
     phase_train_parity("a sparse", dataclasses.replace(f32, max_seq_len=128,
                                                        sparse_self_attn=True), 128,
-                       {name: three for name in ("sparse_fwd", "sparse_bwd_dq",
+                       {name: three for name in ("sparse_fwd", "sparse_fwd_f32", "sparse_bwd_dq",
                                                  "sparse_bwd_dkv")})
     tcfg = TrainConfig(grad_accum=16)
     cfg = Alphafold2Config(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=2048,
@@ -1546,10 +1605,11 @@ def phase_train():
                       {"flash_fwd_fused": per, "flash_fwd_wgmma": per, "flash_bwd_fused_dq": per,
                        "flash_bwd_fused_dkv": per, "flash_bwd_dkv_wgmma": per})
     # train_pre's defaults, sparse, at crop 256 with max_seq_len 256: 66% of
-    # the 16 blocks active (train_pre's own 2048 would make every block active)
+    # the 16 blocks active (train_pre's own 2048 would make every block
+    # active); every B5f launch on the wgmma route
     sparse_run = train_run("e", dataclasses.replace(cfg, sparse_self_attn=True, max_seq_len=256),
-                           256, tcfg, 3, {"sparse_fwd": per, "sparse_bwd_dq": per,
-                                          "sparse_bwd_dkv": per})
+                           256, tcfg, 3, {"sparse_fwd": per, "sparse_fwd_wgmma": per,
+                                          "sparse_bwd_dq": per, "sparse_bwd_dkv": per})
     int8_cfg = dataclasses.replace(cfg, weight_dtype="int8")
     try:
         make_train_step(int8_cfg, tcfg, device="cuda")
@@ -1812,6 +1872,9 @@ def phase_sp():
 # --- phase 5: the kernels line -----------------------------------------------------
 
 
+SPARSE_LINE_CASES = ("pair axial L=384", "long n=4096")  # B5's timed rows in the kernels line
+
+
 def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows, launches):
     """One entry per kernel. Forwards: numbers summed over the serving
     path's three attention shapes at L = 384 in bf16 (one launch of each;
@@ -1825,7 +1888,8 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     the main path's wgmma-route launches; max_abs_err over every checked
     case of both bf16 routes and f32), library torch.matmul on the
     dequantized bf16 weight. B5: summed
-    over the pair-axial shape at L = 384 and the long n = 4096 case, each
+    over the pair-axial shape at L = 384 and the long n = 4096 case
+    (SPARSE_LINE_CASES; B5f on its wgmma route), each
     kernel with its own plain version, bound and SDPA yardstick (forward,
     or the backward for the gradients it produces). B3: the forward at the
     SP request's hop shape (L = 384, 4 shards), library the efficient
@@ -1891,7 +1955,7 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
         >= sum(r["bytes_ms"] for r in timed) else "bytes",
         "library_ms": sum(r["library_ms"] for r in timed),
     })
-    timed = [r for r in sparse_rows if "fwd_ms" in r]
+    timed = [r for r in sparse_rows if "fwd_ms" in r and r["case"] in SPARSE_LINE_CASES]
     checked = [r for r in sparse_rows if "fwd_err" in r]
     for name, kind, err in (("sparse_fwd", "fwd", "fwd_err"), ("sparse_bwd_dq", "dq", "dq_err"),
                             ("sparse_bwd_dkv", "dkv", "dkv_err")):
@@ -1902,7 +1966,9 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
             "source": SOURCES["sparse_attn"],
             "replaces": REPLACES[name],
             "launches": launches[name],
-            "max_abs_err": max(r[err] for r in checked),
+            # B5f: every bf16 route's and form's error
+            "max_abs_err": max(r[key] for r in checked for key in r
+                               if key == err or (kind == "fwd" and key.endswith("_fwd_err"))),
             "ms": sum(r[f"{kind}_ms"] for r in timed),
             "plain_ms": sum(r[f"{kind}_plain_ms"] for r in timed),
             "bound_ms": sum(r[f"{kind}_bound_ms"] for r in timed),

@@ -146,6 +146,11 @@ def test_profiling_needs_a_card_and_sorts_kernels(no_cuda):
     assert profiling.kernel_kind("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT").startswith("matrix")
     assert profiling.kernel_kind("void at::native::reduce_kernel<512, 1>").startswith("other")
     assert profiling.kernel_kind("void sparse_fwd_bf16_kernel<64, 16>").startswith("sparse forward")
+    for name in ("void (anonymous namespace)::sparse_fwd_wgmma_kernel<3>(CUtensorMap)",
+                 "(anonymous namespace)::sparse_fwd_ring_kernel(const __nv_bfloat16 *)"):
+        assert profiling.kernel_kind(name).startswith("sparse forward")
+    with pytest.raises(SystemExit, match="CUDA device"):
+        profiling.main(["--train", "--sparse", "--length", "8"])
     assert profiling.kernel_kind("void sparse_dkv_bf16_kernel<64, 16>").startswith("sparse backward")
     assert profiling.kernel_kind("quant_matmul_bf16_kernel").startswith("int8")
     with pytest.raises(SystemExit):

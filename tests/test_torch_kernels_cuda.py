@@ -419,7 +419,9 @@ def test_sparse_kernels_match_plain_on_card(cuda_device, bs, dh, dtype):
     out, lse = sk.sparse_fwd(q, k, v, bias, table, heads, scale)
     dq, dk, dv = sk.sparse_bwd(q, k, v, bias, table, heads, out, lse, g, scale)
     torch.cuda.synchronize()
-    assert all(sk.LAUNCHES[name] == before[name] + 1 for name in sk.LAUNCHES)
+    counted = ("sparse_fwd", f"sparse_fwd_{sk.route(q, table)}", "sparse_bwd_dq", "sparse_bwd_dkv")
+    assert {name: sk.LAUNCHES[name] - before[name] for name in before} == {
+        name: int(name in counted) for name in before}
     ref_out, ref_lse = sk.sparse_fwd_plain(q, k, v, bias, table, heads, scale)
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * ref_out.float().abs().max().item()
     assert (out.float() - ref_out.float()).abs().max().item() <= tol
@@ -436,6 +438,70 @@ def test_sparse_kernels_match_plain_on_card(cuda_device, bs, dh, dtype):
         assert torch.isfinite(got).all()
         assert ((got.float() - want.float()).abs() <= bound).all()
         assert (got[2:4] == 0).all()
+
+
+# the wgmma route's cases: (b, heads, n, max_seq_len, cap, masked batch
+# elements); cap None is the table's own (`work_cap`)
+WGMMA_CASES = {
+    "split global row (8, 4096, 64)": (1, 8, 4096, 2048, None, ()),
+    "BH 3": (3, 1, 384, 384, None, ()),
+    "BH 3, long": (3, 1, 1024, 512, None, ()),
+    "n 16, one block": (2, 2, 16, 16, None, (1,)),
+    "ragged tile n 208": (3, 2, 208, 256, None, (1,)),
+    "masked element": (3, 2, 384, 384, None, (1,)),
+    "masked element, many split rows": (3, 2, 1024, 512, 3, (1,)),
+    "served pair axial (3072, 384, 64)": (384, 8, 384, 384, None, ()),
+    "trained pair axial (2048, 256, 64)": (256, 8, 256, 256, None, ()),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["union", "ring"])
+@pytest.mark.parametrize("case", list(WGMMA_CASES))
+def test_sparse_wgmma_route_matches_plain_on_card(cuda_device, case, form):
+    """B5f's wgmma route in each form (union: the tile's stages on wgmma,
+    masked; ring: exact work on mma.sync, split rows merged) against
+    `sparse_fwd_plain` under phase 3's tolerance (one bf16 ulp of the
+    largest output, lse 1e-4), the masked batch elements giving zeros and
+    lse = +inf; one launch counted on the route. The mma_sync route on the
+    same call agrees too."""
+    from alphafold2_tpu_torch.ops import sparse, sparse_kernel as sk
+
+    b, heads, n, msl, cap, masked = WGMMA_CASES[case]
+    rng = np.random.default_rng(3)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
+        cuda_device, torch.bfloat16)
+    q, k, v = (t(b * heads, n, 64) for _ in range(3))
+    keep = rng.random((b, n)) >= 0.05
+    keep[:, 0] = True
+    for i in masked:
+        keep[i] = False
+    bias = torch.from_numpy(np.where(keep, 0.0, -np.inf).astype(np.float32)).to(cuda_device)
+    idx, valid = sparse.layout_block_indices(n // 16, sparse.SparseConfig(block_size=16,
+                                                                          max_seq_len=msl))
+    table = sk.block_table(idx, valid, 16, cuda_device, cap=cap)
+    assert sk.route(q, table) == "wgmma"
+    before = dict(sk.LAUNCHES)
+    out, lse = sk.sparse_fwd(q, k, v, bias, table, heads, 0.125, form=form)
+    torch.cuda.synchronize()
+    assert {name: sk.LAUNCHES[name] - before[name] for name in before} == {
+        name: int(name in ("sparse_fwd", "sparse_fwd_wgmma")) for name in before}
+    ref_out, ref_lse = sk.sparse_fwd_plain(q, k, v, bias, table, heads, 0.125)
+    tol = 2.0 ** -7 * ref_out.float().abs().max().item()
+    fin = torch.isfinite(ref_lse)
+    for got_out, got_lse in ((out, lse),
+                             sk.sparse_fwd(q, k, v, bias, table, heads, 0.125, which="mma_sync")):
+        assert torch.isfinite(got_out).all()
+        assert (got_out.float() - ref_out.float()).abs().max().item() <= tol
+        assert torch.equal(torch.isposinf(got_lse), torch.isposinf(ref_lse))
+        assert (got_lse[fin] - ref_lse[fin]).abs().max().item() <= 1e-4
+    for i in masked:
+        rows = slice(i * heads, (i + 1) * heads)
+        assert (out[rows] == 0).all() and torch.isposinf(lse[rows]).all()
+    again = sk.sparse_fwd(q, k, v, bias, table, heads, 0.125, form=form)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)  # deterministic
+    if form == "ring" and table.n_split:  # the split rows' counters are back at zero
+        assert not sk._ROW_DONE[q.device].any()
 
 
 @pytest.mark.cuda
@@ -511,6 +577,24 @@ def test_card_routes_raise_instead_of_falling_back(cuda_device, monkeypatch):
                        requires_grad=True) for _ in range(3)]
     with pytest.raises(RuntimeError, match="wgmma route"):
         flash.flash_attention(*qkv).float().sum().backward()
+
+    # a failed launch on the sparse forward's wgmma route raises; the
+    # mma_sync kernel is never tried
+    class RefusingSparse:
+        @staticmethod
+        def af2_sparse_fwd_wgmma(*args):
+            return 98  # cudaErrorInvalidDeviceFunction
+
+        @staticmethod
+        def af2_sparse_fwd(*args):
+            raise AssertionError("the wgmma launch fell back to the mma_sync kernel")
+
+    monkeypatch.setattr(sparse_kernel, "_lib", RefusingSparse)
+    cfg64 = AttentionConfig(dim=128, heads=2, dim_head=64, dtype=torch.bfloat16)
+    params64 = attention_init(torch.Generator().manual_seed(0), cfg64, cuda_device)
+    x64 = torch.randn(2, 40, 128, device=cuda_device)
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        sparse.sparse_attention_apply(params64, cfg64, scfg, x64)
 
 
 @pytest.mark.cuda
