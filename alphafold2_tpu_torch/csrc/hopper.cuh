@@ -1,5 +1,6 @@
 // Hopper (sm_90a) device primitives shared by the port's TMA-fed wgmma
-// kernels (quant_matmul.cu, flash_fwd.cu, flash_bwd.cu): mbarriers, TMA loads
+// kernels (quant_matmul.cu, flash_bwd.cu, and flash_fwd_wgmma.cuh's forward,
+// which flash_fwd.cu and sparse_attn.cu share): mbarriers, TMA loads
 // and stores, the async-proxy fence, wgmma's shared-memory descriptor, its
 // fence / commit / wait, the register fences around an asynchronous wgmma,
 // the bf16 wgmma forms of the flash kernels, ex2, and the host's lookup of

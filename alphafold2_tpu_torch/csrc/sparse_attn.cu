@@ -36,12 +36,10 @@
 //
 // bf16 forward, two routes (ops/sparse_kernel.py `route` picks one; no
 // fallback):
-//   * wgmma (dh 64, bs 16), the section below: where the layout is dense
-//     at the scale of a 128 x 128 tile (every served and trained shape), the
-//     flash forward's TMA-fed wgmma pipeline over the union of a tile's key
-//     blocks, the pairs it does not attend masked; for sparser tables, exact
-//     work per warp on `mma.sync` through an async ring over a balanced work
-//     list whose heavy rows are split and merged;
+//   * wgmma (dh 64, bs 16), the section below: the flash forward's TMA-fed
+//     wgmma pipeline (flash_fwd_wgmma.cuh) over the 128-key stages in which
+//     some query block of a 128- or 192-row tile attends a key block, the
+//     (query block, key block) pairs it does not attend masked with -inf;
 //   * mma_sync (the other block sizes and head widths), below.
 //
 // mma_sync, and the bf16 backward kernels: each product runs on the tensor
@@ -70,40 +68,21 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "flash_fwd_wgmma.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-using af2::EncodeTiledFn;
 using af2::copy_async4;
 using af2::cp_async_commit;
 using af2::cp_async_wait;
-using af2::encode_3d;
-using af2::encode_tiled;
-using af2::ex2;
-using af2::fence_regs;
-using af2::gmma_desc;
 using af2::kPad;
 using af2::load_a;
-using af2::mbar_arrive;
-using af2::mbar_expect_tx;
-using af2::mbar_init;
-using af2::mbar_wait;
 using af2::mma_ab;
 using af2::mma_abt;
-using af2::mma_bf16;
 using af2::pack_bf16;
-using af2::smem_u32;
 using af2::stage_async;
 using af2::store_rows;
-using af2::tma_load_3d;
-using af2::warpgroup_sync;
-using af2::wgmma_commit;
-using af2::wgmma_fence;
-using af2::wgmma_m64n128k16_ss;
-using af2::wgmma_m64n64k16_rs_mn;
-using af2::wgmma_wait;
 
 constexpr float kM0 = -1e30f;  // running-max sentinel (TPU kernel's _M0)
 constexpr float kLog2e = 1.4426950408889634f;
@@ -499,661 +478,34 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 // --- bf16, dh 64, bs 16: the wgmma route -------------------------------------
 //
-// Two forms, chosen per block table (ops/sparse_kernel.py `BlockTable.form`):
-//   * union (below the ring form): the flash forward's wgmma pipeline over
-//     the 128-key stages that some query block of a tile attends, the pairs
-//     it does not attend masked; it computes up to the whole tile x stage
-//     product, so it is taken where that is at most UNION_WORK_MAX times the
-//     layout's exact work (every served and trained shape, n = 4096);
-//   * ring (sparser tables): exact work. Persistent blocks walk the table's
-//     work list of (query block, slot range) items, longest first, for every
-//     head; a producer warp gathers 4 active key blocks of an item a stage
-//     (cp.async, completion signalled as an mbarrier arrival) into a ring of
-//     3 stages with full and empty barriers; each of 4 consumer warps owns
-//     the item's 16 query rows against one block of a stage, S and P.V on
-//     `mma.sync.m16n8k16` with K and V fragments read by `ldmatrix` from
-//     128-byte rows swizzled in 16-byte chunks (chunk c of row r at c ^ (r %
-//     8): the eight rows of a fragment hit eight distinct chunks), and the
-//     warps merge at the item's end in warp order. A row longer than the
-//     list's cap is split into chunks whose partial (o, m, l) go to a
-//     workspace in f32; the chunk that finishes last (a counter per row,
-//     reset by it, so a call stays one launch) merges them in chunk order,
-//     so the result does not depend on timing.
+// flash_fwd_wgmma.cuh's pipeline with a stage list: persistent blocks walk
+// (bh, query tile) tiles of 64 rows a consumer warpgroup; the producer warp
+// streams, by TMA, only the 128-key stages the table's `union` list names
+// for the tile (those in which some query block of the tile has an active
+// key block), and each warpgroup masks the (query block, key block) pairs
+// its 4 query blocks do not attend with -inf in the key bias, from its
+// 32-bit mask of the list entry. It computes the whole tile x stage
+// product: 1.78x the layout's exact work at the served layout (L = 384),
+// 1.52x at the trained one (crop 256), 3.95x at n = 4096 and 7.62x at
+// n = 8192.
 
-constexpr int kLBs = 16;                       // the route's block size
-constexpr int kLDh = 64;                       // the route's head width
-constexpr int kRowBytes = kLDh * 2;            // one K or V row, bf16
-constexpr int kBlockBytes = kLBs * kRowBytes;  // one key block's K (or V) rows
-constexpr int kRingStages = 3;
-constexpr int kRingWarps = 4;  // consumer warps = key blocks a stage
-constexpr int kStageBytes = 2 * kRingWarps * kBlockBytes + kRingWarps * kLBs * 4;
-constexpr int kRingMerge = kRingWarps * kLBs * kLDh * 4 + 2 * kRingWarps * kLBs * 4;
-constexpr int kRingBytes = kRingStages * kStageBytes + kRingMerge + 2 * kRingStages * 8 + 16;
-constexpr int kItemInts = 8;  // row, first slot, slots, chunk, chunks, first partial, split row, 0
-
-__device__ __forceinline__ uint32_t swz(uint32_t base, int row, int chunk) {
-  return base + row * kRowBytes + ((chunk ^ (row & 7)) << 4);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-
-// an arrival on `bar` once every cp.async this thread issued so far is done
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-// A warp's 16 rows: the f32 accumulator, the running max (log2 domain) and
-// this thread's share of the running sum.
-struct WarpRows {
-  float o[kLDh / 8][4];
-  float m[2];
-  float l[2];
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int c = 0; c < kLDh / 8; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
-    m[0] = m[1] = kM0;
-    l[0] = l[1] = 0.f;
-  }
-  // the running sums over the quad (each thread then holds its rows' whole l)
-  __device__ __forceinline__ void reduce_l() {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    }
-  }
-};
-
-// One step over an active key block (kb, vb: its K and V rows in shared
-// memory; bias: its 16 key biases): S = Q K^T scaled into the log2 domain,
-// the online softmax, O += P V with P rounded to bf16.
-__device__ __forceinline__ void key_step(WarpRows& w, const uint32_t (&qa)[kLDh / 16][4],
-                                         uint32_t kb, uint32_t vb, const float* bias,
-                                         float scale, int lane) {
-  const int t = lane & 3;
-  const int mat = lane >> 3;  // the 8 x 8 matrix whose row address this lane gives
-  const int r8 = lane & 7;
-  float s[2][4];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  // every fragment load of a product is issued before its first mma (the
-  // asm statements keep their order): keys 0-7 and 8-15, each at dh chunks
-  // 2 st and 2 st + 1, are the B fragments of the two 8-key n-tiles
-  uint32_t f[kLDh / 16][4];
-#pragma unroll
-  for (int st = 0; st < kLDh / 16; ++st) {
-    ldsm_x4(f[st], swz(kb, (mat >> 1) * 8 + r8, 2 * st + (mat & 1)));
-  }
-#pragma unroll
-  for (int st = 0; st < kLDh / 16; ++st) {
-    mma_bf16(s[0], qa[st], f[st][0], f[st][1]);
-    mma_bf16(s[1], qa[st], f[st][2], f[st][3]);
-  }
-  // V's fragments, in flight during the softmax: keys 0-7 and 8-15 at dh
-  // chunks 2c and 2c + 1, transposed, are the B fragments of the n-tiles 2c
-  // and 2c + 1
-#pragma unroll
-  for (int c = 0; c < kLDh / 16; ++c) {
-    ldsm_x4_t(f[c], swz(vb, (mat & 1) * 8 + r8, 2 * c + (mat >> 1)));
-  }
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[j][e] = (s[j][e] * scale + bias[j * 8 + 2 * t + (e & 1)]) * kLog2e;
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-    }
-  }
-  float alpha[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    const float m_new = fmaxf(w.m[h], mx[h]);
-    alpha[h] = ex2(w.m[h] - m_new);
-    w.m[h] = m_new;
-    w.l[h] *= alpha[h];
-  }
-#pragma unroll
-  for (int c = 0; c < kLDh / 8; ++c) {
-    w.o[c][0] *= alpha[0];
-    w.o[c][1] *= alpha[0];
-    w.o[c][2] *= alpha[1];
-    w.o[c][3] *= alpha[1];
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[j][e] = ex2(s[j][e] - w.m[e >> 1]);
-      w.l[e >> 1] += s[j][e];
-    }
-  }
-  const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                          pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
-#pragma unroll
-  for (int c = 0; c < kLDh / 16; ++c) {
-    mma_bf16(w.o[2 * c], pa, f[c][0], f[c][1]);
-    mma_bf16(w.o[2 * c + 1], pa, f[c][2], f[c][3]);
-  }
-}
-
-// 8 outputs of a row, normalised, as one 16-byte store
-__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float (&acc)[8], float l) {
-  const float inv = l > 0.f ? 1.f / l : 0.f;
-  uint4 v;
-  v.x = pack_bf16(acc[0] * inv, acc[1] * inv);
-  v.y = pack_bf16(acc[2] * inv, acc[3] * inv);
-  v.z = pack_bf16(acc[4] * inv, acc[5] * inv);
-  v.w = pack_bf16(acc[6] * inv, acc[7] * inv);
-  *reinterpret_cast<uint4*>(dst) = v;
-}
-
-__global__ void __launch_bounds__((kRingWarps + 1) * 32, 3)
-    sparse_fwd_ring_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const float* __restrict__ bias, const int* __restrict__ idx,
-                           const int* __restrict__ items, __nv_bfloat16* __restrict__ out,
-                           float* __restrict__ lse, float* __restrict__ part_o,
-                           float* __restrict__ part_ml, int* __restrict__ row_done,
-                           int64_t bh_total, int64_t heads, int n_blocks, int width,
-                           int n_items, int n_parts, int n_split, float scale) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  // [ring: stages of (K blocks, V blocks, key biases)] [merge: o f32 (warp,
-  // row, dh), m, l (warp, row)] [full and empty barriers] [the last-chunk flag]
-  float* const mo = reinterpret_cast<float*>(smem + kRingStages * kStageBytes);
-  float* const mm = mo + kRingWarps * kLBs * kLDh;
-  float* const ml = mm + kRingWarps * kLBs;
-  uint64_t* const bars = reinterpret_cast<uint64_t*>(ml + kRingWarps * kLBs);
-  int* const flag = reinterpret_cast<int*>(bars + 2 * kRingStages);
-  const uint32_t ring = smem_u32(smem);
-  const uint32_t full0 = smem_u32(bars);
-  const uint32_t empty0 = smem_u32(bars + kRingStages);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kRingStages; ++s) {
-      mbar_init(full0 + 8 * s, 32);  // the producer's lanes, one cp.async arrival each
-      mbar_init(empty0 + 8 * s, kRingWarps);
-    }
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t n = (int64_t)n_blocks * kLBs;
-  const int64_t units = (int64_t)n_items * bh_total;  // item-major: every head of an item
-  if (warp == kRingWarps) {  // the producer
-    int it = 0;
-    for (int64_t u = blockIdx.x; u < units; u += gridDim.x) {
-      const int* const item = items + u / bh_total * kItemInts;
-      const int64_t bh = u % bh_total;
-      const int cnt = item[2];
-      const int* const slots = idx + (int64_t)item[0] * width + item[1];
-      const __nv_bfloat16* const kh = k + bh * n * kLDh;
-      const __nv_bfloat16* const vh = v + bh * n * kLDh;
-      const float* const bias_h = bias + bh / heads * n;
-      for (int a0 = 0; a0 < cnt; a0 += kRingWarps, ++it) {
-        const int slot = it % kRingStages;
-        mbar_wait(empty0 + 8 * slot, ((it / kRingStages) & 1) ^ 1);
-        const uint32_t stage = ring + slot * kStageBytes;
-        // lane b < 4 reads the stage's block b; each lane then copies rows
-        // lane / 8 + 4 x of every block (its 16-byte chunk lane % 8)
-        const int mine = lane < kRingWarps && a0 + lane < cnt ? slots[a0 + lane] : -1;
-#pragma unroll
-        for (int b = 0; b < kRingWarps; ++b) {
-          const int blk = __shfl_sync(0xffffffffu, mine, b);
-          if (blk < 0) continue;
-          const int64_t key0 = (int64_t)blk * kLBs;
-#pragma unroll
-          for (int x = 0; x < kLBs / 4; ++x) {
-            const int row = (lane >> 3) + 4 * x;
-            const int64_t at = (key0 + row) * kLDh + (lane & 7) * 8;
-            cp16(swz(stage + b * kBlockBytes, row, lane & 7), kh + at);
-            cp16(swz(stage + (kRingWarps + b) * kBlockBytes, row, lane & 7), vh + at);
-          }
-          if (lane < 4) {  // the block's 16 key biases, 4 chunks
-            cp16(stage + 2 * kRingWarps * kBlockBytes + b * kLBs * 4 + lane * 16,
-                 bias_h + key0 + lane * 4);
-          }
-        }
-        cp_async_arrive(full0 + 8 * slot);
-      }
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    return;
-  }
-
-  // the consumers
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  int it = 0;
-  for (int64_t u = blockIdx.x; u < units; u += gridDim.x) {
-    const int* const item = items + u / bh_total * kItemInts;
-    const int64_t bh = u % bh_total;
-    const int r = item[0];
-    const int cnt = item[2];
-    const int64_t rows[2] = {(int64_t)r * kLBs + g, (int64_t)r * kLBs + g + 8};
-    const bool valid[2] = {true, true};
-    uint32_t qa[kLDh / 16][4];
-    load_a<kLDh>(qa, q + bh * n * kLDh, rows, valid, t);
-    WarpRows w;
-    w.init();
-    for (int a0 = 0; a0 < cnt; a0 += kRingWarps, ++it) {
-      const int slot = it % kRingStages;
-      mbar_wait(full0 + 8 * slot, (it / kRingStages) & 1);
-      if (a0 + warp < cnt) {
-        const uint32_t stage = ring + slot * kStageBytes;
-        key_step(w, qa, stage + warp * kBlockBytes, stage + (kRingWarps + warp) * kBlockBytes,
-                 reinterpret_cast<const float*>(smem + slot * kStageBytes +
-                                                2 * kRingWarps * kBlockBytes) + warp * kLBs,
-                 scale, lane);
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty0 + 8 * slot);
-    }
-
-    // the four warps' rows merged in warp order: m = max m_w, l = sum l_w
-    // 2^(m_w - m), o = sum o_w 2^(m_w - m)
-    w.reduce_l();
-    if (t == 0) {
-      mm[warp * kLBs + g] = w.m[0];
-      mm[warp * kLBs + g + 8] = w.m[1];
-      ml[warp * kLBs + g] = w.l[0];
-      ml[warp * kLBs + g + 8] = w.l[1];
-    }
-    warpgroup_sync(1);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = g + 8 * h;
-      float m_all = mm[row];
-#pragma unroll
-      for (int x = 1; x < kRingWarps; ++x) m_all = fmaxf(m_all, mm[x * kLBs + row]);
-      const float f = ex2(w.m[h] - m_all);
-#pragma unroll
-      for (int c = 0; c < kLDh / 8; ++c) {
-        *reinterpret_cast<float2*>(mo + (warp * kLBs + row) * kLDh + c * 8 + 2 * t) =
-            make_float2(w.o[c][2 * h] * f, w.o[c][2 * h + 1] * f);
-      }
-    }
-    warpgroup_sync(1);
-    // thread i: row i / 8, dh (i % 8) * 8 .. + 8
-    const int row = threadIdx.x >> 3;
-    const int c0 = (threadIdx.x & 7) * 8;
-    float m_all = mm[row];
-#pragma unroll
-    for (int x = 1; x < kRingWarps; ++x) m_all = fmaxf(m_all, mm[x * kLBs + row]);
-    float l_all = 0.f;
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int x = 0; x < kRingWarps; ++x) {
-      l_all += ml[x * kLBs + row] * ex2(mm[x * kLBs + row] - m_all);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] += mo[(x * kLBs + row) * kLDh + c0 + e];
-    }
-    const int64_t qrow = bh * n + (int64_t)r * kLBs + row;
-    const int chunks = item[4];
-    if (chunks == 1) {
-      store8(out + qrow * kLDh + c0, acc, l_all);
-      if (c0 == 0) lse[qrow] = l_all > 0.f ? m_all * kLn2 + logf(l_all) : INFINITY;
-    } else {
-      const int64_t first = bh * n_parts + item[5];
-      const int64_t p = first + item[3];
-      float4* const po = reinterpret_cast<float4*>(part_o + (p * kLBs + row) * kLDh + c0);
-      po[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      po[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-      if (c0 == 0) {
-        part_ml[(p * kLBs + row) * 2] = m_all;
-        part_ml[(p * kLBs + row) * 2 + 1] = l_all;
-      }
-      __threadfence();
-      warpgroup_sync(1);
-      if (threadIdx.x == 0) {
-        int* const done = row_done + bh * n_split + item[6];
-        const int last = atomicAdd(done, 1) == chunks - 1;
-        if (last) *done = 0;  // every chunk has counted: ready for the next call
-        *flag = last;
-      }
-      warpgroup_sync(1);
-      if (*flag) {  // the last chunk merges the row's chunks in chunk order
-        __threadfence();
-        float mc[8];
-        m_all = kM0;
-        for (int c = 0; c < chunks; ++c) {
-          m_all = fmaxf(m_all, __ldcg(part_ml + ((first + c) * kLBs + row) * 2));
-        }
-        l_all = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-        for (int c = 0; c < chunks; ++c) {
-          const int64_t pr = (first + c) * kLBs + row;
-          const float f = ex2(__ldcg(part_ml + pr * 2) - m_all);
-          l_all += __ldcg(part_ml + pr * 2 + 1) * f;
-          const float4* const src = reinterpret_cast<const float4*>(part_o + pr * kLDh + c0);
-          const float4 x0 = __ldcg(src);
-          const float4 x1 = __ldcg(src + 1);
-          mc[0] = x0.x; mc[1] = x0.y; mc[2] = x0.z; mc[3] = x0.w;
-          mc[4] = x1.x; mc[5] = x1.y; mc[6] = x1.z; mc[7] = x1.w;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[e] += mc[e] * f;
-        }
-        store8(out + qrow * kLDh + c0, acc, l_all);
-        if (c0 == 0) lse[qrow] = l_all > 0.f ? m_all * kLn2 + logf(l_all) : INFINITY;
-      }
-    }
-    warpgroup_sync(1);  // the merge buffers are free for the next item
-  }
-}
-
-// --- bf16, dh 64, bs 16: the wgmma form (a tile's union of key blocks) -------
-//
-// The flash forward's wgmma pipeline (csrc/flash_fwd.cu, the wgmma route)
-// over a block layout: persistent blocks walk (bh, query tile) tiles of 64
-// rows a consumer warpgroup; the producer warp streams, by TMA, only the
-// 128-key stages in which some query block of the tile has an active key
-// block (the table's `union` list), and each warpgroup masks the (query
-// block, key block) pairs its 4 query blocks do not attend with -inf in the
-// key bias. Both products run on wgmma (S with both operands in shared
-// memory, P.V with P in registers); the softmax, its turns and the overlap
-// of stage c + 1's S with stage c's P.V are the flash kernel's.
-
-constexpr int kWN = 128;                  // keys a stage: 8 key blocks
-constexpr int kWKV = kWN * kLDh * 2;      // 16 KB, K or V
-constexpr int kWVLbo = 8192;              // V's descriptor: the stride of 64-column chunks
-constexpr int kUnionInts = 4;             // a list entry: key stage, a 32-bit mask a warpgroup
+constexpr int kLBs = 16;  // the route's block size
+using af2::fwd::KeyList;
+using af2::fwd::WgmmaTile;
 
 template <int CONSUMERS>
-struct UnionTile {
-  static constexpr int kRows = 64 * CONSUMERS;
-  static constexpr int kThreads = 128 * (1 + CONSUMERS);
-  static constexpr int kConsumerWarps = 4 * CONSUMERS;
-  static constexpr int kLightRegs = CONSUMERS == 2 ? 56 : 24;
-  static constexpr int kConsumerRegs = CONSUMERS == 2 ? 224 : 160;
-  static_assert(128 * kLightRegs + 128 * CONSUMERS * kConsumerRegs <= 65536, "registers");
-  static constexpr int kQTile = kRows * kLDh * 2;
-  static constexpr int kStages = 4;
-  static constexpr int kStage = 2 * kWKV;
-  static constexpr int kRing = 2 * kQTile;
-  static constexpr int kKeyBias = kRing + kStages * kStage;
-  static constexpr int kBars = kKeyBias + kStages * kWN * 4;
-  static constexpr int kBytes = kBars + 8 * (2 * kStages + 4) + 1024;  // + alignment
-  static_assert(kBytes <= 232448, "over the 227 KB a block may use");
-};
-
-template <int CONSUMERS>
-__global__ void __launch_bounds__(UnionTile<CONSUMERS>::kThreads, 1)
+__global__ void __launch_bounds__(WgmmaTile<false, CONSUMERS>::kThreads, 1)
     sparse_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
-                            const float* __restrict__ key_bias, const int* __restrict__ offsets,
-                            const int4* __restrict__ entries, __nv_bfloat16* __restrict__ out,
-                            float* __restrict__ lse, int len, int n_qtiles, int64_t tiles,
-                            int64_t heads, float scale_log2) {
-  using L = UnionTile<CONSUMERS>;
-  constexpr int S = L::kStages;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms are 1024-byte aligned
-  uint8_t* const smem = smem_raw + (base - raw);
-  float* const kbias = reinterpret_cast<float*>(smem + L::kKeyBias);
-  const uint32_t bars = base + L::kBars;
-  auto full = [&](int c) { return bars + 8 * (c % S); };
-  auto empty = [&](int c) { return bars + 8 * (S + c % S); };
-  auto qfull = [&](int n) { return bars + 8 * (2 * S + (n & 1)); };
-  auto qempty = [&](int n) { return bars + 8 * (2 * S + 2 + (n & 1)); };
-  auto ring = [](int c) { return (uint32_t)((c / S) & 1); };
-  auto qring = [](int n) { return (uint32_t)((n >> 1) & 1); };
-  auto stage = [&](int c) { return (uint32_t)(L::kRing + (c % S) * L::kStage); };
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full(s), 32);  // the producer warp's lanes, and the TMA bytes
-      mbar_init(empty(s), L::kConsumerWarps);
-    }
-    for (int b = 0; b < 2; ++b) {
-      mbar_init(qfull(b), 1);
-      mbar_init(qempty(b), L::kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (warp < 4) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::kLightRegs));
-    if (warp == 0) {
-      // the producer: chunk c is the c-th listed stage of the block's tiles
-      int c = 0, n = 0;
-      for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
-        const int64_t bh = tile / n_qtiles;
-        const int qt = (int)(tile % n_qtiles);
-        const float* const bias_h = key_bias + bh / heads * len;
-        if (lane == 0) {
-          mbar_wait(qempty(n), qring(n) ^ 1);
-          mbar_expect_tx(qfull(n), L::kQTile);
-          tma_load_3d(base + (n & 1) * L::kQTile, &tm_q, qfull(n), 0, qt * L::kRows, (int)bh);
-        }
-        const int e1 = offsets[qt + 1];
-        for (int e = offsets[qt]; e < e1; ++e, ++c) {
-          const int k0 = entries[e].x * kWN;
-          mbar_wait(empty(c), ring(c) ^ 1);
-          float* kb = kbias + (c % S) * kWN;
-#pragma unroll
-          for (int x = 0; x < kWN / 32; ++x) {
-            const int key = k0 + 32 * x + lane;
-            kb[32 * x + lane] = key < len ? bias_h[key] * kLog2e : -INFINITY;
-          }
-          const uint32_t st = base + stage(c);
-          if (lane == 0) {
-            mbar_expect_tx(full(c), L::kStage);
-            tma_load_3d(st, &tm_k, full(c), 0, k0, (int)bh);
-            tma_load_3d(st + kWKV, &tm_v, full(c), 0, k0, (int)bh);
-          } else {
-            mbar_arrive(full(c));
-          }
-        }
-      }
-    }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kConsumerRegs));
-    // warpgroup wg owns the tile's rows 64 wg .. 64 wg + 63, so query blocks
-    // 4 wg .. 4 wg + 3; a thread holds rows r and r + 8 of query block
-    // 4 wg + warp % 4 (wgmma's accumulator layout: per 8 columns j, s[4j],
-    // s[4j + 1] are row r, columns 8j + 2t, 8j + 2t + 1; s[4j + 2], s[4j + 3]
-    // row r + 8), so key block j / 2 of a stage is on for it where bit j / 2
-    // of its byte of the entry's mask is set
-    const int wg = warp / 4 - 1;
-    const int g = lane / 4;
-    const int t = lane % 4;
-    const int r = 64 * wg + 16 * (warp % 4) + g;
-    const int shift = 8 * (warp % 4);
-    float s[64], o[32], m[2], l[2];
-    uint32_t p[32];
-    auto release = [&](uint32_t bar) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar);
-    };
-    auto qk = [&](uint32_t qa, int c) {
-      const uint32_t ka = base + stage(c);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kLDh / 16; ++ks) {
-        wgmma_m64n128k16_ss(s, gmma_desc(qa + 32 * ks, 16, 1024), gmma_desc(ka + 32 * ks, 16, 1024),
-                            ks);
-      }
-      wgmma_commit();
-    };
-    // the online softmax on stage c's S, in place, its key blocks masked by
-    // `on` (bit b: key block b of the stage is attended by this thread's rows)
-    float alpha[2];
-    auto softmax = [&](int c, uint32_t on) {
-      const float* kb = kbias + (c % S) * kWN;
-      float mx[2][4];
-#pragma unroll
-      for (int j = 0; j < kWN / 8; ++j) {
-        const float2 kv = *reinterpret_cast<const float2*>(kb + 8 * j + 2 * t);
-        const bool live = (on >> (j / 2)) & 1u;
-        const float b0 = live ? kv.x : -INFINITY;
-        const float b1 = live ? kv.y : -INFINITY;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          s[4 * j + 2 * h] = fmaf(s[4 * j + 2 * h], scale_log2, b0);
-          s[4 * j + 2 * h + 1] = fmaf(s[4 * j + 2 * h + 1], scale_log2, b1);
-          const float pair = fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]);
-          mx[h][j % 4] = j < 4 ? pair : fmaxf(mx[h][j % 4], pair);
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h][0] = fmaxf(fmaxf(mx[h][0], mx[h][2]), fmaxf(mx[h][1], mx[h][3]));
-        float x = fmaxf(mx[h][0], __shfl_xor_sync(0xffffffffu, mx[h][0], 1));
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-        const float m_new = fmaxf(m[h], x);
-        alpha[h] = ex2(m[h] - m_new);
-        m[h] = m_new;
-      }
-      float sum[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int j = 0; j < kWN / 8; ++j) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          s[4 * j + 2 * h] = ex2(s[4 * j + 2 * h] - m[h]);
-          s[4 * j + 2 * h + 1] = ex2(s[4 * j + 2 * h + 1] - m[h]);
-          sum[h][j % 4] += s[4 * j + 2 * h] + s[4 * j + 2 * h + 1];
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        l[h] = l[h] * alpha[h] + ((sum[h][0] + sum[h][1]) + (sum[h][2] + sum[h][3]));
-      }
-    };
-    auto rescale_pack = [&]() {
-#pragma unroll
-      for (int j = 0; j < kLDh / 8; ++j) {
-        o[4 * j] *= alpha[0];
-        o[4 * j + 1] *= alpha[0];
-        o[4 * j + 2] *= alpha[1];
-        o[4 * j + 3] *= alpha[1];
-      }
-#pragma unroll
-      for (int j = 0; j < kWN / 8; ++j) {
-        p[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
-        p[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
-      }
-    };
-    auto pv = [&](int c) {
-      const uint32_t va = base + stage(c) + kWKV;
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kWN / 16; ++ks) {
-        wgmma_m64n64k16_rs_mn(o, &p[4 * ks], gmma_desc(va + 2048 * ks, kWVLbo, 1024));
-      }
-      wgmma_commit();
-    };
-    // this thread's byte of a list entry's mask
-    auto mask_of = [&](int e) {
-      return ((uint32_t)(&entries[e].y)[wg] >> shift) & 0xffu;
-    };
-    auto turn_wait = [&]() { asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory"); };
-    auto turn_pass = [&]() {
-      asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (wg + 1) % CONSUMERS) : "memory");
-    };
-    if (wg == CONSUMERS - 1) turn_pass();  // warpgroup 0 goes first
-
-    // a tile's list (its first entry, its length, the first mask) is read
-    // a tile ahead, so its load latency hides under the tile before
-    int c = 0, n = 0;
-    int e0 = 0, nk = 0;
-    uint32_t on = 0;
-    auto list_of = [&](int64_t tile) {
-      if (tile < tiles) {
-        const int qt = (int)(tile % n_qtiles);
-        e0 = offsets[qt];
-        nk = offsets[qt + 1] - e0;  // at least one: the host lists a stage a tile
-        on = mask_of(e0);
-      }
-    };
-    list_of(blockIdx.x);
-    for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
-      const int64_t bh = tile / n_qtiles;
-      const int qt = (int)(tile % n_qtiles);
-      const int first = e0;
-      const int stages = nk;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = 0.f;
-      m[0] = m[1] = kM0;
-      l[0] = l[1] = 0.f;
-      const uint32_t qa = base + (n & 1) * L::kQTile + wg * (64 * kLDh * 2);
-      mbar_wait(qfull(n), qring(n));
-      mbar_wait(full(c), ring(c));
-      qk(qa, c);
-      wgmma_wait<0>();
-      fence_regs(s);
-      turn_wait();
-      softmax(c, on);
-      turn_pass();
-      rescale_pack();
-      for (int kk = 1; kk < stages; ++kk, ++c) {
-        on = mask_of(first + kk);
-        mbar_wait(full(c + 1), ring(c + 1));
-        qk(qa, c + 1);
-        pv(c);
-        wgmma_wait<1>();
-        fence_regs(s);
-        turn_wait();
-        softmax(c + 1, on);
-        turn_pass();
-        wgmma_wait<0>();
-        fence_regs(o);
-        fence_regs(p);
-        rescale_pack();
-        release(empty(c));
-      }
-      pv(c);
-      list_of(tile + gridDim.x);
-      wgmma_wait<0>();
-      fence_regs(o);
-      fence_regs(p);
-      release(empty(c));
-      ++c;
-      release(qempty(n));
-
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = qt * L::kRows + r + 8 * h;
-        if (row < len) {
-          const int64_t qrow = bh * len + row;
-          const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
-#pragma unroll
-          for (int j = 0; j < kLDh / 8; ++j) {
-            *reinterpret_cast<uint32_t*>(out + qrow * kLDh + 8 * j + 2 * t) =
-                pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
-          }
-          if (t == 0) lse[qrow] = l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : INFINITY;
-        }
-      }
-    }
-  }
+                            const __grid_constant__ CUtensorMap tm_bias,  // unread
+                            const float* __restrict__ key_bias, const __nv_bfloat16* gate,
+                            const KeyList list, __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, int len_i, int len_j, int n_qtiles,
+                            int64_t tiles, float scale_log2) {
+  af2::fwd::wgmma_fwd<false, false, CONSUMERS, true>(tm_q, tm_k, tm_v, tm_bias, key_bias, gate,
+                                                     list, out, lse, len_i, len_j, n_qtiles,
+                                                     tiles, scale_log2);
 }
 
 // --- f32: CUDA cores -------------------------------------------------------
@@ -1515,73 +867,26 @@ int launch(Kind kind, const Args& a, int is_bf16) {
   return (int)cudaGetLastError();
 }
 
-// The wgmma route (bf16, dh 64, bs 16): `form` 1 union, 2 ring. The union
-// form reads the table's lists at 128- and 192-row tiles (`unions`: offsets,
-// entries, offsets, entries); the ring form its work list `items` (n_items
-// rows of kItemInts) and, where it splits rows, a workspace of n_parts
-// partials and n_split zeroed counters a head.
-template <int CONSUMERS>
-int launch_union(const Args& a, const int* offsets, const int* entries, int sms) {
-  using L = UnionTile<CONSUMERS>;
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+// The wgmma route (bf16, dh 64, bs 16): `unions` holds the table's stage
+// lists at 128- and 192-row tiles (offsets, entries, offsets, entries); the
+// tile size is the flash forward's rule (`wgmma_consumers`).
+int launch_wgmma_route(const Args& a, const int* const (&unions)[4]) {
   const int64_t n = a.n_blocks * kLBs;
-  CUtensorMap tm_q, tm_k, tm_v;
-  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if (!encode_3d(encode, &tm_q, bf16, a.q, kLDh, n, a.bh, 2, kLDh, L::kRows) ||
-      !encode_3d(encode, &tm_k, bf16, a.k, kLDh, n, a.bh, 2, kLDh, kWN) ||
-      !encode_3d(encode, &tm_v, bf16, a.v, kLDh, n, a.bh, 2, kLDh, kWN)) {
+  if (a.bs != kLBs || a.dh != af2::fwd::kWDH || a.bh <= 0 || a.heads <= 0 || a.n_blocks <= 0 ||
+      n > 2147483647LL || a.bh > 2147483647LL || unions[0] == nullptr ||
+      unions[1] == nullptr || unions[2] == nullptr || unions[3] == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t e = cudaFuncSetAttribute(
-      sparse_fwd_wgmma_kernel<CONSUMERS>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  cudaError_t e;
+  const int sms = af2::fwd::sm_count(&e);
   if (e != cudaSuccess) return (int)e;
-  const int n_qtiles = (int)((n + L::kRows - 1) / L::kRows);
-  const int64_t tiles = a.bh * n_qtiles;
-  const int grid = (int)(tiles < sms ? tiles : sms);
-  sparse_fwd_wgmma_kernel<CONSUMERS><<<grid, L::kThreads, L::kBytes, a.stream>>>(
-      tm_q, tm_k, tm_v, (AF2_F32)a.bias, offsets, (const int4*)entries, (__nv_bfloat16*)a.o0,
-      (float*)a.o1, (int)n, n_qtiles, tiles, a.heads, a.scale * kLog2e);
-  return (int)cudaGetLastError();
-}
-
-int launch_wgmma_route(const Args& a, const int* items, int64_t n_items, float* part_o,
-                      float* part_ml, int* row_done, int64_t n_parts, int64_t n_split,
-                      const int* const (&unions)[4], int form) {
-  const int invalid = (int)cudaErrorInvalidValue;
-  if (a.bs != kLBs || a.dh != kLDh) return invalid;
-  if (a.bh <= 0 || a.heads <= 0 || a.n_blocks <= 0 || a.width <= 0) return invalid;
-  if (a.n_blocks * kLBs > 2147483647LL || a.width > 2147483647LL) return invalid;
-  int device = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return (int)e;
-  const int64_t n = a.n_blocks * kLBs;
-  if (form == 1) {  // 192-row tiles where they pad no more than 128-row ones and fill the card
-    if (a.bh > 2147483647LL || unions[0] == nullptr || unions[2] == nullptr) return invalid;
-    const int64_t tiles3 = (n + 191) / 192, tiles2 = (n + 127) / 128;
-    if (tiles3 * 192 <= tiles2 * 128 && a.bh * tiles3 >= sms) {
-      return launch_union<3>(a, unions[2], unions[3], sms);
-    }
-    return launch_union<2>(a, unions[0], unions[1], sms);
-  }
-  if (form != 2 || items == nullptr || n_items <= 0 || n_parts < 0 || n_split < 0 ||
-      n_parts > 2147483647LL || n_split > 2147483647LL || n_items > 2147483647LL) {
-    return invalid;
-  }
-  if (n_parts > 0 && (part_o == nullptr || part_ml == nullptr || row_done == nullptr)) {
-    return invalid;
-  }
-  e = cudaFuncSetAttribute(sparse_fwd_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kRingBytes);
-  if (e != cudaSuccess) return (int)e;
-  const int64_t units = n_items * a.bh;
-  const int grid = (int)(units < 3 * sms ? units : 3 * sms);  // three blocks an SM
-  sparse_fwd_ring_kernel<<<grid, (kRingWarps + 1) * 32, kRingBytes, a.stream>>>(
-      (AF2_BF16)a.q, (AF2_BF16)a.k, (AF2_BF16)a.v, (AF2_F32)a.bias, (const int*)a.idx, items,
-      (__nv_bfloat16*)a.o0, (float*)a.o1, part_o, part_ml, row_done, a.bh, a.heads,
-      (int)a.n_blocks, (int)a.width, (int)n_items, (int)n_parts, (int)n_split, a.scale);
-  return (int)cudaGetLastError();
+  const bool three = af2::fwd::wgmma_consumers(a.bh, n, sms, false) == 3;
+  const KeyList list{unions[three ? 2 : 0], (const int4*)unions[three ? 3 : 1], a.heads};
+#define AF2_ARGS a.q, a.k, a.v, a.bias, nullptr, list, a.o0, a.o1, a.bh, n, n, a.scale, sms, \
+                 a.stream
+  if (three) return af2::fwd::launch_wgmma_fwd<false, 3>(sparse_fwd_wgmma_kernel<3>, AF2_ARGS);
+  return af2::fwd::launch_wgmma_fwd<false, 2>(sparse_fwd_wgmma_kernel<2>, AF2_ARGS);
+#undef AF2_ARGS
 }
 
 }  // namespace
@@ -1604,27 +909,22 @@ int af2_sparse_fwd(const void* q, const void* k, const void* v, const void* bias
 }
 
 // B5f's wgmma route: bf16 q, k, v, out at dh 64 and bs 16, as
-// af2_sparse_fwd; form 1 (union) reads union128_off (tiles + 1) and union128
-// (entries, 4) int32, the table's stage lists at 128-row tiles, and their
-// 192-row counterparts; form 2 (ring) reads items (n_items, 8) int32, the
-// work list (row, first slot, slots, chunk, chunks, first partial, split
-// row, 0), and, when n_parts > 0, part_o (bh, n_parts, 16, 64) and part_ml
-// (bh, n_parts, 16, 2) f32 scratch and row_done (bh, n_split) int32
-// counters, zero on entry and on return. Returns the CUDA error code of the
-// launch (cudaErrorInvalidValue for a call the route does not take).
+// af2_sparse_fwd, q, k, v 16-byte aligned; union128_off (tiles + 1) and
+// union128 (entries, 4) int32 are the table's stage lists at 128-row tiles
+// (ops/sparse_kernel.py `union_list`), union192_off and union192 at 192-row
+// tiles. Returns the CUDA error code of the launch (cudaErrorInvalidValue
+// for a call the route does not take).
 int af2_sparse_fwd_wgmma(const void* q, const void* k, const void* v, const void* bias,
-                         const void* idx, const void* items, void* out, void* lse,
-                         void* part_o, void* part_ml, void* row_done, const void* union128_off,
-                         const void* union128, const void* union192_off, const void* union192,
-                         int64_t bh, int64_t heads, int64_t n_blocks, int64_t width,
-                         int64_t n_items, int64_t n_parts, int64_t n_split, float scale,
-                         int form, void* stream) {
-  const Args a{q, k, v, bias, nullptr, nullptr, nullptr, idx, nullptr, out, lse,
-               bh, heads, n_blocks, width, 16, 64, scale, (cudaStream_t)stream};
+                         const void* union128_off, const void* union128,
+                         const void* union192_off, const void* union192, void* out, void* lse,
+                         int64_t bh, int64_t heads, int64_t n_blocks, float scale,
+                         void* stream) {
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0) return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, bias, nullptr, nullptr, nullptr, nullptr, nullptr, out, lse,
+               bh, heads, n_blocks, 1, kLBs, af2::fwd::kWDH, scale, (cudaStream_t)stream};
   const int* const unions[4] = {(const int*)union128_off, (const int*)union128,
                                 (const int*)union192_off, (const int*)union192};
-  return launch_wgmma_route(a, (const int*)items, n_items, (float*)part_o, (float*)part_ml,
-                            (int*)row_done, n_parts, n_split, unions, form);
+  return launch_wgmma_route(a, unions);
 }
 
 // B5 dq. As B5f, plus dout (BH, n, dh) in the input type and lse, delta

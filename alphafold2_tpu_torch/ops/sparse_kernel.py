@@ -26,16 +26,11 @@ route runs.
 The bf16 forward takes one of two kernels by the shape of the call
 (`route`): "wgmma" at dh 64 and block size 16 (every served and trained
 shape), "mma_sync" for the other bfloat16 calls; float32 takes "f32". A
-route is chosen, never fallen back to. The wgmma route has two forms, chosen
-per table (`BlockTable.form`): "union", the flash forward's wgmma pipeline
-over the 128-key stages a 128- or 192-row query tile attends anywhere, the
-pairs it does not attend masked, where that is at most UNION_WORK_MAX times
-the exact work (every served and trained shape); "ring", exact work on
-mma.sync through an async ring over the table's balanced work list, whose
-heavy rows are split into chunks and merged in chunk order, for sparser
-tables. `sparse_fwd_chunks_plain` is the plain version of the ring form's
-split-and-merge. `LAUNCHES` counts kernel launches per kernel and each
-forward launch again under `sparse_fwd_<route>`.
+route is chosen, never fallen back to. The wgmma route is the flash
+forward's wgmma pipeline over the 128-key stages a 128- or 192-row query
+tile attends anywhere (the table's `union_list`), the (query block, key
+block) pairs it does not attend masked. `LAUNCHES` counts kernel launches
+per kernel and each forward launch again under `sparse_fwd_<route>`.
 """
 
 from __future__ import annotations
@@ -52,18 +47,13 @@ from alphafold2_tpu_torch.ops.core import dropout
 from alphafold2_tpu_torch.ops.flash import aligned
 
 ROUTES = ("wgmma", "mma_sync", "f32")  # the forward kernels
-FORMS = ("union", "ring")  # the wgmma route's (csrc: form 1, 2)
 LAUNCHES = {"sparse_fwd": 0, "sparse_bwd_dq": 0, "sparse_bwd_dkv": 0,
             **{f"sparse_fwd_{r}": 0 for r in ROUTES}}
 
 SUPPORTED_BLOCK_SIZES = (16, 32, 64, 128)
 SUPPORTED_DH = (16, 32, 64)
-WGMMA_DH, WGMMA_BLOCK = 64, 16  # the wgmma route's shape (csrc kLDh, kLBs)
-UNION_WORK_MAX = 4.0  # the union form's work over the exact work, at most (else the ring)
-UNION_STAGE = 128     # keys a stage of the union form (csrc kWN)
-WORK_CAP = 1.25     # a work item holds at most this many times the mean row's slots
-ITEM_INTS = 8       # a work item: row, first slot, slots, chunk, chunks, first partial,
-#                     split row, 0 (csrc kItemInts)
+WGMMA_DH, WGMMA_BLOCK = 64, 16  # the wgmma route's shape (csrc kWDH, kLBs)
+UNION_STAGE = 128  # keys a stage of the wgmma route (csrc kWN)
 
 # gathered (bh, query block, slot, row, dh) elements the plain versions hold at once
 PLAIN_TILE_ELEMS = 1 << 26
@@ -80,20 +70,14 @@ class BlockTable:
     key blocks of each query block with the valid slots first and -1 in
     the padding; counts (B,) int32, the valid slots of each row. The layout
     is symmetric, so row c also lists the query blocks attending key block
-    c (the dkv kernel's view). The wgmma route reads, in its union form
-    (`form`), the stage lists of `union_list` at 128- and 192-row tiles
-    (`unions`: offsets, entries, offsets, entries), and in its ring form
-    `items` (I, 8) int32, the balanced work list (`work_list`), whose split
-    rows need `n_parts` partials and `n_split` counters a head."""
+    c (the dkv kernel's view). At block size 16 the wgmma route reads
+    `unions`, the stage lists of `union_list` at 128- and 192-row tiles
+    (offsets, entries, offsets, entries); other tables have none."""
 
     idx: torch.Tensor
     counts: torch.Tensor
     block_size: int
-    form: str = "ring"
     unions: tuple = ()
-    items: torch.Tensor = None
-    n_parts: int = 0
-    n_split: int = 0
 
     @property
     def n_blocks(self) -> int:
@@ -105,52 +89,8 @@ class BlockTable:
         return int(self.counts.sum())
 
 
-def work_cap(counts: np.ndarray) -> int:
-    """The most slots a work item holds: about the mean row (WORK_CAP times
-    it), so the global row splits and most rows stay whole."""
-    return max(1, int(np.ceil(WORK_CAP * counts.mean())))
-
-
-def work_list(counts: np.ndarray, cap: int):
-    """The ring form's work list: each row's slots as one item, or, for a row
-    longer than `cap`, as ceil(count / cap) near-equal chunks in slot order;
-    items longest first (ties by row, then chunk). Returns (items (I, 8)
-    int32: row, first slot, slots, chunk, chunks, first partial, split row,
-    0; n_parts, the chunks of the split rows; n_split, the split rows). A
-    split row's chunk c writes partial `first partial + c` of its head; the
-    last to finish merges them."""
-    items, n_parts, n_split = [], 0, 0
-    for r, count in enumerate(int(c) for c in counts):
-        chunks = max(1, -(-count // cap))
-        if chunks == 1:
-            items.append((r, 0, count, 0, 1, -1, -1, 0))
-            continue
-        s0 = 0
-        for c in range(chunks):
-            size = count // chunks + (c < count % chunks)
-            items.append((r, s0, size, c, chunks, n_parts, n_split, 0))
-            s0 += size
-        n_parts += chunks
-        n_split += 1
-    items.sort(key=lambda it: (-it[2], it[0], it[3]))
-    return np.asarray(items, np.int32).reshape(-1, ITEM_INTS), n_parts, n_split
-
-
-def union_work(layout: np.ndarray) -> float:
-    """The union form's work over the exact work at block size 16: the
-    (row, key) pairs of the listed (tile, stage) products at 128-row
-    tiles, clipped at n, over the active blocks' pairs."""
-    tile_rows = 128
-    offsets, entries = union_list(layout, tile_rows)
-    n = layout.shape[0] * WGMMA_BLOCK
-    rows = np.minimum(tile_rows, n - tile_rows * np.arange(len(offsets) - 1))
-    keys = np.minimum(UNION_STAGE, n - UNION_STAGE * entries[:, 0])
-    pairs = (np.repeat(rows, np.diff(offsets)) * keys).sum()
-    return float(pairs) / (layout.sum() * WGMMA_BLOCK ** 2)
-
-
 def union_list(layout: np.ndarray, tile_rows: int):
-    """The union form's list at block size 16: for each query tile of
+    """The wgmma route's stage list at block size 16: for each query tile of
     `tile_rows` rows (64 a warpgroup), the key stages of UNION_STAGE keys
     holding a key block that some query block of the tile attends, with one
     32-bit mask for each warpgroup (bit 8 q + b: the warpgroup's query block
@@ -177,11 +117,9 @@ def union_list(layout: np.ndarray, tile_rows: int):
     return np.asarray(offsets, np.int32), entries
 
 
-def block_table(idx: np.ndarray, valid: np.ndarray, block_size: int, device,
-                cap: int = None) -> BlockTable:
+def block_table(idx: np.ndarray, valid: np.ndarray, block_size: int, device) -> BlockTable:
     """The kernels' table from `layout_block_indices`' (idx, valid), with the
-    wgmma route's form (union where `union_work` <= UNION_WORK_MAX), its
-    stage lists and the work list (`work_list`, at `cap` or `work_cap`)."""
+    wgmma route's stage lists at block size 16."""
     counts = valid.sum(axis=1).astype(np.int32)
     if not (valid == (np.arange(valid.shape[1])[None, :] < counts[:, None])).all():
         raise ValueError("block table: the valid slots must come first in each row")
@@ -192,16 +130,12 @@ def block_table(idx: np.ndarray, valid: np.ndarray, block_size: int, device,
         raise ValueError("block table: the layout must be symmetric (the dkv kernel reads "
                          "a key block's own row)")
     table = np.where(valid, idx, -1).astype(np.int32)
-    cap = work_cap(counts) if cap is None else cap
-    items, n_parts, n_split = work_list(counts, cap)
-    unions, form = (), "ring"
+    unions = ()
     if block_size == WGMMA_BLOCK:  # the wgmma route's block size
         unions = tuple(torch.from_numpy(a).to(device) for rows in (128, 192)
                        for a in union_list(layout, rows))
-        form = "union" if union_work(layout) <= UNION_WORK_MAX else "ring"
     return BlockTable(torch.from_numpy(table).to(device), torch.from_numpy(counts).to(device),
-                      block_size, form, unions, torch.from_numpy(items).to(device), n_parts,
-                      n_split)
+                      block_size, unions)
 
 
 # --- plain versions ------------------------------------------------------------
@@ -271,40 +205,6 @@ def sparse_fwd_plain(q, k, v, bias, table: BlockTable, heads: int, scale: float,
     return torch.cat(outs).to(q.dtype), torch.cat(lses)
 
 
-def sparse_fwd_chunks_plain(q, k, v, bias, table: BlockTable, heads: int, scale: float):
-    """The ring form's split-and-merge in plain PyTorch (f32): each work item
-    of the table gives a partial over its slots (m, the row max with the
-    finite sentinel; l; o unnormalised), and a row's chunks merge in chunk
-    order: m = max m_c, l = sum l_c e^(m_c - m), o = sum o_c e^(m_c - m) / l.
-    Returns (out in q.dtype, lse f32; zeros and +inf for an empty row)."""
-    BH, n, dh = q.shape
-    bs = table.block_size
-    idx = table.idx.cpu().numpy()
-    key_bias = bias[torch.arange(BH, device=bias.device) // heads]
-    qf, kf, vf = q.float(), k.float(), v.float()
-    parts = {}
-    for r, s0, count, c, *_ in table.items.cpu().numpy().tolist():
-        keys = torch.from_numpy((idx[r, s0:s0 + count, None] * bs + np.arange(bs)).reshape(-1))
-        keys = keys.to(q.device)
-        s = torch.einsum("bid,bjd->bij", qf[:, r * bs:(r + 1) * bs], kf[:, keys]) * scale
-        s = s + key_bias[:, None, keys]
-        m = s.amax(dim=-1).clamp(min=flash_kernel._M0)
-        p = torch.exp(s - m[..., None])
-        parts.setdefault(r, {})[c] = (m, p.sum(dim=-1), torch.bmm(p, vf[:, keys]))
-    out = torch.zeros_like(qf)
-    lse = torch.full((BH, n), float("inf"), device=q.device)
-    for r, chunks in parts.items():
-        chunks = [chunks[c] for c in range(len(chunks))]
-        m = torch.stack([x[0] for x in chunks]).amax(dim=0)
-        l = sum(x[1] * torch.exp(x[0] - m) for x in chunks)
-        o = sum(x[2] * torch.exp(x[0] - m)[..., None] for x in chunks)
-        live = l > 0
-        rows = slice(r * bs, (r + 1) * bs)
-        out[:, rows] = torch.where(live[..., None], o / torch.where(live, l, 1.0)[..., None], 0.0)
-        lse[:, rows] = torch.where(live, m + torch.log(torch.where(live, l, 1.0)), float("inf"))
-    return out.to(q.dtype), lse
-
-
 def sparse_bwd_dq_plain(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta,
                         scale: float):
     """The dq kernel's function in plain PyTorch (f32): p = exp(s - lse), ds
@@ -372,7 +272,7 @@ def _lib() -> ctypes.CDLL:
     lib.af2_sparse_fwd.argtypes = [p] * 8 + shape
     lib.af2_sparse_bwd_dq.argtypes = [p] * 10 + shape
     lib.af2_sparse_bwd_dkv.argtypes = [p] * 11 + shape
-    lib.af2_sparse_fwd_wgmma.argtypes = [p] * 15 + [i64] * 7 + [f32, i32, p]
+    lib.af2_sparse_fwd_wgmma.argtypes = [p] * 10 + [i64] * 3 + [f32, p]
     for fn in (lib.af2_sparse_fwd, lib.af2_sparse_bwd_dq, lib.af2_sparse_bwd_dkv,
                lib.af2_sparse_fwd_wgmma):
         fn.restype = i32
@@ -382,25 +282,12 @@ def _lib() -> ctypes.CDLL:
 def route(q, table: BlockTable) -> str:
     """Which forward kernel a call on these arguments runs: "f32" for
     float32; for bfloat16 "wgmma" at dh 64 and block size 16 (any n
-    `unsupported` accepts; its form is the table's), "mma_sync" otherwise."""
+    `unsupported` accepts), "mma_sync" otherwise."""
     if q.dtype == torch.float32:
         return "f32"
     if q.shape[-1] == WGMMA_DH and table.block_size == WGMMA_BLOCK:
         return "wgmma"
     return "mma_sync"
-
-
-# device -> the ring form's row counters: zeroed once here and by the kernel
-# after each use, so a call stays one launch (calls on one device run in
-# stream order, as they do here)
-_ROW_DONE = {}
-
-
-def _row_done(device, size: int) -> torch.Tensor:
-    have = _ROW_DONE.get(device)
-    if have is None or have.numel() < size:
-        have = _ROW_DONE[device] = torch.zeros(max(size, 1024), dtype=torch.int32, device=device)
-    return have
 
 
 def unsupported(BH: int, n: int, dh: int, dtype, block_size: int):
@@ -449,12 +336,10 @@ def _shape_args(q, table: BlockTable, heads, scale):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def sparse_fwd(q, k, v, bias, table: BlockTable, heads: int, scale: float, which=None,
-               form=None):
-    """B5f on the kernel `route` picks, or on the route `which` names, and
-    on the wgmma route in the table's form or the form `form` names
-    (measurements compare two routes or forms on one call; what the call
-    cannot take is refused), counted under LAUNCHES["sparse_fwd"] and
+def sparse_fwd(q, k, v, bias, table: BlockTable, heads: int, scale: float, which=None):
+    """B5f on the kernel `route` picks, or on the route `which` names
+    (measurements compare two routes on one call; a route the call cannot
+    take is refused), counted under LAUNCHES["sparse_fwd"] and
     LAUNCHES["sparse_fwd_<route>"]. Returns (out, lse)."""
     best = route(q, table)
     which = which or best
@@ -462,29 +347,16 @@ def sparse_fwd(q, k, v, bias, table: BlockTable, heads: int, scale: float, which
             which == "wgmma" and best != which):
         raise ValueError(f"no {which!r} sparse forward route for {q.dtype}, dh {q.shape[-1]}, "
                          f"block size {table.block_size} (routes {ROUTES})")
-    form = form or table.form
-    if which == "wgmma" and (form not in FORMS or table.items is None or not table.unions):
-        raise ValueError(f"the wgmma route takes a form of {FORMS} and a table from "
-                         f"block_table, not {form!r}")
+    if which == "wgmma" and not table.unions:
+        raise ValueError("the wgmma route reads the stage lists of a table from block_table")
     _check(q, k, v, bias, table, heads)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     if which == "wgmma":
-        BH, n, dh = q.shape
-        part_o = part_ml = row_done = None
-        if form == "ring" and table.n_parts:
-            part_o = torch.empty((BH, table.n_parts, table.block_size, dh), dtype=torch.float32,
-                                 device=q.device)
-            part_ml = torch.empty((BH, table.n_parts, table.block_size, 2), dtype=torch.float32,
-                                  device=q.device)
-            row_done = _row_done(q.device, BH * table.n_split)
         rc = _lib().af2_sparse_fwd_wgmma(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), table.idx.data_ptr(),
-            table.items.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in (part_o, part_ml, row_done)),
-            *(t.data_ptr() for t in table.unions), BH, heads, table.n_blocks,
-            table.idx.shape[1], table.items.shape[0], table.n_parts, table.n_split,
-            float(scale), 1 + FORMS.index(form), torch.cuda.current_stream(q.device).cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            *(t.data_ptr() for t in table.unions), out.data_ptr(), lse.data_ptr(), q.shape[0],
+            heads, table.n_blocks, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     else:
         rc = _lib().af2_sparse_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), table.idx.data_ptr(),

@@ -1,10 +1,11 @@
 """Where the time of the flash forward's wgmma route goes, on the card.
 
-    python -m alphafold2_tpu_torch.telemetry.flash_ablation
+    python -m alphafold2_tpu_torch.telemetry.flash_ablation [--baseline PATH] [--out PATH]
 
-Builds csrc/flash_fwd.cu and copies of it with one part changed or taken
-out (the results of a copy that drops work are wrong; only its time is
-read), times each at the served bf16 shapes (L = 384, dh = 64; the pair
+Builds csrc/flash_fwd.cu and copies of it whose wgmma pipeline (the shared
+csrc/flash_fwd_wgmma.cuh, inlined into the copy) has one part changed or
+taken out (the results of a copy that drops work are wrong; only its time
+is read), times each at the served bf16 shapes (L = 384, dh = 64; the pair
 passes, the two crosses, the SP request's B3 hop, the 2-D bias pair), and
 prints, from a copy with cycle counters, the cycles a 128-key stage of one
 consumer thread in each warpgroup spends in each phase, and the producer
@@ -18,16 +19,21 @@ warp's:
   no_ex2         the softmax's exponentials become subtractions
   no_pv          the P.V products are not issued
   no_qk          the Q.K^T products are not issued
+  baseline       (--baseline PATH) another version of flash_fwd.cu, timed
+                 on the same call
 
 The counters add registers, which a three-warpgroup launch (192-row
 tiles, 160 registers a consumer thread) does not have to spare: its
 cycle figures come from a slower copy, and only the variants' times
-compare. Needs a CUDA device and nvcc; imports nothing of JAX. Writes
-chiprun_out/flash_ablation.json.
+compare. The block-sparse forward's tool (sparse_ablation) cuts its copies
+of the same pipeline with this module's helpers. Needs a CUDA device and
+nvcc; imports nothing of JAX. Writes the record as JSON to --out (default
+build/flash_ablation.json).
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -39,8 +45,9 @@ import torch
 
 from alphafold2_tpu_torch.ops import cuda_build
 
-ROOT = Path(__file__).resolve().parents[2]
 SOURCE = cuda_build.CSRC / "flash_fwd.cu"
+HEADER = cuda_build.CSRC / "flash_fwd_wgmma.cuh"  # the pipeline the variants change
+INCLUDE = '#include "flash_fwd_wgmma.cuh"\n'
 WORK = cuda_build.BUILD_DIR.parent / "flash_ablation"
 SHAPES = {  # (BH, i, j, 2-D bias), the served bf16 calls at L = 384
     "pair axial": (3072, 384, 384, False),
@@ -58,7 +65,7 @@ LOOP = """        mbar_wait(full(c + 1), ring(c + 1));
         wgmma_wait<1>();  // the Q.K^T (groups retire in order)
         fence_regs(s);
         turn_wait();
-        softmax(c + 1);
+        softmax(c + 1, on);
         turn_pass();
         wgmma_wait<0>();  // the P.V
         fence_regs(o);
@@ -69,10 +76,10 @@ FIRST = """      qk(qa, c);
       wgmma_wait<0>();
       fence_regs(s);
       turn_wait();
-      softmax(c);
+      softmax(c, on);
       turn_pass();
 """
-LAST = "      pv(c);\n      uint32_t gv[2][kWDH / 8];\n"
+LAST = "      pv(c);\n      list_of(tile + gridDim.x);\n"
 EX2 = ("          s[4 * j + 2 * h] = ex2(s[4 * j + 2 * h] - m[h]);\n"
        "          s[4 * j + 2 * h + 1] = ex2(s[4 * j + 2 * h + 1] - m[h]);\n")
 PV = "        wgmma_m64n64k16_rs_mn(o, &p[4 * ks], gmma_desc(va + 2048 * ks, kVLbo, 1024));\n"
@@ -92,14 +99,20 @@ def _replace(src: str, old: str, new: str, count: int = 1) -> str:
     return src.replace(old, new)
 
 
+def inline(src: str, header: str) -> str:
+    """`src` (a source that includes the shared pipeline) with the include
+    replaced by `header`, a changed copy of the pipeline."""
+    return _replace(src, INCLUDE, header)
+
+
 def _counters(src: str) -> str:
-    """The source with clock64 counters around the consumer's phases of each
-    stage (summed by the first thread of each warpgroup) and the producer's
-    (lane 0), read back by af2_ablation_counters and zeroed by
-    af2_ablation_reset: [block][wg * 8 + phase], [block][wg * 8 + 7] the
-    stages, [block][24, 25] the producer's waits and loads."""
-    head = ("template <bool GATED, bool BIAS2D, int CONSUMERS>\n__global__ void "
-            "__launch_bounds__(WgmmaTile<BIAS2D, CONSUMERS>::kThreads, 1)\n")
+    """The pipeline `src` (csrc/flash_fwd_wgmma.cuh's text) with clock64
+    counters around the consumer's phases of each stage (summed by the
+    first thread of each warpgroup) and the producer's (lane 0):
+    g_phase[block][wg * 8 + phase], [block][wg * 8 + 7] the stages,
+    [block][24, 25] the producer's waits and loads (`stage_cycles`)."""
+    head = ("template <bool GATED, bool BIAS2D, int CONSUMERS, bool LISTED>\n"
+            "__device__ __forceinline__ void wgmma_fwd(")
     src = _replace(src, head, "__device__ unsigned long long g_phase[1024][32];\n\n" + head)
     src = _replace(src, "      int c = 0, n = 0;\n      for (int64_t tile",
                    "      unsigned long long P[2] = {0, 0};\n      int c = 0, n = 0;\n"
@@ -131,34 +144,60 @@ def _counters(src: str) -> str:
                    "      if (threadIdx.x % 128 == 0 && blockIdx.x < 1024) {\n"
                    "        for (int i = 0; i < 8; ++i) g_phase[blockIdx.x][8 * wg + i] = T[i];\n"
                    "      }\n")
-    return src + ("\nextern \"C\" int af2_ablation_counters(void* host) {\n"
-                  "  return (int)cudaMemcpyFromSymbol(host, g_phase, sizeof(g_phase));\n}\n"
-                  "\nextern \"C\" int af2_ablation_reset() {\n"
-                  "  static unsigned long long zero[1024][32];\n"
-                  "  return (int)cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));\n}\n")
+    return src
 
 
-def variants() -> dict:
-    src = SOURCE.read_text()
-    products = _replace(src, LOOP, LOOP.replace("        qk(qa, c + 1);\n", "        turn_wait();\n"
+def with_counters(src: str) -> str:
+    """`src` with the pipeline's counters (`_counters`) inlined and the entry
+    points that read them back (af2_ablation_counters) and zero them
+    (af2_ablation_reset)."""
+    return inline(src, _counters(HEADER.read_text())) + (
+        "\nextern \"C\" int af2_ablation_counters(void* host) {\n"
+        "  return (int)cudaMemcpyFromSymbol(host, af2::fwd::g_phase, "
+        "sizeof(af2::fwd::g_phase));\n}\n"
+        "\nextern \"C\" int af2_ablation_reset() {\n"
+        "  static unsigned long long zero[1024][32];\n"
+        "  return (int)cudaMemcpyToSymbol(af2::fwd::g_phase, zero, sizeof(zero));\n}\n")
+
+
+def stage_cycles(phase: np.ndarray) -> dict:
+    """The counters (`_counters`' g_phase, 1024 x 32) as the cycles a stage
+    of each warpgroup's first thread spends in each phase, and the
+    producer's."""
+    per = phase[phase[:, 7] > 0].astype(np.float64).sum(0)
+    cycles = {f"wg{wg}": {p: per[8 * wg + n] / per[8 * wg + 7] for n, p in enumerate(PHASES)}
+              for wg in range(3) if per[8 * wg + 7] > 0}
+    cycles["producer"] = {"wait for an empty slot": per[24] / per[7],
+                          "key bias and TMA issue": per[25] / per[7]}
+    return cycles
+
+
+def variants(baseline: Path = None) -> dict:
+    """The copies to time, by name; `baseline` adds another version of
+    flash_fwd.cu as it is."""
+    src, header = SOURCE.read_text(), HEADER.read_text()
+    products = _replace(header, LOOP, LOOP.replace("        qk(qa, c + 1);\n", "        turn_wait();\n"
                                                 "        qk(qa, c + 1);\n").replace(
         "        pv(c);\n", "        pv(c);\n        turn_pass();\n").replace(
-        "        turn_wait();\n        softmax(c + 1);\n        turn_pass();\n",
-        "        softmax(c + 1);\n"))
+        "        turn_wait();\n        softmax(c + 1, on);\n        turn_pass();\n",
+        "        softmax(c + 1, on);\n"))
     products = _replace(products, FIRST, "      turn_wait();\n      qk(qa, c);\n      turn_pass();\n"
-                        "      wgmma_wait<0>();\n      fence_regs(s);\n      softmax(c);\n")
+                        "      wgmma_wait<0>();\n      fence_regs(s);\n      softmax(c, on);\n")
     products = _replace(products, LAST, "      turn_wait();\n      pv(c);\n      turn_pass();\n"
-                        "      uint32_t gv[2][kWDH / 8];\n")
+                        "      list_of(tile + gridDim.x);\n")
     return {
         "base": src,
-        "turn_products": products,
-        "no_turns": _replace(src, TURNS, "    auto turn_wait = [&]() {};\n    auto turn_pass = [&]() {};\n"),
-        "no_overlap": _replace(src, "        wgmma_wait<1>();  // the Q.K^T (groups retire in order)\n",
-                               "        wgmma_wait<0>();\n"),
-        "no_ex2": _replace(src, EX2, EX2.replace("ex2(", "(")),
-        "no_pv": _replace(src, PV, ""),
-        "no_qk": _replace(src, QK, ""),
-        "counters": _counters(src),
+        "turn_products": inline(src, products),
+        "no_turns": inline(src, _replace(header, TURNS, "    auto turn_wait = [&]() {};\n"
+                                         "    auto turn_pass = [&]() {};\n")),
+        "no_overlap": inline(src, _replace(
+            header, "        wgmma_wait<1>();  // the Q.K^T (groups retire in order)\n",
+            "        wgmma_wait<0>();\n")),
+        "no_ex2": inline(src, _replace(header, EX2, EX2.replace("ex2(", "("))),
+        "no_pv": inline(src, _replace(header, PV, "")),
+        "no_qk": inline(src, _replace(header, QK, "")),
+        "counters": with_counters(src),
+        **({"baseline": Path(baseline).read_text()} if baseline else {}),
     }
 
 
@@ -189,13 +228,19 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main() -> None:
+def main(argv=()) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="another flash_fwd.cu to time beside the variants")
+    ap.add_argument("--out", type=Path, default=WORK.parent / "flash_ablation.json",
+                    help="the JSON record")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("flash_ablation needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"[ablation] {card}")
-    libs = build(variants())
+    libs = build(variants(opts.baseline))
     counters = libs["counters"]
     counters.af2_ablation_counters.argtypes = [ctypes.c_void_p]
     stream = torch.cuda.current_stream().cuda_stream
@@ -218,23 +263,16 @@ def main() -> None:
         torch.cuda.synchronize()
         phase = np.zeros((1024, 32), dtype=np.uint64)
         counters.af2_ablation_counters(phase.ctypes.data)
-        blocks = phase[:, 7] > 0
-        per = phase[blocks].astype(np.float64).sum(0)
-        row["cycles_a_stage"] = {f"wg{wg}": {p: per[8 * wg + n] / per[8 * wg + 7]
-                                             for n, p in enumerate(PHASES)}
-                                 for wg in range(3) if per[8 * wg + 7] > 0}
-        row["cycles_a_stage"]["producer"] = {"wait for an empty slot": per[24] / per[7],
-                                             "key bias and TMA issue": per[25] / per[7]}
+        row["cycles_a_stage"] = stage_cycles(phase)
         rows.append(row)
         print(f"[ablation] {label:18s} " + " ".join(
             f"{name}={row[name]:.4f}" for name in libs if name != "counters") + " ms")
         for who, phases in row["cycles_a_stage"].items():
             print(f"[ablation]   {who} cycles a stage: " + ", ".join(
                 f"{p} {c:.0f}" for p, c in phases.items()))
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "flash_ablation.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))
+    opts.out.parent.mkdir(parents=True, exist_ok=True)
+    opts.out.write_text(json.dumps({"card": card, "rows": rows}, indent=1))
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2,33 +2,26 @@
 
     python -m alphafold2_tpu_torch.telemetry.sparse_ablation [--baseline PATH] [--out PATH]
 
-Builds csrc/sparse_attn.cu and copies of it with one part changed or taken
-out (the results of a copy that drops work are wrong; only its time is
-read), and times direct launches at B5f's bf16 shapes (dh 64, bs 16: the
-sparse request's pair passes at L = 384, the sparse train step's at crop
-256, n = 4096 and n = 8192) on each route and form: the wgmma route in the
-form its table takes, in its union form and in its ring form, and the
-mma_sync route. From a copy with cycle counters it prints the cycles a warp
-of each form spends a stage and a tile or item:
-
-  union   a consumer warp, a stage after a tile's first: wait for the
-          stage, S (issued with the previous P.V, and waited for), the
-          softmax (with its turn), P.V waited for and O rescaled; a tile's
-          first stage and epilogue;
-  ring    a consumer warp, a stage: wait, then on its key block S's
-          fragment loads and products, the softmax (holding the wait for
-          S), P.V; an item's merge; the producer's wait for an empty slot
-          and its copies' issue.
+Builds csrc/sparse_attn.cu and copies of it whose wgmma pipeline (the
+shared csrc/flash_fwd_wgmma.cuh, inlined into the copy) has one part
+changed or taken out (the results of a copy that drops work are wrong; only
+its time is read), and times direct launches at B5f's bf16 shapes (dh 64,
+bs 16: the sparse request's pair passes at L = 384, the sparse train step's
+at crop 256, n = 4096 and n = 8192) on both routes, wgmma and mma_sync.
+From a copy with cycle counters (flash_ablation's) it prints the cycles a
+128-key stage of one consumer thread in each warpgroup spends in each
+phase (wait for the stage, S issued with the previous P.V, S waited for,
+the turn, the softmax, P.V waited for, O rescaled and P packed), and the
+producer warp's:
 
   base           the kernel as built for the port
-  no_mask        the union form's block mask is not applied (its results
-                 are dense attention's)
-  no_ex2         the union form's softmax exponentials become subtractions
-  no_pv          the union form's P.V products are not issued
-  counters       clock64 counters (summed over every warp of the launch)
+  no_mask        the block mask is not applied (its results are dense
+                 attention's over the listed stages)
+  no_ex2         the softmax's exponentials become subtractions
+  no_pv          the P.V products are not issued
+  counters       clock64 counters a stage
   baseline       (--baseline PATH) another version of sparse_attn.cu: its
-                 wgmma route (the table's form) if it has one, else its
-                 af2_sparse_fwd, timed on the same call
+                 af2_sparse_fwd (the mma_sync route), timed on the same call
 
 Needs a CUDA device and nvcc; imports nothing of JAX. Writes the record as
 JSON to --out (default build/sparse_ablation.json).
@@ -46,8 +39,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from alphafold2_tpu_torch.ops import cuda_build, sparse, sparse_kernel
-from alphafold2_tpu_torch.telemetry.flash_ablation import _replace, _time_ms
+from alphafold2_tpu_torch.ops import cuda_build, sparse
+from alphafold2_tpu_torch.telemetry.flash_ablation import (
+    EX2,
+    HEADER,
+    PV,
+    _replace,
+    _time_ms,
+    inline,
+    stage_cycles,
+    with_counters,
+)
 
 SOURCE = cuda_build.CSRC / "sparse_attn.cu"
 WORK = cuda_build.BUILD_DIR.parent / "sparse_ablation"
@@ -57,113 +59,19 @@ SHAPES = {  # (batch, heads, n, max_seq_len): B5f's bf16 calls
     "long n=4096": (1, 8, 4096, 2048),
     "long n=8192": (1, 4, 8192, 2048),
 }
-FORMS = {form: 1 + i for i, form in enumerate(sparse_kernel.FORMS)}  # the C entry's codes
-
-MASK = "        const bool live = (on >> (j / 2)) & 1u;\n"
-EX2 = ("          s[4 * j + 2 * h] = ex2(s[4 * j + 2 * h] - m[h]);\n"
-       "          s[4 * j + 2 * h + 1] = ex2(s[4 * j + 2 * h + 1] - m[h]);\n")
-PV = "        wgmma_m64n64k16_rs_mn(o, &p[4 * ks], gmma_desc(va + 2048 * ks, kWVLbo, 1024));\n"
-# the union form's consumer loop, a stage after a tile's first
-LOOP = """        on = mask_of(first + kk);
-        mbar_wait(full(c + 1), ring(c + 1));
-        qk(qa, c + 1);
-        pv(c);
-        wgmma_wait<1>();
-        fence_regs(s);
-        turn_wait();
-        softmax(c + 1, on);
-        turn_pass();
-        wgmma_wait<0>();
-        fence_regs(o);
-        fence_regs(p);
-        rescale_pack();
-        release(empty(c));
-"""
-UNION_TILE = "      const uint32_t qa = base + (n & 1) * L::kQTile + wg * (64 * kLDh * 2);\n"
-UNION_LOOP = "      for (int kk = 1; kk < stages; ++kk, ++c) {\n"
-UNION_AFTER = "      pv(c);\n      list_of(tile + gridDim.x);\n"
-UNION_END = ("          if (t == 0) lse[qrow] = l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : INFINITY;\n"
-             "        }\n      }\n    }\n  }\n}\n")
-UNION_CONSUMERS = "    if (wg == CONSUMERS - 1) turn_pass();  // warpgroup 0 goes first\n"
-STEP_HEAD = ("float scale, int lane) {\n  const int t = lane & 3;\n  const int mat")
-SOFTMAX = "\n  float mx[2] = {-INFINITY, -INFINITY};\n#pragma unroll\n  for (int j = 0; j < 2; ++j) {"
-PACK = "\n  const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1])"
-STEP_END = "    mma_bf16(w.o[2 * c + 1], pa, f[c][2], f[c][3]);\n  }\n}\n"
-CALL = "                 scale, lane);"
-PRODUCER_HEAD = "\n    int it = 0;\n"
-PRODUCER_WAIT = "        mbar_wait(empty0 + 8 * slot, ((it / kRingStages) & 1) ^ 1);\n"
-PRODUCER_ISSUED = "        cp_async_arrive(full0 + 8 * slot);\n"
-PRODUCER_END = '    asm volatile("cp.async.wait_all;\\n" ::: "memory");\n    return;\n'
-CONSUMER_HEAD = "  // the consumers\n"
-CONSUMER_WAIT = "      mbar_wait(full0 + 8 * slot, (it / kRingStages) & 1);\n"
-MERGE = "    w.reduce_l();\n    if (t == 0) {\n"
-MERGE_END = "    warpgroup_sync(1);  // the merge buffers are free for the next item\n  }\n}\n"
-ZERO = "  unsigned long long T[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
-
-
-def _counters(src: str) -> str:
-    """The source with clock64 counters in both forms' warps, added at the
-    end into g_phase[warp][phase] (`_cycles` reads them), read back by
-    af2_ablation_counters and zeroed by af2_ablation_reset."""
-    src = _replace(src, "// One step over an active key block",
-                   "__device__ unsigned long long g_phase[16][8];\n\n"
-                   "__device__ __forceinline__ void flush(const unsigned long long (&T)[8]) {\n"
-                   "  if ((threadIdx.x & 31) == 0) {\n"
-                   "    for (int i = 0; i < 8; ++i) atomicAdd(&g_phase[threadIdx.x >> 5][i], T[i]);\n"
-                   "  }\n}\n\n// One step over an active key block")
-    # the ring form: its key step, consumers and producer
-    src = _replace(src, STEP_HEAD, STEP_HEAD.replace(
-        "int lane) {\n", "int lane,\n    unsigned long long (&T)[8]) {\n"
-        "  const long long c0 = clock64();\n"))
-    src = _replace(src, SOFTMAX, "\n  const long long c1 = clock64();\n  T[1] += c1 - c0;" + SOFTMAX)
-    src = _replace(src, PACK, "\n  const long long c2 = clock64();\n  T[2] += c2 - c1;" + PACK)
-    src = _replace(src, STEP_END, STEP_END[:-2] + "  T[3] += clock64() - c2;\n  T[5] += 1;\n}\n")
-    src = _replace(src, CALL, "                 scale, lane, T);")
-    src = _replace(src, PRODUCER_HEAD, "\n  " + ZERO + PRODUCER_HEAD)
-    src = _replace(src, PRODUCER_WAIT, "        const long long p0 = clock64();\n" + PRODUCER_WAIT
-                   + "        const long long p1 = clock64();\n        T[0] += p1 - p0;\n")
-    src = _replace(src, PRODUCER_ISSUED, "        T[7] += clock64() - p1;\n        T[5] += 1;\n"
-                   + PRODUCER_ISSUED)
-    src = _replace(src, PRODUCER_END, "    flush(T);\n" + PRODUCER_END)
-    src = _replace(src, CONSUMER_HEAD, CONSUMER_HEAD + ZERO)
-    src = _replace(src, CONSUMER_WAIT, "      const long long s0 = clock64();\n" + CONSUMER_WAIT
-                   + "      T[0] += clock64() - s0;\n      T[7] += 1;\n")
-    src = _replace(src, MERGE, "    const long long e0 = clock64();\n" + MERGE)
-    src = _replace(src, MERGE_END, MERGE_END[:-6] + "    T[4] += clock64() - e0;\n    T[6] += 1;\n"
-                   "  }\n  flush(T);\n}\n")
-    # the union form's consumers: a stage's phases, a tile's first stage and epilogue
-    src = _replace(src, UNION_CONSUMERS, UNION_CONSUMERS + ZERO.replace("  ", "    ", 1))
-    src = _replace(src, UNION_TILE, UNION_TILE + "      long long tt = clock64();\n")
-    src = _replace(src, UNION_LOOP, "      T[6] += clock64() - tt;\n" + UNION_LOOP)
-    lines = LOOP.split("\n")[:-1]
-    marks = {1: 0, 5: 1, 8: 2, 12: 3}  # line index -> the phase it closes
-    body = ["        long long tc = clock64(), tn;"]
-    for i, line in enumerate(lines):
-        body.append(line)
-        if i in marks:
-            body.append(f"        tn = clock64();\n        T[{marks[i]}] += tn - tc;\n        tc = tn;")
-    body.append("        T[5] += 1;")
-    src = _replace(src, LOOP, "\n".join(body) + "\n")
-    src = _replace(src, UNION_AFTER, "      tt = clock64();\n" + UNION_AFTER)
-    src = _replace(src, UNION_END, UNION_END[:-12] + "      T[4] += clock64() - tt;\n"
-                   "      T[7] += 1;\n    }\n    flush(T);\n  }\n}\n")
-    return src + ("\nextern \"C\" int af2_ablation_counters(void* host) {\n"
-                  "  return (int)cudaMemcpyFromSymbol(host, g_phase, sizeof(g_phase));\n}\n"
-                  "\nextern \"C\" int af2_ablation_reset() {\n"
-                  "  static unsigned long long zero[16][8];\n"
-                  "  return (int)cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));\n}\n")
+MASK = "        const bool live = !LISTED || ((on >> (j / 2)) & 1u);\n"
 
 
 def variants(baseline: Path = None) -> dict:
     """The copies to time, by name; `baseline` adds another version of
     sparse_attn.cu as it is."""
-    src = SOURCE.read_text()
+    src, header = SOURCE.read_text(), HEADER.read_text()
     return {
         "base": src,
-        "no_mask": _replace(src, MASK, "        const bool live = true;\n"),
-        "no_ex2": _replace(src, EX2, EX2.replace("ex2(", "(")),
-        "no_pv": _replace(src, PV, ""),
-        "counters": _counters(src),
+        "no_mask": inline(src, _replace(header, MASK, "        const bool live = true;\n")),
+        "no_ex2": inline(src, _replace(header, EX2, EX2.replace("ex2(", "("))),
+        "no_pv": inline(src, _replace(header, PV, "")),
+        "counters": with_counters(src),
         **({"baseline": Path(baseline).read_text()} if baseline else {}),
     }
 
@@ -178,8 +86,8 @@ def build(sources: dict) -> dict:
         lib = ctypes.CDLL(str(built.path))
         lib.af2_sparse_fwd.argtypes = [p] * 8 + [i64] * 4 + [i32, i32, f32, i32, p]
         lib.af2_sparse_fwd.restype = i32
-        if hasattr(lib, "af2_sparse_fwd_wgmma"):
-            lib.af2_sparse_fwd_wgmma.argtypes = [p] * 15 + [i64] * 7 + [f32, i32, p]
+        if name != "baseline":
+            lib.af2_sparse_fwd_wgmma.argtypes = [p] * 10 + [i64] * 3 + [f32, p]
             lib.af2_sparse_fwd_wgmma.restype = i32
         libs[name] = lib
     return libs
@@ -197,25 +105,18 @@ def _inputs(b, heads, n, msl):
     return q, k, v, bias, table
 
 
-def _launchers(lib, q, k, v, bias, table, heads):
-    """name -> a zero-argument direct launch of `lib`'s B5f on these inputs:
-    the wgmma route in the table's form and in each form, and mma_sync."""
+def _launchers(lib, q, k, v, bias, table, heads, routes=("wgmma", "mma_sync")):
+    """route -> a zero-argument direct launch of `lib`'s B5f on these inputs."""
     BH, n, dh = q.shape
     out, lse = torch.empty_like(q), torch.empty((BH, n), dtype=torch.float32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    parts = max(table.n_parts, 1)
-    part_o = torch.empty((BH, parts, 16, dh), dtype=torch.float32, device="cuda")
-    part_ml = torch.empty((BH, parts, 16, 2), dtype=torch.float32, device="cuda")
-    row_done = torch.zeros(max(BH * table.n_split, 1), dtype=torch.int32, device="cuda")
 
-    def wgmma(form):
+    def wgmma():
         rc = lib.af2_sparse_fwd_wgmma(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), table.idx.data_ptr(),
-            table.items.data_ptr(), out.data_ptr(), lse.data_ptr(), part_o.data_ptr(),
-            part_ml.data_ptr(), row_done.data_ptr(), *(t.data_ptr() for t in table.unions), BH,
-            heads, table.n_blocks, table.idx.shape[1], table.items.shape[0], table.n_parts,
-            table.n_split, 0.125, FORMS[form], stream)
-        cuda_build.check_launch(rc, f"wgmma route, {form} form")
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            *(t.data_ptr() for t in table.unions), out.data_ptr(), lse.data_ptr(), BH, heads,
+            table.n_blocks, 0.125, stream)
+        cuda_build.check_launch(rc, "wgmma route")
 
     def mma_sync():
         rc = lib.af2_sparse_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -224,13 +125,8 @@ def _launchers(lib, q, k, v, bias, table, heads):
                                 dh, 0.125, 1, stream)
         cuda_build.check_launch(rc, "mma_sync")
 
-    fns = {}
-    if hasattr(lib, "af2_sparse_fwd_wgmma"):
-        fns["wgmma"] = lambda: wgmma(table.form)
-        for form in FORMS:
-            fns[f"wgmma {form}"] = lambda form=form: wgmma(form)
-    fns["mma_sync"] = mma_sync
-    return fns
+    return {name: fn for name, fn in (("wgmma", wgmma), ("mma_sync", mma_sync))
+            if name in routes}
 
 
 def main(argv=None) -> None:
@@ -251,54 +147,31 @@ def main(argv=None) -> None:
     rows = []
     for label, (b, heads, n, msl) in SHAPES.items():
         q, k, v, bias, table = _inputs(b, heads, n, msl)
-        row = {"case": label, "shape": [b * heads, n, 64], "form": table.form,
-               "active": table.nnz / table.n_blocks ** 2, "times_ms": {}, "cycles": {}}
+        row = {"case": label, "shape": [b * heads, n, 64],
+               "active": table.nnz / table.n_blocks ** 2, "times_ms": {}}
         for name, fn in _launchers(libs["base"], q, k, v, bias, table, heads).items():
             row["times_ms"][name] = _time_ms(fn, 20)
-        for name in ("no_mask", "no_ex2", "no_pv", "baseline"):
-            if name in libs:
-                fns = _launchers(libs[name], q, k, v, bias, table, heads)
-                fn = fns["wgmma union"] if name != "baseline" else fns.get("wgmma", fns["mma_sync"])
-                row["times_ms"][name] = _time_ms(fn, 20)
-        for form in FORMS:
-            if counters.af2_ablation_reset() != 0:
-                raise RuntimeError("the counters variant failed to reset")
-            _launchers(counters, q, k, v, bias, table, heads)[f"wgmma {form}"]()
-            torch.cuda.synchronize()
-            phase = np.zeros((16, 8), dtype=np.uint64)
-            counters.af2_ablation_counters(phase.ctypes.data)
-            row["cycles"][form] = _cycles(phase.astype(np.float64), form)
+        for name in ("no_mask", "no_ex2", "no_pv"):
+            row["times_ms"][name] = _time_ms(
+                _launchers(libs[name], q, k, v, bias, table, heads, ("wgmma",))["wgmma"], 20)
+        if "baseline" in libs:
+            row["times_ms"]["baseline mma_sync"] = _time_ms(_launchers(
+                libs["baseline"], q, k, v, bias, table, heads, ("mma_sync",))["mma_sync"], 20)
+        if counters.af2_ablation_reset() != 0:
+            raise RuntimeError("the counters variant failed to reset")
+        _launchers(counters, q, k, v, bias, table, heads, ("wgmma",))["wgmma"]()
+        torch.cuda.synchronize()
+        phase = np.zeros((1024, 32), dtype=np.uint64)
+        counters.af2_ablation_counters(phase.ctypes.data)
+        row["cycles_a_stage"] = stage_cycles(phase)
         rows.append(row)
-        print(f"[sparse ablation] {label:28s} ({table.form}) " + " ".join(
+        print(f"[sparse ablation] {label:28s} " + " ".join(
             f"{name}={t:.4f}" for name, t in row["times_ms"].items()) + " ms")
-        for form, parts in row["cycles"].items():
-            for who, phases in parts.items():
-                print(f"[sparse ablation]   {form}, {who}: " + ", ".join(
-                    f"{p} {c:.0f}" for p, c in phases.items()))
+        for who, phases in row["cycles_a_stage"].items():
+            print(f"[sparse ablation]   {who} cycles a stage: " + ", ".join(
+                f"{p} {c:.0f}" for p, c in phases.items()))
     opts.out.parent.mkdir(parents=True, exist_ok=True)
     opts.out.write_text(json.dumps({"card": card, "rows": rows}, indent=1))
-
-
-def _cycles(phase, form):
-    """The counters as cycles a stage and a tile (union) or a key step, a
-    stage and an item (ring) of one warp."""
-    if form == "union":
-        c = phase[4:16].sum(axis=0)  # the consumer warps
-        stages, tiles = max(c[5], 1), max(c[7], 1)
-        return {"consumer warps, a stage after a tile's first": {
-                    "wait": c[0] / stages, "S": c[1] / stages, "softmax": c[2] / stages,
-                    "P.V": c[3] / stages},
-                "consumer warps, a tile": {"first stage": c[6] / tiles, "epilogue": c[4] / tiles,
-                                           "later stages": c[5] / tiles}}
-    c = phase[0:4].sum(axis=0)
-    steps, items, stages = max(c[5], 1), max(c[6], 1), max(c[7], 1)
-    p = phase[4]
-    return {"consumer warps, a key step": {"S": c[1] / steps, "softmax": c[2] / steps,
-                                           "P.V": c[3] / steps},
-            "consumer warps, a stage": {"wait": c[0] / stages},
-            "consumer warps, an item": {"merge": c[4] / items, "stages": stages / items},
-            "producer warp, a stage": {"wait for an empty slot": p[0] / max(p[5], 1),
-                                       "issue": p[7] / max(p[5], 1)}}
 
 
 if __name__ == "__main__":

@@ -34,10 +34,9 @@ each phase prints its seconds):
      n = 8; f32), each row naming its route; the
      block-sparse forward and backward (B5) at the sparse request's pair
      axial shape (L = 384), the sparse train step's (crop 256) and n = 4096,
-     B5f on its wgmma route (every one in the union form), checked and
-     timed again in the ring form (split rows) and on the mma_sync route,
-     beside B1f on the dense pass of the same shape; a case with most rows
-     split and a masked batch element; block sizes 32-128,
+     B5f on its wgmma route, checked and timed again on the mma_sync
+     route, beside B1f on the dense pass of the same shape; n = 1024 with
+     a masked batch element; block sizes 32-128,
      head widths 16 and 32 (mma_sync), f32 and a ragged length; the lse flash kernel (B3)
      at the SP request's ring-hop shape (L = 384, 4 shards: 8 x 1,920 x
      36,864; timed unmasked, checked again with one (bh) row fully
@@ -998,11 +997,10 @@ def phase_quant_kernels():
 # --- phase 3, sparse: the block-sparse kernels against their plain versions ---------
 
 
-def sparse_inputs(b, heads, n, dh, dtype, scfg, *, masked_b=(), seed=0, cap=None):
+def sparse_inputs(b, heads, n, dh, dtype, scfg, *, masked_b=(), seed=0):
     """Folded q, k, v, dO (b * heads, n, dh), a key bias (b, n) with 5% of
     the keys (and every key of the batch elements `masked_b`) masked, and
-    the layout's table on the card (its work list split at `cap` slots, or
-    at the table's own cap)."""
+    the layout's table on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(b * heads, n, dh, generator=g, device="cuda").to(dtype)
                    for _ in range(4))
@@ -1011,11 +1009,7 @@ def sparse_inputs(b, heads, n, dh, dtype, scfg, *, masked_b=(), seed=0, cap=None
     for i in masked_b:
         keep[i] = False
     bias = torch.where(keep, 0.0, float("-inf")).contiguous()
-    if cap is None:
-        table = sparse.kernel_table(n // scfg.block_size, scfg, "cuda")
-    else:
-        idx, valid = sparse.layout_block_indices(n // scfg.block_size, scfg)
-        table = sparse_kernel.block_table(idx, valid, scfg.block_size, "cuda", cap=cap)
+    table = sparse.kernel_table(n // scfg.block_size, scfg, "cuda")
     return q, k, v, do, bias, table
 
 
@@ -1041,7 +1035,7 @@ def sparse_bound_terms(q, bias, table, kind):
     return ops / PEAK_FLOPS[q.dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=(), cap=None):
+def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=()):
     """B5f, B5 dq and B5 dkv on the card against sparse_fwd_plain and
     sparse_bwd_plain, B5f on the route `sparse_kernel.route` picks and,
     where that is wgmma, on the mma_sync route too. Tolerances: the
@@ -1050,9 +1044,8 @@ def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=(), cap
     max|ref|) and bf16 `sparse_bwd_bf16_bound` (flash_bwd_bf16_bound of the
     dense attention the sparse one equals), the backward reading the
     route's lse. Batch elements `masked_b` give zeros in every output and
-    lse = +inf. `cap`: the work list's split (default the table's own)."""
-    q, k, v, do, bias, table = sparse_inputs(b, heads, n, dh, dtype, scfg, masked_b=masked_b,
-                                             cap=cap)
+    lse = +inf."""
+    q, k, v, do, bias, table = sparse_inputs(b, heads, n, dh, dtype, scfg, masked_b=masked_b)
     scale = dh ** -0.5
     args = (q, k, v, bias, table, heads)
     which = sparse_kernel.route(q, table)
@@ -1076,11 +1069,8 @@ def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=(), cap
         return err, lse_err, good
 
     err, lse_err, ok = fwd_errors(out, lse)
-    # on the wgmma route: its other form, and the route it replaced, on the same call
-    others = {}
-    if which == "wgmma":
-        other_form = "ring" if table.form == "union" else "union"
-        others = {other_form: {"form": other_form}, "mma_sync": {"which": "mma_sync"}}
+    # on the wgmma route: the route it replaced, on the same call
+    others = {"mma_sync": {"which": "mma_sync"}} if which == "wgmma" else {}
     other = {}
     for name, kw in others.items():
         e, le, good = fwd_errors(*sparse_kernel.sparse_fwd(*args, scale, **kw))
@@ -1107,8 +1097,7 @@ def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=(), cap
     del ref, bounds
     row = {"case": label, "shape": [b * heads, n, dh], "block_size": scfg.block_size,
            "dtype": str(dtype), "active": table.nnz / table.n_blocks ** 2, "route": which,
-           "form": table.form if which == "wgmma" else None,
-           "split_rows": table.n_split, "fwd_err": err, "lse_err": lse_err,
+           "fwd_err": err, "lse_err": lse_err,
            **{f"{name}_fwd_err": e for name, (e, _) in other.items()},
            **{f"{name}_lse_err": le for name, (_, le) in other.items()},
            "dq_err": errs[0], "dkv_err": max(errs[1:]), "bound_ratio": max(ratios),
@@ -1143,16 +1132,15 @@ def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=(), cap
             row[f"{kind}_ops_ms"], row[f"{kind}_bytes_ms"] = t_ops, t_bytes
             row[f"{kind}_bound_ms"] = max(t_ops, t_bytes)
     times = "".join(f" {key}={row[key]:.3f}" for key in
-                    ("fwd_ms", "fwd_union_ms", "fwd_ring_ms", "fwd_mma_sync_ms",
+                    ("fwd_ms", "fwd_mma_sync_ms",
                      "fwd_dense_b1f_ms", "dq_ms", "dkv_ms",
                      "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms", "dq_bound_ms",
                      "dkv_bound_ms")
                     if row.get(key) is not None)
-    route = which + (f" ({row['form']}, {table.n_split} split rows)" if row["form"] else "")
     sync_err = "".join(f" {name} fwd|d|={e:.2e} lse|d|={le:.1e}"
                        for name, (e, le) in other.items())
     log(f"[sparse] {label:20s} {str(tuple(row['shape'])):18s} bs {scfg.block_size:3d} "
-        f"{str(dtype).split('.')[-1]:8s} active {row['active']:.2f} {route} fwd|d|={err:.2e} "
+        f"{str(dtype).split('.')[-1]:8s} active {row['active']:.2f} {which} fwd|d|={err:.2e} "
         f"(tol {tol:.2e}) lse|d|={lse_err:.1e}{sync_err} dq|d|={errs[0]:.2e} "
         f"dkv|d|={max(errs[1:]):.2e} (bound ratio {max(ratios):.3f}){times} "
         f"{'ok' if ok else 'FAIL'}")
@@ -1204,10 +1192,10 @@ def phase_sparse_kernels():
         check_sparse("long n=4096", 1, 8, 4096, 64, torch.bfloat16, long, timed=True),
         check_sparse("pair axial crop 256", 256, 8, 256, 64, torch.bfloat16, trained,
                      timed=True),
-        # the ring form with most rows split (cap 3 slots), one batch element masked
-        check_sparse("split rows n=1024", 3, 2, 1024, 64, torch.bfloat16,
+        # n = 1024 at BH 6, one batch element masked
+        check_sparse("masked element n=1024", 3, 2, 1024, 64, torch.bfloat16,
                      sparse.SparseConfig(block_size=16, max_seq_len=512), timed=False,
-                     masked_b=(1,), cap=3),
+                     masked_b=(1,)),
     ]
     off = [r["case"] for r in rows if r["route"] != "wgmma"]
     if off:
@@ -1966,7 +1954,7 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
             "source": SOURCES["sparse_attn"],
             "replaces": REPLACES[name],
             "launches": launches[name],
-            # B5f: every bf16 route's and form's error
+            # B5f: both bf16 routes' errors
             "max_abs_err": max(r[key] for r in checked for key in r
                                if key == err or (kind == "fwd" and key.endswith("_fwd_err"))),
             "ms": sum(r[f"{kind}_ms"] for r in timed),

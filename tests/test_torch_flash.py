@@ -485,6 +485,11 @@ def test_flash_ablation_variants_match_the_source():
     assert sources["base"] == (cuda_build.CSRC / "flash_fwd.cu").read_text()
     assert "af2_ablation_counters" in sources["counters"]
     assert sources["counters"].count("T[7] += 1;") == 1
+    # the copies inline the shared pipeline; turn_products moves all three turns
+    for name in set(sources) - {"base"}:
+        assert '#include "flash_fwd_wgmma.cuh"' not in sources[name]
+    assert sources["turn_products"].count("turn_wait();") == 3
+    assert "softmax(c + 1, on);\n        turn_pass();" not in sources["turn_products"]
 
 
 def test_flash_ablation_needs_a_card(monkeypatch):

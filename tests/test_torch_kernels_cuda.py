@@ -440,34 +440,31 @@ def test_sparse_kernels_match_plain_on_card(cuda_device, bs, dh, dtype):
         assert (got[2:4] == 0).all()
 
 
-# the wgmma route's cases: (b, heads, n, max_seq_len, cap, masked batch
-# elements); cap None is the table's own (`work_cap`)
+# the wgmma route's cases: (b, heads, n, max_seq_len, masked batch elements)
 WGMMA_CASES = {
-    "split global row (8, 4096, 64)": (1, 8, 4096, 2048, None, ()),
-    "BH 3": (3, 1, 384, 384, None, ()),
-    "BH 3, long": (3, 1, 1024, 512, None, ()),
-    "n 16, one block": (2, 2, 16, 16, None, (1,)),
-    "ragged tile n 208": (3, 2, 208, 256, None, (1,)),
-    "masked element": (3, 2, 384, 384, None, (1,)),
-    "masked element, many split rows": (3, 2, 1024, 512, 3, (1,)),
-    "served pair axial (3072, 384, 64)": (384, 8, 384, 384, None, ()),
-    "trained pair axial (2048, 256, 64)": (256, 8, 256, 256, None, ()),
+    "global row (8, 4096, 64)": (1, 8, 4096, 2048, ()),
+    "BH 3": (3, 1, 384, 384, ()),
+    "BH 3, long": (3, 1, 1024, 512, ()),
+    "n 16, one block": (2, 2, 16, 16, (1,)),
+    "ragged tile n 208": (3, 2, 208, 256, (1,)),
+    "masked element": (3, 2, 384, 384, (1,)),
+    "masked element, long": (3, 2, 1024, 512, (1,)),
+    "served pair axial (3072, 384, 64)": (384, 8, 384, 384, ()),
+    "trained pair axial (2048, 256, 64)": (256, 8, 256, 256, ()),
 }
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["union", "ring"])
 @pytest.mark.parametrize("case", list(WGMMA_CASES))
-def test_sparse_wgmma_route_matches_plain_on_card(cuda_device, case, form):
-    """B5f's wgmma route in each form (union: the tile's stages on wgmma,
-    masked; ring: exact work on mma.sync, split rows merged) against
-    `sparse_fwd_plain` under phase 3's tolerance (one bf16 ulp of the
-    largest output, lse 1e-4), the masked batch elements giving zeros and
-    lse = +inf; one launch counted on the route. The mma_sync route on the
-    same call agrees too."""
+def test_sparse_wgmma_route_matches_plain_on_card(cuda_device, case):
+    """B5f's wgmma route (a tile's listed stages on wgmma, the unattended
+    pairs masked) against `sparse_fwd_plain` under phase 3's tolerance (one
+    bf16 ulp of the largest output, lse 1e-4), the masked batch elements
+    giving zeros and lse = +inf; one launch counted on the route. The
+    mma_sync route on the same call agrees too."""
     from alphafold2_tpu_torch.ops import sparse, sparse_kernel as sk
 
-    b, heads, n, msl, cap, masked = WGMMA_CASES[case]
+    b, heads, n, msl, masked = WGMMA_CASES[case]
     rng = np.random.default_rng(3)
     t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
         cuda_device, torch.bfloat16)
@@ -479,10 +476,10 @@ def test_sparse_wgmma_route_matches_plain_on_card(cuda_device, case, form):
     bias = torch.from_numpy(np.where(keep, 0.0, -np.inf).astype(np.float32)).to(cuda_device)
     idx, valid = sparse.layout_block_indices(n // 16, sparse.SparseConfig(block_size=16,
                                                                           max_seq_len=msl))
-    table = sk.block_table(idx, valid, 16, cuda_device, cap=cap)
+    table = sk.block_table(idx, valid, 16, cuda_device)
     assert sk.route(q, table) == "wgmma"
     before = dict(sk.LAUNCHES)
-    out, lse = sk.sparse_fwd(q, k, v, bias, table, heads, 0.125, form=form)
+    out, lse = sk.sparse_fwd(q, k, v, bias, table, heads, 0.125)
     torch.cuda.synchronize()
     assert {name: sk.LAUNCHES[name] - before[name] for name in before} == {
         name: int(name in ("sparse_fwd", "sparse_fwd_wgmma")) for name in before}
@@ -498,10 +495,8 @@ def test_sparse_wgmma_route_matches_plain_on_card(cuda_device, case, form):
     for i in masked:
         rows = slice(i * heads, (i + 1) * heads)
         assert (out[rows] == 0).all() and torch.isposinf(lse[rows]).all()
-    again = sk.sparse_fwd(q, k, v, bias, table, heads, 0.125, form=form)
+    again = sk.sparse_fwd(q, k, v, bias, table, heads, 0.125)
     assert torch.equal(again[0], out) and torch.equal(again[1], lse)  # deterministic
-    if form == "ring" and table.n_split:  # the split rows' counters are back at zero
-        assert not sk._ROW_DONE[q.device].any()
 
 
 @pytest.mark.cuda

@@ -14,6 +14,8 @@ Train step: loss 1e-5, grad_norm 1e-5 relative, gradients 1e-5 *
 max(1, the leaf's largest), params 1e-5 (tests/test_torch_train.py).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -361,7 +363,7 @@ def test_dropout_takes_the_gather_version(monkeypatch):
                                rtol=0, atol=0)
 
 
-# --- the forward's routes and the wgmma route's stage lists and work list -------------
+# --- the forward's routes and the wgmma route's stage lists ------------------------
 
 
 def _shaped(BH, n, dh, dtype=torch.bfloat16):
@@ -370,38 +372,36 @@ def _shaped(BH, n, dh, dtype=torch.bfloat16):
     return torch.zeros(1, dtype=dtype).expand(BH, n, dh)
 
 
-# B5f's calls on the main paths, (BH, n, max_seq_len, the wgmma route's
-# form): the sparse request's pair passes at L = 128, 256, 384 (heads 8,
-# max_seq_len 384), the sparse train step's at crop 256 (max_seq_len 256),
-# the long case, and a sparser one that takes the ring form
+# B5f's calls on the main paths, (BH, n, max_seq_len): the sparse request's
+# pair passes at L = 128, 256, 384 (heads 8, max_seq_len 384), the sparse
+# train step's at crop 256 (max_seq_len 256), and the long cases
 B5F_SHAPES = {
-    "served L=128": (1024, 128, 384, "union"),
-    "served L=256": (2048, 256, 384, "union"),
-    "served L=384": (3072, 384, 384, "union"),
-    "trained crop 256": (2048, 256, 256, "union"),
-    "long n=4096": (8, 4096, 2048, "union"),
-    "long n=8192": (4, 8192, 2048, "ring"),
+    "served L=128": (1024, 128, 384),
+    "served L=256": (2048, 256, 384),
+    "served L=384": (3072, 384, 384),
+    "trained crop 256": (2048, 256, 256),
+    "long n=4096": (8, 4096, 2048),
+    "long n=8192": (4, 8192, 2048),
 }
 
 
 @pytest.mark.parametrize("case", list(B5F_SHAPES))
 def test_route_takes_wgmma_on_every_served_and_trained_shape(case):
-    BH, n, msl, form = B5F_SHAPES[case]
+    BH, n, msl = B5F_SHAPES[case]
     table = sparse.kernel_table(n // 16, sparse.SparseConfig(block_size=16, max_seq_len=msl),
                                 "cpu")
     assert sparse_kernel.unsupported(BH, n, 64, torch.bfloat16, 16) is None
     assert sparse_kernel.route(_shaped(BH, n, 64), table) == "wgmma"
-    assert table.form == form
-    work = sparse_kernel.union_work(sparse.sparsity_layout(n // 16, sparse.SparseConfig(
-        block_size=16, max_seq_len=msl)))
-    assert (work <= sparse_kernel.UNION_WORK_MAX) == (form == "union")
+    # the stage lists at 128- and 192-row tiles: one offset a tile, and one more
+    offsets128, _, offsets192, _ = table.unions
+    assert len(offsets128) == -(-n // 128) + 1 and len(offsets192) == -(-n // 192) + 1
     assert sparse_kernel.route(_shaped(BH, n, 64, torch.float32), table) == "f32"
 
 
 @pytest.mark.parametrize("n,msl,rows", [(384, 384, 128), (384, 384, 192), (208, 256, 128),
                                         (4096, 2048, 192), (64, 64, 128)])
 def test_union_list_encodes_the_layout(n, msl, rows):
-    """The union form's stage lists hold every active (query block, key
+    """The wgmma route's stage lists hold every active (query block, key
     block) pair exactly once as a mask bit, and nothing past n; every tile
     lists a stage."""
     B = n // 16
@@ -422,6 +422,20 @@ def test_union_list_encodes_the_layout(n, msl, rows):
     assert not got[B:].any() and not got[:, B:].any()
 
 
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
+def test_block_table_builds_stage_lists_only_for_the_wgmma_block_size(bs):
+    """Only a block-size-16 table carries the wgmma route's stage lists
+    (int32, on the table's device); the other block sizes' routes never
+    read them."""
+    table = sparse.kernel_table(512 // bs, sparse.SparseConfig(block_size=bs, max_seq_len=512),
+                                "cpu")
+    if bs == 16:
+        assert len(table.unions) == 4
+        assert all(t.dtype == torch.int32 and t.device.type == "cpu" for t in table.unions)
+    else:
+        assert table.unions == ()
+
+
 @pytest.mark.parametrize("bs,dh", [(32, 64), (64, 64), (128, 64), (16, 16), (16, 32),
                                    (128, 32)])
 def test_route_takes_mma_sync_off_the_ldmatrix_shape(bs, dh):
@@ -433,8 +447,8 @@ def test_route_takes_mma_sync_off_the_ldmatrix_shape(bs, dh):
 
 def test_sparse_fwd_refuses_a_route_the_call_cannot_take():
     """`which` names a route; a route the call cannot take (the other dtype,
-    wgmma off dh 64 / bs 16, an unknown name, a form it does not have) is
-    refused before anything is built or counted."""
+    wgmma off dh 64 / bs 16, an unknown name, wgmma on a table without its
+    stage lists) is refused before anything is built or counted."""
     table = sparse.kernel_table(4, sparse.SparseConfig(block_size=16, max_seq_len=64), "cpu")
     bias = torch.zeros((1, 64))
     sparse_kernel.reset_launches()
@@ -445,93 +459,19 @@ def test_sparse_fwd_refuses_a_route_the_call_cannot_take():
                      (qb, "tma")):
         with pytest.raises(ValueError, match=f"no '{which}' sparse forward route"):
             sparse_kernel.sparse_fwd(q, q, q, bias, table, 2, 0.125, which=which)
-    with pytest.raises(ValueError, match="takes a form of"):
-        sparse_kernel.sparse_fwd(qb, qb, qb, bias, table, 2, 0.125, form="resident")
+    bare = dataclasses.replace(table, unions=())
+    with pytest.raises(ValueError, match="reads the stage lists"):
+        sparse_kernel.sparse_fwd(qb, qb, qb, bias, bare, 2, 0.125)
     with pytest.raises(ValueError, match="take CUDA tensors"):  # a route it can take: on to the card
         sparse_kernel.sparse_fwd(qb, qb, qb, bias, table, 2, 0.125, which="mma_sync")
     assert all(n == 0 for n in sparse_kernel.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("n,msl,cap", [(4096, 2048, None), (384, 384, None), (256, 256, None),
-                                       (512, 256, None), (512, 256, 5), (128, 384, None),
-                                       (64, 64, 1)])
-def test_work_list_covers_every_slot_once_longest_first(n, msl, cap):
-    B = n // 16
-    idx, valid = sparse.layout_block_indices(B, sparse.SparseConfig(block_size=16,
-                                                                    max_seq_len=msl))
-    table = sparse_kernel.block_table(idx, valid, 16, "cpu", cap=cap)
-    counts = valid.sum(axis=1)
-    cap = sparse_kernel.work_cap(counts) if cap is None else cap
-    items = table.items.numpy()
-    seen = np.zeros(valid.shape, int)
-    for r, s0, count, _, _, _, _, zero in items:
-        assert 1 <= count <= cap and zero == 0
-        seen[r, s0:s0 + count] += 1
-    np.testing.assert_array_equal(seen, valid.astype(int))  # every (row, slot) exactly once
-    assert (np.diff(items[:, 2]) <= 0).all()  # longest first
-    chunks = {}
-    for r, s0, count, c, nc, part, split, _ in items:
-        chunks.setdefault(r, []).append((c, s0, nc, part, split))
-    parts, splits = [], []
-    for r, cs in chunks.items():
-        cs.sort()
-        assert [c for c, *_ in cs] == list(range(len(cs)))
-        assert all(nc == len(cs) for _, _, nc, _, _ in cs)
-        assert [s0 for _, s0, *_ in cs] == sorted(s0 for _, s0, *_ in cs)  # chunks in slot order
-        if len(cs) == 1:
-            assert counts[r] <= cap and cs[0][3] == -1 and cs[0][4] == -1
-        else:
-            assert counts[r] > cap
-            parts += [cs[0][3] + c for c, *_ in cs]
-            splits.append(cs[0][4])
-    assert sorted(parts) == list(range(table.n_parts))
-    assert sorted(splits) == list(range(table.n_split))
-    if n == 4096 and cap == sparse_kernel.work_cap(counts):
-        # the global row splits into ~4 chunks; every row at or under the cap stays whole
-        assert len(chunks[0]) == 4 and table.n_split == int((counts > cap).sum())
-        assert (counts[1:] <= cap).all() and table.n_split == 1
-
-
-def test_split_and_merge_plain_matches_jax_kernel():
-    """The ring form's split-and-merge, emulated in plain PyTorch
-    (`sparse_fwd_chunks_plain`: a partial per work item, merged in chunk
-    order) at n = 512, bs 16, max_seq_len 256 (row 0: 32 slots against a
-    mean of 12.5) with a cap that splits row 0 and many others, against
-    the Pallas kernel in interpret mode and against the unsplit plain
-    version: f32, a fully masked batch element; out and lse 2e-6, exact
-    zeros and lse = +inf on the masked rows."""
-    kw = dict(block_size=16, max_seq_len=256)
-    jcfg, tcfg = jsparse.SparseConfig(**kw), sparse.SparseConfig(**kw)
-    q, k, v, _, mask = _qkv(b=2, n=512, h=2, dh=8, seed=7)
-    b, n, h, dh = q.shape
-    _, (j_out, j_lse) = jax_kernel_forward(*(jnp.asarray(x) for x in (q, k, v)), jcfg,
-                                           jnp.asarray(mask))
-
-    def fold(x):
-        return _t(x).transpose(1, 2).reshape(b * h, n, dh).contiguous()
-
-    bias = torch.where(torch.from_numpy(mask), 0.0, float("-inf")).float()
-    idx, valid = sparse.layout_block_indices(n // 16, tcfg)
-    table = sparse_kernel.block_table(idx, valid, 16, "cpu", cap=6)
-    assert valid[0].sum() == 32 and table.n_split > 1
-    assert (table.items.numpy()[:, 0] == 0).sum() == 6  # row 0 in 6 chunks
-    args = (fold(q), fold(k), fold(v), bias, table, h, dh ** -0.5)
-    out, lse = sparse_kernel.sparse_fwd_chunks_plain(*args)
-    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), rtol=0, atol=2e-6)
-    j_lse = np.asarray(j_lse).reshape(b * h, n)
-    np.testing.assert_array_equal(np.isposinf(lse.numpy()), np.isposinf(j_lse))
-    fin = np.isfinite(j_lse)
-    np.testing.assert_allclose(lse.numpy()[fin], j_lse[fin], rtol=0, atol=2e-6)
-    assert (out[:h] == 0).all() and torch.isposinf(lse[:h]).all()  # batch element 0: masked
-    whole_out, whole_lse = sparse_kernel.sparse_fwd_plain(*args)
-    torch.testing.assert_close(out, whole_out, rtol=0, atol=2e-6)
-    torch.testing.assert_close(lse, whole_lse, rtol=0, atol=2e-6)
-
-
 def test_sparse_ablation_variants_match_the_source():
-    """The sparse ablation tool's copies of csrc/sparse_attn.cu are cut from
-    the source's own text: each fragment it changes is still there once, and
-    every copy differs from the others."""
+    """The sparse ablation tool's copies of csrc/sparse_attn.cu inline the
+    shared wgmma pipeline (csrc/flash_fwd_wgmma.cuh) cut from its own text:
+    each fragment it changes is still there once, and every copy differs
+    from the others."""
     from alphafold2_tpu_torch.ops import cuda_build
     from alphafold2_tpu_torch.telemetry import sparse_ablation
 
@@ -539,13 +479,32 @@ def test_sparse_ablation_variants_match_the_source():
     assert set(sources) == {"base", "no_mask", "no_ex2", "no_pv", "counters"}
     assert len(set(sources.values())) == len(sources)
     assert sources["base"] == (cuda_build.CSRC / "sparse_attn.cu").read_text()
+    for name in ("no_mask", "no_ex2", "no_pv", "counters"):
+        assert '#include "flash_fwd_wgmma.cuh"' not in sources[name]
+        assert "void wgmma_fwd(" in sources[name]
     counters = sources["counters"]
-    assert "af2_ablation_counters" in counters and counters.count("flush(T);") == 3
-    assert counters.count("scale, lane, T);") == 1 and counters.count("T[5] += 1;") == 3
+    assert "af2_ablation_counters" in counters and counters.count("T[7] += 1;") == 1
     assert "wgmma_m64n64k16_rs_mn(o, &p" not in sources["no_pv"]
     assert "(on >> (j / 2))" not in sources["no_mask"]
     base = cuda_build.CSRC / "flash_fwd.cu"
     assert sparse_ablation.variants(base)["baseline"] == base.read_text()
+
+
+def test_flash_and_sparse_forwards_share_one_wgmma_pipeline():
+    """The flash forward's and the block-sparse forward's wgmma routes are
+    one pipeline: both sources include csrc/flash_fwd_wgmma.cuh and launch
+    its `wgmma_fwd` through `launch_wgmma_fwd`, the sparse one with a stage
+    list; neither holds a copy of the pipeline's stages."""
+    from alphafold2_tpu_torch.ops import cuda_build
+
+    for name, listed in (("flash_fwd", "false"), ("sparse_attn", "true")):
+        src = (cuda_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "flash_fwd_wgmma.cuh"' in src
+        assert src.count("af2::fwd::wgmma_fwd<") == 1
+        assert f", {listed}>(tm_q, tm_k, tm_v, tm_bias" in src
+        assert "af2::fwd::launch_wgmma_fwd<" in src
+        for piece in ("wgmma_m64n128k16_ss(", "wgmma_m64n64k16_rs_mn(", "setmaxnreg"):
+            assert piece not in src
 
 
 def test_sparse_ablation_needs_a_card(monkeypatch):
