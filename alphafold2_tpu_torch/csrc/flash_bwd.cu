@@ -42,42 +42,11 @@
 // The dkv kernel has two bf16 routes (`ops/flash_kernel.py dkv_route`):
 //
 // wgmma (dh = 64, every operand TMA loads addressable: every trained and
-// served shape): persistent blocks, one per SM, each walking (bh, 128-key
-// tile) tiles bh-major, so the key tiles of one head run at once on
-// neighbouring blocks and read its Q and dO from L2.
-//  - Warp 0 is the producer. For each tile it loads K and V by TMA into one
-//    of two buffers (the next tile's land while this tile's dk and dv are
-//    stored), then streams 64-query stages through a ring of full and empty
-//    mbarriers: Q and dO (3-D tensor maps (dh, n, BH), so a ragged last
-//    stage reads zeros inside its own head), with BIAS2D the f32 bias box
-//    (64 queries x 128 keys, four 128-byte swizzled boxes of 32 keys), and
-//    per query lse (in log2 units, +inf past len_i) and delta (0 past it),
-//    written by the warp's 32 lanes.
-//  - Each of two consumer warpgroups owns 64 keys and computes the tiles
-//    transposed, keys as rows: S^T = K.Q^T and dP^T = V.dO^T are
-//    wgmma.m64n64k16 with both operands K-major in shared memory; P^T =
-//    2^(s scale log2(e) + bias log2(e) - lse log2(e)) and dS^T = P^T (dP^T -
-//    delta) are computed in place in f32 registers, rounded to bf16 and
-//    repacked from the C fragments into A fragments, the register A operand
-//    of dV += P^T.dO and dK += dS^T.Q (wgmma.m64n64k16, dO and Q the
-//    MN-major B operand). A 2-D bias element (key, query) is read
-//    transposed from the swizzled box; the swizzle spreads a quad's four
-//    query rows over distinct banks. The key-side bias is a per-row
-//    constant, read once a tile.
-//  - Stage c + 1's S^T and dP^T are issued with stage c's dV and dK
-//    products, and stage c + 1's elementwise pass runs while those do.
-//  - dk (times scale) and dv, cast to bf16, are staged in the warpgroup's
-//    half of the tile's K and V buffers (128-byte swizzled, as TMA loaded
-//    them) and written by two TMA stores, clipped at len_j; the buffers go
-//    back to the producer once the stores have read them. (Written from
-//    registers, four bytes of each of eight rows a store instruction, the
-//    stores held every warp's next barrier poll behind them.)
-// Where its time goes (telemetry/dkv_ablation.py, PERF.md): at L = 256 a
-// 64-query stage takes each warpgroup ~1,700 cycles, issue and elementwise
-// pass about equal, with the tensor cores ~60% busy; a tile adds ~3,200
-// cycles outside its stage loop (its first stage alone, its last products,
-// the epilogue). Without a third warpgroup (S^T, dP^T, dK, dV and the
-// packed P^T, dS^T take 160 registers a thread) nothing hides them.
+// served shape): the TMA-fed wgmma pipeline of flash_bwd_dkv_wgmma.cuh
+// (persistent blocks over (bh, 128-key tile) tiles, a producer warp
+// streaming 64-query stages, two consumer warpgroups computing the tiles
+// transposed, dk and dv leaving by TMA stores), over every stage of len_i;
+// the block-sparse dkv kernel runs the same pipeline over listed stages.
 //
 // mma_sync (the dq kernel always; the dkv kernel at dh 16 or 32, or with a
 // 2-D bias TMA cannot address): every product runs on the tensor cores with
@@ -112,38 +81,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_bwd_dkv_wgmma.cuh"
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-using af2::EncodeTiledFn;
-using af2::encode_3d;
-using af2::encode_tiled;
-using af2::ex2;
-using af2::fence_regs;
-using af2::gmma_desc;
 using af2::kPad;
 using af2::load_a;
-using af2::mbar_arrive;
-using af2::mbar_expect_tx;
-using af2::mbar_init;
-using af2::mbar_wait;
 using af2::mma_ab;
 using af2::mma_abt;
-using af2::pack_bf16;
-using af2::smem_u32;
 using af2::stage;
 using af2::store_rows;
-using af2::fence_async_smem;
-using af2::tma_load_3d;
-using af2::tma_store_3d;
-using af2::warpgroup_sync;
-using af2::wgmma_commit;
-using af2::wgmma_fence;
-using af2::wgmma_m64n64k16_rs_mn;
-using af2::wgmma_m64n64k16_ss;
-using af2::wgmma_wait;
 
 // --- bf16: tensor cores ----------------------------------------------------
 
@@ -484,40 +433,11 @@ __global__ void __launch_bounds__(kRowsF32)
 }
 
 // --- bf16, the dkv kernel's wgmma route: TMA ring, wgmma, persistent blocks --
+//
+// flash_bwd_dkv_wgmma.cuh's pipeline over every 64-query stage of len_i.
 
-constexpr int kWKeys = 128;                       // keys a tile: two warpgroups of 64
-constexpr int kWQ = 64;                           // queries a stage
-constexpr int kWDH = 64;                          // the head width of the route: 128-byte rows
-constexpr int kKVTile = kWKeys * kWDH * 2;        // 16 KB, K or V of a tile
-constexpr int kQStage = kWQ * kWDH * 2;           // 8 KB, Q or dO of a stage
-constexpr int kBiasBox = 32;                      // keys of a 2-D bias box: 128-byte rows
-constexpr int kBiasBoxBytes = kWQ * kBiasBox * 4;  // 8 KB
-constexpr int kMNLbo = 8192;  // an MN-major B's descriptor: the stride of 64-column chunks (one)
-constexpr float kLog2e = 1.4426950408889634f;
-
-// a block: warpgroup 0 holds the producer warp, two consumer warpgroups own
-// 64 keys each. Its shared memory: two K/V buffers, the ring's stages (Q,
-// dO, and with BIAS2D the 2-D bias box), the stages' lse and delta, the
-// barriers
-template <bool BIAS2D>
-struct DkvTile {
-  static constexpr int kConsumers = kWKeys / 64;
-  static constexpr int kThreads = 128 * (1 + kConsumers);
-  static constexpr int kConsumerWarps = 4 * kConsumers;
-  // setmaxnreg: warpgroup 0 gives registers to the consumers' S^T, dP^T,
-  // dK, dV and the packed P^T and dS^T
-  static constexpr int kLightRegs = 56;
-  static constexpr int kConsumerRegs = 224;
-  static_assert(128 * kLightRegs + 128 * kConsumers * kConsumerRegs <= 65536, "registers");
-  static constexpr int kKV = 2 * kKVTile;
-  static constexpr int kStages = BIAS2D ? 3 : 4;
-  static constexpr int kStage = 2 * kQStage + (BIAS2D ? (kWKeys / kBiasBox) * kBiasBoxBytes : 0);
-  static constexpr int kRing = 2 * kKV;
-  static constexpr int kScalars = kRing + kStages * kStage;
-  static constexpr int kBars = kScalars + kStages * 2 * kWQ * 4;
-  static constexpr int kBytes = kBars + 8 * (2 * kStages + 4) + 1024;  // + alignment
-  static_assert(kBytes <= 232448, "over the 227 KB a block may use");
-};
+using af2::StageList;
+using af2::dkv::DkvTile;
 
 template <bool BIAS2D>
 __global__ void __launch_bounds__(DkvTile<BIAS2D>::kThreads, 1)
@@ -530,307 +450,12 @@ __global__ void __launch_bounds__(DkvTile<BIAS2D>::kThreads, 1)
                                const __grid_constant__ CUtensorMap tm_dv,
                                const float* __restrict__ key_bias,          // (BH, j), !BIAS2D
                                const float* __restrict__ lse,
-                               const float* __restrict__ delta, int len_i, int len_j,
-                               int n_ktiles, int64_t tiles, float scale, float scale_log2) {
-  using L = DkvTile<BIAS2D>;
-  constexpr int S = L::kStages;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms are 1024-byte aligned
-  uint8_t* const smem = smem_raw + (base - raw);
-  float* const scalars = reinterpret_cast<float*>(smem + L::kScalars);
-  const uint32_t bars = base + L::kBars;
-  auto full = [&](int c) { return bars + 8 * (c % S); };               // stage c landed
-  auto empty = [&](int c) { return bars + 8 * (S + c % S); };          // stage c read
-  auto kvfull = [&](int n) { return bars + 8 * (2 * S + (n & 1)); };   // tile n's K/V landed
-  auto kvempty = [&](int n) { return bars + 8 * (2 * S + 2 + (n & 1)); };  // and read
-  // the phase parity a wait expects (empty slots: the previous round's,
-  // which a fresh barrier counts as completed)
-  auto ring = [](int c) { return (uint32_t)((c / S) & 1); };
-  auto kvring = [](int n) { return (uint32_t)((n >> 1) & 1); };
-  auto stage = [&](int c) { return (uint32_t)(L::kRing + (c % S) * L::kStage); };  // offset
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nq = (len_i + kWQ - 1) / kWQ;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full(s), 32);  // the producer warp's lanes, and the TMA bytes
-      mbar_init(empty(s), L::kConsumerWarps);
-    }
-    for (int b = 0; b < 2; ++b) {
-      mbar_init(kvfull(b), 1);
-      mbar_init(kvempty(b), L::kConsumers);  // each warpgroup's storing thread
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (warp < 4) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::kLightRegs));
-    if (warp == 0) {
-      // the producer: chunk c is query stage c of the block's tile sequence
-      int c = 0, n = 0;
-      for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
-        const int bh = (int)(tile / n_ktiles);
-        const int k0 = (int)(tile % n_ktiles) * kWKeys;
-        if (lane == 0) {
-          const uint32_t kv = base + (n & 1) * L::kKV;
-          mbar_wait(kvempty(n), kvring(n) ^ 1);
-          mbar_expect_tx(kvfull(n), L::kKV);
-          tma_load_3d(kv, &tm_k, kvfull(n), 0, k0, bh);
-          tma_load_3d(kv + kKVTile, &tm_v, kvfull(n), 0, k0, bh);
-        }
-        for (int qq = 0; qq < nq; ++qq, ++c) {
-          const int q0 = qq * kWQ;
-          mbar_wait(empty(c), ring(c) ^ 1);
-          float* sc = scalars + (c % S) * 2 * kWQ;
-#pragma unroll
-          for (int e = 0; e < kWQ / 32; ++e) {
-            // queries past the end: lse = +inf makes their p an exact 0
-            const int row = q0 + 32 * e + lane;
-            const int64_t at = (int64_t)bh * len_i + row;
-            sc[32 * e + lane] = row < len_i ? lse[at] * kLog2e : INFINITY;
-            sc[kWQ + 32 * e + lane] = row < len_i ? delta[at] : 0.f;
-          }
-          const uint32_t st = base + stage(c);
-          if (lane == 0) {
-            mbar_expect_tx(full(c), L::kStage);
-            tma_load_3d(st, &tm_q, full(c), 0, q0, bh);
-            tma_load_3d(st + kQStage, &tm_g, full(c), 0, q0, bh);
-            if (BIAS2D) {
-#pragma unroll
-              for (int b = 0; b < kWKeys / kBiasBox; ++b) {
-                tma_load_3d(st + 2 * kQStage + b * kBiasBoxBytes, &tm_bias, full(c),
-                            k0 + b * kBiasBox, q0, bh);
-              }
-            }
-          } else {
-            mbar_arrive(full(c));
-          }
-        }
-      }
-    }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kConsumerRegs));
-    // warpgroup wg owns the tile's keys 64 wg .. 64 wg + 63; a thread holds
-    // keys r and r + 8 (wgmma's accumulator layout: per 8 query columns j,
-    // s[4j], s[4j + 1] are key r, queries 8j + 2t, 8j + 2t + 1; s[4j + 2],
-    // s[4j + 3] key r + 8)
-    const int wg = warp / 4 - 1;
-    const int g = lane / 4;
-    const int t = lane % 4;
-    const int r = 64 * wg + 16 * (warp % 4) + g;
-    float s[32], dp[32], dk_acc[32], dv_acc[32];
-    uint32_t pa[16], da[16];
-    // with BIAS2D: the byte offset in a stage's bias boxes of (key r + 8h,
-    // query 2t + e); query 8j + 2t + e lies 1024 j bytes further. Box r / 32,
-    // row = the query, 16-byte chunk (key % 32) / 4 swizzled with row % 8
-    int boff[2][2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int key = r + 8 * h;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int row = 2 * t + e;
-        boff[h][e] = (key / kBiasBox) * kBiasBoxBytes + row * 128 +
-                     ((((key % kBiasBox) / 4) ^ row) << 4) + (key % 4) * 4;
-      }
-    }
-    auto release = [&](uint32_t bar) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar);
-    };
-    // S^T = K.Q^T and dP^T = V.dO^T of stage c, issued as one group
-    auto sdp = [&](uint32_t kv, int c) {
-      const uint32_t ka = kv + wg * (64 * kWDH * 2);
-      const uint32_t qa = base + stage(c);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kWDH / 16; ++ks) {
-        wgmma_m64n64k16_ss(s, gmma_desc(ka + 32 * ks, 16, 1024), gmma_desc(qa + 32 * ks, 16, 1024),
-                           ks);
-      }
-#pragma unroll
-      for (int ks = 0; ks < kWDH / 16; ++ks) {
-        wgmma_m64n64k16_ss(dp, gmma_desc(ka + kKVTile + 32 * ks, 16, 1024),
-                           gmma_desc(qa + kQStage + 32 * ks, 16, 1024), ks);
-      }
-      wgmma_commit();
-    };
-    // stage c's elementwise pass, in place: s <- P^T, dp <- dS^T (f32)
-    float kb[2];  // the tile's key bias of keys r, r + 8, log2 units
-    auto elementwise = [&](int c) {
-      const float* sc = scalars + (c % S) * 2 * kWQ;
-      const uint8_t* b2 = smem + stage(c) + 2 * kQStage;
-#pragma unroll
-      for (int j = 0; j < kWQ / 8; ++j) {
-        const float2 l2 = *reinterpret_cast<const float2*>(sc + 8 * j + 2 * t);
-        const float2 dl = *reinterpret_cast<const float2*>(sc + kWQ + 8 * j + 2 * t);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int x = 4 * j + 2 * h + e;
-            float b = kb[h];
-            if (BIAS2D) {
-              b = fmaf(*reinterpret_cast<const float*>(b2 + boff[h][e] + 1024 * j), kLog2e, b);
-            }
-            const float p = ex2(fmaf(s[x], scale_log2, b) - (e ? l2.y : l2.x));
-            s[x] = p;
-            dp[x] = p * (dp[x] - (e ? dl.y : dl.x));
-          }
-        }
-      }
-    };
-    // P^T and dS^T rounded to bf16: per 16 queries ks, the A fragments
-    // pa[4 ks .. 4 ks + 3], da[...] (the C fragments of columns 16 ks ..
-    // 16 ks + 15)
-    auto pack = [&]() {
-#pragma unroll
-      for (int j = 0; j < kWQ / 8; ++j) {
-        pa[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
-        pa[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
-        da[2 * j] = pack_bf16(dp[4 * j], dp[4 * j + 1]);
-        da[2 * j + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
-      }
-    };
-    // dV += P^T.dO and dK += dS^T.Q of stage c, issued as one group
-    auto dkv = [&](int c) {
-      const uint32_t qa = base + stage(c);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kWQ / 16; ++ks) {
-        wgmma_m64n64k16_rs_mn(dv_acc, &pa[4 * ks], gmma_desc(qa + kQStage + 2048 * ks, kMNLbo, 1024));
-      }
-#pragma unroll
-      for (int ks = 0; ks < kWQ / 16; ++ks) {
-        wgmma_m64n64k16_rs_mn(dk_acc, &da[4 * ks], gmma_desc(qa + 2048 * ks, kMNLbo, 1024));
-      }
-      wgmma_commit();
-    };
-
-    int c = 0, n = 0;
-    for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
-      const int bh = (int)(tile / n_ktiles);
-      const int k0 = (int)(tile % n_ktiles) * kWKeys;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int key = k0 + r + 8 * h;
-        kb[h] = -INFINITY;
-        if (key < len_j) kb[h] = BIAS2D ? 0.f : key_bias[(int64_t)bh * len_j + key] * kLog2e;
-      }
-#pragma unroll
-      for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-      const uint32_t kv = base + (n & 1) * L::kKV;
-      mbar_wait(kvfull(n), kvring(n));
-      mbar_wait(full(c), ring(c));
-      sdp(kv, c);
-      wgmma_wait<0>();
-      fence_regs(s);
-      fence_regs(dp);
-      elementwise(c);
-      pack();
-      // stage c + 1's S^T and dP^T are issued with stage c's dV and dK, and
-      // stage c + 1's elementwise pass runs while those do. The loop body
-      // has no branch, and the epilogue sits after it (accumulator reads in
-      // a branch around the wgmma make ptxas serialize them)
-      for (int qq = 1; qq < nq; ++qq, ++c) {
-        mbar_wait(full(c + 1), ring(c + 1));
-        sdp(kv, c + 1);
-        dkv(c);
-        wgmma_wait<1>();  // the S^T and dP^T (groups retire in order)
-        fence_regs(s);
-        fence_regs(dp);
-        elementwise(c + 1);
-        wgmma_wait<0>();  // the dV and dK
-        fence_regs(dk_acc);
-        fence_regs(dv_acc);
-        fence_regs(pa);
-        fence_regs(da);
-        pack();
-        release(empty(c));
-      }
-      dkv(c);
-      wgmma_wait<0>();
-      fence_regs(dk_acc);
-      fence_regs(dv_acc);
-      fence_regs(pa);
-      fence_regs(da);
-      release(empty(c));
-      ++c;
-
-      // epilogue: keys r, r + 8 of the tile, columns 8j + 2t (+1), staged in
-      // the warpgroup's rows of the K and V buffers (its own; their last
-      // reader, this tile's last S^T and dP^T, has retired): row w of 128
-      // bytes, 16-byte chunk j swizzled with w % 8 = g
-      uint8_t* const kst = smem + (n & 1) * L::kKV + wg * (64 * kWDH * 2);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = 16 * (warp % 4) + g + 8 * h;
-#pragma unroll
-        for (int j = 0; j < kWDH / 8; ++j) {
-          const int at = row * 128 + ((j ^ g) << 4) + 4 * t;
-          *reinterpret_cast<uint32_t*>(kst + at) =
-              pack_bf16(dk_acc[4 * j + 2 * h] * scale, dk_acc[4 * j + 2 * h + 1] * scale);
-          *reinterpret_cast<uint32_t*>(kst + kKVTile + at) =
-              pack_bf16(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
-        }
-      }
-      fence_async_smem();
-      warpgroup_sync(1 + wg);
-      if (threadIdx.x % 128 == 0) {
-        const uint32_t st = smem_u32(kst);
-        if (k0 + 64 * wg < len_j) {
-          tma_store_3d(&tm_dk, st, 0, k0 + 64 * wg, bh);
-          tma_store_3d(&tm_dv, st + kKVTile, 0, k0 + 64 * wg, bh);
-        }
-        // the stores have read the buffers: the producer may refill them
-        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-        mbar_arrive(kvempty(n));
-      }
-    }
-    if (threadIdx.x % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-  }
-}
-
-template <bool BIAS2D>
-int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* bias,
-                     const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-                     int64_t bh, int64_t len_i, int64_t len_j, float scale, cudaStream_t stream) {
-  using L = DkvTile<BIAS2D>;
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  CUtensorMap tm_q, tm_k, tm_v, tm_g, tm_bias, tm_dk, tm_dv;
-  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if (!encode_3d(encode, &tm_q, bf16, q, kWDH, len_i, bh, 2, kWDH, kWQ) ||
-      !encode_3d(encode, &tm_g, bf16, dout, kWDH, len_i, bh, 2, kWDH, kWQ) ||
-      !encode_3d(encode, &tm_k, bf16, k, kWDH, len_j, bh, 2, kWDH, kWKeys) ||
-      !encode_3d(encode, &tm_v, bf16, v, kWDH, len_j, bh, 2, kWDH, kWKeys) ||
-      !encode_3d(encode, &tm_dk, bf16, dk, kWDH, len_j, bh, 2, kWDH, 64) ||
-      !encode_3d(encode, &tm_dv, bf16, dv, kWDH, len_j, bh, 2, kWDH, 64)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  tm_bias = tm_k;  // unread without a 2-D bias
-  if (BIAS2D && !encode_3d(encode, &tm_bias, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, bias, len_j,
-                           len_i, bh, 4, kBiasBox, kWQ)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  int device = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<BIAS2D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-  }
-  if (e != cudaSuccess) return (int)e;
-  const int64_t n_ktiles = (len_j + kWKeys - 1) / kWKeys;
-  const int64_t tiles = bh * n_ktiles;
-  const int grid = (int)(tiles < sms ? tiles : sms);
-  flash_bwd_dkv_wgmma_kernel<BIAS2D><<<grid, L::kThreads, L::kBytes, stream>>>(
-      tm_q, tm_k, tm_v, tm_g, tm_bias, tm_dk, tm_dv, (const float*)bias, (const float*)lse,
-      (const float*)delta, (int)len_i, (int)len_j, (int)n_ktiles, tiles, scale, scale * kLog2e);
-  return (int)cudaGetLastError();
+                               const float* __restrict__ delta, const StageList list, int len_i,
+                               int len_j, int n_ktiles, int64_t tiles, float scale,
+                               float scale_log2) {
+  af2::dkv::wgmma_dkv<BIAS2D, false>(tm_q, tm_k, tm_v, tm_g, tm_bias, tm_dk, tm_dv, key_bias, lse,
+                                     delta, list, len_i, len_j, n_ktiles, tiles, scale,
+                                     scale_log2);
 }
 
 // --- launch: the mma_sync and f32 routes ------------------------------------
@@ -966,20 +591,21 @@ int af2_flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const v
                             const void* dout, const void* lse, const void* delta, void* dk,
                             void* dv, int64_t bh, int64_t len_i, int64_t len_j, int dh,
                             float scale, int bias2d, void* stream_ptr) {
-  if (bh <= 0 || len_i <= 0 || len_j <= 0 || dh != kWDH || len_i > 2147483647LL ||
+  if (bh <= 0 || len_i <= 0 || len_j <= 0 || dh != af2::dkv::kWDH || len_i > 2147483647LL ||
       len_j > 2147483647LL || bh > 2147483647LL ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout | (uintptr_t)dk |
        (uintptr_t)dv) % 16 != 0 ||
       (bias2d && (len_j % 4 != 0 || (uintptr_t)bias % 16 != 0))) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const StageList every{nullptr, nullptr, 1};
+#define AF2_ARGS q, k, v, bias, dout, lse, delta, every, dk, dv, bh, len_i, len_j, scale, \
+                 (cudaStream_t)stream_ptr
   if (bias2d) {
-    return launch_dkv_wgmma<true>(q, k, v, bias, dout, lse, delta, dk, dv, bh, len_i, len_j,
-                                  scale, stream);
+    return af2::dkv::launch_wgmma_dkv<true>(flash_bwd_dkv_wgmma_kernel<true>, AF2_ARGS);
   }
-  return launch_dkv_wgmma<false>(q, k, v, bias, dout, lse, delta, dk, dv, bh, len_i, len_j,
-                                 scale, stream);
+  return af2::dkv::launch_wgmma_dkv<false>(flash_bwd_dkv_wgmma_kernel<false>, AF2_ARGS);
+#undef AF2_ARGS
 }
 
 }  // extern "C"

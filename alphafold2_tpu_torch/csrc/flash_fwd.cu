@@ -356,7 +356,7 @@ __global__ void __launch_bounds__(kBlockQ)
 
 // --- bf16, the wgmma route: TMA ring, wgmma, persistent blocks ---------------
 
-using af2::fwd::KeyList;
+using af2::StageList;
 using af2::fwd::WgmmaTile;
 
 template <bool GATED, bool BIAS2D, int CONSUMERS>
@@ -366,7 +366,7 @@ __global__ void __launch_bounds__(WgmmaTile<BIAS2D, CONSUMERS>::kThreads, 1)
                            const __grid_constant__ CUtensorMap tm_v,
                            const __grid_constant__ CUtensorMap tm_bias,  // BIAS2D only
                            const float* __restrict__ key_bias,          // (BH, j), !BIAS2D
-                           const __nv_bfloat16* __restrict__ gate, const KeyList list,
+                           const __nv_bfloat16* __restrict__ gate, const StageList list,
                            __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                            int len_i, int len_j, int n_qtiles, int64_t tiles,
                            float scale_log2) {
@@ -382,7 +382,7 @@ int launch_wgmma_tiles(const void* q, const void* k, const void* v, const void* 
   cudaError_t e;
   const int sms = af2::fwd::sm_count(&e);
   if (e != cudaSuccess) return (int)e;
-  const KeyList every{nullptr, nullptr, 1};
+  const StageList every{nullptr, nullptr, 1};
 #define AF2_ARGS q, k, v, bias, (const __nv_bfloat16*)gate, every, out, lse, bh, len_i, len_j, \
                  scale, sms, stream
   if (af2::fwd::wgmma_consumers(bh, len_i, sms, BIAS2D) == 3) {  // never with a 2-D bias

@@ -4,7 +4,7 @@
 //     stage of len_j, a key-side bias or a 2-D bias tile, an optional gate;
 //   * sparse_attn.cu's wgmma route (B5f at block size 16): only the stages a
 //     query tile's list names, each with a 32-bit mask a warpgroup of the
-//     (query block, key block) pairs it attends (`KeyList`).
+//     (query block, key block) pairs it attends (`StageList`).
 // Each defines its own __global__ kernel (so a profile names the kernel it
 // ran) around `wgmma_fwd`, and launches it through `launch_wgmma_fwd`.
 //
@@ -88,25 +88,13 @@ struct WgmmaTile {
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
 };
 
-// The stages a query tile walks, where they are listed (the block-sparse
-// forward): query tile qt's are entries offsets[qt] .. offsets[qt + 1] - 1
-// (at least one), each (key stage, a 32-bit mask for each of up to three
-// warpgroups: bit 8 b + k set where the warpgroup's query block b attends
-// key block k of the stage). Row bh reads key-bias row bh / bias_heads.
-// Unlisted (the flash forward): every stage of len_j, no mask, bias row bh.
-struct KeyList {
-  const int* offsets;
-  const int4* entries;
-  int64_t bias_heads;
-};
-
 template <bool GATED, bool BIAS2D, int CONSUMERS, bool LISTED>
 __device__ __forceinline__ void wgmma_fwd(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                           const CUtensorMap& tm_v,
                                           const CUtensorMap& tm_bias,  // BIAS2D only
                                           const float* __restrict__ key_bias,  // !BIAS2D
                                           const __nv_bfloat16* __restrict__ gate,
-                                          const KeyList list, __nv_bfloat16* __restrict__ out,
+                                          const StageList list, __nv_bfloat16* __restrict__ out,
                                           float* __restrict__ lse, int len_i, int len_j,
                                           int n_qtiles, int64_t tiles, float scale_log2) {
   using L = WgmmaTile<BIAS2D, CONSUMERS>;
@@ -449,7 +437,7 @@ inline int sm_count(cudaError_t* err) {
 // memory, one block an SM. Returns the CUDA error code.
 template <bool BIAS2D, int CONSUMERS, typename Kernel>
 int launch_wgmma_fwd(Kernel kernel, const void* q, const void* k, const void* v,
-                     const void* bias, const __nv_bfloat16* gate, const KeyList& list,
+                     const void* bias, const __nv_bfloat16* gate, const StageList& list,
                      void* out, void* lse, int64_t bh, int64_t len_i, int64_t len_j,
                      float scale, int sms, cudaStream_t stream) {
   using L = WgmmaTile<BIAS2D, CONSUMERS>;

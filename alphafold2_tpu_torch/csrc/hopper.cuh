@@ -1,10 +1,11 @@
 // Hopper (sm_90a) device primitives shared by the port's TMA-fed wgmma
-// kernels (quant_matmul.cu, flash_bwd.cu, and flash_fwd_wgmma.cuh's forward,
-// which flash_fwd.cu and sparse_attn.cu share): mbarriers, TMA loads
-// and stores, the async-proxy fence, wgmma's shared-memory descriptor, its
-// fence / commit / wait, the register fences around an asynchronous wgmma,
-// the bf16 wgmma forms of the flash kernels, ex2, and the host's lookup of
-// cuTensorMapEncodeTiled and encoding of a 3-D map.
+// kernels (quant_matmul.cu, and the attention pipelines flash_fwd_wgmma.cuh,
+// flash_bwd_dkv_wgmma.cuh and flash_bwd_dq_wgmma.cuh): a listed tile's
+// stages, mbarriers, TMA loads and stores, the async-proxy fence, wgmma's
+// shared-memory descriptor, its fence / commit / wait, the register fences
+// around an asynchronous wgmma, the bf16 wgmma forms of the flash kernels,
+// ex2, and the host's lookup of cuTensorMapEncodeTiled and encoding of a 3-D
+// map.
 
 #pragma once
 
@@ -13,6 +14,19 @@
 #include <stdint.h>
 
 namespace af2 {
+
+// The stages a tile of a TMA-fed wgmma pipeline walks, where they are
+// listed (the block-sparse kernels; ops/sparse_kernel.py `union_list`): tile
+// x's are entries offsets[x] .. offsets[x + 1] - 1 (at least one), each (the
+// stage, then a mask for each of up to three consumer warpgroups: bit sb r +
+// c set where the warpgroup's row block r attends column block c of the
+// stage, sb the stage's blocks). Row bh reads key-bias row bh / bias_heads.
+// Unlisted (the dense kernels): every stage, no mask, bias row bh.
+struct StageList {
+  const int* offsets;
+  const int4* entries;
+  int64_t bias_heads;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);

@@ -34,17 +34,19 @@
 // 65), so a kernel that walks each row from start to end takes as long as
 // row 0.
 //
-// bf16 forward, two routes (ops/sparse_kernel.py `route` picks one; no
-// fallback):
-//   * wgmma (dh 64, bs 16), the section below: the flash forward's TMA-fed
-//     wgmma pipeline (flash_fwd_wgmma.cuh) over the 128-key stages in which
-//     some query block of a 128- or 192-row tile attends a key block, the
-//     (query block, key block) pairs it does not attend masked with -inf;
+// bf16, two routes for each kernel (ops/sparse_kernel.py `route` and
+// `bwd_route` pick one; no fallback):
+//   * wgmma (dh 64, bs 16), the sections below: TMA-fed wgmma pipelines over
+//     the stages in which some block of a tile attends, the (query block,
+//     key block) pairs it does not attend masked with -inf. B5f is the
+//     flash forward's (flash_fwd_wgmma.cuh, 128-key stages of 128- or
+//     192-row query tiles), B5 dkv the flash backward's dkv pipeline
+//     (flash_bwd_dkv_wgmma.cuh, 64-query stages of 128-key tiles), B5 dq
+//     its own (flash_bwd_dq_wgmma.cuh, 128-key stages of 128-row tiles);
 //   * mma_sync (the other block sizes and head widths), below.
 //
-// mma_sync, and the bf16 backward kernels: each product runs on the tensor
-// cores with `mma.sync.m16n8k16` (bf16 in, f32 accumulate; helpers in
-// mma_bf16.cuh). A block of 4 warps owns 64 rows of one block index: the bs
+// mma_sync: each product runs on the tensor cores with `mma.sync.m16n8k16`
+// (bf16 in, f32 accumulate; helpers in mma_bf16.cuh). A block of 4 warps owns 64 rows of one block index: the bs
 // rows of 64 / bs heads when bs <= 64 (so bs = 16 fills a 4-warp block with
 // four heads that walk the same table row), or one half of a 128-row block.
 // Each warp owns 16 rows and keeps its A operands and f32 accumulators in
@@ -68,6 +70,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_bwd_dkv_wgmma.cuh"
+#include "flash_bwd_dq_wgmma.cuh"
 #include "flash_fwd_wgmma.cuh"
 #include "mma_bf16.cuh"
 
@@ -490,7 +494,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 // n = 8192.
 
 constexpr int kLBs = 16;  // the route's block size
-using af2::fwd::KeyList;
+using af2::StageList;
 using af2::fwd::WgmmaTile;
 
 template <int CONSUMERS>
@@ -500,12 +504,62 @@ __global__ void __launch_bounds__(WgmmaTile<false, CONSUMERS>::kThreads, 1)
                             const __grid_constant__ CUtensorMap tm_v,
                             const __grid_constant__ CUtensorMap tm_bias,  // unread
                             const float* __restrict__ key_bias, const __nv_bfloat16* gate,
-                            const KeyList list, __nv_bfloat16* __restrict__ out,
+                            const StageList list, __nv_bfloat16* __restrict__ out,
                             float* __restrict__ lse, int len_i, int len_j, int n_qtiles,
                             int64_t tiles, float scale_log2) {
   af2::fwd::wgmma_fwd<false, false, CONSUMERS, true>(tm_q, tm_k, tm_v, tm_bias, key_bias, gate,
                                                      list, out, lse, len_i, len_j, n_qtiles,
                                                      tiles, scale_log2);
+}
+
+// --- bf16, dh 64, bs 16: the backward's wgmma routes -------------------------
+//
+// Each walks the union of its tile's stages, as B5f's route does, the
+// unattended (query block, key block) pairs masked with -inf before the exp2
+// (so their p and dS are exact zeros):
+//  - dkv: flash_bwd_dkv_wgmma.cuh's pipeline (shared with flash_bwd.cu's
+//    dense dkv kernel) over the 64-query stages in which some key block of a
+//    128-key tile is attended (the table's `key_unions`: `union_list` of the
+//    symmetric layout at 128-key tiles and 64-query stages, a 16-bit mask a
+//    warpgroup);
+//  - dq: flash_bwd_dq_wgmma.cuh's pipeline over B5f's stage lists at
+//    128-row tiles (128-key stages, a 32-bit mask a warpgroup), each stage
+//    taken as two 64-key halves.
+// At every path shape each tile attends every stage, so both do the dense
+// product under a mask: 1.78x the layout's exact work at the served layout
+// (L = 384), 1.52x at the trained one (crop 256), 3.95x at n = 4096.
+
+using af2::dkv::DkvTile;
+using af2::dq::DqTile;
+
+__global__ void __launch_bounds__(DkvTile<false>::kThreads, 1)
+    sparse_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_g,
+                            const __grid_constant__ CUtensorMap tm_bias,  // unread
+                            const __grid_constant__ CUtensorMap tm_dk,
+                            const __grid_constant__ CUtensorMap tm_dv,
+                            const float* __restrict__ key_bias, const float* __restrict__ lse,
+                            const float* __restrict__ delta, const StageList list, int len_i,
+                            int len_j, int n_ktiles, int64_t tiles, float scale,
+                            float scale_log2) {
+  af2::dkv::wgmma_dkv<false, true>(tm_q, tm_k, tm_v, tm_g, tm_bias, tm_dk, tm_dv, key_bias, lse,
+                                   delta, list, len_i, len_j, n_ktiles, tiles, scale, scale_log2);
+}
+
+__global__ void __launch_bounds__(DqTile::kThreads, 1)
+    sparse_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_g,
+                           const __grid_constant__ CUtensorMap tm_dq,
+                           const float* __restrict__ key_bias, const float* __restrict__ lse,
+                           const float* __restrict__ delta, const StageList list, int len_i,
+                           int len_j, int n_qtiles, int64_t tiles, float scale,
+                           float scale_log2) {
+  af2::dq::wgmma_dq<true>(tm_q, tm_k, tm_v, tm_g, tm_dq, key_bias, lse, delta, list, len_i, len_j,
+                          n_qtiles, tiles, scale, scale_log2);
 }
 
 // --- f32: CUDA cores -------------------------------------------------------
@@ -881,12 +935,23 @@ int launch_wgmma_route(const Args& a, const int* const (&unions)[4]) {
   const int sms = af2::fwd::sm_count(&e);
   if (e != cudaSuccess) return (int)e;
   const bool three = af2::fwd::wgmma_consumers(a.bh, n, sms, false) == 3;
-  const KeyList list{unions[three ? 2 : 0], (const int4*)unions[three ? 3 : 1], a.heads};
+  const StageList list{unions[three ? 2 : 0], (const int4*)unions[three ? 3 : 1], a.heads};
 #define AF2_ARGS a.q, a.k, a.v, a.bias, nullptr, list, a.o0, a.o1, a.bh, n, n, a.scale, sms, \
                  a.stream
   if (three) return af2::fwd::launch_wgmma_fwd<false, 3>(sparse_fwd_wgmma_kernel<3>, AF2_ARGS);
   return af2::fwd::launch_wgmma_fwd<false, 2>(sparse_fwd_wgmma_kernel<2>, AF2_ARGS);
 #undef AF2_ARGS
+}
+
+// Whether the backward's wgmma routes take a call: bs 16, dh 64, n and BH
+// in int range, the tensors TMA reads and writes 16-byte aligned, a stage list.
+bool wgmma_bwd_ok(const Args& a, const void* const (&tensors)[6], const void* offsets,
+                  const void* entries) {
+  uintptr_t bits = 0;
+  for (const void* t : tensors) bits |= (uintptr_t)t;
+  return a.bs == kLBs && a.dh == af2::dq::kWDH && a.bh > 0 && a.heads > 0 && a.n_blocks > 0 &&
+         a.n_blocks * kLBs <= 2147483647LL && a.bh <= 2147483647LL && bits % 16 == 0 &&
+         offsets != nullptr && entries != nullptr;
 }
 
 }  // namespace
@@ -938,6 +1003,46 @@ int af2_sparse_bwd_dq(const void* q, const void* k, const void* v,
   const Args a{q, k, v, bias, dout, lse, delta, idx, counts, dq, nullptr,
                bh, heads, n_blocks, width, bs, dh, scale, (cudaStream_t)stream};
   return launch(kDq, a, is_bf16);
+}
+
+// B5 dq's wgmma route: bf16 at dh 64 and bs 16, as af2_sparse_bwd_dq, with
+// q, k, v, dout, dq 16-byte aligned; union128_off (tiles + 1) and union128
+// (entries, 4) int32 are B5f's stage lists at 128-row tiles. Returns the
+// CUDA error code of the launch (cudaErrorInvalidValue for a call the route
+// does not take).
+int af2_sparse_bwd_dq_wgmma(const void* q, const void* k, const void* v, const void* bias,
+                            const void* dout, const void* lse, const void* delta,
+                            const void* union128_off, const void* union128, void* dq, int64_t bh,
+                            int64_t heads, int64_t n_blocks, float scale, void* stream) {
+  const Args a{q, k, v, bias, dout, lse, delta, nullptr, nullptr, dq, nullptr,
+               bh, heads, n_blocks, 1, kLBs, af2::dq::kWDH, scale, (cudaStream_t)stream};
+  if (!wgmma_bwd_ok(a, {q, k, v, dout, dq, dq}, union128_off, union128)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t n = n_blocks * kLBs;
+  const StageList list{(const int*)union128_off, (const int4*)union128, heads};
+  return af2::dq::launch_wgmma_dq(sparse_dq_wgmma_kernel, q, k, v, bias, dout, lse, delta, list,
+                                  dq, bh, n, n, scale, a.stream);
+}
+
+// B5 dkv's wgmma route: bf16 at dh 64 and bs 16, as af2_sparse_bwd_dkv, with
+// q, k, v, dout, dk, dv 16-byte aligned; keys_off (key tiles + 1) and keys
+// (entries, 4) int32 are the table's stage lists at 128-key tiles and
+// 64-query stages (`key_unions`). Returns as af2_sparse_bwd_dq_wgmma.
+int af2_sparse_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const void* bias,
+                             const void* dout, const void* lse, const void* delta,
+                             const void* keys_off, const void* keys, void* dk, void* dv,
+                             int64_t bh, int64_t heads, int64_t n_blocks, float scale,
+                             void* stream) {
+  const Args a{q, k, v, bias, dout, lse, delta, nullptr, nullptr, dk, dv,
+               bh, heads, n_blocks, 1, kLBs, af2::dkv::kWDH, scale, (cudaStream_t)stream};
+  if (!wgmma_bwd_ok(a, {q, k, v, dout, dk, dv}, keys_off, keys)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t n = n_blocks * kLBs;
+  const StageList list{(const int*)keys_off, (const int4*)keys, heads};
+  return af2::dkv::launch_wgmma_dkv<false>(sparse_dkv_wgmma_kernel, q, k, v, bias, dout, lse,
+                                           delta, list, dk, dv, bh, n, n, scale, a.stream);
 }
 
 // B5 dkv. As the dq kernel; dk, dv (BH, n, dh) in the input type. The

@@ -29,8 +29,13 @@ shape), "mma_sync" for the other bfloat16 calls; float32 takes "f32". A
 route is chosen, never fallen back to. The wgmma route is the flash
 forward's wgmma pipeline over the 128-key stages a 128- or 192-row query
 tile attends anywhere (the table's `union_list`), the (query block, key
-block) pairs it does not attend masked. `LAUNCHES` counts kernel launches
-per kernel and each forward launch again under `sparse_fwd_<route>`.
+block) pairs it does not attend masked. The backward kernels take their
+routes by the same rule (`bwd_route`): B5 dkv's wgmma route is the flash
+backward's dkv pipeline over the 64-query stages that attend a 128-key tile
+(the table's `key_unions`), B5 dq's a dq pipeline of its own over the
+forward's 128-row stage lists. `LAUNCHES` counts kernel launches per kernel
+and each launch again under `sparse_fwd_<route>`, `sparse_bwd_dq_<route>`
+or `sparse_bwd_dkv_<route>`.
 """
 
 from __future__ import annotations
@@ -46,14 +51,16 @@ from alphafold2_tpu_torch.ops import cuda_build, dispatch, flash_kernel
 from alphafold2_tpu_torch.ops.core import dropout
 from alphafold2_tpu_torch.ops.flash import aligned
 
-ROUTES = ("wgmma", "mma_sync", "f32")  # the forward kernels
+ROUTES = ("wgmma", "mma_sync", "f32")  # each kernel's
 LAUNCHES = {"sparse_fwd": 0, "sparse_bwd_dq": 0, "sparse_bwd_dkv": 0,
-            **{f"sparse_fwd_{r}": 0 for r in ROUTES}}
+            **{f"{kernel}_{r}": 0 for kernel in ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+               for r in ROUTES}}
 
 SUPPORTED_BLOCK_SIZES = (16, 32, 64, 128)
 SUPPORTED_DH = (16, 32, 64)
 WGMMA_DH, WGMMA_BLOCK = 64, 16  # the wgmma route's shape (csrc kWDH, kLBs)
-UNION_STAGE = 128  # keys a stage of the wgmma route (csrc kWN)
+UNION_STAGE = 128  # keys a stage of the forward's and dq's wgmma routes (csrc kWN)
+KEY_TILE, QUERY_STAGE = 128, 64  # the dkv wgmma route's key tile and query stage (kWKeys, kWQ)
 
 # gathered (bh, query block, slot, row, dh) elements the plain versions hold at once
 PLAIN_TILE_ELEMS = 1 << 26
@@ -70,14 +77,18 @@ class BlockTable:
     key blocks of each query block with the valid slots first and -1 in
     the padding; counts (B,) int32, the valid slots of each row. The layout
     is symmetric, so row c also lists the query blocks attending key block
-    c (the dkv kernel's view). At block size 16 the wgmma route reads
+    c (the dkv kernel's view). At block size 16 the wgmma routes read
     `unions`, the stage lists of `union_list` at 128- and 192-row tiles
-    (offsets, entries, offsets, entries); other tables have none."""
+    (offsets, entries, offsets, entries: the forward's, and dq's at 128),
+    and `key_unions`, the dkv route's at KEY_TILE-key tiles and
+    QUERY_STAGE-query stages (offsets, entries); other tables have
+    neither."""
 
     idx: torch.Tensor
     counts: torch.Tensor
     block_size: int
     unions: tuple = ()
+    key_unions: tuple = ()
 
     @property
     def n_blocks(self) -> int:
@@ -89,17 +100,20 @@ class BlockTable:
         return int(self.counts.sum())
 
 
-def union_list(layout: np.ndarray, tile_rows: int):
-    """The wgmma route's stage list at block size 16: for each query tile of
-    `tile_rows` rows (64 a warpgroup), the key stages of UNION_STAGE keys
-    holding a key block that some query block of the tile attends, with one
-    32-bit mask for each warpgroup (bit 8 q + b: the warpgroup's query block
-    q attends the stage's key block b); a tile with none lists stage 0 with
-    empty masks.
+def union_list(layout: np.ndarray, tile_rows: int, stage: int = UNION_STAGE):
+    """A wgmma route's stage list at block size 16: for each tile of
+    `tile_rows` rows of `layout` (64 a warpgroup), the stages of `stage`
+    columns holding a column block that some row block of the tile
+    attends, with one mask for each warpgroup (4 row blocks by sb = stage /
+    16 column blocks: bit sb r + c set where the warpgroup's row block r
+    attends the stage's column block c); a tile with none lists stage 0
+    with empty masks. The forward's and dq's lists are the query tiles' over
+    128-key stages (32-bit masks), the dkv route's the key tiles' of the
+    transposed layout over 64-query stages (16 bits).
     Returns (offsets (tiles + 1,) int32, entries (E, 4) int32: stage, three
     masks)."""
     B = layout.shape[0]
-    tb, sb = tile_rows // WGMMA_BLOCK, UNION_STAGE // WGMMA_BLOCK
+    tb, sb = tile_rows // WGMMA_BLOCK, stage // WGMMA_BLOCK
     n_qt, n_st = -(-B // tb), -(-B // sb)
     padded = np.zeros((n_qt * tb, n_st * sb), bool)
     padded[:B, :B] = layout
@@ -119,7 +133,7 @@ def union_list(layout: np.ndarray, tile_rows: int):
 
 def block_table(idx: np.ndarray, valid: np.ndarray, block_size: int, device) -> BlockTable:
     """The kernels' table from `layout_block_indices`' (idx, valid), with the
-    wgmma route's stage lists at block size 16."""
+    wgmma routes' stage lists at block size 16."""
     counts = valid.sum(axis=1).astype(np.int32)
     if not (valid == (np.arange(valid.shape[1])[None, :] < counts[:, None])).all():
         raise ValueError("block table: the valid slots must come first in each row")
@@ -130,12 +144,14 @@ def block_table(idx: np.ndarray, valid: np.ndarray, block_size: int, device) -> 
         raise ValueError("block table: the layout must be symmetric (the dkv kernel reads "
                          "a key block's own row)")
     table = np.where(valid, idx, -1).astype(np.int32)
-    unions = ()
-    if block_size == WGMMA_BLOCK:  # the wgmma route's block size
+    unions = key_unions = ()
+    if block_size == WGMMA_BLOCK:  # the wgmma routes' block size
         unions = tuple(torch.from_numpy(a).to(device) for rows in (128, 192)
                        for a in union_list(layout, rows))
+        key_unions = tuple(torch.from_numpy(a).to(device)
+                           for a in union_list(layout.T, KEY_TILE, QUERY_STAGE))
     return BlockTable(torch.from_numpy(table).to(device), torch.from_numpy(counts).to(device),
-                      block_size, unions)
+                      block_size, unions, key_unions)
 
 
 # --- plain versions ------------------------------------------------------------
@@ -273,8 +289,11 @@ def _lib() -> ctypes.CDLL:
     lib.af2_sparse_bwd_dq.argtypes = [p] * 10 + shape
     lib.af2_sparse_bwd_dkv.argtypes = [p] * 11 + shape
     lib.af2_sparse_fwd_wgmma.argtypes = [p] * 10 + [i64] * 3 + [f32, p]
+    lib.af2_sparse_bwd_dq_wgmma.argtypes = [p] * 10 + [i64] * 3 + [f32, p]
+    lib.af2_sparse_bwd_dkv_wgmma.argtypes = [p] * 11 + [i64] * 3 + [f32, p]
     for fn in (lib.af2_sparse_fwd, lib.af2_sparse_bwd_dq, lib.af2_sparse_bwd_dkv,
-               lib.af2_sparse_fwd_wgmma):
+               lib.af2_sparse_fwd_wgmma, lib.af2_sparse_bwd_dq_wgmma,
+               lib.af2_sparse_bwd_dkv_wgmma):
         fn.restype = i32
     return lib
 
@@ -288,6 +307,14 @@ def route(q, table: BlockTable) -> str:
     if q.shape[-1] == WGMMA_DH and table.block_size == WGMMA_BLOCK:
         return "wgmma"
     return "mma_sync"
+
+
+def bwd_route(q, table: BlockTable) -> str:
+    """Which backward kernels (B5 dq and B5 dkv) a call on these arguments
+    runs, by the forward's rule (`route`): "wgmma" for bfloat16 at dh 64 and
+    block size 16, "mma_sync" for the other bfloat16 calls, "f32" for
+    float32."""
+    return route(q, table)
 
 
 def unsupported(BH: int, n: int, dh: int, dtype, block_size: int):
@@ -336,27 +363,41 @@ def _shape_args(q, table: BlockTable, heads, scale):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
+def _wgmma_tail(q, table: BlockTable, heads, scale):
+    return (q.shape[0], heads, table.n_blocks, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _pick(kind: str, best: str, which, q, table: BlockTable, lists: tuple) -> str:
+    """The route a `kind` kernel runs: `best`, or the route `which` names
+    (measurements compare two routes on one call), refused where the call
+    cannot take it: the other dtype's, wgmma off its shape, or wgmma on a
+    table without its stage lists `lists`."""
+    which = which or best
+    if which not in ROUTES or (which == "f32") != (best == "f32") or (
+            which == "wgmma" and best != which):
+        raise ValueError(f"no {which!r} sparse {kind} route for {q.dtype}, dh {q.shape[-1]}, "
+                         f"block size {table.block_size} (routes {ROUTES})")
+    if which == "wgmma" and not lists:
+        raise ValueError(f"the {kind} wgmma route reads the stage lists of a table from "
+                         "block_table")
+    return which
+
+
 def sparse_fwd(q, k, v, bias, table: BlockTable, heads: int, scale: float, which=None):
     """B5f on the kernel `route` picks, or on the route `which` names
     (measurements compare two routes on one call; a route the call cannot
     take is refused), counted under LAUNCHES["sparse_fwd"] and
     LAUNCHES["sparse_fwd_<route>"]. Returns (out, lse)."""
-    best = route(q, table)
-    which = which or best
-    if which not in ROUTES or (which == "f32") != (best == "f32") or (
-            which == "wgmma" and best != which):
-        raise ValueError(f"no {which!r} sparse forward route for {q.dtype}, dh {q.shape[-1]}, "
-                         f"block size {table.block_size} (routes {ROUTES})")
-    if which == "wgmma" and not table.unions:
-        raise ValueError("the wgmma route reads the stage lists of a table from block_table")
+    which = _pick("forward", route(q, table), which, q, table, table.unions)
     _check(q, k, v, bias, table, heads)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     if which == "wgmma":
         rc = _lib().af2_sparse_fwd_wgmma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            *(t.data_ptr() for t in table.unions), out.data_ptr(), lse.data_ptr(), q.shape[0],
-            heads, table.n_blocks, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+            *(t.data_ptr() for t in table.unions), out.data_ptr(), lse.data_ptr(),
+            *_wgmma_tail(q, table, heads, scale))
     else:
         rc = _lib().af2_sparse_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), table.idx.data_ptr(),
@@ -373,24 +414,40 @@ def _bwd_ins(q, k, v, bias, table, g, lse, delta):
             lse.data_ptr(), delta.data_ptr(), table.idx.data_ptr(), table.counts.data_ptr())
 
 
-def launch_dq(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta, scale):
-    """One launch of the dq kernel, counted, on inputs `sparse_bwd` checked."""
+def launch_dq(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta, scale, which=None):
+    """One launch of the dq kernel on inputs `sparse_bwd` checked: on the
+    route `bwd_route` picks, or the route `which` names (refused where the
+    call cannot take it), counted under LAUNCHES["sparse_bwd_dq"] and
+    LAUNCHES["sparse_bwd_dq_<route>"]."""
+    which = _pick("dq", bwd_route(q, table), which, q, table, table.unions)
     dq = torch.empty_like(q)
-    rc = _lib().af2_sparse_bwd_dq(*_bwd_ins(q, k, v, bias, table, g, lse, delta),
-                                  dq.data_ptr(), *_shape_args(q, table, heads, scale))
-    cuda_build.check_launch(rc, "sparse_bwd_dq")
+    ins = _bwd_ins(q, k, v, bias, table, g, lse, delta)
+    if which == "wgmma":  # B5f's 128-row stage lists
+        rc = _lib().af2_sparse_bwd_dq_wgmma(*ins[:7], *(t.data_ptr() for t in table.unions[:2]),
+                                            dq.data_ptr(), *_wgmma_tail(q, table, heads, scale))
+    else:
+        rc = _lib().af2_sparse_bwd_dq(*ins, dq.data_ptr(), *_shape_args(q, table, heads, scale))
+    cuda_build.check_launch(rc, f"sparse_bwd_dq ({which} route)")
     LAUNCHES["sparse_bwd_dq"] += 1
+    LAUNCHES[f"sparse_bwd_dq_{which}"] += 1
     return dq
 
 
-def launch_dkv(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta, scale):
-    """One launch of the dkv kernel, counted. Returns (dk, dv)."""
+def launch_dkv(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta, scale, which=None):
+    """One launch of the dkv kernel, as `launch_dq`, counted under
+    LAUNCHES["sparse_bwd_dkv"] and LAUNCHES["sparse_bwd_dkv_<route>"].
+    Returns (dk, dv)."""
+    which = _pick("dkv", bwd_route(q, table), which, q, table, table.key_unions)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _lib().af2_sparse_bwd_dkv(*_bwd_ins(q, k, v, bias, table, g, lse, delta),
-                                   dk.data_ptr(), dv.data_ptr(),
-                                   *_shape_args(q, table, heads, scale))
-    cuda_build.check_launch(rc, "sparse_bwd_dkv")
+    ins, outs = _bwd_ins(q, k, v, bias, table, g, lse, delta), (dk.data_ptr(), dv.data_ptr())
+    if which == "wgmma":
+        rc = _lib().af2_sparse_bwd_dkv_wgmma(*ins[:7], *(t.data_ptr() for t in table.key_unions),
+                                             *outs, *_wgmma_tail(q, table, heads, scale))
+    else:
+        rc = _lib().af2_sparse_bwd_dkv(*ins, *outs, *_shape_args(q, table, heads, scale))
+    cuda_build.check_launch(rc, f"sparse_bwd_dkv ({which} route)")
     LAUNCHES["sparse_bwd_dkv"] += 1
+    LAUNCHES[f"sparse_bwd_dkv_{which}"] += 1
     return dk, dv
 
 

@@ -2,15 +2,16 @@
 
     python -m alphafold2_tpu_torch.telemetry.dkv_ablation [--baseline PATH] [--out PATH]
 
-Builds csrc/flash_bwd.cu and copies of it with one part changed or taken
-out (the results of a copy that drops work are wrong; only its time is
-read), times each at the trained bf16 dkv shapes (pair axial at crop 128
-and 256, the 2-D bias pair at crop 128, B3's ring gradient at the L = 128
-hop; dh = 64), and prints, from a copy with cycle counters, the cycles a
-64-query stage of one consumer thread in each warpgroup spends in each
-phase, the cycles a tile spends outside its stage loop (the key bias, the
-first stage's products and elementwise pass, the last stage's dV and dK,
-the epilogue), and the producer warp's:
+Builds csrc/flash_bwd.cu and copies of it whose dkv pipeline (the shared
+csrc/flash_bwd_dkv_wgmma.cuh, inlined into the copy) has one part changed
+or taken out (the results of a copy that drops work are wrong; only its
+time is read), times each at the trained bf16 dkv shapes (pair axial at
+crop 128 and 256, the 2-D bias pair at crop 128, B3's ring gradient at the
+L = 128 hop; dh = 64), and prints, from a copy with cycle counters, the
+cycles a 64-query stage of one consumer thread in each warpgroup spends in
+each phase, the cycles a tile spends outside its stage loop (the key bias,
+the first stage's products and elementwise pass, the last stage's dV and
+dK, the epilogue), and the producer warp's:
 
   base           the kernel as built for the port
   turns          the two warpgroups take turns at the elementwise pass (a
@@ -24,14 +25,17 @@ the epilogue), and the producer warp's:
   baseline       (--baseline PATH) another version of flash_bwd.cu, timed
                  on the same call
 
-Needs a CUDA device and nvcc; imports nothing of JAX. Writes the record as
-JSON to --out (default build/dkv_ablation.json).
+The block-sparse backward's tool (sparse_ablation --backward) puts the
+same counters into the sparse dkv kernel, and this module's `counters`
+into its dq pipeline. Needs a CUDA device and nvcc; imports nothing of JAX.
+Writes the record as JSON to --out (default build/dkv_ablation.json).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -44,6 +48,8 @@ from alphafold2_tpu_torch.ops import cuda_build, flash_kernel
 from alphafold2_tpu_torch.telemetry.flash_ablation import _replace, _time_ms
 
 SOURCE = cuda_build.CSRC / "flash_bwd.cu"
+HEADER = cuda_build.CSRC / "flash_bwd_dkv_wgmma.cuh"  # the pipeline the variants change
+INCLUDE = '#include "flash_bwd_dkv_wgmma.cuh"\n'
 WORK = cuda_build.BUILD_DIR.parent / "dkv_ablation"
 SHAPES = {  # (BH, i, j, 2-D bias), the trained bf16 dkv calls
     "pair axial L=256": (2048, 256, 256, False),
@@ -55,20 +61,21 @@ PHASES = ("wait for the stage (loads)", "issue the four products", "wait for S^T
           "elementwise", "wait for dV and dK", "pack P^T and dS^T, release")
 TILE_START = ("      for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;\n"
               "      const uint32_t kv = base + (n & 1) * L::kKV;\n")
-TILE_END = "      dkv(c);\n      wgmma_wait<0>();\n"
+TILE_END = "      dkv(c);\n      list_of(tile + gridDim.x);\n"
 STORES = ("          tma_store_3d(&tm_dk, st, 0, k0 + 64 * wg, bh);\n"
           "          tma_store_3d(&tm_dv, st + kKVTile, 0, k0 + 64 * wg, bh);\n")
 TILE_DONE = "        mbar_arrive(kvempty(n));\n      }\n"
 PRODUCER_END = ('      }\n    }\n  } else {\n'
                 '    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(L::kConsumerRegs));\n')
 
-LOOP = """        mbar_wait(full(c + 1), ring(c + 1));
+LOOP = """        on = mask_of(first + qq);
+        mbar_wait(full(c + 1), ring(c + 1));
         sdp(kv, c + 1);
         dkv(c);
         wgmma_wait<1>();  // the S^T and dP^T (groups retire in order)
         fence_regs(s);
         fence_regs(dp);
-        elementwise(c + 1);
+        elementwise(c + 1, on);
         wgmma_wait<0>();  // the dV and dK
         fence_regs(dk_acc);
         fence_regs(dv_acc);
@@ -78,7 +85,7 @@ LOOP = """        mbar_wait(full(c + 1), ring(c + 1));
         release(empty(c));
 """
 # the elementwise passes: a tile's first stage, its next stages
-PASSES = ("      elementwise(c);\n", "        elementwise(c + 1);\n")
+PASSES = ("      elementwise(c, on);\n", "        elementwise(c + 1, on);\n")
 TILES = "    int c = 0, n = 0;\n    for (int64_t tile"
 EX2 = "            const float p = ex2(fmaf(s[x], scale_log2, b) - (e ? l2.y : l2.x));\n"
 SS = ("        wgmma_m64n64k16_ss(s, gmma_desc(ka + 32 * ks, 16, 1024), "
@@ -96,17 +103,38 @@ TURNS = ('    auto turn_wait = [&]() { asm volatile("bar.sync %0, 256;\\n" ::"r"
          '    if (wg == 1) turn_pass();  // warpgroup 0 goes first\n')
 
 
-def _counters(src: str) -> str:
-    """The source with clock64 counters around the consumer's phases of each
-    stage (summed by the first thread of each warpgroup) and the producer's
-    (lane 0), read back by af2_ablation_counters and zeroed by
-    af2_ablation_reset: [block][wg * 8 + phase], [block][wg * 8 + 7] the
-    stages after a tile's first, [block][wg * 8 + 6] the cycles outside
-    the stage loop over [block][28 + wg] tiles, [block][24, 25] the
-    producer's waits and issues over [block][26] stages."""
-    head = ("template <bool BIAS2D>\n__global__ void "
-            "__launch_bounds__(DkvTile<BIAS2D>::kThreads, 1)\n")
-    src = _replace(src, head, "__device__ unsigned long long g_phase[1024][32];\n\n" + head)
+@dataclasses.dataclass(frozen=True)
+class Marks:
+    """Where a backward pipeline's counters go, as text of its header: the
+    function's head, its tile's start, the stage loop's head and body (and
+    the body's line index -> the phase it closes), the tile's last products
+    and its end (the producer's end is PRODUCER_END in both pipelines)."""
+
+    head: str
+    tile_start: str
+    loop_head: str
+    loop: str
+    marks: dict
+    tile_end: str
+    tile_done: str
+
+
+DKV = Marks(head="template <bool BIAS2D, bool LISTED>\n__device__ __forceinline__ void wgmma_dkv(",
+            tile_start=TILE_START,
+            loop_head="      for (int qq = 1; qq < count; ++qq, ++c) {\n",
+            loop=LOOP, marks={1: 0, 3: 1, 6: 2, 7: 3, 12: 4, 14: 5}, tile_end=TILE_END,
+            tile_done=TILE_DONE)
+
+
+def counters(header: str, at: Marks) -> str:
+    """The pipeline `header` with clock64 counters around the consumer's
+    phases of each stage (summed by the first thread of each warpgroup) and
+    the producer's (lane 0): g_phase[block][wg * 8 + phase],
+    [block][wg * 8 + 7] the stages after a tile's first, [block][wg * 8 +
+    6] the cycles outside the stage loop over [block][28 + wg] tiles,
+    [block][24, 25] the producer's waits and issues over [block][26]
+    stages (`tile_cycles`)."""
+    src = _replace(header, at.head, "__device__ unsigned long long g_phase[1024][32];\n\n" + at.head)
     src = _replace(src, "      int c = 0, n = 0;\n      for (int64_t tile",
                    "      unsigned long long P[3] = {0, 0, 0};\n      int c = 0, n = 0;\n"
                    "      for (int64_t tile")
@@ -122,54 +150,84 @@ def _counters(src: str) -> str:
                    "        g_phase[blockIdx.x][26] = P[2];\n"
                    "      }\n" + PRODUCER_END)
     src = _replace(src, TILES, "    unsigned long long T[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};\n" + TILES)
-    src = _replace(src, TILE_START, TILE_START + "      long long tt = clock64();\n")
-    src = _replace(src, "      for (int qq = 1; qq < nq; ++qq, ++c) {\n",
-                   "      T[6] += clock64() - tt;\n      for (int qq = 1; qq < nq; ++qq, ++c) {\n")
-    src = _replace(src, TILE_END, "      tt = clock64();\n" + TILE_END)
-    timed = LOOP.split("\n")[:-1]
-    marks = {0: 0, 2: 1, 5: 2, 6: 3, 11: 4, 13: 5}  # line index -> the phase it closes
+    src = _replace(src, at.tile_start, at.tile_start + "      long long tt = clock64();\n")
+    src = _replace(src, at.loop_head, "      T[6] += clock64() - tt;\n" + at.loop_head)
+    src = _replace(src, at.tile_end, "      tt = clock64();\n" + at.tile_end)
     body = ["        long long tc = clock64(), tn;"]
-    for n, line in enumerate(timed):
+    for n, line in enumerate(at.loop.split("\n")[:-1]):
         body.append(line)
-        if n in marks:
-            body.append(f"        tn = clock64();\n        T[{marks[n]}] += tn - tc;\n        tc = tn;")
+        if n in at.marks:
+            body.append(f"        tn = clock64();\n        T[{at.marks[n]}] += tn - tc;\n        tc = tn;")
     body.append("        T[7] += 1;")
-    src = _replace(src, LOOP, "\n".join(body) + "\n")
-    src = _replace(src, TILE_DONE, TILE_DONE + "      T[6] += clock64() - tt;\n      T[8] += 1;\n"
-                   "      if (threadIdx.x % 128 == 0 && blockIdx.x < 1024) {\n"
-                   "        for (int i = 0; i < 8; ++i) g_phase[blockIdx.x][8 * wg + i] = T[i];\n"
-                   "        g_phase[blockIdx.x][28 + wg] = T[8];\n"
-                   "      }\n")
-    return src + ("\nextern \"C\" int af2_ablation_counters(void* host) {\n"
-                  "  return (int)cudaMemcpyFromSymbol(host, g_phase, sizeof(g_phase));\n}\n"
-                  "\nextern \"C\" int af2_ablation_reset() {\n"
-                  "  static unsigned long long zero[1024][32];\n"
-                  "  return (int)cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));\n}\n")
+    src = _replace(src, at.loop, "\n".join(body) + "\n")
+    return _replace(src, at.tile_done, at.tile_done + "      T[6] += clock64() - tt;\n      T[8] += 1;\n"
+                    "      if (threadIdx.x % 128 == 0 && blockIdx.x < 1024) {\n"
+                    "        for (int i = 0; i < 8; ++i) g_phase[blockIdx.x][8 * wg + i] = T[i];\n"
+                    "        g_phase[blockIdx.x][28 + wg] = T[8];\n"
+                    "      }\n")
+
+
+def readback(namespace: str) -> str:
+    """The entry points that read `namespace`'s g_phase back
+    (af2_ablation_counters) and zero it (af2_ablation_reset)."""
+    table = f"{namespace}::g_phase"
+    return (f"\nextern \"C\" int af2_ablation_counters(void* host) {{\n"
+            f"  return (int)cudaMemcpyFromSymbol(host, {table}, sizeof({table}));\n}}\n"
+            "\nextern \"C\" int af2_ablation_reset() {\n"
+            "  static unsigned long long zero[1024][32];\n"
+            f"  return (int)cudaMemcpyToSymbol({table}, zero, sizeof(zero));\n}}\n")
+
+
+def inline(src: str, header: str, include: str = INCLUDE) -> str:
+    """`src` (a source that includes a shared pipeline) with the include
+    replaced by `header`, a changed copy of the pipeline."""
+    return _replace(src, include, header)
+
+
+def with_counters(src: str) -> str:
+    """`src` (flash_bwd.cu or sparse_attn.cu) with the dkv pipeline's
+    counters inlined, and their entry points."""
+    return inline(src, counters(HEADER.read_text(), DKV)) + readback("af2::dkv")
+
+
+def tile_cycles(phase: np.ndarray, phases: tuple) -> dict:
+    """The counters (`counters`' g_phase, 1024 x 32) as the cycles a stage
+    of each warpgroup's first thread spends in each of `phases`, the
+    producer's, and the cycles a tile spends outside its stage loop."""
+    per = phase[phase[:, 7] > 0].astype(np.float64).sum(0)
+    cycles = {f"wg{wg}": {p: per[8 * wg + n] / per[8 * wg + 7] for n, p in enumerate(phases)}
+              for wg in range(2) if per[8 * wg + 7] > 0}
+    if per[26] > 0:
+        cycles["producer"] = {"wait for an empty slot": per[24] / per[26],
+                              "scalars and TMA issue": per[25] / per[26]}
+    outside = {f"wg{wg}": per[8 * wg + 6] / per[28 + wg] for wg in range(2) if per[28 + wg] > 0}
+    return {"cycles_a_stage": cycles, "cycles_a_tile_outside_the_stage_loop": outside}
 
 
 def variants(baseline: Path = None) -> dict:
     """The copies to time, by name; `baseline` adds another version of
     flash_bwd.cu as it is."""
-    src = SOURCE.read_text()
-    turns = _replace(src, TILES, TURNS + TILES)
+    src, header = SOURCE.read_text(), HEADER.read_text()
+    turns = _replace(header, TILES, TURNS + TILES)
     for text in PASSES:
         pad = text[:len(text) - len(text.lstrip())]
         turns = _replace(turns, text, f"{pad}turn_wait();\n{text}{pad}turn_pass();\n")
-    no_ss, no_rs = src, src
+    no_ss, no_rs = header, header
     for text in SS:
         no_ss = _replace(no_ss, text, "")
     for text in RS:
         no_rs = _replace(no_rs, text, "")
     return {
         "base": src,
-        "turns": turns,
-        "no_overlap": _replace(src, "        wgmma_wait<1>();  // the S^T and dP^T (groups retire in order)\n",
-                               "        wgmma_wait<0>();\n"),
-        "no_ex2": _replace(src, EX2, EX2.replace("ex2(", "(")),
-        "no_ss": no_ss,
-        "no_rs": no_rs,
-        "no_store": _replace(src, STORES, ""),
-        "counters": _counters(src),
+        "turns": inline(src, turns),
+        "no_overlap": inline(src, _replace(
+            header, "        wgmma_wait<1>();  // the S^T and dP^T (groups retire in order)\n",
+            "        wgmma_wait<0>();\n")),
+        "no_ex2": inline(src, _replace(header, EX2, EX2.replace("ex2(", "("))),
+        "no_ss": inline(src, no_ss),
+        "no_rs": inline(src, no_rs),
+        "no_store": inline(src, _replace(header, STORES, "")),
+        "counters": with_counters(src),
         **({"baseline": Path(baseline).read_text()} if baseline else {}),
     }
 
@@ -227,17 +285,7 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         phase = np.zeros((1024, 32), dtype=np.uint64)
         counters.af2_ablation_counters(phase.ctypes.data)
-        blocks = phase[:, 7] > 0
-        per = phase[blocks].astype(np.float64).sum(0)
-        row["cycles_a_stage"] = {f"wg{wg}": {p: per[8 * wg + n] / per[8 * wg + 7]
-                                             for n, p in enumerate(PHASES)}
-                                 for wg in range(2) if per[8 * wg + 7] > 0}
-        row["cycles_a_tile_outside_the_stage_loop"] = {
-            f"wg{wg}": per[8 * wg + 6] / per[28 + wg] for wg in range(2) if per[28 + wg] > 0}
-        if per[26] > 0:
-            row["cycles_a_stage"]["producer"] = {
-                "wait for an empty slot": per[24] / per[26],
-                "lse and delta copies, TMA issue": per[25] / per[26]}
+        row.update(tile_cycles(phase, PHASES))
         rows.append(row)
         print(f"[dkv ablation] {label:26s} " + " ".join(
             f"{name}={row[name]:.4f}" for name in libs if name != "counters") + " ms")

@@ -1,6 +1,7 @@
-"""Where the time of the block-sparse forward (B5f) goes, on the card.
+"""Where the time of the block-sparse kernels (B5f, B5 dq, B5 dkv) goes, on the card.
 
     python -m alphafold2_tpu_torch.telemetry.sparse_ablation [--baseline PATH] [--out PATH]
+    python -m alphafold2_tpu_torch.telemetry.sparse_ablation --backward [--out PATH]
 
 Builds csrc/sparse_attn.cu and copies of it whose wgmma pipeline (the
 shared csrc/flash_fwd_wgmma.cuh, inlined into the copy) has one part
@@ -23,8 +24,19 @@ producer warp's:
   baseline       (--baseline PATH) another version of sparse_attn.cu: its
                  af2_sparse_fwd (the mma_sync route), timed on the same call
 
+With --backward it times B5 dq and B5 dkv at the same shapes on both
+routes, wgmma and mma_sync, beside the flash backward's dense wgmma dkv
+kernel on the dense pass of each shape (every key block active), and from
+copies of sparse_attn.cu with cycle counters in the dkv pipeline
+(csrc/flash_bwd_dkv_wgmma.cuh, dkv_ablation's counters) or the dq pipeline
+(csrc/flash_bwd_dq_wgmma.cuh) prints the cycles a stage of one consumer
+thread in each warpgroup spends in each phase (a dq stage is two 64-key
+halves), the producer's, and the cycles a tile spends outside its stage
+loop.
+
 Needs a CUDA device and nvcc; imports nothing of JAX. Writes the record as
-JSON to --out (default build/sparse_ablation.json).
+JSON to --out (default build/sparse_ablation.json, or
+build/sparse_bwd_ablation.json with --backward).
 """
 
 from __future__ import annotations
@@ -39,7 +51,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from alphafold2_tpu_torch.ops import cuda_build, sparse
+from alphafold2_tpu_torch.ops import cuda_build, flash_kernel, sparse, sparse_kernel
+from alphafold2_tpu_torch.telemetry import dkv_ablation
 from alphafold2_tpu_torch.telemetry.flash_ablation import (
     EX2,
     HEADER,
@@ -60,6 +73,43 @@ SHAPES = {  # (batch, heads, n, max_seq_len): B5f's bf16 calls
     "long n=8192": (1, 4, 8192, 2048),
 }
 MASK = "        const bool live = !LISTED || ((on >> (j / 2)) & 1u);\n"
+DQ_HEADER = cuda_build.CSRC / "flash_bwd_dq_wgmma.cuh"
+DQ_INCLUDE = '#include "flash_bwd_dq_wgmma.cuh"\n'
+DQ_PHASES = ("wait for the stage (loads)", "issue S, dP and dS.K", "wait for S and dP",
+             "elementwise", "wait for dS.K", "pack dS, release")
+DQ_LOOP = """        on = mask_of(first + kk);
+        mbar_wait(full(c + 1), ring(c + 1));
+        sdp(qa, c + 1, 0);
+        dsk(c, 1);
+        wgmma_wait<1>();
+        fence_regs(s);
+        fence_regs(dp);
+        elementwise(c + 1, 0, on);
+        wgmma_wait<0>();
+        fence_regs(dq_acc);
+        fence_regs(da);
+        pack();
+        release(empty(c));
+        sdp(qa, c + 1, 1);
+        dsk(c + 1, 0);
+        wgmma_wait<1>();
+        fence_regs(s);
+        fence_regs(dp);
+        elementwise(c + 1, 1, on);
+        wgmma_wait<0>();
+        fence_regs(dq_acc);
+        fence_regs(da);
+        pack();
+"""
+# the dq pipeline's counters: a stage's two halves add into the same phases
+DQ = dkv_ablation.Marks(
+    head="template <bool LISTED>\n__device__ __forceinline__ void wgmma_dq(",
+    tile_start=("      for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;\n"
+                "      const uint32_t qa = base + (n & 1) * L::kQG + wg * kHalfBytes;\n"),
+    loop_head="      for (int kk = 1; kk < count; ++kk, ++c) {\n", loop=DQ_LOOP,
+    marks={1: 0, 3: 1, 6: 2, 7: 3, 10: 4, 12: 5, 14: 1, 17: 2, 18: 3, 21: 4, 22: 5},
+    tile_end="      dsk(c, 1);\n      list_of(tile + gridDim.x);\n",
+    tile_done="        mbar_arrive(qempty(n));\n      }\n")
 
 
 def variants(baseline: Path = None) -> dict:
@@ -76,6 +126,16 @@ def variants(baseline: Path = None) -> dict:
     }
 
 
+def backward_variants() -> dict:
+    """sparse_attn.cu with the counters in its dkv or its dq pipeline."""
+    src = SOURCE.read_text()
+    return {
+        "dkv_counters": dkv_ablation.with_counters(src),
+        "dq_counters": dkv_ablation.inline(src, dkv_ablation.counters(DQ_HEADER.read_text(), DQ),
+                                           DQ_INCLUDE) + dkv_ablation.readback("af2::dq"),
+    }
+
+
 def build(sources: dict) -> dict:
     """One nvcc a variant, all started together; the loaded libraries."""
     libs = {}
@@ -89,6 +149,9 @@ def build(sources: dict) -> dict:
         if name != "baseline":
             lib.af2_sparse_fwd_wgmma.argtypes = [p] * 10 + [i64] * 3 + [f32, p]
             lib.af2_sparse_fwd_wgmma.restype = i32
+            lib.af2_sparse_bwd_dq_wgmma.argtypes = [p] * 10 + [i64] * 3 + [f32, p]
+            lib.af2_sparse_bwd_dkv_wgmma.argtypes = [p] * 11 + [i64] * 3 + [f32, p]
+            lib.af2_sparse_bwd_dq_wgmma.restype = lib.af2_sparse_bwd_dkv_wgmma.restype = i32
         libs[name] = lib
     return libs
 
@@ -129,18 +192,88 @@ def _launchers(lib, q, k, v, bias, table, heads, routes=("wgmma", "mma_sync")):
             if name in routes}
 
 
+def _counted(lib, launch) -> np.ndarray:
+    """The g_phase table of one `launch` of a counters copy."""
+    if lib.af2_ablation_reset() != 0:
+        raise RuntimeError("the counters variant failed to reset")
+    launch()
+    torch.cuda.synchronize()
+    phase = np.zeros((1024, 32), dtype=np.uint64)
+    lib.af2_ablation_counters(phase.ctypes.data)
+    return phase
+
+
+def backward() -> list:
+    """The --backward rows: B5 dq and dkv on both routes and the dense dkv
+    kernel, timed on the same call, and the two pipelines' cycles."""
+    libs = build(backward_variants())
+    for lib in libs.values():
+        lib.af2_ablation_counters.argtypes = [ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for label, (b, heads, n, msl) in SHAPES.items():
+        q, k, v, bias, table = _inputs(b, heads, n, msl)
+        do = torch.randn_like(q)
+        out, lse = sparse_kernel.sparse_fwd(q, k, v, bias, table, heads, 0.125)
+        delta = flash_kernel.cotangent_terms(out, do)[1]
+        args = (q, k, v, bias, table, heads, lse, do, delta, 0.125)
+        row = {"case": label, "shape": [b * heads, n, 64],
+               "active": table.nnz / table.n_blocks ** 2, "times_ms": {}}
+        for which in ("wgmma", "mma_sync"):
+            row["times_ms"][f"dq {which}"] = _time_ms(
+                lambda: sparse_kernel.launch_dq(*args, which=which), 20)
+            row["times_ms"][f"dkv {which}"] = _time_ms(
+                lambda: sparse_kernel.launch_dkv(*args, which=which), 20)
+        dense_bias = bias[torch.arange(b * heads, device="cuda") // heads].contiguous()
+        row["times_ms"]["dense dkv wgmma"] = _time_ms(lambda: flash_kernel.launch_dkv(
+            q, k, v, dense_bias, lse, do, delta, 0.125, "flash_bwd_dkv"), 20)
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), do.data_ptr(),
+               lse.data_ptr(), delta.data_ptr())
+        tail = (b * heads, heads, table.n_blocks, 0.125, stream)
+        dq, dk = torch.empty_like(q), torch.empty_like(k)
+        dv = torch.empty_like(v)
+        lib = libs["dkv_counters"]
+        row["dkv"] = dkv_ablation.tile_cycles(_counted(lib, lambda: cuda_build.check_launch(
+            lib.af2_sparse_bwd_dkv_wgmma(*ins, *(t.data_ptr() for t in table.key_unions),
+                                         dk.data_ptr(), dv.data_ptr(), *tail), "dkv")),
+            dkv_ablation.PHASES)
+        lib = libs["dq_counters"]
+        row["dq"] = dkv_ablation.tile_cycles(_counted(lib, lambda: cuda_build.check_launch(
+            lib.af2_sparse_bwd_dq_wgmma(*ins, *(t.data_ptr() for t in table.unions[:2]),
+                                        dq.data_ptr(), *tail), "dq")), DQ_PHASES)
+        rows.append(row)
+        print(f"[sparse bwd ablation] {label:28s} " + " ".join(
+            f"{name}={t:.4f}" for name, t in row["times_ms"].items()) + " ms")
+        for kernel in ("dkv", "dq"):
+            for who, phases in row[kernel]["cycles_a_stage"].items():
+                print(f"[sparse bwd ablation]   {kernel} {who} cycles a stage: " + ", ".join(
+                    f"{p} {c:.0f}" for p, c in phases.items()))
+            print(f"[sparse bwd ablation]   {kernel} cycles a tile outside the stage loop: "
+                  + ", ".join(f"{who} {c:.0f}" for who, c in
+                              row[kernel]["cycles_a_tile_outside_the_stage_loop"].items()))
+    return rows
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, default=None,
                     help="another sparse_attn.cu to time beside the variants")
-    ap.add_argument("--out", type=Path, default=WORK.parent / "sparse_ablation.json",
-                    help="the JSON record")
+    ap.add_argument("--backward", action="store_true",
+                    help="B5 dq and B5 dkv instead of the forward")
+    ap.add_argument("--out", type=Path, default=None,
+                    help="the JSON record (default build/sparse[_bwd]_ablation.json)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("sparse_ablation needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"[sparse ablation] {card}")
+    out = opts.out or WORK.parent / ("sparse_bwd_ablation.json" if opts.backward
+                                     else "sparse_ablation.json")
+    if opts.backward:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"card": card, "rows": backward()}, indent=1))
+        return
     libs = build(variants(opts.baseline))
     counters = libs["counters"]
     counters.af2_ablation_counters.argtypes = [ctypes.c_void_p]
@@ -170,8 +303,8 @@ def main(argv=None) -> None:
         for who, phases in row["cycles_a_stage"].items():
             print(f"[sparse ablation]   {who} cycles a stage: " + ", ".join(
                 f"{p} {c:.0f}" for p, c in phases.items()))
-    opts.out.parent.mkdir(parents=True, exist_ok=True)
-    opts.out.write_text(json.dumps({"card": card, "rows": rows}, indent=1))
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"card": card, "rows": rows}, indent=1))
 
 
 if __name__ == "__main__":

@@ -34,9 +34,10 @@ each phase prints its seconds):
      n = 8; f32), each row naming its route; the
      block-sparse forward and backward (B5) at the sparse request's pair
      axial shape (L = 384), the sparse train step's (crop 256) and n = 4096,
-     B5f on its wgmma route, checked and timed again on the mma_sync
-     route, beside B1f on the dense pass of the same shape; n = 1024 with
-     a masked batch element; block sizes 32-128,
+     B5f, B5 dq and B5 dkv on their wgmma routes, checked and timed again
+     on the mma_sync routes, beside B1f and the dense dkv kernel on the
+     dense pass of the same shape; n = 1024 with a masked batch element and
+     n = 400 (ragged tiles; both on the wgmma routes); block sizes 32-128,
      head widths 16 and 32 (mma_sync), f32 and a ragged length; the lse flash kernel (B3)
      at the SP request's ring-hop shape (L = 384, 4 shards: 8 x 1,920 x
      36,864; timed unmasked, checked again with one (bh) row fully
@@ -72,7 +73,8 @@ each phase prints its seconds):
          forward and dkv launch on its wgmma route);
      (c) the same with attn_gate=True at L = 128: the fused pair only;
      (e) the same sparse at L = 256 (max_seq_len 256): the three sparse
-         kernels only, every B5f launch on its wgmma route;
+         kernels only, every B5f, B5 dq and B5 dkv launch on its wgmma
+         route;
      (f) make_train_step refuses an int8 config;
      (d) 30 steps on one repeated batch at lr 1e-3 lower the loss;
   7. sequence-parallel serving (`parallel/sp_trunk.py alphafold2_apply_sp`,
@@ -289,23 +291,29 @@ def bound_terms(q, k, v, bias, gate):
     return flops / PEAK_FLOPS[q.dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def sdpa_mask_ms(q, k, v, mask, scale, reps, g=None, wrt=None):
+def sdpa_mask_ms(q, k, v, mask, scale, reps, g=None, wrt=None, mask_grad=False):
     """F.scaled_dot_product_attention with `mask` (additive, or boolean),
     forward, or with `wrt` its backward alone for the gradients "q", "kv"
-    or "qkv" on a retained graph: a yardstick the port never calls. None
-    when no fused backend takes the shape."""
+    or "qkv" on a retained graph: a yardstick the port never calls. With
+    `mask_grad` the additive mask requires grad, so the backward also
+    computes the mask's gradient (the 2-D bias's d_bias, which B2b's dq
+    kernel writes: "q" and "qkv" take it). None when no fused backend takes
+    the shape."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     fused_only = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.FLASH_ATTENTION,
                   SDPBackend.CUDNN_ATTENTION]
     q4, k4, v4 = (t.detach().unsqueeze(0).requires_grad_(wrt is not None) for t in (q, k, v))
+    if mask_grad:
+        mask = mask.detach().requires_grad_(True)
     try:
         with sdpa_kernel(fused_only):
             if wrt is None:
                 return time_ms(lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, attn_mask=mask, scale=scale), reps)
             out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)
-            inputs = {"q": (q4,), "kv": (k4, v4), "qkv": (q4, k4, v4)}[wrt]
+            extra = (mask,) if mask_grad else ()
+            inputs = {"q": (q4,) + extra, "kv": (k4, v4), "qkv": (q4, k4, v4) + extra}[wrt]
             return time_ms(lambda: torch.autograd.grad(out, inputs, g[None],
                                                        retain_graph=True), reps)
     except RuntimeError as e:  # no fused backend takes this shape: no yardstick
@@ -551,9 +559,11 @@ def sparse_bwd_bf16_bound(q, k, v, bias, table, heads, out, lse, g, scale):
 def sdpa_backward_ms(q, k, v, bias, g, scale, wrt, reps):
     """The backward alone of F.scaled_dot_product_attention with the same
     additive mask, for the gradients `wrt` ("q", "kv" or "qkv"), on a
-    retained graph (a yardstick; the port never calls it). None when no fused
-    backend takes the shape."""
-    return sdpa_mask_ms(q, k, v, dense_mask(q, k, bias), scale, reps, g, wrt)
+    retained graph (a yardstick; the port never calls it); a 2-D bias's mask
+    requires grad (the memory-efficient backend differentiates it). None
+    when no fused backend takes the shape or that gradient."""
+    return sdpa_mask_ms(q, k, v, dense_mask(q, k, bias), scale, reps, g, wrt,
+                        mask_grad=bias.dim() == 3)
 
 
 def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
@@ -1037,8 +1047,11 @@ def sparse_bound_terms(q, bias, table, kind):
 
 def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=()):
     """B5f, B5 dq and B5 dkv on the card against sparse_fwd_plain and
-    sparse_bwd_plain, B5f on the route `sparse_kernel.route` picks and,
-    where that is wgmma, on the mma_sync route too. Tolerances: the
+    sparse_bwd_plain, each on the route `sparse_kernel.route` /
+    `bwd_route` picks and, where that is wgmma, on the mma_sync route too,
+    on the same inputs. Timed on the picked and the mma_sync routes, beside
+    B1f's forward and the dense dkv kernel on the dense pass of the same
+    shape (every key block active). Tolerances: the
     forward's are B1's (f32 1e-5 * max(1, max|ref|); bf16 one bf16 ulp of
     the largest output; lse 1e-4); the backward's f32 1e-5 * max(1,
     max|ref|) and bf16 `sparse_bwd_bf16_bound` (flash_bwd_bf16_bound of the
@@ -1049,13 +1062,15 @@ def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=()):
     scale = dh ** -0.5
     args = (q, k, v, bias, table, heads)
     which = sparse_kernel.route(q, table)
+    bwd_which = sparse_kernel.bwd_route(q, table)
     before = dict(sparse_kernel.LAUNCHES)
     out, lse = sparse_kernel.sparse_fwd(*args, scale)
     dq, dk, dv = sparse_kernel.sparse_bwd(*args, out, lse, do, scale)
     sync()
-    counted = ("sparse_fwd", f"sparse_fwd_{which}", "sparse_bwd_dq", "sparse_bwd_dkv")
+    counted = ("sparse_fwd", f"sparse_fwd_{which}", "sparse_bwd_dq", "sparse_bwd_dkv",
+               f"sparse_bwd_dq_{bwd_which}", f"sparse_bwd_dkv_{bwd_which}")
     if any(sparse_kernel.LAUNCHES[name] - before[name] != int(name in counted) for name in before):
-        fail(f"the sparse kernels did not count their launches ({which} route)")
+        fail(f"the sparse kernels did not count their launches ({which}, {bwd_which} routes)")
     ref_out, ref_lse = sparse_kernel.sparse_fwd_plain(*args, scale)
     ref_max = ref_out.float().abs().max().item()
     tol = 1e-5 * max(1.0, ref_max) if dtype == torch.float32 else BF16_ULP * ref_max
@@ -1081,43 +1096,65 @@ def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=()):
         bounds = [1e-5 * max(1.0, r.abs().max().item()) for r in ref]
     else:
         bounds = sparse_bwd_bf16_bound(*args, out, lse, do, scale)
-    errs, ratios = [], []
-    for got, want, bound in zip((dq, dk, dv), ref, bounds):
-        diff = (got.float() - want.float()).abs()
-        bound = torch.as_tensor(bound, device=diff.device)
-        errs.append(diff.max().item())
-        ratio = torch.where(bound > 0, diff / bound, torch.where(diff > 0, math.inf, 0.0))
-        ratios.append(ratio.max().item())
-        ok = ok and bool(torch.isfinite(got).all())
+    delta = flash_kernel.cotangent_terms(out, do)[1]
+    bwd = (q, k, v, bias, table, heads, lse, do, delta, scale)
+    # on the wgmma routes: the backward route they replaced, on the same call
+    grads = {bwd_which: (dq, dk, dv)}
+    if bwd_which == "wgmma":
+        grads["mma_sync"] = ((sparse_kernel.launch_dq(*bwd, which="mma_sync"),)
+                             + sparse_kernel.launch_dkv(*bwd, which="mma_sync"))
+    bwd_errs, ratios = {}, []
+    for name, got_grads in grads.items():
+        errs = []
+        for got, want, bound in zip(got_grads, ref, bounds):
+            diff = (got.float() - want.float()).abs()
+            bound = torch.as_tensor(bound, device=diff.device)
+            errs.append(diff.max().item())
+            ratio = torch.where(bound > 0, diff / bound, torch.where(diff > 0, math.inf, 0.0))
+            ratios.append(ratio.max().item())
+            ok = ok and bool(torch.isfinite(got).all())
+        bwd_errs[name] = errs
+        for i in masked_b:
+            rows = slice(i * heads, (i + 1) * heads)
+            ok = ok and all(bool((t[rows] == 0).all()) for t in got_grads)
     ok = ok and all(r <= 1.0 for r in ratios)
+    errs = bwd_errs[bwd_which]
     for i in masked_b:
         rows = slice(i * heads, (i + 1) * heads)
-        ok = ok and all(bool((t[rows] == 0).all()) for t in (out, dq, dk, dv)) \
-            and bool(torch.isposinf(lse[rows]).all())
-    del ref, bounds
+        ok = ok and bool((out[rows] == 0).all()) and bool(torch.isposinf(lse[rows]).all())
+    del ref, bounds, grads
     row = {"case": label, "shape": [b * heads, n, dh], "block_size": scfg.block_size,
            "dtype": str(dtype), "active": table.nnz / table.n_blocks ** 2, "route": which,
            "fwd_err": err, "lse_err": lse_err,
            **{f"{name}_fwd_err": e for name, (e, _) in other.items()},
            **{f"{name}_lse_err": le for name, (_, le) in other.items()},
-           "dq_err": errs[0], "dkv_err": max(errs[1:]), "bound_ratio": max(ratios),
-           "ok": bool(ok)}
+           "bwd_route": bwd_which, "dq_err": errs[0], "dkv_err": max(errs[1:]),
+           **{f"{name}_dq_err": e[0] for name, e in bwd_errs.items() if name != bwd_which},
+           **{f"{name}_dkv_err": max(e[1:]) for name, e in bwd_errs.items() if name != bwd_which},
+           "bound_ratio": max(ratios), "ok": bool(ok)}
     if timed:
-        delta = flash_kernel.cotangent_terms(out, do)[1]
-        bwd = (q, k, v, bias, table, heads, lse, do, delta, scale)
         reps = 10
         row["fwd_ms"] = time_ms(lambda: sparse_kernel.sparse_fwd(*args, scale), reps)
         for name, kw in others.items():
             row[f"fwd_{name}_ms"] = time_ms(
                 lambda kw=kw: sparse_kernel.sparse_fwd(*args, scale, **kw), reps)
         if which == "wgmma":
-            # B1f on the dense pass of the same shape (every key block active)
+            # B1f and the dense dkv kernel on the dense pass of the same shape
+            # (every key block active)
             dense_bias = bias[torch.arange(b * heads, device="cuda") // heads].contiguous()
             row["fwd_dense_b1f_ms"] = time_ms(
                 lambda: flash_kernel.flash_fwd(q, k, v, dense_bias, scale), reps)
-            del dense_bias
+            dense_lse = flash_kernel.flash_fwd(q, k, v, dense_bias, scale)[1]
+            row["dkv_dense_ms"] = time_ms(lambda: flash_kernel.launch_dkv(
+                q, k, v, dense_bias, dense_lse, do, delta, scale, "flash_bwd_dkv"), reps)
+            del dense_bias, dense_lse
         row["dq_ms"] = time_ms(lambda: sparse_kernel.launch_dq(*bwd), reps)
         row["dkv_ms"] = time_ms(lambda: sparse_kernel.launch_dkv(*bwd), reps)
+        if bwd_which == "wgmma":
+            row["dq_mma_sync_ms"] = time_ms(
+                lambda: sparse_kernel.launch_dq(*bwd, which="mma_sync"), reps)
+            row["dkv_mma_sync_ms"] = time_ms(
+                lambda: sparse_kernel.launch_dkv(*bwd, which="mma_sync"), reps)
         row["fwd_plain_ms"] = time_ms(lambda: sparse_kernel.sparse_fwd_plain(*args, scale), 2)
         row["dq_plain_ms"] = time_ms(lambda: sparse_kernel.sparse_bwd_dq_plain(*bwd), 2)
         row["dkv_plain_ms"] = time_ms(lambda: sparse_kernel.sparse_bwd_dkv_plain(*bwd), 2)
@@ -1133,18 +1170,20 @@ def check_sparse(label, b, heads, n, dh, dtype, scfg, *, timed, masked_b=()):
             row[f"{kind}_bound_ms"] = max(t_ops, t_bytes)
     times = "".join(f" {key}={row[key]:.3f}" for key in
                     ("fwd_ms", "fwd_mma_sync_ms",
-                     "fwd_dense_b1f_ms", "dq_ms", "dkv_ms",
-                     "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms", "dq_bound_ms",
-                     "dkv_bound_ms")
+                     "fwd_dense_b1f_ms", "dq_ms", "dq_mma_sync_ms", "dkv_ms", "dkv_mma_sync_ms",
+                     "dkv_dense_ms", "fwd_plain_ms", "fwd_library_ms", "dq_library_ms",
+                     "dkv_library_ms", "fwd_bound_ms", "dq_bound_ms", "dkv_bound_ms")
                     if row.get(key) is not None)
     sync_err = "".join(f" {name} fwd|d|={e:.2e} lse|d|={le:.1e}"
                        for name, (e, le) in other.items())
+    sync_err += "".join(f" {name} dq|d|={e[0]:.2e} dkv|d|={max(e[1:]):.2e}"
+                        for name, e in bwd_errs.items() if name != bwd_which)
     log(f"[sparse] {label:20s} {str(tuple(row['shape'])):18s} bs {scfg.block_size:3d} "
-        f"{str(dtype).split('.')[-1]:8s} active {row['active']:.2f} {which} fwd|d|={err:.2e} "
-        f"(tol {tol:.2e}) lse|d|={lse_err:.1e}{sync_err} dq|d|={errs[0]:.2e} "
-        f"dkv|d|={max(errs[1:]):.2e} (bound ratio {max(ratios):.3f}){times} "
+        f"{str(dtype).split('.')[-1]:8s} active {row['active']:.2f} {which}/{bwd_which} "
+        f"fwd|d|={err:.2e} (tol {tol:.2e}) lse|d|={lse_err:.1e} dq|d|={errs[0]:.2e} "
+        f"dkv|d|={max(errs[1:]):.2e}{sync_err} (bound ratio {max(ratios):.3f}){times} "
         f"{'ok' if ok else 'FAIL'}")
-    del q, k, v, do, bias, out, lse, dq, dk, dv
+    del q, k, v, do, bias, out, lse, dq, dk, dv, delta, bwd
     torch.cuda.empty_cache()
     return row
 
@@ -1196,10 +1235,16 @@ def phase_sparse_kernels():
         check_sparse("masked element n=1024", 3, 2, 1024, 64, torch.bfloat16,
                      sparse.SparseConfig(block_size=16, max_seq_len=512), timed=False,
                      masked_b=(1,)),
+        # 25 blocks: a ragged last key tile, query stage and query tile
+        check_sparse("ragged n=400", 3, 2, 400, 64, torch.bfloat16,
+                     sparse.SparseConfig(block_size=16, max_seq_len=512), timed=False,
+                     masked_b=(1,)),
     ]
-    off = [r["case"] for r in rows if r["route"] != "wgmma"]
+    off = [f"{r['case']} ({r['route']}, {r['bwd_route']})" for r in rows
+           if "wgmma" != r["route"] or "wgmma" != r["bwd_route"]]
     if off:
-        fail("B5f's bf16 dh 64 bs 16 rows off the wgmma route: " + ", ".join(off))
+        fail("bf16 dh 64 bs 16 rows of B5f, B5 dq or B5 dkv off the wgmma route: "
+             + ", ".join(off))
     edges = [
         ("bs 32", 4, 2, 384, 64, torch.bfloat16, 32, 384, (1,)),
         ("bs 64", 4, 2, 512, 64, torch.bfloat16, 64, 512, ()),
@@ -1576,7 +1621,8 @@ def phase_train():
     phase_train_parity("a sparse", dataclasses.replace(f32, max_seq_len=128,
                                                        sparse_self_attn=True), 128,
                        {name: three for name in ("sparse_fwd", "sparse_fwd_f32", "sparse_bwd_dq",
-                                                 "sparse_bwd_dkv")})
+                                                 "sparse_bwd_dkv", "sparse_bwd_dq_f32",
+                                                 "sparse_bwd_dkv_f32")})
     tcfg = TrainConfig(grad_accum=16)
     cfg = Alphafold2Config(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=2048,
                            dtype=torch.bfloat16)
@@ -1594,10 +1640,12 @@ def phase_train():
                        "flash_bwd_fused_dkv": per, "flash_bwd_dkv_wgmma": per})
     # train_pre's defaults, sparse, at crop 256 with max_seq_len 256: 66% of
     # the 16 blocks active (train_pre's own 2048 would make every block
-    # active); every B5f launch on the wgmma route
+    # active); every B5f, B5 dq and B5 dkv launch on the wgmma route
     sparse_run = train_run("e", dataclasses.replace(cfg, sparse_self_attn=True, max_seq_len=256),
                            256, tcfg, 3, {"sparse_fwd": per, "sparse_fwd_wgmma": per,
-                                          "sparse_bwd_dq": per, "sparse_bwd_dkv": per})
+                                          "sparse_bwd_dq": per, "sparse_bwd_dkv": per,
+                                          "sparse_bwd_dq_wgmma": per,
+                                          "sparse_bwd_dkv_wgmma": per})
     int8_cfg = dataclasses.replace(cfg, weight_dtype="int8")
     try:
         make_train_step(int8_cfg, tcfg, device="cuda")

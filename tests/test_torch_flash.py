@@ -513,9 +513,10 @@ def test_launch_dkv_checks_its_grid_against_j():
 
 
 def test_dkv_ablation_variants_match_the_source():
-    """The dkv ablation tool's copies of csrc/flash_bwd.cu are cut from the
-    source's own text: each fragment it changes is still there once, and
-    every copy differs from the others."""
+    """The dkv ablation tool's copies of csrc/flash_bwd.cu inline the shared
+    dkv pipeline (csrc/flash_bwd_dkv_wgmma.cuh) cut from its own text: each
+    fragment it changes is still there once, and every copy differs from
+    the others."""
     from alphafold2_tpu_torch.telemetry import dkv_ablation
 
     sources = dkv_ablation.variants()
@@ -525,7 +526,10 @@ def test_dkv_ablation_variants_match_the_source():
     assert sources["base"] == (cuda_build.CSRC / "flash_bwd.cu").read_text()
     assert "af2_ablation_counters" in sources["counters"]
     assert sources["counters"].count("T[7] += 1;") == 1
-    assert "wgmma_m64n64k16_ss(" not in sources["no_ss"].split("flash_bwd_dkv_wgmma_kernel(")[1]
+    for name in set(sources) - {"base"}:
+        assert '#include "flash_bwd_dkv_wgmma.cuh"' not in sources[name]
+        assert "void wgmma_dkv(" in sources[name]
+    assert "wgmma_m64n64k16_ss(" not in sources["no_ss"]
     assert sources["turns"].count("turn_wait();") == 2
     base = cuda_build.CSRC / "flash_fwd.cu"
     assert dkv_ablation.variants(base)["baseline"] == base.read_text()

@@ -419,7 +419,9 @@ def test_sparse_kernels_match_plain_on_card(cuda_device, bs, dh, dtype):
     out, lse = sk.sparse_fwd(q, k, v, bias, table, heads, scale)
     dq, dk, dv = sk.sparse_bwd(q, k, v, bias, table, heads, out, lse, g, scale)
     torch.cuda.synchronize()
-    counted = ("sparse_fwd", f"sparse_fwd_{sk.route(q, table)}", "sparse_bwd_dq", "sparse_bwd_dkv")
+    which = sk.bwd_route(q, table)
+    counted = ("sparse_fwd", f"sparse_fwd_{sk.route(q, table)}", "sparse_bwd_dq", "sparse_bwd_dkv",
+               f"sparse_bwd_dq_{which}", f"sparse_bwd_dkv_{which}")
     assert {name: sk.LAUNCHES[name] - before[name] for name in before} == {
         name: int(name in counted) for name in before}
     ref_out, ref_lse = sk.sparse_fwd_plain(q, k, v, bias, table, heads, scale)
@@ -497,6 +499,64 @@ def test_sparse_wgmma_route_matches_plain_on_card(cuda_device, case):
         assert (out[rows] == 0).all() and torch.isposinf(lse[rows]).all()
     again = sk.sparse_fwd(q, k, v, bias, table, heads, 0.125)
     assert torch.equal(again[0], out) and torch.equal(again[1], lse)  # deterministic
+
+
+# the backward's wgmma route's cases: (b, heads, n, max_seq_len, masked batch elements)
+BWD_WGMMA_CASES = {
+    "trained pair axial (2048, 256, 64)": (256, 8, 256, 256, ()),
+    "global row (8, 4096, 64)": (1, 8, 4096, 2048, ()),
+    "masked element n 1024": (3, 2, 1024, 512, (1,)),
+    "ragged n 400 (25 blocks)": (3, 2, 400, 512, (1,)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BWD_WGMMA_CASES))
+def test_sparse_bwd_routes_match_plain_on_card(cuda_device, case):
+    """B5 dq and B5 dkv on both bf16 routes, wgmma (which `bwd_route`
+    picks: a tile's listed stages, the unattended pairs masked) and
+    mma_sync, on the same inputs against `sparse_bwd_dq_plain` and
+    `sparse_bwd_dkv_plain` under phase 3's bound
+    (`chip_smoke.sparse_bwd_bf16_bound`); the masked batch elements give
+    exact zeros; each launch counted under its route; the wgmma route is
+    deterministic."""
+    from alphafold2_tpu_torch.ops import sparse, sparse_kernel as sk
+    from chip_smoke import sparse_bwd_bf16_bound
+
+    b, heads, n, msl, masked = BWD_WGMMA_CASES[case]
+    rng = np.random.default_rng(5)
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
+        cuda_device, torch.bfloat16)
+    q, k, v, g = (t(b * heads, n, 64) for _ in range(4))
+    keep = rng.random((b, n)) >= 0.05
+    keep[:, 0] = True
+    for i in masked:
+        keep[i] = False
+    bias = torch.from_numpy(np.where(keep, 0.0, -np.inf).astype(np.float32)).to(cuda_device)
+    table = sparse.kernel_table(n // 16, sparse.SparseConfig(block_size=16, max_seq_len=msl),
+                                str(cuda_device))
+    assert sk.bwd_route(q, table) == "wgmma"
+    out, lse = sk.sparse_fwd(q, k, v, bias, table, heads, 0.125)
+    delta = flash_kernel.cotangent_terms(out, g)[1]
+    args = (q, k, v, bias, table, heads, lse, g, delta, 0.125)
+    refs = (sk.sparse_bwd_dq_plain(*args),) + sk.sparse_bwd_dkv_plain(*args)
+    bounds = sparse_bwd_bf16_bound(q, k, v, bias, table, heads, out, lse, g, 0.125)
+    for which in ("wgmma", "mma_sync"):
+        before = dict(sk.LAUNCHES)
+        grads = (sk.launch_dq(*args, which=which),) + sk.launch_dkv(*args, which=which)
+        torch.cuda.synchronize()
+        counted = ("sparse_bwd_dq", "sparse_bwd_dkv", f"sparse_bwd_dq_{which}",
+                   f"sparse_bwd_dkv_{which}")
+        assert {name: sk.LAUNCHES[name] - before[name] for name in before} == {
+            name: int(name in counted) for name in before}
+        for got, want, bound in zip(grads, refs, bounds):
+            assert torch.isfinite(got).all()
+            assert ((got.float() - want.float()).abs() <= bound).all(), which
+            for i in masked:
+                assert (got[i * heads:(i + 1) * heads] == 0).all()
+        if which == "wgmma":
+            again = (sk.launch_dq(*args),) + sk.launch_dkv(*args)
+            assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 @pytest.mark.cuda

@@ -28,6 +28,7 @@ from alphafold2_tpu.models import alphafold2_init as jax_init
 from alphafold2_tpu.ops import sparse as jsparse
 from alphafold2_tpu.ops.attention import AttentionConfig as JaxAttentionConfig
 from alphafold2_tpu.ops.attention import attention_init as jax_attention_init
+from alphafold2_tpu.ops.sparse_kernel import _backward_pallas as jax_kernel_backward
 from alphafold2_tpu.ops.sparse_kernel import _forward as jax_kernel_forward
 from alphafold2_tpu.ops.sparse_kernel import block_sparse_attention_tpu
 from alphafold2_tpu.training import data as jdata
@@ -200,6 +201,94 @@ def test_plain_backward_split_is_autograd_of_the_plain_forward():
         assert torch.isfinite(want).all() and (want[:2] == 0).all()
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=2e-6 * max(1.0, want.abs().max().item()))
+
+
+def _listed_dq(q, k, v, bias, heads, lse, g, delta, scale, offsets, entries):
+    """B5 dq as its wgmma route walks it (f32): each 128-row query tile
+    over its listed 128-key stages, dense tiles with the pairs its
+    warpgroups' masks leave out at -inf (bit 8 qb + kb of warpgroup
+    (row % 128) // 64's mask)."""
+    BH, n, dh = q.shape
+    dq = torch.zeros_like(q)
+    key_bias = bias[torch.arange(BH) // heads]
+    for qt in range(len(offsets) - 1):
+        rows = torch.arange(qt * 128, min(qt * 128 + 128, n))
+        acc = torch.zeros(BH, len(rows), dh)
+        for st, *masks in entries[offsets[qt]:offsets[qt + 1]].tolist():
+            cols = torch.arange(st * 128, min(st * 128 + 128, n))
+            r, c = rows[:, None] % 128, cols[None, :] % 128
+            word = torch.tensor(masks, dtype=torch.int64)[r // 64] & 0xffffffff
+            live = (word >> (8 * (r % 64 // 16) + c // 16)) & 1 == 1
+            s_ = scale * q[:, rows] @ k[:, cols].transpose(1, 2) + torch.where(
+                live, key_bias[:, None, cols], float("-inf"))
+            p = torch.exp(s_ - lse[:, rows, None])
+            ds = p * (g[:, rows] @ v[:, cols].transpose(1, 2) - delta[:, rows, None])
+            acc += ds @ k[:, cols]
+        dq[:, rows] = scale * acc
+    return dq
+
+
+def _listed_dkv(q, k, v, bias, heads, lse, g, delta, scale, offsets, entries):
+    """B5 dkv as its wgmma route walks it (f32): each 128-key tile over its
+    listed 64-query stages (`key_unions`), dense transposed tiles with the
+    pairs its warpgroups' masks leave out at -inf (bit 4 kb + qb of
+    warpgroup (key % 128) // 64's mask)."""
+    BH, n, dh = q.shape
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    key_bias = bias[torch.arange(BH) // heads]
+    for kt in range(len(offsets) - 1):
+        keys = torch.arange(kt * 128, min(kt * 128 + 128, n))
+        for st, *masks in entries[offsets[kt]:offsets[kt + 1]].tolist():
+            qs = torch.arange(st * 64, min(st * 64 + 64, n))
+            r, c = keys[:, None] % 128, qs[None, :] % 64
+            word = torch.tensor(masks, dtype=torch.int64)[r // 64] & 0xffffffff
+            live = (word >> (4 * (r % 64 // 16) + c // 16)) & 1 == 1
+            st_ = scale * k[:, keys] @ q[:, qs].transpose(1, 2) + torch.where(
+                live, key_bias[:, keys, None], float("-inf"))
+            pt = torch.exp(st_ - lse[:, None, qs])
+            dst = pt * (v[:, keys] @ g[:, qs].transpose(1, 2) - delta[:, None, qs])
+            dv[:, keys] += pt @ g[:, qs]
+            dk[:, keys] += dst @ q[:, qs]
+    return dk * scale, dv
+
+
+def test_listed_backward_walk_matches_plain_and_jax_kernel():
+    """The wgmma routes' walk of the backward (each tile over its listed
+    stages, the unattended pairs masked: `_listed_dq`, `_listed_dkv`)
+    computes what `sparse_bwd_dq_plain` / `sparse_bwd_dkv_plain` and JAX's
+    `_backward_pallas` (interpret mode) compute, at block size 16 with a
+    ragged last tile and stage (13 blocks) and a fully masked batch element:
+    f32, 2e-6 * max(1, |ref|) (test_kernel_plain_versions_match_jax_kernel's
+    tolerance)."""
+    jcfg, tcfg = _cfgs(block_size=16, max_seq_len=256)
+    q, k, v, g, mask = _qkv(b=2, n=208, h=2, dh=8, seed=7)
+    b, n, h, dh = q.shape
+    scale = dh ** -0.5
+    j_out, j_lse = jax_kernel_forward(*(jnp.asarray(x) for x in (q, k, v)), jcfg,
+                                      jnp.asarray(mask))[1]
+    jgrads = jax_kernel_backward(*(jnp.asarray(x) for x in (q, k, v)), jcfg, jnp.asarray(mask),
+                                 j_out, j_lse, jnp.asarray(g))
+
+    def fold(x):
+        return _t(x).transpose(1, 2).reshape(b * h, n, dh).contiguous()
+
+    bias = torch.where(torch.from_numpy(mask), 0.0, float("-inf")).float()
+    table = sparse.kernel_table(n // 16, tcfg, "cpu")
+    assert table.unions and table.key_unions
+    out, lse = sparse_kernel.sparse_fwd_plain(fold(q), fold(k), fold(v), bias, table, h, scale)
+    delta = (fold(g) * out).sum(-1)
+    args = (fold(q), fold(k), fold(v), bias, h, lse, fold(g), delta, scale)
+    walked = (_listed_dq(*args, *table.unions[:2]),) + _listed_dkv(*args, *table.key_unions)
+    plain_args = (fold(q), fold(k), fold(v), bias, table, h, lse, fold(g), delta, scale)
+    plain = (sparse_kernel.sparse_bwd_dq_plain(*plain_args),) + \
+        sparse_kernel.sparse_bwd_dkv_plain(*plain_args)
+    for got, want_plain, want_jax in zip(walked, plain, jgrads):
+        assert (got[:h] == 0).all()  # batch element 0: every key masked
+        torch.testing.assert_close(got, want_plain, rtol=0,
+                                   atol=2e-6 * max(1.0, want_plain.abs().max().item()))
+        want = np.asarray(want_jax).transpose(0, 2, 1, 3).reshape(b * h, n, dh)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=2e-6 * max(1.0, np.abs(want).max()))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -422,6 +511,55 @@ def test_union_list_encodes_the_layout(n, msl, rows):
     assert not got[B:].any() and not got[:, B:].any()
 
 
+# the dkv route's layouts, (n, max_seq_len): served, crop 256, n = 4096, ragged (25 blocks)
+DKV_LAYOUTS = {"served L=384": (384, 384), "trained crop 256": (256, 256),
+               "long n=4096": (4096, 2048), "ragged n=400": (400, 512)}
+
+
+@pytest.mark.parametrize("case", list(DKV_LAYOUTS))
+def test_union_list_encodes_the_layout_at_the_dkv_tiling(case):
+    """The dkv route's stage lists (128-key tiles of the transposed layout,
+    64-query stages, a 16-bit mask a warpgroup) hold every active (query
+    block, key block) pair exactly once as a mask bit and no other pair;
+    every key tile lists a stage, in query order."""
+    n, msl = DKV_LAYOUTS[case]
+    B = n // 16
+    layout = sparse.sparsity_layout(B, sparse.SparseConfig(block_size=16, max_seq_len=msl))
+    offsets, entries = sparse_kernel.union_list(layout.T, sparse_kernel.KEY_TILE,
+                                                sparse_kernel.QUERY_STAGE)
+    assert len(offsets) == -(-B // 8) + 1 and (np.diff(offsets) >= 1).all()
+    assert (entries[:, 3] == 0).all() and ((entries[:, 1:3].astype(np.int64) >> 16) == 0).all()
+    hits = np.zeros((len(offsets) * 8, -(-B // 4) * 4), np.int64)  # (key block, query block)
+    for kt in range(len(offsets) - 1):
+        stages = entries[offsets[kt]:offsets[kt + 1], 0]
+        assert (np.diff(stages) > 0).all()
+        for st, *masks in entries[offsets[kt]:offsets[kt + 1]]:
+            for wg, mask in enumerate(masks[:2]):
+                for bit in range(16):
+                    if int(mask) >> bit & 1:
+                        hits[kt * 8 + 4 * wg + bit // 4, 4 * st + bit % 4] += 1
+    np.testing.assert_array_equal(hits[:B, :B], layout.T.astype(np.int64))
+    assert not hits[B:].any() and not hits[:, B:].any()
+
+
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
+def test_block_table_builds_the_dkv_lists_only_at_block_size_16(bs):
+    """Only a block-size-16 table carries the dkv route's stage lists
+    (offsets and entries, int32 on the table's device, one offset a key
+    tile and one more), equal to `union_list` of the transposed layout."""
+    table = sparse.kernel_table(512 // bs, sparse.SparseConfig(block_size=bs, max_seq_len=512),
+                                "cpu")
+    if bs != 16:
+        assert table.key_unions == ()
+        return
+    offsets, entries = table.key_unions
+    assert offsets.dtype == entries.dtype == torch.int32 and offsets.device.type == "cpu"
+    layout = sparse.sparsity_layout(32, sparse.SparseConfig(block_size=16, max_seq_len=512))
+    want = sparse_kernel.union_list(layout.T, 128, 64)
+    np.testing.assert_array_equal(offsets.numpy(), want[0])
+    np.testing.assert_array_equal(entries.numpy(), want[1])
+
+
 @pytest.mark.parametrize("bs", [16, 32, 64, 128])
 def test_block_table_builds_stage_lists_only_for_the_wgmma_block_size(bs):
     """Only a block-size-16 table carries the wgmma route's stage lists
@@ -443,6 +581,63 @@ def test_route_takes_mma_sync_off_the_ldmatrix_shape(bs, dh):
                                 "cpu")
     assert sparse_kernel.route(_shaped(8, 512, dh), table) == "mma_sync"
     assert sparse_kernel.route(_shaped(8, 512, dh, torch.float32), table) == "f32"
+
+
+# B5 dq's and dkv's calls on the training path and in phase 3 and the card
+# tests, (BH, n, max_seq_len)
+B5_BWD_SHAPES = {
+    "trained crop 256": (2048, 256, 256),
+    "phase 3 served L=384": (3072, 384, 384),
+    "phase 3 long n=4096": (8, 4096, 2048),
+    "phase 3 masked element n=1024": (6, 1024, 512),
+    "card test ragged n=400": (6, 400, 512),
+}
+
+
+@pytest.mark.parametrize("case", list(B5_BWD_SHAPES))
+def test_bwd_route_takes_wgmma_on_every_trained_and_phase3_shape(case):
+    """bf16 at dh 64 and block size 16 takes the backward's wgmma route,
+    with the dq lists (B5f's, one offset a 128-row tile and one more) and
+    the dkv lists (one offset a 128-key tile and one more); f32 takes
+    "f32"."""
+    BH, n, msl = B5_BWD_SHAPES[case]
+    table = sparse.kernel_table(n // 16, sparse.SparseConfig(block_size=16, max_seq_len=msl),
+                                "cpu")
+    assert sparse_kernel.bwd_route(_shaped(BH, n, 64), table) == "wgmma"
+    assert len(table.unions[0]) == len(table.key_unions[0]) == -(-n // 128) + 1
+    assert sparse_kernel.bwd_route(_shaped(BH, n, 64, torch.float32), table) == "f32"
+
+
+@pytest.mark.parametrize("bs,dh", [(32, 64), (64, 64), (128, 64), (16, 16), (16, 32),
+                                   (128, 32)])
+def test_bwd_route_takes_mma_sync_off_the_wgmma_shape(bs, dh):
+    table = sparse.kernel_table(512 // bs, sparse.SparseConfig(block_size=bs, max_seq_len=512),
+                                "cpu")
+    assert sparse_kernel.bwd_route(_shaped(8, 512, dh), table) == "mma_sync"
+    assert sparse_kernel.bwd_route(_shaped(8, 512, dh, torch.float32), table) == "f32"
+
+
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+def test_launch_dq_and_dkv_refuse_a_route_the_call_cannot_take(kind):
+    """`which` names a backward route; a route the call cannot take (the
+    other dtype, wgmma off dh 64 / bs 16, an unknown name, wgmma on a table
+    without its stage lists) is refused before anything is built or
+    counted."""
+    launch = getattr(sparse_kernel, f"launch_{kind}")
+    table = sparse.kernel_table(4, sparse.SparseConfig(block_size=16, max_seq_len=64), "cpu")
+    bias, lse = torch.zeros((1, 64)), torch.zeros((2, 64))
+    sparse_kernel.reset_launches()
+    q32 = torch.zeros((2, 64, 64))
+    qb = q32.bfloat16()
+    qb32 = torch.zeros((2, 64, 32), dtype=torch.bfloat16)
+    for q, which in ((q32, "wgmma"), (q32, "mma_sync"), (qb, "f32"), (qb32, "wgmma"),
+                     (qb, "tma")):
+        with pytest.raises(ValueError, match=f"no '{which}' sparse {kind} route"):
+            launch(q, q, q, bias, table, 2, lse, q, lse, 0.125, which=which)
+    bare = dataclasses.replace(table, unions=(), key_unions=())
+    with pytest.raises(ValueError, match=f"the {kind} wgmma route reads the stage lists"):
+        launch(qb, qb, qb, bias, bare, 2, lse, qb, lse, 0.125)
+    assert all(n == 0 for n in sparse_kernel.LAUNCHES.values())
 
 
 def test_sparse_fwd_refuses_a_route_the_call_cannot_take():
@@ -488,13 +683,27 @@ def test_sparse_ablation_variants_match_the_source():
     assert "(on >> (j / 2))" not in sources["no_mask"]
     base = cuda_build.CSRC / "flash_fwd.cu"
     assert sparse_ablation.variants(base)["baseline"] == base.read_text()
+    # --backward: the counters in the shared dkv pipeline or in the dq pipeline
+    backward = sparse_ablation.backward_variants()
+    assert set(backward) == {"dkv_counters", "dq_counters"}
+    for name, header, fn in (("dkv_counters", "flash_bwd_dkv_wgmma.cuh", "wgmma_dkv("),
+                             ("dq_counters", "flash_bwd_dq_wgmma.cuh", "wgmma_dq(")):
+        copy = backward[name]
+        assert f'#include "{header}"' not in copy and f"void {fn}" in copy
+        assert copy.count("T[7] += 1;") == 1 and "af2_ablation_counters" in copy
+    # a dq stage's two halves add into the same phases
+    assert backward["dq_counters"].count("T[3] += tn - tc;") == 2
 
 
 def test_flash_and_sparse_forwards_share_one_wgmma_pipeline():
     """The flash forward's and the block-sparse forward's wgmma routes are
     one pipeline: both sources include csrc/flash_fwd_wgmma.cuh and launch
     its `wgmma_fwd` through `launch_wgmma_fwd`, the sparse one with a stage
-    list; neither holds a copy of the pipeline's stages."""
+    list. So are the dense and the block-sparse dkv kernels: both include
+    csrc/flash_bwd_dkv_wgmma.cuh and launch its `wgmma_dkv` through
+    `launch_wgmma_dkv`, the sparse one listed; B5 dq's wgmma route is
+    csrc/flash_bwd_dq_wgmma.cuh's `wgmma_dq`, listed. No source holds a copy
+    of a pipeline's stages."""
     from alphafold2_tpu_torch.ops import cuda_build
 
     for name, listed in (("flash_fwd", "false"), ("sparse_attn", "true")):
@@ -503,7 +712,19 @@ def test_flash_and_sparse_forwards_share_one_wgmma_pipeline():
         assert src.count("af2::fwd::wgmma_fwd<") == 1
         assert f", {listed}>(tm_q, tm_k, tm_v, tm_bias" in src
         assert "af2::fwd::launch_wgmma_fwd<" in src
-        for piece in ("wgmma_m64n128k16_ss(", "wgmma_m64n64k16_rs_mn(", "setmaxnreg"):
+    for name, listed in (("flash_bwd", "false"), ("sparse_attn", "true")):
+        src = (cuda_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "flash_bwd_dkv_wgmma.cuh"' in src
+        assert src.count("af2::dkv::wgmma_dkv<") == 1
+        assert f", {listed}>(tm_q, tm_k, tm_v, tm_g, tm_bias, tm_dk, tm_dv" in src
+        assert "af2::dkv::launch_wgmma_dkv<" in src
+    src = (cuda_build.CSRC / "sparse_attn.cu").read_text()
+    assert '#include "flash_bwd_dq_wgmma.cuh"' in src
+    assert src.count("af2::dq::wgmma_dq<true>(") == 1 and "af2::dq::launch_wgmma_dq(" in src
+    for name in ("flash_fwd", "flash_bwd", "sparse_attn"):
+        src = (cuda_build.CSRC / f"{name}.cu").read_text()
+        for piece in ("wgmma_m64n128k16_ss(", "wgmma_m64n64k16_ss(", "wgmma_m64n64k16_rs_mn(",
+                      "setmaxnreg"):
             assert piece not in src
 
 
