@@ -39,17 +39,23 @@
 // dq, dk, dv written once: ~0.5 B per operation at i = 128); at long i, j
 // it is operations.
 //
-// The dkv kernel has two bf16 routes (`ops/flash_kernel.py dkv_route`):
+// Each kernel has two bf16 routes (`ops/flash_kernel.py dq_route`,
+// `dkv_route`):
 //
 // wgmma (dh = 64, every operand TMA loads addressable: every trained and
-// served shape): the TMA-fed wgmma pipeline of flash_bwd_dkv_wgmma.cuh
-// (persistent blocks over (bh, 128-key tile) tiles, a producer warp
-// streaming 64-query stages, two consumer warpgroups computing the tiles
-// transposed, dk and dv leaving by TMA stores), over every stage of len_i;
-// the block-sparse dkv kernel runs the same pipeline over listed stages.
+// served shape). The dkv kernel is the TMA-fed wgmma pipeline of
+// flash_bwd_dkv_wgmma.cuh (persistent blocks over (bh, 128-key tile)
+// tiles, a producer warp streaming 64-query stages, two consumer
+// warpgroups computing the tiles transposed, dk and dv leaving by TMA
+// stores), over every stage of len_i. The dq kernel is the pipeline of
+// flash_bwd_dq_wgmma.cuh (persistent blocks over (bh, 128-query tile)
+// tiles, a producer warp streaming 128-key K/V stages, two consumer
+// warpgroups taking a stage as two 64-key halves, dq leaving by a TMA
+// store), over every stage of len_j. The block-sparse dq and dkv kernels
+// run the same two pipelines over listed stages.
 //
-// mma_sync (the dq kernel always; the dkv kernel at dh 16 or 32, or with a
-// 2-D bias TMA cannot address): every product runs on the tensor cores with
+// mma_sync (either kernel at dh 16 or 32, or with a 2-D bias TMA cannot
+// address): every product runs on the tensor cores with
 // `mma.sync.m16n8k16` (bf16 in, f32 accumulate; helpers in mma_bf16.cuh).
 // A block of 8 warps owns 128 rows, 16 per warp; the warp keeps its two A
 // operands (q and dO in the dq kernel, k and v in the dkv kernel) and its
@@ -82,6 +88,7 @@
 #include <stdint.h>
 
 #include "flash_bwd_dkv_wgmma.cuh"
+#include "flash_bwd_dq_wgmma.cuh"
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
 
@@ -458,6 +465,29 @@ __global__ void __launch_bounds__(DkvTile<BIAS2D>::kThreads, 1)
                                      scale_log2);
 }
 
+// --- bf16, the dq kernel's wgmma route: TMA ring, wgmma, persistent blocks ---
+//
+// flash_bwd_dq_wgmma.cuh's pipeline, unlisted: every 128-key stage of len_j.
+
+using af2::dq::DqTile;
+
+template <bool BIAS2D>
+__global__ void __launch_bounds__(DqTile<BIAS2D>::kThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_g,
+                              const __grid_constant__ CUtensorMap tm_bias,   // BIAS2D only
+                              const __grid_constant__ CUtensorMap tm_dbias,  // BIAS2D only
+                              const __grid_constant__ CUtensorMap tm_dq,
+                              const float* __restrict__ key_bias,  // (BH, j), !BIAS2D
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              const StageList list, int len_i, int len_j, int n_qtiles,
+                              int64_t tiles, float scale, float scale_log2) {
+  af2::dq::wgmma_dq<BIAS2D, false>(tm_q, tm_k, tm_v, tm_g, tm_bias, tm_dbias, tm_dq, key_bias, lse,
+                                   delta, list, len_i, len_j, n_qtiles, tiles, scale, scale_log2);
+}
+
 // --- launch: the mma_sync and f32 routes ------------------------------------
 
 // grid: one block per (bh, tile of `rows_per_block` owned rows) on x
@@ -548,7 +578,8 @@ int launch_dkv(int is_bf16, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// The dq kernel (B1b `_dq_kernel`; B2b `_make_fused_dq_kernel`). q, dout
+// The dq kernel (B1b `_dq_kernel`; B2b `_make_fused_dq_kernel`) on its
+// mma_sync (bf16) and f32 routes. q, dout
 // (BH, i, dh); k, v (BH, j, dh) in f32 or bf16; bias (BH, j) f32, or
 // (BH, i, j) f32 when bias2d; lse, delta (BH, i) f32; dq (BH, i, dh) in
 // the input type; dbias (BH, i, j) f32 when bias2d, else null. bf16
@@ -565,6 +596,33 @@ int af2_flash_bwd_dq(const void* q, const void* k, const void* v,
   }
   return launch_dq<false>(is_bf16, q, k, v, bias, dout, lse, delta, dq,
                           nullptr, bh, len_i, len_j, dh, scale, stream);
+}
+
+// The dq kernel on its wgmma route: bf16, dh = 64, as af2_flash_bwd_dq, with
+// q, k, v, dout and dq 16-byte aligned (TMA's 16-byte bases; dh 64 gives
+// 128-byte rows) and a 2-D bias and its dbias 16-byte aligned with j % 4 ==
+// 0 (16-byte rows). Returns the CUDA error code of the launch (0 =
+// launched); refuses a call the route cannot take (never by running another
+// kernel).
+int af2_flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, const void* bias,
+                           const void* dout, const void* lse, const void* delta, void* dq,
+                           void* dbias, int64_t bh, int64_t len_i, int64_t len_j, int dh,
+                           float scale, int bias2d, void* stream_ptr) {
+  if (bh <= 0 || len_i <= 0 || len_j <= 0 || dh != af2::dq::kWDH || len_i > 2147483647LL ||
+      len_j > 2147483647LL || bh > 2147483647LL ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout | (uintptr_t)dq) % 16 != 0 ||
+      (bias2d && (len_j % 4 != 0 || dbias == nullptr ||
+                  ((uintptr_t)bias | (uintptr_t)dbias) % 16 != 0))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const StageList every{nullptr, nullptr, 1};
+#define AF2_ARGS q, k, v, bias, dout, lse, delta, every, dq, dbias, bh, len_i, len_j, scale, \
+                 (cudaStream_t)stream_ptr
+  if (bias2d) {
+    return af2::dq::launch_wgmma_dq<true>(flash_bwd_dq_wgmma_kernel<true>, AF2_ARGS);
+  }
+  return af2::dq::launch_wgmma_dq<false>(flash_bwd_dq_wgmma_kernel<false>, AF2_ARGS);
+#undef AF2_ARGS
 }
 
 // The dkv kernel (B1b `_dkv_kernel`; B2b `_make_fused_dkv_kernel`) on its

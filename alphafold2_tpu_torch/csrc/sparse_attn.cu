@@ -548,18 +548,20 @@ __global__ void __launch_bounds__(DkvTile<false>::kThreads, 1)
                                    delta, list, len_i, len_j, n_ktiles, tiles, scale, scale_log2);
 }
 
-__global__ void __launch_bounds__(DqTile::kThreads, 1)
+__global__ void __launch_bounds__(DqTile<false>::kThreads, 1)
     sparse_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
                            const __grid_constant__ CUtensorMap tm_g,
+                           const __grid_constant__ CUtensorMap tm_bias,   // unread
+                           const __grid_constant__ CUtensorMap tm_dbias,  // unread
                            const __grid_constant__ CUtensorMap tm_dq,
                            const float* __restrict__ key_bias, const float* __restrict__ lse,
                            const float* __restrict__ delta, const StageList list, int len_i,
                            int len_j, int n_qtiles, int64_t tiles, float scale,
                            float scale_log2) {
-  af2::dq::wgmma_dq<true>(tm_q, tm_k, tm_v, tm_g, tm_dq, key_bias, lse, delta, list, len_i, len_j,
-                          n_qtiles, tiles, scale, scale_log2);
+  af2::dq::wgmma_dq<false, true>(tm_q, tm_k, tm_v, tm_g, tm_bias, tm_dbias, tm_dq, key_bias, lse,
+                                 delta, list, len_i, len_j, n_qtiles, tiles, scale, scale_log2);
 }
 
 // --- f32: CUDA cores -------------------------------------------------------
@@ -1021,8 +1023,8 @@ int af2_sparse_bwd_dq_wgmma(const void* q, const void* k, const void* v, const v
   }
   const int64_t n = n_blocks * kLBs;
   const StageList list{(const int*)union128_off, (const int4*)union128, heads};
-  return af2::dq::launch_wgmma_dq(sparse_dq_wgmma_kernel, q, k, v, bias, dout, lse, delta, list,
-                                  dq, bh, n, n, scale, a.stream);
+  return af2::dq::launch_wgmma_dq<false>(sparse_dq_wgmma_kernel, q, k, v, bias, dout, lse, delta,
+                                         list, dq, nullptr, bh, n, n, scale, a.stream);
 }
 
 // B5 dkv's wgmma route: bf16 at dh 64 and bs 16, as af2_sparse_bwd_dkv, with

@@ -22,15 +22,15 @@ CUDA tensors it launches its kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu,
 built at first use) or raises: bfloat16 runs on the tensor cores (f32
 accumulate), float32 on the CUDA cores in f32.
 
-The forwards and the dkv kernel take one of three kernels by the shape of
-the call (`route`, `dkv_route`): "wgmma" (TMA ring, wgmma, persistent
-blocks) for bfloat16 at dh = 64 wherever TMA can address the operands,
-"mma_sync" for the other bfloat16 calls, "f32" for float32; the dq kernel
-has the mma_sync and f32 kernels only. A route is chosen, never fallen back
-to: a failed build or launch on any route raises. `LAUNCHES` counts kernel
-launches per wrapper (B3's under their own keys, though they are B1's
-kernels) and each forward and dkv launch again under its route's key,
-`flash_fwd_<route>` and `flash_bwd_dkv_<route>`.
+The forwards, the dq kernel and the dkv kernel each take one of three
+kernels by the shape of the call (`route`, `dq_route`, `dkv_route`):
+"wgmma" (TMA ring, wgmma, persistent blocks) for bfloat16 at dh = 64
+wherever TMA can address the operands, "mma_sync" for the other bfloat16
+calls, "f32" for float32. A route is chosen, never fallen back to: a failed
+build or launch on any route raises. `LAUNCHES` counts kernel launches per
+wrapper (B3's under their own keys, though they are B1's kernels) and each
+forward, dq and dkv launch again under its route's key,
+`flash_fwd_<route>`, `flash_bwd_dq_<route>` and `flash_bwd_dkv_<route>`.
 """
 
 from __future__ import annotations
@@ -47,21 +47,22 @@ from alphafold2_tpu_torch.ops import cuda_build, dispatch
 # an exact 0 with no nan guards
 _M0 = -1e30
 
-ROUTES = ("wgmma", "mma_sync", "f32")  # the forward kernels, and the dkv kernels
+ROUTES = ("wgmma", "mma_sync", "f32")  # the forward, dq and dkv kernels
 # kernel launches since the last reset_launches(): one entry per kernel
-# (each backward wrapper launches a dq and a dkv kernel), and each forward
-# and dkv launch again under its route's entry
+# (each backward wrapper launches a dq and a dkv kernel), and each forward,
+# dq and dkv launch again under its route's entry
 LAUNCHES = {
     "flash_fwd": 0, "flash_fwd_fused": 0,
     "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     "flash_bwd_fused_dq": 0, "flash_bwd_fused_dkv": 0,
     "flash_fwd_lse": 0, "flash_bwd_lse_dq": 0, "flash_bwd_lse_dkv": 0,
     **{f"flash_fwd_{r}": 0 for r in ROUTES},
+    **{f"flash_bwd_dq_{r}": 0 for r in ROUTES},
     **{f"flash_bwd_dkv_{r}": 0 for r in ROUTES},
 }
 
 SUPPORTED_DH = (16, 32, 64)
-WGMMA_DH = 64   # the head width of the wgmma routes (csrc/flash_fwd.cu, flash_bwd.cu kWDH)
+WGMMA_DH = 64   # the head width of the wgmma routes (csrc/flash_*_wgmma.cuh kWDH)
 _BLOCK_Q = 128  # query rows per CUDA block off the wgmma route (kBlockQ)
 
 
@@ -102,6 +103,18 @@ def dkv_route(q, k, v, bias) -> str:
     base and j % 4 == 0) and reads the key-side bias, lse and delta by plain
     loads. "wgmma" for bfloat16 at dh = 64 where TMA can address them,
     "mma_sync" for the other bfloat16 calls, "f32" for float32."""
+    return route(q, k, v, bias)
+
+
+def dq_route(q, k, v, bias) -> str:
+    """Which dq kernel a backward call on these arguments runs, by the
+    forward's rule (`route`): the wgmma dq kernel loads q, k, v, dO and a
+    2-D f32 bias by TMA and stores dq and d_bias by TMA (q, k, v and dO
+    start 16-byte aligned, which `_check_bwd` requires of every bfloat16
+    call; a 2-D bias needs a 16-byte base and j % 4 == 0, and d_bias is
+    allocated with its shape) and reads the key-side bias, lse and delta by
+    plain loads. "wgmma" for bfloat16 at dh = 64 where TMA can address
+    them, "mma_sync" for the other bfloat16 calls, "f32" for float32."""
     return route(q, k, v, bias)
 
 
@@ -263,10 +276,11 @@ def _bwd_lib() -> ctypes.CDLL:
             i32, i32, p,
         ]
         fn.restype = i32
-    lib.af2_flash_bwd_dkv_wgmma.argtypes = [
-        p, p, p, p, p, p, p, p, p, i64, i64, i64, i32, ctypes.c_float, i32, p,
-    ]
-    lib.af2_flash_bwd_dkv_wgmma.restype = i32
+    for fn in (lib.af2_flash_bwd_dq_wgmma, lib.af2_flash_bwd_dkv_wgmma):
+        fn.argtypes = [
+            p, p, p, p, p, p, p, p, p, i64, i64, i64, i32, ctypes.c_float, i32, p,
+        ]
+        fn.restype = i32
     return lib
 
 
@@ -317,9 +331,7 @@ def launch_fwd(q, k, v, bias, scale, gate, name, which=None):
     (out, lse)."""
     bias2d = bias.dim() == 3
     _check(q, k, v, bias, gate, bias2d)
-    which = which or route(q, k, v, bias, gate)
-    if which not in ROUTES or (which == "f32") != (q.dtype == torch.float32):
-        raise ValueError(f"no {which!r} route for {q.dtype} (routes {ROUTES})")
+    which = _which(which or route(q, k, v, bias, gate), q, "")
     BH, i, dh = q.shape
     if which != "wgmma":
         _check_grid(BH, i)
@@ -372,7 +384,6 @@ def flash_fwd_fused(q, k, v, bias, scale, gate: Optional[torch.Tensor] = None):
 
 def _check_bwd(q, k, v, bias, gate, bias2d, out, lse, g):
     _check(q, k, v, bias, gate, bias2d)
-    _check_grid(q.shape[0], q.shape[1])  # the dq kernel: a block per query tile
     for name, t in (("out", out), ("g", g)):
         if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous tensor of q's shape and dtype")
@@ -393,21 +404,38 @@ def _bwd_args(q, k, v, bias, lse, g, delta, scale):
     return ins, (BH, i, k.shape[1], dh, float(scale)), tail
 
 
-def launch_dq(q, k, v, bias, lse, g, delta, scale, name):
-    """One launch of the dq kernel on the current stream, counted under
-    LAUNCHES[name], on inputs `flash_bwd` / `flash_bwd_fused` have checked;
-    g and delta as `cotangent_terms` gives them. Returns (dq, d_bias f32
+def _which(which, q, kernel):
+    """A route named by a measurement, checked against the dtype (the C
+    entries would read float32 data as bfloat16)."""
+    if which not in ROUTES or (which == "f32") != (q.dtype == torch.float32):
+        raise ValueError(f"no {which!r} {kernel}route for {q.dtype} (routes {ROUTES})")
+    return which
+
+
+def launch_dq(q, k, v, bias, lse, g, delta, scale, name, which=None):
+    """One launch of the dq kernel on the current stream, on inputs
+    `flash_bwd` / `flash_bwd_fused` have checked (g and delta as
+    `cotangent_terms` gives them), counted under LAUNCHES[name] and
+    LAUNCHES["flash_bwd_dq_<route>"]: the kernel `dq_route` picks, or the
+    route `which` names (measurements compare two routes on one call; the C
+    entry refuses a call its route cannot take). Returns (dq, d_bias f32
     for a 2-D bias else None)."""
+    which = _which(which or dq_route(q, k, v, bias), q, "dq ")
+    if which != "wgmma":  # a block per (bh, query tile)
+        _check_grid(q.shape[0], q.shape[1])
     bias2d = bias.dim() == 3
     dq = torch.empty_like(q)
     d_bias = (torch.empty(bias.shape, dtype=torch.float32, device=q.device)
               if bias2d else None)
     ins, shape, tail = _bwd_args(q, k, v, bias, lse, g, delta, scale)
-    rc = _bwd_lib().af2_flash_bwd_dq(*ins, dq.data_ptr(),
-                                     d_bias.data_ptr() if bias2d else None, *shape,
-                                     int(q.dtype == torch.bfloat16), *tail)
-    cuda_build.check_launch(rc, name)
+    outs = (dq.data_ptr(), d_bias.data_ptr() if bias2d else None)
+    if which == "wgmma":
+        rc = _bwd_lib().af2_flash_bwd_dq_wgmma(*ins, *outs, *shape, *tail)
+    else:
+        rc = _bwd_lib().af2_flash_bwd_dq(*ins, *outs, *shape, int(which == "mma_sync"), *tail)
+    cuda_build.check_launch(rc, f"{name} ({which} route)")
     LAUNCHES[name] += 1
+    LAUNCHES[f"flash_bwd_dq_{which}"] += 1
     return dq, d_bias
 
 
@@ -417,9 +445,7 @@ def launch_dkv(q, k, v, bias, lse, g, delta, scale, name, which=None):
     `dkv_route` picks, or the route `which` names (measurements compare two
     routes on one call; the C entry refuses a call its route cannot take).
     Returns (dk, dv)."""
-    which = which or dkv_route(q, k, v, bias)
-    if which not in ROUTES or (which == "f32") != (q.dtype == torch.float32):
-        raise ValueError(f"no {which!r} dkv route for {q.dtype} (routes {ROUTES})")
+    which = _which(which or dkv_route(q, k, v, bias), q, "dkv ")
     if which != "wgmma":  # a block per (bh, key tile)
         _check_grid(k.shape[0], k.shape[1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)

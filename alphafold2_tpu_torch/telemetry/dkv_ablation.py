@@ -1,17 +1,22 @@
-"""Where the time of the flash backward's wgmma dkv kernel goes, on the card.
+"""Where the time of the flash backward's wgmma kernels (dkv, dq) goes, on the card.
 
     python -m alphafold2_tpu_torch.telemetry.dkv_ablation [--baseline PATH] [--out PATH]
 
 Builds csrc/flash_bwd.cu and copies of it whose dkv pipeline (the shared
 csrc/flash_bwd_dkv_wgmma.cuh, inlined into the copy) has one part changed
 or taken out (the results of a copy that drops work are wrong; only its
-time is read), times each at the trained bf16 dkv shapes (pair axial at
-crop 128 and 256, the 2-D bias pair at crop 128, B3's ring gradient at the
-L = 128 hop; dh = 64), and prints, from a copy with cycle counters, the
+time is read), times each at the trained bf16 backward shapes (pair axial
+at crop 128 and 256, the 2-D bias pair at crop 128, B3's ring gradient at
+the L = 128 hop; dh = 64), and prints, from a copy with cycle counters, the
 cycles a 64-query stage of one consumer thread in each warpgroup spends in
 each phase, the cycles a tile spends outside its stage loop (the key bias,
 the first stage's products and elementwise pass, the last stage's dV and
-dK, the epilogue), and the producer warp's:
+dK, the epilogue), and the producer warp's. The dq kernel is timed at the
+same shapes on its routes (wgmma where `dq_route` gives it, and mma_sync;
+the baseline's own dq kernel beside them), and a copy with the same
+counters in the dq pipeline (csrc/flash_bwd_dq_wgmma.cuh, unlisted: every
+128-key stage, taken as two 64-key halves) prints its cycles a stage and a
+tile:
 
   base           the kernel as built for the port
   turns          the two warpgroups take turns at the elementwise pass (a
@@ -22,12 +27,13 @@ dK, the epilogue), and the producer warp's:
   no_ss          the S^T and dP^T products are not issued
   no_rs          the dV and dK products are not issued
   no_store       the epilogue's TMA stores of dk and dv are not issued
+  dq_counters    clock64 counters a stage of the dq pipeline
   baseline       (--baseline PATH) another version of flash_bwd.cu, timed
                  on the same call
 
 The block-sparse backward's tool (sparse_ablation --backward) puts the
-same counters into the sparse dkv kernel, and this module's `counters`
-into its dq pipeline. Needs a CUDA device and nvcc; imports nothing of JAX.
+same counters into the sparse dkv and dq kernels, the listed form of the
+two pipelines. Needs a CUDA device and nvcc; imports nothing of JAX.
 Writes the record as JSON to --out (default build/dkv_ablation.json).
 """
 
@@ -119,11 +125,53 @@ class Marks:
     tile_done: str
 
 
+DQ_HEADER = cuda_build.CSRC / "flash_bwd_dq_wgmma.cuh"
+DQ_INCLUDE = '#include "flash_bwd_dq_wgmma.cuh"\n'
+DQ_PHASES = ("wait for the stage (loads)", "issue S, dP and dS.K", "wait for S and dP",
+             "elementwise", "wait for dS.K", "pack dS, release")
+DQ_LOOP = """        on = mask_of(first + kk);
+        mbar_wait(full(c + 1), ring(c + 1));
+        sdp(qa, c + 1, 0);
+        dsk(c, 1);
+        wgmma_wait<1>();
+        fence_regs(s);
+        fence_regs(dp);
+        elementwise(c + 1, 0, on);
+        wgmma_wait<0>();
+        fence_regs(dq_acc);
+        fence_regs(da);
+        pack();
+        release(empty(c));
+        sdp(qa, c + 1, 1);
+        dsk(c + 1, 0);
+        wgmma_wait<1>();
+        fence_regs(s);
+        fence_regs(dp);
+        elementwise(c + 1, 1, on);
+        store_bias(c + 1, kk);
+        wgmma_wait<0>();
+        fence_regs(dq_acc);
+        fence_regs(da);
+        pack();
+"""
+
+
 DKV = Marks(head="template <bool BIAS2D, bool LISTED>\n__device__ __forceinline__ void wgmma_dkv(",
             tile_start=TILE_START,
             loop_head="      for (int qq = 1; qq < count; ++qq, ++c) {\n",
             loop=LOOP, marks={1: 0, 3: 1, 6: 2, 7: 3, 12: 4, 14: 5}, tile_end=TILE_END,
             tile_done=TILE_DONE)
+
+
+# the dq pipeline's counters: a stage's two halves add into the same phases
+# (a 2-D bias's d_bias stores into the elementwise pass's)
+DQ = Marks(head="template <bool BIAS2D, bool LISTED>\n__device__ __forceinline__ void wgmma_dq(",
+           tile_start=("      for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;\n"
+                       "      const uint32_t qa = base + (n % QB) * L::kQG + wg * kHalfBytes;\n"),
+           loop_head="      for (int kk = 1; kk < count; ++kk, ++c) {\n", loop=DQ_LOOP,
+           marks={1: 0, 3: 1, 6: 2, 7: 3, 10: 4, 12: 5, 14: 1, 17: 2, 19: 3, 22: 4, 23: 5},
+           tile_end="      dsk(c, 1);\n      list_of(tile + gridDim.x);\n",
+           tile_done="        mbar_arrive(qempty(n));\n      }\n")
 
 
 def counters(header: str, at: Marks) -> str:
@@ -190,11 +238,17 @@ def with_counters(src: str) -> str:
     return inline(src, counters(HEADER.read_text(), DKV)) + readback("af2::dkv")
 
 
+def with_dq_counters(src: str) -> str:
+    """`src` (flash_bwd.cu or sparse_attn.cu) with the dq pipeline's
+    counters inlined, and their entry points."""
+    return inline(src, counters(DQ_HEADER.read_text(), DQ), DQ_INCLUDE) + readback("af2::dq")
+
+
 def tile_cycles(phase: np.ndarray, phases: tuple) -> dict:
     """The counters (`counters`' g_phase, 1024 x 32) as the cycles a stage
     of each warpgroup's first thread spends in each of `phases`, the
     producer's, and the cycles a tile spends outside its stage loop."""
-    per = phase[phase[:, 7] > 0].astype(np.float64).sum(0)
+    per = phase.astype(np.float64).sum(0)  # blocks past the grid, and their tiles, count 0
     cycles = {f"wg{wg}": {p: per[8 * wg + n] / per[8 * wg + 7] for n, p in enumerate(phases)}
               for wg in range(2) if per[8 * wg + 7] > 0}
     if per[26] > 0:
@@ -240,11 +294,39 @@ def build(sources: dict) -> dict:
             print(f"[dkv ablation] warning: the {name} variant's wgmma are serialized (C7518)")
         lib = ctypes.CDLL(str(built.path))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.af2_flash_bwd_dkv_wgmma.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i64, i32,
-                                                ctypes.c_float, i32, p]
-        lib.af2_flash_bwd_dkv_wgmma.restype = i32
+        entries = [lib.af2_flash_bwd_dkv_wgmma]
+        if hasattr(lib, "af2_flash_bwd_dq_wgmma"):  # a baseline may predate it
+            entries.append(lib.af2_flash_bwd_dq_wgmma)
+        for fn in entries:
+            fn.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i64, i32, ctypes.c_float, i32, p]
+            fn.restype = i32
+        lib.af2_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i64, i32,
+                                         ctypes.c_float, i32, i32, p]
+        lib.af2_flash_bwd_dq.restype = i32
         libs[name] = lib
     return libs
+
+
+def counted(lib, launch) -> np.ndarray:
+    """The g_phase table of one `launch` (which raises if it fails) of a
+    counters copy."""
+    if lib.af2_ablation_reset() != 0:
+        raise RuntimeError("the counters variant failed to reset")
+    launch()
+    torch.cuda.synchronize()
+    phase = np.zeros((1024, 32), dtype=np.uint64)
+    lib.af2_ablation_counters(phase.ctypes.data)
+    return phase
+
+
+def print_cycles(tool: str, kernel: str, cycles: dict) -> None:
+    """`tile_cycles`' record of one kernel, a line a warpgroup and one for
+    the tiles."""
+    for who, phases in cycles["cycles_a_stage"].items():
+        print(f"[{tool}]   {kernel} {who} cycles a stage: " + ", ".join(
+            f"{p} {c:.0f}" for p, c in phases.items()))
+    print(f"[{tool}]   {kernel} cycles a tile outside the stage loop: " + ", ".join(
+        f"{who} {c:.0f}" for who, c in cycles["cycles_a_tile_outside_the_stage_loop"].items()))
 
 
 def main(argv=None) -> None:
@@ -259,9 +341,11 @@ def main(argv=None) -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"[dkv ablation] {card}")
-    libs = build(variants(opts.baseline))
-    counters = libs["counters"]
-    counters.af2_ablation_counters.argtypes = [ctypes.c_void_p]
+    libs = build({**variants(opts.baseline),
+                  "dq_counters": with_dq_counters(SOURCE.read_text())})
+    copies = {name: libs.pop(name) for name in ("counters", "dq_counters")}
+    for lib in copies.values():
+        lib.af2_ablation_counters.argtypes = [ctypes.c_void_p]
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
     for label, (BH, i, j, bias2d) in SHAPES.items():
@@ -278,22 +362,31 @@ def main(argv=None) -> None:
                 0.125, int(bias2d), stream)
         row = {"case": label, "shape": [BH, i, j, 64], "bias2d": bias2d}
         for name, lib in libs.items():
-            if name != "counters":
-                row[name] = _time_ms(lambda: lib.af2_flash_bwd_dkv_wgmma(*args), 20)
-        if counters.af2_ablation_reset() != 0 or counters.af2_flash_bwd_dkv_wgmma(*args) != 0:
-            raise RuntimeError("the counters variant failed to launch")
-        torch.cuda.synchronize()
-        phase = np.zeros((1024, 32), dtype=np.uint64)
-        counters.af2_ablation_counters(phase.ctypes.data)
-        row.update(tile_cycles(phase, PHASES))
+            row[name] = _time_ms(lambda: lib.af2_flash_bwd_dkv_wgmma(*args), 20)
+        lib = copies["counters"]
+        row.update(tile_cycles(counted(lib, lambda: cuda_build.check_launch(
+            lib.af2_flash_bwd_dkv_wgmma(*args), "dkv")), PHASES))
+        # the dq kernel on the same call: its routes, and the baseline's own
+        dq = torch.empty_like(q)
+        d_bias = torch.empty_like(bias) if bias2d else None
+        dq_args = (*args[:7], dq.data_ptr(), d_bias.data_ptr() if bias2d else None, *args[9:14])
+        dq_which = flash_kernel.dq_route(q, k, v, bias)
+        if dq_which == "wgmma":
+            row["dq wgmma"] = _time_ms(
+                lambda: libs["base"].af2_flash_bwd_dq_wgmma(*dq_args, int(bias2d), stream), 20)
+            lib = copies["dq_counters"]
+            row["dq"] = tile_cycles(counted(lib, lambda: cuda_build.check_launch(
+                lib.af2_flash_bwd_dq_wgmma(*dq_args, int(bias2d), stream), "dq")), DQ_PHASES)
+        for name in ("base", "baseline"):
+            if name in libs:
+                row[f"{name} dq mma_sync"] = _time_ms(
+                    lambda: libs[name].af2_flash_bwd_dq(*dq_args, 1, int(bias2d), stream), 20)
         rows.append(row)
         print(f"[dkv ablation] {label:26s} " + " ".join(
-            f"{name}={row[name]:.4f}" for name in libs if name != "counters") + " ms")
-        for who, phases in row["cycles_a_stage"].items():
-            print(f"[dkv ablation]   {who} cycles a stage: " + ", ".join(
-                f"{p} {c:.0f}" for p, c in phases.items()))
-        print("[dkv ablation]   cycles a tile outside the stage loop: " + ", ".join(
-            f"{who} {c:.0f}" for who, c in row["cycles_a_tile_outside_the_stage_loop"].items()))
+            f"{name}={row[name]:.4f}" for name in row if isinstance(row[name], float)) + " ms")
+        print_cycles("dkv ablation", "dkv", row)
+        if "dq" in row:
+            print_cycles("dkv ablation", "dq", row["dq"])
     opts.out.parent.mkdir(parents=True, exist_ok=True)
     opts.out.write_text(json.dumps({"card": card, "rows": rows}, indent=1))
 

@@ -28,8 +28,8 @@ With --backward it times B5 dq and B5 dkv at the same shapes on both
 routes, wgmma and mma_sync, beside the flash backward's dense wgmma dkv
 kernel on the dense pass of each shape (every key block active), and from
 copies of sparse_attn.cu with cycle counters in the dkv pipeline
-(csrc/flash_bwd_dkv_wgmma.cuh, dkv_ablation's counters) or the dq pipeline
-(csrc/flash_bwd_dq_wgmma.cuh) prints the cycles a stage of one consumer
+(csrc/flash_bwd_dkv_wgmma.cuh) or the dq pipeline (csrc/flash_bwd_dq_wgmma.cuh),
+dkv_ablation's counters, prints the cycles a stage of one consumer
 thread in each warpgroup spends in each phase (a dq stage is two 64-key
 halves), the producer's, and the cycles a tile spends outside its stage
 loop.
@@ -53,6 +53,7 @@ import torch
 
 from alphafold2_tpu_torch.ops import cuda_build, flash_kernel, sparse, sparse_kernel
 from alphafold2_tpu_torch.telemetry import dkv_ablation
+from alphafold2_tpu_torch.telemetry.dkv_ablation import counted
 from alphafold2_tpu_torch.telemetry.flash_ablation import (
     EX2,
     HEADER,
@@ -73,45 +74,6 @@ SHAPES = {  # (batch, heads, n, max_seq_len): B5f's bf16 calls
     "long n=8192": (1, 4, 8192, 2048),
 }
 MASK = "        const bool live = !LISTED || ((on >> (j / 2)) & 1u);\n"
-DQ_HEADER = cuda_build.CSRC / "flash_bwd_dq_wgmma.cuh"
-DQ_INCLUDE = '#include "flash_bwd_dq_wgmma.cuh"\n'
-DQ_PHASES = ("wait for the stage (loads)", "issue S, dP and dS.K", "wait for S and dP",
-             "elementwise", "wait for dS.K", "pack dS, release")
-DQ_LOOP = """        on = mask_of(first + kk);
-        mbar_wait(full(c + 1), ring(c + 1));
-        sdp(qa, c + 1, 0);
-        dsk(c, 1);
-        wgmma_wait<1>();
-        fence_regs(s);
-        fence_regs(dp);
-        elementwise(c + 1, 0, on);
-        wgmma_wait<0>();
-        fence_regs(dq_acc);
-        fence_regs(da);
-        pack();
-        release(empty(c));
-        sdp(qa, c + 1, 1);
-        dsk(c + 1, 0);
-        wgmma_wait<1>();
-        fence_regs(s);
-        fence_regs(dp);
-        elementwise(c + 1, 1, on);
-        wgmma_wait<0>();
-        fence_regs(dq_acc);
-        fence_regs(da);
-        pack();
-"""
-# the dq pipeline's counters: a stage's two halves add into the same phases
-DQ = dkv_ablation.Marks(
-    head="template <bool LISTED>\n__device__ __forceinline__ void wgmma_dq(",
-    tile_start=("      for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;\n"
-                "      const uint32_t qa = base + (n & 1) * L::kQG + wg * kHalfBytes;\n"),
-    loop_head="      for (int kk = 1; kk < count; ++kk, ++c) {\n", loop=DQ_LOOP,
-    marks={1: 0, 3: 1, 6: 2, 7: 3, 10: 4, 12: 5, 14: 1, 17: 2, 18: 3, 21: 4, 22: 5},
-    tile_end="      dsk(c, 1);\n      list_of(tile + gridDim.x);\n",
-    tile_done="        mbar_arrive(qempty(n));\n      }\n")
-
-
 def variants(baseline: Path = None) -> dict:
     """The copies to time, by name; `baseline` adds another version of
     sparse_attn.cu as it is."""
@@ -131,8 +93,7 @@ def backward_variants() -> dict:
     src = SOURCE.read_text()
     return {
         "dkv_counters": dkv_ablation.with_counters(src),
-        "dq_counters": dkv_ablation.inline(src, dkv_ablation.counters(DQ_HEADER.read_text(), DQ),
-                                           DQ_INCLUDE) + dkv_ablation.readback("af2::dq"),
+        "dq_counters": dkv_ablation.with_dq_counters(src),
     }
 
 
@@ -192,17 +153,6 @@ def _launchers(lib, q, k, v, bias, table, heads, routes=("wgmma", "mma_sync")):
             if name in routes}
 
 
-def _counted(lib, launch) -> np.ndarray:
-    """The g_phase table of one `launch` of a counters copy."""
-    if lib.af2_ablation_reset() != 0:
-        raise RuntimeError("the counters variant failed to reset")
-    launch()
-    torch.cuda.synchronize()
-    phase = np.zeros((1024, 32), dtype=np.uint64)
-    lib.af2_ablation_counters(phase.ctypes.data)
-    return phase
-
-
 def backward() -> list:
     """The --backward rows: B5 dq and dkv on both routes and the dense dkv
     kernel, timed on the same call, and the two pipelines' cycles."""
@@ -233,24 +183,19 @@ def backward() -> list:
         dq, dk = torch.empty_like(q), torch.empty_like(k)
         dv = torch.empty_like(v)
         lib = libs["dkv_counters"]
-        row["dkv"] = dkv_ablation.tile_cycles(_counted(lib, lambda: cuda_build.check_launch(
+        row["dkv"] = dkv_ablation.tile_cycles(counted(lib, lambda: cuda_build.check_launch(
             lib.af2_sparse_bwd_dkv_wgmma(*ins, *(t.data_ptr() for t in table.key_unions),
                                          dk.data_ptr(), dv.data_ptr(), *tail), "dkv")),
             dkv_ablation.PHASES)
         lib = libs["dq_counters"]
-        row["dq"] = dkv_ablation.tile_cycles(_counted(lib, lambda: cuda_build.check_launch(
+        row["dq"] = dkv_ablation.tile_cycles(counted(lib, lambda: cuda_build.check_launch(
             lib.af2_sparse_bwd_dq_wgmma(*ins, *(t.data_ptr() for t in table.unions[:2]),
-                                        dq.data_ptr(), *tail), "dq")), DQ_PHASES)
+                                        dq.data_ptr(), *tail), "dq")), dkv_ablation.DQ_PHASES)
         rows.append(row)
         print(f"[sparse bwd ablation] {label:28s} " + " ".join(
             f"{name}={t:.4f}" for name, t in row["times_ms"].items()) + " ms")
         for kernel in ("dkv", "dq"):
-            for who, phases in row[kernel]["cycles_a_stage"].items():
-                print(f"[sparse bwd ablation]   {kernel} {who} cycles a stage: " + ", ".join(
-                    f"{p} {c:.0f}" for p, c in phases.items()))
-            print(f"[sparse bwd ablation]   {kernel} cycles a tile outside the stage loop: "
-                  + ", ".join(f"{who} {c:.0f}" for who, c in
-                              row[kernel]["cycles_a_tile_outside_the_stage_loop"].items()))
+            dkv_ablation.print_cycles("sparse bwd ablation", kernel, row[kernel])
     return rows
 
 

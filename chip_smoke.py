@@ -22,12 +22,13 @@ each phase prints its seconds):
      dh 16, a 2-D bias with j = 77; f32),
      each row naming its route; the flash
      backwards (B1b ungated, B2b gated, one 2-D-bias case) at the training
-     shapes (pair axial at L = 128 and 256), every dkv on its wgmma route
-     (timed beside the same call on the mma_sync route), and at edge cases
-     in every gate and bias mode, each row naming its dkv route (wgmma:
-     ragged 131 x 76, 140 x 383 x 383 past one wave of key tiles, 7 x 1000
-     with i under one query stage, each with a fully masked bh; mma_sync:
-     j = 77 and dh 16; f32); the int8 product (B4) at the
+     shapes (pair axial at L = 128 and 256), every dq and every dkv on its
+     wgmma route (each timed beside the same call on the mma_sync route),
+     and at edge cases in every gate and bias
+     mode, each row naming its dq and dkv routes (wgmma: ragged 131 x 76,
+     140 x 383 x 383 past one wave of query and key tiles, 7 x 1000 with i
+     under one query stage, each with a fully masked bh; mma_sync: j = 77
+     and dh 16; f32); the int8 product (B4) at the
      served int8 request's ten dense-layer shapes (L = 384), all on its
      wgmma route, and at edge cases of each route (wgmma: ragged m, n = 16
      with one row, k = 1024; cp_async: ragged (m, k, n), a misaligned x,
@@ -42,8 +43,8 @@ each phase prints its seconds):
      at the SP request's ring-hop shape (L = 384, 4 shards: 8 x 1,920 x
      36,864; timed unmasked, checked again with one (bh) row fully
      masked), f32 and ragged, and its backward through lse (random g and
-     g_lse) at the L = 128 hop shape, its dkv on the wgmma route (timed
-     beside the same call on the mma_sync route);
+     g_lse) at the L = 128 hop shape, its dq and dkv on the wgmma route
+     (each timed beside the same call on the mma_sync route);
   4. the main path through `predict_structure`:
      (a) one request in float32 on the card and on the CPU with the same
          parameters: logits, confidence, stress and distances; at L = 64,
@@ -70,7 +71,7 @@ each phase prints its seconds):
          64, batch 1, accum 16) at L = 128 and 256: one untimed step, 5
          timed ones; step ms, MFU, peak memory, finite nonzero gradients,
          and 2 * depth * accum launches of each kernel per step (every
-         forward and dkv launch on its wgmma route);
+         forward, dq and dkv launch on its wgmma route);
      (c) the same with attn_gate=True at L = 128: the fused pair only;
      (e) the same sparse at L = 256 (max_seq_len 256): the three sparse
          kernels only, every B5f, B5 dq and B5 dkv launch on its wgmma
@@ -90,7 +91,7 @@ each phase prints its seconds):
          all 72 on the wgmma route;
      (c) the gradient of sum(ring_attention(...)^2), 4 shards, one
          shard's keys masked, card against CPU, in f32 and in bf16 (every
-         hop's dkv on the wgmma route): B3's backward;
+         hop's dq and dkv on the wgmma route): B3's backward;
      (d) (b) over distinct cards when the host has two or more;
   5. a `kernels` JSON line (thirteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
@@ -570,8 +571,8 @@ def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
               bias2d=False):
     """One backward pair (B1b when neither gated nor bias2d, else B2b) on
     the forward kernel's out and lse, against flash_bwd_plain; one launch of
-    each kernel, the dkv one counted under its route (`dkv_route`). Timed:
-    each kernel, the dkv call again on the mma_sync route when it takes
+    each kernel, counted again under its route (`dq_route`, `dkv_route`).
+    Timed: each kernel, each call again on the mma_sync route when it takes
     wgmma, the plain versions and the SDPA backward.
 
     Tolerances: f32, 1e-5 * max(1, max|ref|) per output (both in f32,
@@ -595,6 +596,8 @@ def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
     names = (("flash_bwd_fused_dq", "flash_bwd_fused_dkv") if fused
              else ("flash_bwd_dq", "flash_bwd_dkv"))
     which = flash_kernel.dkv_route(q, k, v, bias)
+    dq_which = flash_kernel.dq_route(q, k, v, bias)
+    routes = (f"flash_bwd_dq_{dq_which}", f"flash_bwd_dkv_{which}")
     before = dict(flash_kernel.LAUNCHES)
     if fused:
         dq, dk, dv, d_bias, d_gate = flash_kernel.flash_bwd_fused(
@@ -604,9 +607,8 @@ def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
             q, k, v, bias, out, lse, g, scale), None, None
     sync()
     counted = {key: n - before[key] for key, n in flash_kernel.LAUNCHES.items()}
-    if counted != {key: int(key in names + (f"flash_bwd_dkv_{which}",)) for key in counted}:
-        fail(f"{names} did not count one launch each, the dkv one on its {which} route: "
-             f"{counted}")
+    if counted != {key: int(key in names + routes) for key in counted}:
+        fail(f"{names} did not count one launch each, on their routes {routes}: {counted}")
     ref = flash_kernel.flash_bwd_plain(q, k, v, bias, out, lse, g, scale, gate)
     sync()
     if dtype == torch.float32:
@@ -624,8 +626,8 @@ def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
     ok = all(r <= 1.0 for r in ratios) and all(
         bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
     row = {"kernel": names[0].rsplit("_", 1)[0], "case": label, "shape": [BH, i, j, dh],
-           "dtype": str(dtype), "dkv_route": which, "dq_err": errs[0], "dkv_err": max(errs[1:]),
-           "bound_ratio": max(ratios)}
+           "dtype": str(dtype), "dq_route": dq_which, "dkv_route": which, "dq_err": errs[0],
+           "dkv_err": max(errs[1:]), "bound_ratio": max(ratios)}
     if bias2d:
         db_err = (d_bias - ref[3]).abs().max().item()
         ok = ok and db_err <= 1e-5 * max(1.0, ref[3].abs().max().item())
@@ -642,7 +644,11 @@ def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
         reps = 10
         row["dq_ms"] = time_ms(lambda: flash_kernel.launch_dq(*args, names[0]), reps)
         row["dkv_ms"] = time_ms(lambda: flash_kernel.launch_dkv(*args, names[1]), reps)
-        if which == "wgmma":  # the same call on the kernel the wgmma route replaced
+        # the same calls on the kernels the wgmma routes replaced
+        if dq_which == "wgmma":
+            row["dq_mma_sync_ms"] = time_ms(lambda: flash_kernel.launch_dq(
+                *args, names[0], which="mma_sync"), reps)
+        if which == "wgmma":
             row["dkv_mma_sync_ms"] = time_ms(lambda: flash_kernel.launch_dkv(
                 *args, names[1], which="mma_sync"), reps)
         row["dq_plain_ms"] = time_ms(lambda: flash_kernel.flash_bwd_dq_plain(*args), 2)
@@ -669,13 +675,15 @@ def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
         row["bound_ms"] = max(10 * BHij / PEAK_FLOPS[dtype], pair_bytes / HBM_BYTES_PER_S) * 1e3
         row["kernel_ops_ms"] = 14 * BHij / PEAK_FLOPS[dtype] * 1e3
     times = "".join(
-        f" {key}={row[key]:.3f}" for key in ("dq_ms", "dkv_ms", "dkv_mma_sync_ms",
+        f" {key}={row[key]:.3f}" for key in ("dq_ms", "dq_mma_sync_ms", "dq_library_ms",
+                                             "dq_bound_ms", "dkv_ms", "dkv_mma_sync_ms",
                                              "dkv_library_ms", "dkv_bound_ms", "plain_ms",
                                              "library_ms", "bound_ms")
         if row.get(key) is not None
     )
     log(f"[bwd] {row['kernel']:15s} {label:24s} {str(tuple(row['shape'])):24s} "
-        f"{str(dtype).split('.')[-1]:8s} dkv {which:8s} dq|d|={row['dq_err']:.3e} "
+        f"{str(dtype).split('.')[-1]:8s} dq {dq_which:8s} dkv {which:8s} "
+        f"dq|d|={row['dq_err']:.3e} "
         f"dkv|d|={row['dkv_err']:.3e} "
         f"(bound ratio {row['bound_ratio']:.3f}){times} {'ok' if ok else 'FAIL'}")
     del q, k, v, bias, gate, out, lse, g, ref
@@ -695,9 +703,13 @@ def phase_bwd_kernels():
     off = [r["case"] for r in rows if r["dkv_route"] != "wgmma"]
     if off:
         fail("trained backward shapes off the wgmma dkv route: " + ", ".join(off))
+    off = [r["case"] for r in rows if r["dq_route"] != "wgmma"]
+    if off:
+        fail("trained backward shapes off the wgmma dq route: " + ", ".join(off))
     edges = [
-        # the dkv kernel's wgmma route: ragged i and j; 420 key tiles, past
-        # one wave (with a 2-D bias j % 4 != 0: mma_sync); i < 64, long j
+        # the dq and dkv kernels' wgmma routes: ragged i and j; 420 query
+        # and key tiles, past one wave (with a 2-D bias j % 4 != 0:
+        # mma_sync); i < 64, long j
         ("ragged wgmma", 5, 131, 76, 64, torch.bfloat16, (1,)),
         ("past one wave", 140, 383, 383, 64, torch.bfloat16, (1,)),
         ("short i, long j", 3, 7, 1000, 64, torch.bfloat16, (1,)),
@@ -714,8 +726,9 @@ def phase_bwd_kernels():
     wgmma_edges = [r for r in rows if r["case"].startswith(("ragged wgmma", "past one wave",
                                                              "short i, long j"))
                    and not ("bias2d" in r["case"] and r["shape"][2] % 4)]
-    if len(wgmma_edges) != 10 or any(r["dkv_route"] != "wgmma" for r in wgmma_edges):
-        fail("the wgmma dkv edge cases left the wgmma route")
+    if len(wgmma_edges) != 10 or any(r[key] != "wgmma" for r in wgmma_edges
+                                     for key in ("dq_route", "dkv_route")):
+        fail("the wgmma dq or dkv edge cases left the wgmma route")
     RECORD["bwd_kernels"] = rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -804,13 +817,14 @@ def check_lse_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=()):
     g_lse = torch.randn(lse.shape, generator=gen, device="cuda")
     names = ("flash_bwd_lse_dq", "flash_bwd_lse_dkv")
     which = flash_kernel.dkv_route(q, k, v, bias)
+    dq_which = flash_kernel.dq_route(q, k, v, bias)
+    routes = (f"flash_bwd_dq_{dq_which}", f"flash_bwd_dkv_{which}")
     before = dict(flash_kernel.LAUNCHES)
     dq, dk, dv = flash_kernel.flash_bwd_lse(q, k, v, bias, out, lse, g, g_lse, scale)
     sync()
     counted = {key: n - before[key] for key, n in flash_kernel.LAUNCHES.items()}
-    if counted != {key: int(key in names + (f"flash_bwd_dkv_{which}",)) for key in counted}:
-        fail(f"{names} did not count one launch each, the dkv one on its {which} route: "
-             f"{counted}")
+    if counted != {key: int(key in names + routes) for key in counted}:
+        fail(f"{names} did not count one launch each, on their routes {routes}: {counted}")
     ref = flash_kernel.flash_bwd_lse_plain(q, k, v, bias, out, lse, g, g_lse, scale)
     if dtype == torch.float32:
         bounds = [1e-5 * max(1.0, r.abs().max().item()) for r in ref]
@@ -827,13 +841,17 @@ def check_lse_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=()):
     for b in masked_bh:
         ok = ok and all(bool((t[b] == 0).all()) for t in (dq, dk, dv))
     row = {"kernel": "flash_bwd_lse", "case": label, "shape": [BH, i, j, dh],
-           "dtype": str(dtype), "dkv_route": which, "dq_err": errs[0], "dkv_err": max(errs[1:]),
-           "bound_ratio": max(ratios), "ok": bool(ok)}
+           "dtype": str(dtype), "dq_route": dq_which, "dkv_route": which, "dq_err": errs[0],
+           "dkv_err": max(errs[1:]), "bound_ratio": max(ratios), "ok": bool(ok)}
     if timed:
         args = (q, k, v, bias, lse, g, flash_kernel.lse_delta(out, g, g_lse).contiguous(), scale)
         row["dq_ms"] = time_ms(lambda: flash_kernel.launch_dq(*args, names[0]), 10)
         row["dkv_ms"] = time_ms(lambda: flash_kernel.launch_dkv(*args, names[1]), 10)
-        if which == "wgmma":  # the same call on the kernel the wgmma route replaced
+        # the same calls on the kernels the wgmma routes replaced
+        if dq_which == "wgmma":
+            row["dq_mma_sync_ms"] = time_ms(lambda: flash_kernel.launch_dq(
+                *args, names[0], which="mma_sync"), 10)
+        if which == "wgmma":
             row["dkv_mma_sync_ms"] = time_ms(lambda: flash_kernel.launch_dkv(
                 *args, names[1], which="mma_sync"), 10)
         row["dq_plain_ms"] = time_ms(lambda: flash_kernel.flash_bwd_dq_plain(*args), 2)
@@ -845,10 +863,10 @@ def check_lse_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=()):
             row[f"{side}_ops_ms"], row[f"{side}_bytes_ms"] = t_ops, t_bytes
             row[f"{side}_bound_ms"] = max(t_ops, t_bytes)
     times = "".join(f" {key}={row[key]:.3f}" for key in
-                    ("dq_ms", "dkv_ms", "dkv_mma_sync_ms", "dq_plain_ms", "dkv_plain_ms",
-                     "dq_bound_ms", "dkv_bound_ms") if row.get(key) is not None)
+                    ("dq_ms", "dq_mma_sync_ms", "dkv_ms", "dkv_mma_sync_ms", "dq_plain_ms",
+                     "dkv_plain_ms", "dq_bound_ms", "dkv_bound_ms") if row.get(key) is not None)
     log(f"[lse bwd] {label:22s} {str((BH, i, j, dh)):24s} {str(dtype).split('.')[-1]:8s} "
-        f"dkv {which:8s} "
+        f"dq {dq_which:8s} dkv {which:8s} "
         f"dq|d|={errs[0]:.3e} dkv|d|={max(errs[1:]):.3e} (bound ratio {max(ratios):.3f})"
         f"{times} {'ok' if ok else 'FAIL'}")
     del q, k, v, bias, out, lse, g, g_lse, dq, dk, dv, ref
@@ -888,8 +906,8 @@ def phase_lse_kernels():
     ]
     if rows[0]["route"] != "wgmma" or rows[1]["route"] != "wgmma":
         fail("B3's forward at the served hop shape left the wgmma route")
-    if bwd[0]["dkv_route"] != "wgmma" or bwd[1]["dkv_route"] != "wgmma":
-        fail("B3's backward at the hop shape left the wgmma dkv route")
+    if any(r[key] != "wgmma" for r in bwd[:2] for key in ("dq_route", "dkv_route")):
+        fail("B3's backward at the hop shape left the wgmma dq or dkv route")
     RECORD["lse_kernels"] = rows + bwd
     bad = [r for r in rows + bwd if not r["ok"]]
     if bad:
@@ -1616,7 +1634,8 @@ def phase_train():
     three = 2 * f32.depth * 2 * 3  # two pair axial passes a layer, accum 2, 3 steps
     phase_train_parity("a", f32, 64, {name: three for name in
                                       ("flash_fwd", "flash_fwd_f32", "flash_bwd_dq",
-                                       "flash_bwd_dkv", "flash_bwd_dkv_f32")})
+                                       "flash_bwd_dq_f32", "flash_bwd_dkv",
+                                       "flash_bwd_dkv_f32")})
     # max_seq_len 128: 75% of the 8 blocks active; every layer sparse
     phase_train_parity("a sparse", dataclasses.replace(f32, max_seq_len=128,
                                                        sparse_self_attn=True), 128,
@@ -1627,9 +1646,9 @@ def phase_train():
     cfg = Alphafold2Config(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=2048,
                            dtype=torch.bfloat16)
     per = 2 * cfg.depth * tcfg.grad_accum  # two pair-axial attentions a layer
-    # every bf16 dkv launch on the wgmma route
+    # every bf16 dq and dkv launch on the wgmma route
     plain = {"flash_fwd": per, "flash_fwd_wgmma": per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
-             "flash_bwd_dkv_wgmma": per}
+             "flash_bwd_dq_wgmma": per, "flash_bwd_dkv_wgmma": per}
     launches = {"flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     for L in (128, 256):
         counts = train_run("b", cfg, L, tcfg, 5, plain)
@@ -1637,7 +1656,8 @@ def phase_train():
             launches[name] += counts[name]
     gated = train_run("c", dataclasses.replace(cfg, attn_gate=True), 128, tcfg, 2,
                       {"flash_fwd_fused": per, "flash_fwd_wgmma": per, "flash_bwd_fused_dq": per,
-                       "flash_bwd_fused_dkv": per, "flash_bwd_dkv_wgmma": per})
+                       "flash_bwd_fused_dkv": per, "flash_bwd_dq_wgmma": per,
+                       "flash_bwd_dkv_wgmma": per})
     # train_pre's defaults, sparse, at crop 256 with max_seq_len 256: 66% of
     # the 16 blocks active (train_pre's own 2048 would make every block
     # active); every B5f, B5 dq and B5 dkv launch on the wgmma route
@@ -1840,7 +1860,7 @@ def phase_sp_ring_grad():
     all masked and 5% of the others; in f32, then in bf16 (inputs rounded
     once, the CPU in f32 on the same rounded values). Counts set to 0 just
     before each card run's forward and backward, read after: P^2 = 16
-    launches of each B3 kernel, the forwards and dkv kernels on the f32
+    launches of each B3 kernel, the forwards, dq and dkv kernels on the f32
     route in f32 and on the wgmma route in bf16. Tolerance: out and each
     gradient, f32 1e-5 * max(1, max|ref|) (f32 on both sides, another
     summation order); bf16 2^-5 * max(1, max|ref|) (each hop's output is
@@ -1877,7 +1897,7 @@ def phase_sp_ring_grad():
         expect = {name: 0 for name in launches}
         expect.update({"flash_fwd_lse": P * P, f"flash_fwd_{route}": P * P,
                        "flash_bwd_lse_dq": P * P, "flash_bwd_lse_dkv": P * P,
-                       f"flash_bwd_dkv_{route}": P * P})
+                       f"flash_bwd_dq_{route}": P * P, f"flash_bwd_dkv_{route}": P * P})
         ok = ok and launches == expect
         kind = str(dtype).split(".")[-1]
         log(f"[sp c] ring attention {kind} grad, card vs cpu: "
@@ -1916,7 +1936,7 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     path's three attention shapes at L = 384 in bf16 (one launch of each;
     B2f gated). Backwards: summed over the training path's pair-axial
     shapes at L = 128 and 256 in bf16 (B1b ungated, B2b gated; each entry
-    the time of its own kernel, the dkv entries on their wgmma route, its
+    the time of its own kernel, on its wgmma route, its
     own plain version, its own bound, and the SDPA backward for the
     gradients it produces). B4: summed over the
     served int8 request's ten dense-layer shapes at L = 384 (one launch of

@@ -437,7 +437,7 @@ def test_cpu_tensors_never_call_dkv_route(monkeypatch):
     def refused(*a, **k):
         raise AssertionError("a CPU call reached a CUDA dkv route")
 
-    for name in ("dkv_route", "launch_dkv", "launch_dq", "route"):
+    for name in ("dkv_route", "dq_route", "launch_dkv", "launch_dq", "route"):
         monkeypatch.setattr(flash_kernel, name, refused)
     monkeypatch.setattr(cuda_build, "build", refused)
     monkeypatch.setattr(cuda_build, "library", refused)
@@ -470,6 +470,123 @@ def test_launch_dkv_refuses_a_route_the_dtype_has_not():
                                 which="f32")
     assert {r: flash_kernel.LAUNCHES[f"flash_bwd_dkv_{r}"] for r in flash_kernel.ROUTES} == {
         r: 0 for r in flash_kernel.ROUTES}
+
+
+# the trained dq shapes (BH, i, j): pair axial at crop 128 and 256 (BH =
+# 8L), gated or not (the gate acts outside the kernel, so the call is the
+# same), the 2-D-bias row of chip_smoke.py phase 3, and B3's ring gradient
+# at the L = 128 hop
+DQ_SHAPES = {
+    "pair axial L=128": ((1024, 128, 128), False),
+    "pair axial L=128 gated": ((1024, 128, 128), False),
+    "pair axial L=256": ((2048, 256, 256), False),
+    "pair axial L=256 gated": ((2048, 256, 256), False),
+    "pair axial L=128 bias2d": ((1024, 128, 128), True),
+    "B3 ring gradient L=128 P=4": ((8, 640, 4096), False),
+}
+
+
+@pytest.mark.parametrize("case", list(DQ_SHAPES))
+def test_dq_route_takes_wgmma_on_every_trained_shape(case):
+    (BH, i, j), bias2d = DQ_SHAPES[case]
+    q, k, v, bias, _ = _shaped(BH, i, j, 64, bias2d=bias2d)
+    assert flash_kernel.dq_route(q, k, v, bias) == "wgmma"
+
+
+@pytest.mark.parametrize("case,args,want", [
+    ("dh 16", dict(BH=4, i=20, j=20, dh=16), "mma_sync"),
+    ("dh 32", dict(BH=3, i=7, j=1000, dh=32), "mma_sync"),
+    ("bias2d j % 4 != 0", dict(BH=5, i=131, j=77, dh=64, bias2d=True), "mma_sync"),
+    ("bias2d misaligned base", dict(BH=5, i=131, j=76, dh=64, bias2d=True, bias_offset=1),
+     "mma_sync"),
+    ("bias2d ragged i", dict(BH=5, i=131, j=76, dh=64, bias2d=True), "wgmma"),
+    ("key bias ragged j 77", dict(BH=5, i=131, j=77, dh=64), "wgmma"),
+    ("key bias misaligned base", dict(BH=5, i=131, j=76, dh=64, bias_offset=1), "wgmma"),
+    ("short i, long j", dict(BH=3, i=7, j=1000, dh=64), "wgmma"),
+    ("f32", dict(BH=5, i=131, j=76, dh=64, dtype=torch.float32), "f32"),
+    ("f32 bias2d", dict(BH=5, i=131, j=76, dh=64, dtype=torch.float32, bias2d=True), "f32"),
+])
+def test_dq_route_off_the_trained_shapes(case, args, want):
+    """dh 16 and 32 and a 2-D bias TMA cannot address take the mma_sync dq
+    kernel; the key-side bias is read by plain loads, so its base and j are
+    free; f32 takes f32."""
+    q, k, v, bias, _ = _shaped(**args)
+    assert flash_kernel.dq_route(q, k, v, bias) == want
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_cpu_tensors_never_call_dq_route(monkeypatch, gated):
+    """On CPU tensors the dispatcher's backward (B1b, or B2b with a gate)
+    runs the plain versions under autograd before any dq route is decided,
+    and builds or launches nothing."""
+    def refused(*a, **k):
+        raise AssertionError("a CPU call reached a CUDA dq route")
+
+    for name in ("dq_route", "launch_dq"):
+        monkeypatch.setattr(flash_kernel, name, refused)
+    monkeypatch.setattr(cuda_build, "library", refused)
+    flash_kernel.reset_launches()
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 12, 2, 64, generator=gen, requires_grad=True) for _ in range(3))
+    gate = torch.randn(1, 12, 2, 64, generator=gen) if gated else None
+    flash_attention(q, k, v, gate=gate).sum().backward()
+    assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
+    assert set(flash_kernel.LAUNCHES.values()) == {0}
+
+
+def test_launch_dq_refuses_a_route_the_dtype_has_not():
+    """A dq route named by a measurement must fit the dtype (the C entries
+    would read float32 data as bfloat16); refused before any build."""
+    q, k, v, bias = map(torch.from_numpy, folded_inputs(2, 9, 12, 64))
+    lse = torch.zeros(2, 9)
+    for which in ("wgmma", "mma_sync"):
+        with pytest.raises(ValueError, match=f"no '{which}' dq route for torch.float32"):
+            flash_kernel.launch_dq(q, k, v, bias, lse, q, lse, 0.125, "flash_bwd_dq",
+                                   which=which)
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    with pytest.raises(ValueError, match="no 'f32' dq route for torch.bfloat16"):
+        flash_kernel.launch_dq(qb, kb, vb, bias, lse, qb, lse, 0.125, "flash_bwd_dq",
+                               which="f32")
+    with pytest.raises(ValueError, match="no 'tma' dq route"):
+        flash_kernel.launch_dq(qb, kb, vb, bias, lse, qb, lse, 0.125, "flash_bwd_dq",
+                               which="tma")
+    assert {r: flash_kernel.LAUNCHES[f"flash_bwd_dq_{r}"] for r in flash_kernel.ROUTES} == {
+        r: 0 for r in flash_kernel.ROUTES}
+
+
+def test_launch_dq_checks_its_grid_against_i():
+    """Off the wgmma route the dq kernel has a block per (bh, 128-query
+    tile): a call whose query tiles overflow the grid is refused before any
+    build (stride-0 views: no memory). The wgmma route's blocks are
+    persistent, so the backward's own checks no longer refuse it."""
+    BH, i, j = 2 ** 20, 2 ** 20, 1
+    q, k, v, bias, _ = _shaped(BH, i, j, 64, dtype=torch.float32)
+    lse = torch.zeros(1).expand(BH, i)
+    with pytest.raises(ValueError, match="owned rows exceed the kernel grid"):
+        flash_kernel.launch_dq(q, k, v, bias, lse, q, lse, 0.125, "flash_bwd_dq")
+    assert flash_kernel.LAUNCHES["flash_bwd_dq_f32"] == 0
+
+
+def test_dense_and_sparse_dq_share_one_wgmma_pipeline():
+    """The dense dq kernel's wgmma route is csrc/flash_bwd_dq_wgmma.cuh's
+    `wgmma_dq`, unlisted, the pipeline B5 dq runs listed: flash_bwd.cu
+    includes the header, holds `flash_bwd_dq_wgmma_kernel` as a thin
+    __global__ around `wgmma_dq<BIAS2D, false>` (unlisted) and launches it
+    through `launch_wgmma_dq` with an empty stage list. Neither source holds a copy
+    of the pipeline's stages, and the mma_sync dq kernel stays for dh 16 and
+    32."""
+    src = (cuda_build.CSRC / "flash_bwd.cu").read_text()
+    assert '#include "flash_bwd_dq_wgmma.cuh"' in src
+    body = src.split("flash_bwd_dq_wgmma_kernel(", 1)[1].split("\n}\n", 1)[0]
+    assert body.count(";") == 1 and "af2::dq::wgmma_dq<BIAS2D, false>(" in body
+    assert src.count("af2::dq::wgmma_dq<") == 1
+    assert src.count("af2::dq::launch_wgmma_dq<") == 2 and "every{nullptr, nullptr, 1}" in src
+    assert "flash_bwd_dq_bf16_kernel" in src
+    header = (cuda_build.CSRC / "flash_bwd_dq_wgmma.cuh").read_text()
+    for source in (src, (cuda_build.CSRC / "sparse_attn.cu").read_text()):
+        for piece in ("wgmma_m64n64k16_ss(", "wgmma_m64n64k16_rs_mn(", "setmaxnreg",
+                      "mbar_wait(full("):
+            assert piece not in source and piece in header
 
 
 def test_flash_ablation_variants_match_the_source():
@@ -533,6 +650,25 @@ def test_dkv_ablation_variants_match_the_source():
     assert sources["turns"].count("turn_wait();") == 2
     base = cuda_build.CSRC / "flash_fwd.cu"
     assert dkv_ablation.variants(base)["baseline"] == base.read_text()
+
+
+def test_dkv_ablation_dq_counters_match_the_source():
+    """The dq counters copy of csrc/flash_bwd.cu inlines the dq pipeline
+    (csrc/flash_bwd_dq_wgmma.cuh, run unlisted there) cut from its own
+    text, with counters around each phase of both 64-key halves of a stage
+    and the entry points that read them; the dkv pipeline stays included.
+    The sparse tool's dq copy is the same cut of sparse_attn.cu."""
+    from alphafold2_tpu_torch.telemetry import dkv_ablation, sparse_ablation
+
+    copy = dkv_ablation.with_dq_counters((cuda_build.CSRC / "flash_bwd.cu").read_text())
+    assert '#include "flash_bwd_dq_wgmma.cuh"' not in copy and "void wgmma_dq(" in copy
+    assert '#include "flash_bwd_dkv_wgmma.cuh"' in copy
+    assert copy.count("T[7] += 1;") == 1 and copy.count("T[3] += tn - tc;") == 2
+    assert "af2::dq::g_phase" in copy and "af2_ablation_counters" in copy
+    assert "af2::dq::wgmma_dq<BIAS2D, false>" in copy
+    sparse_copy = sparse_ablation.backward_variants()["dq_counters"]
+    assert sparse_copy == dkv_ablation.with_dq_counters(
+        (cuda_build.CSRC / "sparse_attn.cu").read_text())
 
 
 def test_dkv_ablation_needs_a_card(monkeypatch):

@@ -282,6 +282,104 @@ def test_wgmma_dkv_route_refuses_what_tma_cannot_address(cuda_device):
     assert dict(flash_kernel.LAUNCHES) == before
 
 
+DQ_SHAPES = {  # (BH, i, j): ragged; i < 64, long j; past one wave of 128-query tiles
+    "ragged": (5, 131, 76),
+    "short i, long j": (3, 7, 1000),
+    "past one wave": (140, 383, 383),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("mode", ["plain", "gate", "lse", "bias2d", "gate+bias2d"])
+@pytest.mark.parametrize("shape", list(DQ_SHAPES))
+def test_bf16_dq_routes_match_plain_on_card(cuda_device, which, mode, shape):
+    """Both bf16 dq kernels on one call, after the forward kernel, against
+    `flash_bwd_dq_plain` under the elementwise bound of
+    `chip_smoke.flash_bwd_bf16_bound` (the kernels round dS to bf16 before
+    dS.K): B1b ("plain"), gated B2b (the gate folded into the cotangent)
+    and B3 ("lse": delta - g_lse with a nonzero g_lse), and B2b's 2-D bias
+    with d_bias (f32 on both sides: 1e-5 * max(1, max|ref|)); the launch
+    counts under the wrapper's key and the route's, and no other. The (bh)
+    row 1 has every key masked: exact zeros, never NaN; with a 2-D bias
+    query row 3 of bh 0 is fully masked. Where `dq_route` does not give
+    wgmma (a 2-D bias with j % 4 != 0), the forced wgmma launch is refused
+    and nothing counts."""
+    BH, i, j = DQ_SHAPES[shape]
+    dh, scale = 64, 0.125
+    q, k, v, bias = folded_inputs(BH, i, j, dh, cuda_device, seed=4, masked_bh=(1,))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    gate = torch.randn_like(q) if "gate" in mode else None
+    if "bias2d" in mode:
+        bias = (torch.randn(BH, i, j, device=cuda_device) + bias[:, None, :]).contiguous()
+        bias[0, 3] = float("-inf")
+    if mode in ("plain", "lse"):
+        out, lse = flash_kernel.flash_fwd(q, k, v, bias, scale)
+    else:
+        out, lse = flash_kernel.flash_fwd_fused(q, k, v, bias, scale, gate)
+    g = torch.randn_like(q)
+    g_lse = torch.randn(lse.shape, device=cuda_device) if mode == "lse" else None
+    g_eff, delta, _ = flash_kernel.cotangent_terms(out, g, gate)
+    if mode == "lse":
+        delta = flash_kernel.lse_delta(out, g, g_lse).contiguous()
+    name = {"plain": "flash_bwd_dq", "lse": "flash_bwd_lse_dq"}.get(mode, "flash_bwd_fused_dq")
+    args = (q, k, v, bias, lse, g_eff, delta, scale, name)
+    before = dict(flash_kernel.LAUNCHES)
+    if which == "wgmma" and flash_kernel.dq_route(q, k, v, bias) != "wgmma":
+        with pytest.raises(RuntimeError, match="wgmma route"):
+            flash_kernel.launch_dq(*args, which=which)
+        assert dict(flash_kernel.LAUNCHES) == before
+        return
+    dq, d_bias = flash_kernel.launch_dq(*args, which=which)
+    torch.cuda.synchronize()
+    counted = {key: n - before[key] for key, n in flash_kernel.LAUNCHES.items()}
+    assert counted == {key: int(key in (name, f"flash_bwd_dq_{which}")) for key in counted}
+    ref, ref_bias = flash_kernel.flash_bwd_dq_plain(q, k, v, bias, lse, g_eff, delta, scale)
+    from chip_smoke import flash_bwd_bf16_bound
+
+    bound = flash_bwd_bf16_bound(q, k, v, bias, out, lse, g, scale, gate, g_lse)[0]
+    assert torch.isfinite(dq).all()
+    assert ((dq.float() - ref.float()).abs() <= bound).all()
+    assert (dq[1] == 0).all()
+    if "bias2d" in mode:
+        tol = 1e-5 * max(1.0, ref_bias.abs().max().item())
+        assert (d_bias - ref_bias).abs().max().item() <= tol
+        assert (d_bias[1] == 0).all() and (d_bias[0, 3] == 0).all()
+    else:
+        assert d_bias is None
+
+
+@pytest.mark.cuda
+def test_wgmma_dq_route_refuses_what_tma_cannot_address(cuda_device):
+    """Forced onto the wgmma dq route, a call it cannot take (dh 32; q or
+    dO off a 16-byte boundary; a 2-D bias with j % 4 != 0 or off a 16-byte
+    boundary) is refused by the C entry and raises; nothing counts."""
+    q, k, v, bias = folded_inputs(2, 20, 76, 64, cuda_device)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    lse = torch.zeros(2, 20, device=cuda_device)
+    before = dict(flash_kernel.LAUNCHES)
+    half = [x[..., :32].contiguous() for x in (q, k, v)]
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        flash_kernel.launch_dq(*half, bias, lse, half[0], lse, 0.125, "flash_bwd_dq",
+                               which="wgmma")
+    shifted = torch.zeros(2 * 20 * 64 + 1, device=cuda_device,
+                          dtype=torch.bfloat16)[1:].view(2, 20, 64)
+    for q_, g_ in ((shifted, q), (q, shifted)):
+        with pytest.raises(RuntimeError, match="wgmma route"):
+            flash_kernel.launch_dq(q_, k, v, bias, lse, g_, lse, 0.125, "flash_bwd_dq",
+                                   which="wgmma")
+    k7, v7 = (torch.cat([x, x[:, :1]], 1) for x in (k, v))
+    pair = torch.zeros(2, 20, 77, device=cuda_device)
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        flash_kernel.launch_dq(q, k7, v7, pair, lse, q, lse, 0.125, "flash_bwd_fused_dq",
+                               which="wgmma")
+    shifted = torch.zeros(2 * 20 * 76 + 1, device=cuda_device)[1:].view(2, 20, 76)
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        flash_kernel.launch_dq(q, k, v, shifted, lse, q, lse, 0.125, "flash_bwd_fused_dq",
+                               which="wgmma")
+    assert dict(flash_kernel.LAUNCHES) == before
+
+
 @pytest.mark.cuda
 def test_backward_on_card_raises_instead_of_falling_back(cuda_device, monkeypatch):
     """With the backward launch refused, loss.backward() on CUDA tensors
@@ -576,8 +674,8 @@ def test_sparse_unsupported_raises_on_card(cuda_device):
 def test_card_routes_raise_instead_of_falling_back(cuda_device, monkeypatch):
     """With the launches refused, the int8 product, the sparse attention
     (forward through sparse_attention_apply, backward through autograd) and
-    the flash backward's wgmma dkv kernel raise on CUDA tensors; they never
-    take their plain versions or another route."""
+    the flash backward's wgmma dkv and dq kernels raise on CUDA tensors; they
+    never take their plain versions or another route."""
     from alphafold2_tpu_torch.ops import quant, quant_kernel, sparse, sparse_kernel
     from alphafold2_tpu_torch.ops.attention import AttentionConfig, attention_init
 
@@ -614,6 +712,7 @@ def test_card_routes_raise_instead_of_falling_back(cuda_device, monkeypatch):
 
     class RefusingDkv:
         af2_flash_bwd_dq = real.af2_flash_bwd_dq
+        af2_flash_bwd_dq_wgmma = real.af2_flash_bwd_dq_wgmma
 
         @staticmethod
         def af2_flash_bwd_dkv_wgmma(*args):
@@ -630,6 +729,21 @@ def test_card_routes_raise_instead_of_falling_back(cuda_device, monkeypatch):
 
     qkv = [torch.randn(1, 32, 2, 64, device=cuda_device, dtype=torch.bfloat16,
                        requires_grad=True) for _ in range(3)]
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        flash.flash_attention(*qkv).float().sum().backward()
+
+    # a failed wgmma dq launch raises; the mma_sync dq kernel is never tried
+    class RefusingDq:
+        @staticmethod
+        def af2_flash_bwd_dq_wgmma(*args):
+            return 98  # cudaErrorInvalidDeviceFunction
+
+        @staticmethod
+        def af2_flash_bwd_dq(*args):
+            raise AssertionError("the wgmma dq launch fell back to the mma_sync kernel")
+
+    monkeypatch.setattr(flash_kernel, "_bwd_lib", RefusingDq)
+    monkeypatch.setattr(flash_kernel, "flash_bwd_dq_plain", plain_called)
     with pytest.raises(RuntimeError, match="wgmma route"):
         flash.flash_attention(*qkv).float().sum().backward()
 

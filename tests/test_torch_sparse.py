@@ -720,7 +720,8 @@ def test_flash_and_sparse_forwards_share_one_wgmma_pipeline():
         assert "af2::dkv::launch_wgmma_dkv<" in src
     src = (cuda_build.CSRC / "sparse_attn.cu").read_text()
     assert '#include "flash_bwd_dq_wgmma.cuh"' in src
-    assert src.count("af2::dq::wgmma_dq<true>(") == 1 and "af2::dq::launch_wgmma_dq(" in src
+    assert src.count("af2::dq::wgmma_dq<false, true>(") == 1
+    assert "af2::dq::launch_wgmma_dq<false>(" in src
     for name in ("flash_fwd", "flash_bwd", "sparse_attn"):
         src = (cuda_build.CSRC / f"{name}.cu").read_text()
         for piece in ("wgmma_m64n128k16_ss(", "wgmma_m64n64k16_ss(", "wgmma_m64n64k16_rs_mn(",
