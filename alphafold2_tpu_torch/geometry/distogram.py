@@ -4,6 +4,7 @@ mean/std centering)."""
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -21,6 +22,15 @@ def _bin_centers(bins: torch.Tensor) -> torch.Tensor:
     return centers
 
 
+@functools.lru_cache(maxsize=None)
+def _default_bins(dtype: torch.dtype, device: torch.device):
+    """(DISTANCE_THRESHOLDS, their bucket centers) on `device`, made there
+    once: a copy from the host cannot be captured into a CUDA graph
+    (serving/executable.py)."""
+    bins = torch.as_tensor(DISTANCE_THRESHOLDS, dtype=dtype, device=device)
+    return bins, _bin_centers(bins.clone())
+
+
 def center_distogram(distogram, bins=None):
     """Expected distance and confidence weights from a distogram.
 
@@ -30,11 +40,11 @@ def center_distogram(distogram, bins=None):
     bucket."""
     if distogram.dim() == 3:
         distogram = distogram[None]
-    bins = torch.as_tensor(
-        DISTANCE_THRESHOLDS if bins is None else bins,
-        dtype=distogram.dtype, device=distogram.device,
-    )
-    centers = _bin_centers(bins.clone())
+    if bins is None:
+        bins, centers = _default_bins(distogram.dtype, distogram.device)
+    else:
+        bins = torch.as_tensor(bins, dtype=distogram.dtype, device=distogram.device)
+        centers = _bin_centers(bins.clone())
     n = distogram.shape[-2]
     central = torch.einsum("...b,b->...", distogram, centers)
     mask = (central <= bins[-2]).to(distogram.dtype)

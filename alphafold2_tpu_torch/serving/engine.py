@@ -1,0 +1,797 @@
+"""Request-level inference engine for one replica (counterpart of
+alphafold2_tpu/serving/engine.py `ServingEngine`).
+
+  * **Executable table.** Requests are padded onto a length-bucket ladder
+    (`serving/bucketing.py`) and each (bucket, batch shape) gets one
+    executable, built once (`serving/executable.py`): on the card a
+    captured pair of CUDA graphs of the whole request (the JAX engine's
+    AOT executable), on the CPU the eager `predict_structure`. An
+    arbitrary stream of lengths builds at most len(buckets) x len(batch
+    shapes) of them (`compile_count` counts distinct buckets).
+  * **Micro-batching.** A bounded queue feeds one worker thread that
+    assembles same-bucket batches: a batch leaves when it fills
+    (`max_batch`) or its oldest request has waited `max_wait_s`. With the
+    batch-shape ladder (`batch_ladder`) a partial batch runs at the
+    smallest power-of-two rung that holds it. Queue-full is an explicit
+    `QueueFullError`, deadlines expire scheduler-side, and shutdown drains
+    or fails pending work.
+  * **Result cache.** An LRU keyed by (sequence, MSA, config tag); a hit
+    completes at submit(). Identical requests in flight share one future.
+  * **Failure isolation.** A failed multi-request batch is retried one
+    request at a time, so a poison request fails alone. A consecutive-
+    failure circuit breaker (`breaker_threshold`) fast-rejects while open,
+    and a hung-batch watchdog (`watchdog_timeout_s`) fails a wedged batch
+    instead of the worker.
+
+Not ported in this engine, each refused with its ROADMAP item when set:
+the sequence-parallel arm (`sp_shards`, `sp_schedules`: A11b), early exit
+(`early_exit_depths`, `early_exit_kl`: A5 remainder), pipelined dispatch
+(`pipeline_depth`: A11a-pipelined), the chaos seam (`fault_hook`: A11b),
+the tracer and the cost and goodput ledgers (`tracer`, `cost_ledger`,
+`goodput`, `flights`: A14), and a random MDS init on the card
+(A11a-random-init: its draw is a CPU generator's, copied to the card,
+which a graph cannot replay).
+
+Thread model: clients call `submit()` / `result()` from any thread; every
+device call happens on the worker thread (or, past a watchdog timeout, on
+the abandoned dispatch thread it left), one at a time under the graph
+pool's lock. A capture runs in CUDA's global capture mode, where no other
+thread of the process may synchronize with the card: build every
+executable up front (`precompile`) where other threads use the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+import traceback
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from alphafold2_tpu_torch.constants import PAD_TOKEN_ID, aa_to_tokens
+from alphafold2_tpu_torch.device import check_params_device, resolve_device
+from alphafold2_tpu_torch.reliability.breaker import CircuitBreaker
+from alphafold2_tpu_torch.serving.bucketing import (
+    DEFAULT_BUCKETS,
+    BucketLadder,
+    batch_shape_ladder,
+    pad_batch,
+)
+from alphafold2_tpu_torch.serving.cache import ResultCache, request_key
+from alphafold2_tpu_torch.serving.errors import (
+    CircuitOpenError,
+    EngineClosedError,
+    HungBatchError,
+    InvalidSequenceError,
+    PredictionError,
+    QueueFullError,
+    RequestTimeoutError,
+    ServingError,
+)
+from alphafold2_tpu_torch.serving.executable import (
+    CapturedExecutable,
+    EagerExecutable,
+    GraphPool,
+)
+from alphafold2_tpu_torch.serving.metrics import ServingMetrics
+from alphafold2_tpu_torch.serving.quant_residency import resident_params
+
+
+def _refuse(knob: str, item: str, what: str):
+    raise NotImplementedError(f"{knob}: {what} is not ported to the PyTorch engine yet "
+                              f"(ROADMAP {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """Scheduler and cache knobs (model hyperparameters live in
+    `Alphafold2Config`); the JAX engine's fields, the refused ones raising
+    when set."""
+
+    buckets: Tuple[int, ...] = DEFAULT_BUCKETS
+    max_batch: int = 4           # the top batch shape
+    max_queue: int = 64          # bounded request queue (backpressure)
+    max_wait_s: float = 0.05     # batch-assembly deadline for partial batches
+    request_timeout_s: Optional[float] = 60.0  # default per-request deadline
+    cache_capacity: int = 256    # result LRU entries (0 disables)
+    msa_rows: int = 0            # >0: executables take a fixed-row MSA stream
+    mds_iters: int = 32
+    mds_init: str = "classical"
+    seed: int = 0                # seeds the random MDS init (CPU only)
+    precompile: bool = False     # build every executable at startup
+    params_tag: str = ""         # checkpoint fingerprint for cache keys
+    breaker_threshold: int = 0   # consecutive dispatch failures that open
+    #                              the circuit (0 = no breaker)
+    breaker_reset_s: float = 30.0  # open -> half-open probe window
+    watchdog_timeout_s: Optional[float] = None  # a dispatch past this fails
+    #                              its batch instead of wedging the worker
+    batch_ladder: bool = False   # power-of-two batch shapes up to max_batch
+    sp_shards: int = 0           # refused (A11b)
+    sp_schedules: Tuple[Tuple[int, str], ...] = ()  # refused (A11b)
+    early_exit_depths: Tuple[int, ...] = ()  # refused (A5 remainder)
+    early_exit_kl: float = 0.0   # refused (A5 remainder)
+    pipeline_depth: int = 0      # refused (A11a-pipelined)
+
+    def __post_init__(self):
+        if self.sp_shards or self.sp_schedules:
+            _refuse("sp_shards / sp_schedules", "A11b", "the sequence-parallel serving arm")
+        if self.early_exit_depths or self.early_exit_kl:
+            _refuse("early_exit_depths / early_exit_kl", "A5 remainder",
+                    "trunk-depth early exit")
+        if self.pipeline_depth:
+            _refuse("pipeline_depth", "A11a-pipelined", "pipelined dispatch")
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
+        if self.max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
+        if self.max_wait_s < 0:
+            raise ValueError(f"max_wait_s must be >= 0, got {self.max_wait_s}")
+        if self.breaker_threshold < 0:
+            raise ValueError(f"breaker_threshold must be >= 0, got {self.breaker_threshold}")
+        if self.watchdog_timeout_s is not None and self.watchdog_timeout_s <= 0:
+            raise ValueError(f"watchdog_timeout_s must be positive or None, got "
+                             f"{self.watchdog_timeout_s}")
+        if self.mds_init not in ("classical", "random"):
+            raise ValueError(f"unknown mds_init {self.mds_init!r}")
+        if self.mds_init == "random" and self.cache_capacity:
+            # a random init draws anew for every batch, so identical
+            # requests in different batches give different structures: the
+            # cache's equal key == identical computation would not hold
+            raise ValueError(
+                "mds_init='random' is not reproducible across dispatches and cannot "
+                "back the result cache; use mds_init='classical' or cache_capacity=0")
+
+
+@dataclasses.dataclass
+class PredictionResult:
+    """One served structure (host numpy, sliced to the true length)."""
+
+    seq: str
+    coords: np.ndarray        # (L, 3) CA trace
+    confidence: np.ndarray    # (L,) in [0, 1]
+    stress: float             # final normalised MDS stress
+    bucket: int
+    from_cache: bool
+    latency_s: float
+    mean_confidence: float = 0.0  # over the true length
+
+
+class ServingRequest:
+    """Client handle: a future resolved by the scheduler worker."""
+
+    def __init__(self, seq: str, tokens: np.ndarray, msa, msa_mask, cache_key: str,
+                 bucket: int, deadline: Optional[float]):
+        self.seq = seq
+        self.tokens = tokens
+        self.msa = msa
+        self.msa_mask = msa_mask
+        self.cache_key = cache_key
+        self.bucket = bucket
+        self.deadline = deadline
+        self.submitted_at = time.monotonic()
+        self._event = threading.Event()
+        self._lock = threading.Lock()
+        self._result: Optional[PredictionResult] = None
+        self._exc: Optional[BaseException] = None
+
+    @property
+    def length(self) -> int:
+        return self.tokens.shape[0]
+
+    def expired(self, now: Optional[float] = None) -> bool:
+        if self.deadline is None:
+            return False
+        return (time.monotonic() if now is None else now) >= self.deadline
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def _finish(self, result=None, exc=None) -> bool:
+        """Resolve once; later resolutions are dropped. True when this call
+        resolved the request."""
+        with self._lock:
+            if self._event.is_set():
+                return False
+            self._result, self._exc = result, exc
+            self._event.set()
+        return True
+
+    def result(self, timeout: Optional[float] = None) -> PredictionResult:
+        """Block for the outcome: the request's ServingError, or the builtin
+        TimeoutError when the caller's own wait budget runs out first. Each
+        call returns fresh copies of the arrays (a result may be shared by
+        coalesced requests and alias a cache entry)."""
+        if not self._event.wait(timeout):
+            raise TimeoutError(f"request ({len(self.seq)} residues) not completed within "
+                               f"{timeout}s wait")
+        if self._exc is not None:
+            raise self._exc
+        return dataclasses.replace(self._result, coords=self._result.coords.copy(),
+                                   confidence=self._result.confidence.copy())
+
+
+def featurize_request(seq: str, msa=None, msa_mask=None, *, ladder: BucketLadder,
+                      msa_rows: int = 0):
+    """Normalise, tokenize (strictly), validate the MSA and pick the
+    bucket (the JAX package's serving/featurize.py `featurize_request`).
+    Returns (seq, tokens (L,), msa (rows, L) or None, msa_mask or None,
+    bucket); raises the typed ServingErrors."""
+    seq = seq.strip().upper()
+    try:
+        tokens = aa_to_tokens(seq, strict=True)
+    except ValueError as e:
+        raise InvalidSequenceError(str(e)) from None
+    bucket = ladder.bucket_for(len(seq))
+    msa_arr = None
+    if msa is None and msa_mask is not None:
+        raise ServingError("msa_mask given without msa")
+    if msa is not None:
+        if msa_rows == 0:
+            raise ServingError("engine is configured sequence-only (msa_rows=0); rebuild "
+                               "with ServingConfig(msa_rows=N) to serve MSAs")
+        msa_arr = np.asarray(msa, np.int32)
+        if msa_arr.ndim != 2 or msa_arr.shape[1] != len(seq):
+            raise ServingError(f"msa must be (rows, {len(seq)}) tokens, got {msa_arr.shape}")
+        if msa_arr.shape[0] > msa_rows:
+            raise ServingError(
+                f"msa has {msa_arr.shape[0]} rows; this engine serves at most "
+                f"msa_rows={msa_rows}: subsample client-side or deploy with a larger msa_rows")
+        if msa_mask is not None:
+            msa_mask = np.asarray(msa_mask, bool)
+            if msa_mask.shape != msa_arr.shape:
+                raise ServingError(f"msa_mask shape {msa_mask.shape} does not match msa "
+                                   f"shape {msa_arr.shape}")
+    return seq, tokens, msa_arr, msa_mask, bucket
+
+
+def pad_msa_batch(live, bucket: int, batch_shape: int, rows: int):
+    """(B, rows, bucket) MSA stream and mask for a batch of requests. A
+    request without an MSA gets its query as row 0; unused rows repeat row
+    0 under a False mask (finite values that masked attention ignores);
+    filler batch slots repeat the last request."""
+    msa = np.full((batch_shape, rows, bucket), PAD_TOKEN_ID, np.int32)
+    msam = np.zeros((batch_shape, rows, bucket), bool)
+    for i, req in enumerate(live):
+        L = req.length
+        src = req.msa if req.msa is not None else req.tokens[None]
+        src_mask = req.msa_mask if req.msa_mask is not None else np.ones(src.shape, bool)
+        r = src.shape[0]
+        msa[i, :r, :L] = src
+        msam[i, :r, :L] = src_mask
+        for j in range(r, rows):
+            msa[i, j] = msa[i, 0]
+    for i in range(len(live), batch_shape):
+        msa[i], msam[i] = msa[len(live) - 1], msam[len(live) - 1]
+    return msa, msam
+
+
+_IDLE_POLL_S = 0.05  # worker wake cadence when nothing is staged
+
+
+class ServingEngine:
+    """Length-bucketed, micro-batching engine over `predict_structure`.
+
+    params: the trunk's parameter tree, on `device` (the int8 tree is made
+    from it at build for weight_dtype="int8": `resident_params`);
+    model_cfg: `Alphafold2Config` (max_seq_len must cover the ladder);
+    cfg: `ServingConfig`; device: where it serves (default CUDA, where
+    every executable is a captured graph pair; "cpu" runs eager).
+    `fault_hook`, `tracer`, `cost_ledger`, `goodput` and `flights` are the
+    JAX engine's seams that are not ported: set, they raise with their
+    ROADMAP item.
+
+    `_call_executable` and `_realize` are overridable seams: tests stub
+    the device call there without touching the scheduler."""
+
+    def __init__(self, params, model_cfg, cfg: ServingConfig = ServingConfig(), *,
+                 device=None, fault_hook=None, tracer=None, cost_ledger=None, goodput=None,
+                 flights=None):
+        if fault_hook is not None:
+            _refuse("fault_hook", "A11b", "chaos injection into the engine")
+        for name, seam in (("tracer", tracer), ("cost_ledger", cost_ledger),
+                           ("goodput", goodput), ("flights", flights)):
+            if seam is not None:
+                _refuse(name, "A14", "the serving telemetry")
+        self._ladder = BucketLadder(cfg.buckets)
+        if self._ladder.max_len > model_cfg.max_seq_len:
+            raise ValueError(f"largest bucket {self._ladder.max_len} exceeds the model's "
+                             f"max_seq_len {model_cfg.max_seq_len}")
+        if cfg.msa_rows > model_cfg.max_num_msa:
+            raise ValueError(f"msa_rows {cfg.msa_rows} exceeds the model's max_num_msa "
+                             f"{model_cfg.max_num_msa}")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and cfg.mds_init == "random":
+            _refuse("mds_init='random' on CUDA", "A11a-random-init",
+                    "a capture-safe random MDS init")
+        self.cfg = cfg
+        self.model_cfg = model_cfg
+        check_params_device(params, self.device)
+        # the int8 arm quantizes once per residency tag, process-wide
+        params, self._weight_residency = resident_params(params, model_cfg,
+                                                         params_tag=cfg.params_tag)
+        self._params = params
+        self._batch_shapes = (batch_shape_ladder(cfg.max_batch) if cfg.batch_ladder
+                              else (cfg.max_batch,))
+        # the numerics identity of a result: repr(model_cfg) covers every
+        # model field (dtype, weight_dtype, attn_gate, sparse_self_attn,
+        # ...); the ladder because a structure depends on its bucket; the
+        # device type because the card's kernels and the CPU's plain
+        # versions agree only to rounding
+        tag_fields = (model_cfg, cfg.mds_iters, cfg.mds_init, cfg.seed, cfg.msa_rows,
+                      cfg.params_tag, self._ladder.buckets, self.device.type)
+        if cfg.batch_ladder:
+            tag_fields = tag_fields + (("batch_ladder", self._batch_shapes),)
+        self._config_tag = repr(tag_fields)
+
+        self._executables = {}
+        self._compile_lock = threading.Lock()
+        self._pool = GraphPool() if self.device.type == "cuda" else None
+        self._generator = torch.Generator().manual_seed(cfg.seed)  # the CPU's random init
+        self._dispatch_counter = 0
+        self._counter_lock = threading.Lock()
+        self._breaker = (
+            CircuitBreaker(cfg.breaker_threshold, cfg.breaker_reset_s)
+            if cfg.breaker_threshold else None
+        )
+        self._queue: "queue.Queue[ServingRequest]" = queue.Queue(maxsize=cfg.max_queue)
+        self._cache = ResultCache(cfg.cache_capacity)
+        self._inflight = {}  # cache_key -> pending request (coalescing)
+        self._inflight_lock = threading.Lock()
+        self.metrics = ServingMetrics()
+        self.metrics.set_weight_bytes(self._weight_residency)
+        self._closed = False
+        self._drain_on_stop = True
+        self._stop = threading.Event()
+        self._rate_lock = threading.Lock()
+        self._sec_per_req_ema = 0.0  # batch wall seconds per served request
+        # build before the worker exists: a failing capture aborts the
+        # construction instead of stranding a started worker
+        if cfg.precompile:
+            for bucket in self._ladder.buckets:
+                for shape in self._batch_shapes:
+                    self._executable_for(bucket, shape)
+        self._worker = threading.Thread(target=self._worker_loop, name="af2-serve",
+                                        daemon=True)
+        self._worker.start()
+
+    # ------------------------------------------------------------------ API
+
+    def submit(self, seq: str, *, msa=None, msa_mask=None,
+               timeout: Optional[float] = None) -> ServingRequest:
+        """Enqueue one sequence; returns a future at once. Raises
+        EngineClosedError / InvalidSequenceError / SequenceTooLongError /
+        QueueFullError / CircuitOpenError synchronously: a rejected request
+        never occupies the queue."""
+        if self._closed:
+            self._reject(EngineClosedError("engine is shut down"))
+        try:
+            seq, tokens, msa_arr, msa_mask, bucket = featurize_request(
+                seq, msa, msa_mask, ladder=self._ladder, msa_rows=self.cfg.msa_rows)
+        except ServingError as e:
+            self._reject(e)
+        key = request_key(seq, msa_arr, self._config_tag, msa_mask=msa_mask)
+        cached = self._cache.get(key)
+        if cached is not None:
+            # never touches the queue, the scheduler or the model
+            self.metrics.inc("submitted")
+            self.metrics.inc("cache_hits")
+            self.metrics.inc("completed")
+            self.metrics.latency.observe(0.0)
+            req = ServingRequest(seq, tokens, msa_arr, msa_mask, key, bucket, deadline=None)
+            req._finish(result=dataclasses.replace(cached, from_cache=True, latency_s=0.0))
+            return req
+
+        ttl = self.cfg.request_timeout_s if timeout is None else timeout
+        deadline = (time.monotonic() + ttl) if ttl is not None else None
+        with self._inflight_lock:
+            existing = self._inflight.get(key)
+            if existing is not None and not existing.done():
+                # an identical query is pending: share its future (and its
+                # deadline)
+                self.metrics.inc("coalesced")
+                return existing
+            if self._breaker is not None and not self._breaker.allow():
+                snap = self._breaker.snapshot()
+                self._reject(CircuitOpenError(
+                    f"circuit {snap['state']} after repeated dispatch failures (threshold "
+                    f"{snap['threshold']}); retry after {self.cfg.breaker_reset_s}s"))
+            req = ServingRequest(seq, tokens, msa_arr, msa_mask, key, bucket, deadline)
+            # counted before the worker can complete it, so in_flight never
+            # reads negative
+            self.metrics.inc("submitted")
+            try:
+                self._queue.put_nowait(req)
+            except queue.Full:
+                self.metrics.inc("submitted", -1)
+                if self._breaker is not None:
+                    self._breaker.abandon_probe()
+                self.metrics.inc("rejected")
+                self.metrics.inc_error("queue_full")
+                raise QueueFullError(
+                    f"request queue at capacity ({self.cfg.max_queue}); retry with backoff "
+                    f"or raise ServingConfig.max_queue",
+                    retry_after_s=self.retry_after_estimate()) from None
+            self._inflight[key] = req
+        # shutdown() may have flipped the flag after the entry check, with
+        # the worker already past this request: resolve it here (resolving
+        # is once-only, so losing the race to a draining worker is harmless)
+        if self._closed and self._resolve(req, exc=EngineClosedError(
+                "engine shut down while the request was being submitted")):
+            self.metrics.inc("failed")
+            self.metrics.inc_error("engine_closed")
+            raise EngineClosedError("engine is shut down")
+        return req
+
+    def _reject(self, exc: ServingError):
+        """Count a submit-time rejection under its code and raise it."""
+        self.metrics.inc("rejected")
+        self.metrics.inc_error(exc)
+        raise exc from None
+
+    def predict(self, seq: str, *, msa=None, msa_mask=None,
+                timeout: Optional[float] = None) -> PredictionResult:
+        """Submit and block for the result."""
+        return self.submit(seq, msa=msa, msa_mask=msa_mask, timeout=timeout).result()
+
+    @property
+    def compile_count(self) -> int:
+        """Distinct buckets with a built executable."""
+        return self.metrics.compile_count
+
+    @property
+    def config_tag(self) -> str:
+        """The numerics identity the result cache keys on."""
+        return self._config_tag
+
+    def retry_after_estimate(self) -> float:
+        """Backoff advice for shed clients: the batch-assembly wait plus the
+        backlog drained at the measured seconds per request (before any
+        batch has finished: the latency p50 per max_batch batch)."""
+        backlog = self._queue.qsize() + 1
+        with self._rate_lock:
+            sec_per_req = self._sec_per_req_ema
+        if sec_per_req > 0.0:
+            est = self.cfg.max_wait_s + sec_per_req * backlog
+        else:
+            per_batch = self.metrics.latency.snapshot().get("p50") or 0.1
+            est = self.cfg.max_wait_s + per_batch * (1 + self._queue.qsize() // self.cfg.max_batch)
+        return float(min(60.0, max(0.05, est)))
+
+    def _note_drain(self, window_s: float, n: int):
+        sec_per_req = window_s / n
+        with self._rate_lock:
+            self._sec_per_req_ema = (sec_per_req if self._sec_per_req_ema == 0.0
+                                     else 0.2 * sec_per_req + 0.8 * self._sec_per_req_ema)
+
+    def health(self) -> dict:
+        """Liveness: "ok", "degraded" (the breaker is not closed) or "down"
+        (closed, or the worker died)."""
+        alive = self._worker.is_alive()
+        out = {"status": "ok" if (not self._closed and alive) else "down",
+               "closed": self._closed, "worker_alive": alive,
+               "queue_depth": self._queue.qsize(), "queue_capacity": self.cfg.max_queue}
+        if self._breaker is not None:
+            out["breaker"] = self._breaker.state.value
+            if out["status"] == "ok" and out["breaker"] != "closed":
+                out["status"] = "degraded"
+        return out
+
+    def stats(self) -> dict:
+        """JSON-ready snapshot: the JAX engine's keys, plus `device`,
+        `captures` (each executable's build seconds, the launches its
+        capture recorded and its replays) and `launches` (the kernel
+        launches the replays made: captured launches x replays, by kernel
+        wrapper, where the wrappers' own counts see only the capture)."""
+        snap = self.metrics.snapshot(self.cfg.max_batch)
+        snap["queue"] = {"depth": self._queue.qsize(), "capacity": self.cfg.max_queue}
+        snap["cache"] = self._cache.snapshot()
+        snap["buckets"] = list(self._ladder.buckets)
+        snap["max_batch"] = self.cfg.max_batch
+        snap["batch_shapes"] = list(self._batch_shapes)
+        snap["closed"] = self._closed
+        snap["weights"] = dict(self._weight_residency)
+        snap["device"] = str(self.device)
+        exes = sorted(self._executables.items())  # no lock: never wait on a capture
+        snap["captures"] = [{"bucket": b, "batch": s, "seconds": exe.seconds,
+                             "replays": exe.replays, "launches": dict(exe.launches)}
+                            for (b, s), exe in exes]
+        launches = {}
+        for _, exe in exes:
+            for name, n in exe.launches.items():
+                launches[name] = launches.get(name, 0) + n * exe.replays
+        snap["launches"] = launches
+        if self._breaker is not None:
+            snap["breaker"] = self._breaker.snapshot()
+        snap["telemetry"] = {"metrics": self.metrics.registry.snapshot()}
+        return snap
+
+    def shutdown(self, drain: bool = True, timeout: Optional[float] = None):
+        """Stop accepting work and stop the worker. drain=True serves the
+        pending requests first (assembly deadlines waived, expiry kept);
+        drain=False fails them with EngineClosedError. Idempotent; not from
+        the worker thread."""
+        with self._inflight_lock:
+            self._closed = True
+        self._drain_on_stop = drain
+        self._stop.set()
+        self._worker.join(timeout)
+        # a submit() racing the close flag can strand a request after the
+        # worker exited: fail it, once the worker is really gone
+        if self._worker.is_alive():
+            return
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if self._resolve(req, exc=EngineClosedError(
+                    "engine shut down before request was served")):
+                self.metrics.inc("failed")
+                self.metrics.inc_error("engine_closed")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown(drain=True)
+        return False
+
+    def _resolve(self, req: ServingRequest, *, result=None, exc=None) -> bool:
+        """Finish a request and drop it from the coalescing map."""
+        finished = req._finish(result=result, exc=exc)
+        if finished:
+            with self._inflight_lock:
+                if self._inflight.get(req.cache_key) is req:
+                    del self._inflight[req.cache_key]
+        return finished
+
+    # ------------------------------------------------------ executables
+
+    def _executable_for(self, bucket: int, batch_shape: Optional[int] = None):
+        """The executable of (bucket, batch shape), built at most once
+        under a lock (precompile and the worker can race); `batch_shape`
+        None is the top rung."""
+        if batch_shape is None:
+            batch_shape = self._batch_shapes[-1]
+        with self._compile_lock:
+            exe = self._executables.get((bucket, batch_shape))
+            if exe is not None:
+                return exe
+            with self.metrics.capture_span(bucket):
+                if self.device.type == "cuda":
+                    exe = CapturedExecutable(self._params, self.model_cfg, batch=batch_shape,
+                                             bucket=bucket, msa_rows=self.cfg.msa_rows,
+                                             mds_iters=self.cfg.mds_iters, device=self.device,
+                                             pool=self._pool)
+                else:
+                    exe = EagerExecutable(self._params, self.model_cfg,
+                                          mds_iters=self.cfg.mds_iters,
+                                          mds_init=self.cfg.mds_init, device=self.device,
+                                          generator=self._generator)
+            self._executables[(bucket, batch_shape)] = exe
+            return exe
+
+    def _call_executable(self, bucket: int, tokens, mask, msa=None, msa_mask=None):
+        """One device call on the padded batch (its rung is tokens.shape[0]).
+        Returns the outputs on the device. Overridable seam."""
+        return self._executable_for(bucket, tokens.shape[0])(tokens, mask, msa, msa_mask)
+
+    def _realize(self, out):
+        """Wait for a call's outputs and bring them to the host as numpy.
+        Overridable seam: the point the hung-batch watchdog guards."""
+        return {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+                for k, v in out.items()}
+
+    def _dispatch(self, bucket: int, tokens, mask, msa=None, msa_mask=None):
+        """`_call_executable` and `_realize`, under the watchdog when one is
+        set: the call then runs on a throwaway daemon thread, and past the
+        timeout it is abandoned (a thread cannot be killed) and the batch
+        fails with HungBatchError while the worker keeps serving."""
+        def call():
+            return self._realize(self._call_executable(bucket, tokens, mask, msa, msa_mask))
+
+        timeout = self.cfg.watchdog_timeout_s
+        if timeout is None:
+            return call()
+        with self._counter_lock:
+            idx = self._dispatch_counter
+            self._dispatch_counter += 1
+        box, done = {}, threading.Event()
+
+        def runner():
+            try:
+                box["out"] = call()
+            except BaseException as e:  # noqa: BLE001 — relayed below
+                box["exc"] = e
+            finally:
+                done.set()
+
+        threading.Thread(target=runner, daemon=True, name=f"af2-dispatch-{idx}").start()
+        if not done.wait(timeout):
+            raise HungBatchError(f"dispatch {idx} (bucket {bucket}) exceeded the {timeout}s "
+                                 f"hung-batch watchdog; call abandoned")
+        if "exc" in box:
+            raise box["exc"]
+        return box["out"]
+
+    # ------------------------------------------------- scheduler worker
+
+    def _worker_loop(self):
+        staged = {}  # bucket -> [ServingRequest], FIFO
+        try:
+            while True:
+                self._dispatch_ready(staged, force=False)
+                if self._stop.is_set():
+                    self._final_flush(staged)
+                    return
+                try:
+                    req = self._queue.get(timeout=self._poll_timeout(staged))
+                except queue.Empty:
+                    continue
+                self._stage(staged, req)
+                # drain what arrived with it: a burst becomes one batch
+                while True:
+                    try:
+                        self._stage(staged, self._queue.get_nowait())
+                    except queue.Empty:
+                        break
+        except BaseException as e:  # noqa: BLE001 — the abort is the report
+            # a scheduler bug must not strand pending requests behind a
+            # dead thread: fail them all and refuse further traffic
+            self._abort_worker(staged, e)
+
+    def _abort_worker(self, staged, cause: BaseException):
+        with self._inflight_lock:
+            self._closed = True
+        traceback.print_exc()
+        err = PredictionError(f"serving worker crashed: {type(cause).__name__}: {cause}; "
+                              f"engine is closed")
+        err.__cause__ = cause
+        while True:
+            try:
+                self._stage(staged, self._queue.get_nowait())
+            except queue.Empty:
+                break
+        for reqs in staged.values():
+            for req in reqs:
+                if self._resolve(req, exc=err):
+                    self.metrics.inc("failed")
+                    self.metrics.inc_error(err)
+        staged.clear()
+
+    def _stage(self, staged, req: ServingRequest):
+        staged.setdefault(req.bucket, []).append(req)
+
+    def _poll_timeout(self, staged) -> float:
+        """Sleep until the nearest batch-assembly deadline, capped so a stop
+        is noticed promptly."""
+        if not staged:
+            return _IDLE_POLL_S
+        nearest = min(reqs[0].submitted_at + self.cfg.max_wait_s
+                      for reqs in staged.values() if reqs)
+        return min(_IDLE_POLL_S, max(1e-3, nearest - time.monotonic()))
+
+    def _dispatch_ready(self, staged, force: bool):
+        for bucket in list(staged):
+            reqs = staged[bucket]
+            while reqs and (force or len(reqs) >= self.cfg.max_batch
+                            or time.monotonic() - reqs[0].submitted_at >= self.cfg.max_wait_s):
+                batch = reqs[: self.cfg.max_batch]
+                del reqs[: self.cfg.max_batch]
+                self._run_batch(bucket, batch)
+            if not reqs:
+                staged.pop(bucket)
+
+    def _final_flush(self, staged):
+        """Stop path: drain the queue, then serve or fail everything."""
+        while True:
+            try:
+                self._stage(staged, self._queue.get_nowait())
+            except queue.Empty:
+                break
+        if self._drain_on_stop:
+            self._dispatch_ready(staged, force=True)
+            return
+        for reqs in staged.values():
+            for req in reqs:
+                if self._resolve(req, exc=EngineClosedError(
+                        "engine shut down before request was served")):
+                    self.metrics.inc("failed")
+                    self.metrics.inc_error("engine_closed")
+        staged.clear()
+
+    def _run_batch(self, bucket: int, reqs, allow_split: bool = True):
+        now = time.monotonic()
+        live = []
+        for req in reqs:
+            if req.expired(now):
+                exc = RequestTimeoutError(
+                    f"deadline passed after {now - req.submitted_at:.3f}s in queue",
+                    retry_after_s=self.retry_after_estimate())
+                if self._resolve(req, exc=exc):
+                    self.metrics.inc("timed_out")
+                    self.metrics.inc_error(exc)
+            else:
+                live.append(req)
+        # an expired request may have been the breaker's half-open probe,
+        # which then must be released
+        if len(live) < len(reqs) and self._breaker is not None:
+            self._breaker.abandon_probe()
+        if live:
+            self._run_live(bucket, live, allow_split)
+
+    def _batch_shape_for(self, n: int) -> int:
+        """The smallest rung that holds n rows (max_batch without the
+        ladder)."""
+        for s in self._batch_shapes:
+            if n <= s:
+                return s
+        return self._batch_shapes[-1]
+
+    def _fail_live(self, bucket: int, live, e: Exception, allow_split: bool):
+        """A failed batch: split a multi-request batch into single-request
+        retries (a poison request must not fail its batchmates; a hung
+        batch is not split, the device is the suspect), else resolve every
+        request with the terminal error."""
+        hung = isinstance(e, HungBatchError)
+        if not hung and allow_split and len(live) > 1:
+            for req in live:
+                self._run_batch(bucket, [req], allow_split=False)
+            return
+        if self._breaker is not None:
+            self._breaker.record_failure()
+        if hung:
+            err = e
+        else:
+            err = PredictionError(f"prediction failed for bucket {bucket}: "
+                                  f"{type(e).__name__}: {e}")
+            err.__cause__ = e
+        for req in live:
+            if self._resolve(req, exc=err):
+                self.metrics.inc("failed")
+                self.metrics.inc_error(err)
+
+    def _run_live(self, bucket: int, live, allow_split: bool):
+        shape = self._batch_shape_for(len(live))
+        try:
+            # assembly sits inside the guard: a request that breaks the
+            # padding fails like one that breaks the model call
+            tokens, mask, n_real = pad_batch([r.tokens for r in live], bucket, shape)
+            msa = msa_mask = None
+            if self.cfg.msa_rows:
+                msa, msa_mask = pad_msa_batch(live, bucket, shape, self.cfg.msa_rows)
+            t0 = time.monotonic()
+            out = self._dispatch(bucket, tokens, mask, msa, msa_mask)
+            window = time.monotonic() - t0
+            coords = np.asarray(out["coords"])
+            conf = np.asarray(out["confidence"])
+            stress = np.asarray(out["stress"])
+        except Exception as e:  # noqa: BLE001 — isolate, report, keep serving
+            self._fail_live(bucket, live, e, allow_split)
+            return
+        if self._breaker is not None:
+            self._breaker.record_success()
+        self._note_drain(window, len(live))
+        self._respond(bucket, shape, live, coords, conf, stress, n_real, time.monotonic())
+
+    def _respond(self, bucket, shape, live, coords, conf, stress, n_real, done_at):
+        for i, req in enumerate(live):
+            L = req.length
+            # copies, not views: a view would pin the batch array in the
+            # cache and let a client's edit reach later hits
+            conf_i = conf[i, :L].copy()
+            result = PredictionResult(
+                seq=req.seq, coords=coords[i, :L].copy(), confidence=conf_i,
+                stress=float(stress[i]), bucket=bucket, from_cache=False,
+                latency_s=done_at - req.submitted_at,
+                mean_confidence=float(conf_i.mean()) if L else 0.0,
+            )
+            self._cache.put(req.cache_key, result)
+            if self._resolve(req, result=result):
+                self.metrics.inc("completed")
+                self.metrics.latency.observe(result.latency_s)
+        self.metrics.observe_batch(n_real, shape, latency_s=done_at - live[0].submitted_at)

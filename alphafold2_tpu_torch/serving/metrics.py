@@ -1,0 +1,160 @@
+"""Serving metrics (counterpart of alphafold2_tpu/serving/metrics.py).
+
+Every count lives in a `telemetry.registry.MetricRegistry`:
+
+  requests:  counter `serving_requests_total{outcome=...}`
+  errors:    counter `serving_errors_total{code=...}`
+  batches:   counters `serving_batches_total` / `serving_batch_requests_total`
+  captures:  counter `serving_capture_total{bucket=...}`, gauge
+             `serving_capture_seconds_total{bucket=...}`: the port's
+             counterpart of the JAX engine's compiles, one per (bucket,
+             batch rung) executable built (a CUDA graph capture on the
+             card, an eager executable on the CPU)
+  latency:   histogram `serving_request_latency_seconds` (sliding window)
+  padding:   gauge `serve_batch_pad_ratio`, padded rows / live rows
+
+`snapshot()` keeps the JAX engine's JSON shape, `compiles` included
+(`count` = distinct buckets built, `seconds_by_bucket`), so one set of
+assertions reads both engines' `stats()`.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import threading
+import time
+
+from alphafold2_tpu_torch.telemetry.registry import MetricRegistry
+
+# request-terminal counters: everything submitted lands in exactly one of
+# completed / failed / timed_out, or stays in flight
+_COUNTERS = (
+    "submitted",      # accepted by submit() (cache hits included)
+    "completed",      # result delivered (cache hits included)
+    "failed",         # PredictionError / EngineClosedError / HungBatchError
+    "timed_out",      # scheduler-side deadline expiry
+    "rejected",       # refused at submit(): queue full, too long, invalid
+    "cache_hits",     # completed without touching the queue or the model
+    "coalesced",      # attached to an identical in-flight request
+)
+
+
+class ServingMetrics:
+    """Thread-safe counters and histograms for one engine."""
+
+    def __init__(self):
+        self.registry = MetricRegistry()
+        # one lock over the terminal counters, so a stats() reader sees a
+        # consistent in_flight
+        self._counts_lock = threading.Lock()
+        self._counts = {name: self.registry.counter("serving_requests_total", outcome=name)
+                        for name in _COUNTERS}
+        self._errors_lock = threading.Lock()
+        self._errors = {}  # stable error code -> Counter
+        self.latency = self.registry.histogram("serving_request_latency_seconds")
+        self._batches = self.registry.counter("serving_batches_total")
+        self._batch_requests = self.registry.counter("serving_batch_requests_total")
+        self._recent_lock = threading.Lock()
+        self._recent_batch_sizes = collections.deque(maxlen=256)
+        self._shape_rows = 0   # sum of the chosen batch shapes
+        self._live_rows = 0    # sum of real requests
+        self._pad_ratio_gauge = self.registry.gauge("serve_batch_pad_ratio")
+        self._captures_lock = threading.Lock()
+        self._capture_seconds = {}  # bucket -> seconds gauge
+        self._t0 = time.monotonic()
+
+    def inc(self, name: str, n: int = 1):
+        with self._counts_lock:
+            self._counts[name].inc(n)
+
+    def inc_error(self, code_or_exc, n: int = 1):
+        """Count one error under its stable code (a code string or a
+        ServingError)."""
+        code = getattr(code_or_exc, "code", code_or_exc)
+        with self._errors_lock:
+            counter = self._errors.get(code)
+            if counter is None:
+                counter = self.registry.counter("serving_errors_total", code=code)
+                self._errors[code] = counter
+        counter.inc(n)
+
+    def observe_batch(self, n_real: int, batch_shape: int, latency_s: float):
+        """One dispatched batch: n_real requests in `batch_shape` row slots
+        (the rung it ran at); latency_s is its oldest member's."""
+        self._batches.inc()
+        self._batch_requests.inc(n_real)
+        with self._recent_lock:
+            self._recent_batch_sizes.append(n_real)
+            self._shape_rows += batch_shape
+            self._live_rows += n_real
+            live, pad = self._live_rows, self._shape_rows - self._live_rows
+        self._pad_ratio_gauge.set(pad / live if live else 0.0)
+
+    @contextlib.contextmanager
+    def capture_span(self, bucket: int):
+        """Around one executable's build: counter and seconds gauge under
+        the bucket. A build that raises counts under
+        `serving_capture_failed_total` and never as a built bucket."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        except BaseException:
+            self.registry.counter("serving_capture_failed_total", bucket=str(bucket)).inc()
+            raise
+        self.registry.counter("serving_capture_total", bucket=str(bucket)).inc()
+        gauge = self.registry.gauge("serving_capture_seconds_total", bucket=str(bucket))
+        gauge.inc(time.perf_counter() - t0)
+        with self._captures_lock:
+            self._capture_seconds[bucket] = gauge
+
+    def set_weight_bytes(self, residency: dict):
+        """`serving_weight_bytes{tag, weight_dtype}`: the bytes this
+        engine's parameter tree keeps on its device."""
+        self.registry.gauge("serving_weight_bytes", tag=residency["tag"],
+                            weight_dtype=residency["weight_dtype"]).set(residency["weight_bytes"])
+
+    @property
+    def compile_count(self) -> int:
+        """Distinct buckets with a built executable (<= len(buckets))."""
+        with self._captures_lock:
+            return len(self._capture_seconds)
+
+    def snapshot(self, max_batch: int) -> dict:
+        with self._counts_lock:
+            counts = {name: int(c.value) for name, c in self._counts.items()}
+        batches = int(self._batches.value)
+        batch_requests = int(self._batch_requests.value)
+        with self._recent_lock:
+            recent = list(self._recent_batch_sizes)
+            shape_rows, live_rows = self._shape_rows, self._live_rows
+        with self._captures_lock:
+            captures = {b: g.value for b, g in self._capture_seconds.items()}
+        with self._errors_lock:
+            errors = {code: int(c.value) for code, c in self._errors.items()}
+        in_flight = (counts["submitted"] - counts["completed"] - counts["failed"]
+                     - counts["timed_out"])
+        latency = self.latency.snapshot()
+        latency.pop("sum", None)
+        return {
+            "uptime_s": time.monotonic() - self._t0,
+            "requests": {**counts, "in_flight": in_flight},
+            "batches": {
+                "count": batches,
+                "mean_requests_per_batch": batch_requests / batches if batches else 0.0,
+                # occupancy of the chosen rung; max_batch slots for paths
+                # that never observed a batch
+                "mean_occupancy": (
+                    batch_requests / shape_rows if shape_rows
+                    else (batch_requests / (batches * max_batch) if batches else 0.0)
+                ),
+                "pad_ratio": (shape_rows - live_rows) / live_rows if live_rows else 0.0,
+                "recent_sizes": recent,
+            },
+            "compiles": {
+                "count": len(captures),
+                "seconds_by_bucket": {str(k): v for k, v in captures.items()},
+            },
+            "errors": errors,
+            "latency": latency,
+        }

@@ -5,6 +5,13 @@ exit).
 Trunk forward -> distogram softmax -> centering -> stress-majorisation MDS
 -> entropy confidence. Batch-capable: tokens are (b, L) and every output
 carries the batch axis.
+
+`predict_structure` runs the steps in turn; the serving engine's captured
+graphs (serving/executable.py) run the same functions on the same tensors,
+so both give the same values bit for bit: the forward and
+`distogram_geometry` (graph one), the classical init's eigen
+decomposition (`eigh`, eager between the graphs), then `classical_embed`
+and `guttman` (graph two).
 """
 
 from __future__ import annotations
@@ -15,8 +22,28 @@ import torch
 
 from alphafold2_tpu_torch.device import as_device_tensor, resolve_device
 from alphafold2_tpu_torch.geometry.distogram import center_distogram, distogram_confidence
-from alphafold2_tpu_torch.geometry.mds import mds
+from alphafold2_tpu_torch.geometry.mds import guttman, initial_coords
 from alphafold2_tpu_torch.models.alphafold2 import alphafold2_apply
+
+
+def distogram_geometry(logits, mask=None):
+    """Trunk logits -> what the geometry reads, all float32 whatever the
+    trunk dtype (it divides by distances and small weights): a dict of
+    distogram_logits (b, L, L, buckets), the MDS targets distances and
+    weights (b, L, L) and the confidence (b, L). mask: (b, L) bool tensor
+    or None; pad pairs get zero distance and zero weight."""
+    logits = logits.float()
+    probs = torch.softmax(logits, dim=-1)
+    distances, weights = center_distogram(probs)
+    if mask is not None:
+        # zero both channels for pad pairs: the weights silence them in
+        # the Guttman steps, but the classical init double-centres the
+        # raw distances unweighted
+        pair_mask = (mask[:, :, None] & mask[:, None, :]).to(weights.dtype)
+        weights = weights * pair_mask
+        distances = distances * pair_mask
+    return {"distogram_logits": logits, "distances": distances, "weights": weights,
+            "confidence": distogram_confidence(probs, mask=mask)}
 
 
 def predict_structure(params, cfg, tokens, *, mask=None, msa=None,
@@ -57,25 +84,12 @@ def predict_structure(params, cfg, tokens, *, mask=None, msa=None,
                 embedds=embedds, templates=None, templates_mask=None,
             )
             dev = logits.device
-        mask = as_device_tensor(mask, dev, torch.bool)
-        # geometry in float32 whatever the trunk dtype: it divides by
-        # distances and small weights
-        logits = logits.float()
-        probs = torch.softmax(logits, dim=-1)
-        distances, weights = center_distogram(probs)
-        if mask is not None:
-            # zero both channels for pad pairs: the weights silence them in
-            # the Guttman steps, but the classical init double-centres the
-            # raw distances unweighted
-            pair_mask = (mask[:, :, None] & mask[:, None, :]).to(weights.dtype)
-            weights = weights * pair_mask
-            distances = distances * pair_mask
-        coords, stresses = mds(distances, weights=weights, iters=mds_iters,
-                               init=mds_init, generator=generator)
-        conf = distogram_confidence(probs, mask=mask)
+        geo = distogram_geometry(logits, as_device_tensor(mask, dev, torch.bool))
+        coords = initial_coords(geo["distances"], mds_init, generator)
+        coords, stresses = guttman(geo["distances"], geo["weights"], coords, mds_iters)
     return {
         "coords": coords.transpose(1, 2),
-        "confidence": conf,
+        "confidence": geo["confidence"],
         "stress": stresses[-1],
-        "distogram_logits": logits,
+        "distogram_logits": geo["distogram_logits"],
     }

@@ -62,6 +62,22 @@ each phase prints its seconds):
      (e) the same with sparse_self_attn=(True, False): 2 sparse (every
          one on B5f's wgmma route) and 10 flash forwards a request;
      (f) the int8 model against the f32 model on its dequantized weights;
+  8. the serving engine on the card (`serving/engine.py ServingEngine`, each
+     (bucket, batch rung) a captured pair of CUDA graphs,
+     `serving/executable.py`), after phase 4:
+     (a) for each arm (f32 weights, gated at depth 1, int8, sparse layer 0)
+         one captured (bucket 384, batch 2) request against eager
+         `predict_structure` on the same padded inputs, bit for bit on
+         coords, confidence, stress and logits, on two batches in turn;
+         the capture's launches all on the wgmma routes;
+     (b) the served config through the engine: buckets (128, 256, 384),
+         max_batch 4 with the batch ladder, 24 seeded requests of 40-384
+         residues with 20-row MSAs, then the same stream again: all
+         complete, at most buckets x rungs captures, mean batch > 1, the
+         second pass from the cache; throughput, p50/p95 latency, capture
+         seconds a (bucket, rung), peak memory;
+     (c) eager against captured at L = 128, 256, 384, batch 1: request ms,
+         the launches the host issues and the device's busy share;
   6. the training path through `make_train_step` (train_pre's step):
      (a) dim 256, depth 2, heads 8, dim_head 64, accum 2, f32, 3 steps on
          the card and on the CPU from the same params and batches: loss,
@@ -134,11 +150,18 @@ from alphafold2_tpu_torch.ops import (  # noqa: E402
     sparse,
     sparse_kernel,
 )
+from alphafold2_tpu_torch.constants import AA_ORDER, PAD_TOKEN_ID  # noqa: E402
 from alphafold2_tpu_torch.ops.attention import AttentionConfig, attention_init  # noqa: E402
 from alphafold2_tpu_torch.parallel import (  # noqa: E402
     alphafold2_apply_sp,
     make_mesh,
     ring_attention,
+)
+from alphafold2_tpu_torch.serving.bucketing import pad_batch  # noqa: E402
+from alphafold2_tpu_torch.serving.engine import ServingConfig, ServingEngine  # noqa: E402
+from alphafold2_tpu_torch.serving.executable import (  # noqa: E402
+    CapturedExecutable,
+    GraphPool,
 )
 from alphafold2_tpu_torch.serving.quant_residency import resident_params  # noqa: E402
 from alphafold2_tpu_torch.training.data import DataConfig, synthetic_microbatch_fn  # noqa: E402
@@ -1469,6 +1492,286 @@ def phase_main():
             "sparse_fwd": sparse_run["sparse_fwd"]}
 
 
+# --- phase 8: the serving engine on the card --------------------------------------
+
+ENGINE_BUCKETS = (128, 256, 384)
+ENGINE_ROWS = 20  # MSA rows of every served request
+# (label, config fields over the served config, the captured launches of one
+# forward at L = 384: every flash forward and int8 product on its wgmma route)
+ENGINE_ARMS = (
+    ("f32 weights", {}, {"flash_fwd": 12, "flash_fwd_wgmma": 12}),
+    ("gated", {"depth": 1, "attn_gate": True}, {"flash_fwd_fused": 6, "flash_fwd_wgmma": 6}),
+    ("int8", {"weight_dtype": "int8"},
+     {"flash_fwd": 12, "flash_fwd_wgmma": 12, "quant_matmul": 44, "quant_matmul_wgmma": 44}),
+    ("sparse layer 0", {"sparse_self_attn": (True, False)},
+     {"flash_fwd": 10, "flash_fwd_wgmma": 10, "sparse_fwd": 2, "sparse_fwd_wgmma": 2}),
+)
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def served_config(**fields):
+    """The serving configuration (dim 256, depth 2, heads 8, dim_head 64,
+    bf16) at max_seq_len 384, with `fields` over it."""
+    return Alphafold2Config(**{**dict(dim=256, depth=2, heads=8, dim_head=64,
+                                      max_seq_len=384, dtype=torch.bfloat16), **fields})
+
+
+def engine_batch(lengths, bucket, seed):
+    """A padded batch as the engine assembles it, one seeded request a
+    length with a 20-row MSA: tokens and mask (b, bucket), msa and msa_mask
+    (b, 20, bucket)."""
+    rng = np.random.default_rng(seed)
+    rows = [rng.integers(0, 20, L).astype(np.int32) for L in lengths]
+    tokens, mask, _ = pad_batch(rows, bucket, len(lengths))
+    msa = np.full((len(lengths), ENGINE_ROWS, bucket), PAD_TOKEN_ID, np.int32)
+    msa_mask = np.zeros(msa.shape, bool)
+    for i, (row, L) in enumerate(zip(rows, lengths)):
+        msa[i, :, :L] = rng.integers(0, 21, (ENGINE_ROWS, L))
+        msa[i, 0, :L] = row
+        msa_mask[i, :, :L] = rng.random((ENGINE_ROWS, L)) > 0.1
+        msa_mask[i, 0, :L] = True
+    return tokens, mask, msa, msa_mask
+
+
+def phase_engine_capture():
+    """(a) Each arm's (bucket 384, batch 2) request captured
+    (`serving/executable.py CapturedExecutable`: the forward and the
+    distogram geometry in one graph, eigh eager, the MDS init and 200
+    Guttman steps in a second graph), then replayed on a batch of two
+    seeded requests (L = 384 and 300, 20-row MSAs) and held against eager
+    `predict_structure` on the same padded inputs, bit for bit on coords,
+    confidence, stress and logits; then replayed on a second batch and held
+    again (the graphs' TMA descriptors and addresses must serve new
+    inputs). The launches the capture recorded: every flash forward and
+    int8 product on its wgmma route."""
+    results = []
+    for label, fields, expect in ENGINE_ARMS:
+        cfg = served_config(**fields)
+        params, _ = resident_params(
+            alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda"), cfg)
+        torch.cuda.reset_peak_memory_stats()
+        exe = CapturedExecutable(params, cfg, batch=2, bucket=384, msa_rows=ENGINE_ROWS,
+                                 mds_iters=200, device=torch.device("cuda", 0),
+                                 pool=GraphPool())
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {name: expect.get(name, 0) for name in launch_counts()}
+        captured = {name: exe.launches.get(name, 0) for name in want}
+        replays = []
+        for seed in (41, 42):
+            batch = engine_batch((384, 300), 384, seed)
+            got = exe(*batch)
+            got["distogram_logits"] = exe.logits.clone()
+            ref = predict_structure(params, cfg, batch[0], mask=batch[1], msa=batch[2],
+                                    msa_mask=batch[3], mds_iters=200, device="cuda")
+            sync()
+            diffs = {k: (got[k].float() - ref[k].float()).abs().max().item() for k in got}
+            equal = all(torch.equal(got[k], ref[k]) for k in got)
+            finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+            replays.append({"seed": seed, "bit_equal": equal, "max_abs_diff": diffs,
+                            "finite": finite})
+        ok = captured == want and all(r["bit_equal"] and r["finite"] for r in replays)
+        log(f"[engine a] {label}: capture {exe.seconds:.2f} s, peak {peak:.2f} GiB; captured "
+            f"vs eager bit-equal on two batches: {[r['bit_equal'] for r in replays]} "
+            f"(max |d| {max(max(r['max_abs_diff'].values()) for r in replays):.2e}); captured "
+            f"launches {dict((k, n) for k, n in captured.items() if n)} "
+            f"{'ok' if ok else 'FAIL'}")
+        results.append({"arm": label, "config": repr(cfg), "capture_s": exe.seconds,
+                        "peak_gib": peak, "captured_launches": captured, "replays": replays,
+                        "ok": ok})
+        del exe
+    RECORD["phases"]["engine_capture"] = results
+    if not all(r["ok"] for r in results):
+        fail("a captured request differs from the eager one, or left its wgmma route "
+             "(phase 8a)")
+
+
+def phase_engine_stream():
+    """(b) The served config through `ServingEngine` on the card: buckets
+    (128, 256, 384), max_batch 4 with the batch ladder (rungs 1, 2, 4),
+    every (bucket, rung) captured at build (`precompile`); counts set to 0
+    just before the build and read after the streams. A seeded stream of
+    24 requests with lengths 40-384, each with a 20-row MSA, submitted at
+    once, then the same stream again. Every request completes, finite and
+    of its length; at most buckets x rungs captures; mean batch > 1; the
+    second pass all cache hits. Throughput and p50/p95 latency of the
+    first pass (host clock). Launches: the wrappers count the warm-ups and
+    the captures; the engine reports what its replays launched (captured
+    launches x replays), every flash forward on the wgmma route."""
+    cfg = served_config()
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda")
+    scfg = ServingConfig(buckets=ENGINE_BUCKETS, max_batch=4, batch_ladder=True,
+                         msa_rows=ENGINE_ROWS, mds_iters=200, request_timeout_s=600.0,
+                         precompile=True)
+    rng = np.random.default_rng(60)
+    stream = []
+    for _ in range(24):
+        L = int(rng.integers(40, 385))
+        tokens = rng.integers(0, 20, L)
+        msa = rng.integers(0, 21, (ENGINE_ROWS, L)).astype(np.int32)
+        msa[0] = tokens
+        msa_mask = rng.random((ENGINE_ROWS, L)) > 0.1
+        msa_mask[0] = True
+        stream.append(("".join(AA_ORDER[t] for t in tokens), msa, msa_mask))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    engine = ServingEngine(params, cfg, scfg, device="cuda")
+    build_s = time.perf_counter() - t0
+    passes = []
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            reqs = [engine.submit(seq, msa=msa, msa_mask=mm) for seq, msa, mm in stream]
+            results = [r.result(timeout=600) for r in reqs]
+            wall = time.perf_counter() - t0
+            lat = sorted(r.latency_s for r in results)
+            passes.append({
+                "wall_s": wall, "requests_per_s": len(results) / wall,
+                "p50_s": lat[len(lat) // 2], "p95_s": lat[min(len(lat) - 1, int(0.95 * len(lat)))],
+                "from_cache": sum(r.from_cache for r in results),
+                "ok": all(r.coords.shape == (len(seq), 3) and np.isfinite(r.coords).all()
+                          and np.isfinite(r.confidence).all()
+                          for r, (seq, _, _) in zip(results, stream)),
+            })
+    finally:
+        engine.shutdown(drain=False)
+    stats = engine.stats()
+    wrappers = {k: n for k, n in launch_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    replayed = stats["launches"]
+    routes_ok = (replayed.get("flash_fwd", 0) > 0
+                 and replayed["flash_fwd"] == replayed.get("flash_fwd_wgmma", 0)
+                 and not any(replayed.get(f"flash_fwd_{r}") for r in ("mma_sync", "f32")))
+    rungs = len(stats["batch_shapes"])
+    ok = (all(p["ok"] for p in passes) and stats["requests"]["failed"] == 0
+          and stats["requests"]["completed"] == 2 * len(stream)
+          and len(stats["captures"]) <= len(ENGINE_BUCKETS) * rungs
+          and stats["batches"]["mean_requests_per_batch"] > 1
+          and passes[1]["from_cache"] == len(stream) and routes_ok)
+    for c in stats["captures"]:
+        log(f"[engine b] bucket {c['bucket']} rung {c['batch']}: captured in "
+            f"{c['seconds']:.2f} s, {c['replays']} replays")
+    first = passes[0]
+    log(f"[engine b] build (every capture) {build_s:.1f} s, peak memory {peak:.2f} GiB; pass 1: "
+        f"{first['requests_per_s']:.2f} requests/s, latency p50 {first['p50_s'] * 1e3:.1f} ms "
+        f"p95 {first['p95_s'] * 1e3:.1f} ms, mean batch "
+        f"{stats['batches']['mean_requests_per_batch']:.2f}; pass 2: "
+        f"{passes[1]['from_cache']} of {len(stream)} from the cache; replayed launches "
+        f"{replayed}; wrapper counts (warm-ups and captures) {wrappers} "
+        f"{'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["engine_stream"] = {
+        "build_s": build_s, "peak_gib": peak, "passes": passes, "captures": stats["captures"],
+        "batches": stats["batches"], "requests": stats["requests"], "latency": stats["latency"],
+        "replayed_launches": replayed, "wrapper_launches": wrappers, "ok": ok}
+    if not ok:
+        fail("the engine's stream failed its checks (phase 8b)")
+    return replayed
+
+
+def phase_engine():
+    phase_engine_capture()
+    replayed = phase_engine_stream()
+    phase_engine_timing()
+    return replayed
+
+
+def profile_request(fn):
+    """One call of fn under torch.profiler: the launches the host issued
+    (kernel launch calls, graph launches, copies) and the device time."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    out = {"kernel_launches": 0, "graph_launches": 0, "copies": 0, "device_ms": 0.0,
+           "device_kernels": 0}
+    for a in prof.key_averages():
+        if a.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(a, "self_device_time_total", None)
+            out["device_ms"] += (us if us is not None else a.self_cuda_time_total) / 1e3
+            out["device_kernels"] += a.count
+        elif a.key in LAUNCH_APIS:
+            out["kernel_launches"] += a.count
+        elif a.key == "cudaGraphLaunch":
+            out["graph_launches"] += a.count
+        elif a.key.startswith("cudaMemcpy"):
+            out["copies"] += a.count
+    return out
+
+
+def stage_ms(exe, reps=3):
+    """Mean ms (CUDA events) of a captured request's three stages on the
+    inputs of its last call: graph one (forward, distogram geometry), the
+    eager eigh, graph two (MDS init, Guttman steps)."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    total = [0.0, 0.0, 0.0]
+    with torch.inference_mode():
+        for _ in range(reps):
+            events[0].record()
+            exe.graphs[0].replay()
+            events[1].record()
+            exe._eigh()
+            events[2].record()
+            exe.graphs[1].replay()
+            events[3].record()
+            sync()
+            for i in range(3):
+                total[i] += events[i].elapsed_time(events[i + 1]) / reps
+    return total
+
+
+def phase_engine_timing(reps=5):
+    """(c) One request (batch 1, a 20-row MSA, 200 MDS iterations) of the
+    served config at L = 128, 256 and 384, eager `predict_structure` against
+    its captured executable, each ending with its outputs on the host:
+    request ms on the host clock (mean of `reps`, the two in turns after a
+    warm-up of each), then one more of each under torch.profiler: the
+    launches the host issued and the device's busy share (kernel time over
+    the unprofiled request time)."""
+    cfg = served_config()
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda")
+    pool = GraphPool()
+    rows = []
+    for L in ENGINE_BUCKETS:
+        exe = CapturedExecutable(params, cfg, batch=1, bucket=L, msa_rows=ENGINE_ROWS,
+                                 mds_iters=200, device=torch.device("cuda", 0), pool=pool)
+        tokens, mask, msa, msa_mask = engine_batch((L,), L, seed=50 + L)
+
+        def eager():
+            out = predict_structure(params, cfg, tokens, mask=mask, msa=msa, msa_mask=msa_mask,
+                                    mds_iters=200, device="cuda")
+            return {k: out[k].cpu() for k in ("coords", "confidence", "stress")}
+
+        def captured():
+            return {k: v.cpu() for k, v in exe(tokens, mask, msa, msa_mask).items()}
+
+        ms = {"eager": [], "captured": []}
+        eager(), captured()
+        for order in [("eager", "captured"), ("captured", "eager")] * ((reps + 1) // 2):
+            for name in order:
+                t0 = time.perf_counter()
+                (eager if name == "eager" else captured)()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+        row = {"L": L, "capture_s": exe.seconds, "stages_ms": stage_ms(exe)}
+        for name, fn in (("eager", eager), ("captured", captured)):
+            mean = sum(ms[name][:reps]) / reps
+            prof = profile_request(fn)
+            row[name] = {"request_ms": mean, "runs_ms": ms[name][:reps], **prof,
+                         "busy_share": prof["device_ms"] / mean if prof["device_kernels"]
+                         else None}
+        rows.append(row)
+        e, c = row["eager"], row["captured"]
+        busy = lambda v: "not measured" if v is None else f"{v:.3f}"  # noqa: E731
+        log(f"[engine c] L={L}: eager {e['request_ms']:.2f} ms ({e['kernel_launches']} kernel "
+            f"launches, {e['copies']} copies, busy {busy(e['busy_share'])}), captured "
+            f"{c['request_ms']:.2f} ms ({c['kernel_launches']} kernel launches, "
+            f"{c['graph_launches']} graph launches, {c['copies']} copies, busy "
+            f"{busy(c['busy_share'])}); capture {exe.seconds:.2f} s; a captured request's "
+            f"stages (events): graph one {row['stages_ms'][0]:.2f} ms, eigh "
+            f"{row['stages_ms'][1]:.2f} ms, graph two {row['stages_ms'][2]:.2f} ms")
+    RECORD["phases"]["engine_timing"] = rows
+    return rows
+
+
 # --- phase 6: the training path ---------------------------------------------------
 
 # leaves the sequence-only distogram path does not read: the MSA stream's
@@ -2086,6 +2389,7 @@ def main():
     sparse_rows = timed_phase("sparse_kernels", phase_sparse_kernels)
     lse_rows, lse_bwd_rows = timed_phase("lse_kernels", phase_lse_kernels)
     launches = timed_phase("main", phase_main)
+    timed_phase("engine", phase_engine)
     launches.update(timed_phase("train", phase_train))
     launches.update(timed_phase("sp", phase_sp))
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,

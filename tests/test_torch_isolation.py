@@ -49,7 +49,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "utils.flops", "telemetry.profiling", "ops.dispatch", "ops.quant",
                  "ops.quant_kernel", "ops.sparse", "ops.sparse_kernel",
                  "serving.quant_residency", "parallel", "parallel.mesh",
-                 "parallel.sequence", "parallel.sp_trunk"):
+                 "parallel.sequence", "parallel.sp_trunk", "serve", "serving.engine",
+                 "serving.executable", "serving.bucketing", "serving.cache", "serving.errors",
+                 "serving.metrics", "reliability.breaker", "telemetry.registry"):
         assert f"alphafold2_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
