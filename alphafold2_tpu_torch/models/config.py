@@ -7,7 +7,9 @@ NotImplementedError naming the ROADMAP item that brings them.
 training entry points refuse it); `sparse_self_attn` runs the flagged
 layers' pair-axial passes block-sparse (ops/sparse.py).
 `scan_layers` is the same math as the unrolled trunk and runs as a loop;
-`remat` recomputes each trunk layer in the backward pass.
+`remat` recomputes each trunk layer in the backward pass; `remat_policy`
+names the products that recompute keeps instead ("dots": every matrix
+product, "dots_no_batch": those without a batch dimension).
 """
 
 from __future__ import annotations
@@ -75,9 +77,6 @@ class Alphafold2Config:
         not_ported = [
             (self.reversible, "reversible=True (the reversible trunk, "
              "models/reversible.py)", "A8"),
-            (self.remat and self.remat_policy is not None,
-             f"remat_policy={self.remat_policy!r} (what the recompute saves)",
-             "A6, remainder"),
             (self.trunk_schedule == "branch_parallel",
              "trunk_schedule='branch_parallel'", "A4"),
         ]

@@ -11,12 +11,26 @@ MSA FF. The MSA branch is skipped when there is no MSA stream.
 `cfg.remat` recomputes each layer in the backward pass instead of keeping
 its activations (`torch.utils.checkpoint`, the `jax.checkpoint` of the JAX
 trunk): the same math, so the forward kernels launch twice per layer.
+`cfg.remat_policy` saves some products through the recompute (selective
+checkpointing, `REMAT_SAVES`), as JAX's `checkpoint_policies` save
+`dot_general` outputs: "dots" (`dots_saveable`) every matrix product,
+"dots_no_batch" (`dots_with_no_batch_dims_saveable`) the unbatched ones,
+the dense layers. The flash and sparse kernels are autograd Functions,
+not products: they are recomputed, as the Pallas calls are under JAX's
+policies.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.ops.attention import (
@@ -28,6 +42,32 @@ from alphafold2_tpu_torch.ops.attention import (
 from alphafold2_tpu_torch.ops.core import layer_norm, layer_norm_init
 from alphafold2_tpu_torch.ops.feedforward import feed_forward_apply, feed_forward_init
 from alphafold2_tpu_torch.ops.sparse import sparse_attention_apply
+
+_aten = torch.ops.aten
+# the ATen products each remat_policy saves: the dense layers run as mm /
+# addmm (a batch-free dot_general in JAX), the attention einsums as bmm /
+# baddbmm (dot_generals with batch dimensions)
+REMAT_SAVES = {
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             _aten.baddbmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+}
+
+
+def _save_products(saved, ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_context_fn(policy):
+    """`checkpoint`'s context_fn for a remat_policy: none for None (the
+    whole layer is recomputed), else selective checkpointing that saves
+    the policy's products (`REMAT_SAVES`)."""
+    if policy is None:
+        return noop_context_fn
+    return functools.partial(create_selective_checkpoint_contexts,
+                             functools.partial(_save_products, REMAT_SAVES[policy]))
+
 
 # --- pre-norm wrapped blocks ------------------------------------------------
 
@@ -221,6 +261,7 @@ def sequential_trunk_apply(layers, cfg: Alphafold2Config, x, m, *, x_mask=None,
     passes block-sparse."""
     layer_sparse = cfg.layer_sparse
     sparse_fn = make_sparse_axial_fn(cfg) if any(layer_sparse) else None
+    context_fn = remat_context_fn(cfg.remat_policy)
     for index, layer in enumerate(layers):
         seed = None if rng is None else int(torch.randint(2 ** 62, (), generator=rng))
         layer_fn = sparse_fn if layer_sparse[index] else None
@@ -231,7 +272,7 @@ def sequential_trunk_apply(layers, cfg: Alphafold2Config, x, m, *, x_mask=None,
                                      msa_mask=msa_mask, rng=gen, sparse_fn=layer_fn)
 
         if cfg.remat:
-            x, m = checkpoint(run, x, m, use_reentrant=False)
+            x, m = checkpoint(run, x, m, use_reentrant=False, context_fn=context_fn)
         else:
             x, m = run(x, m)
     return x, m

@@ -37,30 +37,16 @@ from __future__ import annotations
 
 import threading
 import time
-import traceback
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from alphafold2_tpu_torch.geometry.mds import classical_embed, classical_gram, guttman
 from alphafold2_tpu_torch.models.alphafold2 import alphafold2_apply
-from alphafold2_tpu_torch.ops import flash_kernel, quant_kernel, sparse_kernel
 from alphafold2_tpu_torch.serving.pipeline import distogram_geometry, predict_structure
+from alphafold2_tpu_torch.utils.graphs import capture_error, launch_counts, launches_between
 
-COUNTED = (flash_kernel, quant_kernel, sparse_kernel)  # the modules with launch counts
 OUTPUTS = ("coords", "confidence", "stress")  # what a call returns
-_PACKAGE = str(Path(__file__).resolve().parents[1])
-
-
-def launch_counts() -> dict:
-    """Every kernel wrapper's launches since its module's reset."""
-    return {name: n for module in COUNTED for name, n in module.LAUNCHES.items()}
-
-
-class CaptureError(RuntimeError):
-    """A CUDA graph capture failed; the message names the op (the source
-    line of the port that issued it) and the CUDA error."""
 
 
 class GraphPool:
@@ -91,27 +77,6 @@ class EagerExecutable:
                                 device=self.device)
         self.replays += 1
         return {k: out[k] for k in OUTPUTS}
-
-
-def _capture_error(what: str, exc: BaseException) -> CaptureError:
-    """A CaptureError naming the innermost line of the port that raised the
-    first error of `exc`'s chain (a failed capture's end may raise again,
-    over the op's own error)."""
-    chain = []
-    while exc is not None and exc not in chain:
-        chain.append(exc)
-        exc = exc.__context__
-    where = "an op outside the port"
-    for e in reversed(chain):
-        frames = [f for f in traceback.extract_tb(e.__traceback__)
-                  if f.filename.startswith(_PACKAGE) and not f.filename.endswith("executable.py")]
-        if frames:
-            f = frames[-1]
-            where = (f"{Path(f.filename).relative_to(Path(_PACKAGE).parent)}:{f.lineno} "
-                     f"({f.name}: `{f.line}`)")
-            break
-    errors = "; then ".join(f"{type(e).__name__}: {e}" for e in reversed(chain))
-    return CaptureError(f"CUDA graph capture of {what} failed at {where}: {errors}")
 
 
 class CapturedExecutable:
@@ -156,19 +121,19 @@ class CapturedExecutable:
                     with torch.cuda.graph(self.graphs[0], pool=pool.handle, stream=stream):
                         self.geo, self.gram = self._front()
                 except RuntimeError as e:
-                    raise _capture_error(
+                    raise capture_error(
                         f"the forward and the distogram geometry (bucket {bucket}, "
                         f"batch {batch})", e) from e
                 try:
                     with torch.cuda.graph(self.graphs[1], pool=pool.handle, stream=stream):
                         self.out = self._back()
                 except RuntimeError as e:
-                    raise _capture_error(
+                    raise capture_error(
                         f"the MDS init and Guttman steps (bucket {bucket}, batch {batch})",
                         e) from e
                 after = launch_counts()
             torch.cuda.current_stream(device).wait_stream(stream)
-        self.launches = {k: n - before[k] for k, n in after.items() if n != before[k]}
+        self.launches = launches_between(before, after)
         self.seconds = time.perf_counter() - t0
 
     def _front(self):

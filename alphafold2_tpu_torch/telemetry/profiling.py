@@ -3,7 +3,7 @@
     python -m alphafold2_tpu_torch.telemetry.profiling [--length 384] [--depth 2] [--gate]
     python -m alphafold2_tpu_torch.telemetry.profiling --int8 | --sparse [--length 384]
     python -m alphafold2_tpu_torch.telemetry.profiling --sp-shards 4 [--length 384]
-    python -m alphafold2_tpu_torch.telemetry.profiling --train [--length 128] [--depth 1] [--sparse]
+    python -m alphafold2_tpu_torch.telemetry.profiling --train [--length 128] [--depth 1] [--sparse] [--eager]
 
 Request (the default): runs the serving configuration (dim 256, heads 8,
 dim_head 64, bf16, a seeded 20-row MSA, 200 MDS iterations) through
@@ -20,18 +20,24 @@ cards in turn (shard s on card s mod count; the tool prints the
 placement); the events are recorded on the first card, where the request
 starts and ends.
 
-Train (`--train`): runs train_pre's step (`training/harness.py
-make_train_step`, dim 256, heads 8, dim_head 64, bf16, batch 1, 16
-microbatches, synthetic sequence-only batches at crop `--length`) and
-reports the step time (CUDA events, mean of `--reps` steps after one
-warm-up step); `--sparse` makes every layer's pair passes block-sparse with
-max_seq_len = the crop (chip_smoke.py phase 6e's configuration: at crop
-256, 66% of the blocks active).
+Train (`--train`): runs train_pre's step (dim 256, heads 8, dim_head 64,
+bf16, batch 1, 16 microbatches, synthetic sequence-only batches at crop
+`--length`) as train_pre runs it on the card, captured as a CUDA graph
+(`training/executable.py CapturedTrainStep`; the capture's seconds and
+peak memory are reported), or with `--eager` as the eager step
+(`training/harness.py make_train_step`), and reports the step time (CUDA
+events, mean of `--reps` steps after one warm-up step); `--sparse` makes
+every layer's pair passes block-sparse with max_seq_len = the crop
+(chip_smoke.py phase 6e's configuration: at crop 256, 66% of the blocks
+active).
 
 Both: from one more run under `torch.profiler`, device time by kernel
 name and by kind (the port's flash, sparse and int8 kernels, cuBLAS
-matrix products, the optimizer's fused updates, the rest), and the
-device's busy share of the time measured without the profiler. The
+matrix products, the optimizer's fused updates, the rest), the kind
+"other" again by the ATen op that launched each kernel (the innermost
+op: a backward's kernels under the op its autograd node calls), the
+launches the host issued (kernel launch calls and graph launches), and
+the device's busy share of the time measured without the profiler. The
 record goes to `--out` as JSON. Needs a CUDA device; float32 matmuls and
 convolutions run in full float32 (TF32 off).
 """
@@ -54,6 +60,7 @@ from alphafold2_tpu_torch.parallel import alphafold2_apply_sp, make_mesh
 from alphafold2_tpu_torch.serving.pipeline import predict_structure
 from alphafold2_tpu_torch.serving.quant_residency import resident_params
 from alphafold2_tpu_torch.training.data import DataConfig, synthetic_microbatch_fn
+from alphafold2_tpu_torch.training.executable import CapturedTrainStep
 from alphafold2_tpu_torch.training.harness import (
     TrainConfig,
     make_train_step,
@@ -62,6 +69,8 @@ from alphafold2_tpu_torch.training.harness import (
 
 _GEMM_MARKERS = ("gemm", "cutlass", "xmma", "cublas", "nvjet", "sm90_")
 _OPTIMIZER_MARKERS = ("multi_tensor_apply", "foreach", "adam")
+_OTHER = "other (elementwise, reductions, softmax, eigh, copies)"
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
 
 def kernel_kind(name: str) -> str:
@@ -80,7 +89,7 @@ def kernel_kind(name: str) -> str:
         return "matrix products (cuBLAS)"
     if any(m in low for m in _OPTIMIZER_MARKERS):
         return "optimizer (fused multi-tensor updates)"
-    return "other (elementwise, reductions, softmax, eigh, copies)"
+    return _OTHER
 
 
 def _events_ms(fn, reps: int) -> float:
@@ -107,7 +116,8 @@ _COUNTED = (flash_kernel, quant_kernel, sparse_kernel)
 
 def _profile(fn):
     """Device time by kernel and by kind over one call of fn under
-    torch.profiler, and the port's kernel launch counts of that call."""
+    torch.profiler, the kind "other" by launching op, the launches the
+    host issued, and the port's kernel launch counts of that call."""
     for module in _COUNTED:
         module.reset_launches()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -115,10 +125,14 @@ def _profile(fn):
         fn()
         torch.cuda.synchronize()
     launches = {name: n for module in _COUNTED for name, n in module.LAUNCHES.items()}
+    averages = prof.key_averages()
+    # a user annotation's device span (the optimizer's record_function)
+    # covers kernels counted on their own
     kernels = [
         {"name": a.key, "count": a.count, "device_ms": _device_us(a) / 1e3}
-        for a in prof.key_averages()
+        for a in averages
         if a.device_type == torch.autograd.DeviceType.CUDA and _device_us(a) > 0
+        and not getattr(a, "is_user_annotation", False)
     ]
     kernels.sort(key=lambda k: -k["device_ms"])
     kinds = {}
@@ -126,7 +140,18 @@ def _profile(fn):
         kind = kinds.setdefault(kernel_kind(k["name"]), {"device_ms": 0.0, "launches": 0})
         kind["device_ms"] += k["device_ms"]
         kind["launches"] += k["count"]
-    return kernels, kinds, launches
+    other_by_op = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for k in evt.kernels:
+            if kernel_kind(k.name) == _OTHER:
+                row = other_by_op.setdefault(evt.name, {"device_ms": 0.0, "launches": 0})
+                row["device_ms"] += k.duration / 1e3
+                row["launches"] += 1
+    host = {"kernel_launches": sum(a.count for a in averages if a.key in LAUNCH_APIS),
+            "graph_launches": sum(a.count for a in averages if a.key == "cudaGraphLaunch")}
+    return kernels, kinds, launches, other_by_op, host
 
 
 def _request(args):
@@ -193,8 +218,19 @@ def _train(args):
                            attn_gate=args.gate, sparse_self_attn=args.sparse)
     tcfg = TrainConfig(grad_accum=16)
     state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(args.seed), "cuda")
-    step = make_train_step(cfg, tcfg, device="cuda")
     batch = synthetic_microbatch_fn(DataConfig(max_len=L, seed=args.seed), 16)(0)
+    record = {"config": repr(cfg), "length": L, "grad_accum": 16,
+              "arm": "eager" if args.eager else "captured"}
+    if args.eager:
+        step = make_train_step(cfg, tcfg, device="cuda")
+    else:
+        torch.cuda.reset_peak_memory_stats()
+        step = CapturedTrainStep(cfg, tcfg, state, batch)
+        capture = next(iter(step.captures.values()))
+        record.update(capture_s=capture.seconds,
+                      capture_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        print(f"[profile] captured the step in {capture.seconds:.3f} s, peak memory "
+              f"{record['capture_peak_gib']:.3f} GiB")
 
     def train_step():
         return step(state, batch)
@@ -202,11 +238,11 @@ def _train(args):
     train_step()
     torch.cuda.synchronize()
     step_ms = _events_ms(train_step, args.reps)
-    print(f"[profile] train step L={L} depth={depth} gate={args.gate} sparse={args.sparse} "
-          f"accum 16: "
+    print(f"[profile] train step ({record['arm']}) L={L} depth={depth} gate={args.gate} "
+          f"sparse={args.sparse} accum 16: "
           f"{step_ms:.3f} ms (CUDA events, mean of {args.reps})")
-    return train_step, step_ms, {"config": repr(cfg), "length": L, "grad_accum": 16,
-                                 "step_ms": step_ms}
+    record["step_ms"] = step_ms
+    return train_step, step_ms, record
 
 
 def main(argv=None):
@@ -227,6 +263,8 @@ def main(argv=None):
     ap.add_argument("--sp-shards", type=int, default=0,
                     help="request: the sequence-parallel forward over this many shards, "
                          "placed on the visible cards in turn (0: dense)")
+    ap.add_argument("--eager", action="store_true",
+                    help="train step: the eager step (make_train_step), not the captured one")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
@@ -234,6 +272,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.train and (args.int8 or args.sp_shards):
         ap.error("--int8 and --sp-shards profile a request")
+    if args.eager and not args.train:
+        ap.error("--eager profiles a train step")
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -245,13 +285,15 @@ def main(argv=None):
     print(f"[profile] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off")
 
     fn, wall_ms, record = (_train if args.train else _request)(args)
-    kernels, kinds, launches = _profile(fn)
+    kernels, kinds, launches, other_by_op, host = _profile(fn)
     device_ms = sum(k["device_ms"] for k in kernels)
+    top_ops = sorted(other_by_op.items(), key=lambda kv: -kv[1]["device_ms"])
     record.update({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "profiled_device_ms": device_ms,
         "busy_share": device_ms / wall_ms if kernels else None,
         "kinds": kinds, "kernels": kernels[:25], "launches": launches,
+        "other_by_op": [{"op": op, **v} for op, v in top_ops[:40]], "host_launches": host,
     })
     if not kernels:
         print("[profile] the profiler recorded no device time: kernel breakdown not measured")
@@ -262,6 +304,11 @@ def main(argv=None):
             print(f"[profile]   {v['device_ms']:10.3f} ms {v['launches']:6d} launches  {kind}")
         for k in kernels[:12]:
             print(f"[profile]   {k['device_ms']:10.3f} ms {k['count']:6d} x  {k['name'][:90]}")
+        print("[profile] the kind other by launching op:")
+        for op, v in top_ops[:15]:
+            print(f"[profile]   {v['device_ms']:10.3f} ms {v['launches']:6d} launches  {op[:90]}")
+    print(f"[profile] the host issued {host['kernel_launches']} kernel launches and "
+          f"{host['graph_launches']} graph launches")
     print(f"[profile] kernel launches {launches}")
     out = Path(args.out or f"chiprun_out/profile_{'train' if args.train else 'request'}.json")
     out.parent.mkdir(parents=True, exist_ok=True)

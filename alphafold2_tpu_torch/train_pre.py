@@ -11,6 +11,9 @@ sequence-only) with the defaults of the JAX CLI: dim 256, depth 1, heads
 8, dim_head 64, crop 128, batch 1, 16 microbatches per step. Runs on the
 GPU unless `--device cpu` is given, and never falls back to the CPU;
 float32 matmuls and convolutions run in full float32 there (TF32 off).
+On the GPU the step is captured as a CUDA graph on the first batch and
+replayed (`training/executable.py CapturedTrainStep`, the JAX CLI's
+jitted step); the CPU runs the eager `make_train_step`.
 Checkpointing, resilience and telemetry flags are not ported yet
 (ROADMAP A12, A14).
 """
@@ -18,6 +21,7 @@ Checkpointing, resilience and telemetry flags are not ported yet
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 
 import torch
@@ -29,6 +33,7 @@ from alphafold2_tpu_torch.training.data import (
     stack_microbatches,
     synthetic_batches,
 )
+from alphafold2_tpu_torch.training.executable import CapturedTrainStep
 from alphafold2_tpu_torch.training.harness import (
     add_train_args,
     make_train_step,
@@ -66,8 +71,15 @@ def main(argv=None):
     tcfg = tcfg_from_args(args, grad_accum=args.accum)
     dcfg = DataConfig(batch_size=args.batch, max_len=args.max_len, seed=args.seed)
     state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(args.seed), device)
-    train_step = make_train_step(cfg, tcfg, device=device)
     batches = stack_microbatches(synthetic_batches(dcfg), tcfg.grad_accum)
+    if device.type == "cuda":
+        first = next(batches)
+        train_step = CapturedTrainStep(cfg, tcfg, state, first)
+        capture = next(iter(train_step.captures.values()))
+        print(f"captured the step as a CUDA graph in {capture.seconds:.2f} s")
+        batches = itertools.chain([first], batches)
+    else:
+        train_step = make_train_step(cfg, tcfg, device=device)
     rng = torch.Generator().manual_seed(args.seed + 1)  # dropout, when a rate is set
 
     t0 = time.time()

@@ -1,0 +1,165 @@
+"""The captured train step: `make_train_step`'s step replayed as a CUDA
+graph, the port's counterpart of `jax.jit(make_train_step(...))` with the
+state donated (alphafold2_tpu/train_pre.py:323, the step
+alphafold2_tpu/training/harness.py:149-195).
+
+One graph holds a whole step (`training/harness.py step_body`): zero the
+gradient buffers, the forward, loss and backward of every microbatch
+accumulating into them, the division by the count, the global norm, the
+clip and the AdamW update. It reads the batch from static buffers, which
+a call fills with one copy from the host per leaf, and the lr from the
+optimizer's device tensor, which a call fills before the replay. The
+params, their gradient buffers and AdamW's moments and step count lie
+outside the graph's memory: the graph updates them in place, as the eager
+step does. The eager step (`make_train_step`) runs the same ops on the
+same buffers, so a replay gives its bits.
+
+Capture, once a batch shape (jit's one compile a shape):
+  1. the batch is copied into new static buffers;
+  2. a warm-up step on a side stream builds and loads the kernels, the
+     sparse block tables and the distogram boundaries on the card, sets
+     up cuBLAS and makes AdamW's state, none of which a capture may do;
+     then the params and AdamW's state are put back as they were;
+  3. the step is captured on that stream.
+A capture that fails raises `CaptureError` naming the port's source line;
+nothing falls back to eager. The kernel wrappers count launches in
+Python, so a replay adds nothing to their `LAUNCHES`: each capture keeps
+the launches it recorded and its replays (`replayed_launches`).
+
+Dropout: each trunk layer seeds a fresh generator on the card from a
+seed drawn on the host (models/trunk.py), which a graph would freeze, and
+the remat recompute must draw the forward's masks again inside the same
+graph, so a step with live dropout raises naming ROADMAP A6-dropout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable
+
+import torch
+
+from alphafold2_tpu_torch.models.config import Alphafold2Config
+from alphafold2_tpu_torch.training.harness import (
+    TrainConfig,
+    check_microbatches,
+    check_train_config,
+    distogram_loss_fn,
+    step_body,
+)
+from alphafold2_tpu_torch.utils.graphs import capture_error, launch_counts, launches_between
+
+
+def _signature(batch) -> tuple:
+    """What a capture is specific to: each leaf's name, shape and dtype."""
+    return tuple(sorted((k, tuple(t.shape), t.dtype)
+                        for k, t in ((k, torch.as_tensor(v)) for k, v in batch.items())))
+
+
+@dataclasses.dataclass
+class _Capture:
+    graph: Any
+    batch: dict  # the static input buffers
+    loss: torch.Tensor
+    grad_norm: torch.Tensor
+    seconds: float
+    launches: dict
+    replays: int = 0
+
+
+class CapturedTrainStep:
+    """`train_step(state, batch, rng=None) -> (state, metrics)` on the card,
+    as `make_train_step` gives it, for `state` (built on CUDA with
+    `train_state` / `train_state_init`). The step for `example_batch`'s
+    shape is captured at construction; a batch of another shape is
+    captured at its first call. metrics are 0-d device tensors cloned out
+    of the graph's memory. The CPU raises ValueError: there the eager
+    `make_train_step` is the step."""
+
+    def __init__(self, cfg: Alphafold2Config, tcfg: TrainConfig, state, example_batch,
+                 loss_fn: Callable[..., Any] = distogram_loss_fn):
+        device = state["optimizer"].leaves[0].device
+        if device.type != "cuda":
+            raise ValueError(
+                f"CapturedTrainStep: the state lies on {device}; CUDA graphs capture on the "
+                f"card only (the CPU runs make_train_step's eager step)")
+        check_train_config(cfg, device, "CapturedTrainStep")
+        self.cfg, self.tcfg, self.state, self.loss_fn = cfg, tcfg, state, loss_fn
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()  # one pool for every shape's graph
+        self.captures = {}
+        self._capture(example_batch)
+
+    def _load(self, static, batch) -> None:
+        for k, v in batch.items():
+            static[k].copy_(torch.as_tensor(v))
+
+    def _capture(self, batch) -> _Capture:
+        check_microbatches(batch, self.tcfg)
+        t0 = time.perf_counter()
+        opt = self.state["optimizer"]
+        static = {k: torch.empty(t.shape, dtype=t.dtype, device=self.device)
+                  for k, t in ((k, torch.as_tensor(v)) for k, v in batch.items())}
+        self._load(static, batch)
+        with torch.no_grad():
+            params = [p.detach().clone() for p in opt.leaves]
+            moments = {p: {k: v.clone() for k, v in opt.adamw.state[p].items()}
+                       for p in opt.leaves if p in opt.adamw.state}
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            opt.set_lr(self.state["step"])
+            step_body(self.state, self.cfg, static, self.loss_fn, None, self.device)
+            with torch.no_grad():  # the warm-up's update undone
+                for p, saved in zip(opt.leaves, params):
+                    p.copy_(saved)
+                for p in opt.leaves:
+                    for k, v in opt.adamw.state[p].items():
+                        if p in moments:
+                            v.copy_(moments[p][k])
+                        else:
+                            v.zero_()  # AdamW's fresh state: zero moments, step 0
+            torch.cuda.synchronize(self.device)
+            before = launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, pool=self.pool, stream=stream):
+                    loss, grad_norm = step_body(self.state, self.cfg, static, self.loss_fn,
+                                                None, self.device)
+            except RuntimeError as e:
+                shapes = {k: tuple(v.shape) for k, v in static.items()}
+                raise capture_error(f"the train step (batch {shapes})", e) from e
+            after = launch_counts()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        capture = _Capture(graph, static, loss, grad_norm, time.perf_counter() - t0,
+                           launches_between(before, after))
+        self.captures[_signature(batch)] = capture
+        return capture
+
+    def __call__(self, state, batch, rng=None):
+        if state is not self.state:
+            raise ValueError("CapturedTrainStep: called with another state than it captured")
+        if rng is not None and (self.cfg.attn_dropout > 0.0 or self.cfg.ff_dropout > 0.0):
+            raise NotImplementedError(
+                f"CapturedTrainStep: dropout (attn {self.cfg.attn_dropout}, ff "
+                f"{self.cfg.ff_dropout}) with an rng: each layer's masks come from a generator "
+                f"seeded on the host, which a CUDA graph would freeze; not ported yet (ROADMAP "
+                f"A6-dropout). make_train_step runs it eagerly")
+        check_microbatches(batch, self.tcfg)
+        capture = self.captures.get(_signature(batch)) or self._capture(batch)
+        self._load(capture.batch, batch)
+        state["optimizer"].set_lr(state["step"])
+        capture.graph.replay()
+        capture.replays += 1
+        state["step"] += 1
+        return state, {"loss": capture.loss.clone(), "grad_norm": capture.grad_norm.clone()}
+
+    def replayed_launches(self) -> dict:
+        """The kernel launches the replays made: each capture's recorded
+        launches times its replays."""
+        out = {}
+        for c in self.captures.values():
+            for name, n in c.launches.items():
+                out[name] = out.get(name, 0) + n * c.replays
+        return out

@@ -2,13 +2,17 @@
 `make_train_step` of alphafold2_tpu/training/harness.py).
 
 The JAX step is one jitted program: a `lax.scan` over microbatches, their
-gradients, one optax update. Here it is a Python loop of eager forward and
-backward passes (autograd accumulates the microbatch gradients into
-`.grad`), then one update:
+gradients, one optax update. Here `make_train_step` is a Python loop of
+eager forward and backward passes, then one update (`step_body`); on the
+card `training/executable.py CapturedTrainStep` captures the same body as
+a CUDA graph, the counterpart of the jit:
 
-  * the loss and the gradients are the mean over microbatches; a leaf the
-    forward does not read (the MSA stream's, in sequence-only training)
-    gets a zero gradient, as `jax.grad` gives it;
+  * each leaf's `.grad` is a static buffer (`train_state`), zeroed at the
+    start of a step; autograd accumulates the microbatch gradients into it
+    in place, and it is divided by their count. The loss and the gradients
+    are the mean over microbatches; a leaf the forward does not read (the
+    MSA stream's, in sequence-only training) keeps a zero gradient, as
+    `jax.grad` gives it;
   * `grad_norm` is the global norm of the mean gradient, before clipping;
   * the update is optax's `chain(clip_by_global_norm(max_norm),
     adamw(schedule, weight_decay))`: the clip scales by max_norm / |g| only
@@ -16,7 +20,11 @@ backward passes (autograd accumulates the microbatch gradients into
     divides by |g| + 1e-6); then `torch.optim.AdamW`, whose bias
     correction, eps placement and decoupled weight decay are optax's, at
     the learning rate the schedule gives for the update count from 0 (a
-    warmup from 0 gives lr 0 on the first step).
+    warmup from 0 gives lr 0 on the first step). On the card AdamW is
+    `capturable` and its lr a device tensor, filled before each step, so a
+    graph can hold the update; the CPU keeps a float lr (the same
+    function, computed in double on the host);
+  * the batch is copied to the device once a step, before the loop.
 
 Not ported: the multi-device accumulation step (ROADMAP A13), fault
 injection and checkpointing (A12).
@@ -94,31 +102,48 @@ def global_norm(tensors) -> torch.Tensor:
 class ClippedAdamW:
     """optax `chain(clip_by_global_norm(max_norm), adamw(schedule,
     weight_decay))` over a list of leaves whose `.grad` holds the
-    gradient."""
+    gradient. On CUDA leaves AdamW is `capturable` (its step count on the
+    card) and takes its lr from a device tensor (`set_lr`)."""
 
     def __init__(self, leaves, tcfg: TrainConfig):
         self.leaves = list(leaves)
         self.schedule = make_schedule(tcfg)
         norm = tcfg.max_grad_norm
         self.max_norm = norm if norm is not None and norm > 0 else math.inf
+        device = self.leaves[0].device if self.leaves else torch.device("cpu")
+        capturable = device.type == "cuda"
+        lr = torch.zeros((), dtype=torch.float32, device=device) if capturable else 0.0
         self.adamw = torch.optim.AdamW(
-            self.leaves, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=tcfg.weight_decay,
+            self.leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=tcfg.weight_decay, capturable=capturable,
         )
 
-    def step(self, count: int) -> torch.Tensor:
-        """Clip the leaves' gradients, then one AdamW update at lr =
-        schedule(count). Returns the global norm before clipping."""
+    def set_lr(self, count: int) -> None:
+        """lr = schedule(count): filled into the device tensor on the card
+        (a launch, no copy from the host), a float on the CPU."""
+        lr = self.schedule(count)
+        for group in self.adamw.param_groups:
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
+
+    def update(self) -> torch.Tensor:
+        """Clip the leaves' gradients, then one AdamW update at the lr last
+        set. Returns the global norm before clipping."""
         grads = [p.grad for p in self.leaves]
         norm = global_norm(grads)
         if self.max_norm != math.inf:
             keep = norm < self.max_norm
             for g in grads:
                 g.copy_(torch.where(keep, g, g / norm * self.max_norm))
-        for group in self.adamw.param_groups:
-            group["lr"] = self.schedule(count)
         self.adamw.step()
         return norm
+
+    def step(self, count: int) -> torch.Tensor:
+        """`set_lr(count)`, then `update()`."""
+        self.set_lr(count)
+        return self.update()
 
 
 def make_optimizer(tcfg: TrainConfig, leaves) -> ClippedAdamW:
@@ -127,10 +152,13 @@ def make_optimizer(tcfg: TrainConfig, leaves) -> ClippedAdamW:
 
 def train_state(params, tcfg: TrainConfig) -> dict:
     """The train state of a parameter tree: the tree (its leaves now
-    require grad), the optimizer over its leaves, and the update count."""
+    require grad, each with a zeroed `.grad` buffer that every step
+    accumulates into), the optimizer over its leaves, and the update
+    count."""
     leaves = list(tree_leaves(params))
     for t in leaves:
         t.requires_grad_(True)
+        t.grad = torch.zeros_like(t)
     return {"params": params, "optimizer": make_optimizer(tcfg, leaves), "step": 0}
 
 
@@ -167,44 +195,66 @@ def make_distogram_loss_fn(apply_fn):
 distogram_loss_fn = make_distogram_loss_fn(alphafold2_apply)
 
 
+def check_train_config(cfg: Alphafold2Config, device: torch.device, what: str) -> None:
+    """Refuse what no train step takes: an int8 config (inference-only), and
+    a sparse config with attention dropout on the card (the sparse kernels
+    have no dropout)."""
+    reject_quant_training(cfg, what)
+    if device.type == "cuda" and any(cfg.layer_sparse) and cfg.attn_dropout > 0.0:
+        raise ValueError(
+            f"{what}: sparse_self_attn with attn_dropout={cfg.attn_dropout} on {device}: "
+            f"the sparse CUDA kernels have no attention dropout; set attn_dropout=0")
+
+
+def check_microbatches(batch, tcfg: TrainConfig) -> None:
+    sizes = {len(v) for v in batch.values()}
+    if sizes != {tcfg.grad_accum}:
+        raise ValueError(f"batch leaves must lead with grad_accum={tcfg.grad_accum} "
+                         f"microbatches, got {sizes}")
+
+
+def step_body(state, cfg: Alphafold2Config, batch, loss_fn, rng, device):
+    """One step's work on a batch whose leaves already lie on `device` and
+    lead with the microbatch axis, at the lr already set: zero the
+    gradient buffers, accumulate each microbatch's gradient into them,
+    divide by the count, clip and update. Returns the mean loss and the
+    global norm before clipping (0-d device tensors). The eager step and
+    the captured one run this same sequence of ops."""
+    opt = state["optimizer"]
+    grads = [p.grad for p in opt.leaves]
+    torch._foreach_zero_(grads)
+    n = len(next(iter(batch.values())))
+    loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+    for index in range(n):
+        loss = loss_fn(state["params"], cfg, {k: v[index] for k, v in batch.items()},
+                       rng, device)
+        loss.backward()
+        loss_sum += loss.detach()
+    torch._foreach_div_(grads, n)
+    return loss_sum / n, opt.update()
+
+
 def make_train_step(cfg: Alphafold2Config, tcfg: TrainConfig,
                     loss_fn: Callable[..., Any] = distogram_loss_fn, device=None):
-    """`train_step(state, batch, rng=None) -> (state, metrics)`. batch
-    leaves carry a leading microbatch axis of length tcfg.grad_accum; rng
-    is an optional CPU generator for dropout. The state is updated in
+    """`train_step(state, batch, rng=None) -> (state, metrics)`, eager.
+    batch leaves carry a leading microbatch axis of length tcfg.grad_accum;
+    rng is an optional CPU generator for dropout. The state is updated in
     place and returned; metrics are 0-d tensors on the device: "loss" (the
     microbatch mean) and "grad_norm" (of the mean gradient, before
     clipping). An int8 config is refused (inference-only), and so is a
     sparse config with attention dropout on the card (the sparse kernels
-    have no dropout)."""
-    reject_quant_training(cfg, "make_train_step")
+    have no dropout). On the card `CapturedTrainStep` replays this step
+    as a CUDA graph."""
     dev = resolve_device(device)
-    if dev.type == "cuda" and any(cfg.layer_sparse) and cfg.attn_dropout > 0.0:
-        raise ValueError(
-            f"make_train_step: sparse_self_attn with attn_dropout={cfg.attn_dropout} on {dev}: "
-            f"the sparse CUDA kernels have no attention dropout; set attn_dropout=0")
+    check_train_config(cfg, dev, "make_train_step")
 
     def train_step(state, batch, rng=None):
-        n = tcfg.grad_accum
-        sizes = {len(v) for v in batch.values()}
-        if sizes != {n}:
-            raise ValueError(f"batch leaves must lead with grad_accum={n} microbatches, got {sizes}")
-        opt = state["optimizer"]
-        for p in opt.leaves:
-            p.grad = None
-        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        for index in range(n):
-            loss = loss_fn(state["params"], cfg, {k: v[index] for k, v in batch.items()},
-                           rng, dev)
-            loss.backward()
-            loss_sum += loss.detach()
-        for p in opt.leaves:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            p.grad.div_(n)
-        grad_norm = opt.step(state["step"])
+        check_microbatches(batch, tcfg)
+        state["optimizer"].set_lr(state["step"])
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        loss, grad_norm = step_body(state, cfg, batch, loss_fn, rng, dev)
         state["step"] += 1
-        return state, {"loss": loss_sum / n, "grad_norm": grad_norm}
+        return state, {"loss": loss, "grad_norm": grad_norm}
 
     return train_step
 

@@ -6,6 +6,8 @@ the model's logits are scored with a cross-entropy masked to valid pairs.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from alphafold2_tpu_torch.constants import DISTOGRAM_BUCKETS
@@ -27,7 +29,14 @@ _BOUNDARIES = (
 
 
 def distogram_boundaries(device=None) -> torch.Tensor:
-    """The DISTOGRAM_BUCKETS - 1 bin boundaries, float32."""
+    """The DISTOGRAM_BUCKETS - 1 bin boundaries, float32, on `device`."""
+    return _boundaries_on(torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _boundaries_on(device: torch.device) -> torch.Tensor:
+    # made once a device: a copy from the host cannot be captured into a
+    # CUDA graph (training/executable.py); nothing writes to it
     return torch.tensor(_BOUNDARIES, dtype=torch.float32, device=device)
 
 

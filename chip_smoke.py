@@ -78,22 +78,40 @@ each phase prints its seconds):
          seconds a (bucket, rung), peak memory;
      (c) eager against captured at L = 128, 256, 384, batch 1: request ms,
          the launches the host issues and the device's busy share;
-  6. the training path through `make_train_step` (train_pre's step):
-     (a) dim 256, depth 2, heads 8, dim_head 64, accum 2, f32, 3 steps on
-         the card and on the CPU from the same params and batches: loss,
-         grad_norm, the first step's gradients leaf by leaf, the params
-         after 3 steps; at L = 64, and sparse (every layer) at L = 128;
+  6. the training path: `make_train_step` (the eager step) and train_pre's
+     step on the card, `CapturedTrainStep` (the same step as a CUDA graph,
+     `training/executable.py`):
+     (a) dim 256, depth 2, heads 8, dim_head 64, accum 2, f32, 3 eager
+         steps on the card and on the CPU from the same params and
+         batches: loss, grad_norm, the first step's gradients leaf by leaf,
+         the params after 3 steps; at L = 64, and sparse (every layer) at
+         L = 128;
      (b) train_pre's defaults in bf16 (dim 256, depth 1, heads 8, dim_head
-         64, batch 1, accum 16) at L = 128 and 256: one untimed step, 5
-         timed ones; step ms, MFU, peak memory, finite nonzero gradients,
-         and 2 * depth * accum launches of each kernel per step (every
-         forward, dq and dkv launch on its wgmma route);
+         64, batch 1, accum 16) at L = 128 and 256, captured: one untimed
+         replay, 5 timed ones; step ms, MFU, capture seconds, peak memory,
+         finite nonzero gradients, and 2 * depth * accum launches of each
+         kernel per step in the replays (every forward, dq and dkv launch
+         on its wgmma route);
      (c) the same with attn_gate=True at L = 128: the fused pair only;
      (e) the same sparse at L = 256 (max_seq_len 256): the three sparse
          kernels only, every B5f, B5 dq and B5 dkv launch on its wgmma
          route;
      (f) make_train_step refuses an int8 config;
-     (d) 30 steps on one repeated batch at lr 1e-3 lower the loss;
+     (d) 30 captured steps on one repeated batch at lr 1e-3 lower the loss;
+     (g) captured against eager from the same params over 3 batches, with
+         a warmup, cosine decay, clipping and weight decay, bit for bit on
+         loss, grad_norm and every param leaf: f32 depth 2 at L = 64,
+         the bf16 defaults at L = 128 dense and L = 256 sparse, and at
+         L = 128 with remat_policy "dots"; every captured flash and sparse
+         launch of the bf16 runs on its wgmma route;
+     (h) eager against captured at crop 128, crop 128 gated and crop 256:
+         step ms (host clock, median of 5, in turns), the launches the host
+         issues, device ms and busy share under torch.profiler, capture
+         seconds, peak memory;
+     (i) the crop-256 captured step's peak memory and step ms under no
+         remat, remat, remat_policy "dots" and "dots_no_batch";
+     (j) `python -m alphafold2_tpu_torch.train_pre --steps 3 --bf16` runs
+         its captured step;
   7. sequence-parallel serving (`parallel/sp_trunk.py alphafold2_apply_sp`,
      the ring's hops on B3):
      (a) f32, dim 64, depth 2, L = 64: 4 shards on the card against 4 CPU
@@ -165,6 +183,7 @@ from alphafold2_tpu_torch.serving.executable import (  # noqa: E402
 )
 from alphafold2_tpu_torch.serving.quant_residency import resident_params  # noqa: E402
 from alphafold2_tpu_torch.training.data import DataConfig, synthetic_microbatch_fn  # noqa: E402
+from alphafold2_tpu_torch.training.executable import CapturedTrainStep  # noqa: E402
 from alphafold2_tpu_torch.training.harness import (  # noqa: E402
     TrainConfig,
     make_train_step,
@@ -1685,6 +1704,8 @@ def profile_request(fn):
     out = {"kernel_launches": 0, "graph_launches": 0, "copies": 0, "device_ms": 0.0,
            "device_kernels": 0}
     for a in prof.key_averages():
+        if getattr(a, "is_user_annotation", False):
+            continue  # a record_function's device span: its kernels count on their own
         if a.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(a, "self_device_time_total", None)
             out["device_ms"] += (us if us is not None else a.self_cuda_time_total) / 1e3
@@ -1862,19 +1883,26 @@ def phase_train_parity(label, cfg, L, expect):
 
 
 def train_run(label, cfg, L, tcfg, timed_steps, expect):
-    """Drive make_train_step at length L: one untimed step, then
-    `timed_steps` timed ones (CUDA events) with the counts set to 0 just
-    before and read just after. Checks a finite loss, a finite nonzero
-    gradient on every leaf the path reads (exactly 0 on the others), and
-    `expect` launches of each kernel per step (0 of the rest)."""
+    """Drive train_pre's step on the card as train_pre does, captured
+    (`training/executable.py CapturedTrainStep`), at length L: the counts
+    set to 0 and the peak memory reset just before the capture (its
+    warm-up step launches each kernel once, the capture records it once),
+    one untimed replay, then `timed_steps` timed ones (CUDA events).
+    Checks a finite loss, a finite nonzero gradient on every leaf the path
+    reads (exactly 0 on the others), and `expect` launches of each kernel
+    per step in the replays (the capture's launches times the replays; 0
+    of the rest). Returns the wrappers' counts of the run."""
     state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
-    step = make_train_step(cfg, tcfg, device="cuda")
     fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, seed=7),
                                     tcfg.grad_accum)
-    step(state, fetch(0))
     sync()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    step = CapturedTrainStep(cfg, tcfg, state, fetch(0))
+    capture_s = next(iter(step.captures.values())).seconds
+    step(state, fetch(0))
+    sync()
+    before = step.replayed_launches()
     times, metrics = [], []
     for n in range(1, timed_steps + 1):
         batch = fetch(n)
@@ -1886,6 +1914,7 @@ def train_run(label, cfg, L, tcfg, timed_steps, expect):
         times.append(start.elapsed_time(end))
         metrics.append({k: float(v) for k, v in m.items()})
     launches = launch_counts()
+    replayed = {k: n - before.get(k, 0) for k, n in step.replayed_launches().items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     bad_leaves = []
     for name, leaf in named_leaves(state["params"]):
@@ -1899,25 +1928,26 @@ def train_run(label, cfg, L, tcfg, timed_steps, expect):
     flops = train_step_flops(cfg, L, 0, 0, grad_accum=tcfg.grad_accum) - sparse_skipped_flops(
         cfg, L, tcfg.grad_accum)
     mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
-    per_step = {k: v / timed_steps for k, v in launches.items()}
+    per_step = {k: v / timed_steps for k, v in replayed.items()}
     row = {"L": L, "config": repr(cfg), "grad_accum": tcfg.grad_accum, "step_ms": times,
            "median_step_ms": step_ms, "train_step_flops": flops, "mfu": mfu,
-           "peak_gib": peak, "metrics": metrics, "launches": launches,
+           "capture_s": capture_s, "peak_gib": peak, "metrics": metrics,
+           "wrapper_launches": launches, "replayed_launches": replayed,
            "bad_leaves": bad_leaves}
-    log(f"[train {label}] L={L}: step {step_ms:.2f} ms median of {timed_steps} "
+    log(f"[train {label}] L={L}, captured: step {step_ms:.2f} ms median of {timed_steps} "
         f"({', '.join(f'{t:.2f}' for t in times)}), MFU {mfu:.4f} of 989 TFLOP/s bf16 "
-        f"({flops / 1e12:.3f} TFLOP a step), peak {peak:.2f} GiB, loss "
-        f"{metrics[-1]['loss']:.4f}, grad_norm {metrics[-1]['grad_norm']:.4f}; "
+        f"({flops / 1e12:.3f} TFLOP a step), capture {capture_s:.2f} s, peak {peak:.2f} GiB, "
+        f"loss {metrics[-1]['loss']:.4f}, grad_norm {metrics[-1]['grad_norm']:.4f}; "
         f"launches per step {per_step}")
     RECORD["phases"][f"train_{label}_L{L}"] = row
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics):
         fail(f"training {label} L={L}: a non-finite loss or grad_norm")
     if bad_leaves:
         fail(f"training {label} L={L}: zero or non-finite gradients on {bad_leaves[:5]}")
-    for name, count in per_step.items():
-        if count != expect.get(name, 0):
-            fail(f"training {label} L={L}: {name} launched {count} times a step, "
-                 f"expected {expect.get(name, 0)}")
+    for name in set(per_step) | set(expect):
+        if per_step.get(name, 0) != expect.get(name, 0):
+            fail(f"training {label} L={L}: {name} launched {per_step.get(name, 0)} times a "
+                 f"step, expected {expect.get(name, 0)}")
     return launches
 
 
@@ -1946,8 +1976,7 @@ def phase_train():
                                                  "sparse_bwd_dkv", "sparse_bwd_dq_f32",
                                                  "sparse_bwd_dkv_f32")})
     tcfg = TrainConfig(grad_accum=16)
-    cfg = Alphafold2Config(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=2048,
-                           dtype=torch.bfloat16)
+    cfg = train_pre_config()
     per = 2 * cfg.depth * tcfg.grad_accum  # two pair-axial attentions a layer
     # every bf16 dq and dkv launch on the wgmma route
     plain = {"flash_fwd": per, "flash_fwd_wgmma": per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
@@ -1977,6 +2006,10 @@ def phase_train():
     else:
         fail("make_train_step accepted an int8 config")
     phase_overfit()
+    phase_train_capture()
+    phase_train_timing()
+    phase_train_remat()
+    phase_train_cli()
     # the backward kernels' launches on the training path (the forwards'
     # are the serving path's, phase 4)
     return dict(launches, flash_bwd_fused_dq=gated["flash_bwd_fused_dq"],
@@ -1986,14 +2019,14 @@ def phase_train():
 
 
 def phase_overfit():
-    """(d) 30 steps on one repeated batch at lr 1e-3 lower the loss by more
-    than 0.3 (the JAX package's tests/test_training.py criterion)."""
-    cfg = Alphafold2Config(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=2048,
-                           dtype=torch.bfloat16)
+    """(d) 30 captured steps on one repeated batch at lr 1e-3 lower the loss
+    by more than 0.3 (the JAX package's tests/test_training.py
+    criterion)."""
+    cfg = train_pre_config()
     tcfg = TrainConfig(learning_rate=1e-3, grad_accum=2)
     state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
-    step = make_train_step(cfg, tcfg, device="cuda")
     batch = synthetic_microbatch_fn(DataConfig(batch_size=2, max_len=64, seed=3), 2)(0)
+    step = CapturedTrainStep(cfg, tcfg, state, batch)
     losses = [float(step(state, batch)[1]["loss"]) for _ in range(30)]
     ok = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0] - 0.3
     log(f"[train d] overfit one batch, 30 steps at lr 1e-3: loss {losses[0]:.4f} -> "
@@ -2001,6 +2034,231 @@ def phase_overfit():
     RECORD["phases"]["overfit"] = {"losses": losses, "ok": ok}
     if not ok:
         fail(f"30 steps on one batch did not lower the loss by 0.3: {losses}")
+
+
+# the six route families of the trained kernels: (launches of the family's
+# wrappers, the wgmma route's own count)
+ROUTE_FAMILIES = (
+    (("flash_fwd", "flash_fwd_fused"), "flash_fwd_wgmma"),
+    (("flash_bwd_dq", "flash_bwd_fused_dq"), "flash_bwd_dq_wgmma"),
+    (("flash_bwd_dkv", "flash_bwd_fused_dkv"), "flash_bwd_dkv_wgmma"),
+    (("sparse_fwd",), "sparse_fwd_wgmma"),
+    (("sparse_bwd_dq",), "sparse_bwd_dq_wgmma"),
+    (("sparse_bwd_dkv",), "sparse_bwd_dkv_wgmma"),
+)
+
+
+def on_wgmma(launches):
+    """Every flash and sparse launch in `launches` on its wgmma route (and
+    at least one launch)."""
+    total = 0
+    for names, wgmma in ROUTE_FAMILIES:
+        n = sum(launches.get(k, 0) for k in names)
+        if launches.get(wgmma, 0) != n:
+            return False
+        total += n
+    return total > 0
+
+
+def train_pre_config(**fields):
+    """train_pre's defaults (dim 256, depth 1, heads 8, dim_head 64) in
+    bf16, with `fields` over them."""
+    return Alphafold2Config(**{**dict(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=2048,
+                                      dtype=torch.bfloat16), **fields})
+
+
+def capture_vs_eager(label, cfg, L, grad_accum, wgmma):
+    """Train_pre's step captured (`CapturedTrainStep`) against the eager
+    step (`make_train_step`) from the same seeded params over the same 3
+    batches at crop L, with a warmup from lr 0, cosine decay, clipping
+    that acts and weight decay: loss and grad_norm every step and every
+    param leaf after 3 steps bit for bit (no tolerance: the same ops on the
+    same buffers). `wgmma`: every flash and sparse launch the capture
+    recorded on its wgmma route."""
+    tcfg = TrainConfig(grad_accum=grad_accum, warmup_steps=1, decay_steps=3, decay_floor=0.1,
+                       max_grad_norm=0.05, weight_decay=0.01)
+    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, seed=9), grad_accum)
+    batches = [fetch(n) for n in range(3)]
+    eager_state, cap_state = (train_state_init(cfg, tcfg, torch.Generator().manual_seed(0),
+                                               "cuda") for _ in range(2))
+    eager = make_train_step(cfg, tcfg, device="cuda")
+    reset_launches()
+    captured = CapturedTrainStep(cfg, tcfg, cap_state, batches[0])
+    capture = next(iter(captured.captures.values()))
+    steps = []
+    for batch in batches:
+        _, e = eager(eager_state, batch)
+        _, c = captured(cap_state, batch)
+        steps.append({"loss": float(c["loss"]), "grad_norm": float(c["grad_norm"]),
+                      "loss_equal": torch.equal(e["loss"], c["loss"]),
+                      "grad_norm_equal": torch.equal(e["grad_norm"], c["grad_norm"]),
+                      "loss_diff": abs(float(e["loss"]) - float(c["loss"]))})
+    pairs = list(zip(eager_state["optimizer"].leaves, cap_state["optimizer"].leaves))
+    unequal = sum(not torch.equal(a, b) for a, b in pairs)
+    d_params = max((a.detach() - b.detach()).abs().max().item() for a, b in pairs)
+    routes = on_wgmma(capture.launches) if wgmma else None
+    ok = (all(r["loss_equal"] and r["grad_norm_equal"] for r in steps) and unequal == 0
+          and cap_state["step"] == 3 and routes is not False)
+    log(f"[train g] {label}: L={L}, accum {grad_accum}, captured vs eager over 3 steps: loss "
+        f"and grad_norm bit-equal {[r['loss_equal'] and r['grad_norm_equal'] for r in steps]}, "
+        f"{unequal} of {len(pairs)} param leaves differ (max |d| {d_params:.2e}); losses "
+        f"{[round(r['loss'], 5) for r in steps]}, grad norms "
+        f"{[round(r['grad_norm'], 4) for r in steps]}; capture {capture.seconds:.2f} s, "
+        f"captured launches {capture.launches}"
+        f"{'' if routes is None else ', all on wgmma' if routes else ', OFF wgmma'} "
+        f"{'ok' if ok else 'FAIL'}")
+    RECORD["phases"][f"train_capture_{label}"] = {
+        "L": L, "config": repr(cfg), "grad_accum": grad_accum, "steps": steps,
+        "params_unequal": unequal, "params_max_abs": d_params, "capture_s": capture.seconds,
+        "captured_launches": capture.launches, "on_wgmma": routes, "ok": ok}
+    if not ok:
+        fail(f"the captured train step differs from the eager one, or left its wgmma route "
+             f"({label}, phase 6g)")
+
+
+def phase_train_capture():
+    """(g) captured against eager, bit for bit: f32 depth 2 at L = 64 (accum
+    2), train_pre's bf16 defaults at L = 128 dense and at L = 256 sparse
+    (max_seq_len 256), and at L = 128 with remat and remat_policy "dots"."""
+    f32 = Alphafold2Config(dim=256, depth=2, heads=8, dim_head=64, max_seq_len=2048)
+    capture_vs_eager("f32", f32, 64, 2, wgmma=False)
+    capture_vs_eager("bf16 dense", train_pre_config(), 128, 16, wgmma=True)
+    capture_vs_eager("bf16 sparse", train_pre_config(sparse_self_attn=True, max_seq_len=256),
+                     256, 16, wgmma=True)
+    capture_vs_eager("bf16 remat dots", train_pre_config(remat=True, remat_policy="dots"), 128,
+                     16, wgmma=True)
+
+
+def host_ms(fn):
+    """Host clock around one call, from a synchronized card to its end."""
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_train_timing(reps=5):
+    """(h) train_pre's bf16 step (accum 16), eager against captured, at crop
+    128, crop 128 gated and crop 256: each arm from its own seeded state
+    on one repeated batch; each arm's peak memory above what was allocated
+    before its state was made (its state, then one step for the eager
+    arm, its capture and one replay for the captured one); step ms on the host
+    clock (synchronized, median of `reps`, the two arms in turns after a
+    warm-up of each); then one more step of each under torch.profiler: the
+    launches the host issued and the device time, busy = device ms over
+    the step's median."""
+    rows = []
+    for label, cfg, L in (("crop 128", train_pre_config(), 128),
+                          ("crop 128 gated", train_pre_config(attn_gate=True), 128),
+                          ("crop 256", train_pre_config(), 256)):
+        tcfg = TrainConfig(grad_accum=16)
+        batch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, seed=11), 16)(0)
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eager_state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+        eager = make_train_step(cfg, tcfg, device="cuda")
+        eager(eager_state, batch)
+        sync()
+        eager_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cap_state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+        captured = CapturedTrainStep(cfg, tcfg, cap_state, batch)
+        captured(cap_state, batch)
+        sync()
+        cap_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        arms = {"eager": lambda: eager(eager_state, batch),
+                "captured": lambda: captured(cap_state, batch)}
+        ms = {"eager": [], "captured": []}
+        for order in [("eager", "captured"), ("captured", "eager")] * ((reps + 1) // 2):
+            for name in order:
+                ms[name].append(host_ms(arms[name]))
+        row = {"label": label, "L": L, "config": repr(cfg),
+               "capture_s": next(iter(captured.captures.values())).seconds}
+        for name, peak in (("eager", eager_peak), ("captured", cap_peak)):
+            median = sorted(ms[name][:reps])[reps // 2]
+            prof = profile_request(arms[name])
+            row[name] = {"step_ms": median, "runs_ms": ms[name][:reps], "peak_gib": peak,
+                         **prof, "busy_share": prof["device_ms"] / median
+                         if prof["device_kernels"] else None}
+        rows.append(row)
+        e, c = row["eager"], row["captured"]
+        busy = lambda v: "not measured" if v is None else f"{v:.3f}"  # noqa: E731
+        log(f"[train h] {label}: eager {e['step_ms']:.2f} ms ({e['kernel_launches']} kernel "
+            f"launches, {e['copies']} copies, device {e['device_ms']:.2f} ms, busy "
+            f"{busy(e['busy_share'])}, peak {e['peak_gib']:.2f} GiB), captured "
+            f"{c['step_ms']:.2f} ms ({c['kernel_launches']} kernel launches, "
+            f"{c['graph_launches']} graph launches, {c['copies']} copies, device "
+            f"{c['device_ms']:.2f} ms, busy {busy(c['busy_share'])}, peak {c['peak_gib']:.2f} "
+            f"GiB); capture {row['capture_s']:.2f} s")
+        del eager_state, cap_state, captured, arms
+    RECORD["phases"]["train_timing"] = rows
+
+
+def phase_train_remat(steps=3):
+    """(i) train_pre's bf16 step at crop 256, captured, under no remat,
+    remat, remat_policy "dots" and "dots_no_batch": peak memory over the
+    capture and the steps, step ms (CUDA events, median of `steps` after
+    one untimed replay)."""
+    rows = []
+    tcfg = TrainConfig(grad_accum=16)
+    batch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=256, seed=12), 16)(0)
+    for label, fields in (("no remat", {}), ("remat", {"remat": True}),
+                          ("dots", {"remat": True, "remat_policy": "dots"}),
+                          ("dots_no_batch", {"remat": True, "remat_policy": "dots_no_batch"})):
+        cfg = train_pre_config(**fields)
+        state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        step = CapturedTrainStep(cfg, tcfg, state, batch)
+        step(state, batch)
+        times = []
+        for _ in range(steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, m = step(state, batch)
+            end.record()
+            sync()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        row = {"label": label, "config": repr(cfg), "step_ms": times,
+               "median_step_ms": sorted(times)[steps // 2], "peak_gib": peak,
+               "capture_s": next(iter(step.captures.values())).seconds,
+               "loss": float(m["loss"])}
+        rows.append(row)
+        log(f"[train i] crop 256 captured, {label}: step {row['median_step_ms']:.2f} ms median "
+            f"of {steps}, peak {peak:.3f} GiB, capture {row['capture_s']:.2f} s, loss "
+            f"{row['loss']:.4f}")
+        if not math.isfinite(row["loss"]):
+            fail(f"training crop 256 {label}: a non-finite loss (phase 6i)")
+        del state, step
+    RECORD["phases"]["train_remat"] = rows
+
+
+def phase_train_cli():
+    """(j) `python -m alphafold2_tpu_torch.train_pre --steps 3 --bf16` in a
+    process of its own: it captures the step and runs 3 replays."""
+    cmd = [sys.executable, "-m", "alphafold2_tpu_torch.train_pre", "--steps", "3", "--bf16"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    losses = [float(line.split("loss")[1].split()[0]) for line in lines
+              if line.startswith("step ")]
+    ok = (out.returncode == 0 and any("captured the step as a CUDA graph" in line
+                                      for line in lines)
+          and lines[-1:] == ["done"] and len(losses) == 2
+          and all(math.isfinite(x) for x in losses))
+    log(f"[train j] {' '.join(cmd[1:])}: rc {out.returncode} in {seconds:.1f} s; "
+        + " | ".join(lines) + f" {'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["train_cli"] = {"cmd": cmd[1:], "rc": out.returncode, "stdout": lines,
+                                     "stderr_tail": out.stderr[-2000:], "seconds": seconds,
+                                     "ok": ok}
+    if not ok:
+        fail(f"train_pre on the card did not run its captured step (phase 6j): "
+             f"{out.stderr[-1000:]}")
 
 
 # --- phase 7: sequence-parallel serving -------------------------------------------
@@ -2255,9 +2513,11 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     attention call that returns lse; the backward kernels at the L = 128
     hop shape, each with its own plain version and bound, no library call
     (none takes an lse cotangent). Launches: from the main paths' runs
-    (serving for the forwards and B4, training for the backwards; B3's
-    forward from the SP request, its backward from the ring's gradient in
-    f32 and in bf16)."""
+    (serving for the forwards and B4; training for the backwards, the
+    wrappers' counts over phase 6b, 6c and 6e's captured steps: each
+    kernel once in the warm-up and once in the capture, the replays
+    launching what the capture recorded; B3's forward from the SP request,
+    its backward from the ring's gradient in f32 and in bf16)."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r

@@ -121,7 +121,6 @@ def test_bf16_forward_runs_close():
 def test_not_ported_options_raise():
     for kw, item in [
         (dict(reversible=True), "A8"),
-        (dict(remat=True, remat_policy="dots"), "A6"),
         (dict(trunk_schedule="branch_parallel"), "A4"),
     ]:
         with pytest.raises(NotImplementedError, match=item):
@@ -129,6 +128,10 @@ def test_not_ported_options_raise():
     tcfg = Alphafold2Config(**SMALL, scan_layers=True)  # same math, a loop
     assert tcfg.scan_layers
     assert Alphafold2Config(**SMALL, remat=True).remat  # ported: checkpointed layers
+    # ported: selective checkpointing; an unknown policy still raises
+    assert Alphafold2Config(**SMALL, remat=True, remat_policy="dots").remat_policy == "dots"
+    with pytest.raises(ValueError, match="remat_policy"):
+        Alphafold2Config(**SMALL, remat=True, remat_policy="everything")
 
 
 def test_templates_raise():

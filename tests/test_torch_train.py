@@ -2,10 +2,12 @@
 
 The same weights (`params_from_jax`), the same numpy batches: the loss and
 its labels, the synthetic data, the optimizer and its schedule, and the
-whole `make_train_step` (3 steps, 2 microbatches) against JAX's; the
-training-mode dropout on its own (the two random streams cannot match);
-`remat` against no remat; the bf16 dense-mask repair against JAX bf16; and
-the CLI at a tiny width.
+whole `make_train_step` (3 steps, 2 microbatches) against JAX's, also with
+`remat` under each `remat_policy` and with warmup, cosine decay, clipping
+and weight decay on; the training-mode dropout on its own (the two random
+streams cannot match); `remat` and each `remat_policy` against no remat,
+and which products each policy keeps through the recompute; the bf16
+dense-mask repair against JAX bf16; and the CLI at a tiny width.
 
 Tolerances (float32 unless stated): both sides compute the same function
 in another summation order. Losses of magnitude ~4: 1e-5 absolute.
@@ -22,6 +24,8 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from alphafold2_tpu.models import Alphafold2Config as JaxConfig
 from alphafold2_tpu.models import alphafold2_apply as jax_apply
@@ -31,6 +35,8 @@ from alphafold2_tpu.training import harness as jharness
 from alphafold2_tpu.training import losses as jlosses
 from alphafold2_tpu_torch import Alphafold2Config, alphafold2_apply, params_from_jax
 from alphafold2_tpu_torch.device import tree_leaves
+from alphafold2_tpu_torch.models.alphafold2 import alphafold2_front
+from alphafold2_tpu_torch.models.trunk import sequential_trunk_apply
 from alphafold2_tpu_torch.ops.core import dropout
 from alphafold2_tpu_torch.training import data, harness, losses
 
@@ -155,14 +161,35 @@ def _params(jcfg, tcfg, seed=0):
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(), dict(attn_flash=True), dict(attn_gate=True)],
-    ids=["auto", "flash", "gate"],
+    [dict(), dict(attn_flash=True), dict(attn_gate=True),
+     dict(depth=2, remat=True), dict(depth=2, remat=True, remat_policy="dots"),
+     dict(depth=2, remat=True, remat_policy="dots_no_batch")],
+    ids=["auto", "flash", "gate", "remat", "remat-dots", "remat-dots_no_batch"],
 )
 def test_train_step_matches_jax(kw):
-    jcfg, tcfg = JaxConfig(**SMALL, **kw), Alphafold2Config(**SMALL, **kw)
+    jcfg, tcfg = JaxConfig(**{**SMALL, **kw}), Alphafold2Config(**{**SMALL, **kw})
+    _three_steps_match_jax(jcfg, tcfg, {})
+
+
+def test_train_step_schedule_and_clip_match_jax():
+    """The step with a warmup from 0 (lr 0 on the first update), cosine
+    decay to a floor, global-norm clipping that acts (every step's norm is
+    above 0.05) and weight decay, against JAX over 3 steps; the
+    tolerances of the module docstring."""
+    jcfg, tcfg = JaxConfig(**SMALL), Alphafold2Config(**SMALL)
+    sched = dict(warmup_steps=1, decay_steps=3, decay_floor=0.1, max_grad_norm=0.05,
+                 weight_decay=0.01)
+    norms = _three_steps_match_jax(jcfg, tcfg, sched)
+    assert min(norms) > 0.05
+
+
+def _three_steps_match_jax(jcfg, tcfg, sched):
+    """3 steps of 2 microbatches from the same params and batches: loss,
+    grad_norm, the first step's mean gradient (without clipping) and the
+    params after 3 steps against JAX. Returns the grad norms."""
     jparams, tparams = _params(jcfg, tcfg)
-    jt = jharness.TrainConfig(grad_accum=2)
-    tt = harness.TrainConfig(grad_accum=2)
+    jt = jharness.TrainConfig(grad_accum=2, **sched)
+    tt = harness.TrainConfig(grad_accum=2, **sched)
     fetch = jdata.synthetic_microbatch_fn(jdata.DataConfig(max_len=24, seed=3), 2)
     jstate = {"params": jparams, "opt_state": jharness.make_optimizer(jt).init(jparams),
               "step": jnp.zeros((), jnp.int32)}
@@ -179,13 +206,15 @@ def test_train_step_matches_jax(kw):
 
     jgrads = params_from_jax(jax.tree_util.tree_map(np.asarray, jax.grad(mean_loss)(jparams)),
                              tcfg, device="cpu")
+    norms = []
     for n in range(3):
         batch = fetch(n)
         jstate, jm = jstep(jstate, batch)
         tstate, tm = tstep(tstate, batch)
         assert abs(float(jm["loss"]) - float(tm["loss"])) <= 1e-5
         assert float(tm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]), rel=1e-5)
-        if n == 0:  # no clipping: the leaves hold the mean gradient
+        norms.append(float(tm["grad_norm"]))
+        if n == 0 and not tt.max_grad_norm:  # no clipping: the leaves hold the mean gradient
             for want, leaf in zip(tree_leaves(jgrads), tstate["optimizer"].leaves):
                 atol = 1e-5 * max(1.0, want.abs().max().item())
                 torch.testing.assert_close(leaf.grad, want, rtol=0, atol=atol)
@@ -194,6 +223,7 @@ def test_train_step_matches_jax(kw):
                            device="cpu")
     for w, leaf in zip(tree_leaves(want), tstate["optimizer"].leaves):
         torch.testing.assert_close(leaf.detach(), w, rtol=0, atol=1e-5)
+    return norms
 
 
 def test_remat_equals_no_remat():
@@ -219,6 +249,88 @@ def test_remat_equals_no_remat():
         assert (a is None) == (b is None)
         if a is not None:
             torch.testing.assert_close(a, b, rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("policy", ["dots", "dots_no_batch"])
+def test_remat_policy_equals_no_remat(policy):
+    """A remat_policy keeps some products through the recompute and
+    recomputes the rest: the same math, so the same loss and gradients as
+    no remat, bit for bit (dropout on, an MSA stream, so the crosses and
+    the MSA passes run too)."""
+    kw = dict(SMALL, depth=2, attn_dropout=0.1, ff_dropout=0.1)
+    batch = data.synthetic_microbatch_fn(data.DataConfig(max_len=16, msa_rows=3, seed=1), 1)(0)
+    mb = {k: v[0] for k, v in batch.items()}
+    results = []
+    for fields in (dict(), dict(remat=True, remat_policy=policy)):
+        cfg = Alphafold2Config(**kw, **fields)
+        state = harness.train_state_init(cfg, harness.TrainConfig(grad_accum=1),
+                                         torch.Generator().manual_seed(0), "cpu")
+        loss = harness.distogram_loss_fn(state["params"], cfg, mb,
+                                         torch.Generator().manual_seed(5), "cpu")
+        loss.backward()
+        results.append((loss.detach(), [p.grad.clone() for p in state["optimizer"].leaves]))
+    (l0, g0), (l1, g1) = results
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+PRODUCTS = {str(op): op for op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                                   torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)}
+
+
+class _CountProducts(TorchDispatchMode):
+    """Counts the matrix products (mm, addmm, bmm, baddbmm) dispatched
+    under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = dict.fromkeys(PRODUCTS, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if str(func) in self.counts:
+            self.counts[str(func)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("policy", [None, "dots", "dots_no_batch"])
+def test_remat_policy_saves_its_products(policy):
+    """Which products the backward recomputes under each policy: the
+    backward's products with remat less those without it, each layer
+    recomputed whole. None: every product of the trunk's forward; "dots":
+    none; "dots_no_batch": the batched ones (bmm, the attention einsums),
+    no mm or addmm (the dense layers). Counted with a TorchDispatchMode,
+    at depth 2 with an MSA."""
+    kw = dict(SMALL, depth=2)
+    batch = data.synthetic_microbatch_fn(data.DataConfig(max_len=16, msa_rows=3, seed=1), 1)(0)
+    mb = {k: v[0] for k, v in batch.items()}
+    backward = {}
+    for fields in (dict(), dict(remat=True, remat_policy=policy)):
+        cfg = Alphafold2Config(**kw, **fields)
+        state = harness.train_state_init(cfg, harness.TrainConfig(grad_accum=1),
+                                         torch.Generator().manual_seed(0), "cpu")
+        # the whole layer is recomputed (by default a recompute stops once
+        # it has what the backward needs: the last layer's MSA update is not)
+        with set_checkpoint_early_stop(False):
+            loss = harness.distogram_loss_fn(state["params"], cfg, mb, None, "cpu")
+            with _CountProducts() as mode:
+                loss.backward()
+        backward[cfg.remat] = mode.counts
+    recomputed = {k: backward[True][k] - backward[False][k] for k in PRODUCTS}
+    # the trunk's own forward products
+    cfg = Alphafold2Config(**kw)
+    params = harness.train_state_init(cfg, harness.TrainConfig(grad_accum=1),
+                                      torch.Generator().manual_seed(0), "cpu")["params"]
+    x, m, x_mask, m_mask = alphafold2_front(
+        params, cfg, torch.as_tensor(mb["seq"]).long(), torch.as_tensor(mb["msa"]).long(),
+        mask=torch.as_tensor(mb["mask"]), msa_mask=torch.as_tensor(mb["msa_mask"]))
+    with _CountProducts() as mode:
+        sequential_trunk_apply(params["trunk"], cfg, x, m, x_mask=x_mask, msa_mask=m_mask)
+    trunk = mode.counts
+    assert trunk["aten.mm.default"] > 0 and trunk["aten.bmm.default"] > 0
+    saved = {None: (), "dots": tuple(PRODUCTS),
+             "dots_no_batch": ("aten.mm.default", "aten.addmm.default")}[policy]
+    for name in PRODUCTS:
+        assert recomputed[name] == (0 if name in saved else trunk[name]), (name, recomputed)
 
 
 def test_train_step_rejects_a_wrong_microbatch_count():
