@@ -5,7 +5,8 @@ The pair representation is the outer sum of token embeddings plus an
 axial positional embedding; the MSA stream is token + column-position +
 row-position embeddings, or a projection of precomputed language-model
 embeddings (`embedds`). The head symmetrises the pair rep and projects to
-distogram buckets. The template tower is not ported yet (ROADMAP A4).
+distogram buckets. The template tower is not ported yet (ROADMAP A4): its
+weights are made, as the JAX init makes them, and stay unread.
 
 `alphafold2_apply` is differentiable (the training path); the inference
 callers run it under their own `torch.inference_mode()`.
@@ -21,7 +22,13 @@ from alphafold2_tpu_torch.device import (
     resolve_device,
 )
 from alphafold2_tpu_torch.models.config import Alphafold2Config
-from alphafold2_tpu_torch.models.trunk import sequential_trunk_apply, trunk_layer_init
+from alphafold2_tpu_torch.models.trunk import (
+    prenorm_axial_init,
+    prenorm_ff_init,
+    sequential_trunk_apply,
+    trunk_layer_init,
+)
+from alphafold2_tpu_torch.ops.attention import attention_init
 from alphafold2_tpu_torch.ops.core import (
     embedding,
     embedding_init,
@@ -32,12 +39,37 @@ from alphafold2_tpu_torch.ops.core import (
 )
 
 
+def template_tower_init(gen, cfg: Alphafold2Config, device):
+    """The template embeddings and tower (the JAX init's leaves and
+    distributions, alphafold2_tpu/models/alphafold2.py:77-99). Nothing
+    reads them until the tower is ported (ROADMAP A4); they are in the tree
+    so that a checkpoint holds the JAX package's layout."""
+    self_cfg = cfg.self_attn_config()
+    return {
+        "template_emb": embedding_init(gen, cfg.num_buckets, cfg.dim, device),
+        "template_pos_emb": embedding_init(gen, cfg.max_seq_len, cfg.dim, device),
+        "template_pos_emb_ax": embedding_init(gen, cfg.max_seq_len, cfg.dim, device),
+        "template_tower": [
+            {
+                "seq_attn": prenorm_axial_init(gen, cfg, self_cfg, device),
+                "template_attn": prenorm_axial_init(gen, cfg, self_cfg, device),
+                "joint_attn": {"norm": layer_norm_init(cfg.dim, device),
+                               "attn": attention_init(gen, self_cfg, device)},
+                "template_ff": prenorm_ff_init(gen, cfg, device),
+            }
+            for _ in range(cfg.template_attn_depth)
+        ],
+    }
+
+
 def alphafold2_init(cfg: Alphafold2Config, generator: torch.Generator, device):
     """The port's own parameter init (the JAX init's distributions; the
     numbers differ, as a torch.Generator is not a JAX key). `generator` is
-    a CPU generator; the tensors are moved to `device`."""
+    a CPU generator; the tensors are moved to `device`. The template
+    leaves are drawn last, so the others keep the numbers they had before
+    the template leaves were added."""
     gen, dev = generator, resolve_device(device)
-    return {
+    params = {
         "token_emb": embedding_init(gen, cfg.num_tokens, cfg.dim, dev),
         "pos_emb": embedding_init(gen, cfg.max_seq_len, cfg.dim, dev),
         "pos_emb_ax": embedding_init(gen, cfg.max_seq_len, cfg.dim, dev),
@@ -48,6 +80,8 @@ def alphafold2_init(cfg: Alphafold2Config, generator: torch.Generator, device):
         "head_out": linear_init(gen, cfg.dim, cfg.num_buckets, dev),
         "trunk": [trunk_layer_init(gen, cfg, dev) for _ in range(cfg.depth)],
     }
+    params.update(template_tower_init(gen, cfg, dev))
+    return params
 
 
 def alphafold2_front(params, cfg: Alphafold2Config, seq, msa=None, *,

@@ -7,11 +7,16 @@ Usage:
   python -m alphafold2_tpu_torch.predict --seq ... --device cpu
   python -m alphafold2_tpu_torch.predict --seq ... --bf16 --weight-dtype int8
   python -m alphafold2_tpu_torch.predict --seq ... --sp-shards 4
+  python -m alphafold2_tpu_torch.predict --seq ... --ckpt-dir runs/pre --depth 1 \
+      --max-seq-len 2048 --bf16
 
-Parameters come from `--seed` through the port's own init; restoring a
-JAX checkpoint waits for the checkpoint port. `--weight-dtype int8` serves
-them through `serving/quant_residency.py resident_params`, as the JAX
-serving engine does. Runs on the GPU unless
+Parameters come from `--ckpt-dir` (the newest verified checkpoint there,
+`training/checkpoint.py`, written by either package's `train_pre`; the
+model flags must match the run that wrote it, `--max-seq-len 2048` for
+`train_pre`'s tables), or else from `--seed` through the port's own init.
+A checkpoint holds f32 master weights: `--weight-dtype int8` quantizes
+them as it serves them, through `serving/quant_residency.py
+resident_params`, as the JAX serving engine does. Runs on the GPU unless
 `--device cpu` is given; float32 matmuls and convolutions run in full
 float32 there (TF32 off). `--sp-shards N` runs the trunk sequence-parallel
 (parallel/sp_trunk.py alphafold2_apply_sp) over N distinct cards, so it
@@ -22,6 +27,7 @@ shards run on the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 
 import numpy as np
@@ -35,6 +41,7 @@ from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.parallel import alphafold2_apply_sp, make_mesh
 from alphafold2_tpu_torch.serving.pipeline import predict_structure
 from alphafold2_tpu_torch.serving.quant_residency import resident_params
+from alphafold2_tpu_torch.training.checkpoint import restore_params_for_inference
 
 
 def main(argv=None):
@@ -58,6 +65,7 @@ def main(argv=None):
     ap.add_argument("--weight-dtype", choices=("f32", "int8"), default="f32",
                     help="int8: serve per-channel int8 trunk weights (post-training "
                          "quantization of the f32 weights, the int8 matmul kernel)")
+    ap.add_argument("--ckpt-dir", default=None, help="restore trained params")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the parameter init and the random MDS init")
     ap.add_argument("--max-seq-len", type=int, default=None,
@@ -107,7 +115,12 @@ def main(argv=None):
         weight_dtype=args.weight_dtype,
     )
     gen = torch.Generator().manual_seed(args.seed)
-    params, residency = resident_params(alphafold2_init(cfg, gen, device), cfg)
+    # checkpoints hold f32 masters: restore against the f32 twin of the
+    # config, then quantize as the weights are served
+    restore_cfg = dataclasses.replace(cfg, weight_dtype="f32")
+    params, _, _ = restore_params_for_inference(
+        args.ckpt_dir, lambda: alphafold2_init(restore_cfg, gen, device))
+    params, residency = resident_params(params, cfg)
     print(f"weights: {residency['weight_dtype']}, {residency['weight_bytes']:,} bytes "
           f"resident ({residency['fp32_weight_bytes']:,} in f32)")
     out = predict_structure(

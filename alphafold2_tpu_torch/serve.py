@@ -12,9 +12,14 @@ Usage:
   python -m alphafold2_tpu_torch.serve --demo 24 --buckets 16,32 --max-batch 4 \\
       --mds-iters 8 --dim 16 --depth 1 --heads 2 --dim-head 8 --device cpu
 
-Parameters come from `--seed` through the port's own init (checkpoints
-wait for ROADMAP A12). Runs on the GPU, each (bucket, batch shape) a
-captured CUDA graph pair, unless `--device cpu` is given. The fleet tier
+Parameters come from `--ckpt-dir` (the newest verified checkpoint there,
+`training/checkpoint.py`; the model flags must match the run that wrote
+it), or else from `--seed` through the port's own init. A restore is
+against the f32 twin of the config (checkpoints hold f32 masters; int8
+quantizes them at build), and the engine's `params_tag` becomes
+`<ckpt-dir>@step<N>`, so two checkpoints never share cached results.
+Runs on the GPU, each (bucket, batch shape) a captured CUDA graph pair,
+unless `--device cpu` is given. The fleet tier
 (`--replicas` > 1) and chaos plans (`--fault-plan`) are not ported yet
 (ROADMAP A11b) and are refused.
 """
@@ -22,6 +27,7 @@ captured CUDA graph pair, unless `--device cpu` is given. The fleet tier
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import random
@@ -41,6 +47,7 @@ from alphafold2_tpu_torch.serving.errors import (
     RequestTimeoutError,
     ServingError,
 )
+from alphafold2_tpu_torch.training.checkpoint import restore_params_for_inference
 
 
 def read_fasta(path):
@@ -109,6 +116,10 @@ def main(argv=None):
     ap.add_argument("--mds-iters", type=int, default=32)
     ap.add_argument("--passes", type=int, default=1,
                     help="replay the stream this many times (later passes hit the cache)")
+    ap.add_argument("--ckpt-dir", default=None, help="restore trained params")
+    ap.add_argument("--max-seq-len", type=int, default=None,
+                    help="positional-table size (default: the largest bucket, min 64; "
+                         "2048 for a train_pre checkpoint)")
     ap.add_argument("--seed", type=int, default=0, help="seeds the parameters and --demo")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' to run there)")
@@ -128,13 +139,21 @@ def main(argv=None):
                else read_fasta(args.fasta))
     print(f"{len(records)} request(s), bucket ladder {buckets}")
     cfg = Alphafold2Config(dim=args.dim, depth=args.depth, heads=args.heads,
-                           dim_head=args.dim_head, max_seq_len=max(64, buckets[-1]),
+                           dim_head=args.dim_head,
+                           max_seq_len=args.max_seq_len or max(64, buckets[-1]),
                            dtype=torch.bfloat16 if args.bf16 else torch.float32,
                            weight_dtype=args.weight_dtype)
+    restore_cfg = dataclasses.replace(cfg, weight_dtype="f32")
+    params, step, _ = restore_params_for_inference(
+        args.ckpt_dir,
+        lambda: alphafold2_init(restore_cfg, torch.Generator().manual_seed(args.seed),
+                                args.device))
+    # the cache's fingerprint: two checkpoints never share result entries
+    params_tag = f"{args.ckpt_dir}@step{step}" if args.ckpt_dir else ""
     engine = ServingEngine(
-        alphafold2_init(cfg, torch.Generator().manual_seed(args.seed), args.device), cfg,
+        params, cfg,
         ServingConfig(buckets=buckets, max_batch=args.max_batch, batch_ladder=args.batch_ladder,
-                      mds_iters=args.mds_iters),
+                      mds_iters=args.mds_iters, params_tag=params_tag),
         device=args.device)
     print(f"engine on {engine.device}; weights {engine.stats()['weights']['weight_dtype']}")
 

@@ -1,16 +1,20 @@
-"""Synthetic protein batches with static shapes (a copy of the numpy-only
-part of alphafold2_tpu/training/data.py: for a seed they give the same
-arrays as the JAX package's).
+"""Synthetic protein batches with static shapes, and the retrying wrapper
+around a batch source (a copy of the numpy-only part of
+alphafold2_tpu/training/data.py: for a seed the batches are the JAX
+package's arrays).
 
 Protein-like C-alpha traces (fixed-step random walk, ~3.8 A bond length),
 so training runs without a dataset. Batch `i` is a pure function of
-(seed, i).
+(seed, i). `ResilientBatches` retries a failed fetch and skips a record
+that keeps failing; a retry refetches the same step, so recovery stays
+bit-exact.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+import time
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -71,3 +75,66 @@ def synthetic_microbatch_fn(cfg: DataConfig, grad_accum: int):
         return {k: np.stack([m[k] for m in mbs]) for k in mbs[0]}
 
     return fetch
+
+
+class ResilientBatches:
+    """Retrying/skipping wrapper over a step-indexed fetch (`fetch(step)`,
+    e.g. `synthetic_microbatch_fn`), itself such a fetch: a failed fetch
+    is retried with bounded exponential backoff, fetching the same step
+    again, and a record that keeps failing is skipped (counted, reported)
+    instead of ending the run. The chaos hook
+    (`injector.before_batch(index)`) fires before each underlying fetch,
+    so an injected transient error consumes no record. (The JAX package's
+    class also wraps an iterator; the port's sources are step-indexed.)"""
+
+    def __init__(self, source, *, max_retries: int = 2, backoff_s: float = 0.05,
+                 max_backoff_s: float = 2.0, injector=None, max_skipped: Optional[int] = None):
+        if not callable(source):
+            raise TypeError("ResilientBatches wraps a step-indexed fetch(step)")
+        self._fn = source
+        self.max_retries = max_retries
+        self.backoff_s = backoff_s
+        self.max_backoff_s = max_backoff_s
+        self._injector = injector
+        self.max_skipped = max_skipped
+        self.skipped = 0      # records abandoned after retries
+        self.retries = 0      # retry attempts
+        self._index = 0       # fetch index (the chaos hook's clock)
+
+    def _attempt(self, step: Optional[int]):
+        index = self._index
+        self._index += 1
+        if self._injector is not None:
+            self._injector.before_batch(index)
+        return self._fn(step if step is not None else index)
+
+    def __call__(self, step: int):
+        while True:  # a skip moves on to the next record
+            for attempt in range(self.max_retries + 1):
+                try:
+                    return self._attempt(step)
+                except Exception as e:
+                    if attempt < self.max_retries:
+                        self.retries += 1
+                        delay = min(self.backoff_s * (2 ** attempt), self.max_backoff_s)
+                        if delay > 0:
+                            time.sleep(delay)
+                        continue
+                    self.skipped += 1
+                    print(f"data: record at fetch index {self._index - 1} failed "
+                          f"{attempt + 1} attempts ({type(e).__name__}: {e}) — skipped "
+                          f"({self.skipped} total)")
+                    if self.max_skipped is not None and self.skipped > self.max_skipped:
+                        raise RuntimeError(
+                            f"data pipeline skipped {self.skipped} records "
+                            f"(> max_skipped={self.max_skipped}); the source is broken, "
+                            f"not flaky") from e
+            # skipped: the step's batch is lost, so the next fetch index's
+            # batch serves it (logged above, counted in skipped)
+            step = None
+
+
+def resilient_batches(source, **kwargs) -> ResilientBatches:
+    """`ResilientBatches(source, **kwargs)`, the data pipeline's hook point
+    (reliability/faults.py)."""
+    return ResilientBatches(source, **kwargs)

@@ -26,8 +26,9 @@ a CUDA graph, the counterpart of the jit:
     function, computed in double on the host);
   * the batch is copied to the device once a step, before the loop.
 
-Not ported: the multi-device accumulation step (ROADMAP A13), fault
-injection and checkpointing (A12).
+`with_fault_injection` wraps a step with the chaos hooks; checkpoints
+and recovery are `training/checkpoint.py` and `training/resilience.py`.
+Not ported: the multi-device accumulation step (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -117,6 +118,33 @@ class ClippedAdamW:
             self.leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=tcfg.weight_decay, capturable=capturable,
         )
+
+    def init_state(self) -> None:
+        """Make AdamW's per-leaf state (step 0, zero moments) where it has
+        not made it yet, as its first step would: a restore or a rollback
+        then copies into tensors that exist."""
+        for group in self.adamw.param_groups:
+            for p in group["params"]:
+                st = self.adamw.state[p]
+                if st:
+                    continue
+                if group["capturable"]:
+                    st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                else:
+                    st["step"] = torch.tensor(0.0, dtype=torch.float32)
+                st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+    def state_tensors(self) -> list:
+        """Every tensor a step updates in place: the leaves, then each
+        leaf's AdamW step, exp_avg and exp_avg_sq (made first where
+        missing)."""
+        self.init_state()
+        out = list(self.leaves)
+        for p in self.leaves:
+            st = self.adamw.state[p]
+            out += [st["step"], st["exp_avg"], st["exp_avg_sq"]]
+        return out
 
     def set_lr(self, count: int) -> None:
         """lr = schedule(count): filled into the device tensor on the card
@@ -257,6 +285,24 @@ def make_train_step(cfg: Alphafold2Config, tcfg: TrainConfig,
         return state, {"loss": loss, "grad_norm": grad_norm}
 
     return train_step
+
+
+def with_fault_injection(step_fn, injector):
+    """Wrap a step function with the chaos hooks (reliability/faults.py),
+    host-side around the step: before it the injector may raise
+    (step_exception) or trip a preemption; after it a nan_grads fault
+    poisons the reported metrics, which `StepGuard` must roll back.
+    `injector=None` returns `step_fn` unchanged."""
+    if injector is None:
+        return step_fn
+
+    def wrapped(state, batch, rng=None):
+        step = int(state["step"])
+        batch = injector.before_train_step(step, batch)
+        new_state, metrics = step_fn(state, batch, rng)
+        return injector.after_train_step(step, new_state, metrics)
+
+    return wrapped
 
 
 def add_train_args(ap):

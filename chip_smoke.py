@@ -127,6 +127,25 @@ each phase prints its seconds):
          shard's keys masked, card against CPU, in f32 and in bf16 (every
          hop's dq and dkv on the wgmma route): B3's backward;
      (d) (b) over distinct cards when the host has two or more;
+  9. checkpoints and recovery (`training/checkpoint.py`,
+     `training/resilience.py`) at train_pre's defaults (bf16, crop 128,
+     accum 16), captured; each against the uninterrupted captured run bit
+     for bit (loss, grad_norm, every param and AdamW moment and count),
+     with no capture redone:
+     (a) 6 steps saved at 2 and 4 (the checkpoint's bytes, save ms); a
+         fresh state restored from step 2 through `open_or_init` (restore
+         ms), then captured, runs steps 2-3;
+     (b) `nan_grads` at step 2 rolled back by the guard's device snapshot;
+         the guard's cost: step ms with and without it (CUDA events,
+         median of 5, in turns) and the launches a guarded step issues;
+     (c) `step_exception` at step 3 (max_restarts 1): restored from step 2
+         into the live graph's tensors; step 4's file truncated and
+         `step_exception` at 5: the restore falls back to step 2;
+     (d) the restored step-4 params served by the engine (captured, L =
+         128 and 256) bit for bit `predict_structure` on the params in
+         memory, and in float32 card against CPU (phase 4's tolerances);
+     its launches (the flash forward and both backward kernels, in the
+     wrappers' counts and the replays') read just after;
   5. a `kernels` JSON line (thirteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, B3's forward and its two backward kernels), the card line,
@@ -137,10 +156,13 @@ A detailed record goes to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -181,14 +203,22 @@ from alphafold2_tpu_torch.serving.executable import (  # noqa: E402
     CapturedExecutable,
     GraphPool,
 )
+from alphafold2_tpu_torch.reliability.faults import Fault, FaultPlan  # noqa: E402
 from alphafold2_tpu_torch.serving.quant_residency import resident_params  # noqa: E402
+from alphafold2_tpu_torch.training.checkpoint import (  # noqa: E402
+    VerifiedCheckpointManager,
+    open_or_init,
+    restore_params_for_inference,
+)
 from alphafold2_tpu_torch.training.data import DataConfig, synthetic_microbatch_fn  # noqa: E402
 from alphafold2_tpu_torch.training.executable import CapturedTrainStep  # noqa: E402
 from alphafold2_tpu_torch.training.harness import (  # noqa: E402
     TrainConfig,
     make_train_step,
     train_state_init,
+    with_fault_injection,
 )
+from alphafold2_tpu_torch.training.resilience import StepGuard, run_resilient  # noqa: E402
 from alphafold2_tpu_torch.utils.flops import train_step_flops  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
@@ -1346,18 +1376,19 @@ def pairwise(c):
     return torch.cdist(c, c)
 
 
-def cpu_vs_card(label, cfg, L, expect):
+def cpu_vs_card(label, cfg, L, expect, params=None):
     """One request at length L in float32 on the card and on the CPU with
     the same parameters (each side's tree through `resident_params`, so an
-    int8 config quantizes on its own device, bit-equal). Tolerance: logits
+    int8 config quantizes on its own device, bit-equal): seeded, or the
+    `params` pair (CPU tree, card tree) given. Tolerance: logits
     1e-4 (float32 kernels vs CPU matmuls in another summation order);
     confidence 1e-5; distances 1e-2 A and stress 1e-3 relative (200
     Guttman steps carry the logits' float noise). `expect`: the card's
     kernel launches (every other kernel 0)."""
-    params_cpu = resident_params(alphafold2_init(cfg, torch.Generator().manual_seed(0), "cpu"),
-                                 cfg)[0]
-    params_gpu = resident_params(alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda"),
-                                 cfg)[0]
+    if params is None:
+        params = tuple(alphafold2_init(cfg, torch.Generator().manual_seed(0), dev)
+                       for dev in ("cpu", "cuda"))
+    params_cpu, params_gpu = (resident_params(p, cfg)[0] for p in params)
     tokens, msa, msa_mask = request_inputs(L, 20, seed=1)
     kw = dict(msa=msa, msa_mask=msa_mask, mds_iters=200)
     reset_launches()
@@ -1795,10 +1826,12 @@ def phase_engine_timing(reps=5):
 
 # --- phase 6: the training path ---------------------------------------------------
 
-# leaves the sequence-only distogram path does not read: the MSA stream's
-# and the embedding projection's (their gradient is exactly 0, as in JAX)
+# leaves the sequence-only distogram path does not read: the MSA stream's,
+# the embedding projection's and the template tower's (their gradient is
+# exactly 0, as in JAX)
 UNREAD_ON_SEQUENCE_PATH = ("msa_pos_emb", "msa_num_pos_emb", "embedd_project",
-                           "msa_attn", "seq_cross", "msa_cross", "msa_ff")
+                           "msa_attn", "seq_cross", "msa_cross", "msa_ff", "template_emb",
+                           "template_pos_emb", "template_pos_emb_ax", "template_tower")
 
 
 def named_leaves(tree, prefix=""):
@@ -2486,6 +2519,259 @@ def phase_sp():
     return {k: launches[k] for k in ("flash_fwd_lse", "flash_bwd_lse_dq", "flash_bwd_lse_dkv")}
 
 
+# --- phase 9: checkpoints and recovery ---------------------------------------------
+
+CKPT_WORK = ROOT / "build" / "phase9"  # checkpoints of the run, removed at its end
+CKPT_BUCKETS = (128, 256)
+
+
+def device_copy(state):
+    """(update count, a device clone of every tensor a step updates)."""
+    with torch.no_grad():
+        return state["step"], [t.detach().clone()
+                               for t in state["optimizer"].state_tensors()]
+
+
+def equals(state, ref):
+    """The state bit for bit the reference `device_copy`."""
+    step, tensors = ref
+    live = state["optimizer"].state_tensors()
+    return (state["step"] == step and len(live) == len(tensors)
+            and all(torch.equal(a, b) for a, b in zip(live, tensors)))
+
+
+def fresh_captured(cfg, tcfg, batch):
+    """A new seeded train state on the card and its captured step."""
+    state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    return state, CapturedTrainStep(cfg, tcfg, state, batch)
+
+
+def quiet(fn, *args, **kwargs):
+    """fn's result and the lines it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue().strip().splitlines()
+
+
+def phase_ckpt():
+    """9: checkpoints and recovery at train_pre's defaults (bf16, dim 256,
+    depth 1, heads 8, dim_head 64, crop 128, batch 1, accum 16), captured,
+    as train_pre runs on the card; counts set to 0 just before, read just
+    after (wrapper launches: the warm-ups and captures; the replays'
+    launches from each capture). Every comparison is bit for bit against
+    the uninterrupted captured run (loss, grad_norm, every param and AdamW
+    moment and count); no capture happens again in a run.
+    (a) the uninterrupted run of 6 steps, saved at steps 2 and 4 (save ms,
+        the checkpoint's bytes); a fresh state restored from step 2 through
+        `open_or_init` (restore ms, a fresh manager's verified restore),
+        then captured, runs steps 2 and 3: equal at step 4;
+    (b) `nan_grads` at step 2 under `run_resilient`: rolled back by the
+        guard's device snapshot, equal at step 4; the guard's cost: step ms
+        with and without it (CUDA events, median of 5, arms in turns) and
+        the launches a guarded and a plain step issue (torch.profiler);
+    (c) `step_exception` at step 3, max_restarts 1, saved every 2 steps:
+        restored from step 2 into the live graph's tensors (their addresses
+        kept), equal at step 4; `ckpt_corrupt` truncating step 4's file and
+        `step_exception` at step 5: the restore falls back to step 2, equal
+        at step 6;
+    (d) the step-4 params restored by `restore_params_for_inference` served
+        by `ServingEngine` (buckets 128 and 256, batch 1, 200 MDS
+        iterations, captured): each result bit for bit `predict_structure`
+        on the params the resumed run holds in memory; then (its launches
+        read first) the same weights in float32 on the card against the
+        CPU at L = 128 with a 20-row MSA, phase 4's tolerances."""
+    cfg, tcfg = train_pre_config(), TrainConfig(grad_accum=16)
+    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=128, seed=13), 16)
+    shutil.rmtree(CKPT_WORK, ignore_errors=True)
+    CKPT_WORK.mkdir(parents=True)
+    rec, ok = {}, {}
+    sync()
+    reset_launches()
+    steps_run = []  # every CapturedTrainStep of the phase
+
+    # (a) the uninterrupted run, then a resume from step 2
+    ref_state, ref_step = fresh_captured(cfg, tcfg, fetch(0))
+    steps_run.append(ref_step)
+    mgr_a = VerifiedCheckpointManager(str(CKPT_WORK / "a"))
+    ref_metrics, refs, save_ms = [], {}, []
+    for n in range(6):
+        _, m = ref_step(ref_state, fetch(n))
+        ref_metrics.append(m)
+        if ref_state["step"] in (2, 4):
+            sync()
+            t0 = time.perf_counter()
+            mgr_a.save(ref_state)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            refs[ref_state["step"]] = device_copy(ref_state)
+    refs[6] = device_copy(ref_state)
+    npz = Path(mgr_a._state_path(2))
+    rec["ckpt_bytes"] = npz.stat().st_size
+    rec["manifest_bytes"] = Path(mgr_a._manifest_path(2)).stat().st_size
+    rec["save_ms"] = save_ms
+    resume_dir = CKPT_WORK / "resume"
+    resume_dir.mkdir()
+    for src in (npz, Path(mgr_a._manifest_path(2))):
+        shutil.copy(src, resume_dir / src.name)
+    (mgr_b, state_b, resumed), _ = quiet(open_or_init, str(resume_dir), train_state_init, cfg,
+                                         tcfg, torch.Generator().manual_seed(1), "cuda")
+    restore_ms = []
+    for _ in range(3):  # a fresh manager each time: the sha256 check included
+        sync()
+        t0 = time.perf_counter()
+        VerifiedCheckpointManager(str(resume_dir)).restore(into=state_b, step=2)
+        sync()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+    rec["restore_ms"] = restore_ms
+    cap_b = CapturedTrainStep(cfg, tcfg, state_b, fetch(2))
+    steps_run.append(cap_b)
+    metrics_b = [cap_b(state_b, fetch(n))[1] for n in (2, 3)]
+    same_metrics = all(torch.equal(m[k], ref_metrics[n][k]) for m, n in zip(metrics_b, (2, 3))
+                       for k in ("loss", "grad_norm"))
+    ok["a"] = resumed and same_metrics and equals(state_b, refs[4])
+    log(f"[ckpt a] checkpoint {rec['ckpt_bytes']:,} bytes (+ manifest "
+        f"{rec['manifest_bytes']:,}), save {', '.join(f'{t:.1f}' for t in save_ms)} ms, "
+        f"restore {', '.join(f'{t:.1f}' for t in restore_ms)} ms; resumed from step 2 "
+        f"through open_or_init, then captured: steps 2-3 loss and grad_norm bit-equal "
+        f"{same_metrics}, state at step 4 bit-equal {equals(state_b, refs[4])} "
+        f"{'ok' if ok['a'] else 'FAIL'}")
+
+    # (b) NaN rollback under the guard, then the guard's cost
+    state_g, cap_g = fresh_captured(cfg, tcfg, fetch(0))
+    steps_run.append(cap_g)
+    graph = next(iter(cap_g.captures.values())).graph
+    inj = FaultPlan(faults=(Fault("nan_grads", at=2),)).injector()
+    _, out_b = quiet(run_resilient, with_fault_injection(cap_g, inj), state_g, fetch, steps=4)
+    capture = next(iter(cap_g.captures.values()))
+    equal_b, replays_b = equals(state_g, refs[4]), capture.replays
+    ok["b"] = (inj.exhausted() and len(cap_g.captures) == 1 and capture.graph is graph
+               and replays_b == 5 and equal_b)
+    guard = StepGuard(state_g)
+    batch = fetch(4)
+
+    def plain():
+        return cap_g(state_g, batch)
+
+    def guarded():
+        return guard.check(*cap_g(state_g, batch))
+
+    arms = {"plain": plain, "guarded": guarded}
+    ms = {"plain": [], "guarded": []}
+    for order in [("plain", "guarded"), ("guarded", "plain")] * 3:
+        for name in order:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            arms[name]()
+            end.record()
+            sync()
+            ms[name].append(start.elapsed_time(end))
+    prof = {name: profile_request(fn) for name, fn in arms.items()}
+    snapshot = state_g["optimizer"].state_tensors()  # what the guard copies
+    snap_bytes = sum(t.numel() * t.element_size() for t in snapshot)
+    rec["guard"] = {"step_ms": {k: v[:5] for k, v in ms.items()},
+                    "median_ms": {k: sorted(v[:5])[2] for k, v in ms.items()},
+                    "profile": prof, "snapshot_bytes": snap_bytes,
+                    "snapshot_tensors": len(snapshot), "run_output": out_b}
+    g = rec["guard"]
+    log(f"[ckpt b] nan_grads at step 2 rolled back ({' | '.join(out_b)}): state at step 4 "
+        f"bit-equal {equal_b}, captures {len(cap_g.captures)} (the same graph), replays "
+        f"{replays_b}; guard: step {g['median_ms']['guarded']:.2f} ms "
+        f"against {g['median_ms']['plain']:.2f} without (median of 5, in turns), host "
+        f"launches {prof['guarded']['kernel_launches']} kernels + "
+        f"{prof['guarded']['graph_launches']} graph, {prof['guarded']['copies']} copies "
+        f"against {prof['plain']['kernel_launches']} + {prof['plain']['graph_launches']}, "
+        f"{prof['plain']['copies']}; snapshot {snap_bytes:,} bytes in {len(snapshot)} "
+        f"tensors {'ok' if ok['b'] else 'FAIL'}")
+
+    # (c) restarts in place: from the step-2 checkpoint, then past a torn step 4
+    results_c = []
+    for label, faults, steps, want in (
+            ("step_exception at 3", (Fault("step_exception", at=3),), 4, 4),
+            ("step 4 torn, step_exception at 5",
+             (Fault("ckpt_corrupt", at=4, mode="truncate"), Fault("step_exception", at=5)),
+             6, 6)):
+        state_c, cap_c = fresh_captured(cfg, tcfg, fetch(0))
+        steps_run.append(cap_c)
+        ptrs = [t.data_ptr() for t in state_c["optimizer"].state_tensors()]
+        inj = FaultPlan(faults=faults).injector()
+        mgr_c = VerifiedCheckpointManager(str(CKPT_WORK / f"c{len(results_c)}"),
+                                          save_interval_steps=2,
+                                          fault_hook=inj.checkpoint_hook())
+        _, out_c = quiet(run_resilient, with_fault_injection(cap_c, inj), state_c, fetch,
+                         steps=steps, mgr=mgr_c, max_restarts=1)
+        kept = [t.data_ptr() for t in state_c["optimizer"].state_tensors()] == ptrs
+        good = (inj.exhausted() and len(cap_c.captures) == 1 and kept
+                and any("from checkpoint step 2" in line for line in out_c)
+                and equals(state_c, refs[want]))
+        results_c.append({"label": label, "output": out_c, "addresses_kept": kept, "ok": good})
+        log(f"[ckpt c] {label}: {' | '.join(out_c)}; addresses kept {kept}, captures "
+            f"{len(cap_c.captures)}, state at step {want} bit-equal "
+            f"{equals(state_c, refs[want])} {'ok' if good else 'FAIL'}")
+        del state_c, cap_c
+    ok["c"] = all(r["ok"] for r in results_c)
+    rec["restarts"] = results_c
+    train_replayed = {}
+    for st in steps_run:
+        for k, n in st.replayed_launches().items():
+            train_replayed[k] = train_replayed.get(k, 0) + n
+    del cap_g, state_g, guard, arms
+
+    # (d) serving the restored params
+    ckpt_dir = str(CKPT_WORK / "a")
+    (params_r, step_r, _), _ = quiet(restore_params_for_inference, ckpt_dir, lambda: alphafold2_init(
+        cfg, torch.Generator().manual_seed(2), "cuda"))
+    engine = ServingEngine(params_r, cfg, ServingConfig(
+        buckets=CKPT_BUCKETS, max_batch=1, mds_iters=200, request_timeout_s=600.0,
+        precompile=True, params_tag=f"{ckpt_dir}@step{step_r}"), device="cuda")
+    rng = np.random.default_rng(14)
+    served = []
+    try:
+        for L in CKPT_BUCKETS:
+            tokens = rng.integers(0, 20, L)
+            res = engine.predict("".join(AA_ORDER[t] for t in tokens), timeout=600)
+            padded, mask, _ = pad_batch([tokens], L, 1)
+            with torch.inference_mode():
+                ref = predict_structure(state_b["params"], cfg, padded, mask=mask,
+                                        mds_iters=200, device="cuda")
+            equal = (np.array_equal(res.coords, ref["coords"][0, :L].cpu().numpy())
+                     and np.array_equal(res.confidence, ref["confidence"][0, :L].cpu().numpy())
+                     and res.stress == float(ref["stress"][0]))
+            served.append({"L": L, "bit_equal": equal, "stress": res.stress,
+                           "finite": bool(np.isfinite(res.coords).all())})
+        engine_stats = engine.stats()
+    finally:
+        engine.shutdown()
+    sync()
+    launches = launch_counts()  # before (d)'s CPU comparison, which sets them to 0
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    (params_cpu, _, _), _ = quiet(restore_params_for_inference, ckpt_dir, lambda: alphafold2_init(
+        f32, torch.Generator().manual_seed(2), "cpu"))
+    cpu_vs_card("ckpt d", f32, 128, {"flash_fwd": 6, "flash_fwd_f32": 6},
+                params=(params_cpu, params_r))
+    ok["d"] = step_r == 4 and all(r["bit_equal"] and r["finite"] for r in served)
+    log(f"[ckpt d] restored step {step_r} served through the engine (captured, params_tag "
+        f"'{engine.cfg.params_tag}'): bit-equal to predict_structure on the params in memory "
+        f"{[(r['L'], r['bit_equal']) for r in served]}; captures "
+        f"{len(engine_stats['captures'])} {'ok' if ok['d'] else 'FAIL'}")
+    rec["served"] = served
+
+    serve_replayed = engine_stats["launches"]
+    rec.update(wrapper_launches=launches, train_replayed_launches=train_replayed,
+               serve_replayed_launches=serve_replayed, ok=ok)
+    RECORD["phases"]["ckpt"] = rec
+    shutil.rmtree(CKPT_WORK, ignore_errors=True)
+    path = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    missing = [k for k in path if not launches.get(k)]
+    log(f"[ckpt] wrapper launches {dict((k, n) for k, n in launches.items() if n)}; replayed: "
+        f"training {dict((k, n) for k, n in train_replayed.items() if n)}, serving "
+        f"{dict((k, n) for k, n in serve_replayed.items() if n)}")
+    if not all(ok.values()):
+        fail(f"checkpoints and recovery: {', '.join(k for k, v in ok.items() if not v)} "
+             f"failed (phase 9)")
+    if missing or not train_replayed.get("flash_bwd_dq") or not serve_replayed.get("flash_fwd"):
+        fail(f"phase 9 did not launch {missing or 'its replayed kernels'}")
+
+
 # --- phase 5: the kernels line -----------------------------------------------------
 
 
@@ -2652,6 +2938,7 @@ def main():
     timed_phase("engine", phase_engine)
     launches.update(timed_phase("train", phase_train))
     launches.update(timed_phase("sp", phase_sp))
+    timed_phase("ckpt", phase_ckpt)
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches)
     for k in kernels:

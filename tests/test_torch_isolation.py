@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of
-`alphafold2_tpu_torch` loads neither JAX nor any module of the JAX
-package, `chip_smoke.py` imports neither, and the entry points (inference
-and training) refuse to run quietly on the CPU of a host without CUDA."""
+`alphafold2_tpu_torch` loads neither JAX, ml_dtypes nor any module of the
+JAX package, `chip_smoke.py` imports none of them, and the entry points
+(inference and training) refuse to run quietly on the CPU of a host
+without CUDA."""
 
 import ast
 import os
@@ -27,7 +28,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m == "ml_dtypes"
              or m == "alphafold2_tpu" or m.startswith("alphafold2_tpu."))
 print(json.dumps({"modules": names, "bad": bad}))
 """
@@ -51,7 +52,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "serving.quant_residency", "parallel", "parallel.mesh",
                  "parallel.sequence", "parallel.sp_trunk", "serve", "serving.engine",
                  "serving.executable", "serving.bucketing", "serving.cache", "serving.errors",
-                 "serving.metrics", "reliability.breaker", "telemetry.registry"):
+                 "serving.metrics", "reliability.breaker", "telemetry.registry",
+                 "training.checkpoint", "training.resilience", "reliability.faults",
+                 "reliability.preemption"):
         assert f"alphafold2_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -72,7 +75,7 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
     assert any(r.startswith("alphafold2_tpu_torch") for r in roots)
     for r in roots:
         top = r.split(".")[0]
-        assert top not in ("jax", "jaxlib", "alphafold2_tpu"), r
+        assert top not in ("jax", "jaxlib", "ml_dtypes", "alphafold2_tpu"), r
 
 
 def test_port_sources_import_neither():
@@ -83,7 +86,8 @@ def test_port_sources_import_neither():
         for f in files:
             if f.endswith(".py"):
                 for r in _imported_roots(os.path.join(dirpath, f)):
-                    assert r.split(".")[0] not in ("jax", "jaxlib", "alphafold2_tpu"), (f, r)
+                    assert r.split(".")[0] not in ("jax", "jaxlib", "ml_dtypes",
+                                                   "alphafold2_tpu"), (f, r)
 
 
 @pytest.fixture

@@ -12,8 +12,11 @@ against the eager step from the same params and batches, bit for bit on
 loss, grad_norm and every param after 3 steps (no tolerance: the same
 ops on the same buffers), with remat and a remat_policy too; a second
 batch shape gets a capture of its own; live dropout raises naming
-ROADMAP A6-dropout; train_pre on the card runs the captured step. These
-import only torch and the port, so they run on a GPU host without JAX:
+ROADMAP A6-dropout; train_pre on the card runs the captured step; a
+guarded captured run (a NaN rollback, a crash restored from a checkpoint
+into the graph's tensors) ends bit-equal to a fault-free one without a
+second capture. These import only torch and the port, so they run on a
+GPU host without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_train_capture.py -q
 """
@@ -169,3 +172,30 @@ def test_train_pre_cli_captures_on_the_card(cuda_device, capsys):
     out = capsys.readouterr().out
     assert "captured the step as a CUDA graph" in out and "done" in out
     assert state["step"] == 3 and np.isfinite(float(metrics["loss"]))
+
+
+@pytest.mark.cuda
+def test_recovery_keeps_the_captured_graph(cuda_device, tmp_path):
+    """run_resilient over the captured step with a NaN step (rolled back
+    from the guard's snapshot) and a crash (restored from the step-2
+    checkpoint into the live tensors) ends bit-equal to the fault-free
+    captured run, with one capture and the same addresses."""
+    from alphafold2_tpu_torch.reliability.faults import Fault, FaultPlan
+    from alphafold2_tpu_torch.training.checkpoint import VerifiedCheckpointManager
+    from alphafold2_tpu_torch.training.resilience import run_resilient
+
+    cfg, tt = Alphafold2Config(**CARD), harness.TrainConfig(grad_accum=2)
+    fetch = data.synthetic_microbatch_fn(data.DataConfig(max_len=64, seed=5), 2)
+    runs = []
+    for faults in ((), (Fault("nan_grads", at=1), Fault("step_exception", at=3))):
+        state = harness.train_state_init(cfg, tt, torch.Generator().manual_seed(0), "cuda")
+        captured = CapturedTrainStep(cfg, tt, state, fetch(0))
+        ptrs = [t.data_ptr() for t in state["optimizer"].state_tensors()]
+        inj = FaultPlan(faults=faults).injector()
+        mgr = VerifiedCheckpointManager(str(tmp_path / f"ck{len(runs)}"), save_interval_steps=2)
+        run_resilient(harness.with_fault_injection(captured, inj), state, fetch, steps=4,
+                      mgr=mgr, max_restarts=1)
+        assert inj.exhausted() and state["step"] == 4 and len(captured.captures) == 1
+        assert [t.data_ptr() for t in state["optimizer"].state_tensors()] == ptrs
+        runs.append(state["optimizer"].state_tensors())
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
