@@ -5,8 +5,12 @@ The pair representation is the outer sum of token embeddings plus an
 axial positional embedding; the MSA stream is token + column-position +
 row-position embeddings, or a projection of precomputed language-model
 embeddings (`embedds`). The head symmetrises the pair rep and projects to
-distogram buckets. The template tower is not ported yet (ROADMAP A4): its
-weights are made, as the JAX init makes them, and stay unread.
+distogram buckets. Templates run through a pre-trunk tower
+(`template_tower_apply`) with attention along the template axis.
+
+Reference quirks kept for parity with the JAX package: the tower's seq
+self-attention has NO residual; templates without `templates_mask` run
+unmasked.
 
 `alphafold2_apply` is differentiable (the training path); the inference
 callers run it under their own `torch.inference_mode()`.
@@ -14,8 +18,10 @@ callers run it under their own `torch.inference_mode()`.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from alphafold2_tpu_torch.constants import DISTANCE_THRESHOLDS
 from alphafold2_tpu_torch.device import (
     as_device_tensor,
     check_params_device,
@@ -23,12 +29,15 @@ from alphafold2_tpu_torch.device import (
 )
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.models.trunk import (
+    layer_generator,
+    prenorm_axial_apply,
     prenorm_axial_init,
+    prenorm_ff_apply,
     prenorm_ff_init,
     sequential_trunk_apply,
     trunk_layer_init,
 )
-from alphafold2_tpu_torch.ops.attention import attention_init
+from alphafold2_tpu_torch.ops.attention import attention_apply, attention_init
 from alphafold2_tpu_torch.ops.core import (
     embedding,
     embedding_init,
@@ -41,9 +50,7 @@ from alphafold2_tpu_torch.ops.core import (
 
 def template_tower_init(gen, cfg: Alphafold2Config, device):
     """The template embeddings and tower (the JAX init's leaves and
-    distributions, alphafold2_tpu/models/alphafold2.py:77-99). Nothing
-    reads them until the tower is ported (ROADMAP A4); they are in the tree
-    so that a checkpoint holds the JAX package's layout."""
+    distributions, alphafold2_tpu/models/alphafold2.py:77-99)."""
     self_cfg = cfg.self_attn_config()
     return {
         "template_emb": embedding_init(gen, cfg.num_buckets, cfg.dim, device),
@@ -84,10 +91,76 @@ def alphafold2_init(cfg: Alphafold2Config, generator: torch.Generator, device):
     return params
 
 
+def template_buckets(cfg: Alphafold2Config, templates):
+    """Templates as distogram-bucket ids: integer templates pass as they
+    are; float templates are raw distances in Angstroms, bucketed as the
+    JAX package buckets them (searchsorted over the thresholds but the
+    last, side left; the threshold range resampled to cfg.num_buckets
+    when that differs from the table's 37)."""
+    if not templates.dtype.is_floating_point:
+        return templates.long()
+    table = np.asarray(DISTANCE_THRESHOLDS, np.float32)
+    bins = table if cfg.num_buckets == len(table) else np.linspace(
+        table[0], table[-1], cfg.num_buckets)
+    edges = torch.as_tensor(np.asarray(bins[:-1], np.float32), device=templates.device)
+    return torch.searchsorted(edges, templates.float().contiguous())
+
+
+def template_tower_apply(params, cfg: Alphafold2Config, x, x_mask, templates,
+                          templates_mask, rng):
+    """The pre-trunk template tower (alphafold2_tpu/models/alphafold2.py
+    :116-182). x: pair rep (b, n, n, d); templates: (b, T, n, n) bucket
+    ids; templates_mask: (b, T, n, n) bool or None; rng: the CPU generator
+    of the forward (None: eval mode), from which each tower layer draws
+    one dropout seed, as each trunk layer does. Per layer: the pair rep's
+    axial self-attention (no residual, the reference quirk), the
+    templates' axial self-attention (residual), attention along the
+    template axis over [x; t_1..t_T] at each pair position (prenorm,
+    residual; masked only when both templates_mask and the pair mask are
+    given) and the templates' feed-forward (residual). Returns x."""
+    b, num_t, n, _ = templates.shape
+    d = cfg.dim
+    self_cfg = cfg.self_attn_config()
+
+    t = embedding(params["template_emb"], templates, dtype=cfg.dtype)
+    n_range = torch.arange(n, device=x.device)
+    pos = (
+        embedding(params["template_pos_emb"], n_range, dtype=cfg.dtype)[:, None, :]
+        + embedding(params["template_pos_emb_ax"], n_range, dtype=cfg.dtype)[None, :, :]
+    )
+    t = (t + pos[None, None]).reshape(b * num_t, n, n, d)
+    t_mask = None if templates_mask is None else templates_mask.reshape(b * num_t, n, n)
+    y_mask = None
+    if templates_mask is not None and x_mask is not None:
+        tm = templates_mask.reshape(b, num_t, n * n).transpose(1, 2)
+        y_mask = torch.cat([x_mask.reshape(b, n * n, 1), tm], dim=2).reshape(
+            b * n * n, num_t + 1)
+
+    for layer in params["template_tower"]:
+        gen = layer_generator(rng, x.device)
+        x = prenorm_axial_apply(layer["seq_attn"], self_cfg, x, mask=x_mask, rng=gen)
+        t = prenorm_axial_apply(layer["template_attn"], self_cfg, t, mask=t_mask,
+                                rng=gen) + t
+        # per pair position, the length-(T + 1) sequence [x; t_1..t_T]
+        t_tok = t.reshape(b, num_t, n * n, d).transpose(1, 2)
+        y = torch.cat([x.reshape(b, n * n, 1, d), t_tok], dim=2).reshape(
+            b * n * n, num_t + 1, d)
+        y = attention_apply(layer["joint_attn"]["attn"], self_cfg,
+                            layer_norm(layer["joint_attn"]["norm"], y),
+                            mask=y_mask, rng=gen) + y
+        y = y.reshape(b, n * n, num_t + 1, d)
+        x = y[:, :, 0].reshape(b, n, n, d)
+        t = y[:, :, 1:].transpose(1, 2).reshape(b * num_t, n, n, d)
+        t = prenorm_ff_apply(layer["template_ff"], cfg, t, gen) + t
+    return x
+
+
 def alphafold2_front(params, cfg: Alphafold2Config, seq, msa=None, *,
-                     mask=None, msa_mask=None, embedds=None):
-    """Everything before the trunk. Returns (x, m, x_mask, m_mask): the
-    pair grid, the MSA stream (or None) and their masks."""
+                     mask=None, msa_mask=None, embedds=None, templates=None,
+                     templates_mask=None, rng=None):
+    """Everything before the trunk: the embeddings, the MSA stream and,
+    given templates, the template tower. Returns (x, m, x_mask, m_mask):
+    the pair grid, the MSA stream (or None) and their masks."""
     b, n = seq.shape
     e = embedding(params["token_emb"], seq, dtype=cfg.dtype)
     x = e[:, :, None, :] + e[:, None, :, :]
@@ -129,6 +202,9 @@ def alphafold2_front(params, cfg: Alphafold2Config, seq, msa=None, *,
         m = p[:, :, None, :] + p[:, None, :, :]  # (b, n, n, d) grid stream
         if m_mask is None:
             m_mask = x_mask
+    if templates is not None:
+        x = template_tower_apply(params, cfg, x, x_mask,
+                                  template_buckets(cfg, templates), templates_mask, rng)
     return x, m, x_mask, m_mask
 
 
@@ -146,8 +222,11 @@ def alphafold2_apply(params, cfg: Alphafold2Config, seq, msa=None, *,
 
     seq: (b, n) int tokens; msa: (b, rows, cols) int tokens or None;
     mask: (b, n) bool; msa_mask: (b, rows, cols) bool; embedds:
-    (b, n, num_embedds) float, the MSA substitute when msa is None; rng:
-    an optional CPU generator for dropout (None: eval mode). Inputs may be
+    (b, n, num_embedds) float, the MSA substitute when msa is None;
+    templates: (b, T, n, n) distogram-bucket ints, or floats read as raw
+    distances in Angstroms (`template_buckets`); templates_mask: (b, T, n,
+    n) bool; rng: an optional CPU generator for dropout (None: eval mode;
+    the template tower's layers draw from it before the trunk's). Inputs may be
     numpy arrays or tensors; they are moved to `device` (default CUDA;
     pass device="cpu" for the CPU), where the params must lie. trunk_fn
     overrides the trunk (the sequence-parallel one,
@@ -155,10 +234,6 @@ def alphafold2_apply(params, cfg: Alphafold2Config, seq, msa=None, *,
     trunk_fn(params["trunk"], cfg, x, m, x_mask, msa_mask, rng) and
     returning (x, m). Returns distogram logits (b, n, n, num_buckets) in
     cfg.dtype."""
-    if templates is not None or templates_mask is not None:
-        raise NotImplementedError(
-            "the template tower is not ported to PyTorch yet (ROADMAP A4)"
-        )
     dev = resolve_device(device)
     check_params_device(params, dev)
     seq = as_device_tensor(seq, dev, torch.long)
@@ -166,8 +241,11 @@ def alphafold2_apply(params, cfg: Alphafold2Config, seq, msa=None, *,
     mask = as_device_tensor(mask, dev, torch.bool)
     msa_mask = as_device_tensor(msa_mask, dev, torch.bool)
     embedds = as_device_tensor(embedds, dev, torch.float32)
+    templates = as_device_tensor(templates, dev)  # int buckets or float distances
+    templates_mask = as_device_tensor(templates_mask, dev, torch.bool)
     x, m, x_mask, m_mask = alphafold2_front(
-        params, cfg, seq, msa, mask=mask, msa_mask=msa_mask, embedds=embedds
+        params, cfg, seq, msa, mask=mask, msa_mask=msa_mask, embedds=embedds,
+        templates=templates, templates_mask=templates_mask, rng=rng,
     )
     if trunk_fn is not None:
         if cfg.reversible:

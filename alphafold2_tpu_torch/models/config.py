@@ -10,6 +10,9 @@ layers' pair-axial passes block-sparse (ops/sparse.py).
 `remat` recomputes each trunk layer in the backward pass; `remat_policy`
 names the products that recompute keeps instead ("dots": every matrix
 product, "dots_no_batch": those without a batch dimension).
+`trunk_schedule="branch_parallel"` runs each layer's MSA branch on a side
+stream on CUDA (models/trunk.py `branch_parallel_layer_apply`): the same
+ops as "serial", in the same order on the CPU.
 """
 
 from __future__ import annotations
@@ -74,23 +77,20 @@ class Alphafold2Config:
                 f"remat_policy must be None, 'dots', or 'dots_no_batch', "
                 f"got {self.remat_policy!r}"
             )
-        not_ported = [
-            (self.reversible, "reversible=True (the reversible trunk, "
-             "models/reversible.py)", "A8"),
-            (self.trunk_schedule == "branch_parallel",
-             "trunk_schedule='branch_parallel'", "A4"),
-        ]
-        for active, what, item in not_ported:
-            if active:
-                raise NotImplementedError(
-                    f"{what} is not ported to PyTorch yet (ROADMAP {item})"
-                )
+        if self.reversible:
+            raise NotImplementedError(
+                "reversible=True (the reversible trunk, models/reversible.py) is "
+                "not ported to PyTorch yet (ROADMAP A8)"
+            )
         if self.cross_attn_mode not in ("flat", "aligned"):
             raise ValueError(
                 f"cross_attn_mode must be 'flat' or 'aligned', got {self.cross_attn_mode!r}"
             )
-        if self.trunk_schedule != "serial":
-            raise ValueError(f"trunk_schedule must be 'serial', got {self.trunk_schedule!r}")
+        if self.trunk_schedule not in ("serial", "branch_parallel"):
+            raise ValueError(
+                f"trunk_schedule must be 'serial' or 'branch_parallel', got "
+                f"{self.trunk_schedule!r}"
+            )
         if self.weight_dtype not in ("f32", "int8"):
             raise ValueError(f"weight_dtype must be 'f32' or 'int8', got {self.weight_dtype!r}")
         if self.attn_gate and any(self.layer_sparse):

@@ -7,11 +7,10 @@ port's parameter dicts, so both sides compute the same function;
 layouts, with one exception: the KV-compression conv weight, (k,
 in/groups, out) in JAX, is (out, in/groups, k) for
 `torch.nn.functional.conv1d` (the reverse of
-alphafold2_tpu/models/convert.py's torch -> JAX map). Weights of parts the
-port does not run yet (the template tower) are carried over unread.
-`params_from_jax` makes leaves float32, but int8 and bool leaves keep
-their type, so an int8 tree from the JAX package's `quantize_tree` maps
-over as {"qw": int8, "scale": f32}.
+alphafold2_tpu/models/convert.py's torch -> JAX map). The template
+tower's leaves map like the trunk's. `params_from_jax` makes leaves
+float32, but int8 and bool leaves keep their type, so an int8 tree from
+the JAX package's `quantize_tree` maps over as {"qw": int8, "scale": f32}.
 
 The state bridge maps the port's train state (`training/harness.py
 train_state`: the params, `ClippedAdamW`, the update count) onto the JAX

@@ -1,5 +1,4 @@
-"""The dual-track trunk (counterpart of alphafold2_tpu/models/trunk.py,
-serial schedule).
+"""The dual-track trunk (counterpart of alphafold2_tpu/models/trunk.py).
 
 Both streams keep their grid layouts — pair (b, i, j, d), MSA
 (b, rows, cols, d) — and only the cross-attention flattens. Layers flagged
@@ -7,6 +6,16 @@ in `cfg.layer_sparse` run their pair axial passes block-sparse. Per layer,
 every op residual: pair axial self-attn -> MSA axial self-attn (optionally
 tied rows) -> pair<-MSA cross-attn -> MSA<-pair cross-attn -> pair FF ->
 MSA FF. The MSA branch is skipped when there is no MSA stream.
+
+`cfg.trunk_schedule="branch_parallel"` (`branch_parallel_layer_apply`)
+runs the same ops, issued in the same order: the pair track and the MSA
+track are independent branches that meet only at the cross-attention
+exchange. On CUDA the MSA branch runs on a side stream (`side_stream`,
+one a device), forked from the current stream before each branch region
+and joined back before the exchange and at the layer's end: the CUDA
+counterpart of JAX's `schedule_join` / `schedule_fork` barriers, which
+only let XLA schedule the branches together. On the CPU the ops run in
+turn, so the schedule is the serial one there.
 
 `cfg.remat` recomputes each layer in the backward pass instead of keeping
 its activations (`torch.utils.checkpoint`, the `jax.checkpoint` of the JAX
@@ -206,6 +215,141 @@ def cross_apply_grids(params, cfg: Alphafold2Config, q_grid, ctx_grid, q_mask,
     raise ValueError(f"unknown cross direction {direction!r}")
 
 
+# --- the branch-parallel schedule ------------------------------------------
+
+_SIDE_STREAMS = {}  # CUDA device index -> the schedule's side stream
+
+
+def side_stream(device) -> "torch.cuda.Stream":
+    """The branch-parallel schedule's side stream on a CUDA device, made at
+    its first use and kept (one a device). A capture's eager warm-up
+    makes it before the capture begins."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    stream = _SIDE_STREAMS.get(index)
+    if stream is None:
+        try:
+            stream = torch.cuda.Stream(device=index)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"trunk_schedule='branch_parallel': could not make the side stream "
+                f"on cuda:{index}: {e}"
+            ) from e
+        _SIDE_STREAMS[index] = stream
+    return stream
+
+
+def _record_use(t, stream):
+    """Mark t's memory as used by `stream`, so the caching allocator does
+    not hand it out again before the stream's work so far is done (a
+    tensor autograd saved is freed during the backward pass, while the
+    other stream may still read it). Through a fresh alias of t's storage:
+    `record_stream`'s schema marks its argument as written, and t's own
+    version must not move under autograd."""
+    alias = torch.empty(0, dtype=t.dtype, device=t.device).set_(t.untyped_storage())
+    alias.record_stream(stream)
+
+
+def _fork(main, side, m):
+    """Start a branch region: the side stream waits for the work issued on
+    `main` so far, and reads m (made on main, or on side by the last
+    region)."""
+    side.wait_stream(main)
+    _record_use(m, side)
+
+
+def _join(main, side, m):
+    """End a branch region: `main` waits for the side stream, and reads m
+    (made on side)."""
+    main.wait_stream(side)
+    _record_use(m, main)
+
+
+def _layer_ops(layer, cfg: Alphafold2Config, x_mask, msa_mask, rng, sparse_fn):
+    """One trunk layer's residual ops, as functions of the streams they
+    update: (pair_attn, msa_attn, exchange, pair_ff, msa_ff). Both
+    schedules call them in this order, so each op's dropout draws from rng
+    in the same turn (rng: a generator on x's device, None: eval mode)."""
+    self_cfg = cfg.self_attn_config()
+
+    def pair_attn(x):
+        return prenorm_axial_apply(layer["seq_attn"], self_cfg, x, mask=x_mask, rng=rng,
+                                   attention_fn=sparse_fn) + x
+
+    def msa_attn(m):
+        return prenorm_axial_apply(layer["msa_attn"], self_cfg, m, mask=msa_mask,
+                                   tie_row=cfg.msa_tie_row_attn, rng=rng) + m
+
+    def exchange(x, m):
+        # msa<-pair reads the updated pair stream
+        x = cross_apply_grids(layer["seq_cross"], cfg, x, m, x_mask, msa_mask,
+                              "pair_from_msa", rng) + x
+        m = cross_apply_grids(layer["msa_cross"], cfg, m, x, msa_mask, x_mask,
+                              "msa_from_pair", rng) + m
+        return x, m
+
+    def pair_ff(x):
+        return prenorm_ff_apply(layer["seq_ff"], cfg, x, rng) + x
+
+    def msa_ff(m):
+        return prenorm_ff_apply(layer["msa_ff"], cfg, m, rng) + m
+
+    return pair_attn, msa_attn, exchange, pair_ff, msa_ff
+
+
+def _serial(ops, x, m):
+    pair_attn, msa_attn, exchange, pair_ff, msa_ff = ops
+    x = pair_attn(x)
+    if m is not None:
+        x, m = exchange(x, msa_attn(m))
+    x = pair_ff(x)
+    return x, None if m is None else msa_ff(m)
+
+
+def branch_parallel_layer_apply(layer, cfg: Alphafold2Config, x, m, *, x_mask=None,
+                                msa_mask=None, rng=None, sparse_fn=None,
+                                main_stream=None):
+    """ONE trunk layer under the branch-parallel schedule (JAX
+    `branch_parallel_layer_apply`): the serial layer's six residual ops,
+    issued in the serial order, grouped into branches:
+
+        pair branch: x += pair_self_attn(x)  |  MSA branch: m += msa_self_attn(m)
+        join; the exchange: x += cross(x, m); m += cross(m, x)
+        pair branch: x += pair_ff(x)         |  MSA branch: m += msa_ff(m)
+        join
+
+    On CUDA the pair branch runs on `main_stream` (default: the current
+    stream) and the MSA branch on `side_stream`; under a CUDA graph capture
+    the fork and join become parallel branches of the graph, and under
+    autograd each backward op runs on its forward op's stream.
+    `sequential_trunk_apply` passes the stream of the forward, so that a
+    `remat` recompute, which starts on whichever stream the backward op
+    needing it runs on, issues each branch on the stream its backward ops
+    read from. Elsewhere the ops run in turn. Needs an MSA stream (m)."""
+    ops = _layer_ops(layer, cfg, x_mask, msa_mask, rng, sparse_fn)
+    if x.device.type != "cuda":
+        return _serial(ops, x, m)
+    pair_attn, msa_attn, exchange, pair_ff, msa_ff = ops
+    main = main_stream if main_stream is not None else torch.cuda.current_stream(x.device)
+    side = side_stream(x.device)
+    if main == side:
+        raise RuntimeError("trunk_schedule='branch_parallel': the main stream is the "
+                           "side stream; the MSA branch would run on the pair branch's")
+    with torch.cuda.stream(main):
+        _fork(main, side, m)
+        x = pair_attn(x)
+        with torch.cuda.stream(side):
+            m = msa_attn(m)
+        _join(main, side, m)
+        x, m = exchange(x, m)
+        _fork(main, side, m)
+        x = pair_ff(x)
+        with torch.cuda.stream(side):
+            m = msa_ff(m)
+        _join(main, side, m)
+    return x, m
+
+
 # --- trunk layer ------------------------------------------------------------
 
 
@@ -224,28 +368,33 @@ def trunk_layer_init(gen, cfg: Alphafold2Config, device):
 
 
 def trunk_layer_apply(layer, cfg: Alphafold2Config, x, m, *, x_mask=None,
-                      msa_mask=None, rng=None, sparse_fn=None):
+                      msa_mask=None, rng=None, sparse_fn=None, main_stream=None):
     """ONE sequential trunk layer in the reference op order. rng: a
     generator on x's device that every op's dropout draws from in turn
     (None: eval mode). sparse_fn: the block-sparse inner attention of the
     pair axial passes (`make_sparse_axial_fn`), None for dense; the MSA
-    passes stay dense."""
-    self_cfg = cfg.self_attn_config()
-    x = prenorm_axial_apply(layer["seq_attn"], self_cfg, x, mask=x_mask, rng=rng,
-                            attention_fn=sparse_fn) + x
-    if m is not None:
-        m = prenorm_axial_apply(
-            layer["msa_attn"], self_cfg, m, mask=msa_mask,
-            tie_row=cfg.msa_tie_row_attn, rng=rng,
-        ) + m
-        x = cross_apply_grids(layer["seq_cross"], cfg, x, m, x_mask, msa_mask,
-                              "pair_from_msa", rng) + x
-        m = cross_apply_grids(layer["msa_cross"], cfg, m, x, msa_mask, x_mask,
-                              "msa_from_pair", rng) + m
-    x = prenorm_ff_apply(layer["seq_ff"], cfg, x, rng) + x
-    if m is not None:
-        m = prenorm_ff_apply(layer["msa_ff"], cfg, m, rng) + m
-    return x, m
+    passes stay dense. Under cfg.trunk_schedule="branch_parallel" a layer
+    with an MSA stream runs `branch_parallel_layer_apply` (main_stream is
+    its argument); a layer without one has a single track and runs
+    serially, as in JAX."""
+    if cfg.trunk_schedule == "branch_parallel" and m is not None:
+        return branch_parallel_layer_apply(layer, cfg, x, m, x_mask=x_mask,
+                                           msa_mask=msa_mask, rng=rng,
+                                           sparse_fn=sparse_fn, main_stream=main_stream)
+    return _serial(_layer_ops(layer, cfg, x_mask, msa_mask, rng, sparse_fn), x, m)
+
+
+def layer_seed(rng):
+    """One layer's dropout seed, drawn from the forward's CPU generator
+    (None when rng is None: eval mode)."""
+    return None if rng is None else int(torch.randint(2 ** 62, (), generator=rng))
+
+
+def layer_generator(rng, device):
+    """A generator on `device` seeded by `layer_seed(rng)`, which all of a
+    layer's ops draw their dropout masks from in turn (None: eval mode)."""
+    seed = layer_seed(rng)
+    return None if seed is None else torch.Generator(device).manual_seed(seed)
 
 
 def sequential_trunk_apply(layers, cfg: Alphafold2Config, x, m, *, x_mask=None,
@@ -262,14 +411,18 @@ def sequential_trunk_apply(layers, cfg: Alphafold2Config, x, m, *, x_mask=None,
     layer_sparse = cfg.layer_sparse
     sparse_fn = make_sparse_axial_fn(cfg) if any(layer_sparse) else None
     context_fn = remat_context_fn(cfg.remat_policy)
+    # the forward's stream, where a branch-parallel layer's recompute issues
+    # its pair branch (branch_parallel_layer_apply)
+    main = torch.cuda.current_stream(x.device) if x.device.type == "cuda" else None
     for index, layer in enumerate(layers):
-        seed = None if rng is None else int(torch.randint(2 ** 62, (), generator=rng))
+        seed = layer_seed(rng)
         layer_fn = sparse_fn if layer_sparse[index] else None
 
         def run(x, m, layer=layer, seed=seed, layer_fn=layer_fn):
             gen = None if seed is None else torch.Generator(x.device).manual_seed(seed)
             return trunk_layer_apply(layer, cfg, x, m, x_mask=x_mask,
-                                     msa_mask=msa_mask, rng=gen, sparse_fn=layer_fn)
+                                     msa_mask=msa_mask, rng=gen, sparse_fn=layer_fn,
+                                     main_stream=main)
 
         if cfg.remat:
             x, m = checkpoint(run, x, m, use_reentrant=False, context_fn=context_fn)

@@ -266,7 +266,13 @@ def sp_layer_apply(layer, cfg: Alphafold2Config, xs, ms, x_masks, msa_masks, mes
     """One trunk layer on resident shards (deterministic): xs per-shard
     (b, n_local, n, d) pair rows, ms per-shard (b, r_local, c, d) MSA rows
     or None; the masks per-shard lists or None. The sequential order of models/trunk.py: pair self -> MSA self
-    -> pair<-MSA cross -> MSA<-pair cross -> FFs, every op residual."""
+    -> pair<-MSA cross -> MSA<-pair cross -> FFs, every op residual.
+
+    cfg.trunk_schedule "branch_parallel" runs this same order, the JAX SP
+    layer's under both schedules (its join and fork are barriers around
+    the same ops), and no side stream: the single-controller mesh already
+    issues each shard's work in turn, and per-device streams for the
+    shards belong to the multi-process trunk (ROADMAP A13)."""
     self_cfg = cfg.self_attn_config()
     lp = mesh.replicate(layer)
     b, n_local, n, d = xs[0].shape
@@ -313,7 +319,9 @@ def msa_sharded_layer_apply(layer, cfg: Alphafold2Config, xs, ms, x_masks, msa_m
     (b, r_local, c, d). The pair-side ops run replicated (the same on every
     shard), the MSA self-attention goes through the sharded tied/transpose
     path, and both crosses run the replicated cross on the gathered (or
-    resident) MSA rows (FastFold's dynamic axial parallelism)."""
+    resident) MSA rows (FastFold's dynamic axial parallelism). Under
+    "branch_parallel" the same order and no side stream, as
+    `sp_layer_apply`."""
     self_cfg = cfg.self_attn_config()
     lp = mesh.replicate(layer)
     x_masks = _none(mesh) if x_masks is None else x_masks

@@ -7,6 +7,8 @@ Usage:
   python -m alphafold2_tpu_torch.predict --seq ... --device cpu
   python -m alphafold2_tpu_torch.predict --seq ... --bf16 --weight-dtype int8
   python -m alphafold2_tpu_torch.predict --seq ... --sp-shards 4
+  python -m alphafold2_tpu_torch.predict --seq ... --templates-file t.npz
+  python -m alphafold2_tpu_torch.predict --seq ... --embedds-file e.npz
   python -m alphafold2_tpu_torch.predict --seq ... --ckpt-dir runs/pre --depth 1 \
       --max-seq-len 2048 --bf16
 
@@ -21,7 +23,9 @@ resident_params`, as the JAX serving engine does. Runs on the GPU unless
 float32 there (TF32 off). `--sp-shards N` runs the trunk sequence-parallel
 (parallel/sp_trunk.py alphafold2_apply_sp) over N distinct cards, so it
 needs N of them, as the JAX CLI needs N devices; with `--device cpu` the N
-shards run on the CPU.
+shards run on the CPU. `--templates-file` (templates through the template
+tower) and `--embedds-file` (precomputed residue embeddings in place of
+an MSA) read the JAX CLI's .npz files and check them as it does.
 """
 
 from __future__ import annotations
@@ -44,6 +48,66 @@ from alphafold2_tpu_torch.serving.quant_residency import resident_params
 from alphafold2_tpu_torch.training.checkpoint import restore_params_for_inference
 
 
+def load_embedds(ap, args, L):
+    """--embedds-file's (1, L, num_embedds) float32 array, or None; the JAX
+    CLI's checks and messages (an argparse error)."""
+    if args.embedds_file is None:
+        return None
+    if args.msa_file is not None:
+        ap.error("--embedds-file and --msa-file are exclusive (the "
+                 "embedds path is the MSA substitute)")
+    if args.sp_shards:
+        ap.error("--embedds-file is unsupported with --sp-shards (the "
+                 "substitute stream has no row axis to shard)")
+    raw = np.load(args.embedds_file)
+    arr = raw["embedds"] if hasattr(raw, "files") else raw
+    if arr.ndim == 2:
+        arr = arr[None]
+    if arr.shape[1] != L:
+        ap.error(f"--embedds-file has {arr.shape[1]} residues; --seq has {L}")
+    embedds = np.asarray(arr, np.float32)
+    print(f"embedds: {embedds.shape[1]} residues x {embedds.shape[2]} dims from "
+          f"{args.embedds_file}")
+    return embedds
+
+
+def load_templates(ap, path, L):
+    """--templates-file's (templates, templates_mask), or (None, None): int
+    arrays are distogram buckets (checked to lie in [0, 37)), float arrays
+    raw distances the model buckets itself, so each keeps its kind; the
+    mask defaults to all-true. The JAX CLI's checks and messages (an
+    argparse error)."""
+    if path is None:
+        return None, None
+    raw = np.load(path)
+    tarr = np.asarray(raw["templates"])
+    if np.issubdtype(tarr.dtype, np.integer):
+        if tarr.min() < 0 or tarr.max() >= 37:
+            ap.error(f"--templates-file int buckets must be in [0, 37); "
+                     f"got range [{tarr.min()}, {tarr.max()}] — pass "
+                     f"float distances to have the model bin them")
+        templates = tarr.astype(np.int32)
+    else:
+        templates = tarr.astype(np.float32)
+    if templates.ndim == 3:
+        templates = templates[None]
+    templates_mask = (np.asarray(raw["templates_mask"], bool)
+                      if "templates_mask" in getattr(raw, "files", ())
+                      else np.ones(templates.shape, bool))
+    if templates_mask.ndim == 3:
+        templates_mask = templates_mask[None]
+    if templates_mask.shape != templates.shape:
+        ap.error(f"--templates-file 'templates_mask' shape "
+                 f"{tuple(templates_mask.shape)} does not match "
+                 f"'templates' shape {tuple(templates.shape)}")
+    if templates.shape[-2:] != (L, L):
+        ap.error(f"--templates-file pair grid is "
+                 f"{templates.shape[-2]}x{templates.shape[-1]}; the "
+                 f"model's is {L}x{L} (L)")
+    print(f"templates: {templates.shape[1]} x {templates.shape[-1]}^2 grids from {path}")
+    return templates, templates_mask
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--seq", required=True, help="one-letter amino-acid sequence")
@@ -61,6 +125,14 @@ def main(argv=None):
     ap.add_argument("--max-num-msa", type=int, default=None,
                     help="MSA row-position-table size (default: from the "
                          "loaded MSA, min 20)")
+    ap.add_argument("--embedds-file", default=None,
+                    help=".npz with 'embedds' (1, L, 1280) or (L, 1280): "
+                         "precomputed residue embeddings as the MSA substitute; "
+                         "exclusive with --msa-file and --sp-shards")
+    ap.add_argument("--templates-file", default=None,
+                    help=".npz with 'templates' (1, T, L, L) int distogram buckets "
+                         "in [0, 37) or float distances in Angstroms, and an "
+                         "optional 'templates_mask' (1, T, L, L) bool")
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--weight-dtype", choices=("f32", "int8"), default="f32",
                     help="int8: serve per-channel int8 trunk weights (post-training "
@@ -106,11 +178,14 @@ def main(argv=None):
         msa, msa_mask = load_msa(args.msa_file, query=seq_str,
                                  max_rows=args.max_msa_rows)
         print(f"MSA: {msa.shape[1]} rows x {msa.shape[2]} cols from {args.msa_file}")
+    embedds = load_embedds(ap, args, L)
+    templates, templates_mask = load_templates(ap, args.templates_file, L)
 
     cfg = Alphafold2Config(
         dim=args.dim, depth=args.depth, heads=args.heads, dim_head=args.dim_head,
         max_seq_len=args.max_seq_len or max(64, L),
         max_num_msa=args.max_num_msa or max(20, msa.shape[1] if msa is not None else 0),
+        **({"num_embedds": embedds.shape[-1]} if embedds is not None else {}),
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         weight_dtype=args.weight_dtype,
     )
@@ -124,7 +199,8 @@ def main(argv=None):
     print(f"weights: {residency['weight_dtype']}, {residency['weight_bytes']:,} bytes "
           f"resident ({residency['fp32_weight_bytes']:,} in f32)")
     out = predict_structure(
-        params, cfg, tokens, msa=msa, msa_mask=msa_mask,
+        params, cfg, tokens, msa=msa, msa_mask=msa_mask, embedds=embedds,
+        templates=templates, templates_mask=templates_mask,
         mds_iters=args.mds_iters, mds_init=args.mds_init, generator=gen,
         device=None if model_apply_fn else device, model_apply_fn=model_apply_fn,
     )

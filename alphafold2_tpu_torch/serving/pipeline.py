@@ -47,21 +47,24 @@ def distogram_geometry(logits, mask=None):
 
 
 def predict_structure(params, cfg, tokens, *, mask=None, msa=None,
-                      msa_mask=None, embedds=None, mds_iters: int = 200,
+                      msa_mask=None, embedds=None, templates=None,
+                      templates_mask=None, mds_iters: int = 200,
                       mds_init: str = "classical",
                       generator: Optional[torch.Generator] = None,
                       device=None, model_apply_fn=None):
     """Tokens (+ optional MSA or embedds) -> CA trace + confidence.
 
     tokens: (b, L) int residue tokens, padded positions excluded by mask
-    (b, L) bool; msa / msa_mask: (b, rows, L); embedds: (b, L, num_embedds).
+    (b, L) bool; msa / msa_mask: (b, rows, L); embedds: (b, L, num_embedds);
+    templates / templates_mask: (b, T, L, L) int buckets or float distances
+    in Angstroms, and bool (the template tower, `alphafold2_apply`).
     mds_iters / mds_init: the MDS iteration budget (always run in full)
     and its start; `generator` seeds the random init. Runs on `device`
     (default CUDA; device="cpu" for the CPU), where the params must lie.
 
     model_apply_fn: a forward override with `alphafold2_apply`'s keyword
     signature, called as fn(params, cfg, tokens, msa, mask=, msa_mask=,
-    embedds=, templates=None, templates_mask=None), e.g. the
+    embedds=, templates=, templates_mask=), e.g. the
     sequence-parallel forward (`functools.partial(alphafold2_apply_sp,
     mesh=mesh)`, parallel/sp_trunk.py). It places its own work, so it
     takes no `device`; the geometry runs on the device of its logits.
@@ -74,14 +77,15 @@ def predict_structure(params, cfg, tokens, *, mask=None, msa=None,
             dev = resolve_device(device)
             logits = alphafold2_apply(
                 params, cfg, tokens, msa, mask=mask, msa_mask=msa_mask,
-                embedds=embedds, device=dev,
+                embedds=embedds, templates=templates, templates_mask=templates_mask,
+                device=dev,
             )
         else:
             if device is not None:
                 raise ValueError("model_apply_fn places its own work; pass no device")
             logits = model_apply_fn(
                 params, cfg, tokens, msa, mask=mask, msa_mask=msa_mask,
-                embedds=embedds, templates=None, templates_mask=None,
+                embedds=embedds, templates=templates, templates_mask=templates_mask,
             )
             dev = logits.device
         geo = distogram_geometry(logits, as_device_tensor(mask, dev, torch.bool))

@@ -3,6 +3,8 @@
     python -m alphafold2_tpu_torch.telemetry.profiling [--length 384] [--depth 2] [--gate]
     python -m alphafold2_tpu_torch.telemetry.profiling --int8 | --sparse [--length 384]
     python -m alphafold2_tpu_torch.telemetry.profiling --sp-shards 4 [--length 384]
+    python -m alphafold2_tpu_torch.telemetry.profiling --templates 4 [--length 384]
+    python -m alphafold2_tpu_torch.telemetry.profiling [--train --msa-rows 20] --schedule branch_parallel
     python -m alphafold2_tpu_torch.telemetry.profiling --train [--length 128] [--depth 1] [--sparse] [--eager]
 
 Request (the default): runs the serving configuration (dim 256, heads 8,
@@ -18,7 +20,8 @@ sequence-parallel forward (parallel/sp_trunk.py alphafold2_apply_sp, the
 trunk's MSA<-pair cross on kernel B3) over N shards placed on the visible
 cards in turn (shard s on card s mod count; the tool prints the
 placement); the events are recorded on the first card, where the request
-starts and ends.
+starts and ends. `--templates T` adds T seeded int templates with a
+partial templates_mask (the template tower).
 
 Train (`--train`): runs train_pre's step (dim 256, heads 8, dim_head 64,
 bf16, batch 1, 16 microbatches, synthetic sequence-only batches at crop
@@ -29,7 +32,11 @@ peak memory are reported), or with `--eager` as the eager step
 events, mean of `--reps` steps after one warm-up step); `--sparse` makes
 every layer's pair passes block-sparse with max_seq_len = the crop
 (chip_smoke.py phase 6e's configuration: at crop 256, 66% of the blocks
-active).
+active). `--msa-rows N` gives each microbatch a seeded N-row MSA.
+
+Both: `--schedule branch_parallel` runs the trunk's MSA branch on a side
+stream (models/trunk.py); the busy share then counts overlapped kernels
+twice.
 
 Both: from one more run under `torch.profiler`, device time by kernel
 name and by kind (the port's flash, sparse and int8 kernels, cuBLAS
@@ -161,7 +168,7 @@ def _request(args):
                            max_seq_len=L, dtype=torch.bfloat16, attn_gate=args.gate,
                            weight_dtype="int8" if args.int8 else "f32",
                            sparse_self_attn=tuple(n % 2 == 0 for n in range(depth)) if args.sparse
-                           else False)
+                           else False, trunk_schedule=args.schedule)
     device, apply_fn = torch.device("cuda", 0), None
     if args.sp_shards:
         cards = torch.cuda.device_count()
@@ -178,33 +185,39 @@ def _request(args):
     msa[0, 0] = tokens[0]
     msa_mask = rng.random((1, 20, L)) > 0.1
     msa_mask[0, 0] = True
+    tpl = {}
+    if args.templates:
+        shape = (1, args.templates, L, L)
+        tpl = {"templates": rng.integers(0, 37, shape).astype(np.int32),
+               "templates_mask": rng.random(shape) > 0.3}
 
     def request():
         if args.sp_shards:
             return predict_structure(params, cfg, tokens, msa=msa, msa_mask=msa_mask,
-                                     mds_iters=200, model_apply_fn=apply_fn)
+                                     mds_iters=200, model_apply_fn=apply_fn, **tpl)
         return predict_structure(params, cfg, tokens, msa=msa, msa_mask=msa_mask,
-                                 mds_iters=200, device=device)
+                                 mds_iters=200, device=device, **tpl)
 
     def forward():
         with torch.inference_mode():
             if args.sp_shards:
-                return apply_fn(params, cfg, tokens, msa, msa_mask=msa_mask)
+                return apply_fn(params, cfg, tokens, msa, msa_mask=msa_mask, **tpl)
             return alphafold2_apply(params, cfg, tokens, msa, msa_mask=msa_mask,
-                                    device=device)
+                                    device=device, **tpl)
 
     request()
     torch.cuda.synchronize()
     request_ms = _events_ms(request, args.reps)
     forward_ms = _events_ms(forward, args.reps)
     print(f"[profile] L={L} depth={depth} gate={args.gate} int8={args.int8} "
-          f"sparse={args.sparse} sp_shards={args.sp_shards}: request {request_ms:.3f} ms, forward {forward_ms:.3f} ms, "
+          f"sparse={args.sparse} sp_shards={args.sp_shards} templates={args.templates} "
+          f"schedule={args.schedule}: request {request_ms:.3f} ms, forward {forward_ms:.3f} ms, "
           f"rest {request_ms - forward_ms:.3f} ms (CUDA events, mean of {args.reps}); "
           f"weights {residency['weight_bytes']:,} bytes ({residency['fp32_weight_bytes']:,} "
           f"in f32)")
     return request, request_ms, {
         "config": repr(cfg), "length": L, "msa_rows": 20, "mds_iters": 200,
-        "sp_shards": args.sp_shards,
+        "sp_shards": args.sp_shards, "templates": args.templates,
         "request_ms": request_ms, "forward_ms": forward_ms,
         "rest_ms": request_ms - forward_ms, "residency": residency,
     }
@@ -215,11 +228,13 @@ def _train(args):
     depth = args.depth or 1
     cfg = Alphafold2Config(dim=256, depth=depth, heads=8, dim_head=64,
                            max_seq_len=L if args.sparse else 2048, dtype=torch.bfloat16,
-                           attn_gate=args.gate, sparse_self_attn=args.sparse)
+                           attn_gate=args.gate, sparse_self_attn=args.sparse,
+                           trunk_schedule=args.schedule)
     tcfg = TrainConfig(grad_accum=16)
     state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(args.seed), "cuda")
-    batch = synthetic_microbatch_fn(DataConfig(max_len=L, seed=args.seed), 16)(0)
-    record = {"config": repr(cfg), "length": L, "grad_accum": 16,
+    batch = synthetic_microbatch_fn(DataConfig(max_len=L, msa_rows=args.msa_rows,
+                                               seed=args.seed), 16)(0)
+    record = {"config": repr(cfg), "length": L, "grad_accum": 16, "msa_rows": args.msa_rows,
               "arm": "eager" if args.eager else "captured"}
     if args.eager:
         step = make_train_step(cfg, tcfg, device="cuda")
@@ -239,7 +254,7 @@ def _train(args):
     torch.cuda.synchronize()
     step_ms = _events_ms(train_step, args.reps)
     print(f"[profile] train step ({record['arm']}) L={L} depth={depth} gate={args.gate} "
-          f"sparse={args.sparse} accum 16: "
+          f"sparse={args.sparse} msa_rows={args.msa_rows} schedule={args.schedule} accum 16: "
           f"{step_ms:.3f} ms (CUDA events, mean of {args.reps})")
     record["step_ms"] = step_ms
     return train_step, step_ms, record
@@ -263,6 +278,12 @@ def main(argv=None):
     ap.add_argument("--sp-shards", type=int, default=0,
                     help="request: the sequence-parallel forward over this many shards, "
                          "placed on the visible cards in turn (0: dense)")
+    ap.add_argument("--templates", type=int, default=0,
+                    help="request: this many seeded int templates (the template tower)")
+    ap.add_argument("--msa-rows", type=int, default=0,
+                    help="train step: a seeded MSA of this many rows a microbatch")
+    ap.add_argument("--schedule", choices=("serial", "branch_parallel"), default="serial",
+                    help="the trunk schedule (branch_parallel: the MSA branch on a side stream)")
     ap.add_argument("--eager", action="store_true",
                     help="train step: the eager step (make_train_step), not the captured one")
     ap.add_argument("--reps", type=int, default=3)
@@ -270,8 +291,10 @@ def main(argv=None):
     ap.add_argument("--out", default=None,
                     help="JSON record (default chiprun_out/profile_{request,train}.json)")
     args = ap.parse_args(argv)
-    if args.train and (args.int8 or args.sp_shards):
-        ap.error("--int8 and --sp-shards profile a request")
+    if args.train and (args.int8 or args.sp_shards or args.templates):
+        ap.error("--int8, --sp-shards and --templates profile a request")
+    if args.msa_rows and not args.train:
+        ap.error("--msa-rows profiles a train step (a request has a 20-row MSA)")
     if args.eager and not args.train:
         ap.error("--eager profiles a train step")
     if not torch.cuda.is_available():

@@ -81,7 +81,7 @@ each phase prints its seconds):
   6. the training path: `make_train_step` (the eager step) and train_pre's
      step on the card, `CapturedTrainStep` (the same step as a CUDA graph,
      `training/executable.py`):
-     (a) dim 256, depth 2, heads 8, dim_head 64, accum 2, f32, 3 eager
+     (a) dim 256, depth 1, heads 8, dim_head 64, accum 2, f32, 3 eager
          steps on the card and on the CPU from the same params and
          batches: loss, grad_norm, the first step's gradients leaf by leaf,
          the params after 3 steps; at L = 64, and sparse (every layer) at
@@ -146,6 +146,26 @@ each phase prints its seconds):
          memory, and in float32 card against CPU (phase 4's tolerances);
      its launches (the flash forward and both backward kernels, in the
      wrappers' counts and the replays') read just after;
+  10. the template tower and trunk_schedule="branch_parallel":
+     (a) a templated request (T = 2, a partial templates_mask, the last 5
+         of L = 64 residues padded, a 20-row MSA), f32 (dim 64, depth 2),
+         on the card and on the CPU with the same parameters, at phase
+         4a's tolerances on valid pairs: int and float templates, gated
+         and not; 22 flash forwards (10 the tower's) on the f32 route;
+     (b) the serving configuration at L = 384 with T = 4 int templates
+         beside the same request without templates: request and forward
+         ms, finiteness, 22 flash forwards a templated request, all on the
+         wgmma route (the joint attention's included);
+     (c) B1f at the joint attention's shape (1,179,648 x 5 x 5, bf16)
+         against its plain version, timed beside the mma_sync route, the
+         dense einsum and SDPA, with its bound; B1b and B2b there; one
+         tower layer's gradient, f32 card vs CPU, and bf16 with every dq
+         and dkv on the wgmma route;
+     (d) branch_parallel against serial, bit for bit: the eager forward
+         at L = 384, one captured engine request (bucket 384, rung 1) and
+         3 captured train steps at train_pre's defaults with a 20-row MSA;
+         their ms (median of 5, in turns), busy share and the ms the two
+         streams' kernels overlap (torch.profiler's trace);
   5. a `kernels` JSON line (thirteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, B3's forward and its two backward kernels), the card line,
@@ -191,6 +211,7 @@ from alphafold2_tpu_torch.ops import (  # noqa: E402
     sparse_kernel,
 )
 from alphafold2_tpu_torch.constants import AA_ORDER, PAD_TOKEN_ID  # noqa: E402
+from alphafold2_tpu_torch.models.alphafold2 import template_tower_apply  # noqa: E402
 from alphafold2_tpu_torch.ops.attention import AttentionConfig, attention_init  # noqa: E402
 from alphafold2_tpu_torch.parallel import (  # noqa: E402
     alphafold2_apply_sp,
@@ -364,19 +385,25 @@ def bound_terms(q, k, v, bias, gate):
     return flops / PEAK_FLOPS[q.dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def sdpa_mask_ms(q, k, v, mask, scale, reps, g=None, wrt=None, mask_grad=False):
+def sdpa_mask_ms(q, k, v, mask, scale, reps, g=None, wrt=None, mask_grad=False, heads=None):
     """F.scaled_dot_product_attention with `mask` (additive, or boolean),
     forward, or with `wrt` its backward alone for the gradients "q", "kv"
     or "qkv" on a retained graph: a yardstick the port never calls. With
     `mask_grad` the additive mask requires grad, so the backward also
     computes the mask's gradient (the 2-D bias's d_bias, which B2b's dq
-    kernel writes: "q" and "qkv" take it). None when no fused backend takes
-    the shape."""
+    kernel writes: "q" and "qkv" take it). The folded (BH, n, dh) tensors
+    go in as one batch of BH heads, or with `heads` as (BH / heads, heads)
+    (SDPA's grid takes at most 65,535 heads). None when no fused backend
+    takes the shape."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    fused_only = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.FLASH_ATTENTION,
-                  SDPBackend.CUDNN_ATTENTION]
-    q4, k4, v4 = (t.detach().unsqueeze(0).requires_grad_(wrt is not None) for t in (q, k, v))
+    fused_only = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.FLASH_ATTENTION]
+    if heads is None:  # cuDNN's graph fails to execute on the (B L^2, heads) layout
+        fused_only.append(SDPBackend.CUDNN_ATTENTION)
+    split = ((lambda t: t[None]) if heads is None
+             else (lambda t: t.reshape(t.shape[0] // heads, heads, *t.shape[1:])))
+    q4, k4, v4 = (split(t.detach()).requires_grad_(wrt is not None) for t in (q, k, v))
+    mask = mask if heads is None else split(mask[0])
     if mask_grad:
         mask = mask.detach().requires_grad_(True)
     try:
@@ -387,7 +414,7 @@ def sdpa_mask_ms(q, k, v, mask, scale, reps, g=None, wrt=None, mask_grad=False):
             out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)
             extra = (mask,) if mask_grad else ()
             inputs = {"q": (q4,) + extra, "kv": (k4, v4), "qkv": (q4, k4, v4) + extra}[wrt]
-            return time_ms(lambda: torch.autograd.grad(out, inputs, g[None],
+            return time_ms(lambda: torch.autograd.grad(out, inputs, split(g),
                                                        retain_graph=True), reps)
     except RuntimeError as e:  # no fused backend takes this shape: no yardstick
         log(f"[library] none ({str(e).splitlines()[0][:100]})")
@@ -402,13 +429,13 @@ def dense_mask(q, k, bias):
     return (mask if mask.dim() == 3 else mask[:, None, :].expand(BH, i, k.shape[1]))[None]
 
 
-def library_ms(q, k, v, bias, gate, scale, reps):
+def library_ms(q, k, v, bias, gate, scale, reps, heads=None):
     """One PyTorch call computing the same function: scaled_dot_product_attention
     with the bias as an additive mask (a yardstick only; the port never
     calls it). The gated kernel has no one-call equivalent: None."""
     if gate is not None:
         return None
-    return sdpa_mask_ms(q, k, v, dense_mask(q, k, bias), scale, reps)
+    return sdpa_mask_ms(q, k, v, dense_mask(q, k, bias), scale, reps, heads=heads)
 
 
 def counted_fwd(name, which, fn, args):
@@ -424,7 +451,7 @@ def counted_fwd(name, which, fn, args):
 
 
 def check_kernel(name, label, BH, i, j, dh, dtype, *, timed, masked_bh=(),
-                 gated=False, bias2d=False):
+                 gated=False, bias2d=False, heads=None):
     q, k, v, bias, gate = make_inputs(BH, i, j, dh, dtype, masked_bh=masked_bh,
                                       gated=gated, bias2d=bias2d)
     scale = dh ** -0.5
@@ -463,7 +490,7 @@ def check_kernel(name, label, BH, i, j, dh, dtype, *, timed, masked_bh=(),
                 q, k, v, bias, scale, gate, name, which="mma_sync"), reps)
         row["plain_ms"] = time_ms(lambda: flash_kernel.flash_fwd_plain(q, k, v, bias, scale, gate),
                                   max(1, reps // 4))
-        row["library_ms"] = library_ms(q, k, v, bias, gate, scale, reps)
+        row["library_ms"] = library_ms(q, k, v, bias, gate, scale, reps, heads)
         row["ops_ms"], row["bytes_ms"] = t_ops, t_bytes
         row["bound_ms"] = max(t_ops, t_bytes)
         row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -568,10 +595,20 @@ def flash_bwd_bf16_bound(q, k, v, bias, out, lse, g, scale, gate=None, g_lse=Non
     bf16 once, and two values that straddle a rounding boundary land one
     bf16 ulp apart (at most 2^-7 of the value). So dq: 2^-8 scale |dS|
     |K|, dk: 2^-8 scale |dS|^T |Q|, dv: 2^-8 P^T |dO|, each plus 2^-7 |ref|.
-    The f32 accumulation orders differ by ~2^-23 of the same absolute
-    sums, inside the bound. With an lse cotangent g_lse (B3) the same holds
-    for ds = p (g.v - (delta - g_lse)). Returns three f32 tensors."""
+    dS itself is P (dP - delta), where dP_ij = dO_i . V_j and delta_i =
+    dO_i . O_i are each a sum of dh products in f32, summed in another
+    order on the two sides: each differs by at most dh 2^-23 (a unit of
+    f32 a term, rounding or truncating) of its sum of absolute products,
+    so dS by E = P dh 2^-23 (|dO| |V|^T + rowsum(|dO| |O|)). That term
+    matters only where dP and delta cancel (a row with one unmasked key,
+    whose exact dS is 0): there the rest of the bound is 0 as well. It
+    adds scale E |K| to dq and scale E^T |Q| to dk; the other f32 orders
+    differ by ~2^-23 of the same absolute sums, inside the bound. With an
+    lse cotangent g_lse (B3) the same holds for ds = p (g.v - (delta -
+    g_lse)). Returns three f32 tensors."""
     BH, i, dh = q.shape
+    # |dO| |O| of delta's sum (the raw cotangent and the output the forward gave)
+    delta_abs = (g.float().abs() * out.float().abs()).sum(dim=-1)
     if g_lse is None:
         ref_dq, ref_dk, ref_dv, _, _ = flash_kernel.flash_bwd_plain(q, k, v, bias, out, lse, g,
                                                                     scale, gate)
@@ -583,14 +620,19 @@ def flash_bwd_bf16_bound(q, k, v, bias, out, lse, g, scale, gate=None, g_lse=Non
     bdq = torch.empty((BH, i, dh), dtype=torch.float32, device=q.device)
     bdk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     bdv = torch.zeros_like(bdk)
-    ka = k.float().abs()
+    edq, edk = torch.empty_like(bdq), torch.zeros_like(bdk)
+    ka, va = k.float().abs(), v.float().abs()
     for r0, r1, qs, gs, p, ds in flash_kernel.bwd_tiles(q, k, v, bias, lse, g, delta, scale):
         ds = ds.abs()
         bdq[:, r0:r1] = torch.bmm(ds, ka) * scale
         bdk += torch.bmm(ds.transpose(1, 2), qs.abs()) * scale
         bdv += torch.bmm(p.transpose(1, 2), gs.abs())
-    return tuple(2.0 ** -8 * b + BF16_ULP * r.float().abs()
-                 for b, r in ((bdq, ref_dq), (bdk, ref_dk), (bdv, ref_dv)))
+        e = p * (dh * 2.0 ** -23) * (torch.bmm(gs.abs(), va.transpose(1, 2))
+                                     + delta_abs[:, r0:r1, None])
+        edq[:, r0:r1] = torch.bmm(e, ka) * scale
+        edk += torch.bmm(e.transpose(1, 2), qs.abs()) * scale
+    return tuple(2.0 ** -8 * b + e + BF16_ULP * r.float().abs()
+                 for b, e, r in ((bdq, edq, ref_dq), (bdk, edk, ref_dk), (bdv, 0.0, ref_dv)))
 
 
 def quant_bound(x, qw, scale, ref):
@@ -629,18 +671,18 @@ def sparse_bwd_bf16_bound(q, k, v, bias, table, heads, out, lse, g, scale):
                                 scale)
 
 
-def sdpa_backward_ms(q, k, v, bias, g, scale, wrt, reps):
+def sdpa_backward_ms(q, k, v, bias, g, scale, wrt, reps, heads=None):
     """The backward alone of F.scaled_dot_product_attention with the same
     additive mask, for the gradients `wrt` ("q", "kv" or "qkv"), on a
     retained graph (a yardstick; the port never calls it); a 2-D bias's mask
     requires grad (the memory-efficient backend differentiates it). None
     when no fused backend takes the shape or that gradient."""
     return sdpa_mask_ms(q, k, v, dense_mask(q, k, bias), scale, reps, g, wrt,
-                        mask_grad=bias.dim() == 3)
+                        mask_grad=bias.dim() == 3, heads=heads)
 
 
 def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
-              bias2d=False):
+              bias2d=False, heads=None):
     """One backward pair (B1b when neither gated nor bias2d, else B2b) on
     the forward kernel's out and lse, against flash_bwd_plain; one launch of
     each kernel, counted again under its route (`dq_route`, `dkv_route`).
@@ -727,8 +769,8 @@ def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
         row["dkv_plain_ms"] = time_ms(lambda: flash_kernel.flash_bwd_dkv_plain(*args), 2)
         # the gate acts outside the kernels (cotangent_terms): fed g_eff, the
         # SDPA backward computes what they compute, gated or not
-        lib_q = sdpa_backward_ms(q, k, v, bias, g_eff, scale, "q", reps)
-        lib_kv = sdpa_backward_ms(q, k, v, bias, g_eff, scale, "kv", reps)
+        lib_q = sdpa_backward_ms(q, k, v, bias, g_eff, scale, "q", reps, heads)
+        lib_kv = sdpa_backward_ms(q, k, v, bias, g_eff, scale, "kv", reps, heads)
         row["dq_library_ms"], row["dkv_library_ms"] = lib_q, lib_kv
         for side, dq_side in (("dq", True), ("dkv", False)):
             t_ops, t_bytes = bwd_bound_terms(q, k, bias, dq_side)
@@ -743,7 +785,8 @@ def check_bwd(label, BH, i, j, dh, dtype, *, timed, masked_bh=(), gated=False,
         row["kernel_ms"] = row["dq_ms"] + row["dkv_ms"]
         row["plain_ms"] = row["dq_plain_ms"] + row["dkv_plain_ms"]
         row["library_ms"] = (None if lib_q is None
-                             else sdpa_backward_ms(q, k, v, bias, g_eff, scale, "qkv", reps))
+                             else sdpa_backward_ms(q, k, v, bias, g_eff, scale, "qkv", reps,
+                                              heads))
         row["bound_ms"] = max(10 * BHij / PEAK_FLOPS[dtype], pair_bytes / HBM_BYTES_PER_S) * 1e3
         row["kernel_ops_ms"] = 14 * BHij / PEAK_FLOPS[dtype] * 1e3
     times = "".join(
@@ -1996,7 +2039,9 @@ def sparse_skipped_flops(cfg, L, grad_accum):
 
 
 def phase_train():
-    f32 = Alphafold2Config(dim=256, depth=2, heads=8, dim_head=64, max_seq_len=2048)
+    # depth 1 keeps the script's length near its budget (the CPU side of
+    # the parity runs dominates); 6g holds depth 2 captured against eager
+    f32 = Alphafold2Config(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=2048)
     three = 2 * f32.depth * 2 * 3  # two pair axial passes a layer, accum 2, 3 steps
     phase_train_parity("a", f32, 64, {name: three for name in
                                       ("flash_fwd", "flash_fwd_f32", "flash_bwd_dq",
@@ -2772,6 +2817,446 @@ def phase_ckpt():
         fail(f"phase 9 did not launch {missing or 'its replayed kernels'}")
 
 
+# --- phase 10: the template tower and the branch-parallel schedule -----------------
+
+TEMPLATES_T = 4   # AF2's template count
+TOWER_FLASH = 5   # flash forwards a tower layer: 2 pair axial, 2 template axial, the joint
+JOINT_BH = 384 * 384 * 8  # the joint attention at L = 384, 8 heads: b * L^2 * heads
+
+
+def template_inputs(L, T, kind, seed):
+    """Seeded templates (1, T, L, L), int buckets in [0, 37) or float
+    distances in [0, 25) A (bucketed by the model), and a templates_mask
+    with ~70% of its entries true."""
+    rng = np.random.default_rng(seed)
+    if kind == "int":
+        templates = rng.integers(0, 37, (1, T, L, L)).astype(np.int32)
+    else:
+        templates = rng.uniform(0.0, 25.0, (1, T, L, L)).astype(np.float32)
+    return templates, rng.random((1, T, L, L)) > 0.3
+
+
+def templates_cpu_vs_card(label, cfg, L, kind, expect, pad=5):
+    """(a) One templated request (T = 2, a partial templates_mask, a
+    20-row MSA, the last `pad` residues padded) in float32 on the card and
+    on the CPU with the same parameters, at phase 4a's tolerances on valid
+    pairs and residues (on padded query rows the card's flash path and
+    the CPU's dense path give different finite values that no valid
+    output reads); `expect`: the card's launches."""
+    params = [alphafold2_init(cfg, torch.Generator().manual_seed(0), dev)
+              for dev in ("cpu", "cuda")]
+    tokens, msa, msa_mask = request_inputs(L, 20, seed=5)
+    mask = np.ones((1, L), bool)
+    mask[:, L - pad:] = False
+    tokens[~mask] = PAD_TOKEN_ID
+    msa[:, :, L - pad:] = PAD_TOKEN_ID
+    msa_mask[:, :, L - pad:] = False
+    templates, tmask = template_inputs(L, 2, kind, seed=6)
+    kw = dict(mask=mask, msa=msa, msa_mask=msa_mask, templates=templates,
+              templates_mask=tmask, mds_iters=200)
+    reset_launches()
+    gpu = predict_structure(params[1], cfg, tokens, device="cuda", **kw)
+    sync()
+    launches = launch_counts()
+    cpu = predict_structure(params[0], cfg, tokens, device="cpu", **kw)
+    g = {k: v.cpu() for k, v in gpu.items()}
+    valid = torch.from_numpy(mask[0])
+    pair = valid[:, None] & valid[None, :]
+    logits = (g["distogram_logits"][0][pair], cpu["distogram_logits"][0][pair])
+    d_logits = (logits[0] - logits[1]).abs().max().item()
+    d_conf = (g["confidence"] - cpu["confidence"]).abs().max().item()
+    d_stress = ((g["stress"] - cpu["stress"]).abs() / cpu["stress"].abs()).max().item()
+    d_dist = (pairwise(g["coords"][:, valid])
+              - pairwise(cpu["coords"][:, valid])).abs().max().item()
+    want = {name: expect.get(name, 0) for name in launches}
+    ok = (d_logits <= 1e-4 and d_conf <= 1e-5 and d_stress <= 1e-3 and d_dist <= 1e-2
+          and launches == want)
+    log(f"[templates a] {label}: L={L} ({pad} padded), T=2 {kind}, f32 card vs cpu: logits "
+        f"|d|={d_logits:.2e} (1e-4), confidence |d|={d_conf:.2e} (1e-5), stress "
+        f"rel={d_stress:.2e} (1e-3), distances |d|={d_dist:.2e} A (1e-2); launches "
+        f"{dict((k, n) for k, n in launches.items() if n)} {'ok' if ok else 'FAIL'}")
+    return {"label": label, "L": L, "kind": kind, "config": repr(cfg), "logits": d_logits,
+            "confidence": d_conf, "stress_rel": d_stress, "distances": d_dist,
+            "launches": launches, "ok": ok}
+
+
+def phase_templates_parity():
+    rows = []
+    for gate in (False, True):
+        cfg = Alphafold2Config(dim=64, depth=2, heads=2, dim_head=32, max_seq_len=64,
+                               attn_gate=gate)
+        n = TOWER_FLASH * cfg.template_attn_depth + 6 * cfg.depth
+        name = "flash_fwd_fused" if gate else "flash_fwd"
+        for kind in ("int", "float"):
+            rows.append(templates_cpu_vs_card(f"{kind}{' gated' if gate else ''}", cfg, 64,
+                                              kind, {name: n, "flash_fwd_f32": n}))
+    RECORD["phases"]["templates_parity"] = rows
+    if not all(r["ok"] for r in rows):
+        fail("the templated request: the card and the CPU disagree, or launches differ "
+             "(phase 10a)")
+
+
+def forward_ms(fn, reps):
+    """Device ms (CUDA events) of each of `reps` calls."""
+    out = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        sync()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def phase_templates_request(reps=3):
+    """(b) The served config (bf16) at L = 384 with T = 4 int templates
+    (a partial templates_mask) and a 20-row MSA through
+    `predict_structure`, beside the same request without templates:
+    request ms (events and host clock) and the forward's ms
+    (`alphafold2_apply`, events), the two in turns after a warm-up of
+    each; finiteness; the templated request's launches (counts set to 0
+    just before it, read just after): the tower's 5 flash forwards a
+    layer and the trunk's 6, every one on the wgmma route, the joint
+    attention's included."""
+    cfg = served_config()
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda")
+    L = 384
+    tokens, msa, msa_mask = request_inputs(L, 20, seed=7)
+    templates, tmask = template_inputs(L, TEMPLATES_T, "int", seed=8)
+    arms = {
+        "templated": dict(templates=templates, templates_mask=tmask),
+        "plain": {},
+    }
+
+    def request(arm):
+        return predict_structure(params, cfg, tokens, msa=msa, msa_mask=msa_mask,
+                                 mds_iters=200, device="cuda", **arms[arm])
+
+    def forward(arm):
+        with torch.inference_mode():
+            return alphafold2_apply(params, cfg, tokens, msa, msa_mask=msa_mask,
+                                    device="cuda", **arms[arm])
+
+    for arm in arms:
+        request(arm)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = request("templated")
+    sync()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+    n = TOWER_FLASH * cfg.template_attn_depth + 6 * cfg.depth
+    want = {name: {"flash_fwd": n, "flash_fwd_wgmma": n}.get(name, 0) for name in launches}
+    times = {arm: {"request_ms": [], "host_ms": [], "forward_ms": []} for arm in arms}
+    for order in [("templated", "plain"), ("plain", "templated")] * ((reps + 1) // 2):
+        for arm in order:
+            t0 = time.perf_counter()
+            times[arm]["request_ms"] += forward_ms(lambda: request(arm), 1)
+            times[arm]["host_ms"].append((time.perf_counter() - t0) * 1e3)
+            times[arm]["forward_ms"] += forward_ms(lambda: forward(arm), 1)
+    med = {arm: {k: sorted(v[:reps])[reps // 2] for k, v in t.items()} for arm, t in times.items()}
+    tower_ms = med["templated"]["forward_ms"] - med["plain"]["forward_ms"]
+    ok = finite and launches == want
+    log(f"[templates b] L={L}, T={TEMPLATES_T}, bf16, 20-row MSA: templated request "
+        f"{med['templated']['request_ms']:.2f} ms (events; host {med['templated']['host_ms']:.2f}),"
+        f" forward {med['templated']['forward_ms']:.2f} ms; without templates "
+        f"{med['plain']['request_ms']:.2f} ms (host {med['plain']['host_ms']:.2f}), forward "
+        f"{med['plain']['forward_ms']:.2f} ms; the tower {tower_ms:.2f} ms (forward difference, "
+        f"medians of {reps}); peak {peak:.2f} GiB; finite={finite}; launches "
+        f"{dict((k, v) for k, v in launches.items() if v)} (expected {n} flash_fwd, all wgmma) "
+        f"{'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["templates_request"] = {
+        "L": L, "T": TEMPLATES_T, "config": repr(cfg), "times": times, "medians": med,
+        "tower_ms": tower_ms, "peak_gib": peak, "finite": finite, "launches": launches,
+        "ok": ok}
+    if not ok:
+        fail("the templated request at L = 384 is not finite or left the wgmma route "
+             "(phase 10b)")
+    return launches
+
+
+def dense_joint_ms(BH, reps=10):
+    """The joint attention's call (bf16 q, k, v (BH, 5, 64), a key-side
+    mask) as `attention_apply`'s dense einsum computes it (f32 logits,
+    softmax, P.V): the JAX rule's choice at this shape."""
+    q, k, v, bias, _ = make_inputs(BH, 5, 5, 64, torch.bfloat16)
+    scale = 64 ** -0.5
+
+    def dense():
+        s = torch.bmm(q, k.transpose(1, 2)).float() * scale + bias[:, None, :]
+        return torch.bmm(torch.softmax(s, dim=-1).to(q.dtype), v)
+
+    ms = time_ms(dense, reps)
+    del q, k, v, bias
+    torch.cuda.empty_cache()
+    return ms
+
+
+def tower_layer_grads(dtype, device, L=32, T=TEMPLATES_T):
+    """The gradient of sum(w * tower(x)) over valid pairs, one tower layer
+    (dim 128, heads 2, dim_head 64; L = 32 with 4 padded residues, T int
+    templates, a partial templates_mask), in the tower's leaves, the
+    template embeddings and x; the same seeded inputs on either device.
+    Returns ({name: grad on the CPU, f32}, launches)."""
+    cfg = Alphafold2Config(dim=128, depth=1, heads=2, dim_head=64, max_seq_len=L,
+                           template_attn_depth=1, dtype=dtype)
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), device)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(1, L, L, cfg.dim, generator=g)
+    w = torch.randn(1, L, L, cfg.dim, generator=g)
+    mask = torch.ones(1, L, dtype=torch.bool)
+    mask[:, L - 4:] = False
+    templates, tmask = template_inputs(L, T, "int", seed=2)
+    pair = (mask[:, :, None] & mask[:, None, :]).to(device)
+    x = x.to(device).to(dtype).requires_grad_(True)
+    leaves = {"x": x}
+    for name in ("template_emb", "template_pos_emb", "template_pos_emb_ax"):
+        leaves[name] = params[name]["table"]
+    leaves.update(named_leaves(params["template_tower"], "template_tower."))
+    for t in leaves.values():
+        t.requires_grad_(True)
+    reset_launches()
+    out = template_tower_apply(params, cfg, x, (mask[:, :, None] | mask[:, None, :]).to(device),
+                               torch.from_numpy(templates).long().to(device),
+                               torch.from_numpy(tmask).to(device), None)
+    loss = (out.float() * w.to(device) * pair[..., None]).sum()
+    # the last layer's template FF feeds nothing: its gradient is 0, as in JAX
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    if device != "cpu":
+        sync()
+    launches = launch_counts()
+    return {k: (torch.zeros(t.shape) if gr is None else gr.float().cpu())
+            for (k, t), gr in zip(leaves.items(), grads)}, launches
+
+
+def phase_templates_kernels():
+    """(c) B1f at the joint attention's shape at L = 384, T = 4, 8 heads:
+    (1,179,648, 5, 5) bf16 against its plain version (phase 3's bound),
+    timed beside the same call on the mma_sync route, the dense einsum and
+    SDPA, with its bound; B1b and B2b at j = T + 1 on that shape (phase
+    3's backward bound, timed). Then the gradient of one tower layer: f32
+    on the card against the CPU (each leaf 1e-4 of its largest entry,
+    phase 6a's first-step bound), and bf16 on the card (every dq and dkv
+    on the wgmma route; its cosine with the f32 card gradient over every
+    leaf at least 0.99)."""
+    row = check_kernel("flash_fwd", "joint attention", JOINT_BH, 5, 5, 64, torch.bfloat16,
+                       timed=True, heads=8)
+    row["dense_ms"] = dense_joint_ms(JOINT_BH)
+    log(f"[templates c] B1f at the joint shape: kernel {row['kernel_ms']:.3f} ms "
+        f"({row['route']}; mma_sync {row.get('mma_sync_ms', float('nan')):.3f}), plain "
+        f"{row['plain_ms']:.3f}, dense einsum {row['dense_ms']:.3f}, SDPA "
+        f"{'none' if row['library_ms'] is None else format(row['library_ms'], '.3f')}, bound "
+        f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
+    bwd = [check_bwd("joint attention", JOINT_BH, 5, 5, 64, torch.bfloat16, timed=True,
+                     heads=8),
+           check_bwd("joint attention gated", JOINT_BH, 5, 5, 64, torch.bfloat16, timed=True,
+                     gated=True, heads=8)]
+    ref, _ = tower_layer_grads(torch.float32, "cpu")
+    card, f32_launches = tower_layer_grads(torch.float32, "cuda")
+    bf16, bf16_launches = tower_layer_grads(torch.bfloat16, "cuda")
+    worst = max((card[k] - ref[k]).abs().max().item() / max(ref[k].abs().max().item(), 1e-30)
+                for k in ref)
+    flat = lambda gr: torch.cat([v.flatten() for v in gr.values()])  # noqa: E731
+    cosine = F.cosine_similarity(flat(bf16), flat(card), dim=0).item()
+    n = TOWER_FLASH  # one tower layer: each flash forward's backward once
+    bf16_ok = (bf16_launches.get("flash_bwd_dq", 0) == n
+               and bf16_launches.get("flash_bwd_dq_wgmma", 0) == n
+               and bf16_launches.get("flash_bwd_dkv_wgmma", 0) == n
+               and bf16_launches.get("flash_fwd_wgmma", 0) == n)
+    finite = all(bool(torch.isfinite(v).all()) for v in bf16.values())
+    grad_ok = worst <= 1e-4 and cosine >= 0.99 and bf16_ok and finite
+    log(f"[templates c] one tower layer's gradient ({len(ref)} leaves): f32 card vs cpu, worst "
+        f"leaf |d| / max|leaf| = {worst:.2e} (1e-4); bf16 card cosine with f32 {cosine:.5f} "
+        f"(0.99), finite={finite}; bf16 launches "
+        f"{dict((k, v) for k, v in bf16_launches.items() if v)} {'ok' if grad_ok else 'FAIL'}")
+    RECORD["phases"]["templates_kernels"] = {
+        "fwd": row, "bwd": bwd, "tower_grad": {
+            "f32_worst_rel": worst, "bf16_cosine": cosine, "f32_launches": f32_launches,
+            "bf16_launches": bf16_launches, "ok": grad_ok}}
+    bad = [r["case"] for r in [row] + bwd if not r["ok"]]
+    if bad or row["route"] != "wgmma" or any(r["dq_route"] != "wgmma" or r["dkv_route"] != "wgmma"
+                                             for r in bwd):
+        fail(f"the joint attention's kernels disagree or left the wgmma route: {bad} "
+             f"(phase 10c)")
+    if not grad_ok:
+        fail("the tower layer's gradient: card and CPU disagree, or bf16 left the wgmma "
+             "routes (phase 10c)")
+    return row, bwd
+
+
+def kernel_timeline(fn):
+    """fn once under torch.profiler; from its trace, the device kernels'
+    busy ms (the union of their intervals), the ms two or more kernels run
+    at once, the ms kernels of two or more streams run at once, and the
+    kernels' count a stream."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    path = ROOT / "build" / "phase10_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    kernels = [(e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream"))
+               for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    points = sorted([(s, 1, st) for s, _, st in kernels] + [(e, -1, st) for _, e, st in kernels],
+                    key=lambda p: (p[0], p[1]))
+    active, busy, multi, cross, last = {}, 0.0, 0.0, 0.0, None
+    for t, step, st in points:
+        if last is not None:
+            running = sum(active.values())
+            busy += (t - last) * (running >= 1)
+            multi += (t - last) * (running >= 2)
+            cross += (t - last) * (sum(n > 0 for n in active.values()) >= 2)
+        active[st] = active.get(st, 0) + step
+        last = t
+    per_stream = {}
+    for _, _, st in kernels:
+        per_stream[str(st)] = per_stream.get(str(st), 0) + 1
+    return {"busy_ms": busy / 1e3, "concurrent_ms": multi / 1e3, "cross_stream_ms": cross / 1e3,
+            "kernels": len(kernels), "per_stream": per_stream}
+
+
+def timed_turns(arms, reps):
+    """Host ms of each arm's calls (synchronized), the arms in turns after
+    a warm-up of each; then one more call of each under the profiler.
+    Returns {arm: {"runs_ms", "median_ms", timeline..., "busy_share"}}."""
+    for fn in arms.values():
+        fn()
+    runs = {name: [] for name in arms}
+    names = list(arms)
+    for order in [names, names[::-1]] * ((reps + 1) // 2):
+        for name in order:
+            runs[name].append(host_ms(arms[name]))
+    out = {}
+    for name, fn in arms.items():
+        median = sorted(runs[name][:reps])[reps // 2]
+        tl = kernel_timeline(fn)
+        out[name] = {"runs_ms": runs[name][:reps], "median_ms": median, **tl,
+                     "busy_share": tl["busy_ms"] / median}
+    return out
+
+
+def schedule_line(label, rows):
+    return "; ".join(
+        f"{name} {r['median_ms']:.2f} ms (busy {r['busy_share']:.3f}, two streams at once "
+        f"{r['cross_stream_ms']:.3f} ms, kernels at once {r['concurrent_ms']:.3f} ms, "
+        f"kernels a stream {r['per_stream']})" for name, r in rows.items())
+
+
+def phase_schedule(reps=5):
+    """(d) trunk_schedule="branch_parallel" against "serial" on the same
+    params: the served config's eager forward at L = 384 (20-row MSA), one
+    captured engine request (bucket 384, rung 1, `CapturedExecutable`) and
+    3 captured train steps at train_pre's defaults (bf16, crop 128, accum
+    16) with a 20-row MSA (without one the schedule is the serial one), all
+    bit for bit; the branch-parallel runs' launches on the wgmma routes.
+    Then request and step ms for both schedules (host clock, median of
+    `reps`, in turns) and one more of each under the profiler: the busy
+    share (the union of kernel intervals over the median) and the ms the
+    kernels of two streams overlap."""
+    serial = served_config()
+    bp = served_config(trunk_schedule="branch_parallel")
+    params = alphafold2_init(serial, torch.Generator().manual_seed(0), "cuda")
+    L = 384
+    tokens, msa, msa_mask = request_inputs(L, 20, seed=9)
+    rec = {}
+
+    def forward(cfg):
+        with torch.inference_mode():
+            return alphafold2_apply(params, cfg, tokens, msa, msa_mask=msa_mask, device="cuda")
+
+    reset_launches()
+    eager = {name: forward(cfg) for name, cfg in (("serial", serial), ("branch_parallel", bp))}
+    sync()
+    eager_equal = torch.equal(eager["serial"], eager["branch_parallel"])
+    eager_diff = (eager["serial"].float() - eager["branch_parallel"].float()).abs().max().item()
+    eager_launches = launch_counts()
+    rec["forward"] = timed_turns({"serial": lambda: forward(serial),
+                                  "branch_parallel": lambda: forward(bp)}, reps)
+    log(f"[schedule d] eager forward L={L}: logits bit-equal {eager_equal} "
+        f"(max |d| {eager_diff:.2e});"
+        f" {schedule_line('forward', rec['forward'])}")
+    del eager
+
+    pool = GraphPool()
+    batch = engine_batch((L,), L, seed=51)
+    exes = {name: CapturedExecutable(params, cfg, batch=1, bucket=L, msa_rows=ENGINE_ROWS,
+                                     mds_iters=200, device=torch.device("cuda", 0), pool=pool)
+            for name, cfg in (("serial", serial), ("branch_parallel", bp))}
+    outs = {}
+    for name, exe in exes.items():
+        outs[name] = exe(*batch)
+        outs[name]["distogram_logits"] = exe.logits.clone()
+    sync()
+    request_equal = all(torch.equal(outs["serial"][k], outs["branch_parallel"][k])
+                        for k in outs["serial"])
+    bp_captured = exes["branch_parallel"].launches
+    rec["request"] = timed_turns(
+        {name: (lambda exe=exe: {k: v.cpu() for k, v in exe(*batch).items()})
+         for name, exe in exes.items()}, reps)
+    log(f"[schedule d] captured request (bucket {L}, rung 1): bit-equal {request_equal}; "
+        f"branch_parallel captured launches {dict((k, v) for k, v in bp_captured.items() if v)};"
+        f" {schedule_line('request', rec['request'])}")
+    del exes, outs
+
+    tcfg = TrainConfig(grad_accum=16)
+    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=128, msa_rows=20, seed=9),
+                                    16)
+    batches = [fetch(n) for n in range(3)]
+    steps, states = {}, {}
+    for name, cfg in (("serial", train_pre_config()),
+                      ("branch_parallel", train_pre_config(trunk_schedule="branch_parallel"))):
+        states[name] = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+        steps[name] = CapturedTrainStep(cfg, tcfg, states[name], batches[0])
+    metrics = {name: [steps[name](states[name], b)[1] for b in batches] for name in steps}
+    sync()
+    train_equal = all(torch.equal(a[k], b[k]) for a, b in zip(metrics["serial"],
+                                                             metrics["branch_parallel"])
+                      for k in ("loss", "grad_norm"))
+    pairs = list(zip(states["serial"]["optimizer"].leaves,
+                     states["branch_parallel"]["optimizer"].leaves))
+    params_unequal = sum(not torch.equal(a, b) for a, b in pairs)
+    bp_train = next(iter(steps["branch_parallel"].captures.values())).launches
+    rec["train"] = timed_turns({name: (lambda name=name: steps[name](states[name], batches[0]))
+                                for name in steps}, reps)
+    log(f"[schedule d] 3 captured train steps (crop 128, accum 16, 20-row MSA): loss and "
+        f"grad_norm bit-equal {train_equal}, {params_unequal} of {len(pairs)} param leaves "
+        f"differ; losses {[round(float(m['loss']), 5) for m in metrics['branch_parallel']]}; "
+        f"branch_parallel captured launches {dict((k, v) for k, v in bp_train.items() if v)}; "
+        f"{schedule_line('step', rec['train'])}")
+    del steps, states
+
+    overlap = {k: rec[k]["branch_parallel"]["cross_stream_ms"] for k in ("forward", "request",
+                                                                         "train")}
+    routes = (on_wgmma(eager_launches) and on_wgmma(bp_captured) and on_wgmma(bp_train))
+    ok = (eager_equal and request_equal and train_equal and params_unequal == 0
+          and routes and overlap["forward"] > 0)
+    rec.update({"eager_equal": eager_equal, "request_equal": request_equal,
+                "train_equal": train_equal, "params_unequal": params_unequal,
+                "overlap_ms": overlap, "on_wgmma": routes, "ok": ok})
+    RECORD["phases"]["schedule"] = rec
+    log(f"[schedule d] two streams at once (branch_parallel): forward {overlap['forward']:.3f} "
+        f"ms, captured request {overlap['request']:.3f} ms, captured step "
+        f"{overlap['train']:.3f} ms; all on wgmma {routes} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("branch_parallel differs from serial, left the wgmma routes, or its streams "
+             "never overlapped (phase 10d)")
+    return {"flash_fwd": eager_launches["flash_fwd"]}
+
+
+def phase_templates():
+    phase_templates_parity()
+    launches = phase_templates_request()
+    phase_templates_kernels()
+    phase_schedule()
+    return launches
+
+
 # --- phase 5: the kernels line -----------------------------------------------------
 
 
@@ -2939,6 +3424,7 @@ def main():
     launches.update(timed_phase("train", phase_train))
     launches.update(timed_phase("sp", phase_sp))
     timed_phase("ckpt", phase_ckpt)
+    timed_phase("templates", phase_templates)
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches)
     for k in kernels:

@@ -121,10 +121,12 @@ def test_bf16_forward_runs_close():
 def test_not_ported_options_raise():
     for kw, item in [
         (dict(reversible=True), "A8"),
-        (dict(trunk_schedule="branch_parallel"), "A4"),
     ]:
         with pytest.raises(NotImplementedError, match=item):
             Alphafold2Config(**SMALL, **kw)
+    # ported: the branch-parallel schedule (tests/test_torch_trunk_schedule.py)
+    bp = Alphafold2Config(**SMALL, trunk_schedule="branch_parallel")
+    assert bp.trunk_schedule == "branch_parallel"
     tcfg = Alphafold2Config(**SMALL, scan_layers=True)  # same math, a loop
     assert tcfg.scan_layers
     assert Alphafold2Config(**SMALL, remat=True).remat  # ported: checkpointed layers
@@ -134,12 +136,26 @@ def test_not_ported_options_raise():
         Alphafold2Config(**SMALL, remat=True, remat_policy="everything")
 
 
-def test_templates_raise():
-    _, _, tparams, tcfg = make_params(depth=1)
+def test_templates_run_as_in_jax():
+    """Templates, refused until the tower was ported, run through it:
+    the logits equal JAX's (tests/test_torch_templates.py holds the rest)."""
+    jparams, jcfg, tparams, tcfg = make_params(depth=1)
     seq, mask, _, _ = make_inputs(L=8, pad=0)
-    with pytest.raises(NotImplementedError, match="template"):
-        alphafold2_apply(tparams, tcfg, seq, templates=np.zeros((1, 1, 8, 8), np.int32),
-                         device="cpu")
+    templates = np.random.default_rng(2).integers(0, 37, (1, 1, 8, 8)).astype(np.int32)
+    jl = jax_apply(jparams, jcfg, seq, templates=templates)
+    tl = alphafold2_apply(tparams, tcfg, seq, templates=templates, device="cpu")
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=ATOL)
+
+
+def test_branch_parallel_runs_as_serial():
+    """trunk_schedule="branch_parallel", refused until it was ported, runs:
+    on the CPU the serial ops in the serial order, logits bit for bit."""
+    _, _, tparams, tcfg = make_params()
+    seq, mask, msa, msa_mask = make_inputs()
+    bp = Alphafold2Config(**SMALL, trunk_schedule="branch_parallel")
+    run = lambda cfg: alphafold2_apply(tparams, cfg, seq, msa, mask=mask,  # noqa: E731
+                                       msa_mask=msa_mask, device="cpu")
+    assert torch.equal(run(bp), run(tcfg))
 
 
 def test_range_checks():
