@@ -8,7 +8,9 @@ layouts, with one exception: the KV-compression conv weight, (k,
 in/groups, out) in JAX, is (out, in/groups, k) for
 `torch.nn.functional.conv1d` (the reverse of
 alphafold2_tpu/models/convert.py's torch -> JAX map). The template
-tower's leaves map like the trunk's. `params_from_jax` makes leaves
+tower's leaves map like the trunk's; so do the embedder's, the refiner's
+and the end-to-end {"model", "refiner"} tree's (`embedder_params_from_jax`,
+`refiner_params_from_jax`, `e2e_params_from_jax`). `params_from_jax` makes leaves
 float32, but int8 and bool leaves keep their type, so an int8 tree from
 the JAX package's `quantize_tree` maps over as {"qw": int8, "scale": f32}.
 
@@ -68,6 +70,27 @@ def params_from_jax(tree, cfg: Alphafold2Config, device=None):
     if len(tree["trunk"]) != cfg.depth:
         raise ValueError(f"tree has {len(tree['trunk'])} trunk layers, cfg.depth={cfg.depth}")
     return convert_tree(tree, resolve_device(device))
+
+
+def embedder_params_from_jax(tree, device=None):
+    """Map the JAX embedder's tree (`embedder_init`, numpy leaves) onto
+    `device` (default CUDA): the same names and layouts."""
+    return convert_tree(tree, resolve_device(device))
+
+
+def refiner_params_from_jax(tree, device=None):
+    """Map the JAX refiner's tree (`refiner_init`, numpy leaves) onto
+    `device` (default CUDA): the same names and layouts."""
+    return convert_tree(tree, resolve_device(device))
+
+
+def e2e_params_from_jax(tree, ecfg, device=None):
+    """Map the JAX end-to-end tree {"model", "refiner"} (`e2e_params_init`,
+    numpy leaves) onto `device` (default CUDA); `ecfg` is the port's
+    E2EConfig (its model config checks the trunk's depth). The inverse is
+    `params_to_jax`, which takes any tree of the port's."""
+    return {"model": params_from_jax(tree["model"], ecfg.model, device),
+            "refiner": refiner_params_from_jax(tree["refiner"], device)}
 
 
 # --- the inverse map and the state bridge -------------------------------------

@@ -166,17 +166,35 @@ def attention_apply(params, cfg: AttentionConfig, x, *, context=None,
         k, v, context_mask = _compress_kv(params, cfg, k, v, context_mask)
 
     h, dh = cfg.heads, cfg.dim_head
-    scale = dh ** -0.5
     q, k, v = (t.reshape(t.shape[0], t.shape[1], h, dh) for t in (q, k, v))
-    i, j = q.shape[1], k.shape[1]
     gate_logits = linear(params["to_gate"], x, dtype=dtype) if cfg.gate else None
+    out = attend(cfg, q, k, v, mask=mask, context_mask=context_mask,
+                 self_attention=not has_context, tie_dim=tie_dim, gate_logits=gate_logits,
+                 rng=rng)
+    return linear(params["to_out"], out, dtype=dtype)
+
+
+def attend(cfg: AttentionConfig, q, k, v, *, mask=None, context_mask=None,
+           self_attention: bool = True, tie_dim: Optional[int] = None, gate_logits=None,
+           rng=None):
+    """The attention core over heads q (b, i, h, dh), k / v (b, j, h, dh):
+    the flash path or the dense einsum by the module docstring's rule, the
+    optional output gate (gate_logits (b, i, h * dh)). mask / context_mask /
+    tie_dim / rng as `attention_apply`'s; self_attention: a missing
+    context_mask defaults to `mask`. Returns (b, i, h * dh) in cfg.dtype,
+    before the output projection."""
+    dtype = cfg.dtype
+    h, dh = cfg.heads, cfg.dim_head
+    scale = dh ** -0.5
+    i, j = q.shape[1], k.shape[1]
+    dropout_live = rng is not None and cfg.dropout > 0.0
 
     if (tie_dim is None and not dropout_live
             and _use_flash(cfg, q.shape[0], i, j, q.device)):
         # key-side masking only: masked query rows give finite values that
         # downstream masking discards (the dense path gives them uniform
         # attention instead)
-        if context_mask is None and mask is not None and not has_context:
+        if context_mask is None and mask is not None and self_attention:
             context_mask = mask
         key_bias = None
         if context_mask is not None:
@@ -190,8 +208,7 @@ def attention_apply(params, cfg: AttentionConfig, x, *, context=None,
             tile_elems=cfg.flash_tile_elems, kv_block=cfg.flash_kv_block,
             logit_dtype=dtype if cfg.flash_compute_dtype_logits else None,
         )
-        out = out.reshape(out.shape[0], i, h * dh)
-        return linear(params["to_out"], out, dtype=dtype)
+        return out.reshape(out.shape[0], i, h * dh)
 
     if tie_dim is not None:
         # (b*r, n, h, dh) -> (b, r, n, h, dh); logits shared across rows r
@@ -209,11 +226,11 @@ def attention_apply(params, cfg: AttentionConfig, x, *, context=None,
 
     if mask is not None or context_mask is not None:
         if mask is None:
-            mask = torch.ones((1, i), dtype=torch.bool, device=x.device)
+            mask = torch.ones((1, i), dtype=torch.bool, device=q.device)
         if context_mask is None:
             context_mask = (
-                mask if not has_context
-                else torch.ones((1, j), dtype=torch.bool, device=x.device)
+                mask if self_attention
+                else torch.ones((1, j), dtype=torch.bool, device=q.device)
             )
         pair_mask = mask[:, None, :, None] & context_mask[:, None, None, :]
         # f32 first: the f32 minimum does not fit in bf16 (JAX promotes too)
@@ -229,7 +246,7 @@ def attention_apply(params, cfg: AttentionConfig, x, *, context=None,
         out = out.reshape(out.shape[0], i, h * dh)
     if gate_logits is not None:
         out = apply_output_gate(out, gate_logits)
-    return linear(params["to_out"], out, dtype=dtype)
+    return out
 
 
 def _batch_chunked_attention(params, cfg: AttentionConfig, x, *, context,

@@ -8,8 +8,10 @@ the compute dtype. LayerNorm statistics are always float32.
 
 Initialisation follows the JAX package's (torch defaults): Linear
 U(-1/sqrt(fan_in), 1/sqrt(fan_in)), Embedding N(0, 1), LayerNorm ones and
-zeros. Random draws come from an explicit CPU `torch.Generator` and are
-moved to `device`, so a seed gives the same weights on every device.
+zeros. Random draws come from an explicit `torch.Generator`, on its own
+device, and are moved to `device`: a CPU generator gives a seed the same
+weights on every device; a CUDA generator draws on the card (a large model
+made there without a host copy).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 
 
 def uniform(gen: torch.Generator, shape, bound: float, device) -> torch.Tensor:
-    t = torch.rand(shape, generator=gen, dtype=torch.float32) * (2 * bound) - bound
+    t = torch.rand(shape, generator=gen, dtype=torch.float32, device=gen.device) * (2 * bound) - bound
     return t.to(device)
 
 
@@ -84,7 +86,8 @@ def layer_norm(params, x, eps: float = 1e-5):
 
 
 def embedding_init(gen, num_embeddings: int, dim: int, device):
-    table = torch.randn((num_embeddings, dim), generator=gen, dtype=torch.float32)
+    table = torch.randn((num_embeddings, dim), generator=gen, dtype=torch.float32,
+                        device=gen.device)
     return {"table": table.to(device)}
 
 

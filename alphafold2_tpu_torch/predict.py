@@ -1,5 +1,6 @@
-"""Inference entry point: amino-acid sequence -> CA trace -> PDB, on the
-port (counterpart of predict.py's CA-trace path).
+"""Inference entry point: amino-acid sequence -> CA trace -> PDB, or with
+--full-atom the whole structure pipeline -> N/CA/C/O PDB, on the port
+(counterpart of predict.py).
 
 Usage:
   python -m alphafold2_tpu_torch.predict --seq ACDEFGHIKLMNPQRSTVWY --out s.pdb
@@ -11,6 +12,7 @@ Usage:
   python -m alphafold2_tpu_torch.predict --seq ... --embedds-file e.npz
   python -m alphafold2_tpu_torch.predict --seq ... --ckpt-dir runs/pre --depth 1 \
       --max-seq-len 2048 --bf16
+  python -m alphafold2_tpu_torch.predict --seq ... --full-atom [--embedds-file e.npz]
 
 Parameters come from `--ckpt-dir` (the newest verified checkpoint there,
 `training/checkpoint.py`, written by either package's `train_pre`; the
@@ -26,6 +28,20 @@ needs N of them, as the JAX CLI needs N devices; with `--device cpu` the N
 shards run on the CPU. `--templates-file` (templates through the template
 tower) and `--embedds-file` (precomputed residue embeddings in place of
 an MSA) read the JAX CLI's .npz files and check them as it does.
+
+--full-atom runs `training/e2e.py predict_structure` (the trunk on the x3
+elongated sequence, one token per backbone atom -> distogram -> MDS with
+the mirror fix -> the side-chain lift -> the refiner of depth
+--refiner-depth) on parameters of the end-to-end tree {"model",
+"refiner"} (a JAX or port end-to-end checkpoint with --ckpt-dir), and
+writes the refined N/CA/C/O atoms with the mean of each residue's three
+per-atom confidences as B-factors. Its embeddings file is per residue and
+is elongated x3 here, and its templates file is over the 3L grid. With
+--sp-shards N the 3L grid must divide by N, as in the JAX CLI: padding
+would change the structure, since the trunk's pair mask (mask_i | mask_j,
+the reference's) lets pad keys into every real row. int8 weights
+with --full-atom are refused (ROADMAP A8-e2e-int8): the JAX full-atom CLI
+has no int8 arm.
 """
 
 from __future__ import annotations
@@ -39,12 +55,15 @@ import torch
 
 from alphafold2_tpu_torch.constants import aa_to_tokens
 from alphafold2_tpu_torch.device import resolve_device
+from alphafold2_tpu_torch.geometry.distogram import distogram_confidence
 from alphafold2_tpu_torch.geometry.pdb import coords_to_pdb
 from alphafold2_tpu_torch.models.alphafold2 import alphafold2_init
 from alphafold2_tpu_torch.models.config import Alphafold2Config
+from alphafold2_tpu_torch.models.refiner import RefinerConfig
 from alphafold2_tpu_torch.parallel import alphafold2_apply_sp, make_mesh
 from alphafold2_tpu_torch.serving.pipeline import predict_structure
 from alphafold2_tpu_torch.serving.quant_residency import resident_params
+from alphafold2_tpu_torch.training import e2e
 from alphafold2_tpu_torch.training.checkpoint import restore_params_for_inference
 
 
@@ -71,12 +90,13 @@ def load_embedds(ap, args, L):
     return embedds
 
 
-def load_templates(ap, path, L):
+def load_templates(ap, path, L, full_atom=False):
     """--templates-file's (templates, templates_mask), or (None, None): int
     arrays are distogram buckets (checked to lie in [0, 37)), float arrays
     raw distances the model buckets itself, so each keeps its kind; the
-    mask defaults to all-true. The JAX CLI's checks and messages (an
-    argparse error)."""
+    mask defaults to all-true. The pair grid is L x L, or with full_atom
+    the elongated 3L x 3L. The JAX CLI's checks and messages (an argparse
+    error)."""
     if path is None:
         return None, None
     raw = np.load(path)
@@ -100,10 +120,12 @@ def load_templates(ap, path, L):
         ap.error(f"--templates-file 'templates_mask' shape "
                  f"{tuple(templates_mask.shape)} does not match "
                  f"'templates' shape {tuple(templates.shape)}")
-    if templates.shape[-2:] != (L, L):
+    grid = 3 * L if full_atom else L
+    if templates.shape[-2:] != (grid, grid):
         ap.error(f"--templates-file pair grid is "
                  f"{templates.shape[-2]}x{templates.shape[-1]}; the "
-                 f"model's is {L}x{L} (L)")
+                 f"model's is {grid}x{grid} "
+                 f"({'3L, elongated' if full_atom else 'L'})")
     print(f"templates: {templates.shape[1]} x {templates.shape[-1]}^2 grids from {path}")
     return templates, templates_mask
 
@@ -148,7 +170,15 @@ def main(argv=None):
                     help="run the trunk sequence-parallel over this many cards (the "
                          "sequence length and the MSA rows must be multiples of it; "
                          "0 = one device)")
+    ap.add_argument("--full-atom", action="store_true",
+                    help="the full structure pipeline with the refiner (parameters of an "
+                         "end-to-end checkpoint with --ckpt-dir); writes N/CA/C/O atoms")
+    ap.add_argument("--refiner-depth", type=int, default=2)
     args = ap.parse_args(argv)
+    if args.full_atom and args.weight_dtype == "int8":
+        raise NotImplementedError(
+            "--weight-dtype int8 with --full-atom: the full-atom pipeline has no int8 "
+            "arm (nor has the JAX CLI's); not ported (ROADMAP A8-e2e-int8)")
 
     seq_str = args.seq.strip().upper()
     try:
@@ -156,6 +186,11 @@ def main(argv=None):
     except ValueError as e:
         ap.error(str(e))
     L = tokens.shape[1]
+    if args.full_atom and args.sp_shards and (3 * L) % args.sp_shards:
+        ap.error(f"--full-atom --sp-shards {args.sp_shards}: the elongated grid (3L = "
+                 f"{3 * L}) must divide by the shard count, as in the JAX CLI; padding "
+                 f"would change the structure (the trunk's pair mask, mask_i | mask_j, "
+                 f"lets pad keys into every real row)")
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -179,17 +214,21 @@ def main(argv=None):
                                  max_rows=args.max_msa_rows)
         print(f"MSA: {msa.shape[1]} rows x {msa.shape[2]} cols from {args.msa_file}")
     embedds = load_embedds(ap, args, L)
-    templates, templates_mask = load_templates(ap, args.templates_file, L)
+    templates, templates_mask = load_templates(ap, args.templates_file, L, args.full_atom)
 
     cfg = Alphafold2Config(
         dim=args.dim, depth=args.depth, heads=args.heads, dim_head=args.dim_head,
-        max_seq_len=args.max_seq_len or max(64, L),
+        max_seq_len=args.max_seq_len or max(64, 3 * L if args.full_atom else L),
         max_num_msa=args.max_num_msa or max(20, msa.shape[1] if msa is not None else 0),
         **({"num_embedds": embedds.shape[-1]} if embedds is not None else {}),
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         weight_dtype=args.weight_dtype,
     )
     gen = torch.Generator().manual_seed(args.seed)
+    if args.full_atom:
+        predict_full_atom(args, cfg, tokens, seq_str, msa, msa_mask, embedds, templates,
+                          templates_mask, gen, device, model_apply_fn)
+        return
     # checkpoints hold f32 masters: restore against the f32 twin of the
     # config, then quantize as the weights are served
     restore_cfg = dataclasses.replace(cfg, weight_dtype="f32")
@@ -211,6 +250,37 @@ def main(argv=None):
     coords_to_pdb(args.out, np.asarray(trace, np.float64), sequence=seq_str,
                   atom_names=("CA",), bfactors=100.0 * conf)
     print(f"wrote {args.out} ({L} residues)")
+
+
+def predict_full_atom(args, cfg, tokens, seq_str, msa, msa_mask, embedds, templates,
+                      templates_mask, gen, device, model_apply_fn):
+    """sequence -> refined 14-atom cloud -> N/CA/C/O PDB (the JAX CLI's
+    `_predict_full_atom`): the end-to-end parameters (restored from
+    --ckpt-dir, or the port's init from --seed), `training/e2e.py
+    predict_structure` under inference mode, then the per-residue mean of
+    the three per-atom distogram confidences as B-factors."""
+    L = tokens.shape[1]
+    ecfg = e2e.E2EConfig(model=cfg,
+                         refiner=RefinerConfig(num_tokens=14, dim=64, depth=args.refiner_depth),
+                         mds_iters=args.mds_iters, mds_init=args.mds_init)
+    params, _, _ = restore_params_for_inference(
+        args.ckpt_dir, lambda: e2e.e2e_params_init(ecfg, gen, device))
+    if embedds is not None:
+        # per-residue embeddings -> one per backbone atom (x3 elongation)
+        embedds = np.repeat(embedds, 3, axis=1)
+    with torch.inference_mode():
+        out = e2e.predict_structure(
+            params, ecfg, tokens, msa=msa, msa_mask=msa_mask, embedds=embedds,
+            templates=templates, templates_mask=templates_mask,
+            model_apply_fn=model_apply_fn, mds_generator=gen,
+            device=None if model_apply_fn else device)
+        conf3 = distogram_confidence(torch.softmax(out["distogram_logits"], dim=-1))
+    backbone = out["refined"][0, :, :4].cpu().numpy()  # the N, CA, C, O slots
+    conf = conf3[0].cpu().numpy().reshape(L, 3).mean(axis=1)
+    print(f"mean confidence: {100 * conf.mean():.1f}/100")
+    coords_to_pdb(args.out, np.asarray(backbone.reshape(-1, 3), np.float64), sequence=seq_str,
+                  atom_names=("N", "CA", "C", "O"), bfactors=100.0 * conf)
+    print(f"wrote {args.out} ({L} residues, full pipeline)")
 
 
 if __name__ == "__main__":

@@ -154,8 +154,8 @@ class CapturedExecutable:
 
     def _back(self):
         coords = classical_embed(self.evals, self.evecs)
-        coords, stresses = guttman(self.geo["distances"], self.geo["weights"], coords,
-                                   self.mds_iters)
+        coords, stresses, _ = guttman(self.geo["distances"], self.geo["weights"], coords,
+                                      self.mds_iters, tol=float("-inf"))  # as the pipeline
         return {"coords": coords.transpose(1, 2), "confidence": self.geo["confidence"],
                 "stress": stresses[-1]}
 

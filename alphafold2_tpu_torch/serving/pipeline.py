@@ -90,7 +90,11 @@ def predict_structure(params, cfg, tokens, *, mask=None, msa=None,
             dev = logits.device
         geo = distogram_geometry(logits, as_device_tensor(mask, dev, torch.bool))
         coords = initial_coords(geo["distances"], mds_init, generator)
-        coords, stresses = guttman(geo["distances"], geo["weights"], coords, mds_iters)
+        # no convergence freeze: its flag averages the improvement over the
+        # batch, which would make a request's coordinates depend on its
+        # batch-mates (the JAX serving pipeline passes tol=-inf too)
+        coords, stresses, _ = guttman(geo["distances"], geo["weights"], coords, mds_iters,
+                                      tol=float("-inf"))
     return {
         "coords": coords.transpose(1, 2),
         "confidence": geo["confidence"],

@@ -166,6 +166,35 @@ each phase prints its seconds):
          3 captured train steps at train_pre's defaults with a 20-row MSA;
          their ms (median of 5, in turns), busy share and the ms the two
          streams' kernels overlap (torch.profiler's trace);
+  11. the full-atom path (`training/e2e.py predict_structure`: the trunk
+     on the x3 elongated sequence -> distogram -> MDS with the mirror fix
+     -> the side-chain lift -> the refiner; the ESM-1b embedder,
+     `models/embedder.py`):
+     (a) f32, card against CPU on the same parameters: the embedder (2
+         layers at ESM-1b's width 1280, 20 heads, batch 2, one row padded,
+         one <mask> token; representations 1e-4 * max(1, |ref|)), then e2e
+         `predict_structure` at L = 32 (grid 96) on its embeddings, 20 MDS
+         iterations, classical init, refiner depth 2 with a non-zero
+         coordinate head: logits 1e-4, confidence 1e-5, the refined
+         cloud's pairwise distances 1e-2 A, the phi ratios equal;
+     (b) ESM-1b at full width (33 layers, random weights drawn on the
+         card) at L = 128 and 384, f32 and bf16: ms, 33 B1f launches an
+         embed (every bf16 one on the wgmma route), peak memory, each
+         residue's bf16 cosine with f32 >= 0.99; B1f alone at the
+         embedder's shapes (20, L + 2, L + 2) at dh 64, bf16 and f32,
+         against its plain version, with SDPA and the bound;
+     (c) the full-atom request at the serving config (bf16 trunk, f32
+         geometry, 200 MDS iterations, classical init, refiner depth 2) at
+         L = 128 and 256 on ESM-1b embeddings: B1f's first launch at each
+         of the request's shapes (the embedder's, the pair axial (8 x 3L,
+         3L, 3L), the embedds cross (8, 9L^2, 9L^2)) held against its
+         plain version on sampled rows, with its ms and bound; each
+         stage's ms (embed, trunk, distogram, MDS + mirror, side chains,
+         refiner; events from `predict_structure`'s stage hook), the
+         request's host ms and peak memory, finiteness, its 45 flash
+         launches all on the wgmma route;
+     (d) `python -m alphafold2_tpu_torch.predict --full-atom --bf16` on 64
+         residues in a process of its own: rc 0, a PDB of 4 L atoms;
   5. a `kernels` JSON line (thirteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, B3's forward and its two backward kernels), the card line,
@@ -211,7 +240,21 @@ from alphafold2_tpu_torch.ops import (  # noqa: E402
     sparse_kernel,
 )
 from alphafold2_tpu_torch.constants import AA_ORDER, PAD_TOKEN_ID  # noqa: E402
+from alphafold2_tpu_torch.geometry import (  # noqa: E402
+    calc_phis,
+    scn_backbone_mask,
+)
+from alphafold2_tpu_torch.geometry.distogram import distogram_confidence  # noqa: E402
+from alphafold2_tpu_torch.geometry.pdb import parse_pdb  # noqa: E402
 from alphafold2_tpu_torch.models.alphafold2 import template_tower_apply  # noqa: E402
+from alphafold2_tpu_torch.models.embedder import (  # noqa: E402
+    ESM_IDX,
+    EmbedderConfig,
+    embed_sequences,
+    embedder_apply,
+    embedder_init,
+    esm_tokenize,
+)
 from alphafold2_tpu_torch.ops.attention import AttentionConfig, attention_init  # noqa: E402
 from alphafold2_tpu_torch.parallel import (  # noqa: E402
     alphafold2_apply_sp,
@@ -231,6 +274,7 @@ from alphafold2_tpu_torch.training.checkpoint import (  # noqa: E402
     open_or_init,
     restore_params_for_inference,
 )
+from alphafold2_tpu_torch.training import e2e  # noqa: E402
 from alphafold2_tpu_torch.training.data import DataConfig, synthetic_microbatch_fn  # noqa: E402
 from alphafold2_tpu_torch.training.executable import CapturedTrainStep  # noqa: E402
 from alphafold2_tpu_torch.training.harness import (  # noqa: E402
@@ -3257,6 +3301,390 @@ def phase_templates():
     return launches
 
 
+# --- phase 11: the full-atom path --------------------------------------------------
+
+ESM1B_FLASH = 33      # B1f launches an ESM-1b embed: one self-attention a layer
+E2E_TRUNK_FLASH = 6   # flash forwards a trunk layer with the embedds grid stream
+ESM1B_LENGTHS = (128, 384)     # (b)'s residues
+FULL_ATOM_LENGTHS = (128, 256)  # (c)'s residues: grids 384 and 768
+
+
+def to_device(tree, device):
+    """A parameter tree's tensors copied to `device`."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def full_atom_params(ecfg, device, seed=0):
+    """End-to-end parameters from a seed, the refiner's coordinate head
+    given random non-zero weights (it is zero at init: the identity)."""
+    params = e2e.e2e_params_init(ecfg, torch.Generator().manual_seed(seed), device)
+    g = torch.Generator().manual_seed(seed + 1)
+    for layer in params["refiner"]["layers"]:
+        for t in layer["coord_mlp"]["l2"].values():
+            t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+    return params
+
+
+def phi_ratio(cloud):
+    """The fraction of negative phis of a (b, L, 14, 3) cloud's backbone."""
+    b, L = cloud.shape[:2]
+    n_mask, ca_mask = scn_backbone_mask(np.zeros((1, L)), l_aa=3)
+    bb = cloud[:, :, :3].reshape(b, 3 * L, 3).transpose(1, 2)
+    return calc_phis(bb, n_mask, ca_mask).tolist()
+
+
+def phase_full_atom_parity():
+    """(a) f32, the card against the CPU on the same parameters: the
+    embedder (2 layers at ESM-1b's width, batch 2, one row's last quarter
+    padded, one <mask> token; representations on valid tokens at 1e-4 *
+    max(1, |ref|)), then e2e `predict_structure` at L = 32 (grid 96) on its
+    embeddings (x3), 20 MDS iterations, classical init, refiner depth 2
+    with a non-zero coordinate head: logits 1e-4, confidence 1e-5, the
+    refined cloud's pairwise distances 1e-2 A on the cloud mask, the phi
+    ratios equal. Launches: 2 B1f for the embed, 12 for the trunk, all on
+    the f32 route."""
+    ecfg = EmbedderConfig(num_layers=2, dim=1280, heads=20, max_len=64)
+    cpu_p = embedder_init(ecfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_p = to_device(cpu_p, "cuda")
+    L = 32
+    rng = np.random.default_rng(11)
+    seq = rng.integers(0, 20, (2, L)).astype(np.int32)
+    mask = np.ones((2, L), bool)
+    mask[1, 3 * L // 4:] = False
+    tokens, fmask = esm_tokenize(seq, mask)
+    tokens[0, 5] = ESM_IDX["<mask>"]
+    with torch.inference_mode():
+        reset_launches()
+        g = embedder_apply(gpu_p, ecfg, tokens, fmask)
+        sync()
+        emb_launches = launch_counts()
+        c = embedder_apply(cpu_p, ecfg, tokens, fmask)
+        ref = c[fmask]
+        d_repr = (g.cpu()[fmask] - ref).abs().max().item()
+        repr_tol = 1e-4 * max(1.0, ref.abs().max().item())
+        emb = np.repeat(embed_sequences(cpu_p, ecfg, seq[:1]).numpy(), 3, axis=1)
+
+    cfg = Alphafold2Config(dim=64, depth=2, heads=2, dim_head=32, max_seq_len=3 * L)
+    e2e_cfg = e2e.E2EConfig(model=cfg, mds_iters=20, mds_init="classical")
+    params = full_atom_params(e2e_cfg, "cpu")
+    out = {}
+    with torch.inference_mode():
+        reset_launches()
+        out["cuda"] = e2e.predict_structure(to_device(params, "cuda"), e2e_cfg, seq[:1],
+                                            embedds=emb, device="cuda")
+        sync()
+        e2e_launches = launch_counts()
+        out["cpu"] = e2e.predict_structure(params, e2e_cfg, seq[:1], embedds=emb, device="cpu")
+    g_out = {k: v.cpu() for k, v in out["cuda"].items()}
+    c_out = out["cpu"]
+    d_logits = (g_out["distogram_logits"] - c_out["distogram_logits"]).abs().max().item()
+    conf = [distogram_confidence(torch.softmax(o["distogram_logits"], dim=-1))
+            for o in (g_out, c_out)]
+    d_conf = (conf[0] - conf[1]).abs().max().item()
+    sel = c_out["cloud_mask"][0].reshape(-1)
+    clouds = [o["refined"][0].reshape(-1, 3)[sel] for o in (g_out, c_out)]
+    d_dist = (pairwise(clouds[0]) - pairwise(clouds[1])).abs().max().item()
+    phis = [phi_ratio(o["refined"]) for o in (g_out, c_out)]
+    moved = (c_out["refined"] - c_out["proto"]).abs().max().item()
+    finite = all(bool(torch.isfinite(v.float()).all()) for v in g_out.values())
+    n = E2E_TRUNK_FLASH * cfg.depth
+    want_emb = {k: {"flash_fwd": 2, "flash_fwd_f32": 2}.get(k, 0) for k in emb_launches}
+    want_e2e = {k: {"flash_fwd": n, "flash_fwd_f32": n}.get(k, 0) for k in e2e_launches}
+    ok = (d_repr <= repr_tol and d_logits <= 1e-4 and d_conf <= 1e-5 and d_dist <= 1e-2
+          and phis[0] == phis[1] and moved > 1e-3 and finite and emb_launches == want_emb
+          and e2e_launches == want_e2e)
+    log(f"[full-atom a] embedder (2 layers, 1280, 20 heads, batch 2, padded, <mask>), f32 card "
+        f"vs cpu: representations |d|={d_repr:.2e} (tol {repr_tol:.2e}); e2e L={L} (grid "
+        f"{3 * L}), ESM embeddings, 20 MDS iterations: logits |d|={d_logits:.2e} (1e-4), "
+        f"confidence |d|={d_conf:.2e} (1e-5), refined distances |d|={d_dist:.2e} A (1e-2), "
+        f"phi ratio card {phis[0]} cpu {phis[1]}, the refiner moved atoms {moved:.3f} A; "
+        f"launches embed {dict((k, v) for k, v in emb_launches.items() if v)}, e2e "
+        f"{dict((k, v) for k, v in e2e_launches.items() if v)} {'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["full_atom_parity"] = {
+        "repr": d_repr, "repr_tol": repr_tol, "logits": d_logits, "confidence": d_conf,
+        "distances": d_dist, "phi_ratio": phis, "refiner_moved": moved, "finite": finite,
+        "embed_launches": emb_launches, "e2e_launches": e2e_launches, "ok": ok}
+    if not ok:
+        fail("the full-atom path: the card and the CPU disagree, or launches differ "
+             "(phase 11a)")
+
+
+def phase_esm1b(params, reps=5):
+    """(b) ESM-1b at full width (33 layers, 1280, 20 heads, max_len 1024;
+    random weights drawn on the card) at L = 128 and 384 residues, f32
+    and bf16: ms (CUDA events, median of `reps` after a warm-up), B1f
+    launches (33 an embed; every bf16 one on the wgmma route), peak
+    memory, and each residue's bf16 representation's cosine with f32
+    (>= 0.99). Then B1f alone at the embedder's shapes, (20, L + 2, L + 2)
+    at dh 64 in bf16 and f32, against its plain version, with the
+    mma_sync route, SDPA and the bound (phase 3's check)."""
+    cfg = EmbedderConfig()
+    rows, kernel_rows = [], []
+    for L in ESM1B_LENGTHS:
+        seq = np.random.default_rng(L).integers(0, 20, (1, L)).astype(np.int32)
+        reps_out = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            with torch.inference_mode():
+                embed_sequences(params, c, seq)
+                sync()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                reps_out[dtype] = embed_sequences(params, c, seq).float()
+                sync()
+                launches = launch_counts()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                ms = sorted(forward_ms(lambda: embed_sequences(params, c, seq), reps))[reps // 2]
+            route = "wgmma" if dtype == torch.bfloat16 else "f32"
+            want = {k: {"flash_fwd": ESM1B_FLASH, f"flash_fwd_{route}": ESM1B_FLASH}.get(k, 0)
+                    for k in launches}
+            finite = bool(torch.isfinite(reps_out[dtype]).all())
+            row = {"L": L, "dtype": str(dtype), "ms": ms, "peak_gib": peak, "launches": launches,
+                   "finite": finite, "ok": finite and launches == want}
+            rows.append(row)
+        cos = F.cosine_similarity(reps_out[torch.bfloat16], reps_out[torch.float32], dim=-1)
+        rows[-1]["min_cosine"] = cos.min().item()
+        rows[-1]["ok"] = rows[-1]["ok"] and rows[-1]["min_cosine"] >= 0.99
+        for r in rows[-2:]:
+            log(f"[full-atom b] ESM-1b (33 x 1280, 20 heads) L={L} {r['dtype'].split('.')[-1]}: "
+                f"{r['ms']:.2f} ms (events, median of {reps}), peak {r['peak_gib']:.2f} GiB, "
+                f"launches {dict((k, v) for k, v in r['launches'].items() if v)}"
+                + (f", min residue cosine bf16 vs f32 {r['min_cosine']:.5f} (>= 0.99)"
+                   if "min_cosine" in r else "") + f" {'ok' if r['ok'] else 'FAIL'}")
+        for dtype in (torch.bfloat16, torch.float32):
+            kernel_rows.append(check_kernel("flash_fwd", f"ESM-1b L={L}", 20, L + 2, L + 2, 64,
+                                            dtype, timed=True))
+    RECORD["phases"]["esm1b"] = rows
+    RECORD["phases"]["esm1b_kernels"] = kernel_rows
+    if not all(r["ok"] for r in rows):
+        fail("ESM-1b at full width: not finite, launches off B1f's wgmma route in bf16, or "
+             "bf16 strays from f32 (phase 11b)")
+    if not all(r["ok"] for r in kernel_rows) or any(
+            r["route"] != "wgmma" for r in kernel_rows if "bfloat16" in r["dtype"]):
+        fail("B1f at the embedder's shapes disagrees with its plain version or left the "
+             "wgmma route in bf16 (phase 11b)")
+
+
+class StageEvents:
+    """A `stage` hook for `e2e.predict_structure` (and the embed before it):
+    CUDA events around each stage, read after a sync."""
+
+    def __init__(self):
+        self.events = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end.record()
+            self.events.setdefault(name, []).append((start, end))
+
+    def ms(self):
+        sync()
+        return {name: [a.elapsed_time(b) for a, b in pairs] for name, pairs in self.events.items()}
+
+
+@contextlib.contextmanager
+def kept_flash_calls(kept):
+    """While open, the first B1f call at each (q shape, k shape, dtype)
+    keeps its inputs and outputs in `kept` (clones): the path's own
+    tensors, held against the plain version afterwards."""
+    launch = flash_kernel.flash_fwd
+
+    def keeping(q, k, v, bias, scale):
+        out, lse = launch(q, k, v, bias, scale)
+        key = (tuple(q.shape), tuple(k.shape), str(q.dtype))
+        if key not in kept:
+            kept[key] = tuple(t.clone() for t in (q, k, v, bias)) + (scale, out.clone(),
+                                                                      lse.clone())
+        return out, lse
+
+    flash_kernel.flash_fwd = keeping
+    try:
+        yield kept
+    finally:
+        flash_kernel.flash_fwd = launch
+
+
+def sampled(n, k, gen):
+    """At most k indices of range(n), on the card: the first and last k // 4
+    (the largest offsets) and the rest drawn between them, sorted."""
+    if n <= k:
+        return torch.arange(n, device="cuda")
+    edge = k // 4
+    mid = torch.randperm(n - 2 * edge, generator=gen)[:k - 2 * edge].sort().values + edge
+    return torch.cat([torch.arange(edge), mid, torch.arange(n - edge, n)]).cuda()
+
+
+def check_path_flash(label, call, reps=2):
+    """B1f's output and lse from the path's own launch, held against its
+    plain version on the same inputs: at most 64 of the (batch x head)
+    rows and 256 query rows, each against all keys (the full plain run of
+    a (9L^2)^2 cross is out of reach), with phase 3's tolerance. Then
+    the kernel's ms on those inputs (CUDA events, mean of `reps`) beside
+    its bound."""
+    q, k, v, bias, scale, out, lse = call
+    BH, i, dh = q.shape
+    gen = torch.Generator().manual_seed(i)
+    bh, rows = sampled(BH, 64, gen), sampled(i, 256, gen)
+    ref_out, ref_lse = flash_kernel.flash_fwd_plain(q[bh][:, rows].contiguous(), k[bh], v[bh],
+                                                    bias[bh], scale)
+    got, got_lse = out[bh][:, rows], lse[bh][:, rows]
+    ref_max = ref_out.float().abs().max().item()
+    tol = 1e-5 * max(1.0, ref_max) if q.dtype == torch.float32 else BF16_ULP * ref_max
+    err = (got.float() - ref_out.float()).abs().max().item()
+    lse_err = (got_lse - ref_lse).abs().max().item()
+    which = flash_kernel.route(q, k, v, bias)
+    ok = err <= tol and lse_err <= 1e-4 and bool(torch.isfinite(out).all())
+    t_ops, t_bytes = bound_terms(q, k, v, bias, None)
+    row = {"kernel": "flash_fwd", "case": label, "shape": [BH, i, k.shape[1], dh],
+           "dtype": str(q.dtype), "route": which, "rows_checked": [len(bh), len(rows)],
+           "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
+           "kernel_ms": time_ms(lambda: flash_kernel.flash_fwd(q, k, v, bias, scale), reps),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "ok": ok}
+    log(f"[full-atom c] B1f {label:24s} {str(tuple(row['shape'])):30s} "
+        f"{str(q.dtype).split('.')[-1]:8s} {which:8s} {len(bh)} x {len(rows)} rows vs plain: "
+        f"max|d|={err:.3e} (tol {tol:.3e}) lse|d|={lse_err:.2e} kernel_ms={row['kernel_ms']:.3f} "
+        f"bound_ms={row['bound_ms']:.3f} {'ok' if ok else 'FAIL'}")
+    return row
+
+
+def phase_full_atom_request(esm_params, reps=3):
+    """(c) The full-atom request at the serving config (dim 256, depth 2,
+    heads 8, dim_head 64, bf16 trunk, f32 geometry, 200 MDS iterations,
+    classical init, refiner depth 2) at L = 128 (grid 384) and 256 (grid
+    768), on ESM-1b (bf16) embeddings: the embed and `e2e.predict_structure`.
+    A warm-up request keeps the first B1f launch at each of its shapes
+    (the embedder's, the pair grid's axial (8 x 3L, 3L, 3L) and the
+    embedds stream's cross (8, 9L^2, 9L^2)), each held against the plain
+    version. One request (synchronised): its host ms, peak memory,
+    finiteness and flash launches (counts set to 0 just before it, read
+    just after: 33 for the embed and 6 a trunk layer, every one on the
+    wgmma route). Then `reps` requests with CUDA events around each stage
+    (the `stage` hook of `predict_structure`): medians."""
+    rows = []
+    for L in FULL_ATOM_LENGTHS:
+        cfg = served_config(max_seq_len=3 * L, num_embedds=EmbedderConfig().dim)
+        ecfg = e2e.E2EConfig(model=cfg, mds_iters=200, mds_init="classical")
+        params = full_atom_params(ecfg, "cuda")
+        seq = np.random.default_rng(100 + L).integers(0, 20, (1, L)).astype(np.int32)
+        esm_cfg = EmbedderConfig(dtype=torch.bfloat16)
+
+        def request(stage=None):
+            with (stage or (lambda name: contextlib.nullcontext()))("embed"):
+                emb = torch.repeat_interleave(
+                    embed_sequences(esm_params, esm_cfg, seq).float(), 3, dim=1)
+            return e2e.predict_structure(params, ecfg, seq, embedds=emb, device="cuda",
+                                         stage=stage)
+
+        with torch.inference_mode():
+            with kept_flash_calls({}) as kept:
+                request()
+            sync()
+            kernel_rows = [check_path_flash(f"full-atom L={L} {'x'.join(map(str, key[0]))}",
+                                            call) for key, call in kept.items()]
+            del kept
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = request()
+            sync()
+            host = (time.perf_counter() - t0) * 1e3
+            launches = launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            timer = StageEvents()
+            for _ in range(reps):
+                request(timer)
+            stage_ms = timer.ms()
+            med = {name: sorted(v)[reps // 2] for name, v in stage_ms.items()}
+            finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values()
+                         if v.is_floating_point())
+        n = ESM1B_FLASH + E2E_TRUNK_FLASH * cfg.depth
+        want = {k: {"flash_fwd": n, "flash_fwd_wgmma": n}.get(k, 0) for k in launches}
+        kernels_ok = (all(r["ok"] and r["route"] == "wgmma" for r in kernel_rows)
+                      and any(r["shape"][1] == 9 * L * L for r in kernel_rows))
+        ok = finite and launches == want and kernels_ok
+        row = {"L": L, "grid": 3 * L, "atoms": 14 * L, "stage_ms": med, "stage_samples": stage_ms,
+               "host_ms": host, "peak_gib": peak, "finite": finite, "launches": launches,
+               "kernels": kernel_rows, "ok": ok}
+        rows.append(row)
+        log(f"[full-atom c] served config bf16, L={L} (grid {3 * L}, {14 * L} atoms), 200 MDS "
+            f"iterations: " + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+            + f" ms (events, medians of {reps}); the request {host:.1f} ms (host); peak "
+            f"{peak:.2f} GiB; finite={finite}; launches "
+            f"{dict((k, v) for k, v in launches.items() if v)} (expected {n}, all wgmma); "
+            f"B1f at the path's {len(kernel_rows)} shapes vs plain "
+            f"{'ok' if kernels_ok else 'FAIL'} {'ok' if ok else 'FAIL'}")
+        del params, out
+        torch.cuda.empty_cache()
+    RECORD["phases"]["full_atom_request"] = rows
+    if not all(r["ok"] for r in rows):
+        fail("the full-atom request is not finite, left B1f's wgmma route, or B1f at its "
+             "shapes disagrees with the plain version (phase 11c)")
+    return rows
+
+
+def phase_full_atom_cli(L=64):
+    """(d) `python -m alphafold2_tpu_torch.predict --full-atom` in a process
+    of its own on one sequence of 64 residues: rc 0, a PDB of 4 L atoms
+    (N, CA, C, O) that parses back, and the printed mean confidence."""
+    seq = "".join(np.random.default_rng(64).choice(list(AA_ORDER), L))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    pdb = out_dir / "full_atom.pdb"
+    cmd = [sys.executable, "-m", "alphafold2_tpu_torch.predict", "--seq", seq, "--full-atom",
+           "--bf16", "--out", str(pdb)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    conf = [line for line in lines if line.startswith("mean confidence")]
+    atoms = []
+    if res.returncode == 0 and pdb.exists():
+        s = parse_pdb(str(pdb))
+        atoms = [a.name for a in s.atoms]
+        finite = bool(np.isfinite(s.coords()).all())
+    else:
+        finite = False
+    ok = (res.returncode == 0 and atoms == ["N", "CA", "C", "O"] * L and finite
+          and len(conf) == 1)
+    log(f"[full-atom d] predict --full-atom --bf16, {L} residues: rc {res.returncode} in "
+        f"{seconds:.1f} s; {len(atoms)} atoms; " + " | ".join(lines)
+        + f" {'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["full_atom_cli"] = {"cmd": cmd[1:], "rc": res.returncode, "stdout": lines,
+                                         "stderr_tail": res.stderr[-2000:], "atoms": len(atoms),
+                                         "seconds": seconds, "ok": ok}
+    if not ok:
+        fail(f"predict --full-atom on the card failed (phase 11d): {res.stderr[-1000:]}")
+
+
+def phase_full_atom():
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        RECORD["phases"][f"full_atom_{key}_s"] = time.perf_counter() - t
+        log(f"[time] full-atom {key}: {RECORD['phases'][f'full_atom_{key}_s']:.1f} s")
+        return result
+
+    timed("a", phase_full_atom_parity)
+    esm_params = embedder_init(EmbedderConfig(), torch.Generator(device="cuda").manual_seed(0),
+                               "cuda")
+    timed("b", phase_esm1b, esm_params)
+    timed("c", phase_full_atom_request, esm_params)
+    del esm_params
+    torch.cuda.empty_cache()
+    timed("d", phase_full_atom_cli)
+
+
 # --- phase 5: the kernels line -----------------------------------------------------
 
 
@@ -3425,6 +3853,7 @@ def main():
     launches.update(timed_phase("sp", phase_sp))
     timed_phase("ckpt", phase_ckpt)
     timed_phase("templates", phase_templates)
+    timed_phase("full_atom", phase_full_atom)
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches)
     for k in kernels:

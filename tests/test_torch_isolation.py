@@ -54,7 +54,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "serving.executable", "serving.bucketing", "serving.cache", "serving.errors",
                  "serving.metrics", "reliability.breaker", "telemetry.registry",
                  "training.checkpoint", "training.resilience", "reliability.faults",
-                 "reliability.preemption"):
+                 "reliability.preemption", "models.embedder", "models.refiner",
+                 "training.e2e", "geometry.masks", "geometry.dihedral", "geometry.kabsch",
+                 "geometry.metrics", "geometry.sidechain"):
         assert f"alphafold2_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -173,3 +175,37 @@ def test_params_on_another_device_are_refused():
     params["head_out"]["w"] = params["head_out"]["w"].to("meta")
     with pytest.raises(ValueError, match="parameters lie on"):
         alphafold2_apply(params, cfg, np.zeros((1, 4), np.int32), device="cpu")
+
+
+def test_full_atom_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    """`predict --full-atom`, the end-to-end forward and the embedder and
+    refiner inits refuse to run quietly on the CPU; with --device cpu /
+    device="cpu" they run."""
+    from alphafold2_tpu_torch.models import embedder, refiner
+    from alphafold2_tpu_torch.predict import main
+    from alphafold2_tpu_torch.training import e2e
+
+    gen = torch.Generator().manual_seed(0)
+    args = ["--seq", "MKTAYIAKQR", "--full-atom", "--dim", "16", "--depth", "1", "--heads",
+            "2", "--dim-head", "8", "--mds-iters", "2", "--out", str(tmp_path / "f.pdb")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        embedder.embedder_init(embedder.EmbedderConfig(num_layers=1, dim=16, heads=2), gen,
+                               None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        refiner.refiner_init(refiner.RefinerConfig(), gen, None)
+    ecfg = e2e.E2EConfig(model=Alphafold2Config(dim=16, depth=1, heads=2, dim_head=8,
+                                                max_seq_len=32), mds_iters=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        e2e.e2e_params_init(ecfg, gen, None)
+    params = e2e.e2e_params_init(ecfg, gen, "cpu")
+    tokens = np.zeros((1, 6), np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        e2e.predict_structure(params, ecfg, tokens)
+    # the explicit CPU requests run
+    with torch.inference_mode():
+        out = e2e.predict_structure(params, ecfg, tokens, device="cpu")
+    assert out["refined"].shape == (1, 6, 14, 3)
+    main(args + ["--device", "cpu"])
+    assert (tmp_path / "f.pdb").exists()

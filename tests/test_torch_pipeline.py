@@ -84,7 +84,7 @@ def test_mds_on_a_helix():
     jc, js = jax_mds(jnp.asarray(d), weights=jnp.asarray(w), iters=20, tol=-jnp.inf,
                      init="classical")
     tc, ts = mds(torch.from_numpy(d), weights=torch.from_numpy(w), iters=20,
-                 init="classical")
+                 tol=float("-inf"), init="classical")
     assert ts.shape == (20, 1)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-3, atol=1e-6)
     dj = pairwise(np.asarray(jc).transpose(0, 2, 1))
