@@ -26,9 +26,12 @@ def _bin_centers(bins: torch.Tensor) -> torch.Tensor:
 def _default_bins(dtype: torch.dtype, device: torch.device):
     """(DISTANCE_THRESHOLDS, their bucket centers) on `device`, made there
     once: a copy from the host cannot be captured into a CUDA graph
-    (serving/executable.py)."""
-    bins = torch.as_tensor(DISTANCE_THRESHOLDS, dtype=dtype, device=device)
-    return bins, _bin_centers(bins.clone())
+    (serving/executable.py). Made outside inference mode even when the
+    first call is inside it, so a later training step (which saves the
+    centers for its backward) can use them."""
+    with torch.inference_mode(False):
+        bins = torch.as_tensor(DISTANCE_THRESHOLDS, dtype=dtype, device=device)
+        return bins, _bin_centers(bins.clone())
 
 
 def center_distogram(distogram, bins=None, center: str = "mean", wide: str = "std"):

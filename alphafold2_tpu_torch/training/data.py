@@ -3,11 +3,12 @@ around a batch source (a copy of the numpy-only part of
 alphafold2_tpu/training/data.py: for a seed the batches are the JAX
 package's arrays).
 
-Protein-like C-alpha traces (fixed-step random walk, ~3.8 A bond length),
-so training runs without a dataset. Batch `i` is a pure function of
-(seed, i). `ResilientBatches` retries a failed fetch and skips a record
-that keeps failing; a retry refetches the same step, so recovery stays
-bit-exact.
+Protein-like C-alpha traces (fixed-step random walk, ~3.8 A bond length)
+for distogram pretraining, and full-atom clouds around a noisy helix for
+end-to-end structure training, so training runs without a dataset. Batch
+`i` is a pure function of (seed, i). `ResilientBatches` retries a failed
+fetch and skips a record that keeps failing; with a step-indexed fetch a
+retry refetches the same step, so recovery stays bit-exact.
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ import time
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 from alphafold2_tpu_torch.constants import NUM_AMINO_ACIDS
+from alphafold2_tpu_torch.geometry.sidechain import sidechain_container
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +61,36 @@ def synthetic_batches(cfg: DataConfig, start_index: int = 0) -> Iterator[dict]:
         yield batch
 
 
+def synthetic_structure_batches(cfg: DataConfig, start_index: int = 0) -> Iterator[dict]:
+    """Endless full-atom batches for end-to-end structure training: {"seq":
+    (b, L) int32, "mask": (b, L) bool (all true), "coords": (b, L, 14, 3)
+    float32} (+ msa/msa_mask when cfg.msa_rows > 0), starting at batch
+    `start_index`. The backbone is a helix with protein-like chirality
+    (mostly negative phi) plus 0.05 A of noise, lifted to the 14-atom cloud
+    by `sidechain_container` with the carbonyl O placed. seq, mask, msa and
+    msa_mask are the JAX package's arrays bit for bit; coords agree to
+    ~1e-6 (the lift runs in torch here, in JAX there)."""
+    b, L = cfg.batch_size, cfg.max_len
+    index = start_index
+    while True:
+        rng = _batch_rng(cfg.seed, index)
+        index += 1
+        seq = rng.randint(0, NUM_AMINO_ACIDS, size=(b, L)).astype(np.int32)
+        mask = np.ones((b, L), bool)
+        t = 0.6 * np.arange(3 * L)[None, :, None]
+        helix = np.concatenate([2 * np.cos(t), 2 * np.sin(t), -0.16 * t],
+                               axis=-1).astype(np.float32)
+        backbone = helix + 0.05 * rng.randn(b, 3 * L, 3).astype(np.float32)
+        cloud = sidechain_container(torch.from_numpy(backbone), place_oxygen=True).numpy()
+        batch = {"seq": seq, "mask": mask, "coords": cloud}
+        if cfg.msa_rows > 0:
+            batch["msa"] = rng.randint(
+                0, NUM_AMINO_ACIDS, size=(b, cfg.msa_rows, L)
+            ).astype(np.int32)
+            batch["msa_mask"] = np.broadcast_to(mask[:, None, :], batch["msa"].shape)
+        yield batch
+
+
 def stack_microbatches(it: Iterator[dict], grad_accum: int) -> Iterator[dict]:
     """Group `grad_accum` batches under a leading microbatch axis."""
     while True:
@@ -65,12 +98,14 @@ def stack_microbatches(it: Iterator[dict], grad_accum: int) -> Iterator[dict]:
         yield {k: np.stack([m[k] for m in mbs]) for k in mbs[0]}
 
 
-def synthetic_microbatch_fn(cfg: DataConfig, grad_accum: int):
+def synthetic_microbatch_fn(cfg: DataConfig, grad_accum: int, source=None):
     """`fetch(step)`: the microbatch stack of that optimizer step, a pure
-    function of the step number."""
+    function of the step number. source: `synthetic_batches` (default) or
+    `synthetic_structure_batches`."""
+    src = source if source is not None else synthetic_batches
 
     def fetch(step: int) -> dict:
-        it = synthetic_batches(cfg, start_index=step * grad_accum)
+        it = src(cfg, start_index=step * grad_accum)
         mbs = [next(it) for _ in range(grad_accum)]
         return {k: np.stack([m[k] for m in mbs]) for k in mbs[0]}
 
@@ -78,20 +113,23 @@ def synthetic_microbatch_fn(cfg: DataConfig, grad_accum: int):
 
 
 class ResilientBatches:
-    """Retrying/skipping wrapper over a step-indexed fetch (`fetch(step)`,
-    e.g. `synthetic_microbatch_fn`), itself such a fetch: a failed fetch
-    is retried with bounded exponential backoff, fetching the same step
-    again, and a record that keeps failing is skipped (counted, reported)
-    instead of ending the run. The chaos hook
-    (`injector.before_batch(index)`) fires before each underlying fetch,
-    so an injected transient error consumes no record. (The JAX package's
-    class also wraps an iterator; the port's sources are step-indexed.)"""
+    """Retrying/skipping wrapper over a batch source: a step-indexed fetch
+    (`fetch(step)`, e.g. `synthetic_microbatch_fn`; a retry fetches the same
+    step again) or an iterator (`next` semantics; a retry takes the next
+    record, so recovery is not replay-exact: train_end2end's esm stream).
+    A failed fetch is retried with bounded exponential backoff, and a record
+    that keeps failing is skipped (counted, reported) instead of ending the
+    run; StopIteration is the end of the data, not a fault, and passes
+    through. The chaos hook (`injector.before_batch(index)`) fires before
+    each underlying fetch, so an injected transient error consumes no
+    record. Call it with a step (`fetch(step)`) in the callable form;
+    iterate it in the iterator form."""
 
     def __init__(self, source, *, max_retries: int = 2, backoff_s: float = 0.05,
                  max_backoff_s: float = 2.0, injector=None, max_skipped: Optional[int] = None):
-        if not callable(source):
-            raise TypeError("ResilientBatches wraps a step-indexed fetch(step)")
-        self._fn = source
+        self.step_indexed = callable(source)
+        self._fn = source if self.step_indexed else None
+        self._it = None if self.step_indexed else iter(source)
         self.max_retries = max_retries
         self.backoff_s = backoff_s
         self.max_backoff_s = max_backoff_s
@@ -106,13 +144,17 @@ class ResilientBatches:
         self._index += 1
         if self._injector is not None:
             self._injector.before_batch(index)
+        if self._fn is None:
+            return next(self._it)
         return self._fn(step if step is not None else index)
 
-    def __call__(self, step: int):
+    def _fetch(self, step: Optional[int] = None):
         while True:  # a skip moves on to the next record
             for attempt in range(self.max_retries + 1):
                 try:
                     return self._attempt(step)
+                except StopIteration:
+                    raise
                 except Exception as e:
                     if attempt < self.max_retries:
                         self.retries += 1
@@ -132,6 +174,20 @@ class ResilientBatches:
             # skipped: the step's batch is lost, so the next fetch index's
             # batch serves it (logged above, counted in skipped)
             step = None
+
+    def __iter__(self):
+        if self._fn is not None:
+            raise TypeError("a step-indexed ResilientBatches is called with a step, "
+                            "not iterated")
+        return self
+
+    def __next__(self):
+        return self._fetch()
+
+    def __call__(self, step: int):
+        if self._fn is None:
+            raise TypeError("an iterator ResilientBatches is iterated, not called with a step")
+        return self._fetch(step)
 
 
 def resilient_batches(source, **kwargs) -> ResilientBatches:

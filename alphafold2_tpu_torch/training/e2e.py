@@ -1,17 +1,19 @@
-"""End-to-end structure prediction, the forward half (counterpart of
+"""End-to-end structure prediction and training (counterpart of
 alphafold2_tpu/training/e2e.py): the trunk on the x3-elongated sequence
 (one token per backbone atom N, CA, C) -> distogram -> centering -> MDS
 with the mirror fix -> the side-chain lift -> the E(3)-equivariant
-refiner.
+refiner -> (training) the Kabsch-aligned RMSD plus the distogram
+dispersion term.
 
 The geometry runs in float32 whatever the trunk's dtype (it divides by
 distances and small weights). `predict_structure` is differentiable; an
 inference caller wraps it in `torch.inference_mode()` (the predict CLI
-does). The SVD and `eigh` of the geometry synchronise with the host on the
-card, so the path runs eagerly.
-
-Training (`make_e2e_loss_fn`, `e2e_train_state_init`) is not ported yet:
-both raise, naming ROADMAP A8-e2e-train.
+does), and `e2e_loss_fn` backpropagates through the refiner, the lift,
+the Guttman iterations and the centering into the trunk, as JAX's
+`jax.grad` does. The SVD of `kabsch` and the classical init's `eigh` read
+the host on the card, and so does the random init's CPU draw, so the path
+and its train step run eagerly (`training/harness.py make_train_step`);
+`CapturedTrainStep` refuses an `E2EConfig` (ROADMAP A8-e2e-capture).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from alphafold2_tpu_torch.constants import NUM_COORDS_PER_RES
 from alphafold2_tpu_torch.device import as_device_tensor, resolve_device
 from alphafold2_tpu_torch.geometry import (
     center_distogram,
+    kabsch,
     mdscaling,
     scn_backbone_mask,
     scn_cloud_mask,
@@ -34,6 +37,8 @@ from alphafold2_tpu_torch.geometry import (
 from alphafold2_tpu_torch.models.alphafold2 import alphafold2_apply, alphafold2_init
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.models.refiner import RefinerConfig, refiner_apply, refiner_init
+from alphafold2_tpu_torch.ops.quant import reject_quant_training
+from alphafold2_tpu_torch.training.harness import TrainConfig, train_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,17 +152,82 @@ def e2e_params_init(ecfg: E2EConfig, generator: torch.Generator, device):
     }
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"{name}: end-to-end structure training is not ported to PyTorch yet "
-        f"(ROADMAP A8-e2e-train)")
+def mds_generator(ecfg: E2EConfig, rng: Optional[torch.Generator]) -> torch.Generator:
+    """The random MDS init's CPU generator for one microbatch. Without rng it
+    is seeded 0 (JAX's `PRNGKey(0)`); with rng, and `mds_init="random"`, it
+    is seeded by one draw from rng in [0, 2^63 - 1), taken before the trunk
+    draws its dropout seeds, so each microbatch of a step gets its own. The
+    classical init draws nothing (rng's stream is predict_structure's).
+    JAX splits its key instead, so the port's random inits are not JAX's
+    draws: a parity check hands both packages the same start."""
+    if rng is None or ecfg.mds_init != "random":
+        return torch.Generator().manual_seed(0)
+    seed = int(torch.randint(0, 2 ** 63 - 1, (), generator=rng))
+    return torch.Generator().manual_seed(seed)
+
+
+def structure_loss(out, ecfg: E2EConfig, batch):
+    """The loss of `predict_structure`'s output `out` against batch["coords"]
+    (b, L, 14, 3) (and the optional batch["atom_mask"]): `make_e2e_loss_fn`'s
+    value."""
+    dev = out["refined"].device
+    b, length = out["cloud_mask"].shape[:2]
+    num_atoms = length * NUM_COORDS_PER_RES
+    w = out["cloud_mask"].reshape(b, num_atoms).float()
+    if batch.get("atom_mask") is not None:
+        w = w * as_device_tensor(batch["atom_mask"], dev).reshape(b, num_atoms).float()
+    pred = out["refined"].reshape(b, num_atoms, 3).transpose(1, 2)
+    true = as_device_tensor(batch["coords"], dev, torch.float32).reshape(
+        b, num_atoms, 3).transpose(1, 2)
+    pred_aligned, true_centered = kabsch(pred, true, weights=w)
+    sq = (pred_aligned - true_centered).square().sum(dim=-2)  # (b, atoms)
+    rmsd = torch.sqrt((sq * w).sum(dim=-1) / w.sum(dim=-1).clamp_min(1.0))
+    dw = out["distogram_weights"]
+    valid = (dw > 0).float()
+    per_pair = (1.0 / (dw + ecfg.weights_eps) - 1.0).abs() * valid
+    dispersion = per_pair.sum() / valid.sum().clamp_min(1.0)
+    return rmsd.mean() + ecfg.dispersion_weight * dispersion
 
 
 def make_e2e_loss_fn(model_apply_fn=None):
-    """Not ported yet: raises naming ROADMAP A8-e2e-train."""
-    _not_ported("make_e2e_loss_fn")
+    """The end-to-end structure loss around any model apply function with
+    `alphafold2_apply`'s signature (`predict_structure`'s model_apply_fn;
+    None: the default forward on `device`).
+
+    `loss_fn(params, ecfg, batch, rng=None, device=None)`, the port's loss
+    signature (`training/harness.py make_train_step`): batch {"seq": (b, L)
+    int, "mask": (b, L) bool, "coords": (b, L, 14, 3) the true atom cloud,
+    optional "msa" / "msa_mask", "embedds" (b, 3L, n) elongated x3, and
+    "atom_mask" (b, L, 14) bool, the atoms resolved}; rng: the trunk's
+    dropout generator, from which the random MDS init's generator is drawn
+    (`mds_generator`). Returns a 0-d f32 tensor, the mean over structures
+    of the Kabsch-aligned RMSD, sqrt(sum sq w / max(sum w, 1)) with w the
+    cloud mask times the atom mask, plus dispersion_weight x the mean of
+    |1 / (dw + weights_eps) - 1| over the pairs whose distogram weight dw
+    is positive (censored pairs have dw = 0 and no gradient). The
+    alignment's rotation is a constant to the gradient (`kabsch` detaches
+    its SVD, as JAX's stop_gradient does). `structure_loss` is the part after
+    the forward."""
+
+    def loss_fn(params, ecfg: E2EConfig, batch, rng=None, device=None):
+        out = predict_structure(
+            params, ecfg, batch["seq"], mask=batch.get("mask"), rng=rng,
+            msa=batch.get("msa"), msa_mask=batch.get("msa_mask"), embedds=batch.get("embedds"),
+            model_apply_fn=model_apply_fn, mds_generator=mds_generator(ecfg, rng),
+            device=None if model_apply_fn is not None else device)
+        return structure_loss(out, ecfg, batch)
+
+    return loss_fn
 
 
-def e2e_train_state_init(*args, **kwargs):
-    """Not ported yet: raises naming ROADMAP A8-e2e-train."""
-    _not_ported("e2e_train_state_init")
+# the default (single-device forward) e2e loss
+e2e_loss_fn = make_e2e_loss_fn()
+
+
+def e2e_train_state_init(ecfg: E2EConfig, tcfg: TrainConfig, generator: torch.Generator,
+                         device=None) -> dict:
+    """`training/harness.py train_state` over the joint {"model", "refiner"}
+    parameters from `generator` (a CPU generator) on `device` (default
+    CUDA; "cpu" for the CPU). An int8 config is refused (inference-only)."""
+    reject_quant_training(ecfg, "e2e_train_state_init")
+    return train_state(e2e_params_init(ecfg, generator, device), tcfg)

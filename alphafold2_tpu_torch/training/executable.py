@@ -26,6 +26,10 @@ nothing falls back to eager. The kernel wrappers count launches in
 Python, so a replay adds nothing to their `LAUNCHES`: each capture keeps
 the launches it recorded and its replays (`replayed_launches`).
 
+End-to-end structure training (`training/e2e.py`) is refused: its step
+reads the host (see `CapturedTrainStep`), so it runs eagerly (ROADMAP
+A8-e2e-capture).
+
 Dropout: each trunk layer seeds a fresh generator on the card from a
 seed drawn on the host (models/trunk.py), which a graph would freeze, and
 the remat recompute must draw the forward's masks again inside the same
@@ -41,6 +45,7 @@ from typing import Any, Callable
 import torch
 
 from alphafold2_tpu_torch.models.config import Alphafold2Config
+from alphafold2_tpu_torch.training.e2e import E2EConfig
 from alphafold2_tpu_torch.training.harness import (
     TrainConfig,
     check_microbatches,
@@ -79,6 +84,13 @@ class CapturedTrainStep:
 
     def __init__(self, cfg: Alphafold2Config, tcfg: TrainConfig, state, example_batch,
                  loss_fn: Callable[..., Any] = distogram_loss_fn):
+        if isinstance(cfg, E2EConfig):
+            raise ValueError(
+                "CapturedTrainStep: an E2EConfig's step reads the host inside it (the "
+                "classical MDS init's torch.linalg.eigh, kabsch's torch.linalg.svd, the "
+                "random init's CPU draw), which a CUDA graph cannot hold; a captured e2e "
+                "step is not ported yet (ROADMAP A8-e2e-capture). make_train_step runs it "
+                "eagerly on the card")
         device = state["optimizer"].leaves[0].device
         if device.type != "cuda":
             raise ValueError(

@@ -1,11 +1,14 @@
-"""Distogram pretraining step (counterpart of the single-device
-`make_train_step` of alphafold2_tpu/training/harness.py).
+"""The train step (counterpart of the single-device `make_train_step` of
+alphafold2_tpu/training/harness.py): distogram pretraining by default,
+end-to-end structure training with an `E2EConfig` and
+`training/e2e.py e2e_loss_fn`.
 
 The JAX step is one jitted program: a `lax.scan` over microbatches, their
 gradients, one optax update. Here `make_train_step` is a Python loop of
 eager forward and backward passes, then one update (`step_body`); on the
 card `training/executable.py CapturedTrainStep` captures the same body as
-a CUDA graph, the counterpart of the jit:
+a CUDA graph, the counterpart of the jit (not the e2e step, whose
+geometry reads the host: it runs eagerly on the card too):
 
   * each leaf's `.grad` is a static buffer (`train_state`), zeroed at the
     start of a step; autograd accumulates the microbatch gradients into it
@@ -223,14 +226,16 @@ def make_distogram_loss_fn(apply_fn):
 distogram_loss_fn = make_distogram_loss_fn(alphafold2_apply)
 
 
-def check_train_config(cfg: Alphafold2Config, device: torch.device, what: str) -> None:
+def check_train_config(cfg, device: torch.device, what: str) -> None:
     """Refuse what no train step takes: an int8 config (inference-only), and
     a sparse config with attention dropout on the card (the sparse kernels
-    have no dropout)."""
-    reject_quant_training(cfg, what)
-    if device.type == "cuda" and any(cfg.layer_sparse) and cfg.attn_dropout > 0.0:
+    have no dropout). cfg: an Alphafold2Config, or an E2EConfig whose
+    model config is checked."""
+    model = getattr(cfg, "model", cfg)
+    reject_quant_training(model, what)
+    if device.type == "cuda" and any(model.layer_sparse) and model.attn_dropout > 0.0:
         raise ValueError(
-            f"{what}: sparse_self_attn with attn_dropout={cfg.attn_dropout} on {device}: "
+            f"{what}: sparse_self_attn with attn_dropout={model.attn_dropout} on {device}: "
             f"the sparse CUDA kernels have no attention dropout; set attn_dropout=0")
 
 
@@ -241,9 +246,10 @@ def check_microbatches(batch, tcfg: TrainConfig) -> None:
                          f"microbatches, got {sizes}")
 
 
-def step_body(state, cfg: Alphafold2Config, batch, loss_fn, rng, device):
+def step_body(state, cfg, batch, loss_fn, rng, device):
     """One step's work on a batch whose leaves already lie on `device` and
-    lead with the microbatch axis, at the lr already set: zero the
+    lead with the microbatch axis, at the lr already set (cfg: whatever
+    `loss_fn` takes, an Alphafold2Config or an E2EConfig): zero the
     gradient buffers, accumulate each microbatch's gradient into them,
     divide by the count, clip and update. Returns the mean loss and the
     global norm before clipping (0-d device tensors). The eager step and
@@ -262,10 +268,13 @@ def step_body(state, cfg: Alphafold2Config, batch, loss_fn, rng, device):
     return loss_sum / n, opt.update()
 
 
-def make_train_step(cfg: Alphafold2Config, tcfg: TrainConfig,
+def make_train_step(cfg, tcfg: TrainConfig,
                     loss_fn: Callable[..., Any] = distogram_loss_fn, device=None):
     """`train_step(state, batch, rng=None) -> (state, metrics)`, eager.
-    batch leaves carry a leading microbatch axis of length tcfg.grad_accum;
+    cfg: an Alphafold2Config (the distogram loss), or an E2EConfig with
+    `loss_fn=training/e2e.py e2e_loss_fn` (its train state from
+    `e2e_train_state_init`). batch leaves carry a leading microbatch axis
+    of length tcfg.grad_accum;
     rng is an optional CPU generator for dropout. The state is updated in
     place and returned; metrics are 0-d tensors on the device: "loss" (the
     microbatch mean) and "grad_norm" (of the mean gradient, before

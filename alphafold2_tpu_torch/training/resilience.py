@@ -115,7 +115,8 @@ def run_resilient(step_fn: Callable, state, batches, *, steps: int,
     restarts = 0
     causes = []  # (step, exception type, message head) per restart
     guard = StepGuard(state, max_consecutive_bad=max_consecutive_bad)
-    step_indexed = callable(batches)
+    # a ResilientBatches says which form it wraps (it is callable in both)
+    step_indexed = getattr(batches, "step_indexed", callable(batches))
 
     def fetch(step):
         try:

@@ -195,6 +195,28 @@ each phase prints its seconds):
          launches all on the wgmma route;
      (d) `python -m alphafold2_tpu_torch.predict --full-atom --bf16` on 64
          residues in a process of its own: rc 0, a PDB of 4 L atoms;
+  12. end-to-end structure training (`training/e2e.py e2e_loss_fn`, the
+     eager `make_train_step`; `CapturedTrainStep` refuses an E2EConfig,
+     naming A8-e2e-capture):
+     (a) f32, 3 steps of 2 microbatches on the card and on the CPU from
+         the same params (dim 256, depth 1, L = 24, an 8-row MSA, 20 MDS
+         iterations from the classical init), phase 6a's comparison and
+         tolerances; every flash launch on the f32 route;
+     (b) the step at the north-star model's widths less reversibility
+         (dim 256, depth 2 with remat, 8 heads of 64, tied MSA rows, the
+         aligned crosses with KV compression 4, ff_chunk_size 32768,
+         refiner dim 64 depth 2 in atom chunks of 256, 25 MDS iterations,
+         bf16) at crop 384 (grid 1152) with 128 MSA rows, accum 2: step
+         ms (CUDA events, median of 5 after an untimed step), MFU, peak
+         memory, launches (all on the wgmma routes), device ms by kind and
+         busy share (torch.profiler), one microbatch by stage;
+     (c) the first B1f and B1b launch at each of (b)'s shapes against its
+         plain version on sampled rows, on the wgmma route, then timed at
+         its shape beside SDPA and its bound;
+     (d) `python -m alphafold2_tpu_torch.train_end2end` on the card (msa
+         in a process of its own; esm at ESM-1b's width, none, and a
+         bit-exact resume through its `main`), and 20 steps on one
+         microbatch at (b)'s widths and crop 128 lowering the loss;
   5. a `kernels` JSON line (thirteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, B3's forward and its two backward kernels), the card line,
@@ -256,6 +278,10 @@ from alphafold2_tpu_torch.models.embedder import (  # noqa: E402
     esm_tokenize,
 )
 from alphafold2_tpu_torch.ops.attention import AttentionConfig, attention_init  # noqa: E402
+from alphafold2_tpu_torch.models.convert import train_state_to_jax  # noqa: E402
+from alphafold2_tpu_torch.models.refiner import RefinerConfig  # noqa: E402
+from alphafold2_tpu_torch import train_end2end  # noqa: E402
+from alphafold2_tpu_torch.telemetry import profiling  # noqa: E402
 from alphafold2_tpu_torch.parallel import (  # noqa: E402
     alphafold2_apply_sp,
     make_mesh,
@@ -275,7 +301,11 @@ from alphafold2_tpu_torch.training.checkpoint import (  # noqa: E402
     restore_params_for_inference,
 )
 from alphafold2_tpu_torch.training import e2e  # noqa: E402
-from alphafold2_tpu_torch.training.data import DataConfig, synthetic_microbatch_fn  # noqa: E402
+from alphafold2_tpu_torch.training.data import (  # noqa: E402
+    DataConfig,
+    synthetic_microbatch_fn,
+    synthetic_structure_batches,
+)
 from alphafold2_tpu_torch.training.executable import CapturedTrainStep  # noqa: E402
 from alphafold2_tpu_torch.training.harness import (  # noqa: E402
     TrainConfig,
@@ -437,8 +467,9 @@ def sdpa_mask_ms(q, k, v, mask, scale, reps, g=None, wrt=None, mask_grad=False, 
     computes the mask's gradient (the 2-D bias's d_bias, which B2b's dq
     kernel writes: "q" and "qkv" take it). The folded (BH, n, dh) tensors
     go in as one batch of BH heads, or with `heads` as (BH / heads, heads)
-    (SDPA's grid takes at most 65,535 heads). None when no fused backend
-    takes the shape."""
+    (SDPA's grid takes at most 65,535 heads); mask None: no mask (the same
+    function where every key is kept). None when no fused backend takes
+    the shape."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     fused_only = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.FLASH_ATTENTION]
@@ -447,7 +478,7 @@ def sdpa_mask_ms(q, k, v, mask, scale, reps, g=None, wrt=None, mask_grad=False, 
     split = ((lambda t: t[None]) if heads is None
              else (lambda t: t.reshape(t.shape[0] // heads, heads, *t.shape[1:])))
     q4, k4, v4 = (split(t.detach()).requires_grad_(wrt is not None) for t in (q, k, v))
-    mask = mask if heads is None else split(mask[0])
+    mask = mask if heads is None or mask is None else split(mask[0])
     if mask_grad:
         mask = mask.detach().requires_grad_(True)
     try:
@@ -1950,6 +1981,16 @@ def phase_train_parity(label, cfg, L, expect):
     states = {dev: train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), dev)
               for dev in ("cuda", "cpu")}
     steps = {dev: make_train_step(cfg, tcfg, device=dev) for dev in states}
+    card_vs_cpu_steps(f"train {label}", f"train_parity_{label}",
+                      f"L={L} f32 depth {cfg.depth}", repr(cfg), states, steps, fetch, tcfg,
+                      expect)
+
+
+def card_vs_cpu_steps(tag, key, what, config, states, steps, fetch, tcfg, expect, *,
+                      loss_tol=1e-5, norm_tol=1e-5, grad_tol=1e-4, params_tol=1e-5):
+    """3 steps of `steps["cuda"]` and `steps["cpu"]` on their `states` (the
+    same params) over the same batches, held at phase 6a's tolerances (the
+    keyword arguments; `phase_train_parity`'s docstring); RECORD[phases][key]."""
     reset_launches()
     per_step, grad_ratio, small_grad = [], 0.0, []
     for n in range(3):
@@ -1967,7 +2008,7 @@ def phase_train_parity(label, cfg, L, expect):
                 # a leaf the path does not read (gradient 0 on both) is held tight
                 small_grad.append(cl.grad.abs() <= 1e-3 * scale_ if scale_
                                   else torch.zeros_like(cl.grad, dtype=torch.bool))
-                grad_ratio = max(grad_ratio, d / (1e-4 * scale_) if scale_ else
+                grad_ratio = max(grad_ratio, d / (grad_tol * scale_) if scale_ else
                                  (0.0 if d == 0 else float("inf")))
     sync()
     launches = launch_counts()
@@ -1982,24 +2023,25 @@ def phase_train_parity(label, cfg, L, expect):
     d_loss = max(abs(r["loss"] - r["loss_cpu"]) for r in per_step)
     d_norm = max(abs(r["grad_norm"] - r["grad_norm_cpu"]) / r["grad_norm_cpu"] for r in per_step)
     noisy_tol = 2 * tcfg.learning_rate * 3
-    ok = (d_loss <= 1e-5 and d_norm <= 1e-5 and grad_ratio <= 1.0 and d_params <= 1e-5
-          and d_noisy <= noisy_tol)
-    log(f"[train {label}] L={L} f32 depth {cfg.depth}, 3 steps, card vs cpu: loss |d|={d_loss:.2e} (1e-5), "
-        f"grad_norm rel={d_norm:.2e} (1e-5), first-step grads worst/tol={grad_ratio:.3f}, "
-        f"params |d|={d_params:.2e} (1e-5; {past} entries past 1e-6), "
+    ok = (d_loss <= loss_tol and d_norm <= norm_tol and grad_ratio <= 1.0
+          and d_params <= params_tol and d_noisy <= noisy_tol)
+    log(f"[{tag}] {what}, 3 steps, card vs cpu: loss |d|={d_loss:.2e} ({loss_tol:.0e}), "
+        f"grad_norm rel={d_norm:.2e} ({norm_tol:.0e}), first-step grads worst/tol="
+        f"{grad_ratio:.3f} (tol {grad_tol:.0e} of each leaf's largest), "
+        f"params |d|={d_params:.2e} ({params_tol:.0e}; {past} entries past 1e-6), "
         f"{n_noisy} entries with a rounding-level gradient |d|={d_noisy:.2e} ({noisy_tol:.1e}); "
-        f"losses {[round(r['loss'], 5) for r in per_step]}; launches {launches} "
-        f"{'ok' if ok else 'FAIL'}")
-    RECORD["phases"][f"train_parity_{label}"] = {"L": L, "config": repr(cfg), "steps": per_step, "grad_ratio": grad_ratio,
-                                        "params_max_abs": d_params, "params_past_1e-6": past,
-                                        "small_grad_entries": n_noisy,
-                                        "small_grad_params_max_abs": d_noisy,
-                                        "launches": launches, "ok": ok}
+        f"losses {[round(r['loss'], 5) for r in per_step]}; launches "
+        f"{dict((k, v) for k, v in launches.items() if v)} {'ok' if ok else 'FAIL'}")
+    RECORD["phases"][key] = {"what": what, "config": config, "steps": per_step,
+                             "grad_ratio": grad_ratio, "params_max_abs": d_params,
+                             "params_past_1e-6": past, "small_grad_entries": n_noisy,
+                             "small_grad_params_max_abs": d_noisy, "launches": launches,
+                             "tolerances": [loss_tol, norm_tol, grad_tol, params_tol], "ok": ok}
     if not ok:
-        fail(f"the card and the CPU disagree on the f32 training steps ({label})")
+        fail(f"the card and the CPU disagree on the f32 training steps ({tag})")
     want = {name: expect.get(name, 0) for name in launches}
     if launches != want:
-        fail(f"training {label}: launches over 3 steps {launches} != expected {want}")
+        fail(f"{tag}: launches over 3 steps {launches} != expected {want}")
 
 
 def train_run(label, cfg, L, tcfg, timed_steps, expect):
@@ -3529,7 +3571,10 @@ def check_path_flash(label, call, reps=2):
     rows and 256 query rows, each against all keys (the full plain run of
     a (9L^2)^2 cross is out of reach), with phase 3's tolerance. Then
     the kernel's ms on those inputs (CUDA events, mean of `reps`) beside
-    its bound."""
+    its bound and SDPA's ms on the same inputs: unmasked where every key
+    is kept (the synthetic request's mask is all ones, so its bias is 0
+    and an unmasked call computes the same function), else with the bias
+    as its additive mask."""
     q, k, v, bias, scale, out, lse = call
     BH, i, dh = q.shape
     gen = torch.Generator().manual_seed(i)
@@ -3548,11 +3593,16 @@ def check_path_flash(label, call, reps=2):
            "dtype": str(q.dtype), "route": which, "rows_checked": [len(bh), len(rows)],
            "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
            "kernel_ms": time_ms(lambda: flash_kernel.flash_fwd(q, k, v, bias, scale), reps),
+           "unmasked": bool((bias == 0).all()),
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "ok": ok}
+    row["library_ms"] = (sdpa_mask_ms(q, k, v, None, scale, reps) if row["unmasked"]
+                         else library_ms(q, k, v, bias, None, scale, reps))
+    lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.3f}"
     log(f"[full-atom c] B1f {label:24s} {str(tuple(row['shape'])):30s} "
         f"{str(q.dtype).split('.')[-1]:8s} {which:8s} {len(bh)} x {len(rows)} rows vs plain: "
         f"max|d|={err:.3e} (tol {tol:.3e}) lse|d|={lse_err:.2e} kernel_ms={row['kernel_ms']:.3f} "
+        f"sdpa_ms={lib}{'' if row['unmasked'] else ' (masked)'} "
         f"bound_ms={row['bound_ms']:.3f} {'ok' if ok else 'FAIL'}")
     return row
 
@@ -3685,6 +3735,473 @@ def phase_full_atom():
     timed("d", phase_full_atom_cli)
 
 
+# --- phase 12: end-to-end structure training ----------------------------------------
+
+E2E_CROP = 384    # (b)'s residues: the north-star crop, a 1152-token grid
+E2E_ROWS = 128    # (b)'s MSA rows (the north-star preset's)
+E2E_WORK = ROOT / "build" / "phase12"  # the CLI's checkpoints, removed at the phase's end
+SOLVER_MARKERS = ("syev", "sytrd", "sytd2", "ormtr", "orgtr", "stedc", "steqr", "gesvd",
+                  "larf", "lascl", "cusolver", "magma", "jacobi")
+
+
+def e2e_north_star(crop, **model):
+    """The north-star preset's e2e config (alphafold2_tpu/training/
+    presets.py north_star_e2e_config) at depth 2, less reversibility:
+    dim 256, 8 heads of 64, tied MSA rows, the column-aligned crosses with
+    KV compression 4, ff_chunk_size 32768, `remat` in place of the
+    reversible trunk (A8-reversible), bf16; refiner dim 64, depth 2, atom
+    chunks of 256; 25 MDS iterations from the classical init. The port's
+    attention defaults (the preset's depth-aware knobs are TPU thresholds)."""
+    cfg = Alphafold2Config(**{**dict(
+        dim=256, depth=2, heads=8, dim_head=64, max_seq_len=max(2048, 3 * crop),
+        max_num_msa=max(E2E_ROWS, 20), dtype=torch.bfloat16, remat=True,
+        msa_tie_row_attn=True, cross_attn_compress_ratio=4, cross_attn_mode="aligned",
+        ff_chunk_size=32768), **model})
+    refiner = RefinerConfig(num_tokens=14, dim=64, depth=2, msg_dim=64, dtype=torch.bfloat16,
+                            atom_chunk=256)
+    return e2e.E2EConfig(model=cfg, refiner=refiner, mds_iters=25, mds_init="classical")
+
+
+def structure_fetch(crop, rows, grad_accum, seed, batch_size=1):
+    return synthetic_microbatch_fn(DataConfig(batch_size=batch_size, max_len=crop,
+                                              msa_rows=rows, seed=seed), grad_accum,
+                                   source=synthetic_structure_batches)
+
+
+def phase_e2e_parity(L=24, rows=8):
+    """(a) f32, 3 e2e steps of 2 microbatches on the card and on the CPU
+    from the same params (the refiner's coordinate head given the same
+    random weights on both: it is zero at init) and batches: dim 256,
+    depth 1, 8 heads of 64, L = 24 (grid 72), an 8-row MSA (flat crosses),
+    20 MDS iterations from the classical init, refiner dim 64 depth 2.
+    Phase 6a's comparison and tolerances (`card_vs_cpu_steps`); the
+    classical init's eigenvectors may differ in sign between the card's and
+    the CPU's `eigh`, which moves neither the loss nor its gradients (the
+    mirror fix, then the Kabsch alignment). Every flash launch on the f32
+    route: 6 forwards a layer a microbatch, and as many dq and dkv but the
+    last layer's msa<-pair cross, whose output reaches no loss."""
+    cfg = Alphafold2Config(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=3 * L)
+    ecfg = e2e.E2EConfig(model=cfg, refiner=RefinerConfig(num_tokens=14, dim=64, depth=2),
+                         mds_iters=20, mds_init="classical")
+    tcfg = TrainConfig(grad_accum=2)
+    states, steps = {}, {}
+    for dev in ("cuda", "cpu"):
+        state = e2e.e2e_train_state_init(ecfg, tcfg, torch.Generator().manual_seed(0), dev)
+        g = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for layer in state["params"]["refiner"]["layers"]:
+                for t in layer["coord_mlp"]["l2"].values():
+                    t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+        states[dev] = state
+        steps[dev] = make_train_step(ecfg, tcfg, loss_fn=e2e.e2e_loss_fn, device=dev)
+    fwd = E2E_TRUNK_FLASH * cfg.depth * tcfg.grad_accum * 3
+    bwd = (E2E_TRUNK_FLASH * cfg.depth - 1) * tcfg.grad_accum * 3
+    card_vs_cpu_steps("e2e a", "e2e_parity", f"L={L} (grid {3 * L}) f32 depth {cfg.depth}, "
+                      f"{rows} MSA rows, 20 MDS iterations", repr(ecfg), states, steps,
+                      structure_fetch(L, rows, 2, seed=5), tcfg,
+                      {"flash_fwd": fwd, "flash_fwd_f32": fwd, "flash_bwd_dq": bwd,
+                       "flash_bwd_dq_f32": bwd, "flash_bwd_dkv": bwd, "flash_bwd_dkv_f32": bwd})
+
+
+@contextlib.contextmanager
+def kept_train_calls(kept, counts):
+    """While open, every B1f and B1b call is counted by its shape in
+    `counts`, and the first at each (kind, q shape, k shape, dtype) keeps
+    in `kept` its routes, whether its bias is 0 everywhere, and clones of
+    a sample of its rows: at most 64 (batch x head) rows (`sampled`), the
+    forward's at most 256 query rows of each against all keys; the
+    backward's every row of those (dq, dk and dv each read them all)."""
+    fwd, bwd = flash_kernel.flash_fwd, flash_kernel.flash_bwd
+    gen = torch.Generator().manual_seed(12)
+
+    def key_of(kind, q, k):
+        key = (kind, tuple(q.shape), tuple(k.shape), str(q.dtype))
+        counts[key] = counts.get(key, 0) + 1
+        return key if key not in kept else None
+
+    def keeping_fwd(q, k, v, bias, scale):
+        out, lse = fwd(q, k, v, bias, scale)
+        key = key_of("fwd", q, k)
+        if key is not None:
+            bh, rows = sampled(q.shape[0], 64, gen), sampled(q.shape[1], 256, gen)
+            kept[key] = {"route": flash_kernel.route(q, k, v, bias),
+                         "unmasked": bool((bias == 0).all()), "scale": scale,
+                         "q": q[bh][:, rows].clone(), "k": k[bh].clone(), "v": v[bh].clone(),
+                         "bias": bias[bh].clone(), "out": out[bh][:, rows].clone(),
+                         "lse": lse[bh][:, rows].clone()}
+        return out, lse
+
+    def keeping_bwd(q, k, v, bias, out, lse, g, scale):
+        dq, dk, dv = bwd(q, k, v, bias, out, lse, g, scale)
+        key = key_of("bwd", q, k)
+        if key is not None:
+            bh = sampled(q.shape[0], 64, gen)
+            kept[key] = {"dq_route": flash_kernel.dq_route(q, k, v, bias),
+                         "dkv_route": flash_kernel.dkv_route(q, k, v, bias),
+                         "unmasked": bool((bias == 0).all()), "scale": scale,
+                         **{name: t[bh].clone() for name, t in
+                            (("q", q), ("k", k), ("v", v), ("bias", bias), ("out", out),
+                             ("lse", lse), ("g", g), ("dq", dq), ("dk", dk), ("dv", dv))}}
+        return dq, dk, dv
+
+    flash_kernel.flash_fwd, flash_kernel.flash_bwd = keeping_fwd, keeping_bwd
+    try:
+        yield kept
+    finally:
+        flash_kernel.flash_fwd, flash_kernel.flash_bwd = fwd, bwd
+
+
+def e2e_shape_row(key, call, per_step, reps=3):
+    """One kept B1f or B1b call of the e2e step held against its plain
+    version on its sampled rows (phase 3's tolerances: the forward one bf16
+    ulp of the largest output and lse 1e-4; the backward elementwise,
+    `flash_bwd_bf16_bound`), then timed at its shape on seeded inputs with
+    every key kept (the step's bias is 0 everywhere: the synthetic mask is
+    all ones): the kernel (dq and dkv apart), SDPA unmasked (the same
+    function there; the backward for the gradients each kernel gives) and
+    the bound."""
+    kind, qs, ks, dtype = key
+    BH, i, dh = qs
+    j = ks[1]
+    scale = call["scale"]
+    q, k, v, bias, _ = make_inputs(BH, i, j, dh, torch.bfloat16 if "bfloat16" in dtype
+                                   else torch.float32, key_drop=0.0, seed=12)
+    row = {"kernel": f"flash_{kind}", "shape": [BH, i, j, dh], "dtype": dtype,
+           "launches_per_step": per_step, "unmasked": call["unmasked"]}
+    if kind == "fwd":
+        ref_out, ref_lse = flash_kernel.flash_fwd_plain(call["q"], call["k"], call["v"],
+                                                        call["bias"], scale)
+        ref_max = ref_out.float().abs().max().item()
+        tol = BF16_ULP * ref_max if "bfloat16" in dtype else 1e-5 * max(1.0, ref_max)
+        err = (call["out"].float() - ref_out.float()).abs().max().item()
+        lse_err = (call["lse"] - ref_lse).abs().max().item()
+        t_ops, t_bytes = bound_terms(q, k, v, bias, None)
+        row.update(route=call["route"], max_abs_err=err, tol=tol, lse_max_abs_err=lse_err,
+                   ok=err <= tol and lse_err <= 1e-4 and call["route"] == "wgmma",
+                   kernel_ms=time_ms(lambda: flash_kernel.flash_fwd(q, k, v, bias, scale), reps),
+                   library_ms=sdpa_mask_ms(q, k, v, None, scale, reps),
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        return row
+    args = [call[n] for n in ("q", "k", "v", "bias", "out", "lse", "g")]
+    bounds = flash_bwd_bf16_bound(*args, scale)
+    refs = flash_kernel.flash_bwd_plain(*args, scale)[:3]
+    worst = max(((call[n].float() - r.float()).abs() / b).max().item()
+                for n, r, b in zip(("dq", "dk", "dv"), refs, bounds))
+    out, lse = flash_kernel.flash_fwd(q, k, v, bias, scale)
+    g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(13),
+                    device="cuda").to(q.dtype)
+    kargs = (q, k, v, bias, lse) + flash_kernel.cotangent_terms(out, g)[:2] + (scale,)
+    row.update(dq_route=call["dq_route"], dkv_route=call["dkv_route"], worst_over_bound=worst,
+               ok=worst <= 1.0 and call["dq_route"] == call["dkv_route"] == "wgmma",
+               dq_ms=time_ms(lambda: flash_kernel.launch_dq(*kargs, "flash_bwd_dq"), reps),
+               dkv_ms=time_ms(lambda: flash_kernel.launch_dkv(*kargs, "flash_bwd_dkv"), reps),
+               dq_library_ms=sdpa_mask_ms(q, k, v, None, scale, reps, g=g, wrt="q"),
+               dkv_library_ms=sdpa_mask_ms(q, k, v, None, scale, reps, g=g, wrt="kv"))
+    for side, dq_side in (("dq", True), ("dkv", False)):
+        t_ops, t_bytes = bwd_bound_terms(q, k, bias, dq_side)
+        row[f"{side}_bound_ms"] = max(t_ops, t_bytes)
+        row[f"{side}_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return row
+
+
+def profile_step(fn):
+    """fn once under torch.profiler: device ms by kind (profiling.py's
+    kinds, with cuSOLVER's eigh and SVD kernels apart from "other"), the
+    busy ms (the union of the kernels' intervals in its trace), the host
+    ms around it, and the ten slowest kernel names of "other". Device
+    activity only: the host's ops would multiply the trace's events."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        host = (time.perf_counter() - t0) * 1e3
+    kinds, other = {}, []
+    for a in prof.key_averages():
+        if a.device_type != torch.autograd.DeviceType.CUDA or getattr(a, "is_user_annotation",
+                                                                      False):
+            continue
+        us = getattr(a, "self_device_time_total", None)
+        ms = (us if us is not None else a.self_cuda_time_total) / 1e3
+        kind = profiling.kernel_kind(a.key)
+        if any(m in a.key.lower() for m in SOLVER_MARKERS):
+            kind = "eigh / SVD (cuSOLVER)"
+        elif kind.startswith("other"):
+            other.append((ms, a.key[:80], a.count))
+        row = kinds.setdefault(kind, {"device_ms": 0.0, "launches": 0})
+        row["device_ms"] += ms
+        row["launches"] += a.count
+    path = E2E_WORK / "trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in json.loads(path.read_text())["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") == "kernel")
+    path.unlink()
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return {"kinds": kinds, "busy_ms": busy / 1e3, "host_ms": host,
+            "other_top": sorted(other, reverse=True)[:10]}
+
+
+def phase_e2e_step(crop=E2E_CROP, rows=E2E_ROWS, reps=5):
+    """(b) The e2e step at the north-star model's widths less reversibility
+    (`e2e_north_star`), crop `crop` (a (3 crop)^2 grid), `rows` MSA rows,
+    batch 1, 2 microbatches, lr 3e-4, eager (`make_train_step`; the
+    capture refuses it, A8-e2e-capture). One untimed step, in which (c)
+    keeps the first B1f and B1b launch at each shape (`kept_train_calls`).
+    Then, counts set to 0 and the peak memory reset just before, `reps`
+    timed steps (CUDA events around each; the median), read just after:
+    launches (every B1f, dq and dkv launch on its wgmma route), peak
+    memory, finite losses. MFU = `train_step_flops(cfg, 3 crop, rows,
+    crop, 2)` / step time / 989 TFLOP/s. One more step under torch.profiler
+    (device ms by kind, busy share = busy ms / the step's host ms), and
+    one more microbatch by stage: CUDA events around each stage of
+    `predict_structure` (its `stage` hook), `structure_loss` and the
+    backward, with the bytes its forward leaves saved for the backward and
+    the backward's peak.
+    (c) Each kept launch against its plain version, timed at its shape
+    (`e2e_shape_row`). Returns the counted run's launches."""
+    ecfg = e2e_north_star(crop)
+    tcfg = TrainConfig(grad_accum=2)
+    state = e2e.e2e_train_state_init(ecfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    fetch = structure_fetch(crop, rows, tcfg.grad_accum, seed=9)
+    step = make_train_step(ecfg, tcfg, loss_fn=e2e.e2e_loss_fn, device="cuda")
+    kept, per_shape = {}, {}
+    t0 = time.perf_counter()
+    with kept_train_calls(kept, per_shape):
+        _, first = step(state, fetch(0))
+    first = {k: float(v) for k, v in first.items()}
+    untimed_s = time.perf_counter() - t0
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, metrics = [], []
+    for n in range(1, reps + 1):
+        batch = fetch(n)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, m = step(state, batch)
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_step(lambda: step(state, fetch(reps + 1)))
+    timer = StageEvents()
+    mb = {k: torch.as_tensor(v[0]).cuda() for k, v in fetch(reps + 2).items()}
+    sync()
+    held = torch.cuda.memory_allocated()
+    out = e2e.predict_structure(state["params"], ecfg, mb["seq"], mask=mb["mask"],
+                                msa=mb["msa"], msa_mask=mb["msa_mask"], device="cuda",
+                                stage=timer)
+    with timer("loss"):
+        loss = e2e.structure_loss(out, ecfg, mb)
+    del out
+    sync()
+    saved = (torch.cuda.memory_allocated() - held) / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    with timer("backward"):
+        loss.backward()
+    stages = {name: v[0] for name, v in timer.ms().items()}
+    backward_peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    del loss, mb
+    step_ms = sorted(times)[reps // 2]
+    flops = train_step_flops(ecfg.model, 3 * crop, rows, crop, grad_accum=tcfg.grad_accum)
+    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                 for m in metrics + [first])
+    per = {k: v / reps for k, v in launches.items() if v}
+    wgmma = on_wgmma(launches)
+    del state, step
+    torch.cuda.empty_cache()
+    t_rows = time.perf_counter()
+    kernel_rows = [e2e_shape_row(key, call, per_shape[key]) for key, call in sorted(kept.items())]
+    t_rows = time.perf_counter() - t_rows
+    del kept
+    torch.cuda.empty_cache()
+    busy = prof["busy_ms"] / prof["host_ms"]
+    row = {"crop": crop, "grid": 3 * crop, "rows": rows, "config": repr(ecfg),
+           "step_ms": times, "median_step_ms": step_ms, "untimed_step_s": untimed_s,
+           "train_step_flops": flops, "mfu": mfu, "peak_gib": peak, "metrics": metrics,
+           "first": first, "launches": launches, "launches_per_step": per, "profile": prof,
+           "busy_share": busy, "microbatch_stage_ms": stages,
+           "microbatch_saved_gib": saved, "microbatch_backward_peak_gib": backward_peak,
+           "kernels": kernel_rows,
+           "launches_per_shape_per_step": {str(k): v for k, v in per_shape.items()}}
+    RECORD["phases"]["e2e_step"] = row
+    log(f"[e2e b] north-star widths (dim 256, depth 2, remat, aligned crosses, compress 4, "
+        f"tied rows, bf16), crop {crop} (grid {3 * crop}), {rows} MSA rows, accum 2, eager: "
+        f"step {step_ms:.1f} ms median of {reps} ({', '.join(f'{t:.1f}' for t in times)}), "
+        f"MFU {mfu:.4f} of 989 TFLOP/s ({flops / 1e12:.2f} TFLOP a step), peak {peak:.2f} GiB, "
+        f"busy {busy:.3f} ({prof['busy_ms']:.1f} of {prof['host_ms']:.1f} ms), losses "
+        f"{[round(m['loss'], 4) for m in metrics]}; launches a step {per}; the untimed step "
+        f"{untimed_s:.1f} s, (c)'s checks and timings {t_rows:.1f} s")
+    log("[e2e b] device ms by kind: " + ", ".join(
+        f"{k} {v['device_ms']:.1f} ({v['launches']})"
+        for k, v in sorted(prof["kinds"].items(), key=lambda kv: -kv[1]["device_ms"])))
+    log("[e2e b] one microbatch by stage (events): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stages.items()) + f" ms; its forward saved {saved:.2f} GiB "
+        f"for the backward, whose peak is {backward_peak:.2f} GiB over the state")
+    for r in kernel_rows:
+        if r["kernel"] == "flash_fwd":
+            detail = (f"{r['route']:6s} max|d|={r['max_abs_err']:.3e} (tol {r['tol']:.3e}) "
+                      f"lse|d|={r['lse_max_abs_err']:.2e} kernel_ms={r['kernel_ms']:.3f} "
+                      f"sdpa_ms={r['library_ms']} bound_ms={r['bound_ms']:.3f}")
+        else:
+            detail = (f"dq {r['dq_route']} dkv {r['dkv_route']} worst/bound="
+                      f"{r['worst_over_bound']:.3f} dq_ms={r['dq_ms']:.3f} dkv_ms="
+                      f"{r['dkv_ms']:.3f} sdpa dq={r['dq_library_ms']} dkv={r['dkv_library_ms']} "
+                      f"bound dq={r['dq_bound_ms']:.3f} dkv={r['dkv_bound_ms']:.3f}")
+        log(f"[e2e c] {r['kernel']:9s} {str(tuple(r['shape'])):26s} x{r['launches_per_step']} a "
+            f"step: {detail} {'ok' if r['ok'] else 'FAIL'}")
+    if not finite:
+        fail("the e2e step at the north-star widths gave a non-finite loss or grad_norm "
+             "(phase 12b)")
+    if not wgmma:
+        fail(f"the e2e step launched off the wgmma routes: {launches} (phase 12b)")
+    kinds = {r["kernel"] for r in kernel_rows}
+    if kinds != {"flash_fwd", "flash_bwd"} or not all(r["ok"] for r in kernel_rows):
+        fail("B1f or B1b at the e2e step's shapes disagrees with its plain version, left the "
+             "wgmma route, or was not launched (phase 12c)")
+    return launches
+
+
+def phase_e2e_overfit(crop=128, rows=E2E_ROWS, steps=20):
+    """(d) 20 steps on one repeated microbatch at (b)'s widths, crop 128
+    (grid 384), lr 1e-3, one microbatch a step: the least of the last 5
+    losses at most 0.9 of the first."""
+    ecfg = e2e_north_star(crop)
+    tcfg = TrainConfig(learning_rate=1e-3, grad_accum=1)
+    state = e2e.e2e_train_state_init(ecfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    batch = structure_fetch(crop, rows, 1, seed=3)(0)
+    step = make_train_step(ecfg, tcfg, loss_fn=e2e.e2e_loss_fn, device="cuda")
+    losses = [float(step(state, batch)[1]["loss"]) for _ in range(steps)]
+    ok = all(math.isfinite(x) for x in losses) and min(losses[-5:]) <= 0.9 * losses[0]
+    RECORD["phases"]["e2e_overfit"] = {"losses": losses, "ok": ok}
+    return ok, losses
+
+
+def cli_run(argv):
+    """train_end2end's main in this process, on the card (no --device):
+    (its state, its last metrics, the lines it printed, seconds)."""
+    t0 = time.perf_counter()
+    (state, metrics), lines = quiet(train_end2end.main, argv)
+    sync()
+    return state, metrics, lines, time.perf_counter() - t0
+
+
+def phase_e2e_cli():
+    """(d) `python -m alphafold2_tpu_torch.train_end2end` on the card:
+    --steps 3 --dim 256 --heads 8 --dim-head 64 --len 64 --msa-rows 20
+    --bf16 in a process of its own (rc 0, finite losses); then its `main`
+    in this process with --features esm at ESM-1b's width (1280, 33
+    layers, 20 heads, random weights; the embedder in f32 as the JAX CLI
+    runs it: its 33 B1f launches a microbatch on the f32 route, every
+    other B1f, dq and dkv launch, the flat crosses over the 192^2 grid
+    among them, on the wgmma route), with --features none, and a resume:
+    3 steps against 2 steps saved then 1 resumed, bit for bit (every
+    param, moment and count); and
+    the overfit check (`phase_e2e_overfit`)."""
+    base = ["--dim", "256", "--heads", "8", "--dim-head", "64", "--len", "64", "--bf16"]
+    rows = []
+    cmd = [sys.executable, "-m", "alphafold2_tpu_torch.train_end2end", "--steps", "3", *base,
+           "--msa-rows", "20"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    losses = [float(x.split()[3]) for x in lines if x.startswith("step ")]
+    ok = res.returncode == 0 and "done" in lines and len(losses) == 2 and all(
+        math.isfinite(x) for x in losses)
+    rows.append({"run": "msa (process)", "cmd": cmd[1:], "rc": res.returncode, "stdout": lines,
+                 "stderr_tail": res.stderr[-2000:], "seconds": time.perf_counter() - t0,
+                 "ok": ok})
+    reset_launches()
+    state, metrics, lines, secs = cli_run([*base, "--steps", "2", "--features", "esm",
+                                           "--esm-dim", "1280", "--esm-layers", "33",
+                                           "--esm-heads", "20"])
+    launches = launch_counts()
+    embeds = ESM1B_FLASH * 2 * 2  # 2 steps of 2 microbatches (the CLI's --accum)
+    trunk = {k: v - (embeds if k in ("flash_fwd", "flash_fwd_f32") else 0)
+             for k, v in launches.items()}
+    ok = (state["step"] == 2 and math.isfinite(float(metrics["loss"]))
+          and launches["flash_fwd_f32"] == embeds and on_wgmma(trunk)
+          and launches["flash_bwd_dq"] > 0)
+    rows.append({"run": "esm (ESM-1b width)", "lines": lines, "seconds": secs,
+                 "launches": {k: v for k, v in launches.items() if v}, "ok": ok})
+    del state
+    state, metrics, lines, secs = cli_run([*base, "--steps", "2", "--features", "none"])
+    rows.append({"run": "none", "lines": lines, "seconds": secs,
+                 "ok": state["step"] == 2 and math.isfinite(float(metrics["loss"]))})
+    shutil.rmtree(E2E_WORK, ignore_errors=True)
+    t0 = time.perf_counter()
+    whole = cli_run([*base, "--steps", "3"])[0]
+    cli_run([*base, "--steps", "2", "--ckpt-dir", str(E2E_WORK / "b")])
+    resumed, _, lines, _ = cli_run([*base, "--steps", "1", "--ckpt-dir", str(E2E_WORK / "b")])
+    same = [np.array_equal(np.asarray(a), np.asarray(b)) and pa == pb for (pa, a), (pb, b) in
+            zip(train_state_to_jax(whole), train_state_to_jax(resumed))]
+    ok = (resumed["step"] == whole["step"] == 3 and all(same) and len(same) > 0
+          and any("resumed from step 2" in x for x in lines))
+    rows.append({"run": "resume", "leaves": len(same), "equal": sum(same),
+                 "seconds": time.perf_counter() - t0, "ok": ok})
+    shutil.rmtree(E2E_WORK, ignore_errors=True)
+    del whole, resumed
+    torch.cuda.empty_cache()
+    ok, losses = phase_e2e_overfit()
+    rows.append({"run": "overfit", "losses": losses, "ok": ok})
+    for r in rows:
+        detail = {k: v for k, v in r.items() if k in ("rc", "seconds", "launches", "leaves",
+                                                       "equal", "losses")}
+        log(f"[e2e d] {r['run']}: {detail} | "
+            + " | ".join(r.get("stdout", r.get("lines", []))[-3:])
+            + f" {'ok' if r['ok'] else 'FAIL'}")
+    RECORD["phases"]["e2e_cli"] = rows
+    if not all(r["ok"] for r in rows):
+        bad = [r["run"] for r in rows if not r["ok"]]
+        fail(f"train_end2end on the card failed (phase 12d): {bad} "
+             f"{rows[0]['stderr_tail'][-800:] if not rows[0]['ok'] else ''}")
+
+
+def phase_e2e_capture_refused():
+    """On the card `CapturedTrainStep` refuses an E2EConfig, naming
+    A8-e2e-capture."""
+    ecfg = e2e.E2EConfig(model=Alphafold2Config(dim=32, depth=1, heads=2, dim_head=16,
+                                                max_seq_len=48), mds_iters=5,
+                         mds_init="classical")
+    tcfg = TrainConfig(grad_accum=1)
+    state = e2e.e2e_train_state_init(ecfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    try:
+        CapturedTrainStep(ecfg, tcfg, state, structure_fetch(8, 2, 1, seed=0)(0))
+    except ValueError as e:
+        if "A8-e2e-capture" not in str(e):
+            fail(f"CapturedTrainStep refused an E2EConfig without naming A8-e2e-capture: {e}")
+        log(f"[e2e] CapturedTrainStep on an E2EConfig raises: {str(e)[:90]}... ok")
+    else:
+        fail("CapturedTrainStep accepted an E2EConfig")
+
+
+def phase_e2e_train():
+    """12: end-to-end structure training. Returns (b)'s launches."""
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        RECORD["phases"][f"e2e_{key}_s"] = time.perf_counter() - t
+        log(f"[time] e2e {key}: {RECORD['phases'][f'e2e_{key}_s']:.1f} s")
+        return result
+
+    timed("a", phase_e2e_parity)
+    phase_e2e_capture_refused()
+    launches = timed("bc", phase_e2e_step)
+    timed("d", phase_e2e_cli)
+    return launches
+
+
 # --- phase 5: the kernels line -----------------------------------------------------
 
 
@@ -3716,7 +4233,8 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     wrappers' counts over phase 6b, 6c and 6e's captured steps: each
     kernel once in the warm-up and once in the capture, the replays
     launching what the capture recorded; B3's forward from the SP request,
-    its backward from the ring's gradient in f32 and in bf16)."""
+    its backward from the ring's gradient in f32 and in bf16; phase 12b's
+    5 counted e2e steps add their B1f, dq and dkv launches)."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r
@@ -3854,6 +4372,8 @@ def main():
     timed_phase("ckpt", phase_ckpt)
     timed_phase("templates", phase_templates)
     timed_phase("full_atom", phase_full_atom)
+    for name, n in timed_phase("e2e_train", phase_e2e_train).items():
+        launches[name] = launches.get(name, 0) + n
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches)
     for k in kernels:

@@ -180,10 +180,24 @@ def test_config_defaults_match_and_training_is_refused():
         if name not in ("model", "refiner"):
             assert tfields[name] == jfields[name], name
     assert te2e.E2EConfig.__dataclass_fields__["refiner"].default.num_tokens == 14
-    with pytest.raises(NotImplementedError, match="A8-e2e-train"):
-        te2e.make_e2e_loss_fn()
-    with pytest.raises(NotImplementedError, match="A8-e2e-train"):
-        te2e.e2e_train_state_init()
+    # training, once refused naming A8-e2e-train, now runs: one e2e step
+    # from e2e_train_state_init with a loss from make_e2e_loss_fn
+    from alphafold2_tpu_torch.training import harness
+    from alphafold2_tpu_torch.training.data import (
+        DataConfig,
+        synthetic_microbatch_fn,
+        synthetic_structure_batches,
+    )
+
+    _, _, _, tc = make(iters=5)
+    tt = harness.TrainConfig(grad_accum=1)
+    state = te2e.e2e_train_state_init(tc, tt, torch.Generator().manual_seed(0), "cpu")
+    step = harness.make_train_step(tc, tt, loss_fn=te2e.make_e2e_loss_fn(), device="cpu")
+    batch = synthetic_microbatch_fn(DataConfig(max_len=8, msa_rows=2), 1,
+                                    source=synthetic_structure_batches)(0)
+    state, metrics = step(state, batch)
+    assert state["step"] == 1
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
 
 
 def test_stage_hook_wraps_each_stage_once_in_order():
