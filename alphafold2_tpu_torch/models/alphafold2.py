@@ -28,6 +28,7 @@ from alphafold2_tpu_torch.device import (
     resolve_device,
 )
 from alphafold2_tpu_torch.models.config import Alphafold2Config
+from alphafold2_tpu_torch.models.reversible import reversible_trunk_apply, reversible_trunk_init
 from alphafold2_tpu_torch.models.trunk import (
     layer_generator,
     prenorm_axial_apply,
@@ -74,7 +75,8 @@ def alphafold2_init(cfg: Alphafold2Config, generator: torch.Generator, device):
     numbers differ, as a torch.Generator is not a JAX key). `generator` is
     a CPU generator; the tensors are moved to `device`. The template
     leaves are drawn last, so the others keep the numbers they had before
-    the template leaves were added."""
+    the template leaves were added. A reversible config's trunk layers
+    carry eight blocks (models/reversible.py)."""
     gen, dev = generator, resolve_device(device)
     params = {
         "token_emb": embedding_init(gen, cfg.num_tokens, cfg.dim, dev),
@@ -85,7 +87,8 @@ def alphafold2_init(cfg: Alphafold2Config, generator: torch.Generator, device):
         "embedd_project": linear_init(gen, cfg.num_embedds, cfg.dim, dev),
         "head_norm": layer_norm_init(cfg.dim, dev),
         "head_out": linear_init(gen, cfg.dim, cfg.num_buckets, dev),
-        "trunk": [trunk_layer_init(gen, cfg, dev) for _ in range(cfg.depth)],
+        "trunk": (reversible_trunk_init(gen, cfg, dev) if cfg.reversible
+                  else [trunk_layer_init(gen, cfg, dev) for _ in range(cfg.depth)]),
     }
     params.update(template_tower_init(gen, cfg, dev))
     return params
@@ -232,7 +235,9 @@ def alphafold2_apply(params, cfg: Alphafold2Config, seq, msa=None, *,
     overrides the trunk (the sequence-parallel one,
     parallel/sp_trunk.py alphafold2_apply_sp), called as
     trunk_fn(params["trunk"], cfg, x, m, x_mask, msa_mask, rng) and
-    returning (x, m). Returns distogram logits (b, n, n, num_buckets) in
+    returning (x, m); a reversible config refuses it. A reversible config
+    runs `reversible_trunk_apply` (which needs an MSA stream: msa or
+    embedds). Returns distogram logits (b, n, n, num_buckets) in
     cfg.dtype."""
     dev = resolve_device(device)
     check_params_device(params, dev)
@@ -254,6 +259,9 @@ def alphafold2_apply(params, cfg: Alphafold2Config, seq, msa=None, *,
             raise ValueError("trunk_fn overrides receive the sequential layer list; "
                              "set reversible=False")
         x, _ = trunk_fn(params["trunk"], cfg, x, m, x_mask, m_mask, rng)
+    elif cfg.reversible:
+        x, _ = reversible_trunk_apply(params["trunk"], cfg, x, m, x_mask=x_mask,
+                                      msa_mask=m_mask, rng=rng)
     else:
         x, _ = sequential_trunk_apply(params["trunk"], cfg, x, m, x_mask=x_mask,
                                       msa_mask=m_mask, rng=rng)

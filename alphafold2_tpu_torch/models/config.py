@@ -13,6 +13,10 @@ product, "dots_no_batch": those without a batch dimension).
 `trunk_schedule="branch_parallel"` runs each layer's MSA branch on a side
 stream on CUDA (models/trunk.py `branch_parallel_layer_apply`): the same
 ops as "serial", in the same order on the CPU.
+`reversible` runs the reversible dual-stream trunk (models/reversible.py),
+whose backward rebuilds each layer's input from its output; as in JAX it
+excludes `remat`, and `remat_policy` is unread under it. With
+"branch_parallel" it raises (ROADMAP A8-reversible-branch).
 """
 
 from __future__ import annotations
@@ -77,10 +81,17 @@ class Alphafold2Config:
                 f"remat_policy must be None, 'dots', or 'dots_no_batch', "
                 f"got {self.remat_policy!r}"
             )
-        if self.reversible:
+        if self.reversible and self.remat:
+            raise ValueError(
+                "reversible=True and remat=True are mutually exclusive "
+                "activation-memory strategies; pick one"
+            )
+        if self.reversible and self.trunk_schedule == "branch_parallel":
             raise NotImplementedError(
-                "reversible=True (the reversible trunk, models/reversible.py) is "
-                "not ported to PyTorch yet (ROADMAP A8)"
+                "reversible=True with trunk_schedule='branch_parallel': the reversible "
+                "layer's MSA half on the side stream, in the forward and in the "
+                "backward's inversion, is not ported yet (ROADMAP A8-reversible-branch); "
+                "use trunk_schedule='serial'"
             )
         if self.cross_attn_mode not in ("flat", "aligned"):
             raise ValueError(

@@ -4,10 +4,12 @@
 pytree (the output of `alphafold2_init`, leaves as numpy arrays) onto the
 port's parameter dicts, so both sides compute the same function;
 `params_to_jax(params)` is its inverse. The port keeps the JAX names and
-layouts, with one exception: the KV-compression conv weight, (k,
+layouts, with two exceptions: the KV-compression conv weight, (k,
 in/groups, out) in JAX, is (out, in/groups, k) for
 `torch.nn.functional.conv1d` (the reverse of
-alphafold2_tpu/models/convert.py's torch -> JAX map). The template
+alphafold2_tpu/models/convert.py's torch -> JAX map); and the reversible
+trunk, a dict of depth-stacked leaves in JAX, is the port's list of
+layer dicts (`unstack_layers`; `stack_layers` stacks it back). The template
 tower's leaves map like the trunk's; so do the embedder's, the refiner's
 and the end-to-end {"model", "refiner"} tree's (`embedder_params_from_jax`,
 `refiner_params_from_jax`, `e2e_params_from_jax`). `params_from_jax` makes leaves
@@ -32,6 +34,13 @@ them):
 and `ScaleByScheduleState`; the empty states hold no leaves.) A restore
 copies into the live tensors and never rebinds one, so a captured train
 step (`training/executable.py`) keeps its addresses.
+
+A reversible trunk's leaves, and AdamW's moments of them, map onto the
+stacked leaves of JAX's trunk and of optax's `mu` / `nu` (paths ["k",
+"trunk"], ["k", block], ..., with no ["i", layer] segment), layer l at
+index l of the depth axis. The layout changes only at the edges: on the
+way out `params_to_jax` stacks the trunk, on the way in `_per_layer`
+splits the stored leaves; the path code between them is per layer.
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ import json
 import numpy as np
 import torch
 
-from alphafold2_tpu_torch.device import resolve_device
+from alphafold2_tpu_torch.device import resolve_device, tree_leaves
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 
 
@@ -61,11 +70,39 @@ def convert_tree(tree, device, path=()):
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
+def unstack_layers(stacked):
+    """A depth-stacked JAX trunk (every leaf (depth, ...), the reversible
+    trunk's layout) as a list of per-layer trees (JAX `unstack_layers`).
+    Raises unless every leaf leads with the same depth."""
+    depths = {np.shape(a)[0] if np.ndim(a) else None for a in tree_leaves(stacked)}
+    if len(depths) != 1 or None in depths:
+        raise ValueError(f"a stacked trunk's leaves must share their leading (depth) axis, "
+                         f"got {sorted(map(str, depths))}")
+    (depth,) = depths
+
+    def layer(tree, i):
+        if isinstance(tree, dict):
+            return {k: layer(v, i) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [layer(v, i) for v in tree]
+        return np.asarray(tree)[i]
+
+    return [layer(stacked, i) for i in range(depth)]
+
+
 def params_from_jax(tree, cfg: Alphafold2Config, device=None):
     """Map a JAX parameter tree (numpy leaves) onto `device` (default CUDA).
     `cfg` is the port config the tree was made for; its depth is checked
-    against the tree's trunk."""
-    if "trunk" not in tree or not isinstance(tree["trunk"], (list, tuple)):
+    against the tree's trunk. A reversible config's JAX trunk is a dict of
+    depth-stacked leaves (`reversible_trunk_init`): it is unstacked into
+    the port's list of layer dicts, the depth read from the leading axis,
+    and each layer's compress-conv weight transposed after unstacking."""
+    trunk = tree.get("trunk")
+    if cfg.reversible:
+        if not isinstance(trunk, dict):
+            raise ValueError("expected a reversible trunk: a dict of depth-stacked leaves")
+        tree = dict(tree, trunk=unstack_layers(trunk))
+    elif not isinstance(trunk, (list, tuple)):
         raise ValueError("expected a sequential trunk: a list of layer params")
     if len(tree["trunk"]) != cfg.depth:
         raise ValueError(f"tree has {len(tree['trunk'])} trunk layers, cfg.depth={cfg.depth}")
@@ -120,6 +157,26 @@ def _is_compress(segs) -> bool:
     return tuple(s[1] for s in segs[-2:]) == _COMPRESS
 
 
+_TRUNK = ["k", "trunk"]
+
+
+def _is_reversible_trunk(val) -> bool:
+    # a reversible layer, and only one, carries the second feed-forwards
+    return (isinstance(val, (list, tuple)) and len(val) > 0 and isinstance(val[0], dict)
+            and "seq_ff2" in val[0])
+
+
+def stack_layers(layers):
+    """Per-layer host trees as one tree of depth-stacked leaves (JAX
+    `stack_layers`; the inverse of `unstack_layers`)."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([t[k] for t in layers]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [stack_layers(list(parts)) for parts in zip(*layers)]
+    return torch.stack(layers) if isinstance(first, torch.Tensor) else np.stack(layers)
+
+
 def host_leaf(t: torch.Tensor, segs):
     """A tensor of the port's tree as a host leaf in JAX's layout: a numpy
     array, or a CPU tensor for a dtype numpy lacks (bfloat16)."""
@@ -132,12 +189,24 @@ def host_leaf(t: torch.Tensor, segs):
 
 def params_to_jax(tree, path=()):
     """The port's parameter tree as numpy arrays in the JAX package's layout
-    (the inverse of `params_from_jax`; bfloat16 leaves stay CPU tensors)."""
+    (the inverse of `params_from_jax`: a reversible trunk's layers, each
+    laid out first, stacked back; bfloat16 leaves stay CPU tensors)."""
     if isinstance(tree, dict):
-        return {k: params_to_jax(v, path + (["k", k],)) for k, v in tree.items()}
+        out = {k: params_to_jax(v, path + (["k", k],)) for k, v in tree.items()}
+        if _is_reversible_trunk(tree.get("trunk")):
+            out["trunk"] = stack_layers(out["trunk"])
+        return out
     if isinstance(tree, (list, tuple)):
         return [params_to_jax(v, path + (["i", n],)) for n, v in enumerate(tree)]
     return host_leaf(tree, list(path))
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
 
 
 def _adamw_state(opt, p):
@@ -146,11 +215,13 @@ def _adamw_state(opt, p):
 
 def train_state_to_jax(state):
     """The port's train state as (path, host leaf) pairs of the JAX
-    package's `TrainState`, in its flatten order. AdamW's moments of a leaf
-    it has not stepped yet are zeros (optax's init)."""
+    package's `TrainState`, in its flatten order (through `params_to_jax`,
+    so a reversible trunk's params and moments are stacked as optax holds
+    them). AdamW's moments of a leaf it has not stepped yet are zeros
+    (optax's init)."""
     opt, step = state["optimizer"], int(state["step"])
-    params = list(leaf_paths(state["params"]))
-    steps = [_adamw_state(opt, p)["step"] for _, p in params if _adamw_state(opt, p)]
+    steps = [_adamw_state(opt, p)["step"] for p in tree_leaves(state["params"])
+             if _adamw_state(opt, p)]
     counts = set(torch.stack([t.detach().float() for t in steps]).cpu().tolist()
                  if steps else [0.0])
     if len(counts) > 1:
@@ -158,18 +229,38 @@ def train_state_to_jax(state):
     count = np.asarray(int(counts.pop()), np.int32)
     items = [(ADAM_COUNT, count)]
     for moment, name in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
-        for segs, p in params:
+        def get(p, moment=moment):
             m = _adamw_state(opt, p).get(moment)
-            items.append((_ADAM + [["a", name]] + segs,
-                          host_leaf(torch.zeros_like(p) if m is None else m, segs)))
+            return torch.zeros_like(p) if m is None else m
+
+        items += [(_ADAM + [["a", name]] + segs, a)
+                  for segs, a in leaf_paths(params_to_jax(_map(get, state["params"])))]
     items.append((SCHEDULE_COUNT, np.asarray(step, np.int32)))
-    items += [(PARAMS + segs, host_leaf(p, segs)) for segs, p in params]
+    items += [(PARAMS + segs, a) for segs, a in leaf_paths(params_to_jax(state["params"]))]
     items.append((STEP, np.asarray(step, np.int32)))
     return items
 
 
 def _as_tensor(arr) -> torch.Tensor:
     return arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.asarray(arr))
+
+
+def _per_layer(stored: dict) -> dict:
+    """`stored` with each depth-stacked trunk leaf (JAX's reversible layout:
+    a ["k", block] segment right after ["k", "trunk"]) split along its
+    depth axis into the port's per-layer paths (["i", layer] after ["k",
+    "trunk"]); every other leaf as it is."""
+    out = {}
+    for key, arr in stored.items():
+        segs = json.loads(key)
+        at = next((n + 1 for n in range(len(segs) - 1)
+                   if segs[n] == _TRUNK and segs[n + 1][0] == "k"), None)
+        if at is None:
+            out[key] = arr
+            continue
+        for layer, part in enumerate(arr):
+            out[json.dumps(segs[:at] + [["i", layer]] + segs[at:])] = part
+    return out
 
 
 def _copy_leaf(dst: torch.Tensor, stored: dict, segs, what: str) -> None:
@@ -189,9 +280,11 @@ def _copy_leaf(dst: torch.Tensor, stored: dict, segs, what: str) -> None:
 
 def params_from_stored(params, stored: dict, what: str) -> None:
     """Copy a stored train state's params (`stored`: json-dumped paths to
-    host arrays, as a checkpoint holds them) into the tensors of `params`,
-    in place. Raises on a leaf missing, on a shape that differs and on a
-    stored param the model lacks."""
+    host arrays, as a checkpoint holds them; a reversible trunk stacked or
+    per layer) into the tensors of `params`, in place. Raises on a leaf
+    missing, on a shape that differs and on a stored param the model
+    lacks."""
+    stored = _per_layer(stored)
     wanted = set()
     for segs, p in leaf_paths(params):
         _copy_leaf(p, stored, PARAMS + segs, what)
@@ -208,6 +301,7 @@ def train_state_from_stored(state, stored: dict, what: str) -> None:
     the port's live train state, in place: the params, AdamW's moments and
     step counts (made first where AdamW has not made them), and
     state["step"]."""
+    stored = _per_layer(stored)
     opt = state["optimizer"]
     opt.init_state()
     params_from_stored(state["params"], stored, what)

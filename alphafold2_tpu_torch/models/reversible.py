@@ -1,0 +1,338 @@
+"""The reversible dual-stream trunk: activation memory that does not grow
+with depth (counterpart of alphafold2_tpu/models/reversible.py).
+
+Both streams are channel-doubled on entry, (x, x, m, m), and the halves
+averaged on exit. Each layer is a self block (f = pair axial attention, g
+= pair FF, j = MSA axial attention, k = MSA FF) and then a cross block (f
+= pair<-MSA cross, g = pair FF, j = MSA<-pair cross on the UPDATED pair
+half z2, k = MSA FF); every block is an additive coupling, so a layer's
+input is rebuilt from its output (x2 = y2 - g(y1), ...). A reversible
+layer carries eight blocks (`trunk_layer_init(..., reversible=True)`).
+
+`_ReversibleCore` is the `torch.autograd.Function` of JAX's
+`_reversible_core` custom vjp. Its forward runs every layer without a
+graph and saves only the final state (z1, z2, o1, o2), the masks and the
+parameters, whatever the depth. Its backward walks the layers in reverse:
+each block is recomputed on detached inputs that require grad, under
+`torch.enable_grad()`, and `torch.autograd.grad` gives that block's input
+and parameter cotangents; its graph is freed before the next block. The
+block's output also rebuilds the block's input. The parameters are explicit
+inputs of the Function: every leaf of every layer, layer by layer, in the
+layer dict's order (`param_leaves`), and the backward returns their gradients
+in that order, so `torch.autograd.grad` and the train step's `.grad`
+buffers both take them. On CUDA each recomputed attention reaches its
+kernel, as the forward's does (ops/dispatch.py).
+
+`reverse=False` computes the same function through plain autograd (every
+layer's activations kept): the oracle of the parity tests, as in JAX.
+
+Sparse layers: a layer flagged in `cfg.layer_sparse` runs its pair axial
+attention block-sparse (`make_sparse_axial_fn`). JAX chains one custom-vjp
+scan a run of equal flags, since a scanned body is specialised on its
+flag; the port's Function loops over the layers in Python and hands each
+its own attention, so one Function over all layers computes the chained
+segments' function.
+
+Dropout: JAX derives eight op keys a layer from `fold_in(rng, layer)` and
+derives them again in the backward. Here the trunk draws, before it runs,
+one seed a block from the caller's CPU generator: layer by layer, the
+eight blocks in `BLOCKS` order (`block_seeds`). Each block draws its masks
+from a generator on the streams' device seeded with its own seed, made
+anew at each call, so the backward's recompute draws the forward's masks
+without touching the CPU generator (one generator shared in turn would
+replay the masks in the wrong order, since the backward walks the blocks
+in reverse). The masks cannot equal JAX's: the parity tests with JAX run
+without dropout.
+
+The reconstruction is exact in exact arithmetic only: in bfloat16 the
+rebuilt inputs differ from the forward's by rounding, in JAX too
+(`reconstruct_input` reports how far).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from alphafold2_tpu_torch.device import tree_leaves
+from alphafold2_tpu_torch.models.config import Alphafold2Config
+from alphafold2_tpu_torch.models.trunk import (
+    cross_apply_grids,
+    layer_seed,
+    make_sparse_axial_fn,
+    prenorm_axial_apply,
+    prenorm_ff_apply,
+    trunk_layer_init,
+)
+
+# a reversible layer's blocks in JAX's op order: its per-layer dropout keys
+# (r_fs, r_gs, r_js, r_ks, r_fc, r_gc, r_jc, r_kc) and the port's seeds
+BLOCKS = ("seq_attn", "seq_ff", "msa_attn", "msa_ff",
+          "seq_cross", "seq_ff2", "msa_cross", "msa_ff2")
+
+
+def reversible_trunk_init(gen, cfg: Alphafold2Config, device):
+    """The reversible trunk's params: a list of cfg.depth eight-block
+    layer dicts (JAX stacks them along a leading depth axis;
+    models/convert.py maps one layout onto the other)."""
+    return [trunk_layer_init(gen, cfg, device, reversible=True) for _ in range(cfg.depth)]
+
+
+# --- the four block functions ------------------------------------------------
+
+
+def _f_seq(cfg, params, x2, x_mask, gen, sparse_fn):
+    # the pair axial self-attention, block-sparse on a flagged layer
+    return prenorm_axial_apply(params, cfg.self_attn_config(), x2, mask=x_mask, rng=gen,
+                               attention_fn=sparse_fn)
+
+
+def _j_msa(cfg, params, m2, msa_mask, gen):
+    # the MSA axial self-attention, optionally with tied rows
+    return prenorm_axial_apply(params, cfg.self_attn_config(), m2, mask=msa_mask,
+                               tie_row=cfg.msa_tie_row_attn, rng=gen)
+
+
+def _ff(cfg, params, t, gen):
+    return prenorm_ff_apply(params, cfg, t, gen)
+
+
+def _cross(cfg, params, q_grid, ctx_grid, q_mask, ctx_mask, gen, direction):
+    # flat or column-aligned per cfg.cross_attn_mode, optionally KV-compressed
+    return cross_apply_grids(params, cfg, q_grid, ctx_grid, q_mask, ctx_mask, direction, gen)
+
+
+def block_seeds(rng, depth: int):
+    """Each layer's eight block seeds (`BLOCKS` order), drawn from the CPU
+    generator `rng` layer by layer; None for each when rng is None (eval
+    mode)."""
+    return [[layer_seed(rng) for _ in BLOCKS] for _ in range(depth)]
+
+
+def _generators(seeds, device):
+    """A fresh generator on `device` for each block seed (None: no dropout)."""
+    return [None if s is None else torch.Generator(device).manual_seed(s) for s in seeds]
+
+
+def _block_fns(cfg, layer, x_mask, msa_mask, seeds, sparse_fn, device):
+    """One layer's eight blocks as functions of the stream halves they
+    read, each with a fresh generator from its seed (`BLOCKS` order)."""
+    g = _generators(seeds, device)
+    return {
+        "seq_attn": lambda x2: _f_seq(cfg, layer["seq_attn"], x2, x_mask, g[0], sparse_fn),
+        "seq_ff": lambda y1: _ff(cfg, layer["seq_ff"], y1, g[1]),
+        "msa_attn": lambda m2: _j_msa(cfg, layer["msa_attn"], m2, msa_mask, g[2]),
+        "msa_ff": lambda n1: _ff(cfg, layer["msa_ff"], n1, g[3]),
+        "seq_cross": lambda y2, n2: _cross(cfg, layer["seq_cross"], y2, n2, x_mask, msa_mask,
+                                           g[4], "pair_from_msa"),
+        "seq_ff2": lambda z1: _ff(cfg, layer["seq_ff2"], z1, g[5]),
+        "msa_cross": lambda n2, z2: _cross(cfg, layer["msa_cross"], n2, z2, msa_mask, x_mask,
+                                           g[6], "msa_from_pair"),
+        "msa_ff2": lambda o1: _ff(cfg, layer["msa_ff2"], o1, g[7]),
+    }
+
+
+# --- one layer forward and backward -----------------------------------------
+
+
+def _layer_forward(cfg, layer, state, x_mask, msa_mask, seeds, sparse_fn):
+    x1, x2, m1, m2 = state
+    b = _block_fns(cfg, layer, x_mask, msa_mask, seeds, sparse_fn, x1.device)
+    # the self block: the pair half (f, g) and the MSA half (j, k) touch
+    # only their own stream
+    y1 = x1 + b["seq_attn"](x2)
+    y2 = x2 + b["seq_ff"](y1)
+    n1 = m1 + b["msa_attn"](m2)
+    n2 = m2 + b["msa_ff"](n1)
+    # the cross block; the MSA cross attends the UPDATED pair half z2
+    z1 = y1 + b["seq_cross"](y2, n2)
+    z2 = y2 + b["seq_ff2"](z1)
+    o1 = n1 + b["msa_cross"](n2, z2)
+    o2 = n2 + b["msa_ff2"](o1)
+    return z1, z2, o1, o2
+
+
+def param_leaves(tree):
+    """A param tree's tensors in dict order: the Function's input order."""
+    return list(tree_leaves(tree))
+
+
+def _rebuild(tree, it):
+    """`tree`'s structure with its leaves taken from the iterator `it`."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, it) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_rebuild(v, it) for v in tree]
+    return next(it)
+
+
+def _recompute(fn, inputs, params, ct, param_grads):
+    """fn(*inputs) recomputed on detached inputs that require grad, under
+    enable_grad, then `torch.autograd.grad` of the output against the
+    inputs and (param_grads) the block's param leaves, with cotangent
+    `ct`. Returns (the output without a graph, input cotangents, param
+    cotangents in `param_leaves` order or None)."""
+    ins = [t.detach().requires_grad_(True) for t in inputs]
+    leaves = param_leaves(params) if param_grads else []
+    with torch.enable_grad():
+        out = fn(*ins)
+        wrt = ins + [p for p in leaves if p.requires_grad]
+        grads = torch.autograd.grad(out, wrt, ct, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(wrt, grads)]
+    d_in, d_wrt = grads[:len(ins)], iter(grads[len(ins):])
+    d_params = [next(d_wrt) if p.requires_grad else None for p in leaves] if param_grads else None
+    return out.detach(), d_in, d_params
+
+
+def _layer_backward(cfg, layer, state, cts, x_mask, msa_mask, seeds, sparse_fn,
+                    param_grads=True):
+    """Invert one layer from its output `state` and carry the cotangents
+    `cts` back through it (JAX `_layer_backward`): the cross block (k, j,
+    g, f), then the self block (the pair half g, f; the MSA half k, j).
+    Returns (the layer's input, its cotangents, {block: param cotangents
+    in `param_leaves` order, or None without param_grads})."""
+    z1, z2, o1, o2 = state
+    dz1, dz2, do1, do2 = cts
+    b = _block_fns(cfg, layer, x_mask, msa_mask, seeds, sparse_fn, z1.device)
+    dp = {}
+
+    def run(name, inputs, ct):
+        out, d_in, dp[name] = _recompute(b[name], inputs, layer[name], ct, param_grads)
+        return out, d_in
+
+    # --- the cross block ---
+    # k: o2 = n2 + K(o1)
+    ko1, (do1_k,) = run("msa_ff2", [o1], do2)
+    n2 = o2 - ko1
+    dn1 = do1 + do1_k
+    # j: o1 = n1 + J(n2, z2); z2 gets a cotangent too (the z2 coupling),
+    # added to dz2 before g's vjp
+    jn2, (dn2_j, dz2_j) = run("msa_cross", [n2, z2], dn1)
+    n1 = o1 - jn2
+    dn2 = do2 + dn2_j
+    dz2 = dz2 + dz2_j
+    # g: z2 = y2 + G(z1)
+    gz1, (dz1_g,) = run("seq_ff2", [z1], dz2)
+    y2 = z2 - gz1
+    dy1 = dz1 + dz1_g
+    # f: z1 = y1 + F(y2, n2)
+    fy2, (dy2_f, dn2_f) = run("seq_cross", [y2, n2], dy1)
+    y1 = z1 - fy2
+    dy2 = dz2 + dy2_f
+    dn2 = dn2 + dn2_f
+
+    # --- the self block, the pair half ---
+    gy1, (dy1_g,) = run("seq_ff", [y1], dy2)
+    x2 = y2 - gy1
+    dx1 = dy1 + dy1_g
+    fx2, (dx2_f,) = run("seq_attn", [x2], dx1)
+    x1 = y1 - fx2
+    dx2 = dy2 + dx2_f
+    # --- the MSA half ---
+    kn1, (dn1_k,) = run("msa_ff", [n1], dn2)
+    m2 = n2 - kn1
+    dm1 = dn1 + dn1_k
+    jm2, (dm2_j,) = run("msa_attn", [m2], dm1)
+    m1 = n1 - jm2
+    dm2 = dn2 + dm2_j
+    return (x1, x2, m1, m2), (dx1, dx2, dm1, dm2), dp
+
+
+def _sparse_fns(cfg: Alphafold2Config, depth: int):
+    flags = cfg.layer_sparse
+    fn = make_sparse_axial_fn(cfg) if any(flags) else None
+    return [fn if flags[i] else None for i in range(depth)]
+
+
+def forward_state(layers, cfg: Alphafold2Config, state, *, x_mask=None, msa_mask=None,
+                  seeds=None):
+    """Every layer in turn on the channel-doubled state (x1, x2, m1, m2):
+    the last layer's (z1, z2, o1, o2), with a graph when grad is enabled.
+    seeds: `block_seeds`'s draw (None: eval mode)."""
+    layers = list(layers)
+    seeds = seeds if seeds is not None else block_seeds(None, len(layers))
+    for layer, layer_seeds, sparse_fn in zip(layers, seeds, _sparse_fns(cfg, len(layers))):
+        state = _layer_forward(cfg, layer, state, x_mask, msa_mask, layer_seeds, sparse_fn)
+    return state
+
+
+# --- the Function -----------------------------------------------------------
+
+
+class _ReversibleCore(torch.autograd.Function):
+    """(x1, x2, m1, m2) -> the last layer's (z1, z2, o1, o2). Saves only
+    the final state, the masks and the parameters: no per-layer
+    activation."""
+
+    @staticmethod
+    def forward(ctx, meta, x_mask, msa_mask, x1, x2, m1, m2, *leaves):
+        cfg, structure, seeds = meta
+        state = forward_state(_rebuild(structure, iter(leaves)), cfg, (x1, x2, m1, m2),
+                              x_mask=x_mask, msa_mask=msa_mask, seeds=seeds)
+        ctx.meta = meta
+        ctx.save_for_backward(x_mask, msa_mask, *state, *leaves)
+        return state
+
+    @staticmethod
+    def backward(ctx, dz1, dz2, do1, do2):
+        cfg, structure, seeds = ctx.meta
+        x_mask, msa_mask, z1, z2, o1, o2, *leaves = ctx.saved_tensors
+        layers = _rebuild(structure, iter(leaves))
+        sparse_fns = _sparse_fns(cfg, len(layers))
+        param_grads = any(ctx.needs_input_grad[7:])
+        state, cts = (z1, z2, o1, o2), (dz1, dz2, do1, do2)
+        d_layers = [None] * len(layers)
+        for index in reversed(range(len(layers))):
+            state, cts, dp = _layer_backward(cfg, layers[index], state, cts, x_mask, msa_mask,
+                                             seeds[index], sparse_fns[index], param_grads)
+            d_layers[index] = dp
+        d_leaves = []
+        for layer, dp in zip(layers, d_layers):
+            for name, block in layer.items():
+                d_leaves += (dp[name] if param_grads else [None] * len(param_leaves(block)))
+        return (None, None, None, *cts, *d_leaves)
+
+
+# --- public API -------------------------------------------------------------
+
+
+def reversible_trunk_apply(layers, cfg: Alphafold2Config, x, m, *, x_mask=None,
+                           msa_mask=None, rng=None, reverse: bool = True):
+    """Run the reversible trunk.
+
+    layers: the list of eight-block layer dicts (`reversible_trunk_init`).
+    x: the pair grid (b, n, n, d); m: the MSA stream (b, rows, cols, d),
+    required. x_mask (b, n, n) / msa_mask (b, rows, cols) bool or None.
+    rng: an optional CPU generator for dropout (`block_seeds`; None: eval
+    mode). reverse: True runs `_ReversibleCore` (the backward rebuilds
+    each layer's input); False the same function through plain autograd.
+    Returns (x, m): the channel-halved streams averaged back to width d."""
+    if m is None:
+        raise ValueError("the reversible trunk requires an MSA stream "
+                         "(reference reversible.py:316)")
+    layers = list(layers)
+    seeds = block_seeds(rng, len(layers))
+    if reverse:
+        meta = (cfg, layers, seeds)
+        z1, z2, o1, o2 = _ReversibleCore.apply(meta, x_mask, msa_mask, x, x, m, m,
+                                               *param_leaves(layers))
+    else:
+        z1, z2, o1, o2 = forward_state(layers, cfg, (x, x, m, m), x_mask=x_mask,
+                                       msa_mask=msa_mask, seeds=seeds)
+    return (z1 + z2) * 0.5, (o1 + o2) * 0.5
+
+
+def reconstruct_input(layers, cfg: Alphafold2Config, state, *, x_mask=None, msa_mask=None,
+                      seeds=None):
+    """The trunk's input state rebuilt from its output `state` (z1, z2, o1,
+    o2) by the backward's own inversion, layer by layer in reverse (with
+    zero cotangents; no parameter gradients). seeds: `block_seeds`'s draw
+    of the forward (None: eval mode). Against the forward's (x, x, m, m)
+    it shows the inversion's rounding (exact in exact arithmetic)."""
+    layers = list(layers)
+    seeds = seeds if seeds is not None else block_seeds(None, len(layers))
+    sparse_fns = _sparse_fns(cfg, len(layers))
+    cts = tuple(torch.zeros_like(t) for t in state)
+    for index in reversed(range(len(layers))):
+        state, cts, _ = _layer_backward(cfg, layers[index], state, cts, x_mask, msa_mask,
+                                        seeds[index], sparse_fns[index], param_grads=False)
+    return tuple(t.detach() for t in state)

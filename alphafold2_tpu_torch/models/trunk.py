@@ -353,11 +353,14 @@ def branch_parallel_layer_apply(layer, cfg: Alphafold2Config, x, m, *, x_mask=No
 # --- trunk layer ------------------------------------------------------------
 
 
-def trunk_layer_init(gen, cfg: Alphafold2Config, device):
-    """One sequential trunk layer's params (six blocks)."""
+def trunk_layer_init(gen, cfg: Alphafold2Config, device, *, reversible: bool = False):
+    """One trunk layer's params: six blocks for a sequential layer, eight
+    for a reversible one, which adds a second feed-forward to each stream
+    (`seq_ff2`, `msa_ff2`, drawn after the six, so the six keep the numbers
+    a sequential layer draws)."""
     self_cfg = cfg.self_attn_config()
     cross_cfg = cfg.cross_attn_config()
-    return {
+    params = {
         "seq_attn": prenorm_axial_init(gen, cfg, self_cfg, device),
         "msa_attn": prenorm_axial_init(gen, cfg, self_cfg, device),
         "seq_cross": prenorm_cross_init(gen, cfg, cross_cfg, device),
@@ -365,6 +368,10 @@ def trunk_layer_init(gen, cfg: Alphafold2Config, device):
         "seq_ff": prenorm_ff_init(gen, cfg, device),
         "msa_ff": prenorm_ff_init(gen, cfg, device),
     }
+    if reversible:
+        params["seq_ff2"] = prenorm_ff_init(gen, cfg, device)
+        params["msa_ff2"] = prenorm_ff_init(gen, cfg, device)
+    return params
 
 
 def trunk_layer_apply(layer, cfg: Alphafold2Config, x, m, *, x_mask=None,

@@ -6,7 +6,7 @@ dispersion term (`training/e2e.py e2e_loss_fn`), accumulated over
 microbatches and applied by one AdamW update a step.
 
 Usage:
-  python -m alphafold2_tpu_torch.train_end2end --steps 50 [--bf16]
+  python -m alphafold2_tpu_torch.train_end2end --steps 50 [--bf16] [--reversible]
   python -m alphafold2_tpu_torch.train_end2end --steps 2 --dim 16 --depth 1 \\
       --heads 2 --dim-head 8 --len 8 --mds-iters 5 --device cpu [--features esm]
   python -m alphafold2_tpu_torch.train_end2end --steps 50 --ckpt-dir runs/e2e \\
@@ -38,8 +38,14 @@ under `training/resilience.py run_resilient`; msa and none fetch each
 step's batch by its index (a retried step refetches it), esm takes the
 next batch of its stream, as the JAX CLI does.
 
+`--reversible` runs the reversible trunk (models/reversible.py), whose
+activation memory does not grow with depth; it needs the trunk's second
+stream, so `--features none --reversible` raises the trunk's no-MSA
+error at the first step, as the JAX CLI does.
+
 Not ported: `--sp-shards` and multi-host runs (ROADMAP A13),
-`--reversible` (A8-reversible), `--trunk-segments` (A12), `--data
+`--trunk-segments` (A12: each step as separate executions of reversible
+trunk segments), `--data
 sidechainnet` (it needs a dataset in the repository), `--eval-every`,
 `--metrics-jsonl`, the trace and observability flags and `--profile-dir`
 / `--profile-steps` (A14).
@@ -108,6 +114,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="backpropagate MDS through its last K iterations only "
                          "(default: all)")
     ap.add_argument("--refiner-depth", type=int, default=2)
+    ap.add_argument("--reversible", action="store_true",
+                    help="reversible trunk: O(1) activation memory in depth (the north-star "
+                         "depth-48 config, BASELINE.md config 5)")
     add_train_args(ap)
     ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     ap.add_argument("--features", choices=["msa", "esm", "none"], default="msa")
@@ -139,6 +148,7 @@ def e2e_config_from_args(args) -> E2EConfig:
         dim=args.dim, depth=args.depth, heads=args.heads, dim_head=args.dim_head,
         max_seq_len=max(64, 3 * args.max_len), max_num_msa=max(20, args.msa_rows),
         **({"num_embedds": args.esm_dim} if args.features == "esm" else {}),
+        reversible=args.reversible,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
     )
     return E2EConfig(

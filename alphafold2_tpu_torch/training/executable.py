@@ -30,10 +30,17 @@ End-to-end structure training (`training/e2e.py`) is refused: its step
 reads the host (see `CapturedTrainStep`), so it runs eagerly (ROADMAP
 A8-e2e-capture).
 
-Dropout: each trunk layer seeds a fresh generator on the card from a
-seed drawn on the host (models/trunk.py), which a graph would freeze, and
-the remat recompute must draw the forward's masks again inside the same
-graph, so a step with live dropout raises naming ROADMAP A6-dropout.
+A reversible config (models/reversible.py) captures as the sequential
+one does: its Function's backward, with the nested `torch.autograd.grad`
+of each recomputed block, runs inside the one graph and reads nothing
+from the host.
+
+Dropout: each trunk layer (each block of a reversible layer) seeds a
+fresh generator on the card from a seed drawn on the host
+(models/trunk.py, models/reversible.py), which a graph would freeze, and
+the remat or reversible recompute must draw the forward's masks again
+inside the same graph, so a step with live dropout raises naming ROADMAP
+A6-dropout.
 """
 
 from __future__ import annotations

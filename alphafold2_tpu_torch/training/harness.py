@@ -273,7 +273,7 @@ def make_train_step(cfg, tcfg: TrainConfig,
     """`train_step(state, batch, rng=None) -> (state, metrics)`, eager.
     cfg: an Alphafold2Config (the distogram loss), or an E2EConfig with
     `loss_fn=training/e2e.py e2e_loss_fn` (its train state from
-    `e2e_train_state_init`). batch leaves carry a leading microbatch axis
+    `e2e_train_state_init`); either may be reversible. batch leaves carry a leading microbatch axis
     of length tcfg.grad_accum;
     rng is an optional CPU generator for dropout. The state is updated in
     place and returned; metrics are 0-d tensors on the device: "loss" (the

@@ -217,6 +217,32 @@ each phase prints its seconds):
          in a process of its own; esm at ESM-1b's width, none, and a
          bit-exact resume through its `main`), and 20 steps on one
          microbatch at (b)'s widths and crop 128 lowering the loss;
+  13. the reversible trunk (`models/reversible.py`: the O(1)-memory
+     backward as a `torch.autograd.Function`; `training/presets.py
+     north_star_e2e_config`; `train_end2end --reversible`):
+     (a) f32, 3 distogram steps of 2 microbatches on the card and on the
+         CPU from the same params (dim 256, 8 heads of 64, depth 2, layer
+         0 sparse, tied MSA rows, aligned crosses with KV compression 2, L
+         = 64, 16 MSA rows), phase 6a's comparison and tolerances, every
+         flash and B5 launch on its f32 route; the card's trunk gradient
+         with reverse=True against reverse=False (1e-4 of each leaf's
+         largest);
+     (b) bf16 at the north-star widths, grid 384, 128 rows, depth 2 and 4:
+         each leaf's reversible gradient against plain autograd's and the
+         layer-0 input rebuilt from the output, held to bounds stated
+         before the first run (`REV_GRAD_BOUND`, `REV_RECON_ULPS`);
+     (c) the reversible distogram step captured (train_pre's defaults,
+         depth 1, crop 128, accum 16, a 20-row MSA): 3 replays bit for bit
+         3 eager steps, all on wgmma; its captured ms beside the
+         sequential step's on the same batch and 6h's;
+     (d) the north-star e2e step, reversible (`north_star_e2e_config(2)`:
+         crop 384, grid 1152, 128 rows, accum 2, bf16, eager): step ms,
+         MFU, peak memory, busy share, device ms by kind, 40 B1f and 20 +
+         20 B1b launches a step, all on wgmma; one step of depth 4 and of
+         depth 2 from fresh states: peak(4) - peak(2) < 1 GiB, and the
+         depth-2 peak below 12b's remat peak;
+     (e) `train_end2end.main --reversible --bf16 --len 32`: 3 steps against
+         2 saved then 1 resumed, bit for bit;
   5. a `kernels` JSON line (thirteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, B3's forward and its two backward kernels), the card line,
@@ -300,7 +326,8 @@ from alphafold2_tpu_torch.training.checkpoint import (  # noqa: E402
     open_or_init,
     restore_params_for_inference,
 )
-from alphafold2_tpu_torch.training import e2e  # noqa: E402
+from alphafold2_tpu_torch.training import e2e, presets  # noqa: E402
+from alphafold2_tpu_torch.models import reversible  # noqa: E402
 from alphafold2_tpu_torch.training.data import (  # noqa: E402
     DataConfig,
     synthetic_microbatch_fn,
@@ -2231,17 +2258,19 @@ def train_pre_config(**fields):
                                       dtype=torch.bfloat16), **fields})
 
 
-def capture_vs_eager(label, cfg, L, grad_accum, wgmma):
+def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0):
     """Train_pre's step captured (`CapturedTrainStep`) against the eager
     step (`make_train_step`) from the same seeded params over the same 3
-    batches at crop L, with a warmup from lr 0, cosine decay, clipping
-    that acts and weight decay: loss and grad_norm every step and every
-    param leaf after 3 steps bit for bit (no tolerance: the same ops on the
-    same buffers). `wgmma`: every flash and sparse launch the capture
-    recorded on its wgmma route."""
+    batches at crop L (with a `msa_rows`-row MSA when nonzero), with a
+    warmup from lr 0, cosine decay, clipping that acts and weight decay:
+    loss and grad_norm every step and every param leaf after 3 steps bit
+    for bit (no tolerance: the same ops on the same buffers). `wgmma`:
+    every flash and sparse launch the capture recorded on its wgmma
+    route. Returns (the captured step, its state, the last batch)."""
     tcfg = TrainConfig(grad_accum=grad_accum, warmup_steps=1, decay_steps=3, decay_floor=0.1,
                        max_grad_norm=0.05, weight_decay=0.01)
-    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, seed=9), grad_accum)
+    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, seed=9,
+                                               msa_rows=msa_rows), grad_accum)
     batches = [fetch(n) for n in range(3)]
     eager_state, cap_state = (train_state_init(cfg, tcfg, torch.Generator().manual_seed(0),
                                                "cuda") for _ in range(2))
@@ -2278,6 +2307,7 @@ def capture_vs_eager(label, cfg, L, grad_accum, wgmma):
     if not ok:
         fail(f"the captured train step differs from the eager one, or left its wgmma route "
              f"({label}, phase 6g)")
+    return captured, cap_state, batches[-1]
 
 
 def phase_train_capture():
@@ -3745,21 +3775,16 @@ SOLVER_MARKERS = ("syev", "sytrd", "sytd2", "ormtr", "orgtr", "stedc", "steqr", 
 
 
 def e2e_north_star(crop, **model):
-    """The north-star preset's e2e config (alphafold2_tpu/training/
-    presets.py north_star_e2e_config) at depth 2, less reversibility:
-    dim 256, 8 heads of 64, tied MSA rows, the column-aligned crosses with
-    KV compression 4, ff_chunk_size 32768, `remat` in place of the
-    reversible trunk (A8-reversible), bf16; refiner dim 64, depth 2, atom
-    chunks of 256; 25 MDS iterations from the classical init. The port's
-    attention defaults (the preset's depth-aware knobs are TPU thresholds)."""
-    cfg = Alphafold2Config(**{**dict(
-        dim=256, depth=2, heads=8, dim_head=64, max_seq_len=max(2048, 3 * crop),
-        max_num_msa=max(E2E_ROWS, 20), dtype=torch.bfloat16, remat=True,
-        msa_tie_row_attn=True, cross_attn_compress_ratio=4, cross_attn_mode="aligned",
-        ff_chunk_size=32768), **model})
-    refiner = RefinerConfig(num_tokens=14, dim=64, depth=2, msg_dim=64, dtype=torch.bfloat16,
-                            atom_chunk=256)
-    return e2e.E2EConfig(model=cfg, refiner=refiner, mds_iters=25, mds_init="classical")
+    """The port's north-star preset (`training/presets.py
+    north_star_e2e_config`) at depth 2, less reversibility: dim 256, 8
+    heads of 64, tied MSA rows, the column-aligned crosses with KV
+    compression 4, ff_chunk_size 32768, `remat` in place of the reversible
+    trunk, bf16; refiner dim 64, depth 2, atom chunks of 256; 25 MDS
+    iterations from the classical init; the port's attention defaults.
+    `model`: further overrides of the model config."""
+    ecfg, _, _ = presets.north_star_e2e_config(2, model_overrides={
+        "reversible": False, "remat": True, "max_seq_len": max(2048, 3 * crop), **model})
+    return ecfg
 
 
 def structure_fetch(crop, rows, grad_accum, seed, batch_size=1):
@@ -3949,6 +3974,72 @@ def profile_step(fn):
             "other_top": sorted(other, reverse=True)[:10]}
 
 
+def time_e2e_step(ecfg, crop, rows, accum, reps, first_step=contextlib.nullcontext):
+    """The eager e2e train step (`make_train_step`, `e2e_loss_fn`, lr 3e-4)
+    of a seeded state on `crop`-residue structures with `rows` MSA rows,
+    `accum` microbatches a step: one untimed step (inside `first_step()`),
+    then, launch counts set to 0 and the peak memory reset just before,
+    `reps` timed steps (CUDA events around each), read just after. Returns
+    the state, step and fetch (for more steps), the times and their
+    median, the metrics, the untimed step's metrics and seconds, the
+    launches, the peak GiB, `train_step_flops(cfg, 3 crop, rows, crop,
+    accum)` and MFU (over 989 TFLOP/s bf16)."""
+    tcfg = TrainConfig(grad_accum=accum)
+    state = e2e.e2e_train_state_init(ecfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    fetch = structure_fetch(crop, rows, accum, seed=9)
+    step = make_train_step(ecfg, tcfg, loss_fn=e2e.e2e_loss_fn, device="cuda")
+    t0 = time.perf_counter()
+    with first_step():
+        _, first = step(state, fetch(0))
+    first = {k: float(v) for k, v in first.items()}
+    untimed_s = time.perf_counter() - t0
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, metrics = [], []
+    for n in range(1, reps + 1):
+        batch = fetch(n)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, m = step(state, batch)
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = launch_counts()
+    step_ms = sorted(times)[reps // 2]
+    flops = train_step_flops(ecfg.model, 3 * crop, rows, crop, grad_accum=accum)
+    return {"state": state, "step": step, "fetch": fetch, "times": times, "step_ms": step_ms,
+            "metrics": metrics, "first": first, "untimed_s": untimed_s, "launches": launches,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "flops": flops,
+            "mfu": flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]}
+
+
+def north_star_step(depth=48):
+    """The port's north-star preset (`north_star_e2e_config(depth)`: crop
+    384, 128 MSA rows, bf16, reversible) for one timed step of one
+    microbatch after an untimed one (`time_e2e_step`). Not a phase of the
+    script: run it as
+
+        python3 -c "import chip_smoke as c; c.north_star_step(48)"
+
+    It logs the card, step ms, MFU, peak memory and the launches, and
+    writes them to chiprun_out/north_star_step.json."""
+    smi = phase_card()
+    ecfg, crop, rows = presets.north_star_e2e_config(depth)
+    run = time_e2e_step(ecfg, crop, rows, 1, 1)
+    row = {"card": smi, "config": f"north_star_e2e_config({depth})", "crop": crop,
+           "rows": rows, "accum": 1,
+           "params": sum(t.numel() for t in run["state"]["optimizer"].leaves), "untimed_step_s": run["untimed_s"], "step_ms": run["step_ms"],
+           "train_step_flops": run["flops"], "mfu": run["mfu"], "peak_gib": run["peak_gib"],
+           "metrics": run["metrics"], "launches": {k: v for k, v in run["launches"].items() if v}}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "north_star_step.json").write_text(json.dumps(row, indent=1))
+    log(json.dumps(row))
+    return row
+
+
 def phase_e2e_step(crop=E2E_CROP, rows=E2E_ROWS, reps=5):
     """(b) The e2e step at the north-star model's widths less reversibility
     (`e2e_north_star`), crop `crop` (a (3 crop)^2 grid), `rows` MSA rows,
@@ -3968,31 +4059,12 @@ def phase_e2e_step(crop=E2E_CROP, rows=E2E_ROWS, reps=5):
     (c) Each kept launch against its plain version, timed at its shape
     (`e2e_shape_row`). Returns the counted run's launches."""
     ecfg = e2e_north_star(crop)
-    tcfg = TrainConfig(grad_accum=2)
-    state = e2e.e2e_train_state_init(ecfg, tcfg, torch.Generator().manual_seed(0), "cuda")
-    fetch = structure_fetch(crop, rows, tcfg.grad_accum, seed=9)
-    step = make_train_step(ecfg, tcfg, loss_fn=e2e.e2e_loss_fn, device="cuda")
     kept, per_shape = {}, {}
-    t0 = time.perf_counter()
-    with kept_train_calls(kept, per_shape):
-        _, first = step(state, fetch(0))
-    first = {k: float(v) for k, v in first.items()}
-    untimed_s = time.perf_counter() - t0
-    sync()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    times, metrics = [], []
-    for n in range(1, reps + 1):
-        batch = fetch(n)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        _, m = step(state, batch)
-        end.record()
-        sync()
-        times.append(start.elapsed_time(end))
-        metrics.append({k: float(v) for k, v in m.items()})
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run = time_e2e_step(ecfg, crop, rows, 2, reps,
+                        first_step=lambda: kept_train_calls(kept, per_shape))
+    state, step, fetch = run["state"], run["step"], run["fetch"]
+    times, metrics, first = run["times"], run["metrics"], run["first"]
+    launches, peak, untimed_s = run["launches"], run["peak_gib"], run["untimed_s"]
     prof = profile_step(lambda: step(state, fetch(reps + 1)))
     timer = StageEvents()
     mb = {k: torch.as_tensor(v[0]).cuda() for k, v in fetch(reps + 2).items()}
@@ -4012,14 +4084,12 @@ def phase_e2e_step(crop=E2E_CROP, rows=E2E_ROWS, reps=5):
     stages = {name: v[0] for name, v in timer.ms().items()}
     backward_peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     del loss, mb
-    step_ms = sorted(times)[reps // 2]
-    flops = train_step_flops(ecfg.model, 3 * crop, rows, crop, grad_accum=tcfg.grad_accum)
-    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    step_ms, flops, mfu = run["step_ms"], run["flops"], run["mfu"]
     finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                  for m in metrics + [first])
     per = {k: v / reps for k, v in launches.items() if v}
     wgmma = on_wgmma(launches)
-    del state, step
+    del run, state, step
     torch.cuda.empty_cache()
     t_rows = time.perf_counter()
     kernel_rows = [e2e_shape_row(key, call, per_shape[key]) for key, call in sorted(kept.items())]
@@ -4202,6 +4272,326 @@ def phase_e2e_train():
     return launches
 
 
+# --- phase 13: the reversible trunk --------------------------------------------------
+
+REV_WORK = ROOT / "build" / "phase13"  # 13e's checkpoints, removed at the phase's end
+# 13b's bounds, stated before the phase first ran on the card: each leaf's
+# bf16 reversible gradient against plain autograd's, max |d| over the
+# leaf's largest entry; the rebuilt layer-0 input's max |d| in bf16 ulps
+# (2^-7) of the largest input entry
+REV_GRAD_BOUND = 0.25
+REV_RECON_ULPS = 16
+REV_FLASH = 5  # B1f launches a reversible layer's forward with tied MSA rows
+
+
+def reversible_parity_config(**fields):
+    """13a's config: dim 256, 8 heads of 64, depth 2, layer 0 sparse
+    (max_seq_len 64, 2 local blocks of 16: 7/8 of the blocks active at L =
+    64), tied MSA rows, the aligned crosses with KV compression 2, f32,
+    attn_flash=True: the CPU runs the flash path's plain version, as the
+    card runs the kernels. Under "auto" the CPU would take the dense path
+    at this size, and the two paths differ on a valid row whose keys are
+    all masked, which the aligned crosses make of every valid pair
+    position in a padded MSA column (ROADMAP C): dense averages the masked
+    keys' values, flash gives zeros."""
+    return Alphafold2Config(**{**dict(
+        dim=256, depth=2, heads=8, dim_head=64, max_seq_len=64, reversible=True,
+        sparse_self_attn=(True, False), sparse_num_local_blocks=2, msa_tie_row_attn=True,
+        cross_attn_mode="aligned", cross_attn_compress_ratio=2, attn_flash=True), **fields})
+
+
+def trunk_inputs(cfg, n, rows, cols, seed):
+    """Seeded trunk streams on the card in cfg.dtype: x (1, n, n, dim), m
+    (1, rows, cols, dim), and random cotangents for both."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    make = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(cfg.dtype)  # noqa: E731
+    return (make(1, n, n, cfg.dim), make(1, rows, cols, cfg.dim),
+            make(1, n, n, cfg.dim), make(1, rows, cols, cfg.dim))
+
+
+def trunk_grads(layers, cfg, x, m, gx, gm, reverse):
+    """The gradient of sum(out * g) over both outputs of
+    `reversible_trunk_apply`, in the inputs and every param leaf."""
+    leaves = reversible.param_leaves(layers)
+    x, m = x.clone().requires_grad_(True), m.clone().requires_grad_(True)
+    xo, mo = reversible.reversible_trunk_apply(layers, cfg, x, m, reverse=reverse)
+    loss = (xo.float() * gx.float()).sum() + (mo.float() * gm.float()).sum()
+    return torch.autograd.grad(loss, [x, m] + leaves)
+
+
+def grad_errors(got, want):
+    """Each gradient's max |d| over its largest entry in `want`."""
+    return [(a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+            for a, b in zip(got, want)]
+
+
+def phase_rev_parity():
+    """(a) f32: 3 distogram steps of 2 microbatches on the card and on the
+    CPU from the same params and batches (L = 64, a 16-row MSA;
+    `reversible_parity_config`), phase 6a's comparison and tolerances.
+    Every flash and B5 launch on its f32 route: a microbatch runs each
+    layer's 5 attentions that reach a kernel (2 pair axial, the MSA column
+    pass, 2 crosses; the tied MSA row pass is the dense einsum) in the
+    forward and again in the backward's recompute, whose vjp launches each
+    one's dq and dkv; layer 0's pair axial passes are B5's. Then on the
+    card the trunk's gradient (random streams and cotangents) with
+    reverse=True against reverse=False, within 1e-4 of each leaf's
+    largest entry (6a's gradient tolerance)."""
+    cfg = reversible_parity_config()
+    tcfg = TrainConfig(grad_accum=2)
+    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=64, msa_rows=16, seed=5), 2)
+    states = {dev: train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), dev)
+              for dev in ("cuda", "cpu")}
+    steps = {dev: make_train_step(cfg, tcfg, device=dev) for dev in states}
+    micro = tcfg.grad_accum * 3
+    flash = (REV_FLASH * cfg.depth - 2 * sum(cfg.layer_sparse)) * micro
+    sparse_n = 2 * sum(cfg.layer_sparse) * micro
+    expect = {}
+    for name, n in (("flash_fwd", 2 * flash), ("flash_bwd_dq", flash), ("flash_bwd_dkv", flash),
+                    ("sparse_fwd", 2 * sparse_n), ("sparse_bwd_dq", sparse_n),
+                    ("sparse_bwd_dkv", sparse_n)):
+        expect[name] = expect[f"{name}_f32"] = n
+    card_vs_cpu_steps("rev a", "rev_parity", "L=64 f32 depth 2 reversible, layer 0 sparse, "
+                      "16 MSA rows", repr(cfg), states, steps, fetch, tcfg, expect)
+    layers = states["cuda"]["params"]["trunk"]
+    x, m, gx, gm = trunk_inputs(cfg, 64, 16, 64, seed=21)
+    errs = grad_errors(trunk_grads(layers, cfg, x, m, gx, gm, True),
+                       trunk_grads(layers, cfg, x, m, gx, gm, False))
+    ok = max(errs) <= 1e-4
+    log(f"[rev a] the card's trunk gradient, reverse=True vs reverse=False (f32, "
+        f"{len(errs)} leaves): worst {max(errs):.2e} of each leaf's largest (tol 1e-4) "
+        f"{'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["rev_parity"]["reverse_vs_plain_worst"] = max(errs)
+    if not ok:
+        fail("the reversible trunk's f32 gradient on the card departs from plain autograd's "
+             "(phase 13a)")
+
+
+def phase_rev_drift(crop=128, rows=E2E_ROWS):
+    """(b) bf16 at the north-star widths (`presets.north_star_e2e_config`'s
+    model), pair grid 3 crop, `rows` MSA rows, depth 2 and 4, random
+    streams and cotangents: each leaf's reversible gradient against
+    plain autograd's (max |d| over the leaf's largest entry), and the
+    layer-0 input rebuilt from the trunk's output (`reconstruct_input`)
+    against the forward's, max |d| in bf16 ulps of the largest input
+    entry. A finding, held to REV_GRAD_BOUND and REV_RECON_ULPS (stated
+    before the first run) and to finite values."""
+    rows_out = []
+    for depth in (2, 4):
+        cfg = presets.north_star_e2e_config(depth)[0].model
+        layers = reversible.reversible_trunk_init(torch.Generator().manual_seed(depth), cfg,
+                                                  "cuda")
+        for t in reversible.param_leaves(layers):
+            t.requires_grad_(True)
+        names = [name for name, _ in named_leaves(layers)]
+        x, m, gx, gm = trunk_inputs(cfg, 3 * crop, rows, 3 * crop, seed=30 + depth)
+        rev = trunk_grads(layers, cfg, x, m, gx, gm, True)
+        plain = trunk_grads(layers, cfg, x, m, gx, gm, False)
+        finite = all(bool(torch.isfinite(g).all()) for g in rev)
+        errs = grad_errors(rev, plain)
+        del rev, plain
+        with torch.no_grad():
+            out = reversible.forward_state(layers, cfg, (x, x, m, m))
+            back = reversible.reconstruct_input(layers, cfg, out)
+        recon = [(a.float() - b.float()).abs().max().item()
+                 / (BF16_ULP * b.float().abs().max().item()) for a, b in zip(back, (x, x, m, m))]
+        finite = finite and all(bool(torch.isfinite(t).all()) for t in back)
+        del out, back
+        order = sorted(range(len(errs)), key=lambda i: -errs[i])
+        row = {"depth": depth, "grid": 3 * crop, "rows": rows, "leaves": len(errs) - 2,
+               "input_grad_err": errs[:2], "worst_leaf_err": max(errs[2:]),
+               "median_leaf_err": sorted(errs[2:])[(len(errs) - 2) // 2],
+               "worst": [(["x", "m"] + names)[i] for i in order[:5]],
+               "worst_errs": [errs[i] for i in order[:5]], "recon_ulps": recon,
+               "finite": finite}
+        row["ok"] = finite and max(errs) <= REV_GRAD_BOUND and max(recon) <= REV_RECON_ULPS
+        rows_out.append(row)
+        log(f"[rev b] bf16 depth {depth}, grid {3 * crop}, {rows} rows: reversible vs plain "
+            f"gradient, worst leaf {row['worst_leaf_err']:.3e} (median "
+            f"{row['median_leaf_err']:.3e}, inputs x {errs[0]:.3e} m {errs[1]:.3e}; bound "
+            f"{REV_GRAD_BOUND}), worst at {row['worst'][:3]}; layer-0 input rebuilt to "
+            f"(x1, x2, m1, m2) {', '.join(f'{u:.2f}' for u in recon)} ulps of the largest "
+            f"(bound {REV_RECON_ULPS}) {'ok' if row['ok'] else 'FAIL'}")
+        del layers, x, m, gx, gm
+        torch.cuda.empty_cache()
+    RECORD["phases"]["rev_drift"] = rows_out
+    if not all(r["ok"] for r in rows_out):
+        fail("the bf16 reversible trunk went non-finite or past its stated bounds (phase 13b)")
+
+
+def captured_ms(step, state, batch, reps=5):
+    """A captured step's replay: one untimed, then `reps` timed (CUDA
+    events); the median ms."""
+    step(state, batch)
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch)
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2], times
+
+
+def phase_rev_capture(L=128):
+    """(c) the reversible distogram step captured: train_pre's bf16
+    defaults with reversible=True (depth 1) at crop L, accum 16, on a batch
+    with a 20-row MSA: 3 replays bit for bit 3 eager steps
+    (`capture_vs_eager`, every flash launch on the wgmma route). Then its
+    captured ms (median of 5 replays) beside the sequential config's on
+    the same batch, and 6h's sequential crop-128 step (no MSA) from this
+    run."""
+    cfg = train_pre_config(reversible=True)
+    captured, state, batch = capture_vs_eager("bf16 reversible", cfg, L, 16, wgmma=True,
+                                              msa_rows=20)
+    rev_ms, rev_times = captured_ms(captured, state, batch)
+    capture = next(iter(captured.captures.values()))
+    del captured, state
+    seq_cfg = train_pre_config()
+    seq_state = train_state_init(seq_cfg, TrainConfig(grad_accum=16),
+                                 torch.Generator().manual_seed(0), "cuda")
+    seq_step = CapturedTrainStep(seq_cfg, TrainConfig(grad_accum=16), seq_state, batch)
+    seq_ms, seq_times = captured_ms(seq_step, seq_state, batch)
+    del seq_step, seq_state
+    h = next((r["captured"]["step_ms"] for r in RECORD["phases"].get("train_timing", [])
+              if r["label"] == "crop 128"), None)
+    RECORD["phases"]["rev_capture"] = {
+        "L": L, "config": repr(cfg), "rev_step_ms": rev_times, "rev_median_ms": rev_ms,
+        "seq_same_batch_ms": seq_times, "seq_median_ms": seq_ms, "train_h_captured_ms": h,
+        "captured_launches": capture.launches, "capture_s": capture.seconds}
+    log(f"[rev c] crop {L}, accum 16, 20 MSA rows, captured: reversible depth 1 "
+        f"{rev_ms:.2f} ms, sequential {seq_ms:.2f} ms on the same batch (median of 5); "
+        f"6h's sequential crop-128 step without an MSA {h if h is None else round(h, 2)} ms; "
+        f"capture {capture.seconds:.2f} s, launches a step {capture.launches}")
+
+
+def e2e_peak_step(ecfg, crop, rows):
+    """One e2e step (accum 2) of a fresh seeded state, its AdamW moments
+    made first: the peak memory allocated over the step (GiB)."""
+    tcfg = TrainConfig(grad_accum=2)
+    state = e2e.e2e_train_state_init(ecfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    state["optimizer"].init_state()
+    step = make_train_step(ecfg, tcfg, loss_fn=e2e.e2e_loss_fn, device="cuda")
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    _, m = step(state, structure_fetch(crop, rows, 2, seed=9)(0))
+    loss = float(m["loss"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, step
+    torch.cuda.empty_cache()
+    return peak, loss
+
+
+def phase_rev_e2e(reps=3):
+    """(d) the north-star e2e step, reversible (`north_star_e2e_config(2)`:
+    crop 384, grid 1152, 128 MSA rows, bf16), accum 2, eager: one untimed
+    step, then, counts set to 0 and the peak reset just before, `reps`
+    timed steps (CUDA events; the median), read just after: launches (5
+    B1f a layer in the forward and 5 more in the recompute, 5 dq and 5 dkv
+    in the backward, a microbatch; every one on its wgmma route), peak
+    memory (its AdamW moments made in the untimed step), MFU
+    (`train_step_flops`, mult 4). One more step under torch.profiler
+    (device ms by kind, busy share). Then one step of
+    `north_star_e2e_config(4)` and of depth 2 again from fresh states
+    (`e2e_peak_step`): peak(4) - peak(2) < 1 GiB, and the depth-2 peak
+    below 12b's remat peak. Returns the counted run's launches."""
+    ecfg, crop, rows = presets.north_star_e2e_config(2)
+    run = time_e2e_step(ecfg, crop, rows, 2, reps)
+    state, step, fetch = run["state"], run["step"], run["fetch"]
+    times, metrics, launches, peak = run["times"], run["metrics"], run["launches"], run["peak_gib"]
+    step_ms, flops, mfu = run["step_ms"], run["flops"], run["mfu"]
+    prof = profile_step(lambda: step(state, fetch(reps + 1)))
+    del run, state, step
+    torch.cuda.empty_cache()
+    peak2, loss2 = e2e_peak_step(ecfg, crop, rows)
+    peak4, loss4 = e2e_peak_step(presets.north_star_e2e_config(4)[0], crop, rows)
+    per = {k: v / reps for k, v in launches.items() if v}
+    flash = REV_FLASH * ecfg.model.depth * 2
+    want = {"flash_fwd": 2 * flash, "flash_bwd_dq": flash, "flash_bwd_dkv": flash}
+    counts_ok = all(per.get(k, 0) == n for k, n in want.items()) and on_wgmma(launches)
+    remat_peak = RECORD["phases"].get("e2e_step", {}).get("peak_gib")
+    busy = prof["busy_ms"] / prof["host_ms"]
+    finite = all(math.isfinite(v) for r in metrics for v in r.values()) and all(
+        math.isfinite(x) for x in (loss2, loss4))
+    memory_ok = peak4 - peak2 < 1.0 and remat_peak is not None and peak < remat_peak
+    row = {"crop": crop, "grid": 3 * crop, "rows": rows, "config": repr(ecfg),
+           "step_ms": times, "median_step_ms": step_ms, "train_step_flops": flops, "mfu": mfu,
+           "peak_gib": peak, "fresh_peak_depth2_gib": peak2, "fresh_peak_depth4_gib": peak4,
+           "remat_peak_gib_12b": remat_peak, "metrics": metrics, "launches": launches,
+           "launches_per_step": per, "profile": prof, "busy_share": busy,
+           "ok": finite and counts_ok and memory_ok}
+    RECORD["phases"]["rev_e2e"] = row
+    log(f"[rev d] the north-star e2e step, reversible (dim 256, depth 2, aligned crosses, "
+        f"compress 4, tied rows, bf16), crop {crop} (grid {3 * crop}), {rows} MSA rows, accum "
+        f"2, eager: step {step_ms:.1f} ms median of {reps} ({', '.join(f'{t:.1f}' for t in times)}"
+        f"), MFU {mfu:.4f} of 989 TFLOP/s ({flops / 1e12:.2f} TFLOP a step), peak {peak:.2f} "
+        f"GiB (12b's remat {remat_peak if remat_peak is None else round(remat_peak, 2)}), busy "
+        f"{busy:.3f} ({prof['busy_ms']:.1f} of {prof['host_ms']:.1f} ms), losses "
+        f"{[round(r['loss'], 4) for r in metrics]}; launches a step {per}")
+    log("[rev d] device ms by kind: " + ", ".join(
+        f"{k} {v['device_ms']:.1f} ({v['launches']})"
+        for k, v in sorted(prof["kinds"].items(), key=lambda kv: -kv[1]["device_ms"])))
+    log(f"[rev d] one step from a fresh state: peak depth 2 {peak2:.3f} GiB, depth 4 "
+        f"{peak4:.3f} GiB (+{peak4 - peak2:.3f}, bound 1 GiB) {'ok' if row['ok'] else 'FAIL'}")
+    if not finite:
+        fail("the reversible north-star e2e step gave a non-finite value (phase 13d)")
+    if not counts_ok:
+        fail(f"the reversible e2e step's launches a step {per} != {want}, or off the wgmma "
+             f"routes (phase 13d)")
+    if not memory_ok:
+        fail(f"the reversible e2e step's peak memory grew {peak4 - peak2:.3f} GiB from depth 2 "
+             f"to 4, or its peak {peak:.2f} GiB is not below the remat step's {remat_peak} "
+             f"(phase 13d)")
+    return launches
+
+
+def phase_rev_cli():
+    """(e) train_end2end's `main` in this process with --reversible --bf16
+    --len 32 (dim 256, 8 heads of 64): 3 steps against 2 steps saved to
+    --ckpt-dir then 1 resumed, bit for bit (every param, moment and
+    count)."""
+    base = ["--dim", "256", "--heads", "8", "--dim-head", "64", "--len", "32", "--bf16",
+            "--reversible"]
+    shutil.rmtree(REV_WORK, ignore_errors=True)
+    t0 = time.perf_counter()
+    whole, metrics, _, _ = cli_run([*base, "--steps", "3"])
+    cli_run([*base, "--steps", "2", "--ckpt-dir", str(REV_WORK)])
+    resumed, _, lines, _ = cli_run([*base, "--steps", "1", "--ckpt-dir", str(REV_WORK)])
+    same = [np.array_equal(np.asarray(a), np.asarray(b)) and pa == pb for (pa, a), (pb, b) in
+            zip(train_state_to_jax(whole), train_state_to_jax(resumed))]
+    shutil.rmtree(REV_WORK, ignore_errors=True)
+    ok = (resumed["step"] == whole["step"] == 3 and all(same) and len(same) > 0
+          and any("resumed from step 2" in x for x in lines)
+          and math.isfinite(float(metrics["loss"])))
+    RECORD["phases"]["rev_cli"] = {"leaves": len(same), "equal": sum(same),
+                                   "seconds": time.perf_counter() - t0, "ok": ok}
+    log(f"[rev e] train_end2end --reversible --bf16 --len 32: 3 steps vs 2 + 1 resumed, "
+        f"{sum(same)} of {len(same)} leaves equal, {time.perf_counter() - t0:.1f} s | "
+        + " | ".join(lines[-2:]) + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("train_end2end --reversible did not resume bit for bit (phase 13e)")
+    del whole, resumed
+    torch.cuda.empty_cache()
+
+
+def phase_reversible():
+    """13: the reversible trunk. Returns (d)'s launches."""
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        RECORD["phases"][f"rev_{key}_s"] = time.perf_counter() - t
+        log(f"[time] rev {key}: {RECORD['phases'][f'rev_{key}_s']:.1f} s")
+        return result
+
+    timed("a", phase_rev_parity)
+    timed("b", phase_rev_drift)
+    timed("c", phase_rev_capture)
+    launches = timed("d", phase_rev_e2e)
+    timed("e", phase_rev_cli)
+    return launches
+
+
 # --- phase 5: the kernels line -----------------------------------------------------
 
 
@@ -4234,7 +4624,8 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     kernel once in the warm-up and once in the capture, the replays
     launching what the capture recorded; B3's forward from the SP request,
     its backward from the ring's gradient in f32 and in bf16; phase 12b's
-    5 counted e2e steps add their B1f, dq and dkv launches)."""
+    5 counted e2e steps and phase 13d's 3 counted reversible ones add their
+    B1f, dq and dkv launches)."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r
@@ -4373,6 +4764,8 @@ def main():
     timed_phase("templates", phase_templates)
     timed_phase("full_atom", phase_full_atom)
     for name, n in timed_phase("e2e_train", phase_e2e_train).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in timed_phase("reversible", phase_reversible).items():
         launches[name] = launches.get(name, 0) + n
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches)

@@ -153,6 +153,51 @@ def test_port_checkpoint_passes_jax_verify_and_template_restore(tmp_path, steps)
     _assert_items_equal(jax_leaf_paths(_jax_host(restored)), train_state_to_jax(tstate))
 
 
+def test_reversible_state_crosses_packages_both_ways(tmp_path):
+    """A reversible depth-2 config: JAX's trunk is one dict of depth-stacked
+    leaves, the port's a list of eight-block layers. The port's init maps
+    onto JAX's `TrainState` paths, dtypes and shapes; JAX's state after one
+    step restores into the port bit for bit; the port's state after one
+    more step restores into JAX's template bit for bit."""
+    kw = dict(SMALL, depth=2, reversible=True)
+    jcfg, tcfg = JaxConfig(**kw), Alphafold2Config(**kw)
+    jt, tt = jharness.TrainConfig(**SCHED), harness.TrainConfig(**SCHED)
+    fetch = jdata.synthetic_microbatch_fn(jdata.DataConfig(max_len=12, msa_rows=3, seed=3), 2)
+    template = jharness.train_state_init(jax.random.PRNGKey(0), jcfg, jt)
+    tstate = harness.train_state_init(tcfg, tt, torch.Generator().manual_seed(0), "cpu")
+    assert len(tstate["params"]["trunk"]) == 2
+    want = [(p, a.dtype, a.shape) for p, a in jax_leaf_paths(_jax_host(template))]
+    assert [(p, a.dtype, a.shape) for p, a in train_state_to_jax(tstate)] == want
+
+    jstate, _ = jax.jit(jharness.make_train_step(jcfg, jt))(template, fetch(0))
+    JaxManager(str(tmp_path / "j")).save(jstate, force=True)
+    assert checkpoint.VerifiedCheckpointManager(str(tmp_path / "j")).restore(into=tstate)
+    _assert_items_equal(train_state_to_jax(tstate), jax_leaf_paths(_jax_host(jstate)))
+
+    harness.make_train_step(tcfg, tt, device="cpu")(tstate, fetch(1))
+    assert checkpoint.VerifiedCheckpointManager(str(tmp_path / "t")).save(tstate, force=True)
+    restored = JaxManager(str(tmp_path / "t")).restore(abstract_like(template))
+    assert int(restored["step"]) == 2
+    _assert_items_equal(jax_leaf_paths(_jax_host(restored)), train_state_to_jax(tstate))
+
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_reversible_restore_refuses_another_depth(tmp_path, depth):
+    """A reversible depth-2 checkpoint (JAX's stacked trunk leaves) split
+    into layers on restore: into a reversible model of another depth it
+    raises naming the leaf (a layer missing, or a stored layer the model
+    lacks), and never restores part of it."""
+    tt = harness.TrainConfig(grad_accum=1)
+    kw = dict(SMALL, reversible=True)
+    tstate = harness.train_state_init(Alphafold2Config(**dict(kw, depth=2)), tt,
+                                      torch.Generator().manual_seed(0), "cpu")
+    checkpoint.VerifiedCheckpointManager(str(tmp_path / "ck")).save(tstate, force=True)
+    other = harness.train_state_init(Alphafold2Config(**dict(kw, depth=depth)), tt,
+                                     torch.Generator().manual_seed(1), "cpu")
+    with pytest.raises(KeyError, match="layouts differ" if depth > 2 else "lacks"):
+        checkpoint.VerifiedCheckpointManager(str(tmp_path / "ck")).restore(into=other)
+
 # --- bf16 leaves -------------------------------------------------------------------
 
 

@@ -184,6 +184,10 @@ LOSS_CASES = {
     # the north-star preset's knobs at small widths
     "north_star": dict(features="msa", model_kw=dict(
         cross_attn_mode="aligned", cross_attn_compress_ratio=2, msa_tie_row_attn=True)),
+    # the north-star trunk itself: reversible, at depth 2 (a padded residue)
+    "reversible": dict(features="msa", pad=True, model_kw=dict(
+        depth=2, reversible=True, cross_attn_mode="aligned", cross_attn_compress_ratio=2,
+        msa_tie_row_attn=True)),
     "bwd_iters2": dict(features="msa", ecfg=dict(mds_bwd_iters=2)),
     "atom_mask": dict(features="msa", atom_mask=True),
     "random_init": dict(features="none", ecfg=dict(mds_init="random", mds_iters=10)),
@@ -361,7 +365,7 @@ def cli_configs(argv):
     m = tc.model
     jm = JaxConfig(dim=m.dim, depth=m.depth, heads=m.heads, dim_head=m.dim_head,
                    max_seq_len=m.max_seq_len, max_num_msa=m.max_num_msa,
-                   num_embedds=m.num_embedds)
+                   num_embedds=m.num_embedds, reversible=m.reversible)
     r = tc.refiner
     jc = je2e.E2EConfig(model=jm, refiner=JaxRefinerConfig(num_tokens=r.num_tokens, dim=r.dim,
                                                             depth=r.depth),
@@ -386,11 +390,23 @@ def test_checkpoints_cross_packages_through_the_cli(tmp_path, capsys):
     and shapes, the port's open_or_init restores every leaf bit for bit,
     `train_end2end --ckpt-dir` resumes it at step 1 and saves step 2, and
     the JAX package's open_or_init restores the port's step 2 bit for bit."""
+    cross_packages_through_the_cli(tmp_path, capsys)
+
+
+def test_reversible_checkpoints_cross_packages_through_the_cli(tmp_path, capsys):
+    """The same with `--reversible --depth 2`: JAX's trunk, and optax's mu
+    and nu of it, are depth-stacked leaves (no ["i", layer] path segment),
+    the port's a list of layers; both packages resume the other's state."""
+    cross_packages_through_the_cli(tmp_path, capsys, "--reversible", "--depth", "2")
+
+
+def cross_packages_through_the_cli(tmp_path, capsys, *flags):
     from alphafold2_tpu.training.checkpoint import VerifiedCheckpointManager as JaxManager
     from alphafold2_tpu.training.checkpoint import open_or_init as jax_open_or_init
     from alphafold2_tpu_torch.training.checkpoint import open_or_init
 
-    jc, tc = cli_configs(CLI)
+    jc, tc = cli_configs([*CLI, *flags])
+    assert tc.model.reversible == jc.model.reversible == ("--reversible" in flags)
     jt, tt = jharness.TrainConfig(grad_accum=2), harness.TrainConfig(grad_accum=2)
     jstate = je2e.e2e_train_state_init(jax.random.PRNGKey(3), jc, jt)
     fetch = jdata.synthetic_microbatch_fn(
@@ -416,7 +432,11 @@ def test_checkpoints_cross_packages_through_the_cli(tmp_path, capsys):
     for (path, a), b in zip(got, jleaves):
         np.testing.assert_array_equal(np.asarray(a), b, err_msg=str(path))
 
-    state, _ = run_cli("--steps", "1", "--ckpt-dir", str(ck))
+    if flags:
+        trunk = [p for p, _ in items if ["k", "trunk"] in p and ["a", "mu"] in p]
+        assert trunk and not any(seg[0] == "i" for p in trunk
+                                 for seg in p[p.index(["k", "trunk"]):])
+    state, _ = run_cli("--steps", "1", "--ckpt-dir", str(ck), *flags)
     assert "resumed from step 1" in capsys.readouterr().out
     assert state["step"] == 2
     _, jback, jresumed = jax_open_or_init(str(ck), je2e.e2e_train_state_init,
@@ -439,6 +459,24 @@ def test_cli_trains_each_feature_mode(features, capsys):
     embed = state["params"]["model"]["embedd_project"]["w"]
     assert embed.shape[0] == (128 if features == "esm" else Alphafold2Config(dim=16).num_embedds)
     assert (embed.grad.abs().max().item() > 0) == (features == "esm")
+
+
+def test_cli_trains_reversible(capsys):
+    """`--reversible` at depth 2: the trunk's layers carry eight blocks, each
+    with a gradient but the last layer's MSA cross and MSA FF2, whose
+    outputs reach no loss (the head reads the pair stream);
+    `--features none --reversible` raises the trunk's no-MSA error."""
+    state, metrics = run_cli("--steps", "2", "--reversible", "--depth", "2")
+    assert "done" in capsys.readouterr().out and state["step"] == 2
+    assert np.isfinite(float(metrics["loss"]))
+    trunk = state["params"]["model"]["trunk"]
+    assert len(trunk) == 2 and set(trunk[0]) >= {"seq_ff2", "msa_ff2"}
+    unread = [trunk[1]["msa_cross"], trunk[1]["msa_ff2"]]
+    assert all(leaf.grad.abs().max().item() == 0 for leaf in tree_leaves(unread))
+    read = [trunk[0], {k: v for k, v in trunk[1].items() if k not in ("msa_cross", "msa_ff2")}]
+    assert all(leaf.grad.abs().max().item() > 0 for leaf in tree_leaves(read))
+    with pytest.raises(ValueError, match="requires an MSA stream"):
+        run_cli("--steps", "1", "--reversible", "--features", "none")
 
 
 ESM_TINY = ["--features", "esm", "--esm-dim", "16", "--esm-layers", "1", "--esm-heads", "2"]

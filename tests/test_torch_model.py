@@ -120,10 +120,12 @@ def test_bf16_forward_runs_close():
 
 def test_not_ported_options_raise():
     for kw, item in [
-        (dict(reversible=True), "A8"),
+        (dict(reversible=True, trunk_schedule="branch_parallel"), "A8-reversible-branch"),
     ]:
         with pytest.raises(NotImplementedError, match=item):
             Alphafold2Config(**SMALL, **kw)
+    # ported: the reversible trunk (tests/test_torch_reversible.py)
+    assert Alphafold2Config(**SMALL, reversible=True).reversible
     # ported: the branch-parallel schedule (tests/test_torch_trunk_schedule.py)
     bp = Alphafold2Config(**SMALL, trunk_schedule="branch_parallel")
     assert bp.trunk_schedule == "branch_parallel"

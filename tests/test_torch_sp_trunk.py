@@ -221,12 +221,9 @@ def test_refusals():
         alphafold2_apply_sp(tp, tcfg, seq, None, tm, embedds=np.zeros((1, 16, 1280), np.float32))
     with pytest.raises(ValueError, match="schedule"):
         alphafold2_apply_sp(tp, tcfg, seq, msa, tm, schedule="dense")
-    # reversible cannot be configured in the port (ROADMAP A8); the hook
-    # refuses it all the same
-    with pytest.raises(NotImplementedError, match="A8"):
-        Alphafold2Config(**BASE, reversible=True)
-    rev = Alphafold2Config(**{**BASE, "depth": 2})
-    object.__setattr__(rev, "reversible", True)
+    # the reversible trunk (models/reversible.py): the SP forward and the
+    # trunk hook refuse it
+    rev = Alphafold2Config(**{**BASE, "depth": 2, "reversible": True})
     with pytest.raises(ValueError, match="reversible"):
         alphafold2_apply_sp(tp, rev, seq, msa, tm)
     with pytest.raises(ValueError, match="reversible"):
