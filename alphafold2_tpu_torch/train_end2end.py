@@ -7,6 +7,7 @@ microbatches and applied by one AdamW update a step.
 
 Usage:
   python -m alphafold2_tpu_torch.train_end2end --steps 50 [--bf16] [--reversible]
+  python -m alphafold2_tpu_torch.train_end2end --steps 50 --reversible --trunk-segments 4
   python -m alphafold2_tpu_torch.train_end2end --steps 2 --dim 16 --depth 1 \\
       --heads 2 --dim-head 8 --len 8 --mds-iters 5 --device cpu [--features esm]
   python -m alphafold2_tpu_torch.train_end2end --steps 50 --ckpt-dir runs/e2e \\
@@ -41,11 +42,13 @@ next batch of its stream, as the JAX CLI does.
 `--reversible` runs the reversible trunk (models/reversible.py), whose
 activation memory does not grow with depth; it needs the trunk's second
 stream, so `--features none --reversible` raises the trunk's no-MSA
-error at the first step, as the JAX CLI does.
+error at the first step, as the JAX CLI does. `--trunk-segments K` is
+the JAX CLI's segmented step (`training/segmented.py`): CUDA has no
+execution limit to split the step for, so it runs the monolithic
+reversible step; as the JAX CLI does, it refuses to run without
+`--reversible` and under `--max-restarts` / `--fault-plan`.
 
-Not ported: `--sp-shards` and multi-host runs (ROADMAP A13),
-`--trunk-segments` (A12: each step as separate executions of reversible
-trunk segments), `--data
+Not ported: `--sp-shards` and multi-host runs (ROADMAP A13), `--data
 sidechainnet` (it needs a dataset in the repository), `--eval-every`,
 `--metrics-jsonl`, the trace and observability flags and `--profile-dir`
 / `--profile-steps` (A14).
@@ -91,6 +94,7 @@ from alphafold2_tpu_torch.training.resilience import (
     resilient_mode,
     run_resilient,
 )
+from alphafold2_tpu_torch.training.segmented import make_segmented_train_step
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -117,6 +121,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reversible", action="store_true",
                     help="reversible trunk: O(1) activation memory in depth (the north-star "
                          "depth-48 config, BASELINE.md config 5)")
+    ap.add_argument("--trunk-segments", type=int, default=0,
+                    help="the JAX CLI's reversible-trunk segments a step "
+                         "(training/segmented.py: on CUDA the monolithic step); requires "
+                         "--reversible; 0 = off")
     add_train_args(ap)
     ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     ap.add_argument("--features", choices=["msa", "esm", "none"], default="msa")
@@ -199,10 +207,17 @@ def main(argv=None):
               f"eagerly (its geometry reads the host: ROADMAP A8-e2e-capture)")
     ecfg = e2e_config_from_args(args)
     tcfg = tcfg_from_args(args, grad_accum=args.accum)
+    resilient = resilient_mode(args)
+    if args.trunk_segments and not args.reversible:
+        raise SystemExit("--trunk-segments requires --reversible (segment backward IS "
+                         "reversible reconstruction)")
+    if resilient and args.trunk_segments:
+        raise SystemExit("--max-restarts/--fault-plan and --trunk-segments are exclusive: "
+                         "the segmented chain donates state internally, which invalidates "
+                         "the supervisor's rollback reference")
     dcfg = DataConfig(batch_size=args.batch, max_len=args.max_len,
                       msa_rows=args.msa_rows if args.features == "msa" else 0, seed=args.seed)
 
-    resilient = resilient_mode(args)
     injector, ckpt_fault_hook, max_restarts = chaos_from_args(args)
     mgr, state, resumed = open_or_init(
         args.ckpt_dir, e2e_train_state_init, ecfg, tcfg,
@@ -225,7 +240,10 @@ def main(argv=None):
         stream = None
         fetch = synthetic_microbatch_fn(dcfg, tcfg.grad_accum,
                                         source=synthetic_structure_batches)
-    train_step = make_train_step(ecfg, tcfg, loss_fn=e2e_loss_fn, device=device)
+    if args.trunk_segments:
+        train_step = make_segmented_train_step(ecfg, tcfg, args.trunk_segments, device=device)
+    else:
+        train_step = make_train_step(ecfg, tcfg, loss_fn=e2e_loss_fn, device=device)
 
     def make_rng(step):  # dropout's (and the random MDS init's) generator
         return torch.Generator().manual_seed(args.seed * 1_000_003 + step + 1)

@@ -7,6 +7,8 @@ Usage:
       --heads 2 --dim-head 8 --len 16 --accum 2 --device cpu
   python -m alphafold2_tpu_torch.train_pre --steps 100 --bf16 --ckpt-dir runs/pre \\
       --ckpt-every 50 [--max-restarts 3] [--fault-plan plan.json]
+  python -m alphafold2_tpu_torch.train_pre --steps 200 --bf16 --data native \\
+      --len-buckets 64,128,256 --len 256 --accum 2
 
 Trains on synthetic protein-like batches (`training/data.py`,
 sequence-only) with the defaults of the JAX CLI: dim 256, depth 1, heads
@@ -24,26 +26,40 @@ either package reads) and saves every `--ckpt-every` steps and at the
 end; a resumed run takes up the synthetic stream and the lr schedule at
 the restored step. `--max-restarts` or `--fault-plan` run the loop under
 `training/resilience.py run_resilient` (NaN rollback, restarts from the
-newest checkpoint, SIGTERM: save and exit 0). Not ported: `--data`
-sidechainnet / native and `--len-buckets` (ROADMAP A12), `--metrics-log`,
-`--eval-every` and the telemetry flags (A14), `--sp-shards` training and
-multi-host runs (A13).
+newest checkpoint, SIGTERM: save and exit 0).
+
+`--data native` draws the batches from the C++ prefetch loader
+(`runtime/native.py`, 2 threads, so the batch order varies from run to
+run) over an in-memory pool of 256 synthetic proteins of 32 to 4 x --len
+residues, C-alpha labels, as the JAX CLI does; its stream restarts from
+its top on a resume. `--len-buckets` (with --data native) batches each
+protein at the smallest bucket that holds it and stacks the microbatches
+of a step within one bucket (`training/data.py bucketed_microbatches`); on
+the GPU each bucket is captured at its first batch, in the one graph pool.
+Not ported: `--data sidechainnet` (it needs a dataset in the repository),
+`--metrics-log`, `--eval-every` and the telemetry flags (A14),
+`--sp-shards` training, with buckets too, and multi-host runs (A13).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 
+import numpy as np
 import torch
 
 from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.reliability.preemption import Preempted, PreemptionHandler
+from alphafold2_tpu_torch.runtime import NativePrefetchLoader
 from alphafold2_tpu_torch.training.checkpoint import finish, open_or_init
 from alphafold2_tpu_torch.training.data import (
     DataConfig,
+    bucketed_microbatches,
     resilient_batches,
+    stack_microbatches,
     synthetic_microbatch_fn,
 )
 from alphafold2_tpu_torch.training.executable import CapturedTrainStep
@@ -62,6 +78,63 @@ from alphafold2_tpu_torch.training.resilience import (
 )
 
 
+def bucket_of(args, batch) -> str:
+    """The capture message's suffix: ' for bucket L' under --len-buckets
+    (which, as in the JAX CLI, only --data native reads)."""
+    bucketed = args.len_buckets and args.data == "native"
+    return f" for bucket {np.shape(batch['seq'])[-1]}" if bucketed else ""
+
+
+def native_pool(max_len: int, seed: int) -> list:
+    """The JAX CLI's in-memory structure pool: 256 proteins from
+    `RandomState(seed)`, L drawn from [32, 4 max_len), tokens in [0, 21),
+    14-atom clouds a cumulative sum of 3.8 A Gaussian steps."""
+    rs = np.random.RandomState(seed)
+    pool = []
+    for _ in range(256):
+        L = rs.randint(32, 4 * max_len)
+        seq = rs.randint(0, 21, L).astype(np.int32)
+        cloud = np.cumsum(3.8 * rs.randn(L, 14, 3).astype(np.float32), axis=0)
+        pool.append((seq, cloud))
+    return pool
+
+
+def native_stream(args, dcfg, tcfg):
+    """Microbatch stacks from the C++ prefetch loader (2 threads) over
+    `native_pool`, C-alpha (atom slot 1) for the labels; with --len-buckets
+    grouped by bucket (`bucketed_microbatches`), the "bucket" key popped
+    (shape bookkeeping, not an input). The loader closes with the stream."""
+    buckets = None
+    if args.len_buckets:
+        buckets = tuple(sorted(set(int(x) for x in args.len_buckets.split(","))))
+        if buckets[-1] != args.max_len:
+            raise SystemExit(
+                f"--len-buckets largest bucket ({buckets[-1]}) must equal --len "
+                f"({args.max_len}) — the top bucket is the crop length the model is sized for")
+        print(f"length buckets: {buckets}")
+    loader = NativePrefetchLoader(native_pool(args.max_len, dcfg.seed), batch_size=args.batch,
+                                  max_len=args.max_len, seed=dcfg.seed, n_threads=2,
+                                  buckets=buckets)
+    print("native prefetch loader: C++")
+
+    def batches():
+        while True:
+            b = loader.next()
+            out = {"seq": b["seq"], "mask": b["mask"], "coords": b["coords"][:, :, 1]}
+            if "bucket" in b:
+                out["bucket"] = b["bucket"]
+            yield out
+
+    stacks = (bucketed_microbatches(batches(), tcfg.grad_accum) if buckets
+              else stack_microbatches(batches(), tcfg.grad_accum))
+    try:
+        for stack in stacks:
+            stack.pop("bucket", None)
+            yield stack
+    finally:
+        loader.close()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=100)
@@ -74,6 +147,13 @@ def main(argv=None):
     ap.add_argument("--accum", type=int, default=16)
     add_train_args(ap)
     ap.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    ap.add_argument("--data", choices=["synthetic", "native"], default="synthetic",
+                    help="synthetic batches, or a synthetic in-memory structure pool "
+                         "through the C++ prefetch loader (runtime/native.py)")
+    ap.add_argument("--len-buckets", default=None,
+                    help="comma-separated static length buckets (e.g. 64,128,256) for "
+                         "--data native: proteins batch into the smallest bucket that "
+                         "holds them (one capture a bucket); the largest must equal --len")
     ap.add_argument("--ckpt-dir", default=None, help="checkpoint/resume directory")
     ap.add_argument("--ckpt-every", type=int, default=50)
     add_resilience_args(ap)  # --max-restarts / --ckpt-verify / --fault-plan
@@ -102,13 +182,28 @@ def main(argv=None):
     start = state["step"]
     if resumed:
         print(f"resumed from step {start} in {args.ckpt_dir}")
-    # batch i is a pure function of (seed, i): a resumed run takes up the
-    # stream at start * accum, a retried step refetches its own batch
-    fetch = synthetic_microbatch_fn(dcfg, tcfg.grad_accum)
+    if args.data == "native":
+        stream = native_stream(args, dcfg, tcfg)
+        if resumed:
+            # the loader's threads are not positionally replayable
+            print(f"note: --data {args.data} stream restarts from its top on resume (only "
+                  f"synthetic data is positionally resumable)")
+        first = next(stream)
+        stream = itertools.chain([first], stream)
+        source = stream
+
+        def fetch(step):  # the stream's next stack, whatever the step
+            return next(stream)
+    else:
+        # batch i is a pure function of (seed, i): a resumed run takes up
+        # the stream at start * accum, a retried step refetches its own batch
+        fetch = source = synthetic_microbatch_fn(dcfg, tcfg.grad_accum)
+        first = fetch(start)
     if device.type == "cuda":
-        train_step = CapturedTrainStep(cfg, tcfg, state, fetch(start))
+        train_step = CapturedTrainStep(cfg, tcfg, state, first)
         capture = next(iter(train_step.captures.values()))
-        print(f"captured the step as a CUDA graph in {capture.seconds:.2f} s")
+        print(f"captured the step{bucket_of(args, first)} as a CUDA graph in "
+              f"{capture.seconds:.2f} s")
     else:
         train_step = make_train_step(cfg, tcfg, device=device)
 
@@ -138,7 +233,7 @@ def main(argv=None):
         try:
             state = run_resilient(
                 with_fault_injection(train_step, injector), state,
-                resilient_batches(fetch, injector=injector), steps=args.steps,
+                resilient_batches(source, injector=injector), steps=args.steps,
                 make_rng=make_rng, mgr=mgr, on_metrics=on_metrics,
                 max_restarts=max_restarts, preemption=handler)
         except Preempted as e:
@@ -151,7 +246,13 @@ def main(argv=None):
         metrics = seen.get("metrics")
     else:
         for step in range(start, start + args.steps):
-            state, metrics = train_step(state, fetch(step), make_rng(step))
+            batch = fetch(step)
+            captures = len(getattr(train_step, "captures", ()))
+            state, metrics = train_step(state, batch, make_rng(step))
+            if len(getattr(train_step, "captures", ())) > captures:
+                capture = list(train_step.captures.values())[-1]
+                print(f"captured the step{bucket_of(args, batch)} as a CUDA graph in "
+                      f"{capture.seconds:.2f} s (step {step})")
             report(step, metrics)
             if mgr is not None:
                 mgr.save(state)  # the interval decides

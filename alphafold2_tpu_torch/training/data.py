@@ -1,5 +1,5 @@
-"""Synthetic protein batches with static shapes, and the retrying wrapper
-around a batch source (a copy of the numpy-only part of
+"""Synthetic protein batches with static shapes, length bucketing, and
+the retrying wrapper around a batch source (a copy of the numpy-only part of
 alphafold2_tpu/training/data.py: for a seed the batches are the JAX
 package's arrays).
 
@@ -96,6 +96,66 @@ def stack_microbatches(it: Iterator[dict], grad_accum: int) -> Iterator[dict]:
     while True:
         mbs = [next(it) for _ in range(grad_accum)]
         yield {k: np.stack([m[k] for m in mbs]) for k in mbs[0]}
+
+
+def bucket_batches(items: Iterator[tuple], cfg: DataConfig, buckets: tuple,
+                   full_atom: bool = False) -> Iterator[dict]:
+    """Static-shape length bucketing over a stream of variable-length
+    proteins. items: (seq_ints (L,), cloud (L, 14, 3)) pairs of any L (the
+    native loader's dataset layout). A protein goes to the smallest of the
+    ascending `buckets` that holds it (a random crop to the largest
+    otherwise, the native loader's policy), padded to the bucket's length;
+    a batch is emitted when its bucket holds `cfg.batch_size` proteins,
+    with a "bucket" key (a Python int: one capture a bucket). Yields
+    seq/mask and coords (b, L, 3) C-alpha, or with full_atom coords (b, L,
+    14, 3) and atom_mask."""
+    buckets = tuple(sorted(set(int(x) for x in buckets)))
+    if not buckets:
+        raise ValueError("need at least one bucket length")
+    rng = np.random.RandomState(cfg.seed)
+    pending: dict = {bl: [] for bl in buckets}
+    b = cfg.batch_size
+    for seq, cloud in items:
+        L = len(seq)
+        bl = next((x for x in buckets if L <= x), buckets[-1])
+        start = rng.randint(0, L - bl + 1) if L > bl else 0
+        pending[bl].append(
+            (np.asarray(seq)[start: start + bl], np.asarray(cloud)[start: start + bl]))
+        if len(pending[bl]) < b:
+            continue
+        group, pending[bl] = pending[bl], []
+        seq_out = np.zeros((b, bl), np.int32)
+        mask = np.zeros((b, bl), bool)
+        cloud_out = np.zeros((b, bl, 14, 3), np.float32)
+        for row, (s, c) in enumerate(group):
+            n = min(len(s), len(c))
+            seq_out[row, :n] = s[:n]
+            cloud_out[row, :n] = c[:n]
+            mask[row, :n] = True
+        batch = {"seq": seq_out, "mask": mask, "bucket": bl}
+        if full_atom:
+            batch["coords"] = cloud_out
+            batch["atom_mask"] = np.abs(cloud_out).sum(-1) > 0
+        else:
+            batch["coords"] = cloud_out[:, :, 1]  # the C-alpha slot
+        yield batch
+
+
+def bucketed_microbatches(it: Iterator[dict], grad_accum: int) -> Iterator[dict]:
+    """`stack_microbatches` for a bucketed stream: the microbatches of one
+    stack share a shape, so they are grouped by bucket, and a stack is
+    emitted as soon as any bucket holds `grad_accum` batches (with its
+    "bucket" key)."""
+    pending: dict = {}
+    for batch in it:
+        bl = batch["bucket"]
+        pending.setdefault(bl, []).append(batch)
+        if len(pending[bl]) < grad_accum:
+            continue
+        mbs = pending.pop(bl)
+        out = {k: np.stack([m[k] for m in mbs]) for k in mbs[0] if k != "bucket"}
+        out["bucket"] = bl
+        yield out
 
 
 def synthetic_microbatch_fn(cfg: DataConfig, grad_accum: int, source=None):

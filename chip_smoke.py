@@ -243,6 +243,30 @@ each phase prints its seconds):
          depth-2 peak below 12b's remat peak;
      (e) `train_end2end.main --reversible --bf16 --len 32`: 3 steps against
          2 saved then 1 resumed, bit for bit;
+  14. the relaxation (`refinement.py relax`, `refine`), the e2e step at
+     depth through `--trunk-segments` (`training/segmented.py`: on CUDA
+     the monolithic reversible step) and bucketed pretraining (`train_pre
+     --data native --len-buckets`, the C++ loader of `runtime/native.py`):
+     (a) relax, f32, 2 noisy 384-residue backbones with two chain breaks,
+         200 iterations, card against CPU (coords 1e-4 A, history 1e-5 *
+         max(1, |ref|)); ms a relax at L = 384 and 1024, its launches;
+     (b) f32, depth 5, grid 48, 8 MSA rows, K = 3: from the random MDS init
+         3 free steps card against CPU at phase 6a's tolerances; from the
+         classical init, each of 3 steps' microbatches from the same params
+         on both devices: the loss within 1e-5, the gradients at 6a's
+         measure once the card starts from the CPU's init, and the init's
+         departure (the top-3 eigenvectors of its Gram matrix, through the
+         card's eigh of the CPU's own matrix and from each device's own)
+         within the f32 eigensolver's bound;
+     (c) `train_pre --data native --len-buckets 64,128,256 --len 256 --bf16
+         --accum 2 --steps 200` in this process: finite losses, one capture
+         a bucket, every launch on wgmma; the captured step against the
+         eager one bit for bit over 256, 256, 64, 128, 256 (64 and 128
+         captured in mid-run); each bucket's captured step ms and the
+         loader's batches/s at 2 threads;
+     (d) `predict --full-atom --bf16` at L = 128 -> `refine` on the card and
+         with --device cpu: the PDB parses back with its CA B-factors, its
+         bond energy falls, card within 1e-3 A of the CPU;
   5. a `kernels` JSON line (thirteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, B3's forward and its two backward kernels), the card line,
@@ -253,9 +277,11 @@ A detailed record goes to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import functools
+import importlib
 import io
 import json
 import math
@@ -273,6 +299,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 import alphafold2_tpu_torch  # noqa: E402
+from alphafold2_tpu_torch.device import tree_leaves  # noqa: E402
 from alphafold2_tpu_torch import (  # noqa: E402
     Alphafold2Config,
     alphafold2_apply,
@@ -306,7 +333,9 @@ from alphafold2_tpu_torch.models.embedder import (  # noqa: E402
 from alphafold2_tpu_torch.ops.attention import AttentionConfig, attention_init  # noqa: E402
 from alphafold2_tpu_torch.models.convert import train_state_to_jax  # noqa: E402
 from alphafold2_tpu_torch.models.refiner import RefinerConfig  # noqa: E402
-from alphafold2_tpu_torch import train_end2end  # noqa: E402
+from alphafold2_tpu_torch import refine, refinement, train_end2end, train_pre  # noqa: E402
+from alphafold2_tpu_torch.runtime import NativePrefetchLoader  # noqa: E402
+from alphafold2_tpu_torch.training import segmented  # noqa: E402
 from alphafold2_tpu_torch.telemetry import profiling  # noqa: E402
 from alphafold2_tpu_torch.parallel import (  # noqa: E402
     alphafold2_apply_sp,
@@ -2258,20 +2287,23 @@ def train_pre_config(**fields):
                                       dtype=torch.bfloat16), **fields})
 
 
-def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0):
+def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0, batches=None):
     """Train_pre's step captured (`CapturedTrainStep`) against the eager
     step (`make_train_step`) from the same seeded params over the same 3
-    batches at crop L (with a `msa_rows`-row MSA when nonzero), with a
-    warmup from lr 0, cosine decay, clipping that acts and weight decay:
-    loss and grad_norm every step and every param leaf after 3 steps bit
-    for bit (no tolerance: the same ops on the same buffers). `wgmma`:
-    every flash and sparse launch the capture recorded on its wgmma
-    route. Returns (the captured step, its state, the last batch)."""
+    batches at crop L (with a `msa_rows`-row MSA when nonzero; or over
+    `batches`, whose shapes the capture meets in turn, each captured at its
+    first batch), with a warmup from lr 0, cosine decay, clipping that acts
+    and weight decay: loss and grad_norm every step and every param leaf,
+    AdamW moment and count at the end bit for bit (no tolerance: the same
+    ops on the same buffers). `wgmma`: every flash and sparse launch each
+    capture recorded on its wgmma route. Returns (the captured step, its
+    state, the last batch)."""
     tcfg = TrainConfig(grad_accum=grad_accum, warmup_steps=1, decay_steps=3, decay_floor=0.1,
                        max_grad_norm=0.05, weight_decay=0.01)
-    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, seed=9,
-                                               msa_rows=msa_rows), grad_accum)
-    batches = [fetch(n) for n in range(3)]
+    if batches is None:
+        fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, seed=9,
+                                                   msa_rows=msa_rows), grad_accum)
+        batches = [fetch(n) for n in range(3)]
     eager_state, cap_state = (train_state_init(cfg, tcfg, torch.Generator().manual_seed(0),
                                                "cuda") for _ in range(2))
     eager = make_train_step(cfg, tcfg, device="cuda")
@@ -2286,15 +2318,19 @@ def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0):
                       "loss_equal": torch.equal(e["loss"], c["loss"]),
                       "grad_norm_equal": torch.equal(e["grad_norm"], c["grad_norm"]),
                       "loss_diff": abs(float(e["loss"]) - float(c["loss"]))})
-    pairs = list(zip(eager_state["optimizer"].leaves, cap_state["optimizer"].leaves))
+    pairs = list(zip(eager_state["optimizer"].state_tensors(),
+                     cap_state["optimizer"].state_tensors()))
     unequal = sum(not torch.equal(a, b) for a, b in pairs)
     d_params = max((a.detach() - b.detach()).abs().max().item() for a, b in pairs)
-    routes = on_wgmma(capture.launches) if wgmma else None
+    captures = list(captured.captures.values())
+    routes = all(on_wgmma(c.launches) for c in captures) if wgmma else None
     ok = (all(r["loss_equal"] and r["grad_norm_equal"] for r in steps) and unequal == 0
-          and cap_state["step"] == 3 and routes is not False)
-    log(f"[train g] {label}: L={L}, accum {grad_accum}, captured vs eager over 3 steps: loss "
-        f"and grad_norm bit-equal {[r['loss_equal'] and r['grad_norm_equal'] for r in steps]}, "
-        f"{unequal} of {len(pairs)} param leaves differ (max |d| {d_params:.2e}); losses "
+          and cap_state["step"] == len(batches) and routes is not False)
+    log(f"[train g] {label}: L={L}, accum {grad_accum}, captured vs eager over {len(batches)} "
+        f"steps: loss and grad_norm bit-equal "
+        f"{[r['loss_equal'] and r['grad_norm_equal'] for r in steps]}, "
+        f"{unequal} of {len(pairs)} params, moments and counts differ (max |d| "
+        f"{d_params:.2e}); {len(captures)} captures; losses "
         f"{[round(r['loss'], 5) for r in steps]}, grad norms "
         f"{[round(r['grad_norm'], 4) for r in steps]}; capture {capture.seconds:.2f} s, "
         f"captured launches {capture.launches}"
@@ -2302,8 +2338,9 @@ def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0):
         f"{'ok' if ok else 'FAIL'}")
     RECORD["phases"][f"train_capture_{label}"] = {
         "L": L, "config": repr(cfg), "grad_accum": grad_accum, "steps": steps,
-        "params_unequal": unequal, "params_max_abs": d_params, "capture_s": capture.seconds,
-        "captured_launches": capture.launches, "on_wgmma": routes, "ok": ok}
+        "params_unequal": unequal, "params_max_abs": d_params,
+        "capture_s": [c.seconds for c in captures],
+        "captured_launches": [c.launches for c in captures], "on_wgmma": routes, "ok": ok}
     if not ok:
         fail(f"the captured train step differs from the eager one, or left its wgmma route "
              f"({label}, phase 6g)")
@@ -3620,7 +3657,7 @@ def check_path_flash(label, call, reps=2):
     ok = err <= tol and lse_err <= 1e-4 and bool(torch.isfinite(out).all())
     t_ops, t_bytes = bound_terms(q, k, v, bias, None)
     row = {"kernel": "flash_fwd", "case": label, "shape": [BH, i, k.shape[1], dh],
-           "dtype": str(q.dtype), "route": which, "rows_checked": [len(bh), len(rows)],
+           "dtype": str(q.dtype), "route": which, "probechecked": [len(bh), len(rows)],
            "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
            "kernel_ms": time_ms(lambda: flash_kernel.flash_fwd(q, k, v, bias, scale), reps),
            "unmasked": bool((bias == 0).all()),
@@ -3793,6 +3830,19 @@ def structure_fetch(crop, rows, grad_accum, seed, batch_size=1):
                                    source=synthetic_structure_batches)
 
 
+def e2e_parity_state(ecfg, tcfg, device):
+    """A seeded e2e train state on `device` whose refiner coordinate head
+    has seeded random weights (it is zero at init): the same numbers on
+    every device."""
+    state = e2e.e2e_train_state_init(ecfg, tcfg, torch.Generator().manual_seed(0), device)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for layer in state["params"]["refiner"]["layers"]:
+            for t in layer["coord_mlp"]["l2"].values():
+                t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+    return state
+
+
 def phase_e2e_parity(L=24, rows=8):
     """(a) f32, 3 e2e steps of 2 microbatches on the card and on the CPU
     from the same params (the refiner's coordinate head given the same
@@ -3811,13 +3861,7 @@ def phase_e2e_parity(L=24, rows=8):
     tcfg = TrainConfig(grad_accum=2)
     states, steps = {}, {}
     for dev in ("cuda", "cpu"):
-        state = e2e.e2e_train_state_init(ecfg, tcfg, torch.Generator().manual_seed(0), dev)
-        g = torch.Generator().manual_seed(1)
-        with torch.no_grad():
-            for layer in state["params"]["refiner"]["layers"]:
-                for t in layer["coord_mlp"]["l2"].values():
-                    t.copy_(torch.randn(t.shape, generator=g) * 0.1)
-        states[dev] = state
+        states[dev] = e2e_parity_state(ecfg, tcfg, dev)
         steps[dev] = make_train_step(ecfg, tcfg, loss_fn=e2e.e2e_loss_fn, device=dev)
     fwd = E2E_TRUNK_FLASH * cfg.depth * tcfg.grad_accum * 3
     bwd = (E2E_TRUNK_FLASH * cfg.depth - 1) * tcfg.grad_accum * 3
@@ -4376,7 +4420,7 @@ def phase_rev_drift(crop=128, rows=E2E_ROWS):
     against the forward's, max |d| in bf16 ulps of the largest input
     entry. A finding, held to REV_GRAD_BOUND and REV_RECON_ULPS (stated
     before the first run) and to finite values."""
-    rows_out = []
+    probeout = []
     for depth in (2, 4):
         cfg = presets.north_star_e2e_config(depth)[0].model
         layers = reversible.reversible_trunk_init(torch.Generator().manual_seed(depth), cfg,
@@ -4405,7 +4449,7 @@ def phase_rev_drift(crop=128, rows=E2E_ROWS):
                "worst_errs": [errs[i] for i in order[:5]], "recon_ulps": recon,
                "finite": finite}
         row["ok"] = finite and max(errs) <= REV_GRAD_BOUND and max(recon) <= REV_RECON_ULPS
-        rows_out.append(row)
+        probeout.append(row)
         log(f"[rev b] bf16 depth {depth}, grid {3 * crop}, {rows} rows: reversible vs plain "
             f"gradient, worst leaf {row['worst_leaf_err']:.3e} (median "
             f"{row['median_leaf_err']:.3e}, inputs x {errs[0]:.3e} m {errs[1]:.3e}; bound "
@@ -4414,8 +4458,8 @@ def phase_rev_drift(crop=128, rows=E2E_ROWS):
             f"(bound {REV_RECON_ULPS}) {'ok' if row['ok'] else 'FAIL'}")
         del layers, x, m, gx, gm
         torch.cuda.empty_cache()
-    RECORD["phases"]["rev_drift"] = rows_out
-    if not all(r["ok"] for r in rows_out):
+    RECORD["phases"]["rev_drift"] = probeout
+    if not all(r["ok"] for r in probeout):
         fail("the bf16 reversible trunk went non-finite or past its stated bounds (phase 13b)")
 
 
@@ -4592,6 +4636,445 @@ def phase_reversible():
     return launches
 
 
+# --- phase 14: the relaxation, the segmented step, bucketed pretraining -------------
+
+PRE_WORK = ROOT / "build" / "phase14"  # 14d's PDB files, removed at the phase's end
+BUCKETS = (64, 128, 256)  # 14c's length buckets: train_pre's crops
+SEG_K = 3  # 14b's --trunk-segments (depth 5)
+
+
+def noisy_backbone(L, b, seed):
+    """(b, 3L, 3) helix backbones with 0.3 A of noise, the chain cut after
+    residues L / 3 and 2 L / 3 (each later piece moved 12 A away), and the
+    peptide mask (b, L - 1) that keeps those two bonds out."""
+    t = 0.6 * np.arange(3 * L)
+    bb = np.stack([2 * np.cos(t), 2 * np.sin(t), -0.16 * t], -1).astype(np.float32)
+    rs = np.random.RandomState(seed)
+    coords = bb[None] + 0.3 * rs.randn(b, 3 * L, 3).astype(np.float32)
+    peptide = np.ones((b, L - 1), bool)
+    for cut in (L // 3, 2 * L // 3):
+        peptide[:, cut - 1] = False
+        coords[:, 3 * cut:] += np.asarray([12.0, 0.0, 0.0], np.float32)
+    return coords, peptide
+
+
+def phase_relax_parity(L=384, iters=200):
+    """(a) `refinement.py relax`, f32: 2 noisy 384-residue backbones with
+    two chain breaks, 200 iterations, on the card and on the CPU: relaxed
+    coords within 1e-4 A, history within 1e-5 * max(1, |ref|), the energy
+    lowered. Then ms a relax (CUDA events, mean of 3 after one) at L = 384
+    and 1024 (b = 2), and the launches the host issues for one relax at L
+    = 1024 (torch.profiler)."""
+    coords, peptide = noisy_backbone(L, 2, seed=14)
+    card, card_hist = refinement.relax(torch.from_numpy(coords).cuda(), iters=iters,
+                                       peptide_mask=torch.from_numpy(peptide).cuda())
+    cpu, cpu_hist = refinement.relax(torch.from_numpy(coords), iters=iters,
+                                     peptide_mask=torch.from_numpy(peptide))
+    d = (card.cpu() - cpu).abs().max().item()
+    h = ((card_hist.cpu() - cpu_hist).abs() / cpu_hist.abs().clamp_min(1.0)).max().item()
+    e0, e1 = (refinement.backbone_bond_energy(torch.from_numpy(x), peptide_mask=peptide)
+              for x in (coords, cpu.numpy()))
+    timing = {}
+    for n in (384, 1024):
+        c, p = (torch.from_numpy(a).cuda() for a in noisy_backbone(n, 2, seed=n))
+        timing[n] = time_ms(lambda: refinement.relax(c, iters=iters, peptide_mask=p), 3)
+    prof = profile_request(lambda: refinement.relax(c, iters=iters, peptide_mask=p))
+    ok = d <= 1e-4 and h <= 1e-5 and bool((e1 < e0).all())
+    RECORD["phases"]["relax"] = {"L": L, "iters": iters, "coords_max_abs": d,
+                                 "history_max_rel": h, "energy_before": e0.tolist(),
+                                 "energy_after": e1.tolist(), "ms": timing,
+                                 "launches_per_relax": prof["kernel_launches"],
+                                 "device_ms_per_relax": prof["device_ms"], "ok": ok}
+    log(f"[relax a] relax, b 2, L {L}, 2 chain breaks, {iters} iterations, f32, card vs cpu: "
+        f"coords |d| {d:.2e} (tol 1e-4 A), history rel {h:.2e} (tol 1e-5); energy "
+        f"{[round(x, 2) for x in e0.tolist()]} -> {[round(x, 4) for x in e1.tolist()]}; ms a "
+        f"relax at L 384 {timing[384]:.2f}, 1024 {timing[1024]:.2f}; {prof['kernel_launches']} "
+        f"launches ({prof['device_ms']:.2f} device ms) a relax at L 1024 "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("relax on the card departs from the CPU's, or did not lower the energy (phase 14a)")
+
+
+def depth_parity_config(mds_init):
+    """14b's e2e config: dim 64, 2 heads of 32, depth 5, reversible, tied
+    MSA rows (5 flash attentions a layer), attn_flash=True (the CPU runs the
+    flash path's plain version, ROADMAP C), 20 MDS iterations from
+    `mds_init`, refiner dim 64 depth 2; f32."""
+    model = Alphafold2Config(dim=64, depth=5, heads=2, dim_head=32, max_seq_len=48,
+                             reversible=True, msa_tie_row_attn=True, attn_flash=True)
+    return e2e.E2EConfig(model=model, refiner=RefinerConfig(num_tokens=14, dim=64, depth=2),
+                         mds_iters=20, mds_init=mds_init)
+
+
+MDS_MODULE = importlib.import_module("alphafold2_tpu_torch.geometry.mds")
+
+
+@contextlib.contextmanager
+def mds_trace(trace, starts=None):
+    """While open, each MDS of `predict_structure` appends to `trace` its
+    input distances, its start (`initial_coords`), the Guttman iterations
+    it took before the freeze and its fraction of negative phis (the
+    mirror fix's input), all copied to the host. With `starts`, the n-th
+    MDS starts from starts[n] instead of its own init."""
+    init, guttman, phis = (MDS_MODULE.initial_coords, MDS_MODULE.guttman,
+                           MDS_MODULE.calc_phis)
+
+    def traced_init(pre, kind="classical", generator=None):
+        x = init(pre, kind, generator)
+        if starts is not None:
+            x = starts[len(trace)].to(x.device)
+        trace.append({"dist": pre.detach().cpu(), "start": x.detach().cpu()})
+        return x
+
+    def traced_guttman(*args, **kw):
+        out = guttman(*args, **kw)
+        h = out[1].detach().cpu()
+        trace[-1]["iters"] = int((h[1:] != h[:-1]).any(-1).sum()) + 1 if len(h) else 0
+        return out
+
+    def traced_phis(*args, **kw):
+        r = phis(*args, **kw)
+        trace[-1]["phi_prop"] = r.detach().cpu().tolist()
+        return r
+
+    MDS_MODULE.initial_coords = traced_init
+    MDS_MODULE.guttman = traced_guttman
+    MDS_MODULE.calc_phis = traced_phis
+    try:
+        yield trace
+    finally:
+        MDS_MODULE.initial_coords = init
+        MDS_MODULE.guttman = guttman
+        MDS_MODULE.calc_phis = phis
+
+
+def detached_params(tree, device):
+    """A parameter tree's tensors copied to `device` as fresh leaves that
+    require grad."""
+    if isinstance(tree, dict):
+        return {k: detached_params(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [detached_params(v, device) for v in tree]
+    return tree.detach().to(device).requires_grad_(True)
+
+
+def microbatch_grads(params, ecfg, mb, device, starts=None):
+    """One microbatch's e2e loss and gradients (host copies) at `params`
+    on `device`, and its MDS trace (`mds_trace`)."""
+    leaves = list(tree_leaves(params))
+    trace = []
+    with mds_trace(trace, starts):
+        loss = e2e.e2e_loss_fn(params, ecfg, {k: torch.as_tensor(v).to(device)
+                                              for k, v in mb.items()}, None, device)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return (loss.item(), [torch.zeros_like(p).cpu() if g is None else g.cpu()
+                          for p, g in zip(leaves, grads)], trace)
+
+
+def grad_ratio(got, want, tol=1e-4):
+    """The worst leaf's max |got - want| over tol times its largest |want|
+    (phase 6a's first-step gradient measure)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        d, scale_ = (a - b).abs().max().item(), b.abs().max().item()
+        worst = max(worst, d / (tol * scale_) if scale_ else (0.0 if d == 0 else math.inf))
+    return worst
+
+
+def top3(start):
+    """The classical init's top-3 eigenvectors, (b, N, 3) f64, from its
+    start (the eigenvectors scaled by the roots of their eigenvalues)."""
+    x = start.double()
+    return x / x.norm(dim=-2, keepdim=True).clamp_min(1e-300)
+
+
+def subspace_sin(a, b):
+    """The sine of the largest principal angle between the spans of two
+    (b, N, 3) orthonormal column sets (the worst structure)."""
+    resid = b - a @ (a.transpose(-1, -2) @ b)
+    return torch.linalg.matrix_norm(resid, ord=2).max().item()
+
+
+def shape_departure(a, b):
+    """How far two (b, N, 3) point sets are apart up to an isometry: the
+    largest difference of their pairwise distances over the largest
+    distance."""
+    da, db = torch.cdist(a.double(), a.double()), torch.cdist(b.double(), b.double())
+    return ((da - db).abs().max() / db.abs().max()).item()
+
+
+def classical_init_probe(ecfg, tcfg, fetch, steps=3, card="cuda"):
+    """The classical MDS init, `card` (default CUDA) against CPU, on `steps`
+    of `fetch`'s batches along the CPU's own trajectory (its state after n
+    steps, copied to the card for step n, so both devices start each step
+    from the same params). For each microbatch:
+      - the init's input distances, card against CPU (relative);
+      - the CPU's Gram matrix: its spectral norm, its top eigenvalues and
+        the gap l3 - l4 that bounds how far its top-3 eigenvectors move;
+      - eigh alone: the card's eigh of the CPU's own Gram matrix against the
+        CPU's, as the sine of the angle between the top-3 spans and the
+        starts' departure up to an isometry (`shape_departure`);
+      - the starts each device reached from its own distances, the same two
+        measures, beside the perturbation bound ||dG||_2 / (l3 - l4) (Davis
+        and Kahan) from the two devices' Gram matrices;
+      - the Guttman iterations taken before the freeze and the mirror fix's
+        negative-phi fraction on each device;
+      - the gradients, card against CPU at phase 6a's measure
+        (`grad_ratio`), from the card's own start and from the CPU's start
+        handed to the card.
+    Returns a row of these a microbatch."""
+    state = e2e_parity_state(ecfg, tcfg, "cpu")
+    cpu_step = make_train_step(ecfg, tcfg, loss_fn=e2e.e2e_loss_fn, device="cpu")
+    rows = []
+    for n in range(steps):
+        batch = fetch(n)
+        for j in range(len(next(iter(batch.values())))):
+            mb = {k: v[j] for k, v in batch.items()}
+            l_cpu, g_cpu, t_cpu = microbatch_grads(detached_params(state["params"], "cpu"),
+                                                   ecfg, mb, "cpu")
+            l_card, g_card, t_card = microbatch_grads(
+                detached_params(state["params"], card), ecfg, mb, card)
+            _, g_same, _ = microbatch_grads(detached_params(state["params"], card), ecfg,
+                                            mb, card, starts=[t["start"] for t in t_cpu])
+            for k, (tc, tg) in enumerate(zip(t_cpu, t_card)):
+                gram_cpu = MDS_MODULE.classical_gram(tc["dist"])
+                evals = torch.linalg.eigvalsh(gram_cpu.double())[..., -4:]
+                gap = (evals[..., 1] - evals[..., 0]).min().item()
+                d_gram = torch.linalg.matrix_norm(
+                    MDS_MODULE.classical_gram(tg["dist"].double())
+                    - MDS_MODULE.classical_gram(tc["dist"].double()), ord=2).max().item()
+                solver = MDS_MODULE.classical_embed(
+                    *torch.linalg.eigh(gram_cpu.to(card))).cpu()
+                rows.append({
+                    "step": n, "microbatch": j, "mds": k,
+                    "dist_rel": ((tg["dist"] - tc["dist"]).abs().max()
+                                 / tc["dist"].abs().max()).item(),
+                    "top_evals": evals.tolist(), "gap": gap,
+                    "gram_norm": torch.linalg.matrix_norm(gram_cpu.double(), ord=2).max().item(),
+                    "rel_gap": gap / evals[..., 1].max().item(),
+                    "eigh_sin": subspace_sin(top3(tc["start"]), top3(solver)),
+                    "eigh_shape": shape_departure(solver, tc["start"]),
+                    "own_sin": subspace_sin(top3(tc["start"]), top3(tg["start"])),
+                    "dk_bound": d_gram / gap,
+                    "own_shape": shape_departure(tg["start"], tc["start"]),
+                    "iters": (tg.get("iters"), tc.get("iters")),
+                    "phi_prop": (tg.get("phi_prop"), tc.get("phi_prop")),
+                    "loss": (l_card, l_cpu),
+                    "grad_ratio_own_start": grad_ratio(g_card, g_cpu),
+                    "grad_ratio_cpu_start": grad_ratio(g_same, g_cpu)})
+        cpu_step(state, batch)
+    return rows
+
+
+def phase_segmented_parity(L=16, rows=8):
+    """(b) f32, L = 16 (grid 48), an 8-row MSA, accum 2, depth 5
+    (`depth_parity_config`), the step of `train_end2end --reversible
+    --trunk-segments 3` (`segmented.make_segmented_train_step`: on CUDA the
+    monolithic reversible step).
+    From the random MDS init (the same CPU draw on both devices): 3 free
+    steps, card against CPU at phase 6a's tolerances (`card_vs_cpu_steps`),
+    every flash launch on the f32 route.
+    From the classical init (`classical_init_probe`, 3 steps' 6
+    microbatches, both devices from the same params each step): each
+    microbatch's loss within 1e-5; its gradients within phase 6a's measure
+    once the card is handed the CPU's start (so everything but the init
+    agrees); and the init's departure within the f32 eigensolver's bound:
+    the top-3 eigenvectors' span moves by at most (||dG||_2 + 2 n eps
+    ||G||_2) / (l3 - l4), dG the two devices' Gram matrices' difference, n
+    the grid, eps f32's machine epsilon (each solver's backward error is
+    at most n eps ||G||), and the card's eigh of the CPU's own Gram matrix
+    by at most 2 n eps ||G||_2 / (l3 - l4). The gradients from each
+    device's own start are recorded, not held: where l3 - l4 is a few
+    percent of l3 the start moves by ~1e-5 and the gradients by up to ~1e-3
+    of a leaf's largest entry (ROADMAP C)."""
+    tcfg = TrainConfig(grad_accum=2)
+    fetch = structure_fetch(L, rows, 2, seed=5)
+    ecfg = depth_parity_config("random")
+    states = {dev: e2e_parity_state(ecfg, tcfg, dev) for dev in ("cuda", "cpu")}
+    steps = {dev: segmented.make_segmented_train_step(ecfg, tcfg, SEG_K, device=dev)
+             for dev in states}
+    flash = REV_FLASH * ecfg.model.depth * tcfg.grad_accum * 3
+    expect = {}
+    for name, n in (("flash_fwd", 2 * flash), ("flash_bwd_dq", flash), ("flash_bwd_dkv", flash)):
+        expect[name] = expect[f"{name}_f32"] = n
+    card_vs_cpu_steps("seg b", "segmented_parity", f"L={L} (grid {3 * L}) f32 depth 5 "
+                      f"reversible, --trunk-segments {SEG_K}, {rows} MSA rows, the random MDS "
+                      f"init", repr(ecfg), states, steps, fetch, tcfg, expect)
+    del states, steps
+
+    ecfg = depth_parity_config("classical")
+    probe = classical_init_probe(ecfg, tcfg, fetch)
+    eps, n = torch.finfo(torch.float32).eps, 3 * L
+    for r in probe:
+        solver = 2 * n * eps * r["gram_norm"] / r["gap"]
+        r["eigh_bound"], r["own_bound"] = solver, r["dk_bound"] + solver
+        r["ok"] = (r["eigh_sin"] <= solver and r["own_sin"] <= r["own_bound"]
+                   and abs(r["loss"][0] - r["loss"][1]) <= 1e-5
+                   and r["grad_ratio_cpu_start"] <= 1.0)
+        log(f"[seg b] classical init, step {r['step']} microbatch {r['microbatch']}: init input "
+            f"rel {r['dist_rel']:.2e}; (l3 - l4) / l3 {r['rel_gap']:.3f}; top-3 span sin: card's "
+            f"eigh of the CPU's Gram {r['eigh_sin']:.2e} (bound {solver:.2e}), own start "
+            f"{r['own_sin']:.2e} (bound {r['own_bound']:.2e}); start shape {r['eigh_shape']:.2e} "
+            f"/ {r['own_shape']:.2e}; Guttman iterations {r['iters']}, negative-phi fractions "
+            f"{r['phi_prop']}; loss |d| {abs(r['loss'][0] - r['loss'][1]):.2e}; grads worst/tol "
+            f"from the own start {r['grad_ratio_own_start']:.3f}, from the CPU's start "
+            f"{r['grad_ratio_cpu_start']:.3f} {'ok' if r['ok'] else 'FAIL'}")
+    RECORD["phases"]["classical_init"] = {"config": repr(ecfg), "rows": probe,
+                                          "ok": all(r["ok"] for r in probe)}
+    if not all(r["ok"] for r in probe):
+        fail("the classical MDS init's card-vs-CPU departure is not the f32 eigensolver's, or "
+             "the rest of the step disagrees from the same start (phase 14b)")
+
+
+def bucket_groups(accum, want=(2, 1, 1, 1), seed=0):
+    """Microbatch stacks from train_pre's native stream (its pool, the C++
+    loader at 2 threads, `bucketed_microbatches`) over BUCKETS: `want[0]`
+    stacks at 256, then `want[1:]` at 64, 128 and 256 (the order the
+    capture meets them in). Also the loader's batches/s at 2 threads on
+    the same pool (400 batches after 8)."""
+    top = BUCKETS[-1]
+    args = argparse.Namespace(len_buckets=",".join(map(str, BUCKETS)), max_len=top, batch=1)
+    stream = quiet(train_pre.native_stream, args, DataConfig(batch_size=1, max_len=top,
+                                                              seed=seed),
+                   TrainConfig(grad_accum=accum))[0]
+    by = {bl: [] for bl in BUCKETS}
+    while (len(by[256]) < want[0] + want[3] or len(by[64]) < want[1]
+           or len(by[128]) < want[2]):
+        g = next(stream)
+        by[g["seq"].shape[-1]].append(g)
+    stream.close()  # its loader with it
+    order = (by[256][:want[0]] + by[64][:want[1]] + by[128][:want[2]]
+             + by[256][want[0]:want[0] + want[3]])
+    loader = NativePrefetchLoader(train_pre.native_pool(top, seed), batch_size=1, max_len=top,
+                                  seed=seed, n_threads=2, buckets=BUCKETS)
+    for _ in range(8):
+        loader.next()
+    t0 = time.perf_counter()
+    for _ in range(400):
+        loader.next()
+    rate = 400 / (time.perf_counter() - t0)
+    loader.close()
+    return order, rate
+
+
+def phase_bucketed_pretrain(steps=200, accum=2):
+    """(c) bucketed pretraining: `train_pre.main` in this process with
+    --data native --len-buckets 64,128,256 --len 256 --bf16 --accum 2
+    --steps 200 (the pool draws L from [32, 1024), so about 1 protein in 30
+    lands in the 64 bucket: 200 steps of 2 microbatches meet it with
+    probability ~1 - 1e-6): rc 0, finite losses, one capture a bucket (3),
+    and every B1f, dq and dkv launch of the captures on wgmma. Then, on
+    stacks of the same stream, `capture_vs_eager` over 256, 256, 64, 128,
+    256: each bucket's captured step bit for bit the eager step, the 64
+    and 128 buckets captured in mid-run after steps at 256, the params,
+    moments and counts bit for bit at the end; each bucket's captured step
+    ms (`captured_ms`) beside the loader's batches/s at 2 threads. Returns
+    the CLI run's launches."""
+    argv = ["--data", "native", "--len-buckets", ",".join(map(str, BUCKETS)), "--len",
+            str(BUCKETS[-1]), "--bf16", "--accum", str(accum), "--steps", str(steps)]
+    reset_launches()
+    t0 = time.perf_counter()
+    (state, metrics), lines = quiet(train_pre.main, argv)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    del state
+    captured_lines = [x for x in lines if x.startswith("captured the step for bucket")]
+    buckets_seen = sorted({int(x.split()[5]) for x in captured_lines})
+    losses = [float(x.split()[3]) for x in lines if x.startswith("step ")]
+    cli_ok = ("done" in lines and buckets_seen == list(BUCKETS) and len(captured_lines) == 3
+              and losses and all(math.isfinite(v) for v in losses) and on_wgmma(launches)
+              and math.isfinite(float(metrics["loss"])))
+    log(f"[pre c] train_pre {' '.join(argv)}: {seconds:.1f} s, captures {captured_lines}, "
+        f"losses {losses}; launches (warm-ups and captures) "
+        f"{dict((k, v) for k, v in launches.items() if v)} {'ok' if cli_ok else 'FAIL'}")
+    cfg = train_pre_config()
+    groups, rate = bucket_groups(accum)
+    captured, state, _ = capture_vs_eager("bf16 buckets", cfg, "64/128/256", accum, wgmma=True,
+                                          batches=groups)
+    step_ms = {}
+    for g in groups[1:4]:
+        bl = g["seq"].shape[-1]
+        step_ms[bl] = captured_ms(captured, state, g)[0]
+    del captured, state
+    torch.cuda.empty_cache()
+    RECORD["phases"]["bucketed_pretrain"] = {
+        "argv": argv, "seconds": seconds, "lines": lines, "launches": launches,
+        "captures": captured_lines, "captured_step_ms": step_ms,
+        "loader_batches_per_s": rate, "ok": cli_ok}
+    log(f"[pre c] captured step ms by bucket (median of 5, accum {accum}): "
+        + ", ".join(f"{bl}: {ms:.2f}" for bl, ms in step_ms.items())
+        + f"; steps/s {', '.join(f'{bl}: {1e3 / ms:.1f}' for bl, ms in step_ms.items())}; "
+        f"the loader at 2 threads {rate:.0f} batches/s")
+    if not cli_ok:
+        fail("train_pre --data native --len-buckets did not run its three captured buckets "
+             "on wgmma with finite losses (phase 14c)")
+    return launches
+
+
+def phase_refine_chain(L=128):
+    """(d) `python -m alphafold2_tpu_torch.predict --full-atom --bf16` on
+    128 residues in a process of its own, then `refine.main` on its PDB on
+    the card and with --device cpu: the output parses back (N/CA/C of
+    every residue), keeps the CA B-factors, has a lower bond energy than
+    its input, and the card's relaxed coordinates lie within 1e-3 A of the
+    CPU's."""
+    shutil.rmtree(PRE_WORK, ignore_errors=True)
+    PRE_WORK.mkdir(parents=True)
+    seq = "".join(np.random.default_rng(L).choice(list(AA_ORDER), L))
+    src, card_out, cpu_out = (str(PRE_WORK / f"{n}.pdb") for n in ("predicted", "card", "cpu"))
+    cmd = [sys.executable, "-m", "alphafold2_tpu_torch.predict", "--seq", seq, "--full-atom",
+           "--bf16", "--out", src]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    predict_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"predict --full-atom failed (phase 14d): {res.stderr[-1000:]}")
+    t0 = time.perf_counter()
+    card_xyz, card_lines = quiet(refine.main, [src, card_out])
+    refine_s = time.perf_counter() - t0
+    cpu_xyz, _ = quiet(refine.main, [src, cpu_out, "--device", "cpu"])
+    inp = parse_pdb(src).select_atoms(("N", "CA", "C"))
+    card = parse_pdb(card_out)
+    energy = [float(refinement.backbone_bond_energy(
+        torch.from_numpy(s.coords()[None]), peptide_mask=np.ones((1, L - 1), bool))[0])
+        for s in (inp, card)]
+    d = float(np.abs(card_xyz - cpu_xyz).max())
+    ca_in = [a.bfactor for a in inp.atoms if a.name == "CA"]
+    ca_out = [a.bfactor for a in card.atoms if a.name == "CA"]
+    ok = ([a.name for a in card.atoms] == ["N", "CA", "C"] * L and ca_in == ca_out
+          and any(ca_in) and energy[1] < energy[0] and d <= 1e-3
+          and bool(np.isfinite(card.coords()).all()))
+    RECORD["phases"]["refine_chain"] = {
+        "L": L, "predict_s": predict_s, "refine_card_s": refine_s, "energy": energy,
+        "card_vs_cpu_max_abs": d, "lines": card_lines, "ok": ok}
+    log(f"[relax d] predict --full-atom --bf16 ({L} residues, {predict_s:.1f} s) -> refine on "
+        f"the card ({refine_s:.2f} s): bond energy {energy[0]:.2f} -> {energy[1]:.4f}, CA "
+        f"B-factors kept {ca_in == ca_out}, card vs --device cpu |d| {d:.2e} A (tol 1e-3) | "
+        + " | ".join(card_lines) + f" {'ok' if ok else 'FAIL'}")
+    shutil.rmtree(PRE_WORK, ignore_errors=True)
+    if not ok:
+        fail("predict --full-atom -> refine on the card failed its checks (phase 14d)")
+
+
+def phase_relax_segmented_buckets():
+    """14: the relaxation, the e2e step at depth (--trunk-segments) with the
+    classical init's card-vs-CPU departure, bucketed pretraining, the CLI
+    chain. Returns (c)'s launches."""
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        RECORD["phases"][f"p14_{key}_s"] = time.perf_counter() - t
+        log(f"[time] p14 {key}: {RECORD['phases'][f'p14_{key}_s']:.1f} s")
+        return result
+
+    timed("a", phase_relax_parity)
+    timed("b", phase_segmented_parity)
+    launches = timed("c", phase_bucketed_pretrain)
+    timed("d", phase_refine_chain)
+    return launches
+
+
 # --- phase 5: the kernels line -----------------------------------------------------
 
 
@@ -4625,7 +5108,8 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     launching what the capture recorded; B3's forward from the SP request,
     its backward from the ring's gradient in f32 and in bf16; phase 12b's
     5 counted e2e steps and phase 13d's 3 counted reversible ones add their
-    B1f, dq and dkv launches)."""
+    B1f, dq and dkv launches, and so does phase 14c's bucketed CLI run
+    (each bucket's warm-up and capture))."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r
@@ -4766,6 +5250,8 @@ def main():
     for name, n in timed_phase("e2e_train", phase_e2e_train).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in timed_phase("reversible", phase_reversible).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in timed_phase("relax_segmented_buckets", phase_relax_segmented_buckets).items():
         launches[name] = launches.get(name, 0) + n
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches)

@@ -56,7 +56,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "training.checkpoint", "training.resilience", "reliability.faults",
                  "reliability.preemption", "models.embedder", "models.refiner",
                  "training.e2e", "geometry.masks", "geometry.dihedral", "geometry.kabsch",
-                 "geometry.metrics", "geometry.sidechain"):
+                 "geometry.metrics", "geometry.sidechain", "refinement", "refine",
+                 "runtime", "runtime.native", "training.segmented"):
         assert f"alphafold2_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -126,6 +127,9 @@ def test_training_entry_points_raise_without_cuda(no_cuda):
         harness.make_train_step(cfg, tcfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_pre.main(["--steps", "1", "--dim", "16", "--heads", "2", "--dim-head", "8"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_pre.main(["--steps", "1", "--dim", "16", "--heads", "2", "--dim-head", "8",
+                        "--data", "native", "--len-buckets", "64,128", "--len", "128"])
     state = harness.train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cpu")
     batch = data.synthetic_microbatch_fn(data.DataConfig(max_len=8), 1)(0)
     mb = {k: v[0] for k, v in batch.items()}
@@ -209,3 +213,23 @@ def test_full_atom_entry_points_raise_without_cuda(no_cuda, tmp_path):
     assert out["refined"].shape == (1, 6, 14, 3)
     main(args + ["--device", "cpu"])
     assert (tmp_path / "f.pdb").exists()
+
+
+def test_relaxation_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    """`refine`, `relax` on an array and `run_fast_relax` refuse to run
+    quietly on the CPU; with --device cpu / device="cpu" they run."""
+    from alphafold2_tpu_torch.geometry.pdb import coords_to_pdb
+    from alphafold2_tpu_torch.refine import main
+    from alphafold2_tpu_torch.refinement import relax, run_fast_relax
+
+    coords = np.random.RandomState(0).randn(18, 3).astype(np.float32) * 3
+    src, out = str(tmp_path / "in.pdb"), str(tmp_path / "out.pdb")
+    coords_to_pdb(src, coords, sequence="AAAAAA")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([src, out, "--iters", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        relax(coords, iters=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_fast_relax(coords, "AAAAAA", iters=2)
+    main([src, out, "--iters", "2", "--device", "cpu"])
+    assert os.path.exists(out)
