@@ -15,7 +15,8 @@ there the freeze cannot fire on a finite stress and its ops are skipped.
 `classical_embed`, then `guttman`. The serving engine's captured graphs
 run the first and the last on the card and `eigh` between them, eagerly
 (serving/executable.py): `eigh` checks its solver's status on the host,
-which a graph cannot hold.
+which a graph cannot hold. The random init has no `eigh`: the engine's
+graph draws it from a generator on the card (`initial_coords`).
 """
 
 from __future__ import annotations
@@ -100,15 +101,27 @@ def initial_coords(pre_dist_mat, init: str = "classical",
     """The start of the Guttman steps for (b, N, N) distances, detached (no
     gradient flows into the init): "classical" (Torgerson: eigh of the
     double-centred squared distances) or "random" (uniform in [-1, 1],
-    drawn from `generator`, a CPU generator, then moved to the distances'
-    device). (b, N, 3)."""
+    drawn from `generator`: on the distances' device when the generator
+    lies there, the draw a CUDA graph replays from the generator's seed;
+    else on the CPU, from a CPU generator, and moved, which a graph
+    capture refuses: it would freeze the draw). (b, N, 3)."""
     if init == "classical":
         return classical_embed(*torch.linalg.eigh(classical_gram(pre_dist_mat.detach())))
     if init == "random":
         batch, n, _ = pre_dist_mat.shape
+        device = pre_dist_mat.device
+        on = generator is not None and generator.device.type == device.type
+        if on and generator.device.index in (None, device.index):  # "cuda": the current card
+            return 2.0 * torch.rand((batch, n, 3), generator=generator,
+                                    dtype=pre_dist_mat.dtype, device=device) - 1.0
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise ValueError(
+                "initial_coords: a random init from a CPU generator inside a CUDA graph "
+                "capture would copy one draw into the graph; pass a generator on "
+                f"{device} registered with the graph")
         coords = 2.0 * torch.rand((batch, n, 3), generator=generator,
                                   dtype=pre_dist_mat.dtype) - 1.0
-        return coords.to(pre_dist_mat.device)
+        return coords.to(device)
     raise ValueError(f"unknown mds init {init!r}")
 
 

@@ -30,7 +30,7 @@ from alphafold2_tpu_torch.device import (
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.models.reversible import reversible_trunk_apply, reversible_trunk_init
 from alphafold2_tpu_torch.models.trunk import (
-    layer_generator,
+    dropout_live,
     prenorm_axial_apply,
     prenorm_axial_init,
     prenorm_ff_apply,
@@ -47,6 +47,7 @@ from alphafold2_tpu_torch.ops.core import (
     linear,
     linear_init,
 )
+from alphafold2_tpu_torch.utils.rng import as_key
 
 
 def template_tower_init(gen, cfg: Alphafold2Config, device):
@@ -113,10 +114,11 @@ def template_tower_apply(params, cfg: Alphafold2Config, x, x_mask, templates,
                           templates_mask, rng):
     """The pre-trunk template tower (alphafold2_tpu/models/alphafold2.py
     :116-182). x: pair rep (b, n, n, d); templates: (b, T, n, n) bucket
-    ids; templates_mask: (b, T, n, n) bool or None; rng: the CPU generator
-    of the forward (None: eval mode), from which each tower layer draws
-    one dropout seed, as each trunk layer does. Per layer: the pair rep's
-    axial self-attention (no residual, the reference quirk), the
+    ids; templates_mask: (b, T, n, n) bool or None; rng: dropout's
+    position (a utils/rng.py Key or a CPU generator; None: eval mode):
+    tower layer i draws its masks from position rng.fold_in("tower", i),
+    its ops in turn, as each trunk layer does from its own. Per layer: the
+    pair rep's axial self-attention (no residual, the reference quirk), the
     templates' axial self-attention (residual), attention along the
     template axis over [x; t_1..t_T] at each pair position (prenorm,
     residual; masked only when both templates_mask and the pair mask are
@@ -139,8 +141,9 @@ def template_tower_apply(params, cfg: Alphafold2Config, x, x_mask, templates,
         y_mask = torch.cat([x_mask.reshape(b, n * n, 1), tm], dim=2).reshape(
             b * n * n, num_t + 1)
 
-    for layer in params["template_tower"]:
-        gen = layer_generator(rng, x.device)
+    key = as_key(rng, x.device) if dropout_live(cfg, rng) else None
+    for index, layer in enumerate(params["template_tower"]):
+        gen = None if key is None else key.fold_in("tower", index).generator()
         x = prenorm_axial_apply(layer["seq_attn"], self_cfg, x, mask=x_mask, rng=gen)
         t = prenorm_axial_apply(layer["template_attn"], self_cfg, t, mask=t_mask,
                                 rng=gen) + t
@@ -228,10 +231,13 @@ def alphafold2_apply(params, cfg: Alphafold2Config, seq, msa=None, *,
     (b, n, num_embedds) float, the MSA substitute when msa is None;
     templates: (b, T, n, n) distogram-bucket ints, or floats read as raw
     distances in Angstroms (`template_buckets`); templates_mask: (b, T, n,
-    n) bool; rng: an optional CPU generator for dropout (None: eval mode;
-    the template tower's layers draw from it before the trunk's). Inputs may be
-    numpy arrays or tensors; they are moved to `device` (default CUDA;
-    pass device="cpu" for the CPU), where the params must lie. trunk_fn
+    n) bool; rng: dropout's position (a utils/rng.py Key, or a CPU
+    generator that seeds new streams with one draw; None: eval mode): the
+    template tower's layers draw at rng.fold_in("tower", i), the trunk's at
+    rng.fold_in("trunk", i) (a reversible layer's blocks one level
+    deeper). Inputs may be numpy arrays or tensors; they are moved to
+    `device` (default CUDA; pass device="cpu" for the CPU), where the
+    params must lie. trunk_fn
     overrides the trunk (the sequence-parallel one,
     parallel/sp_trunk.py alphafold2_apply_sp), called as
     trunk_fn(params["trunk"], cfg, x, m, x_mask, msa_mask, rng) and
@@ -248,6 +254,7 @@ def alphafold2_apply(params, cfg: Alphafold2Config, seq, msa=None, *,
     embedds = as_device_tensor(embedds, dev, torch.float32)
     templates = as_device_tensor(templates, dev)  # int buckets or float distances
     templates_mask = as_device_tensor(templates_mask, dev, torch.bool)
+    rng = as_key(rng, dev) if dropout_live(cfg, rng) else None
     x, m, x_mask, m_mask = alphafold2_front(
         params, cfg, seq, msa, mask=mask, msa_mask=msa_mask, embedds=embedds,
         templates=templates, templates_mask=templates_mask, rng=rng,

@@ -34,15 +34,15 @@ its own attention, so one Function over all layers computes the chained
 segments' function.
 
 Dropout: JAX derives eight op keys a layer from `fold_in(rng, layer)` and
-derives them again in the backward. Here the trunk draws, before it runs,
-one seed a block from the caller's CPU generator: layer by layer, the
-eight blocks in `BLOCKS` order (`block_seeds`). Each block draws its masks
-from a generator on the streams' device seeded with its own seed, made
-anew at each call, so the backward's recompute draws the forward's masks
-without touching the CPU generator (one generator shared in turn would
-replay the masks in the wrong order, since the backward walks the blocks
-in reverse). The masks cannot equal JAX's: the parity tests with JAX run
-without dropout.
+derives them again in the backward. Here each block is a position of its
+own, rng.fold_in("trunk", layer, block) (`block_keys`, utils/rng.py), and
+draws its masks from that position's generator: the forward takes its
+first pass, the backward's recompute the second, seeded alike, so the
+backward draws the forward's masks although it walks the blocks in
+reverse (one generator shared in turn would replay them in the wrong
+order). Inside a captured train step these generators are registered with
+the graph (training/executable.py). The masks cannot equal JAX's: the
+parity tests with JAX run without dropout.
 
 The reconstruction is exact in exact arithmetic only: in bfloat16 the
 rebuilt inputs differ from the forward's by rounding, in JAX too
@@ -57,15 +57,16 @@ from alphafold2_tpu_torch.device import tree_leaves
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.models.trunk import (
     cross_apply_grids,
-    layer_seed,
+    dropout_live,
     make_sparse_axial_fn,
     prenorm_axial_apply,
     prenorm_ff_apply,
     trunk_layer_init,
 )
+from alphafold2_tpu_torch.utils.rng import as_key
 
 # a reversible layer's blocks in JAX's op order: its per-layer dropout keys
-# (r_fs, r_gs, r_js, r_ks, r_fc, r_gc, r_jc, r_kc) and the port's seeds
+# (r_fs, r_gs, r_js, r_ks, r_fc, r_gc, r_jc, r_kc) and the port's positions
 BLOCKS = ("seq_attn", "seq_ff", "msa_attn", "msa_ff",
           "seq_cross", "seq_ff2", "msa_cross", "msa_ff2")
 
@@ -101,22 +102,20 @@ def _cross(cfg, params, q_grid, ctx_grid, q_mask, ctx_mask, gen, direction):
     return cross_apply_grids(params, cfg, q_grid, ctx_grid, q_mask, ctx_mask, direction, gen)
 
 
-def block_seeds(rng, depth: int):
-    """Each layer's eight block seeds (`BLOCKS` order), drawn from the CPU
-    generator `rng` layer by layer; None for each when rng is None (eval
-    mode)."""
-    return [[layer_seed(rng) for _ in BLOCKS] for _ in range(depth)]
+def block_keys(cfg: Alphafold2Config, rng, depth: int, device):
+    """Each layer's eight block positions (`BLOCKS` order),
+    rng.fold_in("trunk", layer, block); None for each without live dropout
+    (eval mode). rng: a Key, a CPU generator (new streams on `device`) or
+    None."""
+    key = as_key(rng, device) if dropout_live(cfg, rng) else None
+    return [[None if key is None else key.fold_in("trunk", i, name) for name in BLOCKS]
+            for i in range(depth)]
 
 
-def _generators(seeds, device):
-    """A fresh generator on `device` for each block seed (None: no dropout)."""
-    return [None if s is None else torch.Generator(device).manual_seed(s) for s in seeds]
-
-
-def _block_fns(cfg, layer, x_mask, msa_mask, seeds, sparse_fn, device):
+def _block_fns(cfg, layer, x_mask, msa_mask, keys, sparse_fn):
     """One layer's eight blocks as functions of the stream halves they
-    read, each with a fresh generator from its seed (`BLOCKS` order)."""
-    g = _generators(seeds, device)
+    read, each drawing from its position's next pass (`BLOCKS` order)."""
+    g = [None if k is None else k.generator() for k in keys]
     return {
         "seq_attn": lambda x2: _f_seq(cfg, layer["seq_attn"], x2, x_mask, g[0], sparse_fn),
         "seq_ff": lambda y1: _ff(cfg, layer["seq_ff"], y1, g[1]),
@@ -134,9 +133,9 @@ def _block_fns(cfg, layer, x_mask, msa_mask, seeds, sparse_fn, device):
 # --- one layer forward and backward -----------------------------------------
 
 
-def _layer_forward(cfg, layer, state, x_mask, msa_mask, seeds, sparse_fn):
+def _layer_forward(cfg, layer, state, x_mask, msa_mask, keys, sparse_fn):
     x1, x2, m1, m2 = state
-    b = _block_fns(cfg, layer, x_mask, msa_mask, seeds, sparse_fn, x1.device)
+    b = _block_fns(cfg, layer, x_mask, msa_mask, keys, sparse_fn)
     # the self block: the pair half (f, g) and the MSA half (j, k) touch
     # only their own stream
     y1 = x1 + b["seq_attn"](x2)
@@ -183,7 +182,7 @@ def _recompute(fn, inputs, params, ct, param_grads):
     return out.detach(), d_in, d_params
 
 
-def _layer_backward(cfg, layer, state, cts, x_mask, msa_mask, seeds, sparse_fn,
+def _layer_backward(cfg, layer, state, cts, x_mask, msa_mask, keys, sparse_fn,
                     param_grads=True):
     """Invert one layer from its output `state` and carry the cotangents
     `cts` back through it (JAX `_layer_backward`): the cross block (k, j,
@@ -192,7 +191,7 @@ def _layer_backward(cfg, layer, state, cts, x_mask, msa_mask, seeds, sparse_fn,
     in `param_leaves` order, or None without param_grads})."""
     z1, z2, o1, o2 = state
     dz1, dz2, do1, do2 = cts
-    b = _block_fns(cfg, layer, x_mask, msa_mask, seeds, sparse_fn, z1.device)
+    b = _block_fns(cfg, layer, x_mask, msa_mask, keys, sparse_fn)
     dp = {}
 
     def run(name, inputs, ct):
@@ -244,14 +243,14 @@ def _sparse_fns(cfg: Alphafold2Config, depth: int):
 
 
 def forward_state(layers, cfg: Alphafold2Config, state, *, x_mask=None, msa_mask=None,
-                  seeds=None):
+                  keys=None):
     """Every layer in turn on the channel-doubled state (x1, x2, m1, m2):
     the last layer's (z1, z2, o1, o2), with a graph when grad is enabled.
-    seeds: `block_seeds`'s draw (None: eval mode)."""
+    keys: `block_keys`'s positions (None: eval mode)."""
     layers = list(layers)
-    seeds = seeds if seeds is not None else block_seeds(None, len(layers))
-    for layer, layer_seeds, sparse_fn in zip(layers, seeds, _sparse_fns(cfg, len(layers))):
-        state = _layer_forward(cfg, layer, state, x_mask, msa_mask, layer_seeds, sparse_fn)
+    keys = keys if keys is not None else block_keys(cfg, None, len(layers), None)
+    for layer, layer_keys, sparse_fn in zip(layers, keys, _sparse_fns(cfg, len(layers))):
+        state = _layer_forward(cfg, layer, state, x_mask, msa_mask, layer_keys, sparse_fn)
     return state
 
 
@@ -265,16 +264,16 @@ class _ReversibleCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, meta, x_mask, msa_mask, x1, x2, m1, m2, *leaves):
-        cfg, structure, seeds = meta
+        cfg, structure, keys = meta
         state = forward_state(_rebuild(structure, iter(leaves)), cfg, (x1, x2, m1, m2),
-                              x_mask=x_mask, msa_mask=msa_mask, seeds=seeds)
+                              x_mask=x_mask, msa_mask=msa_mask, keys=keys)
         ctx.meta = meta
         ctx.save_for_backward(x_mask, msa_mask, *state, *leaves)
         return state
 
     @staticmethod
     def backward(ctx, dz1, dz2, do1, do2):
-        cfg, structure, seeds = ctx.meta
+        cfg, structure, keys = ctx.meta
         x_mask, msa_mask, z1, z2, o1, o2, *leaves = ctx.saved_tensors
         layers = _rebuild(structure, iter(leaves))
         sparse_fns = _sparse_fns(cfg, len(layers))
@@ -283,7 +282,7 @@ class _ReversibleCore(torch.autograd.Function):
         d_layers = [None] * len(layers)
         for index in reversed(range(len(layers))):
             state, cts, dp = _layer_backward(cfg, layers[index], state, cts, x_mask, msa_mask,
-                                             seeds[index], sparse_fns[index], param_grads)
+                                             keys[index], sparse_fns[index], param_grads)
             d_layers[index] = dp
         d_leaves = []
         for layer, dp in zip(layers, d_layers):
@@ -302,37 +301,38 @@ def reversible_trunk_apply(layers, cfg: Alphafold2Config, x, m, *, x_mask=None,
     layers: the list of eight-block layer dicts (`reversible_trunk_init`).
     x: the pair grid (b, n, n, d); m: the MSA stream (b, rows, cols, d),
     required. x_mask (b, n, n) / msa_mask (b, rows, cols) bool or None.
-    rng: an optional CPU generator for dropout (`block_seeds`; None: eval
-    mode). reverse: True runs `_ReversibleCore` (the backward rebuilds
-    each layer's input); False the same function through plain autograd.
+    rng: dropout's position (a utils/rng.py Key, or a CPU generator that
+    seeds new streams; `block_keys`; None: eval mode). reverse: True runs
+    `_ReversibleCore` (the backward rebuilds each layer's input); False the
+    same function through plain autograd.
     Returns (x, m): the channel-halved streams averaged back to width d."""
     if m is None:
         raise ValueError("the reversible trunk requires an MSA stream "
                          "(reference reversible.py:316)")
     layers = list(layers)
-    seeds = block_seeds(rng, len(layers))
+    keys = block_keys(cfg, rng, len(layers), x.device)
     if reverse:
-        meta = (cfg, layers, seeds)
+        meta = (cfg, layers, keys)
         z1, z2, o1, o2 = _ReversibleCore.apply(meta, x_mask, msa_mask, x, x, m, m,
                                                *param_leaves(layers))
     else:
         z1, z2, o1, o2 = forward_state(layers, cfg, (x, x, m, m), x_mask=x_mask,
-                                       msa_mask=msa_mask, seeds=seeds)
+                                       msa_mask=msa_mask, keys=keys)
     return (z1 + z2) * 0.5, (o1 + o2) * 0.5
 
 
 def reconstruct_input(layers, cfg: Alphafold2Config, state, *, x_mask=None, msa_mask=None,
-                      seeds=None):
+                      keys=None):
     """The trunk's input state rebuilt from its output `state` (z1, z2, o1,
     o2) by the backward's own inversion, layer by layer in reverse (with
-    zero cotangents; no parameter gradients). seeds: `block_seeds`'s draw
-    of the forward (None: eval mode). Against the forward's (x, x, m, m)
+    zero cotangents; no parameter gradients). keys: `block_keys`'s
+    positions of the forward (None: eval mode). Against the forward's (x, x, m, m)
     it shows the inversion's rounding (exact in exact arithmetic)."""
     layers = list(layers)
-    seeds = seeds if seeds is not None else block_seeds(None, len(layers))
+    keys = keys if keys is not None else block_keys(cfg, None, len(layers), None)
     sparse_fns = _sparse_fns(cfg, len(layers))
     cts = tuple(torch.zeros_like(t) for t in state)
     for index in reversed(range(len(layers))):
         state, cts, _ = _layer_backward(cfg, layers[index], state, cts, x_mask, msa_mask,
-                                        seeds[index], sparse_fns[index], param_grads=False)
+                                        keys[index], sparse_fns[index], param_grads=False)
     return tuple(t.detach() for t in state)

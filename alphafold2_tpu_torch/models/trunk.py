@@ -51,6 +51,7 @@ from alphafold2_tpu_torch.ops.attention import (
 from alphafold2_tpu_torch.ops.core import layer_norm, layer_norm_init
 from alphafold2_tpu_torch.ops.feedforward import feed_forward_apply, feed_forward_init
 from alphafold2_tpu_torch.ops.sparse import sparse_attention_apply
+from alphafold2_tpu_torch.utils.rng import as_key
 
 _aten = torch.ops.aten
 # the ATen products each remat_policy saves: the dense layers run as mm /
@@ -391,17 +392,9 @@ def trunk_layer_apply(layer, cfg: Alphafold2Config, x, m, *, x_mask=None,
     return _serial(_layer_ops(layer, cfg, x_mask, msa_mask, rng, sparse_fn), x, m)
 
 
-def layer_seed(rng):
-    """One layer's dropout seed, drawn from the forward's CPU generator
-    (None when rng is None: eval mode)."""
-    return None if rng is None else int(torch.randint(2 ** 62, (), generator=rng))
-
-
-def layer_generator(rng, device):
-    """A generator on `device` seeded by `layer_seed(rng)`, which all of a
-    layer's ops draw their dropout masks from in turn (None: eval mode)."""
-    seed = layer_seed(rng)
-    return None if seed is None else torch.Generator(device).manual_seed(seed)
+def dropout_live(cfg: Alphafold2Config, rng) -> bool:
+    """Whether a forward draws dropout masks: a rate above 0 and an rng."""
+    return rng is not None and (cfg.attn_dropout > 0.0 or cfg.ff_dropout > 0.0)
 
 
 def sequential_trunk_apply(layers, cfg: Alphafold2Config, x, m, *, x_mask=None,
@@ -410,23 +403,26 @@ def sequential_trunk_apply(layers, cfg: Alphafold2Config, x, m, *, x_mask=None,
     None; masks (b, n, n) / (b, rows, cols) bool. `scan_layers` computes the
     same layers in the same order, so both settings run this loop.
 
-    rng: an optional CPU generator for dropout. Each layer draws one seed
-    from it and its ops draw their masks from a generator on x's device
-    seeded with it, so a layer that `remat` recomputes draws the same
-    masks again. A layer flagged in cfg.layer_sparse runs its pair axial
-    passes block-sparse."""
+    rng: dropout's position (`utils/rng.py` Key, or a CPU generator that
+    seeds new streams; None: eval mode). Layer i draws its masks from the
+    generator of position rng.fold_in("trunk", i), its ops in turn; a layer
+    that `remat` recomputes takes that position's next pass, seeded alike,
+    so the recompute draws the forward's masks under every remat_policy.
+    A layer flagged in cfg.layer_sparse runs its pair axial passes
+    block-sparse."""
     layer_sparse = cfg.layer_sparse
     sparse_fn = make_sparse_axial_fn(cfg) if any(layer_sparse) else None
     context_fn = remat_context_fn(cfg.remat_policy)
+    key = as_key(rng, x.device) if dropout_live(cfg, rng) else None
     # the forward's stream, where a branch-parallel layer's recompute issues
     # its pair branch (branch_parallel_layer_apply)
     main = torch.cuda.current_stream(x.device) if x.device.type == "cuda" else None
     for index, layer in enumerate(layers):
-        seed = layer_seed(rng)
+        layer_key = None if key is None else key.fold_in("trunk", index)
         layer_fn = sparse_fn if layer_sparse[index] else None
 
-        def run(x, m, layer=layer, seed=seed, layer_fn=layer_fn):
-            gen = None if seed is None else torch.Generator(x.device).manual_seed(seed)
+        def run(x, m, layer=layer, layer_key=layer_key, layer_fn=layer_fn):
+            gen = None if layer_key is None else layer_key.generator()
             return trunk_layer_apply(layer, cfg, x, m, x_mask=x_mask,
                                      msa_mask=msa_mask, rng=gen, sparse_fn=layer_fn,
                                      main_stream=main)

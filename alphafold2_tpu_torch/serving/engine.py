@@ -27,10 +27,15 @@ Not ported in this engine, each refused with its ROADMAP item when set:
 the sequence-parallel arm (`sp_shards`, `sp_schedules`: A11b), early exit
 (`early_exit_depths`, `early_exit_kl`: A5 remainder), pipelined dispatch
 (`pipeline_depth`: A11a-pipelined), the chaos seam (`fault_hook`: A11b),
-the tracer and the cost and goodput ledgers (`tracer`, `cost_ledger`,
-`goodput`, `flights`: A14), and a random MDS init on the card
-(A11a-random-init: its draw is a CPU generator's, copied to the card,
-which a graph cannot replay).
+and the tracer and the cost and goodput ledgers (`tracer`, `cost_ledger`,
+`goodput`, `flights`: A14).
+
+The random MDS init (`mds_init="random"`): device call i (counted from 1)
+starts MDS from the draw of a generator seeded fold_in(seed, i)
+(`utils/rng.py`), the JAX engine's `fold_in(PRNGKey(seed), batch_idx)`:
+on the card the engine's generator, registered with every executable's
+graph, is reseeded and replayed in one step under the pool's lock; on the
+CPU a CPU generator draws it.
 
 Thread model: clients call `submit()` / `result()` from any thread; every
 device call happens on the worker thread (or, past a watchdog timeout, on
@@ -79,6 +84,7 @@ from alphafold2_tpu_torch.serving.executable import (
 )
 from alphafold2_tpu_torch.serving.metrics import ServingMetrics
 from alphafold2_tpu_torch.serving.quant_residency import resident_params
+from alphafold2_tpu_torch.utils.rng import Streams, fold_in
 
 
 def _refuse(knob: str, item: str, what: str):
@@ -101,7 +107,7 @@ class ServingConfig:
     msa_rows: int = 0            # >0: executables take a fixed-row MSA stream
     mds_iters: int = 32
     mds_init: str = "classical"
-    seed: int = 0                # seeds the random MDS init (CPU only)
+    seed: int = 0                # seeds the random MDS init, with the call index
     precompile: bool = False     # build every executable at startup
     params_tag: str = ""         # checkpoint fingerprint for cache keys
     breaker_threshold: int = 0   # consecutive dispatch failures that open
@@ -304,9 +310,6 @@ class ServingEngine:
             raise ValueError(f"msa_rows {cfg.msa_rows} exceeds the model's max_num_msa "
                              f"{model_cfg.max_num_msa}")
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and cfg.mds_init == "random":
-            _refuse("mds_init='random' on CUDA", "A11a-random-init",
-                    "a capture-safe random MDS init")
         self.cfg = cfg
         self.model_cfg = model_cfg
         check_params_device(params, self.device)
@@ -330,7 +333,9 @@ class ServingEngine:
         self._executables = {}
         self._compile_lock = threading.Lock()
         self._pool = GraphPool() if self.device.type == "cuda" else None
-        self._generator = torch.Generator().manual_seed(cfg.seed)  # the CPU's random init
+        # the random init's generator (on the card, registered with each graph)
+        self._init_streams = Streams(self.device) if cfg.mds_init == "random" else None
+        self._batch_counter = 0  # device calls so far: the random init's index
         self._dispatch_counter = 0
         self._counter_lock = threading.Lock()
         self._breaker = (
@@ -566,19 +571,31 @@ class ServingEngine:
                     exe = CapturedExecutable(self._params, self.model_cfg, batch=batch_shape,
                                              bucket=bucket, msa_rows=self.cfg.msa_rows,
                                              mds_iters=self.cfg.mds_iters, device=self.device,
-                                             pool=self._pool)
+                                             pool=self._pool, mds_init=self.cfg.mds_init,
+                                             streams=self._init_streams)
                 else:
                     exe = EagerExecutable(self._params, self.model_cfg,
                                           mds_iters=self.cfg.mds_iters,
                                           mds_init=self.cfg.mds_init, device=self.device,
-                                          generator=self._generator)
+                                          streams=self._init_streams)
             self._executables[(bucket, batch_shape)] = exe
             return exe
 
     def _call_executable(self, bucket: int, tokens, mask, msa=None, msa_mask=None):
-        """One device call on the padded batch (its rung is tokens.shape[0]).
-        Returns the outputs on the device. Overridable seam."""
-        return self._executable_for(bucket, tokens.shape[0])(tokens, mask, msa, msa_mask)
+        """One device call on the padded batch (its rung is tokens.shape[0]),
+        its index counted from 1 (the random init's seed is
+        `init_seed(index)`). Returns the outputs on the device. Overridable
+        seam."""
+        exe = self._executable_for(bucket, tokens.shape[0])
+        with self._counter_lock:
+            self._batch_counter += 1
+            index = self._batch_counter
+        return exe(tokens, mask, msa, msa_mask, seed=self.init_seed(index))
+
+    def init_seed(self, index: int) -> int:
+        """The random MDS init's seed for device call `index`: fold_in(seed,
+        index), as the JAX engine folds the index into PRNGKey(seed)."""
+        return fold_in(self.cfg.seed, index)
 
     def _realize(self, out):
         """Wait for a call's outputs and bring them to the host as numpy.

@@ -16,6 +16,15 @@ call, on static buffers:
      read), which cannot be captured;
   3. graph two: `classical_embed` and the Guttman steps (`guttman`).
 
+With `mds_init="random"` graph one draws the init in place of the Gram
+matrix (`geometry/mds.py initial_coords`), from the engine's generator on
+the card (a `utils/rng.py Streams`, registered with every graph one), no
+`eigh` runs and graph two starts the Guttman steps from the draw. A call
+takes the init's seed (the engine's (seed, dispatch index)) and reseeds
+the generator under the pool's lock, just before the replays: the draw is
+the one the eager `predict_structure` makes from a generator on the card
+seeded alike.
+
 Those are the functions `predict_structure` runs, on the same values, so
 a replay gives the eager request's outputs bit for bit. A call copies the
 inputs into the static buffers, replays, and clones the outputs out of the
@@ -35,13 +44,19 @@ recorded (`launches`), and `replays` how often it ran. On the CPU an
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
 import numpy as np
 import torch
 
-from alphafold2_tpu_torch.geometry.mds import classical_embed, classical_gram, guttman
+from alphafold2_tpu_torch.geometry.mds import (
+    classical_embed,
+    classical_gram,
+    guttman,
+    initial_coords,
+)
 from alphafold2_tpu_torch.models.alphafold2 import alphafold2_apply
 from alphafold2_tpu_torch.serving.pipeline import distogram_geometry, predict_structure
 from alphafold2_tpu_torch.utils.graphs import capture_error, launch_counts, launches_between
@@ -58,22 +73,35 @@ class GraphPool:
         self.lock = threading.Lock()
 
 
+def _init_generator(streams, mds_init: str, seed):
+    """The random init's generator, its streams seeded by `seed` (None for
+    the classical init)."""
+    if mds_init != "random":
+        return None
+    if seed is None:
+        raise ValueError("mds_init='random': a call needs the init's seed")
+    streams.set_seed(seed)
+    return streams.key().generator()
+
+
 class EagerExecutable:
-    """The CPU's executable: `predict_structure` on the padded batch
-    (`generator`: the random MDS init's draws, in call order)."""
+    """The CPU's executable: `predict_structure` on the padded batch; with
+    the random init, drawn from `streams`' generator seeded by the call's
+    `seed`."""
 
     def __init__(self, params, cfg, *, mds_iters: int, mds_init: str, device,
-                 generator=None):
+                 streams=None):
         self.params, self.cfg, self.device = params, cfg, device
-        self.mds_iters, self.mds_init, self.generator = mds_iters, mds_init, generator
+        self.mds_iters, self.mds_init, self.streams = mds_iters, mds_init, streams
         self.seconds = 0.0
         self.launches = {}
         self.replays = 0
 
-    def __call__(self, tokens, mask, msa=None, msa_mask=None):
+    def __call__(self, tokens, mask, msa=None, msa_mask=None, *, seed=None):
         out = predict_structure(self.params, self.cfg, tokens, mask=mask, msa=msa,
                                 msa_mask=msa_mask, mds_iters=self.mds_iters,
-                                mds_init=self.mds_init, generator=self.generator,
+                                mds_init=self.mds_init,
+                                generator=_init_generator(self.streams, self.mds_init, seed),
                                 device=self.device)
         self.replays += 1
         return {k: out[k] for k in OUTPUTS}
@@ -85,13 +113,17 @@ class CapturedExecutable:
     batch) replays it and returns device tensors coords (b, L, 3),
     confidence (b, L) and stress (b,), cloned out of the graphs' memory.
     `logits` holds the last call's distogram logits until the next replay
-    of any graph of the pool. Capture raises `CaptureError` naming the op
-    it could not capture; nothing falls back to eager."""
+    of any graph of the pool. With mds_init="random" a call takes the
+    init's `seed` and `streams` (the engine's, on the card) holds its
+    generator. Capture raises `CaptureError` naming the op it could not
+    capture; nothing falls back to eager."""
 
     def __init__(self, params, cfg, *, batch: int, bucket: int, msa_rows: int,
-                 mds_iters: int, device, pool: GraphPool):
+                 mds_iters: int, device, pool: GraphPool, mds_init: str = "classical",
+                 streams=None):
         self.params, self.cfg, self.device, self.pool = params, cfg, device, pool
-        self.mds_iters = mds_iters
+        self.mds_iters, self.mds_init, self.streams = mds_iters, mds_init, streams
+        self.random = mds_init == "random"
         self.replays = 0
         t0 = time.perf_counter()
         with pool.lock, torch.inference_mode():
@@ -110,16 +142,20 @@ class CapturedExecutable:
                 # the warm-up builds and loads the kernels, the sparse block
                 # tables and the thresholds on the card, and cuBLAS's state,
                 # none of which a capture may do
-                self.geo, self.gram = self._front()
+                if self.random:
+                    streams.set_seed(streams.seed)  # the passes counted from 0
+                self.geo, self.start = self._front()
                 self._eigh()
                 self.out = self._back()
                 torch.cuda.synchronize(device)
                 before = launch_counts()
                 self.graphs = (torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph())
-                self.geo = self.gram = self.out = None
+                self.geo = self.start = self.out = None
                 try:
-                    with torch.cuda.graph(self.graphs[0], pool=pool.handle, stream=stream):
-                        self.geo, self.gram = self._front()
+                    with (streams.capturing(self.graphs[0]) if self.random
+                          else contextlib.nullcontext()), \
+                            torch.cuda.graph(self.graphs[0], pool=pool.handle, stream=stream):
+                        self.geo, self.start = self._front()
                 except RuntimeError as e:
                     raise capture_error(
                         f"the forward and the distogram geometry (bucket {bucket}, "
@@ -137,13 +173,20 @@ class CapturedExecutable:
         self.seconds = time.perf_counter() - t0
 
     def _front(self):
+        """Graph one: the geometry, and the MDS start's input: the classical
+        init's Gram matrix, or the random init itself."""
         logits = alphafold2_apply(self.params, self.cfg, self.tokens, self.msa, mask=self.mask,
                                   msa_mask=self.msa_mask, device=self.device)
         geo = distogram_geometry(logits, self.mask)
+        if self.random:
+            return geo, initial_coords(geo["distances"], "random",
+                                       self.streams.key().generator())
         return geo, classical_gram(geo["distances"])
 
     def _eigh(self):
-        evals, evecs = torch.linalg.eigh(self.gram)
+        if self.random:
+            return
+        evals, evecs = torch.linalg.eigh(self.start)
         if self.evals is None:
             # static buffers in eigh's own (column-major) layout: the
             # Guttman products' cuBLAS call, and so its bits, follow the
@@ -153,7 +196,7 @@ class CapturedExecutable:
         self.evecs.copy_(evecs)
 
     def _back(self):
-        coords = classical_embed(self.evals, self.evecs)
+        coords = self.start if self.random else classical_embed(self.evals, self.evecs)
         coords, stresses, _ = guttman(self.geo["distances"], self.geo["weights"], coords,
                                       self.mds_iters, tol=float("-inf"))  # as the pipeline
         return {"coords": coords.transpose(1, 2), "confidence": self.geo["confidence"],
@@ -163,8 +206,11 @@ class CapturedExecutable:
     def logits(self):
         return self.geo["distogram_logits"]
 
-    def __call__(self, tokens, mask, msa=None, msa_mask=None):
+    def __call__(self, tokens, mask, msa=None, msa_mask=None, *, seed=None):
         with self.pool.lock, torch.inference_mode():
+            # the reseed and the replays are one step under the lock: a
+            # replay's prologue reads the seed
+            _init_generator(self.streams, self.mds_init, seed)
             self.tokens.copy_(torch.from_numpy(np.asarray(tokens)))
             self.mask.copy_(torch.from_numpy(np.asarray(mask)))
             if self.msa is not None:

@@ -11,7 +11,8 @@ graphs (serving/executable.py) run the same functions on the same tensors,
 so both give the same values bit for bit: the forward and
 `distogram_geometry` (graph one), the classical init's eigen
 decomposition (`eigh`, eager between the graphs), then `classical_embed`
-and `guttman` (graph two).
+and `guttman` (graph two); with the random init, the draw (`initial_coords`
+from a generator on the card) in graph one and no `eigh`.
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ def predict_structure(params, cfg, tokens, *, mask=None, msa=None,
     templates / templates_mask: (b, T, L, L) int buckets or float distances
     in Angstroms, and bool (the template tower, `alphafold2_apply`).
     mds_iters / mds_init: the MDS iteration budget (always run in full)
-    and its start; `generator` seeds the random init. Runs on `device`
+    and its start; `generator` seeds the random init (a generator on the
+    run's device draws there, a CPU generator on the host). Runs on `device`
     (default CUDA; device="cpu" for the CPU), where the params must lie.
 
     model_apply_fn: a forward override with `alphafold2_apply`'s keyword

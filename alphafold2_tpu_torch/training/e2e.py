@@ -39,6 +39,7 @@ from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.models.refiner import RefinerConfig, refiner_apply, refiner_init
 from alphafold2_tpu_torch.ops.quant import reject_quant_training
 from alphafold2_tpu_torch.training.harness import TrainConfig, train_state
+from alphafold2_tpu_torch.utils.rng import Key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,16 +153,20 @@ def e2e_params_init(ecfg: E2EConfig, generator: torch.Generator, device):
     }
 
 
-def mds_generator(ecfg: E2EConfig, rng: Optional[torch.Generator]) -> torch.Generator:
+def mds_generator(ecfg: E2EConfig, rng) -> torch.Generator:
     """The random MDS init's CPU generator for one microbatch. Without rng it
     is seeded 0 (JAX's `PRNGKey(0)`); with rng, and `mds_init="random"`, it
     is seeded by one draw from rng in [0, 2^63 - 1), taken before the trunk
-    draws its dropout seeds, so each microbatch of a step gets its own. The
-    classical init draws nothing (rng's stream is predict_structure's).
-    JAX splits its key instead, so the port's random inits are not JAX's
-    draws: a parity check hands both packages the same start."""
+    seeds its dropout streams, or, when rng is a utils/rng.py Key (the
+    train step's microbatch position), by the seed of rng.fold_in("mds"),
+    so each microbatch of a step gets its own. The classical init draws
+    nothing (rng's stream is predict_structure's). JAX splits its key
+    instead, so the port's random inits are not JAX's draws: a parity check
+    hands both packages the same start."""
     if rng is None or ecfg.mds_init != "random":
         return torch.Generator().manual_seed(0)
+    if isinstance(rng, Key):
+        return torch.Generator().manual_seed(rng.fold_in("mds").seed)
     seed = int(torch.randint(0, 2 ** 63 - 1, (), generator=rng))
     return torch.Generator().manual_seed(seed)
 

@@ -35,16 +35,24 @@ one does: its Function's backward, with the nested `torch.autograd.grad`
 of each recomputed block, runs inside the one graph and reads nothing
 from the host.
 
-Dropout: each trunk layer (each block of a reversible layer) seeds a
-fresh generator on the card from a seed drawn on the host
-(models/trunk.py, models/reversible.py), which a graph would freeze, and
-the remat or reversible recompute must draw the forward's masks again
-inside the same graph, so a step with live dropout raises naming ROADMAP
-A6-dropout.
+Dropout: the step owns a `utils/rng.py Streams` on the card, whose
+generators sit at the step's positions (microbatch, "trunk", layer), a
+reversible layer's blocks one level deeper, and the template tower's
+layers at (microbatch, "tower", layer); a remat or reversible recompute
+takes its position's second pass. A step with live dropout (a rate above
+0 and an rng) is captured with every generator registered with its graph
+(`Streams.capturing`); a call turns its rng into the streams' seed with
+one draw on the host (`seed_from`, what the eager step draws) and reseeds
+them, and the replay draws fresh masks from the seed: the eager step's
+bits for the same rng. A step called without an rng is captured apart,
+without dropout (eval mode). A generator the warm-up did not make, or a
+PyTorch whose graphs cannot register one, raises: no replay freezes its
+masks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable
@@ -60,7 +68,9 @@ from alphafold2_tpu_torch.training.harness import (
     distogram_loss_fn,
     step_body,
 )
+from alphafold2_tpu_torch.models.trunk import dropout_live
 from alphafold2_tpu_torch.utils.graphs import capture_error, launch_counts, launches_between
+from alphafold2_tpu_torch.utils.rng import Streams, seed_from
 
 
 def _signature(batch) -> tuple:
@@ -84,10 +94,12 @@ class CapturedTrainStep:
     """`train_step(state, batch, rng=None) -> (state, metrics)` on the card,
     as `make_train_step` gives it, for `state` (built on CUDA with
     `train_state` / `train_state_init`). The step for `example_batch`'s
-    shape is captured at construction; a batch of another shape is
-    captured at its first call. metrics are 0-d device tensors cloned out
-    of the graph's memory. The CPU raises ValueError: there the eager
-    `make_train_step` is the step."""
+    shape is captured at construction, with dropout when the config has a
+    dropout rate (the step then wants an rng: a CPU generator, one draw a
+    call); a batch of another shape, or a call with dropout set apart
+    (rng None), is captured at its first call. metrics are 0-d device
+    tensors cloned out of the graph's memory. The CPU raises ValueError:
+    there the eager `make_train_step` is the step."""
 
     def __init__(self, cfg: Alphafold2Config, tcfg: TrainConfig, state, example_batch,
                  loss_fn: Callable[..., Any] = distogram_loss_fn):
@@ -107,15 +119,19 @@ class CapturedTrainStep:
         self.cfg, self.tcfg, self.state, self.loss_fn = cfg, tcfg, state, loss_fn
         self.device = device
         self.pool = torch.cuda.graph_pool_handle()  # one pool for every shape's graph
+        self.streams = Streams(device)  # dropout's generators, registered with each graph
         self.captures = {}
-        self._capture(example_batch)
+        self._capture(example_batch, cfg.attn_dropout > 0.0 or cfg.ff_dropout > 0.0)
 
     def _load(self, static, batch) -> None:
         for k, v in batch.items():
             static[k].copy_(torch.as_tensor(v))
 
-    def _capture(self, batch) -> _Capture:
+    def _capture(self, batch, live: bool) -> _Capture:
+        """Capture the step for `batch`'s shape, with dropout drawn from
+        the streams when `live`."""
         check_microbatches(batch, self.tcfg)
+        key = self.streams.key() if live else None
         t0 = time.perf_counter()
         opt = self.state["optimizer"]
         static = {k: torch.empty(t.shape, dtype=t.dtype, device=self.device)
@@ -129,7 +145,8 @@ class CapturedTrainStep:
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
             opt.set_lr(self.state["step"])
-            step_body(self.state, self.cfg, static, self.loss_fn, None, self.device)
+            self.streams.set_seed(self.streams.seed)  # the passes counted from 0
+            step_body(self.state, self.cfg, static, self.loss_fn, key, self.device)
             with torch.no_grad():  # the warm-up's update undone
                 for p, saved in zip(opt.leaves, params):
                     p.copy_(saved)
@@ -143,9 +160,10 @@ class CapturedTrainStep:
             before = launch_counts()
             graph = torch.cuda.CUDAGraph()
             try:
-                with torch.cuda.graph(graph, pool=self.pool, stream=stream):
+                with (self.streams.capturing(graph) if live else contextlib.nullcontext()), \
+                        torch.cuda.graph(graph, pool=self.pool, stream=stream):
                     loss, grad_norm = step_body(self.state, self.cfg, static, self.loss_fn,
-                                                None, self.device)
+                                                key, self.device)
             except RuntimeError as e:
                 shapes = {k: tuple(v.shape) for k, v in static.items()}
                 raise capture_error(f"the train step (batch {shapes})", e) from e
@@ -153,22 +171,19 @@ class CapturedTrainStep:
         torch.cuda.current_stream(self.device).wait_stream(stream)
         capture = _Capture(graph, static, loss, grad_norm, time.perf_counter() - t0,
                            launches_between(before, after))
-        self.captures[_signature(batch)] = capture
+        self.captures[(_signature(batch), live)] = capture
         return capture
 
     def __call__(self, state, batch, rng=None):
         if state is not self.state:
             raise ValueError("CapturedTrainStep: called with another state than it captured")
-        if rng is not None and (self.cfg.attn_dropout > 0.0 or self.cfg.ff_dropout > 0.0):
-            raise NotImplementedError(
-                f"CapturedTrainStep: dropout (attn {self.cfg.attn_dropout}, ff "
-                f"{self.cfg.ff_dropout}) with an rng: each layer's masks come from a generator "
-                f"seeded on the host, which a CUDA graph would freeze; not ported yet (ROADMAP "
-                f"A6-dropout). make_train_step runs it eagerly")
         check_microbatches(batch, self.tcfg)
-        capture = self.captures.get(_signature(batch)) or self._capture(batch)
+        live = dropout_live(self.cfg, rng)
+        capture = self.captures.get((_signature(batch), live)) or self._capture(batch, live)
         self._load(capture.batch, batch)
         state["optimizer"].set_lr(state["step"])
+        if live:
+            self.streams.set_seed(seed_from(rng))  # read by the replay's prologue
         capture.graph.replay()
         capture.replays += 1
         state["step"] += 1

@@ -27,7 +27,12 @@ geometry reads the host: it runs eagerly on the card too):
     `capturable` and its lr a device tensor, filled before each step, so a
     graph can hold the update; the CPU keeps a float lr (the same
     function, computed in double on the host);
-  * the batch is copied to the device once a step, before the loop.
+  * the batch is copied to the device once a step, before the loop;
+  * dropout: the step's rng (a CPU generator, or a utils/rng.py Key)
+    becomes a Key, and microbatch i draws at key.fold_in(i), JAX's
+    `fold_in(rng, i)` (alphafold2_tpu/training/harness.py:171): the eager
+    step makes new streams from one draw of the rng, the captured step
+    reseeds its registered ones with the same draw.
 
 `with_fault_injection` wraps a step with the chaos hooks; checkpoints
 and recovery are `training/checkpoint.py` and `training/resilience.py`.
@@ -50,6 +55,7 @@ from alphafold2_tpu_torch.training.losses import (
     bucketed_distance_matrix,
     distogram_cross_entropy,
 )
+from alphafold2_tpu_torch.utils.rng import as_key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,16 +258,19 @@ def step_body(state, cfg, batch, loss_fn, rng, device):
     `loss_fn` takes, an Alphafold2Config or an E2EConfig): zero the
     gradient buffers, accumulate each microbatch's gradient into them,
     divide by the count, clip and update. Returns the mean loss and the
-    global norm before clipping (0-d device tensors). The eager step and
-    the captured one run this same sequence of ops."""
+    global norm before clipping (0-d device tensors). rng: the step's
+    dropout position (a Key, a CPU generator or None); microbatch i draws
+    at its fold_in(i). The eager step and the captured one run this same
+    sequence of ops."""
     opt = state["optimizer"]
+    key = as_key(rng, device)
     grads = [p.grad for p in opt.leaves]
     torch._foreach_zero_(grads)
     n = len(next(iter(batch.values())))
     loss_sum = torch.zeros((), dtype=torch.float32, device=device)
     for index in range(n):
         loss = loss_fn(state["params"], cfg, {k: v[index] for k, v in batch.items()},
-                       rng, device)
+                       None if key is None else key.fold_in(index), device)
         loss.backward()
         loss_sum += loss.detach()
     torch._foreach_div_(grads, n)
@@ -275,7 +284,8 @@ def make_train_step(cfg, tcfg: TrainConfig,
     `loss_fn=training/e2e.py e2e_loss_fn` (its train state from
     `e2e_train_state_init`); either may be reversible. batch leaves carry a leading microbatch axis
     of length tcfg.grad_accum;
-    rng is an optional CPU generator for dropout. The state is updated in
+    rng is an optional CPU generator for dropout (one draw seeds the
+    step's streams, `step_body`). The state is updated in
     place and returned; metrics are 0-d tensors on the device: "loss" (the
     microbatch mean) and "grad_norm" (of the mean gradient, before
     clipping). An int8 config is refused (inference-only), and so is a

@@ -267,6 +267,29 @@ each phase prints its seconds):
      (d) `predict --full-atom --bf16` at L = 128 -> `refine` on the card and
          with --device cpu: the PDB parses back with its CA B-factors, its
          bond energy falls, card within 1e-3 A of the CPU;
+  15. live dropout in the captured train step and the random MDS init in
+     the captured engine, drawn from generators on the card registered
+     with the graphs (`utils/rng.py`):
+     (a) train_pre's widths (dim 256, depth 1, heads 8, dim_head 64), bf16,
+         crop 128, accum 2, ff_dropout 0.1: 3 captured steps with three
+         step rngs against 3 eager ones on the card, bit for bit on loss,
+         grad_norm and every param, AdamW moment and count; one batch
+         under two rngs gives two losses; every B1f and B1b launch on
+         wgmma, counted into the kernels line;
+     (b) attn_dropout = ff_dropout = 0.1 with a 20-row MSA, each the same
+         check: remat with remat_policy "dots", branch_parallel, and the
+         reversible step (13c's config, accum 16);
+     (c) `ServingEngine(mds_init="random", cache_capacity=0)` at the
+         served config, buckets 128 / 256: each bucket's captured request
+         against eager `predict_structure` on the card from a generator
+         seeded with the engine's seed for that call, bit for bit; the
+         next call starts from another init; four requests served; every
+         B1f launch on wgmma, counted into the kernels line; f32 at L = 64,
+         the card's init handed to the CPU: phase 4a's tolerances;
+     (d) timings, reported: the captured crop-128 step (accum 16) without
+         dropout, with ff_dropout and with both (the eager ff-dropout step
+         beside it); a captured L = 384 request, random init against
+         classical: ms, launches, busy share;
   5. a `kernels` JSON line (thirteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, B3's forward and its two backward kernels), the card line,
@@ -371,6 +394,7 @@ from alphafold2_tpu_torch.training.harness import (  # noqa: E402
 )
 from alphafold2_tpu_torch.training.resilience import StepGuard, run_resilient  # noqa: E402
 from alphafold2_tpu_torch.utils.flops import train_step_flops  # noqa: E402
+from alphafold2_tpu_torch.utils.rng import Streams, fold_in  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / f32 (no TF32)
@@ -2287,7 +2311,7 @@ def train_pre_config(**fields):
                                       dtype=torch.bfloat16), **fields})
 
 
-def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0, batches=None):
+def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0, batches=None, rngs=None):
     """Train_pre's step captured (`CapturedTrainStep`) against the eager
     step (`make_train_step`) from the same seeded params over the same 3
     batches at crop L (with a `msa_rows`-row MSA when nonzero; or over
@@ -2295,9 +2319,10 @@ def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0, batches=None)
     first batch), with a warmup from lr 0, cosine decay, clipping that acts
     and weight decay: loss and grad_norm every step and every param leaf,
     AdamW moment and count at the end bit for bit (no tolerance: the same
-    ops on the same buffers). `wgmma`: every flash and sparse launch each
-    capture recorded on its wgmma route. Returns (the captured step, its
-    state, the last batch)."""
+    ops on the same buffers). `rngs`: each step's dropout seed (both arms
+    get a CPU generator seeded with it; None: no rng). `wgmma`: every flash
+    and sparse launch each capture recorded on its wgmma route. Returns
+    (the captured step, its state, the last batch)."""
     tcfg = TrainConfig(grad_accum=grad_accum, warmup_steps=1, decay_steps=3, decay_floor=0.1,
                        max_grad_norm=0.05, weight_decay=0.01)
     if batches is None:
@@ -2311,9 +2336,11 @@ def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0, batches=None)
     captured = CapturedTrainStep(cfg, tcfg, cap_state, batches[0])
     capture = next(iter(captured.captures.values()))
     steps = []
-    for batch in batches:
-        _, e = eager(eager_state, batch)
-        _, c = captured(cap_state, batch)
+    for n, batch in enumerate(batches):
+        rng = (lambda: None) if rngs is None else (
+            lambda: torch.Generator().manual_seed(rngs[n]))
+        _, e = eager(eager_state, batch, rng())
+        _, c = captured(cap_state, batch, rng())
         steps.append({"loss": float(c["loss"]), "grad_norm": float(c["grad_norm"]),
                       "loss_equal": torch.equal(e["loss"], c["loss"]),
                       "grad_norm_equal": torch.equal(e["grad_norm"], c["grad_norm"]),
@@ -4463,15 +4490,15 @@ def phase_rev_drift(crop=128, rows=E2E_ROWS):
         fail("the bf16 reversible trunk went non-finite or past its stated bounds (phase 13b)")
 
 
-def captured_ms(step, state, batch, reps=5):
+def captured_ms(step, state, batch, reps=5, make_rng=lambda: None):
     """A captured step's replay: one untimed, then `reps` timed (CUDA
-    events); the median ms."""
-    step(state, batch)
+    events); the median ms. make_rng: each call's rng."""
+    step(state, batch, make_rng())
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        step(state, batch)
+        step(state, batch, make_rng())
         end.record()
         sync()
         times.append(start.elapsed_time(end))
@@ -5075,6 +5102,283 @@ def phase_relax_segmented_buckets():
     return launches
 
 
+# --- phase 15: live dropout in the captured step, the random init in the engine -----
+
+DROPOUT = 0.1  # phase 15's dropout rate
+
+
+def seeded(seed):
+    """A fresh CPU generator seeded with `seed` at each call (a step's rng)."""
+    return lambda: torch.Generator().manual_seed(seed)
+
+
+def two_rngs_differ(captured, state, batch, seeds=(31, 32)):
+    """One batch replayed under two rngs: the two losses (the masks are
+    drawn at each replay, not frozen at capture)."""
+    return [float(captured(state, batch, seeded(s)())[1]["loss"]) for s in seeds]
+
+
+def phase_dropout_step(L=128, accum=2):
+    """(a) train_pre's widths (dim 256, depth 1, heads 8, dim_head 64) in
+    bf16 at crop L, accum 2, ff_dropout 0.1: the captured step against the
+    eager step over 3 steps with three step rngs, bit for bit
+    (`capture_vs_eager`), every B1f and B1b launch on its wgmma route;
+    then one batch replayed under two rngs gives two losses. Returns the
+    launches: the wrappers' counts from a reset just before to just after
+    (the eager steps, the warm-up, the capture) plus the replays' (the
+    capture's launches times its replays)."""
+    cfg = train_pre_config(ff_dropout=DROPOUT)
+    captured, state, batch = capture_vs_eager("ff dropout", cfg, L, accum, wgmma=True,
+                                              rngs=[21, 22, 23])
+    losses = two_rngs_differ(captured, state, batch)
+    sync()
+    launches = launch_counts()
+    for name, n in captured.replayed_launches().items():
+        launches[name] = launches.get(name, 0) + n
+    ok = losses[0] != losses[1] and len(captured.captures) == 1
+    log(f"[dropout a] ff_dropout {DROPOUT}, crop {L}, accum {accum}: one batch under two rngs, "
+        f"losses {losses}; launches {dict((k, n) for k, n in launches.items() if n)} "
+        f"{'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["dropout_step"] = {"L": L, "grad_accum": accum, "config": repr(cfg),
+                                        "two_rng_losses": losses, "launches": launches,
+                                        "ok": ok}
+    if not ok:
+        fail("the captured dropout step replays frozen masks (phase 15a)")
+    return launches
+
+
+def phase_dropout_schedules(L=128, accum=2, rows=20):
+    """(b) attn_dropout = ff_dropout = 0.1 with a 20-row MSA, each captured
+    against eager over 3 steps with three step rngs, bit for bit, and one
+    batch under two rngs giving two losses: remat with remat_policy "dots"
+    and branch_parallel (train_pre's widths, bf16, crop L, accum 2), and
+    the reversible step (13c's config: the same widths, reversible=True,
+    accum 16). Live attention dropout keeps the dense einsum, as in JAX:
+    these steps launch no flash kernel."""
+    both = dict(attn_dropout=DROPOUT, ff_dropout=DROPOUT)
+    results = []
+    for label, cfg, acc in (
+            ("remat dots", train_pre_config(remat=True, remat_policy="dots", **both), accum),
+            ("branch_parallel", train_pre_config(trunk_schedule="branch_parallel", **both),
+             accum),
+            ("reversible", train_pre_config(reversible=True, **both), 16)):
+        captured, state, batch = capture_vs_eager(f"dropout {label}", cfg, L, acc, wgmma=False,
+                                                  msa_rows=rows, rngs=[41, 42, 43])
+        losses = two_rngs_differ(captured, state, batch)
+        launches = next(iter(captured.captures.values())).launches
+        ok = losses[0] != losses[1]
+        log(f"[dropout b] {label}: one batch under two rngs, losses {losses}; captured "
+            f"launches {launches} {'ok' if ok else 'FAIL'}")
+        results.append({"label": label, "config": repr(cfg), "grad_accum": acc,
+                        "two_rng_losses": losses, "captured_launches": launches, "ok": ok})
+        del captured, state
+    RECORD["phases"]["dropout_schedules"] = results
+    if not all(r["ok"] for r in results):
+        fail("a captured dropout step replays frozen masks (phase 15b)")
+
+
+def phase_random_init_engine(rows=ENGINE_ROWS):
+    """(c) `ServingEngine(mds_init="random", cache_capacity=0)` at the served
+    config (bf16), buckets 128 / 256, max_batch 2, 200 MDS iterations: at
+    each bucket a padded batch of two requests through the engine's device
+    call (`_call_executable`, which counts the calls) against eager
+    `predict_structure` on the card from a generator on the card seeded
+    with the engine's seed for that call (`init_seed`), bit for bit on
+    coords, confidence and stress; the same batch again, the next call,
+    starts from another init (other coords); then four requests through
+    `predict`, all finite. Then the f32 served config at bucket 64: the
+    card's init (the draw of the call's generator) handed to the CPU's
+    `predict_structure`, at phase 4a's tolerances. Returns the bf16
+    engine's B1f launches: the wrappers' counts from a reset just before
+    (the warm-ups, the captures, the eager references) plus each
+    executable's captured launches times its replays."""
+    cfg = served_config()
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda")
+    scfg = ServingConfig(buckets=(128, 256), max_batch=2, msa_rows=rows, mds_iters=200,
+                         mds_init="random", cache_capacity=0, seed=7)
+    reset_launches()
+    eng = ServingEngine(params, cfg, scfg)
+    checks = []
+    try:
+        for bucket, lengths in ((128, (128, 90)), (256, (256, 200))):
+            batch = engine_batch(lengths, bucket, seed=bucket)
+            outs = [eng._call_executable(bucket, *batch) for _ in range(2)]
+            index = eng._batch_counter - 1  # the first of the two calls
+            ref = predict_structure(
+                params, cfg, batch[0], mask=batch[1], msa=batch[2], msa_mask=batch[3],
+                mds_iters=200, mds_init="random",
+                generator=torch.Generator("cuda").manual_seed(eng.init_seed(index)),
+                device="cuda")
+            sync()
+            equal = all(torch.equal(outs[0][k], ref[k]) for k in outs[0])
+            other = not torch.equal(outs[0]["coords"], outs[1]["coords"])
+            finite = all(bool(torch.isfinite(v).all()) for o in outs for v in o.values())
+            checks.append({"bucket": bucket, "index": index, "bit_equal": equal,
+                           "next_call_differs": other, "finite": finite})
+        seqs = ["".join(AA_ORDER[(7 * i + j) % 20] for j in range(n))
+                for i, n in enumerate((60, 128, 150, 256))]
+        served = [eng.predict(q, timeout=600) for q in seqs]
+        served_ok = all(np.isfinite(r.coords).all() and np.isfinite(r.stress) for r in served)
+    finally:
+        eng.shutdown()
+    sync()
+    launches = launch_counts()
+    for exe in eng._executables.values():
+        for name, n in exe.launches.items():
+            launches[name] = launches.get(name, 0) + n * exe.replays
+    routes = on_wgmma(launches)
+    f32 = phase_random_init_cpu(rows)
+    ok = (all(c["bit_equal"] and c["next_call_differs"] and c["finite"] for c in checks)
+          and served_ok and routes and len(eng._executables) <= 4 and f32["ok"])
+    log(f"[dropout c] random-init engine: captured vs eager {checks}; 4 requests served, "
+        f"finite {served_ok}; {len(eng._executables)} executables; launches "
+        f"{dict((k, n) for k, n in launches.items() if n)}"
+        f"{', all on wgmma' if routes else ', OFF wgmma'} {'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["random_init_engine"] = {
+        "config": repr(cfg), "checks": checks, "served_finite": served_ok,
+        "executables": len(eng._executables), "launches": launches, "on_wgmma": routes,
+        "cpu_vs_card": f32, "ok": ok}
+    if not ok:
+        fail("the random-init engine's captured request differs from the eager one, its "
+             "init is frozen, or the card disagrees with the CPU (phase 15c)")
+    return launches
+
+
+def phase_random_init_cpu(rows, L=64):
+    """15c's f32 check: the served config in float32, an engine at bucket
+    64 with the random init; its first call's output on the card, and the
+    CPU's `predict_structure` on the same parameters started from the
+    card's init (`geometry.mds.initial_coords` patched in the pipeline to
+    return it): logits 1e-4, confidence 1e-5, stress 1e-3 relative,
+    distances 1e-2 A (phase 4a's)."""
+    cfg = served_config(dtype=torch.float32, max_seq_len=L)
+    params_cpu, params_gpu = (alphafold2_init(cfg, torch.Generator().manual_seed(0), dev)
+                              for dev in ("cpu", "cuda"))
+    eng = ServingEngine(params_gpu, cfg, ServingConfig(
+        buckets=(L,), max_batch=1, msa_rows=rows, mds_iters=200, mds_init="random",
+        cache_capacity=0, seed=7))
+    batch = engine_batch((L,), L, seed=61)
+    try:
+        g = {k: v.cpu() for k, v in eng._call_executable(L, *batch).items()}
+        g["distogram_logits"] = eng._executables[(L, 1)].logits.cpu()
+    finally:
+        eng.shutdown()
+    init = 2.0 * torch.rand((1, L, 3), generator=torch.Generator("cuda").manual_seed(
+        eng.init_seed(1)), device="cuda") - 1.0
+    pipeline = importlib.import_module("alphafold2_tpu_torch.serving.pipeline")
+    original = pipeline.initial_coords
+    pipeline.initial_coords = lambda distances, kind, generator: init.cpu()
+    try:
+        cpu = predict_structure(params_cpu, cfg, batch[0], mask=batch[1], msa=batch[2],
+                                msa_mask=batch[3], mds_iters=200, mds_init="random",
+                                device="cpu")
+    finally:
+        pipeline.initial_coords = original
+    d = {"logits": (g["distogram_logits"] - cpu["distogram_logits"]).abs().max().item(),
+         "confidence": (g["confidence"] - cpu["confidence"]).abs().max().item(),
+         "stress_rel": ((g["stress"] - cpu["stress"]).abs() / cpu["stress"].abs()).max().item(),
+         "distances": (pairwise(g["coords"]) - pairwise(cpu["coords"])).abs().max().item()}
+    ok = (d["logits"] <= 1e-4 and d["confidence"] <= 1e-5 and d["stress_rel"] <= 1e-3
+          and d["distances"] <= 1e-2)
+    log(f"[dropout c] f32 L={L}, the card's random init on both: logits |d|={d['logits']:.2e} "
+        f"(1e-4), confidence |d|={d['confidence']:.2e} (1e-5), stress rel="
+        f"{d['stress_rel']:.2e} (1e-3), distances |d|={d['distances']:.2e} A (1e-2) "
+        f"{'ok' if ok else 'FAIL'}")
+    return {"L": L, **d, "ok": ok}
+
+
+def phase_dropout_timing(L=128, reps=5):
+    """(d) timings, reported with no limit. train_pre's bf16 step (accum 16)
+    at crop L, captured, without dropout, with ff_dropout 0.1 and with
+    attention and feed-forward dropout 0.1 (the dense einsum): median ms of
+    `reps` replays (CUDA events, after one untimed), and the ff-dropout
+    step's eager ms (host clock, median of 3). Then one served request
+    (batch 1, a 20-row MSA, 200 MDS iterations) at L = 384, captured, with
+    the random init against the classical one: request ms on the host clock
+    (mean of `reps`, in turns after a warm-up), the launches the host
+    issued and the device's busy share (torch.profiler)."""
+    tcfg = TrainConfig(grad_accum=16)
+    batch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, seed=11), 16)(0)
+    steps = []
+    for label, fields in (("no dropout", {}), ("ff 0.1", dict(ff_dropout=DROPOUT)),
+                          ("attn+ff 0.1", dict(attn_dropout=DROPOUT, ff_dropout=DROPOUT))):
+        cfg = train_pre_config(**fields)
+        state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+        step = CapturedTrainStep(cfg, tcfg, state, batch)
+        median, times = captured_ms(step, state, batch, reps, make_rng=seeded(5))
+        row = {"label": label, "captured_ms": median, "captured_runs_ms": times,
+               "capture_s": next(iter(step.captures.values())).seconds}
+        del step
+        if label == "ff 0.1":
+            eager = make_train_step(cfg, tcfg, device="cuda")
+            runs = [host_ms(lambda: eager(state, batch, seeded(5)())) for _ in range(3)]
+            row.update(eager_ms=sorted(runs)[1], eager_runs_ms=runs)
+        steps.append(row)
+        del state
+        log(f"[dropout d] crop {L}, accum 16, captured step {label}: {median:.2f} ms "
+            f"(runs {[round(t, 2) for t in times]})"
+            + (f"; eager {row['eager_ms']:.2f} ms" if "eager_ms" in row else ""))
+    cfg = served_config()
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda")
+    pool, streams = GraphPool(), Streams("cuda")
+    exes = {init: CapturedExecutable(params, cfg, batch=1, bucket=384, msa_rows=ENGINE_ROWS,
+                                     mds_iters=200, device=torch.device("cuda", 0), pool=pool,
+                                     mds_init=init, streams=streams)
+            for init in ("classical", "random")}
+    inputs = engine_batch((384,), 384, seed=434)
+    calls = {"n": 0}
+
+    def request(init):
+        calls["n"] += 1
+        out = exes[init](*inputs, seed=fold_in(7, calls["n"]))
+        return {k: v.cpu() for k, v in out.items()}
+
+    arms = {init: functools.partial(request, init) for init in exes}
+    ms = {init: [] for init in exes}
+    for fn in arms.values():
+        fn()
+    for order in [("classical", "random"), ("random", "classical")] * ((reps + 1) // 2):
+        for init in order:
+            t0 = time.perf_counter()
+            arms[init]()
+            ms[init].append((time.perf_counter() - t0) * 1e3)
+    served = {}
+    for init, fn in arms.items():
+        mean = sum(ms[init][:reps]) / reps
+        prof = profile_request(fn)
+        served[init] = {"request_ms": mean, "runs_ms": ms[init][:reps], **prof,
+                        "captured_launches": exes[init].launches,
+                        "busy_share": prof["device_ms"] / mean if prof["device_kernels"]
+                        else None}
+    busy = lambda v: "not measured" if v is None else f"{v:.3f}"  # noqa: E731
+    c, r = served["classical"], served["random"]
+    log(f"[dropout d] L=384 captured request: classical init {c['request_ms']:.2f} ms "
+        f"({c['kernel_launches']} kernel launches, {c['graph_launches']} graph launches, "
+        f"busy {busy(c['busy_share'])}), random init {r['request_ms']:.2f} ms "
+        f"({r['kernel_launches']} kernel launches, {r['graph_launches']} graph launches, "
+        f"busy {busy(r['busy_share'])}); captured B1f launches "
+        f"{c['captured_launches'].get('flash_fwd', 0)} / {r['captured_launches'].get('flash_fwd', 0)}")
+    RECORD["phases"]["dropout_timing"] = {"steps": steps, "served_384": served}
+
+
+def phase_dropout_random_init():
+    """15: live dropout in the captured train step and the random MDS init
+    in the captured engine. Returns (a)'s and (c)'s launches."""
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        RECORD["phases"][f"dropout_{key}_s"] = time.perf_counter() - t
+        log(f"[time] dropout {key}: {RECORD['phases'][f'dropout_{key}_s']:.1f} s")
+        return result
+
+    launches = dict(timed("a", phase_dropout_step))
+    timed("b", phase_dropout_schedules)
+    for name, n in timed("c", phase_random_init_engine).items():
+        launches[name] = launches.get(name, 0) + n
+    timed("d", phase_dropout_timing)
+    return launches
+
+
 # --- phase 5: the kernels line -----------------------------------------------------
 
 
@@ -5109,7 +5413,10 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     its backward from the ring's gradient in f32 and in bf16; phase 12b's
     5 counted e2e steps and phase 13d's 3 counted reversible ones add their
     B1f, dq and dkv launches, and so does phase 14c's bucketed CLI run
-    (each bucket's warm-up and capture))."""
+    (each bucket's warm-up and capture), phase 15a's dropout step (its
+    eager steps, warm-up, capture and replays) and phase 15c's
+    random-init engine (its warm-ups, captures, replays and eager
+    references))."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r
@@ -5252,6 +5559,8 @@ def main():
     for name, n in timed_phase("reversible", phase_reversible).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in timed_phase("relax_segmented_buckets", phase_relax_segmented_buckets).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in timed_phase("dropout_random_init", phase_dropout_random_init).items():
         launches[name] = launches.get(name, 0) + n
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches)

@@ -7,7 +7,7 @@ depth 3, 2 heads of 8; B, N, R, C = 2, 6, 3, 6).
 Tolerances: outputs 1e-5 (the same float32 function, summed in another
 order); gradients 1e-4 of each leaf's largest magnitude. The port's
 `reverse=True` against its own `reverse=False` with live dropout: 1e-5
-(the same masks, drawn from the same per-block seeds). The saved-tensor
+(the same masks, drawn at the same per-block positions). The saved-tensor
 test counts what autograd saves besides the parameters: with
 `reverse=True` it does not grow with depth.
 """
@@ -125,12 +125,12 @@ def test_reverse_matches_plain_autograd_with_dropout():
     for reverse in (True, False):
         tx, tm = x.clone().requires_grad_(True), m.clone().requires_grad_(True)
         loss, _ = _port_loss(layers, cfg, tx, tm, x_mask, msa_mask,
-                             rng=torch.Generator().manual_seed(11), reverse=reverse)
+                             rng=torch.Generator().manual_seed(12), reverse=reverse)
         out[reverse] = (float(loss.detach()),
                         torch.autograd.grad(loss, [tx, tm] + param_leaves(layers)))
     # dropout is live: another seed gives another loss
     other, _ = _port_loss(layers, cfg, x, m, x_mask, msa_mask,
-                          rng=torch.Generator().manual_seed(12))
+                          rng=torch.Generator().manual_seed(11))
     assert abs(float(other.detach()) - out[True][0]) > 1e-3
     assert abs(out[True][0] - out[False][0]) <= 1e-5 * abs(out[False][0])
     for a, b in zip(out[True][1], out[False][1]):

@@ -634,18 +634,19 @@ def test_captured_stages_compose_to_predict_structure_on_the_cpu(tiny_params):
     msa_mask = np.broadcast_to(mask[:, None], msa.shape).copy()
     exe = object.__new__(CapturedExecutable)  # the stages without a capture
     exe.params, exe.cfg, exe.device, exe.mds_iters = tiny_params, TINY, torch.device("cpu"), 6
+    exe.random = False  # the classical init
     with torch.inference_mode():
         exe.tokens, exe.mask = torch.from_numpy(tokens).long(), torch.from_numpy(mask)
         exe.msa, exe.msa_mask = torch.from_numpy(msa).long(), torch.from_numpy(msa_mask)
         exe.evals = exe.evecs = None
-        exe.geo, exe.gram = exe._front()
+        exe.geo, exe.start = exe._front()
         exe._eigh()
         got = dict(exe._back(), distogram_logits=exe.logits)
     ref = predict_structure(tiny_params, TINY, tokens, mask=mask, msa=msa, msa_mask=msa_mask,
                             mds_iters=6, device="cpu")
     for k, v in got.items():
         assert torch.equal(v, ref[k]), k
-    assert exe.evecs.stride() == torch.linalg.eigh(exe.gram)[1].stride()
+    assert exe.evecs.stride() == torch.linalg.eigh(exe.start)[1].stride()
 
 
 def test_msa_configured_engine_serves_with_and_without_msa(tiny_params):
@@ -856,16 +857,6 @@ def test_refused_config_knob_names_its_roadmap_item(fields, item):
 def test_refused_engine_seam_names_its_roadmap_item(seam, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ServingEngine({}, TINY, serving_cfg(), device="cpu", **{seam: object()})
-
-
-def test_random_mds_init_on_cuda_is_refused(monkeypatch):
-    """The random init draws on a CPU generator and copies to the card,
-    which a graph cannot replay: refused on CUDA before anything touches
-    the card (the device check is the only CUDA call, stubbed here)."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11a-random-init"):
-        ServingEngine({}, TINY, serving_cfg(mds_init="random", cache_capacity=0),
-                      device="cuda:0")
 
 
 def test_random_mds_init_serves_on_the_cpu(tiny_params):

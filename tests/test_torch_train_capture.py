@@ -11,11 +11,11 @@ On the card (marked `cuda`, skipped without one): the captured step
 against the eager step from the same params and batches, bit for bit on
 loss, grad_norm and every param after 3 steps (no tolerance: the same
 ops on the same buffers), with remat and a remat_policy too; a second
-batch shape gets a capture of its own; live dropout raises naming
-ROADMAP A6-dropout; train_pre on the card runs the captured step; a
-guarded captured run (a NaN rollback, a crash restored from a checkpoint
-into the graph's tensors) ends bit-equal to a fault-free one without a
-second capture. These import only torch and the port, so they run on a
+batch shape gets a capture of its own (live dropout:
+tests/test_torch_dropout_capture.py); train_pre on the card runs the
+captured step; a guarded captured run (a NaN rollback, a crash restored
+from a checkpoint into the graph's tensors) ends bit-equal to a
+fault-free one without a second capture. These import only torch and the port, so they run on a
 GPU host without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_train_capture.py -q
@@ -148,18 +148,6 @@ def test_each_batch_shape_gets_its_capture(cuda_device):
     assert sorted(c.replays for c in captured.captures.values()) == [1, 2]
     for e, c in metrics:
         assert torch.equal(e["loss"], c["loss"])
-
-
-@pytest.mark.cuda
-def test_captured_step_refuses_live_dropout(cuda_device):
-    cfg = Alphafold2Config(**CARD, attn_dropout=0.1)
-    tt = harness.TrainConfig(grad_accum=1)
-    state = harness.train_state_init(cfg, tt, torch.Generator().manual_seed(0), "cuda")
-    batch = data.synthetic_microbatch_fn(data.DataConfig(max_len=32), 1)(0)
-    step = CapturedTrainStep(cfg, tt, state, batch)
-    step(state, batch)  # no rng: eval mode, no masks to draw
-    with pytest.raises(NotImplementedError, match="A6-dropout"):
-        step(state, batch, torch.Generator().manual_seed(1))
 
 
 @pytest.mark.cuda
