@@ -40,6 +40,10 @@
 //    back to the producer once the stores have read them. (Written from
 //    registers, four bytes of each of eight rows a store instruction, the
 //    stores held every warp's next barrier poll behind them.)
+// With attention dropout (B5 dkv's, `Dropout<true>`, philox.cuh) the
+// elementwise pass draws the forward's keep factors Z (the same bits, from
+// the sequence coordinates of each element): P^T Z feeds dV and dS^T = P^T
+// (dP^T Z - delta).
 // Where its time goes (telemetry/dkv_ablation.py, PERF.md): at L = 256 a
 // 64-query stage takes each warpgroup ~1,700 cycles, issue and elementwise
 // pass about equal, with the tensor cores ~60% busy; a tile adds ~3,200
@@ -56,6 +60,7 @@
 
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
+#include "philox.cuh"
 
 namespace af2::dkv {
 
@@ -93,7 +98,7 @@ struct DkvTile {
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
 };
 
-template <bool BIAS2D, bool LISTED>
+template <bool BIAS2D, bool LISTED, class Drop = Dropout<false>>
 __device__ __forceinline__ void wgmma_dkv(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                           const CUtensorMap& tm_v, const CUtensorMap& tm_g,
                                           const CUtensorMap& tm_bias,  // BIAS2D only
@@ -102,7 +107,8 @@ __device__ __forceinline__ void wgmma_dkv(const CUtensorMap& tm_q, const CUtenso
                                           const float* __restrict__ lse,
                                           const float* __restrict__ delta, const StageList list,
                                           int len_i, int len_j, int n_ktiles, int64_t tiles,
-                                          float scale, float scale_log2) {
+                                          float scale, float scale_log2,
+                                          const Drop drop = Drop{}) {
   static_assert(!(LISTED && BIAS2D), "a listed tile reads the key-side bias");
   using L = DkvTile<BIAS2D>;
   constexpr int S = L::kStages;
@@ -202,6 +208,10 @@ __device__ __forceinline__ void wgmma_dkv(const CUtensorMap& tm_q, const CUtenso
     const int r = 64 * wg + 16 * (warp % 4) + g;
     float s[32], dp[32], dk_acc[32], dv_acc[32];
     uint32_t pa[16], da[16];
+    // attention dropout: the key, the tile's head and first key, the shift
+    // from a chunk c of the tile to its entry (c + shift)
+    const DropKey dkey = drop_key(drop);
+    int drop_bh = 0, drop_k0 = 0, shift = 0;
     // with BIAS2D: the byte offset in a stage's bias boxes of (key r + 8h,
     // query 2t + e); query 8j + 2t + e lies 1024 j bytes further. Box r / 32,
     // row = the query, 16-byte chunk (key % 32) / 4 swizzled with row % 8
@@ -237,13 +247,19 @@ __device__ __forceinline__ void wgmma_dkv(const CUtensorMap& tm_q, const CUtenso
       }
       wgmma_commit();
     };
-    // stage c's elementwise pass, in place: s <- P^T, dp <- dS^T (f32).
-    // Listed, query block j / 2 of the stage is at -inf unless bit j / 2 of
-    // `on` is set
+    // stage c's elementwise pass, in place: s <- P^T, dp <- dS^T (f32), with
+    // dropout s <- P^T Z and dp <- P^T (dP^T Z - delta). Listed, query block
+    // j / 2 of the stage is at -inf unless bit j / 2 of `on` is set
     float kb[2];  // the tile's key bias of keys r, r + 8, log2 units
     auto elementwise = [&](int c, uint32_t on) {
       const float* sc = scalars + (c % S) * 2 * kWQ;
       const uint8_t* b2 = smem + stage(c) + 2 * kQStage;
+      uint64_t keep = 0;
+      if (Drop::kOn) {
+        const int e = c + shift;
+        keep = keep_bits<kWQ / 8, true>(dkey, drop_bh, drop_k0 + r,
+                                        (LISTED ? list.entries[e].x : e) * kWQ + 2 * t);
+      }
 #pragma unroll
       for (int j = 0; j < kWQ / 8; ++j) {
         const float2 l2 = *reinterpret_cast<const float2*>(sc + 8 * j + 2 * t);
@@ -259,8 +275,9 @@ __device__ __forceinline__ void wgmma_dkv(const CUtensorMap& tm_q, const CUtenso
               b = fmaf(*reinterpret_cast<const float*>(b2 + boff[h][e] + 1024 * j), kLog2e, b);
             }
             const float p = ex2(fmaf(s[x], scale_log2, b) - (e ? l2.y : l2.x));
-            s[x] = p;
-            dp[x] = p * (dp[x] - (e ? dl.y : dl.x));
+            const float z = Drop::kOn ? keep_factor(dkey, keep, x) : 1.f;
+            s[x] = Drop::kOn ? p * z : p;
+            dp[x] = p * ((Drop::kOn ? dp[x] * z : dp[x]) - (e ? dl.y : dl.x));
           }
         }
       }
@@ -314,6 +331,11 @@ __device__ __forceinline__ void wgmma_dkv(const CUtensorMap& tm_q, const CUtenso
       const int bh = (int)(tile / n_ktiles);
       const int k0 = (int)(tile % n_ktiles) * kWKeys;
       const int first = e0, count = stages;
+      if (Drop::kOn) {
+        drop_bh = bh;
+        drop_k0 = k0;
+        shift = first - c;
+      }
       const float* const bias_row = key_bias + (int64_t)(LISTED ? bh / list.bias_heads : bh) * len_j;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -401,12 +423,13 @@ __device__ __forceinline__ void wgmma_dkv(const CUtensorMap& tm_q, const CUtenso
 // q, dout (bh, len_i, 64), k, v, dk, dv (bh, len_j, 64), f32 lse and delta
 // (bh, len_i), and the key-side bias (rows of len_j) or with BIAS2D an f32
 // (bh, len_i, len_j) bias: the tensor maps, the shared memory, one block an
-// SM. Returns the CUDA error code.
-template <bool BIAS2D, typename Kernel>
+// SM; `extra` follows the kernel's own arguments (B5 dkv's dropout). Returns
+// the CUDA error code.
+template <bool BIAS2D, typename Kernel, typename... Extra>
 int launch_wgmma_dkv(Kernel kernel, const void* q, const void* k, const void* v, const void* bias,
                      const void* dout, const void* lse, const void* delta, const StageList& list,
                      void* dk, void* dv, int64_t bh, int64_t len_i, int64_t len_j, float scale,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, Extra... extra) {
   using L = DkvTile<BIAS2D>;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
@@ -438,7 +461,7 @@ int launch_wgmma_dkv(Kernel kernel, const void* q, const void* k, const void* v,
   kernel<<<grid, L::kThreads, L::kBytes, stream>>>(
       tm_q, tm_k, tm_v, tm_g, tm_bias, tm_dk, tm_dv, (const float*)bias, (const float*)lse,
       (const float*)delta, list, (int)len_i, (int)len_j, (int)n_ktiles, tiles, scale,
-      scale * kLog2e);
+      scale * kLog2e, extra...);
   return (int)cudaGetLastError();
 }
 

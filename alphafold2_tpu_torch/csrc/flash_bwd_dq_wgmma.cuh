@@ -49,6 +49,9 @@
 // (32 KB) and two stages of 96 KB, and the producer loads a tile's Q/dO
 // after its first stage, so the next tile's first stage streams in while
 // this tile's dq is stored.
+// With attention dropout (B5 dq's, `Dropout<true>`, philox.cuh) dP is
+// multiplied by the forward's keep factors before dS = P (dP - delta): the
+// same bits, drawn from the sequence coordinates of each element.
 // Registers: S, dP, dQ (32 f32 each) and the packed dS (16) a thread; a
 // whole 128-key stage in registers (S and dP 64 each) would not leave the
 // overlap room under the 224 a consumer thread gets.
@@ -62,6 +65,7 @@
 
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
+#include "philox.cuh"
 
 namespace af2::dq {
 
@@ -102,7 +106,7 @@ struct DqTile {
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
 };
 
-template <bool BIAS2D, bool LISTED>
+template <bool BIAS2D, bool LISTED, class Drop = Dropout<false>>
 __device__ __forceinline__ void wgmma_dq(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                          const CUtensorMap& tm_v, const CUtensorMap& tm_g,
                                          const CUtensorMap& tm_bias,   // BIAS2D only
@@ -112,7 +116,8 @@ __device__ __forceinline__ void wgmma_dq(const CUtensorMap& tm_q, const CUtensor
                                          const float* __restrict__ lse,
                                          const float* __restrict__ delta, const StageList list,
                                          int len_i, int len_j, int n_qtiles, int64_t tiles,
-                                         float scale, float scale_log2) {
+                                         float scale, float scale_log2,
+                                         const Drop drop = Drop{}) {
   static_assert(!(LISTED && BIAS2D), "a listed tile reads the key-side bias");
   using L = DqTile<BIAS2D>;
   constexpr int S = L::kStages;
@@ -217,6 +222,10 @@ __device__ __forceinline__ void wgmma_dq(const CUtensorMap& tm_q, const CUtensor
     float s[32], dp[32], dq_acc[32];
     uint32_t da[16];
     float l2[2], dl[2];  // the rows' lse in log2 units (+inf past len_i) and delta
+    // attention dropout: the key, the tile's head and first row, the shift
+    // from a chunk c of the tile to its entry (c + shift)
+    const DropKey dkey = drop_key(drop);
+    int drop_bh = 0, drop_row0 = 0, shift = 0;
     // a warp is done with a stage or a Q buffer; with BIAS2D the storing
     // thread of a warpgroup first waits until its d_bias stores have read
     // the stage's boxes
@@ -243,15 +252,21 @@ __device__ __forceinline__ void wgmma_dq(const CUtensorMap& tm_q, const CUtensor
       }
       wgmma_commit();
     };
-    // half h of stage c's elementwise pass, in place: dp <- dS (f32). Listed,
-    // key block 4h + j / 2 of the stage is at -inf unless its bit of `on`
-    // is set. With BIAS2D the 2-D bias of keys 8j + 2t (+1) of the half,
+    // half h of stage c's elementwise pass, in place: dp <- dS (f32), with
+    // dropout dp times its keep factors first. Listed, key block 4h + j / 2
+    // of the stage is at -inf unless its bit of `on` is set. With BIAS2D the 2-D bias of keys 8j + 2t (+1) of the half,
     // rows r and r + 8, is read from box 2h + j / 4, 16-byte chunk (2 (j %
     // 4) + t / 2) ^ g (row % 8 = g), and dS goes back in its place
     uint8_t* const brows = smem + r * 128 + (t % 2) * 8;
     auto elementwise = [&](int c, int h, uint32_t on) {
       const float* kb = kbias + (c % S) * kWN + h * kWHalf;
       uint8_t* const bb = brows + stage(c) + 2 * kKVStage + 2 * h * kBiasBoxBytes;
+      uint64_t keep = 0;
+      if (Drop::kOn) {
+        const int e = c + shift;
+        keep = keep_bits<kWHalf / 8, false>(
+            dkey, drop_bh, drop_row0 + r, (LISTED ? list.entries[e].x : e) * kWN + h * kWHalf + 2 * t);
+      }
 #pragma unroll
       for (int j = 0; j < kWHalf / 8; ++j) {
         float2 kv = *reinterpret_cast<const float2*>(kb + 8 * j + 2 * t);
@@ -270,7 +285,8 @@ __device__ __forceinline__ void wgmma_dq(const CUtensorMap& tm_q, const CUtensor
           for (int e = 0; e < 2; ++e) {
             const int x = 4 * j + 2 * hh + e;
             const float p = ex2(fmaf(s[x], scale_log2, e ? b.y : b.x) - l2[hh]);
-            dp[x] = p * (dp[x] - dl[hh]);
+            const float dpx = Drop::kOn ? dp[x] * keep_factor(dkey, keep, x) : dp[x];
+            dp[x] = p * (dpx - dl[hh]);
           }
           if (BIAS2D) *at = make_float2(dp[4 * j + 2 * hh], dp[4 * j + 2 * hh + 1]);
         }
@@ -319,6 +335,11 @@ __device__ __forceinline__ void wgmma_dq(const CUtensorMap& tm_q, const CUtensor
       const int bh = (int)(tile / n_qtiles);
       const int row0 = (int)(tile % n_qtiles) * kWRows;
       const int first = e0, count = stages;
+      if (Drop::kOn) {
+        drop_bh = bh;
+        drop_row0 = row0;
+        shift = first - c;
+      }
       // with BIAS2D, d_bias of stage c (the tile's kk-th, unlisted): after
       // every thread's elementwise writes, the warpgroup's rows of its four
       // boxes by TMA stores, one bulk group each of its first thread
@@ -434,12 +455,13 @@ __device__ __forceinline__ void wgmma_dq(const CUtensorMap& tm_q, const CUtensor
 // q, dout, dq (bh, len_i, 64), k, v (bh, len_j, 64), f32 lse and delta (bh,
 // len_i), and the key-side bias (rows of len_j) or with BIAS2D an f32 (bh,
 // len_i, len_j) bias and its d_bias: the tensor maps, the shared memory, one
-// block an SM. Returns the CUDA error code.
-template <bool BIAS2D, typename Kernel>
+// block an SM; `extra` follows the kernel's own arguments (B5 dq's dropout).
+// Returns the CUDA error code.
+template <bool BIAS2D, typename Kernel, typename... Extra>
 int launch_wgmma_dq(Kernel kernel, const void* q, const void* k, const void* v, const void* bias,
                     const void* dout, const void* lse, const void* delta, const StageList& list,
                     void* dq, void* dbias, int64_t bh, int64_t len_i, int64_t len_j, float scale,
-                    cudaStream_t stream) {
+                    cudaStream_t stream, Extra... extra) {
   using L = DqTile<BIAS2D>;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
@@ -472,7 +494,7 @@ int launch_wgmma_dq(Kernel kernel, const void* q, const void* k, const void* v, 
   kernel<<<grid, L::kThreads, L::kBytes, stream>>>(
       tm_q, tm_k, tm_v, tm_g, tm_bias, tm_dbias, tm_dq, (const float*)bias, (const float*)lse,
       (const float*)delta, list, (int)len_i, (int)len_j, (int)n_qtiles, tiles, scale,
-      scale * kLog2e);
+      scale * kLog2e, extra...);
   return (int)cudaGetLastError();
 }
 

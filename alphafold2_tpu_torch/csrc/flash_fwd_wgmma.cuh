@@ -34,6 +34,10 @@
 //  - The epilogue normalizes, applies the gate's sigmoid (the gate fetched
 //    into L2 at the tile's start) to the f32 result and writes out and lse
 //    from registers.
+//  - With attention dropout (B5f's, `Dropout<true>`, philox.cuh) P is
+//    multiplied by its keep factors (0 or 1 / (1 - rate)) once it has
+//    retired, outside the softmax's turn, before its bf16 rounding; the
+//    running sum and lse keep the undropped P.
 // What it computes: s = scale * q.k + bias, the running max and sum in f32
 // (finite sentinel -1e30, so a -inf bias underflows to an exact 0), lse = m
 // + log(l) per row; a row with no unmasked key gets a zero output and lse =
@@ -48,6 +52,7 @@
 
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
+#include "philox.cuh"
 
 namespace af2::fwd {
 
@@ -88,7 +93,7 @@ struct WgmmaTile {
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
 };
 
-template <bool GATED, bool BIAS2D, int CONSUMERS, bool LISTED>
+template <bool GATED, bool BIAS2D, int CONSUMERS, bool LISTED, class Drop = Dropout<false>>
 __device__ __forceinline__ void wgmma_fwd(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                           const CUtensorMap& tm_v,
                                           const CUtensorMap& tm_bias,  // BIAS2D only
@@ -96,7 +101,8 @@ __device__ __forceinline__ void wgmma_fwd(const CUtensorMap& tm_q, const CUtenso
                                           const __nv_bfloat16* __restrict__ gate,
                                           const StageList list, __nv_bfloat16* __restrict__ out,
                                           float* __restrict__ lse, int len_i, int len_j,
-                                          int n_qtiles, int64_t tiles, float scale_log2) {
+                                          int n_qtiles, int64_t tiles, float scale_log2,
+                                          const Drop drop = Drop{}) {
   using L = WgmmaTile<BIAS2D, CONSUMERS>;
   constexpr int S = L::kStages;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -192,6 +198,11 @@ __device__ __forceinline__ void wgmma_fwd(const CUtensorMap& tm_q, const CUtenso
     const int r = 64 * wg + 16 * (warp % 4) + g;
     float s[64], o[32], m[2], l[2];
     uint32_t p[32];
+    // attention dropout: the key, the tile's head and first row, the shift
+    // from a chunk c of the tile to its entry (c + shift), the chunk the
+    // softmax last ran on
+    const DropKey dkey = drop_key(drop);
+    int drop_bh = 0, drop_row0 = 0, shift = 0, soft_c = 0;
     auto release = [&](uint32_t bar) {
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
@@ -214,6 +225,7 @@ __device__ __forceinline__ void wgmma_fwd(const CUtensorMap& tm_q, const CUtenso
     // (short dependency chains: the warp's ex2 stream is the floor)
     float alpha[2];
     auto softmax = [&](int c, uint32_t on) {
+      if (Drop::kOn) soft_c = c;
       const float* kb = kbias + (c % S) * kWN;
       const uint8_t* b2 = smem + stage(c) + 2 * kKVTile;
       float mx[2][4];  // four partial maxima a row: short chains, few registers
@@ -263,8 +275,16 @@ __device__ __forceinline__ void wgmma_fwd(const CUtensorMap& tm_q, const CUtenso
         l[h] = l[h] * alpha[h] + ((sum[h][0] + sum[h][1]) + (sum[h][2] + sum[h][3]));
       }
     };
-    // once the previous P.V has retired: O rescaled, P = S rounded to bf16
+    // once the previous P.V has retired: O rescaled, P = S (with dropout
+    // times its keep factors) rounded to bf16
     auto rescale_pack = [&]() {
+      if (Drop::kOn) {
+        const int e = soft_c + shift;
+        const uint64_t keep = keep_bits<kWN / 8, false>(
+            dkey, drop_bh, drop_row0 + r, (LISTED ? list.entries[e].x : e) * kWN + 2 * t);
+#pragma unroll
+        for (int x = 0; x < 64; ++x) s[x] *= keep_factor(dkey, keep, x);
+      }
 #pragma unroll
       for (int j = 0; j < kWDH / 8; ++j) {
         o[4 * j] *= alpha[0];
@@ -322,6 +342,11 @@ __device__ __forceinline__ void wgmma_fwd(const CUtensorMap& tm_q, const CUtenso
       const int bh = (int)(tile / n_qtiles);
       const int row0 = (int)(tile % n_qtiles) * L::kRows;
       const int first = e0, count = stages;
+      if (Drop::kOn) {
+        drop_bh = bh;
+        drop_row0 = row0;
+        shift = first - c;
+      }
       // the gate's rows (128 bytes each) are fetched into L2 now and read
       // into registers once S is dead, before the last P.V retires
       const __nv_bfloat16* grow[2];
@@ -434,12 +459,13 @@ inline int sm_count(cudaError_t* err) {
 // One launch of `kernel` (a __global__ around wgmma_fwd<.., BIAS2D,
 // CONSUMERS, ..>) on bf16 q (bh, len_i, 64), k and v (bh, len_j, 64), and
 // with BIAS2D an f32 (bh, len_i, len_j) bias: the tensor maps, the shared
-// memory, one block an SM. Returns the CUDA error code.
-template <bool BIAS2D, int CONSUMERS, typename Kernel>
+// memory, one block an SM; `extra` follows the kernel's own arguments (B5f's
+// dropout). Returns the CUDA error code.
+template <bool BIAS2D, int CONSUMERS, typename Kernel, typename... Extra>
 int launch_wgmma_fwd(Kernel kernel, const void* q, const void* k, const void* v,
                      const void* bias, const __nv_bfloat16* gate, const StageList& list,
                      void* out, void* lse, int64_t bh, int64_t len_i, int64_t len_j,
-                     float scale, int sms, cudaStream_t stream) {
+                     float scale, int sms, cudaStream_t stream, Extra... extra) {
   using L = WgmmaTile<BIAS2D, CONSUMERS>;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
@@ -463,7 +489,7 @@ int launch_wgmma_fwd(Kernel kernel, const void* q, const void* k, const void* v,
   const int grid = (int)(tiles < sms ? tiles : sms);
   kernel<<<grid, L::kThreads, L::kBytes, stream>>>(
       tm_q, tm_k, tm_v, tm_bias, (const float*)bias, gate, list, (__nv_bfloat16*)out,
-      (float*)lse, (int)len_i, (int)len_j, (int)n_qtiles, tiles, scale * kLog2e);
+      (float*)lse, (int)len_i, (int)len_j, (int)n_qtiles, tiles, scale * kLog2e, extra...);
   return (int)cudaGetLastError();
 }
 

@@ -25,6 +25,15 @@
 // by construction, alphafold2_tpu/ops/sparse.py:81). One writer per output
 // element, no atomics. The bias is a mask: no cotangent.
 //
+// Attention dropout (every route; JAX's gather version at
+// alphafold2_tpu/ops/sparse.py:156, which its TPU kernel leaves it to): with
+// a seed, each kernel runs its `af2::Dropout<true>` instantiation
+// (philox.cuh), without one the kernel as it was. The forward's P.V takes
+// P Z, Z = keep / (1 - rate) from the seed and the element's (bh, query,
+// key), while l and lse keep the undropped P; the backward redraws Z from
+// the same coordinates: dV = (P Z)^T dO, dS = P (dP Z - delta) with delta =
+// rowsum(dO * O) of the dropped output.
+//
 // What bounds them on an H100: 4 * BH * nnz * bs^2 * dh operations forward
 // and 10 * ... backward (nnz = active (query block, key block) pairs)
 // against q, k, v (and dO, dq, dk, dv) moved once. At the pair-axial shapes
@@ -74,11 +83,15 @@
 #include "flash_bwd_dq_wgmma.cuh"
 #include "flash_fwd_wgmma.cuh"
 #include "mma_bf16.cuh"
+#include "philox.cuh"
 
 namespace {
 
 using af2::copy_async4;
 using af2::cp_async_commit;
+using af2::Dropout;
+using af2::DropKey;
+using af2::keep_factor;
 using af2::cp_async_wait;
 using af2::kPad;
 using af2::load_a;
@@ -159,7 +172,7 @@ __device__ __forceinline__ void stage_rows_f32(float* dst, const float* vec,
   }
 }
 
-template <int DH, int SUB>
+template <int DH, int SUB, bool DROP>
 __global__ void __launch_bounds__(kWarps * 32)
     sparse_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
@@ -170,9 +183,10 @@ __global__ void __launch_bounds__(kWarps * 32)
                            __nv_bfloat16* __restrict__ out,
                            float* __restrict__ lse, int64_t bh_total,
                            int64_t heads, int64_t n_blocks, int64_t width,
-                           int bs, float scale) {
+                           int bs, float scale, const Dropout<DROP> drop) {
   constexpr int kSTiles = SUB / 8;
   constexpr int kOTiles = DH / 8;
+  const DropKey dkey = af2::drop_key(drop);
   __shared__ __align__(16) __nv_bfloat16 ks[2][kRows][DH + kPad];
   __shared__ __align__(16) __nv_bfloat16 vs[2][kRows][DH + kPad];
   __shared__ __align__(16) float bsm[2][kRows];
@@ -261,6 +275,15 @@ __global__ void __launch_bounds__(kWarps * 32)
           l[e >> 1] += s[c][e];
         }
       }
+      if (DROP) {  // P.V takes P times its keep factors; l keeps the undropped sum
+        const int64_t key0 = (int64_t)slots[step / per_block] * bs + step % per_block * SUB;
+        const uint64_t keep = af2::keep_bits<kSTiles, false>(dkey, bh, rows[0], key0 + 2 * t);
+#pragma unroll
+        for (int c = 0; c < kSTiles; ++c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[c][e] *= keep_factor(dkey, keep, 4 * c + e);
+        }
+      }
       mma_ab<DH, SUB>(o, s, vs[buf] + gi * SUB, g, t);  // O += P V, P rounded to bf16
     }
     __syncthreads();  // every warp is done with buffer buf before its reissue
@@ -285,7 +308,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <int DH, int SUB>
+template <int DH, int SUB, bool DROP>
 __global__ void __launch_bounds__(kWarps * 32)
     sparse_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -298,8 +321,9 @@ __global__ void __launch_bounds__(kWarps * 32)
                           const int* __restrict__ counts,
                           __nv_bfloat16* __restrict__ dq, int64_t bh_total,
                           int64_t heads, int64_t n_blocks, int64_t width,
-                          int bs, float scale) {
+                          int bs, float scale, const Dropout<DROP> drop) {
   constexpr int kSTiles = SUB / 8;
+  const DropKey dkey = af2::drop_key(drop);
   __shared__ __align__(16) __nv_bfloat16 ks[2][kRows][DH + kPad];
   __shared__ __align__(16) __nv_bfloat16 vs[2][kRows][DH + kPad];
   __shared__ __align__(16) float bsm[2][kRows];
@@ -359,6 +383,11 @@ __global__ void __launch_bounds__(kWarps * 32)
       float ds[kSTiles][4];
       mma_abt<DH, kSTiles>(s, qa, ks[buf] + gi * SUB, g, t);
       mma_abt<DH, kSTiles>(ds, ga, vs[buf] + gi * SUB, g, t);  // dP = dO V^T
+      uint64_t keep = 0;
+      if (DROP) {
+        const int64_t key0 = (int64_t)slots[step / per_block] * bs + step % per_block * SUB;
+        keep = af2::keep_bits<kSTiles, false>(dkey, bh, rows[0], key0 + 2 * t);
+      }
 #pragma unroll
       for (int c = 0; c < kSTiles; ++c) {
 #pragma unroll
@@ -366,7 +395,8 @@ __global__ void __launch_bounds__(kWarps * 32)
           const int h = e >> 1;
           const float b = bsm[buf][gi * SUB + c * 8 + 2 * t + (e & 1)];
           const float p = expf(s[c][e] * scale + b - row_lse[h]);
-          ds[c][e] = p * (ds[c][e] - row_delta[h]);
+          const float dp = DROP ? ds[c][e] * keep_factor(dkey, keep, 4 * c + e) : ds[c][e];
+          ds[c][e] = p * (dp - row_delta[h]);
         }
       }
       mma_ab<DH, SUB>(acc, ds, ks[buf] + gi * SUB, g, t);  // dQ += dS K
@@ -377,7 +407,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   store_rows<DH>(dq + bh * n * DH, acc, rows, valid, t, scale);
 }
 
-template <int DH, int SUB>
+template <int DH, int SUB, bool DROP>
 __global__ void __launch_bounds__(kWarps * 32)
     sparse_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
@@ -391,8 +421,9 @@ __global__ void __launch_bounds__(kWarps * 32)
                            __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv, int64_t bh_total,
                            int64_t heads, int64_t n_blocks, int64_t width,
-                           int bs, float scale) {
+                           int bs, float scale, const Dropout<DROP> drop) {
   constexpr int kSTiles = SUB / 8;
+  const DropKey dkey = af2::drop_key(drop);
   __shared__ __align__(16) __nv_bfloat16 qs[2][kRows][DH + kPad];
   __shared__ __align__(16) __nv_bfloat16 gs[2][kRows][DH + kPad];
   __shared__ __align__(16) float ls[2][kRows];
@@ -460,14 +491,21 @@ __global__ void __launch_bounds__(kWarps * 32)
       float ds[kSTiles][4];
       mma_abt<DH, kSTiles>(p, ka, qs[buf] + gi * SUB, g, t);   // S^T = K Q^T
       mma_abt<DH, kSTiles>(ds, va, gs[buf] + gi * SUB, g, t);  // dP^T = V dO^T
+      uint64_t keep = 0;
+      if (DROP) {
+        const int64_t q0 = (int64_t)slots[step / per_block] * bs + step % per_block * SUB;
+        keep = af2::keep_bits<kSTiles, true>(dkey, bh, keys[0], q0 + 2 * t);
+      }
 #pragma unroll
       for (int c = 0; c < kSTiles; ++c) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1;
           const int col = gi * SUB + c * 8 + 2 * t + (e & 1);
-          p[c][e] = expf(p[c][e] * scale + key_bias[h] - ls[buf][col]);
-          ds[c][e] = p[c][e] * (ds[c][e] - dls[buf][col]);
+          const float pe = expf(p[c][e] * scale + key_bias[h] - ls[buf][col]);
+          const float z = DROP ? keep_factor(dkey, keep, 4 * c + e) : 1.f;
+          ds[c][e] = pe * ((DROP ? ds[c][e] * z : ds[c][e]) - dls[buf][col]);
+          p[c][e] = DROP ? pe * z : pe;  // dV takes P^T times the keep factors
         }
       }
       mma_ab<DH, SUB>(dv_acc, p, gs[buf] + gi * SUB, g, t);   // dV += P^T dO
@@ -497,7 +535,7 @@ constexpr int kLBs = 16;  // the route's block size
 using af2::StageList;
 using af2::fwd::WgmmaTile;
 
-template <int CONSUMERS>
+template <int CONSUMERS, bool DROP>
 __global__ void __launch_bounds__(WgmmaTile<false, CONSUMERS>::kThreads, 1)
     sparse_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
@@ -506,10 +544,10 @@ __global__ void __launch_bounds__(WgmmaTile<false, CONSUMERS>::kThreads, 1)
                             const float* __restrict__ key_bias, const __nv_bfloat16* gate,
                             const StageList list, __nv_bfloat16* __restrict__ out,
                             float* __restrict__ lse, int len_i, int len_j, int n_qtiles,
-                            int64_t tiles, float scale_log2) {
+                            int64_t tiles, float scale_log2, const Dropout<DROP> drop) {
   af2::fwd::wgmma_fwd<false, false, CONSUMERS, true>(tm_q, tm_k, tm_v, tm_bias, key_bias, gate,
                                                      list, out, lse, len_i, len_j, n_qtiles,
-                                                     tiles, scale_log2);
+                                                     tiles, scale_log2, drop);
 }
 
 // --- bf16, dh 64, bs 16: the backward's wgmma routes -------------------------
@@ -532,6 +570,7 @@ __global__ void __launch_bounds__(WgmmaTile<false, CONSUMERS>::kThreads, 1)
 using af2::dkv::DkvTile;
 using af2::dq::DqTile;
 
+template <bool DROP>
 __global__ void __launch_bounds__(DkvTile<false>::kThreads, 1)
     sparse_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
@@ -543,11 +582,13 @@ __global__ void __launch_bounds__(DkvTile<false>::kThreads, 1)
                             const float* __restrict__ key_bias, const float* __restrict__ lse,
                             const float* __restrict__ delta, const StageList list, int len_i,
                             int len_j, int n_ktiles, int64_t tiles, float scale,
-                            float scale_log2) {
+                            float scale_log2, const Dropout<DROP> drop) {
   af2::dkv::wgmma_dkv<false, true>(tm_q, tm_k, tm_v, tm_g, tm_bias, tm_dk, tm_dv, key_bias, lse,
-                                   delta, list, len_i, len_j, n_ktiles, tiles, scale, scale_log2);
+                                   delta, list, len_i, len_j, n_ktiles, tiles, scale, scale_log2,
+                                   drop);
 }
 
+template <bool DROP>
 __global__ void __launch_bounds__(DqTile<false>::kThreads, 1)
     sparse_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -559,9 +600,10 @@ __global__ void __launch_bounds__(DqTile<false>::kThreads, 1)
                            const float* __restrict__ key_bias, const float* __restrict__ lse,
                            const float* __restrict__ delta, const StageList list, int len_i,
                            int len_j, int n_qtiles, int64_t tiles, float scale,
-                           float scale_log2) {
+                           float scale_log2, const Dropout<DROP> drop) {
   af2::dq::wgmma_dq<false, true>(tm_q, tm_k, tm_v, tm_g, tm_bias, tm_dbias, tm_dq, key_bias, lse,
-                                 delta, list, len_i, len_j, n_qtiles, tiles, scale, scale_log2);
+                                 delta, list, len_i, len_j, n_qtiles, tiles, scale, scale_log2,
+                                 drop);
 }
 
 // --- f32: CUDA cores -------------------------------------------------------
@@ -585,14 +627,15 @@ __device__ __forceinline__ void stage_heads_f32(float (*dst)[S], const float* sr
   }
 }
 
-template <int DH>
+template <int DH, bool DROP>
 __global__ void __launch_bounds__(kRowsF32)
     sparse_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ bias,
                           const int* __restrict__ idx, const int* __restrict__ counts,
                           float* __restrict__ out, float* __restrict__ lse,
                           int64_t bh_total, int64_t heads, int64_t n_blocks,
-                          int64_t width, int bs, float scale) {
+                          int64_t width, int bs, float scale, const Dropout<DROP> drop) {
+  const DropKey dkey = af2::drop_key(drop);
   __shared__ float ks[kRowsF32][DH];
   __shared__ float vs[kRowsF32][DH];
   __shared__ float bsm[kRowsF32];
@@ -603,7 +646,8 @@ __global__ void __launch_bounds__(kRowsF32)
   const int64_t bh = geo.bh0 + gi;
   const bool live = bh < bh_total;
   const int64_t n = n_blocks * bs;
-  const int64_t qrow = bh * n + geo.blk * bs + geo.first + tid % geo.span;
+  const int64_t qi = geo.blk * bs + geo.first + tid % geo.span;  // the query
+  const int64_t qrow = bh * n + qi;
 
   float qr[DH];
   float acc[DH];
@@ -647,12 +691,14 @@ __global__ void __launch_bounds__(kRowsF32)
       l *= alpha;
 #pragma unroll
       for (int d = 0; d < DH; ++d) acc[d] *= alpha;
+      const uint32_t keep = DROP ? af2::keep_bits16<false>(dkey, bh, qi, key0) : 0u;
 #pragma unroll
       for (int c = 0; c < kSubF32; ++c) {
         const float p = expf(s[c] - m_new);
-        l += p;
+        l += p;  // the undropped sum; P.V takes P times its keep factor
+        const float pv = DROP ? p * keep_factor(dkey, keep, c) : p;
 #pragma unroll
-        for (int d = 0; d < DH; ++d) acc[d] = fmaf(p, vs[r0 + c][d], acc[d]);
+        for (int d = 0; d < DH; ++d) acc[d] = fmaf(pv, vs[r0 + c][d], acc[d]);
       }
       m = m_new;
     }
@@ -663,7 +709,7 @@ __global__ void __launch_bounds__(kRowsF32)
   lse[qrow] = l > 0.f ? m + logf(l) : INFINITY;
 }
 
-template <int DH>
+template <int DH, bool DROP>
 __global__ void __launch_bounds__(kRowsF32)
     sparse_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ bias,
@@ -671,7 +717,8 @@ __global__ void __launch_bounds__(kRowsF32)
                          const float* __restrict__ delta, const int* __restrict__ idx,
                          const int* __restrict__ counts, float* __restrict__ dq,
                          int64_t bh_total, int64_t heads, int64_t n_blocks,
-                         int64_t width, int bs, float scale) {
+                         int64_t width, int bs, float scale, const Dropout<DROP> drop) {
+  const DropKey dkey = af2::drop_key(drop);
   __shared__ float qo[kRowsF32][DH + 1];  // owned rows, one per thread
   __shared__ float go[kRowsF32][DH + 1];
   __shared__ float ks[kRowsF32][DH];
@@ -684,7 +731,8 @@ __global__ void __launch_bounds__(kRowsF32)
   const int64_t bh = geo.bh0 + gi;
   const bool live = bh < bh_total;
   const int64_t n = n_blocks * bs;
-  const int64_t qrow = bh * n + geo.blk * bs + geo.first + tid % geo.span;
+  const int64_t qi = geo.blk * bs + geo.first + tid % geo.span;  // the query
+  const int64_t qrow = bh * n + qi;
 #pragma unroll
   for (int d = 0; d < DH; ++d) {
     qo[tid][d] = live ? q[qrow * DH + d] : 0.f;
@@ -712,6 +760,7 @@ __global__ void __launch_bounds__(kRowsF32)
       __syncthreads();
       if (!live) continue;
       const int r0 = gi * kSubF32;
+      const uint32_t keep = DROP ? af2::keep_bits16<false>(dkey, bh, qi, key0) : 0u;
       for (int c = 0; c < kSubF32; ++c) {
         float s = 0.f, dp = 0.f;
 #pragma unroll
@@ -720,6 +769,7 @@ __global__ void __launch_bounds__(kRowsF32)
           dp = fmaf(go[tid][d], vs[r0 + c][d], dp);
         }
         const float p = expf(s * scale + bsm[r0 + c] - row_lse);
+        if (DROP) dp *= keep_factor(dkey, keep, c);
         const float ds = p * (dp - row_delta);
 #pragma unroll
         for (int d = 0; d < DH; ++d) acc[d] = fmaf(ds, ks[r0 + c][d], acc[d]);
@@ -731,7 +781,7 @@ __global__ void __launch_bounds__(kRowsF32)
   for (int d = 0; d < DH; ++d) dq[qrow * DH + d] = acc[d] * scale;
 }
 
-template <int DH>
+template <int DH, bool DROP>
 __global__ void __launch_bounds__(kRowsF32)
     sparse_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ bias,
@@ -739,7 +789,9 @@ __global__ void __launch_bounds__(kRowsF32)
                           const float* __restrict__ delta, const int* __restrict__ idx,
                           const int* __restrict__ counts, float* __restrict__ dk,
                           float* __restrict__ dv, int64_t bh_total, int64_t heads,
-                          int64_t n_blocks, int64_t width, int bs, float scale) {
+                          int64_t n_blocks, int64_t width, int bs, float scale,
+                          const Dropout<DROP> drop) {
+  const DropKey dkey = af2::drop_key(drop);
   __shared__ float ko[kRowsF32][DH + 1];  // owned key rows, one per thread
   __shared__ float vo[kRowsF32][DH + 1];
   __shared__ float qs[kRowsF32][DH];
@@ -784,6 +836,7 @@ __global__ void __launch_bounds__(kRowsF32)
       __syncthreads();
       if (!live) continue;
       const int r0 = gi * kSubF32;
+      const uint32_t keep = DROP ? af2::keep_bits16<true>(dkey, bh, key, q0) : 0u;
       for (int c = 0; c < kSubF32; ++c) {
         float s = 0.f, dp = 0.f;
 #pragma unroll
@@ -792,10 +845,12 @@ __global__ void __launch_bounds__(kRowsF32)
           dp = fmaf(vo[tid][d], gs[r0 + c][d], dp);
         }
         const float p = expf(s * scale + key_bias - ls[r0 + c]);
-        const float ds = p * (dp - dls[r0 + c]);
+        const float z = DROP ? keep_factor(dkey, keep, c) : 1.f;
+        const float ds = p * ((DROP ? dp * z : dp) - dls[r0 + c]);
+        const float pz = DROP ? p * z : p;  // dV takes P^T times the keep factors
 #pragma unroll
         for (int d = 0; d < DH; ++d) {
-          dv_acc[d] = fmaf(p, gs[r0 + c][d], dv_acc[d]);
+          dv_acc[d] = fmaf(pz, gs[r0 + c][d], dv_acc[d]);
           dk_acc[d] = fmaf(ds, qs[r0 + c][d], dk_acc[d]);
         }
       }
@@ -827,6 +882,9 @@ struct Args {
   int bs, dh;
   float scale;
   cudaStream_t stream;
+  const int64_t* seed;  // attention dropout's seed on the device, or null (no dropout)
+  uint32_t threshold;   // round(rate 2^32)
+  float keep_scale;     // 1 / (1 - rate)
 };
 
 bool check(const Args& a, int rows, dim3* grid) {
@@ -842,19 +900,20 @@ bool check(const Args& a, int rows, dim3* grid) {
 #define AF2_BF16 const __nv_bfloat16*
 #define AF2_F32 const float*
 #define AF2_TAB (const int*)a.idx, (const int*)a.counts
-#define AF2_SHAPE a.bh, a.heads, a.n_blocks, a.width, a.bs, a.scale
+#define AF2_SHAPE a.bh, a.heads, a.n_blocks, a.width, a.bs, a.scale, \
+                  Dropout<DROP>{a.seed, a.threshold, a.keep_scale}
 
-template <int DH>
+template <int DH, bool DROP>
 void fwd(const Args& a, dim3 grid, bool bf16) {
   if (!bf16) {
-    sparse_fwd_f32_kernel<DH><<<grid, kRowsF32, 0, a.stream>>>(
+    sparse_fwd_f32_kernel<DH, DROP><<<grid, kRowsF32, 0, a.stream>>>(
         (AF2_F32)a.q, (AF2_F32)a.k, (AF2_F32)a.v, (AF2_F32)a.bias, AF2_TAB,
         (float*)a.o0, (float*)a.o1, AF2_SHAPE);
     return;
   }
-#define AF2_FWD(SUB)                                                        \
-  sparse_fwd_bf16_kernel<DH, SUB><<<grid, kWarps * 32, 0, a.stream>>>(      \
-      (AF2_BF16)a.q, (AF2_BF16)a.k, (AF2_BF16)a.v, (AF2_F32)a.bias, AF2_TAB, \
+#define AF2_FWD(SUB)                                                         \
+  sparse_fwd_bf16_kernel<DH, SUB, DROP><<<grid, kWarps * 32, 0, a.stream>>>( \
+      (AF2_BF16)a.q, (AF2_BF16)a.k, (AF2_BF16)a.v, (AF2_F32)a.bias, AF2_TAB,  \
       (__nv_bfloat16*)a.o0, (float*)a.o1, AF2_SHAPE)
   if (a.bs == 16) AF2_FWD(16);
   else if (a.bs == 32) AF2_FWD(32);
@@ -862,16 +921,16 @@ void fwd(const Args& a, dim3 grid, bool bf16) {
 #undef AF2_FWD
 }
 
-template <int DH>
+template <int DH, bool DROP>
 void dq(const Args& a, dim3 grid, bool bf16) {
   if (!bf16) {
-    sparse_dq_f32_kernel<DH><<<grid, kRowsF32, 0, a.stream>>>(
+    sparse_dq_f32_kernel<DH, DROP><<<grid, kRowsF32, 0, a.stream>>>(
         (AF2_F32)a.q, (AF2_F32)a.k, (AF2_F32)a.v, (AF2_F32)a.bias, (AF2_F32)a.dout,
         (AF2_F32)a.lse, (AF2_F32)a.delta, AF2_TAB, (float*)a.o0, AF2_SHAPE);
     return;
   }
 #define AF2_DQ(SUB)                                                             \
-  sparse_dq_bf16_kernel<DH, SUB><<<grid, kWarps * 32, 0, a.stream>>>(           \
+  sparse_dq_bf16_kernel<DH, SUB, DROP><<<grid, kWarps * 32, 0, a.stream>>>(     \
       (AF2_BF16)a.q, (AF2_BF16)a.k, (AF2_BF16)a.v, (AF2_F32)a.bias,             \
       (AF2_BF16)a.dout, (AF2_F32)a.lse, (AF2_F32)a.delta, AF2_TAB,              \
       (__nv_bfloat16*)a.o0, AF2_SHAPE)
@@ -881,10 +940,10 @@ void dq(const Args& a, dim3 grid, bool bf16) {
 #undef AF2_DQ
 }
 
-template <int DH>
+template <int DH, bool DROP>
 void dkv(const Args& a, dim3 grid, bool bf16) {
   if (!bf16) {
-    sparse_dkv_f32_kernel<DH><<<grid, kRowsF32, 0, a.stream>>>(
+    sparse_dkv_f32_kernel<DH, DROP><<<grid, kRowsF32, 0, a.stream>>>(
         (AF2_F32)a.q, (AF2_F32)a.k, (AF2_F32)a.v, (AF2_F32)a.bias, (AF2_F32)a.dout,
         (AF2_F32)a.lse, (AF2_F32)a.delta, AF2_TAB, (float*)a.o0, (float*)a.o1,
         AF2_SHAPE);
@@ -893,7 +952,7 @@ void dkv(const Args& a, dim3 grid, bool bf16) {
   // 32 streamed queries a head at most: the p and dS tiles and both
   // accumulators stay in registers
 #define AF2_DKV(SUB)                                                            \
-  sparse_dkv_bf16_kernel<DH, SUB><<<grid, kWarps * 32, 0, a.stream>>>(          \
+  sparse_dkv_bf16_kernel<DH, SUB, DROP><<<grid, kWarps * 32, 0, a.stream>>>(    \
       (AF2_BF16)a.q, (AF2_BF16)a.k, (AF2_BF16)a.v, (AF2_F32)a.bias,             \
       (AF2_BF16)a.dout, (AF2_F32)a.lse, (AF2_F32)a.delta, AF2_TAB,              \
       (__nv_bfloat16*)a.o0, (__nv_bfloat16*)a.o1, AF2_SHAPE)
@@ -904,16 +963,22 @@ void dkv(const Args& a, dim3 grid, bool bf16) {
 
 enum Kind { kFwd, kDq, kDkv };
 
+template <int DH, bool DROP>
+void run(Kind kind, const Args& a, dim3 grid, bool bf16) {
+  if (kind == kFwd) fwd<DH, DROP>(a, grid, bf16);
+  else if (kind == kDq) dq<DH, DROP>(a, grid, bf16);
+  else dkv<DH, DROP>(a, grid, bf16);
+}
+
 int launch(Kind kind, const Args& a, int is_bf16) {
   dim3 grid;
   if (!check(a, is_bf16 ? kRows : kRowsF32, &grid)) {
     return (int)cudaErrorInvalidValue;
   }
   const bool bf16 = is_bf16 != 0;
-#define AF2_KIND(DH_)                           \
-  if (kind == kFwd) fwd<DH_>(a, grid, bf16);    \
-  else if (kind == kDq) dq<DH_>(a, grid, bf16); \
-  else dkv<DH_>(a, grid, bf16)
+#define AF2_KIND(DH_)                                   \
+  if (a.seed != nullptr) run<DH_, true>(kind, a, grid, bf16); \
+  else run<DH_, false>(kind, a, grid, bf16)
   switch (a.dh) {
     case 16: AF2_KIND(16); break;
     case 32: AF2_KIND(32); break;
@@ -921,6 +986,18 @@ int launch(Kind kind, const Args& a, int is_bf16) {
   }
 #undef AF2_KIND
   return (int)cudaGetLastError();
+}
+
+// One B5f launch on the wgmma route, with or without dropout
+template <bool DROP>
+int launch_wgmma_fwd_route(const Args& a, const StageList& list, int64_t n, int sms, bool three) {
+#define AF2_ARGS a.q, a.k, a.v, a.bias, nullptr, list, a.o0, a.o1, a.bh, n, n, a.scale, sms, \
+                 a.stream, Dropout<DROP>{a.seed, a.threshold, a.keep_scale}
+  if (three) {
+    return af2::fwd::launch_wgmma_fwd<false, 3>(sparse_fwd_wgmma_kernel<3, DROP>, AF2_ARGS);
+  }
+  return af2::fwd::launch_wgmma_fwd<false, 2>(sparse_fwd_wgmma_kernel<2, DROP>, AF2_ARGS);
+#undef AF2_ARGS
 }
 
 // The wgmma route (bf16, dh 64, bs 16): `unions` holds the table's stage
@@ -938,11 +1015,8 @@ int launch_wgmma_route(const Args& a, const int* const (&unions)[4]) {
   if (e != cudaSuccess) return (int)e;
   const bool three = af2::fwd::wgmma_consumers(a.bh, n, sms, false) == 3;
   const StageList list{unions[three ? 2 : 0], (const int4*)unions[three ? 3 : 1], a.heads};
-#define AF2_ARGS a.q, a.k, a.v, a.bias, nullptr, list, a.o0, a.o1, a.bh, n, n, a.scale, sms, \
-                 a.stream
-  if (three) return af2::fwd::launch_wgmma_fwd<false, 3>(sparse_fwd_wgmma_kernel<3>, AF2_ARGS);
-  return af2::fwd::launch_wgmma_fwd<false, 2>(sparse_fwd_wgmma_kernel<2>, AF2_ARGS);
-#undef AF2_ARGS
+  return a.seed != nullptr ? launch_wgmma_fwd_route<true>(a, list, n, sms, three)
+                           : launch_wgmma_fwd_route<false>(a, list, n, sms, three);
 }
 
 // Whether the backward's wgmma routes take a call: bs 16, dh 64, n and BH
@@ -960,6 +1034,12 @@ bool wgmma_bwd_ok(const Args& a, const void* const (&tensors)[6], const void* of
 
 extern "C" {
 
+// Every entry point ends with attention dropout's arguments: seed, two
+// int64 on the device (null: no dropout, the kernels as they were),
+// threshold = round(rate 2^32) and keep_scale = 1 / (1 - rate).
+#define AF2_DROP_ARGS const void* seed, unsigned threshold, float keep_scale
+#define AF2_DROP (const int64_t*)seed, threshold, keep_scale
+
 // B5f. q, k, v (BH, n, dh) in f32 or bf16, n = n_blocks * bs; bias (BH /
 // heads, n) f32; idx (n_blocks, width) int32 (valid slots first); counts
 // (n_blocks,) int32; out (BH, n, dh) in the input type; lse (BH, n) f32.
@@ -969,9 +1049,9 @@ extern "C" {
 int af2_sparse_fwd(const void* q, const void* k, const void* v, const void* bias,
                    const void* idx, const void* counts, void* out, void* lse,
                    int64_t bh, int64_t heads, int64_t n_blocks, int64_t width,
-                   int bs, int dh, float scale, int is_bf16, void* stream) {
+                   int bs, int dh, float scale, int is_bf16, void* stream, AF2_DROP_ARGS) {
   const Args a{q, k, v, bias, nullptr, nullptr, nullptr, idx, counts, out, lse,
-               bh, heads, n_blocks, width, bs, dh, scale, (cudaStream_t)stream};
+               bh, heads, n_blocks, width, bs, dh, scale, (cudaStream_t)stream, AF2_DROP};
   return launch(kFwd, a, is_bf16);
 }
 
@@ -985,10 +1065,11 @@ int af2_sparse_fwd_wgmma(const void* q, const void* k, const void* v, const void
                          const void* union128_off, const void* union128,
                          const void* union192_off, const void* union192, void* out, void* lse,
                          int64_t bh, int64_t heads, int64_t n_blocks, float scale,
-                         void* stream) {
+                         void* stream, AF2_DROP_ARGS) {
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, bias, nullptr, nullptr, nullptr, nullptr, nullptr, out, lse,
-               bh, heads, n_blocks, 1, kLBs, af2::fwd::kWDH, scale, (cudaStream_t)stream};
+               bh, heads, n_blocks, 1, kLBs, af2::fwd::kWDH, scale, (cudaStream_t)stream,
+               AF2_DROP};
   const int* const unions[4] = {(const int*)union128_off, (const int*)union128,
                                 (const int*)union192_off, (const int*)union192};
   return launch_wgmma_route(a, unions);
@@ -1001,9 +1082,9 @@ int af2_sparse_bwd_dq(const void* q, const void* k, const void* v,
                       const void* delta, const void* idx, const void* counts,
                       void* dq, int64_t bh, int64_t heads, int64_t n_blocks,
                       int64_t width, int bs, int dh, float scale, int is_bf16,
-                      void* stream) {
+                      void* stream, AF2_DROP_ARGS) {
   const Args a{q, k, v, bias, dout, lse, delta, idx, counts, dq, nullptr,
-               bh, heads, n_blocks, width, bs, dh, scale, (cudaStream_t)stream};
+               bh, heads, n_blocks, width, bs, dh, scale, (cudaStream_t)stream, AF2_DROP};
   return launch(kDq, a, is_bf16);
 }
 
@@ -1015,16 +1096,24 @@ int af2_sparse_bwd_dq(const void* q, const void* k, const void* v,
 int af2_sparse_bwd_dq_wgmma(const void* q, const void* k, const void* v, const void* bias,
                             const void* dout, const void* lse, const void* delta,
                             const void* union128_off, const void* union128, void* dq, int64_t bh,
-                            int64_t heads, int64_t n_blocks, float scale, void* stream) {
+                            int64_t heads, int64_t n_blocks, float scale, void* stream,
+                            AF2_DROP_ARGS) {
   const Args a{q, k, v, bias, dout, lse, delta, nullptr, nullptr, dq, nullptr,
-               bh, heads, n_blocks, 1, kLBs, af2::dq::kWDH, scale, (cudaStream_t)stream};
+               bh, heads, n_blocks, 1, kLBs, af2::dq::kWDH, scale, (cudaStream_t)stream,
+               AF2_DROP};
   if (!wgmma_bwd_ok(a, {q, k, v, dout, dq, dq}, union128_off, union128)) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t n = n_blocks * kLBs;
   const StageList list{(const int*)union128_off, (const int4*)union128, heads};
-  return af2::dq::launch_wgmma_dq<false>(sparse_dq_wgmma_kernel, q, k, v, bias, dout, lse, delta,
-                                         list, dq, nullptr, bh, n, n, scale, a.stream);
+#define AF2_ARGS q, k, v, bias, dout, lse, delta, list, dq, nullptr, bh, n, n, scale, a.stream
+  if (seed != nullptr) {
+    return af2::dq::launch_wgmma_dq<false>(sparse_dq_wgmma_kernel<true>, AF2_ARGS,
+                                           Dropout<true>{AF2_DROP});
+  }
+  return af2::dq::launch_wgmma_dq<false>(sparse_dq_wgmma_kernel<false>, AF2_ARGS,
+                                         Dropout<false>{nullptr, 0u, 1.f});
+#undef AF2_ARGS
 }
 
 // B5 dkv's wgmma route: bf16 at dh 64 and bs 16, as af2_sparse_bwd_dkv, with
@@ -1035,16 +1124,23 @@ int af2_sparse_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const 
                              const void* dout, const void* lse, const void* delta,
                              const void* keys_off, const void* keys, void* dk, void* dv,
                              int64_t bh, int64_t heads, int64_t n_blocks, float scale,
-                             void* stream) {
+                             void* stream, AF2_DROP_ARGS) {
   const Args a{q, k, v, bias, dout, lse, delta, nullptr, nullptr, dk, dv,
-               bh, heads, n_blocks, 1, kLBs, af2::dkv::kWDH, scale, (cudaStream_t)stream};
+               bh, heads, n_blocks, 1, kLBs, af2::dkv::kWDH, scale, (cudaStream_t)stream,
+               AF2_DROP};
   if (!wgmma_bwd_ok(a, {q, k, v, dout, dk, dv}, keys_off, keys)) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t n = n_blocks * kLBs;
   const StageList list{(const int*)keys_off, (const int4*)keys, heads};
-  return af2::dkv::launch_wgmma_dkv<false>(sparse_dkv_wgmma_kernel, q, k, v, bias, dout, lse,
-                                           delta, list, dk, dv, bh, n, n, scale, a.stream);
+#define AF2_ARGS q, k, v, bias, dout, lse, delta, list, dk, dv, bh, n, n, scale, a.stream
+  if (seed != nullptr) {
+    return af2::dkv::launch_wgmma_dkv<false>(sparse_dkv_wgmma_kernel<true>, AF2_ARGS,
+                                             Dropout<true>{AF2_DROP});
+  }
+  return af2::dkv::launch_wgmma_dkv<false>(sparse_dkv_wgmma_kernel<false>, AF2_ARGS,
+                                           Dropout<false>{nullptr, 0u, 1.f});
+#undef AF2_ARGS
 }
 
 // B5 dkv. As the dq kernel; dk, dv (BH, n, dh) in the input type. The
@@ -1055,10 +1151,13 @@ int af2_sparse_bwd_dkv(const void* q, const void* k, const void* v,
                        const void* delta, const void* idx, const void* counts,
                        void* dk, void* dv, int64_t bh, int64_t heads,
                        int64_t n_blocks, int64_t width, int bs, int dh,
-                       float scale, int is_bf16, void* stream) {
+                       float scale, int is_bf16, void* stream, AF2_DROP_ARGS) {
   const Args a{q, k, v, bias, dout, lse, delta, idx, counts, dk, dv,
-               bh, heads, n_blocks, width, bs, dh, scale, (cudaStream_t)stream};
+               bh, heads, n_blocks, width, bs, dh, scale, (cudaStream_t)stream, AF2_DROP};
   return launch(kDkv, a, is_bf16);
 }
+
+#undef AF2_DROP_ARGS
+#undef AF2_DROP
 
 }  // extern "C"

@@ -12,10 +12,12 @@
     for self-attention, sharing its parameters; it pads to a block
     multiple (honouring the caller's mask), unpads on exit, and runs the
     CUDA kernels of ops/sparse_kernel.py on CUDA tensors and the gather
-    version on CPU tensors (ops/dispatch.py). The kernels have no attention
-    dropout, so live dropout on a CUDA tensor raises. The JAX package's
-    n >= 4096 switch to its kernel and its `sparse_use_kernel=False` are
-    not ported: on the card the kernels run at every length.
+    version on CPU tensors (ops/dispatch.py), live attention dropout
+    included: both draw the layer's dropout seed (`draw_seed`) from its rng
+    at the same point, and one seed gives one mask on either device. The
+    JAX package's n >= 4096 switch to its kernel and its
+    `sparse_use_kernel=False` are not ported: on the card the kernels run
+    at every length.
 """
 
 from __future__ import annotations
@@ -115,28 +117,37 @@ def _folded(q, k, v, scfg: SparseConfig, mask):
     return fold_heads(q), fold_heads(k), fold_heads(v), bias, table
 
 
+def draw_seed(rng: torch.Generator, device):
+    """The dropout seed of one attention call: two int64 in [0, 2^62) drawn
+    on the generator's device, in its turn (a generator registered with a
+    CUDA graph draws afresh at each replay), on `device`."""
+    return torch.randint(2 ** 62, (2,), generator=rng, device=rng.device).to(device)
+
+
 def block_sparse_attention(q, k, v, scfg: SparseConfig, *, mask=None,
                            scale: Optional[float] = None, dropout_rate: float = 0.0,
-                           rng=None):
+                           seed=None):
     """Block-sparse attention over projected q, k, v (b, n, h, dh), n a
     multiple of the block size: each query block attends the gathered key
     blocks of its layout row, in f32. mask: (b, n) bool key validity. Rows
-    with no valid key return zeros. rng: a generator on q's device for
-    attention dropout. Returns (b, n, h, dh) in q.dtype."""
+    with no valid key return zeros. Attention dropout at dropout_rate > 0
+    from `seed`, two int64 (`draw_seed`; None: no dropout). Returns (b, n,
+    h, dh) in q.dtype."""
     b, n, h, dh = q.shape
     if n % scfg.block_size:
         raise ValueError(f"sequence {n} is not a multiple of the block size {scfg.block_size}")
     scale = dh ** -0.5 if scale is None else scale
     out, _ = sparse_kernel.sparse_fwd_plain(*_folded(q, k, v, scfg, mask), h, scale,
-                                            dropout_rate=dropout_rate, rng=rng)
+                                            dropout_rate=dropout_rate, seed=seed)
     return out.reshape(b, h, n, dh).transpose(1, 2)
 
 
 def sparse_attention_apply(params, cfg, scfg: SparseConfig, x, *, mask=None, rng=None):
     """Sparse self-attention with the dense attention's parameters (to_q,
-    to_kv, to_out). x: (b, n, dim); mask: (b, n) bool; rng: a generator on
-    x's device for attention dropout (CPU only: the kernels have none).
-    Returns (b, n, dim) in cfg.dtype."""
+    to_kv, to_out). x: (b, n, dim); mask: (b, n) bool; rng: a generator for
+    attention dropout (None: eval mode), from which the call draws its
+    dropout seed once, after the projections (`draw_seed`). Returns (b, n,
+    dim) in cfg.dtype."""
     b, n, _ = x.shape
     dtype, bs = cfg.dtype, scfg.block_size
     h, dh = cfg.heads, cfg.dim_head
@@ -153,17 +164,13 @@ def sparse_attention_apply(params, cfg, scfg: SparseConfig, x, *, mask=None, rng
 
     route = dispatch.resolve("sparse_attention", q.device,
                              sparse_kernel.unsupported(b * h, n + pad, dh, q.dtype, bs))
+    seed = draw_seed(rng, q.device) if rng is not None and cfg.dropout > 0.0 else None
     if route == dispatch.PLAIN:
         out = block_sparse_attention(q, k, v, scfg, mask=mask, dropout_rate=cfg.dropout,
-                                     rng=rng)
-    elif rng is not None and cfg.dropout > 0.0:
-        raise ValueError(
-            f"sparse attention with attention dropout {cfg.dropout} on {q.device}: the CUDA "
-            f"kernels ({dispatch.OPS['sparse_attention']}) have no dropout; train sparse "
-            f"layers on the card with attn_dropout=0")
+                                     seed=seed)
     else:
         out = sparse_kernel.SparseKernelAttention.apply(*_folded(q, k, v, scfg, mask), h,
-                                                        dh ** -0.5)
+                                                        dh ** -0.5, cfg.dropout, seed)
         out = out.reshape(b, h, n + pad, dh).transpose(1, 2)
     out = out.reshape(b, n + pad, h * dh)[:, :n]
     return linear(params["to_out"], out, dtype=dtype)

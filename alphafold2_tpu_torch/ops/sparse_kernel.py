@@ -18,10 +18,20 @@ key gives zeros and lse = +inf. `sparse_fwd` and `sparse_bwd` take CUDA
 tensors only and launch csrc/sparse_attn.cu (built at first use) or raise.
 Their plain versions (`sparse_fwd_plain`, `sparse_bwd_dq_plain`,
 `sparse_bwd_dkv_plain`) are the one block-gather formulation of the port,
-in f32 and tiled over BH: `sparse_fwd_plain` is differentiable and takes
-attention dropout, and ops/sparse.py's `block_sparse_attention` (the CPU
-route) runs it. `SparseKernelAttention` is the autograd.Function the CUDA
-route runs.
+in f32 and tiled over BH: `sparse_fwd_plain` is differentiable, and
+ops/sparse.py's `block_sparse_attention` (the CPU route) runs it.
+`SparseKernelAttention` is the autograd.Function the CUDA route runs.
+
+Every one of them takes attention dropout (JAX's `dropout` on the
+probabilities, alphafold2_tpu/ops/sparse.py:156): a rate and a seed, two
+int64 drawn at the layer's rng position and read on the device. The
+probabilities that feed P.V are multiplied by Z = keep / (1 - rate), the
+row sums and lse keep the undropped ones, and the backward redraws Z: dV =
+(P Z)^T dO, dS = P (dP Z - delta). The keep bit of element (bh, query i,
+key j) is `philox_keep`'s: Philox4x32-10 of its sequence coordinates, the
+same bits in every kernel (csrc/philox.cuh) and plain version, on either
+device. The plain versions also take an explicit dense (BH, n, n) keep mask
+in place of the seed (JAX's own draw, in the parity tests).
 
 The bf16 forward takes one of two kernels by the shape of the call
 (`route`): "wgmma" at dh 64 and block size 16 (every served and trained
@@ -35,7 +45,8 @@ backward's dkv pipeline over the 64-query stages that attend a 128-key tile
 (the table's `key_unions`), B5 dq's a dq pipeline of its own over the
 forward's 128-row stage lists. `LAUNCHES` counts kernel launches per kernel
 and each launch again under `sparse_fwd_<route>`, `sparse_bwd_dq_<route>`
-or `sparse_bwd_dkv_<route>`.
+or `sparse_bwd_dkv_<route>`, and a launch with dropout again under
+`<kernel>_dropout`.
 """
 
 from __future__ import annotations
@@ -48,13 +59,12 @@ import numpy as np
 import torch
 
 from alphafold2_tpu_torch.ops import cuda_build, dispatch, flash_kernel
-from alphafold2_tpu_torch.ops.core import dropout
 from alphafold2_tpu_torch.ops.flash import aligned
 
 ROUTES = ("wgmma", "mma_sync", "f32")  # each kernel's
-LAUNCHES = {"sparse_fwd": 0, "sparse_bwd_dq": 0, "sparse_bwd_dkv": 0,
-            **{f"{kernel}_{r}": 0 for kernel in ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
-               for r in ROUTES}}
+KERNELS = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+LAUNCHES = {**{kernel: 0 for kernel in KERNELS},
+            **{f"{kernel}_{r}": 0 for kernel in KERNELS for r in ROUTES + ("dropout",)}}
 
 SUPPORTED_BLOCK_SIZES = (16, 32, 64, 128)
 SUPPORTED_DH = (16, 32, 64)
@@ -154,6 +164,82 @@ def block_table(idx: np.ndarray, valid: np.ndarray, block_size: int, device) -> 
                       block_size, unions, key_unions)
 
 
+# --- attention dropout's bits ----------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # Philox4x32's multipliers
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # its key bumps
+
+
+def _mulhilo(a, m: int):
+    """(hi, lo) 32-bit words of a * m, for int64 tensors a holding uint32
+    values and a uint32 constant m, in products that stay below 2^49."""
+    top = (a >> 16) * m            # a's high half times m, < 2^48
+    low = (a & 0xFFFF) * m + ((top & 0xFFFF) << 16)  # < 2^49
+    return (top >> 16) + (low >> 32), low & _U32
+
+
+def philox4x32(counter, key):
+    """Philox4x32-10 (Salmon et al., SC 2011; csrc/philox.cuh) on int64
+    tensors holding uint32 values: counter (c0, c1, c2, c3), key (k0, k1),
+    each broadcast against the others. Returns the four output words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + PHILOX_W[0]) & _U32, (k1 + PHILOX_W[1]) & _U32
+    return c0, c1, c2, c3
+
+
+def dropout_threshold(rate: float) -> int:
+    """An element is kept iff its 32 bits are at least round(rate 2^32)."""
+    return min(_U32, int(round(rate * 2.0 ** 32)))
+
+
+def philox_keep(seed, bh, rows, cols, rate: float):
+    """The keep mask of attention dropout at (bh, query rows, key cols)
+    (int64 tensors, broadcast), bool: seed (2,) int64, the key seed[0] and
+    the counter's fourth word seed[1] (low 32 bits). Elements come in groups
+    {i, i + 8} x {j, j + 8}, bit 3 of i and j clear, one Philox call a
+    group at counter (j, i, bh, salt); element (i + 8a, j + 8b) takes word
+    2a + b. The CUDA kernels draw the same bits (csrc/philox.cuh)."""
+    seed = seed.to(torch.int64)
+    key = (seed[0] & _U32, (seed[0] >> 32) & _U32)
+    counter = (cols & ~8, rows & ~8, bh, seed[1] & _U32)
+    words = torch.stack(torch.broadcast_tensors(*philox4x32(counter, key)))
+    word = ((rows >> 3) & 1) * 2 + ((cols >> 3) & 1)
+    shape = words.shape[1:]
+    bits = words.gather(0, word.expand(shape).unsqueeze(0))[0]
+    return bits >= dropout_threshold(rate)
+
+
+def _keep_factor(r0, r1, queries, keys, dropout_rate, seed, keep):
+    """The factors Z (0 or 1 / (1 - rate), f32) of rows r0:r1 at the
+    query and key coordinates `queries`, `keys` (int64, broadcast after a
+    leading row axis), from the seed or from a dense (BH, n, n) keep mask;
+    None without dropout."""
+    if not dropout_rate or (seed is None and keep is None):
+        return None
+    bh = torch.arange(r0, r1, device=queries.device).reshape(-1, *[1] * queries.dim())
+    if keep is None:
+        kept = philox_keep(seed.to(queries.device), bh, queries[None], keys[None], dropout_rate)
+    else:
+        kept = keep.to(queries.device)[bh, queries[None], keys[None]]
+    return torch.where(kept, 1.0 / (1.0 - dropout_rate), 0.0)
+
+
+def _fwd_coords(table: BlockTable):
+    """(queries, keys) of the gathered (B, bs, A, bs) layout: query block
+    r's row i, slot a's key j (block 0 in the padding)."""
+    B, bs = table.n_blocks, table.block_size
+    ar = torch.arange(bs, device=table.idx.device)
+    queries = (torch.arange(B, device=ar.device)[:, None] * bs + ar)[:, :, None, None]
+    keys = (table.idx.long().clamp(min=0)[:, :, None] * bs + ar)[:, None]
+    return queries, keys
+
+
 # --- plain versions ------------------------------------------------------------
 
 
@@ -199,13 +285,15 @@ def _scores(q, k, bias, heads, r0, r1, table: BlockTable, scale):
 
 
 def sparse_fwd_plain(q, k, v, bias, table: BlockTable, heads: int, scale: float, *,
-                     dropout_rate: float = 0.0, rng=None):
+                     dropout_rate: float = 0.0, seed=None, keep=None):
     """The forward kernel's function in plain PyTorch (f32 whatever the
-    input dtype), differentiable by autograd. With a generator `rng` on q's
-    device and dropout_rate > 0, inverted dropout on the probabilities
-    (the kernel has none). Returns (out in q.dtype, lse f32)."""
+    input dtype), differentiable by autograd. With dropout_rate > 0 and a
+    seed (or a dense (BH, n, n) bool `keep`), inverted dropout on the
+    probabilities that feed P.V; lse is the undropped one's. Returns (out
+    in q.dtype, lse f32)."""
     BH, n, dh = q.shape
     outs, lses = [], []
+    queries, keys = _fwd_coords(table)
     for r0, r1 in _tiles(q, table):
         c = r1 - r0
         s = _scores(q, k, bias, heads, r0, r1, table, scale)
@@ -214,7 +302,10 @@ def sparse_fwd_plain(q, k, v, bias, table: BlockTable, heads: int, scale: float,
         m = torch.where(live, m, 0.0)
         p = torch.exp(s - m[..., None])  # 0 over a row with no unmasked key
         l = p.sum(dim=-1)
-        attn = dropout(p / torch.where(live, l, 1.0)[..., None], dropout_rate, rng)
+        attn = p / torch.where(live, l, 1.0)[..., None]
+        z = _keep_factor(r0, r1, queries, keys, dropout_rate, seed, keep)
+        if z is not None:
+            attn = attn * z.reshape(attn.shape)
         vg = _gather(v, r0, r1, table).reshape(c, table.n_blocks, -1, dh)
         outs.append(torch.einsum("cbij,cbjd->cbid", attn, vg).reshape(c, n, dh))
         lses.append(torch.where(live, m + torch.log(l), float("inf")).reshape(c, n))
@@ -222,12 +313,13 @@ def sparse_fwd_plain(q, k, v, bias, table: BlockTable, heads: int, scale: float,
 
 
 def sparse_bwd_dq_plain(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta,
-                        scale: float):
+                        scale: float, *, dropout_rate: float = 0.0, seed=None, keep=None):
     """The dq kernel's function in plain PyTorch (f32): p = exp(s - lse), ds
-    = p (g.v - delta), dq = scale ds k over each query block's slots.
-    Returns dq in q.dtype."""
+    = p (g.v Z - delta), dq = scale ds k over each query block's slots (Z
+    the forward's keep factors, with dropout). Returns dq in q.dtype."""
     BH, n, dh = q.shape
     dq = torch.empty_like(q)
+    queries, keys = _fwd_coords(table)
     for r0, r1 in _tiles(q, table):
         c, B = r1 - r0, table.n_blocks
         s = _scores(q, k, bias, heads, r0, r1, table, scale)
@@ -235,19 +327,27 @@ def sparse_bwd_dq_plain(q, k, v, bias, table: BlockTable, heads: int, lse, g, de
         vg = _gather(v, r0, r1, table).reshape(c, B, -1, dh)
         kg = _gather(k, r0, r1, table).reshape(c, B, -1, dh)
         dp = torch.einsum("cbid,cbjd->cbij", g[r0:r1].float().reshape(c, B, -1, dh), vg)
+        z = _keep_factor(r0, r1, queries, keys, dropout_rate, seed, keep)
+        if z is not None:
+            dp = dp * z.reshape(dp.shape)
         ds = p * (dp - delta[r0:r1].reshape(c, B, -1, 1))
         dq[r0:r1] = (torch.einsum("cbij,cbjd->cbid", ds, kg) * scale).reshape(c, n, dh).to(q.dtype)
     return dq
 
 
 def sparse_bwd_dkv_plain(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta,
-                         scale: float):
+                         scale: float, *, dropout_rate: float = 0.0, seed=None, keep=None):
     """The dkv kernel's function in plain PyTorch (f32), as the kernel reads
     the table: key block c gathers the query blocks of its own row (the
-    layout is symmetric); dk = scale ds^T q, dv = p^T g. Returns (dk, dv)
-    in the input dtype."""
+    layout is symmetric); dk = scale ds^T q, dv = (p Z)^T g with ds = p (dp
+    Z - delta) (Z the forward's keep factors, with dropout, drawn here at
+    the transposed layout's coordinates). Returns (dk, dv) in the input
+    dtype."""
     BH, n, dh = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    # the transposed layout (B, bs keys, A, bs queries): a block's own rows
+    # are its keys, its slots' rows the queries
+    keys, queries = _fwd_coords(table)
     for r0, r1 in _tiles(q, table):
         c, B, bs = r1 - r0, table.n_blocks, table.block_size
         qg, gg = _gather(q, r0, r1, table), _gather(g, r0, r1, table)  # (c, B, A, bs, dh)
@@ -262,19 +362,24 @@ def sparse_bwd_dkv_plain(q, k, v, bias, table: BlockTable, heads: int, lse, g, d
         s = torch.einsum("cbjd,cbaid->cbjai", kb, qg) * scale + key_bias[..., None, None]
         p = torch.exp(s - lse_g[:, :, None])
         dp = torch.einsum("cbjd,cbaid->cbjai", vb, gg)
+        z = _keep_factor(r0, r1, queries, keys, dropout_rate, seed, keep)
+        pz = p if z is None else p * z
+        dp = dp if z is None else dp * z
         ds = p * (dp - delta_g[:, :, None])
-        dv[r0:r1] = torch.einsum("cbjai,cbaid->cbjd", p, gg).reshape(c, n, dh).to(v.dtype)
+        dv[r0:r1] = torch.einsum("cbjai,cbaid->cbjd", pz, gg).reshape(c, n, dh).to(v.dtype)
         dk[r0:r1] = (torch.einsum("cbjai,cbaid->cbjd", ds, qg) * scale).reshape(c, n, dh) \
             .to(k.dtype)
     return dk, dv
 
 
 def sparse_bwd_plain(q, k, v, bias, table: BlockTable, heads: int, out, lse, g,
-                     scale: float):
-    """Both backward kernels' function in plain PyTorch. Returns (dq, dk, dv)."""
+                     scale: float, **dropout):
+    """Both backward kernels' function in plain PyTorch, with the
+    forward's dropout (`dropout_rate` and `seed` or `keep`). Returns (dq,
+    dk, dv)."""
     delta = flash_kernel.cotangent_terms(out, g)[1]  # rowsum(g * out) in f32
     args = (q, k, v, bias, table, heads, lse, g, delta, scale)
-    return (sparse_bwd_dq_plain(*args),) + sparse_bwd_dkv_plain(*args)
+    return (sparse_bwd_dq_plain(*args, **dropout),) + sparse_bwd_dkv_plain(*args, **dropout)
 
 
 # --- the CUDA binding ------------------------------------------------------------
@@ -284,13 +389,14 @@ def sparse_bwd_plain(q, k, v, bias, table: BlockTable, heads: int, out, lse, g,
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("sparse_attn")
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-    shape = [i64, i64, i64, i64, i32, i32, f32, i32, p]
+    drop = [p, ctypes.c_uint32, f32]  # the seed, the threshold, 1 / (1 - rate)
+    shape = [i64, i64, i64, i64, i32, i32, f32, i32, p] + drop
     lib.af2_sparse_fwd.argtypes = [p] * 8 + shape
     lib.af2_sparse_bwd_dq.argtypes = [p] * 10 + shape
     lib.af2_sparse_bwd_dkv.argtypes = [p] * 11 + shape
-    lib.af2_sparse_fwd_wgmma.argtypes = [p] * 10 + [i64] * 3 + [f32, p]
-    lib.af2_sparse_bwd_dq_wgmma.argtypes = [p] * 10 + [i64] * 3 + [f32, p]
-    lib.af2_sparse_bwd_dkv_wgmma.argtypes = [p] * 11 + [i64] * 3 + [f32, p]
+    lib.af2_sparse_fwd_wgmma.argtypes = [p] * 10 + [i64] * 3 + [f32, p] + drop
+    lib.af2_sparse_bwd_dq_wgmma.argtypes = [p] * 10 + [i64] * 3 + [f32, p] + drop
+    lib.af2_sparse_bwd_dkv_wgmma.argtypes = [p] * 11 + [i64] * 3 + [f32, p] + drop
     for fn in (lib.af2_sparse_fwd, lib.af2_sparse_bwd_dq, lib.af2_sparse_bwd_dkv,
                lib.af2_sparse_fwd_wgmma, lib.af2_sparse_bwd_dq_wgmma,
                lib.af2_sparse_bwd_dkv_wgmma):
@@ -356,16 +462,45 @@ def _check(q, k, v, bias, table: BlockTable, heads: int, *more):
             raise ValueError(f"{name} must be contiguous and start 16-byte aligned")
 
 
-def _shape_args(q, table: BlockTable, heads, scale):
+def check_dropout(dropout_rate: float, seed, device) -> bool:
+    """Whether a call drops: a rate in (0, 1) with a seed, two int64 on
+    `device` (a rate of 0 or no seed: no dropout)."""
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout rate {dropout_rate} outside [0, 1)")
+    if not dropout_rate or seed is None:
+        return False
+    if seed.dtype != torch.int64 or tuple(seed.shape) != (2,) or seed.device != device \
+            or not seed.is_contiguous():
+        raise ValueError(f"the dropout seed must be a contiguous int64 (2,) on {device}, got "
+                         f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+    return True
+
+
+def _drop_args(dropout_rate: float, seed, device):
+    """The entry points' last three arguments: the seed's pointer (None:
+    no dropout), the threshold and 1 / (1 - rate)."""
+    if not check_dropout(dropout_rate, seed, device):
+        return (None, 0, 1.0)
+    return (seed.data_ptr(), dropout_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate))
+
+
+def _shape_args(q, table: BlockTable, heads, scale, drop):
     BH, n, dh = q.shape
     return (BH, heads, table.n_blocks, table.idx.shape[1], table.block_size, dh,
             float(scale), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream) + drop
 
 
-def _wgmma_tail(q, table: BlockTable, heads, scale):
+def _wgmma_tail(q, table: BlockTable, heads, scale, drop):
     return (q.shape[0], heads, table.n_blocks, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream) + drop
+
+
+def _count(kernel: str, which: str, drop) -> None:
+    LAUNCHES[kernel] += 1
+    LAUNCHES[f"{kernel}_{which}"] += 1
+    if drop[0] is not None:
+        LAUNCHES[f"{kernel}_dropout"] += 1
 
 
 def _pick(kind: str, best: str, which, q, table: BlockTable, lists: tuple) -> str:
@@ -384,28 +519,31 @@ def _pick(kind: str, best: str, which, q, table: BlockTable, lists: tuple) -> st
     return which
 
 
-def sparse_fwd(q, k, v, bias, table: BlockTable, heads: int, scale: float, which=None):
+def sparse_fwd(q, k, v, bias, table: BlockTable, heads: int, scale: float, which=None, *,
+               dropout_rate: float = 0.0, seed=None):
     """B5f on the kernel `route` picks, or on the route `which` names
     (measurements compare two routes on one call; a route the call cannot
     take is refused), counted under LAUNCHES["sparse_fwd"] and
-    LAUNCHES["sparse_fwd_<route>"]. Returns (out, lse)."""
+    LAUNCHES["sparse_fwd_<route>"]; with dropout_rate > 0 and a seed (two
+    int64 on q's device) the route's dropout kernel, counted again under
+    LAUNCHES["sparse_fwd_dropout"]. Returns (out, lse)."""
     which = _pick("forward", route(q, table), which, q, table, table.unions)
     _check(q, k, v, bias, table, heads)
+    drop = _drop_args(dropout_rate, seed, q.device)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     if which == "wgmma":
         rc = _lib().af2_sparse_fwd_wgmma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             *(t.data_ptr() for t in table.unions), out.data_ptr(), lse.data_ptr(),
-            *_wgmma_tail(q, table, heads, scale))
+            *_wgmma_tail(q, table, heads, scale, drop))
     else:
         rc = _lib().af2_sparse_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), table.idx.data_ptr(),
             table.counts.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            *_shape_args(q, table, heads, scale))
+            *_shape_args(q, table, heads, scale, drop))
     cuda_build.check_launch(rc, f"sparse_fwd ({which} route)")
-    LAUNCHES["sparse_fwd"] += 1
-    LAUNCHES[f"sparse_fwd_{which}"] += 1
+    _count("sparse_fwd", which, drop)
     return out, lse
 
 
@@ -414,69 +552,80 @@ def _bwd_ins(q, k, v, bias, table, g, lse, delta):
             lse.data_ptr(), delta.data_ptr(), table.idx.data_ptr(), table.counts.data_ptr())
 
 
-def launch_dq(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta, scale, which=None):
+def launch_dq(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta, scale, which=None,
+              *, dropout_rate: float = 0.0, seed=None):
     """One launch of the dq kernel on inputs `sparse_bwd` checked: on the
     route `bwd_route` picks, or the route `which` names (refused where the
-    call cannot take it), counted under LAUNCHES["sparse_bwd_dq"] and
-    LAUNCHES["sparse_bwd_dq_<route>"]."""
+    call cannot take it), with the forward's dropout (its rate and seed),
+    counted under LAUNCHES["sparse_bwd_dq"], LAUNCHES["sparse_bwd_dq_<route>"]
+    and, dropping, LAUNCHES["sparse_bwd_dq_dropout"]."""
     which = _pick("dq", bwd_route(q, table), which, q, table, table.unions)
+    drop = _drop_args(dropout_rate, seed, q.device)
     dq = torch.empty_like(q)
     ins = _bwd_ins(q, k, v, bias, table, g, lse, delta)
     if which == "wgmma":  # B5f's 128-row stage lists
         rc = _lib().af2_sparse_bwd_dq_wgmma(*ins[:7], *(t.data_ptr() for t in table.unions[:2]),
-                                            dq.data_ptr(), *_wgmma_tail(q, table, heads, scale))
+                                            dq.data_ptr(),
+                                            *_wgmma_tail(q, table, heads, scale, drop))
     else:
-        rc = _lib().af2_sparse_bwd_dq(*ins, dq.data_ptr(), *_shape_args(q, table, heads, scale))
+        rc = _lib().af2_sparse_bwd_dq(*ins, dq.data_ptr(),
+                                      *_shape_args(q, table, heads, scale, drop))
     cuda_build.check_launch(rc, f"sparse_bwd_dq ({which} route)")
-    LAUNCHES["sparse_bwd_dq"] += 1
-    LAUNCHES[f"sparse_bwd_dq_{which}"] += 1
+    _count("sparse_bwd_dq", which, drop)
     return dq
 
 
-def launch_dkv(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta, scale, which=None):
+def launch_dkv(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta, scale, which=None,
+               *, dropout_rate: float = 0.0, seed=None):
     """One launch of the dkv kernel, as `launch_dq`, counted under
-    LAUNCHES["sparse_bwd_dkv"] and LAUNCHES["sparse_bwd_dkv_<route>"].
-    Returns (dk, dv)."""
+    LAUNCHES["sparse_bwd_dkv"], LAUNCHES["sparse_bwd_dkv_<route>"] and,
+    dropping, LAUNCHES["sparse_bwd_dkv_dropout"]. Returns (dk, dv)."""
     which = _pick("dkv", bwd_route(q, table), which, q, table, table.key_unions)
+    drop = _drop_args(dropout_rate, seed, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     ins, outs = _bwd_ins(q, k, v, bias, table, g, lse, delta), (dk.data_ptr(), dv.data_ptr())
     if which == "wgmma":
         rc = _lib().af2_sparse_bwd_dkv_wgmma(*ins[:7], *(t.data_ptr() for t in table.key_unions),
-                                             *outs, *_wgmma_tail(q, table, heads, scale))
+                                             *outs, *_wgmma_tail(q, table, heads, scale, drop))
     else:
-        rc = _lib().af2_sparse_bwd_dkv(*ins, *outs, *_shape_args(q, table, heads, scale))
+        rc = _lib().af2_sparse_bwd_dkv(*ins, *outs, *_shape_args(q, table, heads, scale, drop))
     cuda_build.check_launch(rc, f"sparse_bwd_dkv ({which} route)")
-    LAUNCHES["sparse_bwd_dkv"] += 1
-    LAUNCHES[f"sparse_bwd_dkv_{which}"] += 1
+    _count("sparse_bwd_dkv", which, drop)
     return dk, dv
 
 
-def sparse_bwd(q, k, v, bias, table: BlockTable, heads: int, out, lse, g, scale: float):
+def sparse_bwd(q, k, v, bias, table: BlockTable, heads: int, out, lse, g, scale: float, *,
+               dropout_rate: float = 0.0, seed=None):
     """B5 dq and B5 dkv: the backward of `sparse_fwd` from its saved out and
-    lse and the cotangent g. Returns (dq, dk, dv) in the input dtype."""
+    lse, the cotangent g and the forward's dropout (its rate and seed: the
+    kernels redraw its mask). Returns (dq, dk, dv) in the input dtype."""
     _check(q, k, v, bias, table, heads, ("out", out), ("g", g))
     if lse.dtype != torch.float32 or lse.shape != q.shape[:2] or not lse.is_contiguous() \
             or lse.device != q.device:
         raise ValueError(f"lse must be a contiguous float32 {tuple(q.shape[:2])} on {q.device}")
     delta = flash_kernel.cotangent_terms(out, g)[1]
     args = (q, k, v, bias, table, heads, lse, g, delta, scale)
-    return (launch_dq(*args),) + launch_dkv(*args)
+    dropout = dict(dropout_rate=dropout_rate, seed=seed)
+    return (launch_dq(*args, **dropout),) + launch_dkv(*args, **dropout)
 
 
 class SparseKernelAttention(torch.autograd.Function):
     """B5 in the folded layout: forward `sparse_fwd`, backward `sparse_bwd`
-    from the saved out and lse. The bias is a mask: no cotangent."""
+    from the saved out and lse; with dropout_rate > 0 and a seed tensor,
+    attention dropout, the backward reading the forward's seed (it draws
+    nothing). The bias is a mask: no cotangent."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, table, heads, scale):
-        out, lse = sparse_fwd(q, k, v, bias, table, heads, scale)
-        ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.table, ctx.heads, ctx.scale = table, heads, scale
+    def forward(ctx, q, k, v, bias, table, heads, scale, dropout_rate=0.0, seed=None):
+        out, lse = sparse_fwd(q, k, v, bias, table, heads, scale, dropout_rate=dropout_rate,
+                              seed=seed)
+        ctx.save_for_backward(q, k, v, bias, out, lse, seed)
+        ctx.table, ctx.heads, ctx.scale, ctx.rate = table, heads, scale, dropout_rate
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias, out, lse = ctx.saved_tensors
+        q, k, v, bias, out, lse, seed = ctx.saved_tensors
         dq, dk, dv = sparse_bwd(q, k, v, bias, ctx.table, ctx.heads, out, lse, aligned(g),
-                                ctx.scale)
-        return dq, dk, dv, None, None, None, None
+                                ctx.scale, dropout_rate=ctx.rate, seed=seed)
+        return dq, dk, dv, None, None, None, None, None, None

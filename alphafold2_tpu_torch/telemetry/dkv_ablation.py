@@ -156,7 +156,8 @@ DQ_LOOP = """        on = mask_of(first + kk);
 """
 
 
-DKV = Marks(head="template <bool BIAS2D, bool LISTED>\n__device__ __forceinline__ void wgmma_dkv(",
+DKV = Marks(head="template <bool BIAS2D, bool LISTED, class Drop = Dropout<false>>\n"
+           "__device__ __forceinline__ void wgmma_dkv(",
             tile_start=TILE_START,
             loop_head="      for (int qq = 1; qq < count; ++qq, ++c) {\n",
             loop=LOOP, marks={1: 0, 3: 1, 6: 2, 7: 3, 12: 4, 14: 5}, tile_end=TILE_END,
@@ -165,7 +166,8 @@ DKV = Marks(head="template <bool BIAS2D, bool LISTED>\n__device__ __forceinline_
 
 # the dq pipeline's counters: a stage's two halves add into the same phases
 # (a 2-D bias's d_bias stores into the elementwise pass's)
-DQ = Marks(head="template <bool BIAS2D, bool LISTED>\n__device__ __forceinline__ void wgmma_dq(",
+DQ = Marks(head="template <bool BIAS2D, bool LISTED, class Drop = Dropout<false>>\n"
+           "__device__ __forceinline__ void wgmma_dq(",
            tile_start=("      for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;\n"
                        "      const uint32_t qa = base + (n % QB) * L::kQG + wg * kHalfBytes;\n"),
            loop_head="      for (int kk = 1; kk < count; ++kk, ++c) {\n", loop=DQ_LOOP,

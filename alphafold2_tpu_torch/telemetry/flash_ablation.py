@@ -111,7 +111,8 @@ def _counters(src: str) -> str:
     first thread of each warpgroup) and the producer's (lane 0):
     g_phase[block][wg * 8 + phase], [block][wg * 8 + 7] the stages,
     [block][24, 25] the producer's waits and loads (`stage_cycles`)."""
-    head = ("template <bool GATED, bool BIAS2D, int CONSUMERS, bool LISTED>\n"
+    head = ("template <bool GATED, bool BIAS2D, int CONSUMERS, bool LISTED, "
+            "class Drop = Dropout<false>>\n"
             "__device__ __forceinline__ void wgmma_fwd(")
     src = _replace(src, head, "__device__ unsigned long long g_phase[1024][32];\n\n" + head)
     src = _replace(src, "      int c = 0, n = 0;\n      for (int64_t tile",

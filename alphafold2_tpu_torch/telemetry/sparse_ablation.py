@@ -105,13 +105,16 @@ def build(sources: dict) -> dict:
         if "C7518" in built.log:  # ptxas serialized the wgmma: the copy times another kernel
             print(f"[sparse ablation] warning: the {name} variant's wgmma are serialized (C7518)")
         lib = ctypes.CDLL(str(built.path))
-        lib.af2_sparse_fwd.argtypes = [p] * 8 + [i64] * 4 + [i32, i32, f32, i32, p]
+        # the entry points end with dropout's seed, threshold and scale (a
+        # source from before them ignores the trailing arguments)
+        drop = [p, ctypes.c_uint32, f32]
+        lib.af2_sparse_fwd.argtypes = [p] * 8 + [i64] * 4 + [i32, i32, f32, i32, p] + drop
         lib.af2_sparse_fwd.restype = i32
         if name != "baseline":
-            lib.af2_sparse_fwd_wgmma.argtypes = [p] * 10 + [i64] * 3 + [f32, p]
+            lib.af2_sparse_fwd_wgmma.argtypes = [p] * 10 + [i64] * 3 + [f32, p] + drop
             lib.af2_sparse_fwd_wgmma.restype = i32
-            lib.af2_sparse_bwd_dq_wgmma.argtypes = [p] * 10 + [i64] * 3 + [f32, p]
-            lib.af2_sparse_bwd_dkv_wgmma.argtypes = [p] * 11 + [i64] * 3 + [f32, p]
+            lib.af2_sparse_bwd_dq_wgmma.argtypes = [p] * 10 + [i64] * 3 + [f32, p] + drop
+            lib.af2_sparse_bwd_dkv_wgmma.argtypes = [p] * 11 + [i64] * 3 + [f32, p] + drop
             lib.af2_sparse_bwd_dq_wgmma.restype = lib.af2_sparse_bwd_dkv_wgmma.restype = i32
         libs[name] = lib
     return libs
@@ -134,19 +137,20 @@ def _launchers(lib, q, k, v, bias, table, heads, routes=("wgmma", "mma_sync")):
     BH, n, dh = q.shape
     out, lse = torch.empty_like(q), torch.empty((BH, n), dtype=torch.float32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    no_drop = (None, 0, 1.0)  # no seed: the kernels without dropout
 
     def wgmma():
         rc = lib.af2_sparse_fwd_wgmma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             *(t.data_ptr() for t in table.unions), out.data_ptr(), lse.data_ptr(), BH, heads,
-            table.n_blocks, 0.125, stream)
+            table.n_blocks, 0.125, stream, *no_drop)
         cuda_build.check_launch(rc, "wgmma route")
 
     def mma_sync():
         rc = lib.af2_sparse_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                                 table.idx.data_ptr(), table.counts.data_ptr(), out.data_ptr(),
                                 lse.data_ptr(), BH, heads, table.n_blocks, table.idx.shape[1], 16,
-                                dh, 0.125, 1, stream)
+                                dh, 0.125, 1, stream, *no_drop)
         cuda_build.check_launch(rc, "mma_sync")
 
     return {name: fn for name, fn in (("wgmma", wgmma), ("mma_sync", mma_sync))
@@ -179,7 +183,7 @@ def backward() -> list:
             q, k, v, dense_bias, lse, do, delta, 0.125, "flash_bwd_dkv"), 20)
         ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), do.data_ptr(),
                lse.data_ptr(), delta.data_ptr())
-        tail = (b * heads, heads, table.n_blocks, 0.125, stream)
+        tail = (b * heads, heads, table.n_blocks, 0.125, stream, None, 0, 1.0)  # no dropout
         dq, dk = torch.empty_like(q), torch.empty_like(k)
         dv = torch.empty_like(v)
         lib = libs["dkv_counters"]

@@ -60,11 +60,11 @@ from typing import Any, Callable
 import torch
 
 from alphafold2_tpu_torch.models.config import Alphafold2Config
+from alphafold2_tpu_torch.ops.quant import reject_quant_training
 from alphafold2_tpu_torch.training.e2e import E2EConfig
 from alphafold2_tpu_torch.training.harness import (
     TrainConfig,
     check_microbatches,
-    check_train_config,
     distogram_loss_fn,
     step_body,
 )
@@ -115,7 +115,7 @@ class CapturedTrainStep:
             raise ValueError(
                 f"CapturedTrainStep: the state lies on {device}; CUDA graphs capture on the "
                 f"card only (the CPU runs make_train_step's eager step)")
-        check_train_config(cfg, device, "CapturedTrainStep")
+        reject_quant_training(cfg, "CapturedTrainStep")
         self.cfg, self.tcfg, self.state, self.loss_fn = cfg, tcfg, state, loss_fn
         self.device = device
         self.pool = torch.cuda.graph_pool_handle()  # one pool for every shape's graph

@@ -232,19 +232,6 @@ def make_distogram_loss_fn(apply_fn):
 distogram_loss_fn = make_distogram_loss_fn(alphafold2_apply)
 
 
-def check_train_config(cfg, device: torch.device, what: str) -> None:
-    """Refuse what no train step takes: an int8 config (inference-only), and
-    a sparse config with attention dropout on the card (the sparse kernels
-    have no dropout). cfg: an Alphafold2Config, or an E2EConfig whose
-    model config is checked."""
-    model = getattr(cfg, "model", cfg)
-    reject_quant_training(model, what)
-    if device.type == "cuda" and any(model.layer_sparse) and model.attn_dropout > 0.0:
-        raise ValueError(
-            f"{what}: sparse_self_attn with attn_dropout={model.attn_dropout} on {device}: "
-            f"the sparse CUDA kernels have no attention dropout; set attn_dropout=0")
-
-
 def check_microbatches(batch, tcfg: TrainConfig) -> None:
     sizes = {len(v) for v in batch.values()}
     if sizes != {tcfg.grad_accum}:
@@ -288,12 +275,10 @@ def make_train_step(cfg, tcfg: TrainConfig,
     step's streams, `step_body`). The state is updated in
     place and returned; metrics are 0-d tensors on the device: "loss" (the
     microbatch mean) and "grad_norm" (of the mean gradient, before
-    clipping). An int8 config is refused (inference-only), and so is a
-    sparse config with attention dropout on the card (the sparse kernels
-    have no dropout). On the card `CapturedTrainStep` replays this step
-    as a CUDA graph."""
+    clipping). An int8 config is refused (inference-only). On the card
+    `CapturedTrainStep` replays this step as a CUDA graph."""
     dev = resolve_device(device)
-    check_train_config(cfg, dev, "make_train_step")
+    reject_quant_training(cfg, "make_train_step")
 
     def train_step(state, batch, rng=None):
         check_microbatches(batch, tcfg)

@@ -290,10 +290,37 @@ each phase prints its seconds):
          dropout, with ff_dropout and with both (the eager ff-dropout step
          beside it); a captured L = 384 request, random init against
          classical: ms, launches, busy share;
-  5. a `kernels` JSON line (thirteen kernels: the two flash forwards, the
+  16. attention dropout inside the block-sparse kernels (csrc/philox.cuh:
+     the keep bits of each (bh, query, key) from a seed drawn on the card at
+     the layer's rng position, `sparse.draw_seed`):
+     (a) B5f, B5 dq and B5 dkv with dropout 0.1 and 0.5 on every route
+         (wgmma at (2048, 256, 64) and (3072, 384, 64), mma_sync at block
+         size 32 and at dh 32, f32) against their plain versions from the
+         same seed, at phase 3's tolerances (the bf16 backward's bound on
+         the dropped function, `sparse_dropout_bf16_bound`); lse the
+         undropped one; rate 0 bit for bit the kernels without dropout; a
+         second seed another output;
+     (b) the sparse train step (train_pre's widths, bf16, crop 256, layer
+         0 sparse at max_seq_len 256, attention and FF dropout 0.1, accum
+         2): 3 captured steps with three step rngs against 3 eager ones bit
+         for bit (loss, grad_norm, every param, AdamW moment and count);
+         one batch under two rngs gives two losses; every B5 launch on
+         wgmma and dropping, no plain or gather version called;
+     (c) attention dropout 0.2: remat "dots" against the sequential eager
+         step (bf16, crop 128) bit for bit; the reversible trunk (f32,
+         13a's config) against plain autograd through the same masks, 13a's
+         tolerance;
+     (d) `sparse_attention_apply` in f32 at L = 128 with a padded mask,
+         card against CPU from one seed tensor: out 1e-5 * max(1, |ref|),
+         each gradient leaf 1e-4 of its largest entry;
+     (e) times, reported: the captured crop-256 sparse step (accum 16) with
+         no dropout, FF dropout and attention + FF dropout; each B5 kernel
+         at (2048, 256, 64, 0.66 active) with and without dropout, its
+         plain version, SDPA with dropout_p 0.1 and the bound;
+  5. a `kernels` JSON line (sixteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
-     kernels, B3's forward and its two backward kernels), the card line,
-     and the final `ok` JSON line.
+     kernels, the three sparse kernels with dropout, B3's forward and its
+     two backward kernels), the card line, and the final `ok` JSON line.
 
 A detailed record goes to chiprun_out/chip_smoke.json.
 """
@@ -539,8 +566,10 @@ def bound_terms(q, k, v, bias, gate):
     return flops / PEAK_FLOPS[q.dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def sdpa_mask_ms(q, k, v, mask, scale, reps, g=None, wrt=None, mask_grad=False, heads=None):
-    """F.scaled_dot_product_attention with `mask` (additive, or boolean),
+def sdpa_mask_ms(q, k, v, mask, scale, reps, g=None, wrt=None, mask_grad=False, heads=None,
+                 dropout_p=0.0):
+    """F.scaled_dot_product_attention with `mask` (additive, or boolean)
+    and attention dropout `dropout_p`,
     forward, or with `wrt` its backward alone for the gradients "q", "kv"
     or "qkv" on a retained graph: a yardstick the port never calls. With
     `mask_grad` the additive mask requires grad, so the backward also
@@ -565,8 +594,9 @@ def sdpa_mask_ms(q, k, v, mask, scale, reps, g=None, wrt=None, mask_grad=False, 
         with sdpa_kernel(fused_only):
             if wrt is None:
                 return time_ms(lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, attn_mask=mask, scale=scale), reps)
-            out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)
+                    q4, k4, v4, attn_mask=mask, scale=scale, dropout_p=dropout_p), reps)
+            out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale,
+                                                 dropout_p=dropout_p)
             extra = (mask,) if mask_grad else ()
             inputs = {"q": (q4,) + extra, "kv": (k4, v4), "qkv": (q4, k4, v4) + extra}[wrt]
             return time_ms(lambda: torch.autograd.grad(out, inputs, split(g),
@@ -5378,6 +5408,478 @@ def phase_dropout_random_init():
     timed("d", phase_dropout_timing)
     return launches
 
+# --- phase 16: attention dropout inside the block-sparse kernels ---------------------
+
+SPARSE_DROPOUT_RATES = (0.1, 0.5)  # 16a's rates
+SPARSE_DROPOUT = 0.1  # 16b, 16d and 16e's attention dropout
+SPARSE_RECOMPUTE_DROPOUT = 0.2  # 16c's
+DROP_KERNELS = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+# 32-bit integer operations an element's keep bit costs: one Philox4x32-10
+# call (10 rounds of two mul.hi, two mul.lo, four xor and two key adds, and
+# four compares: ~104) serves a group of four elements (csrc/philox.cuh)
+PHILOX_OPS = 26
+
+
+def sparse_dropout_bf16_bound(q, k, v, bias, table, heads, out, lse, g, scale, rate, seed):
+    """`sparse_bwd_bf16_bound` with attention dropout, from the same
+    derivation on the dropped function: dS = P (dP Z - delta) and dV = (P
+    Z)^T dO with Z = keep / (1 - rate) (the plain version's bits,
+    `philox_keep`). The kernels round dS and P Z to bf16 before their
+    products, half an ulp (2^-8) each, so dq moves by at most 2^-8 scale
+    |dS| |K|, dk by 2^-8 scale |dS|^T |Q| and dv by 2^-8 (P Z)^T |dO|; dP Z
+    differs between the sides by Z dh 2^-23 |dO| |V|^T (dP a sum of dh f32
+    products, in another order; the product by Z rounds both sides alike)
+    and delta by dh 2^-23 rowsum(|dO| |O|), so E = P dh 2^-23 (Z |dO| |V|^T
+    + rowsum(|dO| |O|)) adds scale E |K| to dq and scale E^T |Q| to dk.
+    Every absolute sum carries the keep factors, up to 1 / (1 - rate): the
+    bound grows with the rate as the errors do. Plus one bf16 ulp of each
+    output. Returns (the plain version's (dq, dk, dv), the three bounds)."""
+    BH, n, dh = q.shape
+    ref = sparse_kernel.sparse_bwd_plain(q, k, v, bias, table, heads, out, lse, g, scale,
+                                         dropout_rate=rate, seed=seed)
+    dense = sparse_dense_bias(bias, table, heads)
+    delta = flash_kernel.cotangent_terms(out, g)[1]
+    delta_abs = (g.float().abs() * out.float().abs()).sum(dim=-1)
+    kf, vf = k.float(), v.float()
+    ka, va = kf.abs(), vf.abs()
+    bdq = torch.empty((BH, n, dh), dtype=torch.float32, device=q.device)
+    bdk, bdv = torch.zeros_like(bdq), torch.zeros_like(bdq)
+    edq, edk = torch.empty_like(bdq), torch.zeros_like(bdq)
+    bh = torch.arange(BH, device=q.device)[:, None, None]
+    cols = torch.arange(n, device=q.device)[None, None, :]
+    step = max(1, flash_kernel.BWD_TILE_ELEMS // (BH * n))
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
+        qs, gs = q[:, r0:r1].float(), g[:, r0:r1].float()
+        p = torch.exp(torch.bmm(qs, kf.transpose(1, 2)) * scale + dense[:, r0:r1]
+                      - lse[:, r0:r1, None])
+        rows = torch.arange(r0, r1, device=q.device)[None, :, None]
+        z = torch.where(sparse_kernel.philox_keep(seed, bh, rows, cols, rate),
+                        1.0 / (1.0 - rate), 0.0)
+        ds = (p * (z * torch.bmm(gs, vf.transpose(1, 2)) - delta[:, r0:r1, None])).abs()
+        bdq[:, r0:r1] = torch.bmm(ds, ka) * scale
+        bdk += torch.bmm(ds.transpose(1, 2), qs.abs()) * scale
+        bdv += torch.bmm((p * z).transpose(1, 2), gs.abs())
+        e = p * (dh * 2.0 ** -23) * (z * torch.bmm(gs.abs(), va.transpose(1, 2))
+                                     + delta_abs[:, r0:r1, None])
+        edq[:, r0:r1] = torch.bmm(e, ka) * scale
+        edk += torch.bmm(e.transpose(1, 2), qs.abs()) * scale
+        del p, z, ds, e
+    bounds = tuple(2.0 ** -8 * b + e + BF16_ULP * r.float().abs()
+                   for b, e, r in ((bdq, edq, ref[0]), (bdk, edk, ref[1]), (bdv, 0.0, ref[2])))
+    return ref, bounds
+
+
+def check_sparse_dropout(label, b, heads, n, dh, dtype, scfg, rate, *, masked_b=()):
+    """(a) B5f, B5 dq and B5 dkv with attention dropout at `rate` on the
+    route the call's shape picks, from one seed tensor on the card, against
+    sparse_fwd_plain and sparse_bwd_plain with the same seed (the plain
+    versions draw the same bits, `philox_keep`), at phase 3's tolerances:
+    the forward f32 1e-5 * max(1, max|ref|), bf16 one bf16 ulp of the
+    largest output, lse 1e-4 and equal to the lse without dropout (the
+    undropped P's); the backward f32 1e-5 * max(1, max|ref|), bf16
+    `sparse_dropout_bf16_bound`. Each kernel counts one launch under its
+    name, its route and its dropout count. Rate 0 with the seed gives the
+    kernels without dropout bit for bit, forward and backward; a second
+    seed gives another output. Batch elements `masked_b`: zeros, lse =
+    +inf, zero gradients."""
+    q, k, v, do, bias, table = sparse_inputs(b, heads, n, dh, dtype, scfg, masked_b=masked_b,
+                                             seed=7)
+    scale = dh ** -0.5
+    args = (q, k, v, bias, table, heads)
+    gen = torch.Generator(device="cuda").manual_seed(1000 * n + int(rate * 100))
+    seed, other_seed = sparse.draw_seed(gen, "cuda"), sparse.draw_seed(gen, "cuda")
+    drop = dict(dropout_rate=rate, seed=seed)
+    which = sparse_kernel.route(q, table)
+    before = dict(sparse_kernel.LAUNCHES)
+    out, lse = sparse_kernel.sparse_fwd(*args, scale, **drop)
+    grads = sparse_kernel.sparse_bwd(*args, out, lse, do, scale, **drop)
+    sync()
+    counted = {f"{kernel}{suffix}" for kernel in DROP_KERNELS
+               for suffix in ("", f"_{which}", "_dropout")}
+    counts = all(sparse_kernel.LAUNCHES[name] - before[name] == int(name in counted)
+                 for name in before)
+    # without dropout: no seed, and rate 0 with the seed, bit for bit
+    off_out, off_lse = sparse_kernel.sparse_fwd(*args, scale)
+    zero_out, zero_lse = sparse_kernel.sparse_fwd(*args, scale, dropout_rate=0.0, seed=seed)
+    off_grads = sparse_kernel.sparse_bwd(*args, off_out, off_lse, do, scale)
+    zero_grads = sparse_kernel.sparse_bwd(*args, zero_out, zero_lse, do, scale,
+                                          dropout_rate=0.0, seed=seed)
+    rate0 = (torch.equal(off_out, zero_out) and torch.equal(off_lse, zero_lse)
+             and all(torch.equal(a, z) for a, z in zip(off_grads, zero_grads)))
+    lse_undropped = torch.equal(lse, off_lse)
+    other = not torch.equal(sparse_kernel.sparse_fwd(*args, scale, dropout_rate=rate,
+                                                     seed=other_seed)[0], out)
+    again = sparse_kernel.sparse_fwd(*args, scale, **drop)
+    deterministic = torch.equal(again[0], out) and torch.equal(again[1], lse)
+    del off_out, zero_out, off_grads, zero_grads, again
+    ref_out, ref_lse = sparse_kernel.sparse_fwd_plain(*args, scale, **drop)
+    ref_max = ref_out.float().abs().max().item()
+    tol = 1e-5 * max(1.0, ref_max) if dtype == torch.float32 else BF16_ULP * ref_max
+    fin = torch.isfinite(ref_lse)
+    err = (out.float() - ref_out.float()).abs().max().item()
+    lse_err = (lse[fin] - ref_lse[fin]).abs().max().item() if fin.any() else 0.0
+    ok = (err <= tol and lse_err <= 1e-4 and bool(torch.isfinite(out).all())
+          and torch.equal(torch.isposinf(lse), torch.isposinf(ref_lse)))
+    del ref_out, ref_lse
+    if dtype == torch.float32:
+        ref = sparse_kernel.sparse_bwd_plain(*args, out, lse, do, scale, **drop)
+        bounds = [1e-5 * max(1.0, r.abs().max().item()) for r in ref]
+    else:
+        ref, bounds = sparse_dropout_bf16_bound(*args, out, lse, do, scale, rate, seed)
+    errs, ratios = [], []
+    for got, want, bound in zip(grads, ref, bounds):
+        diff = (got.float() - want.float()).abs()
+        bound = torch.as_tensor(bound, device=diff.device)
+        errs.append(diff.max().item())
+        ratios.append(torch.where(bound > 0, diff / bound,
+                                  torch.where(diff > 0, math.inf, 0.0)).max().item())
+        ok = ok and bool(torch.isfinite(got).all())
+    for i in masked_b:
+        rows = slice(i * heads, (i + 1) * heads)
+        ok = ok and bool((out[rows] == 0).all()) and bool(torch.isposinf(lse[rows]).all())
+        ok = ok and all(bool((t[rows] == 0).all()) for t in grads)
+    ok = (ok and max(ratios) <= 1.0 and counts and rate0 and lse_undropped and other
+          and deterministic)
+    row = {"case": label, "rate": rate, "shape": [b * heads, n, dh],
+           "block_size": scfg.block_size, "dtype": str(dtype),
+           "active": table.nnz / table.n_blocks ** 2, "route": which, "fwd_err": err,
+           "fwd_tol": tol, "lse_err": lse_err, "dq_err": errs[0], "dkv_err": max(errs[1:]),
+           "bound_ratio": max(ratios), "counts": counts, "rate0_bit_equal": rate0,
+           "lse_undropped": lse_undropped, "second_seed_differs": other,
+           "deterministic": deterministic, "ok": bool(ok)}
+    log(f"[sparse dropout a] {label:14s} rate {rate} {str(tuple(row['shape'])):16s} bs "
+        f"{scfg.block_size:3d} {str(dtype).split('.')[-1]:8s} {which}: fwd|d|={err:.2e} "
+        f"(tol {tol:.2e}) lse|d|={lse_err:.1e} dq|d|={errs[0]:.2e} dkv|d|={max(errs[1:]):.2e} "
+        f"(bound ratio {max(ratios):.3f}); counts {counts}, rate 0 bit-equal {rate0}, lse "
+        f"undropped {lse_undropped}, 2nd seed differs {other} {'ok' if ok else 'FAIL'}")
+    del q, k, v, do, bias, out, lse, grads, ref, bounds
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_sparse_dropout_kernels():
+    """(a) the three kernels with dropout against their plain versions at
+    rates 0.1 and 0.5 on every route: wgmma at the trained (2048, 256, 64)
+    and served (3072, 384, 64) shapes, mma_sync at block size 32 and at
+    dh 32, f32; masked batch elements on three of them."""
+    cases = [
+        ("trained wgmma", 256, 8, 256, 64, torch.bfloat16, 16, 256, ()),
+        ("served wgmma", 384, 8, 384, 64, torch.bfloat16, 16, 384, ()),
+        ("mma_sync bs 32", 4, 2, 384, 64, torch.bfloat16, 32, 384, (1,)),
+        ("mma_sync dh 32", 4, 4, 384, 32, torch.bfloat16, 16, 384, (2,)),
+        ("f32", 4, 2, 384, 64, torch.float32, 16, 384, (2,)),
+    ]
+    rows = []
+    for label, b, heads, n, dh, dtype, bs, msl, masked in cases:
+        scfg = sparse.SparseConfig(block_size=bs, max_seq_len=msl)
+        for rate in SPARSE_DROPOUT_RATES:
+            rows.append(check_sparse_dropout(label, b, heads, n, dh, dtype, scfg, rate,
+                                             masked_b=masked))
+    want = {"trained wgmma": "wgmma", "served wgmma": "wgmma", "mma_sync bs 32": "mma_sync",
+            "mma_sync dh 32": "mma_sync", "f32": "f32"}
+    off = [r["case"] for r in rows if r["route"] != want[r["case"]]]
+    RECORD["phases"]["sparse_dropout_kernels"] = rows
+    if off or not all(r["ok"] for r in rows):
+        fail("a block-sparse kernel with dropout disagrees with its plain version, left its "
+             f"route or miscounted (phase 16a): {[r['case'] for r in rows if not r['ok']]} "
+             f"{off}")
+    return rows
+
+
+@contextlib.contextmanager
+def plain_versions_refused():
+    """Inside: the gather version and B5's plain versions raise when called
+    (a CUDA tensor must reach the kernels)."""
+    def refused(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain or gather version of B5")
+
+    saved = [(sparse, "block_sparse_attention")] + [
+        (sparse_kernel, name) for name in ("sparse_fwd_plain", "sparse_bwd_plain",
+                                           "sparse_bwd_dq_plain", "sparse_bwd_dkv_plain")]
+    originals = [getattr(module, name) for module, name in saved]
+    for module, name in saved:
+        setattr(module, name, refused)
+    try:
+        yield
+    finally:
+        for (module, name), fn in zip(saved, originals):
+            setattr(module, name, fn)
+
+
+def sparse_dropout_config(**fields):
+    """train_pre's widths (dim 256, depth 1, heads 8, dim_head 64) in bf16
+    with layer 0 sparse at max_seq_len 256 (0.66 of the blocks active at
+    crop 256), `fields` over them."""
+    return train_pre_config(**{**dict(sparse_self_attn=True, max_seq_len=256), **fields})
+
+
+def phase_sparse_dropout_step(L=256, accum=2):
+    """(b) the sparse train step with attention and FF dropout 0.1 (bf16,
+    crop L, accum 2): the captured step against the eager step over 3
+    steps with three step rngs, bit for bit (`capture_vs_eager`: loss,
+    grad_norm, every param, AdamW moment and count), every B5 launch of
+    the capture on wgmma; one batch under two rngs gives two losses; no
+    plain or gather version runs (`plain_versions_refused`). Returns the
+    launches from a reset just before to just after: the eager steps, the
+    warm-up and capture, and the replays (the capture's launches times its
+    replays); every B5 launch among them drops."""
+    cfg = sparse_dropout_config(attn_dropout=SPARSE_DROPOUT, ff_dropout=SPARSE_DROPOUT)
+    with plain_versions_refused():
+        captured, state, batch = capture_vs_eager("sparse dropout", cfg, L, accum, wgmma=True,
+                                                  rngs=[61, 62, 63])
+        losses = two_rngs_differ(captured, state, batch, seeds=(64, 65))
+    sync()
+    launches = launch_counts()
+    for name, n in captured.replayed_launches().items():
+        launches[name] = launches.get(name, 0) + n
+    capture = next(iter(captured.captures.values()))
+    dropping = all(launches[f"{k}_dropout"] == launches[k] > 0 for k in DROP_KERNELS)
+    ok = (losses[0] != losses[1] and len(captured.captures) == 1 and on_wgmma(launches)
+          and dropping)
+    log(f"[sparse dropout b] crop {L}, accum {accum}, attn and ff dropout {SPARSE_DROPOUT}: "
+        f"one batch under two rngs, losses {losses}; captured launches {capture.launches}; "
+        f"launches {dict((k, n) for k, n in launches.items() if n and k.startswith('sparse'))}"
+        f"{', all on wgmma' if on_wgmma(launches) else ', OFF wgmma'}, every B5 launch "
+        f"dropping {dropping} {'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["sparse_dropout_step"] = {
+        "L": L, "grad_accum": accum, "config": repr(cfg), "two_rng_losses": losses,
+        "captured_launches": capture.launches, "launches": launches, "ok": ok}
+    del captured, state
+    if not ok:
+        fail("the captured sparse dropout step replays frozen masks, left wgmma or ran B5 "
+             "without dropout (phase 16b)")
+    return launches
+
+
+def rev_dropout_grads(layers, cfg, x, m, gx, gm, reverse, rng_seed):
+    """`trunk_grads` with dropout: the loss sum(out * g) of
+    `reversible_trunk_apply` under a CPU generator seeded `rng_seed`, and
+    its gradient in the inputs and every param leaf."""
+    leaves = reversible.param_leaves(layers)
+    x, m = x.clone().requires_grad_(True), m.clone().requires_grad_(True)
+    xo, mo = reversible.reversible_trunk_apply(layers, cfg, x, m, reverse=reverse,
+                                               rng=torch.Generator().manual_seed(rng_seed))
+    loss = (xo.float() * gx.float()).sum() + (mo.float() * gm.float()).sum()
+    return loss.item(), torch.autograd.grad(loss, [x, m] + leaves)
+
+
+def phase_sparse_dropout_recompute(L=128, accum=2):
+    """(c) the recomputes redraw the forward's masks, layer 0 sparse with
+    attention dropout 0.2: the eager bf16 step (train_pre's widths, crop
+    L, accum 2, max_seq_len L) with remat and remat_policy "dots" against
+    the sequential step from the same params, batch and rng, bit for bit
+    on loss, grad_norm and every param; the reversible trunk in f32
+    (`reversible_parity_config`: depth 2, L = 64, a 16-row MSA) with
+    reverse=True against plain autograd through the same masks, its loss
+    within 1e-5 relative and each gradient leaf within 1e-4 of its largest
+    entry (13a's tolerance), another rng another loss; B5 dropping on its
+    wgmma and f32 routes."""
+    tcfg = TrainConfig(grad_accum=accum)
+    batch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, seed=13), accum)(0)
+    fields = dict(max_seq_len=L, attn_dropout=SPARSE_RECOMPUTE_DROPOUT)
+    runs = {}
+    reset_launches()
+    with plain_versions_refused():
+        for label, extra in (("sequential", {}),
+                             ("remat dots", dict(remat=True, remat_policy="dots"))):
+            cfg = sparse_dropout_config(**fields, **extra)
+            state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+            _, metrics = make_train_step(cfg, tcfg, device="cuda")(
+                state, batch, torch.Generator().manual_seed(71))
+            runs[label] = (metrics, [t.detach().clone() for t in state["optimizer"].leaves])
+            del state
+        sync()
+        remat_launches = launch_counts()
+        (ms, ps), (mr, pr) = runs["sequential"], runs["remat dots"]
+        remat_equal = (torch.equal(ms["loss"], mr["loss"])
+                       and torch.equal(ms["grad_norm"], mr["grad_norm"])
+                       and all(torch.equal(a, b) for a, b in zip(ps, pr)))
+        cfg = reversible_parity_config(attn_dropout=SPARSE_RECOMPUTE_DROPOUT)
+        layers = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda")["trunk"]
+        for t in reversible.param_leaves(layers):
+            t.requires_grad_(True)
+        x, m, gx, gm = trunk_inputs(cfg, 64, 16, 64, seed=23)
+        reset_launches()
+        loss_rev, rev = rev_dropout_grads(layers, cfg, x, m, gx, gm, True, 72)
+        sync()
+        rev_launches = launch_counts()
+        loss_plain, plain = rev_dropout_grads(layers, cfg, x, m, gx, gm, False, 72)
+        loss_other, _ = rev_dropout_grads(layers, cfg, x, m, gx, gm, False, 73)
+    errs = grad_errors(rev, plain)
+    loss_rel = abs(loss_rev - loss_plain) / abs(loss_plain)
+    dropping = (remat_launches["sparse_fwd_dropout"] > 0
+                and remat_launches["sparse_bwd_dq_dropout"] > 0
+                and all(rev_launches[f"{k}_dropout"] == rev_launches[f"{k}_f32"] > 0
+                        for k in DROP_KERNELS))
+    ok = (remat_equal and loss_rel <= 1e-5 and max(errs) <= 1e-4 and loss_other != loss_plain
+          and dropping)
+    log(f"[sparse dropout c] remat dots vs sequential (bf16, crop {L}, accum {accum}): loss, "
+        f"grad_norm and params bit-equal {remat_equal} (losses {float(ms['loss']):.6f} / "
+        f"{float(mr['loss']):.6f}); reversible vs plain autograd (f32, {len(errs)} leaves): loss "
+        f"rel {loss_rel:.2e} (1e-5), worst leaf {max(errs):.2e} of its largest (1e-4), another "
+        f"rng {loss_other:.4f} vs {loss_plain:.4f}; B5 dropping {dropping} "
+        f"{'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["sparse_dropout_recompute"] = {
+        "remat_bit_equal": remat_equal, "remat_launches": remat_launches,
+        "reversible_loss_rel": loss_rel, "reversible_worst_leaf": max(errs),
+        "reversible_launches": rev_launches, "ok": ok}
+    if not ok:
+        fail("a recompute with sparse attention dropout departs from the sequential step "
+             "(phase 16c)")
+
+
+def phase_sparse_dropout_cpu(L=128):
+    """(d) `sparse_attention_apply` in f32 at L = 128 (batch 2, dim 128, 4
+    heads of 32, block size 16; batch element 1's last 28 keys padded,
+    element 0's keys 5% masked), attention dropout 0.1, one seed tensor
+    handed to the card and to the CPU (`sparse.draw_seed` returning it:
+    the layer's one draw): the output within 1e-5 * max(1, |ref|); the
+    gradient of sum(out * g) in x and every param within 1e-4 of each
+    leaf's largest entry; the card's call on B5's f32 dropout kernels."""
+    cfg = AttentionConfig(dim=128, heads=4, dim_head=32, dropout=SPARSE_DROPOUT)
+    scfg = sparse.SparseConfig(block_size=16, max_seq_len=L)
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    x = torch.randn(2, L, 128, generator=gen, device="cuda")
+    g = torch.randn(2, L, 128, generator=gen, device="cuda")
+    mask = torch.rand(2, L, generator=gen, device="cuda") >= 0.05
+    mask[1, L - 28:] = False
+    seed = sparse.draw_seed(gen, "cuda")
+    params = attention_init(torch.Generator().manual_seed(82), cfg, "cpu")
+    reset_launches()
+    got = {}
+    draw = sparse.draw_seed
+    sparse.draw_seed = lambda rng, device: seed.to(device)
+    try:
+        for dev in ("cuda", "cpu"):
+            p = {name: {key: t.to(dev).requires_grad_() for key, t in d.items()}
+                 for name, d in params.items()}
+            xx = x.detach().to(dev).requires_grad_()
+            out = sparse.sparse_attention_apply(p, cfg, scfg, xx, mask=mask.to(dev),
+                                                rng=torch.Generator(dev))
+            leaves = [xx] + list(tree_leaves(p))
+            got[dev] = (out.detach().cpu(), [t.cpu() for t in torch.autograd.grad(
+                out, leaves, g.to(dev))])
+            if dev == "cuda":
+                sync()
+                launches = launch_counts()
+    finally:
+        sparse.draw_seed = draw
+    err = (got["cuda"][0] - got["cpu"][0]).abs().max().item()
+    tol = 1e-5 * max(1.0, got["cpu"][0].abs().max().item())
+    errs = grad_errors(got["cuda"][1], got["cpu"][1])
+    dropping = all(launches[f"{k}_dropout"] == launches[f"{k}_f32"] == 1 for k in DROP_KERNELS)
+    ok = err <= tol and max(errs) <= 1e-4 and dropping
+    log(f"[sparse dropout d] f32 L={L}, one seed on both devices: out |d|={err:.2e} (tol "
+        f"{tol:.2e}), worst gradient leaf {max(errs):.2e} of its largest (1e-4), "
+        f"{len(errs)} leaves; the card on B5's f32 dropout kernels {dropping} "
+        f"{'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["sparse_dropout_cpu"] = {"out_err": err, "out_tol": tol,
+                                              "grad_worst": max(errs), "ok": ok}
+    if not ok:
+        fail("sparse attention with dropout on the card departs from the CPU from one seed "
+             "(phase 16d)")
+
+
+def dropout_bound_terms(q, bias, table, kind):
+    """`sparse_bound_terms` with dropout: the same bytes (and the seed's
+    16), the tensor cores' operations as without, and PHILOX_OPS 32-bit
+    integer operations for each active element's keep bit on the CUDA
+    cores at the float32 rate (67 TFLOP/s: the integer pipes are no
+    faster). Operations: the larger of the two units' times (they run
+    side by side). Returns (ops_ms, bytes_ms)."""
+    ops_ms, bytes_ms = sparse_bound_terms(q, bias, table, kind)
+    elements = float(q.shape[0]) * table.nnz * table.block_size ** 2
+    philox_ms = PHILOX_OPS * elements / PEAK_FLOPS[torch.float32] * 1e3
+    return max(ops_ms, philox_ms), bytes_ms + 16 / HBM_BYTES_PER_S * 1e3
+
+
+def phase_sparse_dropout_timing(L=256, reps=5):
+    """(e) times, reported. The captured crop-L sparse step (train_pre's
+    widths, bf16, layer 0 sparse, accum 16) with no dropout, FF dropout
+    0.1, and attention and FF dropout 0.1: median ms of `reps` replays
+    (CUDA events, after one untimed). Each B5 kernel at (2048, 256, 64,
+    0.66 active), with and without dropout 0.1 in turns (off, on, on, off;
+    CUDA events, mean of 20 each), beside its plain version with dropout
+    on the card (the gather version, 2 calls), SDPA with the layout as a
+    boolean mask and dropout_p 0.1 (forward, or the backward for the
+    kernel's gradients) and `dropout_bound_terms`."""
+    tcfg = TrainConfig(grad_accum=16)
+    batch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, seed=11), 16)(0)
+    steps = []
+    for label, fields in (("no dropout", {}), ("ff 0.1", dict(ff_dropout=SPARSE_DROPOUT)),
+                          ("attn+ff 0.1", dict(attn_dropout=SPARSE_DROPOUT,
+                                               ff_dropout=SPARSE_DROPOUT))):
+        cfg = sparse_dropout_config(**fields)
+        state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+        step = CapturedTrainStep(cfg, tcfg, state, batch)
+        median, times = captured_ms(step, state, batch, reps, make_rng=seeded(5))
+        steps.append({"label": label, "captured_ms": median, "captured_runs_ms": times,
+                      "captured_launches": next(iter(step.captures.values())).launches})
+        del step, state
+        log(f"[sparse dropout e] crop {L}, accum 16, captured sparse step {label}: "
+            f"{median:.2f} ms (runs {[round(t, 2) for t in times]})")
+    q, k, v, do, bias, table = sparse_inputs(256, 8, 256, 64, torch.bfloat16,
+                                             sparse.SparseConfig(block_size=16, max_seq_len=256))
+    scale, heads = 0.125, 8
+    args = (q, k, v, bias, table, heads)
+    drop = dict(dropout_rate=SPARSE_DROPOUT,
+                seed=sparse.draw_seed(torch.Generator(device="cuda").manual_seed(91), "cuda"))
+    out, lse = sparse_kernel.sparse_fwd(*args, scale, **drop)
+    delta = flash_kernel.cotangent_terms(out, do)[1]
+    bwd = (q, k, v, bias, table, heads, lse, do, delta, scale)
+    calls = {"fwd": (lambda **kw: sparse_kernel.sparse_fwd(*args, scale, **kw)),
+             "dq": (lambda **kw: sparse_kernel.launch_dq(*bwd, **kw)),
+             "dkv": (lambda **kw: sparse_kernel.launch_dkv(*bwd, **kw))}
+    plains = {"fwd": lambda: sparse_kernel.sparse_fwd_plain(*args, scale, **drop),
+              "dq": lambda: sparse_kernel.sparse_bwd_dq_plain(*bwd, **drop),
+              "dkv": lambda: sparse_kernel.sparse_bwd_dkv_plain(*bwd, **drop)}
+    mask = torch.isfinite(sparse_dense_bias(bias, table, heads))[None]
+    row = {"shape": [256 * heads, 256, 64], "active": table.nnz / table.n_blocks ** 2}
+    for kind, fn in calls.items():
+        off = [time_ms(fn, 20)]
+        on = [time_ms(lambda: fn(**drop), 20), time_ms(lambda: fn(**drop), 20)]
+        off.append(time_ms(fn, 20))
+        row[f"{kind}_ms"], row[f"{kind}_nodrop_ms"] = sum(on) / 2, sum(off) / 2
+        row[f"{kind}_runs_ms"], row[f"{kind}_nodrop_runs_ms"] = on, off
+        row[f"{kind}_plain_ms"] = time_ms(plains[kind], 2)
+        wrt = {"fwd": None, "dq": "q", "dkv": "kv"}[kind]
+        row[f"{kind}_library_ms"] = sdpa_mask_ms(q, k, v, mask, scale, 10,
+                                                 None if wrt is None else do, wrt,
+                                                 dropout_p=SPARSE_DROPOUT)
+        t_ops, t_bytes = dropout_bound_terms(q, bias, table, kind)
+        row[f"{kind}_ops_ms"], row[f"{kind}_bytes_ms"] = t_ops, t_bytes
+        row[f"{kind}_bound_ms"] = max(t_ops, t_bytes)
+        lib = row[f"{kind}_library_ms"]
+        log(f"[sparse dropout e] B5 {kind} (2048, 256, 64, {row['active']:.2f}) dropout "
+            f"{SPARSE_DROPOUT}: {row[f'{kind}_ms']:.4f} ms (runs "
+            f"{[round(t, 4) for t in on]}) against {row[f'{kind}_nodrop_ms']:.4f} without "
+            f"({[round(t, 4) for t in off]}); plain {row[f'{kind}_plain_ms']:.3f}, SDPA "
+            f"dropout_p {SPARSE_DROPOUT} {'none' if lib is None else f'{lib:.4f}'}, bound "
+            f"{row[f'{kind}_bound_ms']:.4f} ({'operations' if t_ops >= t_bytes else 'bytes'})")
+    RECORD["phases"]["sparse_dropout_timing"] = {"steps": steps, "kernels": row}
+    del q, k, v, do, out, lse, delta, mask
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_sparse_dropout():
+    """16: attention dropout inside the block-sparse kernels. Returns (a)'s
+    rows, (b)'s launches and (e)'s kernel times."""
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        RECORD["phases"][f"sparse_dropout_{key}_s"] = time.perf_counter() - t
+        log(f"[time] sparse dropout {key}: {RECORD['phases'][f'sparse_dropout_{key}_s']:.1f} s")
+        return result
+
+    rows = timed("a", phase_sparse_dropout_kernels)
+    launches = timed("b", phase_sparse_dropout_step)
+    timed("c", phase_sparse_dropout_recompute)
+    timed("d", phase_sparse_dropout_cpu)
+    times = timed("e", phase_sparse_dropout_timing)
+    return rows, launches, times
+
 
 # --- phase 5: the kernels line -----------------------------------------------------
 
@@ -5385,7 +5887,8 @@ def phase_dropout_random_init():
 SPARSE_LINE_CASES = ("pair axial L=384", "long n=4096")  # B5's timed rows in the kernels line
 
 
-def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows, launches):
+def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows, launches,
+                 dropout_rows, dropout_times):
     """One entry per kernel. Forwards: numbers summed over the serving
     path's three attention shapes at L = 384 in bf16 (one launch of each;
     B2f gated). Backwards: summed over the training path's pair-axial
@@ -5416,7 +5919,13 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     (each bucket's warm-up and capture), phase 15a's dropout step (its
     eager steps, warm-up, capture and replays) and phase 15c's
     random-init engine (its warm-ups, captures, replays and eager
-    references))."""
+    references), and phase 16b's sparse dropout step). B5 with attention
+    dropout (`<kernel>_dropout`, the same sources' Dropout<true>
+    instantiations): max_abs_err over phase 16a's checks (every route, rates
+    0.1 and 0.5), times from 16e at (2048, 256, 64, 0.66 active) with
+    dropout 0.1 (plain: the gather version with dropout; library: SDPA with
+    dropout_p 0.1), launches from 16b (its eager steps, warm-up, capture
+    and replays: the dropout counts)."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r
@@ -5494,6 +6003,22 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
             >= sum(r[f"{kind}_bytes_ms"] for r in timed) else "bytes",
             "library_ms": None if any(x is None for x in lib) else sum(lib),
         })
+    for name, kind in (("sparse_fwd", "fwd"), ("sparse_bwd_dq", "dq"),
+                       ("sparse_bwd_dkv", "dkv")):
+        t = dropout_times
+        out.append({
+            "name": f"{name}_dropout",
+            "route": "cuda",
+            "source": SOURCES["sparse_attn"],
+            "replaces": REPLACES[name],
+            "launches": launches[f"{name}_dropout"],
+            "max_abs_err": max(r[f"{kind}_err"] for r in dropout_rows),
+            "ms": t[f"{kind}_ms"],
+            "plain_ms": t[f"{kind}_plain_ms"],
+            "bound_ms": t[f"{kind}_bound_ms"],
+            "bound_by": "operations" if t[f"{kind}_ops_ms"] >= t[f"{kind}_bytes_ms"] else "bytes",
+            "library_ms": t[f"{kind}_library_ms"],
+        })
     timed = [r for r in lse_rows if "kernel_ms" in r]
     lib = [r["library_ms"] for r in timed]
     out.append({
@@ -5562,8 +6087,12 @@ def main():
         launches[name] = launches.get(name, 0) + n
     for name, n in timed_phase("dropout_random_init", phase_dropout_random_init).items():
         launches[name] = launches.get(name, 0) + n
+    dropout_rows, dropout_launches, dropout_times = timed_phase("sparse_dropout",
+                                                                phase_sparse_dropout)
+    for name, n in dropout_launches.items():
+        launches[name] = launches.get(name, 0) + n
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
-                           launches)
+                           launches, dropout_rows, dropout_times)
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")

@@ -540,6 +540,54 @@ def test_sparse_kernels_match_plain_on_card(cuda_device, bs, dh, dtype):
         assert (got[2:4] == 0).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,bs", [(64, 16), (32, 32), (16, 64)])
+def test_sparse_dropout_kernels_match_plain_on_card(cuda_device, bs, dh, dtype, rate):
+    """B5f, B5 dq and B5 dkv with attention dropout against the plain
+    versions with the same seed tensor (the same keep bits, `philox_keep`),
+    at the tolerances of test_sparse_kernels_match_plain_on_card (bf16
+    backward: `chip_smoke.sparse_dropout_bf16_bound`, the bound on the
+    dropped function). lse is the undropped one's; rate 0 gives the kernels
+    without dropout bit for bit; each launch is counted under its dropout
+    count too; the masked batch element gives zeros."""
+    from alphafold2_tpu_torch.ops import sparse
+    from alphafold2_tpu_torch.ops import sparse_kernel as sk
+    from chip_smoke import sparse_dropout_bf16_bound
+
+    q, k, v, g, bias, table, heads = sparse_inputs(bs, dh, dtype, cuda_device)
+    scale = dh ** -0.5
+    seed = sparse.draw_seed(torch.Generator(device=cuda_device).manual_seed(3), cuda_device)
+    drop = dict(dropout_rate=rate, seed=seed)
+    before = dict(sk.LAUNCHES)
+    out, lse = sk.sparse_fwd(q, k, v, bias, table, heads, scale, **drop)
+    dq, dk, dv = sk.sparse_bwd(q, k, v, bias, table, heads, out, lse, g, scale, **drop)
+    torch.cuda.synchronize()
+    for name in ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv"):
+        assert sk.LAUNCHES[f"{name}_dropout"] == before[f"{name}_dropout"] + 1
+    ref_out, ref_lse = sk.sparse_fwd_plain(q, k, v, bias, table, heads, scale, **drop)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * ref_out.float().abs().max().item()
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    fin = torch.isfinite(ref_lse)
+    assert (lse[fin] - ref_lse[fin]).abs().max().item() <= 1e-4
+    plain_out, plain_lse = sk.sparse_fwd(q, k, v, bias, table, heads, scale)
+    assert torch.equal(lse, plain_lse) and not torch.equal(out, plain_out)
+    zero = sk.sparse_fwd(q, k, v, bias, table, heads, scale, dropout_rate=0.0, seed=seed)
+    assert torch.equal(zero[0], plain_out) and torch.equal(zero[1], plain_lse)
+    assert (out[2:4] == 0).all() and torch.isposinf(lse[2:4]).all()
+    if dtype == torch.float32:
+        ref = sk.sparse_bwd_plain(q, k, v, bias, table, heads, out, lse, g, scale, **drop)
+        bounds = [1e-5 * max(1.0, r.abs().max().item()) for r in ref]
+    else:
+        ref, bounds = sparse_dropout_bf16_bound(q, k, v, bias, table, heads, out, lse, g, scale,
+                                                rate, seed)
+    for got, want, bound in zip((dq, dk, dv), ref, bounds):
+        assert torch.isfinite(got).all()
+        assert ((got.float() - want.float()).abs() <= bound).all()
+        assert (got[2:4] == 0).all()
+
+
 # the wgmma route's cases: (b, heads, n, max_seq_len, masked batch elements)
 WGMMA_CASES = {
     "global row (8, 4096, 64)": (1, 8, 4096, 2048, ()),
@@ -767,31 +815,52 @@ def test_card_routes_raise_instead_of_falling_back(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_sparse_dropout_raises_on_card(cuda_device, monkeypatch):
-    """Live attention dropout on a CUDA tensor raises (the sparse kernels
-    have no dropout) instead of taking the gather version, and
-    make_train_step refuses a sparse config with attention dropout on the
-    card before its first step."""
+def test_sparse_dropout_runs_the_kernels_on_card(cuda_device, monkeypatch):
+    """Live attention dropout on a CUDA tensor runs B5f, B5 dq and B5 dkv
+    with their dropout (each launch counted under its dropout count), never
+    a plain or the gather version; the seed is drawn from the layer's
+    generator on the card, so the same generator state gives the same
+    output and gradients, another another. make_train_step takes a sparse
+    config with attention dropout and its step runs the dropout kernels."""
     from alphafold2_tpu_torch import Alphafold2Config
-    from alphafold2_tpu_torch.ops import sparse
+    from alphafold2_tpu_torch.ops import sparse, sparse_kernel
     from alphafold2_tpu_torch.ops.attention import AttentionConfig, attention_init
-    from alphafold2_tpu_torch.training import harness
+    from alphafold2_tpu_torch.training import data, harness
 
     def plain_called(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached a plain version")
 
-    monkeypatch.setattr(sparse, "block_sparse_attention", plain_called)
+    for module, name in ((sparse, "block_sparse_attention"),
+                         (sparse_kernel, "sparse_fwd_plain"), (sparse_kernel, "sparse_bwd_plain"),
+                         (sparse_kernel, "sparse_bwd_dq_plain"),
+                         (sparse_kernel, "sparse_bwd_dkv_plain")):
+        monkeypatch.setattr(module, name, plain_called)
     cfg = AttentionConfig(dim=16, heads=2, dim_head=16, dropout=0.1)
     params = attention_init(torch.Generator().manual_seed(0), cfg, cuda_device)
     scfg = sparse.SparseConfig(block_size=16, max_seq_len=64)
-    x = torch.randn(2, 32, 16, device=cuda_device)
-    rng = torch.Generator(device=cuda_device).manual_seed(1)
-    with pytest.raises(ValueError, match="have no dropout"):
-        sparse.sparse_attention_apply(params, cfg, scfg, x, rng=rng)
-    model = Alphafold2Config(dim=16, depth=1, heads=2, dim_head=16, max_seq_len=64,
+    x = torch.randn(2, 40, 16, device=cuda_device, requires_grad=True)
+    outs, grads = [], []
+    for seed in (1, 1, 2):
+        before = dict(sparse_kernel.LAUNCHES)
+        rng = torch.Generator(device=cuda_device).manual_seed(seed)
+        out = sparse.sparse_attention_apply(params, cfg, scfg, x, rng=rng)
+        grads.append(torch.autograd.grad(out.sum(), x)[0])
+        outs.append(out.detach())
+        torch.cuda.synchronize()
+        for name in ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv"):
+            assert sparse_kernel.LAUNCHES[f"{name}_dropout"] == before[f"{name}_dropout"] + 1
+    assert torch.equal(outs[0], outs[1]) and torch.equal(grads[0], grads[1])
+    assert not torch.equal(outs[0], outs[2])
+    model = Alphafold2Config(dim=32, depth=1, heads=2, dim_head=16, max_seq_len=64,
                              sparse_self_attn=True, attn_dropout=0.1)
-    with pytest.raises(ValueError, match="make_train_step: sparse_self_attn"):
-        harness.make_train_step(model, harness.TrainConfig(grad_accum=1), device=cuda_device)
+    tcfg = harness.TrainConfig(grad_accum=1)
+    state = harness.train_state_init(model, tcfg, torch.Generator().manual_seed(0), cuda_device)
+    step = harness.make_train_step(model, tcfg, device=cuda_device)
+    batch = data.synthetic_microbatch_fn(data.DataConfig(max_len=48, seed=2), 1)(0)
+    before = sparse_kernel.LAUNCHES["sparse_fwd_dropout"]
+    _, metrics = step(state, batch, torch.Generator().manual_seed(4))
+    assert torch.isfinite(metrics["loss"])
+    assert sparse_kernel.LAUNCHES["sparse_fwd_dropout"] > before
 
 
 # --- B3: the lse flash kernels of the ring hops ----------------------------------
