@@ -117,3 +117,25 @@ def GDT(A, B, *, mode: str = "TS", weights=None, mask=None, norm_len=None):
 
 def TMscore(A, B, *, mask=None, norm_len=None):
     return tmscore(A, B, mask=mask, norm_len=norm_len)
+
+
+def structure_eval(pred, true, mask=None) -> dict:
+    """Quality of predicted against true clouds (counterpart of
+    alphafold2_tpu/utils/observability.py `structure_eval`). pred, true:
+    (b, N, 3); mask (b, N) bool. The prediction is Kabsch-aligned onto the
+    truth first; returns the batch means of rmsd, gdt_ts, gdt_ha and tm as
+    floats (one device-to-host copy)."""
+    from alphafold2_tpu_torch.geometry.kabsch import kabsch
+
+    pred = torch.as_tensor(pred).float().transpose(-1, -2)  # (b, 3, N)
+    true = torch.as_tensor(true, device=pred.device).float().transpose(-1, -2)
+    w = None if mask is None else torch.as_tensor(mask, device=pred.device).float()
+    pred_al, true_c = kabsch(pred, true, weights=w)
+    scores = {
+        "rmsd": rmsd(pred_al, true_c, mask=w),
+        "gdt_ts": gdt(pred_al, true_c, cutoffs=GDT_TS_CUTOFFS, mask=w),
+        "gdt_ha": gdt(pred_al, true_c, cutoffs=GDT_HA_CUTOFFS, mask=w),
+        "tm": tmscore(pred_al, true_c, mask=w),
+    }
+    means = torch.stack([v.mean() for v in scores.values()]).cpu().tolist()
+    return dict(zip(scores, means))

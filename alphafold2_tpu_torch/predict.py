@@ -13,6 +13,7 @@ Usage:
   python -m alphafold2_tpu_torch.predict --seq ... --ckpt-dir runs/pre --depth 1 \
       --max-seq-len 2048 --bf16
   python -m alphafold2_tpu_torch.predict --seq ... --full-atom [--embedds-file e.npz]
+  python -m alphafold2_tpu_torch.predict --seq ... --trace-out trace.json
 
 Parameters come from `--ckpt-dir` (the newest verified checkpoint there,
 `training/checkpoint.py`, written by either package's `train_pre`; the
@@ -42,6 +43,10 @@ would change the structure, since the trunk's pair mask (mask_i | mask_j,
 the reference's) lets pad keys into every real row. int8 weights
 with --full-atom are refused (ROADMAP A8-e2e-int8): the JAX full-atom CLI
 has no int8 arm.
+
+`--trace-out` writes the run's spans as a Chrome trace (`predict.forward`,
+which closes after the outputs reach the host, and `predict.write_pdb`),
+also when the prediction fails.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.geometry.distogram import distogram_confidence
 from alphafold2_tpu_torch.geometry.pdb import coords_to_pdb
 from alphafold2_tpu_torch.models.alphafold2 import alphafold2_init
+from alphafold2_tpu_torch.telemetry import add_telemetry_args, finish_trace, tracer_from_args
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.models.refiner import RefinerConfig
 from alphafold2_tpu_torch.parallel import alphafold2_apply_sp, make_mesh
@@ -174,6 +180,7 @@ def main(argv=None):
                     help="the full structure pipeline with the refiner (parameters of an "
                          "end-to-end checkpoint with --ckpt-dir); writes N/CA/C/O atoms")
     ap.add_argument("--refiner-depth", type=int, default=2)
+    add_telemetry_args(ap)  # --trace-out / --trace-max-spans
     args = ap.parse_args(argv)
     if args.full_atom and args.weight_dtype == "int8":
         raise NotImplementedError(
@@ -225,10 +232,22 @@ def main(argv=None):
         weight_dtype=args.weight_dtype,
     )
     gen = torch.Generator().manual_seed(args.seed)
-    if args.full_atom:
-        predict_full_atom(args, cfg, tokens, seq_str, msa, msa_mask, embedds, templates,
-                          templates_mask, gen, device, model_apply_fn)
-        return
+    tracer = tracer_from_args(args)  # NULL_TRACER unless --trace-out
+    try:  # a failed prediction keeps its trace
+        if args.full_atom:
+            predict_full_atom(args, cfg, tokens, seq_str, msa, msa_mask, embedds, templates,
+                              templates_mask, gen, device, model_apply_fn, tracer)
+        else:
+            predict_ca(args, cfg, tokens, seq_str, msa, msa_mask, embedds, templates,
+                       templates_mask, gen, device, model_apply_fn, tracer)
+    finally:
+        finish_trace(tracer, args)
+
+
+def predict_ca(args, cfg, tokens, seq_str, msa, msa_mask, embedds, templates, templates_mask,
+               gen, device, model_apply_fn, tracer):
+    """sequence -> CA trace PDB."""
+    L = tokens.shape[1]
     # checkpoints hold f32 masters: restore against the f32 twin of the
     # config, then quantize as the weights are served
     restore_cfg = dataclasses.replace(cfg, weight_dtype="f32")
@@ -237,23 +256,26 @@ def main(argv=None):
     params, residency = resident_params(params, cfg)
     print(f"weights: {residency['weight_dtype']}, {residency['weight_bytes']:,} bytes "
           f"resident ({residency['fp32_weight_bytes']:,} in f32)")
-    out = predict_structure(
-        params, cfg, tokens, msa=msa, msa_mask=msa_mask, embedds=embedds,
-        templates=templates, templates_mask=templates_mask,
-        mds_iters=args.mds_iters, mds_init=args.mds_init, generator=gen,
-        device=None if model_apply_fn else device, model_apply_fn=model_apply_fn,
-    )
-    trace = out["coords"][0].cpu().numpy()
-    conf = out["confidence"][0].cpu().numpy()
+    # the span closes after the outputs reach the host
+    with tracer.span("predict.forward", cat="predict", length=L):
+        out = predict_structure(
+            params, cfg, tokens, msa=msa, msa_mask=msa_mask, embedds=embedds,
+            templates=templates, templates_mask=templates_mask,
+            mds_iters=args.mds_iters, mds_init=args.mds_init, generator=gen,
+            device=None if model_apply_fn else device, model_apply_fn=model_apply_fn,
+        )
+        trace = out["coords"][0].cpu().numpy()
+        conf = out["confidence"][0].cpu().numpy()
     print(f"MDS final stress: {float(out['stress'][0]):.4f}")
     print(f"mean confidence: {100 * conf.mean():.1f}/100")
-    coords_to_pdb(args.out, np.asarray(trace, np.float64), sequence=seq_str,
-                  atom_names=("CA",), bfactors=100.0 * conf)
+    with tracer.span("predict.write_pdb", cat="predict", length=L):
+        coords_to_pdb(args.out, np.asarray(trace, np.float64), sequence=seq_str,
+                      atom_names=("CA",), bfactors=100.0 * conf)
     print(f"wrote {args.out} ({L} residues)")
 
 
 def predict_full_atom(args, cfg, tokens, seq_str, msa, msa_mask, embedds, templates,
-                      templates_mask, gen, device, model_apply_fn):
+                      templates_mask, gen, device, model_apply_fn, tracer):
     """sequence -> refined 14-atom cloud -> N/CA/C/O PDB (the JAX CLI's
     `_predict_full_atom`): the end-to-end parameters (restored from
     --ckpt-dir, or the port's init from --seed), `training/e2e.py
@@ -268,18 +290,21 @@ def predict_full_atom(args, cfg, tokens, seq_str, msa, msa_mask, embedds, templa
     if embedds is not None:
         # per-residue embeddings -> one per backbone atom (x3 elongation)
         embedds = np.repeat(embedds, 3, axis=1)
-    with torch.inference_mode():
+    with tracer.span("predict.forward", cat="predict", length=L, full_atom=True), \
+            torch.inference_mode():
         out = e2e.predict_structure(
             params, ecfg, tokens, msa=msa, msa_mask=msa_mask, embedds=embedds,
             templates=templates, templates_mask=templates_mask,
             model_apply_fn=model_apply_fn, mds_generator=gen,
             device=None if model_apply_fn else device)
         conf3 = distogram_confidence(torch.softmax(out["distogram_logits"], dim=-1))
-    backbone = out["refined"][0, :, :4].cpu().numpy()  # the N, CA, C, O slots
+        backbone = out["refined"][0, :, :4].cpu().numpy()  # the N, CA, C, O slots
     conf = conf3[0].cpu().numpy().reshape(L, 3).mean(axis=1)
     print(f"mean confidence: {100 * conf.mean():.1f}/100")
-    coords_to_pdb(args.out, np.asarray(backbone.reshape(-1, 3), np.float64), sequence=seq_str,
-                  atom_names=("N", "CA", "C", "O"), bfactors=100.0 * conf)
+    with tracer.span("predict.write_pdb", cat="predict", length=L, full_atom=True):
+        coords_to_pdb(args.out, np.asarray(backbone.reshape(-1, 3), np.float64),
+                      sequence=seq_str, atom_names=("N", "CA", "C", "O"),
+                      bfactors=100.0 * conf)
     print(f"wrote {args.out} ({L} residues, full pipeline)")
 
 

@@ -23,12 +23,31 @@ alphafold2_tpu/serving/engine.py `ServingEngine`).
     and a hung-batch watchdog (`watchdog_timeout_s`) fails a wedged batch
     instead of the worker.
 
+  * **Telemetry** (the JAX engine's seams, `telemetry/`). A `tracer`
+    records each request's lifecycle as spans: `serving.enqueue` (client
+    thread), `serving.queue_wait`, `serving.batch`, `serving_capture` (a
+    (bucket, rung)'s first batch), `serving.execute` and `serving.respond`,
+    each with the request's `trace_id` (a batch's spans: `trace_ids`).
+    A cost ledger holds one cell a (bucket, rung): the forward's analytic
+    FLOPs, the executable's priced resident bytes, and EMAs of a batch's
+    seconds and requests. A serve-goodput ledger classifies the replica's
+    wall clock (execute, compile, requeue, idle); a `FlightBook` keeps each
+    request's flight for `/explainz`; `incident_hook` hears breaker opens
+    and watchdog fires. A batch's seconds are its device time, two CUDA
+    events around the replays (recorded under the graph pool's lock), when
+    a live tracer or a cost ledger is passed in; else, and on the CPU, its
+    host window less any capture. With nothing passed in the engine makes
+    no CUDA call the untelemetered engine did not make: its spans are the
+    no-op tracer's, and its host adds, per dispatched batch, one read of
+    the capture tracker (a lock), one goodput and one cost-ledger update
+    (a lock and a few dict writes each) into private ledgers, which
+    `stats()` reports.
+
 Not ported in this engine, each refused with its ROADMAP item when set:
 the sequence-parallel arm (`sp_shards`, `sp_schedules`: A11b), early exit
 (`early_exit_depths`, `early_exit_kl`: A5 remainder), pipelined dispatch
-(`pipeline_depth`: A11a-pipelined), the chaos seam (`fault_hook`: A11b),
-and the tracer and the cost and goodput ledgers (`tracer`, `cost_ledger`,
-`goodput`, `flights`: A14).
+(`pipeline_depth`: A11a-pipelined), the chaos seam (`fault_hook`: A11b)
+and the fleet's pool label (`pool_name`: A11b-3).
 
 The random MDS init (`mds_init="random"`): device call i (counted from 1)
 starts MDS from the draw of a generator seeded fold_in(seed, i)
@@ -43,6 +62,9 @@ the abandoned dispatch thread it left), one at a time under the graph
 pool's lock. A capture runs in CUDA's global capture mode, where no other
 thread of the process may synchronize with the card: build every
 executable up front (`precompile`) where other threads use the card.
+`health()`, `stats()`, `sample_gauges()` and the telemetry objects read
+host state only, so the ops plane's threads may call them during a
+capture.
 """
 
 from __future__ import annotations
@@ -59,6 +81,8 @@ import torch
 
 from alphafold2_tpu_torch.constants import PAD_TOKEN_ID, aa_to_tokens
 from alphafold2_tpu_torch.device import check_params_device, resolve_device
+from alphafold2_tpu_torch.ops.dispatch import OPS as DISPATCH_OPS
+from alphafold2_tpu_torch.ops.dispatch import resolve as dispatch_resolve
 from alphafold2_tpu_torch.reliability.breaker import CircuitBreaker
 from alphafold2_tpu_torch.serving.bucketing import (
     DEFAULT_BUCKETS,
@@ -83,7 +107,10 @@ from alphafold2_tpu_torch.serving.executable import (
     GraphPool,
 )
 from alphafold2_tpu_torch.serving.metrics import ServingMetrics
-from alphafold2_tpu_torch.serving.quant_residency import resident_params
+from alphafold2_tpu_torch.serving.quant_residency import resident_params, schedule_residency
+from alphafold2_tpu_torch.telemetry.costs import ExecutableCostLedger, ServeGoodputLedger
+from alphafold2_tpu_torch.telemetry.trace import NULL_TRACER, new_trace_id
+from alphafold2_tpu_torch.utils.flops import model_fwd_flops
 from alphafold2_tpu_torch.utils.rng import Streams, fold_in
 
 
@@ -164,13 +191,14 @@ class PredictionResult:
     from_cache: bool
     latency_s: float
     mean_confidence: float = 0.0  # over the true length
+    trace_id: str = ""        # the request's trace id (spans, flight record)
 
 
 class ServingRequest:
     """Client handle: a future resolved by the scheduler worker."""
 
     def __init__(self, seq: str, tokens: np.ndarray, msa, msa_mask, cache_key: str,
-                 bucket: int, deadline: Optional[float]):
+                 bucket: int, deadline: Optional[float], trace_id: str = ""):
         self.seq = seq
         self.tokens = tokens
         self.msa = msa
@@ -178,6 +206,7 @@ class ServingRequest:
         self.cache_key = cache_key
         self.bucket = bucket
         self.deadline = deadline
+        self.trace_id = trace_id or new_trace_id()
         self.submitted_at = time.monotonic()
         self._event = threading.Event()
         self._lock = threading.Lock()
@@ -286,22 +315,34 @@ class ServingEngine:
     model_cfg: `Alphafold2Config` (max_seq_len must cover the ladder);
     cfg: `ServingConfig`; device: where it serves (default CUDA, where
     every executable is a captured graph pair; "cpu" runs eager).
-    `fault_hook`, `tracer`, `cost_ledger`, `goodput` and `flights` are the
-    JAX engine's seams that are not ported: set, they raise with their
-    ROADMAP item.
+    metrics_logger: a `MetricsLogger` given one record a batch.
+    tracer: a `telemetry.Tracer` (None: the no-op `NULL_TRACER`).
+    replica_name: stamped as `replica` on every span ("" = no tag), and
+    the serve-goodput account's name ("engine" when empty).
+    incident_hook: `fn(kind, **attrs)` on `breaker_open` and
+    `watchdog_fire` (a `FlightRecorder.incident`); its exceptions are
+    printed and swallowed.
+    cost_ledger / goodput: the ledgers to fill (None: private ones over
+    this engine's registry); either way `sample_gauges` publishes them and
+    `stats()` reports them. A cost ledger passed in, or a live tracer,
+    turns on the CUDA-event device timing.
+    flights: a `FlightBook` for this engine's submit -> terminal records.
+    Not ported, each refused with its ROADMAP item when set: `fault_hook`
+    (the chaos seam, A11b) and a `pool_name` other than "default" (the
+    fleet's capability pools, A11b-3; the cells' pool label stays
+    "default").
 
     `_call_executable` and `_realize` are overridable seams: tests stub
     the device call there without touching the scheduler."""
 
     def __init__(self, params, model_cfg, cfg: ServingConfig = ServingConfig(), *,
-                 device=None, fault_hook=None, tracer=None, cost_ledger=None, goodput=None,
-                 flights=None):
+                 device=None, metrics_logger=None, fault_hook=None, tracer=None,
+                 replica_name: str = "", incident_hook=None, pool_name: str = "default",
+                 cost_ledger=None, goodput=None, flights=None):
         if fault_hook is not None:
             _refuse("fault_hook", "A11b", "chaos injection into the engine")
-        for name, seam in (("tracer", tracer), ("cost_ledger", cost_ledger),
-                           ("goodput", goodput), ("flights", flights)):
-            if seam is not None:
-                _refuse(name, "A14", "the serving telemetry")
+        if pool_name != "default":
+            _refuse("pool_name", "A11b-3", "the fleet's capability pools")
         self._ladder = BucketLadder(cfg.buckets)
         if self._ladder.max_len > model_cfg.max_seq_len:
             raise ValueError(f"largest bucket {self._ladder.max_len} exceeds the model's "
@@ -338,16 +379,53 @@ class ServingEngine:
         self._batch_counter = 0  # device calls so far: the random init's index
         self._dispatch_counter = 0
         self._counter_lock = threading.Lock()
+        self.replica_name = replica_name
+        self._span_tags = {"replica": replica_name} if replica_name else {}
+        self._incident_hook = incident_hook
         self._breaker = (
-            CircuitBreaker(cfg.breaker_threshold, cfg.breaker_reset_s)
+            CircuitBreaker(cfg.breaker_threshold, cfg.breaker_reset_s,
+                           on_open=self._on_breaker_open)
             if cfg.breaker_threshold else None
         )
         self._queue: "queue.Queue[ServingRequest]" = queue.Queue(maxsize=cfg.max_queue)
         self._cache = ResultCache(cfg.cache_capacity)
         self._inflight = {}  # cache_key -> pending request (coalescing)
         self._inflight_lock = threading.Lock()
-        self.metrics = ServingMetrics()
+        self._tracer = tracer if tracer is not None else NULL_TRACER
+        self.metrics = ServingMetrics(logger=metrics_logger, tracer=self._tracer)
         self.metrics.set_weight_bytes(self._weight_residency)
+        # which arm each kernel op takes on this device (ops/dispatch.py)
+        self._dispatch_tag = (f"dispatch[{self.device.type}](" + ",".join(
+            f"{op}={dispatch_resolve(op, self.device)}" for op in DISPATCH_OPS) + ")")
+
+        # the serving cost plane: one cell a (bucket, rung), schedule
+        # "dense" (the JAX engine's "dense@b{B}" under the batch ladder)
+        self.pool_name = pool_name
+        # a batch's device time from CUDA events, only when something asked
+        # for it: without, the dispatch makes the CUDA calls it always made
+        self._device_timing = self._tracer.enabled or cost_ledger is not None
+        self.costs = (cost_ledger if cost_ledger is not None
+                      else ExecutableCostLedger(self.metrics.registry))
+        self.goodput = (goodput if goodput is not None
+                        else ServeGoodputLedger(self.metrics.registry))
+        self.flights = flights
+        self._goodput_name = replica_name or "engine"
+        self.goodput.register(self._goodput_name, pool_name)
+        self._cost_cells = {}
+        backend_arm = dispatch_resolve("flash_attention", self.device)
+        for bucket in self._ladder.buckets:
+            for shape in self._batch_shapes:
+                residency = schedule_residency(
+                    model_cfg, bucket=bucket, batch=shape, msa_rows=cfg.msa_rows,
+                    weight_bytes=self._weight_residency["weight_bytes"])
+                self._cost_cells[(bucket, shape)] = self.costs.register_cell(
+                    pool=pool_name, bucket=bucket,
+                    schedule=f"dense@b{shape}" if cfg.batch_ladder else "dense",
+                    backend_arm=backend_arm, weight_dtype=model_cfg.weight_dtype,
+                    forward_flops=model_fwd_flops(model_cfg, n=bucket, r=cfg.msa_rows,
+                                                  c=bucket),
+                    residency_bytes=residency["total_bytes"], chips=1, max_batch=shape)
+        self._timing = threading.local()  # a device call's CUDA events, call to realize
         self._closed = False
         self._drain_on_stop = True
         self._stop = threading.Event()
@@ -365,12 +443,27 @@ class ServingEngine:
 
     # ------------------------------------------------------------------ API
 
-    def submit(self, seq: str, *, msa=None, msa_mask=None,
-               timeout: Optional[float] = None) -> ServingRequest:
+    def submit(self, seq: str, *, msa=None, msa_mask=None, timeout: Optional[float] = None,
+               trace_id: str = "") -> ServingRequest:
         """Enqueue one sequence; returns a future at once. Raises
         EngineClosedError / InvalidSequenceError / SequenceTooLongError /
         QueueFullError / CircuitOpenError synchronously: a rejected request
-        never occupies the queue."""
+        never occupies the queue. `trace_id` correlates the request's spans,
+        flight record and result ("" mints one)."""
+        trace_id = trace_id or new_trace_id()
+        # the span covers validation, the cache and coalescing lookups and
+        # the enqueue; a rejection leaves it with an `error` attribute
+        with self._tracer.span("serving.enqueue", cat="serving", length=len(seq),
+                               trace_id=trace_id, **self._span_tags) as sp:
+            req = self._submit(seq, msa, msa_mask, timeout, trace_id)
+            sp.set("bucket", req.bucket)
+            if req.trace_id != trace_id:
+                # coalesced onto an identical in-flight request, whose id
+                # the shared future keeps
+                sp.set("coalesced_onto", req.trace_id)
+            return req
+
+    def _submit(self, seq, msa, msa_mask, timeout, trace_id) -> ServingRequest:
         if self._closed:
             self._reject(EngineClosedError("engine is shut down"))
         try:
@@ -379,6 +472,10 @@ class ServingEngine:
         except ServingError as e:
             self._reject(e)
         key = request_key(seq, msa_arr, self._config_tag, msa_mask=msa_mask)
+        if self.flights is not None:
+            self.flights.begin(trace_id, length=len(seq),
+                               **(self.cell_for(bucket) or {"pool": self.pool_name,
+                                                            "bucket": bucket}))
         cached = self._cache.get(key)
         if cached is not None:
             # never touches the queue, the scheduler or the model
@@ -386,8 +483,13 @@ class ServingEngine:
             self.metrics.inc("cache_hits")
             self.metrics.inc("completed")
             self.metrics.latency.observe(0.0)
-            req = ServingRequest(seq, tokens, msa_arr, msa_mask, key, bucket, deadline=None)
-            req._finish(result=dataclasses.replace(cached, from_cache=True, latency_s=0.0))
+            if self.flights is not None:
+                self.flights.finish(trace_id, "completed", from_cache=True,
+                                    replica=self.replica_name)
+            req = ServingRequest(seq, tokens, msa_arr, msa_mask, key, bucket, deadline=None,
+                                 trace_id=trace_id)
+            req._finish(result=dataclasses.replace(cached, from_cache=True, latency_s=0.0,
+                                                   trace_id=trace_id))
             return req
 
         ttl = self.cfg.request_timeout_s if timeout is None else timeout
@@ -396,15 +498,19 @@ class ServingEngine:
             existing = self._inflight.get(key)
             if existing is not None and not existing.done():
                 # an identical query is pending: share its future (and its
-                # deadline)
+                # deadline); this submitter's flight ends here
+                if self.flights is not None:
+                    self.flights.finish(trace_id, "coalesced", onto=existing.trace_id)
                 self.metrics.inc("coalesced")
                 return existing
             if self._breaker is not None and not self._breaker.allow():
                 snap = self._breaker.snapshot()
                 self._reject(CircuitOpenError(
                     f"circuit {snap['state']} after repeated dispatch failures (threshold "
-                    f"{snap['threshold']}); retry after {self.cfg.breaker_reset_s}s"))
-            req = ServingRequest(seq, tokens, msa_arr, msa_mask, key, bucket, deadline)
+                    f"{snap['threshold']}); retry after {self.cfg.breaker_reset_s}s"),
+                    trace_id=trace_id)
+            req = ServingRequest(seq, tokens, msa_arr, msa_mask, key, bucket, deadline,
+                                 trace_id=trace_id)
             # counted before the worker can complete it, so in_flight never
             # reads negative
             self.metrics.inc("submitted")
@@ -416,6 +522,8 @@ class ServingEngine:
                     self._breaker.abandon_probe()
                 self.metrics.inc("rejected")
                 self.metrics.inc_error("queue_full")
+                if self.flights is not None:
+                    self.flights.finish(trace_id, "rejected", code="queue_full")
                 raise QueueFullError(
                     f"request queue at capacity ({self.cfg.max_queue}); retry with backoff "
                     f"or raise ServingConfig.max_queue",
@@ -431,11 +539,27 @@ class ServingEngine:
             raise EngineClosedError("engine is shut down")
         return req
 
-    def _reject(self, exc: ServingError):
-        """Count a submit-time rejection under its code and raise it."""
+    def _reject(self, exc: ServingError, trace_id: str = ""):
+        """Count a submit-time rejection under its code and raise it;
+        `trace_id` seals a flight record begun before the rejection."""
         self.metrics.inc("rejected")
         self.metrics.inc_error(exc)
+        if self.flights is not None and trace_id:
+            self.flights.finish(trace_id, "rejected", code=exc.code)
         raise exc from None
+
+    def _incident(self, kind: str, **attrs):
+        """Report a reliability incident to the hook; a raising hook is
+        printed and swallowed."""
+        if self._incident_hook is None:
+            return
+        try:
+            self._incident_hook(kind, replica=self.replica_name, **attrs)
+        except Exception:  # noqa: BLE001 — observability must not stop serving
+            traceback.print_exc()
+
+    def _on_breaker_open(self, snapshot: dict):
+        self._incident("breaker_open", **snapshot)
 
     def predict(self, seq: str, *, msa=None, msa_mask=None,
                 timeout: Optional[float] = None) -> PredictionResult:
@@ -451,6 +575,30 @@ class ServingEngine:
     def config_tag(self) -> str:
         """The numerics identity the result cache keys on."""
         return self._config_tag
+
+    @property
+    def graph_lock(self):
+        """The graph pool's lock, held across every capture and replay
+        (None on the CPU): `ProfileCapturer(lock=)` starts and stops the
+        profiler under it, so the profiler never meets a capture."""
+        return self._pool.lock if self._pool is not None else None
+
+    def capability(self) -> dict:
+        """What traffic this engine can serve."""
+        return {"weight_dtype": self.model_cfg.weight_dtype, "sp_shards": self.cfg.sp_shards,
+                "max_len": self._ladder.max_len}
+
+    def cell_for(self, bucket: int, batch_shape: Optional[int] = None) -> dict:
+        """The cost cell a (bucket, batch shape) bills to (None: the top
+        rung, the identity known at submit time)."""
+        if batch_shape is None:
+            batch_shape = self._batch_shapes[-1]
+        key = self._cost_cells.get((bucket, batch_shape))
+        if key is None:
+            return {}
+        pool, b, schedule, arm, dtype = key
+        return {"pool": pool, "bucket": b, "schedule": schedule, "backend_arm": arm,
+                "weight_dtype": dtype}
 
     def retry_after_estimate(self) -> float:
         """Backoff advice for shed clients: the batch-assembly wait plus the
@@ -485,12 +633,20 @@ class ServingEngine:
                 out["status"] = "degraded"
         return out
 
+    def sample_gauges(self):
+        """Publish the cost plane's gauges (the ops plane's ticker calls it;
+        host state only)."""
+        self.costs.publish()
+        self.goodput.publish()
+
     def stats(self) -> dict:
         """JSON-ready snapshot: the JAX engine's keys, plus `device`,
         `captures` (each executable's build seconds, the launches its
         capture recorded and its replays) and `launches` (the kernel
         launches the replays made: captured launches x replays, by kernel
-        wrapper, where the wrappers' own counts see only the capture)."""
+        wrapper, where the wrappers' own counts see only the capture).
+        Host state only: safe from any thread during a capture."""
+        self.sample_gauges()
         snap = self.metrics.snapshot(self.cfg.max_batch)
         snap["queue"] = {"depth": self._queue.qsize(), "capacity": self.cfg.max_queue}
         snap["cache"] = self._cache.snapshot()
@@ -499,6 +655,8 @@ class ServingEngine:
         snap["batch_shapes"] = list(self._batch_shapes)
         snap["closed"] = self._closed
         snap["weights"] = dict(self._weight_residency)
+        snap["dispatch"] = self._dispatch_tag
+        snap["capability"] = self.capability()
         snap["device"] = str(self.device)
         exes = sorted(self._executables.items())  # no lock: never wait on a capture
         snap["captures"] = [{"bucket": b, "batch": s, "seconds": exe.seconds,
@@ -511,7 +669,10 @@ class ServingEngine:
         snap["launches"] = launches
         if self._breaker is not None:
             snap["breaker"] = self._breaker.snapshot()
-        snap["telemetry"] = {"metrics": self.metrics.registry.snapshot()}
+        snap["costs"] = self.costs.snapshot()
+        snap["serve_goodput"] = self.goodput.snapshot()
+        snap["telemetry"] = {"metrics": self.metrics.registry.snapshot(),
+                             "spans": self._tracer.summary()}
         return snap
 
     def shutdown(self, drain: bool = True, timeout: Optional[float] = None):
@@ -552,6 +713,15 @@ class ServingEngine:
             with self._inflight_lock:
                 if self._inflight.get(req.cache_key) is req:
                     del self._inflight[req.cache_key]
+            if self.flights is not None:
+                # every terminal path resolves here: seal the flight
+                if exc is not None:
+                    self.flights.finish(req.trace_id, "failed",
+                                        code=getattr(exc, "code", type(exc).__name__),
+                                        replica=self.replica_name)
+                else:
+                    self.flights.finish(req.trace_id, "completed", replica=self.replica_name,
+                                        latency_s=result.latency_s, batch_bucket=result.bucket)
         return finished
 
     # ------------------------------------------------------ executables
@@ -566,6 +736,7 @@ class ServingEngine:
             exe = self._executables.get((bucket, batch_shape))
             if exe is not None:
                 return exe
+            t_compile = time.monotonic()
             with self.metrics.capture_span(bucket):
                 if self.device.type == "cuda":
                     exe = CapturedExecutable(self._params, self.model_cfg, batch=batch_shape,
@@ -578,6 +749,9 @@ class ServingEngine:
                                           mds_iters=self.cfg.mds_iters,
                                           mds_init=self.cfg.mds_init, device=self.device,
                                           streams=self._init_streams)
+            # the capture's wall is "compile"; the dispatch that triggered
+            # it subtracts the tracker's delta from its own window
+            self.goodput.add(self._goodput_name, "compile", time.monotonic() - t_compile)
             self._executables[(bucket, batch_shape)] = exe
             return exe
 
@@ -590,7 +764,15 @@ class ServingEngine:
         with self._counter_lock:
             self._batch_counter += 1
             index = self._batch_counter
-        return exe(tokens, mask, msa, msa_mask, seed=self.init_seed(index))
+        if self.device.type != "cuda" or not self._device_timing:
+            return exe(tokens, mask, msa, msa_mask, seed=self.init_seed(index))
+        # the call's device time: two events on the engine's stream around
+        # the replays, recorded under the pool's lock (outside any capture)
+        # and read after _realize has waited for the outputs
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        out = exe(tokens, mask, msa, msa_mask, seed=self.init_seed(index), events=events)
+        self._timing.events = events
+        return out
 
     def init_seed(self, index: int) -> int:
         """The random MDS init's seed for device call `index`: fold_in(seed,
@@ -603,20 +785,38 @@ class ServingEngine:
         return {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
                 for k, v in out.items()}
 
-    def _dispatch(self, bucket: int, tokens, mask, msa=None, msa_mask=None):
+    def _dispatch(self, bucket: int, tokens, mask, msa=None, msa_mask=None, trace_ids=()):
         """`_call_executable` and `_realize`, under the watchdog when one is
         set: the call then runs on a throwaway daemon thread, and past the
         timeout it is abandoned (a thread cannot be killed) and the batch
-        fails with HungBatchError while the worker keeps serving."""
+        fails with HungBatchError while the worker keeps serving. Returns
+        (the host outputs, the call's device seconds from CUDA events, or
+        None off the card, without device timing or when the seam is
+        stubbed)."""
+        with self._counter_lock:
+            idx = self._dispatch_counter
+            self._dispatch_counter += 1
+
         def call():
-            return self._realize(self._call_executable(bucket, tokens, mask, msa, msa_mask))
+            # the span closes after _realize has waited for the outputs, and
+            # carries the events' device_ms; bind_trace stamps the batch's
+            # ids onto the nested capture span too
+            with self._tracer.bind_trace(list(trace_ids)), \
+                    self._tracer.span("serving.execute", cat="serving", bucket=bucket,
+                                      batch=int(tokens.shape[0]), dispatch=idx,
+                                      trace_ids=list(trace_ids), **self._span_tags) as sp:
+                self._timing.events = None
+                out = self._realize(self._call_executable(bucket, tokens, mask, msa, msa_mask))
+                events, self._timing.events = self._timing.events, None
+                device_s = None
+                if events is not None:
+                    device_s = events[0].elapsed_time(events[1]) / 1e3
+                    sp.set("device_ms", device_s * 1e3)
+                return out, device_s
 
         timeout = self.cfg.watchdog_timeout_s
         if timeout is None:
             return call()
-        with self._counter_lock:
-            idx = self._dispatch_counter
-            self._dispatch_counter += 1
         box, done = {}, threading.Event()
 
         def runner():
@@ -627,8 +827,11 @@ class ServingEngine:
             finally:
                 done.set()
 
-        threading.Thread(target=runner, daemon=True, name=f"af2-dispatch-{idx}").start()
+        threading.Thread(target=runner, daemon=True,
+                         name=f"af2-dispatch-{self.replica_name or 'engine'}-{idx}").start()
         if not done.wait(timeout):
+            self._incident("watchdog_fire", bucket=bucket, dispatch=idx, timeout_s=timeout,
+                           trace_ids=list(trace_ids))
             raise HungBatchError(f"dispatch {idx} (bucket {bucket}) exceeded the {timeout}s "
                                  f"hung-batch watchdog; call abandoned")
         if "exc" in box:
@@ -738,7 +941,19 @@ class ServingEngine:
         # which then must be released
         if len(live) < len(reqs) and self._breaker is not None:
             self._breaker.abandon_probe()
-        if live:
+        if not live:
+            return
+        if not allow_split:
+            # a poison-isolation retry runs inside its parent's batch span:
+            # no second queue_wait or batch span for it
+            self._run_live(bucket, live, allow_split)
+            return
+        if self._tracer.enabled:
+            for req in live:
+                self._tracer.add("serving.queue_wait", now - req.submitted_at, cat="serving",
+                                 bucket=bucket, trace_id=req.trace_id, **self._span_tags)
+        with self._tracer.span("serving.batch", cat="serving", bucket=bucket, n=len(live),
+                               trace_ids=[r.trace_id for r in live], **self._span_tags):
             self._run_live(bucket, live, allow_split)
 
     def _batch_shape_for(self, n: int) -> int:
@@ -749,11 +964,15 @@ class ServingEngine:
                 return s
         return self._batch_shapes[-1]
 
-    def _fail_live(self, bucket: int, live, e: Exception, allow_split: bool):
-        """A failed batch: split a multi-request batch into single-request
-        retries (a poison request must not fail its batchmates; a hung
-        batch is not split, the device is the suspect), else resolve every
-        request with the terminal error."""
+    def _fail_live(self, bucket: int, live, e: Exception, allow_split: bool,
+                   burned_s: float = 0.0):
+        """A failed batch: its burned host seconds go to goodput's
+        "requeue"; split a multi-request batch into single-request retries
+        (a poison request must not fail its batchmates; a hung batch is not
+        split, the device is the suspect), else resolve every request with
+        the terminal error."""
+        if burned_s > 0.0:
+            self.goodput.add(self._goodput_name, "requeue", burned_s)
         hung = isinstance(e, HungBatchError)
         if not hung and allow_split and len(live) > 1:
             for req in live:
@@ -772,8 +991,13 @@ class ServingEngine:
                 self.metrics.inc("failed")
                 self.metrics.inc_error(err)
 
+    def _billed(self, window: float, compile_s0: float) -> float:
+        """A dispatch's host window less the captures made during it."""
+        return max(0.0, window - (self.metrics.compile_seconds_total() - compile_s0))
+
     def _run_live(self, bucket: int, live, allow_split: bool):
         shape = self._batch_shape_for(len(live))
+        t0 = None  # set once the device call starts
         try:
             # assembly sits inside the guard: a request that breaks the
             # padding fails like one that breaks the model call
@@ -781,19 +1005,33 @@ class ServingEngine:
             msa = msa_mask = None
             if self.cfg.msa_rows:
                 msa, msa_mask = pad_msa_batch(live, bucket, shape, self.cfg.msa_rows)
+            # a (bucket, rung)'s first batch captures inside this window:
+            # the capture's seconds reach neither "execute" nor the EMA
+            compile_s0 = self.metrics.compile_seconds_total()
             t0 = time.monotonic()
-            out = self._dispatch(bucket, tokens, mask, msa, msa_mask)
+            out, device_s = self._dispatch(bucket, tokens, mask, msa, msa_mask,
+                                           trace_ids=[r.trace_id for r in live])
             window = time.monotonic() - t0
+            exec_s = self._billed(window, compile_s0)
             coords = np.asarray(out["coords"])
             conf = np.asarray(out["confidence"])
             stress = np.asarray(out["stress"])
         except Exception as e:  # noqa: BLE001 — isolate, report, keep serving
-            self._fail_live(bucket, live, e, allow_split)
+            burned = self._billed(time.monotonic() - t0, compile_s0) if t0 is not None else 0.0
+            self._fail_live(bucket, live, e, allow_split, burned_s=burned)
             return
         if self._breaker is not None:
             self._breaker.record_success()
+        # accounted before the requests resolve
+        self.goodput.add(self._goodput_name, "execute", exec_s)
+        self.costs.observe_batch(self._cost_cells[(bucket, shape)],
+                                 device_seconds=exec_s if device_s is None else device_s,
+                                 requests=len(live))
         self._note_drain(window, len(live))
-        self._respond(bucket, shape, live, coords, conf, stress, n_real, time.monotonic())
+        done_at = time.monotonic()
+        with self._tracer.span("serving.respond", cat="serving", bucket=bucket, n=len(live),
+                               trace_ids=[r.trace_id for r in live], **self._span_tags):
+            self._respond(bucket, shape, live, coords, conf, stress, n_real, done_at)
 
     def _respond(self, bucket, shape, live, coords, conf, stress, n_real, done_at):
         for i, req in enumerate(live):
@@ -805,7 +1043,7 @@ class ServingEngine:
                 seq=req.seq, coords=coords[i, :L].copy(), confidence=conf_i,
                 stress=float(stress[i]), bucket=bucket, from_cache=False,
                 latency_s=done_at - req.submitted_at,
-                mean_confidence=float(conf_i.mean()) if L else 0.0,
+                mean_confidence=float(conf_i.mean()) if L else 0.0, trace_id=req.trace_id,
             )
             self._cache.put(req.cache_key, result)
             if self._resolve(req, result=result):

@@ -98,6 +98,7 @@ class EagerExecutable:
         self.replays = 0
 
     def __call__(self, tokens, mask, msa=None, msa_mask=None, *, seed=None):
+        # no `events`: off the card the engine times the host window
         out = predict_structure(self.params, self.cfg, tokens, mask=mask, msa=msa,
                                 msa_mask=msa_mask, mds_iters=self.mds_iters,
                                 mds_init=self.mds_init,
@@ -206,8 +207,14 @@ class CapturedExecutable:
     def logits(self):
         return self.geo["distogram_logits"]
 
-    def __call__(self, tokens, mask, msa=None, msa_mask=None, *, seed=None):
+    def __call__(self, tokens, mask, msa=None, msa_mask=None, *, seed=None, events=None):
+        """`events`: a (start, end) pair of timing `torch.cuda.Event`s,
+        recorded on the current stream around the copies in, the replays
+        and the clones out, under the pool's lock (so outside any capture);
+        read them after the outputs are on the host."""
         with self.pool.lock, torch.inference_mode():
+            if events is not None:
+                events[0].record()
             # the reseed and the replays are one step under the lock: a
             # replay's prologue reads the seed
             _init_generator(self.streams, self.mds_init, seed)
@@ -220,4 +227,7 @@ class CapturedExecutable:
             self._eigh()
             self.graphs[1].replay()
             self.replays += 1
-            return {k: self.out[k].clone() for k in OUTPUTS}
+            out = {k: self.out[k].clone() for k in OUTPUTS}
+            if events is not None:
+                events[1].record()
+            return out

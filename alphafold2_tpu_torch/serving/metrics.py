@@ -5,17 +5,19 @@ Every count lives in a `telemetry.registry.MetricRegistry`:
   requests:  counter `serving_requests_total{outcome=...}`
   errors:    counter `serving_errors_total{code=...}`
   batches:   counters `serving_batches_total` / `serving_batch_requests_total`
-  captures:  counter `serving_capture_total{bucket=...}`, gauge
-             `serving_capture_seconds_total{bucket=...}`: the port's
-             counterpart of the JAX engine's compiles, one per (bucket,
-             batch rung) executable built (a CUDA graph capture on the
-             card, an eager executable on the CPU)
+  captures:  counter `serving_capture_total{bucket=...}`, gauges
+             `serving_capture_seconds_total` / `serving_capture_last_seconds`
+             and a `serving_capture` span (`telemetry/hooks.py
+             CompileTracker`): the port's counterpart of the JAX engine's
+             compiles, one per (bucket, batch rung) executable built (a
+             CUDA graph capture on the card, an eager executable on the CPU)
   latency:   histogram `serving_request_latency_seconds` (sliding window)
   padding:   gauge `serve_batch_pad_ratio`, padded rows / live rows
 
 `snapshot()` keeps the JAX engine's JSON shape, `compiles` included
 (`count` = distinct buckets built, `seconds_by_bucket`), so one set of
-assertions reads both engines' `stats()`.
+assertions reads both engines' `stats()`. An optional `MetricsLogger`
+gets one record a dispatched batch.
 """
 
 from __future__ import annotations
@@ -24,8 +26,12 @@ import collections
 import contextlib
 import threading
 import time
+from typing import Optional
 
+from alphafold2_tpu_torch.telemetry.hooks import CompileTracker
+from alphafold2_tpu_torch.telemetry.logger import MetricsLogger
 from alphafold2_tpu_torch.telemetry.registry import MetricRegistry
+from alphafold2_tpu_torch.telemetry.trace import NULL_TRACER
 
 # request-terminal counters: everything submitted lands in exactly one of
 # completed / failed / timed_out, or stays in flight
@@ -43,25 +49,38 @@ _COUNTERS = (
 class ServingMetrics:
     """Thread-safe counters and histograms for one engine."""
 
-    def __init__(self):
+    def __init__(self, logger: Optional[MetricsLogger] = None, tracer=NULL_TRACER):
         self.registry = MetricRegistry()
         # one lock over the terminal counters, so a stats() reader sees a
         # consistent in_flight
         self._counts_lock = threading.Lock()
-        self._counts = {name: self.registry.counter("serving_requests_total", outcome=name)
+        self._counts = {name: self.registry.counter("serving_requests_total",
+                                                    help="request-terminal outcomes",
+                                                    outcome=name)
                         for name in _COUNTERS}
         self._errors_lock = threading.Lock()
         self._errors = {}  # stable error code -> Counter
-        self.latency = self.registry.histogram("serving_request_latency_seconds")
-        self._batches = self.registry.counter("serving_batches_total")
-        self._batch_requests = self.registry.counter("serving_batch_requests_total")
+        self.latency = self.registry.histogram(
+            "serving_request_latency_seconds", help="submit->complete latency, sliding window")
+        self._batches = self.registry.counter("serving_batches_total",
+                                              help="dispatched batches")
+        self._batch_requests = self.registry.counter(
+            "serving_batch_requests_total", help="real requests across dispatched batches")
         self._recent_lock = threading.Lock()
         self._recent_batch_sizes = collections.deque(maxlen=256)
         self._shape_rows = 0   # sum of the chosen batch shapes
         self._live_rows = 0    # sum of real requests
-        self._pad_ratio_gauge = self.registry.gauge("serve_batch_pad_ratio")
+        self._pad_ratio_gauge = self.registry.gauge(
+            "serve_batch_pad_ratio",
+            help="cumulative padded rows / live rows across dispatched batches")
         self._captures_lock = threading.Lock()
         self._capture_seconds = {}  # bucket -> seconds gauge
+        # the tracker's `serving_capture_seconds_total{bucket}` gauge is the
+        # object the snapshot's per-bucket view holds (identity = name +
+        # labels), so the two never diverge
+        self.compile_tracker = CompileTracker(self.registry, tracer=tracer,
+                                              prefix="serving_capture")
+        self._logger = logger
         self._t0 = time.monotonic()
 
     def inc(self, name: str, n: int = 1):
@@ -90,28 +109,32 @@ class ServingMetrics:
             self._live_rows += n_real
             live, pad = self._live_rows, self._shape_rows - self._live_rows
         self._pad_ratio_gauge.set(pad / live if live else 0.0)
+        if self._logger is not None:
+            self._logger.log(int(self._batches.value), {
+                "batch_requests": n_real,
+                "batch_shape": batch_shape,
+                "batch_occupancy": n_real / batch_shape,
+                "batch_latency_s": latency_s,
+            })
 
     @contextlib.contextmanager
     def capture_span(self, bucket: int):
-        """Around one executable's build: counter and seconds gauge under
-        the bucket. A build that raises counts under
+        """Around one executable's build: the tracker's counters, gauges and
+        span under the bucket. A build that raises counts under
         `serving_capture_failed_total` and never as a built bucket."""
-        t0 = time.perf_counter()
-        try:
+        with self.compile_tracker.track(bucket=str(bucket)):
             yield
-        except BaseException:
-            self.registry.counter("serving_capture_failed_total", bucket=str(bucket)).inc()
-            raise
-        self.registry.counter("serving_capture_total", bucket=str(bucket)).inc()
-        gauge = self.registry.gauge("serving_capture_seconds_total", bucket=str(bucket))
-        gauge.inc(time.perf_counter() - t0)
+        gauge = self.registry.gauge("serving_capture_seconds_total",
+                                    help="cumulative compile wall seconds", bucket=str(bucket))
         with self._captures_lock:
             self._capture_seconds[bucket] = gauge
 
     def set_weight_bytes(self, residency: dict):
         """`serving_weight_bytes{tag, weight_dtype}`: the bytes this
         engine's parameter tree keeps on its device."""
-        self.registry.gauge("serving_weight_bytes", tag=residency["tag"],
+        self.registry.gauge("serving_weight_bytes",
+                            help="resident parameter-tree bytes for this engine's residency tag",
+                            tag=residency["tag"],
                             weight_dtype=residency["weight_dtype"]).set(residency["weight_bytes"])
 
     @property
@@ -119,6 +142,13 @@ class ServingMetrics:
         """Distinct buckets with a built executable (<= len(buckets))."""
         with self._captures_lock:
             return len(self._capture_seconds)
+
+    def compile_seconds_total(self) -> float:
+        """Cumulative capture seconds over every bucket: the engine reads it
+        around a device call, so a first call's capture stays out of the
+        cost ledger's EMA and goodput's "execute"."""
+        with self._captures_lock:
+            return float(sum(g.value for g in self._capture_seconds.values()))
 
     def snapshot(self, max_batch: int) -> dict:
         with self._counts_lock:
@@ -135,7 +165,8 @@ class ServingMetrics:
         in_flight = (counts["submitted"] - counts["completed"] - counts["failed"]
                      - counts["timed_out"])
         latency = self.latency.snapshot()
-        latency.pop("sum", None)
+        latency.pop("sum", None)      # the lifetime sum and the cumulative
+        latency.pop("buckets", None)  # buckets are /metrics detail
         return {
             "uptime_s": time.monotonic() - self._t0,
             "requests": {**counts, "in_flight": in_flight},

@@ -12,6 +12,8 @@ Usage:
       --heads 2 --dim-head 8 --len 8 --mds-iters 5 --device cpu [--features esm]
   python -m alphafold2_tpu_torch.train_end2end --steps 50 --ckpt-dir runs/e2e \\
       --ckpt-every 25 [--max-restarts 3] [--fault-plan plan.json]
+  python -m alphafold2_tpu_torch.train_end2end --steps 50 --metrics-jsonl m.jsonl \\
+      --eval-every 10 --trace-out trace.json --profile-dir prof/ [--ops-port 0]
 
 The JAX CLI's flags and defaults: dim 64, depth 2, heads 4, dim_head 16,
 crop 16 (the trunk sees 3 x 16 backbone tokens), batch 1, 2 microbatches
@@ -48,21 +50,30 @@ execution limit to split the step for, so it runs the monolithic
 reversible step; as the JAX CLI does, it refuses to run without
 `--reversible` and under `--max-restarts` / `--fault-plan`.
 
-Not ported: `--sp-shards` and multi-host runs (ROADMAP A13), `--data
-sidechainnet` (it needs a dataset in the repository), `--eval-every`,
-`--metrics-jsonl`, the trace and observability flags and `--profile-dir`
-/ `--profile-steps` (A14).
+Telemetry, the JAX CLI's flags: `--metrics-jsonl` (the JSONL stream of
+`telemetry/logger.py`), `--eval-every N` (rmsd, gdt_ts, gdt_ha and tm of
+the last microbatch's refined cloud against its truth, `geometry/metrics.py
+structure_eval`), `--trace-out` / `--trace-max-spans`, the live ops plane
+and goodput ledger (`--ops-port`, `--ops-port-file`, `--flight-dir`,
+`--progress-horizon-s`, `--peak-tflops`), and `--profile-dir` /
+`--profile-steps` (a `torch.profiler` window of that many steps from the
+second, written as `<profile-dir>/trace.json` by `hooks.profile_trace`). The resilient loop ignores `--eval-every` and
+`--profile-dir`, as the JAX CLI does. Not ported: `--sp-shards` and
+multi-host runs with their `--federate-every` (refused: ROADMAP A13),
+`--data sidechainnet` (it needs a dataset in the repository).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
 
 from alphafold2_tpu_torch.device import resolve_device
+from alphafold2_tpu_torch.geometry.metrics import structure_eval
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.models.embedder import (
     EmbedderConfig,
@@ -73,6 +84,17 @@ from alphafold2_tpu_torch.models.embedder import (
 )
 from alphafold2_tpu_torch.models.refiner import RefinerConfig
 from alphafold2_tpu_torch.reliability.preemption import Preempted, PreemptionHandler
+from alphafold2_tpu_torch.telemetry import (
+    MetricRegistry,
+    MetricsLogger,
+    add_observability_args,
+    add_telemetry_args,
+    build_train_telemetry,
+    finish_trace,
+    observability_enabled,
+    profile_trace,
+    tracer_from_args,
+)
 from alphafold2_tpu_torch.training.checkpoint import finish, open_or_init
 from alphafold2_tpu_torch.training.data import (
     DataConfig,
@@ -81,6 +103,7 @@ from alphafold2_tpu_torch.training.data import (
     synthetic_microbatch_fn,
     synthetic_structure_batches,
 )
+from alphafold2_tpu_torch.training import e2e
 from alphafold2_tpu_torch.training.e2e import E2EConfig, e2e_loss_fn, e2e_train_state_init
 from alphafold2_tpu_torch.training.harness import (
     add_train_args,
@@ -95,6 +118,7 @@ from alphafold2_tpu_torch.training.resilience import (
     run_resilient,
 )
 from alphafold2_tpu_torch.training.segmented import make_segmented_train_step
+from alphafold2_tpu_torch.utils.flops import train_step_flops
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -143,6 +167,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None, help="checkpoint/resume directory")
     ap.add_argument("--ckpt-every", type=int, default=25)
     add_resilience_args(ap)  # --max-restarts / --ckpt-verify / --fault-plan
+    add_telemetry_args(ap)   # --trace-out / --trace-max-spans
+    add_observability_args(ap)  # --ops-port / --flight-dir / --federate-every
+    ap.add_argument("--eval-every", type=int, default=0, help="0 = no eval")
+    ap.add_argument("--metrics-jsonl", default=None, help="JSONL metrics stream")
+    ap.add_argument("--profile-dir", default=None, help="torch.profiler trace dir")
+    ap.add_argument(
+        "--profile-steps", type=int, default=10,
+        help="trace this many steps (starting after the first, at step start+1)",
+    )
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' to run there)")
     return ap
@@ -248,6 +281,17 @@ def main(argv=None):
     def make_rng(step):  # dropout's (and the random MDS init's) generator
         return torch.Generator().manual_seed(args.seed * 1_000_003 + step + 1)
 
+    tracer = tracer_from_args(args)  # NULL_TRACER unless --trace-out
+    # a logger only when something reads it: its fetch is a sync a step
+    logger = (MetricsLogger(jsonl_path=args.metrics_jsonl, print_every=None)  # report() prints
+              if args.metrics_jsonl or tracer.enabled or observability_enabled(args) else None)
+    registry = MetricRegistry(enabled=tracer.enabled or observability_enabled(args))
+    telemetry = build_train_telemetry(
+        args, registry=registry, tracer=tracer, logger=logger,
+        # the pair side is the x3 backbone; the MSA columns stay at the crop
+        step_flops=train_step_flops(ecfg.model, 3 * args.max_len,
+                                    dcfg.msa_rows, args.max_len,
+                                    grad_accum=tcfg.grad_accum))
     t0 = time.time()
     last = start + args.steps - 1
 
@@ -259,6 +303,10 @@ def main(argv=None):
 
     metrics = None
     if resilient:
+        if args.eval_every:
+            print("note: --eval-every is ignored under the resilient loop")
+        if args.profile_dir:
+            print("note: --profile-dir is ignored under the resilient loop")
         handler = PreemptionHandler().install()
         if injector is not None:
             injector.bind_preemption(handler)
@@ -266,6 +314,8 @@ def main(argv=None):
 
         def on_metrics(step, m):
             seen["metrics"] = m
+            if logger is not None:
+                logger.log(step, m)
             report(step, m)
 
         try:
@@ -273,23 +323,76 @@ def main(argv=None):
                 with_fault_injection(train_step, injector), state,
                 resilient_batches(fetch if stream is None else stream, injector=injector),
                 steps=args.steps, make_rng=make_rng, mgr=mgr, on_metrics=on_metrics,
-                max_restarts=max_restarts, preemption=handler)
+                max_restarts=max_restarts, preemption=handler, logger=logger, tracer=tracer,
+                telemetry=telemetry)
         except Preempted as e:
             print(e)  # saved and closed by the loop: not a failure
             return state, None
         finally:
             handler.uninstall()
+            telemetry.close()
+            if logger is not None:
+                logger.close()
+            finish_trace(tracer, args)  # a preempted run keeps its trace
         if injector is not None and not injector.exhausted():
             print(f"warning: fault plan only partially delivered: {injector.delivered}")
-        metrics = seen.get("metrics")
-    else:
+        print("done")
+        return state, seen.get("metrics")
+
+    # a bounded profiler window after the first step (a 1-step run traces
+    # its only step)
+    prof_beg = start + 1 if args.steps > 1 else start
+    prof_end = prof_beg + max(1, args.profile_steps)
+    prof = contextlib.ExitStack()
+    try:
         for step in range(start, start + args.steps):
-            batch = fetch(step) if stream is None else next(stream)
-            state, metrics = train_step(state, batch, make_rng(step))
+            if args.profile_dir and step == prof_beg:
+                prof.enter_context(profile_trace(args.profile_dir))
+            with tracer.span("train.fetch", cat="train", step=step), \
+                    telemetry.account("data_fetch"):
+                batch = fetch(step) if stream is None else next(stream)
+            step_bucket = telemetry.step_bucket()
+            with tracer.span("train.step", cat="train", step=step), \
+                    telemetry.account(step_bucket):
+                state, metrics = train_step(state, batch, make_rng(step))
+            # logger.log is the step's device sync: this span absorbs the
+            # execution train.step only launched
+            if logger is not None:
+                with tracer.span("train.metrics_fetch", cat="train", step=step), \
+                        telemetry.account(step_bucket):
+                    logger.log(step, metrics)
+            telemetry.step_complete(step)
             report(step, metrics)
+            if args.eval_every and (step + 1) % args.eval_every == 0:
+                # structure quality on the last microbatch, with the
+                # features training sees
+                with tracer.span("train.eval", cat="train", step=step), \
+                        telemetry.account("eval"), torch.no_grad():
+                    mb = {k: v[-1] for k, v in batch.items()}
+                    out = e2e.predict_structure(
+                        state["params"], ecfg, mb["seq"], mb["mask"], msa=mb.get("msa"),
+                        msa_mask=mb.get("msa_mask"), embedds=mb.get("embedds"), device=device)
+                    b = out["refined"].shape[0]
+                    scores = structure_eval(out["refined"].reshape(b, -1, 3),
+                                            torch.as_tensor(mb["coords"]).reshape(b, -1, 3),
+                                            mask=out["cloud_mask"].reshape(b, -1))
+                if logger is not None:
+                    logger.log(step, scores)  # into the JSONL stream too
+                print("eval  " + "  ".join(f"{k} {v:.4f}" for k, v in scores.items()))
             if mgr is not None:
-                mgr.save(state)  # the interval decides
-        finish(mgr, state)
+                with tracer.span("train.checkpoint", cat="train", step=step), \
+                        telemetry.account("checkpoint"):
+                    mgr.save(state)  # the interval decides
+            if args.profile_dir and step + 1 == prof_end:
+                prof.close()  # writes <profile-dir>/trace.json
+    finally:
+        prof.close()
+        # a crashed or interrupted run keeps its trace
+        telemetry.close()
+        finish_trace(tracer, args)
+    if logger is not None:
+        logger.close()
+    finish(mgr, state)
     print("done")
     return state, metrics
 

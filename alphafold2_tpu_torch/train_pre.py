@@ -9,6 +9,8 @@ Usage:
       --ckpt-every 50 [--max-restarts 3] [--fault-plan plan.json]
   python -m alphafold2_tpu_torch.train_pre --steps 200 --bf16 --data native \\
       --len-buckets 64,128,256 --len 256 --accum 2
+  python -m alphafold2_tpu_torch.train_pre --steps 100 --bf16 --metrics-log m.jsonl \\
+      --eval-every 10 --trace-out trace.json [--ops-port 0] [--flight-dir flights/]
 
 Trains on synthetic protein-like batches (`training/data.py`,
 sequence-only) with the defaults of the JAX CLI: dim 256, depth 1, heads
@@ -36,15 +38,28 @@ its top on a resume. `--len-buckets` (with --data native) batches each
 protein at the smallest bucket that holds it and stacks the microbatches
 of a step within one bucket (`training/data.py bucketed_microbatches`); on
 the GPU each bucket is captured at its first batch, in the one graph pool.
-Not ported: `--data sidechainnet` (it needs a dataset in the repository),
-`--metrics-log`, `--eval-every` and the telemetry flags (A14),
-`--sp-shards` training, with buckets too, and multi-host runs (A13).
+
+Telemetry, the JAX CLI's flags: `--metrics-log` (the JSONL stream of
+`telemetry/logger.py`, one device-to-host copy a step), `--eval-every N`
+(the held-out distogram loss of one synthetic batch from another seed,
+`eval_loss`, or `synthetic_eval_loss` under another --data; ignored by the
+resilient loop), `--trace-out` / `--trace-max-spans` (the phase spans as a
+Chrome trace, and a `<trace-out>.metrics.json` registry snapshot beside
+it), `--ops-port` / `--ops-port-file` / `--flight-dir` /
+`--progress-horizon-s` / `--peak-tflops` (the live ops plane and the
+goodput ledger, `telemetry/goodput.py`; a capture, at the start or a
+bucket's first batch, counts as "compile"). Not ported: `--data
+sidechainnet` (it needs a dataset in the repository), `--sp-shards`
+training, with buckets too, and multi-host runs with their
+`--federate-every` (refused: A13).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
+import json
 import time
 
 import numpy as np
@@ -54,17 +69,32 @@ from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.reliability.preemption import Preempted, PreemptionHandler
 from alphafold2_tpu_torch.runtime import NativePrefetchLoader
+from alphafold2_tpu_torch.telemetry import (
+    CompileTracker,
+    MetricRegistry,
+    MetricsLogger,
+    add_observability_args,
+    add_telemetry_args,
+    build_train_telemetry,
+    device_memory_gauges,
+    finish_trace,
+    flops_gauges,
+    observability_enabled,
+    tracer_from_args,
+)
 from alphafold2_tpu_torch.training.checkpoint import finish, open_or_init
 from alphafold2_tpu_torch.training.data import (
     DataConfig,
     bucketed_microbatches,
     resilient_batches,
     stack_microbatches,
+    synthetic_batches,
     synthetic_microbatch_fn,
 )
 from alphafold2_tpu_torch.training.executable import CapturedTrainStep
 from alphafold2_tpu_torch.training.harness import (
     add_train_args,
+    distogram_loss_fn,
     make_train_step,
     tcfg_from_args,
     train_state_init,
@@ -76,6 +106,7 @@ from alphafold2_tpu_torch.training.resilience import (
     resilient_mode,
     run_resilient,
 )
+from alphafold2_tpu_torch.utils.flops import train_step_flops
 
 
 def bucket_of(args, batch) -> str:
@@ -157,6 +188,12 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None, help="checkpoint/resume directory")
     ap.add_argument("--ckpt-every", type=int, default=50)
     add_resilience_args(ap)  # --max-restarts / --ckpt-verify / --fault-plan
+    add_telemetry_args(ap)   # --trace-out / --trace-max-spans
+    add_observability_args(ap)  # --ops-port / --flight-dir / --federate-every
+    ap.add_argument("--metrics-log", default=None, help="JSONL metrics file")
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="evaluate held-out distogram loss every N steps "
+                         "(0 = off)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' to run there)")
     args = ap.parse_args(argv)
@@ -199,8 +236,52 @@ def main(argv=None):
         # the stream at start * accum, a retried step refetches its own batch
         fetch = source = synthetic_microbatch_fn(dcfg, tcfg.grad_accum)
         first = fetch(start)
+    # the telemetry, built before the step so that its capture counts
+    tracer = tracer_from_args(args)  # NULL_TRACER unless --trace-out
+    # a logger only when something reads it: its fetch is a sync a step
+    logger = (MetricsLogger(args.metrics_log, print_every=None)  # report() prints
+              if args.metrics_log or tracer.enabled or observability_enabled(args) else None)
+    # the registry is live when tracing (the sidecar) or when the ops plane
+    # or the flight recorder is mounted; a no-op otherwise
+    registry = MetricRegistry(enabled=tracer.enabled or observability_enabled(args))
+    compile_tracker = CompileTracker(registry, tracer=tracer, prefix="train_compile")
+    telemetry = build_train_telemetry(
+        args, registry=registry, tracer=tracer, logger=logger,
+        step_flops=train_step_flops(cfg, args.max_len, 0, 0, grad_accum=tcfg.grad_accum))
+    try:
+        metrics = train(args, cfg, tcfg, device, state, mgr, first, fetch, source, resilient,
+                        injector, max_restarts, logger, tracer, compile_tracker, telemetry)
+    except Preempted as e:
+        print(e)  # saved and closed by the loop: not a failure
+        return state, None
+    finally:
+        # a crashed or interrupted run keeps its trace and its sidecar
+        if tracer.enabled:
+            flops_gauges(registry, cfg, n=args.max_len, r=0, c=args.max_len,
+                         grad_accum=tcfg.grad_accum)
+            device_memory_gauges(registry)
+            sidecar = args.trace_out + ".metrics.json"
+            with open(sidecar, "w") as fh:
+                json.dump(registry.snapshot(), fh, indent=2)
+            print(f"wrote {sidecar}")
+        telemetry.close()
+        if logger is not None:
+            logger.close()
+        finish_trace(tracer, args)
+    print("done")
+    return state, metrics
+
+
+def train(args, cfg, tcfg, device, state, mgr, first, fetch, source, resilient, injector,
+          max_restarts, logger, tracer, compile_tracker, telemetry):
+    """The run's steps from state["step"], updating `state` in place;
+    returns the last step's metrics (a preemption raises `Preempted`). On
+    the GPU the first batch's capture, and each bucket's first batch's, is
+    accounted as compile."""
+    start = state["step"]
     if device.type == "cuda":
-        train_step = CapturedTrainStep(cfg, tcfg, state, first)
+        with telemetry.account("compile"), compile_tracker.track(kind="train_step"):
+            train_step = CapturedTrainStep(cfg, tcfg, state, first)
         capture = next(iter(train_step.captures.values()))
         print(f"captured the step{bucket_of(args, first)} as a CUDA graph in "
               f"{capture.seconds:.2f} s")
@@ -219,8 +300,9 @@ def main(argv=None):
                   f"grad_norm {float(metrics['grad_norm']):.3f}  "
                   f"({time.time() - t0:.1f}s elapsed)")
 
-    metrics = None
     if resilient:
+        if args.eval_every:
+            print("note: --eval-every is ignored under the resilient loop")
         handler = PreemptionHandler().install()
         if injector is not None:
             injector.bind_preemption(handler)
@@ -228,37 +310,69 @@ def main(argv=None):
 
         def on_metrics(step, m):
             seen["metrics"] = m
+            if logger is not None:
+                logger.log(step, m)
             report(step, m)
 
         try:
-            state = run_resilient(
-                with_fault_injection(train_step, injector), state,
-                resilient_batches(source, injector=injector), steps=args.steps,
-                make_rng=make_rng, mgr=mgr, on_metrics=on_metrics,
-                max_restarts=max_restarts, preemption=handler)
-        except Preempted as e:
-            print(e)  # saved and closed by the loop: not a failure
-            return state, None
+            run_resilient(with_fault_injection(train_step, injector), state,
+                          resilient_batches(source, injector=injector), steps=args.steps,
+                          make_rng=make_rng, mgr=mgr, on_metrics=on_metrics,
+                          max_restarts=max_restarts, preemption=handler, logger=logger,
+                          tracer=tracer, telemetry=telemetry)
         finally:
             handler.uninstall()
         if injector is not None and not injector.exhausted():
             print(f"warning: fault plan only partially delivered: {injector.delivered}")
-        metrics = seen.get("metrics")
-    else:
-        for step in range(start, start + args.steps):
+        return seen.get("metrics")
+
+    eval_batch, eval_key = None, "eval_loss"
+    if args.eval_every:
+        # a fixed held-out batch from a seed the training stream never
+        # draws; synthetic whatever --data says, and then named so
+        if args.data != "synthetic":
+            eval_key = "synthetic_eval_loss"
+        eval_batch = next(synthetic_batches(DataConfig(
+            batch_size=args.batch, max_len=args.max_len, seed=args.seed + 104729)))
+    metrics = None
+    for step in range(start, start + args.steps):
+        with tracer.span("train.fetch", cat="train", step=step), \
+                telemetry.account("data_fetch"):
             batch = fetch(step)
-            captures = len(getattr(train_step, "captures", ()))
-            state, metrics = train_step(state, batch, make_rng(step))
-            if len(getattr(train_step, "captures", ())) > captures:
-                capture = list(train_step.captures.values())[-1]
-                print(f"captured the step{bucket_of(args, batch)} as a CUDA graph in "
-                      f"{capture.seconds:.2f} s (step {step})")
-            report(step, metrics)
-            if mgr is not None:
+        rng = make_rng(step)
+        # a call that captures (a bucket's first batch) is compile
+        captures = isinstance(train_step, CapturedTrainStep) and not train_step.captured(batch, rng)
+        step_bucket = "compile" if captures else telemetry.step_bucket()
+        first_traced = step == start and tracer.enabled and device.type != "cuda"
+        with (compile_tracker.track(kind="train_step") if captures or first_traced
+              else contextlib.nullcontext()), \
+                tracer.span("train.step", cat="train", step=step), \
+                telemetry.account(step_bucket):
+            state, metrics = train_step(state, batch, rng)
+        if captures:
+            capture = list(train_step.captures.values())[-1]
+            print(f"captured the step{bucket_of(args, batch)} as a CUDA graph in "
+                  f"{capture.seconds:.2f} s (step {step})")
+        if eval_batch is not None and (step + 1) % args.eval_every == 0:
+            metrics = dict(metrics)
+            with tracer.span("train.eval", cat="train", step=step), \
+                    telemetry.account("eval"), torch.no_grad():
+                metrics[eval_key] = distogram_loss_fn(state["params"], cfg, eval_batch, None,
+                                                      device)
+        # logger.log is the step's one device sync: the span and the
+        # bucket absorb the execution train.step only launched
+        if logger is not None:
+            with tracer.span("train.metrics_fetch", cat="train", step=step), \
+                    telemetry.account(step_bucket):
+                logger.log(step, metrics)
+        telemetry.step_complete(step)
+        report(step, metrics)
+        if mgr is not None:
+            with tracer.span("train.checkpoint", cat="train", step=step), \
+                    telemetry.account("checkpoint"):
                 mgr.save(state)  # the interval decides
-        finish(mgr, state)
-    print("done")
-    return state, metrics
+    finish(mgr, state)
+    return metrics
 
 
 if __name__ == "__main__":

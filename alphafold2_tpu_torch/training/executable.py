@@ -174,6 +174,13 @@ class CapturedTrainStep:
         self.captures[(_signature(batch), live)] = capture
         return capture
 
+    def captured(self, batch, rng=None) -> bool:
+        """Whether a call on this batch (and rng) replays a capture it has,
+        rather than capturing first (a new batch shape, or the first call
+        with live dropout): a trainer's goodput counts the latter as
+        compile."""
+        return (_signature(batch), dropout_live(self.cfg, rng)) in self.captures
+
     def __call__(self, state, batch, rng=None):
         if state is not self.state:
             raise ValueError("CapturedTrainStep: called with another state than it captured")

@@ -21,10 +21,15 @@ any state object but the one it captured. So here:
     captured graph is never captured again.
 
 A step is bad when its loss or gradient norm is not finite; the guard's
-read of the two is the step's one host sync. Not ported: the metrics
-logger's restart events, the tracer, the goodput ledger and
-`--metrics-log` (ROADMAP A14); the abort message names every restart's
-cause.
+read of the two is the step's one host sync. The abort message names
+every restart's cause. With a `tracer` each step is the JAX loop's spans
+(train.fetch, train.step, train.metrics_fetch, train.checkpoint; a
+recovery a train.restore, a preemption train.preempt_checkpoint); with
+`telemetry` (`telemetry/goodput.py TrainTelemetry`) its goodput ledger
+accounts each phase (fetch -> data_fetch, the step and its sync ->
+"compile" until the first step completes, then "step"); with a `logger`
+every restart is a `restart` event and the run ends with a
+`resilience_summary` event.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ import torch
 
 from alphafold2_tpu_torch.reliability.faults import FaultPlan, check_training_plan
 from alphafold2_tpu_torch.reliability.preemption import Preempted
+from alphafold2_tpu_torch.telemetry.goodput import NULL_TRAIN_TELEMETRY
+from alphafold2_tpu_torch.telemetry.trace import NULL_TRACER
 from alphafold2_tpu_torch.training.checkpoint import finish
 
 
@@ -57,6 +64,7 @@ class StepGuard:
         self.state = state
         self.max_consecutive_bad = max_consecutive_bad
         self.bad_streak = 0
+        self.bad_total = 0  # rollbacks over the run
         self._live = state["optimizer"].state_tensors()
         with torch.no_grad():
             self._snapshot = [t.detach().clone() for t in self._live]
@@ -85,6 +93,7 @@ class StepGuard:
             self.bad_streak = 0
             return self.state, True
         self.bad_streak += 1
+        self.bad_total += 1
         if self.bad_streak >= self.max_consecutive_bad:
             raise BadStepError(f"{self.bad_streak} consecutive non-finite losses; "
                                "aborting instead of training on garbage")
@@ -95,7 +104,8 @@ class StepGuard:
 def run_resilient(step_fn: Callable, state, batches, *, steps: int,
                   make_rng: Optional[Callable[[int], object]] = None, mgr=None,
                   on_metrics: Optional[Callable[[int, dict], None]] = None,
-                  max_restarts: int = 3, max_consecutive_bad: int = 3, preemption=None):
+                  max_restarts: int = 3, max_consecutive_bad: int = 3, preemption=None,
+                  logger=None, tracer=None, telemetry=None):
     """Supervised training loop with rollback and checkpoint-restore retry.
 
     step_fn: (state, batch, rng) -> (state, metrics), updating `state` in
@@ -109,7 +119,11 @@ def run_resilient(step_fn: Callable, state, batches, *, steps: int,
     the consecutive exception budget; past it the abort names every cause.
     preemption: a `PreemptionHandler` polled at each step boundary; on its
     flag the loop saves, closes the manager and raises `Preempted`.
-    Returns the state (the same object)."""
+    logger, tracer, telemetry: a `MetricsLogger`, a `Tracer`, a
+    `TrainTelemetry` (module docstring). Returns the state (the same
+    object)."""
+    tracer = tracer if tracer is not None else NULL_TRACER
+    telemetry = telemetry if telemetry is not None else NULL_TRAIN_TELEMETRY
     start = int(state["step"])
     target = start + steps
     restarts = 0
@@ -125,48 +139,79 @@ def run_resilient(step_fn: Callable, state, batches, *, steps: int,
             raise RuntimeError(f"data exhausted at step {step} (before target {target}); "
                                "not a recoverable fault") from None
 
+    def record_restart(step, exc, where):
+        causes.append((step, type(exc).__name__, str(exc).splitlines()[0][:200]))
+        if logger is not None:
+            logger.event(step, "restart", error=type(exc).__name__, message=str(exc)[:500],
+                         restart=restarts, max_restarts=max_restarts, restored_from=where)
+
     while True:
         step = int(state["step"])
         if preemption is not None and preemption.check():
             if mgr is not None:
-                mgr.save(state, force=True)
-                mgr.wait()
-                mgr.close()
+                with tracer.span("train.preempt_checkpoint", cat="reliability", step=step), \
+                        telemetry.account("preempt"):
+                    mgr.save(state, force=True)
+                    mgr.wait()
+                    mgr.close()
+            if logger is not None:
+                logger.event(step, "preempted", signum=preemption.signum,
+                             checkpointed=mgr is not None)
             raise Preempted(step, checkpointed=mgr is not None)
         if step >= target:
             break
         try:
-            batch = fetch(step)
-            new_state, metrics = step_fn(state, batch,
-                                         None if make_rng is None else make_rng(step))
-            state, ok = guard.check(new_state, metrics)
+            with tracer.span("train.fetch", cat="train", step=step), \
+                    telemetry.account("data_fetch"):
+                batch = fetch(step)
+            # the first step (its capture, on the card) is "compile"; the
+            # guard's read of loss and grad_norm is the step's one sync
+            step_bucket = telemetry.step_bucket()
+            with tracer.span("train.step", cat="train", step=step), \
+                    telemetry.account(step_bucket):
+                new_state, metrics = step_fn(state, batch,
+                                             None if make_rng is None else make_rng(step))
+            with tracer.span("train.metrics_fetch", cat="train", step=step), \
+                    telemetry.account(step_bucket):
+                state, ok = guard.check(new_state, metrics)
             if ok:
                 restarts = 0  # the budget is on consecutive failures
+                telemetry.step_complete(step)
                 if on_metrics is not None:
                     on_metrics(step, metrics)
                 if mgr is not None:
-                    mgr.save(state)
+                    with tracer.span("train.checkpoint", cat="train", step=step), \
+                            telemetry.account("checkpoint"):
+                        mgr.save(state)
             else:
                 print(f"step {step}: non-finite loss — rolled back, retrying")
         except (BadStepError, KeyboardInterrupt):
             raise
         except Exception as e:  # the crash-recovery path
             restarts += 1
-            causes.append((step, type(e).__name__, str(e).splitlines()[0][:200]))
             if restarts > max_restarts:
+                record_restart(step, e, "ABORT (budget exhausted)")
                 chain = "; ".join(f"{name}({msg!r}) at step {s}" for s, name, msg in causes)
                 raise RuntimeError(f"restart budget exhausted (max_restarts={max_restarts}) "
                                    f"at step {step}; cause chain: {chain}") from e
-            if mgr is not None and mgr.latest_step() is not None:
-                mgr.restore(into=state)
-                guard.snapshot()
-                where = f"checkpoint step {int(state['step'])}"
-            else:
-                guard.rollback()
-                where = "last good in-memory state"
+            with tracer.span("train.restore", cat="reliability", step=step,
+                             cause=type(e).__name__) as rsp, telemetry.account("restore"):
+                if mgr is not None and mgr.latest_step() is not None:
+                    mgr.restore(into=state)
+                    guard.snapshot()
+                    where = f"checkpoint step {int(state['step'])}"
+                else:
+                    guard.rollback()
+                    where = "last good in-memory state"
+                rsp.set("restored_from", where)
             guard.bad_streak = 0  # the restored state is clean
+            record_restart(step, e, where)
             print(f"step {step}: {type(e).__name__}: {e} — "
                   f"restart {restarts}/{max_restarts} from {where}")
+    if logger is not None:
+        logger.event(target, "resilience_summary", restarts_total=len(causes),
+                     rollbacks_total=guard.bad_total,
+                     causes=[{"step": s, "error": n, "message": m} for s, n, m in causes])
     finish(mgr, state)
     return state
 

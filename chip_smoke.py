@@ -317,6 +317,30 @@ each phase prints its seconds):
          no dropout, FF dropout and attention + FF dropout; each B5 kernel
          at (2048, 256, 64, 0.66 active) with and without dropout, its
          plain version, SDPA with dropout_p 0.1 and the bound;
+  17. the telemetry plane (`alphafold2_tpu_torch/telemetry/`): the tracer,
+     the registry and its Prometheus text, the cost and goodput ledgers, the
+     flight book and recorder, the SLO engine and the ops server, wired into
+     the engine and `train_pre`:
+     (a) the served config through an instrumented engine with no
+         precompile (buckets 128 / 256 / 384, rungs 1, 2, 4; phase 8b's 24
+         requests), a thread scraping /metrics, /healthz and /statusz while
+         it captures: every scrape 200, each request's lifecycle spans and
+         /explainz flight, /metrics = stats(), serve-goodput causes summing
+         to the wall within 1e-9 s, each cell's FLOPs `model_fwd_flops`
+         and its device-seconds EMA (CUDA events) within its host windows
+         and 2x its events' median, the SLO burn gauges, MFU only under a
+         declared peak, every B1f launch on wgmma;
+     (b) the same requests through an engine with no telemetry: bit for
+         bit; a captured L = 384 request both ways (host clock, median of
+         5 in turns);
+     (c) `train_pre` (bf16, crop 128, accum 2) with `--metrics-log`,
+         `--eval-every 2` and `--trace-out` against a run without: bit for
+         bit, the goodput buckets summing to the wall with the capture in
+         "compile"; one captured step bare and instrumented (host clock,
+         median of 5 in turns);
+     (d) a 2 s `/profilez` capture while serving: results bit for bit
+         (b)'s, a Chrome trace, 429 on a second call; which kernels of the
+         replayed graphs the trace shows, by name;
   5. a `kernels` JSON line (sixteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, the three sparse kernels with dropout, B3's forward and its
@@ -338,7 +362,10 @@ import math
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -422,6 +449,20 @@ from alphafold2_tpu_torch.training.harness import (  # noqa: E402
 from alphafold2_tpu_torch.training.resilience import StepGuard, run_resilient  # noqa: E402
 from alphafold2_tpu_torch.utils.flops import train_step_flops  # noqa: E402
 from alphafold2_tpu_torch.utils.rng import Streams, fold_in  # noqa: E402
+from alphafold2_tpu_torch.telemetry import (  # noqa: E402
+    FlightBook,
+    FlightRecorder,
+    ProfileCapturer,
+    ServeGoodputLedger,
+    SloEngine,
+    Tracer,
+    default_slo_config,
+    device_memory_gauges,
+    host_memory_gauges,
+    ops_server_for_engine,
+    parse_prometheus_text,
+)
+from alphafold2_tpu_torch.utils.flops import model_fwd_flops  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / f32 (no TF32)
@@ -1863,6 +1904,23 @@ def phase_engine_capture():
              "(phase 8a)")
 
 
+def engine_request(L, rng):
+    """One seeded request of L residues with a 20-row MSA (row 0 the query,
+    10% of the other cells masked): (sequence, msa, msa_mask)."""
+    tokens = rng.integers(0, 20, L)
+    msa = rng.integers(0, 21, (ENGINE_ROWS, L)).astype(np.int32)
+    msa[0] = tokens
+    msa_mask = rng.random((ENGINE_ROWS, L)) > 0.1
+    msa_mask[0] = True
+    return "".join(AA_ORDER[t] for t in tokens), msa, msa_mask
+
+
+def engine_stream(n=24, seed=60):
+    """Phase 8b's stream: n seeded requests of 40-384 residues."""
+    rng = np.random.default_rng(seed)
+    return [engine_request(int(rng.integers(40, 385)), rng) for _ in range(n)]
+
+
 def phase_engine_stream():
     """(b) The served config through `ServingEngine` on the card: buckets
     (128, 256, 384), max_batch 4 with the batch ladder (rungs 1, 2, 4),
@@ -1880,16 +1938,7 @@ def phase_engine_stream():
     scfg = ServingConfig(buckets=ENGINE_BUCKETS, max_batch=4, batch_ladder=True,
                          msa_rows=ENGINE_ROWS, mds_iters=200, request_timeout_s=600.0,
                          precompile=True)
-    rng = np.random.default_rng(60)
-    stream = []
-    for _ in range(24):
-        L = int(rng.integers(40, 385))
-        tokens = rng.integers(0, 20, L)
-        msa = rng.integers(0, 21, (ENGINE_ROWS, L)).astype(np.int32)
-        msa[0] = tokens
-        msa_mask = rng.random((ENGINE_ROWS, L)) > 0.1
-        msa_mask[0] = True
-        stream.append(("".join(AA_ORDER[t] for t in tokens), msa, msa_mask))
+    stream = engine_stream()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -5884,6 +5933,462 @@ def phase_sparse_dropout():
 # --- phase 5: the kernels line -----------------------------------------------------
 
 
+# --- phase 17: the telemetry plane -----------------------------------------------------
+
+TELEMETRY_WORK = ROOT / "build" / "phase17"  # flight bundles, traces, logs; removed at the end
+H100_PEAK_BF16 = 989e12  # dense bf16, declared only once the card's name says H100
+SCRAPED = ("/metrics", "/healthz", "/statusz")
+
+
+class FreezableClock:
+    """`time.monotonic` until `freeze()`: then every read is one instant, so
+    a ledger's buckets and its wall are read at the same time."""
+
+    def __init__(self):
+        self.frozen = None
+
+    def __call__(self):
+        return time.monotonic() if self.frozen is None else self.frozen
+
+    def freeze(self):
+        self.frozen = time.monotonic()
+
+
+def http_get(url, timeout=10):
+    """(status, body) of one GET; an HTTP error status is an answer too."""
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def scrape_loop(base, stop, out, pause_s=0.02):
+    """GET /metrics, /healthz and /statusz in turn, `pause_s` between
+    rounds, until `stop` is set, appending (path, status, t0, t1) on the
+    perf_counter clock. The pause keeps the loop from holding the GIL
+    between rounds, which the worker's capture needs too."""
+    while not stop.wait(pause_s):
+        for path in SCRAPED:
+            t0 = time.perf_counter()
+            try:
+                code = http_get(base + path)[0]
+            except Exception as e:  # noqa: BLE001 — a refused scrape is a result
+                code = repr(e)
+            out.append((path, code, t0, time.perf_counter()))
+
+
+def nested_seconds(span, inner):
+    """The seconds of `inner` spans inside `span` on its thread."""
+    t0, t1 = span["ts_s"], span["ts_s"] + span["dur_s"]
+    return sum(s["dur_s"] for s in inner
+               if s["tid"] == span["tid"] and t0 <= s["ts_s"] and s["ts_s"] + s["dur_s"] <= t1)
+
+
+def phase_telemetry_engine(smi, plane):
+    """(a) The served config (dim 256, depth 2, heads 8, dim_head 64, bf16;
+    buckets 128 / 256 / 384, rungs 1, 2, 4; 20-row MSAs, 200 MDS
+    iterations; no result cache, no assembly wait) through a fully
+    instrumented `ServingEngine`: a live tracer, its private cost ledger,
+    a serve-goodput ledger on a freezable clock, a `FlightBook`, a
+    `FlightRecorder` as its incident hook, and an `OpsServer` (port 0)
+    with the stock serving SLOs and a `ProfileCapturer` on the engine's
+    graph lock. No precompile: phase 8b's stream of 24 requests captures
+    each (bucket, rung) it meets while a thread scrapes /metrics, /healthz
+    and /statusz in a loop. Checks: no capture fails and every scrape
+    answers 200 (some during a capture); each request's enqueue and
+    queue_wait spans carry its trace id and its batch, execute and respond
+    spans list it; /explainz?trace_id= returns each flight; /metrics parses
+    and its counters equal stats(); the goodput causes sum to the frozen
+    wall within 1e-9 s with idle left over; each cell's analytic FLOPs are
+    `model_fwd_flops` at its bucket; each execute span's event time is at
+    most its host window less any capture in it; each measured cell's EMA
+    is > 0, at most its largest such window and at most 2x the median of
+    its event times; the SLO engine publishes its burn rates; no cell has
+    an MFU until a peak is declared (989 TFLOP/s, only on an H100), then
+    each measured one does; every B1f launch on wgmma."""
+    cfg = served_config()
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda")
+    scfg = ServingConfig(buckets=ENGINE_BUCKETS, max_batch=4, batch_ladder=True,
+                         msa_rows=ENGINE_ROWS, mds_iters=200, request_timeout_s=600.0,
+                         cache_capacity=0, max_wait_s=0.0)
+    tracer = Tracer()
+    clock = FreezableClock()
+    goodput = ServeGoodputLedger(clock=clock)
+    recorder = FlightRecorder(str(TELEMETRY_WORK / "flight"), tracer=tracer)
+    engine = ServingEngine(params, cfg, scfg, tracer=tracer, goodput=goodput,
+                           flights=FlightBook(), incident_hook=recorder.incident)
+    plane.update(params=params, cfg=cfg, scfg=scfg, engine=engine, tracer=tracer)
+    registry = engine.metrics.registry
+    goodput.registry = registry  # its gauges on the engine's /metrics
+    recorder.bind(registry=registry, stats_fn=engine.stats)
+    slo = SloEngine(registry, default_slo_config("serving"), on_page=recorder.slo_page_hook)
+    profiler = ProfileCapturer(str(TELEMETRY_WORK / "profiles"), registry=registry,
+                               max_duration_s=2.0, min_interval_s=30.0, lock=engine.graph_lock)
+    ops = ops_server_for_engine(engine, tracer=tracer, slo=slo, recorder=recorder,
+                                profiler=profiler, tick_interval_s=0.1)
+    ops.add_tick(lambda: host_memory_gauges(registry))
+    ops.add_tick(lambda: device_memory_gauges(registry))
+    ops.add_tick(engine.sample_gauges)
+    ops.start()
+    plane.update(ops=ops, profiler=profiler)
+    stream = engine_stream()
+    scrapes, stop = [], threading.Event()
+    scraper = threading.Thread(target=scrape_loop, args=(ops.url, stop, scrapes),
+                               name="af2-smoke-scraper", daemon=True)
+    scraper.start()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(seq, msa=msa, msa_mask=mm) for seq, msa, mm in stream]
+    results = [r.result(timeout=600) for r in reqs]
+    stream_s = time.perf_counter() - t0
+    stop.set()
+    scraper.join(30)
+    ops.tick()
+    stats = engine.stats()
+    spans = tracer.spans()
+    captures = [s for s in spans if s["name"] == "serving_capture"]
+    origin = tracer._t_origin
+    during = sum(1 for _, _, a, b in scrapes
+                 if any(c["ts_s"] <= b - origin and a - origin <= c["ts_s"] + c["dur_s"]
+                        for c in captures))
+    counters = stats["telemetry"]["metrics"]["counters"]
+    captures_ok = (len(stats["captures"]) == len(captures) > 0
+                   and stats["requests"]["completed"] == len(stream)
+                   and stats["requests"]["failed"] == 0
+                   and not any(k.startswith("serving_capture_failed_total") for k in counters)
+                   and all(r.coords.shape == (len(q[0]), 3) and np.isfinite(r.coords).all()
+                           for r, q in zip(results, stream)))
+    scrapes_ok = bool(scrapes) and all(code == 200 for _, code, _, _ in scrapes) and during > 0
+
+    def spans_of(tid):
+        return {s["name"] for s in spans if s["attrs"].get("trace_id") == tid
+                or tid in s["attrs"].get("trace_ids", ())}
+
+    lifecycle = {"serving.enqueue", "serving.queue_wait", "serving.batch", "serving.execute",
+                 "serving.respond"}
+    spans_ok = all(lifecycle <= spans_of(r.trace_id) for r in reqs)
+    explain_ok = True
+    for r in reqs:
+        code, body = http_get(f"{ops.url}/explainz?trace_id={r.trace_id}")
+        flight = json.loads(body)
+        explain_ok &= code == 200 and flight["outcome"] == "completed" and \
+            flight["trace_id"] == r.trace_id
+    code, body = http_get(ops.url + "/metrics")
+    parsed = parse_prometheus_text(body.decode())
+    metrics_ok = (code == 200
+                  and parsed[("serving_requests_total", (("outcome", "completed"),))]
+                  == stats["requests"]["completed"]
+                  and parsed[("serving_batches_total", ())] == stats["batches"]["count"]
+                  and sum(v for (n, _), v in parsed.items() if n == "serving_capture_total")
+                  == len(stats["captures"]))
+    burn = {(dict(k)["objective"], dict(k)["window"]) for (n, k), _ in parsed.items()
+            if n == "slo_burn_rate"}
+    slo_ok = burn == {(o.name, w) for o in slo.config.objectives for w in ("fast", "slow")}
+    clock.freeze()
+    totals, wall = goodput.totals("engine"), goodput.wall("engine")
+    goodput_ok = (abs(sum(totals.values()) - wall) <= 1e-9 and totals["idle"] > 0
+                  and totals["compile"] > 0 and totals["execute"] > 0)
+    # the cells: analytic FLOPs, and the EMA against the host windows and
+    # the event times of that cell's dispatches
+    executes = [s for s in spans if s["name"] == "serving.execute"]
+    cells, cells_ok = [], True
+    for cell in stats["costs"]["cells"]:
+        mine = [s for s in executes if (s["attrs"]["bucket"], s["attrs"]["batch"])
+                == (cell["bucket"], cell["max_batch"])]
+        windows = [s["dur_s"] - nested_seconds(s, captures) for s in mine]
+        events = [s["attrs"]["device_ms"] / 1e3 for s in mine]
+        flops_ok = cell["forward_flops"] == model_fwd_flops(cfg, n=cell["bucket"],
+                                                             r=ENGINE_ROWS, c=cell["bucket"])
+        row = {k: cell[k] for k in ("bucket", "max_batch", "schedule", "backend_arm",
+                                    "forward_flops", "residency_bytes", "batches",
+                                    "ema_batch_seconds")}
+        ok = flops_ok and cell["batches"] == len(mine) and "mfu" not in cell
+        if mine:
+            ema = cell["ema_batch_seconds"]
+            ok &= (all(e <= w for e, w in zip(events, windows)) and 0 < ema <= max(windows)
+                   and ema <= 2 * float(np.median(events)))
+            row.update(event_ms=[e * 1e3 for e in events], window_ms=[w * 1e3 for w in windows])
+        row["ok"] = ok
+        cells_ok &= ok
+        cells.append(row)
+    peak = H100_PEAK_BF16 if "H100" in smi else None
+    engine.costs.set_peak(peak)
+    mfu = {f"{c['bucket']}@b{c['max_batch']}": c.get("mfu")
+           for c in engine.costs.cells() if c["batches"]}
+    mfu_ok = peak is None or all(v is not None for v in mfu.values())
+    ok = (captures_ok and scrapes_ok and spans_ok and explain_ok and metrics_ok and slo_ok
+          and goodput_ok and cells_ok and mfu_ok)
+    for row in cells:
+        if row["batches"]:
+            log(f"[telemetry a] cell {row['bucket']} rung {row['max_batch']}: "
+                f"{row['batches']} batches, EMA {row['ema_batch_seconds'] * 1e3:.3f} ms, events "
+                f"{[round(x, 3) for x in row['event_ms']]} ms in host windows "
+                f"{[round(x, 3) for x in row['window_ms']]} ms, forward "
+                f"{row['forward_flops']:.4g} FLOPs, {row['residency_bytes']:,} bytes priced "
+                f"{'ok' if row['ok'] else 'FAIL'}")
+    log(f"[telemetry a] {len(stream)} requests in {stream_s:.2f} s, {len(captures)} captures "
+        f"(each under its batch's trace ids), {len(scrapes)} scrapes all 200: "
+        f"{scrapes_ok} ({during} during a capture); lifecycle spans {spans_ok}, /explainz "
+        f"{explain_ok}, /metrics = stats() {metrics_ok}, SLO burn gauges {slo_ok}; goodput "
+        f"{dict((k, round(v, 4)) for k, v in totals.items())} = wall {wall:.4f} s: "
+        f"{goodput_ok}; MFU under {peak / 1e12 if peak else 'no'} TFLOP/s declared "
+        f"({smi}): {dict((k, round(v, 5) if v else v) for k, v in mfu.items())} "
+        f"{'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["telemetry_engine"] = {
+        "card": smi, "stream_s": stream_s, "captures": stats["captures"],
+        "scrapes": len(scrapes), "scrapes_during_capture": during,
+        "scrape_codes": sorted({str(c) for _, c, _, _ in scrapes}), "spans_ok": spans_ok,
+        "explainz_ok": explain_ok, "metrics_ok": metrics_ok, "slo_burn_gauges": sorted(burn),
+        "goodput": totals, "goodput_wall_s": wall, "cells": cells, "peak_flops": peak,
+        "mfu": mfu, "span_summary": stats["telemetry"]["spans"], "ok": ok}
+    if not ok:
+        fail("the instrumented engine failed a telemetry check (phase 17a)")
+
+
+def telemetry_requests():
+    """17b's requests: one of each bucket's length, 20-row MSAs."""
+    rng = np.random.default_rng(170)
+    return [engine_request(L, rng) for L in (100, 250, 384)]
+
+
+def median_ci(diffs):
+    """The median of paired differences and its distribution-free 95%
+    interval: the order statistics k and n - k + 1 (1-based) of the sorted
+    differences, k the largest with P(Binomial(n, 1/2) < k) <= 0.025."""
+    d, n = sorted(diffs), len(diffs)
+    k, tail = 0, 0.0
+    while tail + math.comb(n, k) / 2 ** n <= 0.025:
+        tail += math.comb(n, k) / 2 ** n
+        k += 1
+    return float(np.median(d)), (d[k - 1], d[n - k]) if k else (d[0], d[-1])
+
+
+def phase_telemetry_no_number(plane, pairs=40):
+    """(b) Telemetry changes no number: 17b's three requests (L = 100, 250,
+    384), one at a time (each a rung-1 batch), through the instrumented
+    engine of (a) and through an engine with nothing passed in (the same
+    params and config; no CUDA events, no spans, private ledgers): coords,
+    confidence and stress bit for bit. Then the L = 384 request through
+    both, host clock around `predict`, `pairs` pairs in turns: the median
+    of the paired differences and its 95% interval is the
+    instrumentation's cost."""
+    inst = plane["engine"]
+    plain = ServingEngine(plane["params"], plane["cfg"], plane["scfg"])
+    plane["plain"] = plain
+    reqs = telemetry_requests()
+    got = {}
+    for name, eng in (("instrumented", inst), ("plain", plain)):
+        got[name] = [eng.predict(q, msa=m, msa_mask=mm, timeout=600) for q, m, mm in reqs]
+    equal = all(np.array_equal(a.coords, b.coords) and np.array_equal(a.confidence, b.confidence)
+                and a.stress == b.stress for a, b in zip(got["instrumented"], got["plain"]))
+    last = reqs[-1]
+    times = {"instrumented": [], "plain": []}
+    for i in range(pairs):
+        # alternate which engine goes first, so drift reaches both alike
+        order = (("instrumented", inst), ("plain", plain))
+        for name, eng in (order if i % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            eng.predict(last[0], msa=last[1], msa_mask=last[2], timeout=600)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    diffs = [a - b for a, b in zip(times["instrumented"], times["plain"])]
+    diff, (lo, hi) = median_ci(diffs)
+    slower = sum(d > 0 for d in diffs)
+    plane["reference"] = got["instrumented"]
+    log(f"[telemetry b] instrumented vs plain engine, L = 100 / 250 / 384: bit-equal {equal}; "
+        f"a captured L = 384 request {med['instrumented']:.2f} / {med['plain']:.2f} ms "
+        f"(host clock, medians of {pairs} pairs in turns); paired difference {diff:+.3f} ms, "
+        f"95% interval [{lo:+.3f}, {hi:+.3f}] ms, instrumented slower in {slower} of {pairs} "
+        f"{'ok' if equal else 'FAIL'}")
+    RECORD["phases"]["telemetry_no_number"] = {
+        "bit_equal": equal, "request_ms": times, "median_ms": med,
+        "paired_diff_ms": diff, "paired_diff_ci95_ms": [lo, hi], "instrumented_slower": slower}
+    if not equal:
+        fail("telemetry changed a served number (phase 17b)")
+
+
+def phase_telemetry_train(steps=22, reps=10):
+    """(c) The trained path: `train_pre.main` (its defaults in bf16 at crop
+    128, accum 2, `steps` steps, captured) without telemetry, then with
+    `--metrics-log`, `--eval-every 2` and `--trace-out` (the CLI's own
+    `build_train_telemetry`). Checks: the final params and the last loss
+    and grad_norm bit for bit the run without telemetry; the goodput
+    buckets the CLI published at its last step (its trace's metrics
+    sidecar) sum to its published wall within 1e-9 s, and that wall is at
+    most the host wall of the whole `main` call; the capture (the
+    `train_compile` span) lands in "compile", the replays in "step"; the
+    JSONL lines parse (a loss a step, an eval loss every 2nd); the Chrome
+    trace loads with a train.step a step and a train.eval every 2nd.
+    Then the step ms both ways: instrumented, the CLI loop's own spans
+    (train.step, the replay's launch, plus train.metrics_fetch, the
+    logger's sync and copy) on its replayed steps without an eval (median
+    of them); bare, one `CapturedTrainStep` call and its loss fetch on the
+    host clock from a synced card (median of `reps`), the same step
+    without the loop's telemetry."""
+    argv = ["--steps", str(steps), "--len", "128", "--accum", "2", "--bf16"]
+    (plain_state, plain_metrics), _ = quiet(train_pre.main, argv)
+    log_path, trace_path = TELEMETRY_WORK / "train.jsonl", TELEMETRY_WORK / "train_trace.json"
+    t0 = time.perf_counter()
+    (state, metrics), lines = quiet(train_pre.main, argv + [
+        "--metrics-log", str(log_path), "--eval-every", "2", "--trace-out", str(trace_path)])
+    main_s = time.perf_counter() - t0
+    equal = (torch.equal(metrics["loss"], plain_metrics["loss"])
+             and torch.equal(metrics["grad_norm"], plain_metrics["grad_norm"])
+             and all(torch.equal(a, b) for a, b in zip(tree_leaves(state["params"]),
+                                                        tree_leaves(plain_state["params"]))))
+    del plain_state
+    sidecar = json.load(open(f"{trace_path}.metrics.json"))
+    gauges = sidecar["gauges"]
+    totals = {k[len('train_bucket_seconds{bucket="'):-2]: v for k, v in gauges.items()
+              if k.startswith("train_bucket_seconds{")}
+    wall = gauges["train_wall_seconds"]
+    records = [json.loads(line) for line in open(log_path)]
+    events = json.load(open(trace_path))["traceEvents"]
+    spans = [e for e in events if e["ph"] == "X"]
+    names = [e["name"] for e in spans]
+    compile_span = [e["dur"] / 1e6 for e in spans if e["name"] == "train_compile"]
+    ok = (equal and abs(sum(totals.values()) - wall) <= 1e-9 and wall <= main_s
+          and totals["step"] > 0 and len(compile_span) == 1
+          and 0 < compile_span[0] <= totals["compile"]
+          and sidecar["counters"]["train_steps_total"] == steps
+          and [r["step"] for r in records] == list(range(steps))
+          and sum("eval_loss" in r for r in records) == steps // 2
+          and names.count("train.step") == steps and names.count("train.eval") == steps // 2)
+    # instrumented: the CLI's spans on its replays that ran no eval
+    by_step = {}
+    for e in spans:
+        if e["name"] in ("train.step", "train.metrics_fetch"):
+            by_step.setdefault(e["args"]["step"], []).append(e["dur"] / 1e3)
+    clean = [n for n in range(1, steps) if (n + 1) % 2]
+    times = {"instrumented": [sum(by_step[n]) for n in clean], "bare": []}
+    # bare: the same captured step alone
+    cfg = train_pre_config()
+    tcfg = TrainConfig(grad_accum=2)
+    fresh = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=128, seed=0), 2)
+    step = CapturedTrainStep(cfg, tcfg, fresh, fetch(0))
+    batch = fetch(0)
+
+    def bare():
+        _, m = step(fresh, batch)
+        m["loss"].cpu()
+
+    bare()
+    times["bare"] = [host_ms(bare) for _ in range(reps)]
+    ok &= all(len(by_step[n]) == 2 for n in clean)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    replayed = step.replayed_launches()
+    log(f"[telemetry c] train_pre --len 128 --accum 2 --bf16, {steps} steps: with telemetry "
+        f"bit-equal {equal}; goodput {dict((k, round(v, 4)) for k, v in totals.items() if v)} "
+        f"= wall {wall:.4f} s of main's {main_s:.4f} s (the capture {compile_span} s in "
+        f"compile); {len(records)} JSONL records, {len(names)} spans; a captured step "
+        f"{med['instrumented']:.3f} ms in the CLI's loop (train.step + train.metrics_fetch, "
+        f"median of its {len(clean)} replays without an eval), {med['bare']:.3f} ms bare "
+        f"(host clock, median of {reps}) {'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["telemetry_train"] = {
+        "bit_equal": equal, "goodput": totals, "wall_s": wall, "main_s": main_s,
+        "compile_span_s": compile_span, "records": records, "span_names": sorted(set(names)),
+        "step_ms": times, "median_ms": med, "ok": ok}
+    if not ok:
+        fail("the trained path under telemetry failed a check (phase 17c)")
+    return replayed
+
+
+def phase_telemetry_profilez(plane):
+    """(d) `/profilez` while serving: a 2 s bounded capture on (a)'s ops
+    server (`torch.profiler`, started and stopped under the engine's graph
+    lock) while 17b's requests are served one at a time; their results bit
+    for bit 17b's; the capture writes a Chrome trace that loads; a second
+    call within `min_interval_s` answers 429. Reported: whether the
+    kernels replayed inside the captured graphs appear in the trace, and
+    by what names."""
+    ops, engine = plane["ops"], plane["engine"]
+    code, body = http_get(ops.url + "/profilez?duration_s=2")
+    info = json.loads(body)
+    served = [engine.predict(q, msa=m, msa_mask=mm, timeout=600)
+              for q, m, mm in telemetry_requests()]
+    deadline = time.monotonic() + 60
+    while plane["profiler"].snapshot()["running"] is not None and time.monotonic() < deadline:
+        time.sleep(0.05)
+    snap = plane["profiler"].snapshot()
+    again = http_get(ops.url + "/profilez?duration_s=2")[0]
+    equal = all(np.array_equal(a.coords, b.coords) and np.array_equal(a.confidence, b.confidence)
+                and a.stress == b.stress for a, b in zip(served, plane["reference"]))
+    trace_ok, kernels, graph_launches = False, {}, 0
+    try:
+        events = json.load(open(info["trace"]))["traceEvents"]
+        trace_ok = True
+        for e in events:
+            if e.get("cat") == "kernel":
+                kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+            elif e.get("name") in ("cudaGraphLaunch", "cuGraphLaunch"):
+                graph_launches += 1
+    except (OSError, KeyError, ValueError):
+        pass
+    flash = {k: n for k, n in kernels.items() if "flash" in k.lower()}
+    ok = (code == 200 and trace_ok and equal and again == 429
+          and not snap["captures"][-1].get("error"))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[telemetry d] /profilez 2 s: {code}, trace {info.get('trace')} loads {trace_ok}; "
+        f"served during it bit-equal to 17b {equal}; again within min_interval_s: {again}; "
+        f"{sum(kernels.values())} kernel events, {graph_launches} graph launches; flash kernels "
+        f"in the trace: {flash if flash else 'none'}; most frequent kernels {top} "
+        f"{'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["telemetry_profilez"] = {
+        "status": code, "info": info, "second_status": again, "bit_equal": equal,
+        "trace_loads": trace_ok, "kernel_events": sum(kernels.values()),
+        "graph_launches": graph_launches, "flash_kernels": flash, "top_kernels": top,
+        "capture": snap["captures"][-1], "ok": ok}
+    if not ok:
+        fail("/profilez while serving failed a check (phase 17d)")
+
+
+def phase_telemetry(smi):
+    """17: the telemetry plane on the card. Counts set to 0 just before (a)
+    and read after (d): the returned launches are the wrappers' counts
+    (every engine's warm-ups and captures, the CLI runs' and (c)'s step's
+    warm-ups and captures) plus what the replays launched (each
+    executable's captured launches times its replays, (c)'s timed step's
+    replays)."""
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        RECORD["phases"][f"telemetry_{key}_s"] = time.perf_counter() - t
+        log(f"[time] telemetry {key}: {RECORD['phases'][f'telemetry_{key}_s']:.1f} s")
+        return result
+
+    shutil.rmtree(TELEMETRY_WORK, ignore_errors=True)
+    TELEMETRY_WORK.mkdir(parents=True)
+    plane = {}
+    reset_launches()
+    try:
+        timed("a", phase_telemetry_engine, smi, plane)
+        timed("b", phase_telemetry_no_number, plane)
+        timed("d", phase_telemetry_profilez, plane)
+        replayed = timed("c", phase_telemetry_train)
+    finally:
+        if "ops" in plane:
+            plane["ops"].stop()
+        for key in ("engine", "plain"):
+            if key in plane:
+                plane[key].shutdown(drain=False)
+        shutil.rmtree(TELEMETRY_WORK, ignore_errors=True)
+    sync()
+    launches = launch_counts()
+    for key in ("engine", "plain"):
+        for exe in plane[key]._executables.values():
+            for name, n in exe.launches.items():
+                launches[name] = launches.get(name, 0) + n * exe.replays
+    for name, n in replayed.items():
+        launches[name] = launches.get(name, 0) + n
+    if not on_wgmma(launches):
+        fail(f"a phase 17 flash launch left its wgmma route: {launches}")
+    log(f"[telemetry] launches (wrappers and replays) "
+        f"{dict((k, n) for k, n in launches.items() if n)}, all on wgmma")
+    RECORD["phases"]["telemetry_launches"] = launches
+    return launches
+
+
 SPARSE_LINE_CASES = ("pair axial L=384", "long n=4096")  # B5's timed rows in the kernels line
 
 
@@ -5925,7 +6430,10 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     0.1 and 0.5), times from 16e at (2048, 256, 64, 0.66 active) with
     dropout 0.1 (plain: the gather version with dropout; library: SDPA with
     dropout_p 0.1), launches from 16b (its eager steps, warm-up, capture
-    and replays: the dropout counts)."""
+    and replays: the dropout counts). Phase 17 adds its engines' and its
+    train steps' B1f, dq and dkv launches (the wrappers' counts: warm-ups,
+    captures, the eval forward; plus the engines' and its timed step's
+    replays)."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r
@@ -6090,6 +6598,8 @@ def main():
     dropout_rows, dropout_launches, dropout_times = timed_phase("sparse_dropout",
                                                                 phase_sparse_dropout)
     for name, n in dropout_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in timed_phase("telemetry", phase_telemetry, smi).items():
         launches[name] = launches.get(name, 0) + n
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches, dropout_rows, dropout_times)

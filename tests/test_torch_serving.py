@@ -850,10 +850,7 @@ def test_refused_config_knob_names_its_roadmap_item(fields, item):
         serving_cfg(**fields)
 
 
-@pytest.mark.parametrize("seam, item", [
-    ("fault_hook", "A11b"), ("tracer", "A14"), ("cost_ledger", "A14"), ("goodput", "A14"),
-    ("flights", "A14"),
-])
+@pytest.mark.parametrize("seam, item", [("fault_hook", "A11b"), ("pool_name", "A11b-3")])
 def test_refused_engine_seam_names_its_roadmap_item(seam, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ServingEngine({}, TINY, serving_cfg(), device="cpu", **{seam: object()})
