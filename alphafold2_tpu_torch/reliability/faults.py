@@ -71,6 +71,14 @@ class InjectedFault(RuntimeError):
     tell injected failures from organic ones."""
 
 
+class WorkerKilled(InjectedFault):
+    """`kill_featurize_worker`'s delivery (alphafold2_tpu/reliability/
+    faults.py:111): the featurize pool (serving/featurize.py) treats it as
+    the WORKER dying (respawn the thread, requeue the job) rather than the
+    request failing, as an organic thread death differs from a bad
+    input."""
+
+
 @dataclasses.dataclass(frozen=True)
 class Fault:
     """One scheduled fault. Fires while `index >= at` and fewer than

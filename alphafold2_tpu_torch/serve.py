@@ -24,7 +24,9 @@ quantizes them at build), and the engine's `params_tag` becomes
 Runs on the GPU, each (bucket, batch shape) a captured CUDA graph pair,
 unless `--device cpu` is given. The fleet tier (`--replicas` > 1, ROADMAP
 A11b-3) and chaos plans (`--fault-plan`, A11b) are not ported yet and are
-refused.
+refused, as are the JAX CLI's fleet-only flags (`--artifact-store`,
+`--journal`, `--featurize-workers`, `--retry-budget`, `--cascade`: A11b-3)
+when set.
 
 Telemetry, the JAX CLI's single-engine flags: `--trace-out` (the request
 lifecycle spans as a Chrome trace), `--metrics-jsonl` (one record a
@@ -207,9 +209,31 @@ def main(argv=None):
                     help="engine replicas (only 1: the fleet is ROADMAP A11b-3)")
     ap.add_argument("--fault-plan", default=None,
                     help="chaos plan (not ported: ROADMAP A11b)")
+    # the fleet's flags (the JAX CLI's "fleet mode only"): their modules
+    # are ported (serving/artifact_store.py, journal.py, featurize.py,
+    # reliability/retry_budget.py, serving/cascade.py), the fleet that
+    # wires them is not
+    ap.add_argument("--artifact-store", default="off", metavar="DIR",
+                    help="fleet-wide result/feature cache (fleet mode only: ROADMAP A11b-3)")
+    ap.add_argument("--journal", default="off", metavar="DIR",
+                    help="durable intake journal (fleet mode only: ROADMAP A11b-3)")
+    ap.add_argument("--featurize-workers", type=int, default=0,
+                    help="CPU featurization tier (fleet mode only: ROADMAP A11b-3)")
+    ap.add_argument("--retry-budget", type=int, default=0, metavar="N",
+                    help="fleet-wide retry budget (fleet mode only: ROADMAP A11b-3)")
+    ap.add_argument("--cascade", default="off", metavar="POLICY_JSON",
+                    help="draft -> verify cascade (fleet mode only: ROADMAP A11b-3)")
     args = ap.parse_args(argv)
     if args.replicas != 1:
         ap.error("--replicas > 1: the serving fleet is not ported yet (ROADMAP A11b-3)")
+    for flag, value, off in (("--artifact-store", args.artifact_store, "off"),
+                             ("--journal", args.journal, "off"),
+                             ("--featurize-workers", args.featurize_workers, 0),
+                             ("--retry-budget", args.retry_budget, 0),
+                             ("--cascade", args.cascade, "off")):
+        if value != off:
+            ap.error(f"{flag}: fleet mode only, and the serving fleet is not ported yet "
+                     f"(ROADMAP A11b-3)")
     if args.fault_plan:
         ap.error("--fault-plan: chaos injection is not ported yet (ROADMAP A11b)")
     if args.slo_config and args.ops_port is None:

@@ -43,9 +43,18 @@ alphafold2_tpu/serving/engine.py `ServingEngine`).
     (a lock and a few dict writes each) into private ledgers, which
     `stats()` reports.
 
+  * **Trunk-depth early exit** (`early_exit_depths`, `early_exit_kl`;
+    serving/pipeline.py `staged_trunk_logits`): a sample's distogram
+    freezes at the first checkpoint depth whose KL from the previous one
+    is small enough. On the card the executable replays one graph a stage
+    and skips the rest once every sample has frozen (one host read a
+    stage). A batch's seconds are apportioned to per-exit-depth cost cells
+    (`dense@exit{d}`) in proportion to each depth's forward FLOPs; the
+    cells' sum stays the batch's seconds.
+
 Not ported in this engine, each refused with its ROADMAP item when set:
-the sequence-parallel arm (`sp_shards`, `sp_schedules`: A11b), early exit
-(`early_exit_depths`, `early_exit_kl`: A5 remainder), pipelined dispatch
+the sequence-parallel arm (`sp_shards`, `sp_schedules`: A11b), a
+trunk-forward override (`model_apply_fn`: A11b), pipelined dispatch
 (`pipeline_depth`: A11a-pipelined), the chaos seam (`fault_hook`: A11b)
 and the fleet's pool label (`pool_name`: A11b-3).
 
@@ -79,7 +88,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from alphafold2_tpu_torch.constants import PAD_TOKEN_ID, aa_to_tokens
+from alphafold2_tpu_torch.constants import PAD_TOKEN_ID
 from alphafold2_tpu_torch.device import check_params_device, resolve_device
 from alphafold2_tpu_torch.ops.dispatch import OPS as DISPATCH_OPS
 from alphafold2_tpu_torch.ops.dispatch import resolve as dispatch_resolve
@@ -95,7 +104,6 @@ from alphafold2_tpu_torch.serving.errors import (
     CircuitOpenError,
     EngineClosedError,
     HungBatchError,
-    InvalidSequenceError,
     PredictionError,
     QueueFullError,
     RequestTimeoutError,
@@ -106,6 +114,7 @@ from alphafold2_tpu_torch.serving.executable import (
     EagerExecutable,
     GraphPool,
 )
+from alphafold2_tpu_torch.serving.featurize import featurize_request
 from alphafold2_tpu_torch.serving.metrics import ServingMetrics
 from alphafold2_tpu_torch.serving.quant_residency import resident_params, schedule_residency
 from alphafold2_tpu_torch.telemetry.costs import ExecutableCostLedger, ServeGoodputLedger
@@ -145,16 +154,34 @@ class ServingConfig:
     batch_ladder: bool = False   # power-of-two batch shapes up to max_batch
     sp_shards: int = 0           # refused (A11b)
     sp_schedules: Tuple[Tuple[int, str], ...] = ()  # refused (A11b)
-    early_exit_depths: Tuple[int, ...] = ()  # refused (A5 remainder)
-    early_exit_kl: float = 0.0   # refused (A5 remainder)
+    # trunk-depth early exit: checkpoint depths (sorted, deduped; >= 2, the
+    # first the delta-KL baseline that never exits) and the masked-mean
+    # KL(prev || cur) at or under which a sample freezes
+    early_exit_depths: Tuple[int, ...] = ()
+    early_exit_kl: float = 0.0
     pipeline_depth: int = 0      # refused (A11a-pipelined)
 
     def __post_init__(self):
+        object.__setattr__(self, "early_exit_depths",
+                           tuple(sorted({int(d) for d in self.early_exit_depths})))
+        if self.early_exit_depths:
+            if self.early_exit_depths[0] < 1:
+                raise ValueError(f"early_exit_depths must be >= 1, got "
+                                 f"{self.early_exit_depths}")
+            if len(self.early_exit_depths) < 2:
+                raise ValueError("early_exit_depths needs >= 2 checkpoints: the first is "
+                                 "the delta-KL baseline and can never exit")
+            if self.early_exit_kl <= 0:
+                raise ValueError(f"early_exit_kl must be > 0 when early_exit_depths is "
+                                 f"set, got {self.early_exit_kl}")
+            if self.sp_shards:
+                raise ValueError("early exit segments the dense sequential trunk and "
+                                 "cannot compose with the SP arm (sp_shards > 0)")
+        elif self.early_exit_kl:
+            raise ValueError("early_exit_kl set without early_exit_depths — the exit gate "
+                             "has no checkpoints to fire at")
         if self.sp_shards or self.sp_schedules:
             _refuse("sp_shards / sp_schedules", "A11b", "the sequence-parallel serving arm")
-        if self.early_exit_depths or self.early_exit_kl:
-            _refuse("early_exit_depths / early_exit_kl", "A5 remainder",
-                    "trunk-depth early exit")
         if self.pipeline_depth:
             _refuse("pipeline_depth", "A11a-pipelined", "pipelined dispatch")
         if self.max_batch < 1:
@@ -190,8 +217,13 @@ class PredictionResult:
     bucket: int
     from_cache: bool
     latency_s: float
-    mean_confidence: float = 0.0  # over the true length
+    replica: str = ""         # fleet: the serving replica's name
+    degraded: bool = False    # fleet: served by the degraded tier
+    requeues: int = 0         # fleet: replica failovers survived
     trace_id: str = ""        # the request's trace id (spans, flight record)
+    mean_confidence: float = 0.0  # over the true length (the cascade's signal)
+    exit_depth: int = 0       # the depth the distogram froze at (0: early exit off)
+    tier: str = ""            # cascade provenance: "", "draft", "escalated", "full"
 
 
 class ServingRequest:
@@ -249,40 +281,6 @@ class ServingRequest:
                                    confidence=self._result.confidence.copy())
 
 
-def featurize_request(seq: str, msa=None, msa_mask=None, *, ladder: BucketLadder,
-                      msa_rows: int = 0):
-    """Normalise, tokenize (strictly), validate the MSA and pick the
-    bucket (the JAX package's serving/featurize.py `featurize_request`).
-    Returns (seq, tokens (L,), msa (rows, L) or None, msa_mask or None,
-    bucket); raises the typed ServingErrors."""
-    seq = seq.strip().upper()
-    try:
-        tokens = aa_to_tokens(seq, strict=True)
-    except ValueError as e:
-        raise InvalidSequenceError(str(e)) from None
-    bucket = ladder.bucket_for(len(seq))
-    msa_arr = None
-    if msa is None and msa_mask is not None:
-        raise ServingError("msa_mask given without msa")
-    if msa is not None:
-        if msa_rows == 0:
-            raise ServingError("engine is configured sequence-only (msa_rows=0); rebuild "
-                               "with ServingConfig(msa_rows=N) to serve MSAs")
-        msa_arr = np.asarray(msa, np.int32)
-        if msa_arr.ndim != 2 or msa_arr.shape[1] != len(seq):
-            raise ServingError(f"msa must be (rows, {len(seq)}) tokens, got {msa_arr.shape}")
-        if msa_arr.shape[0] > msa_rows:
-            raise ServingError(
-                f"msa has {msa_arr.shape[0]} rows; this engine serves at most "
-                f"msa_rows={msa_rows}: subsample client-side or deploy with a larger msa_rows")
-        if msa_mask is not None:
-            msa_mask = np.asarray(msa_mask, bool)
-            if msa_mask.shape != msa_arr.shape:
-                raise ServingError(f"msa_mask shape {msa_mask.shape} does not match msa "
-                                   f"shape {msa_arr.shape}")
-    return seq, tokens, msa_arr, msa_mask, bucket
-
-
 def pad_msa_batch(live, bucket: int, batch_shape: int, rows: int):
     """(B, rows, bucket) MSA stream and mask for a batch of requests. A
     request without an MSA gets its query as row 0; unused rows repeat row
@@ -328,17 +326,36 @@ class ServingEngine:
     turns on the CUDA-event device timing.
     flights: a `FlightBook` for this engine's submit -> terminal records.
     Not ported, each refused with its ROADMAP item when set: `fault_hook`
-    (the chaos seam, A11b) and a `pool_name` other than "default" (the
-    fleet's capability pools, A11b-3; the cells' pool label stays
-    "default").
+    (the chaos seam, A11b), `model_apply_fn` (a trunk-forward override,
+    the SP arm's seam, A11b; with early exit armed it raises JAX's
+    ValueError first) and a `pool_name` other than "default" (the fleet's
+    capability pools, A11b-3; the cells' pool label stays "default").
 
     `_call_executable` and `_realize` are overridable seams: tests stub
     the device call there without touching the scheduler."""
 
     def __init__(self, params, model_cfg, cfg: ServingConfig = ServingConfig(), *,
-                 device=None, metrics_logger=None, fault_hook=None, tracer=None,
-                 replica_name: str = "", incident_hook=None, pool_name: str = "default",
-                 cost_ledger=None, goodput=None, flights=None):
+                 device=None, model_apply_fn=None, metrics_logger=None, fault_hook=None,
+                 tracer=None, replica_name: str = "", incident_hook=None,
+                 pool_name: str = "default", cost_ledger=None, goodput=None, flights=None):
+        # early exit against the model (JAX's checks and messages): a bad
+        # depth fails the construction, not the first dispatch
+        if cfg.early_exit_depths:
+            if model_apply_fn is not None:
+                raise ValueError("early_exit_depths and model_apply_fn are mutually "
+                                 "exclusive: early exit drives the trunk itself")
+            if model_cfg.reversible:
+                raise ValueError("early exit segments the sequential layer list; the "
+                                 "reversible trunk is depth-stacked — set reversible=False")
+            if cfg.early_exit_depths[-1] >= model_cfg.depth:
+                raise ValueError(
+                    f"early_exit_depths {cfg.early_exit_depths} must all be < model depth "
+                    f"{model_cfg.depth} (the full-depth checkpoint is implicit)")
+            if len(set(model_cfg.layer_sparse)) > 1:
+                raise ValueError("early exit requires uniform sparse_self_attn flags across "
+                                 "the trunk (layer slices re-index cfg.layer_sparse from 0)")
+        if model_apply_fn is not None:
+            _refuse("model_apply_fn", "A11b", "a trunk-forward override in the engine")
         if fault_hook is not None:
             _refuse("fault_hook", "A11b", "chaos injection into the engine")
         if pool_name != "default":
@@ -364,9 +381,11 @@ class ServingEngine:
         # model field (dtype, weight_dtype, attn_gate, sparse_self_attn,
         # ...); the ladder because a structure depends on its bucket; the
         # device type because the card's kernels and the CPU's plain
-        # versions agree only to rounding
+        # versions agree only to rounding; the early-exit knobs because an
+        # exited distogram is another function of the sequence
         tag_fields = (model_cfg, cfg.mds_iters, cfg.mds_init, cfg.seed, cfg.msa_rows,
-                      cfg.params_tag, self._ladder.buckets, self.device.type)
+                      cfg.params_tag, self._ladder.buckets, self.device.type,
+                      cfg.early_exit_depths, cfg.early_exit_kl)
         if cfg.batch_ladder:
             tag_fields = tag_fields + (("batch_ladder", self._batch_shapes),)
         self._config_tag = repr(tag_fields)
@@ -425,6 +444,32 @@ class ServingEngine:
                     forward_flops=model_fwd_flops(model_cfg, n=bucket, r=cfg.msa_rows,
                                                   c=bucket),
                     residency_bytes=residency["total_bytes"], chips=1, max_batch=shape)
+        # per-exit-depth cells (JAX's "dense@exit{d}", "dense@exit{d}@b{B}"
+        # under the ladder): a request that froze at depth d did about
+        # flops(d) / flops(depth) of the forward. Exits fire from the second
+        # checkpoint on, so only depths[1:] get cells; `_bill_batch`
+        # apportions a batch's seconds over them by FLOPs
+        self._exit_cells = {}
+        self._depth_flops = {}
+        if cfg.early_exit_depths:
+            for bucket in self._ladder.buckets:
+                for d in cfg.early_exit_depths[1:]:
+                    sub_cfg = dataclasses.replace(model_cfg, depth=d)
+                    flops_d = model_fwd_flops(sub_cfg, n=bucket, r=cfg.msa_rows, c=bucket)
+                    self._depth_flops[(bucket, d)] = flops_d
+                    for shape in self._batch_shapes:
+                        sub_res = schedule_residency(
+                            sub_cfg, bucket=bucket, batch=shape, msa_rows=cfg.msa_rows,
+                            weight_bytes=self._weight_residency["weight_bytes"])
+                        self._exit_cells[(bucket, d, shape)] = self.costs.register_cell(
+                            pool=pool_name, bucket=bucket,
+                            schedule=(f"dense@exit{d}@b{shape}" if cfg.batch_ladder
+                                      else f"dense@exit{d}"),
+                            backend_arm=backend_arm, weight_dtype=model_cfg.weight_dtype,
+                            forward_flops=flops_d, residency_bytes=sub_res["total_bytes"],
+                            chips=1, max_batch=shape)
+                self._depth_flops[(bucket, model_cfg.depth)] = model_fwd_flops(
+                    model_cfg, n=bucket, r=cfg.msa_rows, c=bucket)
         self._timing = threading.local()  # a device call's CUDA events, call to realize
         self._closed = False
         self._drain_on_stop = True
@@ -467,10 +512,12 @@ class ServingEngine:
         if self._closed:
             self._reject(EngineClosedError("engine is shut down"))
         try:
-            seq, tokens, msa_arr, msa_mask, bucket = featurize_request(
-                seq, msa, msa_mask, ladder=self._ladder, msa_rows=self.cfg.msa_rows)
+            fb = featurize_request(seq, msa, msa_mask, ladder=self._ladder,
+                                   msa_rows=self.cfg.msa_rows)
         except ServingError as e:
             self._reject(e)
+        seq, tokens, msa_arr, msa_mask, bucket = (fb.seq, fb.tokens, fb.msa, fb.msa_mask,
+                                                  fb.bucket)
         key = request_key(seq, msa_arr, self._config_tag, msa_mask=msa_mask)
         if self.flights is not None:
             self.flights.begin(trace_id, length=len(seq),
@@ -642,9 +689,11 @@ class ServingEngine:
     def stats(self) -> dict:
         """JSON-ready snapshot: the JAX engine's keys, plus `device`,
         `captures` (each executable's build seconds, the launches its
-        capture recorded and its replays) and `launches` (the kernel
-        launches the replays made: captured launches x replays, by kernel
-        wrapper, where the wrappers' own counts see only the capture).
+        capture recorded and its replays; with early exit, how often each
+        stage graph ran) and `launches` (the kernel launches the replays
+        made: captured launches x replays, each stage graph by its own
+        replays, by kernel wrapper, where the wrappers' own counts see only
+        the capture).
         Host state only: safe from any thread during a capture."""
         self.sample_gauges()
         snap = self.metrics.snapshot(self.cfg.max_batch)
@@ -659,13 +708,20 @@ class ServingEngine:
         snap["capability"] = self.capability()
         snap["device"] = str(self.device)
         exes = sorted(self._executables.items())  # no lock: never wait on a capture
-        snap["captures"] = [{"bucket": b, "batch": s, "seconds": exe.seconds,
-                             "replays": exe.replays, "launches": dict(exe.launches)}
-                            for (b, s), exe in exes]
+        snap["captures"] = []
         launches = {}
-        for _, exe in exes:
-            for name, n in exe.launches.items():
-                launches[name] = launches.get(name, 0) + n * exe.replays
+        for (b, s), exe in exes:
+            entry = {"bucket": b, "batch": s, "seconds": exe.seconds, "replays": exe.replays,
+                     "launches": dict(exe.launches)}
+            stages = getattr(exe, "stage_replays", ())
+            if stages:
+                entry["stage_replays"] = list(stages)
+            snap["captures"].append(entry)
+            # a staged executable counts each stage graph's own replays
+            replayed = (exe.replayed_launches() if stages
+                        else {k: n * exe.replays for k, n in exe.launches.items()})
+            for name, n in replayed.items():
+                launches[name] = launches.get(name, 0) + n
         snap["launches"] = launches
         if self._breaker is not None:
             snap["breaker"] = self._breaker.snapshot()
@@ -738,17 +794,19 @@ class ServingEngine:
                 return exe
             t_compile = time.monotonic()
             with self.metrics.capture_span(bucket):
+                exit_kw = dict(early_exit_depths=self.cfg.early_exit_depths,
+                               early_exit_kl=self.cfg.early_exit_kl)
                 if self.device.type == "cuda":
                     exe = CapturedExecutable(self._params, self.model_cfg, batch=batch_shape,
                                              bucket=bucket, msa_rows=self.cfg.msa_rows,
                                              mds_iters=self.cfg.mds_iters, device=self.device,
                                              pool=self._pool, mds_init=self.cfg.mds_init,
-                                             streams=self._init_streams)
+                                             streams=self._init_streams, **exit_kw)
                 else:
                     exe = EagerExecutable(self._params, self.model_cfg,
                                           mds_iters=self.cfg.mds_iters,
                                           mds_init=self.cfg.mds_init, device=self.device,
-                                          streams=self._init_streams)
+                                          streams=self._init_streams, **exit_kw)
             # the capture's wall is "compile"; the dispatch that triggered
             # it subtracts the tracker's delta from its own window
             self.goodput.add(self._goodput_name, "compile", time.monotonic() - t_compile)
@@ -1016,6 +1074,7 @@ class ServingEngine:
             coords = np.asarray(out["coords"])
             conf = np.asarray(out["confidence"])
             stress = np.asarray(out["stress"])
+            exit_depth = np.asarray(out["exit_depth"]) if "exit_depth" in out else None
         except Exception as e:  # noqa: BLE001 — isolate, report, keep serving
             burned = self._billed(time.monotonic() - t0, compile_s0) if t0 is not None else 0.0
             self._fail_live(bucket, live, e, allow_split, burned_s=burned)
@@ -1024,16 +1083,41 @@ class ServingEngine:
             self._breaker.record_success()
         # accounted before the requests resolve
         self.goodput.add(self._goodput_name, "execute", exec_s)
-        self.costs.observe_batch(self._cost_cells[(bucket, shape)],
-                                 device_seconds=exec_s if device_s is None else device_s,
-                                 requests=len(live))
+        self._bill_batch(bucket, shape, exec_s if device_s is None else device_s, live,
+                         exit_depth)
         self._note_drain(window, len(live))
         done_at = time.monotonic()
         with self._tracer.span("serving.respond", cat="serving", bucket=bucket, n=len(live),
                                trace_ids=[r.trace_id for r in live], **self._span_tags):
-            self._respond(bucket, shape, live, coords, conf, stress, n_real, done_at)
+            self._respond(bucket, shape, live, coords, conf, stress, n_real, done_at,
+                          exit_depth=exit_depth)
 
-    def _respond(self, bucket, shape, live, coords, conf, stress, n_real, done_at):
+    def _bill_batch(self, bucket, shape, exec_s, live, exit_depth):
+        """Charge a batch's seconds to its cost cells (JAX's `_bill_batch`).
+        Without early exit the (bucket, rung) cell takes them all. With it,
+        the live requests grouped by exit depth split `exec_s` in proportion
+        to each group's forward FLOPs over the per-exit-depth cells (full
+        depth: the plain cell); the shares sum to exec_s, so the ledger's
+        chip-seconds total stays the device time."""
+        if exit_depth is None or not self._exit_cells:
+            self.costs.observe_batch(self._cost_cells[(bucket, shape)],
+                                     device_seconds=exec_s, requests=len(live))
+            return
+        full_flops = self._depth_flops[(bucket, self.model_cfg.depth)]
+        groups = {}
+        for i in range(len(live)):
+            d = int(exit_depth[i])
+            groups[d] = groups.get(d, 0) + 1
+        total_w = sum(self._depth_flops.get((bucket, d), full_flops) * n
+                      for d, n in groups.items())
+        for d, n in sorted(groups.items()):
+            cell = self._exit_cells.get((bucket, d, shape), self._cost_cells[(bucket, shape)])
+            w = self._depth_flops.get((bucket, d), full_flops) * n
+            share = exec_s * (w / total_w) if total_w else 0.0
+            self.costs.observe_batch(cell, device_seconds=share, requests=n)
+
+    def _respond(self, bucket, shape, live, coords, conf, stress, n_real, done_at,
+                 exit_depth=None):
         for i, req in enumerate(live):
             L = req.length
             # copies, not views: a view would pin the batch array in the
@@ -1042,8 +1126,9 @@ class ServingEngine:
             result = PredictionResult(
                 seq=req.seq, coords=coords[i, :L].copy(), confidence=conf_i,
                 stress=float(stress[i]), bucket=bucket, from_cache=False,
-                latency_s=done_at - req.submitted_at,
-                mean_confidence=float(conf_i.mean()) if L else 0.0, trace_id=req.trace_id,
+                latency_s=done_at - req.submitted_at, replica=self.replica_name,
+                trace_id=req.trace_id, mean_confidence=float(conf_i.mean()) if L else 0.0,
+                exit_depth=int(exit_depth[i]) if exit_depth is not None else 0,
             )
             self._cache.put(req.cache_key, result)
             if self._resolve(req, result=result):

@@ -36,10 +36,31 @@ a call holds the pool's lock from its first copy in to its outputs'
 clones, so graphs replay one at a time and nothing reads a graph's outputs
 after another graph has run; a capture holds the same lock.
 
+With trunk-depth early exit armed (`early_exit_depths`, `early_exit_kl`)
+graph one's forward is split into one graph a stage of the staged trunk
+(serving/pipeline.py): stage 0 is the front, the first segment, the head
+and its log_softmax; stage k is segment k, the head, the per-sample KL
+test and the `where` updates of the state (x, m, out_logits, prev_logp,
+frozen, exit_depth), whose tensors stage 0's capture made and every later
+stage updates in place, so each graph reads where the last one wrote. A
+CUDA graph cannot branch on device data without conditional nodes, and
+PyTorch reaches those only through `torch.cond` (a prototype), whose
+branches must be traceable by torch.compile: the trunk's kernels are
+ctypes launches it cannot trace. So after each stage the host reads
+whether every sample has frozen (one byte, one sync, under the pool's
+lock, as the eager `eigh` already reads the host once a request) and
+skips the remaining stage graphs: the JAX pipeline's
+`lax.cond(all(frozen))`. Then graph one runs the distogram geometry on
+out_logits, and the rest is as above. A replay gives the eager staged
+`predict_structure`'s outputs bit for bit, whichever stages ran.
+
 The kernel wrappers count launches in Python, so a replay adds nothing to
 their `LAUNCHES`: each executable records the launches its capture
-recorded (`launches`), and `replays` how often it ran. On the CPU an
-`EagerExecutable` runs `predict_structure` itself.
+recorded (`launches`, all its graphs), and `replays` how often it ran; a
+staged one also the launches of each stage graph (`stage_launches`) and
+how often each stage ran (`stage_replays`), so a skipped stage launches
+nothing in `replayed_launches()`. On the CPU an `EagerExecutable` runs
+`predict_structure` itself, with the same arguments.
 """
 
 from __future__ import annotations
@@ -58,10 +79,21 @@ from alphafold2_tpu_torch.geometry.mds import (
     initial_coords,
 )
 from alphafold2_tpu_torch.models.alphafold2 import alphafold2_apply
-from alphafold2_tpu_torch.serving.pipeline import distogram_geometry, predict_structure
+from alphafold2_tpu_torch.serving.pipeline import (
+    distogram_geometry,
+    exit_checkpoints,
+    predict_structure,
+    staged_front,
+    staged_step,
+)
 from alphafold2_tpu_torch.utils.graphs import capture_error, launch_counts, launches_between
 
-OUTPUTS = ("coords", "confidence", "stress")  # what a call returns
+OUTPUTS = ("coords", "confidence", "stress")  # what a call returns; "exit_depth" too
+#                                               with early exit armed
+
+
+def _outputs(early_exit_depths) -> tuple:
+    return OUTPUTS + (("exit_depth",) if early_exit_depths else ())
 
 
 class GraphPool:
@@ -85,17 +117,20 @@ def _init_generator(streams, mds_init: str, seed):
 
 
 class EagerExecutable:
-    """The CPU's executable: `predict_structure` on the padded batch; with
-    the random init, drawn from `streams`' generator seeded by the call's
-    `seed`."""
+    """The CPU's executable: `predict_structure` on the padded batch, with
+    the engine's early-exit knobs; with the random init, drawn from
+    `streams`' generator seeded by the call's `seed`."""
 
     def __init__(self, params, cfg, *, mds_iters: int, mds_init: str, device,
-                 streams=None):
+                 streams=None, early_exit_depths=(), early_exit_kl: float = 0.0):
         self.params, self.cfg, self.device = params, cfg, device
         self.mds_iters, self.mds_init, self.streams = mds_iters, mds_init, streams
+        self.early_exit_depths, self.early_exit_kl = tuple(early_exit_depths), early_exit_kl
+        self.outputs = _outputs(early_exit_depths)
         self.seconds = 0.0
         self.launches = {}
         self.replays = 0
+        self.stage_replays = ()
 
     def __call__(self, tokens, mask, msa=None, msa_mask=None, *, seed=None):
         # no `events`: off the card the engine times the host window
@@ -103,29 +138,39 @@ class EagerExecutable:
                                 msa_mask=msa_mask, mds_iters=self.mds_iters,
                                 mds_init=self.mds_init,
                                 generator=_init_generator(self.streams, self.mds_init, seed),
-                                device=self.device)
+                                device=self.device, early_exit_depths=self.early_exit_depths,
+                                early_exit_kl=self.early_exit_kl)
         self.replays += 1
-        return {k: out[k] for k in OUTPUTS}
+        return {k: out[k] for k in self.outputs}
 
 
 class CapturedExecutable:
     """One (bucket, rung) on the card: captured at construction, then
     `__call__(tokens, mask, msa, msa_mask)` (host numpy of the padded
     batch) replays it and returns device tensors coords (b, L, 3),
-    confidence (b, L) and stress (b,), cloned out of the graphs' memory.
-    `logits` holds the last call's distogram logits until the next replay
-    of any graph of the pool. With mds_init="random" a call takes the
-    init's `seed` and `streams` (the engine's, on the card) holds its
-    generator. Capture raises `CaptureError` naming the op it could not
-    capture; nothing falls back to eager."""
+    confidence (b, L) and stress (b,) (and exit_depth (b,) with early exit
+    armed), cloned out of the graphs' memory. `logits` holds the last
+    call's distogram logits until the next replay of any graph of the pool.
+    With mds_init="random" a call takes the init's `seed` and `streams`
+    (the engine's, on the card) holds its generator. Capture raises
+    `CaptureError` naming the op it could not capture; nothing falls back
+    to eager."""
+
+    checkpoints = ()  # the staged trunk's checkpoint depths (): early exit off
 
     def __init__(self, params, cfg, *, batch: int, bucket: int, msa_rows: int,
                  mds_iters: int, device, pool: GraphPool, mds_init: str = "classical",
-                 streams=None):
+                 streams=None, early_exit_depths=(), early_exit_kl: float = 0.0):
         self.params, self.cfg, self.device, self.pool = params, cfg, device, pool
         self.mds_iters, self.mds_init, self.streams = mds_iters, mds_init, streams
         self.random = mds_init == "random"
+        self.checkpoints = (exit_checkpoints(cfg, early_exit_depths, early_exit_kl)
+                            if early_exit_depths else ())
+        self.exit_kl = float(early_exit_kl)
+        self.outputs = _outputs(early_exit_depths)
         self.replays = 0
+        self.stage_replays = [0] * len(self.checkpoints)
+        self.stage_launches = []
         t0 = time.perf_counter()
         with pool.lock, torch.inference_mode():
             # warm-up inputs: finite (eigh raises on a failed solve)
@@ -137,6 +182,7 @@ class CapturedExecutable:
                                        device=device)
                 self.msa_mask = torch.ones_like(self.msa, dtype=torch.bool)
             self.evals = self.evecs = None  # made by the warm-up's eigh
+            self.state, self.all_frozen = None, []
             stream = torch.cuda.Stream(device)
             stream.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(stream):
@@ -145,13 +191,28 @@ class CapturedExecutable:
                 # none of which a capture may do
                 if self.random:
                     streams.set_seed(streams.seed)  # the passes counted from 0
+                for k in range(len(self.checkpoints)):
+                    self._stage(k)
                 self.geo, self.start = self._front()
                 self._eigh()
                 self.out = self._back()
                 torch.cuda.synchronize(device)
                 before = launch_counts()
+                self.stage_graphs = [torch.cuda.CUDAGraph() for _ in self.checkpoints]
                 self.graphs = (torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph())
+                self.state, self.all_frozen = None, []
                 self.geo = self.start = self.out = None
+                for k, graph in enumerate(self.stage_graphs):
+                    at = launch_counts()
+                    try:
+                        with torch.cuda.graph(graph, pool=pool.handle, stream=stream):
+                            self._stage(k)
+                    except RuntimeError as e:
+                        raise capture_error(
+                            f"early-exit stage {k} (layers to depth {self.checkpoints[k]}; "
+                            f"bucket {bucket}, batch {batch})", e) from e
+                    self.stage_launches.append(launches_between(at, launch_counts()))
+                at = launch_counts()
                 try:
                     with (streams.capturing(self.graphs[0]) if self.random
                           else contextlib.nullcontext()), \
@@ -171,13 +232,33 @@ class CapturedExecutable:
                 after = launch_counts()
             torch.cuda.current_stream(device).wait_stream(stream)
         self.launches = launches_between(before, after)
+        self.tail_launches = launches_between(at, after)  # graphs one and two
         self.seconds = time.perf_counter() - t0
 
+    def _stage(self, k: int):
+        """Stage k of the staged trunk on the state; a later stage also
+        leaves whether every sample has frozen (`all_frozen[k]`, a device
+        bool the host reads after the replay)."""
+        if k == 0:
+            self.state = staged_front(self.params, self.cfg, self.tokens, self.msa,
+                                      mask=self.mask, msa_mask=self.msa_mask,
+                                      upto=self.checkpoints[0])
+            self.all_frozen = [None]
+            return
+        staged_step(self.params, self.cfg, self.state, self.checkpoints[k - 1],
+                    self.checkpoints[k], self.exit_kl)
+        self.all_frozen.append(self.state["frozen"].all())
+
     def _front(self):
-        """Graph one: the geometry, and the MDS start's input: the classical
-        init's Gram matrix, or the random init itself."""
-        logits = alphafold2_apply(self.params, self.cfg, self.tokens, self.msa, mask=self.mask,
-                                  msa_mask=self.msa_mask, device=self.device)
+        """Graph one: the forward (the staged trunk's out_logits when early
+        exit is armed), the geometry, and the MDS start's input: the
+        classical init's Gram matrix, or the random init itself."""
+        if self.checkpoints:
+            logits = self.state["out_logits"]
+        else:
+            logits = alphafold2_apply(self.params, self.cfg, self.tokens, self.msa,
+                                      mask=self.mask, msa_mask=self.msa_mask,
+                                      device=self.device)
         geo = distogram_geometry(logits, self.mask)
         if self.random:
             return geo, initial_coords(geo["distances"], "random",
@@ -200,12 +281,35 @@ class CapturedExecutable:
         coords = self.start if self.random else classical_embed(self.evals, self.evecs)
         coords, stresses, _ = guttman(self.geo["distances"], self.geo["weights"], coords,
                                       self.mds_iters, tol=float("-inf"))  # as the pipeline
-        return {"coords": coords.transpose(1, 2), "confidence": self.geo["confidence"],
-                "stress": stresses[-1]}
+        out = {"coords": coords.transpose(1, 2), "confidence": self.geo["confidence"],
+               "stress": stresses[-1]}
+        if self.checkpoints:
+            out["exit_depth"] = self.state["exit_depth"]
+        return out
 
     @property
     def logits(self):
         return self.geo["distogram_logits"]
+
+    def replayed_launches(self) -> dict:
+        """The kernel launches the replays made: each graph's captured
+        launches times the replays of that graph (a skipped stage none)."""
+        graphs = [(self.tail_launches if self.checkpoints else self.launches, self.replays),
+                  *zip(self.stage_launches, self.stage_replays)]
+        out = {}
+        for launches, n in graphs:
+            for name, k in launches.items():
+                out[name] = out.get(name, 0) + k * n
+        return out
+
+    def _replay_stages(self):
+        """Stage 0, then each later stage until every sample has frozen."""
+        last = len(self.stage_graphs) - 1
+        for k, graph in enumerate(self.stage_graphs):
+            graph.replay()
+            self.stage_replays[k] += 1
+            if 0 < k < last and bool(self.all_frozen[k].item()):
+                return
 
     def __call__(self, tokens, mask, msa=None, msa_mask=None, *, seed=None, events=None):
         """`events`: a (start, end) pair of timing `torch.cuda.Event`s,
@@ -223,11 +327,12 @@ class CapturedExecutable:
             if self.msa is not None:
                 self.msa.copy_(torch.from_numpy(np.asarray(msa)))
                 self.msa_mask.copy_(torch.from_numpy(np.asarray(msa_mask)))
+            self._replay_stages()
             self.graphs[0].replay()
             self._eigh()
             self.graphs[1].replay()
             self.replays += 1
-            out = {k: self.out[k].clone() for k in OUTPUTS}
+            out = {k: self.out[k].clone() for k in self.outputs}
             if events is not None:
                 events[1].record()
             return out

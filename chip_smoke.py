@@ -341,6 +341,33 @@ each phase prints its seconds):
      (d) a 2 s `/profilez` capture while serving: results bit for bit
          (b)'s, a Chrome trace, 429 on a second call; which kernels of the
          replayed graphs the trace shows, by name;
+  18. trunk-depth early exit (`predict_structure(early_exit_depths=,
+     early_exit_kl=)`, serving/pipeline.py `staged_trunk_logits`; the
+     engine's staged executable, one CUDA graph a stage):
+     (a) the served widths in float32 at depth 4, checkpoints (1, 2, 3), a
+         batch of 4 distinct L = 64 requests with 4-row MSAs: the
+         per-sample KLs on the CPU, the threshold at the geometric midpoint
+         of their widest gap that leaves some samples exiting and some not
+         (failing when that gap is under 1e3 x the card-vs-CPU KL
+         difference); card against CPU: exit_depth equal, phase 4a's
+         tolerances;
+     (b) the served config (bf16) at depth 4 through `ServingEngine`
+         (buckets 128 / 256 / 384, rungs 1, 2, 4, 20 MSA rows), classical
+         and random init, at thresholds 1e-12 (nothing exits: bit for bit
+         the engine without early exit), 1e9 (every sample exits at depth
+         2: stages 3 and 4 never replayed, the logits the model cut to
+         depth 2's) and the midpoint rule (mixed exits): every result bit
+         for bit the eager staged `predict_structure` on the padded batch,
+         the `dense@exit{d}@b{B}` cells counting their requests and summing
+         to the engine's chip-seconds within 1e-6, every B1f launch on
+         wgmma, counted into the kernels line;
+     (c) times, reported: an L = 384 request at rung 1 (host clock and
+         events, median of 5 in turns): (b)'s plain depth-4 executable and
+         staged ones with nothing exiting and with everything exiting at
+         depth 2, and a plain depth-2 one; each stage graph's events
+         (median of 5) and the kernel time of one more call of the plain
+         depth-4 and the nothing-exiting arms under torch.profiler, so the
+         stages' cost splits into device work and the host's gaps;
   5. a `kernels` JSON line (sixteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, the three sparse kernels with dropout, B3's forward and its
@@ -364,6 +391,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -463,6 +491,8 @@ from alphafold2_tpu_torch.telemetry import (  # noqa: E402
     parse_prometheus_text,
 )
 from alphafold2_tpu_torch.utils.flops import model_fwd_flops  # noqa: E402
+from alphafold2_tpu_torch.serving.engine import pad_msa_batch  # noqa: E402
+from alphafold2_tpu_torch.serving.pipeline import staged_front, staged_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / f32 (no TF32)
@@ -1835,19 +1865,19 @@ def served_config(**fields):
                                       max_seq_len=384, dtype=torch.bfloat16), **fields})
 
 
-def engine_batch(lengths, bucket, seed):
+def engine_batch(lengths, bucket, seed, msa_rows=ENGINE_ROWS):
     """A padded batch as the engine assembles it, one seeded request a
-    length with a 20-row MSA: tokens and mask (b, bucket), msa and msa_mask
-    (b, 20, bucket)."""
+    length with a 20-row MSA (`msa_rows` rows): tokens and mask (b, bucket),
+    msa and msa_mask (b, msa_rows, bucket)."""
     rng = np.random.default_rng(seed)
     rows = [rng.integers(0, 20, L).astype(np.int32) for L in lengths]
     tokens, mask, _ = pad_batch(rows, bucket, len(lengths))
-    msa = np.full((len(lengths), ENGINE_ROWS, bucket), PAD_TOKEN_ID, np.int32)
+    msa = np.full((len(lengths), msa_rows, bucket), PAD_TOKEN_ID, np.int32)
     msa_mask = np.zeros(msa.shape, bool)
     for i, (row, L) in enumerate(zip(rows, lengths)):
-        msa[i, :, :L] = rng.integers(0, 21, (ENGINE_ROWS, L))
+        msa[i, :, :L] = rng.integers(0, 21, (msa_rows, L))
         msa[i, 0, :L] = row
-        msa_mask[i, :, :L] = rng.random((ENGINE_ROWS, L)) > 0.1
+        msa_mask[i, :, :L] = rng.random((msa_rows, L)) > 0.1
         msa_mask[i, 0, :L] = True
     return tokens, mask, msa, msa_mask
 
@@ -6389,6 +6419,368 @@ def phase_telemetry(smi):
     return launches
 
 
+# --- phase 18: trunk-depth early exit on the card ---------------------------------
+
+EXIT_DEPTHS = (1, 2, 3)  # checkpoints; the model's depth 4 is the last
+
+
+def stage_kls(params, cfg, tokens, mask, msa, msa_mask, device, depths=EXIT_DEPTHS):
+    """Per-sample masked-mean KL(prev || cur) at each later checkpoint
+    (rows: depths[1:], then cfg.depth) from the staged trunk's own stages
+    with nothing freezing, float64 on the host."""
+    checkpoints = tuple(depths) + (cfg.depth,)
+    with torch.inference_mode():
+        t = lambda a, dt: torch.as_tensor(a, dtype=dt).to(device)  # noqa: E731
+        state = staged_front(params, cfg, t(tokens, torch.long), t(msa, torch.long),
+                             mask=t(mask, torch.bool), msa_mask=t(msa_mask, torch.bool),
+                             upto=checkpoints[0])
+        rows = []
+        for start, stop in zip(checkpoints[:-1], checkpoints[1:]):
+            prev = state["prev_logp"].clone()
+            staged_step(params, cfg, state, start, stop, exit_kl=1e-30)
+            cur = state["prev_logp"]
+            kl = ((prev.exp() * (prev - cur)).sum(-1) * state["pm"]).sum((1, 2)) / state["denom"]
+            rows.append(kl.double().cpu().numpy())
+    return np.stack(rows)
+
+
+def exit_threshold(kls):
+    """The geometric midpoint of the widest gap (in log space) between the
+    sorted KLs of the checkpoints that can exit (every row but the last)
+    among the gaps that leave at least one sample exiting and one not (a
+    sample exits when one of its KLs is at or under the threshold).
+    Returns (threshold, the KL under it, the KL over it)."""
+    first = kls[:-1].min(axis=0)
+    v = np.sort(kls[:-1].ravel())
+    best = None
+    for lo, hi in zip(v[:-1], v[1:]):
+        mid = math.sqrt(lo * hi)
+        if 0 < int((first <= mid).sum()) < len(first) and (
+                best is None or hi / lo > best[2] / best[1]):
+            best = (mid, lo, hi)
+    if best is None:
+        fail(f"no KL threshold splits the samples: {kls}")
+    return best
+
+
+def phase_exit_parity(L=64):
+    """(a) Card against CPU in float32 (see the module docstring)."""
+    cfg = served_config(dtype=torch.float32, depth=4, max_seq_len=L)
+    params = {dev: alphafold2_init(cfg, torch.Generator().manual_seed(0), dev)
+              for dev in ("cpu", "cuda")}
+    tokens, mask, msa, msa_mask = engine_batch((L,) * 4, L, seed=81, msa_rows=4)
+    kls_cpu = stage_kls(params["cpu"], cfg, tokens, mask, msa, msa_mask, "cpu")
+    threshold, lo, hi = exit_threshold(kls_cpu)
+    kls_card = stage_kls(params["cuda"], cfg, tokens, mask, msa, msa_mask, "cuda")
+    kl_diff = float(np.abs(kls_card - kls_cpu).max())
+    kw = dict(mask=mask, msa=msa, msa_mask=msa_mask, mds_iters=200,
+              early_exit_depths=EXIT_DEPTHS, early_exit_kl=threshold)
+    reset_launches()
+    card = predict_structure(params["cuda"], cfg, tokens, device="cuda", **kw)
+    sync()
+    launches = launch_counts()
+    cpu = predict_structure(params["cpu"], cfg, tokens, device="cpu", **kw)
+    g = {k: v.cpu() for k, v in card.items()}
+    d = {"logits": (g["distogram_logits"] - cpu["distogram_logits"]).abs().max().item(),
+         "confidence": (g["confidence"] - cpu["confidence"]).abs().max().item(),
+         "stress_rel": ((g["stress"] - cpu["stress"]).abs() / cpu["stress"].abs()).max().item(),
+         "distances": (pairwise(g["coords"]) - pairwise(cpu["coords"])).abs().max().item()}
+    exits_card, exits_cpu = g["exit_depth"].tolist(), cpu["exit_depth"].tolist()
+    mixed = min(exits_cpu) < cfg.depth == max(exits_cpu)
+    ok = (hi - lo >= 1e3 * kl_diff and exits_card == exits_cpu and mixed
+          and d["logits"] <= 1e-4 and d["confidence"] <= 1e-5 and d["stress_rel"] <= 1e-3
+          and d["distances"] <= 1e-2)
+    log(f"[exit a] f32 depth 4, L={L}, 4 requests, 4 MSA rows: KLs (CPU) "
+        f"{np.round(kls_cpu, 6).tolist()}; threshold {threshold:.6g} in the gap ({lo:.6g}, {hi:.6g}) = {hi - lo:.3e}, card vs "
+        f"CPU KL |d| {kl_diff:.3e} (gap >= 1e3 x); exit_depth card {exits_card} CPU "
+        f"{exits_cpu}; logits |d|={d['logits']:.2e} (1e-4), confidence |d|="
+        f"{d['confidence']:.2e} (1e-5), stress rel={d['stress_rel']:.2e} (1e-3), distances "
+        f"|d|={d['distances']:.2e} A (1e-2); launches {launches} {'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["exit_parity"] = {
+        "L": L, "kls_cpu": kls_cpu.tolist(), "kls_card": kls_card.tolist(),
+        "threshold": threshold, "gap": [lo, hi], "kl_diff": kl_diff,
+        "exit_depth": {"card": exits_card, "cpu": exits_cpu}, **d, "launches": launches,
+        "ok": ok}
+    if not ok:
+        fail("early exit: the card and the CPU disagree, or the threshold's gap is too "
+             "narrow (phase 18a)")
+    return launches
+
+
+def exit_padded(reqs, bucket, shape):
+    """The padded batch the engine assembles for `reqs` ((sequence, msa,
+    msa_mask) each) at (bucket, rung)."""
+    rows = [np.asarray([AA_ORDER.index(c) for c in seq], np.int32) for seq, _, _ in reqs]
+    tokens, mask, _ = pad_batch(rows, bucket, shape)
+    live = [types.SimpleNamespace(length=len(seq), tokens=row, msa=msa, msa_mask=mm)
+            for (seq, msa, mm), row in zip(reqs, rows)]
+    msa, msa_mask = pad_msa_batch(live, bucket, shape, ENGINE_ROWS)
+    return tokens, mask, msa, msa_mask
+
+
+def exit_engine(params, cfg, mds_init, threshold):
+    """The served engine (buckets 128 / 256 / 384, rungs 1, 2, 4, 200 MDS
+    iterations, 20 MSA rows); early exit at `threshold` (None: off)."""
+    exit_kw = ({} if threshold is None
+               else dict(early_exit_depths=EXIT_DEPTHS, early_exit_kl=threshold))
+    return ServingEngine(params, cfg, ServingConfig(
+        buckets=ENGINE_BUCKETS, max_batch=4, batch_ladder=True, msa_rows=ENGINE_ROWS,
+        mds_iters=200, max_wait_s=0.5, request_timeout_s=600.0, mds_init=mds_init,
+        cache_capacity=0 if mds_init == "random" else 256, seed=7, **exit_kw))
+
+
+def phase_exit_engine():
+    """(b) The staged executable through the engine (see the module
+    docstring). Returns the launches: the wrappers' counts from a reset
+    just before (warm-ups, captures, eager references) plus what every
+    engine's replays launched (each stage graph by its own replays); and
+    (c)'s arms at bucket 384, rung 1: the plain engine's executable, the
+    staged ones with nothing exiting and with everything exiting at 2, and
+    the params."""
+    cfg = served_config(depth=4)
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda")
+    cut = dataclasses.replace(cfg, depth=2)
+    rng = np.random.default_rng(83)
+    # (label, init, threshold, request lengths -> bucket, rung)
+    plan = [("none", "classical", 1e-12, (384,)),
+            ("all", "classical", 1e9, (256, 250, 200, 180)),
+            ("all rung 1", "classical", 1e9, (380,)),
+            ("mid", "classical", None, (128, 120, 100, 90)),
+            ("mid random", "random", None, (128, 70)),
+            ("all random", "random", 1e9, (200,))]
+    reset_launches()
+    engines, rows, arms = [], [], {}
+    try:
+        for label, init, threshold, lengths in plan:
+            reqs = [engine_request(L, rng) for L in lengths]
+            bucket = min(b for b in ENGINE_BUCKETS if b >= max(lengths))
+            shape = min(r for r in (1, 2, 4) if r >= len(lengths))
+            tokens, mask, msa, msa_mask = exit_padded(reqs, bucket, shape)
+            if threshold is None:
+                kls = stage_kls(params, cfg, tokens[:len(reqs)], mask[:len(reqs)],
+                                msa[:len(reqs)], msa_mask[:len(reqs)], "cuda")
+                threshold = exit_threshold(kls)[0]
+            eng = exit_engine(params, cfg, init, threshold)
+            engines.append(eng)
+            handles = [eng.submit(seq, msa=m, msa_mask=mm) for seq, m, mm in reqs]
+            results = [h.result(timeout=600) for h in handles]
+            exe = eng._executables[(bucket, shape)]
+            logits = exe.logits.clone()
+            gen = (torch.Generator("cuda").manual_seed(eng.init_seed(eng._batch_counter))
+                   if init == "random" else None)
+            ref = predict_structure(params, cfg, tokens, mask=mask, msa=msa, msa_mask=msa_mask,
+                                    mds_iters=200, mds_init=init, generator=gen, device="cuda",
+                                    early_exit_depths=EXIT_DEPTHS, early_exit_kl=threshold)
+            sync()
+            equal = all(np.array_equal(r.coords, ref["coords"][i, :L].cpu().numpy())
+                        and np.array_equal(r.confidence, ref["confidence"][i, :L].cpu().numpy())
+                        and r.stress == float(ref["stress"][i])
+                        and r.exit_depth == int(ref["exit_depth"][i])
+                        for i, (r, L) in enumerate(zip(results, lengths)))
+            equal = equal and torch.equal(logits, ref["distogram_logits"])
+            exits = [r.exit_depth for r in results]
+            stats = eng.stats()
+            cells = {c["schedule"]: c for c in stats["costs"]["cells"]
+                     if c["bucket"] == bucket}
+            counted = all(cells[f"dense@exit{d}@b{shape}" if d < cfg.depth
+                                else f"dense@b{shape}"]["requests"] == exits.count(d)
+                          for d in (2, 3, 4))
+            total = sum(c["device_seconds"] * c["chips"] for c in stats["costs"]["cells"])
+            summed = abs(total - eng.costs.fleet_chip_seconds_total()) <= 1e-6 * total
+            row = {"label": label, "init": init, "threshold": threshold, "bucket": bucket,
+                   "rung": shape, "exit_depth": exits, "bit_equal_eager": equal,
+                   "stage_replays": list(exe.stage_replays),
+                   "stage_launches": exe.stage_launches, "cells_count": counted,
+                   "chip_seconds": total, "cells_sum_total": summed}
+            check = equal and counted and summed and total > 0
+            if label == "all rung 1":
+                arms["staged, all exit at 2"] = exe
+            if label == "none":
+                plain = exit_engine(params, cfg, init, None)
+                engines.append(plain)
+                same = [plain.submit(seq, msa=m, msa_mask=mm) for seq, m, mm in reqs]
+                same = [h.result(timeout=600) for h in same]
+                arms["staged, none exit"] = exe
+                arms["plain depth 4"] = plain._executables[(bucket, shape)]
+                row["bit_equal_plain_engine"] = all(
+                    np.array_equal(a.coords, b.coords)
+                    and np.array_equal(a.confidence, b.confidence) and a.stress == b.stress
+                    for a, b in zip(results, same))
+                check = (check and row["bit_equal_plain_engine"]
+                         and exits == [cfg.depth] * len(exits)
+                         and exe.stage_replays == [1, 1, 1, 1])
+            elif label.startswith("all"):
+                with torch.inference_mode():
+                    cut_logits = alphafold2_apply(
+                        dict(params, trunk=params["trunk"][:2]), cut, tokens, msa, mask=mask,
+                        msa_mask=msa_mask, device="cuda").float()
+                row["logits_equal_cut_model"] = torch.equal(logits, cut_logits)
+                skipped = all(exe.stage_launches[k] for k in (2, 3))
+                launched = exe.replayed_launches()
+                want = {}
+                for launches in (exe.stage_launches[0], exe.stage_launches[1],
+                                 exe.tail_launches):
+                    for name, n in launches.items():
+                        want[name] = want.get(name, 0) + n
+                check = (check and row["logits_equal_cut_model"] and exits == [2] * len(exits)
+                         and exe.stage_replays == [1, 1, 0, 0] and skipped
+                         and launched == want)
+            else:
+                check = check and min(exits) < cfg.depth == max(exits)
+            row["ok"] = check
+            rows.append(row)
+            log(f"[exit b] {label} ({init}, kl {threshold:.6g}): bucket {bucket} rung {shape}, "
+                f"exit_depth {exits}, stage replays {exe.stage_replays}, bit-equal eager "
+                f"{equal}" + (f", plain engine {row['bit_equal_plain_engine']}"
+                              if "bit_equal_plain_engine" in row else "")
+                + (f", logits = depth-2 model {row['logits_equal_cut_model']}"
+                   if "logits_equal_cut_model" in row else "")
+                + f"; cells count {counted}, sum {total:.6f} s = total {summed} "
+                  f"{'ok' if check else 'FAIL'}")
+    finally:
+        for eng in engines:
+            eng.shutdown(drain=False)
+    sync()
+    launches = launch_counts()
+    for eng in engines:
+        for name, n in eng.stats()["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    routes = on_wgmma(launches)
+    log(f"[exit b] launches (wrappers and replays) "
+        f"{dict((k, n) for k, n in launches.items() if n)}"
+        f"{', all on wgmma' if routes else ', OFF wgmma'}")
+    RECORD["phases"]["exit_engine"] = {"config": repr(cfg), "rows": rows,
+                                       "launches": launches, "on_wgmma": routes}
+    if not (routes and all(r["ok"] for r in rows)):
+        fail("the staged engine differs from eager or from the plain engine, ran a skipped "
+             "stage, billed wrongly or left wgmma (phase 18b)")
+    return launches, arms, params
+
+
+def phase_exit_timing(built, params4, reps=5):
+    """(c) Times, reported with no limit (see the module docstring): (b)'s
+    executables at bucket 384, rung 1 (`built`) and a plain depth-2 one
+    captured here on the first two layers of the same params. Returns the
+    launches of this phase's replays (each stage graph by its own)."""
+    cfg2 = served_config(depth=2)
+    params2 = dict(params4, trunk=params4["trunk"][:2])
+    arms = {"plain depth 4": built["plain depth 4"],
+            "staged, none exit": built["staged, none exit"],
+            "staged, all exit at 2": built["staged, all exit at 2"],
+            "plain depth 2": CapturedExecutable(
+                params2, cfg2, batch=1, bucket=384, msa_rows=ENGINE_ROWS, mds_iters=200,
+                device=torch.device("cuda", 0), pool=GraphPool())}
+    before = {name: exe.replayed_launches() for name, exe in arms.items()}
+    batch = engine_batch((384,), 384, seed=91)
+    outs = {}
+    for name, exe in arms.items():
+        outs[name] = exe(*batch)
+    sync()
+    host = {name: [] for name in arms}
+    device = {name: [] for name in arms}
+    for _ in range(reps):
+        for name, exe in arms.items():
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            sync()
+            t0 = time.perf_counter()
+            exe(*batch, events=events)
+            sync()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+            device[name].append(events[0].elapsed_time(events[1]))
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    times = {name: {"host_ms": med(host[name]), "events_ms": med(device[name]),
+                    "stage_replays": list(exe.stage_replays)} for name, exe in arms.items()}
+    for name in ("plain depth 4", "staged, none exit"):
+        prof = profile_request(lambda exe=arms[name]: exe(*batch))
+        times[name]["kernel_ms"] = prof["device_ms"]
+        times[name]["kernels"] = prof["device_kernels"]
+        times[name]["graph_launches"] = prof["graph_launches"]
+    # each stage graph alone on the last call's inputs (events, median of
+    # 5): a later stage less a trunk layer is its head, KL and state copies
+    staged = arms["staged, none exit"]
+    stage_ms = []
+    with torch.inference_mode():
+        for graph in staged.stage_graphs:
+            runs = []
+            for _ in range(reps):
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+                graph.replay()
+                events[1].record()
+                sync()
+                runs.append(events[0].elapsed_time(events[1]))
+            stage_ms.append(med(runs))
+    plain4, none_exit = times["plain depth 4"]["host_ms"], times["staged, none exit"]["host_ms"]
+    exit2, plain2 = times["staged, all exit at 2"]["host_ms"], times["plain depth 2"]["host_ms"]
+    layer_ms = (times["plain depth 4"]["events_ms"] - times["plain depth 2"]["events_ms"]) / 2
+    derived = {"per_stage_overhead_ms": (none_exit - plain4) / 3,
+               "skipped_segment_saves_ms": (none_exit - exit2) / 2,
+               "exit2_over_plain2_ms": exit2 - plain2,
+               "stage_graph_ms": stage_ms, "layer_ms": layer_ms,
+               "stage_device_overhead_ms": [t - layer_ms for t in stage_ms[1:]],
+               "kernel_ms_overhead_per_stage": (times["staged, none exit"]["kernel_ms"]
+                                                - times["plain depth 4"]["kernel_ms"]) / 3,
+               "idle_ms": {name: t["host_ms"] - t["kernel_ms"] for name, t in times.items()
+                           if "kernel_ms" in t}}
+    same = all(torch.equal(outs["plain depth 4"][k], outs["staged, none exit"][k])
+               for k in ("coords", "confidence", "stress"))
+    for name, t in times.items():
+        log(f"[exit c] L=384 rung 1, {name}: {t['host_ms']:.3f} ms host, {t['events_ms']:.3f} "
+            f"ms events (median of {reps}), stage replays {t['stage_replays']}"
+            + (f"; one more under the profiler: {t['kernel_ms']:.3f} ms in {t['kernels']} "
+               f"kernels, {t['graph_launches']} graph launches" if "kernel_ms" in t else ""))
+    log(f"[exit c] stage graphs alone (events, median of {reps}): "
+        f"{[round(x, 3) for x in stage_ms]} ms; a trunk layer (plain 4 less plain 2, / 2) "
+        f"{layer_ms:.3f} ms, so a later stage's head, KL and copies "
+        f"{[round(x, 3) for x in derived['stage_device_overhead_ms']]} ms; kernel time a "
+        f"later stage over plain {derived['kernel_ms_overhead_per_stage']:.3f} ms; host "
+        f"less kernel time {dict((k, round(v, 3)) for k, v in derived['idle_ms'].items())}")
+    log(f"[exit c] per later stage (head, KL, one host read): "
+        f"{derived['per_stage_overhead_ms']:.3f} ms; a skipped segment saves "
+        f"{derived['skipped_segment_saves_ms']:.3f} ms; exit-at-2 over plain depth 2: "
+        f"{derived['exit2_over_plain2_ms']:.3f} ms; none-exit = plain depth 4 bit for bit: "
+        f"{same}")
+    RECORD["phases"]["exit_timing"] = {"times": times, "derived": derived,
+                                       "none_exit_equals_plain": same}
+    if not same:
+        fail("the staged executable with nothing exiting differs from the plain one (18c)")
+    launches = {}
+    for name, exe in arms.items():
+        for kernel, n in exe.replayed_launches().items():
+            launches[kernel] = launches.get(kernel, 0) + n - before[name].get(kernel, 0)
+    return launches
+
+
+def phase_early_exit():
+    """18: trunk-depth early exit. Counts set to 0 just before (b); the
+    returned launches are (a)'s, (b)'s (wrappers and replays) and (c)'s
+    (the wrappers' warm-ups and captures, and the replays)."""
+    def timed(key, fn):
+        t = time.perf_counter()
+        result = fn()
+        RECORD["phases"][f"exit_{key}_s"] = time.perf_counter() - t
+        log(f"[time] early exit {key}: {RECORD['phases'][f'exit_{key}_s']:.1f} s")
+        return result
+
+    launches = timed("a", phase_exit_parity)
+    engine, arms, params = timed("b", phase_exit_engine)
+    reset_launches()
+    replays = timed("c", lambda: phase_exit_timing(arms, params))
+    timing = launch_counts()
+    if not on_wgmma(_merged(timing, replays)):
+        fail(f"a phase 18c flash launch left its wgmma route: {timing}, {replays}")
+    return _merged(launches, engine, timing, replays)
+
+
+def _merged(*counts):
+    out = {}
+    for c in counts:
+        for name, n in c.items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
 SPARSE_LINE_CASES = ("pair axial L=384", "long n=4096")  # B5's timed rows in the kernels line
 
 
@@ -6433,7 +6825,10 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     and replays: the dropout counts). Phase 17 adds its engines' and its
     train steps' B1f, dq and dkv launches (the wrappers' counts: warm-ups,
     captures, the eval forward; plus the engines' and its timed step's
-    replays)."""
+    replays). Phase 18 adds its B1f launches: (a)'s f32 request on the
+    card, (b)'s engines (warm-ups, captures, eager references, and each
+    stage graph's captured launches times its own replays) and (c)'s
+    executables (likewise)."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r
@@ -6600,6 +6995,8 @@ def main():
     for name, n in dropout_launches.items():
         launches[name] = launches.get(name, 0) + n
     for name, n in timed_phase("telemetry", phase_telemetry, smi).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in timed_phase("early_exit", phase_early_exit).items():
         launches[name] = launches.get(name, 0) + n
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches, dropout_rows, dropout_times)

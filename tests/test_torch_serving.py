@@ -838,19 +838,22 @@ def test_params_on_another_device_are_refused(tiny_params):
 # ------------------------------------------------- the refused knobs
 
 
-@pytest.mark.parametrize("fields, item", [
-    ({"sp_shards": 2}, "A11b"),
-    ({"sp_schedules": ((16, "sp_seq"),)}, "A11b"),
-    ({"early_exit_depths": (1, 2)}, "A5 remainder"),
-    ({"early_exit_kl": 0.1}, "A5 remainder"),
-    ({"pipeline_depth": 2}, "A11a-pipelined"),
+# early exit is ported: a knob alone is now JAX's validation error (each
+# needs the other), the test of its message under the knob's old id
+@pytest.mark.parametrize("fields, exc, match", [
+    ({"sp_shards": 2}, NotImplementedError, "ROADMAP A11b"),
+    ({"sp_schedules": ((16, "sp_seq"),)}, NotImplementedError, "ROADMAP A11b"),
+    ({"early_exit_depths": (1, 2)}, ValueError, "early_exit_kl must be > 0"),
+    ({"early_exit_kl": 0.1}, ValueError, "without early_exit_depths"),
+    ({"pipeline_depth": 2}, NotImplementedError, "ROADMAP A11a-pipelined"),
 ], ids=["sp_shards", "sp_schedules", "early_exit_depths", "early_exit_kl", "pipeline_depth"])
-def test_refused_config_knob_names_its_roadmap_item(fields, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+def test_refused_config_knob_names_its_roadmap_item(fields, exc, match):
+    with pytest.raises(exc, match=match):
         serving_cfg(**fields)
 
 
-@pytest.mark.parametrize("seam, item", [("fault_hook", "A11b"), ("pool_name", "A11b-3")])
+@pytest.mark.parametrize("seam, item", [("fault_hook", "A11b"), ("pool_name", "A11b-3"),
+                                        ("model_apply_fn", "A11b")])
 def test_refused_engine_seam_names_its_roadmap_item(seam, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ServingEngine({}, TINY, serving_cfg(), device="cpu", **{seam: object()})
@@ -868,8 +871,11 @@ def test_random_mds_init_serves_on_the_cpu(tiny_params):
         eng.shutdown()
 
 
-@pytest.mark.parametrize("flag", [["--replicas", "2"], ["--fault-plan", "plan.json"]],
-                         ids=["replicas", "fault_plan"])
+@pytest.mark.parametrize("flag", [
+    ["--replicas", "2"], ["--fault-plan", "plan.json"], ["--artifact-store", "auto"],
+    ["--journal", "auto"], ["--featurize-workers", "2"], ["--retry-budget", "8"],
+    ["--cascade", "{}"]], ids=["replicas", "fault_plan", "artifact_store", "journal",
+                               "featurize_workers", "retry_budget", "cascade"])
 def test_cli_refuses_fleet_flags(flag, capsys):
     from alphafold2_tpu_torch import serve
 
@@ -1027,3 +1033,34 @@ def test_engine_on_the_card_serves_captured_requests():
     ref = predict_structure(params, cfg, tokens, mask=mask, mds_iters=20, device="cuda")
     np.testing.assert_array_equal(solo.coords, ref["coords"][0, :10].cpu().numpy())
     np.testing.assert_array_equal(solo.confidence, ref["confidence"][0, :10].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kl", [1e-12, 1e9], ids=["none", "all"])
+def test_captured_staged_request_matches_eager_bit_for_bit(kl):
+    """On the card: the staged request captured one graph a stage replays
+    to the eager staged `predict_structure` bit for bit, and a skipped
+    stage's graph is not replayed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the engine captures CUDA graphs there")
+    from alphafold2_tpu_torch.serving.executable import CapturedExecutable, GraphPool
+
+    cfg = Alphafold2Config(dim=64, depth=4, heads=4, dim_head=64, max_seq_len=64,
+                           dtype=torch.bfloat16)
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda")
+    exe = CapturedExecutable(params, cfg, batch=2, bucket=64, msa_rows=4, mds_iters=20,
+                             device=torch.device("cuda", 0), pool=GraphPool(),
+                             early_exit_depths=(1, 2, 3), early_exit_kl=kl)
+    rng = np.random.default_rng(0)
+    rows = [rng.integers(0, 20, n).astype(np.int32) for n in (64, 50)]
+    tokens, mask, _ = pad_batch(rows, 64, 2)
+    msa = rng.integers(0, 21, (2, 4, 64)).astype(np.int32)
+    msa_mask = np.broadcast_to(mask[:, None], msa.shape).copy()
+    got = exe(tokens, mask, msa, msa_mask)
+    got["distogram_logits"] = exe.logits.clone()
+    ref = predict_structure(params, cfg, tokens, mask=mask, msa=msa, msa_mask=msa_mask,
+                            mds_iters=20, device="cuda", early_exit_depths=(1, 2, 3),
+                            early_exit_kl=kl)
+    for k, v in got.items():
+        assert torch.equal(v, ref[k]), k
+    assert exe.stage_replays == ([1, 1, 1, 1] if kl < 1 else [1, 1, 0, 0])
