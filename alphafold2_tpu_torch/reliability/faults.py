@@ -1,14 +1,14 @@
 """Deterministic fault injection: a seeded schedule of failures
-(counterpart of alphafold2_tpu/reliability/faults.py, its training hooks).
+(counterpart of alphafold2_tpu/reliability/faults.py).
 
 A `FaultPlan` is a declarative list of faults, loadable from JSON (the
-`--fault-plan` trainer flag), and a `FaultInjector` its stateful executor:
-each hook site asks whether a fault fires at the current index and
-delivers it at most `count` times. The same plan against the same seeds
-gives the same failures, so the chaos tests assert bit-exact recovery.
+`--fault-plan` flag), and a `FaultInjector` its stateful executor: each
+hook site asks whether a fault fires at the current index and delivers it
+at most `count` times. The same plan against the same seeds gives the
+same failures, so the chaos tests assert bit-exact recovery.
 
 `FaultPlan` parses every kind of the JAX package's `FAULT_KINDS`, so any
-plan file it takes loads here. The port delivers the training hooks only:
+plan file it takes loads here. Hook sites:
 
   training/harness.py     `with_fault_injection(step_fn, injector)`:
                           `step_exception`, `nan_grads` (the step's
@@ -18,11 +18,29 @@ plan file it takes loads here. The port delivers the training hooks only:
                           `data_error` and `slow_data` at fetch index N;
   training/checkpoint.py  `VerifiedCheckpointManager(fault_hook=
                           injector.checkpoint_hook())`: `ckpt_corrupt`
-                          (truncate / corrupt / no_manifest).
+                          (truncate / corrupt / no_manifest);
+  serving/engine.py       `ServingEngine(fault_hook=injector.serving_hook())`:
+                          `request_error`, `slow_request`, `hung_request`
+                          at dispatch index N, and `crash_process` at the
+                          process-wide dispatch index;
+  serving/fleet.py        each replica's `injector.replica_hook(name)`:
+                          `kill_replica` (latched: every dispatch from
+                          `at` on fails, re-probes included), `slow_replica`,
+                          `flap_replica` (`count` failures, then healthy),
+                          `straggle_dispatch` (a slow success); the
+                          featurize tier's `featurize_hook()`:
+                          `slow_featurize`, `kill_featurize_worker`.
 
-`check_training_plan` refuses a plan with a serving, replica, featurize,
-autoscaler or process-crash kind, naming ROADMAP A11b: those hooks live in
-the serving fleet, not ported yet.
+Replica indices are per-replica counters kept by the INJECTOR, not the
+engine, so they survive the engine restarts a drain and reinstatement
+make. The training CLIs deliver the training kinds only
+(`check_training_plan`); `serve` delivers the serving kinds
+(`check_serving_plan`). The autoscaler's `scale_flap` is not ported
+(ROADMAP A11b-3b) and is refused by both.
+
+Validate a hand-written plan before paying for a run:
+
+  python -m alphafold2_tpu_torch.reliability.faults --check plan.json
 """
 
 from __future__ import annotations
@@ -43,22 +61,28 @@ FAULT_KINDS = (
     "ckpt_corrupt",     # damage the checkpoint written for step `at`
     "data_error",       # raise InjectedFault at batch fetch index `at`
     "slow_data",        # sleep `delay_s` at batch fetch index `at`
-    "request_error",    # serving dispatch `at`: raise (not ported: A11b)
-    "slow_request",     # serving dispatch `at`: sleep `delay_s` (A11b)
-    "hung_request",     # serving dispatch `at`: sleep `hang_s` (A11b)
-    "kill_replica",     # named fleet replica: fail from `at` on (A11b)
-    "slow_replica",     # named fleet replica: sleep per dispatch (A11b)
-    "flap_replica",     # named fleet replica: fail `count` dispatches (A11b)
-    "slow_featurize",   # featurize tier: sleep at job `at` (A11b)
-    "kill_featurize_worker",  # featurize tier: kill a worker (A11b)
-    "scale_flap",       # autoscaler: forced up/down demands (A11b)
-    "crash_process",    # kill -9 the serving process at dispatch `at` (A11b)
-    "straggle_dispatch",  # named fleet replica: a slow success (A11b)
+    "request_error",    # serving dispatch `at`: raise InjectedFault
+    "slow_request",     # serving dispatch `at`: sleep `delay_s`
+    "hung_request",     # serving dispatch `at`: sleep `hang_s` (watchdog fodder)
+    "kill_replica",     # named fleet replica: fail every dispatch from `at` on
+    "slow_replica",     # named fleet replica: sleep `delay_s` per dispatch
+    "flap_replica",     # named fleet replica: fail `count` dispatches, recover
+    "slow_featurize",   # featurize tier: sleep `delay_s` at job `at`
+    "kill_featurize_worker",  # featurize tier: kill the worker serving job `at`
+    "scale_flap",       # autoscaler: forced up/down demands (not ported: A11b-3b)
+    "crash_process",    # kill -9 the serving process at process-wide dispatch `at`
+    "straggle_dispatch",  # named fleet replica: a slow success (the hedge trigger)
 )
 
-#: the kinds the port delivers (the training hooks)
+#: the kinds the training CLIs deliver
 TRAINING_FAULT_KINDS = ("step_exception", "nan_grads", "preempt", "ckpt_corrupt",
                         "data_error", "slow_data")
+
+#: the kinds `serve` delivers (the engine's, the fleet replicas' and the
+#: featurize tier's hooks)
+SERVING_FAULT_KINDS = ("request_error", "slow_request", "hung_request", "kill_replica",
+                       "slow_replica", "flap_replica", "slow_featurize",
+                       "kill_featurize_worker", "crash_process", "straggle_dispatch")
 
 #: kinds that target one named fleet replica and require `replica`
 REPLICA_FAULT_KINDS = ("kill_replica", "slow_replica", "flap_replica", "straggle_dispatch")
@@ -161,13 +185,28 @@ class FaultPlan:
 
 
 def check_training_plan(plan: FaultPlan, what: str) -> None:
-    """Refuse a plan whose faults the port has no hook for (the serving
-    fleet's kinds), naming ROADMAP A11b."""
+    """Refuse a plan with kinds a trainer has no hook for: the serving
+    kinds (serve's, the fleet's: ROADMAP A11b) and `scale_flap` (A11b-3b)."""
     other = sorted({f.kind for f in plan.faults} - set(TRAINING_FAULT_KINDS))
     if other:
         raise NotImplementedError(
-            f"{what}: fault kind(s) {other} need the serving fleet's hooks, which are not "
-            f"ported yet (ROADMAP A11b); the port delivers {TRAINING_FAULT_KINDS}")
+            f"{what}: fault kind(s) {other} are not training kinds: the serving kinds are "
+            f"delivered by serve (ROADMAP A11b; scale_flap by the autoscaler, not ported: "
+            f"A11b-3b); a trainer delivers {TRAINING_FAULT_KINDS}")
+
+
+def check_serving_plan(plan: FaultPlan, what: str) -> None:
+    """Refuse a plan with kinds `serve` has no hook for: the training kinds
+    and `scale_flap`, the autoscaler's (not ported: ROADMAP A11b-3b)."""
+    if any(f.kind == "scale_flap" for f in plan.faults):
+        raise NotImplementedError(
+            f"{what}: fault kind scale_flap drives the replica autoscaler, which is not "
+            f"ported yet (ROADMAP A11b-3b)")
+    other = sorted({f.kind for f in plan.faults} - set(SERVING_FAULT_KINDS))
+    if other:
+        raise NotImplementedError(
+            f"{what}: fault kind(s) {other} are training kinds, delivered by the trainers; "
+            f"serve delivers {SERVING_FAULT_KINDS}")
 
 
 def poison_metrics(metrics: dict) -> dict:
@@ -181,35 +220,49 @@ def poison_metrics(metrics: dict) -> dict:
 
 
 class FaultInjector:
-    """Stateful executor of a FaultPlan's training faults (thread-safe)."""
+    """Stateful executor of a FaultPlan. Thread-safe: the serving hooks run
+    on engine workers and the fleet's threads, the training hooks on the
+    main thread."""
 
     def __init__(self, plan: FaultPlan):
         self.plan = plan
         self._lock = threading.Lock()
         self._fired = [0] * len(plan.faults)
+        self._replica_dispatch = {}  # replica name -> injector-side counter
         self._preemption = None  # bound PreemptionHandler for `preempt`
         self.delivered: List[str] = []  # audit log of delivered faults
+        # fault-free dispatch hooks skip the crash counter's lock
+        self._has_crash = any(f.kind == "crash_process" for f in plan.faults)
 
     def bind_preemption(self, handler):
         """Attach the PreemptionHandler that `preempt` faults trip."""
         self._preemption = handler
         return self
 
-    def _take(self, kind: str, index: int) -> Optional[Fault]:
-        """Claim a matching fault (at most `count` deliveries), or None."""
+    def _take(self, kind: str, index: int, replica: str = "") -> Optional[Fault]:
+        """Claim a matching fault (at most `count` deliveries), or None.
+        `kill_replica` is latched: it delivers past any count, so a killed
+        replica stays dead across re-probes; the audit log records its
+        first delivery only."""
         with self._lock:
             for i, f in enumerate(self.plan.faults):
-                if f.kind != kind or index < f.at or self._fired[i] >= f.count:
+                if f.kind != kind or f.replica != replica or index < f.at:
+                    continue
+                if f.kind != "kill_replica" and self._fired[i] >= f.count:
                     continue
                 self._fired[i] += 1
-                self.delivered.append(f"{kind}@{index}")
+                if f.kind != "kill_replica" or self._fired[i] == 1:
+                    tag = f"{kind}[{replica}]" if replica else kind
+                    self.delivered.append(f"{tag}@{index}")
                 return f
         return None
 
     def exhausted(self) -> bool:
-        """True when every scheduled fault has delivered all its counts."""
+        """True when every scheduled fault has delivered all its counts (a
+        latched kill after one delivery)."""
         with self._lock:
-            return all(fired >= f.count for fired, f in zip(self._fired, self.plan.faults))
+            return all(fired >= (1 if f.kind == "kill_replica" else f.count)
+                       for fired, f in zip(self._fired, self.plan.faults))
 
     # -- hook: training step (training/harness.py) --------------------------
 
@@ -266,3 +319,145 @@ class FaultInjector:
                     fh.write(b"\xde\xad\xbe\xef")
 
         return hook
+
+    def _maybe_crash(self):
+        """Deliver a scheduled `crash_process` at the process-wide dispatch
+        index (every serving and replica hook advances one shared counter):
+        die as `kill -9` does, exit code 137, no atexit and no flush. The
+        intake journal (serving/journal.py) is what must survive it."""
+        if not self._has_crash:
+            return
+        with self._lock:
+            index = self._replica_dispatch.get("__process__", 0)
+            self._replica_dispatch["__process__"] = index + 1
+        if self._take("crash_process", index) is not None:
+            os._exit(137)
+
+    # -- hook: serving dispatch (serving/engine.py) --------------------------
+
+    def serving_hook(self):
+        """The ServingEngine fault_hook: called with (dispatch_index,
+        bucket) at the top of every dispatch."""
+
+        def hook(index: int, bucket: int):
+            self._maybe_crash()
+            f = self._take("slow_request", index)
+            if f is not None:
+                time.sleep(f.delay_s)
+            f = self._take("hung_request", index)
+            if f is not None:
+                # a wedged device call: far past the watchdog, on the
+                # (abandonable) dispatch thread
+                time.sleep(f.hang_s)
+            f = self._take("request_error", index)
+            if f is not None:
+                raise InjectedFault(f.describe())
+
+        return hook
+
+    # -- hook: fleet replica dispatch (serving/fleet.py) ---------------------
+
+    def replica_hook(self, name: str):
+        """A ServingEngine fault_hook scoped to fleet replica `name`,
+        delivering kill / slow / flap / straggle faults at an injector-side
+        per-replica index (a reinstated replica's fresh engine restarts its
+        own counter; the schedule must not rewind with it). Health probes
+        dispatch through it too, so a killed replica fails its re-probes."""
+
+        def hook(engine_index: int, bucket: int):
+            self._maybe_crash()
+            with self._lock:
+                index = self._replica_dispatch.get(name, 0)
+                self._replica_dispatch[name] = index + 1
+            f = self._take("slow_replica", index, replica=name)
+            if f is not None:
+                time.sleep(f.delay_s)
+            f = self._take("straggle_dispatch", index, replica=name)
+            if f is not None:
+                # stalled but SUCCEEDS: the hedge timer, not the failure
+                # path, should beat it
+                time.sleep(f.delay_s)
+            f = self._take("kill_replica", index, replica=name)
+            if f is not None:
+                raise InjectedFault(f.describe())
+            f = self._take("flap_replica", index, replica=name)
+            if f is not None:
+                raise InjectedFault(f.describe())
+
+        return hook
+
+    # -- hook: featurize tier (serving/featurize.py) -------------------------
+
+    def featurize_hook(self):
+        """The FeaturizePool fault_hook: called with the pool's job index at
+        the top of every job, delivering at an injector-side index (a
+        respawned worker must not rewind the schedule). `slow_featurize`
+        sleeps on the worker; `kill_featurize_worker` raises `WorkerKilled`,
+        which the pool turns into a worker death and a requeue."""
+
+        def hook(engine_index: int):
+            with self._lock:
+                index = self._replica_dispatch.get("__featurize__", 0)
+                self._replica_dispatch["__featurize__"] = index + 1
+            f = self._take("slow_featurize", index)
+            if f is not None:
+                time.sleep(f.delay_s)
+            f = self._take("kill_featurize_worker", index)
+            if f is not None:
+                raise WorkerKilled(f.describe())
+
+        return hook
+
+    # -- hook: autoscaler ticks (serving/autoscale.py) -----------------------
+
+    def autoscale_hook(self):
+        """The autoscaler's hook (`scale_flap`): the replica autoscaler is
+        not ported (ROADMAP A11b-3b)."""
+        raise NotImplementedError(
+            "autoscale_hook: the replica autoscaler is not ported to the PyTorch package "
+            "yet (ROADMAP A11b-3b)")
+
+
+def _check_main(argv=None) -> int:
+    """`python -m alphafold2_tpu_torch.reliability.faults --check plan.json`:
+    validate a plan's schema without running anything. Exit 0 printing the
+    parsed schedule, or 2 with the precise rejection (the same validation
+    every loading path runs)."""
+    import argparse
+    import sys
+
+    ap = argparse.ArgumentParser(prog="python -m alphafold2_tpu_torch.reliability.faults",
+                                 description="validate a chaos fault-plan JSON schema")
+    ap.add_argument("--check", required=True, metavar="PLAN_JSON",
+                    help="path to the fault-plan JSON to validate")
+    args = ap.parse_args(argv)
+    try:
+        plan = FaultPlan.from_file(args.check)
+    except (ValueError, TypeError, KeyError) as e:
+        print(f"INVALID {args.check}: {e}", file=sys.stderr)
+        return 2
+    except (OSError, json.JSONDecodeError) as e:
+        print(f"UNREADABLE {args.check}: {e}", file=sys.stderr)
+        return 2
+    print(f"OK {args.check}: {len(plan.faults)} fault(s), seed {plan.seed}")
+    for f in plan.faults:
+        extra = []
+        if f.replica:
+            extra.append(f"replica={f.replica}")
+        if f.kind == "ckpt_corrupt":
+            extra.append(f"mode={f.mode}")
+        if f.kind in ("slow_request", "slow_replica", "slow_featurize", "slow_data",
+                      "straggle_dispatch"):
+            extra.append(f"delay_s={f.delay_s}")
+        if f.kind == "crash_process":
+            extra.append("exit=137")
+        if f.kind == "hung_request":
+            extra.append(f"hang_s={f.hang_s}")
+        count = "latched" if f.kind == "kill_replica" else f"count={f.count}"
+        print(f"  {f.kind:16s} at={f.at:<5d} {count}"
+              + (f"  ({', '.join(extra)})" if extra else ""))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(_check_main())

@@ -1,11 +1,13 @@
-"""Serving entry point: drive the port's engine over a FASTA stream
-(counterpart of the root serve.py, single engine only).
+"""Serving entry point: drive the port's engine, or a fleet of its
+replicas, over a FASTA stream (counterpart of the root serve.py).
 
 Reads a many-record FASTA (or synthesizes one with --demo), submits every
-record to the micro-batching engine (serving/engine.py) with explicit
-backpressure handling, prints one line a result and the stats snapshot
-(captured executables, batch occupancy, latency quantiles, cache hit
-rate), and writes a CA-trace PDB a record with --out-dir.
+record to the micro-batching engine (serving/engine.py) or to the fleet
+(serving/fleet.py) with explicit backpressure handling, prints one line a
+result and the stats snapshot (captured executables, batch occupancy,
+latency quantiles, cache hit rate; the fleet's terminal outcomes, sheds,
+requeues and replica states), and writes a CA-trace PDB a record with
+--out-dir.
 
 Usage:
   python -m alphafold2_tpu_torch.serve --fasta proteins.fasta --out-dir preds/
@@ -14,6 +16,9 @@ Usage:
   python -m alphafold2_tpu_torch.serve --demo 24 --ops-port 0 --flight-dir flights/ \\
       --trace-out trace.json --metrics-jsonl batches.jsonl --stats-json stats.json \\
       --stats-interval 5
+  python -m alphafold2_tpu_torch.serve --demo 24 --replicas 3 --degrade-depth 3 \\
+      --reprobe-interval 0.3 --degraded-weight-dtype int8 \\
+      --fault-plan docs/examples/fleet_chaos_plan.json --stats-json fleet.json
 
 Parameters come from `--ckpt-dir` (the newest verified checkpoint there,
 `training/checkpoint.py`; the model flags must match the run that wrote
@@ -22,11 +27,29 @@ against the f32 twin of the config (checkpoints hold f32 masters; int8
 quantizes them at build), and the engine's `params_tag` becomes
 `<ckpt-dir>@step<N>`, so two checkpoints never share cached results.
 Runs on the GPU, each (bucket, batch shape) a captured CUDA graph pair,
-unless `--device cpu` is given. The fleet tier (`--replicas` > 1, ROADMAP
-A11b-3) and chaos plans (`--fault-plan`, A11b) are not ported yet and are
-refused, as are the JAX CLI's fleet-only flags (`--artifact-store`,
-`--journal`, `--featurize-workers`, `--retry-budget`, `--cascade`: A11b-3)
-when set.
+unless `--device cpu` is given.
+
+The fleet tier (the JAX CLI's flags and defaults): `--replicas` > 1,
+`--pools` or `--featurize-workers` > 0 select it; N replicas share the
+device (on the card: one lock for their captures and calls, so they add
+failover and capture isolation, not card capacity) behind one admission
+queue (`--fleet-queue`), with failover (`--requeue-limit`), a degraded
+tier (`--degraded-iters`, `--degraded-weight-dtype`, `--degrade-depth`),
+health probes (`--probe-interval`, `--reprobe-interval`,
+`--fail-threshold`), capability pools and a draft -> verify cascade
+(`--pools`, `--cascade`), a featurization tier (`--featurize-workers`,
+`--featurize-queue`), a fleet-wide artifact store (`--artifact-store`,
+`--artifact-mem-entries`, `--artifact-mem-mb`, `--artifact-disk-mb`), an
+intake journal (`--journal`, replayed at startup), a retry budget
+(`--retry-budget`) and hedged dispatch (`--hedge-factor`,
+`--hedge-rate-cap`). In fleet mode the watchdog defaults to 60 s (a hung
+replica must fail for the failover to start). `--fault-plan` takes a
+chaos plan (reliability/faults.py: replica faults in the fleet, dispatch
+faults single-engine; check one with `python -m
+alphafold2_tpu_torch.reliability.faults --check`). Refused, naming their
+ROADMAP items: `--pipeline-depth` (A11a-pipelined), `--sp-shards` (the
+SP arm, A11b-4) and the autoscaler's `--min-replicas`, `--max-replicas`,
+`--scale-policy`, `--scale-grace` and the `scale_flap` fault (A11b-3b).
 
 Telemetry, the JAX CLI's single-engine flags: `--trace-out` (the request
 lifecycle spans as a Chrome trace), `--metrics-jsonl` (one record a
@@ -36,8 +59,9 @@ batch), `--stats-interval` (flush `--stats-json` every N seconds too),
 `serving_*` objectives or `--slo-config`), `--ops-port-file`, `--ops-tick`,
 `--flight-dir` (the incident flight recorder; with --ops-port also
 /profilez, bounded `torch.profiler` captures under DIR/profiles, taken
-under the engine's graph-pool lock so they never meet a capture) and
-`--peak-tflops` (the serve_mfu gauge; no peak, no MFU).
+under the card's lock so they never meet a capture) and `--peak-tflops`
+(the serve_mfu gauge; no peak, no MFU). The fleet's ops server carries
+the fleet registry and the stock `fleet_*` SLOs.
 """
 
 from __future__ import annotations
@@ -56,15 +80,24 @@ import numpy as np
 import torch
 
 from alphafold2_tpu_torch.constants import AA_ORDER
+from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.geometry.pdb import coords_to_pdb
 from alphafold2_tpu_torch.models.alphafold2 import alphafold2_init
 from alphafold2_tpu_torch.models.config import Alphafold2Config
+from alphafold2_tpu_torch.reliability.faults import FaultPlan, check_serving_plan
+from alphafold2_tpu_torch.serving.artifact_store import ArtifactStore, ArtifactStoreConfig
+from alphafold2_tpu_torch.serving.cascade import CascadePolicy
 from alphafold2_tpu_torch.serving.engine import ServingConfig, ServingEngine
 from alphafold2_tpu_torch.serving.errors import (
+    NoHealthyReplicaError,
     QueueFullError,
     RequestTimeoutError,
+    RetryBudgetExhaustedError,
     ServingError,
 )
+from alphafold2_tpu_torch.serving.executable import device_lock
+from alphafold2_tpu_torch.serving.fleet import FleetConfig, PoolSpec, ServingFleet
+from alphafold2_tpu_torch.serving.journal import IntakeJournal
 from alphafold2_tpu_torch.telemetry import (
     FlightBook,
     FlightRecorder,
@@ -79,6 +112,7 @@ from alphafold2_tpu_torch.telemetry import (
     finish_trace,
     host_memory_gauges,
     ops_server_for_engine,
+    ops_server_for_fleet,
     tracer_from_args,
 )
 from alphafold2_tpu_torch.telemetry.ops_plane import write_atomic
@@ -148,7 +182,29 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--batch-ladder", action="store_true",
                     help="power-of-two batch shapes up to --max-batch")
+    ap.add_argument("--pipeline-depth", type=int, default=0,
+                    help="pipelined dispatch (not ported: ROADMAP A11a-pipelined)")
+    ap.add_argument("--max-wait-ms", type=float, default=50.0,
+                    help="batch-assembly deadline for partial batches")
+    ap.add_argument("--queue-size", type=int, default=64)
+    ap.add_argument("--request-timeout", type=float, default=60.0,
+                    help="per-request deadline, seconds (the fleet's default too)")
+    ap.add_argument("--cache-size", type=int, default=256)
     ap.add_argument("--mds-iters", type=int, default=32)
+    ap.add_argument("--mds-init", choices=("random", "classical"), default="classical")
+    ap.add_argument("--sp-shards", type=int, default=0,
+                    help="the sequence-parallel serving arm (not ported: ROADMAP A11b-4)")
+    ap.add_argument("--precompile", action="store_true",
+                    help="capture every (bucket, batch shape) before taking traffic")
+    ap.add_argument("--breaker-threshold", type=int, default=0,
+                    help="open the circuit after this many consecutive dispatch "
+                         "failures (0 = breaker off)")
+    ap.add_argument("--breaker-reset", type=float, default=30.0,
+                    help="seconds the circuit stays open before the half-open probe")
+    ap.add_argument("--watchdog-timeout", type=float, default=None,
+                    help="fail a batch whose model call exceeds this many seconds "
+                         "(off by default; fleet mode defaults it to 60 s: the "
+                         "failover path needs hung replicas to FAIL)")
     ap.add_argument("--passes", type=int, default=1,
                     help="replay the stream this many times (later passes hit the cache)")
     ap.add_argument("--ckpt-dir", default=None, help="restore trained params")
@@ -205,37 +261,114 @@ def main(argv=None):
                          "serve_mfu cost-ledger gauge (unset = publish "
                          "achieved FLOP/s only)")
     add_telemetry_args(ap)  # --trace-out / --trace-max-spans
+    # the fleet tier (serving/fleet.py)
     ap.add_argument("--replicas", type=int, default=1,
-                    help="engine replicas (only 1: the fleet is ROADMAP A11b-3)")
-    ap.add_argument("--fault-plan", default=None,
-                    help="chaos plan (not ported: ROADMAP A11b)")
-    # the fleet's flags (the JAX CLI's "fleet mode only"): their modules
-    # are ported (serving/artifact_store.py, journal.py, featurize.py,
-    # reliability/retry_budget.py, serving/cascade.py), the fleet that
-    # wires them is not
-    ap.add_argument("--artifact-store", default="off", metavar="DIR",
-                    help="fleet-wide result/feature cache (fleet mode only: ROADMAP A11b-3)")
-    ap.add_argument("--journal", default="off", metavar="DIR",
-                    help="durable intake journal (fleet mode only: ROADMAP A11b-3)")
-    ap.add_argument("--featurize-workers", type=int, default=0,
-                    help="CPU featurization tier (fleet mode only: ROADMAP A11b-3)")
-    ap.add_argument("--retry-budget", type=int, default=0, metavar="N",
-                    help="fleet-wide retry budget (fleet mode only: ROADMAP A11b-3)")
+                    help="engine replicas behind the shared admission queue; >1 selects "
+                         "the fleet tier")
+    ap.add_argument("--fleet-queue", type=int, default=64,
+                    help="shared admission-queue capacity (fleet mode)")
+    ap.add_argument("--requeue-limit", type=int, default=3,
+                    help="replica failovers per request before it fails terminally "
+                         "(fleet mode)")
+    ap.add_argument("--degraded-iters", type=int, default=-1,
+                    help="MDS iterations for the degraded fallback tier; -1 = auto "
+                         "(max(1, mds_iters // 4)), 0 = no degraded tier (fleet mode)")
+    ap.add_argument("--degraded-weight-dtype", choices=("", "f32", "int8"), default="",
+                    help="weight precision for the degraded fallback tier (int8 = "
+                         "per-channel int8 trunk weights; fleet mode; composes with "
+                         "--degraded-iters)")
+    ap.add_argument("--degrade-depth", type=int, default=0,
+                    help="admission-queue depth past which NEW work spills to the "
+                         "degraded tier (0 = degraded serves only when every full "
+                         "replica is down)")
+    ap.add_argument("--probe-interval", type=float, default=5.0,
+                    help="healthy-replica heartbeat cadence, seconds")
+    ap.add_argument("--reprobe-interval", type=float, default=0.5,
+                    help="down-replica reinstatement probe cadence, seconds")
+    ap.add_argument("--fail-threshold", type=int, default=2,
+                    help="consecutive replica failures that drain it")
+    ap.add_argument("--pools", default=None, metavar="POOLS_JSON",
+                    help="heterogeneous capability pools: a JSON list of PoolSpec "
+                         "dicts, inline or a file path; selects the fleet tier")
     ap.add_argument("--cascade", default="off", metavar="POLICY_JSON",
-                    help="draft -> verify cascade (fleet mode only: ROADMAP A11b-3)")
+                    help="draft -> verify cascade (serving/cascade.py; requires "
+                         "--pools): a CascadePolicy JSON, inline or a file path; "
+                         "'off' (default) keeps static pool routing")
+    ap.add_argument("--featurize-workers", type=int, default=0,
+                    help="CPU featurization worker threads in front of the admission "
+                         "queue (0 = featurize inline); >0 selects the fleet tier")
+    ap.add_argument("--featurize-queue", type=int, default=128,
+                    help="featurize-tier bounded queue capacity")
+    ap.add_argument("--min-replicas", type=int, default=None,
+                    help="autoscaler floor (not ported: ROADMAP A11b-3b)")
+    ap.add_argument("--max-replicas", type=int, default=None,
+                    help="autoscaler ceiling (not ported: ROADMAP A11b-3b)")
+    ap.add_argument("--scale-policy", default=None, metavar="POLICY_JSON",
+                    help="autoscaler policy (not ported: ROADMAP A11b-3b)")
+    ap.add_argument("--scale-grace", type=float, default=0.0, metavar="SECONDS",
+                    help="autoscaler idle grace (not ported: ROADMAP A11b-3b)")
+    ap.add_argument("--fault-plan", default=None, metavar="PLAN_JSON",
+                    help="chaos schedule (reliability/faults.py FaultPlan JSON): "
+                         "replica-scoped kill/slow/flap faults in fleet mode, dispatch "
+                         "faults single-engine")
+    ap.add_argument("--artifact-store", default="off", metavar="DIR",
+                    help="fleet-wide content-addressed result/feature cache with "
+                         "front-door coalescing: a directory for the disk tier, "
+                         "'auto' (an 'artifacts/' sibling of --flight-dir, memory-only "
+                         "without one) or 'off' (default). Fleet mode only")
+    ap.add_argument("--journal", default="off", metavar="DIR",
+                    help="durable intake journal: every accepted request written to "
+                         "DIR before dispatch and unlinked at its terminal state, the "
+                         "unfinished ones replayed at startup; 'auto' (a 'journal/' "
+                         "sibling of --flight-dir) or 'off' (default). Fleet mode only")
+    ap.add_argument("--retry-budget", type=int, default=0, metavar="N",
+                    help="fleet-wide retry budget: a token bucket of N tokens shared by "
+                         "featurize requeues, failover retries and hedges (0 = off)")
+    ap.add_argument("--hedge-factor", type=float, default=0.0, metavar="X",
+                    help="hedged dispatch: a dispatch past X x its pool's service-time "
+                         "p95 gets one duplicate on another healthy replica (0 = off)")
+    ap.add_argument("--hedge-rate-cap", type=float, default=0.1, metavar="FRAC",
+                    help="upper bound on hedges as a fraction of dispatches")
+    ap.add_argument("--artifact-mem-entries", type=int, default=256, metavar="N",
+                    help="artifact-store hot-ring entry cap")
+    ap.add_argument("--artifact-mem-mb", type=int, default=256, metavar="MB",
+                    help="artifact-store hot-ring byte budget")
+    ap.add_argument("--artifact-disk-mb", type=int, default=2048, metavar="MB",
+                    help="artifact-store disk-tier byte budget")
     args = ap.parse_args(argv)
-    if args.replicas != 1:
-        ap.error("--replicas > 1: the serving fleet is not ported yet (ROADMAP A11b-3)")
-    for flag, value, off in (("--artifact-store", args.artifact_store, "off"),
-                             ("--journal", args.journal, "off"),
-                             ("--featurize-workers", args.featurize_workers, 0),
-                             ("--retry-budget", args.retry_budget, 0),
-                             ("--cascade", args.cascade, "off")):
-        if value != off:
-            ap.error(f"{flag}: fleet mode only, and the serving fleet is not ported yet "
-                     f"(ROADMAP A11b-3)")
-    if args.fault_plan:
-        ap.error("--fault-plan: chaos injection is not ported yet (ROADMAP A11b)")
+    if args.pipeline_depth:
+        ap.error("--pipeline-depth: pipelined dispatch is not ported to the PyTorch "
+                 "engine yet (ROADMAP A11a-pipelined)")
+    if args.sp_shards:
+        ap.error("--sp-shards: the sequence-parallel serving arm is not ported to the "
+                 "PyTorch engine yet (ROADMAP A11b-4)")
+    # the JAX CLI's pairing checks first, then the autoscaler's refusal
+    if args.min_replicas is not None and args.max_replicas is None:
+        ap.error("--min-replicas requires --max-replicas (the pair arms the autoscaler)")
+    if args.scale_policy and args.max_replicas is None:
+        ap.error("--scale-policy requires --max-replicas (nothing evaluates a policy "
+                 "without the autoscaler armed)")
+    if args.scale_grace and args.max_replicas is None:
+        ap.error("--scale-grace requires --max-replicas")
+    for flag, value in (("--min-replicas", args.min_replicas),
+                        ("--max-replicas", args.max_replicas),
+                        ("--scale-policy", args.scale_policy),
+                        ("--scale-grace", args.scale_grace or None)):
+        if value is not None:
+            ap.error(f"{flag}: the replica autoscaler is not ported to the PyTorch "
+                     f"package yet (ROADMAP A11b-3b)")
+    if args.featurize_workers < 0:
+        ap.error("--featurize-workers must be >= 0")
+    if args.artifact_mem_entries < 1:
+        ap.error("--artifact-mem-entries must be >= 1")
+    if args.retry_budget < 0:
+        ap.error("--retry-budget must be >= 0 (0 disables it)")
+    if args.hedge_factor < 0:
+        ap.error("--hedge-factor must be >= 0 (0 disables hedging)")
+    if not (0.0 < args.hedge_rate_cap <= 1.0):
+        ap.error("--hedge-rate-cap must be in (0, 1]")
+    if args.artifact_mem_mb < 1 or args.artifact_disk_mb < 1:
+        ap.error("--artifact-mem-mb / --artifact-disk-mb must be >= 1")
     if args.slo_config and args.ops_port is None:
         ap.error("--slo-config requires --ops-port (the ops-plane ticker "
                  "is what evaluates the objectives)")
@@ -252,12 +385,62 @@ def main(argv=None):
         ap.error("--ops-tick must be positive")
 
     buckets = tuple(sorted({int(b) for b in args.buckets.split(",")}))
-    records = (demo_records(args.demo, buckets, args.seed) if args.demo is not None
+    # capability pools, before the model config: the positional table must
+    # cover the widest pool ladder, and the demo stream should span it
+    pools = ()
+    if args.pools:
+        raw = args.pools
+        if os.path.exists(raw):
+            with open(raw) as fh:
+                raw = fh.read()
+        try:
+            pool_dicts = json.loads(raw)
+        except ValueError as e:
+            ap.error(f"--pools is neither a file nor valid JSON: {e}")
+        if not isinstance(pool_dicts, list) or not pool_dicts:
+            ap.error("--pools must be a non-empty JSON list of pool dicts")
+        try:
+            # `is not None`: an empty buckets list must reach PoolSpec's
+            # non-empty check, not decay into "inherit the base ladder"
+            pools = tuple(PoolSpec(**{**d, "buckets": tuple(d["buckets"])
+                                      if d.get("buckets") is not None else None})
+                          for d in pool_dicts)
+        except (TypeError, ValueError) as e:
+            ap.error(f"--pools: {e}")
+        except NotImplementedError as e:
+            ap.error(str(e))
+    cascade_policy = None
+    if args.cascade != "off":
+        if not pools:
+            ap.error("--cascade requires --pools: the draft tier is a capability pool "
+                     "(give it int8 weights / fewer mds_iters / reduced msa_rows in the "
+                     "pools JSON)")
+        try:
+            cascade_policy = (CascadePolicy.from_file(args.cascade)
+                              if os.path.exists(args.cascade)
+                              else CascadePolicy.from_dict(json.loads(args.cascade)))
+        except ValueError as e:
+            ap.error(f"--cascade: {e}")
+    union_buckets = tuple(sorted(set(buckets).union(*[p.buckets or buckets for p in pools])))
+    injector = None
+    if args.fault_plan:
+        plan = FaultPlan.from_file(args.fault_plan)
+        try:
+            check_serving_plan(plan, "--fault-plan")
+        except NotImplementedError as e:
+            ap.error(str(e))
+        injector = plan.injector()
+        print(f"fault plan: {len(plan.faults)} fault(s) from {args.fault_plan}")
+    fleet_mode = args.replicas > 1 or args.featurize_workers > 0 or bool(pools)
+
+    records = (demo_records(args.demo, union_buckets, args.seed) if args.demo is not None
                else read_fasta(args.fasta))
-    print(f"{len(records)} request(s), bucket ladder {buckets}")
+    print(f"{len(records)} request(s), bucket ladder {buckets}"
+          + (f", pools {[p.name for p in pools]} (union ladder {union_buckets})"
+             if pools else ""))
     cfg = Alphafold2Config(dim=args.dim, depth=args.depth, heads=args.heads,
                            dim_head=args.dim_head,
-                           max_seq_len=args.max_seq_len or max(64, buckets[-1]),
+                           max_seq_len=args.max_seq_len or max(64, union_buckets[-1]),
                            dtype=torch.bfloat16 if args.bf16 else torch.float32,
                            weight_dtype=args.weight_dtype)
     restore_cfg = dataclasses.replace(cfg, weight_dtype="f32")
@@ -276,16 +459,117 @@ def main(argv=None):
         tracer = Tracer(enabled=True, max_spans=args.trace_max_spans)
     # built before the engine: it is the engine's incident hook
     recorder = FlightRecorder(args.flight_dir, tracer=tracer) if args.flight_dir else None
-    engine = ServingEngine(
-        params, cfg,
-        ServingConfig(buckets=buckets, max_batch=args.max_batch, batch_ladder=args.batch_ladder,
-                      mds_iters=args.mds_iters, params_tag=params_tag),
-        device=args.device, metrics_logger=logger, tracer=tracer,
-        incident_hook=recorder.incident if recorder else None,
-        # the flights' one reader is the ops plane's /explainz
-        flights=FlightBook() if args.ops_port is not None else None)
-    print(f"engine on {engine.device}; weights {engine.stats()['weights']['weight_dtype']}")
-    registry = engine.metrics.registry
+    serving_cfg = ServingConfig(
+        buckets=buckets, max_batch=args.max_batch, max_queue=args.queue_size,
+        max_wait_s=args.max_wait_ms / 1000.0, request_timeout_s=args.request_timeout,
+        cache_capacity=args.cache_size, mds_iters=args.mds_iters, mds_init=args.mds_init,
+        seed=args.seed, precompile=args.precompile, params_tag=params_tag,
+        batch_ladder=args.batch_ladder, breaker_threshold=args.breaker_threshold,
+        breaker_reset_s=args.breaker_reset,
+        # the fleet's liveness needs hung replicas to FAIL (the failover
+        # path starts from a failure, never from a hang)
+        watchdog_timeout_s=(args.watchdog_timeout if args.watchdog_timeout is not None
+                            else (60.0 if fleet_mode else None)))
+    if args.artifact_store != "off" and not fleet_mode:
+        print("WARNING: --artifact-store applies to fleet mode only (--replicas > 1, "
+              "pools or the featurize tier); single-engine mode keeps its per-engine "
+              "result LRU")
+    if args.journal != "off" and not fleet_mode:
+        print("WARNING: --journal applies to fleet mode only (the fleet front door is "
+              "where requests are accepted and settled); single-engine mode takes no "
+              "journal")
+    journal_replays = []  # (name, seq, FleetRequest) recovered from a journal
+    if fleet_mode:
+        if logger is not None:
+            # one record a batch is an engine's stream; N replica workers
+            # would interleave it
+            print("WARNING: --metrics-jsonl applies to single-engine mode only; fleet "
+                  "observability is --stats-json (registry snapshot incl. per-replica "
+                  "engine stats) + --trace-out")
+            logger.close()
+            logger = None
+        degraded_iters = (max(1, args.mds_iters // 4) if args.degraded_iters < 0
+                          else args.degraded_iters)
+        artifact_store = None
+        if args.artifact_store != "off":
+            if args.artifact_store == "auto":
+                # beside --flight-dir; memory-only without one
+                store_root = (os.path.join(os.path.dirname(os.path.abspath(args.flight_dir)),
+                                           "artifacts") if args.flight_dir else None)
+            else:
+                store_root = args.artifact_store
+            artifact_store = ArtifactStore(ArtifactStoreConfig(
+                root=store_root, memory_entries=args.artifact_mem_entries,
+                memory_bytes=args.artifact_mem_mb << 20,
+                disk_bytes=args.artifact_disk_mb << 20))
+            print("artifact store: "
+                  + (f"disk tier at {store_root}" if store_root
+                     else "memory-only (no --flight-dir to anchor 'auto' disk tier)")
+                  + f", hot ring {args.artifact_mem_entries} entries / "
+                    f"{args.artifact_mem_mb} MB")
+        journal = None
+        if args.journal != "off":
+            journal_root = ((os.path.join(os.path.dirname(os.path.abspath(args.flight_dir)),
+                                          "journal") if args.flight_dir else None)
+                            if args.journal == "auto" else args.journal)
+            if journal_root is None:
+                print("WARNING: --journal auto needs --flight-dir to anchor a directory; "
+                      "journal stays OFF")
+            else:
+                journal = IntakeJournal(journal_root)
+                print(f"intake journal: {journal_root}")
+        engine = ServingFleet(
+            params, cfg, serving_cfg,
+            FleetConfig(
+                replicas=args.replicas, queue_capacity=args.fleet_queue,
+                default_timeout_s=args.request_timeout, requeue_limit=args.requeue_limit,
+                degraded_mds_iters=degraded_iters,
+                degraded_weight_dtype=args.degraded_weight_dtype,
+                degrade_depth=args.degrade_depth, probe_interval_s=args.probe_interval,
+                reprobe_interval_s=args.reprobe_interval,
+                fail_threshold=args.fail_threshold,
+                featurize_workers=args.featurize_workers,
+                featurize_queue=args.featurize_queue, pools=pools,
+                retry_budget_capacity=args.retry_budget,
+                hedge_p95_factor=args.hedge_factor, hedge_rate_cap=args.hedge_rate_cap,
+                cascade_policy=cascade_policy),
+            injector=injector, tracer=tracer,
+            incident_hook=recorder.incident if recorder else None,
+            artifact_store=artifact_store, journal=journal, device=args.device)
+        degraded_desc = ", ".join(
+            ([f"mds_iters={degraded_iters}"] if degraded_iters else [])
+            + ([f"weights={args.degraded_weight_dtype}"]
+               if args.degraded_weight_dtype == "int8" else []))
+        print(f"fleet on {engine.device}: {args.replicas} replica(s), shared queue "
+              f"{args.fleet_queue}, featurize tier "
+              + (f"{args.featurize_workers} worker(s)" if args.featurize_workers else "OFF")
+              + ", degraded tier " + (degraded_desc or "OFF")
+              + (f", retry budget {args.retry_budget}" if args.retry_budget else "")
+              + (f", hedging p95 x{args.hedge_factor:g} (cap {args.hedge_rate_cap:g})"
+                 if args.hedge_factor else "")
+              + (f", cascade draft_pool={cascade_policy.draft_pool!r} "
+                 f"min_confidence={cascade_policy.min_confidence:g}"
+                 if cascade_policy is not None else ""))
+        if journal is not None:
+            # replayed before fresh traffic: coalescing and the store make
+            # it idempotent (completed work replays as a hit)
+            replayed = engine.replay_journal()
+            if replayed["replayed"] or replayed["expired"]:
+                print(f"journal replay: {replayed['replayed']} re-submitted, "
+                      f"{replayed['expired']} expired, {replayed['failed']} rejected")
+            journal_replays = [(f"journal_{req.trace_id}", req.seq, req)
+                               for req in replayed["requests"]]
+        registry = engine.registry
+    else:
+        engine = ServingEngine(
+            params, cfg, serving_cfg, device=args.device, metrics_logger=logger,
+            fault_hook=injector.serving_hook() if injector else None, tracer=tracer,
+            incident_hook=recorder.incident if recorder else None,
+            # the flights' one reader is the ops plane's /explainz
+            flights=FlightBook() if args.ops_port is not None else None)
+        print(f"engine on {engine.device}; weights "
+              f"{engine.stats()['weights']['weight_dtype']}")
+        registry = engine.metrics.registry
     if recorder is not None:
         recorder.bind(registry=registry, stats_fn=engine.stats)
     if args.peak_tflops:
@@ -294,17 +578,19 @@ def main(argv=None):
     ops = slo = None
     if args.ops_port is not None:
         slo_cfg = (SloConfig.from_file(args.slo_config) if args.slo_config
-                   else default_slo_config("serving"))
+                   else default_slo_config("fleet" if fleet_mode else "serving"))
         slo = SloEngine(registry, slo_cfg,
                         on_page=recorder.slo_page_hook if recorder else None)
         profiler = None
         if args.flight_dir:
+            # the card's lock: every replica's captures and calls take it
             profiler = ProfileCapturer(os.path.join(args.flight_dir, "profiles"),
-                                       registry=registry, lock=engine.graph_lock)
-        ops = ops_server_for_engine(engine, tracer=tracer, slo=slo, recorder=recorder,
-                                    profiler=profiler, port=args.ops_port,
-                                    tick_interval_s=args.ops_tick)
-        # host reads only (the ticker runs while the worker captures)
+                                       registry=registry,
+                                       lock=device_lock(resolve_device(args.device)))
+        make_ops = ops_server_for_fleet if fleet_mode else ops_server_for_engine
+        ops = make_ops(engine, tracer=tracer, slo=slo, recorder=recorder, profiler=profiler,
+                       port=args.ops_port, tick_interval_s=args.ops_tick)
+        # host reads only (the ticker runs while a worker captures)
         ops.add_tick(lambda: host_memory_gauges(registry))
         ops.add_tick(lambda: device_memory_gauges(registry))
         ops.add_tick(engine.sample_gauges)
@@ -328,16 +614,26 @@ def main(argv=None):
         stats_thread.start()
 
     t0 = time.time()
-    pending, failures = [], 0
+    # journal-recovered requests drain through the same loop as fresh ones
+    pending, failures, shed = list(journal_replays), 0, 0
+    max_submit_retries = 200  # the replay client's patience a record
     for pass_idx in range(max(1, args.passes)):
         for name, seq in records:
             if pass_idx:
                 name = f"{name}_p{pass_idx + 1}"
+            retries = 0
             while True:
                 try:
                     pending.append((name, seq, engine.submit(seq)))
                     break
-                except QueueFullError as e:
+                except (QueueFullError, RetryBudgetExhaustedError) as e:
+                    # honor the backoff advice, impatiently enough that a
+                    # demo replay finishes
+                    retries += 1
+                    if retries > max_submit_retries:
+                        print(f"SHED {name}: [{e.code}] {e}")
+                        shed += 1
+                        break
                     time.sleep(min(0.1, e.retry_after_s or 0.005))
                 except ServingError as e:
                     print(f"REJECTED {name}: [{e.code}] {e}")
@@ -357,13 +653,29 @@ def main(argv=None):
         try:
             res = req.result()
         except ServingError as e:
-            kind = "SHED" if isinstance(e, (QueueFullError, RequestTimeoutError)) else "FAILED"
-            print(f"{kind} {name}: [{e.code}] {e}")
-            failures += 1
+            retry = (f" (retry_after={e.retry_after_s:.2f}s)"
+                     if e.retry_after_s is not None else "")
+            if isinstance(e, (QueueFullError, RequestTimeoutError, NoHealthyReplicaError,
+                              RetryBudgetExhaustedError)):
+                # a structured load shed: a terminal outcome, not a bug
+                print(f"SHED {name}: [{e.code}] HTTP {e.http_status} {e}{retry}")
+                shed += 1
+            else:
+                print(f"FAILED {name}: [{e.code}] {e}{retry}")
+                failures += 1
             continue
+        tag = " (cache)" if res.from_cache else ""
+        if res.replica:
+            tag += f" [{res.replica}]"
+        if res.requeues:
+            tag += f" (requeued x{res.requeues})"
+        if res.degraded:
+            tag += " (DEGRADED)"
+        if res.tier:
+            tag += f" tier={res.tier}" + (f"@exit{res.exit_depth}" if res.exit_depth else "")
         print(f"{name}: L={len(seq)} bucket={res.bucket} stress={res.stress:.3f} "
               f"conf={100 * res.mean_confidence:.1f}/100 lat={res.latency_s * 1000:.0f}ms"
-              + (" (cache)" if res.from_cache else ""))
+              + tag + (f" tid={res.trace_id}" if res.trace_id else ""))
         if args.out_dir:
             safe = "".join(c if c.isalnum() or c in "-_." else "_" for c in name)[:80]
             base, n = safe, 1
@@ -389,17 +701,59 @@ def main(argv=None):
     wall = time.time() - t0
 
     stats = engine.stats()
-    bat, lat = stats["batches"], stats["latency"]
-    print(f"\nserved {stats['requests']['completed']} request(s) "
-          f"({stats['requests']['coalesced']} coalesced) from {len(pending)} submission(s) "
-          f"in {wall:.1f}s — {len(stats['captures'])} executable(s) "
-          f"({stats['compiles']['count']} bucket(s) of {len(buckets)}), mean batch "
-          f"{bat['mean_requests_per_batch']:.2f} req (occupancy "
-          f"{100 * bat['mean_occupancy']:.0f}%), cache hit rate "
-          f"{100 * stats['cache']['hit_rate']:.0f}%, latency p50/p95/p99 = "
-          f"{lat['p50']:.2f}/{lat['p95']:.2f}/{lat['p99']:.2f}s")
-    if stats["errors"]:
-        print(f"errors by code: {stats['errors']}")
+    lat = stats["latency"]
+    if fleet_mode:
+        reqs = stats["requests"]
+        shed_by = ", ".join(f"{k}={v}" for k, v in stats["shed"].items())
+        print(f"\nfleet served {reqs['completed']} request(s) ({reqs['degraded']} degraded) "
+              f"from {len(pending)} submission(s) in {wall:.1f}s — {reqs['requeued']} "
+              f"requeue(s), {reqs['shed']} shed ({shed_by or 'none'}), {reqs['failed']} "
+              f"failed, queue-wait p95 {stats['queue_wait']['p95']:.2f}s, latency "
+              f"p50/p95/p99 = {lat['p50']:.2f}/{lat['p95']:.2f}/{lat['p99']:.2f}s")
+        print(f"replicas: { {name: rep['state'] for name, rep in stats['replicas'].items()} }")
+        if args.featurize_workers:
+            feat = stats.get("featurize", {})
+            freqs = feat.get("requests", {})
+            print(f"featurize tier: {freqs.get('completed', 0)} job(s) "
+                  f"({freqs.get('failed', 0)} failed, {freqs.get('requeued', 0)} requeued), "
+                  f"{feat.get('worker_deaths', 0)} worker death(s), busy "
+                  f"{feat.get('busy_seconds', 0.0):.2f}s")
+        if pools and stats.get("shed", {}).get("too_long"):
+            print(f"too-long sheds: {stats['shed']['too_long']} (sequence past every pool "
+                  f"ceiling)")
+        jstats = stats.get("journal")
+        if jstats:
+            print(f"journal: {jstats['accepted']} accepted, {jstats['settled']} settled, "
+                  f"{jstats['pending']} pending, {jstats['corrupt']} corrupt, "
+                  f"{jstats['write_errors']} write error(s)")
+        bstats = stats.get("retry_budget")
+        if bstats:
+            print(f"retry budget: {bstats['tokens']:.1f}/{bstats['capacity']:g} token(s) "
+                  f"left, {bstats['spent']} spent, {bstats['denied']} denial(s)")
+        hstats = stats.get("hedging")
+        if hstats and (hstats["issued"] or hstats["denied"]):
+            denied = ", ".join(f"{k}={v}" for k, v in sorted(hstats["denied"].items()))
+            print(f"hedging: {hstats['issued']} issued (denied: {denied or 'none'}), "
+                  f"{hstats['wasted_chip_seconds']:.2f} wasted chip-second(s)")
+        if stats["errors"]:
+            print(f"errors by code: {stats['errors']}")
+        if injector is not None:
+            print(f"faults delivered: {injector.delivered}"
+                  + ("" if injector.exhausted() else "  WARNING: plan not exhausted"))
+    else:
+        bat = stats["batches"]
+        print(f"\nserved {stats['requests']['completed']} request(s) "
+              f"({stats['requests']['coalesced']} coalesced) from {len(pending)} "
+              f"submission(s) in {wall:.1f}s — {len(stats['captures'])} executable(s) "
+              f"({stats['compiles']['count']} bucket(s) of {len(buckets)}), mean batch "
+              f"{bat['mean_requests_per_batch']:.2f} req (occupancy "
+              f"{100 * bat['mean_occupancy']:.0f}%), cache hit rate "
+              f"{100 * stats['cache']['hit_rate']:.0f}%, latency p50/p95/p99 = "
+              f"{lat['p50']:.2f}/{lat['p95']:.2f}/{lat['p99']:.2f}s")
+        if stats["errors"]:
+            print(f"errors by code: {stats['errors']}")
+        if injector is not None:
+            print(f"faults delivered: {injector.delivered}")
     if slo is not None:
         events = slo.events()
         fired = sum(1 for e in events if e["transition"] == "firing")

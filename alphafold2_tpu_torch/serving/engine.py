@@ -52,11 +52,20 @@ alphafold2_tpu/serving/engine.py `ServingEngine`).
     (`dense@exit{d}`) in proportion to each depth's forward FLOPs; the
     cells' sum stays the batch's seconds.
 
+  * **The fleet's seams** (serving/fleet.py). `fault_hook(index, bucket)`
+    runs at the top of every dispatch, before the batch's executable and
+    outside any capture (`reliability/faults.py` serving and replica
+    hooks); `pool_name` labels the cost cells and the goodput account; a
+    fleet passes its shared `cost_ledger` and `goodput` (each replica's
+    `stats()` then reports the pool-wide ledgers, where JAX's omits them).
+    `ServingRequest.add_done_callback` and
+    `peek` are the fleet's completion seam, `submit(features=)` its
+    pre-featurized path.
+
 Not ported in this engine, each refused with its ROADMAP item when set:
-the sequence-parallel arm (`sp_shards`, `sp_schedules`: A11b), a
-trunk-forward override (`model_apply_fn`: A11b), pipelined dispatch
-(`pipeline_depth`: A11a-pipelined), the chaos seam (`fault_hook`: A11b)
-and the fleet's pool label (`pool_name`: A11b-3).
+the sequence-parallel arm (`sp_shards`, `sp_schedules`: A11b-4), a
+trunk-forward override (`model_apply_fn`: A11b-4) and pipelined dispatch
+(`pipeline_depth`: A11a-pipelined).
 
 The random MDS init (`mds_init="random"`): device call i (counted from 1)
 starts MDS from the draw of a generator seeded fold_in(seed, i)
@@ -67,17 +76,23 @@ CPU a CPU generator draws it.
 
 Thread model: clients call `submit()` / `result()` from any thread; every
 device call happens on the worker thread (or, past a watchdog timeout, on
-the abandoned dispatch thread it left), one at a time under the graph
-pool's lock. A capture runs in CUDA's global capture mode, where no other
-thread of the process may synchronize with the card: build every
-executable up front (`precompile`) where other threads use the card.
-`health()`, `stats()`, `sample_gauges()` and the telemetry objects read
-host state only, so the ops plane's threads may call them during a
-capture.
+the abandoned dispatch thread it left), one at a time under the card's
+lock (`serving/executable.py device_lock`), which every engine on the
+card shares: a call holds it from its first copy in to its outputs on the
+host, the construction holds it for its device work, and `release_graphs`
+(after `shutdown`) frees the graphs under it. A capture runs in CUDA's
+global capture mode, where no other thread of the process may make an
+unsafe CUDA call;
+under that lock no engine of the process does, so replicas on one card
+may capture while others serve. Other code of the process that uses the
+card while an engine captures must take `graph_lock` too. `health()`,
+`stats()`, `sample_gauges()` and the telemetry objects read host state
+only, so the ops plane's threads may call them during a capture.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -149,6 +164,11 @@ class ServingConfig:
     breaker_threshold: int = 0   # consecutive dispatch failures that open
     #                              the circuit (0 = no breaker)
     breaker_reset_s: float = 30.0  # open -> half-open probe window
+    breaker_jitter: float = 0.0  # fraction of reset_s added as seeded spread a
+    #                              window, so a fleet's breakers do not
+    #                              re-probe in lockstep (0 = fixed window)
+    breaker_jitter_seed: int = 0  # per-replica seed of that spread (not in the
+    #                              config tag)
     watchdog_timeout_s: Optional[float] = None  # a dispatch past this fails
     #                              its batch instead of wedging the worker
     batch_ladder: bool = False   # power-of-two batch shapes up to max_batch
@@ -181,7 +201,7 @@ class ServingConfig:
             raise ValueError("early_exit_kl set without early_exit_depths — the exit gate "
                              "has no checkpoints to fire at")
         if self.sp_shards or self.sp_schedules:
-            _refuse("sp_shards / sp_schedules", "A11b", "the sequence-parallel serving arm")
+            _refuse("sp_shards / sp_schedules", "A11b-4", "the sequence-parallel serving arm")
         if self.pipeline_depth:
             _refuse("pipeline_depth", "A11a-pipelined", "pipelined dispatch")
         if self.max_batch < 1:
@@ -192,6 +212,8 @@ class ServingConfig:
             raise ValueError(f"max_wait_s must be >= 0, got {self.max_wait_s}")
         if self.breaker_threshold < 0:
             raise ValueError(f"breaker_threshold must be >= 0, got {self.breaker_threshold}")
+        if self.breaker_jitter < 0:
+            raise ValueError(f"breaker_jitter must be >= 0, got {self.breaker_jitter}")
         if self.watchdog_timeout_s is not None and self.watchdog_timeout_s <= 0:
             raise ValueError(f"watchdog_timeout_s must be positive or None, got "
                              f"{self.watchdog_timeout_s}")
@@ -244,6 +266,7 @@ class ServingRequest:
         self._lock = threading.Lock()
         self._result: Optional[PredictionResult] = None
         self._exc: Optional[BaseException] = None
+        self._callbacks = []
 
     @property
     def length(self) -> int:
@@ -259,13 +282,38 @@ class ServingRequest:
 
     def _finish(self, result=None, exc=None) -> bool:
         """Resolve once; later resolutions are dropped. True when this call
-        resolved the request."""
+        resolved the request. Done-callbacks run after the lock, on the
+        resolving thread; a raising one is printed and skipped."""
         with self._lock:
             if self._event.is_set():
                 return False
             self._result, self._exc = result, exc
             self._event.set()
+            callbacks, self._callbacks = self._callbacks, []
+        for fn in callbacks:
+            try:
+                fn(self)
+            except Exception:  # noqa: BLE001 — a callback must not stop the resolver
+                traceback.print_exc()
         return True
+
+    def add_done_callback(self, fn):
+        """Run `fn(request)` when the request resolves: at once, on this
+        thread, if it has. Callbacks run on whichever thread resolves it
+        (usually the worker), so keep them non-blocking: the fleet's
+        completion seam."""
+        with self._lock:
+            if not self._event.is_set():
+                self._callbacks.append(fn)
+                return
+        fn(self)
+
+    def peek(self):
+        """(result, exc) without waiting or copying, once resolved; the
+        result may alias a cache entry (fleet and engine internals only)."""
+        if not self._event.is_set():
+            raise RuntimeError("peek() before the request resolved")
+        return self._result, self._exc
 
     def result(self, timeout: Optional[float] = None) -> PredictionResult:
         """Block for the outcome: the request's ServingError, or the builtin
@@ -325,11 +373,12 @@ class ServingEngine:
     `stats()` reports them. A cost ledger passed in, or a live tracer,
     turns on the CUDA-event device timing.
     flights: a `FlightBook` for this engine's submit -> terminal records.
-    Not ported, each refused with its ROADMAP item when set: `fault_hook`
-    (the chaos seam, A11b), `model_apply_fn` (a trunk-forward override,
-    the SP arm's seam, A11b; with early exit armed it raises JAX's
-    ValueError first) and a `pool_name` other than "default" (the fleet's
-    capability pools, A11b-3; the cells' pool label stays "default").
+    fault_hook: `fn(dispatch_index, bucket)` at the top of every dispatch,
+    outside the card's lock (a `FaultInjector` hook: it may sleep or
+    raise). pool_name: the capability pool's label on the cost cells and
+    the goodput account. Not ported: `model_apply_fn` (a trunk-forward
+    override, the SP arm's seam), refused naming A11b-4 (with early exit
+    armed it raises JAX's ValueError first).
 
     `_call_executable` and `_realize` are overridable seams: tests stub
     the device call there without touching the scheduler."""
@@ -355,11 +404,7 @@ class ServingEngine:
                 raise ValueError("early exit requires uniform sparse_self_attn flags across "
                                  "the trunk (layer slices re-index cfg.layer_sparse from 0)")
         if model_apply_fn is not None:
-            _refuse("model_apply_fn", "A11b", "a trunk-forward override in the engine")
-        if fault_hook is not None:
-            _refuse("fault_hook", "A11b", "chaos injection into the engine")
-        if pool_name != "default":
-            _refuse("pool_name", "A11b-3", "the fleet's capability pools")
+            _refuse("model_apply_fn", "A11b-4", "a trunk-forward override in the engine")
         self._ladder = BucketLadder(cfg.buckets)
         if self._ladder.max_len > model_cfg.max_seq_len:
             raise ValueError(f"largest bucket {self._ladder.max_len} exceeds the model's "
@@ -371,9 +416,17 @@ class ServingEngine:
         self.cfg = cfg
         self.model_cfg = model_cfg
         check_params_device(params, self.device)
-        # the int8 arm quantizes once per residency tag, process-wide
-        params, self._weight_residency = resident_params(params, model_cfg,
-                                                         params_tag=cfg.params_tag)
+        self._fault_hook = fault_hook
+        # the card's pool and lock (None on the CPU): the construction's
+        # device work, every call and the release of the graphs run under it
+        self._pool = GraphPool(self.device) if self.device.type == "cuda" else None
+        self._card_lock = self._pool.lock if self._pool is not None else None
+        with self._device_section():
+            # the int8 arm quantizes once per residency tag, process-wide
+            params, self._weight_residency = resident_params(params, model_cfg,
+                                                             params_tag=cfg.params_tag)
+            # the random init's generator (on the card, registered with each graph)
+            self._init_streams = Streams(self.device) if cfg.mds_init == "random" else None
         self._params = params
         self._batch_shapes = (batch_shape_ladder(cfg.max_batch) if cfg.batch_ladder
                               else (cfg.max_batch,))
@@ -392,9 +445,6 @@ class ServingEngine:
 
         self._executables = {}
         self._compile_lock = threading.Lock()
-        self._pool = GraphPool() if self.device.type == "cuda" else None
-        # the random init's generator (on the card, registered with each graph)
-        self._init_streams = Streams(self.device) if cfg.mds_init == "random" else None
         self._batch_counter = 0  # device calls so far: the random init's index
         self._dispatch_counter = 0
         self._counter_lock = threading.Lock()
@@ -403,6 +453,7 @@ class ServingEngine:
         self._incident_hook = incident_hook
         self._breaker = (
             CircuitBreaker(cfg.breaker_threshold, cfg.breaker_reset_s,
+                           jitter=cfg.breaker_jitter, seed=cfg.breaker_jitter_seed,
                            on_open=self._on_breaker_open)
             if cfg.breaker_threshold else None
         )
@@ -477,10 +528,13 @@ class ServingEngine:
         self._rate_lock = threading.Lock()
         self._sec_per_req_ema = 0.0  # batch wall seconds per served request
         # build before the worker exists: a failing capture aborts the
-        # construction instead of stranding a started worker
+        # construction instead of stranding a started worker. Largest
+        # first: a smaller graph's allocations then split the blocks the
+        # larger ones freed in the card's pool (ascending, each capture
+        # would need blocks none freed before it)
         if cfg.precompile:
-            for bucket in self._ladder.buckets:
-                for shape in self._batch_shapes:
+            for bucket in reversed(self._ladder.buckets):
+                for shape in reversed(self._batch_shapes):
                     self._executable_for(bucket, shape)
         self._worker = threading.Thread(target=self._worker_loop, name="af2-serve",
                                         daemon=True)
@@ -489,18 +543,23 @@ class ServingEngine:
     # ------------------------------------------------------------------ API
 
     def submit(self, seq: str, *, msa=None, msa_mask=None, timeout: Optional[float] = None,
-               trace_id: str = "") -> ServingRequest:
+               trace_id: str = "", features=None) -> ServingRequest:
         """Enqueue one sequence; returns a future at once. Raises
         EngineClosedError / InvalidSequenceError / SequenceTooLongError /
         QueueFullError / CircuitOpenError synchronously: a rejected request
         never occupies the queue. `trace_id` correlates the request's spans,
-        flight record and result ("" mints one)."""
+        flight record and result ("" mints one). `features`: a
+        `featurize.FeatureBundle` made by the same `featurize_request` (the
+        fleet's featurization tier), whose seq, tokens and MSA then replace
+        `seq`, `msa` and `msa_mask`: the same bits either way."""
         trace_id = trace_id or new_trace_id()
+        if features is not None:
+            seq = features.seq
         # the span covers validation, the cache and coalescing lookups and
         # the enqueue; a rejection leaves it with an `error` attribute
         with self._tracer.span("serving.enqueue", cat="serving", length=len(seq),
                                trace_id=trace_id, **self._span_tags) as sp:
-            req = self._submit(seq, msa, msa_mask, timeout, trace_id)
+            req = self._submit(seq, msa, msa_mask, timeout, trace_id, features)
             sp.set("bucket", req.bucket)
             if req.trace_id != trace_id:
                 # coalesced onto an identical in-flight request, whose id
@@ -508,16 +567,38 @@ class ServingEngine:
                 sp.set("coalesced_onto", req.trace_id)
             return req
 
-    def _submit(self, seq, msa, msa_mask, timeout, trace_id) -> ServingRequest:
+    def _submit(self, seq, msa, msa_mask, timeout, trace_id, features=None) -> ServingRequest:
         if self._closed:
             self._reject(EngineClosedError("engine is shut down"))
-        try:
-            fb = featurize_request(seq, msa, msa_mask, ladder=self._ladder,
-                                   msa_rows=self.cfg.msa_rows)
-        except ServingError as e:
-            self._reject(e)
-        seq, tokens, msa_arr, msa_mask, bucket = (fb.seq, fb.tokens, fb.msa, fb.msa_mask,
-                                                  fb.bucket)
+        if features is not None:
+            # made by featurize_request against a ladder and msa_rows: only
+            # the guards that a bundle made for another deployment (or by a
+            # client) could slip past remain (JAX's checks and messages)
+            seq, tokens = features.seq, features.tokens
+            msa_arr, msa_mask = features.msa, features.msa_mask
+            try:
+                bucket = self._ladder.bucket_for(len(seq))
+            except ServingError as e:
+                self._reject(e)
+            if msa_arr is not None and (self.cfg.msa_rows == 0
+                                        or msa_arr.shape[0] > self.cfg.msa_rows):
+                self._reject(ServingError(
+                    f"pre-featurized msa has {msa_arr.shape[0]} rows; this engine serves "
+                    f"msa_rows={self.cfg.msa_rows}"))
+            if msa_arr is None and msa_mask is not None:
+                self._reject(ServingError("pre-featurized msa_mask given without msa"))
+            if msa_arr is not None and msa_mask is not None and msa_mask.shape != msa_arr.shape:
+                self._reject(ServingError(
+                    f"pre-featurized msa_mask shape {msa_mask.shape} does not match msa "
+                    f"shape {msa_arr.shape}"))
+        else:
+            try:
+                fb = featurize_request(seq, msa, msa_mask, ladder=self._ladder,
+                                       msa_rows=self.cfg.msa_rows)
+            except ServingError as e:
+                self._reject(e)
+            seq, tokens, msa_arr, msa_mask, bucket = (fb.seq, fb.tokens, fb.msa, fb.msa_mask,
+                                                      fb.bucket)
         key = request_key(seq, msa_arr, self._config_tag, msa_mask=msa_mask)
         if self.flights is not None:
             self.flights.begin(trace_id, length=len(seq),
@@ -625,10 +706,15 @@ class ServingEngine:
 
     @property
     def graph_lock(self):
-        """The graph pool's lock, held across every capture and replay
-        (None on the CPU): `ProfileCapturer(lock=)` starts and stops the
-        profiler under it, so the profiler never meets a capture."""
-        return self._pool.lock if self._pool is not None else None
+        """The card's lock, held across every capture, every call and the
+        construction's device work of every engine on the card (None on
+        the CPU): `ProfileCapturer(lock=)` starts and stops the profiler
+        under it, so the profiler never meets a capture."""
+        return self._card_lock
+
+    def _device_section(self):
+        """The card's lock as a context (a no-op on the CPU)."""
+        return self._card_lock if self._card_lock is not None else contextlib.nullcontext()
 
     def capability(self) -> dict:
         """What traffic this engine can serve."""
@@ -755,6 +841,27 @@ class ServingEngine:
                 self.metrics.inc("failed")
                 self.metrics.inc_error("engine_closed")
 
+    def release_graphs(self, timeout: Optional[float] = None):
+        """After `shutdown`: free the executables' graphs and device buffers
+        under the card's lock (their counters stay for `stats()`), so the
+        card's pool takes their blocks back for the next capture and no
+        garbage collection on another thread destroys a graph while an
+        engine on the card captures (the fleet calls it on every engine it
+        drains or shuts down). A call abandoned by the watchdog may still
+        hold the lock: past `timeout` the graphs are left to the collector.
+        A no-op on the CPU."""
+        if self._card_lock is None:
+            return
+        if not self._card_lock.acquire(timeout=-1 if timeout is None else timeout):
+            return
+        try:
+            with self._compile_lock:
+                for exe in self._executables.values():
+                    exe.release()
+            torch.cuda.synchronize(self.device)
+        finally:
+            self._card_lock.release()
+
     def __enter__(self):
         return self
 
@@ -856,13 +963,19 @@ class ServingEngine:
             self._dispatch_counter += 1
 
         def call():
+            # the chaos seam first: before the executable, outside the
+            # card's lock (an injected stall must not hold the card)
+            if self._fault_hook is not None:
+                self._fault_hook(idx, bucket)
             # the span closes after _realize has waited for the outputs, and
             # carries the events' device_ms; bind_trace stamps the batch's
-            # ids onto the nested capture span too
+            # ids onto the nested capture span too. The card's lock covers
+            # the call, its capture if any, and the copy to the host
             with self._tracer.bind_trace(list(trace_ids)), \
                     self._tracer.span("serving.execute", cat="serving", bucket=bucket,
                                       batch=int(tokens.shape[0]), dispatch=idx,
-                                      trace_ids=list(trace_ids), **self._span_tags) as sp:
+                                      trace_ids=list(trace_ids), **self._span_tags) as sp, \
+                    self._device_section():
                 self._timing.events = None
                 out = self._realize(self._call_executable(bucket, tokens, mask, msa, msa_mask))
                 events, self._timing.events = self._timing.events, None
@@ -870,6 +983,7 @@ class ServingEngine:
                 if events is not None:
                     device_s = events[0].elapsed_time(events[1]) / 1e3
                     sp.set("device_ms", device_s * 1e3)
+                    del events  # destroyed under the lock too
                 return out, device_s
 
         timeout = self.cfg.watchdog_timeout_s

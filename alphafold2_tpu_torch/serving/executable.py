@@ -30,11 +30,30 @@ a replay gives the eager request's outputs bit for bit. A call copies the
 inputs into the static buffers, replays, and clones the outputs out of the
 graphs' memory before it returns.
 
-All of an engine's graphs share one memory pool (`GraphPool`): a graph's
-intermediates may lie where another graph's do. That is safe only because
-a call holds the pool's lock from its first copy in to its outputs'
-clones, so graphs replay one at a time and nothing reads a graph's outputs
-after another graph has run; a capture holds the same lock.
+Every graph on a card shares one memory pool and one lock (`GraphPool`,
+the card's state): a graph's intermediates may lie where another graph's
+do, whichever engine of the process captured it. That is safe only
+because a call holds the card's lock from its first copy in to its
+outputs' clones, so graphs replay one at a time and nothing reads a
+graph's outputs after another graph has run; a capture holds the same
+lock. One pool a card, not one an engine, because a pool keeps the
+memory its captures freed for its later captures: N replicas of one
+config reuse one set of blocks where N pools would hold N. Captures run
+on one side stream a card, too: the allocator hands a capture only the
+pool's blocks of the capture's stream. When the card's last graph is
+collected, the next capture starts a fresh pool (the allocator keeps a
+pool until its graphs are gone; a pool must not be reused after that).
+
+The lock (`device_lock`) is one re-entrant lock a CUDA device. A graph
+captures in CUDA's global capture mode, where no other thread of the
+process may make an unsafe CUDA call (a synchronizing copy, the eager
+`eigh`'s status read, a `cudaMalloc`): the engine holds the card's lock
+across a call's replays, its `eigh` and the copy of its outputs to the
+host, and across the device work of its construction, so a capture on
+one engine never meets another engine's work on the same card. A drained
+engine's graphs are released under the lock (`ServingEngine.
+release_graphs`); their blocks return to the card's pool for the next
+capture.
 
 With trunk-depth early exit armed (`early_exit_depths`, `early_exit_kl`)
 graph one's forward is split into one graph a stage of the staged trunk
@@ -68,6 +87,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -97,12 +117,68 @@ def _outputs(early_exit_depths) -> tuple:
 
 
 class GraphPool:
-    """One CUDA graph memory pool for an engine's executables, and the lock
-    under which they capture and replay one at a time."""
+    """A CUDA device's capture state, shared by every engine and executable
+    of the process on it: `lock`, under which graphs capture and replay
+    one at a time, the graph memory pool they capture into (`pool_for`),
+    and `stream`, the side stream every capture and warm-up runs on (the
+    allocator hands a capture only blocks of its own stream, so one
+    stream a card is what lets a capture reuse what another freed).
+    `GraphPool(device)` returns the card's one instance."""
 
-    def __init__(self):
-        self.handle = torch.cuda.graph_pool_handle()
-        self.lock = threading.Lock()
+    _cards = {}
+    _cards_guard = threading.Lock()
+
+    def __new__(cls, device=None):
+        device = torch.device("cuda") if device is None else torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"graphs capture on a CUDA device, not {device}")
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        with cls._cards_guard:
+            card = cls._cards.get(index)
+            if card is None:
+                card = cls._cards[index] = super().__new__(cls)
+                card.device = torch.device("cuda", index)
+                card._stream = None
+                card.lock = threading.RLock()
+                card._guard = threading.RLock()  # re-entrant: a collection may finalize here
+                card._handle, card._graphs = None, 0
+            return card
+
+    def __init__(self, device=None):
+        pass  # the card's state is made once, in __new__
+
+    @property
+    def stream(self):
+        """The card's capture stream, made at first use (under `lock`)."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def pool_for(self, graph) -> tuple:
+        """The pool handle `graph` captures into, counted until the graph
+        is collected; past the card's last graph the next one starts a
+        fresh pool."""
+        with self._guard:
+            if self._handle is None:
+                self._handle = torch.cuda.graph_pool_handle()
+            handle = self._handle
+            self._graphs += 1
+        weakref.finalize(graph, self._collected, handle)
+        return handle
+
+    def _collected(self, handle):
+        with self._guard:
+            if handle == self._handle:
+                self._graphs -= 1
+                if self._graphs == 0:
+                    self._handle = None
+
+
+def device_lock(device=None):
+    """The card's lock (`GraphPool(device).lock`), shared by every engine
+    of the process on that card; None for the CPU."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    return GraphPool(device).lock if device.type == "cuda" else None
 
 
 def _init_generator(streams, mds_init: str, seed):
@@ -142,6 +218,9 @@ class EagerExecutable:
                                 early_exit_kl=self.early_exit_kl)
         self.replays += 1
         return {k: out[k] for k in self.outputs}
+
+    def release(self):
+        """Nothing to free: the eager executable keeps no device buffers."""
 
 
 class CapturedExecutable:
@@ -183,7 +262,7 @@ class CapturedExecutable:
                 self.msa_mask = torch.ones_like(self.msa, dtype=torch.bool)
             self.evals = self.evecs = None  # made by the warm-up's eigh
             self.state, self.all_frozen = None, []
-            stream = torch.cuda.Stream(device)
+            stream = pool.stream
             stream.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(stream):
                 # the warm-up builds and loads the kernels, the sparse block
@@ -205,7 +284,7 @@ class CapturedExecutable:
                 for k, graph in enumerate(self.stage_graphs):
                     at = launch_counts()
                     try:
-                        with torch.cuda.graph(graph, pool=pool.handle, stream=stream):
+                        with torch.cuda.graph(graph, pool=pool.pool_for(graph), stream=stream):
                             self._stage(k)
                     except RuntimeError as e:
                         raise capture_error(
@@ -216,14 +295,16 @@ class CapturedExecutable:
                 try:
                     with (streams.capturing(self.graphs[0]) if self.random
                           else contextlib.nullcontext()), \
-                            torch.cuda.graph(self.graphs[0], pool=pool.handle, stream=stream):
+                            torch.cuda.graph(self.graphs[0], pool=pool.pool_for(self.graphs[0]),
+                                             stream=stream):
                         self.geo, self.start = self._front()
                 except RuntimeError as e:
                     raise capture_error(
                         f"the forward and the distogram geometry (bucket {bucket}, "
                         f"batch {batch})", e) from e
                 try:
-                    with torch.cuda.graph(self.graphs[1], pool=pool.handle, stream=stream):
+                    with torch.cuda.graph(self.graphs[1], pool=pool.pool_for(self.graphs[1]),
+                                          stream=stream):
                         self.out = self._back()
                 except RuntimeError as e:
                     raise capture_error(
@@ -291,6 +372,14 @@ class CapturedExecutable:
     def logits(self):
         return self.geo["distogram_logits"]
 
+    def release(self):
+        """Drop the graphs and their static buffers (the caller holds the
+        card's lock); the counters stay. A later call raises."""
+        self.stage_graphs, self.graphs = [], ()
+        self.state, self.all_frozen = None, []
+        self.geo = self.start = self.out = self.evals = self.evecs = None
+        self.tokens = self.mask = self.msa = self.msa_mask = None
+
     def replayed_launches(self) -> dict:
         """The kernel launches the replays made: each graph's captured
         launches times the replays of that graph (a skipped stage none)."""
@@ -317,6 +406,9 @@ class CapturedExecutable:
         and the clones out, under the pool's lock (so outside any capture);
         read them after the outputs are on the host."""
         with self.pool.lock, torch.inference_mode():
+            if not self.graphs:
+                raise RuntimeError("the executable's graphs were released "
+                                   "(ServingEngine.release_graphs)")
             if events is not None:
                 events[0].record()
             # the reseed and the replays are one step under the lock: a

@@ -1,5 +1,5 @@
 """Measurement of the port: the telemetry plane (counterpart of
-alphafold2_tpu/telemetry/, less the fleet's and the multi-process names)
+alphafold2_tpu/telemetry/, less the multi-process names)
 and the profiling tools on the card.
 
   * `trace`     — the span tracer, Chrome trace-event and JSONL exports,
@@ -59,6 +59,7 @@ from alphafold2_tpu_torch.telemetry.ops_plane import (
     ProfileCapturer,
     ProfileRateLimitedError,
     ops_server_for_engine,
+    ops_server_for_fleet,
 )
 from alphafold2_tpu_torch.telemetry.registry import (
     NULL_REGISTRY,
@@ -149,6 +150,7 @@ __all__ = [
     "new_trace_id",
     "observability_enabled",
     "ops_server_for_engine",
+    "ops_server_for_fleet",
     "parse_prometheus_text",
     "per_process_metrics_path",
     "profile_trace",

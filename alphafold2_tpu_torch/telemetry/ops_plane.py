@@ -717,9 +717,22 @@ def ops_server_for_engine(engine, *, tracer: Tracer = NULL_TRACER,
     )
 
 
-def ops_server_for_fleet(fleet, **kwargs):
-    """The JAX package's `OpsServer` over a `ServingFleet`: the fleet is
-    not ported (ROADMAP A11b-3)."""
-    raise NotImplementedError(
-        "ops_server_for_fleet: the serving fleet is not ported to the PyTorch "
-        "package yet (ROADMAP A11b-3)")
+def ops_server_for_fleet(fleet, *, tracer: Tracer = NULL_TRACER,
+                         slo=None, recorder: Optional[FlightRecorder] = None,
+                         profiler: Optional[ProfileCapturer] = None,
+                         host: str = "127.0.0.1", port: int = 0,
+                         tick_interval_s: float = 1.0) -> OpsServer:
+    """Wire an `OpsServer` over a `ServingFleet`: the fleet registry
+    (fleet_* families + SLO/flight metrics), `health()` (HealthMonitor +
+    replica-up view), the full fleet `stats()`, its `backpressure()`
+    (/statusz) and the fleet's flight book (/explainz). A profiler for a
+    fleet on the card takes the card's lock (`ServingEngine.graph_lock`,
+    one for every replica on the card), so /profilez never meets any
+    replica's capture."""
+    return OpsServer(
+        registry=fleet.registry, health_fn=fleet.health,
+        stats_fn=fleet.stats, tracer=tracer, slo=slo, recorder=recorder,
+        backpressure_fn=getattr(fleet, "backpressure", None),
+        flights=getattr(fleet, "flights", None), profiler=profiler,
+        host=host, port=port, tick_interval_s=tick_interval_s,
+    )

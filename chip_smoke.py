@@ -368,6 +368,33 @@ each phase prints its seconds):
          (median of 5) and the kernel time of one more call of the plain
          depth-4 and the nothing-exiting arms under torch.profiler, so the
          stages' cost splits into device work and the host's gaps;
+  19. the serving fleet (`serving/fleet.py ServingFleet`: N captured
+     engines on one card behind one admission queue, the card's lock
+     (`serving/executable.py device_lock`) making each capture exclusive
+     among them), phase 8b's stream at the served config with no result
+     cache, each result held bit for bit against a bare `ServingEngine`'s
+     at the rung that served it:
+     (a) 2 replicas, every (bucket, rung) captured at build, the stream
+         twice; `fleet_requests_total` once a request; one engine's graph
+         pool bytes;
+     (b) 3 replicas, no precompile, r0 killed (latched) and r2 flapping 3
+         times: replicas capture while others replay, r2's reinstatement
+         probe captures a fresh engine; a scraper on
+         `ops_server_for_fleet` and a /profilez (200, then 429); nothing
+         lost, no CaptureError, r1 never drained, r2 reinstated;
+     (c) the int8 degraded tier at 50 MDS iterations with both full
+         replicas killed: every answer degraded, bit for bit a bare int8
+         engine's, every B4 launch on wgmma;
+     (d) pools and the cascade at depth 4: an int8 draft pool (50
+         iterations, early exit at (1, 2)) and a full pool; accepted drafts
+         bit for bit the draft engine's, escalations the full engine's;
+     (e) five drain / reinstate cycles of one replica (its graphs released
+         under the card's lock, a fresh engine captured by its probe):
+         memory allocated flat (the fifth within 5% of the first);
+     (f) reported: requests/s, p50, p95 through the bare engine, a 1- and
+         a 2-replica fleet in turns; a hedged fleet's hedges and wasted
+         chip-seconds; the fleet chaos recipe through `serve` at the
+         served widths (rc 0, nothing lost, requeues, sheds, degraded);
   5. a `kernels` JSON line (sixteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, the three sparse kernels with dropout, B3's forward and its
@@ -382,6 +409,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import importlib
 import io
 import json
@@ -453,7 +481,13 @@ from alphafold2_tpu_torch.serving.executable import (  # noqa: E402
     CapturedExecutable,
     GraphPool,
 )
-from alphafold2_tpu_torch.reliability.faults import Fault, FaultPlan  # noqa: E402
+from alphafold2_tpu_torch.reliability.faults import Fault, FaultPlan, InjectedFault  # noqa: E402
+from alphafold2_tpu_torch.serving import executable as executable_mod  # noqa: E402
+from alphafold2_tpu_torch.serving.cascade import CascadePolicy  # noqa: E402
+from alphafold2_tpu_torch.serving.errors import QueueFullError  # noqa: E402
+from alphafold2_tpu_torch.serving.executable import device_lock  # noqa: E402
+from alphafold2_tpu_torch.serving.featurize import featurize_request  # noqa: E402
+from alphafold2_tpu_torch.serving.fleet import FleetConfig, PoolSpec, ServingFleet  # noqa: E402
 from alphafold2_tpu_torch.serving.quant_residency import resident_params  # noqa: E402
 from alphafold2_tpu_torch.training.checkpoint import (  # noqa: E402
     VerifiedCheckpointManager,
@@ -488,6 +522,7 @@ from alphafold2_tpu_torch.telemetry import (  # noqa: E402
     device_memory_gauges,
     host_memory_gauges,
     ops_server_for_engine,
+    ops_server_for_fleet,
     parse_prometheus_text,
 )
 from alphafold2_tpu_torch.utils.flops import model_fwd_flops  # noqa: E402
@@ -6773,6 +6808,598 @@ def phase_early_exit():
     return _merged(launches, engine, timing, replays)
 
 
+# --- phase 19: the serving fleet on the card -------------------------------------
+
+FLEET_WORK = ROOT / "build" / "phase19"  # the ops server's profiles, the CLI's stats
+# the CLI recipe's model and device flags: the served widths on the card
+FLEET_CLI_MODEL = ["--buckets", "128,256,384", "--bf16", "--dim", "256", "--depth", "2",
+                   "--heads", "8", "--dim-head", "64", "--mds-iters", "200"]
+FLEET_TIMEOUT = 600.0  # every fleet wait's bound, seconds
+
+
+class TrackedFleet(ServingFleet):
+    """The fleet with every engine its default factory builds kept in
+    `ENGINES` (a drained replica's too), so its replays count."""
+
+    def _default_factory(self, name, cfg, fault_hook):
+        engine = super()._default_factory(name, cfg, fault_hook)
+        FLEET_ENGINES.append(engine)
+        return engine
+
+
+FLEET_ENGINES = []
+
+
+def fleet_scfg(**fields):
+    """The served engine config of phase 19: 8b's (buckets 128 / 256 / 384,
+    rungs 1, 2, 4, 20 MSA rows, 200 MDS iterations) with no result cache,
+    so the second pass of a stream is computed again."""
+    base = dict(buckets=ENGINE_BUCKETS, max_batch=4, batch_ladder=True, msa_rows=ENGINE_ROWS,
+                mds_iters=200, request_timeout_s=FLEET_TIMEOUT, cache_capacity=0)
+    return ServingConfig(**{**base, **fields})
+
+
+def fleet_cfg(**fields):
+    """No heartbeats (a probe would capture behind the stream's back), the
+    fleet's deadline at FLEET_TIMEOUT."""
+    return FleetConfig(**{**dict(probe_interval_s=3600.0, default_timeout_s=FLEET_TIMEOUT),
+                          **fields})
+
+
+def run_stream(server, stream):
+    """Submit `stream` to `server` (a fleet or an engine) at once (a
+    queue-full submission retried after its advice) and wait: (results or
+    exceptions, wall seconds)."""
+    t0 = time.perf_counter()
+    reqs = []
+    for seq, msa, mm in stream:
+        while True:
+            try:
+                reqs.append(server.submit(seq, msa=msa, msa_mask=mm))
+                break
+            except QueueFullError as e:
+                time.sleep(min(0.05, e.retry_after_s or 0.005))
+    out = []
+    for r in reqs:
+        try:
+            out.append(r.result(timeout=FLEET_TIMEOUT))
+        except Exception as e:  # noqa: BLE001 — an outcome, checked by the caller
+            out.append(e)
+    return out, time.perf_counter() - t0
+
+
+def served_rungs(tracer):
+    """(trace id, replica) -> the batch rung of the last `serving.execute`
+    span that served it."""
+    rungs = {}
+    for s in sorted(tracer.spans(), key=lambda s: s["ts_s"]):
+        if s["name"] == "serving.execute":
+            for tid in s["attrs"].get("trace_ids", ()):
+                rungs[(tid, s["attrs"].get("replica", ""))] = s["attrs"]["batch"]
+    return rungs
+
+
+def bare_result(engine, request, rung, cache):
+    """What `engine` (a bare ServingEngine) serves for `request` in a batch
+    of `rung` rows (the request, then the filler rows the engine repeats
+    it into), through the engine's own executable, under the card's lock:
+    coords, confidence, stress (and exit_depth). Memoized in `cache`."""
+    seq, msa, mm = request
+    key = (id(engine), seq, rung)
+    if key not in cache:
+        fb = featurize_request(seq, msa, mm, ladder=engine._ladder,
+                               msa_rows=engine.cfg.msa_rows)
+        tokens, mask, _ = pad_batch([fb.tokens], fb.bucket, rung)
+        m = mmask = None
+        if engine.cfg.msa_rows:
+            live = [types.SimpleNamespace(length=len(fb.tokens), tokens=fb.tokens, msa=fb.msa,
+                                          msa_mask=fb.msa_mask)]
+            m, mmask = pad_msa_batch(live, fb.bucket, rung, engine.cfg.msa_rows)
+        with engine.graph_lock or contextlib.nullcontext():
+            out = engine._realize(engine._call_executable(fb.bucket, tokens, mask, m, mmask))
+        L = len(fb.tokens)
+        cache[key] = {"coords": out["coords"][0, :L], "confidence": out["confidence"][0, :L],
+                      "stress": float(out["stress"][0]), "bucket": fb.bucket,
+                      "exit_depth": int(out["exit_depth"][0]) if "exit_depth" in out else 0}
+    return cache[key]
+
+
+def same_bits(result, ref):
+    return (np.array_equal(result.coords, ref["coords"])
+            and np.array_equal(result.confidence, ref["confidence"])
+            and result.stress == ref["stress"] and result.bucket == ref["bucket"])
+
+
+def held_to(results, stream, rungs, engine_of, cache):
+    """Each result against its bare engine at the rung that served it:
+    [(index, replica, rung, bit_equal)]."""
+    rows = []
+    for i, (res, req) in enumerate(zip(results, stream)):
+        if isinstance(res, Exception):
+            rows.append((i, None, None, False))
+            continue
+        rung = rungs.get((res.trace_id, res.replica))
+        ok = rung is not None and same_bits(res, bare_result(engine_of(res), req, rung, cache))
+        rows.append((i, res.replica, rung, ok))
+    return rows
+
+
+class FailureLog:
+    """Every exception a replica's batch failed with (the engine's
+    `_fail_live`) and every CaptureError made, while open."""
+
+    def __enter__(self):
+        self.failures, self.captures = [], []
+        self._fail_live = ServingEngine._fail_live
+        self._capture_error = executable_mod.capture_error
+        log_ = self
+
+        def fail_live(engine, bucket, live, e, *args, **kwargs):
+            log_.failures.append(e)
+            return log_._fail_live(engine, bucket, live, e, *args, **kwargs)
+
+        def capture_error(*args):
+            err = log_._capture_error(*args)
+            log_.captures.append(err)
+            return err
+
+        ServingEngine._fail_live = fail_live
+        executable_mod.capture_error = capture_error
+        return self
+
+    def __exit__(self, *exc):
+        ServingEngine._fail_live = self._fail_live
+        executable_mod.capture_error = self._capture_error
+        return False
+
+    def only_injected(self):
+        return not self.captures and all(isinstance(e, InjectedFault) for e in self.failures)
+
+
+def phase_fleet_idempotency(state):
+    """(a) `FleetConfig(replicas=2)` with every (bucket, rung) captured at
+    build, phase 8b's stream twice (no result cache: the second pass is
+    served again): every result bit for bit what a bare `ServingEngine` on
+    the card serves for the same sequence and bucket at the rung its batch
+    ran (spans of a live tracer give the rung; the bare engine's own
+    executable runs the request padded to that rung under the card's
+    lock); `fleet_requests_total` counts each request once, at its
+    terminal outcome. Graph-pool bytes: allocated and reserved across the
+    bare engine's build (the card's pool made by its captures, largest
+    first) and across the 2-replica fleet's (the same shapes again, in
+    the same pool)."""
+    cfg, params, stream = state["cfg"], state["params"], state["stream"]
+    sync()
+    alloc0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    bare = ServingEngine(params, cfg, fleet_scfg(precompile=True), device="cuda")
+    sync()
+    pool_bytes = {"allocated": torch.cuda.memory_allocated() - alloc0,
+                  "reserved": torch.cuda.memory_reserved() - res0,
+                  "captures": len(bare._executables)}
+    state["bare"] = bare
+    tracer = Tracer(max_spans=1_000_000)
+    alloc1, res1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    fleet = TrackedFleet(params, cfg, fleet_scfg(precompile=True), fleet_cfg(replicas=2),
+                         tracer=tracer, device="cuda")
+    sync()
+    pool_bytes.update(fleet_allocated=torch.cuda.memory_allocated() - alloc1,
+                      fleet_reserved=torch.cuda.memory_reserved() - res1)
+    state["fleet2"] = fleet
+    results = []
+    with FailureLog() as failures:
+        for _ in range(2):
+            results += run_stream(fleet, stream)[0]
+    rungs = served_rungs(tracer)
+    rows = held_to(results, stream * 2, rungs, lambda res: bare, state["refs"])
+    state["first"] = {res.seq: (res, rungs[(res.trace_id, res.replica)])
+                      for res in results[:len(stream)] if not isinstance(res, Exception)}
+    stats = fleet.stats()
+    reqs = stats["requests"]
+    c = stats["telemetry"]["metrics"]["counters"]
+    counted = (reqs["submitted"] == reqs["completed"] == 2 * len(stream)
+               and reqs["failed"] == reqs["shed"] == reqs["in_flight"] == 0
+               and c['fleet_requests_total{outcome="completed"}'] == 2 * len(stream)
+               and stats["latency"]["count"] == 2 * len(stream))
+    equal = all(ok for *_, ok in rows)
+    by_rung = sorted({r for _, _, r, _ in rows if r})
+    # both replicas built and served (a replica whose build failed would
+    # leave the other to serve alone)
+    both = all(stats["replicas"][n]["engine"] is not None and any(r[1] == n for r in rows)
+               for n in ("r0", "r1"))
+    ok = equal and counted and both and failures.only_injected() and not failures.failures
+    log(f"[fleet a] 2 replicas, {len(stream)} requests x 2: bit for bit the bare engine at "
+        f"the served rung {sum(r[3] for r in rows)}/{len(rows)} (rungs {by_rung}; by replica "
+        f"{dict((n, sum(1 for r in rows if r[1] == n)) for n in ('r0', 'r1'))}); "
+        f"fleet_requests_total once each {counted}; the bare engine's build (9 captures) "
+        f"{pool_bytes['allocated'] / 2**20:.1f} MiB allocated, "
+        f"{pool_bytes['reserved'] / 2**20:.1f} MiB reserved; the 2-replica fleet's (18 more "
+        f"in the card's pool) {pool_bytes['fleet_allocated'] / 2**20:.1f} / "
+        f"{pool_bytes['fleet_reserved'] / 2**20:.1f} MiB; failures "
+        f"{[repr(e)[:200] for e in failures.failures + failures.captures]} "
+        f"{'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["fleet_idempotency"] = {
+        "rows": rows, "requests": reqs, "pool_bytes": pool_bytes, "ok": ok}
+    if not ok:
+        fail("the fleet's results differ from the bare engine's, or its counters miscount "
+             "(phase 19a)")
+
+
+def fleet_ops(fleet, tick_s=0.05):
+    """`ops_server_for_fleet` with a profiler on the card's lock."""
+    profiler = ProfileCapturer(str(FLEET_WORK / "profiles"), registry=fleet.registry,
+                               max_duration_s=2.0, min_interval_s=30.0,
+                               lock=device_lock("cuda"))
+    ops = ops_server_for_fleet(fleet, slo=SloEngine(fleet.registry,
+                                                    default_slo_config("fleet")),
+                               profiler=profiler, tick_interval_s=tick_s)
+    ops.add_tick(lambda: host_memory_gauges(fleet.registry))
+    ops.add_tick(lambda: device_memory_gauges(fleet.registry))
+    ops.add_tick(fleet.sample_gauges)
+    ops.start()
+    return ops, profiler
+
+
+def phase_fleet_chaos(state):
+    """(b) `FleetConfig(replicas=3)` with no precompile under a plan: r0
+    killed at its first dispatch (latched), r2 flapping at its third (3
+    failures). The stream's first (bucket, rung)s are captured by each
+    replica as it meets them, while the others replay theirs; r2's
+    reinstatement probe builds a fresh engine and captures while r1
+    serves. A thread scrapes /metrics, /healthz and /statusz of
+    `ops_server_for_fleet` throughout; one /profilez mid-stream (200,
+    then 429 on a second call once it has ended). Checks: nothing lost,
+    no CaptureError and no failure but the injected ones, r1 never
+    drained, r2 reinstated, requeues counted, every scrape 200, every
+    result (requeued ones included) bit for bit the bare engine's at its
+    rung."""
+    cfg, params, stream, bare = state["cfg"], state["params"], state["stream"], state["bare"]
+    plan = FaultPlan(faults=(Fault("kill_replica", replica="r0", at=0),
+                             Fault("flap_replica", replica="r2", at=2, count=3)))
+    injector = plan.injector()
+    tracer = Tracer(max_spans=1_000_000)
+    with FailureLog() as failures:
+        fleet = TrackedFleet(params, cfg, fleet_scfg(), fleet_cfg(replicas=3, reprobe_interval_s=0.2),
+                             tracer=tracer, injector=injector, device="cuda")
+        ops, profiler = fleet_ops(fleet)
+        scrapes, stop = [], threading.Event()
+        scraper = threading.Thread(target=scrape_loop, args=(ops.url, stop, scrapes),
+                                   name="af2-smoke-fleet-scraper", daemon=True)
+        scraper.start()
+        try:
+            box = {}
+            runner = threading.Thread(target=lambda: box.update(out=run_stream(fleet, stream)),
+                                      name="af2-smoke-fleet-stream", daemon=True)
+            runner.start()
+            code, body = http_get(ops.url + "/profilez?duration_s=1")
+            deadline = time.monotonic() + 60
+            while profiler.snapshot()["running"] is not None and time.monotonic() < deadline:
+                time.sleep(0.05)
+            again = http_get(ops.url + "/profilez?duration_s=1")[0]
+            runner.join(FLEET_TIMEOUT)
+            results, wall = box["out"]
+            deadline = time.monotonic() + 60
+            while (fleet.stats()["health"]["targets"]["r2"]["reinstatements"] < 1
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+        finally:
+            stop.set()
+            scraper.join(30)
+            ops.stop()
+        stats = fleet.stats()
+        fleet.shutdown(drain=True, timeout=60)
+    rungs = served_rungs(tracer)
+    rows = held_to(results, stream, rungs, lambda res: bare, state["refs"])
+    requeued = [r for r in results if not isinstance(r, Exception) and r.requeues]
+    as_19a = sum(1 for r in requeued if r.seq in state["first"]
+                 and state["first"][r.seq][1] == rungs.get((r.trace_id, r.replica))
+                 and np.array_equal(r.coords, state["first"][r.seq][0].coords))
+    targets = stats["health"]["targets"]
+    reqs = stats["requests"]
+    c = stats["telemetry"]["metrics"]["counters"]
+    checks = {
+        "nothing lost": reqs["failed"] == 0 and reqs["in_flight"] == 0
+        and reqs["completed"] == len(stream),
+        "only injected failures, no CaptureError": failures.only_injected(),
+        "r1 never drained": targets["r1"]["drains"] == 0,
+        "r2 reinstated": targets["r2"]["reinstatements"] >= 1,
+        "requeues counted": c["fleet_requeue_total"] > 0 and len(requeued) > 0,
+        "bit for bit the bare engine": all(ok for *_, ok in rows),
+        "scrapes 200": bool(scrapes) and all(code_ == 200 for _, code_, _, _ in scrapes),
+        "profilez 200 then 429": code == 200 and again == 429,
+    }
+    ok = all(checks.values())
+    captures = {name: len(rep["engine"]["captures"]) if rep["engine"] else None
+                for name, rep in stats["replicas"].items()}
+    log(f"[fleet b] 3 replicas, no precompile, {len(stream)} requests in {wall:.2f} s under "
+        f"{injector.delivered}: {reqs}; {len(requeued)} requeued (bit for bit 19a's at the "
+        f"same rung: {as_19a}); drains/reinstatements "
+        f"{dict((n, (t['drains'], t['reinstatements'])) for n, t in targets.items())}; "
+        f"captures by replica {captures}; {len(scrapes)} scrapes; /profilez {code}, "
+        f"again {again}; {checks} {'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["fleet_chaos"] = {
+        "requests": reqs, "checks": checks, "rows": rows, "delivered": injector.delivered,
+        "health": targets, "captures": captures, "requeued_as_19a": as_19a,
+        "scrapes": len(scrapes), "profilez": [code, again], "wall_s": wall, "ok": ok}
+    if not ok:
+        fail(f"the fleet under chaos failed a check (phase 19b): {checks}")
+
+
+def quant_on_wgmma(launches):
+    n = launches.get("quant_matmul", 0)
+    return n > 0 and launches.get("quant_matmul_wgmma", 0) == n
+
+
+DEGRADED_ITERS = 50  # the degraded tier's (and the cascade draft's) MDS iterations
+
+
+def phase_fleet_degraded(state):
+    """(c) The degraded tier: `FleetConfig(replicas=2,
+    degraded_weight_dtype="int8", degraded_mds_iters=50)` with both full
+    replicas killed: every response degraded=True and bit for bit a bare
+    int8 engine's at 50 MDS iterations (at its rung); the int8 products'
+    launches all on B4's wgmma route."""
+    cfg, params, stream = state["cfg"], state["params"], state["stream"]
+    icfg = dataclasses.replace(cfg, weight_dtype="int8")
+    bare8 = ServingEngine(params, icfg, fleet_scfg(mds_iters=DEGRADED_ITERS), device="cuda")
+    FLEET_ENGINES.append(bare8)
+    plan = FaultPlan(faults=(Fault("kill_replica", replica="r0", at=0),
+                             Fault("kill_replica", replica="r1", at=0)))
+    tracer = Tracer(max_spans=1_000_000)
+    with FailureLog() as failures:
+        fleet = TrackedFleet(params, cfg, fleet_scfg(),
+                             fleet_cfg(replicas=2, degraded_weight_dtype="int8",
+                                       degraded_mds_iters=DEGRADED_ITERS), tracer=tracer,
+                             injector=plan.injector(), device="cuda")
+        results, wall = run_stream(fleet, stream)
+        stats = fleet.stats()
+        fleet.shutdown(drain=True, timeout=60)
+    rows = held_to(results, stream, served_rungs(tracer), lambda res: bare8, state["refs"])
+    bare8.shutdown(drain=False, timeout=60)
+    bare8.release_graphs(60)
+    degraded = stats["replicas"]["degraded"]["engine"]["launches"]
+    ok = (all(ok_ for *_, ok_ in rows) and failures.only_injected()
+          and all(not isinstance(r, Exception) and r.degraded for r in results)
+          and stats["requests"]["degraded"] == len(stream) and quant_on_wgmma(degraded))
+    log(f"[fleet c] both full replicas killed: {stats['requests']['degraded']} of "
+        f"{len(stream)} degraded, bit for bit the bare int8 engine at {DEGRADED_ITERS} "
+        f"iterations "
+        f"{sum(r[3] for r in rows)}/{len(rows)}; the degraded tier's replayed launches "
+        f"{degraded} in {wall:.2f} s {'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["fleet_degraded"] = {"rows": rows, "requests": stats["requests"],
+                                          "launches": degraded, "ok": ok}
+    if not ok:
+        fail("the degraded tier failed a check (phase 19c)")
+
+
+CASCADE_DEPTH = 4  # exit depths (1, 2) must lie under the model's depth: phase 18's
+
+
+def phase_fleet_cascade(state):
+    """(d) Capability pools and the cascade at the served widths, depth 4
+    (the draft's exit depths (1, 2) must lie under the model's): a draft
+    pool (int8, 50 MDS iterations, early exit at (1, 2) with a KL gate of
+    1e9, so every draft exits at depth 2; buckets 128 / 256) and a full
+    pool (buckets 128 / 256 / 384), a `CascadePolicy` whose confidence gate
+    sits between the stream's draft confidences (from the bare draft
+    engine: about half accept). Each accepted draft bit for bit the bare
+    draft engine's, each escalation and bypass (L > 256) the bare full
+    engine's, at their rungs; the cascade ledger's served tiers sum to
+    the requests."""
+    stream = state["stream"]
+    cfg4 = served_config(depth=CASCADE_DEPTH)
+    params4 = alphafold2_init(cfg4, torch.Generator().manual_seed(0), "cuda")
+    draft_spec = dict(buckets=ENGINE_BUCKETS[:2], mds_iters=DEGRADED_ITERS,
+                      early_exit_depths=(1, 2),
+                      early_exit_kl=1e9)
+    draft = ServingEngine(params4, dataclasses.replace(cfg4, weight_dtype="int8"),
+                          fleet_scfg(**draft_spec), device="cuda")
+    full = ServingEngine(params4, cfg4, fleet_scfg(), device="cuda")
+    FLEET_ENGINES.extend([draft, full])
+    confs = sorted(float(np.asarray(bare_result(draft, req, 1, state["refs"])["confidence"],
+                                    np.float64).mean())
+                   for req in stream if len(req[0]) <= ENGINE_BUCKETS[1])
+    gate = 0.5 * (confs[len(confs) // 2 - 1] + confs[len(confs) // 2])
+    pools = (PoolSpec("draft", replicas=1, weight_dtype="int8", **draft_spec),
+             PoolSpec("full", replicas=1))
+    tracer = Tracer(max_spans=1_000_000)
+    with FailureLog() as failures:
+        fleet = TrackedFleet(params4, cfg4, fleet_scfg(),
+                             fleet_cfg(pools=pools, cascade_policy=CascadePolicy(
+                                 draft_pool="draft", min_confidence=gate)),
+                             tracer=tracer, device="cuda")
+        results, wall = run_stream(fleet, stream)
+        stats = fleet.stats()
+        fleet.shutdown(drain=True, timeout=60)
+    rungs = served_rungs(tracer)
+    rows = held_to(results, stream, rungs,
+                   lambda res: draft if res.tier == "draft" else full, state["refs"])
+    for engine in (draft, full):
+        engine.shutdown(drain=False, timeout=60)
+        engine.release_graphs(60)
+    tiers = stats["cascade"]["tiers"]
+    served = sum(tiers.get(t, {}).get("count", 0) for t in ("draft", "escalated", "full"))
+    kinds = {t: sum(1 for r in results if not isinstance(r, Exception) and r.tier == t)
+             for t in ("draft", "escalated", "full")}
+    exits = {r.exit_depth for r in results if not isinstance(r, Exception)
+             and r.tier == "draft"}
+    ok = (all(ok_ for *_, ok_ in rows) and failures.only_injected() and not failures.failures
+          and served == len(stream) and kinds["draft"] > 0 and kinds["escalated"] > 0
+          and exits == {2})
+    log(f"[fleet d] cascade at depth {CASCADE_DEPTH}, gate {gate:.6f}: {kinds} "
+        f"(draft exit depths {sorted(exits)}), ledger tiers {served} = {len(stream)} "
+        f"requests, bit for bit their bare pool engines {sum(r[3] for r in rows)}/{len(rows)} "
+        f"in {wall:.2f} s {'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["fleet_cascade"] = {"rows": rows, "gate": gate, "kinds": kinds,
+                                         "cascade": stats["cascade"], "ok": ok}
+    if not ok:
+        fail("the cascade failed a check (phase 19d)")
+
+
+def phase_fleet_memory(state, cycles=5):
+    """(e) Five drain and reinstate cycles of r0 (replicas 2, no
+    precompile): each cycle takes r0 down through the health monitor's
+    drain path (`force_down`, the path a failure and a rolling update
+    take: its engine shut down, its graphs released under the card's
+    lock), its reinstatement probe builds and captures a fresh engine, and
+    one request is served. Memory allocated after `gc.collect()` under the
+    card's lock each cycle: the fifth within 5% of the first."""
+    cfg, params, stream = state["cfg"], state["params"], state["stream"]
+    fleet = TrackedFleet(params, cfg, fleet_scfg(), fleet_cfg(replicas=2, reprobe_interval_s=0.05),
+                         device="cuda")
+    lock = device_lock("cuda")
+    allocated, reserved, served = [], [], []
+    try:
+        for k in range(cycles):
+            fleet._health.force_down("r0", "phase 19e drain cycle")
+            deadline = time.monotonic() + 60
+            while (fleet.stats()["health"]["targets"]["r0"]["reinstatements"] < k + 1
+                   and time.monotonic() < deadline):
+                time.sleep(0.02)
+            seq, msa, mm = stream[k]
+            served.append(fleet.submit(seq, msa=msa, msa_mask=mm)
+                          .result(timeout=FLEET_TIMEOUT).replica)
+            with lock:
+                gc.collect()
+                torch.cuda.synchronize()
+                allocated.append(torch.cuda.memory_allocated())
+                reserved.append(torch.cuda.memory_reserved())
+        targets = fleet.stats()["health"]["targets"]
+    finally:
+        fleet.shutdown(drain=True, timeout=60)
+    ok = (targets["r0"]["reinstatements"] == cycles and targets["r0"]["drains"] == cycles
+          and abs(allocated[-1] - allocated[0]) <= 0.05 * allocated[0])
+    log(f"[fleet e] {cycles} drain/reinstate cycles of r0 (served by {served}): allocated "
+        f"{[round(a / 2**20, 1) for a in allocated]} MiB, reserved "
+        f"{[round(r / 2**20, 1) for r in reserved]} MiB; r0 {targets['r0']} "
+        f"{'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["fleet_memory"] = {"allocated": allocated, "reserved": reserved,
+                                        "served_by": served, "health": targets["r0"], "ok": ok}
+    if not ok:
+        fail("memory grew over the fleet's drain/reinstate cycles (phase 19e)")
+
+
+def stream_numbers(results, wall):
+    lat = sorted(r.latency_s for r in results if not isinstance(r, Exception))
+    return {"requests_per_s": len(results) / wall, "wall_s": wall,
+            "p50_ms": 1e3 * lat[len(lat) // 2],
+            "p95_ms": 1e3 * lat[min(len(lat) - 1, int(0.95 * len(lat)))],
+            "failed": sum(isinstance(r, Exception) for r in results)}
+
+
+def phase_fleet_timing(state, smi):
+    """(f) Reported, no limit: phase 8b's stream (no cache) through the
+    bare engine, a 1-replica fleet and a 2-replica fleet, all captured at
+    build, in turns (bare, 1, 2, 2, 1, bare): requests/s, p50 and p95
+    (host clock); a 2-replica fleet with `hedge_p95_factor=2` over the
+    stream twice: hedges issued and hedge_wasted_chip_seconds_total; then
+    the verify skill's fleet recipe through the CLI at the served widths
+    (its own process): rc 0, nothing lost, requeues, sheds and degraded
+    answers, the registry's counters the same numbers."""
+    cfg, params, stream = state["cfg"], state["params"], state["stream"]
+    fleet1 = TrackedFleet(params, cfg, fleet_scfg(precompile=True), fleet_cfg(replicas=1),
+                          device="cuda")
+    arms = {"bare": state["bare"], "fleet1": fleet1, "fleet2": state["fleet2"]}
+    turns = []
+    try:
+        for name in ("bare", "fleet1", "fleet2", "fleet2", "fleet1", "bare"):
+            results, wall = run_stream(arms[name], stream)
+            turns.append({"arm": name, **stream_numbers(results, wall)})
+    finally:
+        fleet1.shutdown(drain=True, timeout=60)
+        state["fleet2"].shutdown(drain=True, timeout=60)
+    hedged = TrackedFleet(params, cfg, fleet_scfg(precompile=True),
+                          fleet_cfg(replicas=2, hedge_p95_factor=2.0), device="cuda")
+    try:
+        hedge_runs = [stream_numbers(*run_stream(hedged, stream)) for _ in range(2)]
+        hstats = hedged.stats()
+    finally:
+        hedged.shutdown(drain=True, timeout=60)
+    hedging = hstats["hedging"]
+    out = FLEET_WORK / "cli.json"
+    argv = [sys.executable, "-m", "alphafold2_tpu_torch.serve", "--demo", "24",
+            "--replicas", "3", *FLEET_CLI_MODEL, "--max-batch", "2", "--queue-size", "4", "--fleet-queue", "4",
+            "--degrade-depth", "3", "--reprobe-interval", "0.3",
+            "--degraded-weight-dtype", "int8", "--fault-plan",
+            "docs/examples/fleet_chaos_plan.json", "--stats-json", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    cli = json.loads(out.read_text()) if out.exists() else {}
+    reqs = cli.get("requests", {})
+    c = cli.get("telemetry", {}).get("metrics", {}).get("counters", {})
+    cli_ok = (proc.returncode == 0 and reqs.get("failed") == 0 and reqs.get("in_flight") == 0
+              and reqs.get("requeued", 0) >= 1 and reqs.get("shed", 0) >= 1
+              and reqs.get("degraded", 0) >= 1
+              and c.get("fleet_requeue_total") == reqs.get("requeued")
+              and c.get("fleet_degraded_total") == reqs.get("degraded")
+              and sum(v for k, v in c.items() if k.startswith("fleet_shed_total"))
+              == reqs.get("shed"))
+    summary = [line for line in proc.stdout.splitlines()
+               if line.startswith(("fleet served", "replicas:", "faults delivered"))]
+    for t in turns:
+        log(f"[fleet f] {t['arm']}: {t['requests_per_s']:.2f} requests/s, p50 "
+            f"{t['p50_ms']:.1f} ms, p95 {t['p95_ms']:.1f} ms ({smi})")
+    log(f"[fleet f] hedged 2-replica fleet (p95 x2), two passes: "
+        f"{[round(h['requests_per_s'], 2) for h in hedge_runs]} requests/s, {hedging}")
+    log(f"[fleet f] CLI chaos recipe at the served widths: rc {proc.returncode} in "
+        f"{cli_s:.1f} s, {reqs}; {summary} {'ok' if cli_ok else 'FAIL'}")
+    RECORD["phases"]["fleet_timing"] = {
+        "turns": turns, "hedged": hedge_runs, "hedging": hedging, "card": smi,
+        "cli": {"rc": proc.returncode, "seconds": cli_s, "requests": reqs,
+                "summary": summary, "stderr_tail": proc.stderr[-4000:], "ok": cli_ok}}
+    if not cli_ok:
+        fail(f"the fleet CLI's chaos recipe failed its invariants (phase 19f): rc "
+             f"{proc.returncode}, {reqs}\n{proc.stderr[-2000:]}")
+
+
+def phase_fleet(smi):
+    """19: the serving fleet on the card. Counts set to 0 just before (a)
+    and read after (f): the returned launches are the wrappers' (every
+    engine's warm-ups and captures, the bare references' calls) plus what
+    every engine's replays launched (a drained replica's included)."""
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        RECORD["phases"][f"fleet_{key}_s"] = time.perf_counter() - t
+        log(f"[time] fleet {key}: {RECORD['phases'][f'fleet_{key}_s']:.1f} s")
+        return result
+
+    shutil.rmtree(FLEET_WORK, ignore_errors=True)
+    FLEET_WORK.mkdir(parents=True)
+    cfg = served_config()
+    state = {"cfg": cfg, "params": alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda"),
+             "stream": engine_stream(), "refs": {}}
+    FLEET_ENGINES.clear()
+    reset_launches()
+    try:
+        timed("a", phase_fleet_idempotency, state)
+        timed("b", phase_fleet_chaos, state)
+        timed("c", phase_fleet_degraded, state)
+        timed("d", phase_fleet_cascade, state)
+        timed("e", phase_fleet_memory, state)
+        timed("f", phase_fleet_timing, state, smi)
+    finally:
+        for key in ("fleet2",):
+            if key in state:
+                state[key].shutdown(drain=False, timeout=60)
+        if "bare" in state:
+            state["bare"].shutdown(drain=False, timeout=60)
+            state["bare"].release_graphs(60)
+        shutil.rmtree(FLEET_WORK, ignore_errors=True)
+    sync()
+    launches = launch_counts()
+    for engine in FLEET_ENGINES + [state["bare"]]:
+        for name, n in engine.stats()["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    if not on_wgmma(launches) or not quant_on_wgmma(launches):
+        fail(f"a phase 19 flash or int8 launch left its wgmma route: {launches}")
+    log(f"[fleet] launches (wrappers and replays) "
+        f"{dict((k, n) for k, n in launches.items() if n)}, all on wgmma")
+    RECORD["phases"]["fleet_launches"] = launches
+    FLEET_ENGINES.clear()
+    return launches
+
+
 def _merged(*counts):
     out = {}
     for c in counts:
@@ -6828,7 +7455,9 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     replays). Phase 18 adds its B1f launches: (a)'s f32 request on the
     card, (b)'s engines (warm-ups, captures, eager references, and each
     stage graph's captured launches times its own replays) and (c)'s
-    executables (likewise)."""
+    executables (likewise). Phase 19 adds its B1f and B4 launches: every
+    fleet replica's and bare reference engine's warm-ups and captures, and
+    their replays (a drained replica's included)."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r
@@ -6997,6 +7626,8 @@ def main():
     for name, n in timed_phase("telemetry", phase_telemetry, smi).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in timed_phase("early_exit", phase_early_exit).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in timed_phase("fleet", phase_fleet, smi).items():
         launches[name] = launches.get(name, 0) + n
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches, dropout_rows, dropout_times)

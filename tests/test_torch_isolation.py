@@ -57,7 +57,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "reliability.preemption", "models.embedder", "models.refiner",
                  "training.e2e", "geometry.masks", "geometry.dihedral", "geometry.kabsch",
                  "geometry.metrics", "geometry.sidechain", "refinement", "refine",
-                 "runtime", "runtime.native", "training.segmented"):
+                 "runtime", "runtime.native", "training.segmented", "serving.fleet",
+                 "serving.admission", "serving.frontdoor", "serving.featurize",
+                 "serving.journal", "serving.artifact_store", "serving.cascade",
+                 "reliability.health", "reliability.retry_budget", "telemetry.ops_plane"):
         assert f"alphafold2_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -113,6 +116,17 @@ def test_entry_points_raise_without_cuda_instead_of_running_on_cpu(no_cuda):
     # the explicit CPU request runs
     out = predict_structure(params, cfg, tokens, mds_iters=2, device="cpu")
     assert out["coords"].device.type == "cpu"
+
+
+def test_the_fleet_raises_without_cuda(no_cuda):
+    """The fleet serves on the card unless asked for the CPU: without
+    `device` it refuses before building a replica."""
+    from alphafold2_tpu_torch.serving.engine import ServingConfig
+    from alphafold2_tpu_torch.serving.fleet import FleetConfig, ServingFleet
+
+    cfg = Alphafold2Config(dim=16, depth=1, heads=2, dim_head=8, max_seq_len=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingFleet({}, cfg, ServingConfig(buckets=(8,)), FleetConfig(replicas=2))
 
 
 def test_training_entry_points_raise_without_cuda(no_cuda):

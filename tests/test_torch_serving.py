@@ -855,8 +855,24 @@ def test_refused_config_knob_names_its_roadmap_item(fields, exc, match):
 @pytest.mark.parametrize("seam, item", [("fault_hook", "A11b"), ("pool_name", "A11b-3"),
                                         ("model_apply_fn", "A11b")])
 def test_refused_engine_seam_names_its_roadmap_item(seam, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ServingEngine({}, TINY, serving_cfg(), device="cpu", **{seam: object()})
+    """The trunk-forward override (the SP arm's seam) is refused naming
+    A11b-4. The fleet's seams, refused naming `item` until the fleet was
+    ported, are taken now: `pool_name` labels the engine's cost cells and
+    `fault_hook` runs at each dispatch."""
+    if seam == "model_apply_fn":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}-4"):
+            ServingEngine({}, TINY, serving_cfg(), device="cpu", model_apply_fn=object())
+        return
+    calls = []
+    value = "short" if seam == "pool_name" else (lambda i, b: calls.append((i, b)))
+    eng = FakeModelEngine({}, TINY, serving_cfg(buckets=(8,), max_batch=1), device="cpu",
+                          **{seam: value})
+    try:
+        eng.predict(seq_of(5), timeout=WAIT)
+        assert eng.cell_for(8)["pool"] == ("short" if seam == "pool_name" else "default")
+        assert calls == ([(0, 8)] if seam == "fault_hook" else [])
+    finally:
+        eng.shutdown()
 
 
 def test_random_mds_init_serves_on_the_cpu(tiny_params):
@@ -876,12 +892,37 @@ def test_random_mds_init_serves_on_the_cpu(tiny_params):
     ["--journal", "auto"], ["--featurize-workers", "2"], ["--retry-budget", "8"],
     ["--cascade", "{}"]], ids=["replicas", "fault_plan", "artifact_store", "journal",
                                "featurize_workers", "retry_budget", "cascade"])
-def test_cli_refuses_fleet_flags(flag, capsys):
+def test_cli_refuses_fleet_flags(flag, tmp_path, capsys):
+    """These flags were refused (ROADMAP A11b-3) until the fleet was ported.
+    Each is taken now with the JAX CLI's meaning: the fleet's selectors
+    (--replicas, --featurize-workers) run the demo through the fleet, the
+    store and the journal without one print the JAX CLI's warning, a
+    retry budget without one is unused, --cascade without --pools is the
+    JAX CLI's refusal, and a plan loads and delivers."""
     from alphafold2_tpu_torch import serve
 
-    with pytest.raises(SystemExit):
-        serve.main(["--demo", "2", "--device", "cpu", *flag])
-    assert "ROADMAP A11b" in capsys.readouterr().err
+    flag = list(flag)
+    if flag[0] == "--fault-plan":
+        plan = tmp_path / "plan.json"
+        plan.write_text(json.dumps({"faults": [{"kind": "slow_request", "at": 0,
+                                                "delay_s": 0.0}]}))
+        flag[1] = str(plan)
+    if flag[0] == "--cascade":
+        with pytest.raises(SystemExit):
+            serve.main(["--demo", "2", "--device", "cpu", *flag])
+        assert "--cascade requires --pools" in capsys.readouterr().err
+        return
+    rc = serve.main(["--demo", "2", "--buckets", "16", "--dim", "16", "--depth", "1",
+                     "--heads", "2", "--dim-head", "8", "--mds-iters", "2", "--device", "cpu",
+                     *flag])
+    printed = capsys.readouterr().out
+    assert rc == 0
+    if flag[0] in ("--replicas", "--featurize-workers"):
+        assert "fleet served" in printed
+    elif flag[0] == "--fault-plan":
+        assert "faults delivered: ['slow_request@0']" in printed
+    elif flag[0] in ("--artifact-store", "--journal"):
+        assert "WARNING" in printed and "fleet mode only" in printed
 
 
 # ------------------------------------------------- the CLI

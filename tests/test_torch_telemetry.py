@@ -303,8 +303,7 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
 
 
 def test_the_package_exports_jax_names_less_the_fleet_and_multi_process():
-    left_out = {"MetricFederation", "FederatedRegistryView", "relabeled_exposition",
-                "ops_server_for_fleet"}
+    left_out = {"MetricFederation", "FederatedRegistryView", "relabeled_exposition"}
     assert set(ttel.__all__) == set(jtel.__all__) - left_out
     for name in ttel.__all__:
         assert getattr(ttel, name) is not None
