@@ -29,14 +29,17 @@ plan file it takes loads here. Hook sites:
                           `flap_replica` (`count` failures, then healthy),
                           `straggle_dispatch` (a slow success); the
                           featurize tier's `featurize_hook()`:
-                          `slow_featurize`, `kill_featurize_worker`.
+                          `slow_featurize`, `kill_featurize_worker`;
+  serving/autoscale.py    `ReplicaAutoscaler(fault_hook=injector.autoscale_hook())`:
+                          `scale_flap`, forced alternating up/down demands at
+                          tick index N (`count` of them) that the hysteresis
+                          window must absorb.
 
 Replica indices are per-replica counters kept by the INJECTOR, not the
 engine, so they survive the engine restarts a drain and reinstatement
 make. The training CLIs deliver the training kinds only
 (`check_training_plan`); `serve` delivers the serving kinds
-(`check_serving_plan`). The autoscaler's `scale_flap` is not ported
-(ROADMAP A11b-3b) and is refused by both.
+(`check_serving_plan`), `scale_flap` among them.
 
 Validate a hand-written plan before paying for a run:
 
@@ -69,7 +72,7 @@ FAULT_KINDS = (
     "flap_replica",     # named fleet replica: fail `count` dispatches, recover
     "slow_featurize",   # featurize tier: sleep `delay_s` at job `at`
     "kill_featurize_worker",  # featurize tier: kill the worker serving job `at`
-    "scale_flap",       # autoscaler: forced up/down demands (not ported: A11b-3b)
+    "scale_flap",       # autoscaler: forced alternating up/down demands at tick `at`
     "crash_process",    # kill -9 the serving process at process-wide dispatch `at`
     "straggle_dispatch",  # named fleet replica: a slow success (the hedge trigger)
 )
@@ -78,11 +81,12 @@ FAULT_KINDS = (
 TRAINING_FAULT_KINDS = ("step_exception", "nan_grads", "preempt", "ckpt_corrupt",
                         "data_error", "slow_data")
 
-#: the kinds `serve` delivers (the engine's, the fleet replicas' and the
-#: featurize tier's hooks)
+#: the kinds `serve` delivers (the engine's, the fleet replicas', the
+#: featurize tier's and the autoscaler's hooks)
 SERVING_FAULT_KINDS = ("request_error", "slow_request", "hung_request", "kill_replica",
                        "slow_replica", "flap_replica", "slow_featurize",
-                       "kill_featurize_worker", "crash_process", "straggle_dispatch")
+                       "kill_featurize_worker", "crash_process", "straggle_dispatch",
+                       "scale_flap")
 
 #: kinds that target one named fleet replica and require `replica`
 REPLICA_FAULT_KINDS = ("kill_replica", "slow_replica", "flap_replica", "straggle_dispatch")
@@ -186,22 +190,18 @@ class FaultPlan:
 
 def check_training_plan(plan: FaultPlan, what: str) -> None:
     """Refuse a plan with kinds a trainer has no hook for: the serving
-    kinds (serve's, the fleet's: ROADMAP A11b) and `scale_flap` (A11b-3b)."""
+    kinds (serve's, the fleet's and its autoscaler's: ROADMAP A11b)."""
     other = sorted({f.kind for f in plan.faults} - set(TRAINING_FAULT_KINDS))
     if other:
         raise NotImplementedError(
             f"{what}: fault kind(s) {other} are not training kinds: the serving kinds are "
-            f"delivered by serve (ROADMAP A11b; scale_flap by the autoscaler, not ported: "
-            f"A11b-3b); a trainer delivers {TRAINING_FAULT_KINDS}")
+            f"delivered by serve (ROADMAP A11b; scale_flap by its autoscaler); a trainer "
+            f"delivers {TRAINING_FAULT_KINDS}")
 
 
 def check_serving_plan(plan: FaultPlan, what: str) -> None:
-    """Refuse a plan with kinds `serve` has no hook for: the training kinds
-    and `scale_flap`, the autoscaler's (not ported: ROADMAP A11b-3b)."""
-    if any(f.kind == "scale_flap" for f in plan.faults):
-        raise NotImplementedError(
-            f"{what}: fault kind scale_flap drives the replica autoscaler, which is not "
-            f"ported yet (ROADMAP A11b-3b)")
+    """Refuse a plan with kinds `serve` has no hook for: the training
+    kinds."""
     other = sorted({f.kind for f in plan.faults} - set(SERVING_FAULT_KINDS))
     if other:
         raise NotImplementedError(
@@ -411,11 +411,21 @@ class FaultInjector:
     # -- hook: autoscaler ticks (serving/autoscale.py) -----------------------
 
     def autoscale_hook(self):
-        """The autoscaler's hook (`scale_flap`): the replica autoscaler is
-        not ported (ROADMAP A11b-3b)."""
-        raise NotImplementedError(
-            "autoscale_hook: the replica autoscaler is not ported to the PyTorch package "
-            "yet (ROADMAP A11b-3b)")
+        """The ReplicaAutoscaler fault_hook: called with the tick index on
+        every evaluation, it returns a forced demand ("up" / "down",
+        alternating a delivery) while a `scale_flap` fault is live, None
+        otherwise. A forced demand skips the policy's sustain counts but
+        not its hysteresis window, which must absorb the flapping."""
+        flips = [0]
+
+        def hook(tick_index: int) -> Optional[str]:
+            f = self._take("scale_flap", tick_index)
+            if f is None:
+                return None
+            flips[0] += 1
+            return "up" if flips[0] % 2 else "down"
+
+        return hook
 
 
 def _check_main(argv=None) -> int:

@@ -1,7 +1,10 @@
 """Replica health management: probes, drain decisions, reinstatement.
 
 The port's copy of alphafold2_tpu/reliability/health.py: the same names, messages,
-metric names and on-disk formats; Python and numpy only.
+metric names and on-disk formats; Python and numpy only. One departure: a
+probe that was in flight when its target was retired does not reinstate
+it (in the JAX copy it does, which leaves a retired replica registered and
+undrained, its engine serving nothing and never shut down).
 
 The fleet tier (`serving/fleet.py`) keeps N engine replicas; this module
 owns the question "which of them should take traffic right now?". It is
@@ -260,7 +263,11 @@ class HealthMonitor:
             if ok:
                 t.consecutive_probe_failures = 0
                 t.consecutive_failures = 0
-                if t.state is ReplicaState.DOWN:
+                # a probe in flight when its target was retired must not
+                # reinstate it: the retirement's drain stays pending (else
+                # the retired replica would stay registered, never drained,
+                # its engine never shut down)
+                if t.state is ReplicaState.DOWN and not t.retiring:
                     t.state = ReplicaState.HEALTHY
                     t.down_since = None
                     t.down_reason = ""

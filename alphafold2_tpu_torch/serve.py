@@ -46,10 +46,21 @@ intake journal (`--journal`, replayed at startup), a retry budget
 replica must fail for the failover to start). `--fault-plan` takes a
 chaos plan (reliability/faults.py: replica faults in the fleet, dispatch
 faults single-engine; check one with `python -m
-alphafold2_tpu_torch.reliability.faults --check`). Refused, naming their
-ROADMAP items: `--pipeline-depth` (A11a-pipelined), `--sp-shards` (the
-SP arm, A11b-4) and the autoscaler's `--min-replicas`, `--max-replicas`,
-`--scale-policy`, `--scale-grace` and the `scale_flap` fault (A11b-3b).
+alphafold2_tpu_torch.reliability.faults --check`; `scale_flap` drives the
+autoscaler). The elastic replica autoscaler (serving/autoscale.py):
+`--max-replicas` arms it (fleet tier), `--min-replicas` sets its floor,
+`--scale-policy` its thresholds and hysteresis (a ScalePolicy JSON), and
+`--scale-grace` keeps the process ticking after the replay so an idle
+scale-down is seen; it runs on its own control thread, one scaler a pool
+under `--pools`, and the stats JSON carries its `autoscale` block. The
+sequence-parallel arm (serving/sp_arm.py): `--sp-shards N` runs each
+bucket's trunk over N shards under the schedule the plan prices against
+`--sp-hbm-gb` (the stats JSON's `sp` block); N shards take N distinct
+cards (fewer raise, as the JAX CLI raises on fewer devices; over distinct
+cards the engine refuses, naming ROADMAP A13, since a captured graph holds
+one card's stream), and with `--device cpu` N CPU shards. A pool of
+`--pools` takes `sp_shards` / `sp_schedules` the same way. Refused, naming
+its ROADMAP item: `--pipeline-depth` (A11a-pipelined).
 
 Telemetry, the JAX CLI's single-engine flags: `--trace-out` (the request
 lifecycle spans as a Chrome trace), `--metrics-jsonl` (one record a
@@ -86,6 +97,7 @@ from alphafold2_tpu_torch.models.alphafold2 import alphafold2_init
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.reliability.faults import FaultPlan, check_serving_plan
 from alphafold2_tpu_torch.serving.artifact_store import ArtifactStore, ArtifactStoreConfig
+from alphafold2_tpu_torch.serving.autoscale import ReplicaAutoscaler, ScalePolicy
 from alphafold2_tpu_torch.serving.cascade import CascadePolicy
 from alphafold2_tpu_torch.serving.engine import ServingConfig, ServingEngine
 from alphafold2_tpu_torch.serving.errors import (
@@ -193,7 +205,13 @@ def main(argv=None):
     ap.add_argument("--mds-iters", type=int, default=32)
     ap.add_argument("--mds-init", choices=("random", "classical"), default="classical")
     ap.add_argument("--sp-shards", type=int, default=0,
-                    help="the sequence-parallel serving arm (not ported: ROADMAP A11b-4)")
+                    help="run each bucket's trunk sequence-parallel over this many "
+                         "shards (0 = dense): per-bucket schedule (dense / sp_msa / "
+                         "sp_seq) picked by the residency heuristic; N distinct cards, "
+                         "or N CPU shards with --device cpu")
+    ap.add_argument("--sp-hbm-gb", type=float, default=16.0,
+                    help="per-shard memory budget the SP schedule heuristic prices "
+                         "buckets against")
     ap.add_argument("--precompile", action="store_true",
                     help="capture every (bucket, batch shape) before taking traffic")
     ap.add_argument("--breaker-threshold", type=int, default=0,
@@ -300,13 +318,19 @@ def main(argv=None):
     ap.add_argument("--featurize-queue", type=int, default=128,
                     help="featurize-tier bounded queue capacity")
     ap.add_argument("--min-replicas", type=int, default=None,
-                    help="autoscaler floor (not ported: ROADMAP A11b-3b)")
+                    help="autoscaler floor (requires --max-replicas)")
     ap.add_argument("--max-replicas", type=int, default=None,
-                    help="autoscaler ceiling (not ported: ROADMAP A11b-3b)")
+                    help="autoscaler ceiling; setting it arms the elastic replica "
+                         "autoscaler (fleet tier), which grows and shrinks the pool live "
+                         "from queue-wait p95 / occupancy / SLO burn")
     ap.add_argument("--scale-policy", default=None, metavar="POLICY_JSON",
-                    help="autoscaler policy (not ported: ROADMAP A11b-3b)")
+                    help="autoscaler thresholds and hysteresis (a ScalePolicy JSON; "
+                         "unknown keys are refused); default: the stock policy with the "
+                         "--min/--max-replicas bounds")
     ap.add_argument("--scale-grace", type=float, default=0.0, metavar="SECONDS",
-                    help="autoscaler idle grace (not ported: ROADMAP A11b-3b)")
+                    help="with the autoscaler armed: keep the process alive (idle, still "
+                         "ticking) up to this long after the replay drains, so an idle "
+                         "scale-down is observable before shutdown")
     ap.add_argument("--fault-plan", default=None, metavar="PLAN_JSON",
                     help="chaos schedule (reliability/faults.py FaultPlan JSON): "
                          "replica-scoped kill/slow/flap faults in fleet mode, dispatch "
@@ -339,10 +363,7 @@ def main(argv=None):
     if args.pipeline_depth:
         ap.error("--pipeline-depth: pipelined dispatch is not ported to the PyTorch "
                  "engine yet (ROADMAP A11a-pipelined)")
-    if args.sp_shards:
-        ap.error("--sp-shards: the sequence-parallel serving arm is not ported to the "
-                 "PyTorch engine yet (ROADMAP A11b-4)")
-    # the JAX CLI's pairing checks first, then the autoscaler's refusal
+    # the JAX CLI's pairing checks
     if args.min_replicas is not None and args.max_replicas is None:
         ap.error("--min-replicas requires --max-replicas (the pair arms the autoscaler)")
     if args.scale_policy and args.max_replicas is None:
@@ -350,13 +371,6 @@ def main(argv=None):
                  "without the autoscaler armed)")
     if args.scale_grace and args.max_replicas is None:
         ap.error("--scale-grace requires --max-replicas")
-    for flag, value in (("--min-replicas", args.min_replicas),
-                        ("--max-replicas", args.max_replicas),
-                        ("--scale-policy", args.scale_policy),
-                        ("--scale-grace", args.scale_grace or None)):
-        if value is not None:
-            ap.error(f"{flag}: the replica autoscaler is not ported to the PyTorch "
-                     f"package yet (ROADMAP A11b-3b)")
     if args.featurize_workers < 0:
         ap.error("--featurize-workers must be >= 0")
     if args.artifact_mem_entries < 1:
@@ -407,8 +421,9 @@ def main(argv=None):
                           for d in pool_dicts)
         except (TypeError, ValueError) as e:
             ap.error(f"--pools: {e}")
-        except NotImplementedError as e:
-            ap.error(str(e))
+    if pools and args.sp_shards:
+        ap.error("--sp-shards and --pools are mutually exclusive: with pools configured, "
+                 "declare sp_shards per pool in the pools JSON")
     cascade_policy = None
     if args.cascade != "off":
         if not pools:
@@ -431,7 +446,20 @@ def main(argv=None):
             ap.error(str(e))
         injector = plan.injector()
         print(f"fault plan: {len(plan.faults)} fault(s) from {args.fault_plan}")
-    fleet_mode = args.replicas > 1 or args.featurize_workers > 0 or bool(pools)
+    autoscale_armed = args.max_replicas is not None
+    min_replicas = args.min_replicas if args.min_replicas is not None else 1
+    fleet_mode = (args.replicas > 1 or autoscale_armed or args.featurize_workers > 0
+                  or bool(pools))
+    initial_replicas = args.replicas
+    if autoscale_armed:
+        if args.max_replicas < min_replicas:
+            ap.error("--max-replicas must be >= --min-replicas")
+        initial_replicas = min(max(args.replicas, min_replicas), args.max_replicas)
+    # the SP meshes' devices: N CPU shards with --device cpu, else (None) N
+    # distinct cards, which the engine refuses past one card (ROADMAP A13)
+    sp_shards = max([args.sp_shards] + [p.sp_shards for p in pools])
+    sp_devices = (["cpu"] * sp_shards
+                  if sp_shards and resolve_device(args.device).type == "cpu" else None)
 
     records = (demo_records(args.demo, union_buckets, args.seed) if args.demo is not None
                else read_fasta(args.fasta))
@@ -464,6 +492,7 @@ def main(argv=None):
         max_wait_s=args.max_wait_ms / 1000.0, request_timeout_s=args.request_timeout,
         cache_capacity=args.cache_size, mds_iters=args.mds_iters, mds_init=args.mds_init,
         seed=args.seed, precompile=args.precompile, params_tag=params_tag,
+        sp_shards=args.sp_shards, sp_hbm_gb=args.sp_hbm_gb,
         batch_ladder=args.batch_ladder, breaker_threshold=args.breaker_threshold,
         breaker_reset_s=args.breaker_reset,
         # the fleet's liveness needs hung replicas to FAIL (the failover
@@ -521,7 +550,7 @@ def main(argv=None):
         engine = ServingFleet(
             params, cfg, serving_cfg,
             FleetConfig(
-                replicas=args.replicas, queue_capacity=args.fleet_queue,
+                replicas=initial_replicas, queue_capacity=args.fleet_queue,
                 default_timeout_s=args.request_timeout, requeue_limit=args.requeue_limit,
                 degraded_mds_iters=degraded_iters,
                 degraded_weight_dtype=args.degraded_weight_dtype,
@@ -535,12 +564,13 @@ def main(argv=None):
                 cascade_policy=cascade_policy),
             injector=injector, tracer=tracer,
             incident_hook=recorder.incident if recorder else None,
-            artifact_store=artifact_store, journal=journal, device=args.device)
+            artifact_store=artifact_store, journal=journal, device=args.device,
+            sp_devices=sp_devices)
         degraded_desc = ", ".join(
             ([f"mds_iters={degraded_iters}"] if degraded_iters else [])
             + ([f"weights={args.degraded_weight_dtype}"]
                if args.degraded_weight_dtype == "int8" else []))
-        print(f"fleet on {engine.device}: {args.replicas} replica(s), shared queue "
+        print(f"fleet on {engine.device}: {initial_replicas} replica(s), shared queue "
               f"{args.fleet_queue}, featurize tier "
               + (f"{args.featurize_workers} worker(s)" if args.featurize_workers else "OFF")
               + ", degraded tier " + (degraded_desc or "OFF")
@@ -562,18 +592,54 @@ def main(argv=None):
         registry = engine.registry
     else:
         engine = ServingEngine(
-            params, cfg, serving_cfg, device=args.device, metrics_logger=logger,
+            params, cfg, serving_cfg, device=args.device, sp_devices=sp_devices,
+            metrics_logger=logger,
             fault_hook=injector.serving_hook() if injector else None, tracer=tracer,
             incident_hook=recorder.incident if recorder else None,
             # the flights' one reader is the ops plane's /explainz
             flights=FlightBook() if args.ops_port is not None else None)
-        print(f"engine on {engine.device}; weights "
-              f"{engine.stats()['weights']['weight_dtype']}")
+        snap = engine.stats()
+        print(f"engine on {engine.device}; weights {snap['weights']['weight_dtype']}"
+              + (f"; SP plan over {args.sp_shards} shards on {snap['sp']['devices']}: "
+                 + ", ".join(f"{b}={r['schedule']}" for b, r in snap["sp"]["schedules"].items())
+                 if args.sp_shards else ""))
         registry = engine.metrics.registry
     if recorder is not None:
         recorder.bind(registry=registry, stats_fn=engine.stats)
     if args.peak_tflops:
         engine.costs.set_peak(args.peak_tflops * 1e12)
+
+    # the elastic replica autoscaler (serving/autoscale.py)
+    scaler = scale_policy = None
+    pool_scalers = []
+    if autoscale_armed:
+        try:
+            scale_policy = (ScalePolicy.from_file(args.scale_policy) if args.scale_policy
+                            else ScalePolicy())
+            # the CLI's bounds armed the scaler; they win over the file's
+            scale_policy = dataclasses.replace(scale_policy, min_replicas=min_replicas,
+                                               max_replicas=args.max_replicas)
+        except (OSError, ValueError, TypeError) as e:
+            engine.shutdown(drain=False)
+            ap.error(f"--scale-policy: {e}")
+        hooks = dict(incident_hook=recorder.incident if recorder else None)
+        if pools:
+            # one autoscaler a capability pool, each on its pool's signals
+            # (the CLI's bounds apply per pool)
+            pool_scalers = [
+                ReplicaAutoscaler(engine, scale_policy, pool=spec.name,
+                                  fault_hook=injector.autoscale_hook() if injector else None,
+                                  **hooks)
+                for spec in pools]
+        else:
+            scaler = ReplicaAutoscaler(
+                engine, scale_policy,
+                fault_hook=injector.autoscale_hook() if injector else None, **hooks)
+        print(f"autoscaler" + (f" (per-pool x{len(pool_scalers)})" if pools else "")
+              + f": replicas in [{scale_policy.min_replicas}, {scale_policy.max_replicas}], "
+                f"up @ p95>={scale_policy.up_queue_wait_p95_s}s | "
+                f"burn>={scale_policy.up_burn} | occ>={scale_policy.up_occupancy}, "
+                f"cooldowns {scale_policy.up_cooldown_s}/{scale_policy.down_cooldown_s}s")
 
     ops = slo = None
     if args.ops_port is not None:
@@ -598,6 +664,11 @@ def main(argv=None):
         print(f"ops plane listening on {ops.url} (/metrics /healthz /statusz)")
         if args.ops_port_file:
             write_atomic(args.ops_port_file, str(ops.port))
+    for sc in ([scaler] if scaler is not None else []) + pool_scalers:
+        # its own control thread at the ticker's cadence: a scale-up's
+        # engine build captures for seconds, which must not stall the
+        # shared ticker's SLO, recorder and gauge work
+        sc.start(args.ops_tick)
 
     stats_stop = threading.Event()
     stats_thread = None
@@ -685,6 +756,13 @@ def main(argv=None):
             coords_to_pdb(os.path.join(args.out_dir, f"{safe}.pdb"),
                           np.asarray(res.coords, np.float64), sequence=seq,
                           atom_names=("CA",), bfactors=100.0 * res.confidence)
+    if (scaler is not None or pool_scalers) and args.scale_grace > 0:
+        # idle grace: the replay has drained; keep ticking so the
+        # autoscaler can see the idle pool and scale back down
+        floor = scale_policy.min_replicas * max(1, len(pool_scalers))
+        grace_deadline = time.time() + args.scale_grace
+        while time.time() < grace_deadline and engine.replica_count() > floor:
+            time.sleep(0.1)
     if slo is not None:
         # one last evaluation before shutdown: a burn that crossed in the
         # final window still records its transition
@@ -718,6 +796,13 @@ def main(argv=None):
                   f"({freqs.get('failed', 0)} failed, {freqs.get('requeued', 0)} requeued), "
                   f"{feat.get('worker_deaths', 0)} worker death(s), busy "
                   f"{feat.get('busy_seconds', 0.0):.2f}s")
+        for sc in ([scaler] if scaler is not None else []) + pool_scalers:
+            dec = sc.snapshot()["decisions"]
+            label = f" [{sc.pool}]" if sc.pool else ""
+            now = engine.replica_count(sc.pool) if sc.pool else engine.replica_count()
+            print(f"autoscaler{label}: {dec['up']} scale-up(s), {dec['down']} scale-down(s), "
+                  f"{dec.get('suppressed', 0)} suppressed, {dec.get('rejected', 0)} rejected; "
+                  f"replicas now {now}")
         if pools and stats.get("shed", {}).get("too_long"):
             print(f"too-long sheds: {stats['shed']['too_long']} (sequence past every pool "
                   f"ceiling)")

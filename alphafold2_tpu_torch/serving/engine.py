@@ -62,10 +62,22 @@ alphafold2_tpu/serving/engine.py `ServingEngine`).
     `peek` are the fleet's completion seam, `submit(features=)` its
     pre-featurized path.
 
-Not ported in this engine, each refused with its ROADMAP item when set:
-the sequence-parallel arm (`sp_shards`, `sp_schedules`: A11b-4), a
-trunk-forward override (`model_apply_fn`: A11b-4) and pipelined dispatch
-(`pipeline_depth`: A11a-pipelined).
+  * **The sequence-parallel arm** (`sp_shards`, `sp_hbm_gb`,
+    `sp_schedules`; serving/sp_arm.py): each bucket's trunk takes the
+    schedule the build-time plan gives it ("dense", "sp_msa" or "sp_seq")
+    over a mesh of `sp_shards` shards (`sp_devices`, default
+    `build_sp_mesh`'s: that many distinct cards). Every shard must lie on
+    the engine's device: on the card an SP bucket's executable captures
+    the sharded forward (each shard's B1f passes, and under "sp_seq" the
+    ring's P^2 B3 hops a layer with their merges) into its graph one, and
+    a mesh over distinct cards is refused at build, naming ROADMAP A13. A
+    bucket's cost cell is priced per shard by its schedule and billed by
+    the cards its mesh occupies (`chips`), not by the shard count.
+    `model_apply_fn` (a forward override for every bucket, as in
+    `predict_structure`) and the SP arm exclude each other.
+
+Not ported in this engine, refused with its ROADMAP item when set:
+pipelined dispatch (`pipeline_depth`: A11a-pipelined).
 
 The random MDS init (`mds_init="random"`): device call i (counted from 1)
 starts MDS from the draw of a generator seeded fold_in(seed, i)
@@ -131,7 +143,8 @@ from alphafold2_tpu_torch.serving.executable import (
 )
 from alphafold2_tpu_torch.serving.featurize import featurize_request
 from alphafold2_tpu_torch.serving.metrics import ServingMetrics
-from alphafold2_tpu_torch.serving.quant_residency import resident_params, schedule_residency
+from alphafold2_tpu_torch.serving import sp_arm
+from alphafold2_tpu_torch.serving.quant_residency import resident_params
 from alphafold2_tpu_torch.telemetry.costs import ExecutableCostLedger, ServeGoodputLedger
 from alphafold2_tpu_torch.telemetry.trace import NULL_TRACER, new_trace_id
 from alphafold2_tpu_torch.utils.flops import model_fwd_flops
@@ -172,8 +185,11 @@ class ServingConfig:
     watchdog_timeout_s: Optional[float] = None  # a dispatch past this fails
     #                              its batch instead of wedging the worker
     batch_ladder: bool = False   # power-of-two batch shapes up to max_batch
-    sp_shards: int = 0           # refused (A11b)
-    sp_schedules: Tuple[Tuple[int, str], ...] = ()  # refused (A11b)
+    sp_shards: int = 0           # >= 2: the SP arm over this many shards
+    sp_hbm_gb: float = 16.0      # per-shard budget the schedule heuristic prices
+    #                              buckets against (an estimate, not an allocator)
+    sp_schedules: Tuple[Tuple[int, str], ...] = ()  # ((bucket, schedule), ...)
+    #                              overrides, winning over the heuristic
     # trunk-depth early exit: checkpoint depths (sorted, deduped; >= 2, the
     # first the delta-KL baseline that never exits) and the masked-mean
     # KL(prev || cur) at or under which a sample freezes
@@ -182,6 +198,20 @@ class ServingConfig:
     pipeline_depth: int = 0      # refused (A11a-pipelined)
 
     def __post_init__(self):
+        # the SP knobs first, with the JAX engine's messages
+        if self.sp_shards < 0 or self.sp_shards == 1:
+            raise ValueError(f"sp_shards must be 0 (dense) or >= 2, got {self.sp_shards}")
+        if self.sp_hbm_gb <= 0:
+            raise ValueError(f"sp_hbm_gb must be positive, got {self.sp_hbm_gb}")
+        object.__setattr__(self, "sp_schedules",
+                           tuple(sorted((int(b), str(s)) for b, s in self.sp_schedules)))
+        for _bucket, sched in self.sp_schedules:
+            if sched not in sp_arm.SP_SCHEDULES:
+                raise ValueError(f"sp_schedules entry {sched!r} is not a schedule; "
+                                 f"known: {sp_arm.SP_SCHEDULES}")
+        if self.sp_schedules and not self.sp_shards:
+            raise ValueError("sp_schedules given but sp_shards=0 — per-bucket schedule "
+                             "overrides only apply to the SP arm")
         object.__setattr__(self, "early_exit_depths",
                            tuple(sorted({int(d) for d in self.early_exit_depths})))
         if self.early_exit_depths:
@@ -200,8 +230,6 @@ class ServingConfig:
         elif self.early_exit_kl:
             raise ValueError("early_exit_kl set without early_exit_depths — the exit gate "
                              "has no checkpoints to fire at")
-        if self.sp_shards or self.sp_schedules:
-            _refuse("sp_shards / sp_schedules", "A11b-4", "the sequence-parallel serving arm")
         if self.pipeline_depth:
             _refuse("pipeline_depth", "A11a-pipelined", "pipelined dispatch")
         if self.max_batch < 1:
@@ -376,9 +404,10 @@ class ServingEngine:
     fault_hook: `fn(dispatch_index, bucket)` at the top of every dispatch,
     outside the card's lock (a `FaultInjector` hook: it may sleep or
     raise). pool_name: the capability pool's label on the cost cells and
-    the goodput account. Not ported: `model_apply_fn` (a trunk-forward
-    override, the SP arm's seam), refused naming A11b-4 (with early exit
-    armed it raises JAX's ValueError first).
+    the goodput account. model_apply_fn: a forward override for every
+    bucket (`predict_structure`'s), exclusive with the SP arm and with
+    early exit. sp_devices: the SP mesh's devices (None: `sp_shards`
+    distinct cards); every one must be `device`.
 
     `_call_executable` and `_realize` are overridable seams: tests stub
     the device call there without touching the scheduler."""
@@ -386,7 +415,8 @@ class ServingEngine:
     def __init__(self, params, model_cfg, cfg: ServingConfig = ServingConfig(), *,
                  device=None, model_apply_fn=None, metrics_logger=None, fault_hook=None,
                  tracer=None, replica_name: str = "", incident_hook=None,
-                 pool_name: str = "default", cost_ledger=None, goodput=None, flights=None):
+                 pool_name: str = "default", cost_ledger=None, goodput=None, flights=None,
+                 sp_devices=None):
         # early exit against the model (JAX's checks and messages): a bad
         # depth fails the construction, not the first dispatch
         if cfg.early_exit_depths:
@@ -403,8 +433,6 @@ class ServingEngine:
             if len(set(model_cfg.layer_sparse)) > 1:
                 raise ValueError("early exit requires uniform sparse_self_attn flags across "
                                  "the trunk (layer slices re-index cfg.layer_sparse from 0)")
-        if model_apply_fn is not None:
-            _refuse("model_apply_fn", "A11b-4", "a trunk-forward override in the engine")
         self._ladder = BucketLadder(cfg.buckets)
         if self._ladder.max_len > model_cfg.max_seq_len:
             raise ValueError(f"largest bucket {self._ladder.max_len} exceeds the model's "
@@ -416,6 +444,27 @@ class ServingEngine:
         self.cfg = cfg
         self.model_cfg = model_cfg
         check_params_device(params, self.device)
+        self._model_apply_fn = model_apply_fn
+        # the SP arm: a mesh on the engine's device and the ladder's plan,
+        # priced from shapes at build. The plan enters the config tag: the
+        # schedules agree only to rounding
+        self._sp_mesh = None
+        self._sp_plan = {}
+        self._apply_fns = {}  # bucket -> its SP forward (absent: dense)
+        if cfg.sp_shards:
+            if model_apply_fn is not None:
+                raise ValueError("sp_shards and model_apply_fn are mutually exclusive: the "
+                                 "SP arm builds its own per-bucket trunk override")
+            self._sp_mesh = sp_arm.build_sp_mesh(cfg.sp_shards, sp_devices)
+            sp_arm.check_mesh_placement(self._sp_mesh.devices, self.device)
+            self._sp_plan = sp_arm.plan_bucket_schedules(
+                model_cfg, buckets=self._ladder.buckets, batch=cfg.max_batch,
+                msa_rows=cfg.msa_rows, shards=cfg.sp_shards,
+                hbm_bytes=cfg.sp_hbm_gb * (1 << 30), overrides=dict(cfg.sp_schedules))
+            for bucket, plan in self._sp_plan.items():
+                fn = sp_arm.make_sp_apply_fn(self._sp_mesh, plan.schedule)
+                if fn is not None:
+                    self._apply_fns[bucket] = fn
         self._fault_hook = fault_hook
         # the card's pool and lock (None on the CPU): the construction's
         # device work, every call and the release of the graphs run under it
@@ -437,7 +486,8 @@ class ServingEngine:
         # versions agree only to rounding; the early-exit knobs because an
         # exited distogram is another function of the sequence
         tag_fields = (model_cfg, cfg.mds_iters, cfg.mds_init, cfg.seed, cfg.msa_rows,
-                      cfg.params_tag, self._ladder.buckets, self.device.type,
+                      cfg.params_tag, self._ladder.buckets, self.device.type, cfg.sp_shards,
+                      tuple((b, r.schedule) for b, r in sorted(self._sp_plan.items())),
                       cfg.early_exit_depths, cfg.early_exit_kl)
         if cfg.batch_ladder:
             tag_fields = tag_fields + (("batch_ladder", self._batch_shapes),)
@@ -468,8 +518,9 @@ class ServingEngine:
         self._dispatch_tag = (f"dispatch[{self.device.type}](" + ",".join(
             f"{op}={dispatch_resolve(op, self.device)}" for op in DISPATCH_OPS) + ")")
 
-        # the serving cost plane: one cell a (bucket, rung), schedule
-        # "dense" (the JAX engine's "dense@b{B}" under the batch ladder)
+        # the serving cost plane: one cell a (bucket, rung) under its
+        # schedule ("<schedule>@b{B}" under the batch ladder), priced per
+        # shard, billed by the cards the bucket's mesh occupies
         self.pool_name = pool_name
         # a batch's device time from CUDA events, only when something asked
         # for it: without, the dispatch makes the CUDA calls it always made
@@ -484,17 +535,22 @@ class ServingEngine:
         self._cost_cells = {}
         backend_arm = dispatch_resolve("flash_attention", self.device)
         for bucket in self._ladder.buckets:
+            plan = self._sp_plan.get(bucket)
+            schedule = plan.schedule if plan is not None else "dense"
+            shards = cfg.sp_shards if schedule != "dense" else 1
             for shape in self._batch_shapes:
-                residency = schedule_residency(
+                residency = sp_arm.schedule_residency(
                     model_cfg, bucket=bucket, batch=shape, msa_rows=cfg.msa_rows,
+                    schedule=schedule, shards=shards,
                     weight_bytes=self._weight_residency["weight_bytes"])
                 self._cost_cells[(bucket, shape)] = self.costs.register_cell(
                     pool=pool_name, bucket=bucket,
-                    schedule=f"dense@b{shape}" if cfg.batch_ladder else "dense",
+                    schedule=f"{schedule}@b{shape}" if cfg.batch_ladder else schedule,
                     backend_arm=backend_arm, weight_dtype=model_cfg.weight_dtype,
                     forward_flops=model_fwd_flops(model_cfg, n=bucket, r=cfg.msa_rows,
                                                   c=bucket),
-                    residency_bytes=residency["total_bytes"], chips=1, max_batch=shape)
+                    residency_bytes=residency.total_bytes,
+                    chips=self.chips if schedule != "dense" else 1, max_batch=shape)
         # per-exit-depth cells (JAX's "dense@exit{d}", "dense@exit{d}@b{B}"
         # under the ladder): a request that froze at depth d did about
         # flops(d) / flops(depth) of the forward. Exits fire from the second
@@ -509,15 +565,16 @@ class ServingEngine:
                     flops_d = model_fwd_flops(sub_cfg, n=bucket, r=cfg.msa_rows, c=bucket)
                     self._depth_flops[(bucket, d)] = flops_d
                     for shape in self._batch_shapes:
-                        sub_res = schedule_residency(
+                        sub_res = sp_arm.schedule_residency(
                             sub_cfg, bucket=bucket, batch=shape, msa_rows=cfg.msa_rows,
+                            schedule="dense", shards=1,
                             weight_bytes=self._weight_residency["weight_bytes"])
                         self._exit_cells[(bucket, d, shape)] = self.costs.register_cell(
                             pool=pool_name, bucket=bucket,
                             schedule=(f"dense@exit{d}@b{shape}" if cfg.batch_ladder
                                       else f"dense@exit{d}"),
                             backend_arm=backend_arm, weight_dtype=model_cfg.weight_dtype,
-                            forward_flops=flops_d, residency_bytes=sub_res["total_bytes"],
+                            forward_flops=flops_d, residency_bytes=sub_res.total_bytes,
                             chips=1, max_batch=shape)
                 self._depth_flops[(bucket, model_cfg.depth)] = model_fwd_flops(
                     model_cfg, n=bucket, r=cfg.msa_rows, c=bucket)
@@ -716,6 +773,14 @@ class ServingEngine:
         """The card's lock as a context (a no-op on the CPU)."""
         return self._card_lock if self._card_lock is not None else contextlib.nullcontext()
 
+    @property
+    def chips(self) -> int:
+        """The cards this engine occupies: its device's and its SP mesh's,
+        counted once each (four shards on one card are one card)."""
+        if self._sp_mesh is None:
+            return 1
+        return len(set(self._sp_mesh.devices) | {self.device})
+
     def capability(self) -> dict:
         """What traffic this engine can serve."""
         return {"weight_dtype": self.model_cfg.weight_dtype, "sp_shards": self.cfg.sp_shards,
@@ -792,6 +857,15 @@ class ServingEngine:
         snap["weights"] = dict(self._weight_residency)
         snap["dispatch"] = self._dispatch_tag
         snap["capability"] = self.capability()
+        if self.cfg.sp_shards:
+            # the per-bucket plan and its pricing, the mesh's devices
+            snap["sp"] = {
+                "shards": self.cfg.sp_shards,
+                "hbm_budget_bytes": int(self.cfg.sp_hbm_gb * (1 << 30)),
+                "schedules": {str(b): r.as_dict() for b, r in sorted(self._sp_plan.items())},
+                "devices": [str(d) for d in self._sp_mesh.devices],
+                "chips": self.chips,
+            }
         snap["device"] = str(self.device)
         exes = sorted(self._executables.items())  # no lock: never wait on a capture
         snap["captures"] = []
@@ -902,13 +976,16 @@ class ServingEngine:
             t_compile = time.monotonic()
             with self.metrics.capture_span(bucket):
                 exit_kw = dict(early_exit_depths=self.cfg.early_exit_depths,
-                               early_exit_kl=self.cfg.early_exit_kl)
+                               early_exit_kl=self.cfg.early_exit_kl,
+                               model_apply_fn=self._apply_fns.get(bucket,
+                                                                  self._model_apply_fn))
                 if self.device.type == "cuda":
                     exe = CapturedExecutable(self._params, self.model_cfg, batch=batch_shape,
                                              bucket=bucket, msa_rows=self.cfg.msa_rows,
                                              mds_iters=self.cfg.mds_iters, device=self.device,
                                              pool=self._pool, mds_init=self.cfg.mds_init,
-                                             streams=self._init_streams, **exit_kw)
+                                             streams=self._init_streams,
+                                             apply_name=self._apply_name(bucket), **exit_kw)
                 else:
                     exe = EagerExecutable(self._params, self.model_cfg,
                                           mds_iters=self.cfg.mds_iters,
@@ -919,6 +996,13 @@ class ServingEngine:
             self.goodput.add(self._goodput_name, "compile", time.monotonic() - t_compile)
             self._executables[(bucket, batch_shape)] = exe
             return exe
+
+    def _apply_name(self, bucket: int) -> str:
+        """The forward a bucket's executable runs, for capture errors."""
+        plan = self._sp_plan.get(bucket)
+        if plan is not None and plan.schedule != "dense":
+            return f"the {plan.schedule} forward over {self.cfg.sp_shards} shards"
+        return "the forward override" if self._model_apply_fn is not None else "the forward"
 
     def _call_executable(self, bucket: int, tokens, mask, msa=None, msa_mask=None):
         """One device call on the padded batch (its rung is tokens.shape[0]),

@@ -73,6 +73,14 @@ skips the remaining stage graphs: the JAX pipeline's
 out_logits, and the rest is as above. A replay gives the eager staged
 `predict_structure`'s outputs bit for bit, whichever stages ran.
 
+With a forward override (`model_apply_fn`, the SP arm's per-bucket
+forward, serving/sp_arm.py `make_sp_apply_fn`) graph one captures that
+forward in place of `alphafold2_apply`: for an SP bucket the sharded trunk
+over a mesh whose shards all lie on this card (each shard's B1f passes,
+the mesh's copies, and under "sp_seq" the ring's P^2 B3 hops a layer with
+their `merge_lse`s). Its allocations enter the card's pool like any
+other's; a failed capture raises `CaptureError` naming that forward.
+
 The kernel wrappers count launches in Python, so a replay adds nothing to
 their `LAUNCHES`: each executable records the launches its capture
 recorded (`launches`, all its graphs), and `replays` how often it ran; a
@@ -194,12 +202,15 @@ def _init_generator(streams, mds_init: str, seed):
 
 class EagerExecutable:
     """The CPU's executable: `predict_structure` on the padded batch, with
-    the engine's early-exit knobs; with the random init, drawn from
-    `streams`' generator seeded by the call's `seed`."""
+    the engine's early-exit knobs and the bucket's forward override
+    (`model_apply_fn`, which places its own work); with the random init,
+    drawn from `streams`' generator seeded by the call's `seed`."""
 
     def __init__(self, params, cfg, *, mds_iters: int, mds_init: str, device,
-                 streams=None, early_exit_depths=(), early_exit_kl: float = 0.0):
+                 streams=None, early_exit_depths=(), early_exit_kl: float = 0.0,
+                 model_apply_fn=None):
         self.params, self.cfg, self.device = params, cfg, device
+        self.model_apply_fn = model_apply_fn
         self.mds_iters, self.mds_init, self.streams = mds_iters, mds_init, streams
         self.early_exit_depths, self.early_exit_kl = tuple(early_exit_depths), early_exit_kl
         self.outputs = _outputs(early_exit_depths)
@@ -214,7 +225,9 @@ class EagerExecutable:
                                 msa_mask=msa_mask, mds_iters=self.mds_iters,
                                 mds_init=self.mds_init,
                                 generator=_init_generator(self.streams, self.mds_init, seed),
-                                device=self.device, early_exit_depths=self.early_exit_depths,
+                                device=None if self.model_apply_fn else self.device,
+                                model_apply_fn=self.model_apply_fn,
+                                early_exit_depths=self.early_exit_depths,
                                 early_exit_kl=self.early_exit_kl)
         self.replays += 1
         return {k: out[k] for k in self.outputs}
@@ -230,17 +243,22 @@ class CapturedExecutable:
     confidence (b, L) and stress (b,) (and exit_depth (b,) with early exit
     armed), cloned out of the graphs' memory. `logits` holds the last
     call's distogram logits until the next replay of any graph of the pool.
+    `model_apply_fn` replaces `alphafold2_apply` in graph one (`apply_name`
+    names it in a capture error).
     With mds_init="random" a call takes the init's `seed` and `streams`
     (the engine's, on the card) holds its generator. Capture raises
     `CaptureError` naming the op it could not capture; nothing falls back
     to eager."""
 
     checkpoints = ()  # the staged trunk's checkpoint depths (): early exit off
+    model_apply_fn = None  # graph one's forward override (None: alphafold2_apply)
 
     def __init__(self, params, cfg, *, batch: int, bucket: int, msa_rows: int,
                  mds_iters: int, device, pool: GraphPool, mds_init: str = "classical",
-                 streams=None, early_exit_depths=(), early_exit_kl: float = 0.0):
+                 streams=None, early_exit_depths=(), early_exit_kl: float = 0.0,
+                 model_apply_fn=None, apply_name: str = "the forward"):
         self.params, self.cfg, self.device, self.pool = params, cfg, device, pool
+        self.model_apply_fn = model_apply_fn
         self.mds_iters, self.mds_init, self.streams = mds_iters, mds_init, streams
         self.random = mds_init == "random"
         self.checkpoints = (exit_checkpoints(cfg, early_exit_depths, early_exit_kl)
@@ -300,7 +318,7 @@ class CapturedExecutable:
                         self.geo, self.start = self._front()
                 except RuntimeError as e:
                     raise capture_error(
-                        f"the forward and the distogram geometry (bucket {bucket}, "
+                        f"{apply_name} and the distogram geometry (bucket {bucket}, "
                         f"batch {batch})", e) from e
                 try:
                     with torch.cuda.graph(self.graphs[1], pool=pool.pool_for(self.graphs[1]),
@@ -336,6 +354,9 @@ class CapturedExecutable:
         classical init's Gram matrix, or the random init itself."""
         if self.checkpoints:
             logits = self.state["out_logits"]
+        elif self.model_apply_fn is not None:
+            logits = self.model_apply_fn(self.params, self.cfg, self.tokens, self.msa,
+                                         mask=self.mask, msa_mask=self.msa_mask)
         else:
             logits = alphafold2_apply(self.params, self.cfg, self.tokens, self.msa,
                                       mask=self.mask, msa_mask=self.msa_mask,

@@ -14,11 +14,12 @@ messages, metric names, terminal outcomes and counters, over the port's
   * the artifact-store tag names the dispatch routes of that device
     (ops/dispatch.py `resolution_tag`), so results a CPU fleet stored
     never serve a card fleet;
-  * a `PoolSpec` with `sp_shards` > 0 raises (the SP arm: ROADMAP A11b-4),
-    and the engine refuses `pipeline_depth` (A11a-pipelined) and
-    `model_apply_fn` (A11b-4); the autoscaler (`serving/autoscale.py`,
-    ROADMAP A11b-3b) is not ported, though `attach_autoscaler` keeps its
-    seam.
+  * an SP pool's replicas (`PoolSpec(sp_shards=)`) build their meshes on
+    `sp_devices` (default: that many distinct cards; every shard must lie
+    on the fleet's device, the engine's rule), and the hedge waste of an SP
+    replica is billed by the cards its mesh occupies (`ServingEngine.
+    chips`), not by its shard count;
+  * the engine refuses `pipeline_depth` (ROADMAP A11a-pipelined).
 
 The single engine is one warm model in one process — a single hung batch,
 poisoned executable, or slow compile stalls the whole tier. This module
@@ -143,6 +144,14 @@ _REPLICA_FAULT_ERRORS = (
 DEGRADED = "degraded"  # reserved tier name (not a health-managed replica)
 
 
+def _chips(rep) -> int:
+    """The cards a replica's dispatch occupies (`ServingEngine.chips`: an
+    SP mesh's distinct cards); an engine from a custom factory without it
+    counts its shards, the JAX fleet's rule."""
+    chips = getattr(rep.engine, "chips", None)
+    return chips if chips is not None else max(1, rep.cfg.sp_shards or 1)
+
+
 def _release_graphs(engine, timeout):
     """Free a shut-down engine's graphs under the card's lock
     (`ServingEngine.release_graphs`), so its blocks return to the card's
@@ -225,11 +234,6 @@ class PoolSpec:
         if self.sp_schedules and not self.sp_shards:
             raise ValueError(
                 f"pool {self.name!r}: sp_schedules without sp_shards"
-            )
-        if self.sp_shards:
-            raise NotImplementedError(
-                f"pool {self.name!r}: sp_shards: the sequence-parallel serving "
-                f"arm is not ported to the PyTorch engine yet (ROADMAP A11b-4)"
             )
         if self.mds_iters < 0:
             raise ValueError(
@@ -532,6 +536,9 @@ class ServingFleet:
         `engine_factory` callers wire their own engines.
       device: where the default factory's engines serve (default: the
         card; "cpu" runs eager).
+      sp_devices: the device list the default factory's SP engines build
+        their meshes on (each takes its first `sp_shards` entries; None:
+        that many distinct cards).
     """
 
     def __init__(self, params, model_cfg,
@@ -542,11 +549,12 @@ class ServingFleet:
                  incident_hook=None,
                  artifact_store: Optional[ArtifactStore] = None,
                  journal: Optional[IntakeJournal] = None,
-                 cascade_scorer=None, device=None):
+                 cascade_scorer=None, device=None, sp_devices=None):
         self.cfg = fleet_cfg
         # every default-factory replica serves here (engines take no
         # device of their own choosing: one card, N replicas)
         self.device = resolve_device(device)
+        self.sp_devices = None if sp_devices is None else list(sp_devices)
         self._params = params
         self._model_cfg = model_cfg
         self._serving_cfg = serving_cfg
@@ -899,7 +907,7 @@ class ServingFleet:
         parts = (
             mcfg, cfg.mds_iters, cfg.mds_init, cfg.seed, cfg.msa_rows,
             cfg.params_tag, tuple(pool.ladder.buckets),
-            resolution_tag(self.device), cfg.sp_shards,
+            resolution_tag(self.device), cfg.sp_shards, cfg.sp_hbm_gb,
             tuple(sorted(cfg.sp_schedules)),
             cfg.early_exit_depths, cfg.early_exit_kl,
         )
@@ -936,6 +944,7 @@ class ServingFleet:
                 self._pools[self._replica_pool[name]])
         return ServingEngine(
             self._params, model_cfg, cfg, device=self.device,
+            sp_devices=self.sp_devices if cfg.sp_shards else None,
             model_apply_fn=self._model_apply_fn,
             fault_hook=fault_hook, tracer=self._tracer,
             replica_name=name, incident_hook=self._incident_hook,
@@ -2443,9 +2452,8 @@ class ServingFleet:
             elif entry.hedges > 0:
                 # _finish lost the race on a HEDGED entry: this side is
                 # the hedge pair's loser — its chip-seconds bought nothing
-                # but the tail cut. sp_shards chips burned concurrently.
-                self._hedge_waste.inc(
-                    service_s * max(1, rep.cfg.sp_shards or 1))
+                # but the tail cut, on every card its mesh occupies
+                self._hedge_waste.inc(service_s * _chips(rep))
                 self.flights.note(entry.trace_id, "hedge_lost",
                                   replica=rep.name,
                                   wasted_s=round(service_s, 6))

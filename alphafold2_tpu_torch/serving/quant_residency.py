@@ -11,12 +11,8 @@ revalidates by identity: a new tree under the same tag is quantized anew.
 `residency_tag` digests `repr((model_cfg, params_tag))` as the JAX package
 does. A torch dtype's repr (`torch.bfloat16`) differs from a jnp dtype's,
 so the port's tags differ from the JAX package's for the same settings;
-they only have to be stable within one process.
-
-`schedule_residency` prices one (bucket, batch) executable's resident
-bytes for the serving cost plane: the JAX package's
-`serving/sp_arm.py schedule_residency` for its dense schedule (the one
-the port serves), on the weight bytes of the tree the engine serves.
+they only have to be stable within one process. An executable's priced
+residency is `serving/sp_arm.py schedule_residency`'s.
 """
 
 from __future__ import annotations
@@ -26,16 +22,9 @@ import hashlib
 import threading
 from typing import Tuple
 
-import torch
-
 from alphafold2_tpu_torch.ops.quant import quantize_tree, tree_weight_bytes
 
-__all__ = ["resident_params", "residency_tag", "clear_residency_cache", "schedule_residency"]
-
-#: live copies of each residual stream priced a trunk position (the stream,
-#: its pre-norm copy, the block output, one workspace tile): the JAX
-#: package's planning multiplier
-LIVE_COPIES = 4
+__all__ = ["resident_params", "residency_tag", "clear_residency_cache"]
 
 _CACHE_MAX = 8  # distinct (config, checkpoint) tags held at once
 
@@ -82,18 +71,3 @@ def clear_residency_cache() -> None:
     with _lock:
         _cache.clear()
 
-
-def schedule_residency(model_cfg, *, bucket: int, batch: int, msa_rows: int,
-                       weight_bytes: int) -> dict:
-    """The resident bytes of one (bucket, batch) executable: `weight_bytes`
-    (the served tree), the pair and MSA residual streams in the model's
-    dtype times LIVE_COPIES, and the float32 distogram logits; with their
-    sum as `total_bytes`. An estimate for pricing, not an allocator."""
-    itemsize = torch.empty((), dtype=model_cfg.dtype).element_size()
-    pair = batch * max(1, bucket) * bucket * model_cfg.dim * itemsize * LIVE_COPIES
-    msa = batch * msa_rows * bucket * model_cfg.dim * itemsize * LIVE_COPIES
-    logits = batch * bucket * bucket * model_cfg.num_buckets * 4
-    out = {"weight_bytes": int(weight_bytes), "pair_bytes": pair, "msa_bytes": msa,
-           "logits_bytes": logits}
-    out["total_bytes"] = sum(out.values())
-    return out

@@ -8,7 +8,7 @@ keyed (pool, bucket, schedule, backend_arm, weight_dtype). Each joins
     (`utils/flops.py model_fwd_flops`);
   * priced: the executable's resident bytes (the served weight tree, f32
     or int8, plus the residual streams and logits at the bucket,
-    `serving/engine.py schedule_residency`);
+    `serving/sp_arm.py schedule_residency`);
   * measured: EMAs of a batch's device seconds and real requests, capture
     time excluded (on the card the device seconds come from CUDA events
     around the replays).

@@ -395,6 +395,31 @@ each phase prints its seconds):
          a 2-replica fleet in turns; a hedged fleet's hedges and wasted
          chip-seconds; the fleet chaos recipe through `serve` at the
          served widths (rc 0, nothing lost, requeues, sheds, degraded);
+  20. the sequence-parallel serving arm (`serving/sp_arm.py`: the engine's
+     `sp_shards`, each SP bucket's sharded forward captured into its graph
+     one) and the replica autoscaler (`serving/autoscale.py`), the served
+     config, 4 shards on one card (`sp_devices=["cuda:0"] * 4`):
+     (a) the SP engine, sp_msa at 256 and sp_seq at 384 forced, 128 dense
+         by the plan, every (bucket, rung) captured at build: phase 8b's
+         stream, each result bit for bit eager `predict_structure(
+         model_apply_fn=the bucket's SP forward)` at its rung; 32 B3
+         launches recorded in each sp_seq graph; within phase 7b's
+         yardstick of the dense request (over the SP-bucket requests); an
+         engine left to the heuristic by a small `sp_hbm_gb` (sp_seq
+         everywhere), one request bit for bit eager; no CaptureError;
+     (b) reported: L = 384 through the SP and the dense (384, rung 1)
+         executables (host clock, median of 5, in turns); each SP
+         capture's seconds;
+     (c) a fleet with the autoscaler (min 1, max 3, the verify skill's
+         autoscaler recipe's policy) and a scale_flap plan, phase 8b's
+         stream twice as one burst, then a grace: scale-up and scale-down, acted events spaced
+         by the cooldowns, the flap absorbed, nothing lost, no
+         CaptureError, every scrape 200, every result bit for bit the bare
+         engine's at its rung, memory allocated flat (5%); each scale-up's
+         build seconds, the longest gap between completions;
+     (d) the same with pools: a dense pool (128 / 256) and an sp_shards
+         pool (the SP engine's config), a per-pool autoscaler each, each
+         result bit for bit its pool's bare engine;
   5. a `kernels` JSON line (sixteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, the three sparse kernels with dropout, B3's forward and its
@@ -406,6 +431,7 @@ A detailed record goes to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -475,7 +501,8 @@ from alphafold2_tpu_torch.parallel import (  # noqa: E402
     make_mesh,
     ring_attention,
 )
-from alphafold2_tpu_torch.serving.bucketing import pad_batch  # noqa: E402
+from alphafold2_tpu_torch.serving.bucketing import BucketLadder, pad_batch  # noqa: E402
+from alphafold2_tpu_torch.serving.autoscale import ReplicaAutoscaler, ScalePolicy  # noqa: E402
 from alphafold2_tpu_torch.serving.engine import ServingConfig, ServingEngine  # noqa: E402
 from alphafold2_tpu_torch.serving.executable import (  # noqa: E402
     CapturedExecutable,
@@ -7400,6 +7427,411 @@ def phase_fleet(smi):
     return launches
 
 
+# --- phase 20: the SP serving arm and the replica autoscaler ------------------------
+
+SP_CARD = ["cuda:0"] * 4  # 20a-20d's mesh: four shards on one card
+SP_SCHEDULES = ((256, "sp_msa"), (384, "sp_seq"))  # 128 left to the plan: dense
+# the verify skill's autoscaler recipe's policy: every acted event at least its
+# cooldown after the last
+SCALE_POLICY = dict(min_replicas=1, max_replicas=3, up_queue_wait_p95_s=0.5, up_occupancy=0.5,
+                    up_sustain=1, down_sustain=2, up_cooldown_s=0.5, down_cooldown_s=2.0)
+SCALE_TICK_S = 0.2
+
+
+def sp_scfg(**fields):
+    """Phase 19's served engine config with the SP arm: 4 shards, sp_msa at
+    256 and sp_seq at 384 forced, 128 to the heuristic (dense)."""
+    return fleet_scfg(**{**dict(sp_shards=4, sp_schedules=SP_SCHEDULES), **fields})
+
+
+def sp_launches_on_wgmma(launches):
+    """Every B1f, B2f and B3 forward launch in `launches` on the wgmma
+    route, and at least one B3 launch."""
+    fwd = sum(launches.get(k, 0) for k in ("flash_fwd", "flash_fwd_fused", "flash_fwd_lse"))
+    return launches.get("flash_fwd_lse", 0) > 0 and launches.get("flash_fwd_wgmma", 0) == fwd
+
+
+def eager_result(params, cfg, request, rung, forward_for, cache, tag):
+    """Eager `predict_structure` (the forward `forward_for(bucket)` gives,
+    or, for None, the dense one on the card) on `request` padded to its bucket and to `rung`
+    rows as the engine pads it, under the card's lock; row 0 sliced to its
+    length, as `bare_result`. Memoized in `cache` by (tag, sequence, rung)."""
+    seq, msa, mm = request
+    key = (tag, seq, rung)
+    if key not in cache:
+        fb = featurize_request(seq, msa, mm, ladder=BucketLadder(ENGINE_BUCKETS),
+                               msa_rows=ENGINE_ROWS)
+        tokens, mask, _ = pad_batch([fb.tokens], fb.bucket, rung)
+        live = [types.SimpleNamespace(length=len(fb.tokens), tokens=fb.tokens, msa=fb.msa,
+                                      msa_mask=fb.msa_mask)]
+        m, mmask = pad_msa_batch(live, fb.bucket, rung, ENGINE_ROWS)
+        forward = forward_for(fb.bucket)
+        kw = dict(model_apply_fn=forward) if forward is not None else dict(device="cuda")
+        with device_lock("cuda"):
+            out = predict_structure(params, cfg, tokens, mask=mask, msa=m, msa_mask=mmask,
+                                    mds_iters=200, **kw)
+            out = {k: out[k].cpu().numpy() for k in ("coords", "confidence", "stress")}
+        L = len(fb.tokens)
+        cache[key] = {"coords": out["coords"][0, :L], "confidence": out["confidence"][0, :L],
+                      "stress": float(out["stress"][0]), "bucket": fb.bucket}
+    return cache[key]
+
+
+def phase_sp_engine(state):
+    """(a) The SP engine at the served config (`sp_scfg`, every (bucket,
+    rung) captured at build, largest first; 4 shards on one card): the plan
+    dense / sp_msa / sp_seq at 128 / 256 / 384; phase 8b's stream served
+    once; every result bit for bit eager `predict_structure(model_apply_fn=
+    the bucket's SP forward)` (the dense forward at 128) at the rung its
+    batch ran (a live tracer's spans give it); each sp_seq graph recorded
+    P^2 x depth = 32 B3 launches, the sp_msa and dense graphs none; no
+    CaptureError and no failed batch. Against dense: over the requests of
+    the SP buckets, the largest distance of the SP results (confidence,
+    pairwise distances) from the f32 eager request stays within 1.5x the
+    dense bf16 eager request's largest plus 1e-5 (phase 7b's yardstick,
+    over the stream). Then an engine whose small `sp_hbm_gb` (1e-4) leaves
+    the plan to the heuristic: sp_seq at every bucket, one request at 128
+    bit for bit eager."""
+    cfg, params, stream = state["cfg"], state["params"], state["stream"]
+    tracer = Tracer(max_spans=1_000_000)
+    with FailureLog() as failures:
+        t0 = time.perf_counter()
+        eng = ServingEngine(params, cfg, sp_scfg(precompile=True), device="cuda",
+                            sp_devices=SP_CARD, tracer=tracer)
+        build_s = time.perf_counter() - t0
+        state["sp_engine"] = eng
+        FLEET_ENGINES.append(eng)
+        results, wall = run_stream(eng, stream)
+    snap = eng.stats()
+    plan = {int(b): r["schedule"] for b, r in snap["sp"]["schedules"].items()}
+    rungs = served_rungs(tracer)
+    rows = []
+    for res, req in zip(results, stream):
+        if isinstance(res, Exception):
+            rows.append((None, None, False))
+            continue
+        rung = rungs.get((res.trace_id, ""))
+        ok = rung is not None and same_bits(res, eager_result(params, cfg, req, rung,
+                                                               eng._apply_fns.get,
+                                                               state["refs"], "sp"))
+        rows.append((res.bucket, rung, ok))
+    b3 = {(b, s): exe.launches.get("flash_fwd_lse", 0)
+          for (b, s), exe in sorted(eng._executables.items())}
+    b3_ok = all(n == (16 * cfg.depth if plan[b] == "sp_seq" else 0) for (b, _), n in b3.items())
+    # phase 7b's yardstick over the stream's SP-bucket requests
+    sp_idx = [i for i, r in enumerate(results)
+              if not isinstance(r, Exception) and plan[r.bucket] != "dense"]
+    far = {"confidence": [0.0, 0.0], "distances": [0.0, 0.0]}
+    for i in sp_idx:
+        ref, dense = state["f32"][i], state["dense"][i]
+        res = results[i]
+        sp_d = torch.from_numpy(np.asarray(res.coords, np.float64))
+        for key, got, want, base in (
+                ("confidence", torch.from_numpy(res.confidence.astype(np.float64)),
+                 ref["confidence"], dense["confidence"]),
+                ("distances", torch.cdist(sp_d, sp_d), ref["distances"], dense["distances"])):
+            far[key][0] = max(far[key][0], (got - want).abs().max().item())
+            far[key][1] = max(far[key][1], (base - want).abs().max().item())
+    yard_ok = all(sp <= 1.5 * dn + 1e-5 for sp, dn in far.values())
+    # the heuristic's own plan under a budget nothing dense fits
+    heur = ServingEngine(params, cfg, fleet_scfg(sp_shards=4, sp_hbm_gb=1e-4), device="cuda",
+                         sp_devices=SP_CARD)
+    FLEET_ENGINES.append(heur)
+    with FailureLog() as failures_h:
+        req = engine_request(100, np.random.default_rng(70))
+        got = heur.submit(req[0], msa=req[1], msa_mask=req[2]).result(timeout=FLEET_TIMEOUT)
+    heur_plan = {int(b): r["schedule"] for b, r in heur.stats()["sp"]["schedules"].items()}
+    heur_ok = (set(heur_plan.values()) == {"sp_seq"} and not failures_h.captures
+               and same_bits(got, eager_result(params, cfg, req, 1, heur._apply_fns.get,
+                                               state["refs"], "heuristic")))
+    heur.shutdown(drain=False, timeout=60)
+    heur.release_graphs(60)
+    ok = (plan == {128: "dense", 256: "sp_msa", 384: "sp_seq"} and all(r[2] for r in rows)
+          and b3_ok and yard_ok and heur_ok and not failures.captures and not failures.failures
+          and snap["requests"]["completed"] == len(stream))
+    state["sp_results"] = results
+    log(f"[sp-serve a] SP engine built in {build_s:.2f} s ({len(eng._executables)} captures), "
+        f"plan {plan}; {len(stream)} requests in {wall:.2f} s, bit for bit eager at the served "
+        f"rung {sum(r[2] for r in rows)}/{len(rows)} (rungs {sorted({r[1] for r in rows if r[1]})}"
+        f"); B3 a graph {b3} (32 each sp_seq graph); over {len(sp_idx)} SP-bucket requests, "
+        f"largest distance from f32: " + ", ".join(
+            f"{k} SP {v[0]:.3e} dense {v[1]:.3e} (bound {1.5 * v[1] + 1e-5:.3e})"
+            for k, v in far.items())
+        + f"; heuristic plan at sp_hbm_gb 1e-4 {heur_plan}, its request bit for bit {heur_ok}; "
+          f"failures {[repr(e)[:200] for e in failures.failures + failures.captures]} "
+          f"{'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["sp_engine"] = {
+        "build_s": build_s, "plan": plan, "rows": rows, "b3_per_graph": {
+            f"{b}x{s}": n for (b, s), n in b3.items()}, "yardstick": far, "wall_s": wall,
+        "heuristic_plan": heur_plan, "heuristic_ok": heur_ok,
+        "captures": snap["captures"], "ok": ok}
+    if not ok:
+        fail("the SP engine failed a check (phase 20a)")
+
+
+def phase_sp_times(state, smi, reps=5):
+    """(b) Reported, no limit: a request at L = 384 through the SP engine's
+    (384, rung 1) executable beside the bare dense engine's, each call
+    copying in, replaying and bringing the outputs to the host under the
+    card's lock (host clock, median of 5, in turns dense, SP, SP, dense,
+    ...); each SP capture's seconds at build."""
+    sp, dense = state["sp_engine"], state["bare"]
+    tokens, mask, msa, msa_mask = engine_batch((384,), 384, seed=71)
+
+    def call(engine):
+        t = time.perf_counter()
+        with engine.graph_lock:
+            engine._realize(engine._call_executable(384, tokens, mask, msa, msa_mask))
+        return (time.perf_counter() - t) * 1e3
+
+    call(sp), call(dense)
+    times = {"dense": [], "sp": []}
+    for k in range(reps):
+        for name in (("dense", "sp") if k % 2 == 0 else ("sp", "dense")):
+            times[name].append(call(sp if name == "sp" else dense))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    captures = {f"{c['bucket']}x{c['batch']}": c["seconds"] for c in sp.stats()["captures"]}
+    log(f"[sp-serve b] L = 384, rung 1, host clock: SP (sp_seq, 4 shards on one card) median "
+        f"{med['sp']:.2f} ms {[round(t, 2) for t in times['sp']]}, dense {med['dense']:.2f} ms "
+        f"{[round(t, 2) for t in times['dense']]} ({smi}); SP capture seconds {captures}")
+    RECORD["phases"]["sp_times"] = {"ms": times, "median_ms": med, "captures_s": captures,
+                                    "card": smi}
+
+
+class ScaleTimedFleet(TrackedFleet):
+    """The tracked fleet with each `add_replica`'s build seconds kept."""
+
+    def __init__(self, *args, **kwargs):
+        self.builds = []
+        super().__init__(*args, **kwargs)
+
+    def add_replica(self, pool=None):
+        t = time.perf_counter()
+        try:
+            return super().add_replica(pool=pool)
+        finally:
+            self.builds.append(time.perf_counter() - t)
+
+
+def allocated_now():
+    with device_lock("cuda"):
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+
+def autoscale_run(state, label, pools=None):
+    """A fleet at the served config (every replica precompiled at build,
+    on the card) with `ReplicaAutoscaler`s (one a pool under `pools`) on
+    their own control threads at the verify skill's autoscaler recipe's
+    policy and a `scale_flap` plan (4 forced demands from tick 2), a scraper on the
+    fleet's ops server; phase 8b's stream twice as one burst, then a grace
+    until every pool is back at its floor and the retired replicas are
+    gone. Checks: at least one scale-up and one scale-down, acted events
+    spaced at least their cooldowns, the flap delivered and some demand
+    suppressed, nothing lost, no CaptureError and no failed batch, every
+    scrape 200, every result bit for bit its bare reference at the rung
+    its batch ran, memory allocated after the cycles within 5% of before.
+    Reports each scale-up's build seconds and the longest gap between two
+    completions in the burst (the longest serving stall)."""
+    cfg, params, stream = state["cfg"], state["params"], state["stream"]
+    plan = FaultPlan(faults=(Fault("scale_flap", at=2, count=4),))
+    injector = plan.injector()
+    tracer = Tracer(max_spans=1_000_000)
+    policy = ScalePolicy(**SCALE_POLICY)
+    names = [p.name for p in pools] if pools else [""]
+    with FailureLog() as failures:
+        fleet = ScaleTimedFleet(params, cfg, fleet_scfg(precompile=True),
+                                fleet_cfg(**({"pools": pools} if pools else {"replicas": 1})),
+                                tracer=tracer, injector=injector, device="cuda",
+                                sp_devices=SP_CARD)
+        before = allocated_now()
+        ops, _ = fleet_ops(fleet)
+        scalers = [ReplicaAutoscaler(fleet, policy, pool=p, fault_hook=injector.autoscale_hook(),
+                                     max_events=100_000) for p in names]
+        scrapes, stop = [], threading.Event()
+        scraper = threading.Thread(target=scrape_loop, args=(ops.url, stop, scrapes),
+                                   name="af2-smoke-scale-scraper", daemon=True)
+        scraper.start()
+        try:
+            for sc in scalers:
+                sc.start(SCALE_TICK_S)
+            burst = stream * 2
+            t0 = time.perf_counter()
+            reqs = []
+            for seq, msa, mm in burst:
+                while True:
+                    try:
+                        r = fleet.submit(seq, msa=msa, msa_mask=mm)
+                        break
+                    except QueueFullError as e:
+                        time.sleep(min(0.05, e.retry_after_s or 0.005))
+                reqs.append(r)
+            results = []
+            for r in reqs:
+                try:
+                    results.append(r.result(timeout=FLEET_TIMEOUT))
+                except Exception as e:  # noqa: BLE001 — an outcome, checked below
+                    results.append(e)
+            wall = time.perf_counter() - t0
+            # the grace: until the flap is spent, no scaler is mid-action
+            # (a replica being built is not counted yet) and every pool is
+            # back at its floor with the retired replicas gone
+            floor = policy.min_replicas * len(names)
+            deadline = time.monotonic() + 90
+            while time.monotonic() < deadline and not (
+                    injector.exhausted()
+                    and not any(sc._tick_gate.locked() for sc in scalers)
+                    and fleet.replica_count() <= floor
+                    and len(fleet._health.snapshot()["targets"]) <= floor):
+                time.sleep(0.05)
+        finally:
+            for sc in scalers:
+                sc.stop()
+            stop.set()
+            scraper.join(30)
+            ops.stop()
+        after = allocated_now()
+        stats = fleet.stats()
+        counts = {p or "fleet": fleet.replica_count(p) if p else fleet.replica_count()
+                  for p in names}
+        targets = {n: t["state"] for n, t in fleet._health.snapshot()["targets"].items()}
+        fleet.shutdown(drain=True, timeout=60)
+    rungs = served_rungs(tracer)
+    # a copy in flight beside an identical request shares its computation
+    # (the engine coalesces them): its rung is the served copy's
+    served = {r.seq: rungs[(r.trace_id, r.replica)] for r in results
+              if not isinstance(r, Exception) and (r.trace_id, r.replica) in rungs}
+
+    def reference(res):
+        req = next(q for q in burst if q[0] == res.seq)
+        rung = rungs.get((res.trace_id, res.replica), served.get(res.seq))
+        if rung is None:
+            return None
+        if pools and fleet._replica_pool.get(res.replica) == "long":
+            return same_bits(res, bare_result(state["sp_engine"], req, rung, state["refs"]))
+        return same_bits(res, bare_result(state["bare"], req, rung, state["refs"]))
+
+    bits = [not isinstance(r, Exception) and bool(reference(r)) for r in results]
+    events = [e for sc in scalers for e in sc.scale_events()]
+    by_pool = {sc.pool or "fleet": [e["action"] for e in sc.scale_events()] for sc in scalers}
+    spaced = all(all(b["ts"] - a["ts"] >= (policy.up_cooldown_s if b["action"] == "up"
+                                           else policy.down_cooldown_s)
+                     for a, b in zip(ev, ev[1:]))
+                 for ev in ([e for e in sc.scale_events()] for sc in scalers))
+    suppressed = sum(sc.snapshot()["decisions"]["suppressed"] for sc in scalers)
+    reqs_ = stats["requests"]
+    # the longest stall: the largest gap between two consecutive ends of
+    # the burst's batches (a capture holds the card's lock in between)
+    ids = {r.trace_id for r in results if not isinstance(r, Exception)}
+    ends = sorted(sp_["ts_s"] + sp_["dur_s"] for sp_ in tracer.spans()
+                  if sp_["name"] == "serving.execute"
+                  and ids.intersection(sp_["attrs"].get("trace_ids", ())))
+    gaps = np.diff(ends) if len(ends) > 1 else np.zeros(1)
+    checks = {
+        "scaled up and down": any(e["action"] == "up" for e in events)
+        and any(e["action"] == "down" for e in events),
+        "acted events spaced by the cooldowns": spaced,
+        "scale_flap absorbed": injector.exhausted() and suppressed >= 1,
+        "nothing lost": reqs_["failed"] == 0 and reqs_["in_flight"] == 0
+        and reqs_["completed"] == len(burst) and all(not isinstance(r, Exception)
+                                                     for r in results),
+        "no CaptureError, no failed batch": not failures.captures and not failures.failures,
+        "scrapes 200": bool(scrapes) and all(c == 200 for _, c, _, _ in scrapes),
+        "bit for bit the bare engines": all(bits),
+        "memory flat (5%)": abs(after - before) <= 0.05 * before,
+    }
+    ok = all(checks.values())
+    reasons = {sc.pool or "fleet": collections.Counter(
+        e.get("reason", "") for e in sc.events() if e["action"] == "suppressed")
+        for sc in scalers}
+    row = {"events": events, "by_pool": by_pool, "builds_s": fleet.builds,
+           "replicas_at_end": counts, "targets_at_end": targets,
+           "suppressed_by": {k: dict(v) for k, v in reasons.items()},
+           "longest_stall_s": float(gaps.max()), "wall_s": wall, "requests": reqs_,
+           "delivered": injector.delivered, "suppressed": suppressed,
+           "allocated": [before, after], "scrapes": len(scrapes), "bits": sum(bits),
+           "checks": checks, "ok": ok}
+    log(f"[sp-serve {label}] {len(burst)} requests in {wall:.2f} s; scale events {by_pool}, "
+        f"{suppressed} suppressed ({row['suppressed_by']}), flap {injector.delivered}; replicas "
+        f"at the end {counts}, targets {targets}; scale-up builds "
+        f"{[round(b, 2) for b in fleet.builds]} s; longest gap between batch ends "
+        f"{gaps.max() * 1e3:.1f} ms; allocated {before / 2**20:.1f} -> {after / 2**20:.1f} MiB; "
+        f"bit for bit {sum(bits)}/{len(bits)}; {len(scrapes)} scrapes; {checks} "
+        f"{'ok' if ok else 'FAIL'}")
+    return row
+
+
+def phase_sp_serving(smi):
+    """20: the SP serving arm and the replica autoscaler on the card. Counts
+    set to 0 just before (a) and read after (d): the wrappers' (every
+    engine's warm-ups and captures, the eager references) plus every
+    engine's replays. The yardstick's dense and f32 references run before
+    the reset (the f32 ones on the f32 route)."""
+    def timed(key, fn, *args, **kw):
+        t = time.perf_counter()
+        result = fn(*args, **kw)
+        RECORD["phases"][f"sp_serving_{key}_s"] = time.perf_counter() - t
+        log(f"[time] sp serving {key}: {RECORD['phases'][f'sp_serving_{key}_s']:.1f} s")
+        return result
+
+    shutil.rmtree(FLEET_WORK, ignore_errors=True)
+    FLEET_WORK.mkdir(parents=True)
+    cfg = served_config()
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda")
+    stream = engine_stream()
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    state = {"cfg": cfg, "params": params, "stream": stream, "refs": {}, "f32": [], "dense": []}
+    for seq, msa, mm in stream:  # 7b's yardstick: rung 1, as a lone request runs
+        fb = featurize_request(seq, msa, mm, ladder=BucketLadder(ENGINE_BUCKETS),
+                               msa_rows=ENGINE_ROWS)
+        tokens, mask, _ = pad_batch([fb.tokens], fb.bucket, 1)
+        live = [types.SimpleNamespace(length=len(fb.tokens), tokens=fb.tokens, msa=fb.msa,
+                                      msa_mask=fb.msa_mask)]
+        m, mmask = pad_msa_batch(live, fb.bucket, 1, ENGINE_ROWS)
+        for key, c in (("f32", f32), ("dense", cfg)):
+            out = predict_structure(params, c, tokens, mask=mask, msa=m, msa_mask=mmask,
+                                    mds_iters=200, device="cuda")
+            L = len(fb.tokens)
+            xyz = out["coords"][0, :L].double().cpu()
+            state[key].append({"confidence": out["confidence"][0, :L].double().cpu(),
+                               "distances": torch.cdist(xyz, xyz)})
+    sync()
+    FLEET_ENGINES.clear()
+    reset_launches()
+    try:
+        state["bare"] = ServingEngine(params, cfg, fleet_scfg(precompile=True), device="cuda")
+        FLEET_ENGINES.append(state["bare"])
+        timed("a", phase_sp_engine, state)
+        timed("b", phase_sp_times, state, smi)
+        RECORD["phases"]["sp_autoscale"] = timed("c", autoscale_run, state, "c")
+        pools = (PoolSpec("short", replicas=1, buckets=ENGINE_BUCKETS[:2]),
+                 PoolSpec("long", replicas=1, sp_shards=4, sp_schedules=SP_SCHEDULES))
+        RECORD["phases"]["sp_pools"] = timed("d", autoscale_run, state, "d", pools=pools)
+    finally:
+        for key in ("sp_engine", "bare"):
+            if key in state:
+                state[key].shutdown(drain=False, timeout=60)
+                state[key].release_graphs(60)
+        shutil.rmtree(FLEET_WORK, ignore_errors=True)
+    sync()
+    launches = launch_counts()
+    for engine in FLEET_ENGINES:
+        for name, n in engine.stats()["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    FLEET_ENGINES.clear()
+    for key, sub in (("sp_autoscale", "c"), ("sp_pools", "d")):
+        if not RECORD["phases"][key]["ok"]:
+            fail(f"the autoscaler failed a check on the card (phase 20{sub}): "
+                 f"{RECORD['phases'][key]['checks']}")
+    if not sp_launches_on_wgmma(launches):
+        fail(f"a phase 20 flash launch left its wgmma route, or no B3 ran: {launches}")
+    log(f"[sp-serve] launches (wrappers and replays) "
+        f"{dict((k, n) for k, n in launches.items() if n)}, every B1f and B3 on wgmma")
+    RECORD["phases"]["sp_serving_launches"] = launches
+    return launches
+
+
 def _merged(*counts):
     out = {}
     for c in counts:
@@ -7457,7 +7889,11 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     stage graph's captured launches times its own replays) and (c)'s
     executables (likewise). Phase 19 adds its B1f and B4 launches: every
     fleet replica's and bare reference engine's warm-ups and captures, and
-    their replays (a drained replica's included)."""
+    their replays (a drained replica's included). Phase 20 adds its B1f, B3
+    and B4 launches likewise (the SP engines', the autoscaled fleets' and
+    the bare references' warm-ups, captures and replays, and the eager
+    references after the counts' reset: B3 in the captured SP graphs for
+    the first time)."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r
@@ -7628,6 +8064,8 @@ def main():
     for name, n in timed_phase("early_exit", phase_early_exit).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in timed_phase("fleet", phase_fleet, smi).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in timed_phase("sp_serving", phase_sp_serving, smi).items():
         launches[name] = launches.get(name, 0) + n
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches, dropout_rows, dropout_times)

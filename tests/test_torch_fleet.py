@@ -324,21 +324,32 @@ def scenario_store(ns):
 def scenario_journal(ns, root):
     """Records a previous process accepted and never settled: two live, one
     past its deadline. The fleet replays the live ones through submit and
-    settles all three."""
+    settles all three. r0 holds the first replayed request until the
+    second has been routed (to r1), so the routing is the same every run."""
     journal = ns.journal.IntakeJournal(str(root / ns.name))
     now = time.time()
     for i, seq in enumerate(SEQS[:2]):
         journal.accept(f"t{i}", seq, priority=1, deadline_unix=now + 300,
                        accepted_at_unix=now)
     journal.accept("t9", SEQS[2], priority=1, deadline_unix=now - 1, accepted_at_unix=now)
-    fleet, _ = fleet_of(ns, journal=journal)
+    gate = Gate()
+    gate.hold("r0")
+    fleet, _ = fleet_of(ns, gate=gate, journal=journal)
     try:
         replayed = fleet.replay_journal()
+        assert gate.entered.wait(WAIT)
+        wait_until(lambda: fleet.stats()["replicas"]["r1"]["dispatches"] >= 1,
+                   "the second replayed request's dispatch")
+        gate.release()
         out = [outcome(r) for r in replayed["requests"]]
-        wait_until(lambda: journal.pending_count() == 0, "the journal's settles")
+        # a settle removes the record before it counts it: wait for all
+        # three (the two replayed, the expired one)
+        wait_until(lambda: journal.pending_count() == 0 and counters(fleet).get(
+            'journal_records_total{event="settle"}', 0) >= 3, "the journal's settles")
         summary = {k: replayed[k] for k in ("replayed", "expired", "failed")}
         return out, counters(fleet), summary, sorted(fleet.stats())
     finally:
+        gate.release()
         fleet.shutdown(timeout=WAIT)
 
 
@@ -496,23 +507,32 @@ def test_fault_hooks_deliver_as_the_jax_injector_does(monkeypatch):
 
 
 def test_serving_plans_refuse_the_autoscaler_and_training_kinds():
+    """Serving plans refuse the training kinds; `scale_flap`, refused while
+    the autoscaler was not ported, is a serving kind now, and the
+    autoscaler's hook delivers it as JAX's does: alternating forced
+    demands at the scheduled tick indices."""
     F = tfaults.Fault
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b-3b"):
-        tfaults.check_serving_plan(tfaults.FaultPlan(faults=(F("scale_flap"),)), "serve")
+    tfaults.check_serving_plan(tfaults.FaultPlan(faults=(F("scale_flap"),)), "serve")
     with pytest.raises(NotImplementedError, match="training kinds"):
         tfaults.check_serving_plan(tfaults.FaultPlan(faults=(F("nan_grads"),)), "serve")
     tfaults.check_serving_plan(tfaults.FaultPlan(faults=(F("kill_replica", replica="r0"),)),
                                "serve")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b-3b"):
-        tfaults.FaultPlan().injector().autoscale_hook()
+    got, want = [], []
+    for faults, out in ((tfaults, got), (jfaults, want)):
+        inj = faults.FaultPlan(faults=(faults.Fault("scale_flap", at=2, count=3),)).injector()
+        hook = inj.autoscale_hook()
+        out.extend([hook(i) for i in range(7)] + [inj.exhausted(), list(inj.delivered)])
+    assert got == want and got[:7] == [None, None, "up", "down", "up", None, None]
 
 
-def test_plan_checker_prints_the_jax_checker_lines(capsys):
-    path = "docs/examples/fleet_chaos_plan.json"
+@pytest.mark.parametrize("path", ["docs/examples/fleet_chaos_plan.json",
+                                  "docs/examples/disagg_chaos_plan.json"])
+def test_plan_checker_prints_the_jax_checker_lines(path, capsys):
     assert tfaults._check_main(["--check", path]) == 0
     got = capsys.readouterr().out
     assert jfaults._check_main(["--check", path]) == 0
-    assert got == capsys.readouterr().out and "latched" in got
+    assert got == capsys.readouterr().out
+    assert ("latched" in got) if "fleet" in path else ("scale_flap" in got)
 
 
 # --- the engine's seams, the store tag, the refusals ------------------------------
@@ -549,13 +569,24 @@ def test_store_tag_names_the_device_routes():
 
 
 def test_sp_pools_and_model_overrides_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b-4"):
-        tfleet.PoolSpec("long", sp_shards=4)
+    """Pipelined dispatch stays refused. The SP pool and the forward
+    override, refused until the SP arm was ported, are taken: a PoolSpec
+    with sp_shards validates as JAX's does, and an engine keeps the
+    override it was given."""
     with pytest.raises(NotImplementedError, match="ROADMAP A11a-pipelined"):
         tengine.ServingConfig(pipeline_depth=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b-4"):
-        tengine.ServingEngine({}, PKGS["torch"].cfg, scfg_of(PKGS["torch"]), device="cpu",
-                              model_apply_fn=lambda *a, **k: None)
+    spec = dict(sp_shards=4, buckets=(8, 16), sp_schedules=[[16, "sp_seq"]])
+    assert (dataclasses.asdict(tfleet.PoolSpec("long", **spec))
+            == dataclasses.asdict(jfleet.PoolSpec("long", **spec)))
+    with pytest.raises(ValueError, match="sp_schedules without sp_shards"):
+        tfleet.PoolSpec("long", sp_schedules=((16, "sp_seq"),))
+    fn = lambda *a, **k: None  # noqa: E731
+    eng = tengine.ServingEngine({}, PKGS["torch"].cfg, scfg_of(PKGS["torch"]), device="cpu",
+                                model_apply_fn=fn)
+    try:
+        assert eng._model_apply_fn is fn and eng.chips == 1
+    finally:
+        eng.shutdown()
 
 
 # --- (d) the CLI and the ops server ---------------------------------------------
@@ -593,33 +624,51 @@ def test_cli_fleet_chaos_recipe(tmp_path, capsys):
     assert set(stats) == set(want) and set(reqs) == set(want["requests"])
 
 
+CLI_TINY = ["--dim", "16", "--depth", "1", "--heads", "2", "--dim-head", "8", "--buckets",
+            "8,16", "--mds-iters", "2", "--max-batch", "2"]
+
+
 @pytest.mark.parametrize("argv, match", [
     (["--pipeline-depth", "2"], "ROADMAP A11a-pipelined"),
-    (["--sp-shards", "2"], "ROADMAP A11b-4"),
-    (["--max-replicas", "4"], "ROADMAP A11b-3b"),
-    (["--min-replicas", "1", "--max-replicas", "4"], "ROADMAP A11b-3b"),
-    (["--max-replicas", "4", "--scale-policy", "p.json"], "ROADMAP A11b-3b"),
-    (["--max-replicas", "4", "--scale-grace", "5"], "ROADMAP A11b-3b"),
-    (["--pools", '[{"name": "long", "sp_shards": 4}]'], "ROADMAP A11b-4"),
+    (["--sp-shards", "2"], "SP plan over 2 shards"),
+    (["--max-replicas", "4"], "autoscaler: replicas in [1, 4]"),
+    (["--min-replicas", "1", "--max-replicas", "4"], "autoscaler: replicas in [1, 4]"),
+    (["--max-replicas", "4", "--scale-policy", "p.json"], "cooldowns 0.5/7.5s"),
+    (["--max-replicas", "4", "--scale-grace", "5"], "scale-down(s)"),
+    (["--pools", '[{"name": "long", "sp_shards": 4}]'], "pools ['long']"),
 ], ids=["pipeline_depth", "sp_shards", "max_replicas", "min_replicas", "scale_policy",
         "scale_grace", "sp_pool"])
-def test_cli_refused_flags_name_their_roadmap_item(argv, match, capsys):
+def test_cli_refused_flags_name_their_roadmap_item(argv, match, tmp_path, capsys):
+    """Pipelined dispatch is refused naming its ROADMAP item. The SP arm's
+    and the autoscaler's flags, refused until they were ported, run: each
+    prints what it armed (`--sp-shards 2` two CPU shards; a pool of 4)
+    and the replay exits 0."""
     from alphafold2_tpu_torch import serve
 
-    with pytest.raises(SystemExit):
-        serve.main(["--demo", "2", "--device", "cpu", *argv])
-    assert match in capsys.readouterr().err
+    argv = [str(tmp_path / a) if a == "p.json" else a for a in argv]
+    (tmp_path / "p.json").write_text(json.dumps({"up_cooldown_s": 0.5,
+                                                 "down_cooldown_s": 7.5}))
+    if argv[0] == "--pipeline-depth":
+        with pytest.raises(SystemExit):
+            serve.main(["--demo", "2", "--device", "cpu", *argv])
+        assert match in capsys.readouterr().err
+        return
+    assert serve.main(["--demo", "2", "--device", "cpu", *CLI_TINY, *argv]) == 0
+    assert match in capsys.readouterr().out
 
 
 def test_cli_refuses_a_scale_flap_plan(tmp_path, capsys):
+    """Refused while the autoscaler was not ported; now the plan reaches
+    the autoscaler's hook, which delivers its forced demands."""
     from alphafold2_tpu_torch import serve
 
     plan = tmp_path / "plan.json"
     plan.write_text(json.dumps({"faults": [{"kind": "scale_flap", "at": 0}]}))
-    with pytest.raises(SystemExit):
-        serve.main(["--demo", "2", "--device", "cpu", "--replicas", "2", "--fault-plan",
-                    str(plan)])
-    assert "ROADMAP A11b-3b" in capsys.readouterr().err
+    assert serve.main(["--demo", "2", "--device", "cpu", *CLI_TINY, "--replicas", "2",
+                       "--max-replicas", "3", "--ops-tick", "0.05", "--scale-grace", "1",
+                       "--fault-plan", str(plan)]) == 0
+    out = capsys.readouterr().out
+    assert "scale_flap@0" in out and "autoscaler:" in out
 
 
 def test_ops_server_for_fleet_serves_the_fleet_registry():

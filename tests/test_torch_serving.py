@@ -838,11 +838,12 @@ def test_params_on_another_device_are_refused(tiny_params):
 # ------------------------------------------------- the refused knobs
 
 
-# early exit is ported: a knob alone is now JAX's validation error (each
-# needs the other), the test of its message under the knob's old id
+# early exit and the SP arm are ported: a knob alone is now JAX's validation
+# error (each needs the other; one shard is no SP arm), the test of its
+# message under the knob's old id
 @pytest.mark.parametrize("fields, exc, match", [
-    ({"sp_shards": 2}, NotImplementedError, "ROADMAP A11b"),
-    ({"sp_schedules": ((16, "sp_seq"),)}, NotImplementedError, "ROADMAP A11b"),
+    ({"sp_shards": 1}, ValueError, r"sp_shards must be 0 \(dense\) or >= 2"),
+    ({"sp_schedules": ((16, "sp_seq"),)}, ValueError, "sp_shards=0"),
     ({"early_exit_depths": (1, 2)}, ValueError, "early_exit_kl must be > 0"),
     ({"early_exit_kl": 0.1}, ValueError, "without early_exit_depths"),
     ({"pipeline_depth": 2}, NotImplementedError, "ROADMAP A11a-pipelined"),
@@ -854,14 +855,29 @@ def test_refused_config_knob_names_its_roadmap_item(fields, exc, match):
 
 @pytest.mark.parametrize("seam, item", [("fault_hook", "A11b"), ("pool_name", "A11b-3"),
                                         ("model_apply_fn", "A11b")])
-def test_refused_engine_seam_names_its_roadmap_item(seam, item):
-    """The trunk-forward override (the SP arm's seam) is refused naming
-    A11b-4. The fleet's seams, refused naming `item` until the fleet was
-    ported, are taken now: `pool_name` labels the engine's cost cells and
-    `fault_hook` runs at each dispatch."""
+def test_refused_engine_seam_names_its_roadmap_item(seam, item, tiny_params):
+    """The engine's seams, each refused naming `item` until its part was
+    ported, are taken now: `pool_name` labels the engine's cost cells,
+    `fault_hook` runs at each dispatch, and `model_apply_fn` (the forward
+    override) replaces the forward of every bucket's executable."""
     if seam == "model_apply_fn":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}-4"):
-            ServingEngine({}, TINY, serving_cfg(), device="cpu", model_apply_fn=object())
+        from alphafold2_tpu_torch import alphafold2_apply
+
+        calls = []
+
+        def forward(*args, **kwargs):
+            calls.append(args[2].shape)
+            return alphafold2_apply(*args, device="cpu", **kwargs)
+
+        cfg = serving_cfg(buckets=(8,), max_batch=1)
+        plain = ServingEngine(tiny_params, TINY, cfg, device="cpu")
+        over = ServingEngine(tiny_params, TINY, cfg, device="cpu", model_apply_fn=forward)
+        try:
+            a, b = plain.predict(seq_of(6), timeout=WAIT), over.predict(seq_of(6), timeout=WAIT)
+        finally:
+            plain.shutdown()
+            over.shutdown()
+        assert calls == [(1, 8)] and np.array_equal(a.coords, b.coords)
         return
     calls = []
     value = "short" if seam == "pool_name" else (lambda i, b: calls.append((i, b)))
