@@ -37,9 +37,10 @@ plan file it takes loads here. Hook sites:
 
 Replica indices are per-replica counters kept by the INJECTOR, not the
 engine, so they survive the engine restarts a drain and reinstatement
-make. The training CLIs deliver the training kinds only
-(`check_training_plan`); `serve` delivers the serving kinds
-(`check_serving_plan`), `scale_flap` among them.
+make. A plan may mix the families, as the JAX package's CLIs take it: a
+kind whose hook the running process does not have never fires (the
+training CLIs deliver the training kinds, `serve` the serving kinds,
+`scale_flap` among them).
 
 Validate a hand-written plan before paying for a run:
 
@@ -76,17 +77,6 @@ FAULT_KINDS = (
     "crash_process",    # kill -9 the serving process at process-wide dispatch `at`
     "straggle_dispatch",  # named fleet replica: a slow success (the hedge trigger)
 )
-
-#: the kinds the training CLIs deliver
-TRAINING_FAULT_KINDS = ("step_exception", "nan_grads", "preempt", "ckpt_corrupt",
-                        "data_error", "slow_data")
-
-#: the kinds `serve` delivers (the engine's, the fleet replicas', the
-#: featurize tier's and the autoscaler's hooks)
-SERVING_FAULT_KINDS = ("request_error", "slow_request", "hung_request", "kill_replica",
-                       "slow_replica", "flap_replica", "slow_featurize",
-                       "kill_featurize_worker", "crash_process", "straggle_dispatch",
-                       "scale_flap")
 
 #: kinds that target one named fleet replica and require `replica`
 REPLICA_FAULT_KINDS = ("kill_replica", "slow_replica", "flap_replica", "straggle_dispatch")
@@ -186,27 +176,6 @@ class FaultPlan:
 
     def injector(self) -> "FaultInjector":
         return FaultInjector(self)
-
-
-def check_training_plan(plan: FaultPlan, what: str) -> None:
-    """Refuse a plan with kinds a trainer has no hook for: the serving
-    kinds (serve's, the fleet's and its autoscaler's: ROADMAP A11b)."""
-    other = sorted({f.kind for f in plan.faults} - set(TRAINING_FAULT_KINDS))
-    if other:
-        raise NotImplementedError(
-            f"{what}: fault kind(s) {other} are not training kinds: the serving kinds are "
-            f"delivered by serve (ROADMAP A11b; scale_flap by its autoscaler); a trainer "
-            f"delivers {TRAINING_FAULT_KINDS}")
-
-
-def check_serving_plan(plan: FaultPlan, what: str) -> None:
-    """Refuse a plan with kinds `serve` has no hook for: the training
-    kinds."""
-    other = sorted({f.kind for f in plan.faults} - set(SERVING_FAULT_KINDS))
-    if other:
-        raise NotImplementedError(
-            f"{what}: fault kind(s) {other} are training kinds, delivered by the trainers; "
-            f"serve delivers {SERVING_FAULT_KINDS}")
 
 
 def poison_metrics(metrics: dict) -> dict:

@@ -8,10 +8,13 @@ closes the checkpoint manager and raises `Preempted`, and the next run
 resumes from that checkpoint bit for bit.
 
 The handler only sets an Event and remembers the signum (nothing
-async-signal-unsafe); the work happens on the polling thread. Install is
-main-thread-only; `deliver()` is the in-process stand-in the fault
-injector uses. One process only: the JAX package's pod consensus (a
-global OR of the flag across processes) waits for ROADMAP A13.
+async-signal-unsafe); the work happens on the polling thread, and so do
+the drain callbacks (`add_callback`, e.g. a serving engine's or a fleet's
+`shutdown(drain=True)`), which run once, on the first `check()` that sees
+the flag. Install is main-thread-only; `deliver()` is the in-process
+stand-in the fault injector uses. One process only: the JAX package's pod
+consensus (a global OR of the flag across processes) waits for ROADMAP
+A13.
 """
 
 from __future__ import annotations
@@ -44,8 +47,9 @@ class Preempted(RuntimeError):
 class PreemptionHandler:
     """Latching SIGTERM flag with handler install/restore: usable
     uninstalled (the fault injector delivers via `deliver()`), as a
-    context manager, or through install()/uninstall(). (The JAX package's
-    drain callbacks serve its fleet, not ported: ROADMAP A11b.)"""
+    context manager, or through install()/uninstall(). Callbacks added
+    with `add_callback` run on the first `check()` that sees the flag, on
+    the polling thread, never in the signal handler."""
 
     def __init__(self, signals=(signal.SIGTERM,)):
         self.signals = tuple(signals)
@@ -53,6 +57,9 @@ class PreemptionHandler:
         self._signum: Optional[int] = None
         self._previous = {}
         self._installed = False
+        self._callbacks = []
+        self._callbacks_fired = False
+        self._lock = threading.Lock()
 
     def _handler(self, signum, frame):
         self._signum = signum
@@ -93,6 +100,18 @@ class PreemptionHandler:
     def signum(self) -> Optional[int]:
         return self._signum
 
+    def add_callback(self, fn):
+        """Run `fn()` once, on the first check() after the flag trips."""
+        self._callbacks.append(fn)
+
     def check(self) -> bool:
-        """Poll point: True once preempted."""
-        return self._event.is_set()
+        """Poll point: True once preempted, running the registered drain
+        callbacks exactly once."""
+        if not self._event.is_set():
+            return False
+        with self._lock:
+            if not self._callbacks_fired:
+                self._callbacks_fired = True
+                for fn in self._callbacks:
+                    fn()
+        return True

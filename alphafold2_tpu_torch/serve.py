@@ -45,9 +45,9 @@ intake journal (`--journal`, replayed at startup), a retry budget
 `--hedge-rate-cap`). In fleet mode the watchdog defaults to 60 s (a hung
 replica must fail for the failover to start). `--fault-plan` takes a
 chaos plan (reliability/faults.py: replica faults in the fleet, dispatch
-faults single-engine; check one with `python -m
-alphafold2_tpu_torch.reliability.faults --check`; `scale_flap` drives the
-autoscaler). The elastic replica autoscaler (serving/autoscale.py):
+faults single-engine, a training kind never fires, as in the JAX CLI;
+check one with `python -m alphafold2_tpu_torch.reliability.faults
+--check`; `scale_flap` drives the autoscaler). The elastic replica autoscaler (serving/autoscale.py):
 `--max-replicas` arms it (fleet tier), `--min-replicas` sets its floor,
 `--scale-policy` its thresholds and hysteresis (a ScalePolicy JSON), and
 `--scale-grace` keeps the process ticking after the replay so an idle
@@ -59,8 +59,10 @@ bucket's trunk over N shards under the schedule the plan prices against
 cards (fewer raise, as the JAX CLI raises on fewer devices; over distinct
 cards the engine refuses, naming ROADMAP A13, since a captured graph holds
 one card's stream), and with `--device cpu` N CPU shards. A pool of
-`--pools` takes `sp_shards` / `sp_schedules` the same way. Refused, naming
-its ROADMAP item: `--pipeline-depth` (A11a-pipelined).
+`--pools` takes `sp_shards` / `sp_schedules` the same way.
+`--pipeline-depth N` arms pipelined dispatch in every engine (and every
+replica): up to N batches enqueued on the card while a settle thread
+realizes, bills and answers the ones before them (serving/engine.py).
 
 Telemetry, the JAX CLI's single-engine flags: `--trace-out` (the request
 lifecycle spans as a Chrome trace), `--metrics-jsonl` (one record a
@@ -95,7 +97,7 @@ from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.geometry.pdb import coords_to_pdb
 from alphafold2_tpu_torch.models.alphafold2 import alphafold2_init
 from alphafold2_tpu_torch.models.config import Alphafold2Config
-from alphafold2_tpu_torch.reliability.faults import FaultPlan, check_serving_plan
+from alphafold2_tpu_torch.reliability.faults import FaultPlan
 from alphafold2_tpu_torch.serving.artifact_store import ArtifactStore, ArtifactStoreConfig
 from alphafold2_tpu_torch.serving.autoscale import ReplicaAutoscaler, ScalePolicy
 from alphafold2_tpu_torch.serving.cascade import CascadePolicy
@@ -195,12 +197,14 @@ def main(argv=None):
     ap.add_argument("--batch-ladder", action="store_true",
                     help="power-of-two batch shapes up to --max-batch")
     ap.add_argument("--pipeline-depth", type=int, default=0,
-                    help="pipelined dispatch (not ported: ROADMAP A11a-pipelined)")
+                    help="pipelined dispatch: keep up to this many batches enqueued but "
+                         "unsettled so device compute overlaps host assembly and settle "
+                         "(0 = synchronous dispatch)")
     ap.add_argument("--max-wait-ms", type=float, default=50.0,
                     help="batch-assembly deadline for partial batches")
     ap.add_argument("--queue-size", type=int, default=64)
-    ap.add_argument("--request-timeout", type=float, default=60.0,
-                    help="per-request deadline, seconds (the fleet's default too)")
+    ap.add_argument("--request-timeout", type=float, default=600.0,
+                    help="per-request deadline, seconds")
     ap.add_argument("--cache-size", type=int, default=256)
     ap.add_argument("--mds-iters", type=int, default=32)
     ap.add_argument("--mds-init", choices=("random", "classical"), default="classical")
@@ -360,9 +364,6 @@ def main(argv=None):
     ap.add_argument("--artifact-disk-mb", type=int, default=2048, metavar="MB",
                     help="artifact-store disk-tier byte budget")
     args = ap.parse_args(argv)
-    if args.pipeline_depth:
-        ap.error("--pipeline-depth: pipelined dispatch is not ported to the PyTorch "
-                 "engine yet (ROADMAP A11a-pipelined)")
     # the JAX CLI's pairing checks
     if args.min_replicas is not None and args.max_replicas is None:
         ap.error("--min-replicas requires --max-replicas (the pair arms the autoscaler)")
@@ -440,10 +441,6 @@ def main(argv=None):
     injector = None
     if args.fault_plan:
         plan = FaultPlan.from_file(args.fault_plan)
-        try:
-            check_serving_plan(plan, "--fault-plan")
-        except NotImplementedError as e:
-            ap.error(str(e))
         injector = plan.injector()
         print(f"fault plan: {len(plan.faults)} fault(s) from {args.fault_plan}")
     autoscale_armed = args.max_replicas is not None
@@ -493,7 +490,8 @@ def main(argv=None):
         cache_capacity=args.cache_size, mds_iters=args.mds_iters, mds_init=args.mds_init,
         seed=args.seed, precompile=args.precompile, params_tag=params_tag,
         sp_shards=args.sp_shards, sp_hbm_gb=args.sp_hbm_gb,
-        batch_ladder=args.batch_ladder, breaker_threshold=args.breaker_threshold,
+        batch_ladder=args.batch_ladder, pipeline_depth=args.pipeline_depth,
+        breaker_threshold=args.breaker_threshold,
         breaker_reset_s=args.breaker_reset,
         # the fleet's liveness needs hung replicas to FAIL (the failover
         # path starts from a failure, never from a hang)
@@ -573,6 +571,8 @@ def main(argv=None):
         print(f"fleet on {engine.device}: {initial_replicas} replica(s), shared queue "
               f"{args.fleet_queue}, featurize tier "
               + (f"{args.featurize_workers} worker(s)" if args.featurize_workers else "OFF")
+              + (f", pipelined dispatch, depth {args.pipeline_depth}"
+                 if args.pipeline_depth else "")
               + ", degraded tier " + (degraded_desc or "OFF")
               + (f", retry budget {args.retry_budget}" if args.retry_budget else "")
               + (f", hedging p95 x{args.hedge_factor:g} (cap {args.hedge_rate_cap:g})"
@@ -600,6 +600,8 @@ def main(argv=None):
             flights=FlightBook() if args.ops_port is not None else None)
         snap = engine.stats()
         print(f"engine on {engine.device}; weights {snap['weights']['weight_dtype']}"
+              + (f"; pipelined dispatch, depth {args.pipeline_depth}"
+                 if args.pipeline_depth else "")
               + (f"; SP plan over {args.sp_shards} shards on {snap['sp']['devices']}: "
                  + ", ".join(f"{b}={r['schedule']}" for b, r in snap["sp"]["schedules"].items())
                  if args.sp_shards else ""))

@@ -76,8 +76,26 @@ alphafold2_tpu/serving/engine.py `ServingEngine`).
     `model_apply_fn` (a forward override for every bucket, as in
     `predict_structure`) and the SP arm exclude each other.
 
-Not ported in this engine, refused with its ROADMAP item when set:
-pipelined dispatch (`pipeline_depth`: A11a-pipelined).
+  * **Pipelined dispatch** (`pipeline_depth` > 0; the JAX engine's
+    settle thread, docs/SERVING.md "The dispatch pipeline"): the worker
+    assembles and enqueues batches, an `af2-settle-{replica}` thread
+    realizes them in order, bills them and resolves their requests, and
+    at most `pipeline_depth` batches sit enqueued but unsettled. On the
+    card the enqueue is `CapturedExecutable.enqueue` (the copies in and
+    out through pinned host buffers, an event after them) and the wait
+    `PendingCall.wait`, which polls that event under the card's capture
+    lock, which every capture holds, and releases it between polls
+    (serving/executable.py). The
+    hung-batch watchdog guards both halves: the dispatch half, which on
+    the card still waits for its graph one at the eager `eigh` and at
+    each early-exit stage, and the settle half. Goodput and the drain EMA
+    bill each batch its enqueue -> realized window clamped against the
+    batches realized before it (`_billed_window`), so overlapped seconds
+    are billed once; the cost cells keep the events' device seconds. A
+    batch that fails at settle splits into singles on the settle thread,
+    which dispatch synchronously and take the next device-call indices
+    there, interleaved with the worker's: the random init's seeds of the
+    batches after a settle-side split then depend on that interleaving.
 
 The random MDS init (`mds_init="random"`): device call i (counted from 1)
 starts MDS from the draw of a generator seeded fold_in(seed, i)
@@ -87,12 +105,16 @@ graph, is reseeded and replayed in one step under the pool's lock; on the
 CPU a CPU generator draws it.
 
 Thread model: clients call `submit()` / `result()` from any thread; every
-device call happens on the worker thread (or, past a watchdog timeout, on
-the abandoned dispatch thread it left), one at a time under the card's
+device call happens on the worker thread (with pipelined dispatch a
+settle-side split's singles on the settle thread; past a watchdog
+timeout, on the abandoned thread it left), one at a time under the card's
 lock (`serving/executable.py device_lock`), which every engine on the
 card shares: a call holds it from its first copy in to its outputs on the
-host, the construction holds it for its device work, and `release_graphs`
-(after `shutdown`) frees the graphs under it. A capture runs in CUDA's
+host (a pipelined call for its device work; its settle takes the
+card's capture lock for each poll of its event and the read of its
+outputs), the construction holds it for its
+device work, and `release_graphs` (after `shutdown`) frees the graphs
+under it. A capture runs in CUDA's
 global capture mode, where no other thread of the process may make an
 unsafe CUDA call;
 under that lock no engine of the process does, so replicas on one card
@@ -140,6 +162,7 @@ from alphafold2_tpu_torch.serving.executable import (
     CapturedExecutable,
     EagerExecutable,
     GraphPool,
+    PendingCall,
 )
 from alphafold2_tpu_torch.serving.featurize import featurize_request
 from alphafold2_tpu_torch.serving.metrics import ServingMetrics
@@ -151,16 +174,10 @@ from alphafold2_tpu_torch.utils.flops import model_fwd_flops
 from alphafold2_tpu_torch.utils.rng import Streams, fold_in
 
 
-def _refuse(knob: str, item: str, what: str):
-    raise NotImplementedError(f"{knob}: {what} is not ported to the PyTorch engine yet "
-                              f"(ROADMAP {item})")
-
-
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
     """Scheduler and cache knobs (model hyperparameters live in
-    `Alphafold2Config`); the JAX engine's fields, the refused ones raising
-    when set."""
+    `Alphafold2Config`); the JAX engine's fields."""
 
     buckets: Tuple[int, ...] = DEFAULT_BUCKETS
     max_batch: int = 4           # the top batch shape
@@ -195,7 +212,10 @@ class ServingConfig:
     # KL(prev || cur) at or under which a sample freezes
     early_exit_depths: Tuple[int, ...] = ()
     early_exit_kl: float = 0.0
-    pipeline_depth: int = 0      # refused (A11a-pipelined)
+    # pipelined dispatch: > 0 splits the scheduler into the worker, which
+    # assembles and enqueues, and a settle thread, with at most this many
+    # batches enqueued but unsettled (0: the synchronous path)
+    pipeline_depth: int = 0
 
     def __post_init__(self):
         # the SP knobs first, with the JAX engine's messages
@@ -230,8 +250,8 @@ class ServingConfig:
         elif self.early_exit_kl:
             raise ValueError("early_exit_kl set without early_exit_depths — the exit gate "
                              "has no checkpoints to fire at")
-        if self.pipeline_depth:
-            _refuse("pipeline_depth", "A11a-pipelined", "pipelined dispatch")
+        if self.pipeline_depth < 0:
+            raise ValueError(f"pipeline_depth must be >= 0, got {self.pipeline_depth}")
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
         if self.max_queue < 1:
@@ -379,6 +399,27 @@ def pad_msa_batch(live, bucket: int, batch_shape: int, rows: int):
 
 
 _IDLE_POLL_S = 0.05  # worker wake cadence when nothing is staged
+
+_SETTLE_STOP = object()  # the settle queue's sentinel, put LAST by the worker's
+#                          final flush or abort: every batch in flight settles
+#                          before the settle thread exits
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One batch enqueued but not settled (worker -> settle thread): `out`
+    is what `_call_executable` returned (on the card a `PendingCall`);
+    `enqueue_t` and `compile_s0` bill its enqueue -> realized window less
+    any capture."""
+
+    bucket: int
+    shape: int
+    live: list
+    out: object
+    idx: int
+    enqueue_t: float
+    compile_s0: float
+    n_real: int
 
 
 class ServingEngine:
@@ -583,7 +624,17 @@ class ServingEngine:
         self._drain_on_stop = True
         self._stop = threading.Event()
         self._rate_lock = threading.Lock()
-        self._sec_per_req_ema = 0.0  # batch wall seconds per served request
+        self._sec_per_req_ema = 0.0  # non-overlapped batch seconds per served request
+        # pipelined dispatch: the worker enqueues, the settle thread
+        # realizes, bills and resolves; the semaphore bounds the batches in
+        # flight, and `_last_realized_t` is the realization watermark
+        # `_billed_window` clamps each window against
+        self._settle_dead = False
+        self._pipeline_lock = threading.Lock()
+        self._last_realized_t = 0.0
+        self._settle_queue: "queue.Queue" = queue.Queue()
+        self._inflight_sem = threading.Semaphore(max(1, cfg.pipeline_depth))
+        self._settle_thread = None
         # build before the worker exists: a failing capture aborts the
         # construction instead of stranding a started worker. Largest
         # first: a smaller graph's allocations then split the blocks the
@@ -593,6 +644,11 @@ class ServingEngine:
             for bucket in reversed(self._ladder.buckets):
                 for shape in reversed(self._batch_shapes):
                     self._executable_for(bucket, shape)
+        if cfg.pipeline_depth:
+            self._settle_thread = threading.Thread(
+                target=self._settle_loop, name=f"af2-settle-{replica_name or 'engine'}",
+                daemon=True)
+            self._settle_thread.start()
         self._worker = threading.Thread(target=self._worker_loop, name="af2-serve",
                                         daemon=True)
         self._worker.start()
@@ -813,6 +869,11 @@ class ServingEngine:
         return float(min(60.0, max(0.05, est)))
 
     def _note_drain(self, window_s: float, n: int):
+        """Feed the drain EMA one settled batch: `window_s` is its
+        non-overlapped share of the wall (`_billed_window`), so batches in
+        flight together do not each claim the same second."""
+        if n <= 0:
+            return
         sec_per_req = window_s / n
         with self._rate_lock:
             self._sec_per_req_ema = (sec_per_req if self._sec_per_req_ema == 0.0
@@ -820,11 +881,15 @@ class ServingEngine:
 
     def health(self) -> dict:
         """Liveness: "ok", "degraded" (the breaker is not closed) or "down"
-        (closed, or the worker died)."""
+        (closed, or the worker or the settle thread died)."""
         alive = self._worker.is_alive()
+        if self._settle_thread is not None:
+            alive = alive and self._settle_thread.is_alive()
         out = {"status": "ok" if (not self._closed and alive) else "down",
                "closed": self._closed, "worker_alive": alive,
                "queue_depth": self._queue.qsize(), "queue_capacity": self.cfg.max_queue}
+        if self._settle_thread is not None:
+            out["settle_alive"] = self._settle_thread.is_alive()
         if self._breaker is not None:
             out["breaker"] = self._breaker.state.value
             if out["status"] == "ok" and out["breaker"] != "closed":
@@ -853,6 +918,9 @@ class ServingEngine:
         snap["buckets"] = list(self._ladder.buckets)
         snap["max_batch"] = self.cfg.max_batch
         snap["batch_shapes"] = list(self._batch_shapes)
+        if self.cfg.pipeline_depth:
+            snap["pipeline"] = {"depth": self.cfg.pipeline_depth,
+                                **self.metrics.pipeline_snapshot()}
         snap["closed"] = self._closed
         snap["weights"] = dict(self._weight_residency)
         snap["dispatch"] = self._dispatch_tag
@@ -894,8 +962,9 @@ class ServingEngine:
     def shutdown(self, drain: bool = True, timeout: Optional[float] = None):
         """Stop accepting work and stop the worker. drain=True serves the
         pending requests first (assembly deadlines waived, expiry kept);
-        drain=False fails them with EngineClosedError. Idempotent; not from
-        the worker thread."""
+        drain=False fails them with EngineClosedError. Either way, with
+        pipelined dispatch the batches already enqueued settle, and the
+        settle thread is joined. Idempotent; not from the worker thread."""
         with self._inflight_lock:
             self._closed = True
         self._drain_on_stop = drain
@@ -905,6 +974,10 @@ class ServingEngine:
         # worker exited: fail it, once the worker is really gone
         if self._worker.is_alive():
             return
+        # the worker put the settle sentinel last: past it every batch in
+        # flight has settled
+        if self._settle_thread is not None:
+            self._settle_thread.join(timeout)
         while True:
             try:
                 req = self._queue.get_nowait()
@@ -921,11 +994,17 @@ class ServingEngine:
         card's pool takes their blocks back for the next capture and no
         garbage collection on another thread destroys a graph while an
         engine on the card captures (the fleet calls it on every engine it
-        drains or shuts down). A call abandoned by the watchdog may still
-        hold the lock: past `timeout` the graphs are left to the collector.
-        A no-op on the CPU."""
+        drains or shuts down). A pipelined engine's batches in flight settle
+        first (the settle thread is joined). A call abandoned by the
+        watchdog may still hold the lock, and a settle thread may still
+        wait: past `timeout` the graphs are left to the collector. A no-op
+        on the CPU."""
         if self._card_lock is None:
             return
+        if self._settle_thread is not None:
+            self._settle_thread.join(timeout)
+            if self._settle_thread.is_alive():
+                return
         if not self._card_lock.acquire(timeout=-1 if timeout is None else timeout):
             return
         try:
@@ -985,7 +1064,8 @@ class ServingEngine:
                                              mds_iters=self.cfg.mds_iters, device=self.device,
                                              pool=self._pool, mds_init=self.cfg.mds_init,
                                              streams=self._init_streams,
-                                             apply_name=self._apply_name(bucket), **exit_kw)
+                                             apply_name=self._apply_name(bucket),
+                                             slots=self.cfg.pipeline_depth, **exit_kw)
                 else:
                     exe = EagerExecutable(self._params, self.model_cfg,
                                           mds_iters=self.cfg.mds_iters,
@@ -1007,12 +1087,16 @@ class ServingEngine:
     def _call_executable(self, bucket: int, tokens, mask, msa=None, msa_mask=None):
         """One device call on the padded batch (its rung is tokens.shape[0]),
         its index counted from 1 (the random init's seed is
-        `init_seed(index)`). Returns the outputs on the device. Overridable
-        seam."""
+        `init_seed(index)`). Returns the outputs on the device; with
+        pipelined dispatch on the card, the enqueued call (`PendingCall`),
+        which `_realize` waits for. Overridable seam."""
         exe = self._executable_for(bucket, tokens.shape[0])
         with self._counter_lock:
             self._batch_counter += 1
             index = self._batch_counter
+        if self.device.type == "cuda" and self.cfg.pipeline_depth:
+            return exe.enqueue(tokens, mask, msa, msa_mask, seed=self.init_seed(index),
+                               timing=self._device_timing)
         if self.device.type != "cuda" or not self._device_timing:
             return exe(tokens, mask, msa, msa_mask, seed=self.init_seed(index))
         # the call's device time: two events on the engine's stream around
@@ -1030,9 +1114,50 @@ class ServingEngine:
 
     def _realize(self, out):
         """Wait for a call's outputs and bring them to the host as numpy.
-        Overridable seam: the point the hung-batch watchdog guards."""
+        Overridable seam: the point the hung-batch watchdog guards (with
+        pipelined dispatch, on the settle thread)."""
+        if isinstance(out, PendingCall):
+            return out.wait()
         return {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
                 for k, v in out.items()}
+
+    def _next_dispatch_idx(self) -> int:
+        """The next dispatch index (the chaos clock), under the counter
+        lock: the worker's enqueues and a settle-side split's singles may
+        dispatch at once."""
+        with self._counter_lock:
+            idx = self._dispatch_counter
+            self._dispatch_counter += 1
+            return idx
+
+    def _watched(self, fn, *, bucket: int, idx: int, trace_ids, thread: str, what: str):
+        """`fn()` under the hung-batch watchdog when one is set: it then
+        runs on a throwaway daemon thread, and past the timeout it is
+        abandoned (a thread cannot be killed) and HungBatchError is raised
+        while the caller goes on."""
+        timeout = self.cfg.watchdog_timeout_s
+        if timeout is None:
+            return fn()
+        box, done = {}, threading.Event()
+
+        def runner():
+            try:
+                box["out"] = fn()
+            except BaseException as e:  # noqa: BLE001 — relayed below
+                box["exc"] = e
+            finally:
+                done.set()
+
+        threading.Thread(target=runner, daemon=True,
+                         name=f"{thread}-{self.replica_name or 'engine'}-{idx}").start()
+        if not done.wait(timeout):
+            self._incident("watchdog_fire", bucket=bucket, dispatch=idx, timeout_s=timeout,
+                           trace_ids=list(trace_ids))
+            raise HungBatchError(f"dispatch {idx} (bucket {bucket}) exceeded the {timeout}s "
+                                 f"hung-batch watchdog; {what} abandoned")
+        if "exc" in box:
+            raise box["exc"]
+        return box["out"]
 
     def _dispatch(self, bucket: int, tokens, mask, msa=None, msa_mask=None, trace_ids=()):
         """`_call_executable` and `_realize`, under the watchdog when one is
@@ -1042,9 +1167,7 @@ class ServingEngine:
         (the host outputs, the call's device seconds from CUDA events, or
         None off the card, without device timing or when the seam is
         stubbed)."""
-        with self._counter_lock:
-            idx = self._dispatch_counter
-            self._dispatch_counter += 1
+        idx = self._next_dispatch_idx()
 
         def call():
             # the chaos seam first: before the executable, outside the
@@ -1061,38 +1184,19 @@ class ServingEngine:
                                       trace_ids=list(trace_ids), **self._span_tags) as sp, \
                     self._device_section():
                 self._timing.events = None
-                out = self._realize(self._call_executable(bucket, tokens, mask, msa, msa_mask))
+                raw = self._call_executable(bucket, tokens, mask, msa, msa_mask)
+                out = self._realize(raw)
                 events, self._timing.events = self._timing.events, None
-                device_s = None
+                device_s = getattr(raw, "device_s", None)  # a pipelined engine's single
                 if events is not None:
                     device_s = events[0].elapsed_time(events[1]) / 1e3
-                    sp.set("device_ms", device_s * 1e3)
                     del events  # destroyed under the lock too
+                if device_s is not None:
+                    sp.set("device_ms", device_s * 1e3)
                 return out, device_s
 
-        timeout = self.cfg.watchdog_timeout_s
-        if timeout is None:
-            return call()
-        box, done = {}, threading.Event()
-
-        def runner():
-            try:
-                box["out"] = call()
-            except BaseException as e:  # noqa: BLE001 — relayed below
-                box["exc"] = e
-            finally:
-                done.set()
-
-        threading.Thread(target=runner, daemon=True,
-                         name=f"af2-dispatch-{self.replica_name or 'engine'}-{idx}").start()
-        if not done.wait(timeout):
-            self._incident("watchdog_fire", bucket=bucket, dispatch=idx, timeout_s=timeout,
-                           trace_ids=list(trace_ids))
-            raise HungBatchError(f"dispatch {idx} (bucket {bucket}) exceeded the {timeout}s "
-                                 f"hung-batch watchdog; call abandoned")
-        if "exc" in box:
-            raise box["exc"]
-        return box["out"]
+        return self._watched(call, bucket=bucket, idx=idx, trace_ids=trace_ids,
+                             thread="af2-dispatch", what="call")
 
     # ------------------------------------------------- scheduler worker
 
@@ -1138,6 +1242,9 @@ class ServingEngine:
                     self.metrics.inc("failed")
                     self.metrics.inc_error(err)
         staged.clear()
+        if self._settle_thread is not None:
+            # the batches enqueued before the crash settle ahead of it
+            self._settle_queue.put(_SETTLE_STOP)
 
     def _stage(self, staged, req: ServingRequest):
         staged.setdefault(req.bucket, []).append(req)
@@ -1171,14 +1278,18 @@ class ServingEngine:
                 break
         if self._drain_on_stop:
             self._dispatch_ready(staged, force=True)
-            return
-        for reqs in staged.values():
-            for req in reqs:
-                if self._resolve(req, exc=EngineClosedError(
-                        "engine shut down before request was served")):
-                    self.metrics.inc("failed")
-                    self.metrics.inc_error("engine_closed")
-        staged.clear()
+        else:
+            for reqs in staged.values():
+                for req in reqs:
+                    if self._resolve(req, exc=EngineClosedError(
+                            "engine shut down before request was served")):
+                        self.metrics.inc("failed")
+                        self.metrics.inc_error("engine_closed")
+            staged.clear()
+        if self._settle_thread is not None:
+            # last: what the drain just enqueued, and anything in flight
+            # from before the stop, settles first
+            self._settle_queue.put(_SETTLE_STOP)
 
     def _run_batch(self, bucket: int, reqs, allow_split: bool = True):
         now = time.monotonic()
@@ -1247,12 +1358,34 @@ class ServingEngine:
                 self.metrics.inc("failed")
                 self.metrics.inc_error(err)
 
-    def _billed(self, window: float, compile_s0: float) -> float:
-        """A dispatch's host window less the captures made during it."""
-        return max(0.0, window - (self.metrics.compile_seconds_total() - compile_s0))
+    def _billed_window(self, t0: float, t1: float, compile_s0: float):
+        """(window, billed) seconds of a dispatch realized over [t0, t1]:
+        with pipelined dispatch the span clamped against the engine's
+        realization watermark (settles are in order, so the windows
+        partition the wall and no second is billed twice), else the whole
+        span; billed is the window less the captures made since
+        `compile_s0`."""
+        compile_delta = self.metrics.compile_seconds_total() - compile_s0
+        if not self.cfg.pipeline_depth:
+            window = max(0.0, t1 - t0)
+        else:
+            with self._pipeline_lock:
+                start = max(t0, self._last_realized_t)
+                if t1 > self._last_realized_t:
+                    self._last_realized_t = t1
+            window = max(0.0, t1 - start)
+        return window, max(0.0, window - compile_delta)
 
     def _run_live(self, bucket: int, live, allow_split: bool):
         shape = self._batch_shape_for(len(live))
+        if self.cfg.pipeline_depth and allow_split and not self._settle_dead:
+            self._run_pipelined(bucket, shape, live)
+        else:
+            # depth 0, a split's single (on whichever thread split it: with
+            # pipelined dispatch, the settle thread), or a dead settle thread
+            self._run_sync(bucket, shape, live, allow_split)
+
+    def _run_sync(self, bucket: int, shape: int, live, allow_split: bool):
         t0 = None  # set once the device call starts
         try:
             # assembly sits inside the guard: a request that breaks the
@@ -1267,14 +1400,14 @@ class ServingEngine:
             t0 = time.monotonic()
             out, device_s = self._dispatch(bucket, tokens, mask, msa, msa_mask,
                                            trace_ids=[r.trace_id for r in live])
-            window = time.monotonic() - t0
-            exec_s = self._billed(window, compile_s0)
+            window, exec_s = self._billed_window(t0, time.monotonic(), compile_s0)
             coords = np.asarray(out["coords"])
             conf = np.asarray(out["confidence"])
             stress = np.asarray(out["stress"])
             exit_depth = np.asarray(out["exit_depth"]) if "exit_depth" in out else None
         except Exception as e:  # noqa: BLE001 — isolate, report, keep serving
-            burned = self._billed(time.monotonic() - t0, compile_s0) if t0 is not None else 0.0
+            burned = (self._billed_window(t0, time.monotonic(), compile_s0)[1]
+                      if t0 is not None else 0.0)
             self._fail_live(bucket, live, e, allow_split, burned_s=burned)
             return
         if self._breaker is not None:
@@ -1289,6 +1422,139 @@ class ServingEngine:
                                trace_ids=[r.trace_id for r in live], **self._span_tags):
             self._respond(bucket, shape, live, coords, conf, stress, n_real, done_at,
                           exit_depth=exit_depth)
+
+    # ------------------------------------------------- pipelined dispatch
+
+    def _run_pipelined(self, bucket: int, shape: int, live):
+        """Assemble and enqueue on the worker; realization, billing and
+        the response move to the settle thread. At most `pipeline_depth`
+        batches sit enqueued but unsettled. The enqueue runs under the
+        watchdog: on the card it waits for its graph one at the eager
+        `eigh` and at each early-exit stage."""
+        idx = self._next_dispatch_idx()
+        acquired = False
+        try:
+            tokens, mask, n_real = pad_batch([r.tokens for r in live], bucket, shape)
+            msa = msa_mask = None
+            if self.cfg.msa_rows:
+                msa, msa_mask = pad_msa_batch(live, bucket, shape, self.cfg.msa_rows)
+            # the chaos seam at the sync path's point in a request's life:
+            # after assembly, before the device call, outside the card's lock
+            if self._fault_hook is not None:
+                self._fault_hook(idx, bucket)
+            # bound the window before touching the card; the timeout keeps
+            # the worker watching for a dead settle thread
+            while not self._inflight_sem.acquire(timeout=0.1):
+                if self._settle_dead:
+                    raise PredictionError("settle thread died with the pipeline window "
+                                          "full; engine is closed")
+            acquired = True
+            # a first call's capture happens in the enqueue: the settle
+            # side's window subtracts it
+            compile_s0 = self.metrics.compile_seconds_total()
+            enqueue_t = time.monotonic()
+            trace_ids = [r.trace_id for r in live]
+
+            def enqueue():
+                with self._tracer.bind_trace(trace_ids):
+                    return self._call_executable(bucket, tokens, mask, msa, msa_mask)
+
+            out = self._watched(enqueue, bucket=bucket, idx=idx, trace_ids=trace_ids,
+                                thread="af2-dispatch", what="enqueue")
+        except Exception as e:  # noqa: BLE001 — the sync path's isolation
+            if acquired:
+                self._inflight_sem.release()
+            self._fail_live(bucket, live, e, allow_split=True)
+            return
+        self.metrics.pipeline_inflight_delta(+1)
+        self._settle_queue.put(_InFlight(bucket=bucket, shape=shape, live=live, out=out,
+                                         idx=idx, enqueue_t=enqueue_t, compile_s0=compile_s0,
+                                         n_real=n_real))
+
+    def _settle_loop(self):
+        """The settle thread: each batch in flight in order, until the
+        sentinel the worker puts last."""
+        try:
+            while True:
+                rec = self._settle_queue.get()
+                if rec is _SETTLE_STOP:
+                    return
+                self._settle(rec)
+        except BaseException as e:  # noqa: BLE001 — the abort is the report
+            self._abort_settle(e)
+
+    def _settle(self, rec: _InFlight):
+        try:
+            out = self._wait_realized(rec)
+            realized_t = time.monotonic()
+            coords = np.asarray(out["coords"])
+            conf = np.asarray(out["confidence"])
+            stress = np.asarray(out["stress"])
+            exit_depth = np.asarray(out["exit_depth"]) if "exit_depth" in out else None
+        except Exception as e:  # noqa: BLE001 — isolate, keep settling
+            burned = self._billed_window(rec.enqueue_t, time.monotonic(), rec.compile_s0)[1]
+            # the slot first: the split's singles run here, and the worker
+            # must keep enqueuing behind them
+            self._inflight_sem.release()
+            self.metrics.pipeline_inflight_delta(-1)
+            self._fail_live(rec.bucket, rec.live, e, allow_split=True, burned_s=burned)
+            return
+        self._inflight_sem.release()
+        self.metrics.pipeline_inflight_delta(-1)
+        device_s = getattr(rec.out, "device_s", None)
+        span_s = realized_t - rec.enqueue_t
+        window, exec_s = self._billed_window(rec.enqueue_t, realized_t, rec.compile_s0)
+        # each batch's execute span still brackets its enqueue -> realized
+        self._tracer.add("serving.execute", span_s, cat="serving", bucket=rec.bucket,
+                         batch=rec.shape, dispatch=rec.idx,
+                         trace_ids=[r.trace_id for r in rec.live],
+                         **({"device_ms": device_s * 1e3} if device_s is not None else {}),
+                         **self._span_tags)
+        self.metrics.observe_pipeline_settle(span_s, window)
+        if self._breaker is not None:
+            self._breaker.record_success()
+        # accounted before the requests resolve
+        self.goodput.add(self._goodput_name, "execute", exec_s)
+        self._bill_batch(rec.bucket, rec.shape, exec_s if device_s is None else device_s,
+                         rec.live, exit_depth)
+        self._note_drain(window, len(rec.live))
+        done_at = time.monotonic()
+        with self._tracer.span("serving.respond", cat="serving", bucket=rec.bucket,
+                               n=len(rec.live), trace_ids=[r.trace_id for r in rec.live],
+                               **self._span_tags):
+            self._respond(rec.bucket, rec.shape, rec.live, coords, conf, stress, rec.n_real,
+                          done_at, exit_depth=exit_depth)
+
+    def _wait_realized(self, rec: _InFlight):
+        """`_realize` of one batch in flight under the watchdog, its window
+        measured from when the settle thread reaches it: a wedged batch
+        fires its own watchdog, and the neighbour behind it starts afresh."""
+        return self._watched(lambda: self._realize(rec.out), bucket=rec.bucket, idx=rec.idx,
+                             trace_ids=[r.trace_id for r in rec.live],
+                             thread="af2-settle-wait", what="in-flight realization")
+
+    def _abort_settle(self, cause: BaseException):
+        # the flag first: the worker's bounded acquire watches it
+        self._settle_dead = True
+        with self._inflight_lock:
+            self._closed = True
+        traceback.print_exc()
+        err = PredictionError(f"serving settle thread crashed: {type(cause).__name__}: "
+                              f"{cause}; engine is closed")
+        err.__cause__ = cause
+        while True:
+            try:
+                rec = self._settle_queue.get_nowait()
+            except queue.Empty:
+                break
+            if rec is _SETTLE_STOP:
+                continue
+            self._inflight_sem.release()
+            self.metrics.pipeline_inflight_delta(-1)
+            for req in rec.live:
+                if self._resolve(req, exc=err):
+                    self.metrics.inc("failed")
+                    self.metrics.inc_error(err)
 
     def _bill_batch(self, bucket, shape, exec_s, live, exit_depth):
         """Charge a batch's seconds to its cost cells (JAX's `_bill_batch`).

@@ -81,6 +81,30 @@ the mesh's copies, and under "sp_seq" the ring's P^2 B3 hops a layer with
 their `merge_lse`s). Its allocations enter the card's pool like any
 other's; a failed capture raises `CaptureError` naming that forward.
 
+With pipelined dispatch (the engine's `pipeline_depth`) a call is split
+in two. `enqueue` holds the card's lock for the call's device work only:
+it stages the inputs through pinned host buffers (a copy from pageable
+memory would block the host until everything the stream queued before
+it had run), copies them in without blocking, replays, issues the copies
+of the outputs into pinned host buffers (stream-ordered before any later
+replay, so no clone is needed) and records an event after them, and
+returns a `PendingCall` at once. `PendingCall.wait` polls that event
+under the card's capture lock (`GraphPool.capture_lock`: every capture
+holds it, inside the card's lock), releasing it between polls, and then
+reads the pinned buffers, a plain host copy. A capture on another thread
+meets no CUDA call of either half: the pinned buffers are made and
+copied to or from, and every event is made and recorded, under the
+card's lock; every event is queried, read and destroyed under its
+capture lock. Each (bucket, rung) keeps a free list of such buffer sets,
+one a call in flight, `slots` of them made at build and more under the
+lock as calls need them. The eager `eigh`'s status read and early exit's
+frozen reads still wait, inside `enqueue`, for this call's graph one
+(and so for whatever the stream queued before it), first on an event
+polled between sleeps (`_wait_for_card`): with the blocking read alone,
+the settle thread answered the batch before only about when that read
+returned. With the random init and no early exit nothing in `enqueue`
+waits for the card.
+
 The kernel wrappers count launches in Python, so a replay adds nothing to
 their `LAUNCHES`: each executable records the launches its capture
 recorded (`launches`, all its graphs), and `replays` how often it ran; a
@@ -115,6 +139,7 @@ from alphafold2_tpu_torch.serving.pipeline import (
     staged_step,
 )
 from alphafold2_tpu_torch.utils.graphs import capture_error, launch_counts, launches_between
+from alphafold2_tpu_torch.utils.rng import Streams
 
 OUTPUTS = ("coords", "confidence", "stress")  # what a call returns; "exit_depth" too
 #                                               with early exit armed
@@ -127,11 +152,13 @@ def _outputs(early_exit_depths) -> tuple:
 class GraphPool:
     """A CUDA device's capture state, shared by every engine and executable
     of the process on it: `lock`, under which graphs capture and replay
-    one at a time, the graph memory pool they capture into (`pool_for`),
-    and `stream`, the side stream every capture and warm-up runs on (the
-    allocator hands a capture only blocks of its own stream, so one
-    stream a card is what lets a capture reuse what another freed).
-    `GraphPool(device)` returns the card's one instance."""
+    one at a time; `capture_lock`, which a capture also holds (inside
+    `lock`) and a pipelined settle's event polls take alone; the graph
+    memory pool they capture into (`pool_for`); and `stream`, the side
+    stream every capture and warm-up runs on (the allocator hands a
+    capture only blocks of its own stream, so one stream a card is what
+    lets a capture reuse what another freed). `GraphPool(device)` returns
+    the card's one instance."""
 
     _cards = {}
     _cards_guard = threading.Lock()
@@ -148,6 +175,7 @@ class GraphPool:
                 card.device = torch.device("cuda", index)
                 card._stream = None
                 card.lock = threading.RLock()
+                card.capture_lock = threading.Lock()
                 card._guard = threading.RLock()  # re-entrant: a collection may finalize here
                 card._handle, card._graphs = None, 0
             return card
@@ -220,11 +248,14 @@ class EagerExecutable:
         self.stage_replays = ()
 
     def __call__(self, tokens, mask, msa=None, msa_mask=None, *, seed=None):
-        # no `events`: off the card the engine times the host window
+        # no `events`: off the card the engine times the host window. A
+        # call's own streams, seeded as the engine's would be: a pipelined
+        # engine's settle thread may call while its worker does
+        streams = None if self.streams is None else Streams(self.streams.device)
         out = predict_structure(self.params, self.cfg, tokens, mask=mask, msa=msa,
                                 msa_mask=msa_mask, mds_iters=self.mds_iters,
                                 mds_init=self.mds_init,
-                                generator=_init_generator(self.streams, self.mds_init, seed),
+                                generator=_init_generator(streams, self.mds_init, seed),
                                 device=None if self.model_apply_fn else self.device,
                                 model_apply_fn=self.model_apply_fn,
                                 early_exit_depths=self.early_exit_depths,
@@ -256,7 +287,7 @@ class CapturedExecutable:
     def __init__(self, params, cfg, *, batch: int, bucket: int, msa_rows: int,
                  mds_iters: int, device, pool: GraphPool, mds_init: str = "classical",
                  streams=None, early_exit_depths=(), early_exit_kl: float = 0.0,
-                 model_apply_fn=None, apply_name: str = "the forward"):
+                 model_apply_fn=None, apply_name: str = "the forward", slots: int = 0):
         self.params, self.cfg, self.device, self.pool = params, cfg, device, pool
         self.model_apply_fn = model_apply_fn
         self.mds_iters, self.mds_init, self.streams = mds_iters, mds_init, streams
@@ -294,45 +325,58 @@ class CapturedExecutable:
                 self._eigh()
                 self.out = self._back()
                 torch.cuda.synchronize(device)
-                before = launch_counts()
-                self.stage_graphs = [torch.cuda.CUDAGraph() for _ in self.checkpoints]
-                self.graphs = (torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph())
-                self.state, self.all_frozen = None, []
-                self.geo = self.start = self.out = None
-                for k, graph in enumerate(self.stage_graphs):
-                    at = launch_counts()
-                    try:
-                        with torch.cuda.graph(graph, pool=pool.pool_for(graph), stream=stream):
-                            self._stage(k)
-                    except RuntimeError as e:
-                        raise capture_error(
-                            f"early-exit stage {k} (layers to depth {self.checkpoints[k]}; "
-                            f"bucket {bucket}, batch {batch})", e) from e
-                    self.stage_launches.append(launches_between(at, launch_counts()))
-                at = launch_counts()
-                try:
-                    with (streams.capturing(self.graphs[0]) if self.random
-                          else contextlib.nullcontext()), \
-                            torch.cuda.graph(self.graphs[0], pool=pool.pool_for(self.graphs[0]),
-                                             stream=stream):
-                        self.geo, self.start = self._front()
-                except RuntimeError as e:
-                    raise capture_error(
-                        f"{apply_name} and the distogram geometry (bucket {bucket}, "
-                        f"batch {batch})", e) from e
-                try:
-                    with torch.cuda.graph(self.graphs[1], pool=pool.pool_for(self.graphs[1]),
-                                          stream=stream):
-                        self.out = self._back()
-                except RuntimeError as e:
-                    raise capture_error(
-                        f"the MDS init and Guttman steps (bucket {bucket}, batch {batch})",
-                        e) from e
-                after = launch_counts()
+                # the captures also exclude a pipelined settle's polls
+                # (`PendingCall.wait`), which take the capture lock only
+                with pool.capture_lock:
+                    before, at, after = self._capture(pool, stream, bucket, batch, apply_name)
             torch.cuda.current_stream(device).wait_stream(stream)
+            # the pipelined window's pinned buffers, made here under the lock
+            self._slots = [self._new_slot() for _ in range(slots)]
         self.launches = launches_between(before, after)
         self.tail_launches = launches_between(at, after)  # graphs one and two
         self.seconds = time.perf_counter() - t0
+
+    def _capture(self, pool: GraphPool, stream, bucket: int, batch: int, apply_name: str):
+        """The stage graphs, graph one and graph two, captured on `stream`
+        (the caller holds the card's lock and its capture lock); returns
+        the launch counts before the captures, before graph one, and after
+        them."""
+        before = launch_counts()
+        self.stage_graphs = [torch.cuda.CUDAGraph() for _ in self.checkpoints]
+        self.graphs = (torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph())
+        self.state, self.all_frozen = None, []
+        self.geo = self.start = self.out = None
+        for k, graph in enumerate(self.stage_graphs):
+            at = launch_counts()
+            try:
+                with torch.cuda.graph(graph, pool=pool.pool_for(graph), stream=stream):
+                    self._stage(k)
+            except RuntimeError as e:
+                raise capture_error(
+                    f"early-exit stage {k} (layers to depth {self.checkpoints[k]}; "
+                    f"bucket {bucket}, batch {batch})", e) from e
+            self.stage_launches.append(launches_between(at, launch_counts()))
+        at = launch_counts()
+        try:
+            with (self.streams.capturing(self.graphs[0]) if self.random
+                  else contextlib.nullcontext()), \
+                    torch.cuda.graph(self.graphs[0], pool=pool.pool_for(self.graphs[0]),
+                                     stream=stream):
+                self.geo, self.start = self._front()
+        except RuntimeError as e:
+            raise capture_error(
+                f"{apply_name} and the distogram geometry (bucket {bucket}, "
+                f"batch {batch})", e) from e
+        try:
+            with torch.cuda.graph(self.graphs[1], pool=pool.pool_for(self.graphs[1]),
+                                  stream=stream):
+                self.out = self._back()
+        except RuntimeError as e:
+            raise capture_error(
+                f"the MDS init and Guttman steps (bucket {bucket}, batch {batch})",
+                e) from e
+        after = launch_counts()
+        return before, at, after
 
     def _stage(self, k: int):
         """Stage k of the staged trunk on the state; a later stage also
@@ -394,9 +438,10 @@ class CapturedExecutable:
         return self.geo["distogram_logits"]
 
     def release(self):
-        """Drop the graphs and their static buffers (the caller holds the
-        card's lock); the counters stay. A later call raises."""
-        self.stage_graphs, self.graphs = [], ()
+        """Drop the graphs, their static buffers and the free pinned
+        buffers (the caller holds the card's lock); the counters stay. A
+        later call raises."""
+        self.stage_graphs, self.graphs, self._slots = [], (), []
         self.state, self.all_frozen = None, []
         self.geo = self.start = self.out = self.evals = self.evecs = None
         self.tokens = self.mask = self.msa = self.msa_mask = None
@@ -412,14 +457,52 @@ class CapturedExecutable:
                 out[name] = out.get(name, 0) + k * n
         return out
 
-    def _replay_stages(self):
-        """Stage 0, then each later stage until every sample has frozen."""
+    def _replay_stages(self, poll: bool = False):
+        """Stage 0, then each later stage until every sample has frozen;
+        `poll`: wait for each read's stage as `_wait_for_card` does."""
         last = len(self.stage_graphs) - 1
         for k, graph in enumerate(self.stage_graphs):
             graph.replay()
             self.stage_replays[k] += 1
-            if 0 < k < last and bool(self.all_frozen[k].item()):
-                return
+            if 0 < k < last:
+                if poll:
+                    self._wait_for_card()
+                if bool(self.all_frozen[k].item()):
+                    return
+
+    @staticmethod
+    def _wait_for_card():
+        """Wait for the work queued on the current stream on an event polled
+        between sleeps (the caller holds the card's lock), so the host read
+        that follows (the eager `eigh`'s status, an early-exit stage's
+        frozen flag) finds its data ready. With the blocking read alone a
+        pipelined engine's settle thread answered the batch before only
+        about when this batch's graph one was done (chip_smoke phase 21's
+        timeline: classical p50 at depth 2 632-686 ms against 464-481 at
+        depth 0, 460-479 with this wait); what held it back is not
+        isolated (`chip_smoke.gil_probe`: the waits themselves release the
+        interpreter lock)."""
+        event = torch.cuda.Event()
+        event.record()
+        while not event.query():
+            time.sleep(PendingCall.POLL_S)
+
+    def _check_live(self):
+        if not self.graphs:
+            raise RuntimeError("the executable's graphs were released "
+                               "(ServingEngine.release_graphs)")
+
+    def _replay_all(self, poll: bool = False):
+        """The stage graphs, graph one, the eager eigh and graph two;
+        `poll`: the host reads wait as `_wait_for_card` does (the pipelined
+        call)."""
+        self._replay_stages(poll)
+        self.graphs[0].replay()
+        if poll and not self.random:
+            self._wait_for_card()
+        self._eigh()
+        self.graphs[1].replay()
+        self.replays += 1
 
     def __call__(self, tokens, mask, msa=None, msa_mask=None, *, seed=None, events=None):
         """`events`: a (start, end) pair of timing `torch.cuda.Event`s,
@@ -427,9 +510,7 @@ class CapturedExecutable:
         and the clones out, under the pool's lock (so outside any capture);
         read them after the outputs are on the host."""
         with self.pool.lock, torch.inference_mode():
-            if not self.graphs:
-                raise RuntimeError("the executable's graphs were released "
-                                   "(ServingEngine.release_graphs)")
+            self._check_live()
             if events is not None:
                 events[0].record()
             # the reseed and the replays are one step under the lock: a
@@ -440,12 +521,97 @@ class CapturedExecutable:
             if self.msa is not None:
                 self.msa.copy_(torch.from_numpy(np.asarray(msa)))
                 self.msa_mask.copy_(torch.from_numpy(np.asarray(msa_mask)))
-            self._replay_stages()
-            self.graphs[0].replay()
-            self._eigh()
-            self.graphs[1].replay()
-            self.replays += 1
+            self._replay_all()
             out = {k: self.out[k].clone() for k in self.outputs}
             if events is not None:
                 events[1].record()
             return out
+
+    def _new_slot(self):
+        """One call's pinned host buffers (the caller holds the card's
+        lock): the inputs in the static buffers' dtypes, the outputs in
+        the graphs' output layouts (so each copy is one memcpy), each with
+        its numpy view, through which the host reads and writes them."""
+        inputs = {"tokens": self.tokens, "mask": self.mask}
+        if self.msa is not None:
+            inputs.update(msa=self.msa, msa_mask=self.msa_mask)
+        buffers = {}
+        for name, t in list(inputs.items()) + [(k, self.out[k]) for k in self.outputs]:
+            host = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device="cpu",
+                                       pin_memory=True)
+            buffers[name] = (host, host.numpy())
+        return buffers
+
+    def enqueue(self, tokens, mask, msa=None, msa_mask=None, *, seed=None, timing=False):
+        """The pipelined call (module docstring): under the card's lock,
+        the inputs through a free slot's pinned buffers, the replays, the
+        outputs' copies into the slot and an event after them; returns a
+        `PendingCall` without waiting for the outputs. `timing`: two
+        timing events around the call's stream work, read by `wait`."""
+        with self.pool.lock, torch.inference_mode():
+            self._check_live()
+            slot = self._slots.pop() if self._slots else self._new_slot()
+            staged = {"tokens": tokens, "mask": mask}
+            if self.msa is not None:
+                staged.update(msa=msa, msa_mask=msa_mask)
+            for name, value in staged.items():
+                slot[name][1][...] = value  # a host write: the slot is free
+            events = ((torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True)) if timing else None)
+            try:
+                if events is not None:
+                    events[0].record()
+                _init_generator(self.streams, self.mds_init, seed)
+                for name in staged:
+                    getattr(self, name).copy_(slot[name][0], non_blocking=True)
+                self._replay_all(poll=True)
+                # stream-ordered before any later replay reuses the graphs' memory
+                for k in self.outputs:
+                    slot[k][0].copy_(self.out[k], non_blocking=True)
+                done = events[1] if events is not None else torch.cuda.Event()
+                done.record()
+            except BaseException:
+                events = done = None  # destroyed under the lock
+                raise
+            return PendingCall(self, slot, done, events)
+
+
+class PendingCall:
+    """A call `CapturedExecutable.enqueue` issued. `wait()` polls its event
+    under the card's capture lock (`GraphPool.capture_lock`, which every
+    capture holds; released between polls), then copies the outputs out of
+    the slot's pinned buffers as numpy, puts the slot back on its
+    executable's free list and destroys the events, still under that lock.
+    Not under the card's call lock: an enqueue holds that lock while it
+    waits for its own graph one (the eager `eigh`), and a settle behind it
+    would wait that long too. `device_s`: the call's device seconds from
+    its timing events, once waited (None without them)."""
+
+    POLL_S = 2e-4  # seconds between polls of the event
+
+    def __init__(self, exe: CapturedExecutable, slot: dict, done, events):
+        self._exe, self._slot, self._done, self._events = exe, slot, done, events
+        self._out = None
+        self.device_s = None
+
+    def wait(self) -> dict:
+        lock = self._exe.pool.capture_lock
+        while self._out is None:
+            with lock:
+                if self._done.query():
+                    self._collect()
+                    break
+            time.sleep(self.POLL_S)
+        return self._out
+
+    def _collect(self):
+        """Under the card's capture lock, once the event has completed (the
+        worker pops free slots under the call lock: a list's append and
+        pop need no common lock)."""
+        self._out = {k: self._slot[k][1].copy() for k in self._exe.outputs}
+        if self._events is not None:
+            self.device_s = self._events[0].elapsed_time(self._events[1]) / 1e3
+        self._done = self._events = None  # destroyed under the lock
+        if self._exe.graphs:  # a released executable keeps no free slots
+            self._exe._slots.append(self._slot)
+        self._slot = None

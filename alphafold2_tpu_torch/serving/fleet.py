@@ -18,8 +18,7 @@ messages, metric names, terminal outcomes and counters, over the port's
     `sp_devices` (default: that many distinct cards; every shard must lie
     on the fleet's device, the engine's rule), and the hedge waste of an SP
     replica is billed by the cards its mesh occupies (`ServingEngine.
-    chips`), not by its shard count;
-  * the engine refuses `pipeline_depth` (ROADMAP A11a-pipelined).
+    chips`), not by its shard count.
 
 The single engine is one warm model in one process — a single hung batch,
 poisoned executable, or slow compile stalls the whole tier. This module

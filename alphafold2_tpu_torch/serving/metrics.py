@@ -13,6 +13,8 @@ Every count lives in a `telemetry.registry.MetricRegistry`:
              CUDA graph capture on the card, an eager executable on the CPU)
   latency:   histogram `serving_request_latency_seconds` (sliding window)
   padding:   gauge `serve_batch_pad_ratio`, padded rows / live rows
+  pipeline:  gauges `serve_pipeline_inflight` / `serve_pipeline_overlap_ratio`,
+             fed by the engine's pipelined dispatch (its settle thread)
 
 `snapshot()` keeps the JAX engine's JSON shape, `compiles` included
 (`count` = distinct buckets built, `seconds_by_bucket`), so one set of
@@ -73,6 +75,20 @@ class ServingMetrics:
         self._pad_ratio_gauge = self.registry.gauge(
             "serve_batch_pad_ratio",
             help="cumulative padded rows / live rows across dispatched batches")
+        # pipelined dispatch (the engine's settle thread): span = a batch's
+        # enqueue -> realized wall; window = the same span clamped against
+        # the batches realized before it (the seconds not billed twice).
+        # span / window > 1 exactly when batches in flight overlapped
+        self._pipe_lock = threading.Lock()
+        self._pipe_span_s = 0.0
+        self._pipe_window_s = 0.0
+        self._pipe_inflight = 0
+        self._pipe_inflight_gauge = self.registry.gauge(
+            "serve_pipeline_inflight", help="batches enqueued on device but not yet settled")
+        self._pipe_overlap_gauge = self.registry.gauge(
+            "serve_pipeline_overlap_ratio",
+            help="sum(enqueue->realized spans) / union of those spans; "
+                 "1.0 = synchronous dispatch, >1.0 = pipelined overlap")
         self._captures_lock = threading.Lock()
         self._capture_seconds = {}  # bucket -> seconds gauge
         # the tracker's `serving_capture_seconds_total{bucket}` gauge is the
@@ -116,6 +132,30 @@ class ServingMetrics:
                 "batch_occupancy": n_real / batch_shape,
                 "batch_latency_s": latency_s,
             })
+
+    def observe_pipeline_settle(self, span_s: float, window_s: float):
+        """One settled pipelined batch: its enqueue -> realized span and
+        that span's share not overlapping earlier batches. The published
+        overlap ratio is the cumulative span / window."""
+        with self._pipe_lock:
+            self._pipe_span_s += span_s
+            self._pipe_window_s += window_s
+            span, window = self._pipe_span_s, self._pipe_window_s
+        self._pipe_overlap_gauge.set(span / window if window > 0 else 0.0)
+
+    def pipeline_inflight_delta(self, delta: int):
+        """Track the batches enqueued but not yet settled."""
+        with self._pipe_lock:
+            self._pipe_inflight += delta
+            n = self._pipe_inflight
+        self._pipe_inflight_gauge.set(n)
+
+    def pipeline_snapshot(self) -> dict:
+        with self._pipe_lock:
+            span, window = self._pipe_span_s, self._pipe_window_s
+            inflight = self._pipe_inflight
+        return {"inflight": inflight, "span_seconds": span, "window_seconds": window,
+                "overlap_ratio": span / window if window > 0 else 0.0}
 
     @contextlib.contextmanager
     def capture_span(self, bucket: int):

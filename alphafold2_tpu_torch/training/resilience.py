@@ -39,7 +39,7 @@ from typing import Callable, Optional
 
 import torch
 
-from alphafold2_tpu_torch.reliability.faults import FaultPlan, check_training_plan
+from alphafold2_tpu_torch.reliability.faults import FaultPlan
 from alphafold2_tpu_torch.reliability.preemption import Preempted
 from alphafold2_tpu_torch.telemetry.goodput import NULL_TRAIN_TELEMETRY
 from alphafold2_tpu_torch.telemetry.trace import NULL_TRACER
@@ -242,13 +242,12 @@ def resilient_mode(args) -> bool:
 
 def chaos_from_args(args):
     """(injector, checkpoint fault hook, effective max_restarts) from the
-    recovery flags; a plan without a restart budget gets 3. A plan with a
-    kind the port has no hook for raises (ROADMAP A11b)."""
+    recovery flags; a plan without a restart budget gets 3. The plan's
+    serving kinds have no hook here and never fire, as in the JAX
+    package."""
     injector, ckpt_hook = None, None
     if args.fault_plan is not None:
-        plan = FaultPlan.from_file(args.fault_plan)
-        check_training_plan(plan, "--fault-plan")
-        injector = plan.injector()
+        injector = FaultPlan.from_file(args.fault_plan).injector()
         ckpt_hook = injector.checkpoint_hook()
     max_restarts = args.max_restarts or (3 if args.fault_plan else 0)
     return injector, ckpt_hook, max_restarts

@@ -420,6 +420,31 @@ each phase prints its seconds):
      (d) the same with pools: a dense pool (128 / 256) and an sp_shards
          pool (the SP engine's config), a per-pool autoscaler each, each
          result bit for bit its pool's bare engine;
+  21. pipelined dispatch (the engine's `pipeline_depth`: the worker
+     enqueues through `CapturedExecutable.enqueue`, a settle thread waits
+     by polling an event under the card's capture lock), phase 8b's stream
+     at the served config with no result cache:
+     (a) engines at depths 0, 1 and 2 (every (bucket, rung) captured at
+         build), the classical and the random init, the stream through
+         them in turns (0, 1, 2, 2, 1, 0): every result bit for bit the
+         depth-0 engine's executable on the batch that served it (its
+         padded inputs and init index recorded), no CaptureError,
+         `serve_pipeline_inflight` never past the depth;
+     (b) at depth 2 (random init), the stream pass after pass while a
+         second engine on the card precompiles its 9 graphs on another
+         thread and a thread scrapes the engine's ops server: bit for bit
+         (a)'s, every scrape 200, no CaptureError;
+     (c) a 2-replica fleet at depth 2 under 19b's kill of r0: nothing
+         lost, every result bit for bit the depth-0 engine's at its rung;
+         a warm-up and 3 drain and reinstate cycles of r0 with a burst in
+         flight: nothing lost, memory allocated over the 3 flat (5%);
+     (d) reported, no limit: requests/s, p50, p95, mean latency, mean
+         batch and the overlap ratio of each turn of (a), and one more
+         pass a depth and init, each under a torch.profiler of its
+         own (the card's busy share: the union of the kernels' intervals
+         over the pass's wall), each beside the card's name and power
+         limit; the settle thread's event queries; which host waits for
+         the card keep the interpreter lock (`gil_probe`);
   5. a `kernels` JSON line (sixteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, the three sparse kernels with dropout, B3's forward and its
@@ -7832,6 +7857,502 @@ def phase_sp_serving(smi):
     return launches
 
 
+# --- phase 21: pipelined dispatch on the card ----------------------------------------
+
+PIPE_DEPTHS = (0, 1, 2)
+PIPE_TURNS = (0, 1, 2, 2, 1, 0)  # the depths in turns (21a, 21d)
+PIPE_INITS = ("classical", "random")
+
+
+class RecordingEngine(ServingEngine):
+    """The engine with each device call's padded batch and init index kept
+    (`calls`), so every result can be held against the depth-0 engine's
+    executable on the same batch; `timeline` holds each call's host window
+    and each batch's response time; `max_inflight` is the largest
+    `serve_pipeline_inflight` it published."""
+
+    def __init__(self, *args, **kwargs):
+        self.calls, self.timeline, self.max_inflight = [], [], 0
+        super().__init__(*args, **kwargs)
+        publish = self.metrics.pipeline_inflight_delta
+
+        def delta(n):
+            publish(n)
+            gauges = self.metrics.registry.snapshot()["gauges"]
+            self.max_inflight = max(self.max_inflight, int(gauges["serve_pipeline_inflight"]))
+
+        self.metrics.pipeline_inflight_delta = delta
+
+    def _call_executable(self, bucket, tokens, mask, msa=None, msa_mask=None):
+        t0 = time.perf_counter()
+        out = super()._call_executable(bucket, tokens, mask, msa, msa_mask)
+        with self._counter_lock:
+            index = self._batch_counter
+        self.calls.append((bucket, tokens.copy(), mask.copy(), msa.copy(), msa_mask.copy(),
+                           index))
+        self.timeline.append(("call", bucket, tokens.shape[0], t0, time.perf_counter()))
+        return out
+
+    def _respond(self, bucket, shape, live, *args, **kwargs):
+        self.timeline.append(("done", bucket, shape, time.perf_counter(), None))
+        return super()._respond(bucket, shape, live, *args, **kwargs)
+
+
+def pipe_scfg(**fields):
+    """Phase 8b's served engine config (buckets 128 / 256 / 384, rungs 1, 2,
+    4, 20 MSA rows, 200 MDS iterations), every (bucket, rung) captured at
+    build, no result cache."""
+    return fleet_scfg(precompile=True, **fields)
+
+
+def held_to_depth0(engine, ref_engine, results, stream, cache):
+    """Each result against the depth-0 engine's executable on the batch
+    `engine` ran it in (`RecordingEngine.calls`: the padded inputs and the
+    init index; the request's row is the first that holds its tokens):
+    [(index, rung, bit_equal)]. Memoized in `cache` by the batch (and the
+    index, for the random init)."""
+    rows = []
+    random_init = ref_engine.cfg.mds_init == "random"
+    for i, (res, (seq, msa, mm)) in enumerate(zip(results, stream)):
+        if isinstance(res, Exception):
+            rows.append((i, None, False))
+            continue
+        fb = featurize_request(seq, msa, mm, ladder=ref_engine._ladder, msa_rows=ENGINE_ROWS)
+        L = len(fb.tokens)
+        found = [(call, r) for call in engine.calls for r in range(call[1].shape[0])
+                 if call[0] == fb.bucket and int(call[2][r].sum()) == L
+                 and np.array_equal(call[1][r, :L], fb.tokens)]
+        if not found:
+            rows.append((i, None, False))
+            continue
+        (bucket, tokens, mask, msa_b, mmask_b, index), r = found[0]
+        key = (bucket, tokens.tobytes(), msa_b.tobytes(), mmask_b.tobytes(),
+               index if random_init else None)
+        if key not in cache:
+            exe = ref_engine._executables[(bucket, tokens.shape[0])]
+            with ref_engine.graph_lock or contextlib.nullcontext():
+                out = exe(tokens, mask, msa_b, mmask_b, seed=ref_engine.init_seed(index))
+                cache[key] = {k: v.cpu().numpy() for k, v in out.items()}
+        ref = cache[key]
+        ok = (np.array_equal(res.coords, ref["coords"][r, :L])
+              and np.array_equal(res.confidence, ref["confidence"][r, :L])
+              and res.stress == float(ref["stress"][r]) and res.bucket == bucket)
+        rows.append((i, tokens.shape[0], ok))
+    return rows
+
+
+def pipe_pass(engine, ref_engine, stream, cache, window=None):
+    """One pass of `stream` through `engine` (submitted at once), held to
+    depth 0: the numbers of phase 19f's turns, the pass's mean latency,
+    mean batch, dispatch order and timeline, the settle thread's event
+    queries (count, longest, total host time), and (depth > 0) the overlap
+    ratio from the engine's counters. `window`: a context around the pass
+    alone (not its references), e.g. a profiler."""
+    engine.calls.clear()
+    engine.timeline.clear()
+    before = engine.stats()
+    queries = []  # the host seconds of each event query the settle thread made
+    query = torch.cuda.Event.query
+
+    def timed_query(event):
+        t0 = time.perf_counter()
+        done = query(event)
+        queries.append(time.perf_counter() - t0)
+        return done
+
+    torch.cuda.Event.query = timed_query
+    try:
+        with window if window is not None else contextlib.nullcontext():
+            results, wall = run_stream(engine, stream)
+            sync()
+    finally:
+        torch.cuda.Event.query = query
+    after = engine.stats()
+    rows = held_to_depth0(engine, ref_engine, results, stream, cache)
+    batches = after["batches"]["count"] - before["batches"]["count"]
+    lat = [r.latency_s for r in results if not isinstance(r, Exception)]
+    out = {"depth": engine.cfg.pipeline_depth, **stream_numbers(results, wall),
+           "mean_ms": 1e3 * sum(lat) / max(1, len(lat)),
+           "mean_batch": len(results) / batches if batches else 0.0,
+           "bit_equal": sum(ok for *_, ok in rows), "requests": len(rows),
+           "rungs": sorted({r for _, r, _ in rows if r}),
+           "queries": len(queries), "query_ms_max": 1e3 * max(queries, default=0.0),
+           "query_ms_total": 1e3 * sum(queries),
+           "order": [(c[0], c[1].shape[0]) for c in engine.calls],  # (bucket, rung) a call
+           # ("call", bucket, rung, start, end) a device call and ("done", bucket, rung,
+           # t) a batch's response, host seconds from the pass's first call
+           "timeline": [(kind, b, r, t0 - engine.timeline[0][3],
+                         None if t1 is None else t1 - engine.timeline[0][3])
+                        for kind, b, r, t0, t1 in engine.timeline]}
+    if engine.cfg.pipeline_depth:
+        span = after["pipeline"]["span_seconds"] - before["pipeline"]["span_seconds"]
+        billed = after["pipeline"]["window_seconds"] - before["pipeline"]["window_seconds"]
+        out["overlap_ratio"] = span / billed if billed > 0 else 0.0
+    return out
+
+
+def kernel_union_us(events):
+    """The union of a Chrome trace's kernel intervals, in microseconds."""
+    busy, end = 0.0, None
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("ph") == "X" and e.get("cat") == "kernel"):
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    return busy
+
+
+def pipe_profiled(engines, state, init):
+    """(d)'s busy shares: one more pass of each depth, each pass alone in a
+    torch.profiler of the card's activity; from its Chrome trace,
+    the union of the kernels' intervals over the pass's wall (None when the
+    trace shows no kernel)."""
+    out = []
+    for d in PIPE_DEPTHS:
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        t = pipe_pass(engines[d], engines[0], state["stream"], state["refs"][init], window=prof)
+        path = ROOT / "build" / "phase21_trace.json"
+        path.parent.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(path))
+        busy = kernel_union_us(json.loads(path.read_text())["traceEvents"])
+        path.unlink()
+        t.update(device_ms=busy / 1e3, busy_share=busy / (1e6 * t["wall_s"]) if busy else None)
+        out.append(t)
+    return out
+
+
+def gil_probe(reps=3, queued=40):
+    """(d) Which host waits for the card keep the interpreter lock: a thread
+    ticks every millisecond while the main thread waits, `reps` times
+    each, for `queued` f32 4096^2 products queued on the card (~100 ms)
+    in `torch.linalg.eigh` (a 64 x 64 matrix, and a (4, 384, 384) one: the
+    classical init's Gram matrices at bucket 384, rung 4), in
+    `Tensor.item`, in `Event.synchronize` and in an `Event.query` polled
+    between 0.2 ms sleeps (`CapturedExecutable._wait_for_card`): each
+    kind's longest gap between ticks (the median over `reps`) beside its
+    wait."""
+    x = torch.randn(4096, 4096, device="cuda")
+    y = torch.empty_like(x)
+    g = torch.eye(64, device="cuda") * 2.0
+    m = torch.randn(4, 384, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    gram = m @ m.transpose(1, 2) + torch.eye(384, device="cuda")
+    ticks, stop = [], threading.Event()
+
+    def ticker():
+        while not stop.is_set():
+            ticks.append(time.perf_counter())
+            time.sleep(1e-3)
+
+    def poll():
+        event = torch.cuda.Event()
+        event.record()
+        while not event.query():
+            time.sleep(2e-4)
+
+    def synced():
+        event = torch.cuda.Event()
+        event.record()
+        event.synchronize()
+
+    waits = {"eigh 64": lambda: torch.linalg.eigh(g),
+             "eigh (4, 384, 384)": lambda: torch.linalg.eigh(gram),
+             "item": lambda: y[0, 0].item(),
+             "event_synchronize": synced, "event_query_poll": poll}
+    thread = threading.Thread(target=ticker, name="af2-smoke-ticker", daemon=True)
+    thread.start()
+    out = {}
+    try:
+        for name, wait in waits.items():
+            gaps, spans = [], []
+            for _ in range(reps):
+                sync()
+                for _ in range(queued):
+                    torch.matmul(x, x, out=y)
+                t0 = time.perf_counter()
+                wait()
+                t1 = time.perf_counter()
+                inside = [t for t in list(ticks) if t0 <= t <= t1]
+                points = [t0] + inside + [t1]
+                gaps.append(max(b - a for a, b in zip(points, points[1:])))
+                spans.append(t1 - t0)
+            out[name] = {"wait_ms": 1e3 * sorted(spans)[reps // 2],
+                         "longest_gap_ms": 1e3 * sorted(gaps)[reps // 2]}
+    finally:
+        stop.set()
+        thread.join(10)
+    return out
+
+
+def pipe_concurrent_capture(engines, state, init):
+    """(b) The depth-2 engine serves the stream, pass after pass, while a
+    second engine on the card precompiles its 9 (bucket, rung) graphs on
+    another thread and a thread scrapes /metrics, /healthz and /statusz of
+    the engine's ops server: every pass bit for bit depth 0, every scrape
+    200, no CaptureError and no failed batch, the second engine built."""
+    engine, ref = engines[2], engines[0]
+    ops = ops_server_for_engine(engine, tick_interval_s=0.05)
+    ops.start()
+    scrapes, stop = [], threading.Event()
+    scraper = threading.Thread(target=scrape_loop, args=(ops.url, stop, scrapes),
+                               name="af2-smoke-pipe-scraper", daemon=True)
+    box = {}
+
+    def build():
+        try:
+            box["engine"] = ServingEngine(state["params"], state["cfg"],
+                                          pipe_scfg(mds_init=init), device="cuda")
+        except Exception as e:  # noqa: BLE001 — checked below
+            box["error"] = e
+
+    building = threading.Thread(target=build, name="af2-smoke-pipe-build", daemon=True)
+    passes = []
+    with FailureLog() as failures:
+        scraper.start()
+        try:
+            building.start()
+            while building.is_alive() or len(passes) < 2:
+                passes.append(pipe_pass(engine, ref, state["stream"], state["refs"][init]))
+                if len(passes) >= 20:
+                    break
+            building.join(FLEET_TIMEOUT)
+        finally:
+            stop.set()
+            scraper.join(30)
+            ops.stop()
+            if "engine" in box:
+                box["engine"].shutdown(drain=False, timeout=60)
+                box["engine"].release_graphs(60)
+                FLEET_ENGINES.append(box["engine"])
+    checks = {
+        "bit for bit depth 0": all(p["bit_equal"] == p["requests"] for p in passes),
+        "nothing lost": all(p["failed"] == 0 for p in passes),
+        "second engine built while serving": "engine" in box and not building.is_alive()
+        and len(box["engine"]._executables) == len(ENGINE_BUCKETS) * 3,
+        "no CaptureError, no failed batch": not failures.captures and not failures.failures,
+        "scrapes 200": bool(scrapes) and all(code == 200 for _, code, _, _ in scrapes),
+    }
+    return {"passes": passes, "scrapes": len(scrapes), "checks": checks,
+            "error": repr(box.get("error")), "ok": all(checks.values())}
+
+
+def phase_pipeline_depths(state, smi):
+    """(a) and (d) for each init, (b) for the random one (whose enqueue
+    never waits, so the most work is in flight when the capture comes):
+    engines at depths 0, 1 and 2 (every (bucket, rung) captured at build,
+    no cache); the stream through them in turns 0, 1, 2, 2, 1, 0, every
+    result bit for bit the depth-0 engine's executable on its batch,
+    `serve_pipeline_inflight` never past the depth; (b) at depth 2; (d)
+    one more pass of each depth under torch.profiler."""
+    out = {}
+    for init in PIPE_INITS:
+        state["refs"][init] = {}
+        engines = {}
+        t0 = time.perf_counter()
+        try:
+            for d in PIPE_DEPTHS:
+                engines[d] = RecordingEngine(state["params"], state["cfg"],
+                                             pipe_scfg(mds_init=init, pipeline_depth=d),
+                                             device="cuda")
+                FLEET_ENGINES.append(engines[d])
+            build_s = time.perf_counter() - t0
+            with FailureLog() as failures:
+                turns = [pipe_pass(engines[d], engines[0], state["stream"], state["refs"][init])
+                         for d in PIPE_TURNS]
+            t1 = time.perf_counter()
+            concurrent = (pipe_concurrent_capture(engines, state, init) if init == "random"
+                          else None)
+            t2 = time.perf_counter()
+            profiled = pipe_profiled(engines, state, init)
+            log(f"[time] pipeline {init}: builds {build_s:.1f} s, turns {t1 - t0 - build_s:.1f} "
+                f"s, (b) {t2 - t1:.1f} s, profiled passes {time.perf_counter() - t2:.1f} s")
+        finally:
+            for d, engine in engines.items():
+                if init == "classical" and d == 0:
+                    # (c)'s bare engine: its executables serve the references
+                    state["bare"] = engine
+                    continue
+                engine.shutdown(drain=False, timeout=60)
+                engine.release_graphs(60)
+        inflight = {d: engines[d].max_inflight for d in PIPE_DEPTHS}
+        checks = {
+            "bit for bit depth 0": all(t["bit_equal"] == t["requests"]
+                                       for t in turns + profiled),
+            "nothing lost": all(t["failed"] == 0 for t in turns + profiled),
+            "no CaptureError, no failed batch": not failures.captures
+            and not failures.failures,
+            "inflight within the depth": all(inflight[d] <= d for d in PIPE_DEPTHS)
+            and inflight[2] >= 1,
+        }
+        ok = all(checks.values())
+        for t in turns + profiled:
+            busy = t.get("busy_share")
+            log(f"[pipeline d] {init} depth {t['depth']}: {t['requests_per_s']:.2f} requests/s, "
+                f"p50 {t['p50_ms']:.1f} ms, p95 {t['p95_ms']:.1f} ms, mean {t['mean_ms']:.1f} "
+                f"ms, mean batch {t['mean_batch']:.2f}"
+                + (f", overlap {t['overlap_ratio']:.3f}, {t['queries']} event queries (longest "
+                   f"{t['query_ms_max']:.2f} ms, {t['query_ms_total']:.1f} ms in all)"
+                   if "overlap_ratio" in t else "")
+                + (f", busy {'not measured' if busy is None else f'{busy:.3f}'} (profiled)"
+                   if "device_ms" in t else "") + f" ({smi})")
+        log(f"[pipeline a] {init}: 3 engines built in {build_s:.1f} s; turns {PIPE_TURNS}: bit "
+            f"for bit depth 0 {[t['bit_equal'] for t in turns]}/{len(state['stream'])} (rungs "
+            f"{sorted({r for t in turns for r in t['rungs']})}); max inflight {inflight}; "
+            f"{checks} {'ok' if ok else 'FAIL'}")
+        c = concurrent
+        if c is not None:
+            log(f"[pipeline b] {init}, depth 2 beside a precompiling engine: "
+                f"{len(c['passes'])} passes ({[p['bit_equal'] for p in c['passes']]} bit for "
+                f"bit), {c['scrapes']} scrapes; {c['checks']} {'ok' if c['ok'] else 'FAIL'}")
+            checks.update({f"(b) {k}": v for k, v in c["checks"].items()})
+        out[init] = {"build_s": build_s, "turns": turns, "profiled": profiled,
+                     "inflight": inflight, "concurrent": concurrent, "checks": checks,
+                     "card": smi, "ok": all(checks.values())}
+    return out
+
+
+def phase_pipeline_fleet(state):
+    """(c) A 2-replica fleet at depth 2 (no precompile) under phase 19b's
+    kill (r0 latched at its first dispatch), the stream once: nothing
+    lost, no CaptureError and no failure but the injected ones, every
+    result bit for bit the depth-0 engine's at the rung its batch ran.
+    Then a fresh 2-replica fleet at depth 2 through a warm-up and 3 drain
+    and reinstate cycles of r0, each drain taken with the same burst of 4
+    requests in flight: nothing lost, each result bit for bit, memory
+    allocated after each of the 3 cycles within 5% of the first of them
+    (the warm-up's reading is reported; on an H100 it read 5.5% above the
+    later, flat ones: PERF.md §6)."""
+    cfg, params, stream = state["cfg"], state["params"], state["stream"]
+    bare = state["bare"]
+    injector = FaultPlan(faults=(Fault("kill_replica", replica="r0", at=0),)).injector()
+    tracer = Tracer(max_spans=1_000_000)
+    with FailureLog() as failures:
+        fleet = TrackedFleet(params, cfg, fleet_scfg(pipeline_depth=2),
+                             fleet_cfg(replicas=2, reprobe_interval_s=0.2), tracer=tracer,
+                             injector=injector, device="cuda")
+        try:
+            results, wall = run_stream(fleet, stream)
+            stats = fleet.stats()
+        finally:
+            fleet.shutdown(drain=True, timeout=60)
+    rows = held_to(results, stream, served_rungs(tracer), lambda res: bare, state["fleet_refs"])
+    reqs = stats["requests"]
+    requeued = sum(1 for r in results if not isinstance(r, Exception) and r.requeues)
+    kill = {"nothing lost": reqs["failed"] == 0 and reqs["in_flight"] == 0
+            and reqs["completed"] == len(stream),
+            "only injected failures, no CaptureError": failures.only_injected(),
+            "requeues counted": stats["telemetry"]["metrics"]["counters"]
+            ["fleet_requeue_total"] > 0 and requeued > 0,
+            "bit for bit the bare engine": all(ok for *_, ok in rows)}
+    tracer = Tracer(max_spans=1_000_000)
+    fleet = TrackedFleet(params, cfg, fleet_scfg(pipeline_depth=2),
+                         fleet_cfg(replicas=2, reprobe_interval_s=0.05), tracer=tracer,
+                         device="cuda")
+    allocated, burst_rows, served_by, in_flight_at_drain = [], [], [], []
+    with FailureLog() as cycle_failures:
+        try:
+            burst = stream[:4]
+            for k in range(4):
+                pending = [fleet.submit(seq, msa=msa, msa_mask=mm) for seq, msa, mm in burst]
+                # drain r0 once a batch of the burst is in flight on it (up
+                # to 10 s; whether one was is reported)
+                deadline = time.monotonic() + 10
+                while time.monotonic() < deadline:
+                    engine = fleet._replicas["r0"].engine
+                    if engine is not None and engine.metrics.pipeline_snapshot()["inflight"]:
+                        in_flight_at_drain.append(True)
+                        break
+                    time.sleep(5e-4)
+                else:
+                    in_flight_at_drain.append(False)
+                fleet._health.force_down("r0", "phase 21c drain cycle")
+                got = []
+                for p in pending:
+                    try:
+                        got.append(p.result(timeout=FLEET_TIMEOUT))
+                    except Exception as e:  # noqa: BLE001 — an outcome, checked below
+                        got.append(e)
+                deadline = time.monotonic() + 60
+                while (fleet.stats()["health"]["targets"]["r0"]["reinstatements"] < k + 1
+                       and time.monotonic() < deadline):
+                    time.sleep(0.02)
+                served_by.append([getattr(r, "replica", None) for r in got])
+                burst_rows += held_to(got, burst, served_rungs(tracer), lambda res: bare,
+                                      state["fleet_refs"])
+                allocated.append(allocated_now())
+            targets = fleet.stats()["health"]["targets"]
+        finally:
+            fleet.shutdown(drain=True, timeout=60)
+    cycles = {"nothing lost, bit for bit": all(ok for *_, ok in burst_rows),
+              "no CaptureError, no failed batch": not cycle_failures.captures
+              and not cycle_failures.failures,
+              "r0 drained and reinstated 4 times": targets["r0"]["drains"] == 4
+              and targets["r0"]["reinstatements"] == 4,
+              "allocated flat": max(allocated[1:]) - min(allocated[1:])
+              <= 0.05 * allocated[1]}
+    ok = all(kill.values()) and all(cycles.values())
+    log(f"[pipeline c] 2 replicas at depth 2, r0 killed: {len(stream)} requests in "
+        f"{wall:.2f} s, {reqs}, {requeued} requeued, {injector.delivered}; {kill}; a warm-up "
+        f"and 3 drain cycles under a burst of 4 (a batch in flight on r0 at the drain: "
+        f"{in_flight_at_drain}; served by {served_by}): allocated "
+        f"{[round(a / 2**20, 1) for a in allocated]} MiB; {cycles} {'ok' if ok else 'FAIL'}")
+    return {"kill": kill, "rows": rows, "requests": reqs, "requeued": requeued,
+            "cycles": cycles, "allocated": allocated, "served_by": served_by,
+            "in_flight_at_drain": in_flight_at_drain, "ok": ok}
+
+
+def phase_pipeline(smi):
+    """21: pipelined dispatch in the captured engine. Counts set to 0 just
+    before (a) and read after (c): the wrappers' (every engine's warm-ups
+    and captures, the depth-0 references' replays counted by the
+    executables) plus every engine's replays; every B1f launch on wgmma."""
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        RECORD["phases"][f"pipeline_{key}_s"] = time.perf_counter() - t
+        log(f"[time] pipeline {key}: {RECORD['phases'][f'pipeline_{key}_s']:.1f} s")
+        return result
+
+    cfg = served_config()
+    state = {"cfg": cfg, "params": alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda"),
+             "stream": engine_stream(), "refs": {}, "fleet_refs": {}}
+    FLEET_ENGINES.clear()
+    reset_launches()
+    try:
+        depths = timed("abd", phase_pipeline_depths, state, smi)
+        fleet = timed("c", phase_pipeline_fleet, state)
+        gil = gil_probe()
+        log("[pipeline d] the longest gap of a 1 ms ticker thread while the main thread "
+            "waits for ~100 ms of queued card work, by wait: "
+            + ", ".join(f"{k} {v['longest_gap_ms']:.1f} ms of {v['wait_ms']:.1f}"
+                        for k, v in gil.items()) + f" ({smi})")
+    finally:
+        for engine in FLEET_ENGINES:
+            engine.shutdown(drain=False, timeout=60)
+            engine.release_graphs(60)
+    RECORD["phases"]["pipeline"] = {"depths": depths, "fleet": fleet, "gil": gil}
+    sync()
+    launches = launch_counts()
+    for engine in FLEET_ENGINES:
+        for name, n in engine.stats()["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    FLEET_ENGINES.clear()
+    for init, r in depths.items():
+        if not r["ok"]:
+            fail(f"pipelined dispatch failed a check on the card (phase 21a-b, {init}): "
+                 f"{r['checks']}"
+                 + (f" {r['concurrent']['error']}" if r["concurrent"] else ""))
+    if not fleet["ok"]:
+        fail(f"the pipelined fleet failed a check (phase 21c): {fleet['kill']} "
+             f"{fleet['cycles']}")
+    if not on_wgmma(launches):
+        fail(f"a phase 21 flash launch left its wgmma route: {launches}")
+    log(f"[pipeline] launches (wrappers and replays) "
+        f"{dict((k, n) for k, n in launches.items() if n)}, all on wgmma")
+    RECORD["phases"]["pipeline_launches"] = launches
+    return launches
+
+
 def _merged(*counts):
     out = {}
     for c in counts:
@@ -7893,7 +8414,9 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     and B4 launches likewise (the SP engines', the autoscaled fleets' and
     the bare references' warm-ups, captures and replays, and the eager
     references after the counts' reset: B3 in the captured SP graphs for
-    the first time)."""
+    the first time). Phase 21 adds its B1f launches: every engine's and
+    fleet replica's warm-ups, captures and replays at depths 0, 1 and 2,
+    the depth-0 references' replays included."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r
@@ -8066,6 +8589,8 @@ def main():
     for name, n in timed_phase("fleet", phase_fleet, smi).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in timed_phase("sp_serving", phase_sp_serving, smi).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in timed_phase("pipeline", phase_pipeline, smi).items():
         launches[name] = launches.get(name, 0) + n
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches, dropout_rows, dropout_times)

@@ -507,22 +507,30 @@ def test_fault_hooks_deliver_as_the_jax_injector_does(monkeypatch):
 
 
 def test_serving_plans_refuse_the_autoscaler_and_training_kinds():
-    """Serving plans refuse the training kinds; `scale_flap`, refused while
-    the autoscaler was not ported, is a serving kind now, and the
-    autoscaler's hook delivers it as JAX's does: alternating forced
-    demands at the scheduled tick indices."""
-    F = tfaults.Fault
-    tfaults.check_serving_plan(tfaults.FaultPlan(faults=(F("scale_flap"),)), "serve")
-    with pytest.raises(NotImplementedError, match="training kinds"):
-        tfaults.check_serving_plan(tfaults.FaultPlan(faults=(F("nan_grads"),)), "serve")
-    tfaults.check_serving_plan(tfaults.FaultPlan(faults=(F("kill_replica", replica="r0"),)),
-                               "serve")
+    """A serving plan with a training kind, refused until the refusal was
+    dropped, is taken as JAX's serve takes it: the training kind has no
+    serving hook and never fires. `scale_flap`, refused while the
+    autoscaler was not ported, is a serving kind, and the autoscaler's
+    hook delivers it as JAX's does: alternating forced demands at the
+    scheduled tick indices."""
     got, want = [], []
     for faults, out in ((tfaults, got), (jfaults, want)):
-        inj = faults.FaultPlan(faults=(faults.Fault("scale_flap", at=2, count=3),)).injector()
-        hook = inj.autoscale_hook()
-        out.extend([hook(i) for i in range(7)] + [inj.exhausted(), list(inj.delivered)])
+        F = faults.Fault
+        inj = faults.FaultPlan(faults=(F("scale_flap", at=2, count=3), F("nan_grads", at=0),
+                                       F("kill_replica", replica="r0", at=1))).injector()
+        hook, replica, serving = inj.autoscale_hook(), inj.replica_hook("r0"), \
+            inj.serving_hook()
+        out.extend([hook(i) for i in range(7)])
+        for i in range(3):
+            serving(i, 8)
+            try:
+                replica(i, 8)
+                out.append(None)
+            except faults.InjectedFault as e:
+                out.append(str(e)[:40])
+        out.extend([inj.exhausted(), list(inj.delivered)])
     assert got == want and got[:7] == [None, None, "up", "down", "up", None, None]
+    assert got[-2] is False and not any("nan_grads" in d for d in got[-1])
 
 
 @pytest.mark.parametrize("path", ["docs/examples/fleet_chaos_plan.json",
@@ -569,12 +577,25 @@ def test_store_tag_names_the_device_routes():
 
 
 def test_sp_pools_and_model_overrides_are_refused():
-    """Pipelined dispatch stays refused. The SP pool and the forward
-    override, refused until the SP arm was ported, are taken: a PoolSpec
-    with sp_shards validates as JAX's does, and an engine keeps the
-    override it was given."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A11a-pipelined"):
-        tengine.ServingConfig(pipeline_depth=1)
+    """Pipelined dispatch, the SP pool and the forward override, each refused
+    until it was ported, are taken: a fleet's base config at
+    pipeline_depth=1 builds pipelined replicas of JAX's outcomes (every
+    pool inherits the knob, as JAX's do), a PoolSpec with sp_shards
+    validates as JAX's does, and an engine keeps the override it was
+    given."""
+    got = {}
+    for name in ("jax", "torch"):
+        ns = PKGS[name]
+        fleet, _ = fleet_of(ns, replicas=1, scfg=scfg_of(ns, pipeline_depth=1),
+                            pools=(ns.fleet.PoolSpec("a", buckets=(8,)),
+                                   ns.fleet.PoolSpec("b", buckets=(16,))))
+        try:
+            got[name] = ([outcome(fleet.submit(seq_of(n))) for n in (5, 12)],
+                         sorted(rep["engine"]["pipeline"]["depth"]
+                                for rep in fleet.stats()["replicas"].values()))
+        finally:
+            fleet.shutdown(timeout=WAIT)
+    assert got["torch"] == got["jax"] and got["torch"][1] == [1, 1]
     spec = dict(sp_shards=4, buckets=(8, 16), sp_schedules=[[16, "sp_seq"]])
     assert (dataclasses.asdict(tfleet.PoolSpec("long", **spec))
             == dataclasses.asdict(jfleet.PoolSpec("long", **spec)))
@@ -629,7 +650,7 @@ CLI_TINY = ["--dim", "16", "--depth", "1", "--heads", "2", "--dim-head", "8", "-
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--pipeline-depth", "2"], "ROADMAP A11a-pipelined"),
+    (["--pipeline-depth", "2"], "pipelined dispatch, depth 2"),
     (["--sp-shards", "2"], "SP plan over 2 shards"),
     (["--max-replicas", "4"], "autoscaler: replicas in [1, 4]"),
     (["--min-replicas", "1", "--max-replicas", "4"], "autoscaler: replicas in [1, 4]"),
@@ -639,20 +660,15 @@ CLI_TINY = ["--dim", "16", "--depth", "1", "--heads", "2", "--dim-head", "8", "-
 ], ids=["pipeline_depth", "sp_shards", "max_replicas", "min_replicas", "scale_policy",
         "scale_grace", "sp_pool"])
 def test_cli_refused_flags_name_their_roadmap_item(argv, match, tmp_path, capsys):
-    """Pipelined dispatch is refused naming its ROADMAP item. The SP arm's
-    and the autoscaler's flags, refused until they were ported, run: each
-    prints what it armed (`--sp-shards 2` two CPU shards; a pool of 4)
-    and the replay exits 0."""
+    """Pipelined dispatch's, the SP arm's and the autoscaler's flags, each
+    refused naming its ROADMAP item until it was ported, run: each prints
+    what it armed (`--pipeline-depth 2` the engine's window; `--sp-shards
+    2` two CPU shards; a pool of 4) and the replay exits 0."""
     from alphafold2_tpu_torch import serve
 
     argv = [str(tmp_path / a) if a == "p.json" else a for a in argv]
     (tmp_path / "p.json").write_text(json.dumps({"up_cooldown_s": 0.5,
                                                  "down_cooldown_s": 7.5}))
-    if argv[0] == "--pipeline-depth":
-        with pytest.raises(SystemExit):
-            serve.main(["--demo", "2", "--device", "cpu", *argv])
-        assert match in capsys.readouterr().err
-        return
     assert serve.main(["--demo", "2", "--device", "cpu", *CLI_TINY, *argv]) == 0
     assert match in capsys.readouterr().out
 

@@ -13,7 +13,12 @@ same params the final params agree to 1e-5 (`test_torch_train.py`'s bound
 for a step: the same function in another summation order).
 """
 
+import argparse
+import importlib.util
 import json
+import pathlib
+import signal
+import sys
 
 import jax
 import numpy as np
@@ -22,6 +27,8 @@ import torch
 
 from alphafold2_tpu.models import Alphafold2Config as JaxConfig
 from alphafold2_tpu.reliability import FaultPlan as JaxFaultPlan
+from alphafold2_tpu.reliability import PreemptionHandler as JaxPreemptionHandler
+from alphafold2_tpu.reliability import faults as jfaults
 from alphafold2_tpu.reliability.faults import FAULT_KINDS as JAX_FAULT_KINDS
 from alphafold2_tpu.training import harness as jharness
 from alphafold2_tpu.training import resilience as jresilience
@@ -33,8 +40,8 @@ from alphafold2_tpu_torch.reliability.faults import (
     Fault,
     FaultPlan,
     InjectedFault,
-    check_training_plan,
 )
+from alphafold2_tpu_torch.reliability import faults as tfaults
 from alphafold2_tpu_torch.reliability.preemption import Preempted, PreemptionHandler
 from alphafold2_tpu_torch.training.checkpoint import VerifiedCheckpointManager, open_or_init
 from alphafold2_tpu_torch.training.data import (
@@ -49,7 +56,12 @@ from alphafold2_tpu_torch.training.harness import (
     train_state_init,
     with_fault_injection,
 )
-from alphafold2_tpu_torch.training.resilience import BadStepError, StepGuard, run_resilient
+from alphafold2_tpu_torch.training.resilience import (
+    BadStepError,
+    StepGuard,
+    chaos_from_args,
+    run_resilient,
+)
 
 KW = dict(dim=16, depth=1, heads=2, dim_head=8, max_seq_len=64)
 CFG = Alphafold2Config(**KW)
@@ -95,8 +107,7 @@ def plan(*faults):
 
 def test_fault_plan_parses_every_kind_as_the_jax_package_does():
     """A plan with every kind of FAULT_KINDS loads, as the JAX package loads
-    it (the same schedule back from to_json); the port delivers the
-    training kinds and refuses the others naming A11b."""
+    it (the same schedule back from to_json)."""
     assert FAULT_KINDS == JAX_FAULT_KINDS
     d = {"seed": 3, "faults": [
         dict({"kind": k, "step": i, "count": 2},
@@ -107,9 +118,6 @@ def test_fault_plan_parses_every_kind_as_the_jax_package_does():
     assert json.loads(p.to_json()) == json.loads(jp.to_json())
     assert FaultPlan.from_json(p.to_json()) == p
     assert [f.kind for f in p.faults] == list(FAULT_KINDS) and p.faults[3].at == 3
-    with pytest.raises(NotImplementedError, match="A11b"):
-        check_training_plan(p, "train_pre")
-    check_training_plan(plan(Fault("nan_grads"), Fault("slow_data", delay_s=0.0)), "train_pre")
     with pytest.raises(ValueError, match="unknown fault kind"):
         Fault(kind="meteor_strike")
     with pytest.raises(ValueError, match="mode"):
@@ -343,10 +351,104 @@ def test_train_pre_stopped_and_resumed_ends_with_the_uninterrupted_state(tmp_pat
     assert all(np.array_equal(a[k], b[k]) for k in a.files)
 
 
-def test_train_pre_refuses_a_serving_fault_kind(tmp_path):
+def test_train_pre_refuses_a_serving_fault_kind(tmp_path, capsys):
+    """A serving kind in train_pre's plan, refused until the serving plane
+    was ported, is taken as JAX's trainers take it: it has no hook in a
+    trainer, never fires, and the run ends at its last step."""
     from alphafold2_tpu_torch import train_pre
 
     (tmp_path / "plan.json").write_text(json.dumps(
         {"faults": [{"kind": "request_error", "step": 1}]}))
-    with pytest.raises(NotImplementedError, match="A11b"):
-        train_pre.main(TINY + ["--steps", "1", "--fault-plan", str(tmp_path / "plan.json")])
+    state, _ = train_pre.main(TINY + ["--steps", "2", "--fault-plan",
+                                      str(tmp_path / "plan.json")])
+    assert state["step"] == 2
+    assert "fault plan only partially delivered: []" in capsys.readouterr().out
+
+
+# a plan of both families: a trainer fires the training kinds, serve the
+# dispatch kinds it has hooks for (single-engine: no replica, no autoscaler)
+MIXED_PLAN = {"faults": [
+    {"kind": "nan_grads", "step": 1}, {"kind": "data_error", "index": 2},
+    {"kind": "request_error", "at": 0}, {"kind": "slow_request", "at": 1, "delay_s": 0.0},
+    {"kind": "kill_replica", "replica": "r0", "at": 0}, {"kind": "scale_flap", "at": 1}]}
+TRAINING_FIRED = ["data_error@2", "nan_grads@1"]
+SERVING_FIRED = ["request_error@0", "slow_request@1"]
+
+
+def jax_serve_cli():
+    """The JAX package's serve CLI (the repository root's serve.py)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "serve.py"
+    spec = importlib.util.spec_from_file_location("jax_serve_cli", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_a_mixed_plan_fires_the_same_faults_in_both_trainers_and_both_serves(
+        tmp_path, monkeypatch, capsys):
+    """One plan mixing training and serving kinds, as JAX's CLIs take it:
+    through each package's `chaos_from_args` and `run_resilient` (3 steps)
+    only the training kinds fire; through each package's `serve` (two
+    requests, one a batch) only the dispatch kinds fire, the first request
+    failing; the rest stay silent in both."""
+    path = tmp_path / "plan.json"
+    path.write_text(json.dumps(MIXED_PLAN))
+    args = argparse.Namespace(fault_plan=str(path), max_restarts=0, ckpt_verify=False)
+    jinj, _, jrestarts = jresilience.chaos_from_args(args)
+    inj, _, restarts = chaos_from_args(args)
+    assert restarts == jrestarts == 3
+    jcfg, jt = JaxConfig(**KW), jharness.TrainConfig(learning_rate=1e-3, grad_accum=1)
+    from alphafold2_tpu.training import data as jdata
+
+    jfinal = jresilience.run_resilient(
+        jharness.with_fault_injection(jax.jit(jharness.make_train_step(jcfg, jt)), jinj),
+        jharness.train_state_init(jax.random.PRNGKey(0), jcfg, jt),
+        jdata.resilient_batches(
+            jdata.synthetic_microbatch_fn(jdata.DataConfig(batch_size=1, max_len=8), 1),
+            injector=jinj, backoff_s=0.0),
+        steps=3, make_rng=lambda i: jax.random.fold_in(jax.random.PRNGKey(1), i))
+    final = run_resilient(
+        with_fault_injection(make_train_step(CFG, TCFG, device="cpu"), inj), fresh_state(),
+        resilient_batches(synthetic_microbatch_fn(DCFG, 1), injector=inj, backoff_s=0.0),
+        steps=3)
+    assert final["step"] == int(jfinal["step"]) == 3
+    assert sorted(inj.delivered) == sorted(jinj.delivered) == TRAINING_FIRED
+
+    made = []
+    for faults in (jfaults, tfaults):
+        real = faults.FaultPlan.injector
+        monkeypatch.setattr(faults.FaultPlan, "injector",
+                            lambda self, real=real: made.append(real(self)) or made[-1])
+    flags = ["--demo", "2", "--buckets", "16", "--dim", "16", "--depth", "1", "--heads", "2",
+             "--dim-head", "8", "--mds-iters", "2", "--max-batch", "1", "--fault-plan",
+             str(path)]
+    monkeypatch.setattr(sys, "argv", ["serve.py", *flags])
+    jrc = jax_serve_cli().main()
+    from alphafold2_tpu_torch import serve
+
+    rc = serve.main(["--device", "cpu", *flags])
+    capsys.readouterr()
+    assert len(made) == 2 and rc == jrc == 1  # the failed request
+    assert made[0].delivered == made[1].delivered == SERVING_FIRED
+
+
+def test_drain_callbacks_run_once_on_the_first_check_as_in_jax():
+    """tests/test_chaos.py's SIGTERM scenario on both handlers: a real
+    SIGTERM latches the flag, the drain callbacks run once on the first
+    check() that sees it (not in the handler, not per check), and
+    uninstall restores the previous handler."""
+    got = {}
+    for name, cls in (("jax", JaxPreemptionHandler), ("torch", PreemptionHandler)):
+        fired = []
+        prev = signal.getsignal(signal.SIGTERM)
+        with cls() as handler:
+            handler.add_callback(lambda: fired.append("a"))
+            handler.add_callback(lambda: fired.append("b"))
+            before = handler.check()
+            signal.raise_signal(signal.SIGTERM)
+            in_handler = list(fired)
+            checks = [handler.check(), handler.check()]
+            got[name] = (before, in_handler, handler.preempted, handler.signum, checks, fired)
+        assert signal.getsignal(signal.SIGTERM) is prev
+    assert got["torch"] == got["jax"] == (False, [], True, signal.SIGTERM, [True, True],
+                                          ["a", "b"])

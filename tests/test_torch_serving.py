@@ -838,19 +838,28 @@ def test_params_on_another_device_are_refused(tiny_params):
 # ------------------------------------------------- the refused knobs
 
 
-# early exit and the SP arm are ported: a knob alone is now JAX's validation
-# error (each needs the other; one shard is no SP arm), the test of its
+# early exit, the SP arm and pipelined dispatch are ported: a knob alone is
+# now JAX's validation error (each early-exit knob needs the other; one
+# shard is no SP arm; a negative depth is no window), the test of its
 # message under the knob's old id
 @pytest.mark.parametrize("fields, exc, match", [
     ({"sp_shards": 1}, ValueError, r"sp_shards must be 0 \(dense\) or >= 2"),
     ({"sp_schedules": ((16, "sp_seq"),)}, ValueError, "sp_shards=0"),
     ({"early_exit_depths": (1, 2)}, ValueError, "early_exit_kl must be > 0"),
     ({"early_exit_kl": 0.1}, ValueError, "without early_exit_depths"),
-    ({"pipeline_depth": 2}, NotImplementedError, "ROADMAP A11a-pipelined"),
+    ({"pipeline_depth": -1}, ValueError, "pipeline_depth must be >= 0"),
 ], ids=["sp_shards", "sp_schedules", "early_exit_depths", "early_exit_kl", "pipeline_depth"])
 def test_refused_config_knob_names_its_roadmap_item(fields, exc, match):
     with pytest.raises(exc, match=match):
         serving_cfg(**fields)
+    if "pipeline_depth" in fields:
+        # the knob is taken: a depth-2 engine serves through its settle thread
+        eng = fake_engine(pipeline_depth=2)
+        try:
+            assert eng.predict(seq_of(5), timeout=WAIT).coords.shape == (5, 3)
+            assert eng.stats()["pipeline"]["depth"] == 2 and eng.health()["settle_alive"]
+        finally:
+            eng.shutdown()
 
 
 @pytest.mark.parametrize("seam, item", [("fault_hook", "A11b"), ("pool_name", "A11b-3"),
@@ -968,6 +977,44 @@ def test_cli_demo_replays_through_the_engine(tmp_path, capsys):
     structure = parse_pdb(str(pdbs[0]))
     assert np.isfinite(structure.coords()).all()
     assert "served" in capsys.readouterr().out
+
+
+def test_cli_defaults_match_the_jax_cli():
+    """Every flag the two serve CLIs share parses to the same default
+    (`--request-timeout` 600 s, as JAX's; `--device` is the port's own)."""
+    import argparse
+    import importlib.util
+    import pathlib
+
+    from alphafold2_tpu_torch import serve
+
+    class Parsed(Exception):
+        pass
+
+    def parser_of(main):
+        real = argparse.ArgumentParser.parse_args
+
+        def capture(self, *args, **kwargs):
+            raise Parsed(self)
+
+        argparse.ArgumentParser.parse_args = capture
+        try:
+            main()
+        except Parsed as e:
+            return {o: a.default for a in e.args[0]._actions for o in a.option_strings}
+        finally:
+            argparse.ArgumentParser.parse_args = real
+        raise AssertionError("the CLI never parsed its arguments")
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_serve_cli", pathlib.Path(__file__).resolve().parents[1] / "serve.py")
+    jserve = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jserve)
+    jax_defaults, port_defaults = parser_of(jserve.main), parser_of(serve.main)
+    assert set(port_defaults) - set(jax_defaults) == {"--device"}
+    assert set(jax_defaults) <= set(port_defaults)
+    assert {o: port_defaults[o] for o in jax_defaults} == jax_defaults
+    assert port_defaults["--request-timeout"] == 600.0
 
 
 # ------------------------------------------------- against the JAX engine
@@ -1090,6 +1137,45 @@ def test_engine_on_the_card_serves_captured_requests():
     ref = predict_structure(params, cfg, tokens, mask=mask, mds_iters=20, device="cuda")
     np.testing.assert_array_equal(solo.coords, ref["coords"][0, :10].cpu().numpy())
     np.testing.assert_array_equal(solo.confidence, ref["confidence"][0, :10].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mds_init, exits", [("classical", ()), ("random", ()),
+                                             ("classical", (1, 2, 3))],
+                         ids=["classical", "random", "staged"])
+def test_enqueued_call_matches_the_synchronous_call_bit_for_bit(mds_init, exits):
+    """On the card the pipelined call (`CapturedExecutable.enqueue`: pinned
+    copies in and out, an event after them, the host reads waited for by
+    polling) returns what the synchronous call returns, bit for bit, with
+    two calls in flight at once (staged: every stage replayed); a waited
+    call puts its slot back, and its timing events give device seconds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the engine captures CUDA graphs there")
+    from alphafold2_tpu_torch.serving.executable import CapturedExecutable, GraphPool
+    from alphafold2_tpu_torch.utils.rng import Streams
+
+    cfg = Alphafold2Config(dim=64, depth=4 if exits else 2, heads=4, dim_head=64,
+                           max_seq_len=64, dtype=torch.bfloat16)
+    params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cuda")
+    streams = Streams("cuda") if mds_init == "random" else None
+    exe = CapturedExecutable(params, cfg, batch=2, bucket=64, msa_rows=4, mds_iters=20,
+                             device=torch.device("cuda", 0), pool=GraphPool(),
+                             mds_init=mds_init, streams=streams, slots=2,
+                             early_exit_depths=exits, early_exit_kl=1e-12 if exits else 0.0)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        rows = [rng.integers(0, 20, n).astype(np.int32) for n in (64, 50)]
+        tokens, mask, _ = pad_batch(rows, 64, 2)
+        msa = rng.integers(0, 21, (2, 4, 64)).astype(np.int32)
+        batches.append((tokens, mask, msa, np.broadcast_to(mask[:, None], msa.shape).copy()))
+    pending = [exe.enqueue(*b, seed=7 + i, timing=i == 0) for i, b in enumerate(batches)]
+    got = [p.wait() for p in pending]
+    assert len(exe._slots) == 2 and pending[0].device_s > 0 and pending[1].device_s is None
+    for i, b in enumerate(batches):
+        ref = {k: v.cpu().numpy() for k, v in exe(*b, seed=7 + i).items()}
+        for k in ref:
+            assert np.array_equal(got[i][k], ref[k]), k
 
 
 @pytest.mark.cuda
