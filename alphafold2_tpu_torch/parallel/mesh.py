@@ -50,8 +50,8 @@ class Mesh:
     def __init__(self, axis_name: str, devices: Sequence[torch.device]):
         self.axis_name = axis_name
         self.devices = tuple(_normalize(d) for d in devices)
-        # device -> {source tensor (by identity): its copy there}; an entry
-        # dies with its source
+        # device -> {source tensor (by identity): (its version, its copy
+        # there)}; an entry dies with its source
         self._copies = {d: WeakIdKeyDictionary() for d in set(self.devices)}
 
     @property
@@ -94,15 +94,18 @@ class Mesh:
         if t.requires_grad and torch.is_grad_enabled():
             return t.to(device)  # keep the graph: no cache
         cache = self._copies[device]
-        c = cache.get(t)
-        if c is None:
-            c = cache[t] = t.to(device)
-        return c
+        hit = cache.get(t)
+        # an in-place update (an optimizer step) moves the source's version:
+        # its old copy is stale
+        if hit is None or hit[0] != t._version:
+            hit = cache[t] = (t._version, t.to(device))
+        return hit[1]
 
     def replicate(self, tree):
         """Per-shard copies of a tree of tensors (dicts, lists, tuples),
-        one per distinct device, cached while the source tensors live: a
-        shard on a repeated device gets the same tensors."""
+        one per distinct device, cached while the source tensors live and
+        are not updated in place: a shard on a repeated device gets the
+        same tensors."""
         def place(node, device):
             if isinstance(node, dict):
                 return {k: place(v, device) for k, v in node.items()}

@@ -8,6 +8,7 @@ microbatches and applied by one AdamW update a step.
 Usage:
   python -m alphafold2_tpu_torch.train_end2end --steps 50 [--bf16] [--reversible]
   python -m alphafold2_tpu_torch.train_end2end --steps 50 --reversible --trunk-segments 4
+  python -m alphafold2_tpu_torch.train_end2end --steps 50 --len 16 --msa-rows 8 --sp-shards 4
   python -m alphafold2_tpu_torch.train_end2end --steps 2 --dim 16 --depth 1 \\
       --heads 2 --dim-head 8 --len 8 --mds-iters 5 --device cpu [--features esm]
   python -m alphafold2_tpu_torch.train_end2end --steps 50 --ckpt-dir runs/e2e \\
@@ -58,9 +59,20 @@ and goodput ledger (`--ops-port`, `--ops-port-file`, `--flight-dir`,
 `--progress-horizon-s`, `--peak-tflops`), and `--profile-dir` /
 `--profile-steps` (a `torch.profiler` window of that many steps from the
 second, written as `<profile-dir>/trace.json` by `hooks.profile_trace`). The resilient loop ignores `--eval-every` and
-`--profile-dir`, as the JAX CLI does. Not ported: `--sp-shards` and
-multi-host runs with their `--federate-every` (refused: ROADMAP A13),
-`--data sidechainnet` (it needs a dataset in the repository).
+`--profile-dir`, as the JAX CLI does.
+
+`--sp-shards N` trains with the trunk sequence-parallel over N shards
+(`parallel/train.py sp_e2e_loss_fn`; 3 x --len and the MSA rows must
+divide by N), eager like every e2e step; `--device cpu` takes N CPU
+shards, the GPU N distinct cards (`make_mesh`, which raises on a host
+with fewer). As in the JAX CLI it is exclusive with `--trunk-segments`,
+and `--features esm` (the embedds stream has no row axis to shard) and
+`--reversible` are refused by the SP trunk at the first step; the eval
+runs the dense `predict_structure`, as the JAX CLI's does.
+
+Not ported: multi-host runs with their `--federate-every` (refused:
+ROADMAP A13), `--data sidechainnet` (it needs a dataset in the
+repository).
 """
 
 from __future__ import annotations
@@ -83,6 +95,7 @@ from alphafold2_tpu_torch.models.embedder import (
     embedder_init,
 )
 from alphafold2_tpu_torch.models.refiner import RefinerConfig
+from alphafold2_tpu_torch.parallel import make_mesh, make_sp_train_step, sp_e2e_loss_fn
 from alphafold2_tpu_torch.reliability.preemption import Preempted, PreemptionHandler
 from alphafold2_tpu_torch.telemetry import (
     MetricRegistry,
@@ -142,6 +155,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="backpropagate MDS through its last K iterations only "
                          "(default: all)")
     ap.add_argument("--refiner-depth", type=int, default=2)
+    ap.add_argument("--sp-shards", type=int, default=0,
+                    help="shard the trunk sequence-parallel over this many "
+                         "devices (3*--len and MSA rows must be multiples "
+                         "of it; deterministic path; 0 = replicated)")
     ap.add_argument("--reversible", action="store_true",
                     help="reversible trunk: O(1) activation memory in depth (the north-star "
                          "depth-48 config, BASELINE.md config 5)")
@@ -241,6 +258,9 @@ def main(argv=None):
     ecfg = e2e_config_from_args(args)
     tcfg = tcfg_from_args(args, grad_accum=args.accum)
     resilient = resilient_mode(args)
+    if args.sp_shards and args.trunk_segments:
+        raise SystemExit("--sp-shards and --trunk-segments are exclusive: the segmented step "
+                         "is a single-device execution chain")
     if args.trunk_segments and not args.reversible:
         raise SystemExit("--trunk-segments requires --reversible (segment backward IS "
                          "reversible reconstruction)")
@@ -273,7 +293,14 @@ def main(argv=None):
         stream = None
         fetch = synthetic_microbatch_fn(dcfg, tcfg.grad_accum,
                                         source=synthetic_structure_batches)
-    if args.trunk_segments:
+    if args.sp_shards:
+        mesh = make_mesh({"seq": args.sp_shards},
+                         devices=[device] * args.sp_shards if device.type == "cpu" else None)
+        print(f"sequence-parallel trunk over {mesh.size} shards on "
+              f"{[str(d) for d in mesh.devices]}")
+        train_step = make_sp_train_step(ecfg, tcfg, mesh, loss_fn=sp_e2e_loss_fn(mesh),
+                                        device=device)
+    elif args.trunk_segments:
         train_step = make_segmented_train_step(ecfg, tcfg, args.trunk_segments, device=device)
     else:
         train_step = make_train_step(ecfg, tcfg, loss_fn=e2e_loss_fn, device=device)

@@ -11,6 +11,9 @@ Usage:
       --len-buckets 64,128,256 --len 256 --accum 2
   python -m alphafold2_tpu_torch.train_pre --steps 100 --bf16 --metrics-log m.jsonl \\
       --eval-every 10 --trace-out trace.json [--ops-port 0] [--flight-dir flights/]
+  python -m alphafold2_tpu_torch.train_pre --steps 100 --bf16 --len 256 --sp-shards 4
+  python -m alphafold2_tpu_torch.train_pre --steps 3 --dim 16 --depth 1 \\
+      --heads 2 --dim-head 8 --len 16 --accum 2 --device cpu --sp-shards 2
 
 Trains on synthetic protein-like batches (`training/data.py`,
 sequence-only) with the defaults of the JAX CLI: dim 256, depth 1, heads
@@ -48,10 +51,22 @@ Chrome trace, and a `<trace-out>.metrics.json` registry snapshot beside
 it), `--ops-port` / `--ops-port-file` / `--flight-dir` /
 `--progress-horizon-s` / `--peak-tflops` (the live ops plane and the
 goodput ledger, `telemetry/goodput.py`; a capture, at the start or a
-bucket's first batch, counts as "compile"). Not ported: `--data
-sidechainnet` (it needs a dataset in the repository), `--sp-shards`
-training, with buckets too, and multi-host runs with their
-`--federate-every` (refused: A13).
+bucket's first batch, counts as "compile").
+
+`--sp-shards N` trains with the trunk sequence-parallel over N shards
+(`parallel/train.py`: the pair grid's rows and the MSA rows sharded, the
+JAX CLI's "single-process grid-sharding path"); --len, and every
+--len-buckets bucket, must divide by N. With `--device cpu` the shards are
+N CPU shards; on the GPU they are N distinct cards (`make_mesh({"seq":
+N})`, which raises on a host with fewer). Where every shard is the state's
+card (N = 1) the SP step is captured as the dense one is; a mesh over
+distinct cards runs the eager `make_sp_train_step`, since a CUDA graph
+captures one card's stream: the startup line says which. `--eval-every`
+evaluates through the SP loss, as the JAX CLI does. The SP trunk is
+deterministic (no dropout, no remat, as in JAX).
+
+Not ported: `--data sidechainnet` (it needs a dataset in the repository)
+and multi-host runs with their `--federate-every` (refused: A13).
 """
 
 from __future__ import annotations
@@ -67,6 +82,7 @@ import torch
 
 from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.models.config import Alphafold2Config
+from alphafold2_tpu_torch.parallel import make_mesh, make_sp_train_step, sp_distogram_loss_fn
 from alphafold2_tpu_torch.reliability.preemption import Preempted, PreemptionHandler
 from alphafold2_tpu_torch.runtime import NativePrefetchLoader
 from alphafold2_tpu_torch.telemetry import (
@@ -130,11 +146,12 @@ def native_pool(max_len: int, seed: int) -> list:
     return pool
 
 
-def native_stream(args, dcfg, tcfg):
+def native_stream(args, dcfg, tcfg, sp_shards: int = 0):
     """Microbatch stacks from the C++ prefetch loader (2 threads) over
     `native_pool`, C-alpha (atom slot 1) for the labels; with --len-buckets
     grouped by bucket (`bucketed_microbatches`), the "bucket" key popped
-    (shape bookkeeping, not an input). The loader closes with the stream."""
+    (shape bookkeeping, not an input). The loader closes with the stream.
+    `sp_shards`: the SP mesh's size, which every bucket must divide."""
     buckets = None
     if args.len_buckets:
         buckets = tuple(sorted(set(int(x) for x in args.len_buckets.split(","))))
@@ -142,6 +159,12 @@ def native_stream(args, dcfg, tcfg):
             raise SystemExit(
                 f"--len-buckets largest bucket ({buckets[-1]}) must equal --len "
                 f"({args.max_len}) — the top bucket is the crop length the model is sized for")
+        if sp_shards:
+            bad = [b for b in buckets if b % sp_shards]
+            if bad:
+                raise SystemExit(
+                    f"--len-buckets {bad} not divisible by --sp-shards {sp_shards} "
+                    f"(sp_trunk needs the pair side to divide the mesh axis)")
         print(f"length buckets: {buckets}")
     loader = NativePrefetchLoader(native_pool(args.max_len, dcfg.seed), batch_size=args.batch,
                                   max_len=args.max_len, seed=dcfg.seed, n_threads=2,
@@ -194,6 +217,10 @@ def main(argv=None):
     ap.add_argument("--eval-every", type=int, default=0,
                     help="evaluate held-out distogram loss every N steps "
                          "(0 = off)")
+    ap.add_argument("--sp-shards", type=int, default=0,
+                    help="shard the pair grid over this many devices "
+                         "(sequence-parallel trunk; --len must be a "
+                         "multiple of it; 0 = replicated)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' to run there)")
     args = ap.parse_args(argv)
@@ -210,6 +237,11 @@ def main(argv=None):
     )
     tcfg = tcfg_from_args(args, grad_accum=args.accum)
     dcfg = DataConfig(batch_size=args.batch, max_len=args.max_len, seed=args.seed)
+    mesh = None
+    if args.sp_shards:
+        # the sequence-parallel trunk: the pair grid (not the batch) shards
+        mesh = make_mesh({"seq": args.sp_shards},
+                         devices=[device] * args.sp_shards if device.type == "cpu" else None)
 
     resilient = resilient_mode(args)
     injector, ckpt_fault_hook, max_restarts = chaos_from_args(args)
@@ -220,7 +252,7 @@ def main(argv=None):
     if resumed:
         print(f"resumed from step {start} in {args.ckpt_dir}")
     if args.data == "native":
-        stream = native_stream(args, dcfg, tcfg)
+        stream = native_stream(args, dcfg, tcfg, args.sp_shards)
         if resumed:
             # the loader's threads are not positionally replayable
             print(f"note: --data {args.data} stream restarts from its top on resume (only "
@@ -250,7 +282,8 @@ def main(argv=None):
         step_flops=train_step_flops(cfg, args.max_len, 0, 0, grad_accum=tcfg.grad_accum))
     try:
         metrics = train(args, cfg, tcfg, device, state, mgr, first, fetch, source, resilient,
-                        injector, max_restarts, logger, tracer, compile_tracker, telemetry)
+                        injector, max_restarts, logger, tracer, compile_tracker, telemetry,
+                        mesh)
     except Preempted as e:
         print(e)  # saved and closed by the loop: not a failure
         return state, None
@@ -273,18 +306,31 @@ def main(argv=None):
 
 
 def train(args, cfg, tcfg, device, state, mgr, first, fetch, source, resilient, injector,
-          max_restarts, logger, tracer, compile_tracker, telemetry):
+          max_restarts, logger, tracer, compile_tracker, telemetry, mesh=None):
     """The run's steps from state["step"], updating `state` in place;
     returns the last step's metrics (a preemption raises `Preempted`). On
     the GPU the first batch's capture, and each bucket's first batch's, is
-    accounted as compile."""
+    accounted as compile. `mesh`: the sequence-parallel trunk's (None:
+    the dense step); captured where every shard is the state's card."""
     start = state["step"]
-    if device.type == "cuda":
+    loss_fn = distogram_loss_fn if mesh is None else sp_distogram_loss_fn(mesh)
+    # a CUDA graph captures one card's stream: decided by the placement
+    captured = device.type == "cuda" and (mesh is None
+                                          or all(d == device for d in mesh.devices))
+    if mesh is not None:
+        how = ("captured as a CUDA graph" if captured else
+               "eager (a CUDA graph captures one card's stream)" if device.type == "cuda"
+               else "eager")
+        print(f"sequence-parallel trunk over {mesh.size} shards on "
+              f"{[str(d) for d in mesh.devices]}: the step runs {how}")
+    if captured:
         with telemetry.account("compile"), compile_tracker.track(kind="train_step"):
-            train_step = CapturedTrainStep(cfg, tcfg, state, first)
+            train_step = CapturedTrainStep(cfg, tcfg, state, first, loss_fn=loss_fn)
         capture = next(iter(train_step.captures.values()))
         print(f"captured the step{bucket_of(args, first)} as a CUDA graph in "
               f"{capture.seconds:.2f} s")
+    elif mesh is not None:
+        train_step = make_sp_train_step(cfg, tcfg, mesh, device=device)
     else:
         train_step = make_train_step(cfg, tcfg, device=device)
 
@@ -357,8 +403,9 @@ def train(args, cfg, tcfg, device, state, mgr, first, fetch, source, resilient, 
             metrics = dict(metrics)
             with tracer.span("train.eval", cat="train", step=step), \
                     telemetry.account("eval"), torch.no_grad():
-                metrics[eval_key] = distogram_loss_fn(state["params"], cfg, eval_batch, None,
-                                                      device)
+                # through the training loss: an SP run never holds the
+                # whole pair grid on one device
+                metrics[eval_key] = loss_fn(state["params"], cfg, eval_batch, None, device)
         # logger.log is the step's one device sync: the span and the
         # bucket absorb the execution train.step only launched
         if logger is not None:

@@ -30,6 +30,15 @@ End-to-end structure training (`training/e2e.py`) is refused: its step
 reads the host (see `CapturedTrainStep`), so it runs eagerly (ROADMAP
 A8-e2e-capture).
 
+The sequence-parallel step (`loss_fn=parallel/train.py
+sp_distogram_loss_fn(mesh)`) captures when every shard of the mesh is the
+state's card: the shard list's passes, the halo exchange of the KV
+compression, the ring's B3 hops forward and backward
+(`ops/flash.py _FlashLseKernel`) and their merges are launches on that
+card's stream. The loss is opaque here, so the caller decides: a mesh
+over distinct cards runs the eager `make_sp_train_step` (train_pre does
+so by the mesh's placement).
+
 A reversible config (models/reversible.py) captures as the sequential
 one does: its Function's backward, with the nested `torch.autograd.grad`
 of each recomputed block, runs inside the one graph and reads nothing

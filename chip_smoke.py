@@ -445,6 +445,32 @@ each phase prints its seconds):
          over the pass's wall), each beside the card's name and power
          limit; the settle thread's event queries; which host waits for
          the card keep the interpreter lock (`gil_probe`);
+  22. the sequence-parallel training step (`parallel/train.py
+     make_sp_train_step`, `sp_distogram_loss_fn`, `sp_e2e_loss_fn`; the
+     captured SP step), 4 shards on one card, tied MSA rows, aligned
+     crosses with KV compression 4; (b) and (c) at depth 2, the least depth
+     at which the first layer's MSA<-pair ring reaches the loss, so that
+     B3's dq and dkv run:
+     (a) f32, dim 256, depth 1, L = 64, 8 MSA rows, accum 2, 3 steps on
+         the card (["cuda:0"] * 4) and on 4 CPU shards from the same
+         params: phase 6a's tolerances, every B1f, B1b and B3 launch
+         counted exactly on the f32 route;
+     (b) train_pre's widths in bf16, crop 256, a 20-row MSA, accum 16:
+         the captured SP step bit for bit the eager one over 3 steps; the
+         capture records one step's B1f, B1b, B3 forward, dq and dkv
+         exactly, all on wgmma; the first step's loss and grad_norm within
+         1.5x the dense bf16 step's distance from the dense f32 step, plus
+         1e-5; reported: the captured SP and dense steps' ms (median of 5)
+         and peak memory;
+     (c) the e2e step at phase 12b's widths less remat, 128 MSA rows,
+         accum 2, eager: one SP step tried at crop 384 (fits or out of
+         memory, recorded), then SP against dense at crop 256 within (b)'s
+         bound, every B1f, dq and dkv launch on wgmma, B3's counted;
+         reported: the steps' ms (median of 3) and peak memory;
+     (d) `train_pre --sp-shards 1 --bf16` (captured) and `train_end2end
+         --sp-shards 1` on the card; `--sp-shards 4` refused with the
+         mesh's device-count error on a host with fewer cards, else one
+         eager step over distinct cards;
   5. a `kernels` JSON line (sixteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, the three sparse kernels with dropout, B3's forward and its
@@ -524,7 +550,10 @@ from alphafold2_tpu_torch.telemetry import profiling  # noqa: E402
 from alphafold2_tpu_torch.parallel import (  # noqa: E402
     alphafold2_apply_sp,
     make_mesh,
+    make_sp_train_step,
     ring_attention,
+    sp_distogram_loss_fn,
+    sp_e2e_loss_fn,
 )
 from alphafold2_tpu_torch.serving.bucketing import BucketLadder, pad_batch  # noqa: E402
 from alphafold2_tpu_torch.serving.autoscale import ReplicaAutoscaler, ScalePolicy  # noqa: E402
@@ -556,6 +585,7 @@ from alphafold2_tpu_torch.training.data import (  # noqa: E402
 from alphafold2_tpu_torch.training.executable import CapturedTrainStep  # noqa: E402
 from alphafold2_tpu_torch.training.harness import (  # noqa: E402
     TrainConfig,
+    distogram_loss_fn,
     make_train_step,
     train_state_init,
     with_fault_injection,
@@ -2507,7 +2537,8 @@ def train_pre_config(**fields):
                                       dtype=torch.bfloat16), **fields})
 
 
-def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0, batches=None, rngs=None):
+def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0, batches=None, rngs=None, *,
+                     sp_mesh=None, tag="train g"):
     """Train_pre's step captured (`CapturedTrainStep`) against the eager
     step (`make_train_step`) from the same seeded params over the same 3
     batches at crop L (with a `msa_rows`-row MSA when nonzero; or over
@@ -2517,8 +2548,10 @@ def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0, batches=None,
     AdamW moment and count at the end bit for bit (no tolerance: the same
     ops on the same buffers). `rngs`: each step's dropout seed (both arms
     get a CPU generator seeded with it; None: no rng). `wgmma`: every flash
-    and sparse launch each capture recorded on its wgmma route. Returns
-    (the captured step, its state, the last batch)."""
+    and sparse launch each capture recorded on its wgmma route. `sp_mesh`:
+    the sequence-parallel step over that mesh (`make_sp_train_step`
+    against `CapturedTrainStep(..., loss_fn=sp_distogram_loss_fn(mesh))`).
+    Returns (the captured step, its state, the last batch)."""
     tcfg = TrainConfig(grad_accum=grad_accum, warmup_steps=1, decay_steps=3, decay_floor=0.1,
                        max_grad_norm=0.05, weight_decay=0.01)
     if batches is None:
@@ -2527,9 +2560,12 @@ def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0, batches=None,
         batches = [fetch(n) for n in range(3)]
     eager_state, cap_state = (train_state_init(cfg, tcfg, torch.Generator().manual_seed(0),
                                                "cuda") for _ in range(2))
-    eager = make_train_step(cfg, tcfg, device="cuda")
+    if sp_mesh is None:
+        eager, loss_fn = make_train_step(cfg, tcfg, device="cuda"), distogram_loss_fn
+    else:
+        eager, loss_fn = make_sp_train_step(cfg, tcfg, sp_mesh), sp_distogram_loss_fn(sp_mesh)
     reset_launches()
-    captured = CapturedTrainStep(cfg, tcfg, cap_state, batches[0])
+    captured = CapturedTrainStep(cfg, tcfg, cap_state, batches[0], loss_fn=loss_fn)
     capture = next(iter(captured.captures.values()))
     steps = []
     for n, batch in enumerate(batches):
@@ -2549,7 +2585,7 @@ def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0, batches=None,
     routes = all(on_wgmma(c.launches) for c in captures) if wgmma else None
     ok = (all(r["loss_equal"] and r["grad_norm_equal"] for r in steps) and unequal == 0
           and cap_state["step"] == len(batches) and routes is not False)
-    log(f"[train g] {label}: L={L}, accum {grad_accum}, captured vs eager over {len(batches)} "
+    log(f"[{tag}] {label}: L={L}, accum {grad_accum}, captured vs eager over {len(batches)} "
         f"steps: loss and grad_norm bit-equal "
         f"{[r['loss_equal'] and r['grad_norm_equal'] for r in steps]}, "
         f"{unequal} of {len(pairs)} params, moments and counts differ (max |d| "
@@ -2566,7 +2602,7 @@ def capture_vs_eager(label, cfg, L, grad_accum, wgmma, msa_rows=0, batches=None,
         "captured_launches": [c.launches for c in captures], "on_wgmma": routes, "ok": ok}
     if not ok:
         fail(f"the captured train step differs from the eager one, or left its wgmma route "
-             f"({label}, phase 6g)")
+             f"({label}, {tag})")
     return captured, cap_state, batches[-1]
 
 
@@ -8353,6 +8389,369 @@ def phase_pipeline(smi):
     return launches
 
 
+# --- phase 22: the sequence-parallel training step ------------------------------------
+
+SP_TRAIN_P = 4  # shards, all on the first card
+
+
+def sp_train_config(**fields):
+    """train_pre's widths (dim 256, heads 8, dim_head 64, bf16) at depth 2
+    with tied MSA rows and the aligned crosses with KV compression 4: the
+    ring cross runs, and at depth 2 its first layer's backward reaches the
+    loss (the last layer's MSA<-pair ring feeds only the MSA stream, which
+    the head does not read). `fields` over them."""
+    return train_pre_config(**{**dict(depth=2, msa_tie_row_attn=True, cross_attn_mode="aligned",
+                                      cross_attn_compress_ratio=4), **fields})
+
+
+def sp_step_launches(P, depth, microbatches, route):
+    """The flash launches of `microbatches` SP distogram microbatches with
+    an MSA, tied rows and aligned crosses: a layer a shard 4 B1f (the pair
+    rows and columns, the MSA columns, the gathered pair<-MSA cross; the
+    tied MSA rows are an einsum) and P B3 hops of the MSA<-pair ring; every
+    B1f has its B1b dq and dkv, every ring but the last layer's its B3 dq
+    and dkv (P^2 each a ring call). Each route-counted on `route`."""
+    fwd = 4 * P * depth * microbatches
+    ring = P * P * depth * microbatches
+    ring_bwd = P * P * (depth - 1) * microbatches
+    return {"flash_fwd": fwd, "flash_fwd_lse": ring, f"flash_fwd_{route}": fwd + ring,
+            "flash_bwd_dq": fwd, "flash_bwd_dkv": fwd, "flash_bwd_lse_dq": ring_bwd,
+            "flash_bwd_lse_dkv": ring_bwd, f"flash_bwd_dq_{route}": fwd + ring_bwd,
+            f"flash_bwd_dkv_{route}": fwd + ring_bwd}
+
+
+def exact(launches, expect):
+    """launches == expect on every name either names (0 where absent)."""
+    return all(launches.get(k, 0) == expect.get(k, 0) for k in set(launches) | set(expect))
+
+
+def first_step_metrics(cfg, tcfg, batch):
+    """One eager dense distogram step of a fresh seeded state on the card:
+    its loss and grad_norm (floats)."""
+    state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    _, m = make_train_step(cfg, tcfg, device="cuda")(state, batch)
+    out = {k: float(v) for k, v in m.items()}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def card_and_cpu(cfg, tcfg, sp):
+    """The same seeded params on the card and on the CPU, and each
+    device's step: the SP step over 4 shards of that device when `sp`,
+    else the dense step. Keyed "cuda" and "cpu" (`card_vs_cpu_steps`)."""
+    states, steps = {}, {}
+    for dev in ("cuda:0", "cpu"):
+        key = dev.split(":")[0]
+        states[key] = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), dev)
+        steps[key] = (make_sp_train_step(cfg, tcfg, make_mesh({"seq": SP_TRAIN_P},
+                                                               devices=[dev] * SP_TRAIN_P))
+                      if sp else make_train_step(cfg, tcfg, device=dev))
+    return states, steps
+
+
+def yardstick(sp, dense, f32):
+    """7b's bound carried to the step: SP's distance from the f32 step
+    within 1.5x the dense bf16 step's own, plus 1e-5, for loss and
+    grad_norm. Returns (rows, ok)."""
+    rows, ok = {}, True
+    for key in ("loss", "grad_norm"):
+        d_sp, d_dense = abs(sp[key] - f32[key]), abs(dense[key] - f32[key])
+        rows[key] = {"sp": sp[key], "dense": dense[key], "f32": f32[key], "sp_vs_f32": d_sp,
+                     "dense_vs_f32": d_dense, "bound": 1.5 * d_dense + 1e-5}
+        ok = ok and d_sp <= rows[key]["bound"]
+    return rows, ok
+
+
+def phase_sp_train_parity(L=64, rows=8, accum=2):
+    """(a) f32, the SP distogram step (`make_sp_train_step`) over 4 shards
+    of the card (["cuda:0"] * 4) against the same over 4 CPU shards from
+    the same params and batches: dim 256, depth 1, 8 heads of 64, L = 64,
+    tied rows, aligned crosses with KV compression 4, 8 MSA rows, accum 2,
+    3 steps, `attn_flash=True` on both (the padded MSA columns' empty key
+    sets: flash gives zeros on both devices). Phase 6a's comparison and
+    tolerances (`card_vs_cpu_steps`), with every B1f / B1b / B3 launch
+    counted exactly on the f32 route: at depth 1 the ring's output reaches
+    no loss, so B3's dq and dkv are 0 here (they run in (b) and (c), and
+    card against CPU in 7c). At depth 2 the dense step of this config
+    itself departs from the CPU past 6a's grad_norm tolerance at some data
+    seeds (`sp_train_drift`, not a phase)."""
+    cfg = sp_train_config(depth=1, dtype=torch.float32, attn_flash=True, max_seq_len=L)
+    tcfg = TrainConfig(grad_accum=accum)
+    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, msa_rows=rows, seed=5),
+                                    accum)
+    states, steps = card_and_cpu(cfg, tcfg, sp=True)
+    expect = sp_step_launches(SP_TRAIN_P, cfg.depth, 3 * accum, "f32")
+    card_vs_cpu_steps("sp_train a", "sp_train_parity", f"SP over {SP_TRAIN_P} shards, L={L} f32 "
+                      f"depth {cfg.depth}, {rows} rows", repr(cfg), states, steps, fetch, tcfg,
+                      expect)
+    return launch_counts()
+
+
+def sp_train_drift(seeds=(5, 6), L=64, rows=8, accum=2):
+    """Not a phase of the script: (a)'s card-vs-CPU comparison for the SP
+    step and for the dense step at the same config, at each data seed,
+    reported without failing (`RECORD["phases"]["sp_train_drift_<arm>_<seed>"]`):
+    whether the SP step's distance from the CPU is the config's own. Run as
+        python3 -c "import chip_smoke as c; c.phase_card(); c.phase_build(); c.sp_train_drift()"
+    """
+    cfg = sp_train_config(dtype=torch.float32, attn_flash=True, max_seq_len=L)
+    tcfg = TrainConfig(grad_accum=accum)
+    out = {}
+    for seed in seeds:
+        fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, msa_rows=rows,
+                                                   seed=seed), accum)
+        for arm in ("dense", "sp"):
+            states, steps = card_and_cpu(cfg, tcfg, sp=arm == "sp")
+            key = f"sp_train_drift_{arm}_{seed}"
+            try:
+                card_vs_cpu_steps(f"sp_train drift {arm} seed {seed}", key, arm, repr(cfg),
+                                  states, steps, fetch, tcfg, {})
+            except SystemExit as e:
+                log(f"[sp_train drift] {arm} seed {seed}: {e}")
+            out[key] = RECORD["phases"][key]["steps"]
+    return out
+
+
+def captured_arm(cfg, tcfg, batch, loss_fn, reps=5):
+    """A fresh seeded state's captured step (`CapturedTrainStep`) on one
+    batch: the process's peak allocated memory (GiB) from a reset just
+    before the state is made (the state, AdamW moments, the warm-up, the
+    capture and the replays, over whatever else the process holds),
+    capture seconds and the replays' median ms (`captured_ms`, CUDA
+    events). The counts are set to 0 before and read after."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    step = CapturedTrainStep(cfg, tcfg, state, batch, loss_fn=loss_fn)
+    ms, times = captured_ms(step, state, batch, reps=reps)
+    sync()
+    launches = _merged(launch_counts(), step.replayed_launches())
+    out = {"step_ms": ms, "times": times, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "capture_s": next(iter(step.captures.values())).seconds, "launches": launches}
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sp_train_captured(smi, L=256, rows=20, accum=16):
+    """(b) bf16 at train_pre's widths, captured: `sp_train_config()`, crop
+    256, a 20-row MSA, accum 16, 4 shards on the card:
+      - the captured SP step (`CapturedTrainStep(loss_fn=sp_distogram_
+        loss_fn(mesh))`) against the eager `make_sp_train_step` over 3
+        batches, bit for bit (`capture_vs_eager`: loss, grad_norm, every
+        param, AdamW moment and count);
+      - the capture's launches exactly `sp_step_launches` for one step on
+        the wgmma route: B3's dq and dkv recorded in the graph;
+      - the first step's loss and grad_norm within 1.5x the dense bf16
+        step's own distance from the dense f32 step, plus 1e-5, all three
+        from the same params and batch (`yardstick`);
+      - reported: the captured SP and dense steps on one batch (median of
+        5 replays, CUDA events) and their peak memory (`captured_arm`)."""
+    cfg = sp_train_config()
+    mesh = make_mesh({"seq": SP_TRAIN_P}, devices=["cuda:0"] * SP_TRAIN_P)
+    captured, state, last = capture_vs_eager("sp bf16", cfg, L, accum, wgmma=False,
+                                             msa_rows=rows, sp_mesh=mesh, tag="sp_train b")
+    capture = next(iter(captured.captures.values()))
+    expect = sp_step_launches(SP_TRAIN_P, cfg.depth, accum, "wgmma")
+    counts_ok = exact(capture.launches, expect)
+    sp_first = RECORD["phases"]["train_capture_sp bf16"]["steps"][0]
+    launches = _merged(launch_counts(), captured.replayed_launches())
+    del captured, state
+    # the bound: the same first batch and schedule as capture_vs_eager's
+    tcfg = TrainConfig(grad_accum=accum, warmup_steps=1, decay_steps=3, decay_floor=0.1,
+                       max_grad_norm=0.05, weight_decay=0.01)
+    first = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, seed=9, msa_rows=rows),
+                                    accum)(0)
+    dense = first_step_metrics(cfg, tcfg, first)
+    f32 = first_step_metrics(dataclasses.replace(cfg, dtype=torch.float32), tcfg, first)
+    bound, bound_ok = yardstick(sp_first, dense, f32)
+    arms = {"sp": captured_arm(cfg, tcfg, last, sp_distogram_loss_fn(mesh)),
+            "dense": captured_arm(cfg, tcfg, last, distogram_loss_fn)}
+    for arm in arms.values():
+        launches = _merged(launches, arm.pop("launches"))
+    ok = counts_ok and bound_ok
+    log(f"[sp_train b] the capture's launches {'==' if counts_ok else '!='} one step's "
+        f"{expect} ({capture.launches}); first step: "
+        + "; ".join(f"{k} SP {v['sp']:.6f} dense {v['dense']:.6f} f32 {v['f32']:.6f}, |SP - f32| "
+                    f"{v['sp_vs_f32']:.3e} (bound {v['bound']:.3e})" for k, v in bound.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    log(f"[sp_train b] captured step, L={L}, accum {accum}, {rows} rows, bf16 ({smi}): SP "
+        f"{arms['sp']['step_ms']:.2f} ms (median of 5), peak {arms['sp']['peak_gib']:.2f} GiB, "
+        f"capture {arms['sp']['capture_s']:.2f} s; dense {arms['dense']['step_ms']:.2f} ms, "
+        f"peak {arms['dense']['peak_gib']:.2f} GiB, capture {arms['dense']['capture_s']:.2f} s")
+    RECORD["phases"]["sp_train_captured"] = {
+        "L": L, "rows": rows, "grad_accum": accum, "config": repr(cfg), "card": smi,
+        "captured_launches": capture.launches, "expected": expect, "counts_ok": counts_ok,
+        "bound": bound, "arms": arms, "ok": ok}
+    if not ok:
+        fail("the captured SP step's launches or its first step's agreement failed (phase 22b)")
+    return launches
+
+
+def sp_e2e_step(ecfg, crop, rows, accum, mesh=None, reps=0, seed=9):
+    """The eager e2e step of a fresh seeded state on the card at `crop`
+    (`make_sp_train_step(loss_fn=sp_e2e_loss_fn(mesh))`, or the dense
+    `make_train_step(loss_fn=e2e_loss_fn)` without a mesh): the first
+    step's metrics, then `reps` more steps timed (CUDA events); the
+    counts set to 0 and the peak memory reset before the state is made,
+    both read after."""
+    tcfg = TrainConfig(grad_accum=accum)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state = e2e.e2e_train_state_init(ecfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    step = (make_train_step(ecfg, tcfg, loss_fn=e2e.e2e_loss_fn, device="cuda") if mesh is None
+            else make_sp_train_step(ecfg, tcfg, mesh, loss_fn=sp_e2e_loss_fn(mesh)))
+    fetch = structure_fetch(crop, rows, accum, seed=seed)
+    try:
+        _, m = step(state, fetch(0))
+        first = {k: float(v) for k, v in m.items()}
+        times = []
+        for n in range(1, reps + 1):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, fetch(n))
+            end.record()
+            sync()
+            times.append(start.elapsed_time(end))
+        sync()
+        return {"first": first, "times": times,
+                "step_ms": sorted(times)[len(times) // 2] if times else None,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "launches": launch_counts()}
+    finally:
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_sp_train_e2e(smi, rows=E2E_ROWS, accum=2):
+    """(c) the e2e step, eager, at phase 12b's widths less remat (the SP
+    trunk has none): `e2e_north_star(crop, remat=False)`, 128 MSA rows,
+    accum 2, SP over 4 shards of the card against the dense step, from the
+    same params and batches. Crop 384 if the SP step fits the card (one
+    step tried first; an out-of-memory error is recorded), else 256; the
+    checked comparison runs at 256 whatever the probe says, because its
+    f32 yardstick (the dense f32 step, with remat) needs twice 12b's bf16
+    activations, past the card at 384. Checks at 256: the SP step's first
+    loss and grad_norm within `yardstick` of the dense bf16 and f32 steps;
+    every B1f, dq and dkv launch on wgmma, B3's forward 16 a ring call
+    (depth x accum of them) and its dq and dkv 16 a ring whose output
+    reaches the loss (the first layer's). Reported: the SP step's ms
+    (median of 3 after the first) and peak memory, the dense step's."""
+    mesh = make_mesh({"seq": SP_TRAIN_P}, devices=["cuda:0"] * SP_TRAIN_P)
+    probe = {"crop": E2E_CROP}
+    try:
+        r = sp_e2e_step(e2e_north_star(E2E_CROP, remat=False), E2E_CROP, rows, accum, mesh)
+        probe.update(fits=True, peak_gib=r["peak_gib"], loss=r["first"]["loss"])
+    except torch.cuda.OutOfMemoryError as e:
+        probe.update(fits=False, error=str(e).splitlines()[0][:300])
+    log(f"[sp_train c] the SP e2e step at crop {E2E_CROP} (grid {3 * E2E_CROP}, no remat): "
+        + (f"fits, peak {probe['peak_gib']:.2f} GiB" if probe["fits"]
+           else f"out of memory ({probe['error']})"))
+    crop = 256
+    ecfg = e2e_north_star(crop, remat=False)
+    sp = sp_e2e_step(ecfg, crop, rows, accum, mesh, reps=3)
+    dense = sp_e2e_step(ecfg, crop, rows, accum, reps=3)
+    f32 = sp_e2e_step(e2e_north_star(crop, remat=True, dtype=torch.float32), crop, rows,
+                      accum)["first"]
+    bound, bound_ok = yardstick(sp["first"], dense["first"], f32)
+    lz = sp["launches"]
+    steps = 4  # the first and 3 timed
+    ring, ring_bwd = (SP_TRAIN_P ** 2 * ecfg.model.depth * accum * steps,
+                      SP_TRAIN_P ** 2 * (ecfg.model.depth - 1) * accum * steps)
+    routes_ok = (lz.get("flash_fwd_lse", 0) == ring and lz.get("flash_bwd_lse_dq", 0) == ring_bwd
+                 and lz.get("flash_bwd_lse_dkv", 0) == ring_bwd
+                 and lz.get("flash_fwd_wgmma", 0) == lz.get("flash_fwd", 0) + ring
+                 and all(lz.get(f"flash_bwd_{k}_wgmma", 0)
+                         == lz.get(f"flash_bwd_{k}", 0) + lz.get(f"flash_bwd_lse_{k}", 0)
+                         for k in ("dq", "dkv")))
+    ok = bound_ok and routes_ok and all(math.isfinite(v) for v in sp["first"].values())
+    log(f"[sp_train c] e2e step at crop {crop} (grid {3 * crop}), {rows} rows, accum {accum}, "
+        f"bf16, eager ({smi}): SP {sp['step_ms']:.1f} ms (median of 3: "
+        f"{', '.join(f'{t:.1f}' for t in sp['times'])}), peak {sp['peak_gib']:.2f} GiB; dense "
+        f"{dense['step_ms']:.1f} ms, peak {dense['peak_gib']:.2f} GiB; first step "
+        + "; ".join(f"{k} SP {v['sp']:.5f} dense {v['dense']:.5f} f32 {v['f32']:.5f} "
+                    f"(|SP - f32| {v['sp_vs_f32']:.3e}, bound {v['bound']:.3e})"
+                    for k, v in bound.items())
+        + f"; SP launches {dict((k, n) for k, n in lz.items() if n)}"
+        + f"{'' if routes_ok else ' (OFF wgmma or a B3 count wrong)'} {'ok' if ok else 'FAIL'}")
+    RECORD["phases"]["sp_train_e2e"] = {
+        "probe_384": probe, "crop": crop, "rows": rows, "grad_accum": accum,
+        "config": repr(ecfg), "card": smi, "sp": sp, "dense": dense, "f32_first": f32,
+        "bound": bound, "routes_ok": routes_ok, "ok": ok}
+    if not ok:
+        fail("the SP e2e step disagrees with the dense one, or left wgmma (phase 22c)")
+    return _merged(lz, dense["launches"])
+
+
+def phase_sp_train_cli():
+    """(d) the CLIs on the card, in this process: `train_pre --sp-shards 1
+    --bf16` (captured: the startup line says so) and `train_end2end
+    --sp-shards 1` finish finite; `--sp-shards 4` on a host with fewer
+    than 4 cards exits with the mesh's device-count error, with 4 or more
+    the eager step over distinct cards runs one step."""
+    cards = torch.cuda.device_count()
+    rows = []
+    runs = [(train_pre, ["--steps", "3", "--bf16", "--accum", "2", "--sp-shards", "1"],
+             "the step runs captured as a CUDA graph"),
+            (train_end2end, ["--steps", "2", "--sp-shards", "1"], "sequence-parallel trunk")]
+    if cards >= SP_TRAIN_P:
+        runs.append((train_pre, ["--steps", "1", "--bf16", "--accum", "2", "--len", "128",
+                                 "--sp-shards", str(SP_TRAIN_P)], "the step runs eager"))
+    for module, argv, says in runs:
+        t0 = time.perf_counter()
+        (state, metrics), lines = quiet(module.main, argv)
+        sync()
+        ok = (any(says in line for line in lines) and lines[-1:] == ["done"]
+              and all(math.isfinite(float(v)) for v in metrics.values()))
+        rows.append({"cmd": [module.__name__.split(".")[-1], *argv], "lines": lines,
+                     "seconds": time.perf_counter() - t0, "ok": ok})
+        log(f"[sp_train d] {' '.join(rows[-1]['cmd'])}: {rows[-1]['seconds']:.1f} s; "
+            + " | ".join(lines) + f" {'ok' if ok else 'FAIL'}")
+    if cards < SP_TRAIN_P:
+        try:
+            quiet(train_pre.main, ["--steps", "1", "--bf16", "--sp-shards", str(SP_TRAIN_P)])
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        ok = refused is not None and f"needs {SP_TRAIN_P} CUDA devices" in refused
+        rows.append({"cmd": ["train_pre", "--sp-shards", str(SP_TRAIN_P)], "refused": refused,
+                     "ok": ok})
+        log(f"[sp_train d] {cards} card on this host: train_pre --sp-shards {SP_TRAIN_P} "
+            f"refused ({refused}) {'ok' if ok else 'FAIL'}; the step over distinct cards is "
+            f"skipped")
+    RECORD["phases"]["sp_train_cli"] = rows
+    if not all(r["ok"] for r in rows):
+        fail("an SP training CLI failed on the card (phase 22d)")
+
+
+def phase_sp_train(smi):
+    """22: the sequence-parallel training step on the card. Returns the
+    flash launches of (a)'s card steps, (b)'s eager, captured and timed
+    steps (the wrappers' counts and the replays') and (c)'s steps."""
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        RECORD["phases"][f"sp_train_{key}_s"] = time.perf_counter() - t
+        log(f"[time] sp_train {key}: {RECORD['phases'][f'sp_train_{key}_s']:.1f} s")
+        return result
+
+    launches = timed("a", phase_sp_train_parity)
+    launches = _merged(launches, timed("b", phase_sp_train_captured, smi))
+    launches = _merged(launches, timed("c", phase_sp_train_e2e, smi))
+    timed("d", phase_sp_train_cli)
+    return {k: n for k, n in launches.items() if k.startswith("flash_")}
+
+
 def _merged(*counts):
     out = {}
     for c in counts:
@@ -8416,7 +8815,9 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     references after the counts' reset: B3 in the captured SP graphs for
     the first time). Phase 21 adds its B1f launches: every engine's and
     fleet replica's warm-ups, captures and replays at depths 0, 1 and 2,
-    the depth-0 references' replays included."""
+    the depth-0 references' replays included. Phase 22 adds its B1f, B1b and
+    B3 launches: (a)'s card steps, (b)'s eager steps, the captured steps'
+    warm-ups, captures and replays, and (c)'s SP and dense e2e steps."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r
@@ -8591,6 +8992,8 @@ def main():
     for name, n in timed_phase("sp_serving", phase_sp_serving, smi).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in timed_phase("pipeline", phase_pipeline, smi).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in timed_phase("sp_train", phase_sp_train, smi).items():
         launches[name] = launches.get(name, 0) + n
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches, dropout_rows, dropout_times)

@@ -417,3 +417,63 @@ def test_the_training_package_exports_jax_names():
     assert ttraining.distogram_cross_entropy is losses.distogram_cross_entropy
     for name in ttraining.__all__:
         assert getattr(ttraining, name) is not None
+
+
+# --- the trainers' flags ------------------------------------------------------------
+
+# the JAX trainers' flags (or choices) the port's CLIs lack, each with the
+# ROADMAP item that brings it
+MISSING_FLAGS = {
+    "train_pre.py": {("--data", "sidechainnet"): "--data sidechainnet (not queued)"},
+    "train_end2end.py": {("--data", None): "--data sidechainnet (not queued): the port's "
+                                            "only source is the synthetic one"},
+}
+
+
+def cli_flags(path):
+    """{flag: its literal keywords (default, choices, type, action, dest)}
+    of every `add_argument` call in the file, and the `add_*_args` helpers
+    it calls (the shared blocks, each package's own copy)."""
+    import ast
+
+    flags, helpers = {}, set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if not isinstance(node, ast.Call):
+            continue
+        if isinstance(node.func, ast.Attribute) and node.func.attr == "add_argument":
+            kw = {}
+            for k in node.keywords:
+                if k.arg in ("default", "choices", "type", "action", "dest"):
+                    try:
+                        kw[k.arg] = ast.literal_eval(k.value)
+                    except ValueError:
+                        kw[k.arg] = ast.unparse(k.value)
+            flags[node.args[0].value] = kw
+        elif (isinstance(node.func, ast.Name) and node.func.id.startswith("add_")
+              and node.func.id.endswith("_args")):
+            helpers.add(node.func.id)
+    return flags, helpers
+
+
+@pytest.mark.parametrize("cli", ["train_pre.py", "train_end2end.py"])
+def test_trainer_flags_are_the_jax_clis(cli):
+    """An ast diff of the `add_argument` calls of the root CLI and the
+    port's: the same flags with the same defaults, types and choices, the
+    same shared blocks, plus `--device`, less MISSING_FLAGS; `--sp-shards`
+    is there with JAX's default."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    jflags, jhelpers = cli_flags(root / cli)
+    tflags, thelpers = cli_flags(root / "alphafold2_tpu_torch" / cli)
+    assert thelpers == jhelpers
+    assert set(tflags) - set(jflags) == {"--device"}
+    missing = MISSING_FLAGS[cli]
+    assert {f for f, choice in missing if choice is None} == set(jflags) - set(tflags)
+    assert tflags["--sp-shards"] == jflags["--sp-shards"] == {"type": "int", "default": 0}
+    for flag in set(jflags) & set(tflags):
+        want = dict(jflags[flag])
+        gone = {choice for f, choice in missing if f == flag}
+        if gone:
+            want["choices"] = [c for c in want["choices"] if c not in gone]
+        assert tflags[flag] == want, flag
