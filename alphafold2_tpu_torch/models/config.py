@@ -16,7 +16,8 @@ ops as "serial", in the same order on the CPU.
 `reversible` runs the reversible dual-stream trunk (models/reversible.py),
 whose backward rebuilds each layer's input from its output; as in JAX it
 excludes `remat`, and `remat_policy` is unread under it. With
-"branch_parallel" it raises (ROADMAP A8-reversible-branch).
+"branch_parallel" each reversible layer's MSA half runs on the side
+stream on CUDA, in the forward and in the backward's inversion.
 """
 
 from __future__ import annotations
@@ -85,13 +86,6 @@ class Alphafold2Config:
             raise ValueError(
                 "reversible=True and remat=True are mutually exclusive "
                 "activation-memory strategies; pick one"
-            )
-        if self.reversible and self.trunk_schedule == "branch_parallel":
-            raise NotImplementedError(
-                "reversible=True with trunk_schedule='branch_parallel': the reversible "
-                "layer's MSA half on the side stream, in the forward and in the "
-                "backward's inversion, is not ported yet (ROADMAP A8-reversible-branch); "
-                "use trunk_schedule='serial'"
             )
         if self.cross_attn_mode not in ("flat", "aligned"):
             raise ValueError(

@@ -44,6 +44,23 @@ order). Inside a captured train step these generators are registered with
 the graph (training/executable.py). The masks cannot equal JAX's: the
 parity tests with JAX run without dropout.
 
+The blocks are data (`COUPLINGS`: target = residual + block(*reads)), and
+so is their grouping onto streams (`SCHEDULE`): one interpreter runs the
+forward (`_layer_forward`) and one the inversion (`_layer_backward`, which
+`reconstruct_input` walks too). Under `trunk_schedule="branch_parallel"`
+on CUDA the self block's MSA half (j, k) runs on models/trunk.py's side
+stream, the pair half (f, g) and the cross block on the current stream,
+in the forward and in the inversion alike; each region forks from the
+current stream and joins back before the cross block (JAX's
+`schedule_join`). Every tensor that crosses is marked used by the stream
+that reads it (`_fork` / `_join`): the forward's m1, m2 and n1, n2; the
+inversion's n1, n2 and their cotangents one way, m1, m2, their
+cotangents and the MSA blocks' parameter cotangents the other. Each
+recomputed block builds its graph and takes `torch.autograd.grad` inside
+its stream's context, so its vjp runs there. The same ops run in the
+same arithmetic as "serial": the result is bit for bit serial's. On the
+CPU the regions run in turn.
+
 The reconstruction is exact in exact arithmetic only: in bfloat16 the
 rebuilt inputs differ from the forward's by rounding, in JAX too
 (`reconstruct_input` reports how far).
@@ -56,6 +73,9 @@ import torch
 from alphafold2_tpu_torch.device import tree_leaves
 from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.models.trunk import (
+    _fork,
+    _join,
+    branch_streams,
     cross_apply_grids,
     dropout_live,
     make_sparse_axial_fn,
@@ -65,10 +85,57 @@ from alphafold2_tpu_torch.models.trunk import (
 )
 from alphafold2_tpu_torch.utils.rng import as_key
 
-# a reversible layer's blocks in JAX's op order: its per-layer dropout keys
-# (r_fs, r_gs, r_js, r_ks, r_fc, r_gc, r_jc, r_kc) and the port's positions
-BLOCKS = ("seq_attn", "seq_ff", "msa_attn", "msa_ff",
-          "seq_cross", "seq_ff2", "msa_cross", "msa_ff2")
+# a reversible layer's blocks in JAX's op order (its per-layer dropout keys
+# r_fs, r_gs, r_js, r_ks, r_fc, r_gc, r_jc, r_kc, and the port's
+# positions), each an additive coupling: (block, target, residual, reads)
+# for target = residual + block(*reads)
+COUPLINGS = (
+    # the self block: f = pair axial attention, g = pair FF, j = MSA axial
+    # attention, k = MSA FF
+    ("seq_attn", "y1", "x1", ("x2",)),
+    ("seq_ff", "y2", "x2", ("y1",)),
+    ("msa_attn", "n1", "m1", ("m2",)),
+    ("msa_ff", "n2", "m2", ("n1",)),
+    # the cross block; the MSA cross attends the UPDATED pair half z2
+    ("seq_cross", "z1", "y1", ("y2", "n2")),
+    ("seq_ff2", "z2", "y2", ("z1",)),
+    ("msa_cross", "o1", "n1", ("n2", "z2")),
+    ("msa_ff2", "o2", "n2", ("o1",)),
+)
+BLOCKS = tuple(c[0] for c in COUPLINGS)
+COUPLING = {c[0]: c[1:] for c in COUPLINGS}
+LAYER_IN, LAYER_OUT = ("x1", "x2", "m1", "m2"), ("z1", "z2", "o1", "o2")
+
+# a layer's regions in forward order, each (main-stream blocks, side-stream
+# blocks). The self block's pair half and MSA half touch only their own
+# stream: under branch_parallel on CUDA the MSA half runs on the side
+# stream (JAX joins the halves, `schedule_join`, before the cross block),
+# in the forward and in the inversion. Elsewhere, and in a region without
+# side blocks, the main blocks run, then the side blocks.
+SCHEDULE = (
+    (("seq_attn", "seq_ff"), ("msa_attn", "msa_ff")),
+    (("seq_cross", "seq_ff2", "msa_cross", "msa_ff2"), ()),
+)
+
+
+def branch_io(blocks):
+    """(inputs, outputs) of a run of blocks in forward order: the tensors
+    it reads that it did not make before, and the tensors it makes."""
+    ins, made = [], []
+    for name in blocks:
+        target, residual, reads = COUPLING[name]
+        ins += [k for k in (residual, *reads) if k not in made and k not in ins]
+        made.append(target)
+    return tuple(ins), tuple(made)
+
+
+def layer_streams(cfg: Alphafold2Config, t):
+    """(main, side) streams for a layer under branch_parallel on CUDA (main:
+    the current stream; models/trunk.py `branch_streams`), else None (the
+    regions run in turn)."""
+    if cfg.trunk_schedule != "branch_parallel" or t.device.type != "cuda":
+        return None
+    return branch_streams(t.device)
 
 
 def reversible_trunk_init(gen, cfg: Alphafold2Config, device):
@@ -112,42 +179,51 @@ def block_keys(cfg: Alphafold2Config, rng, depth: int, device):
             for i in range(depth)]
 
 
-def _block_fns(cfg, layer, x_mask, msa_mask, keys, sparse_fn):
-    """One layer's eight blocks as functions of the stream halves they
-    read, each drawing from its position's next pass (`BLOCKS` order)."""
+def _block_fns(cfg, x_mask, msa_mask, keys, sparse_fn):
+    """One layer's eight blocks as functions of their params and the
+    stream halves they read, each drawing from its position's next pass
+    (`BLOCKS` order)."""
     g = [None if k is None else k.generator() for k in keys]
     return {
-        "seq_attn": lambda x2: _f_seq(cfg, layer["seq_attn"], x2, x_mask, g[0], sparse_fn),
-        "seq_ff": lambda y1: _ff(cfg, layer["seq_ff"], y1, g[1]),
-        "msa_attn": lambda m2: _j_msa(cfg, layer["msa_attn"], m2, msa_mask, g[2]),
-        "msa_ff": lambda n1: _ff(cfg, layer["msa_ff"], n1, g[3]),
-        "seq_cross": lambda y2, n2: _cross(cfg, layer["seq_cross"], y2, n2, x_mask, msa_mask,
-                                           g[4], "pair_from_msa"),
-        "seq_ff2": lambda z1: _ff(cfg, layer["seq_ff2"], z1, g[5]),
-        "msa_cross": lambda n2, z2: _cross(cfg, layer["msa_cross"], n2, z2, msa_mask, x_mask,
-                                           g[6], "msa_from_pair"),
-        "msa_ff2": lambda o1: _ff(cfg, layer["msa_ff2"], o1, g[7]),
+        "seq_attn": lambda p, x2: _f_seq(cfg, p, x2, x_mask, g[0], sparse_fn),
+        "seq_ff": lambda p, y1: _ff(cfg, p, y1, g[1]),
+        "msa_attn": lambda p, m2: _j_msa(cfg, p, m2, msa_mask, g[2]),
+        "msa_ff": lambda p, n1: _ff(cfg, p, n1, g[3]),
+        "seq_cross": lambda p, y2, n2: _cross(cfg, p, y2, n2, x_mask, msa_mask, g[4],
+                                              "pair_from_msa"),
+        "seq_ff2": lambda p, z1: _ff(cfg, p, z1, g[5]),
+        "msa_cross": lambda p, n2, z2: _cross(cfg, p, n2, z2, msa_mask, x_mask, g[6],
+                                              "msa_from_pair"),
+        "msa_ff2": lambda p, o1: _ff(cfg, p, o1, g[7]),
     }
 
 
 # --- one layer forward and backward -----------------------------------------
 
 
-def _layer_forward(cfg, layer, state, x_mask, msa_mask, keys, sparse_fn):
-    x1, x2, m1, m2 = state
-    b = _block_fns(cfg, layer, x_mask, msa_mask, keys, sparse_fn)
-    # the self block: the pair half (f, g) and the MSA half (j, k) touch
-    # only their own stream
-    y1 = x1 + b["seq_attn"](x2)
-    y2 = x2 + b["seq_ff"](y1)
-    n1 = m1 + b["msa_attn"](m2)
-    n2 = m2 + b["msa_ff"](n1)
-    # the cross block; the MSA cross attends the UPDATED pair half z2
-    z1 = y1 + b["seq_cross"](y2, n2)
-    z2 = y2 + b["seq_ff2"](z1)
-    o1 = n1 + b["msa_cross"](n2, z2)
-    o2 = n2 + b["msa_ff2"](o1)
-    return z1, z2, o1, o2
+def _layer_forward(cfg, layer, state, x_mask, msa_mask, keys, sparse_fn, streams=None):
+    """One layer on (x1, x2, m1, m2): (z1, z2, o1, o2). streams: (main,
+    side) to run each region's side blocks on side (`layer_streams`)."""
+    env = dict(zip(LAYER_IN, state))
+    b = _block_fns(cfg, x_mask, msa_mask, keys, sparse_fn)
+
+    def run(names):
+        for name in names:
+            target, residual, reads = COUPLING[name]
+            env[target] = env[residual] + b[name](layer[name], *(env[k] for k in reads))
+
+    for main_blocks, side_blocks in SCHEDULE:
+        if streams is None or not side_blocks:
+            run(main_blocks + side_blocks)
+            continue
+        main, side = streams
+        ins, outs = branch_io(side_blocks)
+        _fork(main, side, *(env[k] for k in ins))
+        run(main_blocks)
+        with torch.cuda.stream(side):
+            run(side_blocks)
+        _join(main, side, *(env[k] for k in outs))
+    return tuple(env[k] for k in LAYER_OUT)
 
 
 def param_leaves(tree):
@@ -164,76 +240,73 @@ def _rebuild(tree, it):
     return next(it)
 
 
-def _recompute(fn, inputs, params, ct, param_grads):
-    """fn(*inputs) recomputed on detached inputs that require grad, under
-    enable_grad, then `torch.autograd.grad` of the output against the
-    inputs and (param_grads) the block's param leaves, with cotangent
-    `ct`. Returns (the output without a graph, input cotangents, param
-    cotangents in `param_leaves` order or None)."""
+def _recompute(fn, params, inputs, ct, param_grads):
+    """fn(params, *inputs) recomputed under enable_grad on detached inputs
+    that require grad and on detached aliases of the block's param leaves
+    (requiring grad with param_grads, where the leaf does), then
+    `torch.autograd.grad` of the output against them, with cotangent `ct`.
+    The aliases keep the recompute's graph off the leaves' own nodes,
+    which belong to the forward's stream: a vjp on the side stream that
+    reached them would make autograd join the streams there. Returns (the
+    output without a graph, input cotangents, param cotangents in
+    `param_leaves` order or None)."""
     ins = [t.detach().requires_grad_(True) for t in inputs]
-    leaves = param_leaves(params) if param_grads else []
+    leaves = param_leaves(params)
+    alias = [p.detach().requires_grad_(param_grads and p.requires_grad) for p in leaves]
     with torch.enable_grad():
-        out = fn(*ins)
-        wrt = ins + [p for p in leaves if p.requires_grad]
+        out = fn(_rebuild(params, iter(alias)), *ins)
+        wrt = ins + [a for a in alias if a.requires_grad]
         grads = torch.autograd.grad(out, wrt, ct, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(wrt, grads)]
     d_in, d_wrt = grads[:len(ins)], iter(grads[len(ins):])
-    d_params = [next(d_wrt) if p.requires_grad else None for p in leaves] if param_grads else None
+    d_params = [next(d_wrt) if a.requires_grad else None for a in alias] if param_grads else None
     return out.detach(), d_in, d_params
 
 
+def _accumulate(d, key, g):
+    d[key] = g if key not in d else d[key] + g
+
+
 def _layer_backward(cfg, layer, state, cts, x_mask, msa_mask, keys, sparse_fn,
-                    param_grads=True):
+                    param_grads=True, streams=None):
     """Invert one layer from its output `state` and carry the cotangents
     `cts` back through it (JAX `_layer_backward`): the cross block (k, j,
-    g, f), then the self block (the pair half g, f; the MSA half k, j).
-    Returns (the layer's input, its cotangents, {block: param cotangents
-    in `param_leaves` order, or None without param_grads})."""
-    z1, z2, o1, o2 = state
-    dz1, dz2, do1, do2 = cts
-    b = _block_fns(cfg, layer, x_mask, msa_mask, keys, sparse_fn)
+    g, f; the z2 coupling's cotangent added before g's vjp), then the self
+    block (the pair half g, f; the MSA half k, j). streams: (main, side) to
+    invert the MSA half on side (`layer_streams`). Returns (the layer's
+    input, its cotangents, {block: param cotangents in `param_leaves`
+    order, or None without param_grads})."""
+    env, d = dict(zip(LAYER_OUT, state)), dict(zip(LAYER_OUT, cts))
+    b = _block_fns(cfg, x_mask, msa_mask, keys, sparse_fn)
     dp = {}
 
-    def run(name, inputs, ct):
-        out, d_in, dp[name] = _recompute(b[name], inputs, layer[name], ct, param_grads)
-        return out, d_in
+    def invert(names):
+        # each coupling in reverse: the block recomputed on its reads
+        # rebuilds its residual (target - block), the residual takes the
+        # target's cotangent and the block's vjp adds to the reads'
+        for name in reversed(names):
+            target, residual, reads = COUPLING[name]
+            out, d_in, dp[name] = _recompute(b[name], layer[name], [env[k] for k in reads],
+                                             d[target], param_grads)
+            env[residual] = env[target] - out
+            _accumulate(d, residual, d[target])
+            for k, g in zip(reads, d_in):
+                _accumulate(d, k, g)
 
-    # --- the cross block ---
-    # k: o2 = n2 + K(o1)
-    ko1, (do1_k,) = run("msa_ff2", [o1], do2)
-    n2 = o2 - ko1
-    dn1 = do1 + do1_k
-    # j: o1 = n1 + J(n2, z2); z2 gets a cotangent too (the z2 coupling),
-    # added to dz2 before g's vjp
-    jn2, (dn2_j, dz2_j) = run("msa_cross", [n2, z2], dn1)
-    n1 = o1 - jn2
-    dn2 = do2 + dn2_j
-    dz2 = dz2 + dz2_j
-    # g: z2 = y2 + G(z1)
-    gz1, (dz1_g,) = run("seq_ff2", [z1], dz2)
-    y2 = z2 - gz1
-    dy1 = dz1 + dz1_g
-    # f: z1 = y1 + F(y2, n2)
-    fy2, (dy2_f, dn2_f) = run("seq_cross", [y2, n2], dy1)
-    y1 = z1 - fy2
-    dy2 = dz2 + dy2_f
-    dn2 = dn2 + dn2_f
-
-    # --- the self block, the pair half ---
-    gy1, (dy1_g,) = run("seq_ff", [y1], dy2)
-    x2 = y2 - gy1
-    dx1 = dy1 + dy1_g
-    fx2, (dx2_f,) = run("seq_attn", [x2], dx1)
-    x1 = y1 - fx2
-    dx2 = dy2 + dx2_f
-    # --- the MSA half ---
-    kn1, (dn1_k,) = run("msa_ff", [n1], dn2)
-    m2 = n2 - kn1
-    dm1 = dn1 + dn1_k
-    jm2, (dm2_j,) = run("msa_attn", [m2], dm1)
-    m1 = n1 - jm2
-    dm2 = dn2 + dm2_j
-    return (x1, x2, m1, m2), (dx1, dx2, dm1, dm2), dp
+    for main_blocks, side_blocks in reversed(SCHEDULE):
+        if streams is None or not side_blocks:
+            invert(main_blocks)
+            invert(side_blocks)
+            continue
+        main, side = streams
+        ins, outs = branch_io(side_blocks)
+        _fork(main, side, *(env[k] for k in outs), *(d[k] for k in outs))
+        invert(main_blocks)
+        with torch.cuda.stream(side):
+            invert(side_blocks)
+        _join(main, side, *(env[k] for k in ins), *(d[k] for k in ins),
+              *(g for name in side_blocks for g in (dp[name] or ()) if g is not None))
+    return tuple(env[k] for k in LAYER_IN), tuple(d[k] for k in LAYER_IN), dp
 
 
 def _sparse_fns(cfg: Alphafold2Config, depth: int):
@@ -249,8 +322,10 @@ def forward_state(layers, cfg: Alphafold2Config, state, *, x_mask=None, msa_mask
     keys: `block_keys`'s positions (None: eval mode)."""
     layers = list(layers)
     keys = keys if keys is not None else block_keys(cfg, None, len(layers), None)
+    streams = layer_streams(cfg, state[0])
     for layer, layer_keys, sparse_fn in zip(layers, keys, _sparse_fns(cfg, len(layers))):
-        state = _layer_forward(cfg, layer, state, x_mask, msa_mask, layer_keys, sparse_fn)
+        state = _layer_forward(cfg, layer, state, x_mask, msa_mask, layer_keys, sparse_fn,
+                               streams)
     return state
 
 
@@ -279,10 +354,14 @@ class _ReversibleCore(torch.autograd.Function):
         sparse_fns = _sparse_fns(cfg, len(layers))
         param_grads = any(ctx.needs_input_grad[7:])
         state, cts = (z1, z2, o1, o2), (dz1, dz2, do1, do2)
+        # the backward's stream: each branch region joins back to it, so
+        # autograd gets only tensors ready there
+        streams = layer_streams(cfg, z1)
         d_layers = [None] * len(layers)
         for index in reversed(range(len(layers))):
             state, cts, dp = _layer_backward(cfg, layers[index], state, cts, x_mask, msa_mask,
-                                             keys[index], sparse_fns[index], param_grads)
+                                             keys[index], sparse_fns[index], param_grads,
+                                             streams)
             d_layers[index] = dp
         d_leaves = []
         for layer, dp in zip(layers, d_layers):
@@ -331,8 +410,10 @@ def reconstruct_input(layers, cfg: Alphafold2Config, state, *, x_mask=None, msa_
     layers = list(layers)
     keys = keys if keys is not None else block_keys(cfg, None, len(layers), None)
     sparse_fns = _sparse_fns(cfg, len(layers))
+    streams = layer_streams(cfg, state[0])
     cts = tuple(torch.zeros_like(t) for t in state)
     for index in reversed(range(len(layers))):
         state, cts, _ = _layer_backward(cfg, layers[index], state, cts, x_mask, msa_mask,
-                                        keys[index], sparse_fns[index], param_grads=False)
+                                        keys[index], sparse_fns[index], param_grads=False,
+                                        streams=streams)
     return tuple(t.detach() for t in state)

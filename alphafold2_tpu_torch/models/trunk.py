@@ -221,16 +221,23 @@ def cross_apply_grids(params, cfg: Alphafold2Config, q_grid, ctx_grid, q_mask,
 _SIDE_STREAMS = {}  # CUDA device index -> the schedule's side stream
 
 
+# The side stream's priority. `torch.cuda.Stream()` hands out the streams
+# of a fixed pool a priority in turn, so a stream made later at the
+# default priority (a capture's or a warm-up's) can be the side stream
+# itself; no other stream of the port is made at this one.
+SIDE_PRIORITY = -1
+
+
 def side_stream(device) -> "torch.cuda.Stream":
     """The branch-parallel schedule's side stream on a CUDA device, made at
-    its first use and kept (one a device). A capture's eager warm-up
-    makes it before the capture begins."""
+    its first use and kept (one a device), at `SIDE_PRIORITY`. A capture's
+    eager warm-up makes it before the capture begins."""
     index = torch.device(device).index
     index = torch.cuda.current_device() if index is None else index
     stream = _SIDE_STREAMS.get(index)
     if stream is None:
         try:
-            stream = torch.cuda.Stream(device=index)
+            stream = torch.cuda.Stream(device=index, priority=SIDE_PRIORITY)
         except RuntimeError as e:
             raise RuntimeError(
                 f"trunk_schedule='branch_parallel': could not make the side stream "
@@ -238,6 +245,18 @@ def side_stream(device) -> "torch.cuda.Stream":
             ) from e
         _SIDE_STREAMS[index] = stream
     return stream
+
+
+def branch_streams(device, main_stream=None):
+    """(main, side): the stream a branch-parallel region's pair branch runs
+    on (`main_stream`, default the current stream) and the device's side
+    stream. Raises if they are one stream."""
+    main = main_stream if main_stream is not None else torch.cuda.current_stream(device)
+    side = side_stream(device)
+    if main == side:
+        raise RuntimeError("trunk_schedule='branch_parallel': the main stream is the "
+                           "side stream; the MSA branch would run on the pair branch's")
+    return main, side
 
 
 def _record_use(t, stream):
@@ -251,19 +270,21 @@ def _record_use(t, stream):
     alias.record_stream(stream)
 
 
-def _fork(main, side, m):
+def _fork(main, side, *tensors):
     """Start a branch region: the side stream waits for the work issued on
-    `main` so far, and reads m (made on main, or on side by the last
-    region)."""
+    `main` so far, and reads `tensors` (made on main, or on side by the
+    last region)."""
     side.wait_stream(main)
-    _record_use(m, side)
+    for t in tensors:
+        _record_use(t, side)
 
 
-def _join(main, side, m):
-    """End a branch region: `main` waits for the side stream, and reads m
-    (made on side)."""
+def _join(main, side, *tensors):
+    """End a branch region: `main` waits for the side stream, and reads
+    `tensors` (made on side)."""
     main.wait_stream(side)
-    _record_use(m, main)
+    for t in tensors:
+        _record_use(t, main)
 
 
 def _layer_ops(layer, cfg: Alphafold2Config, x_mask, msa_mask, rng, sparse_fn):
@@ -331,11 +352,7 @@ def branch_parallel_layer_apply(layer, cfg: Alphafold2Config, x, m, *, x_mask=No
     if x.device.type != "cuda":
         return _serial(ops, x, m)
     pair_attn, msa_attn, exchange, pair_ff, msa_ff = ops
-    main = main_stream if main_stream is not None else torch.cuda.current_stream(x.device)
-    side = side_stream(x.device)
-    if main == side:
-        raise RuntimeError("trunk_schedule='branch_parallel': the main stream is the "
-                           "side stream; the MSA branch would run on the pair branch's")
+    main, side = branch_streams(x.device, main_stream)
     with torch.cuda.stream(main):
         _fork(main, side, m)
         x = pair_attn(x)

@@ -190,8 +190,8 @@ each phase prints its seconds):
          3L, 3L), the embedds cross (8, 9L^2, 9L^2)) held against its
          plain version on sampled rows, with its ms and bound; each
          stage's ms (embed, trunk, distogram, MDS + mirror, side chains,
-         refiner; events from `predict_structure`'s stage hook), the
-         request's host ms and peak memory, finiteness, its 45 flash
+         refiner; events from `predict_structure`'s stage hook in the
+         timed request), the request's host ms and peak memory, finiteness, its 45 flash
          launches all on the wgmma route;
      (d) `python -m alphafold2_tpu_torch.predict --full-atom --bf16` on 64
          residues in a process of its own: rc 0, a PDB of 4 L atoms;
@@ -207,7 +207,7 @@ each phase prints its seconds):
          aligned crosses with KV compression 4, ff_chunk_size 32768,
          refiner dim 64 depth 2 in atom chunks of 256, 25 MDS iterations,
          bf16) at crop 384 (grid 1152) with 128 MSA rows, accum 2: step
-         ms (CUDA events, median of 5 after an untimed step), MFU, peak
+         ms (CUDA events, one timed step after an untimed one), MFU, peak
          memory, launches (all on the wgmma routes), device ms by kind and
          busy share (torch.profiler), one microbatch by stage;
      (c) the first B1f and B1b launch at each of (b)'s shapes against its
@@ -236,11 +236,13 @@ each phase prints its seconds):
          3 eager steps, all on wgmma; its captured ms beside the
          sequential step's on the same batch and 6h's;
      (d) the north-star e2e step, reversible (`north_star_e2e_config(2)`:
-         crop 384, grid 1152, 128 rows, accum 2, bf16, eager): step ms,
-         MFU, peak memory, busy share, device ms by kind, 40 B1f and 20 +
-         20 B1b launches a step, all on wgmma; one step of depth 4 and of
-         depth 2 from fresh states: peak(4) - peak(2) < 1 GiB, and the
-         depth-2 peak below 12b's remat peak;
+         crop 384, grid 1152, 128 rows, accum 2, bf16, eager): one timed
+         step after an untimed one (23c times this step in turns with
+         branch_parallel, median of 3), MFU, peak memory, busy share,
+         device ms by kind, 40 B1f and 20 + 20 B1b launches a step, all on
+         wgmma; one step of one microbatch at depth 4 and at depth 2 from
+         fresh states: peak(4) - peak(2) < 1 GiB, and the depth-2 peak
+         below 12b's remat peak;
      (e) `train_end2end.main --reversible --bf16 --len 32`: 3 steps against
          2 saved then 1 resumed, bit for bit;
   14. the relaxation (`refinement.py relax`, `refine`), the e2e step at
@@ -410,8 +412,9 @@ each phase prints its seconds):
      (b) reported: L = 384 through the SP and the dense (384, rung 1)
          executables (host clock, median of 5, in turns); each SP
          capture's seconds;
-     (c) a fleet with the autoscaler (min 1, max 3, the verify skill's
-         autoscaler recipe's policy) and a scale_flap plan, phase 8b's
+     (c) a fleet with the autoscaler (min 1, max 2: the verify skill's
+         autoscaler recipe's policy at one replica less) and a scale_flap
+         plan, phase 8b's
          stream twice as one burst, then a grace: scale-up and scale-down, acted events spaced
          by the cooldowns, the flap absorbed, nothing lost, no
          CaptureError, every scrape 200, every result bit for bit the bare
@@ -440,8 +443,8 @@ each phase prints its seconds):
          flight: nothing lost, memory allocated over the 3 flat (5%);
      (d) reported, no limit: requests/s, p50, p95, mean latency, mean
          batch and the overlap ratio of each turn of (a), and one more
-         pass a depth and init, each under a torch.profiler of its
-         own (the card's busy share: the union of the kernels' intervals
+         pass a depth of the classical init, each under a torch.profiler
+         of its own (the card's busy share: the union of the kernels' intervals
          over the pass's wall), each beside the card's name and power
          limit; the settle thread's event queries; which host waits for
          the card keep the interpreter lock (`gil_probe`);
@@ -466,11 +469,37 @@ each phase prints its seconds):
          accum 2, eager: one SP step tried at crop 384 (fits or out of
          memory, recorded), then SP against dense at crop 256 within (b)'s
          bound, every B1f, dq and dkv launch on wgmma, B3's counted;
-         reported: the steps' ms (median of 3) and peak memory;
+         reported: the steps' ms (one timed step after the first) and
+         peak memory;
      (d) `train_pre --sp-shards 1 --bf16` (captured) and `train_end2end
          --sp-shards 1` on the card; `--sp-shards 4` refused with the
          mesh's device-count error on a host with fewer cards, else one
          eager step over distinct cards;
+  23. the reversible trunk under trunk_schedule="branch_parallel" (each
+     reversible layer's self-block MSA half on the side stream, in the
+     forward and in the backward's inversion), each part against the
+     serial reversible trunk bit for bit:
+     (a) f32, 13a's config: 3 steps card vs CPU at phase 6a's tolerances
+         with 13a's launch counts on the f32 routes; on the card the
+         trunk's gradient (reverse=True) and its forward state and
+         `reconstruct_input` torch.equal serial's, the gradient within
+         1e-4 of each leaf's largest of reverse=False;
+     (b) 13c's captured bf16 step (crop 128, accum 16, 20 MSA rows), each
+         schedule captured against eager over 3 steps, and the two
+         schedules against each other, all bit for bit, and again with
+         attention and FF dropout 0.1 (step rngs 41-43, accum 2); reported: the
+         captured steps' ms (median of 5, in turns), busy share and the
+         ms two streams run at once in one more replay of each, and the
+         kernels each stream ran in the eager trunk's forward and
+         inversion; fails if the side stream ran nothing in the inversion
+         or the branch_parallel replay's streams never overlap;
+     (c) the north-star e2e step (13d's config), 3 timed steps of each
+         schedule in turns bit for bit (cuDNN's deterministic algorithms on
+         both: the KV-compression conv), 13d's launch counts on wgmma,
+         peak(depth 4) - peak(depth 2) < 1 GiB; reported: the median step,
+         busy share, overlap ms, both schedules' peaks;
+     (d) `predict_structure` at L = 384 (20 MSA rows) with the served
+         config reversible: logits, confidence and stress torch.equal;
   5. a `kernels` JSON line (sixteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, the three sparse kernels with dropout, B3's forward and its
@@ -483,6 +512,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -577,6 +607,7 @@ from alphafold2_tpu_torch.training.checkpoint import (  # noqa: E402
 )
 from alphafold2_tpu_torch.training import e2e, presets  # noqa: E402
 from alphafold2_tpu_torch.models import reversible  # noqa: E402
+from alphafold2_tpu_torch.models.trunk import side_stream  # noqa: E402
 from alphafold2_tpu_torch.training.data import (  # noqa: E402
     DataConfig,
     synthetic_microbatch_fn,
@@ -701,9 +732,18 @@ def phase_card():
 # --- phase 2: the build ----------------------------------------------------------
 
 
-def phase_build():
+def phase_build(after=None):
+    """Every source built, one nvcc each, all started together; `after()`
+    is called once the sources the CLI runs launch (`CLI_SOURCES`) are
+    built, while the others may still be building."""
     t0 = time.perf_counter()
-    built = cuda_build.build()
+    rest = [name for name in cuda_build.sources() if name not in CLI_SOURCES]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        others = pool.submit(cuda_build.build, rest)
+        built = cuda_build.build(CLI_SOURCES)
+        if after is not None:
+            after()
+        built.update(others.result())
     seconds = time.perf_counter() - t0
     for b in built.values():
         log(f"[build] {b.name}: {b.path.name} in {b.seconds:.1f} s")
@@ -717,6 +757,84 @@ def phase_build():
                 log(f"[build]   {b.name}.cu: {line.strip()}")
     log(f"[build] all sources built in {seconds:.1f} s")
     RECORD["phases"]["build_s"] = seconds
+
+
+# --- the CLI runs in processes of their own, all at once ---------------------------
+
+CLI_WORK = ROOT / "build" / "cli"  # their outputs, removed at the script's end
+CLI_RUNS = {}  # name -> (subprocess.CompletedProcess, seconds), until its phase reads it
+CLI_SOURCES = ("flash_fwd", "flash_bwd", "quant_matmul")  # what the CLI runs launch
+
+
+def cli_commands():
+    """The CLI runs that read nothing this process makes, by the phase that
+    checks each: name -> argv (run from ROOT)."""
+    def seq(n):
+        return "".join(np.random.default_rng(n).choice(list(AA_ORDER), n))
+
+    e2e_base = ["--dim", "256", "--heads", "8", "--dim-head", "64", "--len", "64", "--bf16"]
+    return {
+        "train_pre": ["-m", "alphafold2_tpu_torch.train_pre", "--steps", "3", "--bf16"],
+        "full_atom": ["-m", "alphafold2_tpu_torch.predict", "--seq", seq(64), "--full-atom",
+                      "--bf16", "--out", str(ROOT / "chiprun_out" / "full_atom.pdb")],
+        "train_end2end": ["-m", "alphafold2_tpu_torch.train_end2end", "--steps", "3",
+                          *e2e_base, "--msa-rows", "20"],
+        "refine_input": ["-m", "alphafold2_tpu_torch.predict", "--seq", seq(128),
+                         "--full-atom", "--bf16", "--out", str(CLI_WORK / "predicted.pdb")],
+        "fleet": ["-m", "alphafold2_tpu_torch.serve", "--demo", "24", "--replicas", "3",
+                  *FLEET_CLI_MODEL, "--max-batch", "2", "--queue-size", "4", "--fleet-queue",
+                  "4", "--degrade-depth", "3", "--reprobe-interval", "0.3",
+                  "--degraded-weight-dtype", "int8", "--fault-plan",
+                  "docs/examples/fleet_chaos_plan.json", "--stats-json",
+                  str(CLI_WORK / "fleet.json")],
+    }
+
+
+def start_clis(running):
+    """Every run of `cli_commands` started at once into `running`, each in
+    a process of its own (its output to files)."""
+    shutil.rmtree(CLI_WORK, ignore_errors=True)
+    CLI_WORK.mkdir(parents=True)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    for name, argv in cli_commands().items():
+        out = open(CLI_WORK / f"{name}.out", "w")
+        err = open(CLI_WORK / f"{name}.err", "w")
+        proc = subprocess.Popen([sys.executable, *argv], cwd=ROOT, stdout=out, stderr=err,
+                                text=True)
+        running[name] = (proc, out, err, time.perf_counter())
+
+
+def wait_clis(running):
+    """The runs `start_clis` started, waited for together into CLI_RUNS: a
+    run's seconds are its own wall beside the others' (and the build's
+    last sources). Each phase checks its run's result as it did when it
+    ran the command itself (`cli_result`)."""
+    for name, (proc, out, err, t0) in running.items():
+        try:
+            proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        seconds = time.perf_counter() - t0
+        out.close()
+        err.close()
+        CLI_RUNS[name] = (subprocess.CompletedProcess(
+            proc.args, proc.returncode, (CLI_WORK / f"{name}.out").read_text(),
+            (CLI_WORK / f"{name}.err").read_text()), seconds)
+    log(f"[cli] {len(running)} CLI runs at once: " + ", ".join(
+        f"{name} rc {res.returncode} in {s:.1f} s" for name, (res, s) in CLI_RUNS.items()))
+
+
+def cli_result(name):
+    """(the CompletedProcess, seconds) of `cli_commands()[name]`: the run
+    `start_clis` made, or, where it made none, the command run now."""
+    if name in CLI_RUNS:
+        return CLI_RUNS.pop(name)
+    CLI_WORK.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *cli_commands()[name]], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    return res, time.perf_counter() - t0
 
 
 # --- phase 3: kernels against their plain versions --------------------------------
@@ -2729,11 +2847,10 @@ def phase_train_remat(steps=3):
 
 def phase_train_cli():
     """(j) `python -m alphafold2_tpu_torch.train_pre --steps 3 --bf16` in a
-    process of its own: it captures the step and runs 3 replays."""
-    cmd = [sys.executable, "-m", "alphafold2_tpu_torch.train_pre", "--steps", "3", "--bf16"]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
+    process of its own (`cli_result`): it captures the step and runs 3
+    replays."""
+    out, seconds = cli_result("train_pre")
+    cmd = out.args
     lines = out.stdout.strip().splitlines()
     losses = [float(line.split("loss")[1].split()[0]) for line in lines
               if line.startswith("step ")]
@@ -3499,13 +3616,18 @@ def phase_templates_kernels():
     return row, bwd
 
 
-def kernel_timeline(fn):
+def kernel_timeline(fn, host_ops=True):
     """fn once under torch.profiler; from its trace, the device kernels'
     busy ms (the union of their intervals), the ms two or more kernels run
-    at once, the ms kernels of two or more streams run at once, and the
-    kernels' count a stream."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    at once, the ms kernels of two or more streams run at once, the ms
+    kernels of the two busiest streams run at once (`pair_ms`) and the
+    kernels' count a stream.
+    host_ops=False traces device activity only (a long step's host ops
+    would multiply the trace's events)."""
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=activities) as prof:
         fn()
         sync()
     path = ROOT / "build" / "phase10_trace.json"
@@ -3529,8 +3651,14 @@ def kernel_timeline(fn):
     per_stream = {}
     for _, _, st in kernels:
         per_stream[str(st)] = per_stream.get(str(st), 0) + 1
+    top = sorted(per_stream, key=per_stream.get)[-2:]
+    pair, active = 0.0, {}
+    for (t, step, st), nxt in zip(points, points[1:] + [None]):
+        active[str(st)] = active.get(str(st), 0) + step
+        if nxt is not None and len(top) == 2 and all(active.get(k, 0) > 0 for k in top):
+            pair += nxt[0] - t
     return {"busy_ms": busy / 1e3, "concurrent_ms": multi / 1e3, "cross_stream_ms": cross / 1e3,
-            "kernels": len(kernels), "per_stream": per_stream}
+            "pair_ms": pair / 1e3, "kernels": len(kernels), "per_stream": per_stream}
 
 
 def timed_turns(arms, reps):
@@ -3933,7 +4061,7 @@ def check_path_flash(label, call, reps=2):
     return row
 
 
-def phase_full_atom_request(esm_params, reps=3):
+def phase_full_atom_request(esm_params):
     """(c) The full-atom request at the serving config (dim 256, depth 2,
     heads 8, dim_head 64, bf16 trunk, f32 geometry, 200 MDS iterations,
     classical init, refiner depth 2) at L = 128 (grid 384) and 256 (grid
@@ -3944,8 +4072,8 @@ def phase_full_atom_request(esm_params, reps=3):
     version. One request (synchronised): its host ms, peak memory,
     finiteness and flash launches (counts set to 0 just before it, read
     just after: 33 for the embed and 6 a trunk layer, every one on the
-    wgmma route). Then `reps` requests with CUDA events around each stage
-    (the `stage` hook of `predict_structure`): medians."""
+    wgmma route), with CUDA events around each stage (the `stage` hook of
+    `predict_structure`)."""
     rows = []
     for L in FULL_ATOM_LENGTHS:
         cfg = served_config(max_seq_len=3 * L, num_embedds=EmbedderConfig().dim)
@@ -3971,17 +4099,15 @@ def phase_full_atom_request(esm_params, reps=3):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
+            timer = StageEvents()
             t0 = time.perf_counter()
-            out = request()
+            out = request(timer)
             sync()
             host = (time.perf_counter() - t0) * 1e3
             launches = launch_counts()
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            timer = StageEvents()
-            for _ in range(reps):
-                request(timer)
             stage_ms = timer.ms()
-            med = {name: sorted(v)[reps // 2] for name, v in stage_ms.items()}
+            med = {name: v[0] for name, v in stage_ms.items()}
             finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values()
                          if v.is_floating_point())
         n = ESM1B_FLASH + E2E_TRUNK_FLASH * cfg.depth
@@ -3995,7 +4121,7 @@ def phase_full_atom_request(esm_params, reps=3):
         rows.append(row)
         log(f"[full-atom c] served config bf16, L={L} (grid {3 * L}, {14 * L} atoms), 200 MDS "
             f"iterations: " + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
-            + f" ms (events, medians of {reps}); the request {host:.1f} ms (host); peak "
+            + f" ms (events); the request {host:.1f} ms (host); peak "
             f"{peak:.2f} GiB; finite={finite}; launches "
             f"{dict((k, v) for k, v in launches.items() if v)} (expected {n}, all wgmma); "
             f"B1f at the path's {len(kernel_rows)} shapes vs plain "
@@ -4011,17 +4137,12 @@ def phase_full_atom_request(esm_params, reps=3):
 
 def phase_full_atom_cli(L=64):
     """(d) `python -m alphafold2_tpu_torch.predict --full-atom` in a process
-    of its own on one sequence of 64 residues: rc 0, a PDB of 4 L atoms
+    of its own (`cli_result`) on one sequence of L = 64 residues: rc 0, a
+    PDB of 4 L atoms
     (N, CA, C, O) that parses back, and the printed mean confidence."""
-    seq = "".join(np.random.default_rng(64).choice(list(AA_ORDER), L))
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    pdb = out_dir / "full_atom.pdb"
-    cmd = [sys.executable, "-m", "alphafold2_tpu_torch.predict", "--seq", seq, "--full-atom",
-           "--bf16", "--out", str(pdb)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
+    pdb = ROOT / "chiprun_out" / "full_atom.pdb"
+    res, seconds = cli_result("full_atom")
+    cmd = res.args
     lines = res.stdout.strip().splitlines()
     conf = [line for line in lines if line.startswith("mean confidence")]
     atoms = []
@@ -4343,7 +4464,7 @@ def north_star_step(depth=48):
     return row
 
 
-def phase_e2e_step(crop=E2E_CROP, rows=E2E_ROWS, reps=5):
+def phase_e2e_step(crop=E2E_CROP, rows=E2E_ROWS, reps=1):
     """(b) The e2e step at the north-star model's widths less reversibility
     (`e2e_north_star`), crop `crop` (a (3 crop)^2 grid), `rows` MSA rows,
     batch 1, 2 microbatches, lr 3e-4, eager (`make_train_step`; the
@@ -4473,7 +4594,8 @@ def cli_run(argv):
 def phase_e2e_cli():
     """(d) `python -m alphafold2_tpu_torch.train_end2end` on the card:
     --steps 3 --dim 256 --heads 8 --dim-head 64 --len 64 --msa-rows 20
-    --bf16 in a process of its own (rc 0, finite losses); then its `main`
+    --bf16 in a process of its own (`cli_result`; rc 0, finite losses);
+    then its `main`
     in this process with --features esm at ESM-1b's width (1280, 33
     layers, 20 heads, random weights; the embedder in f32 as the JAX CLI
     runs it: its 33 B1f launches a microbatch on the f32 route, every
@@ -4484,17 +4606,14 @@ def phase_e2e_cli():
     the overfit check (`phase_e2e_overfit`)."""
     base = ["--dim", "256", "--heads", "8", "--dim-head", "64", "--len", "64", "--bf16"]
     rows = []
-    cmd = [sys.executable, "-m", "alphafold2_tpu_torch.train_end2end", "--steps", "3", *base,
-           "--msa-rows", "20"]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    res, seconds = cli_result("train_end2end")
+    cmd = res.args
     lines = res.stdout.strip().splitlines()
     losses = [float(x.split()[3]) for x in lines if x.startswith("step ")]
     ok = res.returncode == 0 and "done" in lines and len(losses) == 2 and all(
         math.isfinite(x) for x in losses)
     rows.append({"run": "msa (process)", "cmd": cmd[1:], "rc": res.returncode, "stdout": lines,
-                 "stderr_tail": res.stderr[-2000:], "seconds": time.perf_counter() - t0,
-                 "ok": ok})
+                 "stderr_tail": res.stderr[-2000:], "seconds": seconds, "ok": ok})
     reset_launches()
     state, metrics, lines, secs = cli_run([*base, "--steps", "2", "--features", "esm",
                                            "--esm-dim", "1280", "--esm-layers", "33",
@@ -4628,19 +4747,15 @@ def grad_errors(got, want):
             for a, b in zip(got, want)]
 
 
-def phase_rev_parity():
-    """(a) f32: 3 distogram steps of 2 microbatches on the card and on the
-    CPU from the same params and batches (L = 64, a 16-row MSA;
-    `reversible_parity_config`), phase 6a's comparison and tolerances.
-    Every flash and B5 launch on its f32 route: a microbatch runs each
-    layer's 5 attentions that reach a kernel (2 pair axial, the MSA column
-    pass, 2 crosses; the tied MSA row pass is the dense einsum) in the
-    forward and again in the backward's recompute, whose vjp launches each
-    one's dq and dkv; layer 0's pair axial passes are B5's. Then on the
-    card the trunk's gradient (random streams and cotangents) with
-    reverse=True against reverse=False, within 1e-4 of each leaf's
-    largest entry (6a's gradient tolerance)."""
-    cfg = reversible_parity_config()
+def rev_parity_steps(tag, key, cfg, what):
+    """3 f32 distogram steps of 2 microbatches (L = 64, a 16-row MSA) on the
+    card and on the CPU from the same params and batches, phase 6a's
+    comparison and tolerances (`card_vs_cpu_steps`), every flash and B5
+    launch counted on its f32 route: a microbatch runs each layer's 5
+    attentions that reach a kernel (2 pair axial, the MSA column pass, 2
+    crosses; the tied MSA row pass is the dense einsum) in the forward and
+    again in the backward's recompute, whose vjp launches each one's dq and
+    dkv; a sparse layer's pair axial passes are B5's. Returns the states."""
     tcfg = TrainConfig(grad_accum=2)
     fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=64, msa_rows=16, seed=5), 2)
     states = {dev: train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), dev)
@@ -4654,8 +4769,25 @@ def phase_rev_parity():
                     ("sparse_fwd", 2 * sparse_n), ("sparse_bwd_dq", sparse_n),
                     ("sparse_bwd_dkv", sparse_n)):
         expect[name] = expect[f"{name}_f32"] = n
-    card_vs_cpu_steps("rev a", "rev_parity", "L=64 f32 depth 2 reversible, layer 0 sparse, "
-                      "16 MSA rows", repr(cfg), states, steps, fetch, tcfg, expect)
+    card_vs_cpu_steps(tag, key, what, repr(cfg), states, steps, fetch, tcfg, expect)
+    return states
+
+
+def phase_rev_parity():
+    """(a) f32: 3 distogram steps of 2 microbatches on the card and on the
+    CPU from the same params and batches (L = 64, a 16-row MSA;
+    `reversible_parity_config`), phase 6a's comparison and tolerances.
+    Every flash and B5 launch on its f32 route: a microbatch runs each
+    layer's 5 attentions that reach a kernel (2 pair axial, the MSA column
+    pass, 2 crosses; the tied MSA row pass is the dense einsum) in the
+    forward and again in the backward's recompute, whose vjp launches each
+    one's dq and dkv; layer 0's pair axial passes are B5's. Then on the
+    card the trunk's gradient (random streams and cotangents) with
+    reverse=True against reverse=False, within 1e-4 of each leaf's
+    largest entry (6a's gradient tolerance)."""
+    cfg = reversible_parity_config()
+    states = rev_parity_steps("rev a", "rev_parity", cfg, "L=64 f32 depth 2 reversible, layer 0 "
+                              "sparse, 16 MSA rows")
     layers = states["cuda"]["params"]["trunk"]
     x, m, gx, gm = trunk_inputs(cfg, 64, 16, 64, seed=21)
     errs = grad_errors(trunk_grads(layers, cfg, x, m, gx, gm, True),
@@ -4769,16 +4901,17 @@ def phase_rev_capture(L=128):
         f"capture {capture.seconds:.2f} s, launches a step {capture.launches}")
 
 
-def e2e_peak_step(ecfg, crop, rows):
-    """One e2e step (accum 2) of a fresh seeded state, its AdamW moments
-    made first: the peak memory allocated over the step (GiB)."""
-    tcfg = TrainConfig(grad_accum=2)
+def e2e_peak_step(ecfg, crop, rows, accum=2):
+    """One e2e step (`accum` microbatches) of a fresh seeded state, its
+    AdamW moments made first: the peak memory allocated over the step
+    (GiB)."""
+    tcfg = TrainConfig(grad_accum=accum)
     state = e2e.e2e_train_state_init(ecfg, tcfg, torch.Generator().manual_seed(0), "cuda")
     state["optimizer"].init_state()
     step = make_train_step(ecfg, tcfg, loss_fn=e2e.e2e_loss_fn, device="cuda")
     sync()
     torch.cuda.reset_peak_memory_stats()
-    _, m = step(state, structure_fetch(crop, rows, 2, seed=9)(0))
+    _, m = step(state, structure_fetch(crop, rows, accum, seed=9)(0))
     loss = float(m["loss"])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del state, step
@@ -4786,7 +4919,7 @@ def e2e_peak_step(ecfg, crop, rows):
     return peak, loss
 
 
-def phase_rev_e2e(reps=3):
+def phase_rev_e2e(reps=1):
     """(d) the north-star e2e step, reversible (`north_star_e2e_config(2)`:
     crop 384, grid 1152, 128 MSA rows, bf16), accum 2, eager: one untimed
     step, then, counts set to 0 and the peak reset just before, `reps`
@@ -4795,10 +4928,11 @@ def phase_rev_e2e(reps=3):
     in the backward, a microbatch; every one on its wgmma route), peak
     memory (its AdamW moments made in the untimed step), MFU
     (`train_step_flops`, mult 4). One more step under torch.profiler
-    (device ms by kind, busy share). Then one step of
+    (device ms by kind, busy share). Then one step of one microbatch of
     `north_star_e2e_config(4)` and of depth 2 again from fresh states
-    (`e2e_peak_step`): peak(4) - peak(2) < 1 GiB, and the depth-2 peak
-    below 12b's remat peak. Returns the counted run's launches."""
+    (`e2e_peak_step`; a step's peak is one microbatch's): peak(4) -
+    peak(2) < 1 GiB, and the depth-2 peak below 12b's remat peak. Returns
+    the counted run's launches."""
     ecfg, crop, rows = presets.north_star_e2e_config(2)
     run = time_e2e_step(ecfg, crop, rows, 2, reps)
     state, step, fetch = run["state"], run["step"], run["fetch"]
@@ -4807,8 +4941,8 @@ def phase_rev_e2e(reps=3):
     prof = profile_step(lambda: step(state, fetch(reps + 1)))
     del run, state, step
     torch.cuda.empty_cache()
-    peak2, loss2 = e2e_peak_step(ecfg, crop, rows)
-    peak4, loss4 = e2e_peak_step(presets.north_star_e2e_config(4)[0], crop, rows)
+    peak2, loss2 = e2e_peak_step(ecfg, crop, rows, accum=1)
+    peak4, loss4 = e2e_peak_step(presets.north_star_e2e_config(4)[0], crop, rows, accum=1)
     per = {k: v / reps for k, v in launches.items() if v}
     flash = REV_FLASH * ecfg.model.depth * 2
     want = {"flash_fwd": 2 * flash, "flash_bwd_dq": flash, "flash_bwd_dkv": flash}
@@ -5273,22 +5407,19 @@ def phase_bucketed_pretrain(steps=200, accum=2):
 
 def phase_refine_chain(L=128):
     """(d) `python -m alphafold2_tpu_torch.predict --full-atom --bf16` on
-    128 residues in a process of its own, then `refine.main` on its PDB on
+    L = 128 residues in a process of its own (`cli_commands`'
+    refine_input), then `refine.main` on its PDB on
     the card and with --device cpu: the output parses back (N/CA/C of
     every residue), keeps the CA B-factors, has a lower bond energy than
     its input, and the card's relaxed coordinates lie within 1e-3 A of the
     CPU's."""
     shutil.rmtree(PRE_WORK, ignore_errors=True)
     PRE_WORK.mkdir(parents=True)
-    seq = "".join(np.random.default_rng(L).choice(list(AA_ORDER), L))
     src, card_out, cpu_out = (str(PRE_WORK / f"{n}.pdb") for n in ("predicted", "card", "cpu"))
-    cmd = [sys.executable, "-m", "alphafold2_tpu_torch.predict", "--seq", seq, "--full-atom",
-           "--bf16", "--out", src]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    predict_s = time.perf_counter() - t0
+    res, predict_s = cli_result("refine_input")
     if res.returncode != 0:
         fail(f"predict --full-atom failed (phase 14d): {res.stderr[-1000:]}")
+    shutil.copyfile(CLI_WORK / "predicted.pdb", src)
     t0 = time.perf_counter()
     card_xyz, card_lines = quiet(refine.main, [src, card_out])
     refine_s = time.perf_counter() - t0
@@ -7381,7 +7512,7 @@ def phase_fleet_timing(state, smi):
     (host clock); a 2-replica fleet with `hedge_p95_factor=2` over the
     stream twice: hedges issued and hedge_wasted_chip_seconds_total; then
     the verify skill's fleet recipe through the CLI at the served widths
-    (its own process): rc 0, nothing lost, requeues, sheds and degraded
+    (its own process, `cli_result`): rc 0, nothing lost, requeues, sheds and degraded
     answers, the registry's counters the same numbers."""
     cfg, params, stream = state["cfg"], state["params"], state["stream"]
     fleet1 = TrackedFleet(params, cfg, fleet_scfg(precompile=True), fleet_cfg(replicas=1),
@@ -7403,15 +7534,8 @@ def phase_fleet_timing(state, smi):
     finally:
         hedged.shutdown(drain=True, timeout=60)
     hedging = hstats["hedging"]
-    out = FLEET_WORK / "cli.json"
-    argv = [sys.executable, "-m", "alphafold2_tpu_torch.serve", "--demo", "24",
-            "--replicas", "3", *FLEET_CLI_MODEL, "--max-batch", "2", "--queue-size", "4", "--fleet-queue", "4",
-            "--degrade-depth", "3", "--reprobe-interval", "0.3",
-            "--degraded-weight-dtype", "int8", "--fault-plan",
-            "docs/examples/fleet_chaos_plan.json", "--stats-json", str(out)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    cli_s = time.perf_counter() - t0
+    out = CLI_WORK / "fleet.json"
+    proc, cli_s = cli_result("fleet")
     cli = json.loads(out.read_text()) if out.exists() else {}
     reqs = cli.get("requests", {})
     c = cli.get("telemetry", {}).get("metrics", {}).get("counters", {})
@@ -7492,9 +7616,10 @@ def phase_fleet(smi):
 
 SP_CARD = ["cuda:0"] * 4  # 20a-20d's mesh: four shards on one card
 SP_SCHEDULES = ((256, "sp_msa"), (384, "sp_seq"))  # 128 left to the plan: dense
-# the verify skill's autoscaler recipe's policy: every acted event at least its
-# cooldown after the last
-SCALE_POLICY = dict(min_replicas=1, max_replicas=3, up_queue_wait_p95_s=0.5, up_occupancy=0.5,
+# the verify skill's autoscaler recipe's policy, at most 2 replicas (the recipe's
+# 3 less one: a scale-up's build is most of 20c-d's time): every acted event at
+# least its cooldown after the last
+SCALE_POLICY = dict(min_replicas=1, max_replicas=2, up_queue_wait_p95_s=0.5, up_occupancy=0.5,
                     up_sustain=1, down_sustain=2, up_cooldown_s=0.5, down_cooldown_s=2.0)
 SCALE_TICK_S = 0.2
 
@@ -8179,7 +8304,8 @@ def phase_pipeline_depths(state, smi):
     no cache); the stream through them in turns 0, 1, 2, 2, 1, 0, every
     result bit for bit the depth-0 engine's executable on its batch,
     `serve_pipeline_inflight` never past the depth; (b) at depth 2; (d)
-    one more pass of each depth under torch.profiler."""
+    for the classical init, one more pass of each depth under
+    torch.profiler."""
     out = {}
     for init in PIPE_INITS:
         state["refs"][init] = {}
@@ -8199,7 +8325,8 @@ def phase_pipeline_depths(state, smi):
             concurrent = (pipe_concurrent_capture(engines, state, init) if init == "random"
                           else None)
             t2 = time.perf_counter()
-            profiled = pipe_profiled(engines, state, init)
+            profiled = (pipe_profiled(engines, state, init) if init == "classical"
+                        else [])
             log(f"[time] pipeline {init}: builds {build_s:.1f} s, turns {t1 - t0 - build_s:.1f} "
                 f"s, (b) {t2 - t1:.1f} s, profiled passes {time.perf_counter() - t2:.1f} s")
         finally:
@@ -8646,7 +8773,7 @@ def phase_sp_train_e2e(smi, rows=E2E_ROWS, accum=2):
     every B1f, dq and dkv launch on wgmma, B3's forward 16 a ring call
     (depth x accum of them) and its dq and dkv 16 a ring whose output
     reaches the loss (the first layer's). Reported: the SP step's ms
-    (median of 3 after the first) and peak memory, the dense step's."""
+    (one timed step after the first) and peak memory, the dense step's."""
     mesh = make_mesh({"seq": SP_TRAIN_P}, devices=["cuda:0"] * SP_TRAIN_P)
     probe = {"crop": E2E_CROP}
     try:
@@ -8659,13 +8786,14 @@ def phase_sp_train_e2e(smi, rows=E2E_ROWS, accum=2):
            else f"out of memory ({probe['error']})"))
     crop = 256
     ecfg = e2e_north_star(crop, remat=False)
-    sp = sp_e2e_step(ecfg, crop, rows, accum, mesh, reps=3)
-    dense = sp_e2e_step(ecfg, crop, rows, accum, reps=3)
+    reps = 1
+    sp = sp_e2e_step(ecfg, crop, rows, accum, mesh, reps=reps)
+    dense = sp_e2e_step(ecfg, crop, rows, accum, reps=reps)
     f32 = sp_e2e_step(e2e_north_star(crop, remat=True, dtype=torch.float32), crop, rows,
                       accum)["first"]
     bound, bound_ok = yardstick(sp["first"], dense["first"], f32)
     lz = sp["launches"]
-    steps = 4  # the first and 3 timed
+    steps = 1 + reps  # the first and the timed
     ring, ring_bwd = (SP_TRAIN_P ** 2 * ecfg.model.depth * accum * steps,
                       SP_TRAIN_P ** 2 * (ecfg.model.depth - 1) * accum * steps)
     routes_ok = (lz.get("flash_fwd_lse", 0) == ring and lz.get("flash_bwd_lse_dq", 0) == ring_bwd
@@ -8676,7 +8804,7 @@ def phase_sp_train_e2e(smi, rows=E2E_ROWS, accum=2):
                          for k in ("dq", "dkv")))
     ok = bound_ok and routes_ok and all(math.isfinite(v) for v in sp["first"].values())
     log(f"[sp_train c] e2e step at crop {crop} (grid {3 * crop}), {rows} rows, accum {accum}, "
-        f"bf16, eager ({smi}): SP {sp['step_ms']:.1f} ms (median of 3: "
+        f"bf16, eager ({smi}): SP {sp['step_ms']:.1f} ms (median of {reps}: "
         f"{', '.join(f'{t:.1f}' for t in sp['times'])}), peak {sp['peak_gib']:.2f} GiB; dense "
         f"{dense['step_ms']:.1f} ms, peak {dense['peak_gib']:.2f} GiB; first step "
         + "; ".join(f"{k} SP {v['sp']:.5f} dense {v['dense']:.5f} f32 {v['f32']:.5f} "
@@ -8760,6 +8888,389 @@ def _merged(*counts):
     return out
 
 
+# --- phase 23: the reversible trunk under the branch-parallel schedule ------
+
+SCHEDULES = ("serial", "branch_parallel")
+
+
+def same_tensors(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside. The KV-compression conv's
+    weight gradient (`cross_attn_compress_ratio` > 1) otherwise differs
+    from run to run in its last bits, serial against serial (cuDNN's
+    backward-weight algorithm; phase 23a records it), so a bit-for-bit
+    comparison of two schedules needs them on both sides."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def phase_rbp_parity():
+    """(a) f32, 13a's config under branch_parallel: 3 distogram steps of 2
+    microbatches card vs CPU at phase 6a's tolerances with 13a's launch
+    counts on the f32 routes (`rev_parity_steps`). Then on the card, from
+    random streams and cotangents: the trunk's gradient with reverse=True
+    under branch_parallel torch.equal serial's, leaf by leaf, and within
+    1e-4 of each leaf's largest entry of reverse=False (plain autograd,
+    also under branch_parallel); the forward's state and the input
+    `reconstruct_input` rebuilds from it torch.equal serial's. Returns the
+    card's launches."""
+    cfg = reversible_parity_config(trunk_schedule="branch_parallel")
+    serial = reversible_parity_config()
+    states = rev_parity_steps("rbp a", "rbp_parity", cfg, "L=64 f32 depth 2 reversible "
+                              "branch_parallel, layer 0 sparse, 16 MSA rows")
+    launches = RECORD["phases"]["rbp_parity"]["launches"]
+    layers = states["cuda"]["params"]["trunk"]
+    names = ["x", "m"] + [name for name, _ in named_leaves(layers)]
+    x, m, gx, gm = trunk_inputs(cfg, 64, 16, 64, seed=21)
+    # the control: serial against itself under cuDNN's default algorithms
+    control = [names[i] for i, (a, b) in enumerate(zip(
+        trunk_grads(layers, serial, x, m, gx, gm, True),
+        trunk_grads(layers, serial, x, m, gx, gm, True))) if not torch.equal(a, b)]
+    with cudnn_deterministic():
+        bp = trunk_grads(layers, cfg, x, m, gx, gm, True)
+        unequal = [names[i] for i, (a, b) in enumerate(zip(
+            bp, trunk_grads(layers, serial, x, m, gx, gm, True))) if not torch.equal(a, b)]
+    errs = grad_errors(bp, trunk_grads(layers, cfg, x, m, gx, gm, False))
+    with torch.no_grad():
+        out = {name: reversible.forward_state(layers, c, (x, x, m, m))
+               for name, c in (("serial", serial), ("branch_parallel", cfg))}
+        back = {name: reversible.reconstruct_input(layers, c, out[name])
+                for name, c in (("serial", serial), ("branch_parallel", cfg))}
+    sync()
+    forward_equal = same_tensors(out["serial"], out["branch_parallel"])
+    recon_equal = same_tensors(back["serial"], back["branch_parallel"])
+    ok = not unequal and max(errs) <= 1e-4 and forward_equal and recon_equal
+    RECORD["phases"]["rbp_parity"].update({
+        "grads_unequal_to_serial": unequal, "serial_vs_serial_default_cudnn": control,
+        "leaves": len(bp),
+        "reverse_vs_plain_worst": max(errs), "forward_equal": forward_equal,
+        "reconstruct_equal": recon_equal, "card_ok": ok})
+    log(f"[rbp a] the card's trunk gradient (f32, {len(bp)} leaves, reverse=True): serial "
+        f"against serial under cuDNN's default algorithms, {len(control)} differ {control}; "
+        f"under its deterministic ones branch_parallel against serial, {len(unequal)} differ "
+        f"{unequal}; reverse=True vs reverse=False worst "
+        f"{max(errs):.2e} of each leaf's largest (tol 1e-4); forward state bit-equal "
+        f"{forward_equal}, reconstruct_input bit-equal {recon_equal} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the reversible trunk under branch_parallel differs from serial on the card, or "
+             "its gradient departs from plain autograd's (phase 23a)")
+    return launches
+
+
+class _StreamTally(dict):
+    """A kernel module's LAUNCHES that also adds each launch to `tally`
+    under the stream current at the launch. A wrapper moves its kernel's
+    count and its route's (`<kernel>_<route>`): only the route's is
+    tallied, so a launch counts once."""
+
+    def __init__(self, counts, routes, tally):
+        super().__init__(counts)
+        self.routes = tuple(f"_{r}" for r in routes)
+        self.tally = tally
+
+    def __setitem__(self, key, value):
+        if key.endswith(self.routes) and value > self.get(key, 0):
+            stream = torch.cuda.current_stream()
+            self.tally[stream] = self.tally.get(stream, 0) + value - self[key]
+        super().__setitem__(key, value)
+
+
+def launches_by_stream(fn):
+    """fn(), with every kernel wrapper's launches tallied by the stream
+    that was current when the wrapper launched: {stream: launches}. The
+    wrappers' own counts move as they would without the tally."""
+    tally, kept = {}, []
+    for module in COUNTED:
+        kept.append((module, module.LAUNCHES))
+        module.LAUNCHES = _StreamTally(module.LAUNCHES, module.ROUTES, tally)
+    try:
+        fn()
+        sync()
+    finally:
+        for module, counts in kept:
+            counts.update(module.LAUNCHES)
+            module.LAUNCHES = counts
+    return tally
+
+
+def trunk_stream_split(cfg, n, rows, seed=41):
+    """The reversible trunk (`reversible_trunk_init(cfg)`, streams (1, n, n)
+    and (1, rows, n)) eagerly: its forward, then its backward (the
+    inversion), each once under the profiler (`kernel_timeline`) with the
+    wrappers' launches tallied by stream (`launches_by_stream`). For each:
+    the wrappers' launches on the side stream and on the current one, the
+    profiler's kernels a stream (its ids are the trace's own) and the ms
+    kernels of two streams run at once."""
+    layers = reversible.reversible_trunk_init(torch.Generator().manual_seed(seed), cfg, "cuda")
+    leaves = reversible.param_leaves(layers)
+    for t in leaves:
+        t.requires_grad_(True)
+    x, m, gx, gm = trunk_inputs(cfg, n, rows, n, seed=seed)
+    x.requires_grad_(True)
+    m.requires_grad_(True)
+    reversible.reversible_trunk_apply(layers, cfg, x, m)  # a warm-up: the side stream, the cache
+    out = {}
+
+    def forward():
+        out["x"], out["m"] = reversible.reversible_trunk_apply(layers, cfg, x, m)
+
+    side = side_stream(x.device)
+
+    def part(fn):
+        tally = {}
+        tl = kernel_timeline(lambda: tally.update(launches_by_stream(fn)))
+        tl["side_launches"] = tally.pop(side, 0)
+        tl["main_launches"] = sum(tally.values())
+        return tl
+
+    split = {"forward": part(forward)}
+    loss = (out["x"].float() * gx.float()).sum() + (out["m"].float() * gm.float()).sum()
+    split["inversion"] = part(lambda: torch.autograd.grad(loss, [x, m] + leaves))
+    return split
+
+
+def phase_rbp_capture(L=128, accum=16, rows=20, reps=5):
+    """(b) the captured bf16 reversible step, 13c's config (train_pre's
+    widths, depth 1, crop L, accum 16, a 20-row MSA), serial and
+    branch_parallel: each captured against eager over 3 steps, bit for bit
+    (`capture_vs_eager`, every flash launch on wgmma), and the two
+    schedules bit for bit each other (loss and grad_norm each step, every
+    param leaf, AdamW moment and count at the end); again with attention and
+    FF dropout 0.1 under step rngs 41-43 (15b's; live attention dropout
+    keeps the dense einsum) at accum 2, as 15b's remat and branch_parallel
+    arms. Then the captured step's ms for both (host
+    clock, median of `reps`, in turns) and one more replay of each under
+    the profiler: busy share, the ms kernels of two streams run at once.
+    The eager trunk at this shape under branch_parallel
+    (`trunk_stream_split`): the kernels each stream ran in the forward and
+    in the inversion. Fails if the side stream launched no kernel of the
+    port's in the forward or the inversion, or the branch_parallel replay's
+    two streams never overlap.
+    Returns the launches: the wrappers' counts over the eager steps,
+    warm-ups and captures, plus the replays'."""
+    rec, launches, kept = {}, {}, None
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    for label, extra, rngs, wgmma, acc in (
+            ("", {}, None, True, accum),
+            ("dropout ", dict(attn_dropout=DROPOUT, ff_dropout=DROPOUT), [41, 42, 43], False,
+             2)):
+        arms = {}
+        for name in SCHEDULES:
+            cfg = train_pre_config(reversible=True, trunk_schedule=name, **extra)
+            arms[name] = capture_vs_eager(f"{label}reversible {name}", cfg, L, acc, wgmma,
+                                          msa_rows=rows, rngs=rngs, tag="rbp b")
+            sync()
+            add(launch_counts())
+        steps = [RECORD["phases"][f"train_capture_{label}reversible {name}"]["steps"]
+                 for name in SCHEDULES]
+        metrics_equal = all(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+                            for a, b in zip(*steps))
+        pairs = list(zip(*(arms[name][1]["optimizer"].state_tensors() for name in SCHEDULES)))
+        unequal = sum(not torch.equal(a, b) for a, b in pairs)
+        rec[f"{label}serial_equal"] = metrics_equal and unequal == 0
+        log(f"[rbp b] {label or 'no dropout, '}captured reversible step, branch_parallel vs "
+            f"serial over 3 steps: loss and grad_norm bit-equal {metrics_equal}, {unequal} of "
+            f"{len(pairs)} params, moments and counts differ")
+        if extra:
+            for name in SCHEDULES:
+                add(arms[name][0].replayed_launches())
+        else:
+            kept = arms
+        del arms
+    timing = timed_turns({name: (lambda c=kept[name][0], st=kept[name][1], b=kept[name][2]:
+                                 c(st, b)) for name in SCHEDULES}, reps)
+    for name in SCHEDULES:  # every replay: capture_vs_eager's and the timing's
+        add(kept[name][0].replayed_launches())
+    del kept
+    torch.cuda.empty_cache()
+    reset_launches()
+    split = trunk_stream_split(train_pre_config(reversible=True,
+                                                trunk_schedule="branch_parallel"), L, rows)
+    sync()
+    add(launch_counts())
+    bp = timing["branch_parallel"]
+    ok = (rec["serial_equal"] and rec["dropout serial_equal"]
+          and split["inversion"]["side_launches"] > 0 and split["forward"]["side_launches"] > 0
+          and bp["cross_stream_ms"] > 0)
+    rec.update({"L": L, "grad_accum": accum, "rows": rows, "timing": timing, "split": split,
+                "ok": ok})
+    RECORD["phases"]["rbp_capture"] = rec
+    log(f"[rbp b] captured step, crop {L}, accum {accum}, {rows} MSA rows: "
+        + schedule_line("step", timing))
+    log("[rbp b] the eager trunk under branch_parallel, the wrappers' launches main / side "
+        "stream, the profiler's kernels a stream and two streams at once: " + "; ".join(
+            f"{k} {v['main_launches']} / {v['side_launches']}, {v['per_stream']}, "
+            f"{v['cross_stream_ms']:.3f} ms (busy {v['busy_ms']:.3f} ms)"
+            for k, v in split.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the captured reversible branch_parallel step differs from serial, or its side "
+             "stream ran nothing in the inversion, or its streams never overlapped (phase 23b)")
+    return launches
+
+
+def phase_rbp_e2e(reps=3):
+    """(c) the north-star e2e step (`north_star_e2e_config(2)`: crop 384,
+    grid 1152, 128 MSA rows, bf16, reversible), accum 2, eager, serial and
+    branch_parallel from the same seeded state (AdamW's moments made
+    first) over the same batches: `reps` timed steps each in turns (CUDA
+    events; the median; the peak memory reset before each), every step's
+    loss and grad_norm and, after the last,
+    every param leaf, moment and count bit for bit (both under
+    `cudnn_deterministic`: the config's KV compression is a conv);
+    branch_parallel's
+    launches a step 13d's (5 B1f a layer in the forward and 5 more in the
+    recompute, 5 dq and 5 dkv in the backward, a microbatch), all on
+    wgmma. One more step of branch_parallel under the profiler (device
+    activity only): busy share, the ms the main and the side stream (the
+    two busiest) run kernels at once. Then
+    one step of one microbatch of branch_parallel at depth 2 and at depth
+    4 from fresh states (`e2e_peak_step`): peak(4) - peak(2) < 1 GiB (a
+    step's peak is one microbatch's: the microbatches run in turn). Returns
+    branch_parallel's launches in the timed steps."""
+    ecfgs = {name: presets.north_star_e2e_config(2, model_overrides={"trunk_schedule": name})
+             for name in SCHEDULES}
+    _, crop, rows = ecfgs["serial"]
+    tcfg = TrainConfig(grad_accum=2)
+    fetch = structure_fetch(crop, rows, 2, seed=9)
+    states, steps = {}, {}
+    for name, (ecfg, _, _) in ecfgs.items():
+        states[name] = e2e.e2e_train_state_init(ecfg, tcfg, torch.Generator().manual_seed(0),
+                                                "cuda")
+        states[name]["optimizer"].init_state()
+        steps[name] = make_train_step(ecfg, tcfg, loss_fn=e2e.e2e_loss_fn, device="cuda")
+    metrics = {name: [] for name in SCHEDULES}
+    times = {name: [] for name in SCHEDULES}
+    peaks = {name: 0.0 for name in SCHEDULES}
+    launches = {}
+    with cudnn_deterministic():  # the compress conv (4) in both arms
+        for n in range(reps):
+            batch = fetch(n)
+            for name in (SCHEDULES if n % 2 else SCHEDULES[::-1]):
+                sync()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                _, m = steps[name](states[name], batch)
+                end.record()
+                sync()
+                metrics[name].append(m)
+                times[name].append(start.elapsed_time(end))
+                peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 2 ** 30)
+                if name == "branch_parallel":
+                    for k, c in launch_counts().items():
+                        launches[k] = launches.get(k, 0) + c
+    metrics_equal = all(torch.equal(a[k], b[k]) for a, b in zip(*metrics.values())
+                        for k in ("loss", "grad_norm"))
+    pairs = list(zip(*(states[name]["optimizer"].state_tensors() for name in SCHEDULES)))
+    unequal = sum(not torch.equal(a, b) for a, b in pairs)
+    losses = [float(m["loss"]) for m in metrics["branch_parallel"]]
+    medians = {name: sorted(t)[reps // 2] for name, t in times.items()}
+    bp = "branch_parallel"
+    prof = kernel_timeline(lambda: steps[bp](states[bp], fetch(reps)), host_ops=False)
+    prof["busy_share"] = prof["busy_ms"] / medians[bp]
+    del states, steps
+    ecfg = ecfgs[bp][0]
+    peak2, loss2 = e2e_peak_step(ecfg, crop, rows, accum=1)
+    peak4, loss4 = e2e_peak_step(presets.north_star_e2e_config(
+        4, model_overrides={"trunk_schedule": "branch_parallel"})[0], crop, rows, accum=1)
+    per = {k: v / reps for k, v in launches.items() if v}
+    flash = REV_FLASH * ecfg.model.depth * 2
+    want = {"flash_fwd": 2 * flash, "flash_bwd_dq": flash, "flash_bwd_dkv": flash}
+    counts_ok = all(per.get(k, 0) == v for k, v in want.items()) and on_wgmma(launches)
+    finite = all(math.isfinite(x) for x in losses + [loss2, loss4])
+    serial_13d = RECORD["phases"].get("rev_e2e", {}).get("fresh_peak_depth2_gib")
+    ok = (finite and metrics_equal and unequal == 0 and counts_ok and peak4 - peak2 < 1.0)
+    RECORD["phases"]["rbp_e2e"] = {
+        "crop": crop, "grid": 3 * crop, "rows": rows, "config": repr(ecfg), "step_ms": times,
+        "median_step_ms": medians, "peak_gib": peaks, "fresh_peak_depth2_gib": peak2,
+        "fresh_peak_depth4_gib": peak4, "serial_fresh_peak_depth2_gib_13d": serial_13d,
+        "losses": losses, "metrics_equal": metrics_equal, "params_unequal": unequal,
+        "launches": launches, "launches_per_step": per, "profile": prof, "ok": ok}
+    log(f"[rbp c] the north-star e2e step, reversible, crop {crop} (grid {3 * crop}), {rows} "
+        f"MSA rows, accum 2, eager, {reps} steps: branch_parallel vs serial loss and "
+        f"grad_norm bit-equal {metrics_equal}, {unequal} of {len(pairs)} params, moments and "
+        f"counts differ; losses {[round(x, 4) for x in losses]}; step ms (median of {reps}, in "
+        f"turns) " + ", ".join(
+            f"{name} {medians[name]:.1f} ({', '.join(f'{t:.1f}' for t in times[name])}; peak "
+            f"{peaks[name]:.2f} GiB)" for name in SCHEDULES)
+        + f"; branch_parallel busy {prof['busy_share']:.3f}, main and side stream at once "
+        f"{prof['pair_ms']:.3f} ms (any two streams {prof['cross_stream_ms']:.3f}), kernels a "
+        f"stream {prof['per_stream']}; launches a step {per}")
+    log(f"[rbp c] branch_parallel, one step from a fresh state: peak depth 2 {peak2:.3f} GiB, "
+        f"depth 4 {peak4:.3f} GiB (+{peak4 - peak2:.3f}, bound 1 GiB); serial depth 2 in 13d "
+        f"{serial_13d if serial_13d is None else round(serial_13d, 3)} GiB "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the reversible north-star e2e step under branch_parallel differs from serial, "
+             "left its launch counts or wgmma, went non-finite, or its peak grew 1 GiB or more "
+             "from depth 2 to 4 (phase 23c)")
+    return launches
+
+
+def phase_rbp_served(L=384, rows=ENGINE_ROWS):
+    """(d) `predict_structure` under torch.inference_mode at L (a 20-row
+    MSA, the classical init, 200 MDS iterations) with the served config
+    reversible, serial and branch_parallel on the same params: the
+    distogram logits, confidence and stress torch.equal; every B1f launch
+    on wgmma. Returns the launches."""
+    configs = {name: served_config(reversible=True, trunk_schedule=name) for name in SCHEDULES}
+    params = alphafold2_init(configs["serial"], torch.Generator().manual_seed(0), "cuda")
+    tokens, msa, msa_mask = request_inputs(L, rows, seed=9)
+    reset_launches()
+    outs = {name: predict_structure(params, cfg, tokens, msa=msa, msa_mask=msa_mask,
+                                    mds_iters=200, device="cuda")
+            for name, cfg in configs.items()}
+    sync()
+    launches = launch_counts()
+    keys = ("distogram_logits", "confidence", "stress")
+    equal = {k: torch.equal(outs["serial"][k], outs["branch_parallel"][k]) for k in keys}
+    finite = all(bool(torch.isfinite(outs["branch_parallel"][k]).all()) for k in keys)
+    ok = all(equal.values()) and finite and on_wgmma(launches)
+    RECORD["phases"]["rbp_served"] = {"L": L, "rows": rows, "config": repr(configs[
+        "branch_parallel"]), "equal": equal, "finite": finite, "launches": launches, "ok": ok}
+    log(f"[rbp d] predict_structure L={L}, {rows} MSA rows, the served config reversible: "
+        f"branch_parallel vs serial bit-equal {equal}, finite {finite}; launches "
+        f"{dict((k, v) for k, v in launches.items() if v)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the served reversible forward under branch_parallel differs from serial, or "
+             "left wgmma (phase 23d)")
+    return launches
+
+
+def phase_reversible_branch():
+    """23: the reversible trunk under the branch-parallel schedule. Returns
+    the flash and sparse launches of (a)'s card steps, (b)'s eager steps,
+    warm-ups, captures, replays and eager trunk, (c)'s timed
+    branch_parallel steps and (d)'s requests."""
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        RECORD["phases"][f"rbp_{key}_s"] = time.perf_counter() - t
+        log(f"[time] rbp {key}: {RECORD['phases'][f'rbp_{key}_s']:.1f} s")
+        return result
+
+    launches = timed("a", phase_rbp_parity)
+    launches = _merged(launches, timed("b", phase_rbp_capture))
+    launches = _merged(launches, timed("c", phase_rbp_e2e))
+    launches = _merged(launches, timed("d", phase_rbp_served))
+    return {k: n for k, n in launches.items() if k.startswith(("flash_", "sparse_"))}
+
+
 SPARSE_LINE_CASES = ("pair axial L=384", "long n=4096")  # B5's timed rows in the kernels line
 
 
@@ -8790,7 +9301,7 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     kernel once in the warm-up and once in the capture, the replays
     launching what the capture recorded; B3's forward from the SP request,
     its backward from the ring's gradient in f32 and in bf16; phase 12b's
-    5 counted e2e steps and phase 13d's 3 counted reversible ones add their
+    1 counted e2e step and phase 13d's 1 counted reversible one add their
     B1f, dq and dkv launches, and so does phase 14c's bucketed CLI run
     (each bucket's warm-up and capture), phase 15a's dropout step (its
     eager steps, warm-up, capture and replays) and phase 15c's
@@ -8817,7 +9328,10 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     fleet replica's warm-ups, captures and replays at depths 0, 1 and 2,
     the depth-0 references' replays included. Phase 22 adds its B1f, B1b and
     B3 launches: (a)'s card steps, (b)'s eager steps, the captured steps'
-    warm-ups, captures and replays, and (c)'s SP and dense e2e steps."""
+    warm-ups, captures and replays, and (c)'s SP and dense e2e steps. Phase
+    23 adds its B1f, B1b and B5 launches: (a)'s card steps, (b)'s eager
+    steps, warm-ups, captures and replays of both schedules and its eager
+    trunk, (c)'s timed branch_parallel steps and (d)'s two requests."""
     out = []
     for name in ("flash_fwd", "flash_fwd_fused"):
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r
@@ -8958,7 +9472,9 @@ def main():
         return result
 
     smi = phase_card()
-    phase_build()
+    clis = {}
+    phase_build(after=lambda: start_clis(clis))
+    timed_phase("clis", wait_clis, clis)
     rows = timed_phase("kernels", phase_kernels)
     bwd_rows = timed_phase("bwd_kernels", phase_bwd_kernels)
     quant_rows = timed_phase("quant_kernels", phase_quant_kernels)
@@ -8995,12 +9511,15 @@ def main():
         launches[name] = launches.get(name, 0) + n
     for name, n in timed_phase("sp_train", phase_sp_train, smi).items():
         launches[name] = launches.get(name, 0) + n
+    for name, n in timed_phase("reversible_branch", phase_reversible_branch).items():
+        launches[name] = launches.get(name, 0) + n
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches, dropout_rows, dropout_times)
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")
     RECORD["kernels_line"] = kernels
+    shutil.rmtree(CLI_WORK, ignore_errors=True)
     RECORD["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -119,13 +119,11 @@ def test_bf16_forward_runs_close():
 
 
 def test_not_ported_options_raise():
-    for kw, item in [
-        (dict(reversible=True, trunk_schedule="branch_parallel"), "A8-reversible-branch"),
-    ]:
-        with pytest.raises(NotImplementedError, match=item):
-            Alphafold2Config(**SMALL, **kw)
-    # ported: the reversible trunk (tests/test_torch_reversible.py)
+    # ported: the reversible trunk (tests/test_torch_reversible.py), also
+    # under the branch-parallel schedule (tests/test_torch_reversible_branch.py)
     assert Alphafold2Config(**SMALL, reversible=True).reversible
+    rbp = Alphafold2Config(**SMALL, reversible=True, trunk_schedule="branch_parallel")
+    assert rbp.reversible and rbp.trunk_schedule == "branch_parallel"
     # ported: the branch-parallel schedule (tests/test_torch_trunk_schedule.py)
     bp = Alphafold2Config(**SMALL, trunk_schedule="branch_parallel")
     assert bp.trunk_schedule == "branch_parallel"

@@ -227,8 +227,14 @@ def test_refusals(case):
             Alphafold2Config(**dict(KW, remat=True))
         return
     if case == "branch_parallel":
-        with pytest.raises(NotImplementedError, match="A8-reversible-branch"):
-            Alphafold2Config(**dict(KW, trunk_schedule="branch_parallel"))
+        # constructs, and on the CPU runs serial's op order: the same bits
+        cfg = Alphafold2Config(**dict(KW, trunk_schedule="branch_parallel"))
+        serial = dataclasses.replace(cfg, trunk_schedule="serial")
+        layers = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cpu")["trunk"]
+        x, m, x_mask, msa_mask = (torch.from_numpy(a) for a in _streams())
+        outs = [reversible.reversible_trunk_apply(layers, c, x, m, x_mask=x_mask,
+                                                  msa_mask=msa_mask) for c in (cfg, serial)]
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
         return
     cfg = Alphafold2Config(**dict(KW, depth=1))
     params = alphafold2_init(cfg, torch.Generator().manual_seed(0), "cpu")
