@@ -9,7 +9,9 @@
 // (dq over the same lists, dkv over the key tiles' `key_unions`) draw the
 // same mask. Elements come in groups of four, {i, i + 8} x {j, j + 8} with
 // bit 3 of i and j clear: one Philox call a group, counter (j, i, bh,
-// salt) and key (seed[0] low, seed[0] high), salt = seed[1] low. Element
+// salt) and key (seed[0] low, seed[0] high), salt = seed[1] low, bh
+// counted in the whole batch (the launch's bh_base plus its own row: a
+// data-parallel shard draws its rows of the whole batch's mask). Element
 // (i + 8a, j + 8b) takes word 2a + b and is kept iff that word is at least
 // round(rate 2^32), an integer test the plain version
 // (ops/sparse_kernel.py `philox_keep`) repeats bit for bit. The group lies
@@ -40,13 +42,15 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
 // kernel is the one without dropout. seed: two int64 on the device (drawn
 // there at the layer's rng position, read at the launch, so a CUDA graph
 // replays each draw); an element is kept iff its 32 bits are at least
-// `threshold` = round(rate 2^32), then scaled by `scale` = 1 / (1 - rate).
+// `threshold` = round(rate 2^32), then scaled by `scale` = 1 / (1 - rate);
+// the launch's row bh draws as bh_base + bh.
 template <bool ON>
 struct Dropout {
   static constexpr bool kOn = ON;
   const int64_t* seed;
   uint32_t threshold;
   float scale;
+  uint32_t bh_base;
 };
 
 // What a thread draws with: the Philox key, the counter's fourth word
@@ -54,19 +58,21 @@ struct Dropout {
 struct DropKey {
   uint32_t k0, k1, salt, threshold;
   float scale;
+  uint32_t bh_base;
 };
 
 template <bool ON>
 __device__ __forceinline__ DropKey drop_key(const Dropout<ON>& d) {
-  if (!ON) return DropKey{0u, 0u, 0u, 0u, 1.f};
+  if (!ON) return DropKey{0u, 0u, 0u, 0u, 1.f, 0u};
   const uint64_t s0 = (uint64_t)d.seed[0];
-  return DropKey{(uint32_t)s0, (uint32_t)(s0 >> 32), (uint32_t)d.seed[1], d.threshold, d.scale};
+  return DropKey{(uint32_t)s0, (uint32_t)(s0 >> 32), (uint32_t)d.seed[1], d.threshold, d.scale,
+                 d.bh_base};
 }
 
 // The four words of the group at query i, key j (bit 3 of both clear):
 // word 2a + b is element (i + 8a, j + 8b)
 __device__ __forceinline__ uint4 group_bits(const DropKey& d, uint32_t bh, uint32_t i, uint32_t j) {
-  return philox4x32_10(make_uint4(j, i, bh, d.salt), d.k0, d.k1);
+  return philox4x32_10(make_uint4(j, i, d.bh_base + bh, d.salt), d.k0, d.k1);
 }
 
 // The keep bits of a thread's C fragments of an accumulator tile of 8 C

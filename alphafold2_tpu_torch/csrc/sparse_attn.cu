@@ -885,6 +885,7 @@ struct Args {
   const int64_t* seed;  // attention dropout's seed on the device, or null (no dropout)
   uint32_t threshold;   // round(rate 2^32)
   float keep_scale;     // 1 / (1 - rate)
+  uint32_t bh_base;     // the bh at which row 0 draws its dropout bits
 };
 
 bool check(const Args& a, int rows, dim3* grid) {
@@ -901,7 +902,7 @@ bool check(const Args& a, int rows, dim3* grid) {
 #define AF2_F32 const float*
 #define AF2_TAB (const int*)a.idx, (const int*)a.counts
 #define AF2_SHAPE a.bh, a.heads, a.n_blocks, a.width, a.bs, a.scale, \
-                  Dropout<DROP>{a.seed, a.threshold, a.keep_scale}
+                  Dropout<DROP>{a.seed, a.threshold, a.keep_scale, a.bh_base}
 
 template <int DH, bool DROP>
 void fwd(const Args& a, dim3 grid, bool bf16) {
@@ -992,7 +993,7 @@ int launch(Kind kind, const Args& a, int is_bf16) {
 template <bool DROP>
 int launch_wgmma_fwd_route(const Args& a, const StageList& list, int64_t n, int sms, bool three) {
 #define AF2_ARGS a.q, a.k, a.v, a.bias, nullptr, list, a.o0, a.o1, a.bh, n, n, a.scale, sms, \
-                 a.stream, Dropout<DROP>{a.seed, a.threshold, a.keep_scale}
+                 a.stream, Dropout<DROP>{a.seed, a.threshold, a.keep_scale, a.bh_base}
   if (three) {
     return af2::fwd::launch_wgmma_fwd<false, 3>(sparse_fwd_wgmma_kernel<3, DROP>, AF2_ARGS);
   }
@@ -1036,9 +1037,11 @@ extern "C" {
 
 // Every entry point ends with attention dropout's arguments: seed, two
 // int64 on the device (null: no dropout, the kernels as they were),
-// threshold = round(rate 2^32) and keep_scale = 1 / (1 - rate).
-#define AF2_DROP_ARGS const void* seed, unsigned threshold, float keep_scale
-#define AF2_DROP (const int64_t*)seed, threshold, keep_scale
+// threshold = round(rate 2^32), keep_scale = 1 / (1 - rate) and bh_base,
+// the bh at which row 0 draws its bits (0, or a data-parallel shard's first
+// row in the whole batch).
+#define AF2_DROP_ARGS const void* seed, unsigned threshold, float keep_scale, unsigned bh_base
+#define AF2_DROP (const int64_t*)seed, threshold, keep_scale, bh_base
 
 // B5f. q, k, v (BH, n, dh) in f32 or bf16, n = n_blocks * bs; bias (BH /
 // heads, n) f32; idx (n_blocks, width) int32 (valid slots first); counts
@@ -1112,7 +1115,7 @@ int af2_sparse_bwd_dq_wgmma(const void* q, const void* k, const void* v, const v
                                            Dropout<true>{AF2_DROP});
   }
   return af2::dq::launch_wgmma_dq<false>(sparse_dq_wgmma_kernel<false>, AF2_ARGS,
-                                         Dropout<false>{nullptr, 0u, 1.f});
+                                         Dropout<false>{nullptr, 0u, 1.f, 0u});
 #undef AF2_ARGS
 }
 
@@ -1139,7 +1142,7 @@ int af2_sparse_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const 
                                              Dropout<true>{AF2_DROP});
   }
   return af2::dkv::launch_wgmma_dkv<false>(sparse_dkv_wgmma_kernel<false>, AF2_ARGS,
-                                           Dropout<false>{nullptr, 0u, 1.f});
+                                           Dropout<false>{nullptr, 0u, 1.f, 0u});
 #undef AF2_ARGS
 }
 

@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from alphafold2_tpu_torch.geometry.dihedral import calc_phis
+from alphafold2_tpu_torch.ops.core import rand_rows
 
 
 def _pairwise_dist(coords, eps: float = 1e-12):
@@ -112,15 +113,13 @@ def initial_coords(pre_dist_mat, init: str = "classical",
         device = pre_dist_mat.device
         on = generator is not None and generator.device.type == device.type
         if on and generator.device.index in (None, device.index):  # "cuda": the current card
-            return 2.0 * torch.rand((batch, n, 3), generator=generator,
-                                    dtype=pre_dist_mat.dtype, device=device) - 1.0
+            return 2.0 * rand_rows((batch, n, 3), generator, device, pre_dist_mat.dtype) - 1.0
         if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
             raise ValueError(
                 "initial_coords: a random init from a CPU generator inside a CUDA graph "
                 "capture would copy one draw into the graph; pass a generator on "
                 f"{device} registered with the graph")
-        coords = 2.0 * torch.rand((batch, n, 3), generator=generator,
-                                  dtype=pre_dist_mat.dtype) - 1.0
+        coords = 2.0 * rand_rows((batch, n, 3), generator, "cpu", pre_dist_mat.dtype) - 1.0
         return coords.to(device)
     raise ValueError(f"unknown mds init {init!r}")
 

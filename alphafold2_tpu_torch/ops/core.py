@@ -21,6 +21,8 @@ from typing import Optional
 
 import torch
 
+from alphafold2_tpu_torch.utils.rng import rows_of
+
 
 def uniform(gen: torch.Generator, shape, bound: float, device) -> torch.Tensor:
     t = torch.rand(shape, generator=gen, dtype=torch.float32, device=gen.device) * (2 * bound) - bound
@@ -101,13 +103,44 @@ def embedding(params, ids, dtype=None):
 # --- dropout ----------------------------------------------------------------
 
 
+def row_span(lead: int, generator: Optional[torch.Generator]):
+    """For a tensor whose leading axis of length `lead` folds the batch
+    rows outermost (b, or b x heads, ...): (first, whole), this shard's
+    first index along that axis and the axis's length over the whole batch,
+    where `generator` carries a data-parallel shard's rows (utils/rng.py
+    `rows_of`); (0, lead) otherwise."""
+    rows = rows_of(generator)
+    if rows is None:
+        return 0, lead
+    start, count, total = rows
+    if lead % count:
+        raise ValueError(f"a leading axis of {lead} does not fold the {count} batch rows "
+                         f"of this shard outermost")
+    per = lead // count
+    return start * per, total * per
+
+
+def rand_rows(shape, generator: torch.Generator, device, dtype=torch.float32):
+    """`torch.rand(shape)` from `generator` on `device`, the leading axis
+    folding the batch rows: where the generator carries a shard's rows
+    (`row_span`), this shard's rows of the whole batch's draw. The draw is
+    the whole batch's, so a shard of P pays P times its own share: a
+    counter-based draw of its own rows waits (ROADMAP A13-dp-draws)."""
+    first, whole = row_span(shape[0], generator)
+    if whole == shape[0]:
+        return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    draw = torch.rand((whole, *shape[1:]), generator=generator, dtype=dtype, device=device)
+    return draw[first:first + shape[0]]
+
+
 def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
     """Inverted dropout (JAX `dropout(rng, x, rate)`): the identity when the
     rate is 0 or no generator is given (eval mode); otherwise each element
     is kept with probability 1 - rate and scaled by 1 / (1 - rate). The
-    mask is drawn from `generator`, which lies on x's device. JAX's random
-    bits and torch's differ: the two agree in distribution only."""
+    mask is drawn from `generator`, which lies on x's device; x's leading
+    axis folds the batch rows outermost (`rand_rows`). JAX's random bits and
+    torch's differ: the two agree in distribution only."""
     if rate == 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = rand_rows(x.shape, generator, x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from alphafold2_tpu_torch.ops import core
 from alphafold2_tpu_torch.ops.core import dropout, linear, linear_init
 
 
@@ -32,6 +33,10 @@ def feed_forward_apply(params, x, *, dropout_rate: float = 0.0, rng=None,
     tokens = x.shape[:-1].numel()
     if not chunk or tokens <= chunk:
         return _ff_core(params, x, dropout_rate, rng, dtype)
+    if rng is not None and dropout_rate > 0.0 and core.row_span(x.shape[0], rng) != (0, x.shape[0]):
+        # a chunk's draw spans the flattened tokens of every row
+        raise ValueError("a chunked feed-forward with live dropout takes the whole batch; "
+                         "set ff_chunk_size=0 to train it data-parallel")
     xf = x.reshape(tokens, x.shape[-1])
     out = torch.cat([
         _ff_core(params, xf[s:s + chunk], dropout_rate, rng, dtype)

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from alphafold2_tpu_torch.ops import dispatch, sparse_kernel
-from alphafold2_tpu_torch.ops.core import linear
+from alphafold2_tpu_torch.ops.core import linear, row_span
 from alphafold2_tpu_torch.ops.flash import aligned, fold_heads
 
 
@@ -126,19 +126,20 @@ def draw_seed(rng: torch.Generator, device):
 
 def block_sparse_attention(q, k, v, scfg: SparseConfig, *, mask=None,
                            scale: Optional[float] = None, dropout_rate: float = 0.0,
-                           seed=None):
+                           seed=None, bh_base: int = 0):
     """Block-sparse attention over projected q, k, v (b, n, h, dh), n a
     multiple of the block size: each query block attends the gathered key
     blocks of its layout row, in f32. mask: (b, n) bool key validity. Rows
     with no valid key return zeros. Attention dropout at dropout_rate > 0
-    from `seed`, two int64 (`draw_seed`; None: no dropout). Returns (b, n,
-    h, dh) in q.dtype."""
+    from `seed`, two int64 (`draw_seed`; None: no dropout), folded row bh
+    drawing as bh_base + bh. Returns (b, n, h, dh) in q.dtype."""
     b, n, h, dh = q.shape
     if n % scfg.block_size:
         raise ValueError(f"sequence {n} is not a multiple of the block size {scfg.block_size}")
     scale = dh ** -0.5 if scale is None else scale
     out, _ = sparse_kernel.sparse_fwd_plain(*_folded(q, k, v, scfg, mask), h, scale,
-                                            dropout_rate=dropout_rate, seed=seed)
+                                            dropout_rate=dropout_rate, seed=seed,
+                                            bh_base=bh_base)
     return out.reshape(b, h, n, dh).transpose(1, 2)
 
 
@@ -165,12 +166,14 @@ def sparse_attention_apply(params, cfg, scfg: SparseConfig, x, *, mask=None, rng
     route = dispatch.resolve("sparse_attention", q.device,
                              sparse_kernel.unsupported(b * h, n + pad, dh, q.dtype, bs))
     seed = draw_seed(rng, q.device) if rng is not None and cfg.dropout > 0.0 else None
+    # a data-parallel shard's folded rows draw as the whole batch's (ops/core.py)
+    bh_base = row_span(b * h, rng)[0] if seed is not None else 0
     if route == dispatch.PLAIN:
         out = block_sparse_attention(q, k, v, scfg, mask=mask, dropout_rate=cfg.dropout,
-                                     seed=seed)
+                                     seed=seed, bh_base=bh_base)
     else:
         out = sparse_kernel.SparseKernelAttention.apply(*_folded(q, k, v, scfg, mask), h,
-                                                        dh ** -0.5, cfg.dropout, seed)
+                                                        dh ** -0.5, cfg.dropout, seed, bh_base)
         out = out.reshape(b, h, n + pad, dh).transpose(1, 2)
     out = out.reshape(b, n + pad, h * dh)[:, :n]
     return linear(params["to_out"], out, dtype=dtype)

@@ -215,16 +215,17 @@ def philox_keep(seed, bh, rows, cols, rate: float):
     return bits >= dropout_threshold(rate)
 
 
-def _keep_factor(r0, r1, queries, keys, dropout_rate, seed, keep):
+def _keep_factor(r0, r1, queries, keys, dropout_rate, seed, keep, bh_base=0):
     """The factors Z (0 or 1 / (1 - rate), f32) of rows r0:r1 at the
     query and key coordinates `queries`, `keys` (int64, broadcast after a
-    leading row axis), from the seed or from a dense (BH, n, n) keep mask;
-    None without dropout."""
+    leading row axis), from the seed (row bh drawing at bh_base + bh) or
+    from a dense (BH, n, n) keep mask; None without dropout."""
     if not dropout_rate or (seed is None and keep is None):
         return None
     bh = torch.arange(r0, r1, device=queries.device).reshape(-1, *[1] * queries.dim())
     if keep is None:
-        kept = philox_keep(seed.to(queries.device), bh, queries[None], keys[None], dropout_rate)
+        kept = philox_keep(seed.to(queries.device), bh + bh_base, queries[None], keys[None],
+                           dropout_rate)
     else:
         kept = keep.to(queries.device)[bh, queries[None], keys[None]]
     return torch.where(kept, 1.0 / (1.0 - dropout_rate), 0.0)
@@ -285,12 +286,13 @@ def _scores(q, k, bias, heads, r0, r1, table: BlockTable, scale):
 
 
 def sparse_fwd_plain(q, k, v, bias, table: BlockTable, heads: int, scale: float, *,
-                     dropout_rate: float = 0.0, seed=None, keep=None):
+                     dropout_rate: float = 0.0, seed=None, keep=None, bh_base: int = 0):
     """The forward kernel's function in plain PyTorch (f32 whatever the
     input dtype), differentiable by autograd. With dropout_rate > 0 and a
     seed (or a dense (BH, n, n) bool `keep`), inverted dropout on the
-    probabilities that feed P.V; lse is the undropped one's. Returns (out
-    in q.dtype, lse f32)."""
+    probabilities that feed P.V, row bh drawing its bits as row bh_base +
+    bh (a data-parallel shard's place in the whole batch); lse is the
+    undropped one's. Returns (out in q.dtype, lse f32)."""
     BH, n, dh = q.shape
     outs, lses = [], []
     queries, keys = _fwd_coords(table)
@@ -303,7 +305,7 @@ def sparse_fwd_plain(q, k, v, bias, table: BlockTable, heads: int, scale: float,
         p = torch.exp(s - m[..., None])  # 0 over a row with no unmasked key
         l = p.sum(dim=-1)
         attn = p / torch.where(live, l, 1.0)[..., None]
-        z = _keep_factor(r0, r1, queries, keys, dropout_rate, seed, keep)
+        z = _keep_factor(r0, r1, queries, keys, dropout_rate, seed, keep, bh_base)
         if z is not None:
             attn = attn * z.reshape(attn.shape)
         vg = _gather(v, r0, r1, table).reshape(c, table.n_blocks, -1, dh)
@@ -313,7 +315,8 @@ def sparse_fwd_plain(q, k, v, bias, table: BlockTable, heads: int, scale: float,
 
 
 def sparse_bwd_dq_plain(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta,
-                        scale: float, *, dropout_rate: float = 0.0, seed=None, keep=None):
+                        scale: float, *, dropout_rate: float = 0.0, seed=None, keep=None,
+                        bh_base: int = 0):
     """The dq kernel's function in plain PyTorch (f32): p = exp(s - lse), ds
     = p (g.v Z - delta), dq = scale ds k over each query block's slots (Z
     the forward's keep factors, with dropout). Returns dq in q.dtype."""
@@ -327,7 +330,7 @@ def sparse_bwd_dq_plain(q, k, v, bias, table: BlockTable, heads: int, lse, g, de
         vg = _gather(v, r0, r1, table).reshape(c, B, -1, dh)
         kg = _gather(k, r0, r1, table).reshape(c, B, -1, dh)
         dp = torch.einsum("cbid,cbjd->cbij", g[r0:r1].float().reshape(c, B, -1, dh), vg)
-        z = _keep_factor(r0, r1, queries, keys, dropout_rate, seed, keep)
+        z = _keep_factor(r0, r1, queries, keys, dropout_rate, seed, keep, bh_base)
         if z is not None:
             dp = dp * z.reshape(dp.shape)
         ds = p * (dp - delta[r0:r1].reshape(c, B, -1, 1))
@@ -336,7 +339,8 @@ def sparse_bwd_dq_plain(q, k, v, bias, table: BlockTable, heads: int, lse, g, de
 
 
 def sparse_bwd_dkv_plain(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta,
-                         scale: float, *, dropout_rate: float = 0.0, seed=None, keep=None):
+                         scale: float, *, dropout_rate: float = 0.0, seed=None, keep=None,
+                         bh_base: int = 0):
     """The dkv kernel's function in plain PyTorch (f32), as the kernel reads
     the table: key block c gathers the query blocks of its own row (the
     layout is symmetric); dk = scale ds^T q, dv = (p Z)^T g with ds = p (dp
@@ -362,7 +366,7 @@ def sparse_bwd_dkv_plain(q, k, v, bias, table: BlockTable, heads: int, lse, g, d
         s = torch.einsum("cbjd,cbaid->cbjai", kb, qg) * scale + key_bias[..., None, None]
         p = torch.exp(s - lse_g[:, :, None])
         dp = torch.einsum("cbjd,cbaid->cbjai", vb, gg)
-        z = _keep_factor(r0, r1, queries, keys, dropout_rate, seed, keep)
+        z = _keep_factor(r0, r1, queries, keys, dropout_rate, seed, keep, bh_base)
         pz = p if z is None else p * z
         dp = dp if z is None else dp * z
         ds = p * (dp - delta_g[:, :, None])
@@ -389,7 +393,8 @@ def sparse_bwd_plain(q, k, v, bias, table: BlockTable, heads: int, out, lse, g,
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("sparse_attn")
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-    drop = [p, ctypes.c_uint32, f32]  # the seed, the threshold, 1 / (1 - rate)
+    # the seed, the threshold, 1 / (1 - rate), the first row's bh for the bits
+    drop = [p, ctypes.c_uint32, f32, ctypes.c_uint32]
     shape = [i64, i64, i64, i64, i32, i32, f32, i32, p] + drop
     lib.af2_sparse_fwd.argtypes = [p] * 8 + shape
     lib.af2_sparse_bwd_dq.argtypes = [p] * 10 + shape
@@ -476,12 +481,16 @@ def check_dropout(dropout_rate: float, seed, device) -> bool:
     return True
 
 
-def _drop_args(dropout_rate: float, seed, device):
-    """The entry points' last three arguments: the seed's pointer (None:
-    no dropout), the threshold and 1 / (1 - rate)."""
+def _drop_args(dropout_rate: float, seed, device, bh_base: int = 0):
+    """The entry points' last four arguments: the seed's pointer (None:
+    no dropout), the threshold, 1 / (1 - rate) and the bh at which row 0
+    draws its bits."""
     if not check_dropout(dropout_rate, seed, device):
-        return (None, 0, 1.0)
-    return (seed.data_ptr(), dropout_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate))
+        return (None, 0, 1.0, 0)
+    if not 0 <= bh_base < 2 ** 32:
+        raise ValueError(f"bh_base {bh_base} outside [0, 2^32)")
+    return (seed.data_ptr(), dropout_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate),
+            int(bh_base))
 
 
 def _shape_args(q, table: BlockTable, heads, scale, drop):
@@ -520,16 +529,17 @@ def _pick(kind: str, best: str, which, q, table: BlockTable, lists: tuple) -> st
 
 
 def sparse_fwd(q, k, v, bias, table: BlockTable, heads: int, scale: float, which=None, *,
-               dropout_rate: float = 0.0, seed=None):
+               dropout_rate: float = 0.0, seed=None, bh_base: int = 0):
     """B5f on the kernel `route` picks, or on the route `which` names
     (measurements compare two routes on one call; a route the call cannot
     take is refused), counted under LAUNCHES["sparse_fwd"] and
     LAUNCHES["sparse_fwd_<route>"]; with dropout_rate > 0 and a seed (two
     int64 on q's device) the route's dropout kernel, counted again under
-    LAUNCHES["sparse_fwd_dropout"]. Returns (out, lse)."""
+    LAUNCHES["sparse_fwd_dropout"]; row bh draws its bits as bh_base + bh.
+    Returns (out, lse)."""
     which = _pick("forward", route(q, table), which, q, table, table.unions)
     _check(q, k, v, bias, table, heads)
-    drop = _drop_args(dropout_rate, seed, q.device)
+    drop = _drop_args(dropout_rate, seed, q.device, bh_base)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     if which == "wgmma":
@@ -553,14 +563,14 @@ def _bwd_ins(q, k, v, bias, table, g, lse, delta):
 
 
 def launch_dq(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta, scale, which=None,
-              *, dropout_rate: float = 0.0, seed=None):
+              *, dropout_rate: float = 0.0, seed=None, bh_base: int = 0):
     """One launch of the dq kernel on inputs `sparse_bwd` checked: on the
     route `bwd_route` picks, or the route `which` names (refused where the
     call cannot take it), with the forward's dropout (its rate and seed),
     counted under LAUNCHES["sparse_bwd_dq"], LAUNCHES["sparse_bwd_dq_<route>"]
     and, dropping, LAUNCHES["sparse_bwd_dq_dropout"]."""
     which = _pick("dq", bwd_route(q, table), which, q, table, table.unions)
-    drop = _drop_args(dropout_rate, seed, q.device)
+    drop = _drop_args(dropout_rate, seed, q.device, bh_base)
     dq = torch.empty_like(q)
     ins = _bwd_ins(q, k, v, bias, table, g, lse, delta)
     if which == "wgmma":  # B5f's 128-row stage lists
@@ -576,12 +586,12 @@ def launch_dq(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta, scale
 
 
 def launch_dkv(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta, scale, which=None,
-               *, dropout_rate: float = 0.0, seed=None):
+               *, dropout_rate: float = 0.0, seed=None, bh_base: int = 0):
     """One launch of the dkv kernel, as `launch_dq`, counted under
     LAUNCHES["sparse_bwd_dkv"], LAUNCHES["sparse_bwd_dkv_<route>"] and,
     dropping, LAUNCHES["sparse_bwd_dkv_dropout"]. Returns (dk, dv)."""
     which = _pick("dkv", bwd_route(q, table), which, q, table, table.key_unions)
-    drop = _drop_args(dropout_rate, seed, q.device)
+    drop = _drop_args(dropout_rate, seed, q.device, bh_base)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     ins, outs = _bwd_ins(q, k, v, bias, table, g, lse, delta), (dk.data_ptr(), dv.data_ptr())
     if which == "wgmma":
@@ -595,7 +605,7 @@ def launch_dkv(q, k, v, bias, table: BlockTable, heads: int, lse, g, delta, scal
 
 
 def sparse_bwd(q, k, v, bias, table: BlockTable, heads: int, out, lse, g, scale: float, *,
-               dropout_rate: float = 0.0, seed=None):
+               dropout_rate: float = 0.0, seed=None, bh_base: int = 0):
     """B5 dq and B5 dkv: the backward of `sparse_fwd` from its saved out and
     lse, the cotangent g and the forward's dropout (its rate and seed: the
     kernels redraw its mask). Returns (dq, dk, dv) in the input dtype."""
@@ -605,7 +615,7 @@ def sparse_bwd(q, k, v, bias, table: BlockTable, heads: int, out, lse, g, scale:
         raise ValueError(f"lse must be a contiguous float32 {tuple(q.shape[:2])} on {q.device}")
     delta = flash_kernel.cotangent_terms(out, g)[1]
     args = (q, k, v, bias, table, heads, lse, g, delta, scale)
-    dropout = dict(dropout_rate=dropout_rate, seed=seed)
+    dropout = dict(dropout_rate=dropout_rate, seed=seed, bh_base=bh_base)
     return (launch_dq(*args, **dropout),) + launch_dkv(*args, **dropout)
 
 
@@ -613,19 +623,22 @@ class SparseKernelAttention(torch.autograd.Function):
     """B5 in the folded layout: forward `sparse_fwd`, backward `sparse_bwd`
     from the saved out and lse; with dropout_rate > 0 and a seed tensor,
     attention dropout, the backward reading the forward's seed (it draws
-    nothing). The bias is a mask: no cotangent."""
+    nothing) and its bh_base. The bias is a mask: no cotangent."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, table, heads, scale, dropout_rate=0.0, seed=None):
+    def forward(ctx, q, k, v, bias, table, heads, scale, dropout_rate=0.0, seed=None,
+                bh_base=0):
         out, lse = sparse_fwd(q, k, v, bias, table, heads, scale, dropout_rate=dropout_rate,
-                              seed=seed)
+                              seed=seed, bh_base=bh_base)
         ctx.save_for_backward(q, k, v, bias, out, lse, seed)
         ctx.table, ctx.heads, ctx.scale, ctx.rate = table, heads, scale, dropout_rate
+        ctx.bh_base = bh_base
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, out, lse, seed = ctx.saved_tensors
         dq, dk, dv = sparse_bwd(q, k, v, bias, ctx.table, ctx.heads, out, lse, aligned(g),
-                                ctx.scale, dropout_rate=ctx.rate, seed=seed)
-        return dq, dk, dv, None, None, None, None, None, None
+                                ctx.scale, dropout_rate=ctx.rate, seed=seed,
+                                bh_base=ctx.bh_base)
+        return dq, dk, dv, None, None, None, None, None, None, None

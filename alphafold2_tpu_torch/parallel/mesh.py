@@ -17,6 +17,14 @@ when there are fewer, as the JAX package does. An explicit `devices=` list
 may repeat a device (`["cuda:0"] * 4`, `["cpu"] * 4`): the counterpart of
 the JAX tests' virtual CPU mesh, which runs every collective and every
 ring hop on one device.
+
+In a pod of processes (`parallel/distributed.py`) the global mesh has one
+shard a process, shard r being process r's card: a process computes on
+its own shard only, and the collectives between shards are
+`torch.distributed`'s (`parallel/train.py make_multihost_train_step`).
+There `make_mesh` without `devices=` must cover every process exactly, as
+JAX's guard asks, and `data_parallel_mesh(local=True)` is the mesh of one
+process's own cards.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from typing import Mapping, Optional, Sequence
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
+
+from alphafold2_tpu_torch.parallel import distributed
 
 # Canonical mesh-axis names (the JAX package's registry, which its
 # sharding lint checks every axis literal against):
@@ -169,10 +179,34 @@ class Mesh:
         return self._per_device(total)
 
 
+def pod_devices(axes: Mapping[str, int], device=None):
+    """The devices of a mesh in a pod of processes: process r's device for
+    shard r (`parallel/distributed.py pod_device`; `device`: "cpu" for a
+    CPU pod, None for the cards, or the CPU on a host without one), the axis
+    covering every process exactly (JAX's multi-process guard: a prefix
+    would quietly drop processes); None outside a pod."""
+    world = distributed.process_count()
+    if world == 1:
+        return None
+    (size,) = axes.values()
+    if size != world:
+        raise ValueError(
+            f"mesh {dict(axes)} covers {size} devices but this is a {world}-process run with "
+            f"one card a process ({world} global devices): size the axis to the world, or "
+            "pass an explicit `devices=` subset (data_parallel_mesh(local=True) for this "
+            "process's own cards)")
+    where = device if device is not None or torch.cuda.is_available() else "cpu"
+    me = distributed.process_index()
+    return [distributed.pod_device(r, where, local_rank=None if r == me else r)
+            for r in range(world)]
+
+
 def make_mesh(axes: Mapping[str, int], devices: Optional[Sequence] = None) -> Mesh:
     """A mesh with one named axis {name: size}. `devices` defaults to the
-    first `size` CUDA devices (distinct cards); fewer raises. An explicit
-    list may repeat a device; its first `size` entries are used."""
+    first `size` CUDA devices (distinct cards); fewer raises. In a pod of
+    processes the default is each process's card, and `size` must equal
+    the world size. An explicit list may repeat a device; its first `size`
+    entries are used."""
     if len(axes) != 1:
         raise ValueError(f"the port's mesh has one named axis, got {dict(axes)}")
     ((name, size),) = axes.items()
@@ -180,6 +214,8 @@ def make_mesh(axes: Mapping[str, int], devices: Optional[Sequence] = None) -> Me
         raise ValueError(f"unknown mesh axis {name!r}; known: {sorted(KNOWN_AXES)}")
     if size < 1:
         raise ValueError(f"mesh axis {name!r} needs at least one device, got {size}")
+    if devices is None:
+        devices = pod_devices(axes)
     if devices is None:
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if n < size:
@@ -193,3 +229,25 @@ def make_mesh(axes: Mapping[str, int], devices: Optional[Sequence] = None) -> Me
     if len(devices) < size:
         raise ValueError(f"need {size} devices for mesh {dict(axes)}, have {len(devices)}")
     return Mesh(name, devices[:size])
+
+
+def local_devices() -> list:
+    """This process's own devices: its CUDA cards, or the CPU without one."""
+    if torch.cuda.is_available():
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")]
+
+
+def data_parallel_mesh(n: Optional[int] = None, *, local: bool = False) -> Mesh:
+    """All (or the first n) devices on one "data" axis. By default the
+    global devices: one a process in a pod (n defaults to the world size,
+    and must equal it), this process's cards outside one. `local=True`
+    takes this process's own devices (`local_devices`), as a host-local
+    mesh; the choice is explicit either way, so a one-process assumption
+    never quietly gives a local-only mesh in a pod."""
+    if local:
+        devs = local_devices()
+        return make_mesh({"data": len(devs) if n is None else n}, devs)
+    if n is None:
+        n = distributed.process_count() if distributed.joined() else torch.cuda.device_count()
+    return make_mesh({"data": n})

@@ -312,6 +312,7 @@ class ServingRequest:
         self.submitted_at = time.monotonic()
         self._event = threading.Event()
         self._lock = threading.Lock()
+        self._claimed = False
         self._result: Optional[PredictionResult] = None
         self._exc: Optional[BaseException] = None
         self._callbacks = []
@@ -332,10 +333,25 @@ class ServingRequest:
         """Resolve once; later resolutions are dropped. True when this call
         resolved the request. Done-callbacks run after the lock, on the
         resolving thread; a raising one is printed and skipped."""
+        if not self._claim(result=result, exc=exc):
+            return False
+        self._release()
+        return True
+
+    def _claim(self, result=None, exc=None) -> bool:
+        """The first half of `_finish`: take the outcome, so that no later
+        resolution can, without showing it to the client yet. True when
+        this call claimed the request."""
         with self._lock:
-            if self._event.is_set():
+            if self._claimed:
                 return False
+            self._claimed = True
             self._result, self._exc = result, exc
+        return True
+
+    def _release(self) -> None:
+        """The second half: wake the waiters and run the done-callbacks."""
+        with self._lock:
             self._event.set()
             callbacks, self._callbacks = self._callbacks, []
         for fn in callbacks:
@@ -343,7 +359,6 @@ class ServingRequest:
                 fn(self)
             except Exception:  # noqa: BLE001 — a callback must not stop the resolver
                 traceback.print_exc()
-        return True
 
     def add_done_callback(self, fn):
         """Run `fn(request)` when the request resolves: at once, on this
@@ -552,6 +567,7 @@ class ServingEngine:
         self._cache = ResultCache(cfg.cache_capacity)
         self._inflight = {}  # cache_key -> pending request (coalescing)
         self._inflight_lock = threading.Lock()
+        self._held = threading.local()  # `_holding`: the requests a block releases at its end
         self._tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = ServingMetrics(logger=metrics_logger, tracer=self._tracer)
         self.metrics.set_weight_bytes(self._weight_residency)
@@ -1022,9 +1038,28 @@ class ServingEngine:
         self.shutdown(drain=True)
         return False
 
+    @contextlib.contextmanager
+    def _holding(self):
+        """Within the block, this thread's resolutions claim their requests
+        and release them when it ends: the spans the block closes and the
+        flights it seals come before the clients see their outcomes. A
+        block inside another leaves the releases to the outer one."""
+        if getattr(self._held, "requests", None) is not None:
+            yield
+            return
+        self._held.requests = held = []
+        try:
+            yield
+        finally:
+            self._held.requests = None
+            for req in held:
+                req._release()
+
     def _resolve(self, req: ServingRequest, *, result=None, exc=None) -> bool:
-        """Finish a request and drop it from the coalescing map."""
-        finished = req._finish(result=result, exc=exc)
+        """Finish a request and drop it from the coalescing map, its flight
+        sealed before its client can see the outcome; inside `_holding`
+        the client sees it when the block ends."""
+        finished = req._claim(result=result, exc=exc)
         if finished:
             with self._inflight_lock:
                 if self._inflight.get(req.cache_key) is req:
@@ -1038,6 +1073,11 @@ class ServingEngine:
                 else:
                     self.flights.finish(req.trace_id, "completed", replica=self.replica_name,
                                         latency_s=result.latency_s, batch_bucket=result.bucket)
+            held = getattr(self._held, "requests", None)
+            if held is None:
+                req._release()
+            else:
+                held.append(req)
         return finished
 
     # ------------------------------------------------------ executables
@@ -1319,8 +1359,10 @@ class ServingEngine:
             for req in live:
                 self._tracer.add("serving.queue_wait", now - req.submitted_at, cat="serving",
                                  bucket=bucket, trace_id=req.trace_id, **self._span_tags)
-        with self._tracer.span("serving.batch", cat="serving", bucket=bucket, n=len(live),
-                               trace_ids=[r.trace_id for r in live], **self._span_tags):
+        # the clients see their outcomes once the batch's spans have closed
+        with self._holding(), self._tracer.span(
+                "serving.batch", cat="serving", bucket=bucket, n=len(live),
+                trace_ids=[r.trace_id for r in live], **self._span_tags):
             self._run_live(bucket, live, allow_split)
 
     def _batch_shape_for(self, n: int) -> int:
@@ -1519,9 +1561,10 @@ class ServingEngine:
                          rec.live, exit_depth)
         self._note_drain(window, len(rec.live))
         done_at = time.monotonic()
-        with self._tracer.span("serving.respond", cat="serving", bucket=rec.bucket,
-                               n=len(rec.live), trace_ids=[r.trace_id for r in rec.live],
-                               **self._span_tags):
+        # the clients see their results once the span has closed
+        with self._holding(), self._tracer.span(
+                "serving.respond", cat="serving", bucket=rec.bucket, n=len(rec.live),
+                trace_ids=[r.trace_id for r in rec.live], **self._span_tags):
             self._respond(rec.bucket, rec.shape, rec.live, coords, conf, stress, rec.n_real,
                           done_at, exit_depth=exit_depth)
 

@@ -70,9 +70,18 @@ and `--features esm` (the embedds stream has no row axis to shard) and
 `--reversible` are refused by the SP trunk at the first step; the eval
 runs the dense `predict_structure`, as the JAX CLI's does.
 
-Not ported: multi-host runs with their `--federate-every` (refused:
-ROADMAP A13), `--data sidechainnet` (it needs a dataset in the
-repository).
+A pod of processes (`AF2_COORDINATOR` / `AF2_NUM_PROCESSES` /
+`AF2_PROCESS_ID`, one command per process) trains data-parallel as in
+train_pre: each process joins first, trains on its own rows of the
+global --batch and all-reduces the gradients before the update
+(`parallel/train.py make_multihost_train_step` with the structure loss,
+eager). The JAX CLI's refusals hold: under a pod `--sp-shards`,
+`--trunk-segments`, `--features esm`, `--fault-plan`, a --batch that does
+not divide over the processes, `--ckpt-dir` without `--ckpt-verify` and
+`--profile-dir` exit; `--ckpt-dir` itself exits too (ROADMAP A13-ckpt).
+
+Not ported: `--federate-every` (refused: ROADMAP A13), `--data
+sidechainnet` (it needs a dataset in the repository).
 """
 
 from __future__ import annotations
@@ -95,7 +104,15 @@ from alphafold2_tpu_torch.models.embedder import (
     embedder_init,
 )
 from alphafold2_tpu_torch.models.refiner import RefinerConfig
-from alphafold2_tpu_torch.parallel import make_mesh, make_sp_train_step, sp_e2e_loss_fn
+from alphafold2_tpu_torch.parallel import (
+    distributed_startup,
+    host_to_global,
+    make_mesh,
+    make_multihost_train_step,
+    make_sp_train_step,
+    process_count,
+    sp_e2e_loss_fn,
+)
 from alphafold2_tpu_torch.reliability.preemption import Preempted, PreemptionHandler
 from alphafold2_tpu_torch.telemetry import (
     MetricRegistry,
@@ -111,6 +128,7 @@ from alphafold2_tpu_torch.telemetry import (
 from alphafold2_tpu_torch.training.checkpoint import finish, open_or_init
 from alphafold2_tpu_torch.training.data import (
     DataConfig,
+    per_process_microbatch_fn,
     resilient_batches,
     stack_microbatches,
     synthetic_microbatch_fn,
@@ -247,8 +265,41 @@ def with_embedds(batch, e_params, e_cfg):
     return dict(batch, embedds=torch.repeat_interleave(torch.stack(reps), 3, dim=2))
 
 
+def refuse_in_pod(args, procs: int) -> None:
+    """The JAX CLI's refusals under a pod of `procs` processes, condition
+    for condition, then the port's own (multi-process checkpoints)."""
+    bad = None
+    if args.sp_shards:
+        bad = "--sp-shards shards the grid single-process; pods shard the batch (DP)"
+    elif args.trunk_segments:
+        bad = "--trunk-segments is a single-device execution chain"
+    elif args.features == "esm":
+        bad = ("multi-host training runs --data synthetic with msa/none "
+               "features (no per-process contract for stateful sources)")
+    elif args.fault_plan:
+        bad = "--fault-plan is single-process chaos tooling"
+    elif args.batch % procs:
+        bad = (f"--batch {args.batch} is the GLOBAL batch and must divide across the "
+               f"{procs} processes (one card a process)")
+    elif args.ckpt_dir and not args.ckpt_verify:
+        bad = "multi-host checkpointing needs the verified manager — add --ckpt-verify"
+    elif args.profile_dir:
+        bad = "--profile-dir is single-process tooling"
+    elif args.ckpt_dir:
+        bad = ("--ckpt-dir in a pod: multi-process checkpoints are not ported yet "
+               "(ROADMAP A13-ckpt)")
+    if bad:
+        raise SystemExit(bad)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    # a pod is joined before anything touches a card, and its contract
+    # checked before any state is built
+    distributed_startup("train_end2end", device=args.device)
+    procs = process_count()
+    if procs > 1:
+        refuse_in_pod(args, procs)
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -289,11 +340,20 @@ def main(argv=None):
         fetch = None
     else:
         # batch i is a pure function of (seed, i): a resumed run takes up the
-        # stream at start * accum, a retried step refetches its own batch
+        # stream at start * accum, a retried step refetches its own batch; in
+        # a pod, this process's rows of it
         stream = None
-        fetch = synthetic_microbatch_fn(dcfg, tcfg.grad_accum,
-                                        source=synthetic_structure_batches)
-    if args.sp_shards:
+        fetch = (per_process_microbatch_fn if procs > 1 else synthetic_microbatch_fn)(
+            dcfg, tcfg.grad_accum, source=synthetic_structure_batches)
+    if procs > 1:
+        step, shardings, assemble, _ = make_multihost_train_step(
+            ecfg, tcfg, fetch(start), loss_fn=e2e_loss_fn, device=device)
+        state = host_to_global(state, shardings)  # process 0's bytes everywhere
+        print(f"data-parallel over {procs} processes, this one on {device}")
+
+        def train_step(st, batch, rng=None):
+            return step(st, assemble(batch), rng)
+    elif args.sp_shards:
         mesh = make_mesh({"seq": args.sp_shards},
                          devices=[device] * args.sp_shards if device.type == "cpu" else None)
         print(f"sequence-parallel trunk over {mesh.size} shards on "

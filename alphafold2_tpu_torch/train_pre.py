@@ -65,8 +65,24 @@ captures one card's stream: the startup line says which. `--eval-every`
 evaluates through the SP loss, as the JAX CLI does. The SP trunk is
 deterministic (no dropout, no remat, as in JAX).
 
+A pod of processes trains data-parallel, as the JAX CLI does, launched
+one command per process:
+
+  AF2_COORDINATOR=host0:8476 AF2_NUM_PROCESSES=2 AF2_PROCESS_ID=$i \
+      python -m alphafold2_tpu_torch.train_pre --steps 100 --bf16 --batch 2
+
+Each process joins first (`parallel/distributed.py distributed_startup`,
+NCCL on its card, gloo with `--device cpu`), trains on its own rows of
+the global --batch (`training/data.py per_process_microbatch_fn`) and
+all-reduces the gradients before the one update (`parallel/train.py
+make_multihost_train_step`, eager). The JAX CLI's refusals hold: under a
+pod `--sp-shards`, `--data` other than synthetic, `--fault-plan`, a
+--batch that does not divide over the processes and `--ckpt-dir` without
+`--ckpt-verify` exit; `--ckpt-dir` itself exits too (multi-process
+checkpoints: ROADMAP A13-ckpt).
+
 Not ported: `--data sidechainnet` (it needs a dataset in the repository)
-and multi-host runs with their `--federate-every` (refused: A13).
+and `--federate-every` (refused: A13).
 """
 
 from __future__ import annotations
@@ -82,7 +98,15 @@ import torch
 
 from alphafold2_tpu_torch.device import resolve_device
 from alphafold2_tpu_torch.models.config import Alphafold2Config
-from alphafold2_tpu_torch.parallel import make_mesh, make_sp_train_step, sp_distogram_loss_fn
+from alphafold2_tpu_torch.parallel import (
+    distributed_startup,
+    host_to_global,
+    make_mesh,
+    make_multihost_train_step,
+    make_sp_train_step,
+    process_count,
+    sp_distogram_loss_fn,
+)
 from alphafold2_tpu_torch.reliability.preemption import Preempted, PreemptionHandler
 from alphafold2_tpu_torch.runtime import NativePrefetchLoader
 from alphafold2_tpu_torch.telemetry import (
@@ -102,6 +126,7 @@ from alphafold2_tpu_torch.training.checkpoint import finish, open_or_init
 from alphafold2_tpu_torch.training.data import (
     DataConfig,
     bucketed_microbatches,
+    per_process_microbatch_fn,
     resilient_batches,
     stack_microbatches,
     synthetic_batches,
@@ -225,6 +250,14 @@ def main(argv=None):
                     help="torch device (default: the GPU; 'cpu' to run there)")
     args = ap.parse_args(argv)
 
+    # a pod (AF2_COORDINATOR / AF2_NUM_PROCESSES / AF2_PROCESS_ID) is joined
+    # before anything touches a card, and its contract checked before any
+    # state is built
+    distributed_startup("train_pre", device=args.device)
+    procs = process_count()
+    if procs > 1:
+        refuse_in_pod(args, procs)
+
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -263,6 +296,11 @@ def main(argv=None):
 
         def fetch(step):  # the stream's next stack, whatever the step
             return next(stream)
+    elif procs > 1:
+        # this process's rows of the global stream: row slices, so that the
+        # pod's steps are the single process's on the same batches
+        fetch = source = per_process_microbatch_fn(dcfg, tcfg.grad_accum)
+        first = fetch(start)
     else:
         # batch i is a pure function of (seed, i): a resumed run takes up
         # the stream at start * accum, a retried step refetches its own batch
@@ -280,10 +318,18 @@ def main(argv=None):
     telemetry = build_train_telemetry(
         args, registry=registry, tracer=tracer, logger=logger,
         step_flops=train_step_flops(cfg, args.max_len, 0, 0, grad_accum=tcfg.grad_accum))
+    pod_step = None
+    if procs > 1:
+        step, shardings, assemble, _ = make_multihost_train_step(
+            cfg, tcfg, first, telemetry=telemetry, device=device)
+        state = host_to_global(state, shardings)  # process 0's bytes everywhere
+
+        def pod_step(st, batch, rng=None):
+            return step(st, assemble(batch), rng)
     try:
         metrics = train(args, cfg, tcfg, device, state, mgr, first, fetch, source, resilient,
                         injector, max_restarts, logger, tracer, compile_tracker, telemetry,
-                        mesh)
+                        mesh, pod_step)
     except Preempted as e:
         print(e)  # saved and closed by the loop: not a failure
         return state, None
@@ -305,18 +351,47 @@ def main(argv=None):
     return state, metrics
 
 
+def refuse_in_pod(args, procs: int) -> None:
+    """The JAX CLI's refusals under a pod of `procs` processes, in its
+    order, then the port's own (multi-process checkpoints)."""
+    if args.sp_shards:
+        raise SystemExit("--sp-shards is the single-process grid-sharding path; multi-host "
+                         "runs shard the batch (DP) — drop the flag")
+    if args.data != "synthetic":
+        raise SystemExit(f"--data {args.data} has no per-process sharding contract yet; "
+                         "multi-host training runs --data synthetic")
+    if args.fault_plan:
+        raise SystemExit("--fault-plan is single-process chaos tooling; a per-host injected "
+                         "fault would desync the SPMD step — run chaos drills single-process")
+    if args.batch % procs:
+        raise SystemExit(f"--batch {args.batch} is the GLOBAL batch and must divide across "
+                         f"the {procs} processes (one card a process)")
+    if args.ckpt_dir and not args.ckpt_verify:
+        raise SystemExit("multi-host checkpointing runs through the verified manager "
+                         "(process-0 writes + cross-process barrier + broadcast-consistent "
+                         "restore) — add --ckpt-verify")
+    if args.ckpt_dir:
+        raise SystemExit("--ckpt-dir in a pod: multi-process checkpoints are not ported yet "
+                         "(ROADMAP A13-ckpt)")
+
+
 def train(args, cfg, tcfg, device, state, mgr, first, fetch, source, resilient, injector,
-          max_restarts, logger, tracer, compile_tracker, telemetry, mesh=None):
+          max_restarts, logger, tracer, compile_tracker, telemetry, mesh=None, pod_step=None):
     """The run's steps from state["step"], updating `state` in place;
     returns the last step's metrics (a preemption raises `Preempted`). On
     the GPU the first batch's capture, and each bucket's first batch's, is
     accounted as compile. `mesh`: the sequence-parallel trunk's (None:
-    the dense step); captured where every shard is the state's card."""
+    the dense step); captured where every shard is the state's card.
+    `pod_step`: the pod's data-parallel step (eager), fed this process's
+    rows."""
     start = state["step"]
     loss_fn = distogram_loss_fn if mesh is None else sp_distogram_loss_fn(mesh)
     # a CUDA graph captures one card's stream: decided by the placement
-    captured = device.type == "cuda" and (mesh is None
-                                          or all(d == device for d in mesh.devices))
+    captured = device.type == "cuda" and pod_step is None and (
+        mesh is None or all(d == device for d in mesh.devices))
+    if pod_step is not None:
+        print(f"data-parallel over {process_count()} processes, this one on {device}: the "
+              f"step runs eager")
     if mesh is not None:
         how = ("captured as a CUDA graph" if captured else
                "eager (a CUDA graph captures one card's stream)" if device.type == "cuda"
@@ -329,6 +404,8 @@ def train(args, cfg, tcfg, device, state, mgr, first, fetch, source, resilient, 
         capture = next(iter(train_step.captures.values()))
         print(f"captured the step{bucket_of(args, first)} as a CUDA graph in "
               f"{capture.seconds:.2f} s")
+    elif pod_step is not None:
+        train_step = pod_step
     elif mesh is not None:
         train_step = make_sp_train_step(cfg, tcfg, mesh, device=device)
     else:

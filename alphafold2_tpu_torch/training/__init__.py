@@ -2,9 +2,7 @@
 the data pipeline, the train step, checkpoints and recovery, end-to-end
 structure training and its segmented step. The JAX package's names, less
 those of parts not ported: the orbax manager (`CheckpointManager`,
-`restore_or_init`, `abstract_like`: ROADMAP A12-orbax), the multi-process
-data sharding (`process_shard`, `shard_items`, `per_process_microbatch_fn`,
-`assemble_global_batch`: A13-dp) and the sidechainnet streams
+`restore_or_init`, `abstract_like`: ROADMAP A12-orbax) and the sidechainnet streams
 (`sidechainnet_batches`, `sidechainnet_structure_batches`: `--data
 sidechainnet`, not queued)."""
 
@@ -26,9 +24,13 @@ from alphafold2_tpu_torch.training.harness import (
 from alphafold2_tpu_torch.training.data import (
     DataConfig,
     ResilientBatches,
+    assemble_global_batch,
     bucket_batches,
     bucketed_microbatches,
+    per_process_microbatch_fn,
+    process_shard,
     resilient_batches,
+    shard_items,
     stack_microbatches,
     synthetic_batches,
     synthetic_microbatch_fn,
@@ -89,6 +91,10 @@ __all__ = [
     "synthetic_batches",
     "synthetic_microbatch_fn",
     "synthetic_structure_batches",
+    "process_shard",
+    "shard_items",
+    "per_process_microbatch_fn",
+    "assemble_global_batch",
     "E2EConfig",
     "e2e_loss_fn",
     "make_e2e_loss_fn",

@@ -55,7 +55,7 @@ def _refuse_multi_process(what: str) -> None:
         raise NotImplementedError(
             f"{what} with {dist.get_world_size()} processes: multi-process checkpointing "
             f"(process 0 writes, barriers, the cross-process sha256 check) is not ported "
-            f"yet (ROADMAP A13)")
+            f"yet (ROADMAP A13-ckpt)")
 
 
 def _refuse_orbax(directory: str) -> None:

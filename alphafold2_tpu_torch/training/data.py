@@ -172,6 +172,108 @@ def synthetic_microbatch_fn(cfg: DataConfig, grad_accum: int, source=None):
     return fetch
 
 
+# --- one process's rows (a pod of processes) ----------------------------------
+#
+# The pod's data contract, as in the JAX package: the global batch is the
+# per-process batch x the process count, each process's pipeline yields
+# only its own rows, and the step consumes this process's rows on its card
+# knowing the global row count (parallel/train.py
+# make_multihost_train_step). The process index and count come from
+# torch.distributed (1 process outside a pod).
+
+
+def _topology(index: Optional[int], count: Optional[int]):
+    if index is None or count is None:
+        dist = torch.distributed
+        on = dist.is_available() and dist.is_initialized()
+        index = (dist.get_rank() if on else 0) if index is None else index
+        count = (dist.get_world_size() if on else 1) if count is None else count
+    return index, count
+
+
+def process_shard(batch: dict, *, index: Optional[int] = None,
+                  count: Optional[int] = None, axis: int = 0) -> dict:
+    """This process's rows of a host-side global batch: rows [index * b /
+    count, (index + 1) * b / count) along `axis` (0 for plain batches, 1
+    for microbatched (accum, b, ...) stacks), so that every process's
+    shard concatenated along `axis` is the global batch. Scalars and
+    non-array entries pass through."""
+    index, count = _topology(index, count)
+
+    def shard(x):
+        if not hasattr(x, "ndim") or x.ndim <= axis:
+            return x
+        b = x.shape[axis]
+        if b % count != 0:
+            raise ValueError(
+                f"global batch axis {b} must divide across {count} "
+                "processes (global batch = per-process batch x process "
+                "count)"
+            )
+        lo = index * (b // count)
+        sl = [slice(None)] * x.ndim
+        sl[axis] = slice(lo, lo + b // count)
+        return x[tuple(sl)]
+
+    return {k: shard(v) for k, v in batch.items()}
+
+
+def shard_items(items: Iterator, *, index: Optional[int] = None,
+                count: Optional[int] = None) -> Iterator:
+    """Every count-th record of a record stream, from the index-th (a
+    corpus source's per-process view; synthetic sources, pure functions of
+    the index, take `process_shard`'s rows instead)."""
+    index, count = _topology(index, count)
+    for i, item in enumerate(items):
+        if i % count == index:
+            yield item
+
+
+def per_process_microbatch_fn(cfg: DataConfig, grad_accum: int, source=None,
+                              *, index: Optional[int] = None,
+                              count: Optional[int] = None):
+    """`synthetic_microbatch_fn` for one process of a pod: `fetch(step)`
+    returns this process's rows of the step's global microbatch stack
+    (cfg.batch_size is the global batch), still a pure function of the
+    step, so a retry or a resume replays it."""
+    base = synthetic_microbatch_fn(cfg, grad_accum, source=source)
+
+    def fetch(step: int) -> dict:
+        return process_shard(base(step), index=index, count=count, axis=1)
+
+    return fetch
+
+
+class ProcessRows(dict):
+    """This process's rows of a global batch, on its device (the dict's
+    leaves), with `start`, its first row, and `total`, the global batch's
+    row count along the batch axis."""
+
+    def __init__(self, leaves: dict, start: int, total: int):
+        super().__init__(leaves)
+        self.start, self.total = start, total
+
+
+def assemble_global_batch(local_batch: dict, mesh, *, microbatched: bool = True,
+                          count: Optional[int] = None) -> ProcessRows:
+    """The port's counterpart of JAX's global arrays: this process's rows
+    (`local_batch`, its shard of the batch axis, axis 1 under
+    `microbatched`) on its shard's device of `mesh`, with the global row
+    count and its first row (`ProcessRows`). Non-array entries pass."""
+    index, count = _topology(None, count)
+    device = mesh.devices[index] if len(mesh.devices) > index else mesh.devices[0]
+    axis = 1 if microbatched else 0
+    rows = {np.shape(v)[axis] for v in local_batch.values()
+            if hasattr(v, "ndim") and v.ndim > axis}
+    if len(rows) != 1:
+        raise ValueError(f"the batch's leaves disagree on their rows along axis {axis}: "
+                         f"{sorted(rows)}")
+    (b,) = rows
+    leaves = {k: torch.as_tensor(v).to(device) if hasattr(v, "ndim") else v
+              for k, v in local_batch.items()}
+    return ProcessRows(leaves, index * b, count * b)
+
+
 class ResilientBatches:
     """Retrying/skipping wrapper over a batch source: a step-indexed fetch
     (`fetch(step)`, e.g. `synthetic_microbatch_fn`; a retry fetches the same

@@ -39,7 +39,8 @@ from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.models.refiner import RefinerConfig, refiner_apply, refiner_init
 from alphafold2_tpu_torch.ops.quant import reject_quant_training
 from alphafold2_tpu_torch.training.harness import TrainConfig, train_state
-from alphafold2_tpu_torch.utils.rng import Key
+from alphafold2_tpu_torch.training.losses import combine_parts
+from alphafold2_tpu_torch.utils.rng import Key, tagged_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,6 +176,14 @@ def structure_loss(out, ecfg: E2EConfig, batch):
     """The loss of `predict_structure`'s output `out` against batch["coords"]
     (b, L, 14, 3) (and the optional batch["atom_mask"]): `make_e2e_loss_fn`'s
     value."""
+    return combine_parts(structure_loss_parts(out, ecfg, batch))
+
+
+def structure_loss_parts(out, ecfg: E2EConfig, batch):
+    """`structure_loss` as (numerator, denominator) terms (`training/
+    losses.py combine_parts`): the summed RMSD over the structures and
+    their count, dispersion_weight x the summed dispersion over the pairs
+    of positive weight and their count."""
     dev = out["refined"].device
     b, length = out["cloud_mask"].shape[:2]
     num_atoms = length * NUM_COORDS_PER_RES
@@ -190,8 +199,8 @@ def structure_loss(out, ecfg: E2EConfig, batch):
     dw = out["distogram_weights"]
     valid = (dw > 0).float()
     per_pair = (1.0 / (dw + ecfg.weights_eps) - 1.0).abs() * valid
-    dispersion = per_pair.sum() / valid.sum().clamp_min(1.0)
-    return rmsd.mean() + ecfg.dispersion_weight * dispersion
+    count = torch.full((), b, dtype=torch.float32, device=dev)
+    return [(rmsd.sum(), count), (ecfg.dispersion_weight * per_pair.sum(), valid.sum())]
 
 
 def make_e2e_loss_fn(model_apply_fn=None):
@@ -214,14 +223,23 @@ def make_e2e_loss_fn(model_apply_fn=None):
     its SVD, as JAX's stop_gradient does). `structure_loss` is the part after
     the forward."""
 
-    def loss_fn(params, ecfg: E2EConfig, batch, rng=None, device=None):
-        out = predict_structure(
-            params, ecfg, batch["seq"], mask=batch.get("mask"), rng=rng,
-            msa=batch.get("msa"), msa_mask=batch.get("msa_mask"), embedds=batch.get("embedds"),
-            model_apply_fn=model_apply_fn, mds_generator=mds_generator(ecfg, rng),
-            device=None if model_apply_fn is not None else device)
-        return structure_loss(out, ecfg, batch)
+    def parts(params, ecfg: E2EConfig, batch, rng=None, device=None, rows=None):
+        # rows: a data-parallel shard's (start, count, total) batch rows,
+        # which the MDS init's draw (in the forward only) takes of the
+        # whole batch's
+        with tagged_rows(mds_generator(ecfg, rng), rows) as gen:
+            out = predict_structure(
+                params, ecfg, batch["seq"], mask=batch.get("mask"), rng=rng,
+                msa=batch.get("msa"), msa_mask=batch.get("msa_mask"),
+                embedds=batch.get("embedds"), model_apply_fn=model_apply_fn,
+                mds_generator=gen, device=None if model_apply_fn is not None else device)
+        return structure_loss_parts(out, ecfg, batch)
 
+    def loss_fn(params, ecfg: E2EConfig, batch, rng=None, device=None):
+        return combine_parts(parts(params, ecfg, batch, rng, device))
+
+    # the loss as (numerator, denominator) terms, for a data-parallel step
+    loss_fn.parts = parts
     return loss_fn
 
 

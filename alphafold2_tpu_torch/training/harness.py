@@ -36,7 +36,8 @@ geometry reads the host: it runs eagerly on the card too):
 
 `with_fault_injection` wraps a step with the chaos hooks; checkpoints
 and recovery are `training/checkpoint.py` and `training/resilience.py`.
-Not ported: the multi-device accumulation step (ROADMAP A13).
+Not ported: the multi-device accumulation step (ROADMAP A13-overlap; the
+data-parallel steps are `parallel/train.py`'s).
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ from alphafold2_tpu_torch.models.config import Alphafold2Config
 from alphafold2_tpu_torch.ops.quant import reject_quant_training
 from alphafold2_tpu_torch.training.losses import (
     bucketed_distance_matrix,
-    distogram_cross_entropy,
+    combine_parts,
+    distogram_cross_entropy_parts,
 )
 from alphafold2_tpu_torch.utils.rng import as_key
 
@@ -212,9 +214,14 @@ def make_distogram_loss_fn(apply_fn):
     """The distogram pretraining loss around any model apply function with
     the alphafold2_apply signature. batch: {"seq": (b, L) int, "mask":
     (b, L) bool, "coords": (b, L, 3)} (+ optional "msa", "msa_mask"), numpy
-    arrays or tensors."""
+    arrays or tensors. `loss_fn.parts`, with the same arguments, gives the
+    loss as (numerator, denominator) terms (`training/losses.py
+    combine_parts`), which a data-parallel step totals over its shards;
+    its `rows`, a shard's (start, count, total) batch rows, go unread: the
+    loss draws only from rng, whose streams carry them."""
 
-    def loss_fn(params, cfg: Alphafold2Config, batch, rng=None, device=None):
+    def parts(params, cfg: Alphafold2Config, batch, rng=None, device=None, rows=None):
+        del rows
         dev = resolve_device(device)
         mask = as_device_tensor(batch["mask"], dev, torch.bool)
         labels = bucketed_distance_matrix(
@@ -224,8 +231,13 @@ def make_distogram_loss_fn(apply_fn):
             params, cfg, batch["seq"], batch.get("msa"), mask=mask,
             msa_mask=batch.get("msa_mask"), rng=rng, device=dev,
         )
-        return distogram_cross_entropy(logits, labels)
+        return distogram_cross_entropy_parts(logits, labels)
 
+    def loss_fn(params, cfg: Alphafold2Config, batch, rng=None, device=None):
+        return combine_parts(parts(params, cfg, batch, rng, device))
+
+    # the loss as (numerator, denominator) terms, for a data-parallel step
+    loss_fn.parts = parts
     return loss_fn
 
 

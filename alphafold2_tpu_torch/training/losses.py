@@ -55,11 +55,31 @@ def bucketed_distance_matrix(coords, mask, num_buckets: int = DISTOGRAM_BUCKETS,
     return torch.where(pair_mask, labels, ignore_index)
 
 
-def distogram_cross_entropy(logits, labels, ignore_index: int = IGNORE_INDEX):
-    """Mean cross-entropy over valid pairs: logits (b, n, n, buckets) in any
-    dtype (scored in f32), labels (b, n, n) with `ignore_index` to skip."""
+def distogram_cross_entropy_parts(logits, labels, ignore_index: int = IGNORE_INDEX):
+    """[(the summed cross-entropy of the valid pairs, their count)]: the
+    loss as (numerator, denominator) terms (`combine_parts`), which a
+    data-parallel step totals over its shards before it divides."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    return (nll * valid).sum() / valid.sum().clamp(min=1)
+    return [((nll * valid).sum(), valid.sum())]
+
+
+def combine_parts(parts, totals=None):
+    """The loss of (numerator, denominator) terms: the sum over terms of
+    numerator / max(denominator, 1), each denominator replaced by its
+    total over the shards where `totals` gives them."""
+    if totals is None:
+        totals = [den for _, den in parts]
+    loss = None
+    for (num, _), den in zip(parts, totals):
+        term = num / den.clamp(min=1)
+        loss = term if loss is None else loss + term
+    return loss
+
+
+def distogram_cross_entropy(logits, labels, ignore_index: int = IGNORE_INDEX):
+    """Mean cross-entropy over valid pairs: logits (b, n, n, buckets) in any
+    dtype (scored in f32), labels (b, n, n) with `ignore_index` to skip."""
+    return combine_parts(distogram_cross_entropy_parts(logits, labels, ignore_index))

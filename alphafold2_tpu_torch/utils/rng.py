@@ -30,11 +30,20 @@ raises). A replay then draws from each generator's seed and offset at the
 replay, so `set_seed` before `replay()` gives the step's masks, the same
 bits the eager run draws from the same seed. On the CPU the same streams
 hold CPU generators.
+
+A data-parallel shard (parallel/train.py) holds some rows of the global
+batch, and its draws over the batch must be its rows of the draw the whole
+batch would make. Its streams carry those rows (`Streams(rows=)`), and
+every generator they make is tagged with them (read by `rows_of` in
+ops/core.py `rand_rows`; `tagged_rows` tags a generator for a block). The rows go wherever the generator
+goes: into a recompute on autograd's threads, and nowhere else. A draw
+from an untagged generator, on any thread, is the plain draw.
 """
 
 from __future__ import annotations
 
 import contextlib
+import weakref
 import zlib
 from typing import Optional
 
@@ -72,15 +81,65 @@ def seed_from(rng: torch.Generator) -> int:
     return int(torch.randint(2 ** 62, (), generator=rng))
 
 
+# id(generator) -> (generator, (start, count, total)): the rows of a
+# `total`-row batch that the generator's draws over the batch stand for.
+# Keyed by id with the generator held, since a torch generator takes no
+# weak reference in every release; an entry goes with its Streams
+# (`weakref.finalize`) or at the end of its `tagged_rows` block.
+_ROWS = {}
+
+
+def checked_rows(rows) -> tuple:
+    """`rows` = (start, count, total) as ints, refused where the rows lie
+    outside the batch."""
+    start, count, total = (int(r) for r in rows)
+    if not (0 <= start and count > 0 and start + count <= total):
+        raise ValueError(f"batch rows {start} .. {start + count} outside a batch of {total}")
+    return start, count, total
+
+
+def rows_of(generator: Optional[torch.Generator]):
+    """The (start, count, total) batch rows `generator` carries, or None."""
+    entry = None if generator is None else _ROWS.get(id(generator))
+    return entry[1] if entry is not None and entry[0] is generator else None
+
+
+def _untag(ids) -> None:
+    for i in ids:
+        _ROWS.pop(i, None)
+
+
+@contextlib.contextmanager
+def tagged_rows(generator: torch.Generator, rows):
+    """Within the block, `generator`'s draws over the batch take rows
+    start .. start + count of a `total`-row batch's draw (`rows` =
+    (start, count, total); None: the whole batch, nothing tagged)."""
+    if rows is None:
+        yield generator
+        return
+    _ROWS[id(generator)] = (generator, checked_rows(rows))
+    try:
+        yield generator
+    finally:
+        _untag([id(generator)])
+
+
 class Streams:
     """The generators of one step or one engine on `device`, at fixed
-    positions (see the module docstring). `key()` is the root position."""
+    positions (see the module docstring). `key()` is the root position.
+    `rows`: a data-parallel shard's (start, count, total) batch rows, with
+    which every generator is tagged while the streams live (`rows_of`;
+    None: the whole batch)."""
 
-    def __init__(self, device, seed: int = 0):
+    def __init__(self, device, seed: int = 0, rows=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.seed = int(seed)
+        self.rows = None if rows is None else checked_rows(rows)
+        self._tagged = []  # ids of the generators tagged with self.rows
+        if self.rows is not None:
+            weakref.finalize(self, _untag, self._tagged)
         self._generators = {}  # path -> [one generator a pass]
         self._passes = {}      # path -> passes drawn since the last set_seed
         self._sealed = False
@@ -113,7 +172,11 @@ class Streams:
                 raise RuntimeError(
                     f"random position {path}: a CUDA graph is being captured outside "
                     f"Streams.capturing, so the graph cannot replay this generator's draws")
-            gens.append(torch.Generator(self.device).manual_seed(path_seed(self.seed, path)))
+            gen = torch.Generator(self.device).manual_seed(path_seed(self.seed, path))
+            if self.rows is not None:
+                _ROWS[id(gen)] = (gen, self.rows)
+                self._tagged.append(id(gen))
+            gens.append(gen)
         return gens[n]
 
     def generators(self) -> list:

@@ -223,7 +223,8 @@ each phase prints its seconds):
      (a) f32, 3 distogram steps of 2 microbatches on the card and on the
          CPU from the same params (dim 256, 8 heads of 64, depth 2, layer
          0 sparse, tied MSA rows, aligned crosses with KV compression 2, L
-         = 64, 16 MSA rows), phase 6a's comparison and tolerances, every
+         = 64, 16 MSA rows; 23a takes the same CPU arm), phase 6a's
+         comparison and tolerances, every
          flash and B5 launch on its f32 route; the card's trunk gradient
          with reverse=True against reverse=False (1e-4 of each leaf's
          largest);
@@ -231,18 +232,14 @@ each phase prints its seconds):
          each leaf's reversible gradient against plain autograd's and the
          layer-0 input rebuilt from the output, held to bounds stated
          before the first run (`REV_GRAD_BOUND`, `REV_RECON_ULPS`);
-     (c) the reversible distogram step captured (train_pre's defaults,
-         depth 1, crop 128, accum 16, a 20-row MSA): 3 replays bit for bit
-         3 eager steps, all on wgmma; its captured ms beside the
-         sequential step's on the same batch and 6h's;
-     (d) the north-star e2e step, reversible (`north_star_e2e_config(2)`:
-         crop 384, grid 1152, 128 rows, accum 2, bf16, eager): one timed
-         step after an untimed one (23c times this step in turns with
-         branch_parallel, median of 3), MFU, peak memory, busy share,
-         device ms by kind, 40 B1f and 20 + 20 B1b launches a step, all on
-         wgmma; one step of one microbatch at depth 4 and at depth 2 from
-         fresh states: peak(4) - peak(2) < 1 GiB, and the depth-2 peak
-         below 12b's remat peak;
+     (c) the reversible distogram step captured: 23b's serial arm
+         (train_pre's defaults, depth 1, crop 128, accum 16, a 20-row MSA:
+         3 replays bit for bit 3 eager steps, all on wgmma; its captured
+         ms beside the sequential step's on the same batch and 6h's);
+     (d) the north-star e2e step, reversible: 23c's serial arm (3 steps
+         in turns with branch_parallel, MFU, peak memory below 12b's remat
+         peak, 40 B1f and 20 + 20 B1b launches a step on wgmma; peak(4) -
+         peak(2) < 1 GiB);
      (e) `train_end2end.main --reversible --bf16 --len 32`: 3 steps against
          2 saved then 1 resumed, bit for bit;
   14. the relaxation (`refinement.py relax`, `refine`), the e2e step at
@@ -279,8 +276,8 @@ each phase prints its seconds):
          under two rngs gives two losses; every B1f and B1b launch on
          wgmma, counted into the kernels line;
      (b) attn_dropout = ff_dropout = 0.1 with a 20-row MSA, each the same
-         check: remat with remat_policy "dots", branch_parallel, and the
-         reversible step (13c's config, accum 16);
+         check: remat with remat_policy "dots" and branch_parallel (the
+         reversible step's: 23b, both schedules at accum 2);
      (c) `ServingEngine(mds_init="random", cache_capacity=0)` at the
          served config, buckets 128 / 256: each bucket's captured request
          against eager `predict_structure` on the card from a generator
@@ -443,7 +440,7 @@ each phase prints its seconds):
          flight: nothing lost, memory allocated over the 3 flat (5%);
      (d) reported, no limit: requests/s, p50, p95, mean latency, mean
          batch and the overlap ratio of each turn of (a), and one more
-         pass a depth of the classical init, each under a torch.profiler
+         pass at depths 0 and 2 of the classical init, each under a torch.profiler
          of its own (the card's busy share: the union of the kernels' intervals
          over the pass's wall), each beside the card's name and power
          limit; the settle thread's event queries; which host waits for
@@ -479,7 +476,8 @@ each phase prints its seconds):
      reversible layer's self-block MSA half on the side stream, in the
      forward and in the backward's inversion), each part against the
      serial reversible trunk bit for bit:
-     (a) f32, 13a's config: 3 steps card vs CPU at phase 6a's tolerances
+     (a) f32, 13a's config: 3 steps card vs 13a's CPU arm (the schedule
+         changes nothing on the CPU) at phase 6a's tolerances
          with 13a's launch counts on the f32 routes; on the card the
          trunk's gradient (reverse=True) and its forward state and
          `reconstruct_input` torch.equal serial's, the gradient within
@@ -487,19 +485,45 @@ each phase prints its seconds):
      (b) 13c's captured bf16 step (crop 128, accum 16, 20 MSA rows), each
          schedule captured against eager over 3 steps, and the two
          schedules against each other, all bit for bit, and again with
-         attention and FF dropout 0.1 (step rngs 41-43, accum 2); reported: the
-         captured steps' ms (median of 5, in turns), busy share and the
+         attention and FF dropout 0.1 (step rngs 41-43, accum 2), each
+         dropout capture giving two losses under two rngs (15b's check of
+         the reversible step); reported: the captured steps' ms and the
+         sequential config's on the same batch (13c's comparison; median
+         of 5, in turns), busy share and the
          ms two streams run at once in one more replay of each, and the
          kernels each stream ran in the eager trunk's forward and
          inversion; fails if the side stream ran nothing in the inversion
          or the branch_parallel replay's streams never overlap;
      (c) the north-star e2e step (13d's config), 3 timed steps of each
          schedule in turns bit for bit (cuDNN's deterministic algorithms on
-         both: the KV-compression conv), 13d's launch counts on wgmma,
-         peak(depth 4) - peak(depth 2) < 1 GiB; reported: the median step,
-         busy share, overlap ms, both schedules' peaks;
+         both: the KV-compression conv), 13d's launch counts on wgmma for
+         both, peak(depth 4) - peak(depth 2) < 1 GiB, the serial peak below
+         12b's remat peak; reported: the median steps, MFU, busy share,
+         overlap ms, both schedules' peaks;
      (d) `predict_structure` at L = 384 (20 MSA rows) with the served
          config reversible: logits, confidence and stress torch.equal;
+  24. data-parallel training (`parallel/train.py make_sharded_train_step`,
+     `make_multihost_train_step`; `parallel/distributed.py`), global
+     batches of 2 rows of unequal valid lengths; the workers of (b) and (c)
+     start with the CLI runs and end before phase 3:
+     (a) `make_sharded_train_step` over `make_mesh({"data": 2},
+         devices=["cuda:0"] * 2)`: f32 (6a's config), L = 64, accum 2, 3
+         steps card vs the same over 2 CPU shards at phase 6a's
+         tolerances, launches exact on the f32 route; bf16 at train_pre's
+         widths, crop 128, accum 2: the first step within 1.5x the dense
+         bf16 step's distance from the dense f32 step, plus 1e-5, every
+         launch on wgmma; f32 with every layer sparse and attention dropout
+         0.1 at crop 128: 3 steps against the single-process step on the
+         global batch at 6a's tolerances (shard 1's B5 bits at its bh
+         offset), every B5 launch with its dropout;
+     (b) a worker at world size 1 over NCCL: `make_multihost_train_step`, 3
+         steps at (a)'s bf16 config bit for bit the single-process eager
+         step (loss, grad_norm, every param, moment and count), on wgmma;
+     (c) two workers on the card over gloo, f32 at L = 64 with ff_dropout
+         0.1, accum 2, 3 steps: the ranks' states byte-identical (sha256),
+         the single-process step on the global batch from the same rngs
+         at 6a's tolerances; reported: each rank's step ms and gradient
+         all-reduce ms (CUDA events);
   5. a `kernels` JSON line (sixteen kernels: the two flash forwards, the
      four flash backward kernels, the int8 product, the three sparse
      kernels, the three sparse kernels with dropout, B3's forward and its
@@ -517,6 +541,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
 import importlib
 import io
 import json
@@ -579,7 +604,10 @@ from alphafold2_tpu_torch.training import segmented  # noqa: E402
 from alphafold2_tpu_torch.telemetry import profiling  # noqa: E402
 from alphafold2_tpu_torch.parallel import (  # noqa: E402
     alphafold2_apply_sp,
+    host_to_global,
     make_mesh,
+    make_multihost_train_step,
+    make_sharded_train_step,
     make_sp_train_step,
     ring_attention,
     sp_distogram_loss_fn,
@@ -610,6 +638,7 @@ from alphafold2_tpu_torch.models import reversible  # noqa: E402
 from alphafold2_tpu_torch.models.trunk import side_stream  # noqa: E402
 from alphafold2_tpu_torch.training.data import (  # noqa: E402
     DataConfig,
+    per_process_microbatch_fn,
     synthetic_microbatch_fn,
     synthetic_structure_batches,
 )
@@ -2400,45 +2429,98 @@ def phase_train_parity(label, cfg, L, expect):
     noise can step +lr on one side and -lr on the other. The count of such
     entries, and of entries past 1e-6, is recorded beside it. `expect`: each
     named kernel's launches over the 3 steps (every other kernel 0)."""
-    tcfg = TrainConfig(grad_accum=2)
-    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=L, seed=5), 2)
+    tcfg, fetch = parity_data(L)
     states = {dev: train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), dev)
               for dev in ("cuda", "cpu")}
     steps = {dev: make_train_step(cfg, tcfg, device=dev) for dev in states}
     card_vs_cpu_steps(f"train {label}", f"train_parity_{label}",
                       f"L={L} f32 depth {cfg.depth}", repr(cfg), states, steps, fetch, tcfg,
-                      expect)
+                      expect, cpu_arm=CPU_ARMS.get(f"train_parity_{label}"))
+
+
+def parity_data(L, rows=0):
+    """6a's and 13a's schedule (accum 2) and batches (seed 5, one row)."""
+    return TrainConfig(grad_accum=2), synthetic_microbatch_fn(
+        DataConfig(batch_size=1, max_len=L, msa_rows=rows, seed=5), 2)
+
+
+# --- the CPU arms of the parity phases, computed while the card waits on nvcc --------
+
+CPU_ARMS = {}  # name -> a CPU arm (`run_cpu_arm`) or its Future, shared by the phases
+
+
+def steps_arm(state, step, fetch):
+    """3 steps of `step` on `state` over fetch(0..2), as `card_vs_cpu_steps`
+    holds them: each step's metrics, the first step's gradients and the
+    final leaves."""
+    arm = {"metrics": [], "grads": None, "leaves": None}
+    for n in range(3):
+        arm["metrics"].append({k: float(v) for k, v in step(state, fetch(n))[1].items()})
+        if n == 0:
+            arm["grads"] = [leaf.grad.clone() for leaf in state["optimizer"].leaves]
+    arm["leaves"] = [leaf.detach().clone() for leaf in state["optimizer"].leaves]
+    return arm
+
+
+def run_cpu_arm(cfg, tcfg, fetch, make_step=None):
+    """`steps_arm` on the CPU from train_state_init(cfg, tcfg, seed 0).
+    `make_step(cfg, tcfg)`: the step (default `make_train_step` on the
+    CPU)."""
+    state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cpu")
+    step = (make_step or (lambda c, t: make_train_step(c, t, device="cpu")))(cfg, tcfg)
+    return steps_arm(state, step, fetch)
+
+
+def start_cpu_arms(pool):
+    """6a's, 13a's (23a takes it too) and 24a's CPU arms on `pool`, a
+    thread of their own, from the build on: the host otherwise waits on
+    nvcc and the card on the host."""
+    for label, (cfg, L, _) in train_parity_cases().items():
+        CPU_ARMS[f"train_parity_{label}"] = pool.submit(run_cpu_arm, cfg, *parity_data(L))
+    CPU_ARMS["rev_parity"] = pool.submit(run_cpu_arm, reversible_parity_config(),
+                                         *parity_data(64, rows=16))
+    CPU_ARMS["dp_parity"] = pool.submit(run_cpu_arm, *dp_parity_case(),
+                                        make_step=dp_cpu_step)
 
 
 def card_vs_cpu_steps(tag, key, what, config, states, steps, fetch, tcfg, expect, *,
-                      loss_tol=1e-5, norm_tol=1e-5, grad_tol=1e-4, params_tol=1e-5):
+                      loss_tol=1e-5, norm_tol=1e-5, grad_tol=1e-4, params_tol=1e-5,
+                      cpu_arm=None):
     """3 steps of `steps["cuda"]` and `steps["cpu"]` on their `states` (the
     same params) over the same batches, held at phase 6a's tolerances (the
-    keyword arguments; `phase_train_parity`'s docstring); RECORD[phases][key]."""
+    keyword arguments; `phase_train_parity`'s docstring); RECORD[phases][key].
+    `cpu_arm`: a dict that an earlier call filled with its CPU arm (or a
+    Future of one, `run_cpu_arm`), which this call then takes instead of
+    running the CPU steps (the same function of the same params and
+    batches); an empty dict is filled."""
+    if isinstance(cpu_arm, concurrent.futures.Future):
+        cpu_arm = cpu_arm.result()
+    shared = bool(cpu_arm)
+    if not shared:
+        arm = steps_arm(states["cpu"], steps["cpu"], fetch)
+        if cpu_arm is not None:
+            cpu_arm.update(arm)
+        cpu_arm = arm
     reset_launches()
     per_step, grad_ratio, small_grad = [], 0.0, []
     for n in range(3):
-        batch = fetch(n)
-        m = {dev: {k: float(v) for k, v in steps[dev](states[dev], batch)[1].items()}
-             for dev in states}
-        per_step.append({"loss": m["cuda"]["loss"], "loss_cpu": m["cpu"]["loss"],
-                         "grad_norm": m["cuda"]["grad_norm"],
-                         "grad_norm_cpu": m["cpu"]["grad_norm"]})
+        m = {k: float(v) for k, v in steps["cuda"](states["cuda"], fetch(n))[1].items()}
+        cpu = cpu_arm["metrics"][n]
+        per_step.append({"loss": m["loss"], "loss_cpu": cpu["loss"],
+                         "grad_norm": m["grad_norm"], "grad_norm_cpu": cpu["grad_norm"]})
         if n == 0:  # no clipping: the leaves' .grad is the mean gradient
-            for gl, cl in zip(states["cuda"]["optimizer"].leaves,
-                              states["cpu"]["optimizer"].leaves):
-                d = (gl.grad.cpu() - cl.grad).abs().max().item()
-                scale_ = cl.grad.abs().max().item()
+            for gl, cg in zip(states["cuda"]["optimizer"].leaves, cpu_arm["grads"]):
+                d = (gl.grad.cpu() - cg).abs().max().item()
+                scale_ = cg.abs().max().item()
                 # a leaf the path does not read (gradient 0 on both) is held tight
-                small_grad.append(cl.grad.abs() <= 1e-3 * scale_ if scale_
-                                  else torch.zeros_like(cl.grad, dtype=torch.bool))
+                small_grad.append(cg.abs() <= 1e-3 * scale_ if scale_
+                                  else torch.zeros_like(cg, dtype=torch.bool))
                 grad_ratio = max(grad_ratio, d / (grad_tol * scale_) if scale_ else
                                  (0.0 if d == 0 else float("inf")))
     sync()
     launches = launch_counts()
     d_params, d_noisy, past, n_noisy = 0.0, 0.0, 0, 0
-    for gp, cp, noisy in zip(states["cuda"]["optimizer"].leaves,
-                             states["cpu"]["optimizer"].leaves, small_grad):
+    for gp, cp, noisy in zip(states["cuda"]["optimizer"].leaves, cpu_arm["leaves"], small_grad):
         d = (gp.detach().cpu() - cp.detach()).abs()
         d_params = max(d_params, d[~noisy].max().item() if (~noisy).any() else 0.0)
         d_noisy = max(d_noisy, d[noisy].max().item() if noisy.any() else 0.0)
@@ -2457,6 +2539,7 @@ def card_vs_cpu_steps(tag, key, what, config, states, steps, fetch, tcfg, expect
         f"losses {[round(r['loss'], 5) for r in per_step]}; launches "
         f"{dict((k, v) for k, v in launches.items() if v)} {'ok' if ok else 'FAIL'}")
     RECORD["phases"][key] = {"what": what, "config": config, "steps": per_step,
+                             "cpu_arm": "shared" if shared else "run",
                              "grad_ratio": grad_ratio, "params_max_abs": d_params,
                              "params_past_1e-6": past, "small_grad_entries": n_noisy,
                              "small_grad_params_max_abs": d_noisy, "launches": launches,
@@ -2548,21 +2631,27 @@ def sparse_skipped_flops(cfg, L, grad_accum):
     return grad_accum * 3.0 * n_sparse * 2 * 4.0 * L * L * L * cfg.heads * cfg.dim_head * inactive
 
 
-def phase_train():
-    # depth 1 keeps the script's length near its budget (the CPU side of
-    # the parity runs dominates); 6g holds depth 2 captured against eager
+def train_parity_cases():
+    """6a's cases: {label: (cfg, L, expected launches)}. Depth 1 keeps the
+    script's length near its budget (the CPU side of the parity runs
+    dominates); 6g holds depth 2 captured against eager."""
     f32 = Alphafold2Config(dim=256, depth=1, heads=8, dim_head=64, max_seq_len=2048)
     three = 2 * f32.depth * 2 * 3  # two pair axial passes a layer, accum 2, 3 steps
-    phase_train_parity("a", f32, 64, {name: three for name in
-                                      ("flash_fwd", "flash_fwd_f32", "flash_bwd_dq",
-                                       "flash_bwd_dq_f32", "flash_bwd_dkv",
-                                       "flash_bwd_dkv_f32")})
-    # max_seq_len 128: 75% of the 8 blocks active; every layer sparse
-    phase_train_parity("a sparse", dataclasses.replace(f32, max_seq_len=128,
-                                                       sparse_self_attn=True), 128,
-                       {name: three for name in ("sparse_fwd", "sparse_fwd_f32", "sparse_bwd_dq",
-                                                 "sparse_bwd_dkv", "sparse_bwd_dq_f32",
-                                                 "sparse_bwd_dkv_f32")})
+    return {
+        "a": (f32, 64, {name: three for name in ("flash_fwd", "flash_fwd_f32", "flash_bwd_dq",
+                                                 "flash_bwd_dq_f32", "flash_bwd_dkv",
+                                                 "flash_bwd_dkv_f32")}),
+        # max_seq_len 128: 75% of the 8 blocks active; every layer sparse
+        "a sparse": (dataclasses.replace(f32, max_seq_len=128, sparse_self_attn=True), 128,
+                     {name: three for name in ("sparse_fwd", "sparse_fwd_f32", "sparse_bwd_dq",
+                                               "sparse_bwd_dkv", "sparse_bwd_dq_f32",
+                                               "sparse_bwd_dkv_f32")}),
+    }
+
+
+def phase_train():
+    for label, (cfg, L, expect) in train_parity_cases().items():
+        phase_train_parity(label, cfg, L, expect)
     tcfg = TrainConfig(grad_accum=16)
     cfg = train_pre_config()
     per = 2 * cfg.depth * tcfg.grad_accum  # two pair-axial attentions a layer
@@ -4755,9 +4844,16 @@ def rev_parity_steps(tag, key, cfg, what):
     attentions that reach a kernel (2 pair axial, the MSA column pass, 2
     crosses; the tied MSA row pass is the dense einsum) in the forward and
     again in the backward's recompute, whose vjp launches each one's dq and
-    dkv; a sparse layer's pair axial passes are B5's. Returns the states."""
-    tcfg = TrainConfig(grad_accum=2)
-    fetch = synthetic_microbatch_fn(DataConfig(batch_size=1, max_len=64, msa_rows=16, seed=5), 2)
+    dkv; a sparse layer's pair axial passes are B5's. The CPU arm is run
+    once, during the build or by the first caller, and taken by the other
+    (`CPU_ARMS["rev_parity"]`): 13a's config and 23a's differ only in the
+    schedule, which changes nothing on the CPU (the side stream is the
+    card's). Returns the states (the CPU's is unstepped where its arm was
+    taken)."""
+    tcfg, fetch = parity_data(64, rows=16)
+    if dataclasses.replace(cfg, trunk_schedule="serial") != reversible_parity_config():
+        raise ValueError(f"rev_parity_steps shares 13a's CPU arm; {cfg} is not 13a's config")
+    arm = CPU_ARMS.setdefault("rev_parity", {})
     states = {dev: train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), dev)
               for dev in ("cuda", "cpu")}
     steps = {dev: make_train_step(cfg, tcfg, device=dev) for dev in states}
@@ -4769,7 +4865,8 @@ def rev_parity_steps(tag, key, cfg, what):
                     ("sparse_fwd", 2 * sparse_n), ("sparse_bwd_dq", sparse_n),
                     ("sparse_bwd_dkv", sparse_n)):
         expect[name] = expect[f"{name}_f32"] = n
-    card_vs_cpu_steps(tag, key, what, repr(cfg), states, steps, fetch, tcfg, expect)
+    card_vs_cpu_steps(tag, key, what, repr(cfg), states, steps, fetch, tcfg, expect,
+                      cpu_arm=arm)
     return states
 
 
@@ -4869,38 +4966,6 @@ def captured_ms(step, state, batch, reps=5, make_rng=lambda: None):
     return sorted(times)[reps // 2], times
 
 
-def phase_rev_capture(L=128):
-    """(c) the reversible distogram step captured: train_pre's bf16
-    defaults with reversible=True (depth 1) at crop L, accum 16, on a batch
-    with a 20-row MSA: 3 replays bit for bit 3 eager steps
-    (`capture_vs_eager`, every flash launch on the wgmma route). Then its
-    captured ms (median of 5 replays) beside the sequential config's on
-    the same batch, and 6h's sequential crop-128 step (no MSA) from this
-    run."""
-    cfg = train_pre_config(reversible=True)
-    captured, state, batch = capture_vs_eager("bf16 reversible", cfg, L, 16, wgmma=True,
-                                              msa_rows=20)
-    rev_ms, rev_times = captured_ms(captured, state, batch)
-    capture = next(iter(captured.captures.values()))
-    del captured, state
-    seq_cfg = train_pre_config()
-    seq_state = train_state_init(seq_cfg, TrainConfig(grad_accum=16),
-                                 torch.Generator().manual_seed(0), "cuda")
-    seq_step = CapturedTrainStep(seq_cfg, TrainConfig(grad_accum=16), seq_state, batch)
-    seq_ms, seq_times = captured_ms(seq_step, seq_state, batch)
-    del seq_step, seq_state
-    h = next((r["captured"]["step_ms"] for r in RECORD["phases"].get("train_timing", [])
-              if r["label"] == "crop 128"), None)
-    RECORD["phases"]["rev_capture"] = {
-        "L": L, "config": repr(cfg), "rev_step_ms": rev_times, "rev_median_ms": rev_ms,
-        "seq_same_batch_ms": seq_times, "seq_median_ms": seq_ms, "train_h_captured_ms": h,
-        "captured_launches": capture.launches, "capture_s": capture.seconds}
-    log(f"[rev c] crop {L}, accum 16, 20 MSA rows, captured: reversible depth 1 "
-        f"{rev_ms:.2f} ms, sequential {seq_ms:.2f} ms on the same batch (median of 5); "
-        f"6h's sequential crop-128 step without an MSA {h if h is None else round(h, 2)} ms; "
-        f"capture {capture.seconds:.2f} s, launches a step {capture.launches}")
-
-
 def e2e_peak_step(ecfg, crop, rows, accum=2):
     """One e2e step (`accum` microbatches) of a fresh seeded state, its
     AdamW moments made first: the peak memory allocated over the step
@@ -4917,70 +4982,6 @@ def e2e_peak_step(ecfg, crop, rows, accum=2):
     del state, step
     torch.cuda.empty_cache()
     return peak, loss
-
-
-def phase_rev_e2e(reps=1):
-    """(d) the north-star e2e step, reversible (`north_star_e2e_config(2)`:
-    crop 384, grid 1152, 128 MSA rows, bf16), accum 2, eager: one untimed
-    step, then, counts set to 0 and the peak reset just before, `reps`
-    timed steps (CUDA events; the median), read just after: launches (5
-    B1f a layer in the forward and 5 more in the recompute, 5 dq and 5 dkv
-    in the backward, a microbatch; every one on its wgmma route), peak
-    memory (its AdamW moments made in the untimed step), MFU
-    (`train_step_flops`, mult 4). One more step under torch.profiler
-    (device ms by kind, busy share). Then one step of one microbatch of
-    `north_star_e2e_config(4)` and of depth 2 again from fresh states
-    (`e2e_peak_step`; a step's peak is one microbatch's): peak(4) -
-    peak(2) < 1 GiB, and the depth-2 peak below 12b's remat peak. Returns
-    the counted run's launches."""
-    ecfg, crop, rows = presets.north_star_e2e_config(2)
-    run = time_e2e_step(ecfg, crop, rows, 2, reps)
-    state, step, fetch = run["state"], run["step"], run["fetch"]
-    times, metrics, launches, peak = run["times"], run["metrics"], run["launches"], run["peak_gib"]
-    step_ms, flops, mfu = run["step_ms"], run["flops"], run["mfu"]
-    prof = profile_step(lambda: step(state, fetch(reps + 1)))
-    del run, state, step
-    torch.cuda.empty_cache()
-    peak2, loss2 = e2e_peak_step(ecfg, crop, rows, accum=1)
-    peak4, loss4 = e2e_peak_step(presets.north_star_e2e_config(4)[0], crop, rows, accum=1)
-    per = {k: v / reps for k, v in launches.items() if v}
-    flash = REV_FLASH * ecfg.model.depth * 2
-    want = {"flash_fwd": 2 * flash, "flash_bwd_dq": flash, "flash_bwd_dkv": flash}
-    counts_ok = all(per.get(k, 0) == n for k, n in want.items()) and on_wgmma(launches)
-    remat_peak = RECORD["phases"].get("e2e_step", {}).get("peak_gib")
-    busy = prof["busy_ms"] / prof["host_ms"]
-    finite = all(math.isfinite(v) for r in metrics for v in r.values()) and all(
-        math.isfinite(x) for x in (loss2, loss4))
-    memory_ok = peak4 - peak2 < 1.0 and remat_peak is not None and peak < remat_peak
-    row = {"crop": crop, "grid": 3 * crop, "rows": rows, "config": repr(ecfg),
-           "step_ms": times, "median_step_ms": step_ms, "train_step_flops": flops, "mfu": mfu,
-           "peak_gib": peak, "fresh_peak_depth2_gib": peak2, "fresh_peak_depth4_gib": peak4,
-           "remat_peak_gib_12b": remat_peak, "metrics": metrics, "launches": launches,
-           "launches_per_step": per, "profile": prof, "busy_share": busy,
-           "ok": finite and counts_ok and memory_ok}
-    RECORD["phases"]["rev_e2e"] = row
-    log(f"[rev d] the north-star e2e step, reversible (dim 256, depth 2, aligned crosses, "
-        f"compress 4, tied rows, bf16), crop {crop} (grid {3 * crop}), {rows} MSA rows, accum "
-        f"2, eager: step {step_ms:.1f} ms median of {reps} ({', '.join(f'{t:.1f}' for t in times)}"
-        f"), MFU {mfu:.4f} of 989 TFLOP/s ({flops / 1e12:.2f} TFLOP a step), peak {peak:.2f} "
-        f"GiB (12b's remat {remat_peak if remat_peak is None else round(remat_peak, 2)}), busy "
-        f"{busy:.3f} ({prof['busy_ms']:.1f} of {prof['host_ms']:.1f} ms), losses "
-        f"{[round(r['loss'], 4) for r in metrics]}; launches a step {per}")
-    log("[rev d] device ms by kind: " + ", ".join(
-        f"{k} {v['device_ms']:.1f} ({v['launches']})"
-        for k, v in sorted(prof["kinds"].items(), key=lambda kv: -kv[1]["device_ms"])))
-    log(f"[rev d] one step from a fresh state: peak depth 2 {peak2:.3f} GiB, depth 4 "
-        f"{peak4:.3f} GiB (+{peak4 - peak2:.3f}, bound 1 GiB) {'ok' if row['ok'] else 'FAIL'}")
-    if not finite:
-        fail("the reversible north-star e2e step gave a non-finite value (phase 13d)")
-    if not counts_ok:
-        fail(f"the reversible e2e step's launches a step {per} != {want}, or off the wgmma "
-             f"routes (phase 13d)")
-    if not memory_ok:
-        fail(f"the reversible e2e step's peak memory grew {peak4 - peak2:.3f} GiB from depth 2 "
-             f"to 4, or its peak {peak:.2f} GiB is not below the remat step's {remat_peak} "
-             f"(phase 13d)")
-    return launches
 
 
 def phase_rev_cli():
@@ -5013,7 +5014,8 @@ def phase_rev_cli():
 
 
 def phase_reversible():
-    """13: the reversible trunk. Returns (d)'s launches."""
+    """13: the reversible trunk. (c) and (d) are 23b's and 23c's serial
+    arms."""
     def timed(key, fn, *args):
         t = time.perf_counter()
         result = fn(*args)
@@ -5023,10 +5025,7 @@ def phase_reversible():
 
     timed("a", phase_rev_parity)
     timed("b", phase_rev_drift)
-    timed("c", phase_rev_capture)
-    launches = timed("d", phase_rev_e2e)
     timed("e", phase_rev_cli)
-    return launches
 
 
 # --- phase 14: the relaxation, the segmented step, bucketed pretraining -------------
@@ -5514,17 +5513,16 @@ def phase_dropout_schedules(L=128, accum=2, rows=20):
     """(b) attn_dropout = ff_dropout = 0.1 with a 20-row MSA, each captured
     against eager over 3 steps with three step rngs, bit for bit, and one
     batch under two rngs giving two losses: remat with remat_policy "dots"
-    and branch_parallel (train_pre's widths, bf16, crop L, accum 2), and
-    the reversible step (13c's config: the same widths, reversible=True,
-    accum 16). Live attention dropout keeps the dense einsum, as in JAX:
-    these steps launch no flash kernel."""
+    and branch_parallel (train_pre's widths, bf16, crop L, accum 2); the
+    reversible step's is 23b's (accum 2, both schedules). Live attention
+    dropout keeps the dense einsum, as in JAX: these steps launch no flash
+    kernel."""
     both = dict(attn_dropout=DROPOUT, ff_dropout=DROPOUT)
     results = []
     for label, cfg, acc in (
             ("remat dots", train_pre_config(remat=True, remat_policy="dots", **both), accum),
             ("branch_parallel", train_pre_config(trunk_schedule="branch_parallel", **both),
-             accum),
-            ("reversible", train_pre_config(reversible=True, **both), 16)):
+             accum)):
         captured, state, batch = capture_vs_eager(f"dropout {label}", cfg, L, acc, wgmma=False,
                                                   msa_rows=rows, rngs=[41, 42, 43])
         losses = two_rngs_differ(captured, state, batch)
@@ -8165,12 +8163,13 @@ def kernel_union_us(events):
 
 
 def pipe_profiled(engines, state, init):
-    """(d)'s busy shares: one more pass of each depth, each pass alone in a
-    torch.profiler of the card's activity; from its Chrome trace,
-    the union of the kernels' intervals over the pass's wall (None when the
-    trace shows no kernel)."""
+    """(d)'s busy shares: one more pass of the shallowest and the deepest
+    depth (0 and 2; depth 1's went to keep the script's length), each pass
+    alone in a torch.profiler of the card's activity; from its Chrome
+    trace, the union of the kernels' intervals over the pass's wall (None
+    when the trace shows no kernel)."""
     out = []
-    for d in PIPE_DEPTHS:
+    for d in (PIPE_DEPTHS[0], PIPE_DEPTHS[-1]):
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
         t = pipe_pass(engines[d], engines[0], state["stream"], state["refs"][init], window=prof)
         path = ROOT / "build" / "phase21_trace.json"
@@ -8304,7 +8303,7 @@ def phase_pipeline_depths(state, smi):
     no cache); the stream through them in turns 0, 1, 2, 2, 1, 0, every
     result bit for bit the depth-0 engine's executable on its batch,
     `serve_pipeline_inflight` never past the depth; (b) at depth 2; (d)
-    for the classical init, one more pass of each depth under
+    for the classical init, one more pass at depths 0 and 2 under
     torch.profiler."""
     out = {}
     for init in PIPE_INITS:
@@ -8679,7 +8678,9 @@ def phase_sp_train_captured(smi, L=256, rows=20, accum=16):
         step's own distance from the dense f32 step, plus 1e-5, all three
         from the same params and batch (`yardstick`);
       - reported: the captured SP and dense steps on one batch (median of
-        5 replays, CUDA events) and their peak memory (`captured_arm`)."""
+        5 replays, CUDA events: the SP step's those of the capture above,
+        the dense step's a fresh `captured_arm`) and their peak memory (the
+        SP step's over its replays)."""
     cfg = sp_train_config()
     mesh = make_mesh({"seq": SP_TRAIN_P}, devices=["cuda:0"] * SP_TRAIN_P)
     captured, state, last = capture_vs_eager("sp bf16", cfg, L, accum, wgmma=False,
@@ -8688,6 +8689,15 @@ def phase_sp_train_captured(smi, L=256, rows=20, accum=16):
     expect = sp_step_launches(SP_TRAIN_P, cfg.depth, accum, "wgmma")
     counts_ok = exact(capture.launches, expect)
     sp_first = RECORD["phases"]["train_capture_sp bf16"]["steps"][0]
+    # the SP arm's time and peak from this capture's replays (one capture
+    # fewer than a fresh `captured_arm`); the peak over the replays, the
+    # eager arm's state still held
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ms, times = captured_ms(captured, state, last)
+    sp_arm = {"step_ms": ms, "times": times, "capture_s": capture.seconds,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "peak": "over the replays of capture_vs_eager's capture"}
     launches = _merged(launch_counts(), captured.replayed_launches())
     del captured, state
     # the bound: the same first batch and schedule as capture_vs_eager's
@@ -8698,10 +8708,8 @@ def phase_sp_train_captured(smi, L=256, rows=20, accum=16):
     dense = first_step_metrics(cfg, tcfg, first)
     f32 = first_step_metrics(dataclasses.replace(cfg, dtype=torch.float32), tcfg, first)
     bound, bound_ok = yardstick(sp_first, dense, f32)
-    arms = {"sp": captured_arm(cfg, tcfg, last, sp_distogram_loss_fn(mesh)),
-            "dense": captured_arm(cfg, tcfg, last, distogram_loss_fn)}
-    for arm in arms.values():
-        launches = _merged(launches, arm.pop("launches"))
+    arms = {"sp": sp_arm, "dense": captured_arm(cfg, tcfg, last, distogram_loss_fn)}
+    launches = _merged(launches, arms["dense"].pop("launches"))
     ok = counts_ok and bound_ok
     log(f"[sp_train b] the capture's launches {'==' if counts_ok else '!='} one step's "
         f"{expect} ({capture.launches}); first step: "
@@ -9046,9 +9054,13 @@ def phase_rbp_capture(L=128, accum=16, rows=20, reps=5):
     param leaf, AdamW moment and count at the end); again with attention and
     FF dropout 0.1 under step rngs 41-43 (15b's; live attention dropout
     keeps the dense einsum) at accum 2, as 15b's remat and branch_parallel
-    arms. Then the captured step's ms for both (host
-    clock, median of `reps`, in turns) and one more replay of each under
-    the profiler: busy share, the ms kernels of two streams run at once.
+    arms, each schedule's capture then replaying one batch under two rngs
+    into two losses (15b's check of the reversible step). The serial arm
+    is 13c's check. Then the captured step's ms for both and for the
+    sequential (not reversible) config captured on the same batch (13c's
+    comparison) (host clock, median of `reps`, in turns) and one more
+    replay of each under the profiler: busy share, the ms kernels of two
+    streams run at once.
     The eager trunk at this shape under branch_parallel
     (`trunk_stream_split`): the kernels each stream ran in the forward and
     in the inversion. Fails if the side stream launched no kernel of the
@@ -9084,16 +9096,32 @@ def phase_rbp_capture(L=128, accum=16, rows=20, reps=5):
             f"serial over 3 steps: loss and grad_norm bit-equal {metrics_equal}, {unequal} of "
             f"{len(pairs)} params, moments and counts differ")
         if extra:
-            for name in SCHEDULES:
+            for name in SCHEDULES:  # 15b's check of the reversible step: masks drawn anew
+                rec[f"two_rng_losses_{name}"] = two_rngs_differ(*arms[name])
                 add(arms[name][0].replayed_launches())
         else:
             kept = arms
         del arms
-    timing = timed_turns({name: (lambda c=kept[name][0], st=kept[name][1], b=kept[name][2]:
-                                 c(st, b)) for name in SCHEDULES}, reps)
+    # 13c's comparison: the sequential (not reversible) config captured on the same batch
+    seq_cfg, seq_tcfg = train_pre_config(), TrainConfig(grad_accum=accum)
+    seq_state = train_state_init(seq_cfg, seq_tcfg, torch.Generator().manual_seed(0), "cuda")
+    batch = kept["serial"][2]
+    seq_step = CapturedTrainStep(seq_cfg, seq_tcfg, seq_state, batch)
+    arms_ = {name: (lambda c=kept[name][0], st=kept[name][1], b=kept[name][2]: c(st, b))
+             for name in SCHEDULES}
+    arms_["sequential"] = lambda: seq_step(seq_state, batch)
+    timing = timed_turns(arms_, reps)
     for name in SCHEDULES:  # every replay: capture_vs_eager's and the timing's
         add(kept[name][0].replayed_launches())
-    del kept
+    add(seq_step.replayed_launches())
+    seq_capture = next(iter(seq_step.captures.values()))
+    h = next((r["captured"]["step_ms"] for r in RECORD["phases"].get("train_timing", [])
+              if r["label"] == "crop 128"), None)
+    RECORD["phases"]["rev_capture"] = {
+        "L": L, "rev_median_ms": timing["serial"]["median_ms"],
+        "seq_median_ms": timing["sequential"]["median_ms"], "train_h_captured_ms": h,
+        "seq_capture_s": seq_capture.seconds, "seq_captured_launches": seq_capture.launches}
+    del kept, seq_step, seq_state
     torch.cuda.empty_cache()
     reset_launches()
     split = trunk_stream_split(train_pre_config(reversible=True,
@@ -9101,14 +9129,18 @@ def phase_rbp_capture(L=128, accum=16, rows=20, reps=5):
     sync()
     add(launch_counts())
     bp = timing["branch_parallel"]
-    ok = (rec["serial_equal"] and rec["dropout serial_equal"]
+    masks_drawn = all(rec[f"two_rng_losses_{name}"][0] != rec[f"two_rng_losses_{name}"][1]
+                      for name in SCHEDULES)
+    ok = (masks_drawn and rec["serial_equal"] and rec["dropout serial_equal"]
           and split["inversion"]["side_launches"] > 0 and split["forward"]["side_launches"] > 0
           and bp["cross_stream_ms"] > 0)
     rec.update({"L": L, "grad_accum": accum, "rows": rows, "timing": timing, "split": split,
                 "ok": ok})
     RECORD["phases"]["rbp_capture"] = rec
     log(f"[rbp b] captured step, crop {L}, accum {accum}, {rows} MSA rows: "
-        + schedule_line("step", timing))
+        + schedule_line("step", timing) + f"; 6h's sequential crop-128 step without an MSA "
+        f"{h if h is None else round(h, 2)} ms; with dropout, one batch under two rngs: "
+        + ", ".join(f"{name} {rec[f'two_rng_losses_{name}']}" for name in SCHEDULES))
     log("[rbp b] the eager trunk under branch_parallel, the wrappers' launches main / side "
         "stream, the profiler's kernels a stream and two streams at once: " + "; ".join(
             f"{k} {v['main_launches']} / {v['side_launches']}, {v['per_stream']}, "
@@ -9117,7 +9149,8 @@ def phase_rbp_capture(L=128, accum=16, rows=20, reps=5):
         + f" {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("the captured reversible branch_parallel step differs from serial, or its side "
-             "stream ran nothing in the inversion, or its streams never overlapped (phase 23b)")
+             "stream ran nothing in the inversion, or its streams never overlapped, or a "
+             "captured dropout step replays frozen masks (phase 23b)")
     return launches
 
 
@@ -9138,8 +9171,11 @@ def phase_rbp_e2e(reps=3):
     two busiest) run kernels at once. Then
     one step of one microbatch of branch_parallel at depth 2 and at depth
     4 from fresh states (`e2e_peak_step`): peak(4) - peak(2) < 1 GiB (a
-    step's peak is one microbatch's: the microbatches run in turn). Returns
-    branch_parallel's launches in the timed steps."""
+    step's peak is one microbatch's: the microbatches run in turn). The
+    serial arm is also 13d's: its launches a step the same counts on
+    wgmma, its peak below 12b's remat peak, its MFU (`train_step_flops`,
+    mult 4) reported. Returns both schedules' launches in the timed
+    steps."""
     ecfgs = {name: presets.north_star_e2e_config(2, model_overrides={"trunk_schedule": name})
              for name in SCHEDULES}
     _, crop, rows = ecfgs["serial"]
@@ -9154,7 +9190,7 @@ def phase_rbp_e2e(reps=3):
     metrics = {name: [] for name in SCHEDULES}
     times = {name: [] for name in SCHEDULES}
     peaks = {name: 0.0 for name in SCHEDULES}
-    launches = {}
+    counted = {name: {} for name in SCHEDULES}
     with cudnn_deterministic():  # the compress conv (4) in both arms
         for n in range(reps):
             batch = fetch(n)
@@ -9171,9 +9207,8 @@ def phase_rbp_e2e(reps=3):
                 metrics[name].append(m)
                 times[name].append(start.elapsed_time(end))
                 peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 2 ** 30)
-                if name == "branch_parallel":
-                    for k, c in launch_counts().items():
-                        launches[k] = launches.get(k, 0) + c
+                for k, c in launch_counts().items():
+                    counted[name][k] = counted[name].get(k, 0) + c
     metrics_equal = all(torch.equal(a[k], b[k]) for a, b in zip(*metrics.values())
                         for k in ("loss", "grad_norm"))
     pairs = list(zip(*(states[name]["optimizer"].state_tensors() for name in SCHEDULES)))
@@ -9188,19 +9223,27 @@ def phase_rbp_e2e(reps=3):
     peak2, loss2 = e2e_peak_step(ecfg, crop, rows, accum=1)
     peak4, loss4 = e2e_peak_step(presets.north_star_e2e_config(
         4, model_overrides={"trunk_schedule": "branch_parallel"})[0], crop, rows, accum=1)
-    per = {k: v / reps for k, v in launches.items() if v}
+    launches = _merged(*counted.values())
+    per = {k: v / reps for k, v in counted[bp].items() if v}
     flash = REV_FLASH * ecfg.model.depth * 2
     want = {"flash_fwd": 2 * flash, "flash_bwd_dq": flash, "flash_bwd_dkv": flash}
-    counts_ok = all(per.get(k, 0) == v for k, v in want.items()) and on_wgmma(launches)
+    counts_ok = all(all(c.get(k, 0) == v * reps for k, v in want.items()) and on_wgmma(c)
+                    for c in counted.values())
     finite = all(math.isfinite(x) for x in losses + [loss2, loss4])
-    serial_13d = RECORD["phases"].get("rev_e2e", {}).get("fresh_peak_depth2_gib")
-    ok = (finite and metrics_equal and unequal == 0 and counts_ok and peak4 - peak2 < 1.0)
+    remat_peak = RECORD["phases"].get("e2e_step", {}).get("peak_gib")
+    below_remat = remat_peak is not None and peaks["serial"] < remat_peak
+    flops = train_step_flops(ecfg.model, 3 * crop, rows, crop, grad_accum=2)
+    mfu = {name: flops / (medians[name] / 1e3) / PEAK_FLOPS[torch.bfloat16]
+           for name in SCHEDULES}
+    ok = (finite and metrics_equal and unequal == 0 and counts_ok and peak4 - peak2 < 1.0
+          and below_remat)
     RECORD["phases"]["rbp_e2e"] = {
         "crop": crop, "grid": 3 * crop, "rows": rows, "config": repr(ecfg), "step_ms": times,
         "median_step_ms": medians, "peak_gib": peaks, "fresh_peak_depth2_gib": peak2,
-        "fresh_peak_depth4_gib": peak4, "serial_fresh_peak_depth2_gib_13d": serial_13d,
-        "losses": losses, "metrics_equal": metrics_equal, "params_unequal": unequal,
-        "launches": launches, "launches_per_step": per, "profile": prof, "ok": ok}
+        "fresh_peak_depth4_gib": peak4, "remat_peak_gib_12b": remat_peak,
+        "train_step_flops": flops, "mfu": mfu, "losses": losses,
+        "metrics_equal": metrics_equal, "params_unequal": unequal,
+        "launches": counted, "launches_per_step": per, "profile": prof, "ok": ok}
     log(f"[rbp c] the north-star e2e step, reversible, crop {crop} (grid {3 * crop}), {rows} "
         f"MSA rows, accum 2, eager, {reps} steps: branch_parallel vs serial loss and "
         f"grad_norm bit-equal {metrics_equal}, {unequal} of {len(pairs)} params, moments and "
@@ -9210,15 +9253,18 @@ def phase_rbp_e2e(reps=3):
             f"{peaks[name]:.2f} GiB)" for name in SCHEDULES)
         + f"; branch_parallel busy {prof['busy_share']:.3f}, main and side stream at once "
         f"{prof['pair_ms']:.3f} ms (any two streams {prof['cross_stream_ms']:.3f}), kernels a "
-        f"stream {prof['per_stream']}; launches a step {per}")
+        f"stream {prof['per_stream']}; launches a step {per}; MFU of 989 TFLOP/s "
+        f"({flops / 1e12:.2f} TFLOP a step) " + ", ".join(
+            f"{name} {v:.4f}" for name, v in mfu.items()))
     log(f"[rbp c] branch_parallel, one step from a fresh state: peak depth 2 {peak2:.3f} GiB, "
-        f"depth 4 {peak4:.3f} GiB (+{peak4 - peak2:.3f}, bound 1 GiB); serial depth 2 in 13d "
-        f"{serial_13d if serial_13d is None else round(serial_13d, 3)} GiB "
+        f"depth 4 {peak4:.3f} GiB (+{peak4 - peak2:.3f}, bound 1 GiB); serial peak "
+        f"{peaks['serial']:.2f} GiB below 12b's remat peak "
+        f"{remat_peak if remat_peak is None else round(remat_peak, 2)} {below_remat} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         fail("the reversible north-star e2e step under branch_parallel differs from serial, "
-             "left its launch counts or wgmma, went non-finite, or its peak grew 1 GiB or more "
-             "from depth 2 to 4 (phase 23c)")
+             "left its launch counts or wgmma, went non-finite, its peak grew 1 GiB or more "
+             "from depth 2 to 4, or the serial peak is not below 12b's remat peak (phase 23c)")
     return launches
 
 
@@ -9271,6 +9317,378 @@ def phase_reversible_branch():
     return {k: n for k, n in launches.items() if k.startswith(("flash_", "sparse_"))}
 
 
+# --- phase 24: data-parallel training on the card ------------------------------------
+
+DP_SHARDS = 2  # 24a's "data" mesh and 24c's pod
+DP_WORK = CLI_WORK  # the workers' records, removed with the CLI runs'
+DP_TIMEOUT = 300  # a worker that has not ended by then is killed and fails the phase
+DP_DROPOUT = 0.1  # 24c's ff_dropout
+
+
+def dp_f32_config(**fields):
+    """6a's f32 config (dim 256, depth 1, 8 heads of 64), with `fields`."""
+    return Alphafold2Config(**{**dict(dim=256, depth=1, heads=8, dim_head=64,
+                                      max_seq_len=2048), **fields})
+
+
+def dp_fetch(L, seed=5):
+    """The global batches of phase 24: 2 rows a microbatch, accum 2, rows of
+    unequal valid lengths (seed 5: 56 and 47, 44 and 36, ... at L = 64)."""
+    return synthetic_microbatch_fn(DataConfig(batch_size=DP_SHARDS, max_len=L, seed=seed), 2)
+
+
+def dp_parity_case():
+    """24a's f32 case: (cfg, tcfg, fetch) at L = 64, accum 2."""
+    return dp_f32_config(), TrainConfig(grad_accum=2), dp_fetch(64)
+
+
+def dp_cpu_step(cfg, tcfg):
+    """The data-parallel step over 2 CPU shards (24a's CPU arm)."""
+    mesh = make_mesh({"data": DP_SHARDS}, devices=["cpu"] * DP_SHARDS)
+    return make_sharded_train_step(cfg, tcfg, mesh, dp_parity_case()[2](0))[0]
+
+
+def state_digests(state):
+    """sha256 of every tensor the step updates (params, AdamW's counts and
+    moments), in order."""
+    return [hashlib.sha256(t.detach().reshape(-1).contiguous().cpu().view(torch.uint8).numpy()
+                           .tobytes()).hexdigest()
+            for t in state["optimizer"].state_tensors()]
+
+
+def dp_worker(kind, rank, world, port):
+    """One process of phase 24's pods, its record to DP_WORK/dp_<kind>_<rank>.json.
+    "nccl": world 1 over NCCL, `make_multihost_train_step` 3 steps at
+    train_pre's widths (bf16, crop 128, accum 2) against the single-process
+    eager step on the same batches, bit for bit (24b). "gloo": rank `rank`
+    of `world` on this card over gloo, f32 at L = 64 with ff_dropout, its
+    rows of the global batch, 3 steps timed with CUDA events (and the
+    gradient all-reduce), the digests of its state, rank 0's state saved
+    for the reference (24c)."""
+    import torch.distributed as dist
+    from alphafold2_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"kind": kind, "rank": rank, "world": world}
+    distributed.initialize_from_env(coordinator=f"127.0.0.1:{port}", num_processes=world,
+                                    process_id=rank, backend=kind)
+    try:
+        reset_launches()
+        if kind == "nccl":
+            cfg, tcfg, fetch = train_pre_config(), TrainConfig(grad_accum=2), dp_fetch(128, 9)
+            step, _, assemble, _ = make_multihost_train_step(cfg, tcfg, fetch(0), tp=False)
+            pod = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+            one = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+            single = make_train_step(cfg, tcfg, device="cuda")
+            equal = []
+            for n in range(3):
+                _, a = step(pod, assemble(fetch(n)), torch.Generator().manual_seed(40 + n))
+                _, b = single(one, fetch(n), torch.Generator().manual_seed(40 + n))
+                equal.append(torch.equal(a["loss"], b["loss"])
+                             and torch.equal(a["grad_norm"], b["grad_norm"]))
+                out.setdefault("losses", []).append(float(a["loss"]))
+            pairs = list(zip(pod["optimizer"].state_tensors(), one["optimizer"].state_tensors()))
+            out.update(metrics_equal=equal, tensors=len(pairs),
+                       unequal=sum(not torch.equal(x, y) for x, y in pairs),
+                       backend=dist.get_backend(), world_size=dist.get_world_size())
+        else:
+            cfg, tcfg = dp_f32_config(ff_dropout=DP_DROPOUT), TrainConfig(grad_accum=2)
+            fetch = per_process_microbatch_fn(DataConfig(batch_size=DP_SHARDS, max_len=64,
+                                                         seed=5), 2)
+            step, placed, assemble, mesh = make_multihost_train_step(cfg, tcfg, fetch(0),
+                                                                     tp=False)
+            state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+            host_to_global(state, placed)
+            rows = []
+            for n in range(3):
+                batch = assemble(fetch(n))
+                sync()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                _, m = step(state, batch, torch.Generator().manual_seed(40 + n))
+                end.record()
+                sync()
+                rows.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                             "step_ms": start.elapsed_time(end), "reduce_ms": step.reduce_ms(),
+                             "start": batch.start, "total": batch.total,
+                             "valid": int(batch["mask"].sum())})
+            out.update(steps=rows, digests=state_digests(state), mesh=str(mesh),
+                       backend=dist.get_backend(), world_size=dist.get_world_size())
+            if rank == 0:
+                torch.save([t.detach().cpu() for t in state["optimizer"].state_tensors()],
+                           DP_WORK / "dp_gloo_state.pt")
+        sync()
+        out["launches"] = launch_counts()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (DP_WORK / f"dp_{kind}_{rank}.json").write_text(json.dumps(out))
+
+
+def start_dp_workers(running):
+    """24b's worker and 24c's pair started at once into `running`, with
+    the CLI runs (the flash sources built)."""
+    from alphafold2_tpu_torch.parallel.distributed import cpu_pod_env, free_local_port
+
+    env = cpu_pod_env(repo_path=str(ROOT))
+    jobs = [("nccl", 0, 1, free_local_port())]
+    port = free_local_port()
+    jobs += [("gloo", r, DP_SHARDS, port) for r in range(DP_SHARDS)]
+    for kind, rank, world, p in jobs:
+        name = f"dp_{kind}_{rank}"
+        (DP_WORK / f"{name}.json").unlink(missing_ok=True)
+        out = open(DP_WORK / f"{name}.out", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke as c; c.dp_worker({kind!r}, {rank}, "
+             f"{world}, {p})"], cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+            text=True)
+        running[name] = (proc, out, time.perf_counter())
+
+
+def wait_dp_workers(running):
+    """Each worker's record (its JSON) and seconds; a worker past
+    DP_TIMEOUT is killed, and one without a record fails the phase with
+    its output's end."""
+    records = {}
+    try:
+        for name, (proc, out, t0) in running.items():
+            left = max(1.0, DP_TIMEOUT - (time.perf_counter() - t0))
+            try:
+                proc.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            out.close()
+            path = DP_WORK / f"{name}.json"
+            if proc.returncode != 0 or not path.exists():
+                tail = (DP_WORK / f"{name}.out").read_text()[-2000:]
+                fail(f"phase 24's worker {name} exited {proc.returncode} without its record: "
+                     f"{tail}")
+            records[name] = dict(json.loads(path.read_text()), seconds=time.perf_counter() - t0)
+    finally:
+        for proc, _, _ in running.values():
+            proc.kill()
+        running.clear()
+    return records
+
+
+def phase_dp_sharded():
+    """(a) `make_sharded_train_step` over `make_mesh({"data": 2},
+    devices=["cuda:0"] * 2)`: f32 (6a's config), L = 64, accum 2, a global
+    batch of 2 rows of unequal valid lengths, 3 steps card against the same
+    over 2 CPU shards at phase 6a's tolerances (`card_vs_cpu_steps`, the
+    CPU arm run during the build), every B1f / B1b launch on the f32 route
+    (2 pair axial passes a layer, a shard and a microbatch); then bf16 at
+    train_pre's widths, crop 128, accum 2: the DP step's first loss and
+    grad_norm within 1.5x the dense bf16 step's distance from the dense f32
+    step, plus 1e-5, all three from the same params and batch
+    (`yardstick`), every B1f / B1b launch of the DP step on wgmma. Returns
+    the launches."""
+    mesh = make_mesh({"data": DP_SHARDS}, devices=["cuda:0"] * DP_SHARDS)
+    cfg, tcfg, fetch = dp_parity_case()
+    states = {dev: train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), dev)
+              for dev in ("cuda", "cpu")}
+    steps = {"cuda": make_sharded_train_step(cfg, tcfg, mesh, fetch(0))[0],
+             "cpu": dp_cpu_step(cfg, tcfg)}
+    n = 2 * cfg.depth * DP_SHARDS * tcfg.grad_accum * 3
+    expect = {name: n for name in ("flash_fwd", "flash_fwd_f32", "flash_bwd_dq",
+                                   "flash_bwd_dq_f32", "flash_bwd_dkv", "flash_bwd_dkv_f32")}
+    card_vs_cpu_steps("dp a", "dp_parity", f"DP over {DP_SHARDS} shards, L=64 f32 depth "
+                      f"{cfg.depth}, rows of unequal valid lengths", repr(cfg), states, steps,
+                      fetch, tcfg, expect, cpu_arm=CPU_ARMS.get("dp_parity"))
+    launches = RECORD["phases"]["dp_parity"]["launches"]
+    del states, steps
+    bf16, tcfg = train_pre_config(), TrainConfig(grad_accum=2)
+    first = dp_fetch(128, 9)(0)
+    state = train_state_init(bf16, tcfg, torch.Generator().manual_seed(0), "cuda")
+    step, _ = make_sharded_train_step(bf16, tcfg, mesh, first)
+    reset_launches()
+    _, m = step(state, first)
+    sync()
+    counts = launch_counts()
+    dp = {k: float(v) for k, v in m.items()}
+    del state, step
+    dense = first_step_metrics(bf16, tcfg, first)
+    f32 = first_step_metrics(dataclasses.replace(bf16, dtype=torch.float32), tcfg, first)
+    bound, bound_ok = yardstick(dp, dense, f32)
+    wgmma = on_wgmma(counts)
+    ok = bound_ok and wgmma
+    RECORD["phases"]["dp_bf16"] = {"L": 128, "config": repr(bf16), "bound": bound,
+                                   "launches": counts, "on_wgmma": wgmma, "ok": ok}
+    log(f"[dp a] bf16 DP step over {DP_SHARDS} shards, crop 128, accum 2: "
+        + "; ".join(f"{k} DP {v['sp']:.6f} dense {v['dense']:.6f} f32 {v['f32']:.6f}, |DP - "
+                    f"f32| {v['sp_vs_f32']:.3e} (bound {v['bound']:.3e})"
+                    for k, v in bound.items())
+        + f"; launches {dict((k, v) for k, v in counts.items() if v)}, all on wgmma {wgmma} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the bf16 data-parallel step left the yardstick of the dense steps, or a "
+             "launch left wgmma (phase 24a)")
+    return _merged(launches, counts, phase_dp_sparse_dropout(mesh))
+
+
+def phase_dp_sparse_dropout(mesh, L=128):
+    """(a) continued: f32 (6a's sparse config: max_seq_len 128, every layer
+    sparse) with attention dropout 0.1 at crop L, accum 2: the DP step over
+    `mesh` against the single-process step on the global batch, 3 steps
+    from the same params and rngs, at phase 6a's loss, grad_norm and
+    params tolerances: shard 1's B5 launches draw their Philox bits at its
+    bh offset in the whole batch (`bh_base`), so both steps drop the same
+    attention weights. Every B5 launch of the DP step with its dropout.
+    Returns the launches."""
+    cfg = dp_f32_config(max_seq_len=L, sparse_self_attn=True, attn_dropout=DP_DROPOUT)
+    tcfg, fetch = TrainConfig(grad_accum=2), dp_fetch(L)
+    states = [train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+              for _ in range(2)]
+    single = make_train_step(cfg, tcfg, device="cuda")
+    dp = make_sharded_train_step(cfg, tcfg, mesh, fetch(0))[0]
+    rows, noisy, counts = [], [], {}
+    for n in range(3):
+        _, want = single(states[0], fetch(n), torch.Generator().manual_seed(40 + n))
+        reset_launches()
+        _, got = dp(states[1], fetch(n), torch.Generator().manual_seed(40 + n))
+        sync()
+        counts = _merged(counts, launch_counts())
+        rows.append({k: (float(got[k]), float(want[k])) for k in ("loss", "grad_norm")})
+        if n == 0:
+            noisy = [leaf.grad.abs() <= 1e-3 * leaf.grad.abs().max()
+                     for leaf in states[0]["optimizer"].leaves]
+    d_loss = max(abs(r["loss"][0] - r["loss"][1]) for r in rows)
+    d_norm = max(abs(r["grad_norm"][0] - r["grad_norm"][1]) / r["grad_norm"][1] for r in rows)
+    d_params, d_noisy = 0.0, 0.0
+    for a, b, small in zip(states[1]["optimizer"].leaves, states[0]["optimizer"].leaves, noisy):
+        d = (a.detach() - b.detach()).abs()
+        d_params = max(d_params, d[~small].max().item() if (~small).any() else 0.0)
+        d_noisy = max(d_noisy, d.max().item())
+    del states, single, dp
+    dropped = all(counts.get(f"{k}_dropout", 0) == counts.get(k, 0) > 0 for k in DROP_KERNELS)
+    ok = (d_loss <= 1e-5 and d_norm <= 1e-5 and d_params <= 1e-5
+          and d_noisy <= 2 * tcfg.learning_rate * 3 and dropped)
+    RECORD["phases"]["dp_sparse_dropout"] = {
+        "L": L, "config": repr(cfg), "steps": rows, "loss_max_abs": d_loss,
+        "grad_norm_rel": d_norm, "params_max_abs": d_params, "noisy_max_abs": d_noisy,
+        "launches": counts, "ok": ok}
+    log(f"[dp a] f32 sparse with attention dropout {DP_DROPOUT}, crop {L}, DP over "
+        f"{mesh.size} shards vs the single-process step on the global batch, 3 steps: loss "
+        f"|d|={d_loss:.2e} (1e-5), grad_norm rel={d_norm:.2e} (1e-5), params |d|="
+        f"{d_params:.2e} (1e-5; rounding-level entries {d_noisy:.2e}); the DP step's launches "
+        f"{dict((k, v) for k, v in counts.items() if v)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the DP step with sparse attention dropout departs from the single-process step "
+             "on the global batch, or a B5 launch ran without its dropout (phase 24a)")
+    return counts
+
+
+def phase_dp_nccl(rec):
+    """(b) `make_multihost_train_step` at world size 1 over NCCL
+    (`initialize_from_env(backend="nccl", num_processes=1, ...)`), in a
+    worker of its own: 3 steps at train_pre's widths (bf16, crop 128,
+    accum 2) bit for bit the single-process eager step (loss, grad_norm,
+    every param, moment and count). Returns its launches."""
+    ok = (rec["backend"] == "nccl" and rec["world_size"] == 1 and all(rec["metrics_equal"])
+          and rec["unequal"] == 0 and rec["tensors"] > 0 and on_wgmma(rec["launches"]))
+    RECORD["phases"]["dp_nccl"] = dict(rec, ok=ok)
+    log(f"[dp b] multihost step over NCCL at world size 1, bf16 crop 128, accum 2, 3 steps vs "
+        f"the eager step: loss and grad_norm bit-equal {rec['metrics_equal']}, "
+        f"{rec['unequal']} of {rec['tensors']} params, moments and counts differ; losses "
+        f"{[round(x, 5) for x in rec['losses']]}; all on wgmma {on_wgmma(rec['launches'])}; "
+        f"worker {rec['seconds']:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the multihost step over NCCL differs from the single-process step, or left "
+             "wgmma (phase 24b)")
+    return rec["launches"]
+
+
+def phase_dp_gloo(records, smi):
+    """(c) two workers on this card over gloo (CUDA tensors reduced through
+    the host), f32 at L = 64 (6a's config with ff_dropout 0.1), accum 2, 3
+    steps, each rank its row of a global batch of rows of unequal valid
+    lengths: the ranks' states byte-identical (sha256 of every leaf,
+    moment and count); against the single-process step on the global batch
+    from the same params and rngs on the card: phase 6a's loss, grad_norm
+    and params tolerances (the noisy-gradient rule from the reference's
+    first step). Reported, no limit: each rank's step ms and its gradient
+    all-reduce's ms (CUDA events). Returns the workers' launches."""
+    ranks = [records[f"dp_gloo_{r}"] for r in range(DP_SHARDS)]
+    same = ranks[0]["digests"] == ranks[1]["digests"] and len(ranks[0]["digests"]) > 0
+    rows_ok = all(r["steps"][n]["start"] == i and r["steps"][n]["total"] == DP_SHARDS
+                  for i, r in enumerate(ranks) for n in range(3))
+    unequal_rows = all(ranks[0]["steps"][n]["valid"] != ranks[1]["steps"][n]["valid"]
+                       for n in range(3))
+    cfg, tcfg = dp_f32_config(ff_dropout=DP_DROPOUT), TrainConfig(grad_accum=2)
+    fetch = dp_fetch(64)
+    state = train_state_init(cfg, tcfg, torch.Generator().manual_seed(0), "cuda")
+    step = make_train_step(cfg, tcfg, device="cuda")
+    ref, noisy = [], []
+    for n in range(3):
+        _, m = step(state, fetch(n), torch.Generator().manual_seed(40 + n))
+        ref.append({k: float(v) for k, v in m.items()})
+        if n == 0:
+            noisy = [leaf.grad.abs() <= 1e-3 * leaf.grad.abs().max()
+                     for leaf in state["optimizer"].leaves]
+    pod = torch.load(DP_WORK / "dp_gloo_state.pt")
+    d_loss = max(abs(r["loss"] - w["loss"]) for r, w in zip(ranks[0]["steps"], ref))
+    d_norm = max(abs(r["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                 for r, w in zip(ranks[0]["steps"], ref))
+    d_params, d_noisy = 0.0, 0.0
+    for got, want, small in zip(pod, state["optimizer"].leaves, noisy):
+        d = (got - want.detach().cpu()).abs()
+        small = small.cpu()
+        d_params = max(d_params, d[~small].max().item() if (~small).any() else 0.0)
+        d_noisy = max(d_noisy, d.max().item())
+    del state, step
+    ok = (same and rows_ok and unequal_rows and d_loss <= 1e-5 and d_norm <= 1e-5
+          and d_params <= 1e-5 and d_noisy <= 2 * tcfg.learning_rate * 3
+          and all(r["backend"] == "gloo" and r["world_size"] == DP_SHARDS for r in ranks))
+    times = {f"rank {r['rank']}": {"step_ms": [s["step_ms"] for s in r["steps"]],
+                                   "reduce_ms": [s["reduce_ms"] for s in r["steps"]]}
+             for r in ranks}
+    RECORD["phases"]["dp_gloo"] = {
+        "config": repr(cfg), "card": smi, "ranks_identical": same, "rows_ok": rows_ok,
+        "unequal_rows": unequal_rows, "loss_max_abs": d_loss, "grad_norm_rel": d_norm,
+        "params_max_abs": d_params, "noisy_max_abs": d_noisy, "reference": ref,
+        "ranks": ranks, "times": times, "ok": ok}
+    log(f"[dp c] 2 ranks over gloo on one card, f32 L=64 ff_dropout {DP_DROPOUT}, accum 2, 3 "
+        f"steps: ranks byte-identical {same} ({len(ranks[0]['digests'])} tensors); against the "
+        f"single-process step on the global batch: loss |d|={d_loss:.2e} (1e-5), grad_norm "
+        f"rel={d_norm:.2e} (1e-5), params |d|={d_params:.2e} (1e-5; rounding-level entries "
+        f"{d_noisy:.2e}); valid tokens a rank {[[s['valid'] for s in r['steps']] for r in ranks]}"
+        f" {'ok' if ok else 'FAIL'}")
+    log(f"[dp c] step ms and all-reduce ms a rank (CUDA events, {smi}): " + "; ".join(
+        f"{k} steps {[round(x, 2) for x in v['step_ms']]}, all-reduce "
+        f"{[round(x, 3) for x in v['reduce_ms']]}" for k, v in times.items()))
+    if not ok:
+        fail("the gloo pod's ranks differ, or its steps depart from the single-process step "
+             "(phase 24c)")
+    return _merged(*(r["launches"] for r in ranks))
+
+
+def phase_data_parallel(smi, records=None):
+    """24: data-parallel training on the card. The workers of (b) and (c)
+    start with the CLI runs and end before phase 3 times a kernel
+    (`start_dp_workers`, `wait_dp_workers`: `records`); run alone, here.
+    Counts set to 0 before (a) and read after it; (b) and (c) add their
+    workers'. Returns the launches."""
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        RECORD["phases"][f"dp_{key}_s"] = time.perf_counter() - t
+        log(f"[time] dp {key}: {RECORD['phases'][f'dp_{key}_s']:.1f} s")
+        return result
+
+    running = {}
+    if records is None:
+        DP_WORK.mkdir(parents=True, exist_ok=True)
+        start_dp_workers(running)
+    launches = timed("a", phase_dp_sharded)
+    if records is None:
+        records = timed("wait", wait_dp_workers, running)
+    launches = _merged(launches, timed("b", phase_dp_nccl, records["dp_nccl_0"]))
+    launches = _merged(launches, timed("c", phase_dp_gloo, records, smi))
+    return {k: n for k, n in launches.items() if k.startswith(("flash_", "sparse_"))}
+
+
 SPARSE_LINE_CASES = ("pair axial L=384", "long n=4096")  # B5's timed rows in the kernels line
 
 
@@ -9301,7 +9719,7 @@ def kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows
     kernel once in the warm-up and once in the capture, the replays
     launching what the capture recorded; B3's forward from the SP request,
     its backward from the ring's gradient in f32 and in bf16; phase 12b's
-    1 counted e2e step and phase 13d's 1 counted reversible one add their
+    1 counted e2e step and phase 23c's 3 counted reversible ones a schedule add their
     B1f, dq and dkv launches, and so does phase 14c's bucketed CLI run
     (each bucket's warm-up and capture), phase 15a's dropout step (its
     eager steps, warm-up, capture and replays) and phase 15c's
@@ -9472,9 +9890,35 @@ def main():
         return result
 
     smi = phase_card()
-    clis = {}
-    phase_build(after=lambda: start_clis(clis))
+    clis, workers = {}, {}
+    # the parity phases' CPU arms on a thread of their own from here on, at
+    # a quarter of the cores (nvcc builds beside them): the host would
+    # otherwise wait on nvcc. The count is the process's: the main thread's
+    # CPU work runs at it too until the arms end and restore it
+    arms = concurrent.futures.ThreadPoolExecutor(1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 4))
+    start_cpu_arms(arms)
+    arms.submit(torch.set_num_threads, threads)
+
+    def after_cli_sources():
+        start_clis(clis)
+        start_dp_workers(workers)
+
+    try:
+        phase_build(after=after_cli_sources)
+        main_phases(smi, clis, workers, t0, timed_phase, seconds)
+    finally:
+        for proc, *_ in workers.values():  # a failed phase leaves no worker behind
+            proc.kill()
+        arms.shutdown(wait=False, cancel_futures=True)
+
+
+def main_phases(smi, clis, workers, t0, timed_phase, seconds):
+    """Phases 3 to 24 after the build, then the kernels line and the last
+    lines."""
     timed_phase("clis", wait_clis, clis)
+    dp_records = timed_phase("dp_workers", wait_dp_workers, workers)
     rows = timed_phase("kernels", phase_kernels)
     bwd_rows = timed_phase("bwd_kernels", phase_bwd_kernels)
     quant_rows = timed_phase("quant_kernels", phase_quant_kernels)
@@ -9489,8 +9933,7 @@ def main():
     timed_phase("full_atom", phase_full_atom)
     for name, n in timed_phase("e2e_train", phase_e2e_train).items():
         launches[name] = launches.get(name, 0) + n
-    for name, n in timed_phase("reversible", phase_reversible).items():
-        launches[name] = launches.get(name, 0) + n
+    timed_phase("reversible", phase_reversible)
     for name, n in timed_phase("relax_segmented_buckets", phase_relax_segmented_buckets).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in timed_phase("dropout_random_init", phase_dropout_random_init).items():
@@ -9512,6 +9955,8 @@ def main():
     for name, n in timed_phase("sp_train", phase_sp_train, smi).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in timed_phase("reversible_branch", phase_reversible_branch).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in timed_phase("data_parallel", phase_data_parallel, smi, dp_records).items():
         launches[name] = launches.get(name, 0) + n
     kernels = kernels_line(rows, bwd_rows, quant_rows, sparse_rows, lse_rows, lse_bwd_rows,
                            launches, dropout_rows, dropout_times)

@@ -61,7 +61,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "serving.admission", "serving.frontdoor", "serving.featurize",
                  "serving.journal", "serving.artifact_store", "serving.cascade",
                  "reliability.health", "reliability.retry_budget", "telemetry.ops_plane",
-                 "serving.sp_arm", "serving.autoscale"):
+                 "serving.sp_arm", "serving.autoscale", "parallel.distributed",
+                 "parallel.rules", "parallel.sharding", "parallel.train"):
         assert f"alphafold2_tpu_torch.{name}" in res["modules"]
     assert res["bad"] == []
 

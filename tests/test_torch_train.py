@@ -396,8 +396,6 @@ def test_train_pre_cli_on_the_cpu(capsys):
 NOT_EXPORTED = {
     "CheckpointManager": "A12-orbax", "restore_or_init": "A12-orbax",
     "abstract_like": "A12-orbax",
-    "process_shard": "A13-dp", "shard_items": "A13-dp", "per_process_microbatch_fn": "A13-dp",
-    "assemble_global_batch": "A13-dp",
     "sidechainnet_batches": "--data sidechainnet (not queued)",
     "sidechainnet_structure_batches": "--data sidechainnet (not queued)",
 }
